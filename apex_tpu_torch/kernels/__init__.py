@@ -22,15 +22,20 @@ from apex_tpu_torch.kernels.decode_attention import (
 )
 from apex_tpu_torch.kernels.flash_attention import (
     flash_attention_bsh,
+    flash_attention_bsh_bwd,
+    flash_attention_bsh_bwd_plain,
     flash_attention_bsh_fwd,
     flash_attention_bsh_plain,
 )
+from apex_tpu_torch.kernels.flat_ops import adam_flat, adam_flat_plain
 
 #: every kernel wrapper, by the name its launch count is reported under
 KERNEL_WRAPPERS = {
     "flash_attention_bsh": flash_attention_bsh_fwd,
     "decode_write_column": write_column,
     "decode_attention": attend_cache,
+    "flash_attention_bsh_bwd": flash_attention_bsh_bwd,
+    "adam_flat": adam_flat,
 }
 
 
@@ -46,11 +51,15 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNEL_WRAPPERS",
+    "adam_flat",
+    "adam_flat_plain",
     "attend_cache",
     "attend_cache_plain",
     "decode_attention",
     "decode_attention_plain",
     "flash_attention_bsh",
+    "flash_attention_bsh_bwd",
+    "flash_attention_bsh_bwd_plain",
     "flash_attention_bsh_fwd",
     "flash_attention_bsh_plain",
     "launch_counts",

@@ -49,6 +49,7 @@ KERNEL_HEAD_DIM = 64
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_float = ctypes.c_float
+_c_longlong = ctypes.c_longlong
 
 #: C entry points: name → argtypes (every one returns a cudaError_t)
 _SIGNATURES = {
@@ -56,6 +57,14 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
         _c_void_p],
+    "apex_tpu_torch_flash_bwd_bsh": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
+        _c_void_p],
+    "apex_tpu_torch_adam_flat": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_longlong, _c_int, _c_int, _c_int, _c_int, _c_void_p],
     "apex_tpu_torch_decode_write_column": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],

@@ -1,4 +1,4 @@
-"""GPT — the serving slice of ``apex_tpu/models/gpt.py`` in PyTorch.
+"""GPT — the serving and training slices of ``apex_tpu/models/gpt.py``.
 
 The model is plain functions over a parameter dict that keeps the JAX
 tree's names and shapes (layer parameters stacked on a leading layer
@@ -7,9 +7,12 @@ checkpoint crosses over by :func:`params_from_numpy` with no remapping.
 Layout is batch-major ``[batch, seq, hidden]``, the flash kernel's
 operand layout.
 
-What this slice carries: the forward (:func:`logits`), bulk prefill
-(:func:`prefill`, :func:`prefill_at`, :func:`prefill_many`), KV-cache
-decode (:func:`decode_step`, :func:`decode_steps`), the cache seams
+What the port carries: the forward (:func:`logits`), the training loss
+(:func:`loss`, :func:`hidden_states_and_aux`, the chunked cross entropy
+of :func:`_ce_of_hidden`, the layer loop :func:`_scan_blocks` under
+``remat`` / ``remat_policy``), bulk prefill (:func:`prefill`,
+:func:`prefill_at`, :func:`prefill_many`), KV-cache decode
+(:func:`decode_step`, :func:`decode_steps`), the cache seams
 (:func:`init_cache`, :func:`cache_insert_slot(s)`) and :func:`generate`,
 the solo oracle of the serving engine. The port has no mesh and runs
 tp=1. Every function has the JAX package's tp=1 semantics with two
@@ -30,23 +33,48 @@ materialised-scores expression of ``_xla_attn_probs``; ``"auto"`` is
 CUDA at every horizon and ``"xla"`` on the CPU. On the CPU an explicit
 ``"flash"``/``"kernel"`` runs the kernels' plain versions.
 
+Remat: ``remat=True`` wraps each layer in ``torch.utils.checkpoint``
+(non-reentrant). ``remat_policy=None`` saves nothing inside the layer,
+so the backward replays all of it, the flash forward included; a named
+policy is a selective-checkpoint policy (:func:`_remat_policy`) that
+saves the outputs the JAX policy names — the flash forward op's
+``(out, lse)`` under ``"qkv_fc1_attn"``/``"fc1_attn"``, so the backward
+never re-runs that kernel.
+
+The stacked layer parameters are unbound once per forward
+(:func:`_layers`), never indexed per layer: under autograd each index
+would write a zero tensor the size of the whole stack in the backward,
+where the backward of ``unbind`` is one ``stack``.
+
 Configuration fields of later slices raise a ``ValueError`` naming the
 slice (see :class:`GPTConfig`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence, Union
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from apex_tpu_torch import _tree
 from apex_tpu_torch._capabilities import resolve_device
 from apex_tpu_torch.kernels import decode_attention, flash_attention_bsh
+from apex_tpu_torch.kernels.flash_attention import FLASH_FWD_OP
 from apex_tpu_torch.serving import sampling as _sampling
+from apex_tpu_torch.transformer.tensor_parallel import (
+    vocab_parallel_cross_entropy,
+)
 
 #: sentinel in per-slot ``eos`` vectors: no stop token for this row
 NO_EOS = -1
@@ -55,14 +83,14 @@ NO_EOS = -1
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """Model config. Every field name of the JAX ``gpt.GPTConfig`` is
-    here with the same default; dtype fields hold torch dtypes. The
-    training-only knobs (``remat``, ``remat_policy``, ``ce_chunk``,
-    ``scan_unroll``) have no effect on this forward-only slice. Options
-    that belong to later slices of the port raise at construction:
-    context parallelism and FSDP (the distributed slice), experts (the
-    MoE slice), quantized KV caches, the Pallas LayerNorm and the fused
-    cross entropy (their kernels' slices), and the head-major flash
-    layout / chunked XLA attention."""
+    here with the same default; dtype fields hold torch dtypes.
+    ``remat``, ``remat_policy`` and ``ce_chunk`` shape the training loss
+    as in JAX; ``scan_unroll`` has no counterpart (the layer loop is a
+    Python loop). Options that belong to later slices of the port raise
+    at construction: context parallelism and FSDP (the distributed
+    slice), experts (the MoE slice), quantized KV caches, the Pallas
+    LayerNorm, the fused cross entropy (the xentropy kernel's slice),
+    and the head-major flash layout / chunked XLA attention."""
 
     vocab_size: int = 50304
     hidden_size: int = 1024
@@ -114,8 +142,7 @@ class GPTConfig:
         if self.ln_impl == "pallas":
             later.append("ln_impl='pallas' (the LayerNorm-kernel slice)")
         if self.ce_impl == "fused":
-            later.append("ce_impl='fused' (the training slice's xentropy "
-                         "kernel)")
+            later.append("ce_impl='fused' (the xentropy kernel's slice)")
         if self.attn_impl == "xla_chunked":
             later.append("attn_impl='xla_chunked' (the long-context "
                          "slice)")
@@ -147,6 +174,12 @@ class GPTConfig:
         if self.hidden_size % self.num_heads:
             raise ValueError("hidden_size must divide by num_heads")
         return self.hidden_size // self.num_heads
+
+    def param_count(self) -> int:
+        h, f, L = self.hidden_size, self.ffn, self.num_layers
+        per_layer = 4 * h + (h * 3 * h + 3 * h) + (h * h + h)
+        per_layer += (h * f + f) + (f * h + h)
+        return self.vocab_size * h + self.seq_len * h + L * per_layer + 2 * h
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +272,12 @@ def _params_device(params) -> torch.device:
     return params["embedding"]["word"]["table"].device
 
 
-def _layer(params, l: int):
-    return _tree_map(lambda x: x[l], params["layers"])
+def _layers(params) -> List[Dict[str, Any]]:
+    """The per-layer parameter dicts, from ONE ``unbind`` of each stacked
+    leaf (whose backward is one ``stack``)."""
+    unbound = _tree_map(lambda x: x.unbind(0), params["layers"])
+    return [_tree_map(lambda t: t[l], unbound)
+            for l in range(_num_layers(params))]
 
 
 def _num_layers(params) -> int:
@@ -285,11 +322,30 @@ def _layer_norm(cfg: GPTConfig, h, scale, bias):
     return (y * scale.float() + bias.float()).to(h.dtype)
 
 
+#: the remat name of the matmuls being issued (JAX's ``checkpoint_name``),
+#: per thread: a checkpoint's replay runs the layer, and so sets it, in the
+#: thread that replays
+_REMAT_NAME = threading.local()
+
+
+@contextlib.contextmanager
+def _remat_name(name: str):
+    """Names the matmuls issued inside for :func:`_remat_policy`."""
+    prev = getattr(_REMAT_NAME, "value", None)
+    _REMAT_NAME.value = name
+    try:
+        yield
+    finally:
+        _REMAT_NAME.value = prev
+
+
 def _qkv_project(cfg: GPTConfig, p, x):
     """The three slab matmuls of the ``[h, 3, h]`` fused QKV weight →
     ``(q, k, v)``, each ``[..., h]`` in the flash kernel's layout."""
-    w, bias = p["kernel"], p["bias"]
-    return tuple(torch.matmul(x, w[:, i]) + bias[i] for i in range(3))
+    ws, bs = p["kernel"].unbind(1), p["bias"].unbind(0)
+    with _remat_name("attn_qkv"):
+        ys = [torch.matmul(x, w) for w in ws]
+    return tuple(y + b for y, b in zip(ys, bs))
 
 
 def _attn_impl(cfg: GPTConfig, device: torch.device) -> str:
@@ -348,8 +404,9 @@ def _xla_attn_probs(cfg: GPTConfig, q, k, mask):
 
 
 def _mlp(cfg: GPTConfig, p, h):
-    y = torch.matmul(h, p["fc1"]["kernel"]) + p["fc1"]["bias"]
-    y = F.gelu(y, approximate="tanh")
+    with _remat_name("mlp_fc1"):
+        y = torch.matmul(h, p["fc1"]["kernel"])
+    y = F.gelu(y + p["fc1"]["bias"], approximate="tanh")
     return torch.matmul(y, p["fc2"]["kernel"]) + p["fc2"]["bias"]
 
 
@@ -374,17 +431,88 @@ def _embed(cfg: GPTConfig, params, tokens):
     """tokens ``[b, s]`` → entry activation ``[b, s, hidden]``."""
     table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
     pos = params["embedding"]["position"][: tokens.shape[1]]
-    return table[tokens.long()] + pos[None].to(cfg.compute_dtype)
+    return F.embedding(tokens.long(), table) + pos[None].to(cfg.compute_dtype)
+
+
+#: what each remat policy saves (``_remat_policy``'s names in JAX);
+#: None: every matmul without batch dims ("dots")
+_POLICY_SAVES = {
+    "dots": None,
+    "qkv_fc1": ("attn_qkv", "mlp_fc1"),
+    "fc1": ("mlp_fc1",),
+    "qkv_fc1_attn": ("attn_qkv", "mlp_fc1", "flash"),
+    "fc1_attn": ("mlp_fc1", "flash"),
+}
+
+
+def _remat_policy(cfg: GPTConfig):
+    """The ``context_fn`` of a layer's ``checkpoint`` for
+    ``cfg.remat_policy``, or None (save nothing: the whole layer replays).
+
+    A selective-checkpoint policy sees ops, not JAX's named values:
+    ``"flash"`` (JAX's ``flash_out``/``flash_lse``) is the flash forward
+    op, whose ``(out, lse)`` is saved whole; ``"attn_qkv"`` and
+    ``"mlp_fc1"`` are the matmuls that ``_qkv_project`` and ``_mlp`` issue
+    under :func:`_remat_name`. The saved values are the matmul outputs,
+    the bias adds replay."""
+    if cfg.remat_policy is None:
+        return None
+    if cfg.remat_policy in ("qkv_fc1_attn", "fc1_attn") and (
+            cfg.attn_impl != "flash" or cfg.context_parallel):
+        raise ValueError(
+            f"remat_policy {cfg.remat_policy!r} requires attn_impl='flash' "
+            "(without context_parallel); use 'qkv_fc1'/'fc1' otherwise")
+    if cfg.remat_policy not in _POLICY_SAVES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    saves = _POLICY_SAVES[cfg.remat_policy]
+    mm = torch.ops.aten.mm.default
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is FLASH_FWD_OP:
+            keep = saves is not None and "flash" in saves
+        elif op is mm:
+            keep = saves is None or getattr(_REMAT_NAME, "value",
+                                            None) in saves
+        else:
+            keep = False
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def _scan_blocks(cfg: GPTConfig, h, layers):
+    """``h`` through the per-layer params ``layers`` → ``(h, aux_sum)``
+    (aux is the MoE term, 0 for the dense model). With ``cfg.remat`` and
+    gradients to take, each layer runs under ``checkpoint`` with the
+    policy of :func:`_remat_policy`."""
+    body = lambda layer_p, x: _block(cfg, _cast_layer(cfg, layer_p), x)
+    needs_grad = torch.is_grad_enabled() and (h.requires_grad or any(
+        t.requires_grad for t in _tree.leaves(layers)))
+    if cfg.remat and needs_grad:
+        ctx_fn = _remat_policy(cfg)
+        kw = {} if ctx_fn is None else {"context_fn": ctx_fn}
+        for layer_p in layers:
+            h = checkpoint(body, layer_p, h, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+    else:
+        for layer_p in layers:
+            h = body(layer_p, h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def hidden_states_and_aux(cfg: GPTConfig, params, tokens):
+    """tokens ``[b, s]`` → (final-LN hidden ``[b, s, hidden]`` in compute
+    dtype, summed MoE aux loss — 0 for the dense model)."""
+    h, aux = _scan_blocks(cfg, _embed(cfg, params, tokens), _layers(params))
+    return _layer_norm(cfg, h, params["final_ln"]["scale"],
+                       params["final_ln"]["bias"]), aux
 
 
 def hidden_states(cfg: GPTConfig, params, tokens):
     """tokens ``[b, s]`` → final-LN hidden ``[b, s, hidden]`` in compute
     dtype (sequence parallelism is a no-op at tp=1)."""
-    h = _embed(cfg, params, tokens)
-    for l in range(_num_layers(params)):
-        h = _block(cfg, _cast_layer(cfg, _layer(params, l)), h)
-    return _layer_norm(cfg, h, params["final_ln"]["scale"],
-                       params["final_ln"]["bias"])
+    return hidden_states_and_aux(cfg, params, tokens)[0]
 
 
 def logits(cfg: GPTConfig, params, tokens):
@@ -393,6 +521,51 @@ def logits(cfg: GPTConfig, params, tokens):
     h = hidden_states(cfg, params, tokens)
     table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
     return torch.matmul(h, table.t())
+
+
+def _ce_of_hidden(cfg: GPTConfig, params, h, targets_bs):
+    """Mean CE from final hidden states ``h [b, s, hidden]`` against
+    ``targets_bs [b, s]``, in fp32 logits against the tied table. With
+    ``cfg.ce_chunk`` the sequence is cut into chunks, each under
+    ``checkpoint``: the forward keeps only each chunk's loss sum and the
+    backward recomputes that chunk's logits, so peak memory is
+    O(chunk * b * vocab) instead of O(s * b * vocab)."""
+    table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
+    b, s = targets_bs.shape
+    chunk = cfg.ce_chunk
+    if chunk > 0 and s % chunk:
+        raise ValueError(
+            f"ce_chunk={chunk} must divide the (SP-local) sequence "
+            f"length {s}")
+    if cfg.ce_impl != "xla":
+        raise ValueError(f"unknown ce_impl {cfg.ce_impl!r}")
+
+    def ce_sum(hb, tb, tab):
+        lg = torch.matmul(hb, tab.t()).float()
+        return vocab_parallel_cross_entropy(lg, tb, 0.0).sum()
+
+    if chunk <= 0:
+        return ce_sum(h, targets_bs, table) / (s * b)
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                         or table.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        hb, tb = h[:, c0:c0 + chunk], targets_bs[:, c0:c0 + chunk]
+        tot = tot + (checkpoint(ce_sum, hb, tb, table, use_reentrant=False,
+                                preserve_rng_state=False)
+                     if remat else ce_sum(hb, tb, table))
+    return tot / (s * b)
+
+
+def loss(cfg: GPTConfig, params, tokens, targets):
+    """Mean next-token cross entropy over the batch, fp32 logits in
+    vocab-parallel CE (tp=1). ``targets [b, s]``."""
+    if cfg.sequence_parallel:
+        raise ValueError(
+            "sequence_parallel is not supported by apex_tpu_torch yet "
+            "(the distributed slice)")
+    h, _ = hidden_states_and_aux(cfg, params, tokens)
+    return _ce_of_hidden(cfg, params, h, targets)
 
 
 # ---------------------------------------------------------------------------
@@ -487,9 +660,8 @@ def decode_step(cfg: GPTConfig, params, cache, token, pos):
     pos_e = params["embedding"]["position"][pos.long()]
     x = (table[token.long()] + pos_e.to(cfg.compute_dtype)).to(
         cfg.compute_dtype)
-    for l in range(_num_layers(params)):
-        x = _decode_layer(cfg, _cast_layer(cfg, _layer(params, l)), x,
-                          cache[l], pos)
+    for l, layer_p in enumerate(_layers(params)):
+        x = _decode_layer(cfg, _cast_layer(cfg, layer_p), x, cache[l], pos)
     return _lm_head(cfg, params, x), cache
 
 
@@ -592,8 +764,8 @@ def _prefill_states(cfg: GPTConfig, params, prompt, max_len: int):
         raise ValueError(f"prompt {p_len} exceeds cache max_len {max_len}")
     h = _embed(cfg, params, prompt)
     cache = init_cache(cfg, params, b, max_len)
-    for l in range(_num_layers(params)):
-        h, (k, v) = _block(cfg, _cast_layer(cfg, _layer(params, l)), h,
+    for l, layer_p in enumerate(_layers(params)):
+        h, (k, v) = _block(cfg, _cast_layer(cfg, layer_p), h,
                            return_kv=True)
         cache[l, 0, :, :, :p_len] = k
         cache[l, 1, :, :, :p_len] = v

@@ -24,10 +24,33 @@ Phases, in order; any failed check exits non-zero:
 6. profile — ``torch.profiler`` over a window of decode chunks: the
    device's busy share and the kernels that take its time.
 
+The serving engine and weights are freed; then the training slice:
+
+7. training kernels vs plain — flash forward and backward at the train
+   step's shapes (b=16, s=1024, hidden 1024, 16 heads, bf16, causal),
+   the backward also at ragged small shapes in fp32 and bf16, and
+   ``adam_flat`` on one fp32 group of the 355M model's padded size (and
+   a small bf16 group, with and without ``skip``), timed as in phase 3;
+8. gradients — one gradient of the training loss at 355M width, batch 4,
+   through the kernels (bf16) and through the "xla" attention in bf16
+   and fp32 (the reference): the kernel path's error must stay within 3x
+   the bf16 "xla" path's;
+9. the train step — bench.py main()'s 355M step (batch 16, seq 1024,
+   remat_policy="qkv_fc1_attn", ce_chunk 512, bf16, flash) through
+   ``make_train_step``, one warm-up and 10 timed steps with
+   ``fused_adam(1e-4, layout="flat")`` and then with ``layout="tree"``:
+   tokens/s, step time, peak memory and every step's loss, and per step
+   24 launches of flash forward and of flash backward, and one of
+   ``adam_flat`` (flat) or none (tree);
+10. profile — ``torch.profiler`` over 2 train steps of each layout:
+    device time per step by kernel category, and the packing's share.
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
-wrapper's host cost included.
+wrapper's host cost included. Two library yardsticks are eager: SDPA's
+forward plus backward less its forward (the flash backward's) and
+``torch.optim.AdamW(fused=True)``'s step on one flat tensor (Adam's).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
@@ -36,7 +59,9 @@ standard library and ``apex_tpu_torch``.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,13 +71,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-#: NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor rate
+#: NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor rate and
+#: the fp32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 
 #: the serving path's shapes (bench.py serve(): 355M, 8 slots, horizon
 #: 192, prompts <= 64 padded to power-of-two buckets)
 HIDDEN, HEADS, HEAD_DIM, SLOTS, HORIZON = 1024, 16, 64, 8, 192
+
+#: the training path's shapes (bench.py main(): batch 16 of seq 1024) and
+#: its timed steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
+#: timing at the training shapes, where one call takes milliseconds
+TRAIN_TIMING = dict(reps=5, inner=4)
+#: adam_flat kernel vs plain in fp32: the same expression, rounded in
+#: another order (fused multiply-adds)
+ADAM_TOL = dict(atol=1e-6, rtol=1e-5)
+#: flat vs tree layout: the same update, rounded at other places, and
+#: bf16 training carries an ulp forward; the per-step losses of the two
+#: runs may differ by this much (they fall by about 0.8 over the run). The
+#: first step's losses, before any update, must be equal.
+LAYOUT_LOSS_BAND = 5e-2
 
 #: tolerances of kernel vs plain, both on the card in the working type.
 #: bf16 outputs: the kernel and the plain version both accumulate in
@@ -61,6 +102,14 @@ HIDDEN, HEADS, HEAD_DIM, SLOTS, HORIZON = 1024, 16, 64, 8, 192
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 #: fp32 statistics (lse) and fp32 runs differ only by summation order
 FP32_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+def grad_tol(ref: torch.Tensor) -> dict:
+    """bf16 gradients at the train shape: entries there are about 0.05,
+    so a fixed atol of 2e-2 would pass a kernel that dropped a key tile.
+    The limit is 1e-2 of the reference's RMS plus BF16_TOL's rtol."""
+    rms = float(ref.float().pow(2).mean().sqrt())
+    return dict(atol=1e-2 * rms, rtol=BF16_TOL["rtol"])
 
 
 class SmokeFailure(RuntimeError):
@@ -125,9 +174,10 @@ def eager_ms(fn, *, reps: int = 15, inner: int = 20) -> float:
     return statistics.median(per)
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = n_flops / BF16_FLOPS_PER_S * 1e3
+    t_f = n_flops / flops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -567,6 +617,421 @@ def phase_profile(cfg, engine):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the training path's kernels vs plain, at its shapes
+# ---------------------------------------------------------------------------
+
+def _heads_delta(out, do):
+    """``delta = sum_d(out * do)`` per head, fp32 ``[b, heads, s]`` (what
+    the flash backward's autograd formula hands the backward op)."""
+    b, s, _ = out.shape
+    return (out.float() * do.float()).view(b, s, HEADS, HEAD_DIM).sum(
+        -1).transpose(1, 2).contiguous()
+
+
+def phase_train_kernels(cfg):
+    """The flash forward and backward and ``adam_flat`` against their
+    plain versions on the card, at the train step's shapes, with timings.
+    Returns ``{name: row}`` for the two new kernels and the forward's
+    training-shape numbers."""
+    from apex_tpu_torch.kernels import (
+        adam_flat,
+        adam_flat_plain,
+        flash_attention_bsh_bwd,
+        flash_attention_bsh_bwd_plain,
+        flash_attention_bsh_fwd,
+        flash_attention_bsh_plain,
+        reset_launch_counts,
+    )
+    from apex_tpu_torch.kernels.flat_ops import adam_scalars
+    from apex_tpu_torch.multi_tensor import pad_to
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def inputs(b, s, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(b, s, HIDDEN, generator=g, device=dev,
+                            dtype=dtype) for _ in range(4)]
+
+    def bwd_both(q, k, v, do):
+        out, lse = flash_attention_bsh_fwd(q, k, v, num_heads=HEADS,
+                                           causal=True)
+        delta = _heads_delta(out, do)
+        got = flash_attention_bsh_bwd(q, k, v, do, lse, delta,
+                                      num_heads=HEADS, causal=True)
+        want = flash_attention_bsh_bwd_plain(q, k, v, do, lse, delta,
+                                             num_heads=HEADS, causal=True)
+        torch.cuda.synchronize()
+        return got, want, (lse, delta)
+
+    # -- backward at small shapes (s not a multiple of the 64-row tile),
+    #    and in fp32 at the train step's sequence length (16 key tiles)
+    worst_small = {}
+    for dtype, tol in ((torch.float32, FP32_TOL), (bf16, BF16_TOL)):
+        worst = 0.0
+        shapes = ((1, 8), (2, 96), (2, 200), (1, 256))
+        if dtype == torch.float32:
+            shapes += ((2, TRAIN_SEQ),)
+        for b, s in shapes:
+            got, want, _ = bwd_both(*inputs(b, s, dtype, seed=b * s))
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                check(bool(torch.isfinite(a).all()),
+                      f"flash bwd {dtype} b={b} s={s}: non-finite {name}")
+                check(close(a, w, tol), f"flash bwd {dtype} b={b} s={s}: "
+                      f"{name} err {max_err(a, w)}")
+                worst = max(worst, max_err(a, w))
+        worst_small[str(dtype).replace("torch.", "")] = worst
+    log(f"flash_attention_bsh_bwd at s in 8, 96, 200, 256 (and fp32 b=2 "
+        f"s={TRAIN_SEQ}): max|grad-plain| {worst_small}")
+
+    # -- the train step's shape: forward, then backward
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v, do = inputs(b, s, bf16, seed=17)
+    out, lse = flash_attention_bsh_fwd(q, k, v, num_heads=HEADS, causal=True)
+    ref, ref_lse = flash_attention_bsh_plain(q, k, v, num_heads=HEADS,
+                                             causal=True)
+    torch.cuda.synchronize()
+    check(close(out, ref, BF16_TOL) and close(lse, ref_lse, FP32_TOL),
+          f"flash fwd b={b} s={s}: out err {max_err(out, ref)}, lse err "
+          f"{max_err(lse, ref_lse)}")
+    fwd_err = max_err(out, ref)
+    del ref, ref_lse
+    got, want, (lse, delta) = bwd_both(q, k, v, do)
+    errs = [max_err(a, w) for a, w in zip(got, want)]
+    atols = []
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        tol = grad_tol(w)
+        atols.append(tol["atol"])
+        check(close(a, w, tol), f"flash bwd b={b} s={s}: {name} err "
+              f"{max_err(a, w)} over atol {tol['atol']:.3e}")
+    del got, want
+    log(f"flash at b={b} s={s} bf16: fwd max|out-plain|={fwd_err:.3e}; "
+        f"bwd max|dq,dk,dv - plain|={errs} (atol 1e-2 x rms = "
+        f"{[f'{x:.3e}' for x in atols]}, rtol 2e-2)")
+
+    hd = lambda t: t.view(b, s, HEADS, HEAD_DIM).transpose(1, 2)
+    qh, kh, vh = (hd(t).detach().requires_grad_(True) for t in (q, k, v))
+    fa = lambda: flash_attention_bsh_fwd(q, k, v, num_heads=HEADS,
+                                         causal=True)
+    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                     is_causal=True)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        torch.autograd.grad(o, (qh, kh, vh), hd(do))
+
+    pairs = b * HEADS * s * (s + 1) / 2          # causal (row, key) pairs
+    act = b * s * HIDDEN * 2                     # one bf16 [b, s, hidden]
+    stats = b * HEADS * s * 4                    # one fp32 [b, heads, s]
+    fb, fby = bound(4 * act + stats, 4 * HEAD_DIM * pairs)
+    fwd_train = dict(
+        ms=time_ms(fa, **TRAIN_TIMING), eager_ms=eager_ms(fa, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_plain(
+            q, k, v, num_heads=HEADS, causal=True), **TRAIN_TIMING),
+        library_ms=time_ms(lib_fwd, **TRAIN_TIMING), bound_ms=fb,
+        bound_by=fby, max_abs_err=fwd_err,
+        shape=f"b={b} s={s} hidden={HIDDEN} heads={HEADS} bf16 causal")
+    # five products over the causal pairs: S, dP, dV, dK, dQ
+    bb, bby = bound(7 * act + 2 * stats, 5 * 2 * HEAD_DIM * pairs)
+    fbwd = lambda: flash_attention_bsh_bwd(q, k, v, do, lse, delta,
+                                           num_heads=HEADS, causal=True)
+    lib_fwd_eager = eager_ms(lib_fwd, **TRAIN_TIMING)
+    rows["flash_attention_bsh_bwd"] = dict(
+        name="flash_attention_bsh_bwd", route="cuda",
+        source="apex_tpu_torch/csrc/flash_attention_bsh_bwd.cu",
+        replaces="apex_tpu/kernels/flash_attention.py:1060",
+        max_abs_err=max(errs + list(worst_small.values())),
+        ms=time_ms(fbwd, **TRAIN_TIMING),
+        eager_ms=eager_ms(fbwd, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_bwd_plain(
+            q, k, v, do, lse, delta, num_heads=HEADS, causal=True),
+            **TRAIN_TIMING),
+        bound_ms=bb, bound_by=bby,
+        library_ms=eager_ms(lib_fwd_bwd, **TRAIN_TIMING) - lib_fwd_eager,
+        shape=fwd_train["shape"])
+    del q, k, v, do, qh, kh, vh, lse, delta
+
+    # -- adam_flat: a small bf16 group (with skip), then the 355M group
+    g = torch.Generator(device=dev).manual_seed(23)
+    hp = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              bias_correction1=1 - 0.9 ** 3, bias_correction2=1 - 0.999 ** 3,
+              grad_scale=0.5)
+    scalars = adam_scalars(*hp.values(), dev)
+
+    def group(n, p_dtype):
+        p = (torch.randn(n, generator=g, device=dev) * 0.02).to(p_dtype)
+        gr = torch.randn(n, generator=g, device=dev) * 1e-3
+        m = torch.randn(n, generator=g, device=dev) * 1e-3
+        v = torch.rand(n, generator=g, device=dev) * 1e-6
+        return p, gr, m, v
+
+    def adam_both(p, gr, m, v, **flags):
+        pk, mk, vk, pp, mp, vp = (t.clone() for t in (p, m, v, p, m, v))
+        adam_flat([pk], [gr], [mk], [vk], **hp, **flags)
+        adam_flat_plain([pp], [gr], [mp], [vp], scalars, **flags)
+        torch.cuda.synchronize()
+        return (pk, mk, vk), (pp, mp, vp)
+
+    p, gr, m, v = group(4 * 65536, bf16)
+    (pk, mk, vk), (pp, mp, vp) = adam_both(p, gr, m, v)
+    check(close(pk, pp, BF16_TOL) and close(mk, mp, ADAM_TOL)
+          and close(vk, vp, ADAM_TOL),
+          f"adam_flat bf16 params: errs {max_err(pk, pp)}, "
+          f"{max_err(mk, mp)}, {max_err(vk, vp)}")
+    before = [t.clone() for t in (pk, mk, vk)]
+    adam_flat([pk], [gr], [mk], [vk], **hp,
+              skip=torch.ones((), dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b_) for a, b_ in zip((pk, mk, vk), before)),
+          "adam_flat: skip=True changed a buffer")
+    # the options the train step leaves at their defaults
+    for flags in (dict(grad_averaging=False),
+                  dict(adam_w_mode=False, out_is_delta=True)):
+        got, want = adam_both(*group(4 * 65536, torch.float32), **flags)
+        check(all(close(a, w, ADAM_TOL) for a, w in zip(got, want)),
+              f"adam_flat {flags}: errs "
+              f"{[max_err(a, w) for a, w in zip(got, want)]}")
+
+    n = pad_to(cfg.param_count())
+    p, gr, m, v = group(n, torch.float32)
+    (pk, mk, vk), (pp, mp, vp) = adam_both(p, gr, m, v)
+    adam_errs = [max_err(a, w) for a, w in ((pk, pp), (mk, mp), (vk, vp))]
+    check(close(pk, pp, ADAM_TOL) and close(mk, mp, ADAM_TOL)
+          and close(vk, vp, ADAM_TOL), f"adam_flat n={n}: errs {adam_errs}")
+    log(f"adam_flat n={n} fp32: max|p,m,v - plain|={adam_errs} (tol "
+        f"atol=1e-6 rtol=1e-5); bf16 group, skip, grad_averaging=False "
+        f"and L2 mode with out_is_delta ok")
+    del pp, mp, vp, before
+    step_k = lambda: adam_flat([pk], [gr], [mk], [vk], **hp)
+    # AdamW's fused step on one flat parameter holding the same values
+    w = torch.nn.Parameter(p.clone())
+    w.grad = gr.clone()
+    lib = torch.optim.AdamW([w], lr=1e-4, weight_decay=0.01, fused=True)
+    # per element: read p, g, m, v and write p, m, v (fp32); ~17 flops
+    ab, aby = bound(28 * n, 17 * n, FP32_FLOPS_PER_S)
+    rows["adam_flat"] = dict(
+        name="adam_flat", route="cuda",
+        source="apex_tpu_torch/csrc/flat_ops.cu",
+        replaces="apex_tpu/kernels/flat_ops.py:260",
+        max_abs_err=max(adam_errs),
+        ms=time_ms(step_k, **TRAIN_TIMING),
+        eager_ms=eager_ms(step_k, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: adam_flat_plain(
+            [p], [gr], [m], [v], scalars), **TRAIN_TIMING),
+        bound_ms=ab, bound_by=aby,
+        library_ms=eager_ms(lib.step, **TRAIN_TIMING),
+        shape=f"one fp32 group of n={n} (355M params, padded)")
+    del p, gr, m, v, pk, mk, vk, w, lib
+    for r in list(rows.values()) + [dict(fwd_train, name="flash_attention_"
+                                                          "bsh (train)")]:
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}) at {r['shape']}")
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return rows, fwd_train
+
+
+# ---------------------------------------------------------------------------
+# phase 8: gradients at 355M width, kernels vs the materialised scores
+# ---------------------------------------------------------------------------
+
+def _loss_grads(cfg, params, tok, tgt):
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.models import gpt
+
+    leaves, spec = _tree.flatten(params)
+    diff = [x.detach().requires_grad_(True) for x in leaves]
+    loss = gpt.loss(cfg, _tree.unflatten(spec, diff), tok, tgt)
+    grads = torch.autograd.grad(loss, diff)
+    return float(loss.detach()), [g_.float() for g_ in grads]
+
+
+def phase_grads(cfg, params, tok, tgt):
+    """One gradient of the loss on the batch's first 4 rows through the
+    kernels (bf16, the train step's remat policy), the "xla" attention in
+    bf16 and the "xla" attention in fp32 (the reference), on the same
+    weights. Errors against the reference: the largest absolute
+    difference over every gradient element, and the relative L2 norm of
+    the difference over all gradients. The band: each of the kernel
+    path's at most 3x the bf16 "xla" path's."""
+    import dataclasses
+
+    xla = dict(attn_impl="xla", remat_policy="qkv_fc1")
+    paths = {"kernel": cfg, "xla": dataclasses.replace(cfg, **xla),
+             "fp32": dataclasses.replace(cfg, **xla,
+                                         compute_dtype=torch.float32)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok, tgt = tok[:4], tgt[:4]
+    got = {name: _loss_grads(c, params, tok, tgt)
+           for name, c in paths.items()}
+    ref = got["fp32"][1]
+    norm = float(torch.sqrt(sum((r_ * r_).sum() for r_ in ref)))
+
+    def errs(gs):
+        mx = max(max_err(a, r_) for a, r_ in zip(gs, ref))
+        l2 = float(torch.sqrt(sum(((a - r_) ** 2).sum()
+                                  for a, r_ in zip(gs, ref)))) / norm
+        return mx, l2
+
+    (k_mx, k_l2), (x_mx, x_l2) = errs(got["kernel"][1]), errs(got["xla"][1])
+    losses = {name: v[0] for name, v in got.items()}
+    log(f"grads at 355M, batch 4: losses {losses}; vs fp32: kernel max "
+        f"{k_mx:.4e} relL2 {k_l2:.4e}, bf16 xla max {x_mx:.4e} relL2 "
+        f"{x_l2:.4e}; fp32 grad norm {norm:.4f}")
+    for name, (_, gs) in got.items():
+        check(all(bool(torch.isfinite(g_).all()) for g_ in gs),
+              f"grads {name}: non-finite")
+    check(k_mx <= 3 * x_mx, f"grads: kernel max err {k_mx} > 3 x xla {x_mx}")
+    check(k_l2 <= 3 * x_l2, f"grads: kernel relL2 {k_l2} > 3 x xla {x_l2}")
+    return dict(kernel_max=k_mx, kernel_rel_l2=k_l2, xla_max=x_mx,
+                xla_rel_l2=x_l2)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the train step; phase 10: where its time goes
+# ---------------------------------------------------------------------------
+
+def train_config():
+    """bench.py main()'s on-chip configuration: GPT-2 355M with selective
+    remat (``qkv_fc1_attn``), chunked cross entropy, bf16, flash."""
+    from apex_tpu_torch.models import gpt
+
+    return gpt.GPTConfig(
+        vocab_size=50304, hidden_size=1024, num_layers=24, num_heads=16,
+        seq_len=1024, remat=True, ce_chunk=512, compute_dtype=torch.bfloat16,
+        attn_impl="flash", ln_impl="xla", remat_policy="qkv_fc1_attn")
+
+
+def train_batch(cfg):
+    """bench.py main()'s fixed batch, regenerated with numpy: uniform token
+    ids of seed 1, targets rolled by one."""
+    tok = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.seq_len)), device="cuda")
+    return tok, torch.roll(tok, -1, 1)
+
+
+def phase_train(cfg, layout, tok, tgt):
+    """``make_train_step`` with ``fused_adam(1e-4, layout=layout)`` and
+    the identity scaler: one warm-up step and ``TRAIN_STEPS`` timed ones,
+    weights from seed 0, launch counts zeroed just before and read just
+    after. Returns (metrics, state, step_fn)."""
+    from apex_tpu_torch.amp import ScalerConfig
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import make_train_step
+    from apex_tpu_torch.optimizers import fused_adam
+
+    init_fn, step_fn = make_train_step(cfg, fused_adam(1e-4, layout=layout),
+                                       ScalerConfig(enabled=False))
+    state = init_fn(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, tok, tgt)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step_fn(state, tok, tgt)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    n_steps = TRAIN_STEPS + 1
+    L = cfg.num_layers
+    metrics = dict(
+        layout=layout,
+        train_tokens_per_sec=TRAIN_STEPS * tok.numel() / wall,
+        step_ms=wall / TRAIN_STEPS * 1e3, warmup_step_ms=warm * 1e3,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        losses=losses, launches=counts,
+        launches_per_step={k: v / n_steps for k, v in counts.items()})
+    log(f"train {layout}: " + json.dumps(metrics))
+    check(all(np.isfinite(losses)), f"train {layout}: non-finite loss")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"train {layout}: first loss {losses[0]} is not near ln(vocab) "
+          f"{math.log(cfg.vocab_size):.3f}")
+    check(losses[-1] < losses[0] - 0.1,
+          f"train {layout}: the loss did not fall on the repeated batch")
+    want_adam = n_steps if layout == "flat" else 0
+    check(counts["flash_attention_bsh"] == L * n_steps,
+          f"train {layout}: flash forward launched "
+          f"{counts['flash_attention_bsh']} times, expected {L} x {n_steps}"
+          f" (twice that means the backward replayed it)")
+    check(counts["flash_attention_bsh_bwd"] == L * n_steps,
+          f"train {layout}: flash backward launched "
+          f"{counts['flash_attention_bsh_bwd']} times, expected {L} x "
+          f"{n_steps}")
+    check(counts["adam_flat"] == want_adam,
+          f"train {layout}: adam_flat launched {counts['adam_flat']} times, "
+          f"expected {want_adam}")
+    return metrics, state, step_fn
+
+
+#: kernel-name fragments → the category a train step's device time is
+#: summed under (first match wins; the rest is "other")
+KERNEL_CATEGORIES = (
+    ("flash_fwd", ("flash_fwd_bsh",)), ("flash_bwd", ("flash_bwd_",)),
+    ("adam_flat", ("adam_kernel",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("concat (packing, unbind backward)", ("CatArrayBatchedCopy",)),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)))
+
+
+def phase_train_profile(layout, state, step_fn, tok, tgt, steps: int = 2):
+    """``torch.profiler`` over ``steps`` train steps: the device's busy
+    share, its time per step by kernel category and by kernel, and the
+    device time of the flat optimizer's packing (its ``fused_adam.pack``
+    range). A measurement, not a check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step_fn(state, tok, tgt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    events = [e for e in avgs if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        log("train profile: device time not measured (the profiler saw no "
+            "kernel)")
+        return None
+    busy_us = sum(e.self_device_time_total for e in events)
+    per_step = {}
+    for e in events:
+        cat = next((c for c, keys in KERNEL_CATEGORIES
+                    if any(k in e.key for k in keys)), "other")
+        per_step[cat] = (per_step.get(cat, 0.0)
+                         + e.self_device_time_total / 1e3 / steps)
+    pack = [e for e in avgs if e.key == "fused_adam.pack"]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    out = {
+        "layout": layout, "window_steps": steps, "wall_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": max(0.0, 1 - busy_us / 1e3 / (wall * 1e3)),
+        "device_ms_per_step_by_category": per_step,
+        "pack_device_ms_per_step": (
+            pack[0].device_time_total / 1e3 / steps if pack
+            else "not measured"),
+        "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
+                 "calls": e.count} for e in top],
+    }
+    log("train profile: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -584,11 +1049,49 @@ def main() -> int:
         counts, _, engine = phase_path(cfg, params, band)
         log(f"path phase {time.perf_counter() - t:.1f}s")
         phase_profile(cfg, engine)
+        # the training phases' peak memory is the train step's own
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        tcfg = train_config()
+        train_rows, fwd_train = phase_train_kernels(tcfg)
+        log(f"training kernels phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        tok, tgt = train_batch(tcfg)
+        params = gpt.init(tcfg, torch.Generator("cuda").manual_seed(0))
+        phase_grads(tcfg, params, tok, tgt)
+        del params
+        torch.cuda.empty_cache()
+        log(f"grads phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        flat, state, step_fn = phase_train(tcfg, "flat", tok, tgt)
+        phase_train_profile("flat", state, step_fn, tok, tgt)
+        del state, step_fn
+        torch.cuda.empty_cache()
+        tree, state, step_fn = phase_train(tcfg, "tree", tok, tgt)
+        phase_train_profile("tree", state, step_fn, tok, tgt)
+        del state, step_fn
+        gap = max(abs(a - b) for a, b in zip(flat["losses"], tree["losses"]))
+        log(f"train: flat vs tree max|loss diff| over "
+            f"{len(flat['losses'])} steps = {gap:.3e} (band "
+            f"{LAYOUT_LOSS_BAND})")
+        check(gap <= LAYOUT_LOSS_BAND,
+              f"train: flat and tree losses differ by {gap}")
+        check(flat["losses"][0] == tree["losses"][0],
+              "train: the first step's losses differ between the layouts")
+        log(f"train phase {time.perf_counter() - t:.1f}s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
     for r in rows.values():
         r["launches"] = counts[r["name"]]
+    for r in train_rows.values():
+        r["launches"] = flat["launches"][r["name"]]
+    rows["flash_attention_bsh"]["train"] = dict(
+        fwd_train, launches=flat["launches"]["flash_attention_bsh"])
+    rows.update(train_rows)
     log(f"card: {card}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -24,7 +24,10 @@ import pytest
 import torch
 
 from apex_tpu_torch import _capabilities, resolve_device
+from apex_tpu_torch.amp import ScalerConfig
 from apex_tpu_torch.models import gpt as tgpt
+from apex_tpu_torch.models import training as ttraining
+from apex_tpu_torch.optimizers import fused_adam
 from apex_tpu_torch.serving import Engine, EngineConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,8 +68,8 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its three subpackages and their nine modules
-    assert int(out["MODULES"]) == 13, out
+    # the package, its eight subpackages and their seventeen modules
+    assert int(out["MODULES"]) == 26, out
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"
     assert out["CUDA_INIT"] == "False"
@@ -140,7 +143,8 @@ def test_resolve_device_is_the_one_rule(no_cuda):
 
 
 @pytest.mark.parametrize("entry", ["init", "params_from_numpy", "generate",
-                                   "engine"])
+                                   "engine", "make_train_step",
+                                   "train_state_from_numpy", "scaler_init"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         no_cuda, cpu_params, entry):
     cfg, params = cpu_params
@@ -151,6 +155,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(
             tgpt.params_from_numpy(tgpt.params_to_numpy(params))
         elif entry == "generate":
             tgpt.generate(cfg, params, torch.tensor([[1, 2]]), 2)
+        elif entry == "make_train_step":
+            ttraining.make_train_step(cfg, fused_adam())
+        elif entry == "train_state_from_numpy":
+            init_fn, _ = ttraining.make_train_step(cfg, fused_adam(),
+                                                   device="cpu")
+            ttraining.train_state_from_numpy(ttraining.train_state_to_numpy(
+                init_fn(torch.Generator().manual_seed(0))))
+        elif entry == "scaler_init":
+            ScalerConfig().init()
         else:
             Engine(cfg, params, EngineConfig(slots=1, max_prompt_len=8,
                                              max_seq_len=16))

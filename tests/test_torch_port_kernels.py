@@ -166,7 +166,9 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     tk.flash_attention_bsh(x, x, x, num_heads=2, causal=True)
     assert tk.launch_counts() == {"flash_attention_bsh": 0,
                                   "decode_write_column": 0,
-                                  "decode_attention": 0}
+                                  "decode_attention": 0,
+                                  "flash_attention_bsh_bwd": 0,
+                                  "adam_flat": 0}
     tk.write_column.launches = 3
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
@@ -216,4 +218,5 @@ def test_build_dir_is_content_addressed():
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "apex_tpu_torch")
     assert d == _build.build_dir()
     assert {p.name for p in _build._sources()} == {
-        "flash_attention_bsh.cu", "decode_attention.cu"}
+        "flash_attention_bsh.cu", "decode_attention.cu",
+        "flash_attention_bsh_bwd.cu", "flat_ops.cu"}
