@@ -27,7 +27,20 @@ from apex_tpu_torch.kernels.flash_attention import (
     flash_attention_bsh_fwd,
     flash_attention_bsh_plain,
 )
-from apex_tpu_torch.kernels.flat_ops import adam_flat, adam_flat_plain
+from apex_tpu_torch.kernels.flat_ops import (
+    adam_flat,
+    adam_flat_plain,
+    l2norm_flat,
+    l2norm_flat_plain,
+)
+from apex_tpu_torch.kernels.layer_norm import (
+    layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_plain,
+    layer_norm_fwd,
+    layer_norm_fwd_plain,
+    rms_norm,
+)
 
 #: every kernel wrapper, by the name its launch count is reported under
 KERNEL_WRAPPERS = {
@@ -36,6 +49,9 @@ KERNEL_WRAPPERS = {
     "decode_attention": attend_cache,
     "flash_attention_bsh_bwd": flash_attention_bsh_bwd,
     "adam_flat": adam_flat,
+    "layer_norm_fwd": layer_norm_fwd,
+    "layer_norm_bwd": layer_norm_bwd,
+    "l2norm_flat": l2norm_flat,
 }
 
 
@@ -62,8 +78,16 @@ __all__ = [
     "flash_attention_bsh_bwd_plain",
     "flash_attention_bsh_fwd",
     "flash_attention_bsh_plain",
+    "l2norm_flat",
+    "l2norm_flat_plain",
     "launch_counts",
+    "layer_norm",
+    "layer_norm_bwd",
+    "layer_norm_bwd_plain",
+    "layer_norm_fwd",
+    "layer_norm_fwd_plain",
     "reset_launch_counts",
+    "rms_norm",
     "write_column",
     "write_column_plain",
 ]

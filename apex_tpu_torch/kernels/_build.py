@@ -51,7 +51,8 @@ _c_int = ctypes.c_int
 _c_float = ctypes.c_float
 _c_longlong = ctypes.c_longlong
 
-#: C entry points: name → argtypes (every one returns a cudaError_t)
+#: C entry points: name → argtypes (every one returns an int: a
+#: cudaError_t, or a size for the ``*_blocks`` queries)
 _SIGNATURES = {
     "apex_tpu_torch_flash_fwd_bsh": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
@@ -64,7 +65,19 @@ _SIGNATURES = {
         _c_void_p],
     "apex_tpu_torch_adam_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_longlong, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        _c_void_p, _c_longlong, _c_int, _c_int, _c_int, _c_void_p],
+    "apex_tpu_torch_l2norm_blocks": [],
+    "apex_tpu_torch_l2norm_flat": [
+        _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,
+        _c_void_p],
+    "apex_tpu_torch_layer_norm_fwd": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_float, _c_int, _c_int, _c_int, _c_void_p],
+    "apex_tpu_torch_layer_norm_bwd_blocks": [_c_int],
+    "apex_tpu_torch_layer_norm_bwd": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
+        _c_int, _c_void_p],
     "apex_tpu_torch_decode_write_column": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],

@@ -71,6 +71,7 @@ from apex_tpu_torch import _tree
 from apex_tpu_torch._capabilities import resolve_device
 from apex_tpu_torch.kernels import decode_attention, flash_attention_bsh
 from apex_tpu_torch.kernels.flash_attention import FLASH_FWD_OP
+from apex_tpu_torch.kernels.layer_norm import layer_norm
 from apex_tpu_torch.serving import sampling as _sampling
 from apex_tpu_torch.transformer.tensor_parallel import (
     vocab_parallel_cross_entropy,
@@ -88,9 +89,10 @@ class GPTConfig:
     as in JAX; ``scan_unroll`` has no counterpart (the layer loop is a
     Python loop). Options that belong to later slices of the port raise
     at construction: context parallelism and FSDP (the distributed
-    slice), experts (the MoE slice), quantized KV caches, the Pallas
-    LayerNorm, the fused cross entropy (the xentropy kernel's slice),
-    and the head-major flash layout / chunked XLA attention."""
+    slice), experts (the MoE slice), quantized KV caches, the fused
+    cross entropy (the xentropy kernel's slice), and the head-major flash
+    layout / chunked XLA attention. ``ln_impl="pallas"`` is the port's
+    LayerNorm kernel (:mod:`apex_tpu_torch.kernels.layer_norm`)."""
 
     vocab_size: int = 50304
     hidden_size: int = 1024
@@ -139,8 +141,6 @@ class GPTConfig:
         if self.kv_cache_dtype in ("int8", "fp8"):
             later.append(f"kv_cache_dtype={self.kv_cache_dtype!r} (the "
                          "quantized-cache slice)")
-        if self.ln_impl == "pallas":
-            later.append("ln_impl='pallas' (the LayerNorm-kernel slice)")
         if self.ce_impl == "fused":
             later.append("ce_impl='fused' (the xentropy kernel's slice)")
         if self.attn_impl == "xla_chunked":
@@ -155,7 +155,7 @@ class GPTConfig:
         for name, value, allowed in (
                 ("attn_impl", self.attn_impl, ("auto", "flash", "xla")),
                 ("attn_layout", self.attn_layout, ("auto",)),
-                ("ln_impl", self.ln_impl, ("xla",)),
+                ("ln_impl", self.ln_impl, ("xla", "pallas")),
                 ("ce_impl", self.ce_impl, ("xla",)),
                 ("attn_score_dtype", self.attn_score_dtype,
                  ("f32", "compute")),
@@ -313,7 +313,11 @@ def cast_params(cfg: GPTConfig, params):
 # ---------------------------------------------------------------------------
 
 def _layer_norm(cfg: GPTConfig, h, scale, bias):
-    """fp32 statistics, affine in fp32, cast back to ``h``'s dtype."""
+    """fp32 statistics, affine in fp32, cast back to ``h``'s dtype:
+    ``ln_impl="xla"`` as plain PyTorch, ``"pallas"`` through the LayerNorm
+    kernel (its plain version on the CPU)."""
+    if cfg.ln_impl == "pallas":
+        return layer_norm(h, scale, bias, eps=cfg.layernorm_epsilon)
     h32 = h.float()
     mu = h32.mean(dim=-1, keepdim=True)
     d = h32 - mu

@@ -30,14 +30,18 @@ class FusedOptimizer(NamedTuple):
       add to the params;
     - ``step(grads, state, params, *, grad_scale=None, skip=None) ->
       (new_params, state)`` — the apex call shape
-      (``FusedAdam.step()``): the sweep writes the new params directly.
+      (``FusedAdam.step()``): the sweep writes the new params directly;
+    - ``per_leaf_norms`` — True for optimizers whose update depends on
+      whole-leaf norms (LAMB's trust ratios): such an update is wrong on a
+      shard of a leaf, which the distributed slice's FSDP will refuse.
 
-    The JAX type's ``state_pspecs`` (mesh sharding) and ``per_leaf_norms``
-    (LAMB, NovoGrad) come with the slices that need them."""
+    The JAX type's ``state_pspecs`` (mesh sharding) comes with the
+    distributed slice."""
 
     init: Callable
     update: Callable
     step: Callable
+    per_leaf_norms: bool = False
 
 
 def _device_of(x) -> torch.device:
@@ -75,7 +79,8 @@ def zeros_like_tree(params):
         params)
 
 
-def finish_tree_optimizer(init: Callable, sweep: Callable) -> FusedOptimizer:
+def finish_tree_optimizer(init: Callable, sweep: Callable,
+                          per_leaf_norms: bool = False) -> FusedOptimizer:
     """Wrap a tree-layout ``sweep(grads, state, params, grad_scale,
     out_is_delta, skip)`` into the update/step contract."""
 
@@ -85,7 +90,8 @@ def finish_tree_optimizer(init: Callable, sweep: Callable) -> FusedOptimizer:
     def step(grads, state, params, *, grad_scale=None, skip=None):
         return sweep(grads, state, params, grad_scale, False, skip)
 
-    return FusedOptimizer(init=init, update=update, step=step)
+    return FusedOptimizer(init=init, update=update, step=step,
+                          per_leaf_norms=per_leaf_norms)
 
 
 def tree_sweep(leaf: Callable, params, grads, *moment_trees):
@@ -112,6 +118,31 @@ def pack_pair(params, grads):
 def zeros_like_group_f32(layout: mt.FlatLayout, device):
     return tuple(torch.zeros(s, dtype=torch.float32, device=device)
                  for s in layout.group_sizes)
+
+
+def per_leaf_norms(tree) -> list:
+    """Per-leaf L2 norms, fp32 0-d tensors in leaf order — the per-tensor
+    half of ``multi_tensor_l2norm``, for LAMB's trust ratios. A stacked
+    ``[L, ...]`` leaf has one norm over all its layers, as in JAX."""
+    return [torch.linalg.vector_norm(x.float().reshape(-1))
+            for x in _tree.leaves(tree)]
+
+
+def broadcast_per_leaf(values, layout: mt.FlatLayout):
+    """One scalar per leaf (0-d tensors, leaf order) → flat fp32 buffers
+    of ``layout``: each leaf's span holds its value, the padding holds 1.0
+    (neutral under multiplication). One ``cat`` of expanded views per
+    group, on the values' device, with no host round trip."""
+    dev = values[0].device if values else torch.device("cpu")
+    parts = [[] for _ in range(layout.num_groups)]
+    for val, meta in zip(values, layout.leaves):
+        parts[meta.group].append(val.float().reshape(1).expand(meta.size))
+    bufs = []
+    for g in range(layout.num_groups):
+        pad = layout.group_sizes[g] - layout.group_used[g]
+        parts[g].append(torch.ones(pad, dtype=torch.float32, device=dev))
+        bufs.append(torch.cat(parts[g]))
+    return bufs
 
 
 def param_device(params) -> torch.device:

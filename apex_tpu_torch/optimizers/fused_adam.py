@@ -96,6 +96,8 @@ def fused_adam(
             bias_correction2=bc2,
             grad_scale=1.0 if grad_scale is None else grad_scale,
             adam_w_mode=adam_w_mode, out_is_delta=out_is_delta, skip=skip)
+        if out_is_delta:   # the JAX update's dtype: the params' own
+            new_p = [d.to(p.dtype) for d, p in zip(new_p, pbufs)]
         new_state = FusedAdamState(_next_count(state.count, skip),
                                    tuple(new_m), tuple(new_v))
         return mt.unpack(new_p, flat_layout), new_state

@@ -45,12 +45,37 @@ The serving engine and weights are freed; then the training slice:
 10. profile — ``torch.profiler`` over 2 train steps of each layout:
     device time per step by kernel category, and the packing's share.
 
+Then the BERT slice (``examples/bert_pretrain.py``'s trainer at
+BERT-large width: vocab 30528, hidden 1024, 24 layers of 16 heads, seq
+512, full remat, bf16, FusedLAMB):
+
+11. BERT kernels vs plain — the LayerNorm forward and backward at
+    [16384, 1024] bf16 with fp32 w/b and at a ragged [37, 513] fp32
+    (dw/db bit-equal across two launches), ``l2norm_flat`` (bit-equal
+    across launches) and ``adam_flat`` in delta mode (p untouched) on the
+    335.2M model's padded fp32 group, and the flash forward and backward
+    with ``causal=False`` at b=32 s=512 (the backward also in fp32 at
+    b=2, 8 key tiles), timed as in phase 3;
+12. BERT gradients — one ``mlm_loss`` gradient at batch 4 through the
+    kernels (bf16, ``ln_impl="pallas"``), the "xla" attention and
+    LayerNorm in bf16, and in fp32: the kernel path within 3x the bf16
+    "xla" path's error;
+13. the BERT step — ``make_mlm_train_step`` at batch 32 of seq 512, one
+    warm-up and 10 timed steps, run (a) ``fused_lamb(layout="flat")``
+    with ``ln_impl="pallas"`` (every kernel) and run (b) the example's
+    own choice (tree LAMB, the "xla" LayerNorm in the blocks): tokens/s,
+    step time, peak memory, every loss, and per step the launches the
+    code implies (``bert_launches_per_step``);
+14. profile — ``torch.profiler`` over 2 steps of run (a).
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
 wrapper's host cost included. Two library yardsticks are eager: SDPA's
-forward plus backward less its forward (the flash backward's) and
-``torch.optim.AdamW(fused=True)``'s step on one flat tensor (Adam's).
+forward plus backward less its forward (the flash backward's),
+``F.layer_norm``'s forward plus backward less its forward (the LayerNorm
+backward's) and ``torch.optim.AdamW(fused=True)``'s step on one flat
+tensor (Adam's).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
@@ -94,6 +119,20 @@ ADAM_TOL = dict(atol=1e-6, rtol=1e-5)
 #: runs may differ by this much (they fall by about 0.8 over the run). The
 #: first step's losses, before any update, must be equal.
 LAYOUT_LOSS_BAND = 5e-2
+
+#: the BERT path: batch 32 of seq 512 (16,384 tokens a step, as the GPT
+#: step's); the loss must fall by at least this much over its 11 steps on
+#: the repeated batch. The example's targets are its unmasked input
+#: tokens, so the model learns to copy them through the tied table: the
+#: loss falls by about 1.6 on an H100.
+BERT_BATCH = 32
+BERT_LOSS_FALL = 0.5
+#: runs (a) and (b) of the BERT step differ in the blocks' LayerNorm
+#: (kernel vs PyTorch, both fp32 statistics rounded to bf16 at the same
+#: place) and the optimizer layout (the same update, rounded at other
+#: places): their losses may differ by this much at any step (the GPT
+#: step's two layouts differ by up to 6.2e-3 on an H100)
+BERT_LOSS_BAND = 2e-2
 
 #: tolerances of kernel vs plain, both on the card in the working type.
 #: bf16 outputs: the kernel and the plain version both accumulate in
@@ -839,35 +878,23 @@ def phase_train_kernels(cfg):
 # phase 8: gradients at 355M width, kernels vs the materialised scores
 # ---------------------------------------------------------------------------
 
-def _loss_grads(cfg, params, tok, tgt):
+def _loss_grads(loss_fn, params):
+    """``(loss, fp32 gradients in leaf order)`` of ``loss_fn(params)``."""
     from apex_tpu_torch import _tree
-    from apex_tpu_torch.models import gpt
 
     leaves, spec = _tree.flatten(params)
     diff = [x.detach().requires_grad_(True) for x in leaves]
-    loss = gpt.loss(cfg, _tree.unflatten(spec, diff), tok, tgt)
+    loss = loss_fn(_tree.unflatten(spec, diff))
     grads = torch.autograd.grad(loss, diff)
     return float(loss.detach()), [g_.float() for g_ in grads]
 
 
-def phase_grads(cfg, params, tok, tgt):
-    """One gradient of the loss on the batch's first 4 rows through the
-    kernels (bf16, the train step's remat policy), the "xla" attention in
-    bf16 and the "xla" attention in fp32 (the reference), on the same
-    weights. Errors against the reference: the largest absolute
-    difference over every gradient element, and the relative L2 norm of
+def _hold_grads(what, got):
+    """Errors of the "kernel" and bf16 "xla" paths' gradients in ``got``
+    (``{path: (loss, grads)}``) against the "fp32" path's: the largest
+    absolute difference over every element, and the relative L2 norm of
     the difference over all gradients. The band: each of the kernel
     path's at most 3x the bf16 "xla" path's."""
-    import dataclasses
-
-    xla = dict(attn_impl="xla", remat_policy="qkv_fc1")
-    paths = {"kernel": cfg, "xla": dataclasses.replace(cfg, **xla),
-             "fp32": dataclasses.replace(cfg, **xla,
-                                         compute_dtype=torch.float32)}
-    torch.backends.cuda.matmul.allow_tf32 = False
-    tok, tgt = tok[:4], tgt[:4]
-    got = {name: _loss_grads(c, params, tok, tgt)
-           for name, c in paths.items()}
     ref = got["fp32"][1]
     norm = float(torch.sqrt(sum((r_ * r_).sum() for r_ in ref)))
 
@@ -879,16 +906,36 @@ def phase_grads(cfg, params, tok, tgt):
 
     (k_mx, k_l2), (x_mx, x_l2) = errs(got["kernel"][1]), errs(got["xla"][1])
     losses = {name: v[0] for name, v in got.items()}
-    log(f"grads at 355M, batch 4: losses {losses}; vs fp32: kernel max "
-        f"{k_mx:.4e} relL2 {k_l2:.4e}, bf16 xla max {x_mx:.4e} relL2 "
-        f"{x_l2:.4e}; fp32 grad norm {norm:.4f}")
+    log(f"{what}: losses {losses}; vs fp32: kernel max {k_mx:.4e} relL2 "
+        f"{k_l2:.4e}, bf16 xla max {x_mx:.4e} relL2 {x_l2:.4e}; fp32 grad "
+        f"norm {norm:.4f}")
     for name, (_, gs) in got.items():
         check(all(bool(torch.isfinite(g_).all()) for g_ in gs),
-              f"grads {name}: non-finite")
-    check(k_mx <= 3 * x_mx, f"grads: kernel max err {k_mx} > 3 x xla {x_mx}")
-    check(k_l2 <= 3 * x_l2, f"grads: kernel relL2 {k_l2} > 3 x xla {x_l2}")
+              f"{what} {name}: non-finite")
+    check(k_mx <= 3 * x_mx, f"{what}: kernel max err {k_mx} > 3 x xla {x_mx}")
+    check(k_l2 <= 3 * x_l2, f"{what}: kernel relL2 {k_l2} > 3 x xla {x_l2}")
     return dict(kernel_max=k_mx, kernel_rel_l2=k_l2, xla_max=x_mx,
                 xla_rel_l2=x_l2)
+
+
+def phase_grads(cfg, params, tok, tgt):
+    """One gradient of the loss on the batch's first 4 rows through the
+    kernels (bf16, the train step's remat policy), the "xla" attention in
+    bf16 and the "xla" attention in fp32 (the reference), on the same
+    weights, held by :func:`_hold_grads`."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+
+    xla = dict(attn_impl="xla", remat_policy="qkv_fc1")
+    paths = {"kernel": cfg, "xla": dataclasses.replace(cfg, **xla),
+             "fp32": dataclasses.replace(cfg, **xla,
+                                         compute_dtype=torch.float32)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok, tgt = tok[:4], tgt[:4]
+    got = {name: _loss_grads(lambda p, c=c: gpt.loss(c, p, tok, tgt), params)
+           for name, c in paths.items()}
+    return _hold_grads("grads at 355M, batch 4", got)
 
 
 # ---------------------------------------------------------------------------
@@ -979,17 +1026,19 @@ def phase_train(cfg, layout, tok, tgt):
 KERNEL_CATEGORIES = (
     ("flash_fwd", ("flash_fwd_bsh",)), ("flash_bwd", ("flash_bwd_",)),
     ("adam_flat", ("adam_kernel",)),
+    ("layer_norm", ("ln_fwd_kernel", "ln_bwd_")),
+    ("l2norm_flat", ("sumsq_kernel", "l2norm_finish")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
     ("concat (packing, unbind backward)", ("CatArrayBatchedCopy",)),
     ("reduction", ("reduce_kernel",)),
     ("elementwise", ("elementwise",)))
 
 
-def phase_train_profile(layout, state, step_fn, tok, tgt, steps: int = 2):
+def phase_train_profile(layout, state, step_fn, batch, steps: int = 2):
     """``torch.profiler`` over ``steps`` train steps: the device's busy
     share, its time per step by kernel category and by kernel, and the
     device time of the flat optimizer's packing (its ``fused_adam.pack``
-    range). A measurement, not a check."""
+    or ``fused_lamb.pack`` range). A measurement, not a check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -998,7 +1047,7 @@ def phase_train_profile(layout, state, step_fn, tok, tgt, steps: int = 2):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step_fn(state, tok, tgt)
+            state, _ = step_fn(state, *batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -1015,7 +1064,7 @@ def phase_train_profile(layout, state, step_fn, tok, tgt, steps: int = 2):
                     if any(k in e.key for k in keys)), "other")
         per_step[cat] = (per_step.get(cat, 0.0)
                          + e.self_device_time_total / 1e3 / steps)
-    pack = [e for e in avgs if e.key == "fused_adam.pack"]
+    pack = [e for e in avgs if e.key.endswith(".pack")]
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     out = {
         "layout": layout, "window_steps": steps, "wall_ms": wall * 1e3,
@@ -1030,6 +1079,409 @@ def phase_train_profile(layout, state, step_fn, tok, tgt, steps: int = 2):
     }
     log("train profile: " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the BERT path's kernels vs plain, at its shapes
+# ---------------------------------------------------------------------------
+
+def bert_config(**over):
+    """BERT-large as ``BertConfig()`` has it (vocab 30528, hidden 1024, 24
+    layers of 16 heads, seq 512, full remat, bf16 compute, fp32 params);
+    ``over`` picks the run."""
+    from apex_tpu_torch.models import bert
+
+    return bert.BertConfig(**over)
+
+
+def bert_batch(cfg):
+    """``examples/bert_pretrain.py``'s MLM batch at batch 32: uniform
+    tokens from ``RandomState(0)``, ``mlm_mask = rand < 0.15``, targets
+    the tokens themselves."""
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, cfg.vocab_size, (BERT_BATCH, cfg.seq_len))
+    mask = (rng.rand(BERT_BATCH, cfg.seq_len) < 0.15).astype(np.int32)
+    tok_t = torch.as_tensor(tok, device="cuda")
+    return tok_t, tok_t, torch.as_tensor(mask, device="cuda")
+
+
+def _ln_rows(dev, rows, hidden, dtype, w_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *shp, dt=torch.float32: torch.randn(
+        *shp, generator=g, device=dev).to(dt)
+    x = (mk(rows, hidden) * 2 + 0.5).to(dtype)
+    return x, mk(hidden, dt=w_dtype), mk(hidden, dt=w_dtype), mk(
+        rows, hidden, dt=dtype)
+
+
+def phase_bert_kernels(bcfg):
+    """The LayerNorm forward and backward, ``l2norm_flat``, ``adam_flat``
+    in delta mode and the non-causal flash forward and backward against
+    their plain versions on the card, at the BERT step's shapes, with
+    timings. Returns ``{name: row}`` for the new kernels, and the extra
+    entries for the rows of earlier slices."""
+    from apex_tpu_torch.kernels import (
+        adam_flat,
+        adam_flat_plain,
+        flash_attention_bsh_bwd,
+        flash_attention_bsh_bwd_plain,
+        flash_attention_bsh_fwd,
+        flash_attention_bsh_plain,
+        l2norm_flat,
+        l2norm_flat_plain,
+        layer_norm_bwd,
+        layer_norm_bwd_plain,
+        layer_norm_fwd,
+        layer_norm_fwd_plain,
+        reset_launch_counts,
+    )
+    from apex_tpu_torch.kernels.flat_ops import adam_scalars
+    from apex_tpu_torch.multi_tensor import pad_to
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    eps = bcfg.layernorm_epsilon
+    rows, extra = {}, {}
+
+    # -- LayerNorm: the step's [16384, 1024] bf16 with fp32 w/b, a ragged
+    #    [37, 513] fp32, both statistics; dw/db bit-equal across launches
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    cases = ((BERT_BATCH * bcfg.seq_len, bcfg.hidden_size, bf16, BF16_TOL),
+             (37, 513, torch.float32, FP32_TOL))
+    for n_rows, hidden, dtype, tol in cases:
+        x, w, b, dy = _ln_rows(dev, n_rows, hidden, dtype, torch.float32,
+                               seed=n_rows)
+        for sub in (True, False):
+            y, mean, rstd = layer_norm_fwd(x, w, b, eps=eps,
+                                           subtract_mean=sub)
+            ry, rmean, rrstd = layer_norm_fwd_plain(x, w, b, eps, sub)
+            got = layer_norm_bwd(x, w, mean, rstd, dy, subtract_mean=sub)
+            again = layer_norm_bwd(x, w, mean, rstd, dy, subtract_mean=sub)
+            want = layer_norm_bwd_plain(x, w, mean, rstd, dy, sub)
+            torch.cuda.synchronize()
+            what = f"layer_norm [{n_rows}, {hidden}] {dtype} sub={sub}"
+            check(close(y, ry, tol) and close(mean, rmean, FP32_TOL)
+                  and close(rstd, rrstd, FP32_TOL),
+                  f"{what}: fwd err {max_err(y, ry)}, mean "
+                  f"{max_err(mean, rmean)}, rstd {max_err(rstd, rrstd)}")
+            for name, a, r in zip(("dx", "dw", "db"), got, want):
+                check(close(a, r, tol if name == "dx" else FP32_TOL),
+                      f"{what}: {name} err {max_err(a, r)}")
+            check(all(torch.equal(a, r) for a, r in zip(got, again)),
+                  f"{what}: the backward differs between two launches")
+            worst["fwd"] = max(worst["fwd"], max_err(y, ry))
+            worst["bwd"] = max(worst["bwd"], *(max_err(a, r) for a, r in
+                                               zip(got, want)))
+    log(f"layer_norm: kernel vs plain max err {worst} (bf16 atol=rtol=2e-2,"
+        f" fp32 and dw/db 1e-3); dx, dw, db bit-equal across two launches")
+
+    n_rows, hidden = BERT_BATCH * bcfg.seq_len, bcfg.hidden_size
+    x, w, b, dy = _ln_rows(dev, n_rows, hidden, bf16, torch.float32, seed=5)
+    _, mean, rstd = layer_norm_fwd(x, w, b, eps=eps)
+    act = n_rows * hidden * 2
+    stats = 2 * n_rows * 4
+    lf, lfby = bound(2 * act + stats + 2 * hidden * 4,
+                     8 * n_rows * hidden, FP32_FLOPS_PER_S)
+    lb, lbby = bound(3 * act + stats + 3 * hidden * 4,
+                     12 * n_rows * hidden, FP32_FLOPS_PER_S)
+    # the library call takes the affine in x's dtype
+    xr = x.detach().clone().requires_grad_(True)
+    wr, br = (t.to(bf16).requires_grad_(True) for t in (w, b))
+    lib_f = lambda: F.layer_norm(xr, (hidden,), wr, br, eps)
+    lib_fb = lambda: torch.autograd.grad(lib_f(), (xr, wr, br), dy)
+    shape = f"[{n_rows}, {hidden}] bf16, fp32 w/b"
+    ln_f = lambda: layer_norm_fwd(x, w, b, eps=eps)
+    ln_b = lambda: layer_norm_bwd(x, w, mean, rstd, dy)
+    rows["layer_norm_fwd"] = dict(
+        name="layer_norm_fwd", route="cuda",
+        source="apex_tpu_torch/csrc/layer_norm.cu",
+        replaces="apex_tpu/kernels/layer_norm.py:126",
+        max_abs_err=worst["fwd"], ms=time_ms(ln_f), eager_ms=eager_ms(ln_f),
+        plain_ms=time_ms(lambda: layer_norm_fwd_plain(x, w, b, eps, True)),
+        bound_ms=lf, bound_by=lfby, library_ms=time_ms(lib_f), shape=shape)
+    rows["layer_norm_bwd"] = dict(
+        name="layer_norm_bwd", route="cuda",
+        source="apex_tpu_torch/csrc/layer_norm.cu",
+        replaces="apex_tpu/kernels/layer_norm.py:161",
+        max_abs_err=worst["bwd"], ms=time_ms(ln_b), eager_ms=eager_ms(ln_b),
+        plain_ms=time_ms(lambda: layer_norm_bwd_plain(x, w, mean, rstd, dy,
+                                                      True)),
+        bound_ms=lb, bound_by=lbby,
+        library_ms=eager_ms(lib_fb) - eager_ms(lib_f), shape=shape)
+    del x, w, b, dy, mean, rstd, xr, wr, br
+
+    # -- l2norm_flat and adam_flat's delta mode on the 335.2M fp32 group
+    n = pad_to(bcfg.param_count())
+    g = torch.Generator(device=dev).manual_seed(29)
+    p = torch.randn(n, generator=g, device=dev) * 0.02
+    gr = torch.randn(n, generator=g, device=dev) * 1e-3
+    m = torch.randn(n, generator=g, device=dev) * 1e-3
+    v = torch.rand(n, generator=g, device=dev) * 1e-6
+    norm = l2norm_flat([gr])
+    norm2 = l2norm_flat([gr])
+    ref = l2norm_flat_plain([gr])
+    torch.cuda.synchronize()
+    check(torch.equal(norm, norm2), "l2norm_flat differs between launches")
+    # fp32 sums of 335M squares in two orders: 1e-4 relative
+    check(close(norm, ref, dict(atol=0.0, rtol=1e-4)),
+          f"l2norm_flat: {float(norm)} vs plain {float(ref)}")
+    l2_err = max_err(norm, ref)
+    mixed = [gr[: n // 2], p[: n // 2].to(bf16)]
+    check(close(l2norm_flat(mixed), l2norm_flat_plain(mixed),
+                dict(atol=0.0, rtol=1e-4)), "l2norm_flat fp32+bf16 groups")
+    l2b, l2by = bound(4 * n + 4, 2 * n, FP32_FLOPS_PER_S)
+    rows["l2norm_flat"] = dict(
+        name="l2norm_flat", route="cuda",
+        source="apex_tpu_torch/csrc/flat_ops.cu",
+        replaces="apex_tpu/kernels/flat_ops.py:187",
+        max_abs_err=l2_err, ms=time_ms(lambda: l2norm_flat([gr]),
+                                       **TRAIN_TIMING),
+        eager_ms=eager_ms(lambda: l2norm_flat([gr]), **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: l2norm_flat_plain([gr]), **TRAIN_TIMING),
+        bound_ms=l2b, bound_by=l2by,
+        library_ms=time_ms(lambda: torch.linalg.vector_norm(gr),
+                           **TRAIN_TIMING),
+        shape=f"one fp32 buffer of n={n} (BERT-large, padded)")
+    log(f"l2norm_flat n={n}: {float(norm):.6f} vs plain {float(ref):.6f} "
+        f"(rtol 1e-4), bit-equal across launches; fp32+bf16 groups ok")
+
+    hp = dict(lr=1.0, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01,
+              bias_correction1=1 - 0.9 ** 3, bias_correction2=1 - 0.999 ** 3,
+              grad_scale=0.5)
+    scalars = adam_scalars(*hp.values(), dev)
+    p_before = p.clone()
+    mk, vk, mp, vp = m.clone(), v.clone(), m.clone(), v.clone()
+    (dk,), _, _ = adam_flat([p], [gr], [mk], [vk], **hp, out_is_delta=True)
+    (dp,), _, _ = adam_flat_plain([p], [gr], [mp], [vp], scalars,
+                                  out_is_delta=True)
+    torch.cuda.synchronize()
+    check(torch.equal(p, p_before), "adam_flat delta mode changed p")
+    d_errs = [max_err(a, b_) for a, b_ in ((dk, dp), (mk, mp), (vk, vp))]
+    check(close(dk, dp, ADAM_TOL) and close(mk, mp, ADAM_TOL)
+          and close(vk, vp, ADAM_TOL), f"adam_flat delta: errs {d_errs}")
+    del mp, vp, dp, p_before
+    delta_k = lambda: adam_flat([p], [gr], [mk], [vk], **hp,
+                                out_is_delta=True)
+    db_, dby = bound(28 * n, 17 * n, FP32_FLOPS_PER_S)
+    extra["adam_flat"] = dict(
+        ms=time_ms(delta_k, **TRAIN_TIMING),
+        eager_ms=eager_ms(delta_k, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: adam_flat_plain(
+            [p], [gr], [m], [v], scalars, out_is_delta=True),
+            **TRAIN_TIMING),
+        bound_ms=db_, bound_by=dby, library_ms=None, max_abs_err=max(d_errs),
+        shape=f"delta mode (LAMB stage 1), one fp32 group of n={n}")
+    log(f"adam_flat delta mode n={n}: p untouched, max|delta,m,v - plain|="
+        f"{d_errs} (tol atol=1e-6 rtol=1e-5)")
+    del p, gr, m, v, mk, vk, dk
+
+    # -- flash, bidirectional: bwd in fp32 at b=2 s=512 (8 key tiles),
+    #    then forward and backward at the step's b=32 s=512 in bf16
+    heads, hd = bcfg.num_heads, bcfg.hidden_size // bcfg.num_heads
+    s = bcfg.seq_len
+
+    def inputs(b_, dtype, seed):
+        gg = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(b_, s, bcfg.hidden_size, generator=gg,
+                            device=dev, dtype=dtype) for _ in range(4)]
+
+    def delta_of(out, do):
+        b_ = out.shape[0]
+        return (out.float() * do.float()).view(b_, s, heads, hd).sum(
+            -1).transpose(1, 2).contiguous()
+
+    q, k, v_, do = inputs(2, torch.float32, 31)
+    out, lse = flash_attention_bsh_fwd(q, k, v_, num_heads=heads,
+                                       causal=False)
+    ref, ref_lse = flash_attention_bsh_plain(q, k, v_, num_heads=heads,
+                                             causal=False)
+    dl = delta_of(out, do)
+    got = flash_attention_bsh_bwd(q, k, v_, do, lse, dl, num_heads=heads,
+                                  causal=False)
+    want = flash_attention_bsh_bwd_plain(q, k, v_, do, lse, dl,
+                                         num_heads=heads, causal=False)
+    torch.cuda.synchronize()
+    check(close(out, ref, FP32_TOL) and close(lse, ref_lse, FP32_TOL),
+          f"flash non-causal fp32 b=2: out {max_err(out, ref)}")
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        check(close(a, r, FP32_TOL), f"flash bwd non-causal fp32 b=2 s={s}:"
+              f" {name} err {max_err(a, r)}")
+    f32_err = max(max_err(a, r) for a, r in zip(got, want))
+
+    B = BERT_BATCH
+    q, k, v_, do = inputs(B, bf16, 37)
+    out, lse = flash_attention_bsh_fwd(q, k, v_, num_heads=heads,
+                                       causal=False)
+    ref, ref_lse = flash_attention_bsh_plain(q, k, v_, num_heads=heads,
+                                             causal=False)
+    torch.cuda.synchronize()
+    check(close(out, ref, BF16_TOL) and close(lse, ref_lse, FP32_TOL),
+          f"flash non-causal b={B}: out err {max_err(out, ref)}, lse err "
+          f"{max_err(lse, ref_lse)}")
+    fwd_err = max_err(out, ref)
+    del ref, ref_lse
+    dl = delta_of(out, do)
+    got = flash_attention_bsh_bwd(q, k, v_, do, lse, dl, num_heads=heads,
+                                  causal=False)
+    want = flash_attention_bsh_bwd_plain(q, k, v_, do, lse, dl,
+                                         num_heads=heads, causal=False)
+    torch.cuda.synchronize()
+    bwd_errs = []
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        tol = grad_tol(r)
+        check(close(a, r, tol), f"flash bwd non-causal b={B}: {name} err "
+              f"{max_err(a, r)} over atol {tol['atol']:.3e}")
+        bwd_errs.append(max_err(a, r))
+    del got, want
+    log(f"flash non-causal: fp32 b=2 s={s} bwd max err {f32_err:.3e} (tol "
+        f"1e-3); b={B} s={s} bf16 fwd {fwd_err:.3e}, bwd {bwd_errs} (atol "
+        f"1e-2 x rms)")
+    hv = lambda t: t.view(B, s, heads, hd).transpose(1, 2)
+    qh, kh, vh = (hv(t).detach().requires_grad_(True) for t in (q, k, v_))
+    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh)
+        torch.autograd.grad(o, (qh, kh, vh), hv(do))
+
+    pairs = B * heads * s * s
+    act = B * s * bcfg.hidden_size * 2
+    st = B * heads * s * 4
+    fb, fby = bound(4 * act + st, 4 * hd * pairs)
+    bb, bby = bound(7 * act + 2 * st, 5 * 2 * hd * pairs)
+    fa = lambda: flash_attention_bsh_fwd(q, k, v_, num_heads=heads,
+                                         causal=False)
+    fbw = lambda: flash_attention_bsh_bwd(q, k, v_, do, lse, dl,
+                                          num_heads=heads, causal=False)
+    shape = f"b={B} s={s} hidden={bcfg.hidden_size} heads={heads} bf16 " \
+            f"non-causal"
+    extra["flash_attention_bsh"] = dict(
+        ms=time_ms(fa, **TRAIN_TIMING), eager_ms=eager_ms(fa, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_plain(
+            q, k, v_, num_heads=heads, causal=False), **TRAIN_TIMING),
+        library_ms=time_ms(lib_fwd, **TRAIN_TIMING), bound_ms=fb,
+        bound_by=fby, max_abs_err=fwd_err, shape=shape)
+    lib_fwd_eager = eager_ms(lib_fwd, **TRAIN_TIMING)
+    extra["flash_attention_bsh_bwd"] = dict(
+        ms=time_ms(fbw, **TRAIN_TIMING),
+        eager_ms=eager_ms(fbw, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_bwd_plain(
+            q, k, v_, do, lse, dl, num_heads=heads, causal=False),
+            **TRAIN_TIMING),
+        library_ms=eager_ms(lib_fwd_bwd, **TRAIN_TIMING) - lib_fwd_eager,
+        bound_ms=bb, bound_by=bby, max_abs_err=max(bwd_errs + [f32_err]),
+        shape=shape)
+    del q, k, v_, do, qh, kh, vh, out, lse, dl
+    for name, r in list(rows.items()) + [(f"{k_} (BERT)", r_)
+                                         for k_, r_ in extra.items()]:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"kernel {name}: {r['ms']:.4f} ms (eager {r['eager_ms']:.4f} "
+            f"ms), plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}) at {r['shape']}")
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return rows, extra
+
+
+# ---------------------------------------------------------------------------
+# phase 12: gradients at BERT-large width
+# ---------------------------------------------------------------------------
+
+def phase_bert_grads(bcfg, params, tok, tgt, mask):
+    """One ``mlm_loss`` gradient on the batch's first 4 rows through the
+    kernels (bf16, ``ln_impl="pallas"``, flash), through the "xla"
+    attention and LayerNorm in bf16, and in fp32 (the reference), on the
+    same weights, held by :func:`_hold_grads` as phase 8 holds GPT's."""
+    import dataclasses
+
+    from apex_tpu_torch.models import bert
+
+    xla = dict(attn_impl="xla", ln_impl="xla")
+    paths = {"kernel": dataclasses.replace(bcfg, attn_impl="flash",
+                                           ln_impl="pallas"),
+             "xla": dataclasses.replace(bcfg, **xla),
+             "fp32": dataclasses.replace(bcfg, **xla,
+                                         compute_dtype=torch.float32)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tok, tgt, mask = tok[:4], tgt[:4], mask[:4]
+    got = {name: _loss_grads(
+        lambda p, c=c: bert.mlm_loss(c, p, tok, tgt, mask), params)
+        for name, c in paths.items()}
+    return _hold_grads("BERT grads, batch 4", got)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the BERT step; phase 14: where its time goes
+# ---------------------------------------------------------------------------
+
+def bert_launches_per_step(cfg):
+    """Kernel launches one MLM step makes, from the code: every block runs
+    twice forward (the forward, then remat's replay in the backward), so
+    flash forward 2L and backward L; LayerNorm forward 3 (embedding,
+    final, MLM head) plus, with ``ln_impl="pallas"``, ln1 and ln2 of 2L
+    block runs, and backward 3 plus 2L; the flat LAMB one ``l2norm_flat``
+    and one ``adam_flat`` (one fp32 group), the tree LAMB none."""
+    L = cfg.num_layers
+    pallas = cfg.ln_impl == "pallas"
+    return {"flash_attention_bsh": 2 * L, "flash_attention_bsh_bwd": L,
+            "layer_norm_fwd": 3 + (4 * L if pallas else 0),
+            "layer_norm_bwd": 3 + (2 * L if pallas else 0)}
+
+
+def phase_bert_train(bcfg, layout, tok, tgt, mask):
+    """``make_mlm_train_step`` with ``fused_lamb(1e-3, layout=layout)`` and
+    the identity scaler: one warm-up step and ``TRAIN_STEPS`` timed ones,
+    weights from seed 0, launch counts zeroed just before and read just
+    after. Returns (metrics, state, step_fn)."""
+    from apex_tpu_torch.amp import ScalerConfig
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import make_mlm_train_step
+    from apex_tpu_torch.optimizers import fused_lamb
+
+    init_fn, step_fn = make_mlm_train_step(
+        bcfg, fused_lamb(1e-3, layout=layout), ScalerConfig(enabled=False))
+    state = init_fn(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, tok, tgt, mask)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step_fn(state, tok, tgt, mask)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    n_steps = TRAIN_STEPS + 1
+    run = f"BERT {layout} ln_impl={bcfg.ln_impl}"
+    metrics = dict(
+        run=run, train_tokens_per_sec=TRAIN_STEPS * tok.numel() / wall,
+        step_ms=wall / TRAIN_STEPS * 1e3, warmup_step_ms=warm * 1e3,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        losses=losses, launches=counts,
+        launches_per_step={k: v / n_steps for k, v in counts.items()})
+    log(f"train {run}: " + json.dumps(metrics))
+    check(all(np.isfinite(losses)), f"train {run}: non-finite loss")
+    check(abs(losses[0] - math.log(bcfg.vocab_size)) < 1.0,
+          f"train {run}: first loss {losses[0]} is not near ln(vocab) "
+          f"{math.log(bcfg.vocab_size):.3f}")
+    check(losses[-1] < losses[0] - BERT_LOSS_FALL,
+          f"train {run}: the loss did not fall by {BERT_LOSS_FALL} on the "
+          f"repeated batch")
+    want = bert_launches_per_step(bcfg)
+    flat = layout == "flat"
+    want.update(l2norm_flat=int(flat), adam_flat=int(flat),
+                decode_attention=0, decode_write_column=0)
+    for name, per_step in want.items():
+        check(counts[name] == per_step * n_steps,
+              f"train {run}: {name} launched {counts[name]} times, expected "
+              f"{per_step} x {n_steps} steps")
+    return metrics, state, step_fn
 
 
 def main() -> int:
@@ -1067,11 +1519,11 @@ def main() -> int:
         log(f"grads phase {time.perf_counter() - t:.1f}s")
         t = time.perf_counter()
         flat, state, step_fn = phase_train(tcfg, "flat", tok, tgt)
-        phase_train_profile("flat", state, step_fn, tok, tgt)
+        phase_train_profile("flat", state, step_fn, (tok, tgt))
         del state, step_fn
         torch.cuda.empty_cache()
         tree, state, step_fn = phase_train(tcfg, "tree", tok, tgt)
-        phase_train_profile("tree", state, step_fn, tok, tgt)
+        phase_train_profile("tree", state, step_fn, (tok, tgt))
         del state, step_fn
         gap = max(abs(a - b) for a, b in zip(flat["losses"], tree["losses"]))
         log(f"train: flat vs tree max|loss diff| over "
@@ -1082,6 +1534,40 @@ def main() -> int:
         check(flat["losses"][0] == tree["losses"][0],
               "train: the first step's losses differ between the layouts")
         log(f"train phase {time.perf_counter() - t:.1f}s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the BERT slice: kernels, gradients, runs (a) and (b), profile
+        t = time.perf_counter()
+        bcfg_a = bert_config(ln_impl="pallas")
+        bert_rows, bert_extra = phase_bert_kernels(bcfg_a)
+        log(f"BERT kernels phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        from apex_tpu_torch.models import bert
+
+        batch = bert_batch(bcfg_a)
+        params = bert.init(bcfg_a, torch.Generator("cuda").manual_seed(0))
+        phase_bert_grads(bcfg_a, params, *batch)
+        del params
+        torch.cuda.empty_cache()
+        log(f"BERT grads phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        run_a, state, step_fn = phase_bert_train(bcfg_a, "flat", *batch)
+        phase_train_profile("BERT flat", state, step_fn, batch)
+        del state, step_fn
+        torch.cuda.empty_cache()
+        run_b, state, step_fn = phase_bert_train(bert_config(), "tree",
+                                                 *batch)
+        del state, step_fn
+        torch.cuda.empty_cache()
+        gap = max(abs(a - b) for a, b in zip(run_a["losses"],
+                                             run_b["losses"]))
+        log(f"BERT: runs (a) and (b) max|loss diff| over "
+            f"{len(run_a['losses'])} steps = {gap:.3e} (band "
+            f"{BERT_LOSS_BAND})")
+        check(gap <= BERT_LOSS_BAND,
+              f"BERT: runs (a) and (b) losses differ by {gap}")
+        log(f"BERT train phase {time.perf_counter() - t:.1f}s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -1092,6 +1578,11 @@ def main() -> int:
     rows["flash_attention_bsh"]["train"] = dict(
         fwd_train, launches=flat["launches"]["flash_attention_bsh"])
     rows.update(train_rows)
+    for kname, r in bert_extra.items():
+        rows[kname]["bert"] = dict(r, launches=run_a["launches"][kname])
+    for r in bert_rows.values():
+        r["launches"] = run_a["launches"][r["name"]]
+    rows.update(bert_rows)
     log(f"card: {card}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"total {time.perf_counter() - t0:.1f}s")

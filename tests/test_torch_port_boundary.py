@@ -25,9 +25,10 @@ import torch
 
 from apex_tpu_torch import _capabilities, resolve_device
 from apex_tpu_torch.amp import ScalerConfig
+from apex_tpu_torch.models import bert as tbert
 from apex_tpu_torch.models import gpt as tgpt
 from apex_tpu_torch.models import training as ttraining
-from apex_tpu_torch.optimizers import fused_adam
+from apex_tpu_torch.optimizers import fused_adam, fused_lamb
 from apex_tpu_torch.serving import Engine, EngineConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,8 +69,8 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its eight subpackages and their seventeen modules
-    assert int(out["MODULES"]) == 26, out
+    # the package, its eight subpackages and their twenty-one modules
+    assert int(out["MODULES"]) == 30, out
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"
     assert out["CUDA_INIT"] == "False"
@@ -117,6 +118,8 @@ def no_cuda(monkeypatch):
 
 SMALL = dict(vocab_size=64, hidden_size=64, num_layers=1, num_heads=1,
              seq_len=32, compute_dtype=torch.float32)
+BERT_SMALL = dict(vocab_size=64, hidden_size=64, num_layers=1, num_heads=1,
+                  seq_len=32, compute_dtype=torch.float32)
 
 
 @pytest.fixture(scope="module")
@@ -144,7 +147,8 @@ def test_resolve_device_is_the_one_rule(no_cuda):
 
 @pytest.mark.parametrize("entry", ["init", "params_from_numpy", "generate",
                                    "engine", "make_train_step",
-                                   "train_state_from_numpy", "scaler_init"])
+                                   "train_state_from_numpy", "scaler_init",
+                                   "bert_init", "make_mlm_train_step"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         no_cuda, cpu_params, entry):
     cfg, params = cpu_params
@@ -164,6 +168,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(
                 init_fn(torch.Generator().manual_seed(0))))
         elif entry == "scaler_init":
             ScalerConfig().init()
+        elif entry == "bert_init":
+            tbert.init(tbert.BertConfig(**BERT_SMALL),
+                       torch.Generator().manual_seed(0))
+        elif entry == "make_mlm_train_step":
+            tbert.make_mlm_train_step(tbert.BertConfig(**BERT_SMALL),
+                                      fused_lamb())
         else:
             Engine(cfg, params, EngineConfig(slots=1, max_prompt_len=8,
                                              max_seq_len=16))

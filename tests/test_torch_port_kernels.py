@@ -164,11 +164,16 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     tk.decode_attention(q, kn, vn, kc, vc, torch.zeros(4, dtype=torch.int32))
     x = torch.zeros(1, 8, 128)
     tk.flash_attention_bsh(x, x, x, num_heads=2, causal=True)
+    tk.layer_norm(x)
+    tk.l2norm_flat([x.reshape(-1)])
     assert tk.launch_counts() == {"flash_attention_bsh": 0,
                                   "decode_write_column": 0,
                                   "decode_attention": 0,
                                   "flash_attention_bsh_bwd": 0,
-                                  "adam_flat": 0}
+                                  "adam_flat": 0,
+                                  "layer_norm_fwd": 0,
+                                  "layer_norm_bwd": 0,
+                                  "l2norm_flat": 0}
     tk.write_column.launches = 3
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
@@ -219,4 +224,4 @@ def test_build_dir_is_content_addressed():
     assert d == _build.build_dir()
     assert {p.name for p in _build._sources()} == {
         "flash_attention_bsh.cu", "decode_attention.cu",
-        "flash_attention_bsh_bwd.cu", "flat_ops.cu"}
+        "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu"}

@@ -123,13 +123,20 @@ def _adam_flat_vs_jax(seed, **flags):
           torch.from_numpy(np.asarray(pj[1], np.float32)).bfloat16()]
     gt, mt_, vt = ([torch.from_numpy(arrs[i].copy()),
                     torch.from_numpy(arrs[i + 4].copy())] for i in (1, 2, 3))
+    p_before = [p.clone() for p in pt]
     got = adam_flat(pt, gt, mt_, vt, **hp)
     for wl, gl in zip(want, got):
         np.testing.assert_allclose(_np(gl[0]), np.asarray(wl[0]), **F32)
         np.testing.assert_allclose(_np(gl[1]),
                                    np.asarray(wl[1], np.float32), **BF16)
-    # params, m and v are updated in place
-    assert got[1][0] is mt_[0] and got[2][1] is vt[1] and got[0][0] is pt[0]
+    # m and v are updated in place; the params too, unless the sweep
+    # returns deltas, which go to new fp32 buffers and leave p as it was
+    assert got[1][0] is mt_[0] and got[2][1] is vt[1]
+    if flags.get("out_is_delta"):
+        assert all(torch.equal(p, b) for p, b in zip(pt, p_before))
+        assert all(d.dtype == torch.float32 for d in got[0])
+    else:
+        assert got[0][0] is pt[0]
 
 
 @pytest.mark.parametrize("adam_w_mode", [True, False])

@@ -131,16 +131,18 @@ def jax_flat(mesh, batch):
 # the flash-attention backward
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("b,s", [(2, 96), (1, 128)])
-def test_flash_backward_matches_jax_vjp(dtype, b, s):
+def test_flash_backward_matches_jax_vjp(dtype, b, s, causal):
     """dQ/dK/dV through the port's custom op (its autograd calls the
     backward op, here the plain backward) against ``jax.vjp`` of the
-    interpret-mode JAX kernel; s=96 is not a multiple of the CUDA
-    kernel's 64-row tile. hidden 128 = 2 heads of 64 (the JAX side packs
-    them into one lane group). bf16: JAX rounds P and dS to bf16 before
-    its products, the port keeps them in fp32, and every gradient is
-    rounded to bf16: 3e-2 of the largest gradient."""
+    interpret-mode JAX kernel, causal (GPT) and bidirectional (BERT);
+    s=96 is not a multiple of the CUDA kernel's 64-row tile. hidden 128 =
+    2 heads of 64 (the JAX side packs them into one lane group). bf16: JAX
+    rounds P and dS to bf16 before its products, the port keeps them in
+    fp32, and every gradient is rounded to bf16: 3e-2 of the largest
+    gradient."""
     hidden, heads = 128, 2
     jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
               else (jnp.bfloat16, torch.bfloat16))
@@ -150,12 +152,12 @@ def test_flash_backward_matches_jax_vjp(dtype, b, s):
             for _ in range(4)]
     qj, kj, vj, doj = (jnp.asarray(a, jd) for a in arrs)
     _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_bsh(
-        q, k, v, num_heads=heads, causal=True), qj, kj, vj)
+        q, k, v, num_heads=heads, causal=causal), qj, kj, vj)
     want = vjp(doj)
     q, k, v, do = (torch.from_numpy(a.copy()).to(td) for a in arrs)
     for t in (q, k, v):
         t.requires_grad_(True)
-    out = tk.flash_attention_bsh(q, k, v, num_heads=heads, causal=True)
+    out = tk.flash_attention_bsh(q, k, v, num_heads=heads, causal=causal)
     got = torch.autograd.grad(out, (q, k, v), do)
     for g, w in zip(got, want):
         assert g.dtype == td
