@@ -15,8 +15,16 @@ from apex_tpu_torch.kernels import _build
 from apex_tpu_torch.kernels.decode_attention import (
     attend_cache,
     attend_cache_plain,
+    cache_write_columns,
+    cache_write_columns_plain,
     decode_attention,
     decode_attention_plain,
+    paged_attention,
+    paged_attention_plain,
+    paged_write_column,
+    paged_write_column_plain,
+    paged_write_columns,
+    paged_write_columns_plain,
     write_column,
     write_column_plain,
 )
@@ -52,6 +60,10 @@ KERNEL_WRAPPERS = {
     "layer_norm_fwd": layer_norm_fwd,
     "layer_norm_bwd": layer_norm_bwd,
     "l2norm_flat": l2norm_flat,
+    "paged_write_column": paged_write_column,
+    "paged_attention": paged_attention,
+    "cache_write_columns": cache_write_columns,
+    "paged_write_columns": paged_write_columns,
 }
 
 
@@ -71,6 +83,8 @@ __all__ = [
     "adam_flat_plain",
     "attend_cache",
     "attend_cache_plain",
+    "cache_write_columns",
+    "cache_write_columns_plain",
     "decode_attention",
     "decode_attention_plain",
     "flash_attention_bsh",
@@ -86,6 +100,12 @@ __all__ = [
     "layer_norm_bwd_plain",
     "layer_norm_fwd",
     "layer_norm_fwd_plain",
+    "paged_attention",
+    "paged_attention_plain",
+    "paged_write_column",
+    "paged_write_column_plain",
+    "paged_write_columns",
+    "paged_write_columns_plain",
     "reset_launch_counts",
     "rms_norm",
     "write_column",

@@ -84,6 +84,19 @@ _SIGNATURES = {
     "apex_tpu_torch_decode_attention": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_void_p],
+    "apex_tpu_torch_cache_write_columns": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+    "apex_tpu_torch_paged_write_column": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+    "apex_tpu_torch_paged_write_columns": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+    "apex_tpu_torch_paged_attention": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+        _c_void_p],
 }
 
 

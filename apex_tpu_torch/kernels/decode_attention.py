@@ -1,8 +1,9 @@
-"""Flash-decode attention for the KV-cache decode step.
+"""Flash-decode attention for the KV-cache decode step, contiguous and
+paged.
 
-Port of ``apex_tpu/kernels/decode_attention.py:decode_attention``, which
-composes two Pallas kernels; here each is a CUDA kernel in
-``csrc/decode_attention.cu`` with its own wrapper and launch count:
+Port of ``apex_tpu/kernels/decode_attention.py``. Each Pallas kernel of
+the decode path is a CUDA kernel in ``csrc/decode_attention.cu`` with
+its own wrapper and launch count:
 
 - :func:`write_column` — ``cache[b, :, pos[b], :] = new[b]`` for the K
   and V caches in one launch, IN PLACE (the JAX kernel aliases the
@@ -12,10 +13,24 @@ composes two Pallas kernels; here each is a CUDA kernel in
   softmax. Columns past ``pos[b]`` contribute exact zeros whatever they
   hold (NaN included);
 - :func:`decode_attention` — the two in order: write this token's K/V
-  column, then attend.
+  column, then attend;
+- :func:`cache_write_columns` — the speculative verify's T-column write
+  at ``pos[b] + j``, lanes past the horizon CLAMPED onto its last
+  column;
+- :func:`paged_write_column`, :func:`paged_write_columns` and
+  :func:`paged_attention` — the same three jobs over a global page pool
+  ``[num_pages, h, P, d]`` through a block table ``[b, max_pages]``:
+  logical column ``c`` of row ``b`` lives in page ``table[b, c // P]``
+  at offset ``c % P``. The paged read is the contiguous kernel's sweep
+  with only the address changed, so on the same bytes it returns the
+  same bits.
 
 Each has a plain PyTorch twin (``*_plain``) that CPU tensors run; CUDA
-tensors launch the kernel or raise.
+tensors launch the kernel or raise. Beside them are the XLA spellings
+the model's materialised-scores path uses (:func:`paged_gather_xla`,
+:func:`paged_write_columns_xla`, :func:`cache_write_columns_xla`): they
+DROP lanes past the horizon where the kernels clamp them, both as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -173,3 +188,330 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos, *,
     _check_geometry(q, k_cache, v_cache, pos)
     write_column(k_new, v_new, k_cache, v_cache, pos)
     return attend_cache(q, k_cache, v_cache, pos, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# multi-column and paged writes: the cell scatter shared by the plain twins
+# and the XLA spellings
+# ---------------------------------------------------------------------------
+
+def _scatter_cells(plane, new, i0, i2, keep, *, first: bool) -> None:
+    """``plane[i0[n], :, i2[n]] = new[n]`` IN PLACE for the writers ``n``
+    where ``keep`` holds (``new [n, h, d]`` in writer order; ``i0``/``i2``
+    in range for every writer). Where several kept writers hit one cell
+    the first (``first=True``, the XLA spellings' argmax) or the last
+    (the Pallas grid's last writer) wins, decided per cell before the
+    write, so the result never depends on how an indexed assignment
+    orders duplicates. The plane is rewritten whole, as the JAX
+    spelling does, with no host synchronisation (a CUDA graph can
+    capture it)."""
+    d0, h, d2, d = plane.shape
+    n = new.shape[0]
+    order = torch.arange(n, device=plane.device)
+    fill = n if first else -1
+    src = torch.where(keep, order, torch.full_like(order, fill))
+    win = torch.full((d0 * d2,), fill, dtype=torch.long,
+                     device=plane.device).scatter_reduce(
+        0, i0 * d2 + i2, src, "amin" if first else "amax")
+    hit = (win != fill)[:, None, None]
+    taken = new[win.clamp(0, n - 1)].to(plane.dtype)
+    flat = plane.permute(0, 2, 1, 3).reshape(d0 * d2, h, d)
+    plane.copy_(torch.where(hit, taken, flat).view(d0, d2, h, d).permute(
+        0, 2, 1, 3))
+
+
+def _columns(pos, t: int, device) -> torch.Tensor:
+    """Logical columns ``pos[b] + j`` as int64 ``[b, t]``."""
+    p = pos.to(device=device, dtype=torch.long)
+    return p[:, None] + torch.arange(t, device=device)[None]
+
+
+def _lanes(new) -> torch.Tensor:
+    """``new [b, h, T, d]`` → ``[b * T, h, d]`` in writer order (row
+    major over (b, j), the Pallas grid's order)."""
+    b, h, t, d = new.shape
+    return new.permute(0, 2, 1, 3).reshape(b * t, h, d)
+
+
+def _page_cells(table, cols, p: int):
+    """(page, offset) of logical columns ``cols [b, T]`` (already inside
+    the horizon) under ``table [b, max_pages]``."""
+    tbl = table.to(device=cols.device, dtype=torch.long)
+    return torch.gather(tbl, 1, cols // p), cols % p
+
+
+def cache_write_columns_xla(cache, new, pos) -> None:
+    """The XLA spelling of the multi-column write, one plane at a time:
+    ``cache [b, h, S, d]`` gains ``new [b, h, T, d]`` at columns ``pos[b]
+    + j`` IN PLACE; columns at or past ``S`` are DROPPED (the write guard
+    the verify forward relies on: an over-horizon lane must not clamp
+    into a neighbouring column)."""
+    b, _, sk, _ = cache.shape
+    t = new.shape[2]
+    cols = _columns(pos, t, cache.device)
+    keep = ((cols >= 0) & (cols < sk)).reshape(-1)
+    rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
+    _scatter_cells(cache, _lanes(new), rows.reshape(-1),
+                   cols.clamp(0, sk - 1).reshape(-1), keep, first=True)
+
+
+def paged_gather_xla(plane, table) -> torch.Tensor:
+    """The row-contiguous view of a paged plane: ``plane [num_pages, h,
+    P, d]`` under ``table [b, max_pages]`` → ``[b, h, max_pages * P,
+    d]``, the bytes a contiguous cache would hold."""
+    g = plane[table.to(device=plane.device, dtype=torch.long)]
+    b, mp, h, p, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, mp * p, d)
+
+
+def paged_write_columns_xla(plane, new, table, pos) -> None:
+    """Write ``new [b, h, T, d]`` into logical columns ``pos[b] + j`` of
+    the paged plane ``[num_pages, h, P, d]`` under ``table [b,
+    max_pages]``, IN PLACE. Columns at or past the row's ``max_pages *
+    P`` horizon are DROPPED; rows that collide in a shared page (the
+    sink) leave the first hitter's value, as JAX's argmax does."""
+    p = plane.shape[2]
+    smax = table.shape[1] * p
+    t = new.shape[2]
+    cols = _columns(pos, t, plane.device)
+    keep = ((cols >= 0) & (cols < smax)).reshape(-1)
+    pages, offs = _page_cells(table, cols.clamp(0, smax - 1), p)
+    _scatter_cells(plane, _lanes(new), pages.reshape(-1), offs.reshape(-1),
+                   keep, first=True)
+
+
+def _check_paged(q_or_new, k_pool, v_pool, table, pos, *,
+                 multi: bool = False):
+    """Geometry of the paged kernels: rows ``[b, h, d]`` (``[b, h, T, d]``
+    with ``multi``), pools ``[num_pages, h, P, d]``, table ``[b,
+    max_pages]``, pos ``[b]``."""
+    want = 4 if multi else 3
+    if q_or_new.ndim != want or k_pool.ndim != 4:
+        raise ValueError(
+            f"expected rows of rank {want} and pools [num_pages, h, P, d], "
+            f"got {tuple(q_or_new.shape)} / {tuple(k_pool.shape)}")
+    b, h, d = (q_or_new.shape[0], q_or_new.shape[1], q_or_new.shape[-1])
+    n, hp, p, dp = k_pool.shape
+    if (hp, dp) != (h, d) or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
+            f"inconsistent with rows {tuple(q_or_new.shape)}")
+    if table.ndim != 2 or table.shape[0] != b:
+        raise ValueError(f"table must be [{b}, max_pages], got "
+                         f"{tuple(table.shape)}")
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"pos must be [{b}], got {tuple(pos.shape)}")
+    return b, h, n, p, table.shape[1], d
+
+
+# ---------------------------------------------------------------------------
+# cache_write_columns (contiguous, T columns)
+# ---------------------------------------------------------------------------
+
+def cache_write_columns_plain(k_new, v_new, k_cache, v_cache, pos) -> None:
+    """Plain twin of the Pallas ``_write_cols_kernel``: lane ``j`` of row
+    ``b`` lands at column ``min(pos[b] + j, S - 1)``, IN PLACE; of the
+    lanes clamped onto ``S - 1`` the row's last one wins."""
+    b, _, sk, _ = k_cache.shape
+    t = k_new.shape[2]
+    cols = _columns(pos, t, k_cache.device).clamp(max=sk - 1)
+    rows = torch.arange(b, device=k_cache.device)[:, None].expand(b, t)
+    keep = (cols >= 0).reshape(-1)
+    for new, cache in ((k_new, k_cache), (v_new, v_cache)):
+        _scatter_cells(cache, _lanes(new), rows.reshape(-1),
+                       cols.clamp(min=0).reshape(-1), keep, first=False)
+
+
+def cache_write_columns(k_new, v_new, k_cache, v_cache, pos) -> None:
+    """Write ``k_new/v_new [b, h, T, d]`` into columns ``pos[b] .. pos[b]
+    + T - 1`` of the caches ``[b, h, S, d]`` IN PLACE, lanes past the
+    horizon clamped onto column ``S - 1`` (only discarded lanes ever read
+    that cell, see the JAX function). CUDA tensors launch the kernel
+    (counted in ``cache_write_columns.launches``), CPU tensors run the
+    plain version."""
+    if k_new.ndim != 4 or k_cache.ndim != 4:
+        raise ValueError(
+            f"expected new [b, h, T, d] and caches [b, h, S, d], got "
+            f"{tuple(k_new.shape)} / {tuple(k_cache.shape)}")
+    b, h, t, d = k_new.shape
+    sk = k_cache.shape[2]
+    if tuple(k_cache.shape) != (b, h, sk, d) \
+            or v_cache.shape != k_cache.shape or v_new.shape != k_new.shape:
+        raise ValueError(
+            f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
+            f"inconsistent with new {tuple(k_new.shape)}")
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"pos must be [{b}], got {tuple(pos.shape)}")
+    if not _build.on_cuda(k_new, v_new, k_cache, v_cache, pos):
+        cache_write_columns_plain(k_new, v_new, k_cache, v_cache, pos)
+        return
+    code = _build.dtype_code(k_cache, "cache_write_columns cache")
+    dt = k_cache.dtype
+    _build.require(k_new, "k_new", (b, h, t, d), dt)
+    _build.require(v_new, "v_new", (b, h, t, d), dt)
+    _build.require(k_cache, "k_cache", (b, h, sk, d), dt)
+    _build.require(v_cache, "v_cache", (b, h, sk, d), dt)
+    _build.require(pos, "pos", (b,), torch.int32)
+    rc = _build.library().apex_tpu_torch_cache_write_columns(
+        k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), pos.data_ptr(), b, h, t, sk, d, code,
+        _build.stream())
+    _build.check(rc, "cache_write_columns")
+    cache_write_columns.launches += 1
+
+
+cache_write_columns.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged writes
+# ---------------------------------------------------------------------------
+
+def _paged_write_plain(new, pool, table, pos, *, clamp: bool) -> None:
+    p = pool.shape[2]
+    smax = table.shape[1] * p
+    t = new.shape[2]
+    cols = _columns(pos, t, pool.device)
+    if clamp:
+        keep = cols >= 0
+    else:
+        keep = (cols >= 0) & (cols < smax)
+    pages, offs = _page_cells(table, cols.clamp(0, smax - 1), p)
+    _scatter_cells(pool, _lanes(new), pages.reshape(-1), offs.reshape(-1),
+                   keep.reshape(-1), first=False)
+
+
+def paged_write_column_plain(k_new, v_new, k_pool, v_pool, table,
+                             pos) -> None:
+    """Plain twin of ``_paged_write_kernel``: ``pool[table[b, pos // P],
+    :, pos % P] = new[b]`` for both pools, IN PLACE (a position outside
+    the horizon is not written)."""
+    for new, pool in ((k_new, k_pool), (v_new, v_pool)):
+        _paged_write_plain(new[:, :, None], pool, table, pos, clamp=False)
+
+
+def paged_write_column(k_new, v_new, k_pool, v_pool, table, pos) -> None:
+    """Write ``k_new/v_new [b, h, d]`` into logical column ``pos[b]`` of
+    the pools ``[num_pages, h, P, d]`` under ``table [b, max_pages]``
+    (int32) IN PLACE: page ``table[b, pos // P]``, offset ``pos % P``.
+    CUDA tensors launch the kernel (counted in
+    ``paged_write_column.launches``), CPU tensors run the plain
+    version."""
+    b, h, n, p, mp, d = _check_paged(k_new, k_pool, v_pool, table, pos)
+    if not _build.on_cuda(k_new, v_new, k_pool, v_pool, table, pos):
+        paged_write_column_plain(k_new, v_new, k_pool, v_pool, table, pos)
+        return
+    code = _build.dtype_code(k_pool, "paged_write_column pool")
+    dt = k_pool.dtype
+    _build.require(k_new, "k_new", (b, h, d), dt)
+    _build.require(v_new, "v_new", (b, h, d), dt)
+    _build.require(k_pool, "k_pool", (n, h, p, d), dt)
+    _build.require(v_pool, "v_pool", (n, h, p, d), dt)
+    _build.require(table, "table", (b, mp), torch.int32)
+    _build.require(pos, "pos", (b,), torch.int32)
+    rc = _build.library().apex_tpu_torch_paged_write_column(
+        k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), b, h, p, mp, d,
+        code, _build.stream())
+    _build.check(rc, "paged_write_column")
+    paged_write_column.launches += 1
+
+
+paged_write_column.launches = 0
+
+
+def paged_write_columns_plain(k_new, v_new, k_pool, v_pool, table,
+                              pos) -> None:
+    """Plain twin of ``_paged_write_cols_kernel``: lane ``j`` of row ``b``
+    lands at logical column ``min(pos[b] + j, max_pages * P - 1)`` through
+    the table, IN PLACE; where lanes collide the last one (row major over
+    (b, j)) wins."""
+    for new, pool in ((k_new, k_pool), (v_new, v_pool)):
+        _paged_write_plain(new, pool, table, pos, clamp=True)
+
+
+def paged_write_columns(k_new, v_new, k_pool, v_pool, table, pos) -> None:
+    """Write ``k_new/v_new [b, h, T, d]`` into logical columns ``pos[b] ..
+    pos[b] + T - 1`` of the pools through ``table`` IN PLACE, lanes past
+    the row's horizon ``max_pages * P`` clamped onto its last column.
+    CUDA tensors launch the kernel (counted in
+    ``paged_write_columns.launches``), CPU tensors run the plain
+    version."""
+    b, h, n, p, mp, d = _check_paged(k_new, k_pool, v_pool, table, pos,
+                                     multi=True)
+    t = k_new.shape[2]
+    if not _build.on_cuda(k_new, v_new, k_pool, v_pool, table, pos):
+        paged_write_columns_plain(k_new, v_new, k_pool, v_pool, table, pos)
+        return
+    code = _build.dtype_code(k_pool, "paged_write_columns pool")
+    dt = k_pool.dtype
+    _build.require(k_new, "k_new", (b, h, t, d), dt)
+    _build.require(v_new, "v_new", (b, h, t, d), dt)
+    _build.require(k_pool, "k_pool", (n, h, p, d), dt)
+    _build.require(v_pool, "v_pool", (n, h, p, d), dt)
+    _build.require(table, "table", (b, mp), torch.int32)
+    _build.require(pos, "pos", (b,), torch.int32)
+    rc = _build.library().apex_tpu_torch_paged_write_columns(
+        k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), b, h, t, p, mp,
+        d, code, _build.stream())
+    _build.check(rc, "paged_write_columns")
+    paged_write_columns.launches += 1
+
+
+paged_write_columns.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged read
+# ---------------------------------------------------------------------------
+
+def paged_attention_plain(q, k_pool, v_pool, table, pos, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``_paged_attn_kernel``: the rows' pages gathered
+    into the contiguous view, then :func:`attend_cache_plain` (fp32,
+    columns past ``pos`` masked before any product, so stale pages and
+    the sink never reach the output)."""
+    _check_paged(q, k_pool, v_pool, table, pos)
+    return attend_cache_plain(q, paged_gather_xla(k_pool, table),
+                              paged_gather_xla(v_pool, table), pos,
+                              scale=scale)
+
+
+def paged_attention(q, k_pool, v_pool, table, pos, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """``out [b, h, d]``: each (batch, head) row of ``q`` attends over its
+    logical columns ``0..pos[b]`` of the pools ``[num_pages, h, P, d]``
+    through ``table [b, max_pages]`` (int32) — the contiguous kernel's
+    sweep with column ``c`` read from page ``table[b, c // P]``. Takes
+    any ``P >= 1`` and any ``max_pages``; ``pos`` must lie in ``[0,
+    max_pages * P)`` (:func:`check_positions` checks it off the hot
+    path). CUDA tensors launch the kernel (counted in
+    ``paged_attention.launches``), CPU tensors run the plain version."""
+    b, h, n, p, mp, d = _check_paged(q, k_pool, v_pool, table, pos)
+    if not _build.on_cuda(q, k_pool, v_pool, table, pos):
+        return paged_attention_plain(q, k_pool, v_pool, table, pos,
+                                     scale=scale)
+    code = _build.dtype_code(q, "paged_attention q")
+    if d != _build.KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"paged_attention kernel: head_dim {d} != "
+            f"{_build.KERNEL_HEAD_DIM}")
+    dt = q.dtype
+    _build.require(q, "q", (b, h, d), dt)
+    _build.require(k_pool, "k_pool", (n, h, p, d), dt)
+    _build.require(v_pool, "v_pool", (n, h, p, d), dt)
+    _build.require(table, "table", (b, mp), torch.int32)
+    _build.require(pos, "pos", (b,), torch.int32)
+    s_ = float(scale) if scale is not None else 1.0 / d ** 0.5
+    out = torch.empty_like(q)
+    rc = _build.library().apex_tpu_torch_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, p, mp, d, s_,
+        code, _build.stream())
+    _build.check(rc, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -12,11 +12,14 @@ What the port carries: the forward (:func:`logits`), the training loss
 of :func:`_ce_of_hidden`, the layer loop :func:`_scan_blocks` under
 ``remat`` / ``remat_policy``), bulk prefill (:func:`prefill`,
 :func:`prefill_at`, :func:`prefill_many`), KV-cache decode
-(:func:`decode_step`, :func:`decode_steps`), the cache seams
-(:func:`init_cache`, :func:`cache_insert_slot(s)`) and :func:`generate`,
-the solo oracle of the serving engine. The port has no mesh and runs
-tp=1. Every function has the JAX package's tp=1 semantics with two
-differences of idiom:
+(:func:`decode_step`, :func:`decode_steps`, both over the contiguous
+cache or, with a block ``table``, the paged pool), speculative decoding
+(:func:`ngram_drafts`, :func:`shift_hist`, :func:`decode_verify`,
+:func:`decode_steps_spec`), the cache seams (:func:`init_cache`,
+:func:`cache_insert_slot(s)`, :func:`cache_insert_pages`) and
+:func:`generate`, the solo oracle of the serving engine. The port has no
+mesh and runs tp=1. Every function has the JAX package's tp=1 semantics
+with two differences of idiom:
 
 - the KV cache is updated IN PLACE wherever the JAX function returns a
   new (donated) cache; the functions still return it, so call sites read
@@ -70,6 +73,15 @@ from torch.utils.checkpoint import (
 from apex_tpu_torch import _tree
 from apex_tpu_torch._capabilities import resolve_device
 from apex_tpu_torch.kernels import decode_attention, flash_attention_bsh
+from apex_tpu_torch.kernels.decode_attention import (
+    cache_write_columns,
+    cache_write_columns_xla,
+    paged_attention,
+    paged_gather_xla,
+    paged_write_column,
+    paged_write_columns,
+    paged_write_columns_xla,
+)
 from apex_tpu_torch.kernels.flash_attention import FLASH_FWD_OP
 from apex_tpu_torch.kernels.layer_norm import layer_norm
 from apex_tpu_torch.serving import sampling as _sampling
@@ -596,6 +608,23 @@ def _decode_attn_impl(cfg: GPTConfig, device: torch.device) -> str:
     return cfg.decode_attn_impl
 
 
+def _xla_decode_read(q, k_cache, v_cache, pos):
+    """THE materialised-scores read of one query row per (batch, head):
+    ``q [b, heads, d]`` over columns ``0..pos[b]`` of ``k_cache/v_cache
+    [b, heads, S, d]``. The scale is folded into q BEFORE the product
+    (the fp16 range guard); the contiguous and the paged path both call
+    this, so on the same bytes they give the same bits."""
+    d = q.shape[-1]
+    s_max = k_cache.shape[2]
+    p = pos.to(device=q.device, dtype=torch.long)
+    valid = (torch.arange(s_max, device=q.device)[None] <= p[:, None])[:, None]
+    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype)
+    scores = torch.einsum("bhd,bhsd->bhs", q, k_cache).float()
+    scores = scores.masked_fill(~valid, -1e30)
+    p_attn = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhs,bhsd->bhd", p_attn, v_cache)
+
+
 def _decode_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos):
     """Write this token's K/V at ``pos [b]`` (int32) into the layer's
     cache ``kv [2, b, heads, S, d]`` IN PLACE and attend ``q [b, heads,
@@ -604,30 +633,48 @@ def _decode_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos):
     if _decode_attn_impl(cfg, q.device) == "kernel":
         return decode_attention(q, k_new, v_new, kv[0], kv[1], pos,
                                 scale=1.0 / math.sqrt(d))
-    s_max = kv.shape[3]
     rows = torch.arange(q.shape[0], device=q.device)
     p = pos.long()
     kv[0][rows, :, p] = k_new.to(kv.dtype)
     kv[1][rows, :, p] = v_new.to(kv.dtype)
-    valid = (torch.arange(s_max, device=q.device)[None] <= p[:, None])[:, None]
-    # scale folded into q BEFORE the product (the fp16 range guard)
-    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype)
-    scores = torch.einsum("bhd,bhsd->bhs", q, kv[0]).float()
-    scores = scores.masked_fill(~valid, -1e30)
-    p_attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhs,bhsd->bhd", p_attn, kv[1])
+    return _xla_decode_read(q, kv[0], kv[1], pos)
 
 
-def _decode_layer(cfg: GPTConfig, p, x, kv, pos):
+def _paged_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
+    """:func:`_decode_attend` over the PAGED layout: ``kv [2, num_pages,
+    heads, P, d]`` is the layer's slice of the page pool and ``table [b,
+    max_pages]`` (int32) maps each row's logical horizon onto pages. The
+    write lands at ``(table[b, pos // P], pos % P)`` IN PLACE. The
+    kernel impl runs the paged write and read kernels; the XLA impl
+    writes through :func:`paged_write_columns_xla`, GATHERS the
+    row-contiguous view and applies the contiguous read verbatim — the
+    same bytes and expression, so paged logits equal contiguous ones
+    bit for bit."""
+    d = q.shape[-1]
+    if _decode_attn_impl(cfg, q.device) == "kernel":
+        paged_write_column(k_new, v_new, kv[0], kv[1], table, pos)
+        return paged_attention(q, kv[0], kv[1], table, pos,
+                               scale=1.0 / math.sqrt(d))
+    paged_write_columns_xla(kv[0], k_new[:, :, None], table, pos)
+    paged_write_columns_xla(kv[1], v_new[:, :, None], table, pos)
+    return _xla_decode_read(q, paged_gather_xla(kv[0], table),
+                            paged_gather_xla(kv[1], table), pos)
+
+
+def _decode_layer(cfg: GPTConfig, p, x, kv, pos, table=None):
     """One layer for one token: ``x [b, hidden]``, ``kv`` the layer's
-    cache ``[2, b, heads, S, d]`` (updated in place)."""
+    cache ``[2, b, heads, S, d]`` — or, with ``table``, its page-pool
+    slice ``[2, num_pages, heads, P, d]`` — updated in place."""
     xa = _layer_norm(cfg, x, p["ln1"]["scale"], p["ln1"]["bias"])
     d = cfg.head_dim
     b = xa.shape[0]
     q, k_new, v_new = (t.reshape(b, t.shape[-1] // d, d)
                        for t in _qkv_project(cfg, p["attn"]["qkv"], xa))
-    ctx = _decode_attend(cfg, q, k_new, v_new, kv, pos).reshape(b, -1)
-    x = x + (torch.matmul(ctx, p["attn"]["proj"]["kernel"])
+    if table is None:
+        ctx = _decode_attend(cfg, q, k_new, v_new, kv, pos)
+    else:
+        ctx = _paged_attend(cfg, q, k_new, v_new, kv, pos, table)
+    x = x + (torch.matmul(ctx.reshape(b, -1), p["attn"]["proj"]["kernel"])
              + p["attn"]["proj"]["bias"])
     xb = _layer_norm(cfg, x, p["ln2"]["scale"], p["ln2"]["bias"])
     return x + _mlp(cfg, p["mlp"], xb)
@@ -642,13 +689,18 @@ def _lm_head(cfg: GPTConfig, params, h):
     return torch.matmul(h, table.t()).float()
 
 
-def decode_step(cfg: GPTConfig, params, cache, token, pos):
+def decode_step(cfg: GPTConfig, params, cache, token, pos, table=None):
     """One decoding step: ``token [b]`` at position ``pos`` (an int, a
     0-d tensor, or a ``[b]`` vector of per-row positions) → ``(fp32
     logits [b, vocab], cache)``; the cache gains each row's K/V column
     at its position in place. Entries past a row's position are masked
     to exact softmax zeros, so a row's logits do not depend on its
-    batch-mates or the horizon."""
+    batch-mates or the horizon.
+
+    ``table`` (int32 ``[b, max_pages]``) switches to the PAGED layout:
+    ``cache`` is then the page pool :func:`init_cache` makes with
+    ``batch=num_pages, max_len=page_size``, and row ``b``'s horizon is
+    its table row (logical column ``c`` in page ``table[b, c // P]``)."""
     if not cfg.causal:
         raise ValueError(
             "decoding is autoregressive; causal=False has no "
@@ -660,17 +712,18 @@ def decode_step(cfg: GPTConfig, params, cache, token, pos):
     pos = torch.as_tensor(pos, device=dev)
     pos = (pos.expand(b) if pos.ndim == 0 else pos).to(torch.int32)
     pos = pos.contiguous()
-    table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
+    emb = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
     pos_e = params["embedding"]["position"][pos.long()]
-    x = (table[token.long()] + pos_e.to(cfg.compute_dtype)).to(
+    x = (emb[token.long()] + pos_e.to(cfg.compute_dtype)).to(
         cfg.compute_dtype)
     for l, layer_p in enumerate(_layers(params)):
-        x = _decode_layer(cfg, _cast_layer(cfg, layer_p), x, cache[l], pos)
+        x = _decode_layer(cfg, _cast_layer(cfg, layer_p), x, cache[l], pos,
+                          table)
     return _lm_head(cfg, params, x), cache
 
 
 def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
-                 pad_token_id: int = 0, draw_fn=None):
+                 pad_token_id: int = 0, draw_fn=None, table=None):
     """``n`` decode steps, each a :func:`decode_step` + the per-slot draw
     + per-slot eos/budget masking, with no host round trip in between.
 
@@ -683,7 +736,7 @@ def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
     ``pad_token_id`` with ``tok``/``pos`` frozen. A slot finishes when
     it emits its eos or exhausts ``remaining``. ``draw_fn(logits, pos)
     → [B]`` overrides the draw (:func:`generate` passes its shared-seed
-    sampler).
+    sampler). ``table`` selects the paged layout (:func:`decode_step`).
 
     Returns ``(cache, state, tokens [B, n], logprobs [B, n], finished
     [B, n])``; ``logprobs`` is the log-softmax of the raw fp32 logits at
@@ -692,7 +745,7 @@ def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
     toks, lps, fins = [], [], []
     for _ in range(n):
         logits_, cache = decode_step(cfg, params, cache, st["tok"],
-                                     st["pos"])
+                                     st["pos"], table)
         if draw_fn is None:
             nxt = _sampling.draw_slots(logits_, st["key"], st["pos"],
                                        st["temp"], st["top_k"], st["top_p"])
@@ -726,6 +779,254 @@ def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
                 torch.zeros((B, 0), dtype=torch.bool, device=dev))
     return (cache, st, torch.stack(toks, 1), torch.stack(lps, 1),
             torch.stack(fins, 1))
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: draft k, verify k + 1 in one forward, accept a prefix
+# ---------------------------------------------------------------------------
+
+def shift_hist(hist, toks, m):
+    """Shift ``m[b]`` newly emitted tokens (the PREFIX of ``toks [B, n]``:
+    emitted columns are always a prefix) into the drafter's history ring
+    ``hist [B, H]`` (oldest first). The one ring-shift expression, shared
+    by the speculative loop and the engine's plain-chunk refresh."""
+    h = hist.shape[1]
+    ext = torch.cat([hist, toks.to(hist.dtype)], dim=1)
+    idx = (m.to(torch.long)[:, None]
+           + torch.arange(h, device=hist.device)[None])
+    return torch.gather(ext, 1, idx)
+
+
+def ngram_drafts(hist, tok, k: int):
+    """The n-gram drafter: ``k`` candidate continuations ``[B, k]`` of
+    ``tok [B]`` from each row's history ``hist [B, H]`` (oldest first,
+    ``-1`` in unfilled slots, which never matches a token). Per draft:
+    the token that followed the LATEST earlier occurrence of the current
+    2-token suffix in the window (history, current token, drafts so far),
+    else of the 1-token suffix, else the current token again."""
+    if k < 1:
+        raise ValueError(f"ngram_drafts needs k >= 1, got {k}")
+    win = torch.cat([hist.to(torch.long), tok[:, None].to(torch.long)],
+                    dim=1)
+    dev = win.device
+    out = []
+    for _ in range(k):
+        b, w = win.shape
+        ctx = win[:, -1]
+        prev = win[:, -2]
+        body = win[:, :-1]                       # candidate positions
+        # prevcol[m] = win[m-1] (m = 0 gets a never-matching sentinel)
+        prevcol = torch.cat([torch.full((b, 1), -2, dtype=torch.long,
+                                        device=dev), win[:, :-2]], dim=1)
+        idx = torch.arange(w - 1, device=dev)[None]
+        none = torch.full_like(body, -1)
+        hit1 = body == ctx[:, None]
+        m1 = torch.where(hit1, idx, none).amax(dim=1)
+        m2 = torch.where(hit1 & (prevcol == prev[:, None]), idx,
+                         none).amax(dim=1)
+        m = torch.where(m2 >= 0, m2, m1)
+        succ = torch.gather(win, 1, (m + 1).clamp(0, w - 1)[:, None])[:, 0]
+        d = torch.where((m >= 0) & (succ >= 0), succ, ctx)
+        out.append(d)
+        win = torch.cat([win, d[:, None]], dim=1)
+    return torch.stack(out, dim=1)
+
+
+def _xla_verify_read(q, k_cache, v_cache, pos):
+    """:func:`_xla_decode_read` for ``T`` query rows per (batch, head):
+    ``q [b, heads, T, d]``, row ``t`` over columns ``0 .. pos[b] + t``
+    of ``k_cache/v_cache [b, heads, S, d]``. The same expression with
+    one more query dim (scale folded into q, fp32 scores, -1e30 mask,
+    fp32 softmax cast back)."""
+    d = q.shape[-1]
+    t = q.shape[2]
+    s_max = k_cache.shape[2]
+    dev = q.device
+    last = (pos.to(device=dev, dtype=torch.long)[:, None]
+            + torch.arange(t, device=dev)[None])               # [b, T]
+    valid = torch.arange(s_max, device=dev)[None, None] <= last[:, :, None]
+    q = q * torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype)
+    scores = torch.einsum("bhtd,bhsd->bhts", q, k_cache).float()
+    scores = scores.masked_fill(~valid[:, None], -1e30)
+    p_attn = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bhsd->bhtd", p_attn, v_cache)
+
+
+def _decode_attend_multi(cfg: GPTConfig, q, k_new, v_new, kv, pos):
+    """:func:`_decode_attend` for ``T`` tokens per row at positions
+    ``pos[b] .. pos[b] + T - 1`` — the verify forward's attention:
+    ``q/k_new/v_new [b, heads, T, d]``; all T K/V columns land in the
+    layer's cache ``kv [2, b, heads, S, d]`` IN PLACE (the kernel clamps
+    lanes past the horizon onto its last column, the XLA spelling drops
+    them), then row ``t`` attends over ``0 .. pos[b] + t`` through the
+    materialised read — on the kernel path too, as in JAX: T is the
+    draft width plus one, and the product lies outside any kernel."""
+    if _decode_attn_impl(cfg, q.device) == "kernel":
+        cache_write_columns(k_new.contiguous(), v_new.contiguous(), kv[0],
+                            kv[1], pos)
+    else:
+        cache_write_columns_xla(kv[0], k_new, pos)
+        cache_write_columns_xla(kv[1], v_new, pos)
+    return _xla_verify_read(q, kv[0], kv[1], pos)
+
+
+def _paged_attend_multi(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
+    """:func:`_decode_attend_multi` over the paged layout: the T columns
+    land through the paged multi-column write (kernel: clamp; XLA:
+    drop), then the rows attend the GATHERED row-contiguous view with
+    the contiguous verify read verbatim, so paged verify logits equal
+    contiguous ones on the same bytes."""
+    if _decode_attn_impl(cfg, q.device) == "kernel":
+        paged_write_columns(k_new.contiguous(), v_new.contiguous(), kv[0],
+                            kv[1], table, pos)
+    else:
+        paged_write_columns_xla(kv[0], k_new, table, pos)
+        paged_write_columns_xla(kv[1], v_new, table, pos)
+    return _xla_verify_read(q, paged_gather_xla(kv[0], table),
+                            paged_gather_xla(kv[1], table), pos)
+
+
+def _verify_layer(cfg: GPTConfig, p, x, kv, pos, table=None):
+    """:func:`_decode_layer` for ``T`` tokens per row: ``x [b, T,
+    hidden]`` at positions ``pos[b] + t``. Projections, LayerNorms and
+    the MLP act per position; attention is :func:`_decode_attend_multi`
+    (or its paged sibling with ``table``)."""
+    xa = _layer_norm(cfg, x, p["ln1"]["scale"], p["ln1"]["bias"])
+    d = cfg.head_dim
+    b, t, hl = xa.shape
+    q, k_new, v_new = (z.reshape(b, t, hl // d, d).transpose(1, 2)
+                       for z in _qkv_project(cfg, p["attn"]["qkv"], xa))
+    if table is None:
+        ctx = _decode_attend_multi(cfg, q, k_new, v_new, kv, pos)
+    else:
+        ctx = _paged_attend_multi(cfg, q, k_new, v_new, kv, pos, table)
+    out = ctx.transpose(1, 2).reshape(b, t, hl)
+    x = x + (torch.matmul(out, p["attn"]["proj"]["kernel"])
+             + p["attn"]["proj"]["bias"])
+    xb = _layer_norm(cfg, x, p["ln2"]["scale"], p["ln2"]["bias"])
+    return x + _mlp(cfg, p["mlp"], xb)
+
+
+def decode_verify(cfg: GPTConfig, params, cache, tokens, pos, table=None):
+    """The speculative verify forward: ``tokens [b, T]`` (this step's
+    input token, then T-1 drafts) at positions ``pos[b] .. pos[b] + T -
+    1`` through ONE batched forward → ``(fp32 logits [b, T, vocab],
+    cache)``; row ``t``'s logits predict position ``pos[b] + t + 1`` and
+    match what T sequential :func:`decode_step` calls would give to
+    rounding (the matmuls reduce in another order). All T K/V columns
+    land in the cache in place; a caller that accepts only a prefix
+    leaves the rest as garbage past ``pos``, which decode masks and
+    overwrites. Lanes past the position table clamp their
+    position-embedding index to ``seq_len - 1`` (their logits are
+    discarded)."""
+    if not cfg.causal:
+        raise ValueError(
+            "decoding is autoregressive; causal=False has no "
+            "incremental-decode semantics")
+    if cfg.sequence_parallel:
+        cfg = dataclasses.replace(cfg, sequence_parallel=False)
+    b, t = tokens.shape
+    dev = tokens.device
+    pos = torch.as_tensor(pos, device=dev).to(torch.int32).contiguous()
+    posn = (pos.long()[:, None] + torch.arange(t, device=dev)[None]).clamp(
+        max=cfg.seq_len - 1)
+    emb = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
+    pos_e = params["embedding"]["position"][posn]
+    x = (emb[tokens.long()] + pos_e.to(cfg.compute_dtype)).to(
+        cfg.compute_dtype)
+    for l, layer_p in enumerate(_layers(params)):
+        x = _verify_layer(cfg, _cast_layer(cfg, layer_p), x, cache[l], pos,
+                          table)
+    lg = _lm_head(cfg, params, x.reshape(b * t, x.shape[-1]))
+    return lg.reshape(b, t, -1), cache
+
+
+def decode_steps_spec(cfg: GPTConfig, params, cache, state, n: int, *,
+                      spec_k: int, pad_token_id: int = 0, draw_fn=None,
+                      draft_fn=None, table=None):
+    """:func:`decode_steps` with draft-k-verify speculation: ``n`` waves,
+    each drafting ``spec_k`` tokens from the row's history
+    (:func:`ngram_drafts`, or ``draft_fn(hist, tok, k) → [B, k]``),
+    verifying all ``spec_k + 1`` positions in ONE :func:`decode_verify`,
+    and accepting the matching prefix. Candidate ``j`` is drawn from the
+    verify logits of position ``pos + j`` with the plain path's draw at
+    the same position, and draft ``j`` survives iff it equals that draw,
+    so the emitted stream is the plain path's (greedy and sampled),
+    whatever the drafts.
+
+    ``state`` is :func:`decode_steps`'s plus ``hist [B, H]``, the token
+    ring the drafter matches against, updated per wave. Returns
+    ``(cache, state, tokens, logprobs, finished, valid)``, each ``[B, n
+    * (spec_k + 1)]`` wave-major in emission order; ``valid`` is True
+    exactly where a real token was emitted (done rows and rejected lanes
+    emit ``pad_token_id`` under False)."""
+    k = int(spec_k)
+    if k < 1:
+        raise ValueError(f"decode_steps_spec needs spec_k >= 1, got {k}")
+    if "hist" not in state:
+        raise ValueError(
+            "decode_steps_spec needs a 'hist' [B, H] token-history ring in "
+            "state (see EngineConfig.spec_hist)")
+    drafter = draft_fn or ngram_drafts
+    st = dict(state)
+    toks, lps, fins, vals = [], [], [], []
+    for _ in range(n):
+        tok, pos = st["tok"], st["pos"]
+        drafts = drafter(st["hist"], tok, k).clamp(0, cfg.vocab_size - 1)
+        tokens_in = torch.cat([tok[:, None], drafts.to(tok.dtype)], dim=1)
+        logits_all, cache = decode_verify(cfg, params, cache, tokens_in,
+                                          pos, table)
+        live0 = ~st["done"]
+        rem, done = st["remaining"], st["done"]
+        tok_new, pos_new = tok, pos
+        cand_ok = torch.ones_like(live0)
+        not_fin = torch.ones_like(live0)
+        nxt_prev = None
+        emits, lpw, finw, valw = [], [], [], []
+        for j in range(k + 1):
+            lg = logits_all[:, j]
+            tj = pos + j
+            if draw_fn is None:
+                nxt = _sampling.draw_slots(lg, st["key"], tj, st["temp"],
+                                           st["top_k"], st["top_p"])
+            else:
+                nxt = draw_fn(lg, tj)
+            nxt = nxt.to(torch.int64)
+            if j > 0:
+                # draft j survives iff it matches the target's own draw at
+                # its position, and every earlier draft did
+                cand_ok = cand_ok & (drafts[:, j - 1] == nxt_prev)
+            nxt_prev = nxt
+            emit_j = live0 & cand_ok & not_fin
+            lp = torch.log_softmax(lg, dim=-1).gather(1, nxt[:, None])[:, 0]
+            rem = rem - emit_j.to(rem.dtype)
+            hit_eos = emit_j & (st["eos"] >= 0) & (nxt == st["eos"])
+            fin_j = emit_j & (hit_eos | (rem <= 0))
+            emits.append(torch.where(emit_j, nxt,
+                                     torch.full_like(nxt, pad_token_id)))
+            lpw.append(torch.where(emit_j, lp, torch.zeros_like(lp)))
+            finw.append(fin_j)
+            valw.append(emit_j)
+            tok_new = torch.where(emit_j, nxt, tok_new)
+            pos_new = pos_new + emit_j.to(pos.dtype)
+            done = done | fin_j
+            not_fin = not_fin & ~fin_j
+        toks_w = torch.stack(emits, dim=1)            # [B, k+1]
+        val_w = torch.stack(valw, dim=1)
+        st = {
+            **st,
+            "tok": tok_new,
+            "pos": pos_new,
+            "remaining": rem,
+            "done": done,
+            "hist": shift_hist(st["hist"], toks_w, val_w.sum(dim=1)),
+        }
+        toks.append(toks_w)
+        lps.append(torch.stack(lpw, dim=1))
+        fins.append(torch.stack(finw, dim=1))
+        vals.append(val_w)
+    return (cache, st, torch.cat(toks, 1), torch.cat(lps, 1),
+            torch.cat(fins, 1), torch.cat(vals, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -829,6 +1130,25 @@ def cache_insert_slots(cache, blocks, slots: Sequence[int]):
     P, d]`` land at the distinct slot indices ``slots``, in place."""
     for i, slot in enumerate(slots):
         cache_insert_slot(cache, blocks[:, :, i:i + 1], slot)
+    return cache
+
+
+def cache_insert_pages(cache, blocks, pages, *, page_size: int):
+    """Scatter prefilled blocks ``[L, 2, k, heads, span, d]`` (``span`` a
+    multiple of ``page_size``) into the page pool ``[L, 2, num_pages,
+    heads, P, d]`` IN PLACE (returns ``cache``): row ``i``'s columns
+    ``[j·P, (j+1)·P)`` fill page ``pages[i, j]``. Pages must be distinct
+    except for the sink, which holds garbage."""
+    span = blocks.shape[4]
+    if span % page_size:
+        raise ValueError(
+            f"block span {span} not a multiple of page_size {page_size}")
+    L, two, k, h, _, d = blocks.shape
+    n = span // page_size
+    blk = blocks.reshape(L, two, k, h, n, page_size, d).permute(
+        0, 1, 2, 4, 3, 5, 6).reshape(L, two, k * n, h, page_size, d)
+    idx = torch.as_tensor(pages, device=cache.device).reshape(-1).long()
+    cache[:, :, idx] = blk.to(cache.dtype)
     return cache
 
 

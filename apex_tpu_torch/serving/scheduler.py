@@ -4,11 +4,15 @@ Port of the FIFO core of ``apex_tpu/serving/scheduler.py``: a bounded
 FIFO queue, batched admission of queued requests into free slots
 (``Engine.admit_many``), one decode chunk per tick, deadline expiry,
 the per-request response stream (:class:`StreamEvent`), completions and
-the serving summary. Resilience, tenancy, the journal, speculation,
-the tuner, pipelining, SLOs, the flight recorder and telemetry are later
-slices of the port; requests carrying ``stop`` sequences, a schema
-``constraint``, a tenant other than ``"default"`` or an adapter other
-than 0 are rejected at submit.
+the serving summary; with a paged engine the page backpressure (a
+request that can never fit the pool is rejected at submit, and while the
+pool is dry the queue head waits); with a speculative engine the payoff
+gate (:class:`SpecGateConfig`) that picks a plain or a speculative chunk
+per tick, and emission of only the real (``valid``) columns.
+Resilience, tenancy, the journal, the tuner, pipelining, SLOs, the
+flight recorder and telemetry are later slices of the port; requests
+carrying ``stop`` sequences, a schema ``constraint``, a tenant other
+than ``"default"`` or an adapter other than 0 are rejected at submit.
 
 >>> sched = Scheduler(engine)
 >>> sched.submit(Request("r0", prompt, max_tokens=16))
@@ -19,12 +23,14 @@ than 0 are rejected at submit.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
 from apex_tpu_torch.serving.engine import Admission, Engine
+from apex_tpu_torch.serving.pages import PagesExhausted
 from apex_tpu_torch.serving.request import (
     DEFAULT_TENANT,
     FINISH_EOS,
@@ -38,6 +44,121 @@ from apex_tpu_torch.serving.request import (
 
 class QueueFull(RuntimeError):
     """Raised by :meth:`Scheduler.submit` when the queue is at capacity."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecGateConfig:
+    """Knobs of the speculative-decoding payoff gate (an engine with
+    ``EngineConfig.spec_k > 0``). A speculative chunk only pays when its
+    drafts land, so the gate measures both chunk kinds' wall times and
+    an EWMA of the tokens each wave emits, and dispatches speculative
+    chunks only while ``EWMA(tokens per wave) > wall_spec / wall_plain``
+    (the break-even: a wave costs ``wall_spec / decode_chunk`` and
+    emits ``tokens per wave``; a plain step costs ``wall_plain /
+    decode_chunk`` per token)."""
+
+    #: weight of the newest acceptance sample in the EWMA
+    ewma_alpha: float = 0.3
+    #: a CLOSED gate reopens only when the EWMA clears break-even by
+    #: this factor (an open gate closes at 1.0x)
+    margin: float = 1.05
+    #: a closed gate sends one speculative chunk per this many plain
+    #: chunks, and an open gate one plain chunk per this many
+    #: speculative ones, so both wall times stay current
+    probe_every: int = 40
+    #: speculative chunks to measure before the gate decides at all
+    min_probe_chunks: int = 2
+
+
+#: ``spec_gate_state`` values
+GATE_CLOSED, GATE_MEASURING, GATE_OPEN = 0.0, 1.0, 2.0
+
+
+def _ewma(prev: float, sample: float, alpha: float) -> float:
+    """The zero-bootstrap EWMA (the first sample seeds it)."""
+    return sample if prev == 0.0 else (1 - alpha) * prev + alpha * sample
+
+
+class _SpecGate:
+    """The payoff gate's state machine behind :class:`SpecGateConfig`:
+    wall-time EWMAs of both chunk kinds, the tokens-per-wave EWMA and the
+    open / closed / probe decision. Host arithmetic only; it picks the
+    kind of the next chunk."""
+
+    __slots__ = ("cfg", "spec_k", "accept_ewma", "wall_spec",
+                 "wall_plain", "spec_chunks", "plain_since_probe",
+                 "spec_since_plain", "_open")
+
+    def __init__(self, cfg: SpecGateConfig, spec_k: int):
+        self.cfg = cfg
+        self.spec_k = spec_k
+        self.accept_ewma = 0.0      # tokens per wave (1 .. spec_k + 1)
+        self.wall_spec = 0.0
+        self.wall_plain = 0.0
+        self.spec_chunks = 0
+        self.plain_since_probe = 0
+        self.spec_since_plain = 0
+        self._open = True           # optimistic until measured
+
+    def break_even(self) -> float:
+        """Tokens per wave a speculative chunk must emit to match the
+        plain chunk's cost, ``wall_spec / wall_plain`` (0.0 until both
+        are measured)."""
+        if self.wall_spec <= 0.0 or self.wall_plain <= 0.0:
+            return 0.0
+        return self.wall_spec / self.wall_plain
+
+    def want_spec(self, spec_inflight: int = 0) -> bool:
+        """Whether the NEXT chunk should be speculative. Until the gate
+        has measured its way open, at most one speculative chunk is in
+        flight (``spec_inflight`` counts those dispatched but not
+        fetched)."""
+        if self.wall_plain == 0.0:
+            return False            # measure the plain baseline first
+        measuring = self.spec_chunks < self.cfg.min_probe_chunks
+        if (measuring or not self._open) and spec_inflight > 0:
+            return False            # one probe at a time
+        if measuring:
+            return True             # measuring the speculative side
+        if self._open:
+            # once per probe_every speculative chunks, re-measure plain
+            return self.spec_since_plain < self.cfg.probe_every
+        return self.plain_since_probe >= self.cfg.probe_every
+
+    def observe_plain(self, wall: float) -> None:
+        self.wall_plain = _ewma(self.wall_plain, wall, self.cfg.ewma_alpha)
+        self.plain_since_probe += 1
+        self.spec_since_plain = 0
+
+    def observe_spec(self, wall: float,
+                     tokens_per_wave: Optional[float]) -> None:
+        self.wall_spec = _ewma(self.wall_spec, wall, self.cfg.ewma_alpha)
+        self.spec_chunks += 1
+        self.plain_since_probe = 0
+        self.spec_since_plain += 1
+        if tokens_per_wave is not None:
+            self.accept_ewma = _ewma(self.accept_ewma, tokens_per_wave,
+                                     self.cfg.ewma_alpha)
+        if self.accept_ewma == 0.0:
+            # no acceptance sample yet (a live wave always emits >= 1
+            # token, so 0.0 means never measured): keep measuring
+            return
+        be = self.break_even()
+        if be <= 0.0 or self.spec_chunks < self.cfg.min_probe_chunks:
+            return
+        if self._open:
+            self._open = self.accept_ewma > be
+        else:
+            # hysteresis: reopening needs the margin
+            self._open = self.accept_ewma > be * self.cfg.margin
+
+    def state(self) -> float:
+        """2 open, 1 measuring, 0 closed."""
+        if (self.wall_plain == 0.0
+                or self.spec_chunks < self.cfg.min_probe_chunks
+                or self.accept_ewma == 0.0):
+            return GATE_MEASURING
+        return GATE_OPEN if self._open else GATE_CLOSED
 
 
 class LatencyStats:
@@ -84,11 +205,15 @@ class Scheduler:
     """Drive an :class:`Engine` over a stream of requests.
 
     ``clock`` is injectable (tests drive deadlines with a fake clock) and
-    must be monotonic. Each tick hands every queued request that fits the
-    free slots to ``Engine.admit_many``."""
+    must be monotonic. Each tick hands the queued requests that fit the
+    free slots (and, paged, the free pages: FIFO-strict, the first that
+    does not fit waits with everything behind it) to
+    ``Engine.admit_many``. ``spec_gate`` tunes the payoff gate of a
+    speculative engine (``EngineConfig.spec_k > 0``)."""
 
     def __init__(self, engine: Engine, *, max_queue: int = 256,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 spec_gate: Optional[SpecGateConfig] = None):
         self.engine = engine
         self.max_queue = max_queue
         self.clock = clock
@@ -106,6 +231,22 @@ class Scheduler:
         self._decode_time = 0.0
         self._admitted_requests = 0
         self._admit_dispatches = 0
+        self._pages_exhausted_waits = 0
+        self._page_deferrals = 0
+        #: the payoff gate (None unless the engine speculates)
+        self._gate: Optional[_SpecGate] = None
+        if engine.engine_cfg.spec_k > 0:
+            self._gate = _SpecGate(spec_gate or SpecGateConfig(),
+                                   engine.engine_cfg.spec_k)
+        elif spec_gate is not None:
+            raise ValueError("spec_gate given but the engine does not "
+                             "speculate (EngineConfig.spec_k == 0)")
+        self._gate_spec_decisions = 0
+        self._gate_plain_decisions = 0
+        self._spec_chunks = 0
+        self._spec_waves = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
 
     # -- intake ------------------------------------------------------------
 
@@ -148,6 +289,15 @@ class Scheduler:
             raise ValueError(
                 f"eos_token_id {eos} outside vocab "
                 f"[0, {self.engine.cfg.vocab_size})")
+        if self.engine.paged:
+            # a request that could NEVER fit the pool would wait at the
+            # queue head forever: reject it here
+            needed = self._request_pages_needed(request)
+            if needed > self.engine.page_allocator.capacity:
+                raise ValueError(
+                    f"request needs {needed} pages but the pool only has "
+                    f"{self.engine.page_allocator.capacity}: raise "
+                    f"EngineConfig.num_pages or shrink the request")
         now = self.clock()
         request.arrival_time = now
         if eos is not None and prompt[-1] == eos:
@@ -212,20 +362,49 @@ class Scheduler:
                     act.request.request_id, None, True, FINISH_TIMEOUT))
                 self._release(slot, FINISH_TIMEOUT, now)
 
+    def _request_pages_needed(self, r: Request) -> int:
+        return self.engine.pages_needed(len(r.prompt), r.max_tokens)
+
     def _admit(self, now: float) -> None:
         if not self.queue or not self._free:
             return
         n = min(len(self._free), len(self.queue))
         reqs = [self.queue.popleft() for _ in range(n)]
-        slots = [self._free.pop() for _ in range(n)]
-        results = self.engine.admit_many([
-            Admission(slot=slot, prompt=r.prompt, max_tokens=r.max_tokens,
-                      temperature=r.sampling.temperature,
-                      top_k=r.sampling.top_k, top_p=r.sampling.top_p,
-                      seed=r.sampling.seed, eos_token_id=r.eos_token_id)
-            for r, slot in zip(reqs, slots)])
+        if self.engine.paged:
+            # page backpressure, FIFO-strict: admit the prefix of the
+            # wave the free pages cover; the first request that does not
+            # fit waits at the head with everything behind it
+            free_p = self.engine.page_allocator.free_pages
+            needed, cut = 0, len(reqs)
+            for idx, r in enumerate(reqs):
+                need = self._request_pages_needed(r)
+                if needed + need > free_p:
+                    cut = idx
+                    break
+                needed += need
+            if cut < len(reqs):
+                self.queue.extendleft(reversed(reqs[cut:]))
+                reqs = reqs[:cut]
+                self._page_deferrals += 1
+                if not reqs:
+                    self._pages_exhausted_waits += 1
+                    return
+        slots = [self._free.pop() for _ in range(len(reqs))]
+        try:
+            results = self.engine.admit_many([
+                Admission(slot=slot, prompt=r.prompt, max_tokens=r.max_tokens,
+                          temperature=r.sampling.temperature,
+                          top_k=r.sampling.top_k, top_p=r.sampling.top_p,
+                          seed=r.sampling.seed, eos_token_id=r.eos_token_id)
+                for r, slot in zip(reqs, slots)])
+        except PagesExhausted:
+            # the pool could not cover the wave after all: requeue, wait
+            self._free.extend(reversed(slots))
+            self.queue.extendleft(reversed(reqs))
+            self._pages_exhausted_waits += 1
+            return
         t_first = self.clock()
-        self._admitted_requests += n
+        self._admitted_requests += len(reqs)
         self._admit_dispatches += results[-1].group + 1
         for r, slot, res in zip(reqs, slots, results):
             act = _Active(r)
@@ -238,18 +417,68 @@ class Scheduler:
             self._emit(slot, act, res.first_token, res.logprob,
                        finished=res.finished, reason=reason, now=t_first)
 
+    def _use_spec(self) -> bool:
+        """The kind of the next chunk: the payoff gate's choice."""
+        g = self._gate
+        if g is None:
+            return False
+        spec = g.want_spec()
+        if spec:
+            self._gate_spec_decisions += 1
+        else:
+            self._gate_plain_decisions += 1
+        return spec
+
+    def _observe(self, handle, wall: float, live_rows: List[int]) -> None:
+        """Per-chunk speculation accounting and the gate's samples:
+        tokens per wave over the still-live rows (a live wave always
+        emits its first column), and each kind's chunk wall time."""
+        g = self._gate
+        if not handle.spec:
+            if g is not None:
+                g.observe_plain(wall)
+            return
+        self._spec_chunks += 1
+        tpw = None
+        if live_rows:
+            v = handle.valid[live_rows]
+            live_waves = int(v[:, ::handle.spec_k + 1].sum())
+            emitted = int(v.sum())
+            if live_waves:
+                tpw = emitted / live_waves
+                self._spec_waves += live_waves
+                self._spec_drafted += handle.spec_k * live_waves
+                self._spec_accepted += emitted - live_waves
+        if g is not None:
+            g.observe_spec(wall, tpw)
+
     def _decode(self) -> None:
+        spec = self._use_spec()
         t0 = self.clock()
         snapshot = dict(self.active)
-        tokens, logprobs, finished = self.engine.step()
+        handle = self.engine.step_async(spec=spec)
+        tokens, logprobs, finished = handle.fetch()
         now = self.clock()
-        self._decode_time += now - t0
+        wall = now - t0
+        self._decode_time += wall
+        live_rows = [s for s, a in snapshot.items()
+                     if self.active.get(s) is a]
+        self._observe(handle, wall, live_rows)
+        valid = handle.valid
         n_cols = tokens.shape[1]
-        per_tok = (now - t0) / n_cols
+        if valid is None:
+            per_tok = wall / n_cols
+        else:
+            # per REAL token: pad lanes are not tokens
+            mean_emitted = (valid[live_rows].sum() / len(live_rows)
+                            if live_rows else 0.0)
+            per_tok = wall / max(float(mean_emitted), 1.0)
         for j in range(n_cols):
             for slot, act in snapshot.items():
                 # a slot released at an earlier column emits pad after it
                 if self.active.get(slot) is not act:
+                    continue
+                if valid is not None and not valid[slot, j]:
                     continue
                 tok = int(tokens[slot, j])
                 done = bool(finished[slot, j])
@@ -275,6 +504,7 @@ class Scheduler:
 
     def _release(self, slot: int, reason: str, now: float) -> None:
         act = self.active.pop(slot)
+        self.engine.free_slot(slot)
         self._free.append(slot)
         ttft = (None if act.first_token_time is None
                 else act.first_token_time - act.request.arrival_time)
@@ -297,7 +527,13 @@ class Scheduler:
         ``tokens_per_sec`` (all emitted tokens over the wall time since
         the first tick), ``decode_tokens_per_sec`` (decode-chunk tokens
         over the time spent in decode chunks — admission, the TTFT side,
-        excluded), and ``ttft_*`` / ``token_latency_*`` in ms."""
+        excluded), and ``ttft_*`` / ``token_latency_*`` in ms. A paged
+        engine adds the pool's occupancy, ``pages_exhausted_waits`` (ticks
+        the queue head waited for pages) and ``page_deferrals`` (ticks in
+        which requests stayed queued beside free slots for want of pages,
+        those waits included); a speculative one the
+        chunk and wave counts, ``spec_tokens_per_wave``, the acceptance
+        rate, the gate's state and its decisions."""
         out = {
             "requests_completed": float(len(self.completions)),
             "tokens_emitted": float(self._tokens_emitted),
@@ -315,6 +551,33 @@ class Scheduler:
                 self._decode_tokens / self._decode_time)
             out["decode_tokens"] = float(self._decode_tokens)
             out["decode_time_s"] = self._decode_time
+        if self.engine.paged:
+            ps = self.engine.page_stats()
+            out["pages_total"] = ps["pages_total"]
+            out["pages_in_use"] = ps["pages_in_use"]
+            out["pages_shared"] = ps["pages_shared"]
+            out["page_fragmentation"] = ps["fragmentation"]
+            out["pages_exhausted_waits"] = float(self._pages_exhausted_waits)
+            out["page_deferrals"] = float(self._page_deferrals)
+        g = self._gate
+        if g is not None:
+            out["spec_chunks"] = float(self._spec_chunks)
+            out["spec_waves"] = float(self._spec_waves)
+            out["spec_drafted"] = float(self._spec_drafted)
+            out["spec_accepted"] = float(self._spec_accepted)
+            out["spec_accept_rate"] = (
+                self._spec_accepted / self._spec_drafted
+                if self._spec_drafted else 0.0)
+            out["spec_tokens_per_wave"] = (
+                (self._spec_waves + self._spec_accepted) / self._spec_waves
+                if self._spec_waves else 0.0)
+            out["spec_gate_state"] = g.state()
+            out["spec_acceptance_ewma"] = g.accept_ewma
+            out["spec_break_even"] = g.break_even()
+            out["spec_gate_spec_decisions"] = float(
+                self._gate_spec_decisions)
+            out["spec_gate_plain_decisions"] = float(
+                self._gate_plain_decisions)
         for name, stats in (("ttft", self.ttft_stats),
                             ("token_latency", self.token_latency_stats)):
             for k, v in stats.summary().items():

@@ -13,7 +13,8 @@ Phases, in order; any failed check exits non-zero:
 3. kernels vs plain — each kernel against its plain PyTorch version on
    the card at the serving path's shapes, with CUDA-event timings of the
    kernel, the plain version and one PyTorch library call computing the
-   same function, and the least time the card could take (bound);
+   same function (for the column write, one ``index_put_`` of the same
+   cells), and the least time the card could take (bound);
 4. whole model — GPT 355M (24 layers, hidden 1024, 16 heads, vocab
    50304, bf16, random weights from a seed): prefill + decode logits
    through the kernels against the materialised-scores ("xla") path;
@@ -68,6 +69,38 @@ BERT-large width: vocab 30528, hidden 1024, 24 layers of 16 heads, seq
     code implies (``bert_launches_per_step``);
 14. profile — ``torch.profiler`` over 2 steps of run (a).
 
+The paged KV cache and speculative decoding run on phases 4-6's serving
+model, right after phase 6 (numbered after the slices that came before):
+
+15. paged and speculative kernels vs plain — ``paged_write_column``,
+    ``paged_write_columns`` and ``cache_write_columns`` bit-equal to their
+    plain versions (lanes past the horizon and positions 0, 7, 8 and 191
+    included, tables a random permutation of pages 1..192, every unwritten
+    pool cell and the sink page NaN), ``paged_attention`` within BF16_TOL
+    of its plain version, finite, and bit-equal to ``decode_attention`` on
+    the gathered cache; timed as in phase 3, the writes' library yardstick
+    one ``index_put_`` of the same cells of both planes, the read's none;
+16. paged serving — (a) phase 5's trace through ``EngineConfig(...,
+    page_size=8)`` (193 pages, auto-sized): every stream identical to phase
+    5's, and per decode step 24 launches of the paged write and read and
+    none of the contiguous decode kernels; (b) bench's mixed trace at
+    ``decode_chunk=8`` with a 25-page pool against the contiguous engine:
+    admissions held back for pages, every request complete and within the
+    reference band, the pool's peak and the cache bytes pinned per active
+    token;
+17. speculative serving — bench's spec A/B (8 slots, prompts <= 16,
+    horizon 192, chunks of 4, ``spec_k=3`` against ``spec_k=0``; 16
+    requests of 96 tokens, greedy "high" and temperature-1.5 "adv"
+    traces) under the scheduler's payoff gate: every spec stream within
+    the reference band, ``cache_write_columns`` on every layer of every
+    verify wave; drift against plain, tokens per wave, the gate's
+    decisions and decode tokens/s reported;
+18. paged + speculative — the "high" trace with every chunk speculative
+    (``admit_many`` and ``step_async(spec=True)``, no scheduler) through a
+    paged and a contiguous spec engine: identical tokens, and the paged
+    side's verify writes through ``paged_write_columns`` on every layer
+    of every wave.
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
@@ -105,6 +138,15 @@ FP32_FLOPS_PER_S = 67e12
 #: the serving path's shapes (bench.py serve(): 355M, 8 slots, horizon
 #: 192, prompts <= 64 padded to power-of-two buckets)
 HIDDEN, HEADS, HEAD_DIM, SLOTS, HORIZON = 1024, 16, 64, 8, 192
+
+#: the paged and speculative paths (bench.py serve()'s A/Bs): pages of 8
+#: tokens over the same horizon, the auto-sized pool (every slot's 24
+#: pages plus the sink), and verify writes of spec_k + 1 = 4 columns
+PAGE = 8
+MAX_PAGES = HORIZON // PAGE
+NUM_PAGES = SLOTS * MAX_PAGES + 1
+SPEC_K = 3
+SPEC_T = SPEC_K + 1
 
 #: the training path's shapes (bench.py main(): batch 16 of seq 1024) and
 #: its timed steps
@@ -222,6 +264,13 @@ def bound(n_bytes: float, n_flops: float,
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def write_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over two written caches, a cell that is NaN in both
+    counting as equal (phase 15 fills the unwritten cells with NaN)."""
+    d = (a.float() - b.float()).abs()
+    return float(d.masked_fill(a.isnan() & b.isnan(), 0).max())
 
 
 def close(a, b, tol) -> bool:
@@ -382,6 +431,7 @@ def phase_kernels():
 
     # timings at the path's decode shape with the second seed's positions
     kw, vw = kc_k.clone(), vc_k.clone()
+    kvw = torch.stack([kw, vw])
     n_cols = int((pos.long() + 1).sum())
     wb, wby = bound(4 * B * H * D * 2, 0)
     rows["decode_write_column"] = dict(
@@ -392,7 +442,10 @@ def phase_kernels():
         ms=time_ms(lambda: write_column(kn, vn, kw, vw, pos)),
         eager_ms=eager_ms(lambda: write_column(kn, vn, kw, vw, pos)),
         plain_ms=time_ms(lambda: write_column_plain(kn, vn, kw, vw, pos)),
-        bound_ms=wb, bound_by=wby, library_ms=None,
+        bound_ms=wb, bound_by=wby,
+        library_ms=time_ms(lambda: _index_put_planes(
+            kvw, torch.arange(B, device=dev), pos.long(),
+            torch.stack([kn, vn]))),
         shape=f"b={B} h={H} S={S} d={D} bf16")
     ab, aby = bound(2 * B * H * D * 2 + 2 * n_cols * H * D * 2,
                     4 * n_cols * H * D)
@@ -581,12 +634,32 @@ def phase_path(cfg, params, band: float):
     metrics["wall_s"] = wall
     log("path metrics: " + json.dumps(metrics))
 
-    # the reference: a full forward over prompt + stream, no kernels
+    worst_lp, worst_gap = hold_streams(cfg, params, reqs, sched.completions)
+    log(f"path vs reference forward: max|logprob-ref|={worst_lp:.4f}, "
+        f"greedy max(ref max logit - chosen)={worst_gap:.4f} (band "
+        f"{band:.4f})")
+    check(worst_lp <= band, f"path: logprobs off the reference by {worst_lp}")
+    check(worst_gap <= band, f"path: a greedy token is {worst_gap} below "
+          f"the reference's best")
+    streams = {r: c.tokens for r, c in sched.completions.items()}
+    return counts, metrics, engine, streams
+
+
+def hold_streams(cfg, params, reqs, completions):
+    """Teacher-force every stream through a full forward without kernels
+    ("xla" attention) over prompt + stream: returns the largest
+    |logprob - reference logprob| over every emitted token, and over the
+    greedy streams the largest gap between the reference's best logit and
+    the chosen token's."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+
     ref_cfg = dataclasses.replace(cfg, attn_impl="xla")
     p = gpt.cast_params(ref_cfg, params)
     worst_lp = worst_gap = 0.0
     for r in reqs:
-        c = sched.completions[r.request_id]
+        c = completions[r.request_id]
         seq = torch.as_tensor([list(r.prompt) + c.tokens[:-1]],
                               device="cuda")
         n0 = len(r.prompt) - 1
@@ -598,13 +671,7 @@ def phase_path(cfg, params, band: float):
         if r.sampling.temperature == 0.0:
             gap = lg.amax(-1) - lg.gather(1, toks[:, None])[:, 0]
             worst_gap = max(worst_gap, float(gap.max()))
-    log(f"path vs reference forward: max|logprob-ref|={worst_lp:.4f}, "
-        f"greedy max(ref max logit - chosen)={worst_gap:.4f} (band "
-        f"{band:.4f})")
-    check(worst_lp <= band, f"path: logprobs off the reference by {worst_lp}")
-    check(worst_gap <= band, f"path: a greedy token is {worst_gap} below "
-          f"the reference's best")
-    return counts, metrics, engine
+    return worst_lp, worst_gap
 
 
 # ---------------------------------------------------------------------------
@@ -654,6 +721,615 @@ def phase_profile(cfg, engine):
     }
     log("profile: " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the paged and speculative kernels vs plain, at the path's shapes
+# ---------------------------------------------------------------------------
+
+def _index_put_planes(kv, i0, i2, vals):
+    """One ``index_put_`` on a layer's ``[2, n, h, cols, d]`` cache writing
+    ``vals [2, *idx, h, d]`` at cells ``(i0, i2)`` of both planes — the
+    library yardstick of the column writes."""
+    plane = torch.arange(2, device=kv.device).view(
+        2, *([1] * i0.ndim), 1)
+    hh = torch.arange(kv.shape[2], device=kv.device)
+    kv.index_put_((plane, i0[None, ..., None], hh, i2[None, ..., None]),
+                  vals)
+
+
+def phase_paged_kernels():
+    """The four kernels of the paged and speculative paths against their
+    plain versions at the serving path's shapes: 8 rows of 16 heads of 64
+    in bf16, pages of 8 over a 192-column horizon (24 pages a row, 193 in
+    the pool with the sink), speculative writes of 4 columns. Every
+    table is a random permutation of pages 1..192; every pool cell past a
+    row's position, and the whole sink page, holds NaN. The writes must be
+    bit-equal to their plain versions (lanes past the horizon included),
+    the paged read within BF16_TOL of its plain version and bit-equal to
+    the contiguous kernel on the gathered cache."""
+    from apex_tpu_torch.kernels import (
+        attend_cache,
+        cache_write_columns,
+        cache_write_columns_plain,
+        paged_attention,
+        paged_attention_plain,
+        paged_write_column,
+        paged_write_column_plain,
+        paged_write_columns,
+        paged_write_columns_plain,
+        reset_launch_counts,
+    )
+    from apex_tpu_torch.kernels.decode_attention import (
+        check_positions,
+        paged_gather_xla,
+    )
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    B, H, D, P, MP, T = SLOTS, HEADS, HEAD_DIM, PAGE, MAX_PAGES, SPEC_T
+    N, S = NUM_PAGES, MAX_PAGES * PAGE
+    nan = float("nan")
+    col = torch.arange(S, device=dev)
+    bits = lambda t: t.view(torch.int16)
+    same = lambda a, b: torch.equal(bits(a), bits(b))
+    worst = worst32 = 0.0
+    werr = dict.fromkeys(("paged_write_column", "paged_write_columns",
+                          "cache_write_columns"), 0.0)
+    for seed, pos_l in ((0, [0, 7, 8, 191, 63, 100, 189, 150]),
+                        (1, [191, 0, 8, 7, 190, 31, 64, 188])):
+        g = torch.Generator(device=dev).manual_seed(100 + seed)
+        mk = lambda *shp: torch.randn(*shp, generator=g, device=dev,
+                                      dtype=bf16)
+        table = (torch.randperm(N - 1, generator=g, device=dev) + 1).to(
+            torch.int32).view(B, MP)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        check_positions(pos, S)
+        stale = (col[None] > pos[:, None].long())[:, None, :, None]
+        q, kn, vn = mk(B, H, D), mk(B, H, D), mk(B, H, D)
+        kc = mk(B, H, S, D).masked_fill(stale, nan)
+        vc = mk(B, H, S, D).masked_fill(stale, nan)
+        kp = torch.full((N, H, P, D), nan, device=dev, dtype=bf16)
+        vp = torch.full((N, H, P, D), nan, device=dev, dtype=bf16)
+        for c, pool in ((kc, kp), (vc, vp)):
+            pool[table.long()] = c.view(B, H, MP, P, D).permute(0, 2, 1, 3, 4)
+        # one column
+        kp_k, vp_k, kp_p, vp_p = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        paged_write_column(kn, vn, kp_k, vp_k, table, pos)
+        paged_write_column_plain(kn, vn, kp_p, vp_p, table, pos)
+        torch.cuda.synchronize()
+        check(same(kp_k, kp_p) and same(vp_k, vp_p),
+              "paged_write_column: pools differ from the plain write "
+              "(bitwise)")
+        werr["paged_write_column"] = max(
+            werr["paged_write_column"], write_err(kp_k, kp_p),
+            write_err(vp_k, vp_p))
+        # the read, after the write, as on the path
+        out = paged_attention(q, kp_k, vp_k, table, pos)
+        ref = paged_attention_plain(q, kp_p, vp_p, table, pos)
+        contig = attend_cache(q, paged_gather_xla(kp_k, table),
+                              paged_gather_xla(vp_k, table), pos)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()),
+              "paged_attention: non-finite output (NaN cells leaked)")
+        check(close(out, ref, BF16_TOL),
+              f"paged_attention pos={pos_l}: err {max_err(out, ref)}")
+        check(same(out, contig), "paged_attention: not bit-equal to the "
+              "contiguous kernel on the gathered cache")
+        worst = max(worst, max_err(out, ref))
+        o32 = paged_attention(q.float(), kp_k.float(), vp_k.float(), table,
+                              pos)
+        r32 = paged_attention_plain(q.float(), kp_p.float(), vp_p.float(),
+                                    table, pos)
+        check(close(o32, r32, FP32_TOL),
+              f"paged_attention fp32 err {max_err(o32, r32)}")
+        worst32 = max(worst32, max_err(o32, r32))
+        # T columns, paged and contiguous (lanes past 191 clamp)
+        knt, vnt = mk(B, H, T, D), mk(B, H, T, D)
+        kp_k, vp_k, kp_p, vp_p = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        paged_write_columns(knt, vnt, kp_k, vp_k, table, pos)
+        paged_write_columns_plain(knt, vnt, kp_p, vp_p, table, pos)
+        kc_k, vc_k, kc_p, vc_p = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        cache_write_columns(knt, vnt, kc_k, vc_k, pos)
+        cache_write_columns_plain(knt, vnt, kc_p, vc_p, pos)
+        torch.cuda.synchronize()
+        check(same(kp_k, kp_p) and same(vp_k, vp_p),
+              "paged_write_columns: pools differ from the plain write")
+        check(same(kc_k, kc_p) and same(vc_k, vc_p),
+              "cache_write_columns: caches differ from the plain write")
+        werr["paged_write_columns"] = max(
+            werr["paged_write_columns"], write_err(kp_k, kp_p),
+            write_err(vp_k, vp_p))
+        werr["cache_write_columns"] = max(
+            werr["cache_write_columns"], write_err(kc_k, kc_p),
+            write_err(vc_k, vc_p))
+    log(f"paged/spec kernels: three writes bit-exact (lanes past the "
+        f"horizon included); paged_attention bf16 max|out-plain|="
+        f"{worst:.3e} (tol atol=rtol=2e-2), fp32 {worst32:.3e}, bit-equal "
+        f"to decode_attention on the gathered cache; NaN past pos and in "
+        f"the sink stayed masked")
+
+    # timings with the second seed's tensors
+    rows = {}
+    pl = pos.long()
+    n_cols = int((pl + 1).sum())
+    n_tbl = int(((pl + P) // P).sum())       # table entries the read needs
+    shape = f"b={B} h={H} P={P} pages={N} max_pages={MP} d={D} bf16"
+    kw, vw = kp.clone(), vp.clone()
+    kv = torch.stack([kp, vp])
+    pg, off = table.long().gather(1, (pl // P)[:, None])[:, 0], pl % P
+    rows["paged_write_column"] = dict(
+        name="paged_write_column", route="cuda",
+        source="apex_tpu_torch/csrc/decode_attention.cu",
+        replaces="apex_tpu/kernels/decode_attention.py:707",
+        max_abs_err=werr["paged_write_column"],
+        ms=time_ms(lambda: paged_write_column(kn, vn, kw, vw, table, pos)),
+        eager_ms=eager_ms(
+            lambda: paged_write_column(kn, vn, kw, vw, table, pos)),
+        plain_ms=time_ms(
+            lambda: paged_write_column_plain(kn, vn, kw, vw, table, pos)),
+        library_ms=time_ms(lambda: _index_put_planes(
+            kv, pg, off, torch.stack([kn, vn]))),
+        shape=shape)
+    rows["paged_write_column"].update(zip(
+        ("bound_ms", "bound_by"), bound(4 * B * H * D * 2 + B * 8, 0)))
+    rows["paged_attention"] = dict(
+        name="paged_attention", route="cuda",
+        source="apex_tpu_torch/csrc/decode_attention.cu",
+        replaces="apex_tpu/kernels/decode_attention.py:975",
+        max_abs_err=worst,
+        ms=time_ms(lambda: paged_attention(q, kp_k, vp_k, table, pos)),
+        eager_ms=eager_ms(lambda: paged_attention(q, kp_k, vp_k, table, pos)),
+        plain_ms=time_ms(
+            lambda: paged_attention_plain(q, kp_k, vp_k, table, pos)),
+        library_ms=None, shape=shape + f" pos={pos_l}")
+    rows["paged_attention"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * B * H * D * 2 + 2 * n_cols * H * D * 2 + 4 * (B + n_tbl),
+        4 * n_cols * H * D)))
+    cols_t = (pl[:, None] + torch.arange(T, device=dev)[None]).clamp(
+        max=S - 1)
+    pg_t = table.long().gather(1, cols_t // P)
+    kvc = torch.stack([kc, vc])
+    # the cells the writes must move: each distinct (row, column) that a
+    # lane lands on after the clamp (lanes clamped onto a column a later
+    # lane of the row writes move nothing), read from new and written to
+    # both planes; the paged write also reads one table entry per page
+    # those cells touch. Columns and pages rise along a row.
+    distinct = lambda c: B + int((c[:, 1:] != c[:, :-1]).sum())
+    wbytes = 2 * 2 * distinct(cols_t) * H * D * 2 + B * 4
+    tbytes = 4 * distinct(cols_t // P)
+    for name, src_line, fn, plain, lib, extra in (
+            ("cache_write_columns", 169,
+             lambda: cache_write_columns(knt, vnt, kc_k, vc_k, pos),
+             lambda: cache_write_columns_plain(knt, vnt, kc_k, vc_k, pos),
+             lambda: _index_put_planes(
+                 kvc, torch.arange(B, device=dev)[:, None].expand(B, T),
+                 cols_t, torch.stack([knt, vnt]).transpose(2, 3)), 0),
+            ("paged_write_columns", 811,
+             lambda: paged_write_columns(knt, vnt, kp_k, vp_k, table, pos),
+             lambda: paged_write_columns_plain(knt, vnt, kp_k, vp_k, table,
+                                               pos),
+             lambda: _index_put_planes(
+                 kv, pg_t, cols_t % P,
+                 torch.stack([knt, vnt]).transpose(2, 3)), tbytes)):
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="apex_tpu_torch/csrc/decode_attention.cu",
+            replaces=f"apex_tpu/kernels/decode_attention.py:{src_line}",
+            max_abs_err=werr[name], ms=time_ms(fn), eager_ms=eager_ms(fn),
+            plain_ms=time_ms(plain), library_ms=time_ms(lib),
+            shape=(f"b={B} h={H} T={T} S={S} d={D} bf16"
+                   if name == "cache_write_columns" else
+                   shape + f" T={T}") + f" pos={pos_l}")
+        rows[name].update(zip(("bound_ms", "bound_by"),
+                              bound(wbytes + extra, 0)))
+    for r in rows.values():
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager, host issue "
+            f"included: {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f}"
+            f" ms, library {r['library_ms']} ms, bound {r['bound_ms']:.5f} "
+            f"ms ({r['bound_by']}) at {r['shape']}")
+    reset_launch_counts()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: paged serving — bench's trace, then its mixed trace under a small
+# pool
+# ---------------------------------------------------------------------------
+
+def mixed_trace(vocab: int, n: int = 32, max_prompt_len: int = 64):
+    """bench.py serve()'s paged-A/B trace: odd requests short (length
+    ``1 + (5 i + 1) % 6``) and sampled (temperature 0.9, top-k 40, seed
+    ``i``), even ones long (``32 + 7 i % 32 + 1``) and greedy, budgets
+    ``1 + i % 6``; prompts from numpy seed ``500 + i``."""
+    from apex_tpu_torch.serving import Request, SamplingParams
+
+    half = max_prompt_len // 2
+    reqs = []
+    for i in range(n):
+        p_len = 1 + (5 * i + 1) % 6 if i % 2 else half + (7 * i) % half + 1
+        prompt = np.random.default_rng(500 + i).integers(
+            0, vocab, p_len).tolist()
+        sp = (SamplingParams(temperature=0.9, top_k=40, seed=i) if i % 2
+              else SamplingParams())
+        reqs.append(Request(f"m{i}", prompt, max_tokens=1 + i % 6,
+                            sampling=sp))
+    return reqs
+
+
+def run_tracked(engine, reqs):
+    """Serve ``reqs`` (all at t=0) and probe the cache at every decode
+    dispatch, while the chunk's requests hold their slots, as bench.py's
+    paged A/B does: returns the scheduler, the wall time, the cache
+    bytes pinned per active token (time-summed pinned bytes over
+    time-summed prompt + budget tokens of the active requests: a whole
+    stripe per busy slot when contiguous, only the pages in use when
+    paged) and the peak of ``pages_in_use``."""
+    from apex_tpu_torch.serving import Scheduler
+
+    sched = Scheduler(engine)
+    for r in reqs:
+        sched.submit(r)
+    per_page = (engine.cache_bytes() / engine.describe()["num_pages"]
+                if engine.paged else 0.0)
+    stripe = engine.cache_bytes() / engine.slots
+    acc = dict(pinned=0.0, tokens=0.0, peak=0)
+    dispatch = engine.step_async
+
+    def probed(**kw):
+        act = sum(len(a.request.prompt) + a.request.max_tokens
+                  for a in sched.active.values())
+        if engine.paged:
+            in_use = engine.page_allocator.pages_in_use
+            acc["peak"] = max(acc["peak"], in_use)
+            acc["pinned"] += in_use * per_page
+        else:
+            acc["pinned"] += len(sched.active) * stripe
+        acc["tokens"] += act
+        return dispatch(**kw)
+
+    engine.step_async = probed
+    t0 = time.perf_counter()
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del engine.step_async
+    return (sched, wall, acc["pinned"] / max(acc["tokens"], 1.0),
+            acc["peak"])
+
+
+def serve_timed(cfg, params, ecfg, reqs):
+    """A fresh ``Engine`` under a ``Scheduler`` serves ``reqs`` (all at
+    t=0), with the launch counts zeroed just before and read just after:
+    returns the engine, the scheduler, the wall time and the counts."""
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Engine, Scheduler
+
+    engine = Engine(cfg, params, ecfg)
+    sched = Scheduler(engine)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    return engine, sched, time.perf_counter() - t0, launch_counts()
+
+
+def phase_paged_path(cfg, params, band: float, contig_streams):
+    """(a) bench's 32-request trace through a paged engine with the pool
+    auto-sized: its greedy and sampled streams must equal phase 5's
+    contiguous ones token for token, and per decode step every layer runs
+    the paged write and read and no contiguous decode kernel. The trace
+    runs contiguous, paged, paged, contiguous, for the two sides' decode
+    tokens/s in one call. (b) bench's mixed trace at ``decode_chunk=8``
+    with a 25-page pool, against the contiguous engine: the pool must
+    hold admissions back, every request completes, every stream holds the
+    reference band, and the pool's peak, the waits for pages and the
+    cache bytes pinned per active token are logged."""
+    import dataclasses
+
+    from apex_tpu_torch.serving import Engine, EngineConfig
+
+    L = cfg.num_layers
+    contig_cfg = EngineConfig(slots=SLOTS, max_prompt_len=64,
+                              max_seq_len=HORIZON)
+    paged_cfg = dataclasses.replace(contig_cfg, page_size=PAGE)
+    tps = {"contig": [], "paged": []}
+    for side in ("contig", "paged", "paged", "contig"):
+        checked = side == "paged" and not tps["paged"]
+        engine, sched, wall, run_counts = serve_timed(
+            cfg, params, paged_cfg if side == "paged" else contig_cfg,
+            bench_trace(cfg.vocab_size))
+        s = sched.summary()
+        tps[side].append(s["decode_tokens_per_sec"])
+        if not checked:
+            del engine, sched
+            continue
+        counts, steps = run_counts, engine.decode_steps_taken
+        check(engine.describe()["num_pages"] == NUM_PAGES,
+              f"paged: pool of {engine.describe()['num_pages']} pages")
+        log(f"paged path: {len(sched.completions)} requests in "
+            f"{wall:.2f}s, {steps} decode steps, {engine.admit_groups} "
+            f"admission groups, launches {counts}; decode_tokens_per_sec "
+            f"{s['decode_tokens_per_sec']:.1f}, tokens_per_sec "
+            f"{s['tokens_per_sec']:.1f}")
+        drift = [r for r in contig_streams
+                 if sched.completions[r].tokens != contig_streams[r]]
+        check(not drift, f"paged path: streams differ from the contiguous "
+              f"engine's for {drift}")
+        check(counts["paged_write_column"] == L * steps > 0,
+              f"paged path: paged_write_column launched "
+              f"{counts['paged_write_column']} times, expected {L} x "
+              f"{steps}")
+        check(counts["paged_attention"] == L * steps,
+              f"paged path: paged_attention launched "
+              f"{counts['paged_attention']} times, expected {L} x {steps}")
+        check(counts["decode_attention"] == 0
+              and counts["decode_write_column"] == 0,
+              "paged path: a contiguous decode kernel ran")
+        check(counts["flash_attention_bsh"] == L * engine.admit_groups,
+              "paged path: flash prefill launches off the admission groups")
+        log("paged path: all 32 streams (greedy and sampled) identical to "
+            "the contiguous engine's")
+        del engine, sched
+    log("paged vs contiguous, decode tokens/s in the order contiguous, "
+        "paged, paged, contiguous: " + json.dumps(tps) + f"; paged / "
+        f"contiguous {sum(tps['paged']) / sum(tps['contig']):.3f}")
+
+    # (b) the mixed trace under a 25-page pool, against contiguous
+    base = dict(slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON,
+                decode_chunk=8)
+    reqs = mixed_trace(cfg.vocab_size)
+    out = {}
+    for name, ecfg in (("paged", EngineConfig(**base, page_size=PAGE,
+                                              num_pages=25)),
+                       ("contig", EngineConfig(**base))):
+        engine = Engine(cfg, params, ecfg)
+        sched, wall, per_tok, peak = run_tracked(engine, reqs)
+        check(len(sched.completions) == len(reqs)
+              and all(len(sched.completions[r.request_id].tokens)
+                      == r.max_tokens for r in reqs),
+              f"mixed {name}: not every request completed in full")
+        worst_lp, worst_gap = hold_streams(cfg, params, reqs,
+                                           sched.completions)
+        check(worst_lp <= band and worst_gap <= band,
+              f"mixed {name}: streams off the reference by {worst_lp} / "
+              f"{worst_gap} (band {band})")
+        s = sched.summary()
+        out[name] = dict(wall_s=wall, bytes_per_active_token=per_tok,
+                         pages_in_use_peak=peak,
+                         pages_exhausted_waits=s.get(
+                             "pages_exhausted_waits", 0.0),
+                         page_deferrals=s.get("page_deferrals", 0.0),
+                         decode_tokens_per_sec=s["decode_tokens_per_sec"],
+                         max_logprob_err=worst_lp, greedy_gap=worst_gap)
+        del engine, sched
+    check(out["paged"]["page_deferrals"] > 0,
+          "mixed paged: the 25-page pool never held an admission back")
+    out["capacity_gain"] = (out["contig"]["bytes_per_active_token"]
+                            / out["paged"]["bytes_per_active_token"])
+    log("mixed trace: " + json.dumps(out))
+    out["trace_decode_tokens_per_sec"] = tps
+    return counts, out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: speculative serving; phase 18: paged + speculative
+# ---------------------------------------------------------------------------
+
+def spec_trace(vocab: int, adversarial: bool, n: int = 16,
+               max_prompt_len: int = 16, max_tokens: int = 96):
+    """bench.py serve()'s speculative A/B trace at its on-chip size: 16
+    requests of 96 tokens, prompt length ``1 + (11 i + 5) % 16`` from
+    numpy seed ``700 + i``; "high" is greedy, "adv" samples at
+    temperature 1.5 with seed ``i``."""
+    from apex_tpu_torch.serving import Request, SamplingParams
+
+    reqs = []
+    for i in range(n):
+        p_len = 1 + (11 * i + 5) % max_prompt_len
+        prompt = np.random.default_rng(700 + i).integers(
+            0, vocab, p_len).tolist()
+        sp = (SamplingParams(temperature=1.5, seed=i) if adversarial
+              else SamplingParams())
+        reqs.append(Request(f"s{i}", prompt, max_tokens=max_tokens,
+                            sampling=sp))
+    return reqs
+
+
+def spec_config(**over):
+    """bench.py serve()'s speculative geometry: 8 slots, prompts <= 16,
+    horizon 192, chunks of 4, drafts of 3."""
+    from apex_tpu_torch.serving import EngineConfig
+
+    return EngineConfig(**{**dict(slots=SLOTS, max_prompt_len=16,
+                                  max_seq_len=HORIZON, decode_chunk=4,
+                                  spec_k=SPEC_K), **over})
+
+
+def _first_gap(cfg, params, r, plain_toks, k: int) -> float:
+    """Top-2 gap of the reference forward's scores at stream index ``k``
+    of the plain stream: the logits for a greedy request, the
+    temperature-scaled logits plus the draw's Gumbel noise for a sampled
+    one (the quantity whose argmax picked the token)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.serving import sampling
+
+    ref_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    p = gpt.cast_params(ref_cfg, params)
+    seq = torch.as_tensor([list(r.prompt) + plain_toks[:k]], device="cuda")
+    lg = gpt.logits(ref_cfg, p, seq)[0, -1].float()
+    sp = r.sampling
+    if sp.temperature > 0:
+        key = torch.tensor([sampling.request_key(sp.seed, 0)],
+                           device="cuda")
+        t = torch.tensor([len(r.prompt) - 1 + k], device="cuda")
+        lg = lg / sp.temperature + sampling.gumbel_noise(
+            key, t, torch.zeros_like(t), lg.numel())[0]
+    top = torch.topk(lg, 2).values
+    return float(top[0] - top[1])
+
+
+def phase_spec(cfg, params, band: float):
+    """bench's speculative A/B: each trace through a spec_k=3 engine and a
+    plain one under the scheduler (the spec side's payoff gate picks each
+    chunk's kind), in the order spec, plain, plain, spec for the two
+    sides' decode tokens/s in one call. On each side's first run every
+    spec stream must hold the reference band, and the verify's column
+    write must run on every layer of every verify wave. The spec-vs-plain
+    drift is reported, not asserted (the verify's materialised read and
+    the split-K kernel round differently), with the top-2 gap at each
+    drifting stream's first divergence."""
+    L = cfg.num_layers
+    out, writes = {}, {}
+    for trace, adv in (("high", False), ("adv", True)):
+        res, tps = {}, {"spec": [], "plain": []}
+        for side in ("spec", "plain", "plain", "spec"):
+            reqs = spec_trace(cfg.vocab_size, adv)
+            engine, sched, wall, counts = serve_timed(
+                cfg, params,
+                spec_config() if side == "spec" else spec_config(spec_k=0),
+                reqs)
+            s = sched.summary()
+            tps[side].append(s["decode_tokens_per_sec"])
+            if side in res:
+                del engine, sched
+                continue
+            check(len(sched.completions) == len(reqs),
+                  f"spec {trace}/{side}: not every request completed")
+            row = dict(wall_s=wall,
+                       decode_tokens_per_sec=s["decode_tokens_per_sec"],
+                       decode_time_s=s["decode_time_s"],
+                       decode_steps=engine.decode_steps_taken,
+                       verify_waves=engine.spec_waves_taken)
+            if side == "spec":
+                check(counts["cache_write_columns"]
+                      == L * engine.spec_waves_taken > 0,
+                      f"spec {trace}: cache_write_columns launched "
+                      f"{counts['cache_write_columns']} times, expected "
+                      f"{L} x {engine.spec_waves_taken} verify waves")
+                writes[trace] = counts["cache_write_columns"]
+                worst_lp, worst_gap = hold_streams(cfg, params, reqs,
+                                                   sched.completions)
+                check(worst_lp <= band and worst_gap <= band,
+                      f"spec {trace}: streams off the reference by "
+                      f"{worst_lp} / {worst_gap} (band {band})")
+                row.update(
+                    max_logprob_err=worst_lp, greedy_gap=worst_gap,
+                    **{k: s[k] for k in (
+                        "spec_chunks", "spec_tokens_per_wave",
+                        "spec_accept_rate", "spec_gate_state",
+                        "spec_break_even", "spec_gate_spec_decisions",
+                        "spec_gate_plain_decisions")})
+            res[side] = (row, {r: c.tokens
+                               for r, c in sched.completions.items()})
+            del engine, sched
+        spec_t, plain_t = res["spec"][1], res["plain"][1]
+        gaps = []
+        for r in spec_trace(cfg.vocab_size, adv):
+            a, b = spec_t[r.request_id], plain_t[r.request_id]
+            if a != b:
+                k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                gaps.append((r.request_id, k,
+                             _first_gap(cfg, params, r, b, k)))
+        out[trace] = dict(spec=res["spec"][0], plain=res["plain"][0],
+                          decode_tokens_per_sec=tps,
+                          spec_over_plain=sum(tps["spec"])
+                          / sum(tps["plain"]),
+                          drift=len(gaps), first_divergence_gaps=gaps)
+        log(f"spec {trace}: " + json.dumps(out[trace]))
+    return writes, out
+
+
+def drive_spec(engine, reqs):
+    """Serve ``reqs`` with every chunk speculative, without the scheduler:
+    ``admit_many`` into free slots in FIFO order, then
+    ``step_async(spec=True).fetch()`` and only the ``valid`` columns.
+    Returns each request's tokens."""
+    from apex_tpu_torch.serving import Admission
+
+    queue, free = list(reqs), list(range(engine.slots))[::-1]
+    active, out = {}, {r.request_id: [] for r in reqs}
+
+    def release(slot):
+        engine.free_slot(slot)
+        del active[slot]
+        free.append(slot)
+
+    while queue or active:
+        adm = []
+        while queue and free:
+            adm.append((free.pop(), queue.pop(0)))
+        if adm:
+            res = engine.admit_many([Admission(
+                slot=slot, prompt=r.prompt, max_tokens=r.max_tokens,
+                temperature=r.sampling.temperature, seed=r.sampling.seed)
+                for slot, r in adm])
+            for (slot, r), a in zip(adm, res):
+                out[r.request_id].append(a.first_token)
+                active[slot] = r
+                if a.finished:
+                    release(slot)
+        if not active:
+            continue
+        h = engine.step_async(spec=True)
+        toks, _, fins = h.fetch()
+        for j in range(toks.shape[1]):
+            for slot in list(active):
+                if h.valid[slot, j]:
+                    out[active[slot].request_id].append(int(toks[slot, j]))
+                    if fins[slot, j]:
+                        release(slot)
+    return out
+
+
+def phase_paged_spec(cfg, params):
+    """The "high" trace with every chunk speculative through a paged
+    spec_k=3 engine and a contiguous one: the emitted tokens must be
+    identical (the gathered bytes and the read's expression are the
+    same), and the paged side's verify writes must go through
+    ``paged_write_columns`` on every layer of every wave."""
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Engine
+
+    L = cfg.num_layers
+    reqs = spec_trace(cfg.vocab_size, False)
+    res = {}
+    for name, ecfg in (("paged", spec_config(page_size=PAGE)),
+                       ("contig", spec_config())):
+        engine = Engine(cfg, params, ecfg)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = drive_spec(engine, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        waves = engine.spec_waves_taken
+        want = {"paged": ("paged_write_columns", "cache_write_columns"),
+                "contig": ("cache_write_columns", "paged_write_columns")}
+        on, off = want[name]
+        check(counts[on] == L * waves > 0 and counts[off] == 0,
+              f"paged+spec {name}: {on} launched {counts[on]} times "
+              f"(expected {L} x {waves} waves), {off} {counts[off]}")
+        check(counts["decode_attention"] == counts["paged_attention"] == 0,
+              f"paged+spec {name}: a plain decode read ran")
+        check(all(len(toks[r.request_id]) == r.max_tokens for r in reqs),
+              f"paged+spec {name}: a stream is short")
+        res[name] = (toks, counts[on], wall, waves)
+        del engine
+    drift = [r for r in res["paged"][0]
+             if res["paged"][0][r] != res["contig"][0][r]]
+    check(not drift, f"paged+spec: streams differ from contiguous spec for "
+          f"{drift}")
+    log(f"paged+spec: 16 streams identical to contiguous spec; paged "
+        f"{res['paged'][2]:.2f}s / {res['paged'][3]} waves, contiguous "
+        f"{res['contig'][2]:.2f}s / {res['contig'][3]} waves")
+    return res["paged"][1]
 
 
 # ---------------------------------------------------------------------------
@@ -1498,11 +2174,28 @@ def main() -> int:
         band = 3 * phase_model(cfg, params)
         log(f"model phase {time.perf_counter() - t:.1f}s")
         t = time.perf_counter()
-        counts, _, engine = phase_path(cfg, params, band)
+        counts, _, engine, streams = phase_path(cfg, params, band)
         log(f"path phase {time.perf_counter() - t:.1f}s")
         phase_profile(cfg, engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the paged and speculative paths, on the same serving model
+        t = time.perf_counter()
+        paged_rows = phase_paged_kernels()
+        log(f"paged/spec kernels phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        paged_counts, _ = phase_paged_path(cfg, params, band, streams)
+        log(f"paged path phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        spec_writes, _ = phase_spec(cfg, params, band)
+        log(f"spec phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        paged_spec_writes = phase_paged_spec(cfg, params)
+        log(f"paged+spec phase {time.perf_counter() - t:.1f}s")
         # the training phases' peak memory is the train step's own
-        del engine, params
+        del params
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1573,6 +2266,14 @@ def main() -> int:
         return 1
     for r in rows.values():
         r["launches"] = counts[r["name"]]
+    paged_rows["paged_write_column"]["launches"] = paged_counts[
+        "paged_write_column"]
+    paged_rows["paged_attention"]["launches"] = paged_counts[
+        "paged_attention"]
+    paged_rows["cache_write_columns"]["launches"] = spec_writes["high"]
+    paged_rows["cache_write_columns"]["launches_adv"] = spec_writes["adv"]
+    paged_rows["paged_write_columns"]["launches"] = paged_spec_writes
+    rows.update(paged_rows)
     for r in train_rows.values():
         r["launches"] = flat["launches"][r["name"]]
     rows["flash_attention_bsh"]["train"] = dict(

@@ -6,8 +6,8 @@ and touches CUDA, and where it refuses to run.
   name and the ``apex_tpu.`` prefix — not the string prefix, which would
   also block ``apex_tpu_torch``), and the import neither builds the
   kernels nor initialises CUDA.
-- ``chip_smoke.py`` imports nothing of JAX, and without a CUDA device it
-  exits non-zero and prints no result line.
+- ``chip_smoke.py`` and ``chip_serve_ab.py`` import nothing of JAX, and
+  without a CUDA device they exit non-zero and print no result line.
 - ``device=None`` means CUDA: without a CUDA device the engine and the
   model's entry points raise instead of running on the CPU.
 """
@@ -69,8 +69,8 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its eight subpackages and their twenty-one modules
-    assert int(out["MODULES"]) == 30, out
+    # the package, its eight subpackages and their twenty-two modules
+    assert int(out["MODULES"]) == 31, out
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"
     assert out["CUDA_INIT"] == "False"
@@ -89,8 +89,9 @@ def _imported_roots(path):
 
 def test_port_sources_and_chip_smoke_import_no_jax():
     """A static view of the same rule, over every file of the package and
-    ``chip_smoke.py``: an import inside a function counts too."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    the chip scripts: an import inside a function counts too."""
+    files = [os.path.join(REPO, f)
+             for f in ("chip_smoke.py", "chip_serve_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "apex_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for f in files:
@@ -108,6 +109,20 @@ def test_chip_smoke_fails_without_a_card():
         capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_chip_serve_ab_fails_without_a_card():
+    """The serving A/B drives each turn through the smoke's device phase:
+    without a CUDA device its first turn fails and so does the script,
+    with no summary line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU refusal")
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_serve_ab.py"), REPO,
+         REPO], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "turn 0 (A) failed" in res.stdout
+    assert "b_over_a" not in res.stdout
 
 
 @pytest.fixture

@@ -166,6 +166,14 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     tk.flash_attention_bsh(x, x, x, num_heads=2, causal=True)
     tk.layer_norm(x)
     tk.l2norm_flat([x.reshape(-1)])
+    pool = torch.zeros(5, 2, 8, 64)
+    table = torch.tensor([[1, 2], [3, 4], [1, 2], [3, 4]], dtype=torch.int32)
+    pos = torch.tensor([0, 3, 9, 15], dtype=torch.int32)
+    tk.paged_write_column(kn, vn, pool, pool.clone(), table, pos)
+    tk.paged_attention(q, pool, pool, table, pos)
+    new = torch.zeros(4, 2, 3, 64)
+    tk.paged_write_columns(new, new, pool, pool.clone(), table, pos)
+    tk.cache_write_columns(new, new, kc, vc, pos)
     assert tk.launch_counts() == {"flash_attention_bsh": 0,
                                   "decode_write_column": 0,
                                   "decode_attention": 0,
@@ -173,7 +181,11 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "adam_flat": 0,
                                   "layer_norm_fwd": 0,
                                   "layer_norm_bwd": 0,
-                                  "l2norm_flat": 0}
+                                  "l2norm_flat": 0,
+                                  "paged_write_column": 0,
+                                  "paged_attention": 0,
+                                  "cache_write_columns": 0,
+                                  "paged_write_columns": 0}
     tk.write_column.launches = 3
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}

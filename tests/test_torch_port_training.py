@@ -60,6 +60,14 @@ from apex_tpu_torch.transformer.tensor_parallel import (
 # the module (apex_tpu.kernels re-exports a function of the same name)
 jfa = importlib.import_module("apex_tpu.kernels.flash_attention")
 
+# One intra-op thread for torch in this process. Under pytest-xdist every
+# worker imports every test module, so this holds for the whole run:
+# with torch's default of one thread per core in each of several
+# workers, its OpenMP threads oversubscribe the cores and spin, and this
+# file's oracle steps (8 s alone) took over a minute beside the other
+# port suites. At the tests' sizes one thread loses little.
+torch.set_num_threads(1)
+
 ORACLE = dict(vocab_size=1024, hidden_size=256, num_layers=4, num_heads=4,
               seq_len=256, remat=True, ce_chunk=128, attn_impl="flash",
               remat_policy="qkv_fc1_attn")
