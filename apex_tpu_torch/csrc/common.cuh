@@ -11,6 +11,9 @@ namespace apex_tpu_torch {
 // dtype codes shared with apex_tpu_torch/kernels/_build.py (DTYPE_CODES)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
+// quantized-KV storage codes shared with _build.py (KV_KIND_CODES)
+enum KvKind : int { kInt8 = 0, kFp8 = 1 };
+
 // the one head width the kernels are built for (GPT 355M: 1024 / 16)
 constexpr int kHeadDim = 64;
 

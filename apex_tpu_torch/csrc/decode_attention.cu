@@ -11,7 +11,16 @@
 //   (body _paged_write_cols_kernel) and paged_attention (body
 //   _paged_attn_kernel), the same three jobs through a per-row block
 //   table into a global page pool (gpt._paged_attend and
-//   gpt._paged_attend_multi).
+//   gpt._paged_attend_multi);
+// - the six over the quantized cache (int8 or fp8 e4m3 data with one
+//   fp32 scale per head row and column): _write_column_quant,
+//   cache_write_columns_quant, paged_write_column_quant and
+//   paged_write_columns_quant (bodies _write_kernel_quant,
+//   _write_cols_kernel_quant, _paged_write_kernel_quant,
+//   _paged_write_cols_kernel_quant) are write_columns_quant_kernel, and
+//   _run_attn_quant and paged_attention_quantized (bodies
+//   _attn_kernel_quant, _paged_attn_kernel_quant) are
+//   decode_attn_quant_kernel and paged_attn_quant_kernel.
 //
 // What bounds them on an H100: all are memory-bound. A write moves
 // 2 x b x T x h x d elements each way. The read moves, per (batch,
@@ -54,9 +63,30 @@
 //   contribute exact zeros, which is what decode_attention.py:297-301
 //   guards against.
 // - Scores are fp32 and scaled in fp32, as in _attn_kernel.
+// - The quantized writes keep write_columns_kernel's grid, addressing
+//   and clamp; each warp quantizes whole head rows in registers (absmax
+//   by a warp reduction, then the one quantizer, KvQuant) and stores a
+//   byte a value and one fp32 scale a row, so a write moves ~1/2 (bf16
+//   in) of the bytes it would store unquantized. The quantized reads are
+//   attend_row with a dequantizing load: a column's int8 or fp8 row
+//   widens to fp32 in registers and its two scales fold into the score
+//   and the probability, so the sweep reads ~(d + 4) / (2 d) of the
+//   bf16 cache's bytes.
+#include <cuda_fp8.h>
+
 #include "common.cuh"
 
 namespace apex_tpu_torch {
+
+// the quantized cache's storage types, widened to fp32 exactly
+template <> __device__ __forceinline__ float to_float<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+template <> __device__ __forceinline__ float to_float<__nv_fp8_e4m3>(
+    __nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
 namespace {
 
 constexpr int kWriteThreads = 256;
@@ -70,11 +100,16 @@ struct ColumnDst {
   const int* table;
   int h, P, mp, units;
 
-  __device__ __forceinline__ size_t offset(int b, int hh, int c) const {
-    if (table == nullptr)
-      return (((size_t)b * h + hh) * P + c) * units;
+  // the (row or page, head, column) cell: its scale's index in a scale
+  // plane, and its data row's in units of `units`
+  __device__ __forceinline__ size_t cell(int b, int hh, int c) const {
+    if (table == nullptr) return ((size_t)b * h + hh) * P + c;
     const int page = table[(size_t)b * mp + c / P];
-    return (((size_t)page * h + hh) * P + c % P) * units;
+    return ((size_t)page * h + hh) * P + c % P;
+  }
+
+  __device__ __forceinline__ size_t offset(int b, int hh, int c) const {
+    return cell(b, hh, c) * units;
   }
 };
 
@@ -112,39 +147,120 @@ write_columns_kernel(const U* __restrict__ k_new, const U* __restrict__ v_new,
   }
 }
 
-// Element offset of column c's [d] row inside one (batch, head) row of
-// the contiguous cache: the row base is k_cache + r * S * D.
-template <int D>
-struct ContiguousCols {
-  __device__ __forceinline__ size_t operator()(int c) const {
-    return (size_t)c * D;
+// THE KV quantizer of one value, bit for bit quantize_kv_rows (JAX and
+// the port's plain version): y = x / scale by a true IEEE division (this
+// file is built without --use_fast_math); int8 rounds half to even and
+// clips to +-127, fp8 clips to +-448 and converts to e4m3 to nearest
+// even. kRecip is the double 1 / qmax rounded once to fp32.
+template <typename Q> struct KvQuant;
+template <> struct KvQuant<int8_t> {
+  static constexpr float kMax = 127.f;
+  static constexpr float kRecip = static_cast<float>(1.0 / 127.0);
+  __device__ __forceinline__ static int8_t store(float y) {
+    const float r = fminf(fmaxf(rintf(y), -kMax), kMax);
+    return static_cast<int8_t>(__float2int_rn(r));
+  }
+};
+template <> struct KvQuant<__nv_fp8_e4m3> {
+  static constexpr float kMax = 448.f;
+  static constexpr float kRecip = static_cast<float>(1.0 / 448.0);
+  __device__ __forceinline__ static __nv_fp8_e4m3 store(float y) {
+    __nv_fp8_e4m3 out;
+    out.__x = __nv_cvt_float_to_fp8(fminf(fmaxf(y, -kMax), kMax),
+                                    __NV_SATFINITE, __NV_E4M3);
+    return out;
   }
 };
 
-// ... and of the paged pool: the base is the pool itself, and column c
-// lives in page table[b, c / P] at offset c % P of head `head`.
-template <int D>
+// the floor of a row's absmax, fp32(1e-12) as JAX rounds it
+constexpr float kAmaxFloor = static_cast<float>(1e-12);
+
+// write_columns_kernel's grid, addressing and clamp over the quantized
+// planes: one block per (row b, lane j); each warp takes whole head rows
+// of new[b, :, j, :] (K rows, then V rows), reduces |x| to the row's
+// absmax with a warp reduction, and stores the quantized row into the
+// data plane (dst.units == d) and its scale into the scale plane at the
+// same cell. Rows 9, 11, 14 and 16 of the kernel table.
+template <typename In, typename Q>
+__global__ void __launch_bounds__(kWriteThreads)
+write_columns_quant_kernel(const In* __restrict__ k_new,
+                           const In* __restrict__ v_new,
+                           Q* __restrict__ k_q, float* __restrict__ k_s,
+                           Q* __restrict__ v_q, float* __restrict__ v_s,
+                           const int* __restrict__ pos, ColumnDst dst, int T,
+                           int smax, bool clamp) {
+  const int b = blockIdx.x;
+  const int j = blockIdx.y;
+  int c = pos[b] + j;
+  if (c < 0) return;
+  if (clamp) {
+    if (c >= smax - 1) {
+      if (j != T - 1) return;
+      c = smax - 1;
+    }
+  } else if (c >= smax) {
+    return;
+  }
+  const int d = dst.units;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < 2 * dst.h; r += kWriteThreads / 32) {
+    const bool is_v = r >= dst.h;
+    const int hh = is_v ? r - dst.h : r;
+    const In* src =
+        (is_v ? v_new : k_new) + (((size_t)b * dst.h + hh) * T + j) * d;
+    float amax = 0.f;
+    for (int e = lane; e < d; e += 32)
+      amax = fmaxf(amax, fabsf(to_float<In>(src[e])));
+    amax = warp_max(amax);
+    const float scale = fmaxf(amax, kAmaxFloor) * KvQuant<Q>::kRecip;
+    const size_t cell = dst.cell(b, hh, c);
+    Q* row = (is_v ? v_q : k_q) + cell * d;
+    for (int e = lane; e < d; e += 32)
+      row[e] = KvQuant<Q>::store(__fdiv_rn(to_float<In>(src[e]), scale));
+    if (lane == 0) (is_v ? v_s : k_s)[cell] = scale;
+  }
+}
+
+// Cell of column c inside one (batch, head) row of the contiguous cache
+// (the data row starts D elements per cell further, the scale at the
+// cell): the row bases are k_cache + r * S * D and k_scale + r * S.
+struct ContiguousCols {
+  __device__ __forceinline__ size_t operator()(int c) const {
+    return (size_t)c;
+  }
+};
+
+// ... and of the paged pool: the bases are the pools themselves, and
+// column c lives in page table[b, c / P] at offset c % P of head `head`.
 struct PagedCols {
   const int* row_table;
   int head, h, P;
 
   __device__ __forceinline__ size_t operator()(int c) const {
     const int page = row_table[c / P];
-    return (((size_t)page * h + head) * P + c % P) * D;
+    return ((size_t)page * h + head) * P + c % P;
   }
 };
 
 // THE split-horizon sweep of one (batch, head) row: q [D] attends over
-// columns 0..p, column c's K and V rows at kb + col(c) and vb + col(c).
-template <typename T, int D, typename Cols>
+// columns 0..p; column c's K and V rows are at kb + col(c) * D and
+// vb + col(c) * D, in the storage type S. With kQuant, S is int8 or fp8
+// and column c's fp32 scales are ksb[col(c)] and vsb[col(c)]: the K
+// scale folds into the score, (q . k_int) * s_k * scale, and the V scale
+// into the probability, (p * s_v) . v_int, as _attn_kernel_quant does. A
+// column past p is never loaded, its scales included.
+template <typename T, typename S, int D, bool kQuant, typename Cols>
 __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
-                                           const T* __restrict__ kb,
-                                           const T* __restrict__ vb,
+                                           const S* __restrict__ kb,
+                                           const float* __restrict__ ksb,
+                                           const S* __restrict__ vb,
+                                           const float* __restrict__ vsb,
                                            const Cols& col, int p,
                                            float scale,
                                            T* __restrict__ outr) {
   constexpr int DPL = D / 32;
-  constexpr int VEC = Vec<T>::N;
+  constexpr int VEC = Vec<S>::N;
   __shared__ float qs[D];
   __shared__ float ms[kWarps];
   __shared__ float ls[kWarps];
@@ -166,31 +282,35 @@ __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
     const int cc = c * 32 + lane;
     const bool valid = cc <= p;
     float s = kNeg;
+    size_t cell = 0;
     if (valid) {
-      const T* krow = kb + col(cc);
+      cell = col(cc);
+      const S* krow = kb + cell * D;
       float dot = 0.f;
 #pragma unroll
       for (int e0 = 0; e0 < D; e0 += VEC) {
         float t[VEC];
-        load_vec<T>(krow + e0, t);
+        load_vec<S>(krow + e0, t);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * t[e];
       }
-      s = dot * scale;
+      s = kQuant ? dot * ksb[cell] * scale : dot * scale;
     }
     const float m_new = fmaxf(m, warp_max(s));
     const float corr = expf(m - m_new);
     const float prob = valid ? expf(s - m_new) : 0.f;
     l = corr * l + warp_sum(prob);
+    // the weight of this lane's V row: the probability, times its scale
+    const float pv = (kQuant && valid) ? prob * vsb[cell] : prob;
 #pragma unroll
     for (int t = 0; t < DPL; ++t) acc[t] *= corr;
     const int jn = min(32, p - c * 32 + 1);  // columns <= p in this chunk
     for (int j = 0; j < jn; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, prob, j);
-      const T* vrow = vb + col(c * 32 + j);
+      const float pj = __shfl_sync(0xffffffffu, pv, j);
+      const S* vrow = vb + col(c * 32 + j) * D;
 #pragma unroll
       for (int t = 0; t < DPL; ++t)
-        acc[t] += pj * to_float<T>(vrow[lane + 32 * t]);
+        acc[t] += pj * to_float<S>(vrow[lane + 32 * t]);
     }
     m = m_new;
   }
@@ -232,9 +352,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                    int S, float scale) {
   const int r = blockIdx.x;  // batch * h + head
   const int p = min(max(pos[r / h], 0), S - 1);
-  attend_row<T, D>(q + (size_t)r * D, k_cache + (size_t)r * S * D,
-                   v_cache + (size_t)r * S * D, ContiguousCols<D>{}, p,
-                   scale, out + (size_t)r * D);
+  attend_row<T, T, D, false>(q + (size_t)r * D, k_cache + (size_t)r * S * D,
+                             nullptr, v_cache + (size_t)r * S * D, nullptr,
+                             ContiguousCols{}, p, scale, out + (size_t)r * D);
 }
 
 template <typename T, int D>
@@ -246,9 +366,45 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int r = blockIdx.x;  // batch * h + head
   const int b = r / h;
   const int p = min(max(pos[b], 0), mp * P - 1);
-  const PagedCols<D> col{table + (size_t)b * mp, r - b * h, h, P};
-  attend_row<T, D>(q + (size_t)r * D, k_pool, v_pool, col, p, scale,
-                   out + (size_t)r * D);
+  const PagedCols col{table + (size_t)b * mp, r - b * h, h, P};
+  attend_row<T, T, D, false>(q + (size_t)r * D, k_pool, nullptr, v_pool,
+                             nullptr, col, p, scale, out + (size_t)r * D);
+}
+
+// The quantized reads (rows 12 and 18): attend_row over int8 or fp8
+// storage with the per-column scales; the paged kernel is the contiguous
+// one with only the column's address changed.
+template <typename T, typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
+                         const float* __restrict__ k_s,
+                         const S* __restrict__ v_q,
+                         const float* __restrict__ v_s,
+                         const int* __restrict__ pos, T* __restrict__ out,
+                         int h, int sk, float scale) {
+  const int r = blockIdx.x;  // batch * h + head
+  const int p = min(max(pos[r / h], 0), sk - 1);
+  attend_row<T, S, D, true>(q + (size_t)r * D, k_q + (size_t)r * sk * D,
+                            k_s + (size_t)r * sk, v_q + (size_t)r * sk * D,
+                            v_s + (size_t)r * sk, ContiguousCols{}, p, scale,
+                            out + (size_t)r * D);
+}
+
+template <typename T, typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
+                        const float* __restrict__ k_s,
+                        const S* __restrict__ v_q,
+                        const float* __restrict__ v_s,
+                        const int* __restrict__ table,
+                        const int* __restrict__ pos, T* __restrict__ out,
+                        int h, int P, int mp, float scale) {
+  const int r = blockIdx.x;  // batch * h + head
+  const int b = r / h;
+  const int p = min(max(pos[b], 0), mp * P - 1);
+  const PagedCols col{table + (size_t)b * mp, r - b * h, h, P};
+  attend_row<T, S, D, true>(q + (size_t)r * D, k_q, k_s, v_q, v_s, col, p,
+                            scale, out + (size_t)r * D);
 }
 
 template <typename U>
@@ -315,6 +471,89 @@ cudaError_t launch_paged_attn(const void* q, const void* k_pool,
       static_cast<const T*>(v_pool), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<T*>(out), h, P, mp, scale);
   return cudaGetLastError();
+}
+
+template <typename In, typename Q>
+cudaError_t launch_write_quant_t(const void* k_new, const void* v_new,
+                                 void* k_q, void* k_s, void* v_q, void* v_s,
+                                 const void* pos, const void* table, int b,
+                                 int h, int T, int P, int mp, int d, int smax,
+                                 bool clamp, cudaStream_t stream) {
+  const ColumnDst dst{static_cast<const int*>(table), h, P, mp, d};
+  write_columns_quant_kernel<In, Q><<<dim3(b, T), kWriteThreads, 0, stream>>>(
+      static_cast<const In*>(k_new), static_cast<const In*>(v_new),
+      static_cast<Q*>(k_q), static_cast<float*>(k_s), static_cast<Q*>(v_q),
+      static_cast<float*>(v_s), static_cast<const int*>(pos), dst, T, smax,
+      clamp);
+  return cudaGetLastError();
+}
+
+// the input rows' dtype times the storage kind
+cudaError_t launch_write_quant(const void* k_new, const void* v_new,
+                               void* k_q, void* k_s, void* v_q, void* v_s,
+                               const void* pos, const void* table, int b,
+                               int h, int T, int P, int mp, int d, int dtype,
+                               int kind, int smax, bool clamp,
+                               cudaStream_t stream) {
+#define APEX_WRITE_QUANT(IN, Q)                                             \
+  return launch_write_quant_t<IN, Q>(k_new, v_new, k_q, k_s, v_q, v_s, pos, \
+                                     table, b, h, T, P, mp, d, smax, clamp, \
+                                     stream)
+  if (dtype == kFloat32 && kind == kInt8) APEX_WRITE_QUANT(float, int8_t);
+  if (dtype == kFloat32 && kind == kFp8)
+    APEX_WRITE_QUANT(float, __nv_fp8_e4m3);
+  if (dtype == kBFloat16 && kind == kInt8)
+    APEX_WRITE_QUANT(__nv_bfloat16, int8_t);
+  if (dtype == kBFloat16 && kind == kFp8)
+    APEX_WRITE_QUANT(__nv_bfloat16, __nv_fp8_e4m3);
+#undef APEX_WRITE_QUANT
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, typename S>
+cudaError_t launch_attn_quant_t(const void* q, const void* k_q,
+                                const void* k_s, const void* v_q,
+                                const void* v_s, const void* table,
+                                const void* pos, void* out, int b, int h,
+                                int sk, int P, int mp, float scale,
+                                cudaStream_t stream) {
+  constexpr int D = kHeadDim;
+  if (table == nullptr) {
+    decode_attn_quant_kernel<T, S, D><<<b * h, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const S*>(k_q),
+        static_cast<const float*>(k_s), static_cast<const S*>(v_q),
+        static_cast<const float*>(v_s), static_cast<const int*>(pos),
+        static_cast<T*>(out), h, sk, scale);
+  } else {
+    paged_attn_quant_kernel<T, S, D><<<b * h, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const S*>(k_q),
+        static_cast<const float*>(k_s), static_cast<const S*>(v_q),
+        static_cast<const float*>(v_s), static_cast<const int*>(table),
+        static_cast<const int*>(pos), static_cast<T*>(out), h, P, mp, scale);
+  }
+  return cudaGetLastError();
+}
+
+// q's dtype times the storage kind; table == nullptr is the contiguous
+// cache [b, h, sk, d], otherwise the pools under table [b, mp]
+cudaError_t launch_attn_quant(const void* q, const void* k_q, const void* k_s,
+                              const void* v_q, const void* v_s,
+                              const void* table, const void* pos, void* out,
+                              int b, int h, int sk, int P, int mp,
+                              float scale, int dtype, int kind,
+                              cudaStream_t stream) {
+#define APEX_ATTN_QUANT(T, S)                                              \
+  return launch_attn_quant_t<T, S>(q, k_q, k_s, v_q, v_s, table, pos, out, \
+                                   b, h, sk, P, mp, scale, stream)
+  if (dtype == kFloat32 && kind == kInt8) APEX_ATTN_QUANT(float, int8_t);
+  if (dtype == kFloat32 && kind == kFp8)
+    APEX_ATTN_QUANT(float, __nv_fp8_e4m3);
+  if (dtype == kBFloat16 && kind == kInt8)
+    APEX_ATTN_QUANT(__nv_bfloat16, int8_t);
+  if (dtype == kBFloat16 && kind == kFp8)
+    APEX_ATTN_QUANT(__nv_bfloat16, __nv_fp8_e4m3);
+#undef APEX_ATTN_QUANT
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -415,4 +654,86 @@ extern "C" int apex_tpu_torch_paged_attention(
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// the quantized cache: data planes int8 or fp8 e4m3 (kind) beside fp32
+// scale planes; the new rows are fp32 or bf16 (dtype)
+// ---------------------------------------------------------------------------
+
+// k_q/v_q [b, h, S, d] and k_s/v_s [b, h, S] gain k_new/v_new [b, h, d]
+// quantized at column pos[b], in place.
+extern "C" int apex_tpu_torch_decode_write_column_quant(
+    const void* k_new, const void* v_new, void* k_q, void* k_s, void* v_q,
+    void* v_s, const void* pos, int b, int h, int S, int d, int dtype,
+    int kind, void* stream) {
+  if (b <= 0 || h <= 0 || S <= 0 || d <= 0) return cudaErrorInvalidValue;
+  return launch_write_quant(k_new, v_new, k_q, k_s, v_q, v_s, pos, nullptr,
+                            b, h, 1, S, 1, d, dtype, kind, S, false,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// ... k_new/v_new [b, h, T, d] at columns pos[b] + j, lanes past the
+// horizon clamped onto column S - 1, in place.
+extern "C" int apex_tpu_torch_cache_write_columns_quant(
+    const void* k_new, const void* v_new, void* k_q, void* k_s, void* v_q,
+    void* v_s, const void* pos, int b, int h, int T, int S, int d, int dtype,
+    int kind, void* stream) {
+  if (b <= 0 || h <= 0 || T <= 0 || S <= 0 || d <= 0)
+    return cudaErrorInvalidValue;
+  return launch_write_quant(k_new, v_new, k_q, k_s, v_q, v_s, pos, nullptr,
+                            b, h, T, S, 1, d, dtype, kind, S, true,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// the pools [num_pages, h, P, d] / [num_pages, h, P] gain k_new/v_new
+// [b, h, d] quantized at logical column pos[b] of row b's table [b, mp].
+extern "C" int apex_tpu_torch_paged_write_column_quant(
+    const void* k_new, const void* v_new, void* k_q, void* k_s, void* v_q,
+    void* v_s, const void* table, const void* pos, int b, int h, int P,
+    int mp, int d, int dtype, int kind, void* stream) {
+  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0 || d <= 0)
+    return cudaErrorInvalidValue;
+  return launch_write_quant(k_new, v_new, k_q, k_s, v_q, v_s, pos, table, b,
+                            h, 1, P, mp, d, dtype, kind, mp * P, false,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// ... k_new/v_new [b, h, T, d] at logical columns pos[b] + j, lanes past
+// the horizon mp * P clamped onto its last column, in place.
+extern "C" int apex_tpu_torch_paged_write_columns_quant(
+    const void* k_new, const void* v_new, void* k_q, void* k_s, void* v_q,
+    void* v_s, const void* table, const void* pos, int b, int h, int T,
+    int P, int mp, int d, int dtype, int kind, void* stream) {
+  if (b <= 0 || h <= 0 || T <= 0 || P <= 0 || mp <= 0 || d <= 0)
+    return cudaErrorInvalidValue;
+  return launch_write_quant(k_new, v_new, k_q, k_s, v_q, v_s, pos, table, b,
+                            h, T, P, mp, d, dtype, kind, mp * P, true,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// out [b, h, d]: q attends over columns 0..pos[b] of the quantized cache
+// k_q/v_q [b, h, S, d] with scales k_s/v_s [b, h, S].
+extern "C" int apex_tpu_torch_decode_attention_quant(
+    const void* q, const void* k_q, const void* k_s, const void* v_q,
+    const void* v_s, const void* pos, void* out, int b, int h, int S, int d,
+    float scale, int dtype, int kind, void* stream) {
+  if (b <= 0 || h <= 0 || S <= 0 || d != kHeadDim)
+    return cudaErrorInvalidValue;
+  return launch_attn_quant(q, k_q, k_s, v_q, v_s, nullptr, pos, out, b, h, S,
+                           1, 1, scale, dtype, kind,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The same read through row b's table [b, mp] over the quantized pools.
+extern "C" int apex_tpu_torch_paged_attention_quant(
+    const void* q, const void* k_q, const void* k_s, const void* v_q,
+    const void* v_s, const void* table, const void* pos, void* out, int b,
+    int h, int P, int mp, int d, float scale, int dtype, int kind,
+    void* stream) {
+  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0 || d != kHeadDim)
+    return cudaErrorInvalidValue;
+  return launch_attn_quant(q, k_q, k_s, v_q, v_s, table, pos, out, b, h, 0, P,
+                           mp, scale, dtype, kind,
+                           static_cast<cudaStream_t>(stream));
 }

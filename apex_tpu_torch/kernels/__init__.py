@@ -15,18 +15,33 @@ from apex_tpu_torch.kernels import _build
 from apex_tpu_torch.kernels.decode_attention import (
     attend_cache,
     attend_cache_plain,
+    attend_cache_quant,
+    attend_cache_quant_plain,
     cache_write_columns,
     cache_write_columns_plain,
+    cache_write_columns_quant,
+    cache_write_columns_quant_plain,
     decode_attention,
     decode_attention_plain,
+    decode_attention_quantized,
+    decode_attention_quantized_plain,
     paged_attention,
     paged_attention_plain,
+    paged_attention_quantized,
+    paged_attention_quantized_plain,
     paged_write_column,
     paged_write_column_plain,
+    paged_write_column_quant,
+    paged_write_column_quant_plain,
     paged_write_columns,
     paged_write_columns_plain,
+    paged_write_columns_quant,
+    paged_write_columns_quant_plain,
+    quantize_kv_rows,
     write_column,
     write_column_plain,
+    write_column_quant,
+    write_column_quant_plain,
 )
 from apex_tpu_torch.kernels.flash_attention import (
     flash_attention_bsh,
@@ -64,6 +79,12 @@ KERNEL_WRAPPERS = {
     "paged_attention": paged_attention,
     "cache_write_columns": cache_write_columns,
     "paged_write_columns": paged_write_columns,
+    "decode_write_column_quant": write_column_quant,
+    "decode_attention_quant": attend_cache_quant,
+    "cache_write_columns_quant": cache_write_columns_quant,
+    "paged_write_column_quant": paged_write_column_quant,
+    "paged_write_columns_quant": paged_write_columns_quant,
+    "paged_attention_quant": paged_attention_quantized,
 }
 
 
@@ -83,10 +104,16 @@ __all__ = [
     "adam_flat_plain",
     "attend_cache",
     "attend_cache_plain",
+    "attend_cache_quant",
+    "attend_cache_quant_plain",
     "cache_write_columns",
     "cache_write_columns_plain",
+    "cache_write_columns_quant",
+    "cache_write_columns_quant_plain",
     "decode_attention",
     "decode_attention_plain",
+    "decode_attention_quantized",
+    "decode_attention_quantized_plain",
     "flash_attention_bsh",
     "flash_attention_bsh_bwd",
     "flash_attention_bsh_bwd_plain",
@@ -102,12 +129,21 @@ __all__ = [
     "layer_norm_fwd_plain",
     "paged_attention",
     "paged_attention_plain",
+    "paged_attention_quantized",
+    "paged_attention_quantized_plain",
     "paged_write_column",
     "paged_write_column_plain",
+    "paged_write_column_quant",
+    "paged_write_column_quant_plain",
     "paged_write_columns",
     "paged_write_columns_plain",
+    "paged_write_columns_quant",
+    "paged_write_columns_quant_plain",
+    "quantize_kv_rows",
     "reset_launch_counts",
     "rms_norm",
     "write_column",
     "write_column_plain",
+    "write_column_quant",
+    "write_column_quant_plain",
 ]

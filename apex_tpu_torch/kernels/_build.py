@@ -43,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: dtype codes of ``csrc/common.cuh`` (enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: quantized-KV storage codes of ``csrc/common.cuh`` (enum KvKind)
+KV_KIND_CODES = {"int8": 0, "fp8": 1}
 #: the head width the attention kernels are built for (``kHeadDim``)
 KERNEL_HEAD_DIM = 64
 
@@ -97,6 +99,34 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
         _c_void_p],
+    # the quantized cache: k_new, v_new, k_q, k_s, v_q, v_s, pos (+ table)
+    # then the geometry, the input dtype, the storage kind and the stream
+    "apex_tpu_torch_decode_write_column_quant": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_void_p],
+    "apex_tpu_torch_cache_write_columns_quant": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_void_p],
+    "apex_tpu_torch_paged_write_column_quant": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_int, _c_int, _c_void_p],
+    "apex_tpu_torch_paged_write_columns_quant": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_int, _c_int, _c_int, _c_void_p],
+    # q, k_q, k_s, v_q, v_s, pos (+ table), out, geometry, scale, q's
+    # dtype, the storage kind, the stream
+    "apex_tpu_torch_decode_attention_quant": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
+        _c_void_p],
+    "apex_tpu_torch_paged_attention_quant": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_float, _c_int, _c_int, _c_void_p],
 }
 
 

@@ -23,7 +23,16 @@ its own wrapper and launch count:
   logical column ``c`` of row ``b`` lives in page ``table[b, c // P]``
   at offset ``c % P``. The paged read is the contiguous kernel's sweep
   with only the address changed, so on the same bytes it returns the
-  same bits.
+  same bits;
+- the quantized cache (int8 or fp8 e4m3 data ``[.., d]`` beside one
+  fp32 scale per head row and column ``[..]``): :func:`quantize_kv_rows`
+  is THE quantizer, bit for bit JAX's; :func:`write_column_quant`,
+  :func:`cache_write_columns_quant`, :func:`paged_write_column_quant`
+  and :func:`paged_write_columns_quant` quantize the incoming rows in
+  the kernel and write data and scale as their unquantized siblings
+  write; :func:`attend_cache_quant` and :func:`paged_attention_quantized`
+  read with the scales folded into the scores and the probabilities;
+  :func:`decode_attention_quantized` is the write and the read in order.
 
 Each has a plain PyTorch twin (``*_plain``) that CPU tensors run; CUDA
 tensors launch the kernel or raise. Beside them are the XLA spellings
@@ -515,3 +524,452 @@ def paged_attention(q, k_pool, v_pool, table, pos, *,
 
 
 paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the quantized cache: int8 / fp8 e4m3 storage plus per-row fp32 scales
+# ---------------------------------------------------------------------------
+
+#: symmetric quantization range per storage kind (int8 keeps the signed
+#: range symmetric at ±127; fp8 e4m3fn saturates at ±448)
+KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def kv_storage_dtype(kind: str) -> torch.dtype:
+    """Torch storage dtype of a quantized-KV kind."""
+    if kind == "int8":
+        return torch.int8
+    if kind == "fp8":
+        return torch.float8_e4m3fn
+    raise ValueError(f"unknown quantized-KV kind {kind!r}")
+
+
+def kv_kind_of(dtype: torch.dtype) -> str:
+    """The quantized-KV kind a storage dtype holds (the inverse of
+    :func:`kv_storage_dtype`)."""
+    for kind in KV_QMAX:
+        if kv_storage_dtype(kind) == dtype:
+            return kind
+    raise TypeError(f"{dtype} is not a quantized-KV storage dtype "
+                    f"(int8 or float8_e4m3fn)")
+
+
+def quantize_kv_rows(x: torch.Tensor, kind: str):
+    """THE KV quantizer: ``x [..., head_dim]`` (one K or V row per
+    leading coordinate) → ``(q [..., head_dim] storage, scale [...]
+    fp32)``. Symmetric absmax per row, round to nearest even. Every
+    write path of the quantized cache (the kernels, the XLA spellings,
+    bulk prefill) calls this or matches it bit for bit, as in the JAX
+    package: ``scale = max(amax, 1e-12) * fp32(1 / qmax)`` (the
+    reciprocal rounded once to fp32, never ``amax / qmax``), ``y = x /
+    scale`` as a true division, then int8 ``clip(round(y), ±127)`` or
+    fp8 ``clip(y, ±448)`` cast to e4m3fn."""
+    xf = x.float()
+    qmax = KV_QMAX[kind]
+    amax = xf.abs().amax(dim=-1)
+    recip = torch.full((), 1.0 / qmax, dtype=torch.float32,
+                       device=x.device)
+    scale = torch.clamp_min(amax, 1e-12) * recip
+    y = xf / scale[..., None]
+    if kind == "int8":
+        q = torch.round(y).clamp(-qmax, qmax).to(torch.int8)
+    else:
+        q = y.clamp(-qmax, qmax).to(torch.float8_e4m3fn)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_rows`: ``q [..., d]`` times the
+    per-row ``scale [...]``, in fp32, cast to ``dtype``."""
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte storage plane as uint8 (the cell scatters and gathers
+    move bytes; fp8 has no indexed assignment everywhere), any other
+    plane as it is."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def _check_quant_planes(rows, k_q, k_s, v_q, v_s, kind: Optional[str],
+                        what: str) -> str:
+    """``k_q/v_q [n, h, cols, d]`` of one storage dtype and ``k_s/v_s [n,
+    h, cols]`` fp32 beside rows ``[b, h, (T,) d]``, and ``kind`` (when
+    given) the planes' storage; returns the kind."""
+    if k_q.ndim != 4 or k_s.shape != k_q.shape[:3] \
+            or v_q.shape != k_q.shape or v_s.shape != k_s.shape:
+        raise ValueError(
+            f"{what}: quantized planes {tuple(k_q.shape)}/{tuple(k_s.shape)}"
+            f" and {tuple(v_q.shape)}/{tuple(v_s.shape)} are not [n, h, "
+            f"cols, d] and [n, h, cols]")
+    if (k_q.shape[1], k_q.shape[3]) != (rows.shape[1], rows.shape[-1]):
+        raise ValueError(f"{what}: planes {tuple(k_q.shape)} inconsistent "
+                         f"with rows {tuple(rows.shape)}")
+    if v_q.dtype != k_q.dtype or k_s.dtype != torch.float32 \
+            or v_s.dtype != torch.float32:
+        raise TypeError(f"{what}: planes must be one storage dtype with "
+                        f"fp32 scales")
+    stored = kv_kind_of(k_q.dtype)
+    if kind is not None and kind != stored:
+        raise ValueError(f"{what}: kind {kind!r} but the planes hold "
+                         f"{stored!r}")
+    return stored
+
+
+def _quant_columns_plain(k_new, v_new, k_q, k_s, v_q, v_s, pos, *,
+                         table=None, clamp: bool) -> None:
+    """The plain twin of every quantized write: lane ``j`` of row ``b``
+    (``new [b, h, T, d]``) is quantized by :func:`quantize_kv_rows` and
+    lands, data and scale, at logical column ``pos[b] + j`` — in the
+    contiguous planes, or through ``table`` in the pool — clamped onto
+    the horizon's last column (``clamp``) or not written past it; where
+    kept lanes collide the last one wins."""
+    b, _, t, _ = k_new.shape
+    dev = k_q.device
+    cols = _columns(pos, t, dev)
+    if table is None:
+        smax = k_q.shape[2]
+    else:
+        smax = table.shape[1] * k_q.shape[2]
+    keep = (cols >= 0) if clamp else (cols >= 0) & (cols < smax)
+    cols = cols.clamp(0, smax - 1)
+    if table is None:
+        i0 = torch.arange(b, device=dev)[:, None].expand(b, t)
+        i2 = cols
+    else:
+        i0, i2 = _page_cells(table, cols, k_q.shape[2])
+    i0, i2, keep = i0.reshape(-1), i2.reshape(-1), keep.reshape(-1)
+    for new, qp, sp in ((k_new, k_q, k_s), (v_new, v_q, v_s)):
+        q, sc = quantize_kv_rows(_lanes(new), kv_kind_of(qp.dtype))
+        _scatter_cells(_bytes(qp), _bytes(q), i0, i2, keep, first=False)
+        _scatter_cells(sp[..., None], sc[..., None], i0, i2, keep,
+                       first=False)
+
+
+def _launch_quant_write(entry: str, counted, k_new, v_new, k_q, k_s, v_q,
+                        v_s, pos, table, dims) -> None:
+    """Check the operands of a quantized write and launch ``entry``:
+    ``dims`` are the geometry ints the C entry takes after the pointers,
+    before the input dtype and the storage kind."""
+    kind = kv_kind_of(k_q.dtype)
+    code = _build.dtype_code(k_new, f"{entry} new rows")
+    _build.require(k_new, "k_new", tuple(k_new.shape), k_new.dtype)
+    _build.require(v_new, "v_new", tuple(k_new.shape), k_new.dtype)
+    _build.require(k_q, "k_q", tuple(k_q.shape), k_q.dtype)
+    _build.require(v_q, "v_q", tuple(k_q.shape), k_q.dtype)
+    _build.require(k_s, "k_s", tuple(k_s.shape), torch.float32)
+    _build.require(v_s, "v_s", tuple(k_s.shape), torch.float32)
+    _build.require(pos, "pos", (k_new.shape[0],), torch.int32)
+    ptrs = [k_new.data_ptr(), v_new.data_ptr(), k_q.data_ptr(),
+            k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr()]
+    if table is not None:
+        _build.require(table, "table", tuple(table.shape), torch.int32)
+        ptrs.append(table.data_ptr())
+    ptrs.append(pos.data_ptr())
+    rc = getattr(_build.library(), f"apex_tpu_torch_{entry}")(
+        *ptrs, *dims, code, _build.KV_KIND_CODES[kind], _build.stream())
+    _build.check(rc, entry)
+    counted.launches += 1
+
+
+def write_column_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s, pos,
+                             kind: Optional[str] = None) -> None:
+    """Plain twin of ``_write_kernel_quant``: the rows ``[b, h, d]``
+    quantized by :func:`quantize_kv_rows`, data and scale at column
+    ``pos[b]`` of the four planes, IN PLACE."""
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "write_column_quant")
+    _quant_columns_plain(k_new[:, :, None], v_new[:, :, None], k_q, k_s,
+                         v_q, v_s, pos, clamp=False)
+
+
+def write_column_quant(k_new, v_new, k_q, k_s, v_q, v_s, pos,
+                       kind: Optional[str] = None) -> None:
+    """Quantize ``k_new/v_new [b, h, d]`` per head row and write each row's
+    data into column ``pos[b]`` of ``k_q/v_q [b, h, S, d]`` (int8 or fp8)
+    and its fp32 scale into ``k_s/v_s [b, h, S]``, IN PLACE (JAX's
+    ``_write_column_quant``). ``kind`` may name the storage, which must
+    then match the planes'. CUDA tensors launch the kernel (counted in
+    ``write_column_quant.launches``), CPU tensors run the plain
+    version."""
+    b, h, sk, d = _check_geometry(k_new, k_q, v_q, pos)
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "write_column_quant")
+    if not _build.on_cuda(k_new, v_new, k_q, k_s, v_q, v_s, pos):
+        write_column_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s, pos)
+        return
+    _launch_quant_write("decode_write_column_quant", write_column_quant,
+                        k_new, v_new, k_q, k_s, v_q, v_s, pos, None,
+                        (b, h, sk, d))
+
+
+write_column_quant.launches = 0
+
+
+def cache_write_columns_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s, pos,
+                                    kind: Optional[str] = None) -> None:
+    """Plain twin of ``_write_cols_kernel_quant``: lane ``j`` of row ``b``
+    quantized and written at column ``min(pos[b] + j, S - 1)`` of the four
+    planes, IN PLACE; of the lanes clamped onto ``S - 1`` the row's last
+    one wins, in the data and the scale plane alike."""
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "cache_write_columns_quant")
+    _quant_columns_plain(k_new, v_new, k_q, k_s, v_q, v_s, pos, clamp=True)
+
+
+def cache_write_columns_quant(k_new, v_new, k_q, k_s, v_q, v_s, pos,
+                              kind: Optional[str] = None) -> None:
+    """:func:`cache_write_columns` over the quantized planes: each of the
+    T rows of ``k_new/v_new [b, h, T, d]`` is quantized and lands as one
+    data column and one scale column at ``pos[b] + j``, lanes past the
+    horizon clamped onto column ``S - 1``, IN PLACE. CUDA tensors launch
+    the kernel (counted in ``cache_write_columns_quant.launches``), CPU
+    tensors run the plain version."""
+    if k_new.ndim != 4 or v_new.shape != k_new.shape:
+        raise ValueError(f"expected new [b, h, T, d], got "
+                         f"{tuple(k_new.shape)} / {tuple(v_new.shape)}")
+    b, h, t, d = k_new.shape
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "cache_write_columns_quant")
+    sk = k_q.shape[2]
+    if k_q.shape[0] != b or tuple(pos.shape) != (b,):
+        raise ValueError(f"planes {tuple(k_q.shape)} / pos "
+                         f"{tuple(pos.shape)} inconsistent with new "
+                         f"{tuple(k_new.shape)}")
+    if not _build.on_cuda(k_new, v_new, k_q, k_s, v_q, v_s, pos):
+        cache_write_columns_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s,
+                                        pos)
+        return
+    _launch_quant_write("cache_write_columns_quant",
+                        cache_write_columns_quant, k_new, v_new, k_q, k_s,
+                        v_q, v_s, pos, None, (b, h, t, sk, d))
+
+
+cache_write_columns_quant.launches = 0
+
+
+def paged_write_column_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s, table,
+                                   pos, kind: Optional[str] = None) -> None:
+    """Plain twin of ``_paged_write_kernel_quant``: the quantized row and
+    its scale at ``(table[b, pos // P], pos % P)`` of the pools, IN PLACE
+    (a position outside the horizon is not written)."""
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "paged_write_column_quant")
+    _quant_columns_plain(k_new[:, :, None], v_new[:, :, None], k_q, k_s,
+                         v_q, v_s, pos, table=table, clamp=False)
+
+
+def paged_write_column_quant(k_new, v_new, k_q, k_s, v_q, v_s, table, pos,
+                             kind: Optional[str] = None) -> None:
+    """:func:`paged_write_column` over the quantized pools ``k_q/v_q
+    [num_pages, h, P, d]`` and ``k_s/v_s [num_pages, h, P]``: the rows
+    ``[b, h, d]`` are quantized and land at ``(table[b, pos // P], pos %
+    P)``, IN PLACE. CUDA tensors launch the kernel (counted in
+    ``paged_write_column_quant.launches``), CPU tensors run the plain
+    version."""
+    b, h, n, p, mp, d = _check_paged(k_new, k_q, v_q, table, pos)
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "paged_write_column_quant")
+    if not _build.on_cuda(k_new, v_new, k_q, k_s, v_q, v_s, table, pos):
+        paged_write_column_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s,
+                                       table, pos)
+        return
+    _launch_quant_write("paged_write_column_quant", paged_write_column_quant,
+                        k_new, v_new, k_q, k_s, v_q, v_s, pos, table,
+                        (b, h, p, mp, d))
+
+
+paged_write_column_quant.launches = 0
+
+
+def paged_write_columns_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s,
+                                    table, pos,
+                                    kind: Optional[str] = None) -> None:
+    """Plain twin of ``_paged_write_cols_kernel_quant``: lane ``j`` of row
+    ``b`` quantized at logical column ``min(pos[b] + j, max_pages * P -
+    1)`` through the table, IN PLACE; where lanes collide the last one
+    (row major over (b, j)) wins, data and scale alike."""
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "paged_write_columns_quant")
+    _quant_columns_plain(k_new, v_new, k_q, k_s, v_q, v_s, pos, table=table,
+                         clamp=True)
+
+
+def paged_write_columns_quant(k_new, v_new, k_q, k_s, v_q, v_s, table, pos,
+                              kind: Optional[str] = None) -> None:
+    """:func:`paged_write_columns` over the quantized pools: each lane of
+    ``k_new/v_new [b, h, T, d]`` is quantized and lands at logical column
+    ``pos[b] + j`` through ``table``, lanes past the row's horizon
+    clamped onto its last column, IN PLACE. CUDA tensors launch the
+    kernel (counted in ``paged_write_columns_quant.launches``), CPU
+    tensors run the plain version."""
+    b, h, n, p, mp, d = _check_paged(k_new, k_q, v_q, table, pos,
+                                     multi=True)
+    t = k_new.shape[2]
+    _check_quant_planes(k_new, k_q, k_s, v_q, v_s, kind,
+                        "paged_write_columns_quant")
+    if not _build.on_cuda(k_new, v_new, k_q, k_s, v_q, v_s, table, pos):
+        paged_write_columns_quant_plain(k_new, v_new, k_q, k_s, v_q, v_s,
+                                        table, pos)
+        return
+    _launch_quant_write("paged_write_columns_quant",
+                        paged_write_columns_quant, k_new, v_new, k_q, k_s,
+                        v_q, v_s, pos, table, (b, h, t, p, mp, d))
+
+
+paged_write_columns_quant.launches = 0
+
+
+def attend_cache_quant_plain(q, k_q, k_s, v_q, v_s, pos, *,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin of ``_attn_kernel_quant``: fp32 scores ``(q . k_int) *
+    s_k * scale`` and probabilities folded with ``s_v`` before the
+    product with ``v_int``; every column past ``pos`` — its data and its
+    scale — is replaced by zero BEFORE any product (stale fp8 bytes and
+    scales can be NaN)."""
+    b, h, sk, d = _check_geometry(q, k_q, v_q, pos)
+    s_ = float(scale) if scale is not None else 1.0 / d ** 0.5
+    col = torch.arange(sk, device=q.device)
+    valid = (col[None] <= pos.to(q.device, torch.long)[:, None])[:, None]
+    zero = torch.zeros((), device=q.device)
+    kf = torch.where(valid[..., None], k_q.float(), zero)
+    vf = torch.where(valid[..., None], v_q.float(), zero)
+    ks = torch.where(valid, k_s, zero)
+    vs = torch.where(valid, v_s, zero)
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), kf) * ks * s_
+    s = torch.where(valid, s, torch.full_like(s, _NEG))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    out = torch.einsum("bhs,bhsd->bhd", p * vs, vf)
+    return (out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+
+
+def _launch_quant_read(entry: str, counted, q, k_q, k_s, v_q, v_s, pos,
+                       table, dims, scale) -> torch.Tensor:
+    """Check the operands of a quantized read and launch ``entry``."""
+    kind = kv_kind_of(k_q.dtype)
+    code = _build.dtype_code(q, f"{entry} q")
+    if q.shape[-1] != _build.KERNEL_HEAD_DIM:
+        raise ValueError(f"{entry} kernel: head_dim {q.shape[-1]} != "
+                         f"{_build.KERNEL_HEAD_DIM}")
+    _build.require(q, "q", tuple(q.shape), q.dtype)
+    _build.require(k_q, "k_q", tuple(k_q.shape), k_q.dtype)
+    _build.require(v_q, "v_q", tuple(k_q.shape), k_q.dtype)
+    _build.require(k_s, "k_s", tuple(k_s.shape), torch.float32)
+    _build.require(v_s, "v_s", tuple(k_s.shape), torch.float32)
+    _build.require(pos, "pos", (q.shape[0],), torch.int32)
+    ptrs = [q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr()]
+    if table is not None:
+        _build.require(table, "table", tuple(table.shape), torch.int32)
+        ptrs.append(table.data_ptr())
+    out = torch.empty_like(q)
+    ptrs += [pos.data_ptr(), out.data_ptr()]
+    s_ = float(scale) if scale is not None else 1.0 / q.shape[-1] ** 0.5
+    rc = getattr(_build.library(), f"apex_tpu_torch_{entry}")(
+        *ptrs, *dims, s_, code, _build.KV_KIND_CODES[kind], _build.stream())
+    _build.check(rc, entry)
+    counted.launches += 1
+    return out
+
+
+def attend_cache_quant(q, k_q, k_s, v_q, v_s, pos, *,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """``out [b, h, d]``: each (batch, head) row of ``q`` attends over
+    columns ``0..pos[b]`` of the quantized planes ``k_q/v_q [b, h, S, d]``
+    (int8 or fp8) with fp32 scales ``k_s/v_s [b, h, S]``, the scales
+    folded into the scores and the probabilities (JAX's
+    ``_run_attn_quant``). CUDA tensors launch the kernel (counted in
+    ``attend_cache_quant.launches``), CPU tensors run the plain
+    version."""
+    b, h, sk, d = _check_geometry(q, k_q, v_q, pos)
+    _check_quant_planes(q, k_q, k_s, v_q, v_s, None, "attend_cache_quant")
+    if not _build.on_cuda(q, k_q, k_s, v_q, v_s, pos):
+        return attend_cache_quant_plain(q, k_q, k_s, v_q, v_s, pos,
+                                        scale=scale)
+    return _launch_quant_read("decode_attention_quant", attend_cache_quant,
+                              q, k_q, k_s, v_q, v_s, pos, None, (b, h, sk, d),
+                              scale)
+
+
+attend_cache_quant.launches = 0
+
+
+def decode_attention_quantized_plain(q, k_new, v_new, k_q, k_scale, v_q,
+                                     v_scale, pos, *,
+                                     kind: Optional[str] = None,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Plain twin of :func:`decode_attention_quantized` (writes the
+    column too)."""
+    write_column_quant_plain(k_new, v_new, k_q, k_scale, v_q, v_scale, pos,
+                             kind)
+    return attend_cache_quant_plain(q, k_q, k_scale, v_q, v_scale, pos,
+                                    scale=scale)
+
+
+def decode_attention_quantized(q, k_new, v_new, k_q, k_scale, v_q, v_scale,
+                               pos, *, kind: Optional[str] = None,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """:func:`decode_attention` over the quantized cache: ``k_new/v_new
+    [b, h, d]`` are quantized (:func:`quantize_kv_rows`) into column
+    ``pos[b]`` of ``k_q/v_q [b, h, S, d]`` and ``k_scale/v_scale [b, h,
+    S]`` IN PLACE — where the JAX function returns the new planes — and
+    ``q`` attends over ``0..pos[b]`` with the scales folded into the fp32
+    scores and probabilities. Whatever the planes hold past ``pos``, NaN
+    bit patterns included, never reaches the output."""
+    write_column_quant(k_new, v_new, k_q, k_scale, v_q, v_scale, pos, kind)
+    return attend_cache_quant(q, k_q, k_scale, v_q, v_scale, pos,
+                              scale=scale)
+
+
+def paged_gather_planes(plane, table) -> torch.Tensor:
+    """:func:`paged_gather_xla` for any plane — ``[num_pages, h, P, d]``
+    data of any dtype (one-byte storage gathered as bytes) or ``[num_pages,
+    h, P]`` scales — under ``table [b, max_pages]`` → the row-contiguous
+    ``[b, h, max_pages * P(, d)]``."""
+    if plane.ndim == 3:
+        return paged_gather_xla(plane[..., None], table)[..., 0]
+    return paged_gather_xla(_bytes(plane), table).view(plane.dtype)
+
+
+def paged_attention_quantized_plain(q, k_q, k_s, v_q, v_s, table, pos, *,
+                                    kind: Optional[str] = None,
+                                    scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """Plain twin of ``_paged_attn_kernel_quant``: the rows' pages of all
+    four planes gathered into the contiguous view, then
+    :func:`attend_cache_quant_plain`."""
+    _check_paged(q, k_q, v_q, table, pos)
+    _check_quant_planes(q, k_q, k_s, v_q, v_s, kind,
+                        "paged_attention_quantized")
+    g = lambda x: paged_gather_planes(x, table)
+    return attend_cache_quant_plain(q, g(k_q), g(k_s), g(v_q), g(v_s), pos,
+                                    scale=scale)
+
+
+def paged_attention_quantized(q, k_q, k_s, v_q, v_s, table, pos, *,
+                              kind: Optional[str] = None,
+                              scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """:func:`paged_attention` over the quantized pools ``k_q/v_q
+    [num_pages, h, P, d]`` (int8 or fp8) and ``k_s/v_s [num_pages, h,
+    P]`` (fp32): the contiguous quantized sweep with column ``c`` read
+    from page ``table[b, c // P]``, so on the same bytes it returns the
+    contiguous kernel's bits. CUDA tensors launch the kernel (counted in
+    ``paged_attention_quantized.launches``), CPU tensors run the plain
+    version."""
+    b, h, n, p, mp, d = _check_paged(q, k_q, v_q, table, pos)
+    _check_quant_planes(q, k_q, k_s, v_q, v_s, kind,
+                        "paged_attention_quantized")
+    if not _build.on_cuda(q, k_q, k_s, v_q, v_s, table, pos):
+        return paged_attention_quantized_plain(q, k_q, k_s, v_q, v_s, table,
+                                               pos, scale=scale)
+    return _launch_quant_read("paged_attention_quant",
+                              paged_attention_quantized, q, k_q, k_s, v_q,
+                              v_s, pos, table, (b, h, p, mp, d), scale)
+
+
+paged_attention_quantized.launches = 0

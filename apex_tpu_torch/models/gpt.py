@@ -13,10 +13,12 @@ of :func:`_ce_of_hidden`, the layer loop :func:`_scan_blocks` under
 ``remat`` / ``remat_policy``), bulk prefill (:func:`prefill`,
 :func:`prefill_at`, :func:`prefill_many`), KV-cache decode
 (:func:`decode_step`, :func:`decode_steps`, both over the contiguous
-cache or, with a block ``table``, the paged pool), speculative decoding
+cache or, with a block ``table``, the paged pool, each in compute dtype
+or quantized to int8 / fp8 by ``kv_cache_dtype``), speculative decoding
 (:func:`ngram_drafts`, :func:`shift_hist`, :func:`decode_verify`,
 :func:`decode_steps_spec`), the cache seams (:func:`init_cache`,
-:func:`cache_insert_slot(s)`, :func:`cache_insert_pages`) and
+:func:`cache_insert_slot(s)`, :func:`cache_insert_pages`,
+:func:`quantize_cache_block`, :func:`dequantize_cache_block`) and
 :func:`generate`, the solo oracle of the serving engine. The port has no
 mesh and runs tp=1. Every function has the JAX package's tp=1 semantics
 with two differences of idiom:
@@ -74,13 +76,23 @@ from apex_tpu_torch import _tree
 from apex_tpu_torch._capabilities import resolve_device
 from apex_tpu_torch.kernels import decode_attention, flash_attention_bsh
 from apex_tpu_torch.kernels.decode_attention import (
+    _bytes,
     cache_write_columns,
+    cache_write_columns_quant,
     cache_write_columns_xla,
+    decode_attention_quantized,
+    dequantize_kv,
+    kv_storage_dtype,
     paged_attention,
+    paged_attention_quantized,
+    paged_gather_planes,
     paged_gather_xla,
     paged_write_column,
+    paged_write_column_quant,
     paged_write_columns,
+    paged_write_columns_quant,
     paged_write_columns_xla,
+    quantize_kv_rows,
 )
 from apex_tpu_torch.kernels.flash_attention import FLASH_FWD_OP
 from apex_tpu_torch.kernels.layer_norm import layer_norm
@@ -101,10 +113,13 @@ class GPTConfig:
     as in JAX; ``scan_unroll`` has no counterpart (the layer loop is a
     Python loop). Options that belong to later slices of the port raise
     at construction: context parallelism and FSDP (the distributed
-    slice), experts (the MoE slice), quantized KV caches, the fused
-    cross entropy (the xentropy kernel's slice), and the head-major flash
-    layout / chunked XLA attention. ``ln_impl="pallas"`` is the port's
-    LayerNorm kernel (:mod:`apex_tpu_torch.kernels.layer_norm`)."""
+    slice), experts (the MoE slice), the fused cross entropy (the
+    xentropy kernel's slice), and the head-major flash layout / chunked
+    XLA attention. ``ln_impl="pallas"`` is the port's LayerNorm kernel
+    (:mod:`apex_tpu_torch.kernels.layer_norm`); ``kv_cache_dtype`` is
+    ``"auto"``, ``"bf16"`` or ``"compute"`` (the unquantized cache in
+    compute dtype) or ``"int8"`` / ``"fp8"`` (the quantized cache, see
+    :func:`init_cache`)."""
 
     vocab_size: int = 50304
     hidden_size: int = 1024
@@ -150,9 +165,6 @@ class GPTConfig:
             later.append("fsdp (the distributed slice)")
         if self.num_experts > 0:
             later.append("num_experts > 0 (the MoE slice)")
-        if self.kv_cache_dtype in ("int8", "fp8"):
-            later.append(f"kv_cache_dtype={self.kv_cache_dtype!r} (the "
-                         "quantized-cache slice)")
         if self.ce_impl == "fused":
             later.append("ce_impl='fused' (the xentropy kernel's slice)")
         if self.attn_impl == "xla_chunked":
@@ -173,7 +185,8 @@ class GPTConfig:
                  ("f32", "compute")),
                 ("decode_attn_impl", self.decode_attn_impl,
                  ("auto", "kernel", "xla")),
-                ("kv_cache_dtype", self.kv_cache_dtype, ("auto", "bf16"))):
+                ("kv_cache_dtype", self.kv_cache_dtype,
+                 ("auto", "bf16", "compute", "int8", "fp8"))):
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r}")
 
@@ -588,16 +601,73 @@ def loss(cfg: GPTConfig, params, tokens, targets):
 # KV-cache decode
 # ---------------------------------------------------------------------------
 
+def _kv_cache_dtype(cfg: GPTConfig) -> str:
+    """Resolve ``cfg.kv_cache_dtype`` to the storage kind: ``"compute"``
+    (the unquantized cache in compute dtype; ``"auto"`` and ``"bf16"``
+    spell it too, as in JAX), ``"int8"`` or ``"fp8"``."""
+    kind = cfg.kv_cache_dtype
+    if kind in ("auto", "bf16", "compute"):
+        return "compute"
+    if kind in ("int8", "fp8"):
+        return kind
+    raise ValueError(f"unknown kv_cache_dtype {kind!r} "
+                     f"(expected auto|bf16|compute|int8|fp8)")
+
+
+def _cache_map(fn, *caches):
+    """``fn`` over the planes of caches of one layout: the compute-dtype
+    array itself, or each of the quantized cache's ``"kv"`` and
+    ``"scale"`` planes (the result a dict of the same keys)."""
+    if isinstance(caches[0], dict):
+        return {k: fn(*(c[k] for c in caches)) for k in caches[0]}
+    return fn(*caches)
+
+
+def _cache_shape(params, cfg: GPTConfig, batch: int,
+                 max_len: Optional[int]):
+    qkv_k = params["layers"]["attn"]["qkv"]["kernel"]
+    heads = qkv_k.shape[-1] // cfg.head_dim
+    return ((qkv_k.shape[0], 2, batch, heads, max_len or cfg.seq_len,
+             cfg.head_dim), qkv_k.device)
+
+
 def init_cache(cfg: GPTConfig, params, batch: int,
                max_len: Optional[int] = None):
     """Zero KV cache on the parameters' device, layout ``[L, 2, batch,
     heads, max_len, head_dim]`` in compute dtype (``max_len`` defaults
-    to ``cfg.seq_len``)."""
-    qkv_k = params["layers"]["attn"]["qkv"]["kernel"]
-    heads = qkv_k.shape[-1] // cfg.head_dim
-    shape = (qkv_k.shape[0], 2, batch, heads, max_len or cfg.seq_len,
-             cfg.head_dim)
-    return torch.zeros(shape, dtype=cfg.compute_dtype, device=qkv_k.device)
+    to ``cfg.seq_len``) — or, under a quantized ``cfg.kv_cache_dtype``,
+    the dict ``{"kv": int8/fp8 [same shape], "scale": fp32 [L, 2, batch,
+    heads, max_len]}``, both planes zero (the verify read multiplies
+    stale columns by exact zeros; fp8 garbage could be NaN)."""
+    shape, dev = _cache_shape(params, cfg, batch, max_len)
+    kind = _kv_cache_dtype(cfg)
+    if kind == "compute":
+        return torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
+    return {"kv": torch.zeros(shape, dtype=kv_storage_dtype(kind),
+                              device=dev),
+            "scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                 device=dev)}
+
+
+def quantize_cache_block(cfg: GPTConfig, block):
+    """Compute-dtype cache block ``[L, 2, b, heads, P, d]`` → the storage
+    form of ``cfg.kv_cache_dtype`` (identity when unquantized): the one
+    place a raw K/V block becomes cache bytes, through
+    :func:`quantize_kv_rows`."""
+    kind = _kv_cache_dtype(cfg)
+    if kind == "compute":
+        return block.to(cfg.compute_dtype)
+    q, scale = quantize_kv_rows(block, kind)
+    return {"kv": q, "scale": scale}
+
+
+def dequantize_cache_block(cfg: GPTConfig, block):
+    """Inverse of :func:`quantize_cache_block` (identity when
+    unquantized): storage form → compute-dtype ``[L, 2, b, heads, P,
+    d]``."""
+    if isinstance(block, dict):
+        return dequantize_kv(block["kv"], block["scale"], cfg.compute_dtype)
+    return block
 
 
 def _decode_attn_impl(cfg: GPTConfig, device: torch.device) -> str:
@@ -627,10 +697,32 @@ def _xla_decode_read(q, k_cache, v_cache, pos):
 
 def _decode_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos):
     """Write this token's K/V at ``pos [b]`` (int32) into the layer's
-    cache ``kv [2, b, heads, S, d]`` IN PLACE and attend ``q [b, heads,
-    d]`` over ``0..pos`` → ``ctx [b, heads, d]``."""
+    cache ``kv`` IN PLACE and attend ``q [b, heads, d]`` over ``0..pos``
+    → ``ctx [b, heads, d]``. ``kv`` is ``[2, b, heads, S, d]``, or the
+    quantized layer view ``{"kv": [2, b, heads, S, d], "scale": [2, b,
+    heads, S]}``: the kernel impl quantizes the rows in the write kernel
+    and folds the scales into the read; the XLA impl quantizes them
+    with :func:`quantize_kv_rows`, writes both planes and reads the cache
+    dequantized to compute dtype (JAX's two branches)."""
     d = q.shape[-1]
-    if _decode_attn_impl(cfg, q.device) == "kernel":
+    kind = _kv_cache_dtype(cfg)
+    kernel = _decode_attn_impl(cfg, q.device) == "kernel"
+    if kind != "compute":
+        kvq, kvs = kv["kv"], kv["scale"]
+        if kernel:
+            return decode_attention_quantized(
+                q, k_new, v_new, kvq[0], kvs[0], kvq[1], kvs[1], pos,
+                kind=kind, scale=1.0 / math.sqrt(d))
+        rows = torch.arange(q.shape[0], device=q.device)
+        p = pos.long()
+        for i, new in enumerate((k_new, v_new)):
+            nq, ns = quantize_kv_rows(new, kind)
+            _bytes(kvq[i])[rows, :, p] = _bytes(nq)
+            kvs[i][rows, :, p] = ns
+        return _xla_decode_read(
+            q, dequantize_kv(kvq[0], kvs[0], cfg.compute_dtype),
+            dequantize_kv(kvq[1], kvs[1], cfg.compute_dtype), pos)
+    if kernel:
         return decode_attention(q, k_new, v_new, kv[0], kv[1], pos,
                                 scale=1.0 / math.sqrt(d))
     rows = torch.arange(q.shape[0], device=q.device)
@@ -640,25 +732,58 @@ def _decode_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos):
     return _xla_decode_read(q, kv[0], kv[1], pos)
 
 
+def _paged_xla_write(cfg: GPTConfig, kv, k_new, v_new, table, pos) -> None:
+    """The XLA impl's paged write of ``k_new/v_new [b, heads, T, d]`` at
+    ``pos[b] + j`` (lanes past the horizon dropped) into the layer's pool
+    ``kv``: the data planes as they are, or the rows quantized by
+    :func:`quantize_kv_rows` into both planes of the quantized pool."""
+    kind = _kv_cache_dtype(cfg)
+    for i, new in enumerate((k_new, v_new)):
+        if kind == "compute":
+            paged_write_columns_xla(kv[i], new, table, pos)
+            continue
+        nq, ns = quantize_kv_rows(new, kind)
+        paged_write_columns_xla(_bytes(kv["kv"][i]), _bytes(nq), table, pos)
+        paged_write_columns_xla(kv["scale"][i][..., None], ns[..., None],
+                                table, pos)
+
+
+def _paged_view(cfg: GPTConfig, kv, table):
+    """The row-contiguous K and V of the layer's pool under ``table``, in
+    compute dtype (the quantized pool gathered, then dequantized)."""
+    if _kv_cache_dtype(cfg) == "compute":
+        return paged_gather_xla(kv[0], table), paged_gather_xla(kv[1], table)
+    g = lambda x: paged_gather_planes(x, table)
+    return tuple(dequantize_kv(g(kv["kv"][i]), g(kv["scale"][i]),
+                               cfg.compute_dtype) for i in (0, 1))
+
+
 def _paged_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
-    """:func:`_decode_attend` over the PAGED layout: ``kv [2, num_pages,
-    heads, P, d]`` is the layer's slice of the page pool and ``table [b,
-    max_pages]`` (int32) maps each row's logical horizon onto pages. The
-    write lands at ``(table[b, pos // P], pos % P)`` IN PLACE. The
-    kernel impl runs the paged write and read kernels; the XLA impl
-    writes through :func:`paged_write_columns_xla`, GATHERS the
-    row-contiguous view and applies the contiguous read verbatim — the
-    same bytes and expression, so paged logits equal contiguous ones
-    bit for bit."""
+    """:func:`_decode_attend` over the PAGED layout: ``kv`` is the
+    layer's slice of the page pool (``[2, num_pages, heads, P, d]``, or
+    the quantized pool's two planes) and ``table [b, max_pages]``
+    (int32) maps each row's logical horizon onto pages. The write lands
+    at ``(table[b, pos // P], pos % P)`` IN PLACE. The kernel impl runs
+    the paged write and read kernels; the XLA impl writes through
+    :func:`paged_write_columns_xla`, GATHERS the row-contiguous view and
+    applies the contiguous read verbatim — the same bytes and
+    expression, so paged logits equal contiguous ones bit for bit."""
     d = q.shape[-1]
+    kind = _kv_cache_dtype(cfg)
     if _decode_attn_impl(cfg, q.device) == "kernel":
+        if kind != "compute":
+            kvq, kvs = kv["kv"], kv["scale"]
+            paged_write_column_quant(k_new, v_new, kvq[0], kvs[0], kvq[1],
+                                     kvs[1], table, pos, kind)
+            return paged_attention_quantized(
+                q, kvq[0], kvs[0], kvq[1], kvs[1], table, pos, kind=kind,
+                scale=1.0 / math.sqrt(d))
         paged_write_column(k_new, v_new, kv[0], kv[1], table, pos)
         return paged_attention(q, kv[0], kv[1], table, pos,
                                scale=1.0 / math.sqrt(d))
-    paged_write_columns_xla(kv[0], k_new[:, :, None], table, pos)
-    paged_write_columns_xla(kv[1], v_new[:, :, None], table, pos)
-    return _xla_decode_read(q, paged_gather_xla(kv[0], table),
-                            paged_gather_xla(kv[1], table), pos)
+    _paged_xla_write(cfg, kv, k_new[:, :, None], v_new[:, :, None], table,
+                     pos)
+    return _xla_decode_read(q, *_paged_view(cfg, kv, table), pos)
 
 
 def _decode_layer(cfg: GPTConfig, p, x, kv, pos, table=None):
@@ -717,8 +842,8 @@ def decode_step(cfg: GPTConfig, params, cache, token, pos, table=None):
     x = (emb[token.long()] + pos_e.to(cfg.compute_dtype)).to(
         cfg.compute_dtype)
     for l, layer_p in enumerate(_layers(params)):
-        x = _decode_layer(cfg, _cast_layer(cfg, layer_p), x, cache[l], pos,
-                          table)
+        x = _decode_layer(cfg, _cast_layer(cfg, layer_p), x,
+                          _cache_map(lambda c: c[l], cache), pos, table)
     return _lm_head(cfg, params, x), cache
 
 
@@ -856,34 +981,54 @@ def _decode_attend_multi(cfg: GPTConfig, q, k_new, v_new, kv, pos):
     """:func:`_decode_attend` for ``T`` tokens per row at positions
     ``pos[b] .. pos[b] + T - 1`` — the verify forward's attention:
     ``q/k_new/v_new [b, heads, T, d]``; all T K/V columns land in the
-    layer's cache ``kv [2, b, heads, S, d]`` IN PLACE (the kernel clamps
-    lanes past the horizon onto its last column, the XLA spelling drops
-    them), then row ``t`` attends over ``0 .. pos[b] + t`` through the
-    materialised read — on the kernel path too, as in JAX: T is the
-    draft width plus one, and the product lies outside any kernel."""
-    if _decode_attn_impl(cfg, q.device) == "kernel":
-        cache_write_columns(k_new.contiguous(), v_new.contiguous(), kv[0],
-                            kv[1], pos)
+    layer's cache ``kv`` IN PLACE (quantized, under a quantized cache;
+    the kernel clamps lanes past the horizon onto its last column, the
+    XLA spelling drops them), then row ``t`` attends over ``0 .. pos[b] +
+    t`` through the materialised read over the (dequantized) cache — on
+    the kernel path too, as in JAX: T is the draft width plus one, and
+    the product lies outside any kernel."""
+    kind = _kv_cache_dtype(cfg)
+    kernel = _decode_attn_impl(cfg, q.device) == "kernel"
+    if kind == "compute":
+        if kernel:
+            cache_write_columns(k_new.contiguous(), v_new.contiguous(),
+                                kv[0], kv[1], pos)
+        else:
+            cache_write_columns_xla(kv[0], k_new, pos)
+            cache_write_columns_xla(kv[1], v_new, pos)
+        return _xla_verify_read(q, kv[0], kv[1], pos)
+    kvq, kvs = kv["kv"], kv["scale"]
+    if kernel:
+        cache_write_columns_quant(k_new.contiguous(), v_new.contiguous(),
+                                  kvq[0], kvs[0], kvq[1], kvs[1], pos, kind)
     else:
-        cache_write_columns_xla(kv[0], k_new, pos)
-        cache_write_columns_xla(kv[1], v_new, pos)
-    return _xla_verify_read(q, kv[0], kv[1], pos)
+        for i, new in enumerate((k_new, v_new)):
+            nq, ns = quantize_kv_rows(new, kind)
+            cache_write_columns_xla(_bytes(kvq[i]), _bytes(nq), pos)
+            cache_write_columns_xla(kvs[i][..., None], ns[..., None], pos)
+    return _xla_verify_read(
+        q, dequantize_kv(kvq[0], kvs[0], cfg.compute_dtype),
+        dequantize_kv(kvq[1], kvs[1], cfg.compute_dtype), pos)
 
 
 def _paged_attend_multi(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
     """:func:`_decode_attend_multi` over the paged layout: the T columns
     land through the paged multi-column write (kernel: clamp; XLA:
-    drop), then the rows attend the GATHERED row-contiguous view with
-    the contiguous verify read verbatim, so paged verify logits equal
-    contiguous ones on the same bytes."""
-    if _decode_attn_impl(cfg, q.device) == "kernel":
+    drop), then the rows attend the GATHERED (and, quantized,
+    dequantized) row-contiguous view with the contiguous verify read
+    verbatim, so paged verify logits equal contiguous ones on the same
+    bytes."""
+    kind = _kv_cache_dtype(cfg)
+    if _decode_attn_impl(cfg, q.device) != "kernel":
+        _paged_xla_write(cfg, kv, k_new, v_new, table, pos)
+    elif kind == "compute":
         paged_write_columns(k_new.contiguous(), v_new.contiguous(), kv[0],
                             kv[1], table, pos)
     else:
-        paged_write_columns_xla(kv[0], k_new, table, pos)
-        paged_write_columns_xla(kv[1], v_new, table, pos)
-    return _xla_verify_read(q, paged_gather_xla(kv[0], table),
-                            paged_gather_xla(kv[1], table), pos)
+        paged_write_columns_quant(k_new.contiguous(), v_new.contiguous(),
+                                  kv["kv"][0], kv["scale"][0], kv["kv"][1],
+                                  kv["scale"][1], table, pos, kind)
+    return _xla_verify_read(q, *_paged_view(cfg, kv, table), pos)
 
 
 def _verify_layer(cfg: GPTConfig, p, x, kv, pos, table=None):
@@ -935,8 +1080,8 @@ def decode_verify(cfg: GPTConfig, params, cache, tokens, pos, table=None):
     x = (emb[tokens.long()] + pos_e.to(cfg.compute_dtype)).to(
         cfg.compute_dtype)
     for l, layer_p in enumerate(_layers(params)):
-        x = _verify_layer(cfg, _cast_layer(cfg, layer_p), x, cache[l], pos,
-                          table)
+        x = _verify_layer(cfg, _cast_layer(cfg, layer_p), x,
+                          _cache_map(lambda c: c[l], cache), pos, table)
     lg = _lm_head(cfg, params, x.reshape(b * t, x.shape[-1]))
     return lg.reshape(b, t, -1), cache
 
@@ -1062,19 +1207,21 @@ def _decode_entry_cfg(cfg: GPTConfig, p_len: int,
 
 def _prefill_states(cfg: GPTConfig, params, prompt, max_len: int):
     """One forward over ``prompt [b, p_len]`` → (cache block ``[L, 2, b,
-    heads, max_len, d]``, zero past ``p_len``; pre-final-LN hidden
-    ``[b, p_len, hidden]``)."""
+    heads, max_len, d]``, zero past ``p_len``, in the storage form of
+    ``cfg.kv_cache_dtype`` — quantized once at the end, as in JAX; the
+    pre-final-LN hidden ``[b, p_len, hidden]``)."""
     b, p_len = prompt.shape
     if p_len > max_len:
         raise ValueError(f"prompt {p_len} exceeds cache max_len {max_len}")
     h = _embed(cfg, params, prompt)
-    cache = init_cache(cfg, params, b, max_len)
+    shape, dev = _cache_shape(params, cfg, b, max_len)
+    cache = torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
     for l, layer_p in enumerate(_layers(params)):
         h, (k, v) = _block(cfg, _cast_layer(cfg, layer_p), h,
                            return_kv=True)
         cache[l, 0, :, :, :p_len] = k
         cache[l, 1, :, :, :p_len] = v
-    return cache, h
+    return quantize_cache_block(cfg, cache), h
 
 
 def prefill(cfg: GPTConfig, params, prompt, *, max_len: Optional[int] = None):
@@ -1116,39 +1263,53 @@ def cache_insert_slot(cache, block, slot: int, *, pos: int = 0):
     """Insert one prefilled block ``[L, 2, 1, heads, P, d]`` into slot
     ``slot`` of the shared cache ``[L, 2, B, heads, S, d]`` at horizon
     offset ``pos``, IN PLACE (returns ``cache``). Columns past the block
-    keep what the slot last held; decode masks them."""
-    if block.ndim != cache.ndim:
-        raise ValueError(
-            f"cache block rank {block.ndim} != cache rank {cache.ndim}")
-    p = block.shape[4]
-    cache[:, :, int(slot), :, pos:pos + p] = block[:, :, 0].to(cache.dtype)
+    keep what the slot last held; decode masks them. A quantized cache
+    and block (``{"kv", "scale"}``) insert both planes."""
+    def ins(c, blk):
+        if blk.ndim != c.ndim:
+            raise ValueError(
+                f"cache block rank {blk.ndim} != cache rank {c.ndim}")
+        p = blk.shape[4]
+        c[:, :, int(slot), :, pos:pos + p] = blk[:, :, 0].to(c.dtype)
+
+    _cache_map(ins, cache, block)
     return cache
 
 
 def cache_insert_slots(cache, blocks, slots: Sequence[int]):
     """:func:`cache_insert_slot` for a batch: ``blocks [L, 2, k, heads,
-    P, d]`` land at the distinct slot indices ``slots``, in place."""
+    P, d]`` (or the quantized pair) land at the distinct slot indices
+    ``slots``, in place."""
     for i, slot in enumerate(slots):
-        cache_insert_slot(cache, blocks[:, :, i:i + 1], slot)
+        cache_insert_slot(cache, _cache_map(lambda x: x[:, :, i:i + 1],
+                                            blocks), slot)
     return cache
 
 
 def cache_insert_pages(cache, blocks, pages, *, page_size: int):
     """Scatter prefilled blocks ``[L, 2, k, heads, span, d]`` (``span`` a
-    multiple of ``page_size``) into the page pool ``[L, 2, num_pages,
-    heads, P, d]`` IN PLACE (returns ``cache``): row ``i``'s columns
-    ``[j·P, (j+1)·P)`` fill page ``pages[i, j]``. Pages must be distinct
-    except for the sink, which holds garbage."""
-    span = blocks.shape[4]
-    if span % page_size:
-        raise ValueError(
-            f"block span {span} not a multiple of page_size {page_size}")
-    L, two, k, h, _, d = blocks.shape
-    n = span // page_size
-    blk = blocks.reshape(L, two, k, h, n, page_size, d).permute(
-        0, 1, 2, 4, 3, 5, 6).reshape(L, two, k * n, h, page_size, d)
-    idx = torch.as_tensor(pages, device=cache.device).reshape(-1).long()
-    cache[:, :, idx] = blk.to(cache.dtype)
+    multiple of ``page_size``; or the quantized pair, whose scale plane
+    has no ``d``) into the page pool ``[L, 2, num_pages, heads, P, d]``
+    IN PLACE (returns ``cache``): row ``i``'s columns ``[j·P, (j+1)·P)``
+    fill page ``pages[i, j]``. Pages must be distinct except for the
+    sink, which holds garbage."""
+    def ins(c, blk):
+        span = blk.shape[4]
+        if span % page_size:
+            raise ValueError(
+                f"block span {span} not a multiple of page_size "
+                f"{page_size}")
+        L, two, k, h = blk.shape[:4]
+        rest = blk.shape[5:]
+        n = span // page_size
+        nd = len(rest)
+        blk = blk.reshape(L, two, k, h, n, page_size, *rest).permute(
+            0, 1, 2, 4, 3, 5, *range(6, 6 + nd)).reshape(
+            L, two, k * n, h, page_size, *rest)
+        idx = torch.as_tensor(pages, device=c.device).reshape(-1).long()
+        _bytes(c)[:, :, idx] = _bytes(blk.to(c.dtype))
+
+    _cache_map(ins, cache, blocks)
     return cache
 
 

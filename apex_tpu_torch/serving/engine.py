@@ -4,8 +4,10 @@ Port of ``apex_tpu/serving/engine.py``: its core, the paged KV cache and
 speculative decoding. A fixed batch of ``B`` decode *slots* shares one
 KV cache — ``[L, 2, B, heads, max_seq_len, d]``, or with ``page_size >
 0`` a pool of pages ``[L, 2, num_pages, heads, page_size, d]`` under a
-``[B, max_pages]`` int32 block table (:mod:`.pages` allocates them) —
-and requests flow through the slots. All per-request state the device
+``[B, max_pages]`` int32 block table (:mod:`.pages` allocates them);
+under a quantized ``kv_cache_dtype`` the same layout as an int8/fp8
+data plane beside an fp32 scale plane (:func:`gpt.init_cache`) — and
+requests flow through the slots. All per-request state the device
 needs — position, remaining budget, done flag, eos id, temperature /
 top-k / top-p, the sampling key and, with ``spec_k > 0``, the drafter's
 token-history ring — lives in ``[B]`` tensors on the device:
@@ -166,18 +168,22 @@ class AdmitResult:
 
 
 def _pad_span(block, span: int):
-    """Zero-pad a cache block ``[L, 2, k, heads, T, d]`` to ``span``
-    columns on the horizon dim — the paged insert's page-alignment shim:
-    :func:`gpt.cache_insert_pages` writes whole pages, and the pad
-    columns land in the slot's own not-yet-decoded cells or in the sink
-    page. Zeros, never ``torch.empty``: the verify read multiplies every
-    stale column by an exact zero probability, and ``0 * NaN = NaN``."""
-    pad = span - block.shape[4]
-    if pad <= 0:
-        return block
-    shape = list(block.shape)
-    shape[4] = pad
-    return torch.cat([block, block.new_zeros(shape)], dim=4)
+    """Zero-pad a cache block ``[L, 2, k, heads, T, d]`` (or each plane of
+    the quantized pair) to ``span`` columns on the horizon dim — the
+    paged insert's page-alignment shim: :func:`gpt.cache_insert_pages`
+    writes whole pages, and the pad columns land in the slot's own
+    not-yet-decoded cells or in the sink page. Zeros, never
+    ``torch.empty``: the verify read multiplies every stale column by an
+    exact zero probability, and ``0 * NaN = NaN``."""
+    def pad(x):
+        n = span - x.shape[4]
+        if n <= 0:
+            return x
+        shape = list(x.shape)
+        shape[4] = n
+        return torch.cat([x, x.new_zeros(shape)], dim=4)
+
+    return gpt._cache_map(pad, block)
 
 
 class StepHandle:
@@ -398,13 +404,18 @@ class Engine:
             "decode_chunks": [self.engine_cfg.decode_chunk],
             "spec_ks": [self.engine_cfg.spec_k] if self._spec else [],
             "paged": self._paged,
+            "kv_cache_kind": gpt._kv_cache_dtype(self.cfg),
             "num_pages": self._num_pages,
             "max_pages": self._max_pages,
         }
 
     def cache_bytes(self) -> int:
-        """Device bytes of the KV cache (the page pool in paged mode)."""
-        return self.cache.numel() * self.cache.element_size()
+        """Device bytes of the KV cache (the page pool in paged mode);
+        under a quantized ``kv_cache_dtype`` the int8/fp8 data plane plus
+        the fp32 scale plane."""
+        planes = (self.cache.values() if isinstance(self.cache, dict)
+                  else (self.cache,))
+        return sum(t.numel() * t.element_size() for t in planes)
 
     # -- paged KV cache (EngineConfig.page_size > 0) -----------------------
 

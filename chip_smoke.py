@@ -101,6 +101,37 @@ model, right after phase 6 (numbered after the slices that came before):
     side's verify writes through ``paged_write_columns`` on every layer
     of every wave.
 
+The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
+value beside an fp32 scale per head row and column) runs next, on the
+same serving model:
+
+19. quantized kernels vs plain — ``write_column_quant``,
+    ``cache_write_columns_quant``, ``paged_write_column_quant`` and
+    ``paged_write_columns_quant`` bit-equal to their plain versions in
+    the data and the scale planes (int8 and fp8, bf16 rows and once fp32,
+    positions 0, 7, 8 and 191, lanes clamped past 191), ``attend_cache_quant``
+    and ``paged_attention_quantized`` within BF16_TOL (FP32_TOL for fp32
+    q) of plain, finite over planes whose stale cells hold fp8 NaN bytes
+    (or int8 -128) and NaN scales, the paged read bit-equal to the
+    contiguous read on the gathered planes; timed as in phase 3, int8
+    in the rows with fp8 beside it; no library yardstick (none exists);
+20. quantized serving — the decode logits of phase 4's inputs through
+    the int8 and fp8 caches within JAX's ``_KV_TOL`` of the compute
+    cache's (fp32 compute); bench's KV-cache A/B #1 on phase 5's trace at
+    ``decode_chunk=8``, int8 against the compute cache in turns (int8,
+    compute, compute, int8), serial where bench pipelines (depth 2):
+    cache bytes per slot (10,027,008 vs 18,874,368) and ``bytes_ratio``
+    1.882, decode tokens/s, each side's idle share, and per decode step
+    24 launches of the quantized write and read and none of the compute
+    cache's; the trace once with fp8, once paged int8 (streams identical
+    to contiguous int8; pools 80,633,856 vs 151,781,376 bytes), and int8
+    and fp8 through ``decode_attn_impl="xla"``: every kernel-side stream
+    identical, or first diverging at a reference top-2 gap within the
+    band; phase 17's "high" trace with int8 at ``spec_k=3`` against int8
+    plain (tokens per wave, drift), and with every chunk speculative
+    through a paged and a contiguous int8 spec engine (identical streams,
+    ``paged_write_columns_quant`` on every layer of every wave).
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
@@ -678,8 +709,8 @@ def hold_streams(cfg, params, reqs, completions):
 # phase 6: where the time goes (profiled decode window, not counted)
 # ---------------------------------------------------------------------------
 
-def phase_profile(cfg, engine):
-    """A window of 16 decode chunks over 8 live slots under
+def phase_profile(cfg, engine, chunks: int = 16):
+    """A window of ``chunks`` decode chunks over 8 live slots under
     ``torch.profiler``: the device's busy share and the kernels that
     take its time. A measurement, not a check: where the profiler shows
     no device time the numbers print as "not measured"."""
@@ -697,7 +728,7 @@ def phase_profile(cfg, engine):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(16):
+        for _ in range(chunks):
             sched.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -713,7 +744,8 @@ def phase_profile(cfg, engine):
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     out = {
-        "window_steps": 16, "wall_ms": wall * 1e3,
+        "window_steps": chunks * engine.engine_cfg.decode_chunk,
+        "wall_ms": wall * 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1 - busy_us / 1e3 / (wall * 1e3)),
         "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
@@ -1149,11 +1181,17 @@ def spec_config(**over):
                                   spec_k=SPEC_K), **over})
 
 
-def _first_gap(cfg, params, r, plain_toks, k: int) -> float:
+def _first_gap(cfg, params, r, plain_toks, k: int, other=None) -> float:
     """Top-2 gap of the reference forward's scores at stream index ``k``
     of the plain stream: the logits for a greedy request, the
-    temperature-scaled logits plus the draw's Gumbel noise for a sampled
-    one (the quantity whose argmax picked the token)."""
+    temperature-scaled logits filtered by the request's top-k / top-p,
+    plus the draw's Gumbel noise, for a sampled one (the quantity whose
+    argmax picked the token). Given ``other``, the token another path drew
+    there, a sampled request's gap is the decision's margin instead: the
+    smaller of the two tokens' score gap (when the reference keeps both)
+    and each token's scaled distance from the top-k threshold (a token at
+    the threshold enters or leaves the draw at a rounding, and its noise
+    then decides the draw)."""
     import dataclasses
 
     from apex_tpu_torch.models import gpt
@@ -1168,8 +1206,22 @@ def _first_gap(cfg, params, r, plain_toks, k: int) -> float:
         key = torch.tensor([sampling.request_key(sp.seed, 0)],
                            device="cuda")
         t = torch.tensor([len(r.prompt) - 1 + k], device="cuda")
-        lg = lg / sp.temperature + sampling.gumbel_noise(
+        scaled = lg / sp.temperature
+        kept = sampling.filter_logits_traced(
+            scaled[None], torch.tensor([sp.top_k], device="cuda"),
+            torch.tensor([sp.top_p], device="cuda"))[0]
+        lg = kept.float() + sampling.gumbel_noise(
             key, t, torch.zeros_like(t), lg.numel())[0]
+        if other is not None:
+            pair = (plain_toks[k], other)
+            margins = []
+            if sp.top_k > 0:
+                kth = float(torch.topk(scaled, sp.top_k).values[-1])
+                margins += [abs(float(scaled[x]) - kth) for x in pair]
+            if all(bool(kept[x] > torch.finfo(kept.dtype).min)
+                   for x in pair):
+                margins.append(abs(float(lg[pair[0]] - lg[pair[1]])))
+            return min(margins)
     top = torch.topk(lg, 2).values
     return float(top[0] - top[1])
 
@@ -1330,6 +1382,616 @@ def phase_paged_spec(cfg, params):
         f"{res['paged'][2]:.2f}s / {res['paged'][3]} waves, contiguous "
         f"{res['contig'][2]:.2f}s / {res['contig'][3]} waves")
     return res["paged"][1]
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the quantized-cache kernels vs plain, at the path's shapes
+# ---------------------------------------------------------------------------
+
+#: what a stale cell of a quantized plane holds in phase 19: an fp8 NaN
+#: (0x7F) or, in int8, -128 (a byte the quantizer never writes), beside a
+#: NaN scale
+STALE_BYTE = {"int8": 0x80, "fp8": 0x7F}
+#: the one number every library column says for the quantized kernels
+QUANT_NO_LIBRARY = ("none: no PyTorch call quantizes rows per head into "
+                    "a cache column, or reads int8/fp8 with per-column "
+                    "scales")
+
+
+def _stale_quant(g, kind, shape, stale):
+    """Random bf16 rows ``shape`` quantized by ``quantize_kv_rows``, with
+    every cell where ``stale [shape[:-1]]`` holds set to the stale byte and
+    a NaN scale."""
+    from apex_tpu_torch.kernels import quantize_kv_rows
+
+    x = torch.randn(*shape, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    q, s = quantize_kv_rows(x, kind)
+    q.view(torch.uint8).masked_fill_(stale[..., None], STALE_BYTE[kind])
+    s.masked_fill_(stale, float("nan"))
+    return q, s
+
+
+def _same_planes(a, b) -> bool:
+    """Two lists of planes bit for bit equal (a NaN equals its own bits)."""
+    as_int = lambda t: t.view(torch.uint8 if t.element_size() == 1
+                              else torch.int32)
+    return all(torch.equal(as_int(x), as_int(y)) for x, y in zip(a, b))
+
+
+def _planes_err(a, b) -> float:
+    return max(write_err(x.float(), y.float()) for x, y in zip(a, b))
+
+
+def phase_quant_kernels():
+    """The six kernels of the quantized cache against their plain versions
+    at the serving path's shapes (8 rows of 16 heads of 64, horizon 192;
+    a pool of 193 pages of 8, each table a random permutation of pages
+    1..192; verify writes of 4 columns), for int8 and fp8, the new rows in
+    bf16 (and the one-column write once in fp32). Every cell past a row's
+    position, every unmapped page and the sink hold the stale byte and a
+    NaN scale. Writes: data and scale planes bit-equal to plain, lanes
+    clamped past 191 included. Reads: within BF16_TOL (bf16 q) and
+    FP32_TOL (fp32 q) of plain, finite, and the paged read bit-equal to
+    the contiguous read on the gathered planes. Timed as in phase 3 for
+    int8 (fp8 beside it)."""
+    from apex_tpu_torch.kernels import (
+        attend_cache_quant,
+        attend_cache_quant_plain,
+        cache_write_columns_quant,
+        cache_write_columns_quant_plain,
+        paged_attention_quantized,
+        paged_attention_quantized_plain,
+        paged_write_column_quant,
+        paged_write_column_quant_plain,
+        paged_write_columns_quant,
+        paged_write_columns_quant_plain,
+        reset_launch_counts,
+        write_column_quant,
+        write_column_quant_plain,
+    )
+    from apex_tpu_torch.kernels.decode_attention import (
+        check_positions,
+        paged_gather_planes,
+    )
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    B, H, D, P, MP, T = SLOTS, HEADS, HEAD_DIM, PAGE, MAX_PAGES, SPEC_T
+    N, S = NUM_PAGES, MAX_PAGES * PAGE
+    col = torch.arange(S, device=dev)
+    names = ("decode_write_column_quant", "decode_attention_quant",
+             "cache_write_columns_quant", "paged_write_column_quant",
+             "paged_write_columns_quant", "paged_attention_quant")
+    err = {k: dict.fromkeys(names, 0.0) for k in ("int8", "fp8")}
+    err32 = {"int8": 0.0, "fp8": 0.0}
+    timed = {}
+    for kind in ("int8", "fp8"):
+        for seed, pos_l in ((0, [0, 7, 8, 191, 63, 100, 189, 150]),
+                            (1, [191, 0, 8, 7, 190, 31, 64, 188])):
+            e = err[kind]
+            g = torch.Generator(device=dev).manual_seed(200 + seed)
+            mk = lambda *shp: torch.randn(*shp, generator=g, device=dev,
+                                          dtype=bf16)
+            table = (torch.randperm(N - 1, generator=g, device=dev) + 1).to(
+                torch.int32).view(B, MP)
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            check_positions(pos, S)
+            stale = (col[None] > pos[:, None].long())[:, None, :].expand(
+                B, H, S)
+            kq, ks = _stale_quant(g, kind, (B, H, S, D), stale)
+            vq, vs = _stale_quant(g, kind, (B, H, S, D), stale)
+            all_stale = torch.ones(N, H, P, dtype=torch.bool, device=dev)
+            kpq, kps = _stale_quant(g, kind, (N, H, P, D), all_stale)
+            vpq, vps = _stale_quant(g, kind, (N, H, P, D), all_stale)
+            tl = table.long()
+            for c, pool in ((kq, kpq), (ks, kps), (vq, vpq), (vs, vps)):
+                src = c.view(torch.uint8) if c.element_size() == 1 else c
+                dst = (pool.view(torch.uint8) if pool.element_size() == 1
+                       else pool)
+                dst[tl] = src.reshape(B, H, MP, P, *src.shape[3:]).transpose(
+                    1, 2)
+            contig = [kq, ks, vq, vs]
+            paged = [kpq, kps, vpq, vps]
+            clone = lambda planes: [t.clone() for t in planes]
+            q, kn, vn = mk(B, H, D), mk(B, H, D), mk(B, H, D)
+            # one column, contiguous (bf16 rows, then fp32 rows) and paged
+            for rows in ((kn, vn), (kn.float(), vn.float())):
+                a, b_ = clone(contig), clone(contig)
+                write_column_quant(*rows, *a, pos)
+                write_column_quant_plain(*rows, *b_, pos)
+                torch.cuda.synchronize()
+                check(_same_planes(a, b_), f"write_column_quant {kind} "
+                      f"{rows[0].dtype}: planes differ from plain (bitwise)")
+                e["decode_write_column_quant"] = max(
+                    e["decode_write_column_quant"], _planes_err(a, b_))
+            kc = clone(contig)
+            write_column_quant(kn, vn, *kc, pos)
+            pk, pp = clone(paged), clone(paged)
+            paged_write_column_quant(kn, vn, *pk, table, pos)
+            paged_write_column_quant_plain(kn, vn, *pp, table, pos)
+            torch.cuda.synchronize()
+            check(_same_planes(pk, pp), f"paged_write_column_quant {kind}: "
+                  f"pools differ from plain (bitwise)")
+            e["paged_write_column_quant"] = max(
+                e["paged_write_column_quant"], _planes_err(pk, pp))
+            # the reads, after the writes, as on the path
+            out = attend_cache_quant(q, *kc, pos)
+            ref = attend_cache_quant_plain(q, *kc, pos)
+            pout = paged_attention_quantized(q, *pk, table, pos)
+            pref = paged_attention_quantized_plain(q, *pk, table, pos)
+            gathered = attend_cache_quant(
+                q, *(paged_gather_planes(x, table) for x in pk), pos)
+            torch.cuda.synchronize()
+            for name, o, r in (("decode_attention_quant", out, ref),
+                               ("paged_attention_quant", pout, pref)):
+                check(bool(torch.isfinite(o).all()),
+                      f"{name} {kind}: non-finite output (stale cells "
+                      f"leaked)")
+                check(close(o, r, BF16_TOL),
+                      f"{name} {kind} pos={pos_l}: err {max_err(o, r)}")
+                e[name] = max(e[name], max_err(o, r))
+            check(torch.equal(pout.view(torch.int16),
+                              gathered.view(torch.int16)),
+                  f"paged_attention_quant {kind}: not bit-equal to the "
+                  f"contiguous read on the gathered planes")
+            o32 = attend_cache_quant(q.float(), *kc, pos)
+            r32 = attend_cache_quant_plain(q.float(), *kc, pos)
+            p32 = paged_attention_quantized(q.float(), *pk, table, pos)
+            torch.cuda.synchronize()
+            check(close(o32, r32, FP32_TOL) and torch.equal(o32, p32),
+                  f"quantized reads {kind} fp32: err {max_err(o32, r32)}, "
+                  f"paged == contiguous {torch.equal(o32, p32)}")
+            err32[kind] = max(err32[kind], max_err(o32, r32))
+            # T columns, contiguous and paged (lanes past 191 clamp)
+            knt, vnt = mk(B, H, T, D), mk(B, H, T, D)
+            a, b_ = clone(contig), clone(contig)
+            cache_write_columns_quant(knt, vnt, *a, pos)
+            cache_write_columns_quant_plain(knt, vnt, *b_, pos)
+            pa, pb = clone(paged), clone(paged)
+            paged_write_columns_quant(knt, vnt, *pa, table, pos)
+            paged_write_columns_quant_plain(knt, vnt, *pb, table, pos)
+            torch.cuda.synchronize()
+            check(_same_planes(a, b_), f"cache_write_columns_quant {kind}: "
+                  f"planes differ from plain (bitwise)")
+            check(_same_planes(pa, pb), f"paged_write_columns_quant {kind}:"
+                  f" pools differ from plain (bitwise)")
+            e["cache_write_columns_quant"] = max(
+                e["cache_write_columns_quant"], _planes_err(a, b_))
+            e["paged_write_columns_quant"] = max(
+                e["paged_write_columns_quant"], _planes_err(pa, pb))
+        timed[kind] = dict(
+            pos=pos, pos_l=pos_l, q=q, kn=kn, vn=vn, knt=knt, vnt=vnt,
+            table=table, contig=kc, paged=pk)
+        log(f"quant kernels {kind}: four writes bit-exact (data and scale, "
+            f"lanes past the horizon included, bf16 and fp32 rows); reads "
+            f"bf16 max|out-plain| contiguous "
+            f"{e['decode_attention_quant']:.3e}, paged "
+            f"{e['paged_attention_quant']:.3e} (tol atol=rtol=2e-2), fp32 "
+            f"{err32[kind]:.3e}; paged read bit-equal to the contiguous "
+            f"read; stale bytes and NaN scales stayed masked")
+
+    # timings with the second seed's tensors, int8 in the rows and fp8
+    # beside them
+    rows = {}
+    for kind in ("int8", "fp8"):
+        t = timed[kind]
+        pos, table, q = t["pos"], t["table"], t["q"]
+        kn, vn, knt, vnt = t["kn"], t["vn"], t["knt"], t["vnt"]
+        kc, pk = t["contig"], t["paged"]
+        pl = pos.long()
+        n_cols = int((pl + 1).sum())
+        n_tbl = int(((pl + P) // P).sum())
+        cols_t = (pl[:, None] + torch.arange(T, device=dev)[None]).clamp(
+            max=S - 1)
+        distinct = lambda c: B + int((c[:, 1:] != c[:, :-1]).sum())
+        # a written cell: its bf16 row read, its byte row and fp32 scale
+        # written, for K and V
+        cell = 2 * H * (D * 2 + D + 4)
+        rd = 2 * H * (D + 4)                  # a read column, K and V
+        qo = 2 * B * H * D * 2 + B * 4        # q in, out out, pos
+        specs = {
+            "decode_write_column_quant": (
+                481, lambda: write_column_quant(kn, vn, *kc, pos),
+                lambda: write_column_quant_plain(kn, vn, *kc, pos),
+                B * cell + B * 4, 0),
+            "cache_write_columns_quant": (
+                255, lambda: cache_write_columns_quant(knt, vnt, *kc, pos),
+                lambda: cache_write_columns_quant_plain(knt, vnt, *kc, pos),
+                distinct(cols_t) * cell + B * 4, 0),
+            "paged_write_column_quant": (
+                762, lambda: paged_write_column_quant(kn, vn, *pk, table,
+                                                      pos),
+                lambda: paged_write_column_quant_plain(kn, vn, *pk, table,
+                                                       pos),
+                B * cell + B * 8, 0),
+            "paged_write_columns_quant": (
+                870, lambda: paged_write_columns_quant(knt, vnt, *pk, table,
+                                                       pos),
+                lambda: paged_write_columns_quant_plain(knt, vnt, *pk,
+                                                        table, pos),
+                distinct(cols_t) * cell + B * 4
+                + 4 * distinct(cols_t // P), 0),
+            "decode_attention_quant": (
+                568, lambda: attend_cache_quant(q, *kc, pos),
+                lambda: attend_cache_quant_plain(q, *kc, pos),
+                qo + n_cols * rd, 4 * n_cols * H * D),
+            "paged_attention_quant": (
+                1075, lambda: paged_attention_quantized(q, *pk, table, pos),
+                lambda: paged_attention_quantized_plain(q, *pk, table, pos),
+                qo + n_cols * rd + 4 * n_tbl, 4 * n_cols * H * D),
+        }
+        for name, (line, fn, plain, n_bytes, n_ops) in specs.items():
+            bms, by = bound(n_bytes, n_ops, FP32_FLOPS_PER_S)
+            r = dict(ms=time_ms(fn), eager_ms=eager_ms(fn),
+                     plain_ms=time_ms(plain), bound_ms=bms, bound_by=by,
+                     max_abs_err=err[kind][name])
+            if kind == "fp8":
+                rows[name]["fp8"] = r
+                continue
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="apex_tpu_torch/csrc/decode_attention.cu",
+                replaces=f"apex_tpu/kernels/decode_attention.py:{line}",
+                library_ms=None, library=QUANT_NO_LIBRARY, **r,
+                shape=(f"b={B} h={H} S={S} d={D}" if "paged" not in name
+                       else f"b={B} h={H} P={P} pages={N} max_pages={MP} "
+                       f"d={D}")
+                + (f" T={T}" if "columns" in name else "")
+                + (" bf16 q" if "attention" in name else " bf16 rows")
+                + f", int8 planes, pos={t['pos_l']}")
+    for r in rows.values():
+        log(f"kernel {r['name']}: int8 {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}); fp8 "
+            f"{r['fp8']['ms']:.4f} ms, plain {r['fp8']['plain_ms']:.4f} ms "
+            f"at {r['shape']}")
+    reset_launch_counts()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the quantized cache in serving — bench's KV-cache A/B #1 and the
+# paged and speculative paths over int8
+# ---------------------------------------------------------------------------
+
+#: decode-logit band of a quantized cache against the compute-dtype cache:
+#: JAX's _KV_TOL (tests/test_kv_cache.py), the quantization error band
+KV_TOL = {"int8": dict(rtol=4e-2, atol=4e-2),
+          "fp8": dict(rtol=8e-2, atol=8e-2)}
+#: what the shapes alone give (24 layers x K and V x 16 heads x 192
+#: columns of 64 values): cache bytes per slot, compute (bf16) and
+#: quantized (a byte a value plus an fp32 scale a row), and the pools of
+#: 193 pages of 8
+KV_BYTES_PER_SLOT = {"compute": 18_874_368, "quant": 10_027_008}
+KV_POOL_BYTES = {"compute": 151_781_376, "quant": 80_633_856}
+
+
+def kv_ab_config(**over):
+    """bench.py serve()'s KV-cache A/B #1 geometry: phase 5's engine at
+    ``decode_chunk=8``."""
+    from apex_tpu_torch.serving import EngineConfig
+
+    return EngineConfig(**{**dict(slots=SLOTS, max_prompt_len=64,
+                                  max_seq_len=HORIZON, decode_chunk=8),
+                           **over})
+
+
+def phase_quant_logits(cfg, params):
+    """Phase 4's prompts and decode steps through the kernels at full
+    width with the compute cache, the int8 cache and the fp8 cache, in
+    fp32 compute (as JAX's oracle: the band is the quantization's, not
+    bf16's rounding): every quantized logit within KV_TOL of the compute
+    cache's. Returns each kind's max |quantized - compute|."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    lens = [64, 1, 17, 40]
+    prompts = np.zeros((4, 64), np.int64)
+    for i, n in enumerate(lens):
+        prompts[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    steps = rng.integers(0, cfg.vocab_size, (8, 4))
+    base = dataclasses.replace(cfg, attn_impl="flash",
+                               decode_attn_impl="kernel",
+                               compute_dtype=torch.float32)
+    p = gpt.cast_params(base, params)
+    out = {}
+    for kind in ("compute", "int8", "fp8"):
+        c = dataclasses.replace(base, kv_cache_dtype=kind)
+        cache, lg = gpt.prefill_many(
+            c, p, torch.as_tensor(prompts, device=dev),
+            torch.as_tensor(lens, device=dev) - 1, max_len=80)
+        got = [lg]
+        pos = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        for j in range(steps.shape[0]):
+            lg, cache = gpt.decode_step(
+                c, p, cache, torch.as_tensor(steps[j], device=dev), pos + j)
+            got.append(lg)
+        out[kind] = torch.stack(got)
+        del cache
+    torch.cuda.synchronize()
+    errs = {}
+    for kind in ("int8", "fp8"):
+        check(bool(torch.isfinite(out[kind]).all()),
+              f"quant logits {kind}: non-finite")
+        errs[kind] = max_err(out[kind], out["compute"])
+        log(f"quant logits {kind}: [9 steps, 4, {cfg.vocab_size}] fp32, "
+            f"max|{kind} - compute cache|={errs[kind]:.4f} (band rtol=atol="
+            f"{KV_TOL[kind]['rtol']}), logit std "
+            f"{float(out['compute'].std()):.3f}")
+        check(close(out[kind], out["compute"], KV_TOL[kind]),
+              f"quant logits {kind}: off the compute cache by "
+              f"{errs[kind]} (band {KV_TOL[kind]})")
+    del p
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _drift_gaps(cfg, params, reqs, got, want):
+    """Each request whose stream in ``got`` differs from ``want``:
+    ``(request, index of the first divergence, the reference forward's
+    top-2 gap there)`` (as phase 17 reports them; a sampled request's
+    gap is its draw's margin between the two tokens, see
+    ``_first_gap``)."""
+    gaps = []
+    for r in reqs:
+        a, b = got[r.request_id], want[r.request_id]
+        if a != b:
+            k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            gaps.append((r.request_id, k, _first_gap(
+                cfg, params, r, b, k, a[k] if k < len(a) else None)))
+    return gaps
+
+
+def _check_quant_counts(what, counts, on, steps, L):
+    """``on`` kernels launched L x ``steps`` times each, every other
+    decode kernel (quantized or not) none."""
+    decode = ("decode_write_column", "decode_attention", "paged_write_column",
+              "paged_attention", "cache_write_columns", "paged_write_columns")
+    for name in decode + tuple(n + "_quant" for n in decode):
+        want = L * steps if name in on else 0
+        check(counts[name] == want and (want > 0 or name not in on),
+              f"{what}: {name} launched {counts[name]} times, expected "
+              f"{want}")
+
+
+def phase_quant_serving(cfg, params, band, quant_err):
+    """bench's KV-cache A/B #1 on phase 5's trace at ``decode_chunk=8``:
+    the int8 cache against the compute cache in turns (int8, compute,
+    compute, int8), serial (the port's scheduler has no pipelining; bench
+    runs depth 2): cache bytes per slot and their ratio, decode tokens/s,
+    each side's idle share (a 3-chunk profiled window), the launch counts
+    (the quantized decode kernels on every layer of every step, none of
+    the compute cache's). Then the same trace once with fp8, once paged
+    (``page_size=8``) int8 (streams identical to contiguous int8), and
+    once each with int8 and fp8 through ``decode_attn_impl="xla"`` (the
+    plain quantized path): every kernel-side stream identical to it, or
+    first diverging at a reference top-2 gap within ``band + 2 x`` the
+    kind's phase-20 logit error. Last, phase 17's greedy "high" trace
+    with int8 and ``spec_k=3`` against int8 plain under the scheduler
+    (tokens per wave, drift with first-divergence gaps), and with every
+    chunk speculative through a paged and a contiguous int8 spec engine
+    (identical streams)."""
+    import dataclasses
+
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Engine
+
+    L = cfg.num_layers
+    q_cfg = {k: dataclasses.replace(cfg, kv_cache_dtype=k)
+             for k in ("int8", "fp8")}
+    sides = {"int8": q_cfg["int8"], "compute": cfg}
+    reqs = bench_trace(cfg.vocab_size)
+    out = {"decode_tokens_per_sec": {"int8": [], "compute": []}}
+    streams, comps, counts_of = {}, {}, {}
+    for side in ("int8", "compute", "compute", "int8"):
+        engine, sched, wall, counts = serve_timed(
+            sides[side], params, kv_ab_config(), bench_trace(cfg.vocab_size))
+        s = sched.summary()
+        out["decode_tokens_per_sec"][side].append(s["decode_tokens_per_sec"])
+        if side in streams:
+            del engine, sched
+            continue
+        check(len(sched.completions) == len(reqs)
+              and all(len(sched.completions[r.request_id].tokens)
+                      == r.max_tokens for r in reqs),
+              f"kv A/B {side}: not every request completed in full")
+        steps = engine.decode_steps_taken
+        on = (("decode_write_column_quant", "decode_attention_quant")
+              if side == "int8" else ("decode_write_column",
+                                      "decode_attention"))
+        _check_quant_counts(f"kv A/B {side}", counts, on, steps, L)
+        check(counts["flash_attention_bsh"] == L * engine.admit_groups,
+              f"kv A/B {side}: flash prefill launches off the groups")
+        per_slot = engine.cache_bytes() // engine.slots
+        want = KV_BYTES_PER_SLOT["quant" if side == "int8" else "compute"]
+        check(per_slot == want, f"kv A/B {side}: {per_slot} cache bytes "
+              f"per slot, expected {want}")
+        check(s["cache_bytes"] == engine.cache_bytes(),
+              f"kv A/B {side}: summary cache_bytes off the engine's")
+        prof = phase_profile(cfg, engine, chunks=3)
+        out[side] = dict(
+            cache_bytes_per_slot=per_slot, wall_s=wall, decode_steps=steps,
+            admit_groups=engine.admit_groups,
+            device_idle_share=(prof or {}).get("device_idle_share",
+                                               "not measured"),
+            launches={k: v for k, v in counts.items() if v},
+            **{k: s[k] for k in ("tokens_per_sec", "decode_tokens_per_sec",
+                                 "ttft_mean_ms")})
+        streams[side] = {r: c.tokens for r, c in sched.completions.items()}
+        comps[side] = sched.completions
+        counts_of[side] = counts
+        del engine, sched
+    tps = out["decode_tokens_per_sec"]
+    out["bytes_ratio"] = round(out["compute"]["cache_bytes_per_slot"]
+                               / out["int8"]["cache_bytes_per_slot"], 3)
+    out["int8_over_compute_decode"] = sum(tps["int8"]) / sum(tps["compute"])
+    out["int8_vs_compute_drift"] = sum(
+        streams["int8"][r] != streams["compute"][r] for r in streams["int8"])
+    log(f"kv A/B #1: cache bytes per slot compute "
+        f"{out['compute']['cache_bytes_per_slot']} vs int8 "
+        f"{out['int8']['cache_bytes_per_slot']}, bytes_ratio "
+        f"{out['bytes_ratio']}; decode tokens/s in turns int8, compute, "
+        f"compute, int8 (serial, depth 1): {json.dumps(tps)}, int8 / "
+        f"compute {out['int8_over_compute_decode']:.3f}; idle share int8 "
+        f"{out['int8']['device_idle_share']}, compute "
+        f"{out['compute']['device_idle_share']}")
+    check(out["bytes_ratio"] == 1.882,
+          f"kv A/B: bytes_ratio {out['bytes_ratio']} != 1.882")
+
+    # fp8 once; both kinds once through the plain quantized path ("xla")
+    for kind, impl in (("fp8", "kernel"), ("int8", "xla"), ("fp8", "xla")):
+        c = dataclasses.replace(q_cfg[kind], decode_attn_impl=impl)
+        engine, sched, wall, counts = serve_timed(
+            c, params, kv_ab_config(), bench_trace(cfg.vocab_size))
+        check(len(sched.completions) == len(reqs),
+              f"kv {kind} {impl}: not every request completed")
+        key = kind if impl == "kernel" else f"{kind}_xla"
+        streams[key] = {r: c_.tokens for r, c_ in sched.completions.items()}
+        comps[key] = sched.completions
+        if impl == "kernel":
+            _check_quant_counts(
+                f"kv {kind}", counts, ("decode_write_column_quant",
+                                       "decode_attention_quant"),
+                engine.decode_steps_taken, L)
+            check(engine.cache_bytes() // engine.slots
+                  == KV_BYTES_PER_SLOT["quant"],
+                  f"kv fp8: {engine.cache_bytes()} cache bytes")
+            out["fp8"] = dict(
+                wall_s=wall, decode_tokens_per_sec=sched.summary()[
+                    "decode_tokens_per_sec"],
+                cache_bytes_per_slot=engine.cache_bytes() // engine.slots)
+        else:
+            _check_quant_counts(f"kv {kind} xla", counts, (), 0, L)
+        del engine, sched
+    for kind in ("int8", "fp8"):
+        lim = band + 2 * quant_err[kind]
+        gaps = _drift_gaps(cfg, params, reqs, streams[kind],
+                           streams[f"{kind}_xla"])
+        held = {side: hold_streams(cfg, params, reqs, comps[side])
+                for side in (kind, f"{kind}_xla")}
+        out[f"{kind}_kernel_vs_xla"] = dict(
+            drift=len(gaps), first_divergence_gaps=gaps, band=lim,
+            max_logprob_err={k_: v[0] for k_, v in held.items()},
+            greedy_gap={k_: v[1] for k_, v in held.items()})
+        log(f"kv {kind}: kernel vs xla streams, {len(gaps)} of {len(reqs)} "
+            f"drift; first divergences (request, index, gap): {gaps}; "
+            f"against the reference forward, max|logprob-ref| and greedy "
+            f"gap kernel {held[kind]}, xla {held[kind + '_xla']} (band "
+            f"{lim:.4f})")
+        check(all(g <= lim for _, _, g in gaps),
+              f"kv {kind}: a kernel-side stream leaves the xla path at a "
+              f"gap above {lim}: {gaps}")
+        check(all(v <= lim for hv in held.values() for v in hv),
+              f"kv {kind}: streams off the reference by {held} (band "
+              f"{lim})")
+
+    # paged int8: the same trace, streams identical to contiguous int8
+    engine, sched, wall, counts = serve_timed(
+        q_cfg["int8"], params, kv_ab_config(page_size=PAGE),
+        bench_trace(cfg.vocab_size))
+    paged_streams = {r: c.tokens for r, c in sched.completions.items()}
+    drift = [r for r in streams["int8"]
+             if paged_streams.get(r) != streams["int8"][r]]
+    check(not drift, f"kv paged int8: streams differ from contiguous int8 "
+          f"for {drift}")
+    _check_quant_counts("kv paged int8", counts,
+                        ("paged_write_column_quant", "paged_attention_quant"),
+                        engine.decode_steps_taken, L)
+    check(engine.cache_bytes() == KV_POOL_BYTES["quant"],
+          f"kv paged int8: pool of {engine.cache_bytes()} bytes")
+    counts_of["paged"] = counts
+    out["paged_int8"] = dict(
+        wall_s=wall, pool_bytes=engine.cache_bytes(),
+        decode_tokens_per_sec=sched.summary()["decode_tokens_per_sec"])
+    del engine, sched
+    engine = Engine(cfg, params, kv_ab_config(page_size=PAGE))
+    out["paged_compute_pool_bytes"] = engine.cache_bytes()
+    check(engine.cache_bytes() == KV_POOL_BYTES["compute"],
+          f"kv paged compute: pool of {engine.cache_bytes()} bytes")
+    del engine
+    log(f"kv paged int8: 32 streams identical to contiguous int8; pool "
+        f"{out['paged_int8']['pool_bytes']} bytes against "
+        f"{out['paged_compute_pool_bytes']} (compute)")
+
+    # speculative int8: phase 17's "high" trace, spec_k=3 vs plain
+    spec_reqs = spec_trace(cfg.vocab_size, False)
+    spec_streams = {}
+    for side in ("spec", "plain"):
+        engine, sched, wall, counts = serve_timed(
+            q_cfg["int8"], params,
+            spec_config() if side == "spec" else spec_config(spec_k=0),
+            spec_trace(cfg.vocab_size, False))
+        check(len(sched.completions) == len(spec_reqs),
+              f"kv spec int8 {side}: not every request completed")
+        s = sched.summary()
+        spec_streams[side] = {r: c.tokens
+                              for r, c in sched.completions.items()}
+        row = dict(wall_s=wall, decode_tokens_per_sec=s[
+            "decode_tokens_per_sec"], verify_waves=engine.spec_waves_taken,
+                   decode_steps=engine.decode_steps_taken)
+        if side == "spec":
+            waves = engine.spec_waves_taken
+            check(counts["cache_write_columns_quant"] == L * waves > 0
+                  and counts["cache_write_columns"] == 0,
+                  f"kv spec int8: cache_write_columns_quant launched "
+                  f"{counts['cache_write_columns_quant']} times, expected "
+                  f"{L} x {waves} waves")
+            counts_of["spec"] = counts
+            row.update({k: s[k] for k in ("spec_tokens_per_wave",
+                                          "spec_accept_rate",
+                                          "spec_gate_state")})
+        out[f"spec_int8_{side}"] = row
+        del engine, sched
+    gaps = _drift_gaps(cfg, params, spec_reqs, spec_streams["spec"],
+                       spec_streams["plain"])
+    out["spec_int8_drift"] = dict(drift=len(gaps), first_divergence_gaps=gaps)
+    log(f"kv spec int8: spec {json.dumps(out['spec_int8_spec'])}, plain "
+        f"{json.dumps(out['spec_int8_plain'])}; drift {len(gaps)} of 16, "
+        f"first divergences {gaps}")
+
+    # paged + speculative int8, every chunk speculative
+    res = {}
+    for name, ecfg in (("paged", spec_config(page_size=PAGE)),
+                       ("contig", spec_config())):
+        engine = Engine(q_cfg["int8"], params, ecfg)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        toks = drive_spec(engine, spec_reqs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        waves = engine.spec_waves_taken
+        on = ("paged_write_columns_quant" if name == "paged"
+              else "cache_write_columns_quant")
+        check(counts[on] == L * waves > 0,
+              f"kv paged+spec int8 {name}: {on} launched {counts[on]} "
+              f"times, expected {L} x {waves} waves")
+        res[name] = toks
+        if name == "paged":
+            counts_of["paged_spec"] = counts
+        del engine
+    drift = [r for r in res["paged"] if res["paged"][r] != res["contig"][r]]
+    check(not drift, f"kv paged+spec int8: streams differ from contiguous "
+          f"for {drift}")
+    log("kv paged+spec int8: 16 streams identical to contiguous int8 spec")
+    launches = {
+        "decode_write_column_quant": counts_of["int8"][
+            "decode_write_column_quant"],
+        "decode_attention_quant": counts_of["int8"]["decode_attention_quant"],
+        "paged_write_column_quant": counts_of["paged"][
+            "paged_write_column_quant"],
+        "paged_attention_quant": counts_of["paged"]["paged_attention_quant"],
+        "cache_write_columns_quant": counts_of["spec"][
+            "cache_write_columns_quant"],
+        "paged_write_columns_quant": counts_of["paged_spec"][
+            "paged_write_columns_quant"],
+    }
+    log("kv serving: " + json.dumps(out))
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -2163,7 +2825,7 @@ def phase_bert_train(bcfg, layout, tok, tgt, mask):
 def main() -> int:
     t0 = time.perf_counter()
     try:
-        name, card = phase_device()
+        device_kind, card = phase_device()
         phase_build()
         rows = phase_kernels()
         from apex_tpu_torch.models import gpt
@@ -2194,6 +2856,15 @@ def main() -> int:
         t = time.perf_counter()
         paged_spec_writes = phase_paged_spec(cfg, params)
         log(f"paged+spec phase {time.perf_counter() - t:.1f}s")
+        # the quantized cache, on the same serving model
+        t = time.perf_counter()
+        quant_rows = phase_quant_kernels()
+        log(f"quant kernels phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        quant_err = phase_quant_logits(cfg, params)
+        quant_launches, _ = phase_quant_serving(cfg, params, band,
+                                                quant_err)
+        log(f"quant serving phase {time.perf_counter() - t:.1f}s")
         # the training phases' peak memory is the train step's own
         del params
         gc.collect()
@@ -2274,6 +2945,9 @@ def main() -> int:
     paged_rows["cache_write_columns"]["launches_adv"] = spec_writes["adv"]
     paged_rows["paged_write_columns"]["launches"] = paged_spec_writes
     rows.update(paged_rows)
+    for r in quant_rows.values():
+        r["launches"] = quant_launches[r["name"]]
+    rows.update(quant_rows)
     for r in train_rows.values():
         r["launches"] = flat["launches"][r["name"]]
     rows["flash_attention_bsh"]["train"] = dict(
@@ -2288,7 +2962,7 @@ def main() -> int:
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"total {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -174,6 +174,17 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     new = torch.zeros(4, 2, 3, 64)
     tk.paged_write_columns(new, new, pool, pool.clone(), table, pos)
     tk.cache_write_columns(new, new, kc, vc, pos)
+    kq, ks = tk.quantize_kv_rows(kc, "int8")
+    pq, ps = tk.quantize_kv_rows(pool, "fp8")
+    tk.decode_attention_quantized(q, kn, vn, kq, ks, kq.clone(), ks.clone(),
+                                  pos)
+    tk.cache_write_columns_quant(new, new, kq, ks, kq.clone(), ks.clone(),
+                                 pos)
+    tk.paged_write_column_quant(kn, vn, pq, ps, pq.clone(), ps.clone(),
+                                table, pos)
+    tk.paged_write_columns_quant(new, new, pq, ps, pq.clone(), ps.clone(),
+                                 table, pos)
+    tk.paged_attention_quantized(q, pq, ps, pq, ps, table, pos)
     assert tk.launch_counts() == {"flash_attention_bsh": 0,
                                   "decode_write_column": 0,
                                   "decode_attention": 0,
@@ -185,7 +196,13 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "paged_write_column": 0,
                                   "paged_attention": 0,
                                   "cache_write_columns": 0,
-                                  "paged_write_columns": 0}
+                                  "paged_write_columns": 0,
+                                  "decode_write_column_quant": 0,
+                                  "decode_attention_quant": 0,
+                                  "cache_write_columns_quant": 0,
+                                  "paged_write_column_quant": 0,
+                                  "paged_write_columns_quant": 0,
+                                  "paged_attention_quant": 0}
     tk.write_column.launches = 3
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
