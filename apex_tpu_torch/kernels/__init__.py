@@ -55,6 +55,8 @@ from apex_tpu_torch.kernels.flat_ops import (
     adam_flat_plain,
     l2norm_flat,
     l2norm_flat_plain,
+    sgd_flat,
+    sgd_flat_plain,
 )
 from apex_tpu_torch.kernels.layer_norm import (
     layer_norm,
@@ -63,6 +65,13 @@ from apex_tpu_torch.kernels.layer_norm import (
     layer_norm_fwd,
     layer_norm_fwd_plain,
     rms_norm,
+)
+from apex_tpu_torch.kernels.xentropy import (
+    softmax_cross_entropy,
+    xentropy_bwd,
+    xentropy_bwd_plain,
+    xentropy_fwd,
+    xentropy_fwd_plain,
 )
 
 #: every kernel wrapper, by the name its launch count is reported under
@@ -85,6 +94,9 @@ KERNEL_WRAPPERS = {
     "paged_write_column_quant": paged_write_column_quant,
     "paged_write_columns_quant": paged_write_columns_quant,
     "paged_attention_quant": paged_attention_quantized,
+    "xentropy_fwd": xentropy_fwd,
+    "xentropy_bwd": xentropy_bwd,
+    "sgd_flat": sgd_flat,
 }
 
 
@@ -142,8 +154,15 @@ __all__ = [
     "quantize_kv_rows",
     "reset_launch_counts",
     "rms_norm",
+    "sgd_flat",
+    "sgd_flat_plain",
+    "softmax_cross_entropy",
     "write_column",
     "write_column_plain",
     "write_column_quant",
     "write_column_quant_plain",
+    "xentropy_bwd",
+    "xentropy_bwd_plain",
+    "xentropy_fwd",
+    "xentropy_fwd_plain",
 ]

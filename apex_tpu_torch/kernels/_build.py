@@ -68,6 +68,10 @@ _SIGNATURES = {
     "apex_tpu_torch_adam_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_longlong, _c_int, _c_int, _c_int, _c_void_p],
+    # p, g, m, delta, scalars, noop, n, nesterov, p's dtype, stream
+    "apex_tpu_torch_sgd_flat": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_longlong, _c_int, _c_int, _c_void_p],
     "apex_tpu_torch_l2norm_blocks": [],
     "apex_tpu_torch_l2norm_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,
@@ -80,6 +84,16 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
         _c_int, _c_void_p],
+    # x, target, loss, lse, rows, V, smoothing, 1 - smoothing,
+    # ignore_index, x's dtype, stream
+    "apex_tpu_torch_xentropy_fwd": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
+        _c_float, _c_float, _c_int, _c_int, _c_void_p],
+    # x, target, lse, g, dx, rows, V, smoothing, 1 - smoothing,
+    # smoothing / V, ignore_index, x's dtype, stream
+    "apex_tpu_torch_xentropy_bwd": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+        _c_int, _c_float, _c_float, _c_float, _c_int, _c_int, _c_void_p],
     "apex_tpu_torch_decode_write_column": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],

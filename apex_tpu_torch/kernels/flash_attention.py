@@ -27,7 +27,10 @@ backward from re-running the forward kernel (``models/gpt.py``).
 
 Python wrappers: :func:`flash_attention_bsh_fwd` (``(out, lse)``),
 :func:`flash_attention_bsh` (``out``, the JAX function's signature) and
-:func:`flash_attention_bsh_bwd` (``(dq, dk, dv)``). Each kernel's launch
+:func:`flash_attention_bsh_bwd` (``(dq, dk, dv)``). The wrappers widen
+float16 inputs to fp32 and cast the results back
+(``apex_tpu/kernels/flash_attention.py:1167-1178``), so fp16 runs the
+fp32 instantiation of the kernels. Each kernel's launch
 count is kept on its wrapper (``flash_attention_bsh_fwd.launches``,
 ``flash_attention_bsh_bwd.launches``).
 """
@@ -62,6 +65,12 @@ def _geometry(q, k, v, num_heads: int, causal: bool):
 
 def _scale(scale: Optional[float], d: int) -> float:
     return float(scale) if scale is not None else 1.0 / d ** 0.5
+
+
+def _widen_f16(t: torch.Tensor) -> torch.Tensor:
+    """float16 → fp32 (the kernels have no float16 instantiation, as
+    Mosaic has no f16); anything else as it is."""
+    return t.float() if t.dtype == torch.float16 else t
 
 
 def _heads(t, num_heads: int):
@@ -249,11 +258,16 @@ def flash_attention_bsh_fwd(q, k, v, *, num_heads: int,
     """``(out [b, sq, hidden], lse fp32 [b, heads, sq])``, differentiable
     in q, k and v. CUDA tensors launch the kernel on the current stream
     (counted in ``flash_attention_bsh_fwd.launches``); CPU tensors run
-    the plain version. The kernel takes contiguous q/k/v of one dtype
-    (fp32 or bf16) with head_dim 64 and raises on anything else."""
+    the plain version. The kernel takes contiguous q/k/v of one dtype,
+    fp32 or bf16, with head_dim 64, and raises on anything else; float16
+    inputs are widened to fp32 first and the output cast back to float16
+    (the JAX function's ``widen_f16``), so they reach the fp32 kernel."""
     _, _, _, _, d = _geometry(q, k, v, num_heads, causal)
     _build.on_cuda(q, k, v)       # refuse other and mixed devices here
-    return _fwd_op(q, k, v, num_heads, bool(causal), _scale(scale, d))
+    half = q.dtype == torch.float16
+    q, k, v = (_widen_f16(t) for t in (q, k, v))
+    out, lse = _fwd_op(q, k, v, num_heads, bool(causal), _scale(scale, d))
+    return (out.to(torch.float16) if half else out), lse
 
 
 flash_attention_bsh_fwd.launches = 0
@@ -276,11 +290,16 @@ def flash_attention_bsh_bwd(q, k, v, do, lse, delta, *, num_heads: int,
     ``do`` and the fp32 ``[b, heads, sq]`` statistics ``lse`` (from the
     forward) and ``delta`` (``sum_d(out * do)`` per head). CUDA tensors
     launch the kernel (counted in ``flash_attention_bsh_bwd.launches``),
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version. float16 q/k/v/do are widened to
+    fp32, as in the forward, and each gradient comes back in its input's
+    dtype."""
     _, _, _, _, d = _geometry(q, k, v, num_heads, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
-    return _bwd_op(q, k, v, do, lse, delta, num_heads, bool(causal),
-                   _scale(scale, d))
+    dtypes = [t.dtype for t in (q, k, v)]
+    q, k, v, do = (_widen_f16(t) for t in (q, k, v, do))
+    grads = _bwd_op(q, k, v, do, lse, delta, num_heads, bool(causal),
+                    _scale(scale, d))
+    return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
 
 
 flash_attention_bsh_bwd.launches = 0

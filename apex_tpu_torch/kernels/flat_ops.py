@@ -1,5 +1,5 @@
-"""Flat-buffer multi-tensor kernels (the ``amp_C`` equivalent): Adam and
-the global L2 norm.
+"""Flat-buffer multi-tensor kernels (the ``amp_C`` equivalent): Adam, SGD
+with momentum and the global L2 norm.
 
 Port of ``apex_tpu/kernels/flat_ops.py:adam_flat`` (kernel body
 ``_adam_kernel``), apex's ``multi_tensor_adam``: one sweep per dtype
@@ -26,8 +26,11 @@ Differences of idiom from the JAX functions:
 - ``l2norm_flat`` returns the norm as a 0-d fp32 tensor on the
   buffers' device, so no step waits on the host for it.
 
-The other flat sweeps (scale, axpby, sgd, adagrad) come with later
-slices.
+``sgd_flat`` (kernel body ``_sgd_kernel``, ``multi_tensor_sgd``) follows
+Adam's contract: in place, or deltas with ``out_is_delta``, device
+scalars, the ``skip`` no-op flag; its plain twin is
+:func:`sgd_flat_plain`. The other flat sweeps (scale, axpby, adagrad)
+come with later slices.
 """
 
 from __future__ import annotations
@@ -166,6 +169,119 @@ def adam_flat(p_bufs: Sequence[torch.Tensor], g_bufs: Sequence[torch.Tensor],
 adam_flat.launches = 0
 
 
+def sgd_scalars(lr, momentum, dampening, weight_decay, grad_scale,
+                device) -> torch.Tensor:
+    """The five fp32 scalars of ``_sgd_kernel``'s ``s_ref``, in its
+    order, as one device tensor (built on the device, no host sync)."""
+    vals = [lr, momentum, dampening, weight_decay, grad_scale]
+    return torch.stack([device_scalar(x, device) for x in vals])
+
+
+def _sgd_math(p, g, m, s, nesterov: bool, out_is_delta: bool):
+    """``_sgd_kernel`` on whole buffers in fp32 → ``(out, m)``."""
+    lr, momentum, dampening, wd, gscale = s.unbind(0)
+    p32 = p.float()
+    gr = g.float() * gscale + wd * p32
+    m_new = momentum * m + (1.0 - dampening) * gr
+    upd = gr + momentum * m_new if nesterov else m_new
+    out = -lr * upd if out_is_delta else p32 - lr * upd
+    return out, m_new
+
+
+def sgd_flat_plain(p_bufs, g_bufs, m_bufs, scalars, *,
+                   nesterov: bool = False, out_is_delta: bool = False,
+                   skip=None):
+    """Plain PyTorch twin of the kernel, with its contract: m (and p,
+    unless ``out_is_delta``) are written in place; with
+    ``out_is_delta`` the first result is new fp32 delta buffers. Where
+    ``skip`` is True nothing changes and the deltas are zero."""
+    outs = []
+    for p, g, m in zip(p_bufs, g_bufs, m_bufs):
+        new_p, new_m = _sgd_math(p, g, m, scalars, nesterov, out_is_delta)
+        if skip is not None:
+            keep = torch.zeros_like(new_p) if out_is_delta else p.float()
+            new_p = torch.where(skip, keep, new_p)
+            new_m = torch.where(skip, m, new_m)
+        if out_is_delta:
+            outs.append(new_p)
+        else:
+            p.copy_(new_p)
+            outs.append(p)
+        m.copy_(new_m)
+    return outs, list(m_bufs)
+
+
+def sgd_flat(p_bufs: Sequence[torch.Tensor], g_bufs: Sequence[torch.Tensor],
+             m_bufs: Sequence[torch.Tensor], *, lr, momentum, dampening,
+             weight_decay, grad_scale=1.0, nesterov: bool = False,
+             out_is_delta: bool = False,
+             skip: Optional[torch.Tensor] = None):
+    """``amp_C.multi_tensor_sgd``: one fused sweep per group → ``(p_bufs,
+    m_bufs)``, params and momentum updated in place; with
+    ``out_is_delta`` the params are only read and the first result is
+    one new fp32 buffer per group holding ``-lr * upd``.
+
+    Per element: ``g' = g * grad_scale + weight_decay * p``, ``m =
+    momentum * m + (1 - dampening) * g'``, ``upd = g' + momentum * m``
+    (Nesterov) or ``m``. The caller zeroes ``dampening`` on the first
+    step (torch's momentum buffer starts as the raw gradient). Params
+    are fp32 or bf16 (float16 is widened to fp32 for the sweep and
+    written back); grads and momentum fp32; every buffer 1-D and padded
+    (``multi_tensor.pack``). CUDA buffers launch the kernel once per
+    group (counted in ``sgd_flat.launches``); CPU buffers run the plain
+    version. ``skip`` is ``adam_flat``'s."""
+    if not len(p_bufs) == len(g_bufs) == len(m_bufs):
+        raise ValueError("p/g/m buffer lists differ in length")
+    if not p_bufs:
+        return [], []
+    wide = [p.float() if p.dtype == torch.float16 else p for p in p_bufs]
+    g_bufs = [g if g.dtype == torch.float32 else g.float() for g in g_bufs]
+    dev = wide[0].device
+    scalars = sgd_scalars(lr, momentum, dampening, weight_decay, grad_scale,
+                          dev)
+    if skip is not None:
+        skip = torch.as_tensor(skip, device=dev).reshape(()).bool()
+    if not _build.on_cuda(*wide, *g_bufs, *m_bufs, scalars):
+        outs, m_out = sgd_flat_plain(wide, g_bufs, m_bufs, scalars,
+                                     nesterov=nesterov,
+                                     out_is_delta=out_is_delta, skip=skip)
+    else:
+        noop = None if skip is None else skip.to(torch.int32).reshape(1)
+        lib = _build.library()
+        outs = []
+        for p, g, m in zip(wide, g_bufs, m_bufs):
+            n = p.numel()
+            code = _build.dtype_code(p, "sgd_flat param")
+            _build.require(p, "p", (n,), p.dtype)
+            _build.require(g, "g", (n,), torch.float32)
+            _build.require(m, "m", (n,), torch.float32)
+            if n % 4:
+                raise ValueError(f"sgd_flat kernel: buffer size {n} is not "
+                                 f"a multiple of 4 (pack pads to 65536)")
+            delta = None
+            if out_is_delta:
+                alloc = torch.empty if skip is None else torch.zeros
+                delta = alloc(n, dtype=torch.float32, device=dev)
+            rc = lib.apex_tpu_torch_sgd_flat(
+                p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                None if delta is None else delta.data_ptr(),
+                scalars.data_ptr(), None if noop is None else noop.data_ptr(),
+                n, int(nesterov), code, _build.stream())
+            _build.check(rc, "sgd_flat")
+            sgd_flat.launches += 1
+            outs.append(p if delta is None else delta)
+        m_out = list(m_bufs)
+    if not out_is_delta:          # a widened float16 group goes back
+        for p, w in zip(p_bufs, wide):
+            if w is not p:
+                p.copy_(w)
+        outs = list(p_bufs)
+    return outs, m_out
+
+
+sgd_flat.launches = 0
+
+
 def l2norm_flat_plain(bufs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: each buffer's fp32 sum of
     squares, added in list order, then the square root."""
@@ -212,4 +328,5 @@ def l2norm_flat(bufs: Sequence[torch.Tensor]) -> torch.Tensor:
 l2norm_flat.launches = 0
 
 __all__: List[str] = ["adam_flat", "adam_flat_plain", "adam_scalars",
-                      "device_scalar", "l2norm_flat", "l2norm_flat_plain"]
+                      "device_scalar", "l2norm_flat", "l2norm_flat_plain",
+                      "sgd_flat", "sgd_flat_plain", "sgd_scalars"]

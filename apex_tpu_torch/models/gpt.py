@@ -96,6 +96,7 @@ from apex_tpu_torch.kernels.decode_attention import (
 )
 from apex_tpu_torch.kernels.flash_attention import FLASH_FWD_OP
 from apex_tpu_torch.kernels.layer_norm import layer_norm
+from apex_tpu_torch.kernels.xentropy import softmax_cross_entropy
 from apex_tpu_torch.serving import sampling as _sampling
 from apex_tpu_torch.transformer.tensor_parallel import (
     vocab_parallel_cross_entropy,
@@ -165,8 +166,6 @@ class GPTConfig:
             later.append("fsdp (the distributed slice)")
         if self.num_experts > 0:
             later.append("num_experts > 0 (the MoE slice)")
-        if self.ce_impl == "fused":
-            later.append("ce_impl='fused' (the xentropy kernel's slice)")
         if self.attn_impl == "xla_chunked":
             later.append("attn_impl='xla_chunked' (the long-context "
                          "slice)")
@@ -180,7 +179,7 @@ class GPTConfig:
                 ("attn_impl", self.attn_impl, ("auto", "flash", "xla")),
                 ("attn_layout", self.attn_layout, ("auto",)),
                 ("ln_impl", self.ln_impl, ("xla", "pallas")),
-                ("ce_impl", self.ce_impl, ("xla",)),
+                ("ce_impl", self.ce_impl, ("xla", "fused")),
                 ("attn_score_dtype", self.attn_score_dtype,
                  ("f32", "compute")),
                 ("decode_attn_impl", self.decode_attn_impl,
@@ -554,11 +553,14 @@ def logits(cfg: GPTConfig, params, tokens):
 
 def _ce_of_hidden(cfg: GPTConfig, params, h, targets_bs):
     """Mean CE from final hidden states ``h [b, s, hidden]`` against
-    ``targets_bs [b, s]``, in fp32 logits against the tied table. With
+    ``targets_bs [b, s]``, in fp32 logits against the tied table:
+    ``ce_impl="xla"`` through the vocab-parallel cross entropy,
+    ``"fused"`` through the xentropy kernels (tp=1 only, as in JAX). With
     ``cfg.ce_chunk`` the sequence is cut into chunks, each under
     ``checkpoint``: the forward keeps only each chunk's loss sum and the
-    backward recomputes that chunk's logits, so peak memory is
-    O(chunk * b * vocab) instead of O(s * b * vocab)."""
+    backward recomputes that chunk's logits (and, fused, re-runs the
+    forward kernel), so peak memory is O(chunk * b * vocab) instead of
+    O(s * b * vocab)."""
     table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
     b, s = targets_bs.shape
     chunk = cfg.ce_chunk
@@ -566,12 +568,26 @@ def _ce_of_hidden(cfg: GPTConfig, params, h, targets_bs):
         raise ValueError(
             f"ce_chunk={chunk} must divide the (SP-local) sequence "
             f"length {s}")
-    if cfg.ce_impl != "xla":
-        raise ValueError(f"unknown ce_impl {cfg.ce_impl!r}")
+    if cfg.ce_impl == "fused":
+        if table.shape[0] != cfg.vocab_size:
+            # the kernel's lse spans only the rows it is given: on a
+            # vocab-sharded table it would be a silently wrong loss
+            raise ValueError(
+                "ce_impl='fused' needs the vocab unsharded locally "
+                f"(tp == 1); local table rows {table.shape[0]} != "
+                f"vocab_size {cfg.vocab_size}")
 
-    def ce_sum(hb, tb, tab):
-        lg = torch.matmul(hb, tab.t()).float()
-        return vocab_parallel_cross_entropy(lg, tb, 0.0).sum()
+        def ce_sum(hb, tb, tab):
+            lg = torch.matmul(hb, tab.t()).float()
+            n = lg.shape[0] * lg.shape[1]
+            return softmax_cross_entropy(lg.reshape(n, lg.shape[-1]),
+                                         tb.reshape(n)).sum()
+    elif cfg.ce_impl == "xla":
+        def ce_sum(hb, tb, tab):
+            lg = torch.matmul(hb, tab.t()).float()
+            return vocab_parallel_cross_entropy(lg, tb, 0.0).sum()
+    else:
+        raise ValueError(f"unknown ce_impl {cfg.ce_impl!r}")
 
     if chunk <= 0:
         return ce_sum(h, targets_bs, table) / (s * b)

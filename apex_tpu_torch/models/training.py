@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch import _tree
 from apex_tpu_torch._capabilities import resolve_device
-from apex_tpu_torch.amp import ScalerConfig, ScalerState
+from apex_tpu_torch.amp import ScalerConfig, ScalerState, apply_if_finite
 from apex_tpu_torch.amp import update as scaler_update
 from apex_tpu_torch.amp import value_and_scaled_grad
 from apex_tpu_torch.models import gpt
@@ -41,8 +41,10 @@ from apex_tpu_torch.optimizers import (
     FusedAdamState,
     FusedLAMBState,
     FusedOptimizer,
+    FusedSGDState,
     TreeAdamState,
     TreeLAMBState,
+    TreeSGDState,
 )
 
 
@@ -73,53 +75,79 @@ def make_loss_train_step(loss_fn: Callable, optimizer: FusedOptimizer, *,
                          clip_grad_norm: Optional[float] = None,
                          n_batch_args: int = 2, sp_psum_mask=None,
                          fsdp: bool = False, init_extra=None,
-                         extra_pspecs=None,
+                         extra_pspecs=None, extra_sync_dp: bool = True,
                          device: Optional[Union[str, torch.device]] = None):
     """``(init_fn, step_fn)`` over an arbitrary loss on one device — the
     machinery of :func:`make_train_step` for models that are not GPT
-    (BERT's :func:`~apex_tpu_torch.models.bert.make_mlm_train_step`).
+    (BERT's :func:`~apex_tpu_torch.models.bert.make_mlm_train_step`,
+    ResNet's :func:`~apex_tpu_torch.models.resnet.make_train_step`).
 
     - ``loss_fn(params, *batch) -> scalar``; ``batch`` is
       ``n_batch_args`` tensors (or arrays) moved to ``device``;
     - ``init_params(generator) -> param tree`` on ``device`` (None →
       CUDA); ``init_fn(generator)`` adds the optimizer state, the scaler
       and the step count;
+    - ``init_extra(generator) -> tree`` (or ``"with_params"``:
+      ``init_params`` returns ``(params, extra)`` in one pass) enables
+      non-trainable model state (BatchNorm running statistics, torch's
+      buffers): the loss becomes ``loss_fn(params, extra, *batch) ->
+      (loss, new_extra)``, the state rides ``TrainState.extra`` and, on
+      an overflow-skipped step, stays as it was with the params;
+      ``extra_sync_dp`` (the dp-mean of the state, torch DDP's
+      broadcast-buffers role) does nothing on one device;
     - ``step_fn(state, *batch) -> (state, metrics)``: the loss under the
       scaler, the optional global-norm clip (``grad_norm`` metric, the
       pre-clip norm), ``optimizer.step`` with the scaler's skip flag, the
       scaler update. Metrics: ``loss``, ``grads_finite`` (int32),
       ``loss_scale``.
 
-    The mesh-only arguments of the JAX function raise: ``sp_psum_mask``
-    and ``fsdp`` (the distributed slice), ``init_extra`` and
-    ``extra_pspecs`` (non-trainable model state: the ResNet slice)."""
+    The mesh-only arguments of the JAX function raise: ``sp_psum_mask``,
+    ``fsdp`` and ``extra_pspecs`` (the distributed slice)."""
     scaler_cfg = scaler_cfg or ScalerConfig(enabled=False)
     later = [name for name, on in (
         ("sp_psum_mask (the distributed slice)", sp_psum_mask is not None),
         ("fsdp (the distributed slice)", fsdp),
-        ("init_extra (the ResNet slice)", init_extra is not None),
-        ("extra_pspecs (the ResNet slice)", extra_pspecs is not None)) if on]
+        ("extra_pspecs (the distributed slice)", extra_pspecs is not None))
+        if on]
     if later:
         raise ValueError("not supported by apex_tpu_torch yet: "
                          + "; ".join(later))
+    if not (init_extra is None or init_extra == "with_params"
+            or callable(init_extra)):
+        raise ValueError(f"init_extra must be None, 'with_params' or a "
+                         f"callable, got {init_extra!r}")
+    del extra_sync_dp     # one device: its state is already everyone's
+    has_extra = init_extra is not None
     dev = resolve_device(device)
 
     def init_fn(generator: torch.Generator) -> TrainState:
-        params = init_params(generator)
+        if init_extra == "with_params":
+            params, extra = init_params(generator)
+        else:
+            params = init_params(generator)
+            extra = init_extra(generator) if has_extra else ()
         return TrainState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             params=params, opt_state=optimizer.init(params),
-            scaler=scaler_cfg.init(device=dev))
+            scaler=scaler_cfg.init(device=dev), extra=extra)
 
-    vag = value_and_scaled_grad(loss_fn, scaler_cfg)
+    vag = value_and_scaled_grad(loss_fn, scaler_cfg, has_aux=has_extra)
 
     def step_fn(state: TrainState, *batch):
         if len(batch) != n_batch_args:
             raise ValueError(f"step_fn takes {n_batch_args} batch arrays, "
                              f"got {len(batch)}")
         batch = [torch.as_tensor(x, device=dev) for x in batch]
-        value, grads, finite = vag(state.params, *batch,
-                                   scaler_state=state.scaler)
+        new_extra = state.extra
+        if has_extra:
+            (value, new_extra), grads, finite = vag(
+                state.params, state.extra, *batch, scaler_state=state.scaler)
+            new_extra = _tree.tree_map(torch.Tensor.detach, new_extra)
+            if scaler_cfg.enabled:
+                new_extra = apply_if_finite(new_extra, state.extra, finite)
+        else:
+            value, grads, finite = vag(state.params, *batch,
+                                       scaler_state=state.scaler)
         grad_norm = None
         if clip_grad_norm is not None:
             grads, grad_norm = _clip_by_global_norm(grads, clip_grad_norm)
@@ -135,7 +163,7 @@ def make_loss_train_step(loss_fn: Callable, optimizer: FusedOptimizer, *,
         if grad_norm is not None:
             metrics["grad_norm"] = grad_norm
         return TrainState(state.step + 1, new_params, new_opt,
-                          new_scaler), metrics
+                          new_scaler, new_extra), metrics
 
     return init_fn, step_fn
 
@@ -212,22 +240,23 @@ def _to_numpy(t):
     return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
 
 
-#: the optimizer states the bridge carries: flat (moments as group
-#: buffers) or tree (moments mirroring the params)
-_OPT_STATES = {"FusedAdamState": (FusedAdamState, True),
-               "TreeAdamState": (TreeAdamState, False),
-               "FusedLAMBState": (FusedLAMBState, True),
-               "TreeLAMBState": (TreeLAMBState, False)}
+#: the optimizer states the bridge carries, by the JAX type's name: flat
+#: (moments as tuples of group buffers) or tree (moments mirroring the
+#: params); the fields are the JAX type's, in its order
+_OPT_STATES = {cls.__name__: cls for cls in (
+    FusedAdamState, TreeAdamState, FusedLAMBState, TreeLAMBState,
+    FusedSGDState, TreeSGDState)}
 
 
 def train_state_from_numpy(state, *, device: Optional[
         Union[str, torch.device]] = None) -> TrainState:
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) → the port's, on ``device`` (None → CUDA). Fields are read
-    by name: ``step``, ``params`` (any nested dicts: GPT's or BERT's),
-    ``opt_state`` (``FusedAdamState`` or ``FusedLAMBState`` with flat fp32
-    group buffers, or ``TreeAdamState`` or ``TreeLAMBState`` whose
-    moments mirror the params) and ``scaler`` (a ``ScalerState``)."""
+    by name: ``step``, ``params`` (any tree of dicts and lists: GPT's,
+    BERT's, ResNet's, in the JAX layouts), ``opt_state`` (an Adam, LAMB
+    or SGD state, flat or tree), ``scaler`` (a ``ScalerState``) and
+    ``extra`` (the non-trainable model state, e.g. BatchNorm's running
+    statistics; () when there is none)."""
     dev = resolve_device(device)
     conv = lambda tree: _tree.tree_map(lambda a: _to_tensor(a, dev), tree)
     opt = state.opt_state
@@ -235,19 +264,14 @@ def train_state_from_numpy(state, *, device: Optional[
     if kind not in _OPT_STATES:
         raise ValueError(f"unsupported optimizer state {kind} (the port "
                          f"carries {', '.join(_OPT_STATES)})")
-    cls, flat = _OPT_STATES[kind]
-    if flat:
-        opt_t = cls(conv(opt.count), tuple(conv(list(opt.m))),
-                    tuple(conv(list(opt.v))))
-    else:
-        opt_t = cls(conv(opt.count), conv(opt.m), conv(opt.v))
+    cls = _OPT_STATES[kind]
     sc = state.scaler
     return TrainState(
-        step=conv(state.step), params=gpt.params_from_numpy(
-            state.params, device=dev),
-        opt_state=opt_t,
+        step=conv(state.step), params=conv(state.params),
+        opt_state=cls(*(conv(getattr(opt, f)) for f in cls._fields)),
         scaler=ScalerState(conv(sc.loss_scale), conv(sc.growth_count),
-                           conv(sc.hysteresis_left)))
+                           conv(sc.hysteresis_left)),
+        extra=conv(getattr(state, "extra", ())))
 
 
 def train_state_to_numpy(state: TrainState) -> TrainState:

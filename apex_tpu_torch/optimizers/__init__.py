@@ -1,6 +1,6 @@
-"""Fused optimizers of the port (``apex_tpu.optimizers``): FusedAdam and
-FusedLAMB, each in both layouts. SGD, Adagrad, NovoGrad and the ZeRO
-optimizers come with later slices."""
+"""Fused optimizers of the port (``apex_tpu.optimizers``): FusedAdam,
+FusedLAMB and FusedSGD, each in both layouts. Adagrad, NovoGrad and the
+ZeRO optimizers come with later slices."""
 
 from apex_tpu_torch.optimizers._base import FusedOptimizer
 from apex_tpu_torch.optimizers.fused_adam import (
@@ -13,6 +13,12 @@ from apex_tpu_torch.optimizers.fused_lamb import (
     TreeLAMBState,
     fused_lamb,
 )
+from apex_tpu_torch.optimizers.fused_sgd import (
+    FusedSGDState,
+    TreeSGDState,
+    fused_sgd,
+)
 
 __all__ = ["FusedAdamState", "FusedLAMBState", "FusedOptimizer",
-           "TreeAdamState", "TreeLAMBState", "fused_adam", "fused_lamb"]
+           "FusedSGDState", "TreeAdamState", "TreeLAMBState",
+           "TreeSGDState", "fused_adam", "fused_lamb", "fused_sgd"]

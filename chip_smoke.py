@@ -132,14 +132,52 @@ same serving model:
     through a paged and a contiguous int8 spec engine (identical streams,
     ``paged_write_columns_quant`` on every layer of every wave).
 
+The rest of single-chip training runs last, after the BERT phases:
+
+21. xentropy and fp16 flash kernels vs plain — the fused cross entropy's
+    forward (loss, lse) and backward (dx) at one CE chunk of the GPT step
+    ([16 x 512, 50304] fp32, smoothing 0 and 0.1, every 7th row ignored,
+    a target past the vocab) and at ragged shapes (V = 50257, unaligned
+    bf16 rows of V = 300, V = 3); the flash forward and backward with
+    float16 inputs at the BERT step's shape (b=32, s=512, non-causal),
+    widened to the fp32 kernels, with the fp32 kernels' own time beside;
+    timed as in phase 3, the library yardsticks ``F.cross_entropy``'s
+    forward and its backward (forward plus backward, less the forward)
+    and fp16 SDPA;
+22. the fused cross entropy in the train step — phase 9's tree-layout
+    step with ``ce_impl="fused"``: losses within a band of phase 9's
+    "xla" run (step 0 equal to fp32 rounding), per step 4 forward and 2
+    backward xentropy launches (two chunks, each replayed by its
+    checkpoint), step time and peak memory of both runs;
+23. BERT in fp16 — ``examples/bert_pretrain.py --fp16``: BERT-large at
+    ``compute_dtype=float16`` with tree LAMB and the scaler of
+    ``amp.initialize("O2", half_dtype=float16)``; one step forced to
+    overflow at a loss scale of 2^40 (skipped, params and LAMB state
+    bit-equal, the scale halved and clamped to 2^24), then one warm-up
+    and 10 timed steps from 2^16 with each step's scale and skip, the
+    loss falling over the applied steps, and the launches
+    ``bert_launches_per_step`` implies;
+24. ResNet-50 — ``sgd_flat`` against its plain version on the model's
+    padded fp32 group (and bf16 groups with Nesterov, the delta mode and
+    ``skip``), timed beside ``torch.optim.SGD``'s fused step; then
+    ``examples/imagenet_amp.py``'s loop (depth 50, batch 64 of 224x224,
+    bf16, ``amp.initialize("O1", half_dtype=bfloat16)``, lr 0.1, momentum
+    0.9, weight decay 1e-4) with ``fused_sgd`` in the flat layout (one
+    ``sgd_flat`` launch a step) and the example's tree layout: images/s,
+    peak memory, the first update lowering the loss, the losses of the
+    first 4 steps within a band of each other (step 0 equal), and the
+    eval leg's top-1/top-5 on the batch.
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
-wrapper's host cost included. Two library yardsticks are eager: SDPA's
+XX
 forward plus backward less its forward (the flash backward's),
 ``F.layer_norm``'s forward plus backward less its forward (the LayerNorm
-backward's) and ``torch.optim.AdamW(fused=True)``'s step on one flat
-tensor (Adam's).
+backward's), ``torch.optim.AdamW(fused=True)``'s step on one flat tensor
+(Adam's), ``F.cross_entropy``'s forward plus backward less its forward
+(the xentropy backward's) and ``torch.optim.SGD``'s fused (or foreach)
+step on one flat tensor (SGD's).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
@@ -2356,6 +2394,16 @@ def phase_train(cfg, layout, tok, tgt):
     check(counts["adam_flat"] == want_adam,
           f"train {layout}: adam_flat launched {counts['adam_flat']} times, "
           f"expected {want_adam}")
+    # the fused CE: per chunk the forward twice (the chunk checkpoint
+    # replays it in the backward) and the backward once
+    chunks = cfg.seq_len // cfg.ce_chunk if cfg.ce_chunk else 1
+    fused = cfg.ce_impl == "fused"
+    want_xent = {"xentropy_fwd": (2 if cfg.ce_chunk else 1) * chunks,
+                 "xentropy_bwd": chunks}
+    for name, per_step in want_xent.items():
+        want = per_step * n_steps if fused else 0
+        check(counts[name] == want, f"train {layout}: {name} launched "
+              f"{counts[name]} times, expected {want}")
     return metrics, state, step_fn
 
 
@@ -2822,6 +2870,560 @@ def phase_bert_train(bcfg, layout, tok, tgt, mask):
     return metrics, state, step_fn
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the fused cross entropy's kernels and fp16 flash, at their shapes
+# ---------------------------------------------------------------------------
+
+#: xentropy kernel vs plain: loss and lse in fp32 differ only by the
+#: order of the sums (the kernel's running max and rescaled sum); dx =
+#: softmax - onehot is about 1/V = 2e-5 a column, so a fixed atol of
+#: 1e-3 would pass a kernel that dropped the softmax term: 1e-6 absolute
+#: and 1e-4 relative (an lse 1e-5 apart moves every softmax by 1e-5
+#: relative)
+XENT_DX_TOL = dict(atol=1e-6, rtol=1e-4)
+#: fp16 flash output vs the plain version on the same fp16 inputs: both
+#: compute in fp32 and round once to fp16 (11 bits: one ulp is 2^-10
+#: relative), so ~2.5 ulp
+FP16_TOL = dict(atol=5e-3, rtol=5e-3)
+
+
+def _xent_inputs(dev, rows, vocab, dtype, seed, ignore_every=0):
+    """Logits ``[rows, vocab]`` of scale 3, targets in range, every
+    ``ignore_every``-th row ignored, and the last row's target past the
+    vocab (``x[t]`` reads 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(rows, vocab, generator=g, device=dev) * 3).to(dtype)
+    t = torch.randint(0, vocab, (rows,), generator=g, device=dev)
+    if ignore_every:
+        t[::ignore_every] = -100
+    t[-1] = vocab + 5
+    dy = torch.randn(rows, generator=g, device=dev)
+    return x, t, dy
+
+
+def phase_xent_kernels(tcfg, bcfg):
+    """The xentropy forward and backward against their plain versions on
+    the card at one CE chunk of the GPT step ([batch * ce_chunk, vocab]
+    fp32, smoothing 0 and 0.1, every 7th row ignored) and at ragged
+    shapes (V % 4 != 0, unaligned bf16 rows); then the flash kernels with
+    float16 inputs at the BERT step's shape, widened to the fp32 kernels.
+    Timed as in phase 3. Returns (``{name: row}`` for the two new
+    kernels, the flash rows' fp16 entries)."""
+    from apex_tpu_torch.kernels import (
+        flash_attention_bsh_bwd,
+        flash_attention_bsh_bwd_plain,
+        flash_attention_bsh_fwd,
+        flash_attention_bsh_plain,
+        reset_launch_counts,
+        xentropy_bwd,
+        xentropy_bwd_plain,
+        xentropy_fwd,
+        xentropy_fwd_plain,
+    )
+
+    dev = torch.device("cuda")
+    rows_out, extra = {}, {}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+
+    def both(x, t, dy, eps):
+        loss, lse = xentropy_fwd(x, t, smoothing=eps)
+        rl, rlse = xentropy_fwd_plain(x, t, eps)
+        dx = xentropy_bwd(x, t, lse, dy, smoothing=eps)
+        rdx = xentropy_bwd_plain(x, t, lse, dy, eps)
+        torch.cuda.synchronize()
+        return (loss, lse, dx), (rl, rlse, rdx)
+
+    # ragged: V % 4 != 0 (scalar tails), bf16 rows of 600 bytes (every
+    # other row starts off a 16-byte boundary: scalar heads)
+    for rows, vocab, dtype in ((37, 50257, torch.float32),
+                               (29, 300, torch.bfloat16),
+                               (5, 3, torch.float32)):
+        x, t, dy = _xent_inputs(dev, rows, vocab, dtype, rows, 3)
+        for eps in (0.0, 0.1):
+            (loss, lse, dx), (rl, rlse, rdx) = both(x, t, dy, eps)
+            what = f"xentropy [{rows}, {vocab}] {dtype} eps={eps}"
+            check(close(loss, rl, FP32_TOL) and close(lse, rlse, FP32_TOL),
+                  f"{what}: loss err {max_err(loss, rl)}, lse err "
+                  f"{max_err(lse, rlse)}")
+            tol = XENT_DX_TOL if dtype == torch.float32 else BF16_TOL
+            check(close(dx, rdx, tol), f"{what}: dx err {max_err(dx, rdx)}")
+            ign = t == -100
+            check(bool((loss[ign] == 0).all() and (dx[ign] == 0).all()),
+                  f"{what}: an ignored row has loss or gradient")
+            worst["fwd"] = max(worst["fwd"], max_err(loss, rl))
+            worst["bwd"] = max(worst["bwd"], max_err(dx, rdx))
+
+    rows, vocab = TRAIN_BATCH * tcfg.ce_chunk, tcfg.vocab_size
+    x, t, dy = _xent_inputs(dev, rows, vocab, torch.float32, 23, 7)
+    for eps in (0.0, 0.1):
+        (loss, lse, dx), (rl, rlse, rdx) = both(x, t, dy, eps)
+        what = f"xentropy [{rows}, {vocab}] fp32 eps={eps}"
+        check(bool(torch.isfinite(loss).all() and torch.isfinite(dx).all()),
+              f"{what}: non-finite")
+        check(close(loss, rl, FP32_TOL) and close(lse, rlse, FP32_TOL),
+              f"{what}: loss err {max_err(loss, rl)}, lse err "
+              f"{max_err(lse, rlse)}")
+        check(close(dx, rdx, XENT_DX_TOL), f"{what}: dx err "
+              f"{max_err(dx, rdx)}")
+        worst["fwd"] = max(worst["fwd"], max_err(loss, rl), max_err(lse, rlse))
+        worst["bwd"] = max(worst["bwd"], max_err(dx, rdx))
+        del rl, rlse, rdx
+    log(f"xentropy: kernel vs plain max err {worst} (loss/lse atol=rtol=1e-3,"
+        f" dx atol 1e-6 rtol 1e-4, bf16 dx 2e-2) at [{rows}, {vocab}] fp32 "
+        f"and ragged [37, 50257], [29, 300] bf16, [5, 3]")
+
+    # timed at the chunk's shape, eps = 0 (the GPT step's); the library
+    # call refuses a target past the vocab (a device assert), so its
+    # copy of the targets holds 0 there
+    tl = torch.where(t >= vocab, torch.zeros_like(t), t).long()
+    lse = xentropy_fwd(x, t)[1]
+    xr = x.detach().clone().requires_grad_(True)
+    lib_f = lambda: F.cross_entropy(x, tl, reduction="none")
+    lib_fr = lambda: F.cross_entropy(xr, tl, reduction="none")
+    lib_fb = lambda: torch.autograd.grad(lib_fr(), xr, dy)
+    fwd_k = lambda: xentropy_fwd(x, t)
+    bwd_k = lambda: xentropy_bwd(x, t, lse, dy)
+    n = rows * vocab
+    # forward: read the logits and targets, write loss and lse; about 4
+    # fp32 operations an element (compare, subtract, exp, add)
+    xb, xby = bound(4 * n + 12 * rows, 4 * n, FP32_FLOPS_PER_S)
+    # backward: read the logits, targets, lse and g, write dx
+    bb, bby = bound(8 * n + 12 * rows, 5 * n, FP32_FLOPS_PER_S)
+    shape = f"[{rows}, {vocab}] fp32 (one CE chunk of the GPT step)"
+    rows_out["xentropy_fwd"] = dict(
+        name="xentropy_fwd", route="cuda",
+        source="apex_tpu_torch/csrc/xentropy.cu",
+        replaces="apex_tpu/kernels/xentropy.py:79",
+        max_abs_err=worst["fwd"], ms=time_ms(fwd_k, **TRAIN_TIMING),
+        eager_ms=eager_ms(fwd_k, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: xentropy_fwd_plain(x, t), **TRAIN_TIMING),
+        bound_ms=xb, bound_by=xby,
+        library_ms=time_ms(lib_f, **TRAIN_TIMING), shape=shape)
+    rows_out["xentropy_bwd"] = dict(
+        name="xentropy_bwd", route="cuda",
+        source="apex_tpu_torch/csrc/xentropy.cu",
+        replaces="apex_tpu/kernels/xentropy.py:107",
+        max_abs_err=worst["bwd"], ms=time_ms(bwd_k, **TRAIN_TIMING),
+        eager_ms=eager_ms(bwd_k, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: xentropy_bwd_plain(x, t, lse, dy),
+                         **TRAIN_TIMING),
+        bound_ms=bb, bound_by=bby,
+        library_ms=(eager_ms(lib_fb, **TRAIN_TIMING)
+                    - eager_ms(lib_fr, **TRAIN_TIMING)), shape=shape)
+    del x, t, dy, lse, xr, loss, dx
+
+    # -- flash with float16 inputs at the BERT step's shape (non-causal)
+    heads, s, hidden = bcfg.num_heads, bcfg.seq_len, bcfg.hidden_size
+    hd, B, f16 = hidden // heads, BERT_BATCH, torch.float16
+    g = torch.Generator(device=dev).manual_seed(41)
+    q, k, v, do = (torch.randn(B, s, hidden, generator=g, device=dev,
+                               dtype=f16) for _ in range(4))
+    out, lse = flash_attention_bsh_fwd(q, k, v, num_heads=heads)
+    ref, ref_lse = flash_attention_bsh_plain(q, k, v, num_heads=heads)
+    torch.cuda.synchronize()
+    check(out.dtype == f16 and close(out, ref, FP16_TOL)
+          and close(lse, ref_lse, FP32_TOL),
+          f"flash fp16 b={B}: out err {max_err(out, ref)}, lse err "
+          f"{max_err(lse, ref_lse)}")
+    fwd_err = max_err(out, ref)
+    del ref, ref_lse
+    delta = (out.float() * do.float()).view(B, s, heads, hd).sum(
+        -1).transpose(1, 2).contiguous()
+    got = flash_attention_bsh_bwd(q, k, v, do, lse, delta, num_heads=heads)
+    want = flash_attention_bsh_bwd_plain(q, k, v, do, lse, delta,
+                                         num_heads=heads)
+    torch.cuda.synchronize()
+    bwd_errs = []
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        tol = grad_tol(r)
+        check(a.dtype == f16 and close(a, r, tol),
+              f"flash bwd fp16 b={B}: {name} err {max_err(a, r)} over atol "
+              f"{tol['atol']:.3e}")
+        bwd_errs.append(max_err(a, r))
+    del got, want
+    log(f"flash fp16 (widened to the fp32 kernels) b={B} s={s}: fwd err "
+        f"{fwd_err:.3e} (atol=rtol=5e-3), bwd {bwd_errs} (atol 1e-2 x rms)")
+    q32, k32, v32, do32 = (t_.float() for t_ in (q, k, v, do))
+    hv = lambda t_: t_.view(B, s, heads, hd).transpose(1, 2)
+    qh, kh, vh = (hv(t_).detach().requires_grad_(True) for t_ in (q, k, v))
+    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh)
+        torch.autograd.grad(o, (qh, kh, vh), hv(do))
+
+    pairs = B * heads * s * s
+    act = B * s * hidden * 2
+    st = B * heads * s * 4
+    fb, fby = bound(4 * act + st, 4 * hd * pairs)
+    bb, bby = bound(7 * act + 2 * st, 5 * 2 * hd * pairs)
+    fa = lambda: flash_attention_bsh_fwd(q, k, v, num_heads=heads)
+    fbw = lambda: flash_attention_bsh_bwd(q, k, v, do, lse, delta,
+                                          num_heads=heads)
+    shape = f"b={B} s={s} hidden={hidden} heads={heads} fp16 non-causal"
+    extra["flash_attention_bsh"] = dict(
+        ms=time_ms(fa, **TRAIN_TIMING), eager_ms=eager_ms(fa, **TRAIN_TIMING),
+        fp32_kernel_ms=time_ms(lambda: flash_attention_bsh_fwd(
+            q32, k32, v32, num_heads=heads), **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_plain(
+            q, k, v, num_heads=heads), **TRAIN_TIMING),
+        library_ms=time_ms(lib_fwd, **TRAIN_TIMING), bound_ms=fb,
+        bound_by=fby, max_abs_err=fwd_err, shape=shape)
+    extra["flash_attention_bsh_bwd"] = dict(
+        ms=time_ms(fbw, **TRAIN_TIMING),
+        eager_ms=eager_ms(fbw, **TRAIN_TIMING),
+        fp32_kernel_ms=time_ms(lambda: flash_attention_bsh_bwd(
+            q32, k32, v32, do32, lse, delta, num_heads=heads),
+            **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_bwd_plain(
+            q, k, v, do, lse, delta, num_heads=heads), **TRAIN_TIMING),
+        library_ms=(eager_ms(lib_fwd_bwd, **TRAIN_TIMING)
+                    - eager_ms(lib_fwd, **TRAIN_TIMING)),
+        bound_ms=bb, bound_by=bby, max_abs_err=max(bwd_errs), shape=shape)
+    del q, k, v, do, q32, k32, v32, do32, qh, kh, vh, out, lse, delta
+    for name, r in list(rows_out.items()) + [(f"{k_} (fp16)", r_)
+                                             for k_, r_ in extra.items()]:
+        fp32 = (f", the fp32 kernel alone {r['fp32_kernel_ms']:.4f} ms"
+                if "fp32_kernel_ms" in r else "")
+        log(f"kernel {name}: {r['ms']:.4f} ms (eager {r['eager_ms']:.4f} "
+            f"ms){fp32}, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}) at {r['shape']}")
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return rows_out, extra
+
+
+# ---------------------------------------------------------------------------
+# phase 22: bench's GPT step with the fused cross entropy
+# ---------------------------------------------------------------------------
+
+#: fused vs "xla" cross entropy in the GPT step: the same loss in fp32,
+#: its lse summed in another order, so the first step's losses agree to
+#: fp32 rounding of a ~10.8 value; later steps carry bf16 training's
+#: rounding forward, as the two optimizer layouts do (LAYOUT_LOSS_BAND)
+FUSED_CE_STEP0_TOL = 1e-4
+FUSED_CE_LOSS_BAND = 5e-2
+
+
+def phase_fused_ce_train(tcfg, tok, tgt, xla_tree):
+    """Phase 9's tree-layout step with ``ce_impl="fused"``: its losses
+    against the "xla" run's (``xla_tree``, phase 9's metrics), and per
+    step 2 x (seq / ce_chunk) forward and seq / ce_chunk backward
+    launches of the xentropy kernels (the chunk checkpoint replays the
+    forward). Returns the run's metrics."""
+    import dataclasses
+
+    cfg = dataclasses.replace(tcfg, ce_impl="fused")
+    fused, state, step_fn = phase_train(cfg, "tree", tok, tgt)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    a, b = fused["losses"], xla_tree["losses"]
+    gap = max(abs(x - y) for x, y in zip(a, b))
+    log(f"fused CE: step 0 loss {a[0]:.6f} vs xla {b[0]:.6f}; max|loss "
+        f"diff| over {len(a)} steps {gap:.3e} (band {FUSED_CE_LOSS_BAND}); "
+        f"step {fused['step_ms']:.2f} ms vs {xla_tree['step_ms']:.2f} ms, "
+        f"peak {fused['peak_memory_bytes']} vs "
+        f"{xla_tree['peak_memory_bytes']} bytes")
+    check(abs(a[0] - b[0]) <= FUSED_CE_STEP0_TOL,
+          f"fused CE: step 0 loss {a[0]} vs xla {b[0]}")
+    check(gap <= FUSED_CE_LOSS_BAND, f"fused CE: losses differ by {gap}")
+    return fused
+
+
+# ---------------------------------------------------------------------------
+# phase 23: BERT-large in fp16 under amp's dynamic scaler
+# ---------------------------------------------------------------------------
+
+#: the forced overflow: one step at this loss scale, where BERT-large's
+#: fp16 gradients overflow; the backoff then halves it and clamps it to
+#: the scaler's max_scale (2^24)
+FORCED_SCALE = 2.0 ** 40
+
+
+def phase_bert_fp16(tok, tgt, mask):
+    """``examples/bert_pretrain.py --fp16``: ``BertConfig(compute_dtype=
+    float16)`` (flash widened to its fp32 kernels), tree LAMB, the scaler
+    of ``amp.initialize("O2", half_dtype=float16)`` (the example's
+    ``ScalerConfig()``). First one step at a forced loss scale of 2^40:
+    skipped, params and LAMB state bit for bit as they were, the scale
+    backed off (and clamped to 2^24); then, from 2^16 again, one warm-up
+    and ``TRAIN_STEPS`` timed steps: each step's scale and skip, the loss
+    falling over the applied steps, and the launches the code implies
+    over all steps.
+    Returns the run's metrics."""
+    from apex_tpu_torch import _tree, amp
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import make_mlm_train_step
+    from apex_tpu_torch.optimizers import fused_lamb
+
+    ctx, _ = amp.initialize(opt_level="O2", half_dtype=torch.float16)
+    check(ctx.scaler == amp.ScalerConfig(),
+          f"amp O2 fp16 scaler {ctx.scaler} is not ScalerConfig()")
+    bcfg = bert_config(compute_dtype=torch.float16)
+    init_fn, step_fn = make_mlm_train_step(
+        bcfg, fused_lamb(1e-3, layout="tree"), ctx.scaler)
+    state = init_fn(torch.Generator("cuda").manual_seed(0))
+    scale0 = state.scaler.loss_scale.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+
+    state = state._replace(scaler=state.scaler._replace(
+        loss_scale=torch.full((), FORCED_SCALE, device="cuda")))
+    before = [t.clone() for t in _tree.leaves((state.params,
+                                               state.opt_state))]
+    state, m = step_fn(state, tok, tgt, mask)
+    forced = (int(m["grads_finite"]), float(m["loss_scale"]))
+    same = all(torch.equal(a, b) for a, b in zip(
+        _tree.leaves((state.params, state.opt_state)), before))
+    del before
+    log(f"BERT fp16 forced step at scale 2^40: grads_finite {forced[0]}, "
+        f"scale after {forced[1]}, params and LAMB state bit-equal: {same}")
+    backed = min(FORCED_SCALE * ctx.scaler.backoff_factor,
+                 ctx.scaler.max_scale)
+    check(forced == (0, backed),
+          f"BERT fp16: the forced step gave {forced}, expected a skip and "
+          f"a scale of {backed} (halved, clamped to max_scale)")
+    check(same, "BERT fp16: a skipped step changed params or LAMB state")
+
+    state = state._replace(scaler=state.scaler._replace(loss_scale=scale0))
+    ms_ = []
+    t0 = time.perf_counter()
+    state, m = step_fn(state, tok, tgt, mask)
+    ms_.append(m)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step_fn(state, tok, tgt, mask)
+        ms_.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = [dict(loss=float(m["loss"]), grads_finite=int(m["grads_finite"]),
+                  loss_scale=float(m["loss_scale"])) for m in ms_]
+    applied = [s_["loss"] for s_ in steps if s_["grads_finite"]]
+    n_steps = TRAIN_STEPS + 2
+    metrics = dict(
+        run="BERT fp16 tree ln_impl=xla",
+        train_tokens_per_sec=TRAIN_STEPS * tok.numel() / wall,
+        step_ms=wall / TRAIN_STEPS * 1e3, warmup_step_ms=warm * 1e3,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        forced_step=forced, steps=steps, launches=counts,
+        launches_per_step={k: v / n_steps for k, v in counts.items()})
+    log("train BERT fp16: " + json.dumps(metrics))
+    check(all(np.isfinite(s_["loss"]) for s_ in steps),
+          "BERT fp16: non-finite loss")
+    check(len(applied) >= 2 and applied[-1] < applied[0] - BERT_LOSS_FALL,
+          f"BERT fp16: the loss did not fall by {BERT_LOSS_FALL} over the "
+          f"applied steps {applied}")
+    want = bert_launches_per_step(bcfg)
+    want.update(l2norm_flat=0, adam_flat=0)
+    for name, per_step in want.items():
+        check(counts[name] == per_step * n_steps,
+              f"BERT fp16: {name} launched {counts[name]} times, expected "
+              f"{per_step} x {n_steps} steps")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# phase 24: ResNet-50 with FusedSGD (examples/imagenet_amp.py)
+# ---------------------------------------------------------------------------
+
+#: examples/imagenet_amp.py's defaults
+RESNET_BATCH, RESNET_IMAGE, RESNET_LR = 64, 224, 0.1
+#: sgd_flat kernel vs plain in fp32: the same expression, rounded in
+#: another order (fused multiply-adds)
+SGD_TOL = dict(atol=1e-6, rtol=1e-5)
+#: flat vs tree FusedSGD on ResNet-50: the same update, rounded at other
+#: places, and cuDNN's weight gradients are summed in an order that may
+#: change between runs. At the example's lr 0.1 the loss on the repeated
+#: random batch falls at the first update (6.94 to 4.79) and then climbs
+#: (to about 19 by step 10, in fp32 compute too, while at lr 0.01 it
+#: falls every step, on an H100), and on that climb the two layouts'
+#: rounding differences grow (0.94 apart at step 10). So the layouts are
+#: held over the first RESNET_HELD_STEPS steps (0.025 apart at most in
+#: that run), the first step's losses, before any update, equal.
+RESNET_LAYOUT_BAND = 5e-2
+RESNET_HELD_STEPS = 4
+
+
+def phase_sgd_kernel(rcfg):
+    """``sgd_flat`` against its plain version on the card: one fp32 group
+    of ResNet-50's padded size (momentum 0.9, weight decay 1e-4, as the
+    step runs it), and a small bf16 group with Nesterov, a grad scale,
+    the delta mode and ``skip``. Returns its row."""
+    import inspect
+
+    from apex_tpu_torch.kernels import (
+        reset_launch_counts,
+        sgd_flat,
+        sgd_flat_plain,
+    )
+    from apex_tpu_torch.kernels.flat_ops import sgd_scalars
+    from apex_tpu_torch.multi_tensor import pad_to
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def group(n, dtype):
+        p = (torch.randn(n, generator=g, device=dev) * 0.05).to(dtype)
+        gr = torch.randn(n, generator=g, device=dev) * 1e-2
+        m = torch.randn(n, generator=g, device=dev) * 1e-2
+        return p, gr, m
+
+    def sgd_both(p, gr, m, hp, **flags):
+        pk, mk, pp, mp = p.clone(), m.clone(), p.clone(), m.clone()
+        s = sgd_scalars(hp["lr"], hp["momentum"], hp["dampening"],
+                        hp["weight_decay"], hp.get("grad_scale", 1.0), dev)
+        ok, _ = sgd_flat([pk], [gr], [mk], **hp, **flags)
+        op, _ = sgd_flat_plain([pp], [gr], [mp], s, **flags)
+        torch.cuda.synchronize()
+        return (ok[0], mk), (op[0], mp), (pk, p)
+
+    errs = []
+    hp = dict(lr=0.1, momentum=0.9, dampening=0.0, weight_decay=1e-4,
+              grad_scale=0.5)
+    for flags in (dict(nesterov=True), dict(out_is_delta=True), {}):
+        p, gr, m = group(4 * 65536, torch.bfloat16)
+        (ok, mk), (op, mp), (pk, p0) = sgd_both(p, gr, m, hp, **flags)
+        tol = (SGD_TOL if flags.get("out_is_delta") else BF16_TOL)
+        check(close(ok, op, tol) and close(mk, mp, SGD_TOL),
+              f"sgd_flat bf16 {flags}: errs {max_err(ok, op)}, "
+              f"{max_err(mk, mp)}")
+        if flags.get("out_is_delta"):
+            check(torch.equal(pk, p0), "sgd_flat delta mode changed p")
+        errs.append(max_err(mk, mp))
+    before = (pk.clone(), mk.clone())
+    sgd_flat([pk], [gr], [mk], **hp,
+             skip=torch.ones((), dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    check(torch.equal(pk, before[0]) and torch.equal(mk, before[1]),
+          "sgd_flat: skip=True changed a buffer")
+
+    n = pad_to(rcfg.param_count())
+    p, gr, m = group(n, torch.float32)
+    hp = dict(lr=RESNET_LR, momentum=0.9, dampening=0.0, weight_decay=1e-4)
+    (ok, mk), (op, mp), _ = sgd_both(p, gr, m, hp)
+    e = [max_err(ok, op), max_err(mk, mp)]
+    check(close(ok, op, SGD_TOL) and close(mk, mp, SGD_TOL),
+          f"sgd_flat n={n}: errs {e}")
+    errs += e
+    log(f"sgd_flat n={n} fp32: max|p,m - plain|={e} (tol atol=1e-6 "
+        f"rtol=1e-5); bf16 groups with nesterov, delta mode and skip ok")
+    del op, mp
+    s = sgd_scalars(RESNET_LR, 0.9, 0.0, 1e-4, 1.0, dev)
+    step_k = lambda: sgd_flat([ok], [gr], [mk], **hp)
+    w = torch.nn.Parameter(p.clone())
+    w.grad = gr.clone()
+    fused = "fused" in inspect.signature(torch.optim.SGD).parameters
+    lib = torch.optim.SGD([w], lr=RESNET_LR, momentum=0.9,
+                          weight_decay=1e-4,
+                          **({"fused": True} if fused else {"foreach": True}))
+    lib.step()      # the first step only fills its momentum buffer
+    # per element: read p, g, m and write p, m (fp32); ~6 flops
+    sb, sby = bound(20 * n, 6 * n, FP32_FLOPS_PER_S)
+    row = dict(
+        name="sgd_flat", route="cuda",
+        source="apex_tpu_torch/csrc/flat_ops.cu",
+        replaces="apex_tpu/kernels/flat_ops.py:321",
+        max_abs_err=max(errs), ms=time_ms(step_k, **TRAIN_TIMING),
+        eager_ms=eager_ms(step_k, **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: sgd_flat_plain([p], [gr], [m], s),
+                         **TRAIN_TIMING),
+        bound_ms=sb, bound_by=sby,
+        library_ms=eager_ms(lib.step, **TRAIN_TIMING),
+        library=f"torch.optim.SGD({'fused' if fused else 'foreach'}=True)",
+        shape=f"one fp32 group of n={n} (ResNet-50, padded)")
+    log(f"kernel sgd_flat: {row['ms']:.4f} ms (eager {row['eager_ms']:.4f} "
+        f"ms), plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms ({row['library']}), bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}) at {row['shape']}")
+    del p, gr, m, ok, mk, w, lib
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return row
+
+
+def resnet_batch():
+    """The example's synthetic batch, regenerated with numpy: normal
+    images of seed 1 (NHWC) and uniform labels of seed 2."""
+    img = np.random.default_rng(1).standard_normal(
+        (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3), dtype=np.float32)
+    lbl = np.random.default_rng(2).integers(0, 1000, RESNET_BATCH)
+    return (torch.as_tensor(img, device="cuda"),
+            torch.as_tensor(lbl, device="cuda"))
+
+
+def phase_resnet_train(rcfg, layout, images, labels):
+    """``resnet.make_train_step`` with ``fused_sgd(0.1, momentum=0.9,
+    weight_decay=1e-4, layout=layout)`` and the scaler of
+    ``amp.initialize("O1", half_dtype=bfloat16)`` (none): one warm-up and
+    ``TRAIN_STEPS`` timed steps, weights from seed 0, launch counts
+    zeroed just before and read just after; then the example's eval leg,
+    ``forward(training=False)`` top-1/top-5 on the batch. Returns
+    (metrics, state)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import resnet
+    from apex_tpu_torch.optimizers import fused_sgd
+
+    ctx, _ = amp.initialize(opt_level="O1", half_dtype=torch.bfloat16)
+    init_fn, step_fn = resnet.make_train_step(
+        rcfg, fused_sgd(RESNET_LR, momentum=0.9, weight_decay=1e-4,
+                        layout=layout), ctx.scaler)
+    state = init_fn(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, images, labels)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step_fn(state, images, labels)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        logits, _ = resnet.forward(rcfg, state.params, state.extra, images,
+                                   training=False)
+    top5 = logits.topk(5, dim=-1).indices
+    hit1 = float((top5[:, 0] == labels).float().mean())
+    hit5 = float((top5 == labels[:, None]).any(dim=1).float().mean())
+    losses = [float(x) for x in losses]
+    n_steps = TRAIN_STEPS + 1
+    metrics = dict(
+        layout=layout, images_per_sec=TRAIN_STEPS * RESNET_BATCH / wall,
+        step_ms=wall / TRAIN_STEPS * 1e3, warmup_step_ms=warm * 1e3,
+        peak_memory_bytes=peak, losses=losses, eval_top1=hit1,
+        eval_top5=hit5, launches=counts,
+        launches_per_step={k: v / n_steps for k, v in counts.items()})
+    log(f"train ResNet-50 {layout}: " + json.dumps(metrics))
+    check(tuple(logits.shape) == (RESNET_BATCH, rcfg.num_classes)
+          and bool(torch.isfinite(logits).all()),
+          f"ResNet {layout}: eval logits {tuple(logits.shape)} not finite")
+    check(all(np.isfinite(losses)), f"ResNet {layout}: non-finite loss")
+    check(abs(losses[0] - math.log(rcfg.num_classes)) < 1.0,
+          f"ResNet {layout}: first loss {losses[0]} is not near ln(1000)")
+    check(losses[1] < losses[0] - 0.1,
+          f"ResNet {layout}: the first update did not lower the loss")
+    want = n_steps if layout == "flat" else 0
+    check(counts["sgd_flat"] == want,
+          f"ResNet {layout}: sgd_flat launched {counts['sgd_flat']} times, "
+          f"expected {want}")
+    others = {k: v for k, v in counts.items() if k != "sgd_flat" and v}
+    check(not others, f"ResNet {layout}: other kernels launched: {others}")
+    return metrics, state
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -2932,6 +3534,45 @@ def main() -> int:
         check(gap <= BERT_LOSS_BAND,
               f"BERT: runs (a) and (b) losses differ by {gap}")
         log(f"BERT train phase {time.perf_counter() - t:.1f}s")
+
+        # the rest of single-chip training: the fused cross entropy, BERT
+        # in fp16 and ResNet-50 with FusedSGD
+        t = time.perf_counter()
+        xent_rows, fp16_extra = phase_xent_kernels(tcfg, bcfg_a)
+        log(f"xentropy and fp16 flash kernels phase "
+            f"{time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        fused_run = phase_fused_ce_train(tcfg, tok, tgt, tree)
+        log(f"fused CE train phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        bert16 = phase_bert_fp16(*batch)
+        log(f"BERT fp16 phase {time.perf_counter() - t:.1f}s")
+        del batch, tok, tgt
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        from apex_tpu_torch.models import resnet
+
+        rcfg = resnet.ResNetConfig()
+        sgd_row = phase_sgd_kernel(rcfg)
+        images, labels = resnet_batch()
+        r_flat, state = phase_resnet_train(rcfg, "flat", images, labels)
+        del state
+        torch.cuda.empty_cache()
+        r_tree, state = phase_resnet_train(rcfg, "tree", images, labels)
+        del state
+        gaps = [abs(a - b) for a, b in zip(r_flat["losses"],
+                                           r_tree["losses"])]
+        held = max(gaps[:RESNET_HELD_STEPS])
+        log(f"ResNet-50: flat vs tree max|loss diff| over the first "
+            f"{RESNET_HELD_STEPS} steps = {held:.3e} (band "
+            f"{RESNET_LAYOUT_BAND}), over all {len(gaps)} = "
+            f"{max(gaps):.3e}")
+        check(held <= RESNET_LAYOUT_BAND,
+              f"ResNet-50: flat and tree losses differ by {held}")
+        check(r_flat["losses"][0] == r_tree["losses"][0],
+              "ResNet-50: the first step's losses differ between layouts")
+        log(f"ResNet phase {time.perf_counter() - t:.1f}s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -2958,6 +3599,13 @@ def main() -> int:
     for r in bert_rows.values():
         r["launches"] = run_a["launches"][r["name"]]
     rows.update(bert_rows)
+    for r in xent_rows.values():
+        r["launches"] = fused_run["launches"][r["name"]]
+    rows.update(xent_rows)
+    for kname, r in fp16_extra.items():
+        rows[kname]["fp16"] = dict(r, launches=bert16["launches"][kname])
+    sgd_row["launches"] = r_flat["launches"]["sgd_flat"]
+    rows["sgd_flat"] = sgd_row
     log(f"card: {card}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -185,6 +185,12 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     tk.paged_write_columns_quant(new, new, pq, ps, pq.clone(), ps.clone(),
                                  table, pos)
     tk.paged_attention_quantized(q, pq, ps, pq, ps, table, pos)
+    logits, tgt = torch.zeros(3, 300), torch.tensor([0, -100, 299])
+    loss, lse = tk.xentropy_fwd(logits, tgt)
+    tk.xentropy_bwd(logits, tgt, lse, loss)
+    buf = torch.zeros(64)
+    tk.sgd_flat([buf], [buf.clone()], [buf.clone()], lr=0.1, momentum=0.9,
+                dampening=0.0, weight_decay=0.0)
     assert tk.launch_counts() == {"flash_attention_bsh": 0,
                                   "decode_write_column": 0,
                                   "decode_attention": 0,
@@ -202,7 +208,10 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "cache_write_columns_quant": 0,
                                   "paged_write_column_quant": 0,
                                   "paged_write_columns_quant": 0,
-                                  "paged_attention_quant": 0}
+                                  "paged_attention_quant": 0,
+                                  "xentropy_fwd": 0,
+                                  "xentropy_bwd": 0,
+                                  "sgd_flat": 0}
     tk.write_column.launches = 3
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
@@ -253,4 +262,5 @@ def test_build_dir_is_content_addressed():
     assert d == _build.build_dir()
     assert {p.name for p in _build._sources()} == {
         "flash_attention_bsh.cu", "decode_attention.cu",
-        "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu"}
+        "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
+        "xentropy.cu"}

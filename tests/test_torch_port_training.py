@@ -350,8 +350,9 @@ def test_remat_policy_validation():
     # shape, so ffn == hidden is accepted
     assert callable(tgpt._remat_policy(dataclasses.replace(
         cfg, attn_impl="flash", ffn_hidden_size=64)))
-    with pytest.raises(ValueError, match="xentropy"):
-        tgpt.GPTConfig(ce_impl="fused")
+    assert tgpt.GPTConfig(ce_impl="fused").ce_impl == "fused"
+    with pytest.raises(ValueError, match="unknown ce_impl"):
+        tgpt.GPTConfig(ce_impl="bogus")
     with pytest.raises(ValueError, match="distributed slice"):
         ttraining.make_train_step(
             dataclasses.replace(cfg, remat_policy=None), t_fused_adam(),
