@@ -1,17 +1,23 @@
 """apex_tpu_torch — the PyTorch/CUDA port of apex_tpu, for NVIDIA Hopper.
 
 The JAX package ``apex_tpu`` is the reference; this package is its port,
-slice by slice. The slice here is the serving path: the GPT model's
-forward, bulk prefill and KV-cache decode, the continuous-batching
-:class:`~apex_tpu_torch.serving.Engine` and its FIFO
-:class:`~apex_tpu_torch.serving.Scheduler`. Every Pallas kernel on that
-path is a CUDA kernel written for ``sm_90a`` (``apex_tpu_torch/csrc``),
-built with ``nvcc`` at first use and bound with ``ctypes``:
+slice by slice (``ROADMAP.md``): GPT serving through the
+continuous-batching :class:`~apex_tpu_torch.serving.Engine` and its
+:class:`~apex_tpu_torch.serving.Scheduler` (contiguous, paged,
+speculative and quantized KV caches), and single-device training of GPT
+(355M and Megatron-GPT 2.7B: ``apex_tpu_torch.examples.gpt_train``),
+BERT and ResNet with the fused optimizers and amp. Every Pallas kernel
+on those paths is a CUDA kernel written for ``sm_90a``
+(``apex_tpu_torch/csrc``), built with ``nvcc`` at first use and bound
+with ``ctypes``, in ``apex_tpu_torch.kernels``:
 
-- ``apex_tpu_torch.kernels.flash_attention`` — causal flash prefill over
-  the ``[b, s, hidden]`` layout,
-- ``apex_tpu_torch.kernels.decode_attention`` — the one-column cache
-  write and the flash-decode read.
+- ``flash_attention`` — flash attention forward and backward over the
+  lane-packed ``[b, s, hidden]`` layout and over the head-major
+  ``[b, heads, s, d]`` one,
+- ``decode_attention`` — the cache writes and the flash-decode reads,
+  contiguous, paged and quantized,
+- ``layer_norm``, ``xentropy``, ``flat_ops`` — LayerNorm, the softmax
+  cross entropy and the multi-tensor optimizer sweeps.
 
 Each kernel has a plain PyTorch twin in the same module; a wrapper takes
 it only for tensors on the CPU (the tests), and for CUDA tensors it

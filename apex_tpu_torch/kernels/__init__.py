@@ -7,6 +7,12 @@ attribute; :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main
 path went through the kernels. Importing this package builds nothing:
 the library is compiled at the first launch.
+
+Unlike the JAX package, the name ``flash_attention`` here stays the
+submodule (callers import it as a module): the head-major function is
+``kernels.flash_attention.flash_attention``; its siblings
+(``flash_attention_with_lse``, ``mha``, the kernel wrappers) are
+exported here.
 """
 
 from typing import Dict
@@ -49,6 +55,17 @@ from apex_tpu_torch.kernels.flash_attention import (
     flash_attention_bsh_bwd_plain,
     flash_attention_bsh_fwd,
     flash_attention_bsh_plain,
+    flash_attention_bwd,
+    flash_attention_bwd_dkdv,
+    flash_attention_bwd_dkdv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
+    flash_attention_with_lse,
+    flash_bsh_eligible,
+    mha,
 )
 from apex_tpu_torch.kernels.flat_ops import (
     adam_flat,
@@ -97,6 +114,10 @@ KERNEL_WRAPPERS = {
     "xentropy_fwd": xentropy_fwd,
     "xentropy_bwd": xentropy_bwd,
     "sgd_flat": sgd_flat,
+    "flash_attention": flash_attention_fwd,
+    "flash_attention_bwd": flash_attention_bwd,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
 }
 
 
@@ -131,6 +152,16 @@ __all__ = [
     "flash_attention_bsh_bwd_plain",
     "flash_attention_bsh_fwd",
     "flash_attention_bsh_plain",
+    "flash_attention_bwd",
+    "flash_attention_bwd_dkdv",
+    "flash_attention_bwd_dkdv_plain",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dq_plain",
+    "flash_attention_bwd_plain",
+    "flash_attention_fwd",
+    "flash_attention_fwd_plain",
+    "flash_attention_with_lse",
+    "flash_bsh_eligible",
     "l2norm_flat",
     "l2norm_flat_plain",
     "launch_counts",
@@ -139,6 +170,7 @@ __all__ = [
     "layer_norm_bwd_plain",
     "layer_norm_fwd",
     "layer_norm_fwd_plain",
+    "mha",
     "paged_attention",
     "paged_attention_plain",
     "paged_attention_quantized",

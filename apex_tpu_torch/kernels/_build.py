@@ -45,8 +45,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: quantized-KV storage codes of ``csrc/common.cuh`` (enum KvKind)
 KV_KIND_CODES = {"int8": 0, "fp8": 1}
-#: the head width the attention kernels are built for (``kHeadDim``)
+#: the head width the lane-packed flash and the decode kernels are built
+#: for (``kHeadDim``); the head-major flash kernels take any width up to
+#: ``HM_MAX_HEAD_DIM``
 KERNEL_HEAD_DIM = 64
+HM_MAX_HEAD_DIM = 128
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -65,6 +68,12 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
         _c_void_p],
+    # q, k, v, lens, seg_q, seg_k, out, lse, bh, n_rep, sq, sk, d, scale,
+    # causal, q's dtype, stream (lens and the segment ids may be null)
+    "apex_tpu_torch_flash_fwd_hm": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_float, _c_int, _c_int, _c_void_p],
     "apex_tpu_torch_adam_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_longlong, _c_int, _c_int, _c_int, _c_void_p],
@@ -142,6 +151,13 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_float, _c_int, _c_int, _c_void_p],
 }
+
+# the head-major backward entries: q, k, v, do, lse, delta, lens, seg_q,
+# seg_k, dq, dk, dv, bh, n_rep, sq, sk, d, scale, causal, q's dtype, stream
+for _name in ("fused", "dq", "dkdv"):
+    _SIGNATURES[f"apex_tpu_torch_flash_bwd_hm_{_name}"] = [
+        _c_void_p] * 12 + [_c_int] * 5 + [_c_float, _c_int, _c_int,
+                                          _c_void_p]
 
 
 @dataclasses.dataclass
@@ -301,17 +317,19 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def require(t: torch.Tensor, name: str, shape, dtype: torch.dtype) -> None:
-    """Shape, dtype, contiguity (strides included) and 16-byte alignment
-    check of one kernel operand."""
+def require(t: torch.Tensor, name: str, shape, dtype: torch.dtype, *,
+            align: int = 16) -> None:
+    """Shape, dtype, contiguity (strides included) and ``align``-byte
+    alignment check of one kernel operand (kernels that load one element
+    at a time pass ``align=1``)."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype} != {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous, strides {t.stride()}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer not {align}-byte aligned")
 
 
 def stream() -> int:

@@ -29,10 +29,13 @@ with two differences of idiom:
 - random numbers come from explicit ``torch.Generator`` objects (init)
   and from the counter-based draw of :mod:`apex_tpu_torch.serving.sampling`.
 
-Attention dispatch: ``attn_impl="flash"`` runs the port's flash kernel
-(:func:`apex_tpu_torch.kernels.flash_attention_bsh`), ``"xla"`` the
-materialised-scores expression of ``_xla_attn_probs``; ``"auto"`` is
-``"flash"`` on CUDA at every length and ``"xla"`` on the CPU.
+Attention dispatch: ``attn_impl="flash"`` runs the port's flash kernels
+— the lane-packed :func:`apex_tpu_torch.kernels.flash_attention_bsh`
+where it takes the shape and ``attn_layout="auto"``, else the head-major
+``kernels.flash_attention.flash_attention`` (:func:`_attention_ctx`) —
+``"xla"`` the materialised-scores expression of ``_xla_attn_probs``;
+``"auto"`` is ``"flash"`` on CUDA at every length and ``"xla"`` on the
+CPU.
 ``decode_attn_impl="kernel"`` runs the port's flash-decode kernels,
 ``"xla"`` the one-hot/materialised form; ``"auto"`` is ``"kernel"`` on
 CUDA at every horizon and ``"xla"`` on the CPU. On the CPU an explicit
@@ -42,7 +45,7 @@ Remat: ``remat=True`` wraps each layer in ``torch.utils.checkpoint``
 (non-reentrant). ``remat_policy=None`` saves nothing inside the layer,
 so the backward replays all of it, the flash forward included; a named
 policy is a selective-checkpoint policy (:func:`_remat_policy`) that
-saves the outputs the JAX policy names — the flash forward op's
+saves the outputs the JAX policy names — a flash forward op's
 ``(out, lse)`` under ``"qkv_fc1_attn"``/``"fc1_attn"``, so the backward
 never re-runs that kernel.
 
@@ -94,7 +97,11 @@ from apex_tpu_torch.kernels.decode_attention import (
     paged_write_columns_xla,
     quantize_kv_rows,
 )
-from apex_tpu_torch.kernels.flash_attention import FLASH_FWD_OP
+from apex_tpu_torch.kernels.flash_attention import (
+    FLASH_FWD_OP,
+    FLASH_HM_FWD_OP,
+    flash_attention,
+)
 from apex_tpu_torch.kernels.layer_norm import layer_norm
 from apex_tpu_torch.kernels.xentropy import softmax_cross_entropy
 from apex_tpu_torch.serving import sampling as _sampling
@@ -114,9 +121,11 @@ class GPTConfig:
     as in JAX; ``scan_unroll`` has no counterpart (the layer loop is a
     Python loop). Options that belong to later slices of the port raise
     at construction: context parallelism and FSDP (the distributed
-    slice), experts (the MoE slice), the fused cross entropy (the
-    xentropy kernel's slice), and the head-major flash layout / chunked
-    XLA attention. ``ln_impl="pallas"`` is the port's LayerNorm kernel
+    slice), experts (the MoE slice) and chunked XLA attention.
+    ``attn_layout`` is ``"auto"`` (the lane-packed flash kernels where
+    they take the shape, else the head-major ones) or ``"bhsd"`` (always
+    the head-major ones); see :func:`_attention_ctx`.
+    ``ln_impl="pallas"`` is the port's LayerNorm kernel
     (:mod:`apex_tpu_torch.kernels.layer_norm`); ``kv_cache_dtype`` is
     ``"auto"``, ``"bf16"`` or ``"compute"`` (the unquantized cache in
     compute dtype) or ``"int8"`` / ``"fp8"`` (the quantized cache, see
@@ -169,15 +178,12 @@ class GPTConfig:
         if self.attn_impl == "xla_chunked":
             later.append("attn_impl='xla_chunked' (the long-context "
                          "slice)")
-        if self.attn_layout == "bhsd":
-            later.append("attn_layout='bhsd' (the head-major flash "
-                         "kernel's slice)")
         if later:
             raise ValueError(
                 "not supported by apex_tpu_torch yet: " + "; ".join(later))
         for name, value, allowed in (
                 ("attn_impl", self.attn_impl, ("auto", "flash", "xla")),
-                ("attn_layout", self.attn_layout, ("auto",)),
+                ("attn_layout", self.attn_layout, ("auto", "bhsd")),
                 ("ln_impl", self.ln_impl, ("xla", "pallas")),
                 ("ce_impl", self.ce_impl, ("xla", "fused")),
                 ("attn_score_dtype", self.attn_score_dtype,
@@ -394,10 +400,22 @@ def _merge_heads(t):
 
 def _attention_ctx(cfg: GPTConfig, q, k, v, heads: int):
     """``q/k/v [b, s, hidden]`` → pre-projection context ``[b, s,
-    hidden]``: the flash kernel, or the materialised scores."""
+    hidden]``: flash attention, or the materialised scores. Flash
+    dispatches as JAX's ``_attention_ctx`` does: with ``attn_layout=
+    "auto"`` the slabs go straight to :func:`flash_attention_bsh`, which
+    runs the lane-packed kernels where :func:`~apex_tpu_torch.kernels.
+    flash_bsh_eligible` (the port's copy of JAX's rule, which also
+    requires head width 64, the one the port's lane-packed kernels are
+    built for) says yes, and the head-major ones otherwise (other head
+    widths such as the 2.7B's 80, ``APEX_TPU_FLASH_BWD=split``, a dQ
+    accumulator over budget); with ``"bhsd"`` heads are split to ``[b,
+    heads, s, d]`` for the head-major kernels and merged back."""
     if _attn_impl(cfg, q.device) == "flash":
-        return flash_attention_bsh(q, k, v, num_heads=heads,
-                                   causal=cfg.causal)
+        if cfg.attn_layout == "auto":
+            return flash_attention_bsh(q, k, v, num_heads=heads,
+                                       causal=cfg.causal)
+        qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
+        return _merge_heads(flash_attention(qh, kh, vh, causal=cfg.causal))
     s = q.shape[1]
     tri = None
     if cfg.causal:
@@ -478,8 +496,9 @@ def _remat_policy(cfg: GPTConfig):
     ``cfg.remat_policy``, or None (save nothing: the whole layer replays).
 
     A selective-checkpoint policy sees ops, not JAX's named values:
-    ``"flash"`` (JAX's ``flash_out``/``flash_lse``) is the flash forward
-    op, whose ``(out, lse)`` is saved whole; ``"attn_qkv"`` and
+    ``"flash"`` (JAX's ``flash_out``/``flash_lse``) is either flash
+    forward op, lane-packed or head-major, whose ``(out, lse)`` is saved
+    whole; ``"attn_qkv"`` and
     ``"mlp_fc1"`` are the matmuls that ``_qkv_project`` and ``_mlp`` issue
     under :func:`_remat_name`. The saved values are the matmul outputs,
     the bias adds replay."""
@@ -496,7 +515,7 @@ def _remat_policy(cfg: GPTConfig):
     mm = torch.ops.aten.mm.default
 
     def policy(ctx, op, *args, **kwargs):
-        if op is FLASH_FWD_OP:
+        if op is FLASH_FWD_OP or op is FLASH_HM_FWD_OP:
             keep = saves is not None and "flash" in saves
         elif op is mm:
             keep = saves is None or getattr(_REMAT_NAME, "value",

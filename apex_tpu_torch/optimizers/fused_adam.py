@@ -9,7 +9,10 @@ FusedAdam`` over ``multi_tensor_adam``). Two layouts, the same math:
   fp32 buffers at the JAX layout's offsets. The new params are views
   into the freshly packed buffer, so unpacking copies nothing.
 - ``layout="tree"``: the moments mirror the param tree and the update is
-  leafwise PyTorch, as the JAX package leaves it to XLA.
+  leafwise PyTorch, as the JAX package leaves it to XLA. Without a
+  ``skip`` flag the moments are updated in place (the state is consumed,
+  as the flat layout's is): a new copy of m and v beside the old ones
+  would not fit a 2.7B model's step on one 80 GB card.
 
 Hyperparameters and the step count live on the device, so a schedule or
 bias correction never syncs with the host.
@@ -132,8 +135,12 @@ def _tree_adam(learning_rate, b1, b2, eps, weight_decay, adam_w_mode,
             p32 = p.float()
             if weight_decay and not adam_w_mode:
                 g32 = g32 + weight_decay * p32
-            m_new = b1 * m + (1.0 - b1) * g32
-            v_new = b2 * v + (1.0 - b2) * g32 * g32
+            if skip is None:    # in place: the same products and sums
+                m_new = m.mul_(b1).add_((1.0 - b1) * g32)
+                v_new = v.mul_(b2).add_((1.0 - b2) * g32 * g32)
+            else:
+                m_new = b1 * m + (1.0 - b1) * g32
+                v_new = b2 * v + (1.0 - b2) * g32 * g32
             upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
             if weight_decay and adam_w_mode:
                 upd = upd + weight_decay * p32

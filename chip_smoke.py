@@ -168,18 +168,55 @@ The rest of single-chip training runs last, after the BERT phases:
     first 4 steps within a band of each other (step 0 equal), and the
     eval leg's top-1/top-5 on the batch.
 
+The head-major flash attention runs last (Megatron-GPT 2.7B, the
+``2p7b`` preset of ``apex_tpu_torch.examples.gpt_train``: vocab 50304,
+hidden 2560, 32 layers of 32 heads of 80, seq 1024, full remat, bf16,
+tree Adam, batch 8):
+
+25. head-major kernels vs plain — the forward, the fused backward and the
+    split dQ and dK/dV sweeps at small ragged shapes (fp32 and bf16, head
+    widths 64, 80 and 128; causal s=200 and s=65 with segment ids, sq=72
+    against sk=130 with kv lengths 0, 130, 57 and segment ids, an lse
+    cotangent) and through the public API in fp16 (widened to the fp32
+    kernels) with ``flash_attention_with_lse``'s lse cotangent, then at
+    the 2.7B step's attention (b=8, 32 heads, s=1024, d=80, bf16,
+    causal): every kernel within its tolerance of its plain version,
+    fused == split, the split kernels bit-equal across two launches;
+    timed as in phase 3, the library yardsticks SDPA's forward and its
+    backward (forward plus backward, less the forward; for the split
+    sweeps the backward asked for dq, or dk and dv, alone);
+26. 2.7B gradients — one loss gradient at batch 1 through the head-major
+    kernels (bf16), the "xla" attention in bf16 and in fp32 (the
+    reference): the kernel path within 3x the bf16 "xla" path's error;
+27. the 2.7B step — the example's ``build`` and ``train``: one warm-up
+    and 5 timed steps (its ``--steps 5``) with the fused backward, then 3
+    steps under ``APEX_TPU_FLASH_BWD=split``: tokens/s, step time, peak
+    memory, every loss (finite, falling; split within a band of fused,
+    step 0 equal), and per step 64 head-major forwards (full remat
+    replays each layer's), 32 fused backwards or 32 dQ and 32 dK/dV
+    sweeps, and no lane-packed launch; then phase 9's 355M tree step with
+    ``attn_layout="bhsd"`` (1 + 3 steps) beside phase 9's lane-packed
+    run: 24 head-major forwards and backwards a step, losses within a
+    band;
+28. profile — ``torch.profiler`` over 2 steps of the 2.7B (fused run):
+    device ms per step by kernel category, the head-major kernels' share
+    and the idle share.
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
-XX
-forward plus backward less its forward (the flash backward's),
+wrapper's host cost included. ``library_ms`` is one PyTorch call that
+computes the same function: ``F.scaled_dot_product_attention`` (the
+flash forwards'), its forward plus backward less its forward (the flash
+backwards'),
 ``F.layer_norm``'s forward plus backward less its forward (the LayerNorm
 backward's), ``torch.optim.AdamW(fused=True)``'s step on one flat tensor
 (Adam's), ``F.cross_entropy``'s forward plus backward less its forward
 (the xentropy backward's) and ``torch.optim.SGD``'s fused (or foreach)
 step on one flat tensor (SGD's).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (25 kernels); the
+last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
 """
@@ -2410,6 +2447,8 @@ def phase_train(cfg, layout, tok, tgt):
 #: kernel-name fragments → the category a train step's device time is
 #: summed under (first match wins; the rest is "other")
 KERNEL_CATEGORIES = (
+    ("flash_fwd_hm", ("flash_fwd_hm",)),
+    ("flash_bwd_hm", ("flash_bwd_kv_hm", "flash_bwd_dq_hm")),
     ("flash_fwd", ("flash_fwd_bsh",)), ("flash_bwd", ("flash_bwd_",)),
     ("adam_flat", ("adam_kernel",)),
     ("layer_norm", ("ln_fwd_kernel", "ln_bwd_")),
@@ -3424,6 +3463,494 @@ def phase_resnet_train(rcfg, layout, images, labels):
     return metrics, state
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the head-major flash kernels vs plain
+# ---------------------------------------------------------------------------
+
+#: the 2.7B step's attention (``apex_tpu_torch.examples.gpt_train --preset
+#: 2p7b``: batch 8 of seq 1024, 32 heads of 80, bf16, causal)
+HM_BATCH, HM_HEADS, HM_SEQ, HM_DIM = 8, 32, 1024, 80
+#: float16 through the public API: the fp32 kernels' output rounded to
+#: fp16 against the plain version's, about one fp16 ulp (2^-10 relative)
+F16_TOL = dict(atol=2e-3, rtol=2e-3)
+
+
+def hm_grad_tol(ref: torch.Tensor) -> dict:
+    """The head-major backward's fp32 gradients, kernel vs plain or fused
+    vs split: the same fp32 products summed in another order (dQ by
+    atomics in the fused kernel); 1e-4 of the reference's largest entry
+    plus FP32_TOL's rtol."""
+    return dict(atol=1e-4 * max(float(ref.abs().max()), 1.0),
+                rtol=FP32_TOL["rtol"])
+
+
+def _hm_inputs(dev, bh, sq, sk, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda s: torch.randn(bh, s, d, generator=g, device=dev,
+                               dtype=torch.float32).to(dtype)
+    return mk(sq), mk(sk), mk(sk), mk(sq)
+
+
+def phase_hm_kernels():
+    """Phase 25: the head-major forward, fused backward and split dQ /
+    dK-dV against their plain versions — at small ragged shapes (fp32,
+    bf16 and fp16 through the public API; d 64, 80, 128; sq != sk;
+    kv lengths with a 0; segment ids; ``flash_attention_with_lse`` with a
+    nonzero lse cotangent) and at the 2.7B step's shape, with fused ==
+    split and the split kernels bit-equal across two launches; timed as
+    phase 3 does. Returns ``{name: row}``."""
+    from apex_tpu_torch.kernels import (
+        flash_attention_bwd,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dkdv_plain,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+        flash_attention_with_lse,
+        reset_launch_counts,
+    )
+    from apex_tpu_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = {"fwd": 0.0, "fused": 0.0, "dq": 0.0, "dkdv": 0.0}
+
+    def hold(tag, q, k, v, do, *, causal, n_rep, lens=None, segs=None,
+             dlse=None):
+        """Forward and the three backward kernels against plain; fused vs
+        split; the split kernels bit-equal across two launches."""
+        kw = dict(causal=causal, lens=lens, segs=segs, n_rep=n_rep)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        ref, ref_lse = flash_attention_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if q.dtype == bf16 else FP32_TOL
+        check(bool(torch.isfinite(out).all()), f"{tag}: non-finite out")
+        check(close(out, ref, tol) and close(lse, ref_lse, FP32_TOL),
+              f"{tag}: fwd out err {max_err(out, ref)}, lse err "
+              f"{max_err(lse, ref_lse)}")
+        worst["fwd"] = max(worst["fwd"], max_err(out, ref))
+        delta = (out.float() * do.float()).sum(-1)
+        if dlse is not None:
+            delta = delta - dlse
+        args = (q, k, v, do, lse, delta.contiguous())
+        want = flash_attention_bwd_plain(*args, **kw)
+        fused = flash_attention_bwd(*args, **kw)
+        dq = flash_attention_bwd_dq(*args, **kw)
+        dk, dv = flash_attention_bwd_dkdv(*args, **kw)
+        dq2 = flash_attention_bwd_dq(*args, **kw)
+        dk2, dv2 = flash_attention_bwd_dkdv(*args, **kw)
+        want_dq = flash_attention_bwd_dq_plain(*args, **kw)
+        want_dk, want_dv = flash_attention_bwd_dkdv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("dq", "dk", "dv"), fused, want):
+            check(bool(torch.isfinite(a).all()), f"{tag}: non-finite {name}")
+            check(close(a, w, hm_grad_tol(w)),
+                  f"{tag}: fused {name} err {max_err(a, w)}")
+            worst["fused"] = max(worst["fused"], max_err(a, w))
+        for name, a, w, f_ in (("dq", dq, want_dq, fused[0]),
+                               ("dk", dk, want_dk, fused[1]),
+                               ("dv", dv, want_dv, fused[2])):
+            key = "dq" if name == "dq" else "dkdv"
+            check(close(a, w, hm_grad_tol(w)),
+                  f"{tag}: split {name} err {max_err(a, w)}")
+            check(close(a, f_, hm_grad_tol(w)),
+                  f"{tag}: split and fused {name} differ by {max_err(a, f_)}")
+            worst[key] = max(worst[key], max_err(a, w))
+        check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+              and torch.equal(dv, dv2),
+              f"{tag}: the split kernels differ between two launches")
+        return out, lse
+
+    # -- small ragged shapes: every head width, both kernel dtypes
+    for dtype in (f32, bf16):
+        for d in (64, 80, 128):
+            b_, h_ = 2, 3
+            bh = b_ * h_
+            hold(f"hm {dtype} d={d} causal s=200",
+                 *_hm_inputs(dev, bh, 200, 200, d, dtype, seed=d),
+                 causal=True, n_rep=h_)
+            q, k, v, do = _hm_inputs(dev, bh, 72, 130, d, dtype, seed=d + 1)
+            lens = torch.tensor([0, 130, 57], dtype=torch.int32,
+                                device=dev).repeat_interleave(2)
+            g = torch.Generator(device=dev).manual_seed(d)
+            segs = (torch.randint(0, 3, (b_, 72), generator=g, device=dev,
+                                  dtype=torch.int32),
+                    torch.randint(0, 3, (b_, 130), generator=g, device=dev,
+                                  dtype=torch.int32))
+            out, lse = hold(f"hm {dtype} d={d} sq=72 sk=130 lens+segs",
+                            q, k, v, do, causal=False, n_rep=h_, lens=lens,
+                            segs=segs)
+            # the rows of a kv length 0: every column masked
+            check(bool((out[lens == 0] == 0).all()),
+                  f"hm {dtype} d={d}: a kv length of 0 gave a nonzero out")
+            check(bool((lse[lens == 0] == -1e30 + math.log(1e-30)).all()),
+                  f"hm {dtype} d={d}: lse of a kv length 0 is "
+                  f"{float(lse[lens == 0].max())}")
+            hold(f"hm {dtype} d={d} causal s=65 segs",
+                 *_hm_inputs(dev, bh, 65, 65, d, dtype, seed=d + 2),
+                 causal=True, n_rep=h_,
+                 segs=(segs[0][:, :65].contiguous(),
+                       segs[0][:, :65].contiguous()))
+            g = torch.Generator(device=dev).manual_seed(d + 3)
+            hold(f"hm {dtype} d={d} with dlse",
+                 *_hm_inputs(dev, bh, 96, 96, d, dtype, seed=d + 3),
+                 causal=True, n_rep=h_,
+                 dlse=torch.randn(bh, 96, generator=g, device=dev))
+
+    # -- the public API: fp16 (widened to the fp32 kernels), and
+    #    flash_attention_with_lse's lse cotangent through autograd
+    for d in (64, 80, 128):
+        b_, h_, s_ = 2, 2, 136
+        q, k, v, do = (t.view(b_, h_, s_, d) for t in _hm_inputs(
+            dev, b_ * h_, s_, s_, d, torch.float16, seed=100 + d))
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out, lse = flash_attention_with_lse(qg, kg, vg, causal=True)
+        check(out.dtype == torch.float16, f"hm fp16 d={d}: out {out.dtype}")
+        g = torch.Generator(device=dev).manual_seed(d)
+        dlse = torch.randn(b_, h_, s_, generator=g, device=dev)
+        torch.autograd.backward((out, lse), (do, dlse))
+        out, lse = out.detach(), lse.detach()
+        flat = lambda t: t.float().reshape(b_ * h_, s_, d)
+        ref, ref_lse = flash_attention_fwd_plain(flat(q), flat(k), flat(v),
+                                                 causal=True)
+        check(close(out, ref.view(b_, h_, s_, d).half(), F16_TOL)
+              and close(lse, ref_lse.view(b_, h_, s_), FP32_TOL),
+              f"hm fp16 d={d}: out err {max_err(out, ref.view_as(out))}")
+        delta = (ref * flat(do)).sum(-1) - dlse.view(b_ * h_, s_)
+        want = flash_attention_bwd_plain(flat(q), flat(k), flat(v), flat(do),
+                                         ref_lse, delta, causal=True)
+        for name, a, w in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
+                              want):
+            w = w.view(b_, h_, s_, d)
+            check(a.dtype == torch.float16 and close(a, w, dict(
+                atol=F16_TOL["atol"] * max(float(w.abs().max()), 1.0),
+                rtol=F16_TOL["rtol"])),
+                f"hm fp16 d={d}: {name} err {max_err(a, w)}")
+        # the public out-only call is the same forward
+        check(torch.equal(flash_attention(q, k, v, causal=True), out),
+              f"hm fp16 d={d}: flash_attention != flash_attention_with_lse")
+    log(f"head-major kernels at small shapes (fp32/bf16 x d 64/80/128, "
+        f"causal, sq != sk, lens with a 0, segments, dlse; fp16 public API):"
+        f" max|kernel - plain| {worst}")
+
+    # -- the 2.7B step's shape
+    b, h, s, d = HM_BATCH, HM_HEADS, HM_SEQ, HM_DIM
+    bh = b * h
+    worst_small = dict(worst)
+    for key in worst:
+        worst[key] = 0.0
+    q, k, v, do = _hm_inputs(dev, bh, s, s, d, bf16, seed=27)
+    kw = dict(causal=True, n_rep=h)
+    out, lse = hold(f"hm 2.7B shape b={b} h={h} s={s} d={d} bf16", q, k, v,
+                    do, **kw)
+    delta = (out.float() * do.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta)
+    hv = lambda t: t.view(b, h, s, d)
+    qh, kh, vh = (hv(t).detach().requires_grad_(True) for t in (q, k, v))
+    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                     is_causal=True)
+
+    def lib_grad(*wrt):
+        def run():
+            o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            torch.autograd.grad(o, wrt, hv(do))
+        return run
+
+    lib_fwd_eager = eager_ms(lib_fwd, **TRAIN_TIMING)
+    pairs = bh * s * (s + 1) / 2                 # causal (row, key) pairs
+    act = bh * s * d * 2                         # one bf16 [bh, s, d]
+    act32 = bh * s * d * 4                       # one fp32 gradient
+    stats = bh * s * 4                           # one fp32 [bh, s]
+    shape = f"b={b} heads={h} s={s} d={d} bf16 causal"
+    rows = {}
+
+    def row(name, src, line, fn, plain, lib, n_bytes, n_flops, err):
+        bnd, by = bound(n_bytes, n_flops)
+        rows[name] = dict(
+            name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
+            replaces=f"apex_tpu/kernels/flash_attention.py:{line}",
+            max_abs_err=err, ms=time_ms(fn, **TRAIN_TIMING),
+            eager_ms=eager_ms(fn, **TRAIN_TIMING),
+            plain_ms=time_ms(plain, **TRAIN_TIMING), bound_ms=bnd,
+            bound_by=by, library_ms=lib, shape=shape)
+
+    row("flash_attention", "flash_attention.cu", 393,
+        lambda: flash_attention_fwd(q, k, v, **kw),
+        lambda: flash_attention_fwd_plain(q, k, v, **kw),
+        time_ms(lib_fwd, **TRAIN_TIMING), 4 * act + stats,
+        4 * d * pairs, max(worst["fwd"], worst_small["fwd"]))
+    # the fused backward: S, dP, dV, dK and dQ over the causal pairs
+    row("flash_attention_bwd", "flash_attention_bwd.cu", 514,
+        lambda: flash_attention_bwd(*args, **kw),
+        lambda: flash_attention_bwd_plain(*args, **kw),
+        eager_ms(lib_grad(qh, kh, vh), **TRAIN_TIMING) - lib_fwd_eager,
+        4 * act + 3 * act32 + 2 * stats, 5 * 2 * d * pairs,
+        max(worst["fused"], worst_small["fused"]))
+    # the split dQ sweep: S, dP and dQ; its library time is SDPA's
+    # backward asked for dq alone (the call computes all three)
+    row("flash_attention_bwd_dq", "flash_attention_bwd.cu", 547,
+        lambda: flash_attention_bwd_dq(*args, **kw),
+        lambda: flash_attention_bwd_dq_plain(*args, **kw),
+        eager_ms(lib_grad(qh), **TRAIN_TIMING) - lib_fwd_eager,
+        4 * act + act32 + 2 * stats, 3 * 2 * d * pairs,
+        max(worst["dq"], worst_small["dq"]))
+    # the split dK/dV sweep: S, dP, dV and dK
+    row("flash_attention_bwd_dkdv", "flash_attention_bwd.cu", 569,
+        lambda: flash_attention_bwd_dkdv(*args, **kw),
+        lambda: flash_attention_bwd_dkdv_plain(*args, **kw),
+        eager_ms(lib_grad(kh, vh), **TRAIN_TIMING) - lib_fwd_eager,
+        4 * act + 2 * act32 + 2 * stats, 4 * 2 * d * pairs,
+        max(worst["dkdv"], worst_small["dkdv"]))
+    del q, k, v, do, out, lse, delta, args, qh, kh, vh
+    log(f"head-major kernels at the 2.7B shape: max|kernel - plain| "
+        f"{worst}")
+    for r in rows.values():
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}) at {r['shape']}")
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 26: gradients of the 2.7B, kernels vs the materialised scores
+# ---------------------------------------------------------------------------
+
+def gpt_2p7b_args():
+    """``apex_tpu_torch.examples.gpt_train``'s arguments for the 2.7B
+    step: the example's defaults (batch 8, lr 3e-4, tree Adam, full
+    remat) at ``--preset 2p7b --steps 5``."""
+    from apex_tpu_torch.examples import gpt_train
+
+    return gpt_train.parse_args(["--preset", "2p7b", "--steps", "5"])
+
+
+def phase_2p7b_grads():
+    """Phase 26: one loss gradient of the 2.7B at batch 1, seq 1024, on
+    weights from seed 0, through the head-major kernels (bf16), the "xla"
+    attention in bf16 and the "xla" attention in fp32 (the reference),
+    held by :func:`_hold_grads` (the kernel path within 3x the bf16 "xla"
+    path's error)."""
+    import dataclasses
+
+    from apex_tpu_torch.examples import gpt_train
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import gpt
+
+    cfg = gpt_train.config(gpt_2p7b_args())
+    params = gpt.init(cfg, torch.Generator("cuda").manual_seed(0))
+    tok = torch.as_tensor(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (1, cfg.seq_len)), device="cuda")
+    tgt = torch.roll(tok, -1, 1)
+    paths = {"kernel": dataclasses.replace(cfg, attn_impl="flash"),
+             "xla": dataclasses.replace(cfg, attn_impl="xla"),
+             "fp32": dataclasses.replace(cfg, attn_impl="xla",
+                                         compute_dtype=torch.float32)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = {}
+    for name, c in paths.items():
+        reset_launch_counts()
+        got[name] = _loss_grads(lambda p, c=c: gpt.loss(c, p, tok, tgt),
+                                params)
+        if name == "kernel":
+            counts = launch_counts()
+            check(counts["flash_attention"] == 2 * cfg.num_layers
+                  and counts["flash_attention_bsh"] == 0,
+                  f"2.7B grads: head-major forward launched "
+                  f"{counts['flash_attention']} times (expected "
+                  f"{2 * cfg.num_layers}: the remat replay), lane-packed "
+                  f"{counts['flash_attention_bsh']}")
+    del params
+    out = _hold_grads("grads at 2.7B, batch 1", got)
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the 2.7B step; phase 28: where its time goes
+# ---------------------------------------------------------------------------
+
+#: fused vs split head-major backward in the 2.7B step: the same
+#: gradients up to dQ's atomic summation order, so step 0's losses are
+#: equal (the forward has not seen a backward yet) and later ones carry
+#: bf16 training's rounding forward, as the GPT step's two optimizer
+#: layouts do (LAYOUT_LOSS_BAND)
+SPLIT_LOSS_BAND = LAYOUT_LOSS_BAND
+#: the head-major vs lane-packed 355M step: other kernels for the same
+#: attention, so every loss carries their bf16 rounding
+BHSD_LOSS_BAND = LAYOUT_LOSS_BAND
+
+
+def _run_2p7b(trainer, steps: int, what: str, *, profile: bool = False):
+    """``steps`` steps of the example's ``train`` from seed 0's state,
+    launch counts zeroed just before and read just after, peak memory from
+    a reset; with ``profile`` also phase 28's profiler window over 2 more
+    steps. Returns the metrics."""
+    from apex_tpu_torch.examples import gpt_train
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # the initial state goes straight in: a reference kept here would pin
+    # its 10.6 GB of params through every step
+    res = gpt_train.train(
+        trainer, steps, trainer.init_fn(
+            torch.Generator("cuda").manual_seed(0)), log=None)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    state = res.pop("state")
+    tokens = trainer.tokens.numel()
+    metrics = dict(
+        run=what, losses=res["losses"],
+        step_ms=[t * 1e3 for t in res["step_s"]],
+        median_step_ms=res["median_step_s"] * 1e3,
+        train_tokens_per_sec=res["tokens_per_sec"],
+        init_and_first_step_ms=(wall - sum(res["step_s"])) * 1e3,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        launches={k_: v_ for k_, v_ in counts.items() if v_},
+        launches_per_step={k_: v_ / steps for k_, v_ in counts.items()
+                           if v_}, tokens_per_step=tokens)
+    log(f"2.7B {what}: " + json.dumps(metrics))
+    check(all(np.isfinite(res["losses"])), f"2.7B {what}: non-finite loss")
+    prof = None
+    if profile:
+        prof = phase_train_profile(f"2.7B {what}", state, trainer.step_fn,
+                                   (trainer.tokens, trainer.targets))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, counts, prof
+
+
+def phase_2p7b_train():
+    """Phase 27 (and 28): ``apex_tpu_torch.examples.gpt_train --preset
+    2p7b``'s step — one warm-up and 5 timed steps (the example's
+    ``--steps 5``) with the fused backward, every loss finite and the
+    last below the first, and per step the head-major forward on every
+    layer twice (full remat replays it), 32 fused backwards and no
+    lane-packed launch; phase 28's profiler window over 2 more steps;
+    then 3 steps under ``APEX_TPU_FLASH_BWD=split`` (32 dQ and 32 dK/dV
+    launches a step, losses within SPLIT_LOSS_BAND of the fused run's).
+    Returns (fused metrics, split metrics)."""
+    import os
+
+    from apex_tpu_torch.examples import gpt_train
+
+    args = gpt_2p7b_args()
+    trainer = gpt_train.build(args)
+    L = trainer.cfg.num_layers
+    steps = 1 + args.steps
+    fused, counts, prof = _run_2p7b(trainer, steps, "fused", profile=True)
+    want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
+            "flash_attention_bsh": 0, "flash_attention_bsh_bwd": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"2.7B fused: {name} launched "
+              f"{counts[name]} times, expected {n}")
+    losses = fused["losses"]
+    check(abs(losses[0] - math.log(trainer.cfg.vocab_size)) < 1.0,
+          f"2.7B: first loss {losses[0]} is not near ln(vocab)")
+    check(losses[-1] < losses[0],
+          f"2.7B: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    if prof is not None:
+        busy = prof["device_busy_ms"] / prof["window_steps"]
+        cats = prof["device_ms_per_step_by_category"]
+        hm = cats.get("flash_fwd_hm", 0.0) + cats.get("flash_bwd_hm", 0.0)
+        log(f"2.7B profile: head-major kernels {hm:.2f} of {busy:.2f} device"
+            f" ms a step (share {hm / busy:.4f}), idle share "
+            f"{prof['device_idle_share']:.4f}")
+
+    os.environ["APEX_TPU_FLASH_BWD"] = "split"
+    try:
+        split, counts, _ = _run_2p7b(trainer, 3, "split")
+    finally:
+        del os.environ["APEX_TPU_FLASH_BWD"]
+    want = {"flash_attention": 2 * L * 3, "flash_attention_bwd": 0,
+            "flash_attention_bwd_dq": L * 3,
+            "flash_attention_bwd_dkdv": L * 3, "flash_attention_bsh": 0,
+            "flash_attention_bsh_bwd": 0}
+    for name, n in want.items():
+        check(counts[name] == n, f"2.7B split: {name} launched "
+              f"{counts[name]} times, expected {n}")
+    gap = max(abs(a - b_) for a, b_ in zip(split["losses"], losses))
+    log(f"2.7B: split vs fused max|loss diff| over 3 steps {gap:.3e} (band "
+        f"{SPLIT_LOSS_BAND}); step 0 {split['losses'][0]} vs {losses[0]}")
+    check(split["losses"][0] == losses[0],
+          "2.7B: step 0's loss differs between the fused and split runs")
+    check(gap <= SPLIT_LOSS_BAND, f"2.7B: split and fused losses differ by "
+          f"{gap}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fused, split
+
+
+def phase_bhsd_355m(tcfg, tok, tgt, tree):
+    """Phase 27's 355M comparison: phase 9's tree-layout step with
+    ``attn_layout="bhsd"`` (the head-major kernels), one warm-up and 3
+    timed steps, against phase 9's lane-packed run (``tree``) in the same
+    call: per step 24 head-major forwards (the policy saves their output)
+    and 24 fused backwards, no lane-packed launch, losses within
+    BHSD_LOSS_BAND of the lane-packed run's. Returns the metrics."""
+    import dataclasses
+
+    from apex_tpu_torch.amp import ScalerConfig
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import make_train_step
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = dataclasses.replace(tcfg, attn_layout="bhsd")
+    init_fn, step_fn = make_train_step(cfg, fused_adam(1e-4, layout="tree"),
+                                       ScalerConfig(enabled=False))
+    state = init_fn(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, m = step_fn(state, tok, tgt)
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = step_fn(state, tok, tgt)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    del state
+    torch.cuda.empty_cache()
+    L, n = cfg.num_layers, 4
+    metrics = dict(step_ms=wall / 3 * 1e3,
+                   train_tokens_per_sec=3 * tok.numel() / wall,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   losses=losses, lane_packed_step_ms=tree["step_ms"],
+                   ratio_to_lane_packed=(wall / 3 * 1e3) / tree["step_ms"])
+    log("355M bhsd tree step: " + json.dumps(metrics))
+    for name, want in (("flash_attention", L * n),
+                       ("flash_attention_bwd", L * n),
+                       ("flash_attention_bsh", 0),
+                       ("flash_attention_bsh_bwd", 0)):
+        check(counts[name] == want, f"355M bhsd: {name} launched "
+              f"{counts[name]} times, expected {want}")
+    gap = max(abs(a - b_) for a, b_ in zip(losses, tree["losses"]))
+    check(gap <= BHSD_LOSS_BAND,
+          f"355M bhsd: losses differ from the lane-packed run's by {gap}")
+    log(f"355M: head-major / lane-packed step {metrics['step_ms']:.2f} / "
+        f"{tree['step_ms']:.2f} ms = {metrics['ratio_to_lane_packed']:.4f}; "
+        f"max|loss diff| over {n} steps {gap:.3e} (band {BHSD_LOSS_BAND})")
+    reset_launch_counts()
+    return metrics
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -3547,7 +4074,7 @@ def main() -> int:
         t = time.perf_counter()
         bert16 = phase_bert_fp16(*batch)
         log(f"BERT fp16 phase {time.perf_counter() - t:.1f}s")
-        del batch, tok, tgt
+        del batch
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
@@ -3572,7 +4099,25 @@ def main() -> int:
               f"ResNet-50: flat and tree losses differ by {held}")
         check(r_flat["losses"][0] == r_tree["losses"][0],
               "ResNet-50: the first step's losses differ between layouts")
+        sgd_launches = r_flat["launches"]["sgd_flat"]
         log(f"ResNet phase {time.perf_counter() - t:.1f}s")
+        del r_flat, r_tree, images, labels
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the head-major flash attention: Megatron-GPT 2.7B (heads of 80)
+        t = time.perf_counter()
+        hm_rows = phase_hm_kernels()
+        log(f"head-major kernels phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        phase_2p7b_grads()
+        log(f"2.7B grads phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        fused_2p7b, split_2p7b = phase_2p7b_train()
+        log(f"2.7B train and profile phases {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        phase_bhsd_355m(tcfg, tok, tgt, tree)
+        log(f"355M bhsd phase {time.perf_counter() - t:.1f}s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -3604,8 +4149,16 @@ def main() -> int:
     rows.update(xent_rows)
     for kname, r in fp16_extra.items():
         rows[kname]["fp16"] = dict(r, launches=bert16["launches"][kname])
-    sgd_row["launches"] = r_flat["launches"]["sgd_flat"]
+    sgd_row["launches"] = sgd_launches
     rows["sgd_flat"] = sgd_row
+    # the head-major forward and fused backward from the 2.7B fused run,
+    # the split pair from its APEX_TPU_FLASH_BWD=split run
+    for name, run in (("flash_attention", fused_2p7b),
+                      ("flash_attention_bwd", fused_2p7b),
+                      ("flash_attention_bwd_dq", split_2p7b),
+                      ("flash_attention_bwd_dkdv", split_2p7b)):
+        hm_rows[name]["launches"] = run["launches"].get(name, 0)
+    rows.update(hm_rows)
     log(f"card: {card}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -238,7 +238,8 @@ def test_greedy_generate_token_identical_to_jax(mesh, lively_weights, eos):
 PORTED_FIELDS = {("ln_impl", "pallas"),    # the LayerNorm kernels' slice
                  ("kv_cache_dtype", "int8"),  # the quantized-cache slice
                  ("kv_cache_dtype", "fp8"),
-                 ("ce_impl", "fused")}    # the xentropy kernels' slice
+                 ("ce_impl", "fused"),    # the xentropy kernels' slice
+                 ("attn_layout", "bhsd")}  # the head-major flash slice
 
 
 @pytest.mark.parametrize("field,value", [

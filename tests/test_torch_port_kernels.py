@@ -191,6 +191,12 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     buf = torch.zeros(64)
     tk.sgd_flat([buf], [buf.clone()], [buf.clone()], lr=0.1, momentum=0.9,
                 dampening=0.0, weight_decay=0.0)
+    hq = torch.zeros(4, 8, 80, requires_grad=True)
+    out, lse = tk.flash_attention_fwd(hq, hq, hq, causal=True, n_rep=2)
+    torch.autograd.grad(out.sum(), hq)
+    delta = torch.zeros(4, 8)
+    tk.flash_attention_bwd_dq(hq, hq, hq, hq, lse, delta, causal=True)
+    tk.flash_attention_bwd_dkdv(hq, hq, hq, hq, lse, delta, causal=True)
     assert tk.launch_counts() == {"flash_attention_bsh": 0,
                                   "decode_write_column": 0,
                                   "decode_attention": 0,
@@ -211,7 +217,11 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "paged_attention_quant": 0,
                                   "xentropy_fwd": 0,
                                   "xentropy_bwd": 0,
-                                  "sgd_flat": 0}
+                                  "sgd_flat": 0,
+                                  "flash_attention": 0,
+                                  "flash_attention_bwd": 0,
+                                  "flash_attention_bwd_dq": 0,
+                                  "flash_attention_bwd_dkdv": 0}
     tk.write_column.launches = 3
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
@@ -263,4 +273,4 @@ def test_build_dir_is_content_addressed():
     assert {p.name for p in _build._sources()} == {
         "flash_attention_bsh.cu", "decode_attention.cu",
         "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
-        "xentropy.cu"}
+        "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu"}
