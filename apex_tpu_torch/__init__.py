@@ -6,8 +6,10 @@ continuous-batching :class:`~apex_tpu_torch.serving.Engine` and its
 :class:`~apex_tpu_torch.serving.Scheduler` (contiguous, paged,
 speculative and quantized KV caches), and single-device training of GPT
 (355M and Megatron-GPT 2.7B: ``apex_tpu_torch.examples.gpt_train``),
-BERT and ResNet with the fused optimizers and amp. Every Pallas kernel
-on those paths is a CUDA kernel written for ``sm_90a``
+BERT and ResNet with the fused optimizers and amp; and apex's L3 entry
+points (``multi_tensor.MultiTensorApply``, ``contrib.clip_grad_norm_``,
+the fused optimizers, ``transformer.functional.FusedScaleMaskSoftmax``).
+Every Pallas kernel is a CUDA kernel written for ``sm_90a``
 (``apex_tpu_torch/csrc``), built with ``nvcc`` at first use and bound
 with ``ctypes``, in ``apex_tpu_torch.kernels``:
 
@@ -16,8 +18,9 @@ with ``ctypes``, in ``apex_tpu_torch.kernels``:
   ``[b, heads, s, d]`` one,
 - ``decode_attention`` — the cache writes and the flash-decode reads,
   contiguous, paged and quantized,
-- ``layer_norm``, ``xentropy``, ``flat_ops`` — LayerNorm, the softmax
-  cross entropy and the multi-tensor optimizer sweeps.
+- ``layer_norm``, ``xentropy``, ``softmax``, ``flat_ops`` — LayerNorm,
+  the softmax cross entropy, the scaled masked softmax, and the
+  multi-tensor sweeps (the optimizers, scale, axpby, the L2 norm).
 
 Each kernel has a plain PyTorch twin in the same module; a wrapper takes
 it only for tensors on the CPU (the tests), and for CUDA tensors it

@@ -1,5 +1,5 @@
 // Multi-tensor sweeps over flat group buffers: Adam / AdamW, SGD with
-// momentum and the global L2 norm.
+// momentum, Adagrad, the global L2 norm, and amp's scale and axpby.
 //
 // Replaces: apex_tpu/kernels/flat_ops.py:adam_flat (kernel body
 // _adam_kernel), the one sweep over packed (param, grad, m, v) buffers
@@ -44,6 +44,31 @@
 // device. No atomics, and the grid depends on nothing but constants, so
 // the norm is the same bit for bit from run to run, and no step waits on
 // the host for it.
+//
+// Adagrad (replaces flat_ops.py:adagrad_flat, kernel body _adagrad_kernel,
+// apex's csrc/multi_tensor_adagrad.cu, which fused_adagrad(layout="flat")
+// runs once per dtype group per step): g' = g * gscale + wd * p, h += g'^2,
+// p -= lr * g' / (sqrt(h) + eps), in JAX's order of operations. Per
+// element it reads p, g, h and writes p, h: 20 bytes for fp32 params
+// against about 8 flops and a square root, so it is bound by memory (the
+// 355M's 354.9M-element group: 7.1 GB, 2.12 ms at 3.35 TB/s). The same
+// grid-stride sweep of 16-byte vectors as SGD's, with its four device
+// scalars, the no-op flag and the delta mode. No --use_fast_math: sqrtf
+// and the division stay IEEE.
+//
+// Scale and axpby (replace flat_ops.py:scale_flat and axpby_flat, kernel
+// bodies _scale_kernel and _axpby_kernel, apex's multi_tensor_scale and
+// multi_tensor_axpby): out = x * s, and out = a * x + b * y, into a new
+// buffer, with a found-inf flag. They read 4 (8) and write 4 bytes per
+// fp32 element against one (three) flops: bound by memory (8N and 12N
+// bytes, 0.85 and 1.27 ms for the 355M group). Scale flags a non-finite
+// INPUT, axpby a non-finite fp32 RESULT, taken before it is narrowed to
+// the output dtype: the JAX kernels' two rules. The products and the sum
+// are rounded one at a time (__fmul_rn, __fadd_rn), never contracted to
+// an FMA, so the result is bit for bit the plain version's. Each block
+// ORs its threads' findings (__syncthreads_or) and one thread stores 1 to
+// the caller's zeroed int32 flag, which the wrapper reads on the device:
+// no step waits on the host.
 #include "common.cuh"
 
 namespace apex_tpu_torch {
@@ -53,6 +78,13 @@ constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
 constexpr int kSms = 132;
 constexpr int kV = 4;  // elements per thread per iteration
+
+// the grid of a grid-stride sweep over n_vec 4-element vectors: one
+// thread a vector, capped at kBlocksPerSm blocks per SM
+inline int sweep_blocks(long long n_vec) {
+  const long long want = (n_vec + kThreads - 1) / kThreads;
+  return (int)(want < kSms * kBlocksPerSm ? want : kSms * kBlocksPerSm);
+}
 
 template <typename T> struct Pack4;
 template <> struct Pack4<float> {
@@ -131,10 +163,7 @@ cudaError_t launch(void* p, const void* g, void* m, void* v, void* delta,
                    int adam_w_mode, int grad_averaging,
                    cudaStream_t stream) {
   const long long n_vec = n / kV;
-  const long long want = (n_vec + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < kSms * kBlocksPerSm ? want
-                                                      : kSms * kBlocksPerSm);
-  adam_kernel<T><<<blocks, kThreads, 0, stream>>>(
+  adam_kernel<T><<<sweep_blocks(n_vec), kThreads, 0, stream>>>(
       static_cast<T*>(p), static_cast<const float*>(g),
       static_cast<float*>(m), static_cast<float*>(v),
       static_cast<float*>(delta), static_cast<const float*>(scalars),
@@ -187,15 +216,164 @@ cudaError_t launch_sgd(void* p, const void* g, void* m, void* delta,
                        const void* scalars, const void* noop, long long n,
                        int nesterov, cudaStream_t stream) {
   const long long n_vec = n / kV;
-  const long long want = (n_vec + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < kSms * kBlocksPerSm ? want
-                                                      : kSms * kBlocksPerSm);
-  sgd_kernel<T><<<blocks, kThreads, 0, stream>>>(
+  sgd_kernel<T><<<sweep_blocks(n_vec), kThreads, 0, stream>>>(
       static_cast<T*>(p), static_cast<const float*>(g),
       static_cast<float*>(m), static_cast<float*>(delta),
       static_cast<const float*>(scalars), static_cast<const int*>(noop),
       n_vec, nesterov);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Adagrad
+// ---------------------------------------------------------------------------
+
+// scalars: lr, eps, weight_decay, grad_scale -- the order of
+// _adagrad_kernel's s_ref
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+adagrad_kernel(T* __restrict__ p, const float* __restrict__ g,
+               float* __restrict__ h, float* __restrict__ delta,
+               const float* __restrict__ scalars, const int* __restrict__ noop,
+               long long n_vec) {
+  if (noop != nullptr && *noop != 0) return;
+  const float lr = scalars[0], eps = scalars[1];
+  const float wd = scalars[2], gscale = scalars[3];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    const long long o = i * kV;
+    float pv[kV], gv[kV], hv[kV], ov[kV];
+    Pack4<T>::load(p + o, pv);
+    Pack4<float>::load(g + o, gv);
+    Pack4<float>::load(h + o, hv);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      const float gr = gv[e] * gscale + wd * pv[e];
+      hv[e] = hv[e] + gr * gr;
+      const float upd = lr * gr / (sqrtf(hv[e]) + eps);
+      ov[e] = delta != nullptr ? -upd : pv[e] - upd;
+    }
+    if (delta != nullptr) {
+      Pack4<float>::store(delta + o, ov);
+    } else {
+      Pack4<T>::store(p + o, ov);
+    }
+    Pack4<float>::store(h + o, hv);
+  }
+}
+
+template <typename T>
+cudaError_t launch_adagrad(void* p, const void* g, void* h, void* delta,
+                           const void* scalars, const void* noop,
+                           long long n, cudaStream_t stream) {
+  const long long n_vec = n / kV;
+  adagrad_kernel<T><<<sweep_blocks(n_vec), kThreads, 0, stream>>>(
+      static_cast<T*>(p), static_cast<const float*>(g),
+      static_cast<float*>(h), static_cast<float*>(delta),
+      static_cast<const float*>(scalars), static_cast<const int*>(noop),
+      n_vec);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// scale and axpby, with the found-inf flag
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void raise_flag(bool bad, int* flag) {
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
+}
+
+// out = x * s; the flag is raised by a non-finite input
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scale_kernel(const T* __restrict__ x, T* __restrict__ out,
+             const float* __restrict__ scalar, int* __restrict__ flag,
+             long long n_vec) {
+  const float s = *scalar;
+  bool bad = false;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    const long long o = i * kV;
+    float xv[kV], ov[kV];
+    Pack4<T>::load(x + o, xv);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      bad |= !isfinite(xv[e]);
+      ov[e] = __fmul_rn(xv[e], s);
+    }
+    Pack4<T>::store(out + o, ov);
+  }
+  raise_flag(bad, flag);
+}
+
+// out = a * x + b * y in fp32, stored in TO; the flag is raised by a
+// non-finite fp32 result, before the narrowing
+template <typename TX, typename TY, typename TO>
+__global__ void __launch_bounds__(kThreads)
+axpby_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
+             TO* __restrict__ out, const float* __restrict__ scalars,
+             int* __restrict__ flag, long long n_vec) {
+  const float a = scalars[0], b = scalars[1];
+  bool bad = false;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    const long long o = i * kV;
+    float xv[kV], yv[kV], ov[kV];
+    Pack4<TX>::load(x + o, xv);
+    Pack4<TY>::load(y + o, yv);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      ov[e] = __fadd_rn(__fmul_rn(a, xv[e]), __fmul_rn(b, yv[e]));
+      bad |= !isfinite(ov[e]);
+    }
+    Pack4<TO>::store(out + o, ov);
+  }
+  raise_flag(bad, flag);
+}
+
+template <typename TX, typename TY, typename TO>
+cudaError_t launch_axpby(const void* x, const void* y, void* out,
+                         const void* scalars, void* flag, long long n,
+                         cudaStream_t stream) {
+  const long long n_vec = n / kV;
+  axpby_kernel<TX, TY, TO><<<sweep_blocks(n_vec), kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TY*>(y),
+      static_cast<TO*>(out), static_cast<const float*>(scalars),
+      static_cast<int*>(flag), n_vec);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TY>
+cudaError_t axpby_out(int out_dtype, const void* x, const void* y, void* out,
+                      const void* scalars, void* flag, long long n,
+                      cudaStream_t st) {
+  switch (out_dtype) {
+    case kFloat32:
+      return launch_axpby<TX, TY, float>(x, y, out, scalars, flag, n, st);
+    case kBFloat16:
+      return launch_axpby<TX, TY, __nv_bfloat16>(x, y, out, scalars, flag, n,
+                                                 st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TX>
+cudaError_t axpby_y(int y_dtype, int out_dtype, const void* x, const void* y,
+                    void* out, const void* scalars, void* flag, long long n,
+                    cudaStream_t st) {
+  switch (y_dtype) {
+    case kFloat32:
+      return axpby_out<TX, float>(out_dtype, x, y, out, scalars, flag, n, st);
+    case kBFloat16:
+      return axpby_out<TX, __nv_bfloat16>(out_dtype, x, y, out, scalars, flag,
+                                          n, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -312,6 +490,79 @@ extern "C" int apex_tpu_torch_sgd_flat(
     case kBFloat16:
       return launch_sgd<__nv_bfloat16>(p, g, m, delta, scalars, noop, n,
                                        nesterov, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// p [n] in `dtype`, g/h [n] fp32, scalars fp32 [4] on the device (lr, eps,
+// weight_decay, grad_scale), noop int32 [1] on the device or null; delta
+// fp32 [n] or null, as for apex_tpu_torch_adam_flat: with delta the update
+// -lr*g'/(sqrt(h)+eps) goes there and p is only read. n must be a positive
+// multiple of 4 and every pointer 16-byte aligned.
+extern "C" int apex_tpu_torch_adagrad_flat(
+    void* p, const void* g, void* h, void* delta, const void* scalars,
+    const void* noop, long long n, int dtype, void* stream) {
+  if (n <= 0 || n % kV) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch_adagrad<float>(p, g, h, delta, scalars, noop, n, st);
+    case kBFloat16:
+      return launch_adagrad<__nv_bfloat16>(p, g, h, delta, scalars, noop, n,
+                                           st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// out [n] = x [n] * scalar[0], both in `dtype`; scalar fp32 [1] and flag
+// int32 [1] on the device. Stores 1 to *flag when an input is not finite
+// and leaves it as it was otherwise (the caller zeroes it). n must be a
+// positive multiple of 4 and every pointer 16-byte aligned.
+extern "C" int apex_tpu_torch_scale_flat(const void* x, void* out,
+                                         const void* scalar, void* flag,
+                                         long long n, int dtype,
+                                         void* stream) {
+  if (n <= 0 || n % kV) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n_vec = n / kV;
+  switch (dtype) {
+    case kFloat32:
+      scale_kernel<float><<<sweep_blocks(n_vec), kThreads, 0, st>>>(
+          static_cast<const float*>(x), static_cast<float*>(out),
+          static_cast<const float*>(scalar), static_cast<int*>(flag), n_vec);
+      break;
+    case kBFloat16:
+      scale_kernel<__nv_bfloat16><<<sweep_blocks(n_vec), kThreads, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<__nv_bfloat16*>(out), static_cast<const float*>(scalar),
+          static_cast<int*>(flag), n_vec);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// out [n] (out_dtype) = scalars[0] * x [n] (x_dtype) + scalars[1] * y [n]
+// (y_dtype), in fp32; scalars fp32 [2] and flag int32 [1] on the device.
+// Stores 1 to *flag when an fp32 result is not finite. n must be a
+// positive multiple of 4 and every pointer 16-byte aligned.
+extern "C" int apex_tpu_torch_axpby_flat(const void* x, const void* y,
+                                         void* out, const void* scalars,
+                                         void* flag, long long n, int x_dtype,
+                                         int y_dtype, int out_dtype,
+                                         void* stream) {
+  if (n <= 0 || n % kV) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (x_dtype) {
+    case kFloat32:
+      return axpby_y<float>(y_dtype, out_dtype, x, y, out, scalars, flag, n,
+                            st);
+    case kBFloat16:
+      return axpby_y<__nv_bfloat16>(y_dtype, out_dtype, x, y, out, scalars,
+                                    flag, n, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -68,10 +68,16 @@ from apex_tpu_torch.kernels.flash_attention import (
     mha,
 )
 from apex_tpu_torch.kernels.flat_ops import (
+    adagrad_flat,
+    adagrad_flat_plain,
     adam_flat,
     adam_flat_plain,
+    axpby_flat,
+    axpby_flat_plain,
     l2norm_flat,
     l2norm_flat_plain,
+    scale_flat,
+    scale_flat_plain,
     sgd_flat,
     sgd_flat_plain,
 )
@@ -82,6 +88,15 @@ from apex_tpu_torch.kernels.layer_norm import (
     layer_norm_fwd,
     layer_norm_fwd_plain,
     rms_norm,
+)
+from apex_tpu_torch.kernels.softmax import (
+    generic_scaled_masked_softmax,
+    scaled_masked_softmax,
+    scaled_upper_triang_masked_softmax,
+    softmax_bwd,
+    softmax_bwd_plain,
+    softmax_fwd,
+    softmax_fwd_plain,
 )
 from apex_tpu_torch.kernels.xentropy import (
     softmax_cross_entropy,
@@ -118,6 +133,11 @@ KERNEL_WRAPPERS = {
     "flash_attention_bwd": flash_attention_bwd,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
+    "scale_flat": scale_flat,
+    "axpby_flat": axpby_flat,
+    "adagrad_flat": adagrad_flat,
+    "softmax_fwd": softmax_fwd,
+    "softmax_bwd": softmax_bwd,
 }
 
 
@@ -133,12 +153,16 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNEL_WRAPPERS",
+    "adagrad_flat",
+    "adagrad_flat_plain",
     "adam_flat",
     "adam_flat_plain",
     "attend_cache",
     "attend_cache_plain",
     "attend_cache_quant",
     "attend_cache_quant_plain",
+    "axpby_flat",
+    "axpby_flat_plain",
     "cache_write_columns",
     "cache_write_columns_plain",
     "cache_write_columns_quant",
@@ -162,6 +186,7 @@ __all__ = [
     "flash_attention_fwd_plain",
     "flash_attention_with_lse",
     "flash_bsh_eligible",
+    "generic_scaled_masked_softmax",
     "l2norm_flat",
     "l2norm_flat_plain",
     "launch_counts",
@@ -186,9 +211,17 @@ __all__ = [
     "quantize_kv_rows",
     "reset_launch_counts",
     "rms_norm",
+    "scale_flat",
+    "scale_flat_plain",
+    "scaled_masked_softmax",
+    "scaled_upper_triang_masked_softmax",
     "sgd_flat",
     "sgd_flat_plain",
+    "softmax_bwd",
+    "softmax_bwd_plain",
     "softmax_cross_entropy",
+    "softmax_fwd",
+    "softmax_fwd_plain",
     "write_column",
     "write_column_plain",
     "write_column_quant",

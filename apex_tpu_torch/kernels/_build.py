@@ -81,6 +81,26 @@ _SIGNATURES = {
     "apex_tpu_torch_sgd_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_longlong, _c_int, _c_int, _c_void_p],
+    # p, g, h, delta, scalars, noop, n, p's dtype, stream
+    "apex_tpu_torch_adagrad_flat": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_longlong, _c_int, _c_void_p],
+    # x, out, scalar, flag, n, dtype, stream
+    "apex_tpu_torch_scale_flat": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int,
+        _c_void_p],
+    # x, y, out, scalars, flag, n, x's, y's and out's dtypes, stream
+    "apex_tpu_torch_axpby_flat": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_longlong,
+        _c_int, _c_int, _c_int, _c_void_p],
+    # x, mask, y, rows, sq, sk, mask_ratio, scale, causal, dtype, stream
+    "apex_tpu_torch_softmax_fwd": [
+        _c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int, _c_int, _c_int,
+        _c_float, _c_int, _c_int, _c_void_p],
+    # y, dy, dx, rows, sk, scale, dtype, stream
+    "apex_tpu_torch_softmax_bwd": [
+        _c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int, _c_float,
+        _c_int, _c_void_p],
     "apex_tpu_torch_l2norm_blocks": [],
     "apex_tpu_torch_l2norm_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,

@@ -1,5 +1,5 @@
 """Flat-buffer multi-tensor kernels (the ``amp_C`` equivalent): Adam, SGD
-with momentum and the global L2 norm.
+with momentum, Adagrad, the global L2 norm, and amp's scale and axpby.
 
 Port of ``apex_tpu/kernels/flat_ops.py:adam_flat`` (kernel body
 ``_adam_kernel``), apex's ``multi_tensor_adam``: one sweep per dtype
@@ -26,11 +26,21 @@ Differences of idiom from the JAX functions:
 - ``l2norm_flat`` returns the norm as a 0-d fp32 tensor on the
   buffers' device, so no step waits on the host for it.
 
-``sgd_flat`` (kernel body ``_sgd_kernel``, ``multi_tensor_sgd``) follows
+``sgd_flat`` (kernel body ``_sgd_kernel``, ``multi_tensor_sgd``) and
+``adagrad_flat`` (``_adagrad_kernel``, ``multi_tensor_adagrad``) follow
 Adam's contract: in place, or deltas with ``out_is_delta``, device
-scalars, the ``skip`` no-op flag; its plain twin is
-:func:`sgd_flat_plain`. The other flat sweeps (scale, axpby, adagrad)
-come with later slices.
+scalars, the ``skip`` no-op flag; their plain twins are
+:func:`sgd_flat_plain` and :func:`adagrad_flat_plain`.
+
+``scale_flat`` (``_scale_kernel``, ``multi_tensor_scale``) and
+``axpby_flat`` (``_axpby_kernel``, ``multi_tensor_axpby``) keep the JAX
+functions' contract: they return new buffers and a found-inf flag,
+``(outs, found_inf)``. ``found_inf`` is a bool 0-d tensor on the
+buffers' device (no host sync): scale raises it for a non-finite INPUT,
+axpby for a non-finite fp32 RESULT taken before it is narrowed to the
+output dtype, so in neither does an fp16 output that overflows in the
+narrowing raise it. Their plain twins are :func:`scale_flat_plain` and
+:func:`axpby_flat_plain`.
 """
 
 from __future__ import annotations
@@ -51,6 +61,20 @@ def device_scalar(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32).reshape(())
     return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def _check_multiple(n: int, what: str) -> None:
+    if n % 4:
+        raise ValueError(f"{what} kernel: buffer size {n} is not a multiple "
+                         f"of 4 (pack pads to 65536)")
+
+
+def _widen(b: torch.Tensor) -> torch.Tensor:
+    return b.float() if b.dtype == torch.float16 else b
+
+
+def _found_inf(bad: List[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(bad).any()
 
 
 def adam_scalars(lr, b1, b2, eps, weight_decay, bias_correction1,
@@ -147,9 +171,7 @@ def adam_flat(p_bufs: Sequence[torch.Tensor], g_bufs: Sequence[torch.Tensor],
         _build.require(p, "p", (n,), p.dtype)
         for name, t in (("g", g), ("m", m), ("v", v)):
             _build.require(t, name, (n,), torch.float32)
-        if n % 4:
-            raise ValueError(f"adam_flat kernel: buffer size {n} is not a "
-                             f"multiple of 4 (pack pads to 65536)")
+        _check_multiple(n, "adam_flat")
         delta = None
         if out_is_delta:
             # a skipped sweep writes nothing, and its update is zero
@@ -234,7 +256,7 @@ def sgd_flat(p_bufs: Sequence[torch.Tensor], g_bufs: Sequence[torch.Tensor],
         raise ValueError("p/g/m buffer lists differ in length")
     if not p_bufs:
         return [], []
-    wide = [p.float() if p.dtype == torch.float16 else p for p in p_bufs]
+    wide = [_widen(p) for p in p_bufs]
     g_bufs = [g if g.dtype == torch.float32 else g.float() for g in g_bufs]
     dev = wide[0].device
     scalars = sgd_scalars(lr, momentum, dampening, weight_decay, grad_scale,
@@ -255,9 +277,7 @@ def sgd_flat(p_bufs: Sequence[torch.Tensor], g_bufs: Sequence[torch.Tensor],
             _build.require(p, "p", (n,), p.dtype)
             _build.require(g, "g", (n,), torch.float32)
             _build.require(m, "m", (n,), torch.float32)
-            if n % 4:
-                raise ValueError(f"sgd_flat kernel: buffer size {n} is not "
-                                 f"a multiple of 4 (pack pads to 65536)")
+            _check_multiple(n, "sgd_flat")
             delta = None
             if out_is_delta:
                 alloc = torch.empty if skip is None else torch.zeros
@@ -282,6 +302,232 @@ def sgd_flat(p_bufs: Sequence[torch.Tensor], g_bufs: Sequence[torch.Tensor],
 sgd_flat.launches = 0
 
 
+def adagrad_scalars(lr, eps, weight_decay, grad_scale, device
+                    ) -> torch.Tensor:
+    """The four fp32 scalars of ``_adagrad_kernel``'s ``s_ref``, in its
+    order, as one device tensor (built on the device, no host sync)."""
+    return torch.stack([device_scalar(x, device)
+                        for x in (lr, eps, weight_decay, grad_scale)])
+
+
+def _adagrad_math(p, g, h, s, out_is_delta: bool):
+    """``_adagrad_kernel`` on whole buffers in fp32 → ``(out, h)``, in
+    its order of operations: ``(lr * g') / (sqrt(h) + eps)``."""
+    lr, eps, wd, gscale = s.unbind(0)
+    p32 = p.float()
+    gr = g.float() * gscale + wd * p32
+    h_new = h + gr * gr
+    upd = lr * gr / (torch.sqrt(h_new) + eps)
+    return (-upd if out_is_delta else p32 - upd), h_new
+
+
+def adagrad_flat_plain(p_bufs, g_bufs, h_bufs, scalars, *,
+                       out_is_delta: bool = False, skip=None):
+    """Plain PyTorch twin of the kernel, with its contract: h (and p,
+    unless ``out_is_delta``) are written in place; with ``out_is_delta``
+    the first result is new fp32 delta buffers. Where ``skip`` is True
+    nothing changes and the deltas are zero."""
+    outs = []
+    for p, g, h in zip(p_bufs, g_bufs, h_bufs):
+        new_p, new_h = _adagrad_math(p, g, h, scalars, out_is_delta)
+        if skip is not None:
+            keep = torch.zeros_like(new_p) if out_is_delta else p.float()
+            new_p = torch.where(skip, keep, new_p)
+            new_h = torch.where(skip, h, new_h)
+        if out_is_delta:
+            outs.append(new_p)
+        else:
+            p.copy_(new_p)
+            outs.append(p)
+        h.copy_(new_h)
+    return outs, list(h_bufs)
+
+
+def adagrad_flat(p_bufs: Sequence[torch.Tensor],
+                 g_bufs: Sequence[torch.Tensor],
+                 h_bufs: Sequence[torch.Tensor], *, lr, eps, weight_decay,
+                 grad_scale=1.0, out_is_delta: bool = False,
+                 skip: Optional[torch.Tensor] = None):
+    """``amp_C.multi_tensor_adagrad``: one fused sweep per group →
+    ``(p_bufs, h_bufs)``, params and the sum of squares updated in place;
+    with ``out_is_delta`` the params are only read and the first result
+    is one new fp32 buffer per group holding ``-upd``.
+
+    Per element: ``g' = g * grad_scale + weight_decay * p``, ``h += g'^2``,
+    ``upd = lr * g' / (sqrt(h) + eps)``, ``p -= upd``. Params are fp32 or
+    bf16 (float16 is widened to fp32 for the sweep and written back);
+    grads any float type (taken as fp32), h fp32; every buffer 1-D and
+    padded (``multi_tensor.pack``). CUDA buffers launch the kernel once
+    per group (counted in ``adagrad_flat.launches``); CPU buffers run the
+    plain version. ``skip`` is ``adam_flat``'s."""
+    if not len(p_bufs) == len(g_bufs) == len(h_bufs):
+        raise ValueError("p/g/h buffer lists differ in length")
+    if not p_bufs:
+        return [], []
+    wide = [_widen(p) for p in p_bufs]
+    g_bufs = [g if g.dtype == torch.float32 else g.float() for g in g_bufs]
+    dev = wide[0].device
+    scalars = adagrad_scalars(lr, eps, weight_decay, grad_scale, dev)
+    if skip is not None:
+        skip = torch.as_tensor(skip, device=dev).reshape(()).bool()
+    if not _build.on_cuda(*wide, *g_bufs, *h_bufs, scalars):
+        outs, h_out = adagrad_flat_plain(wide, g_bufs, h_bufs, scalars,
+                                         out_is_delta=out_is_delta,
+                                         skip=skip)
+    else:
+        noop = None if skip is None else skip.to(torch.int32).reshape(1)
+        lib = _build.library()
+        outs = []
+        for p, g, h in zip(wide, g_bufs, h_bufs):
+            n = p.numel()
+            code = _build.dtype_code(p, "adagrad_flat param")
+            _build.require(p, "p", (n,), p.dtype)
+            _build.require(g, "g", (n,), torch.float32)
+            _build.require(h, "h", (n,), torch.float32)
+            _check_multiple(n, "adagrad_flat")
+            delta = None
+            if out_is_delta:
+                alloc = torch.empty if skip is None else torch.zeros
+                delta = alloc(n, dtype=torch.float32, device=dev)
+            rc = lib.apex_tpu_torch_adagrad_flat(
+                p.data_ptr(), g.data_ptr(), h.data_ptr(),
+                None if delta is None else delta.data_ptr(),
+                scalars.data_ptr(), None if noop is None else noop.data_ptr(),
+                n, code, _build.stream())
+            _build.check(rc, "adagrad_flat")
+            adagrad_flat.launches += 1
+            outs.append(p if delta is None else delta)
+        h_out = list(h_bufs)
+    if not out_is_delta:          # a widened float16 group goes back
+        for p, w in zip(p_bufs, wide):
+            if w is not p:
+                p.copy_(w)
+        outs = list(p_bufs)
+    return outs, h_out
+
+
+adagrad_flat.launches = 0
+
+
+def scale_flat_plain(bufs: Sequence[torch.Tensor], scalar: torch.Tensor):
+    """Plain PyTorch twin of the kernel: each buffer times the fp32 0-d
+    ``scalar`` in fp32, in the buffer's dtype, and whether any input is
+    not finite → ``(outs, found_inf)``."""
+    outs, bad = [], []
+    for b in bufs:
+        x = b.float()
+        outs.append((x * scalar).to(b.dtype))
+        bad.append(~torch.isfinite(x).all())
+    return outs, _found_inf(bad)
+
+
+def scale_flat(bufs: Sequence[torch.Tensor], scale):
+    """``amp_C.multi_tensor_scale``: ``(outs, found_inf)``, each out a new
+    buffer ``x * scale`` in x's dtype, ``found_inf`` a bool 0-d device
+    tensor, True when any input element is not finite — the unscale with
+    overflow check of the dynamic loss scaler. ``scale`` is a number or a
+    0-d tensor. Buffers are 1-D, fp32 or bf16 (float16 is widened to fp32
+    and the result narrowed back, as the JAX function does). CUDA buffers
+    launch the kernel once per buffer (counted in
+    ``scale_flat.launches``); CPU buffers run the plain version."""
+    want = [b.dtype for b in bufs]
+    wide = [_widen(b) for b in bufs]
+    if not wide:
+        raise ValueError("scale_flat needs at least one buffer")
+    dev = wide[0].device
+    s = device_scalar(scale, dev)
+    if not _build.on_cuda(*wide, s):
+        outs, found = scale_flat_plain(wide, s)
+    else:
+        lib = _build.library()
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        outs = []
+        for i, x in enumerate(wide):
+            n = x.numel()
+            code = _build.dtype_code(x, "scale_flat buffer")
+            _build.require(x, f"buffer {i}", (n,), x.dtype)
+            _check_multiple(n, "scale_flat")
+            out = torch.empty_like(x)
+            rc = lib.apex_tpu_torch_scale_flat(
+                x.data_ptr(), out.data_ptr(), s.data_ptr(), flag.data_ptr(),
+                n, code, _build.stream())
+            _build.check(rc, "scale_flat")
+            scale_flat.launches += 1
+            outs.append(out)
+        found = flag[0] != 0
+    return [o if o.dtype == w else o.to(w) for o, w in zip(outs, want)], found
+
+
+scale_flat.launches = 0
+
+
+def axpby_flat_plain(scalars: torch.Tensor, xbufs: Sequence[torch.Tensor],
+                     ybufs: Sequence[torch.Tensor],
+                     out_dtypes: Sequence[torch.dtype]):
+    """Plain PyTorch twin of the kernel: ``a * x + b * y`` in fp32 (each
+    product and the sum rounded on its own), stored in each group's out
+    dtype, and whether any fp32 result is not finite → ``(outs,
+    found_inf)``. ``scalars`` is the fp32 ``[a, b]`` device tensor."""
+    a, b = scalars.unbind(0)
+    outs, bad = [], []
+    for x, y, dt in zip(xbufs, ybufs, out_dtypes):
+        o = a * x.float() + b * y.float()
+        bad.append(~torch.isfinite(o).all())
+        outs.append(o.to(dt))
+    return outs, _found_inf(bad)
+
+
+def axpby_flat(a, xbufs: Sequence[torch.Tensor], b,
+               ybufs: Sequence[torch.Tensor], out_dtype=None):
+    """``amp_C.multi_tensor_axpby``: ``(outs, found_inf)``, each out a new
+    buffer ``a * x + b * y`` computed in fp32 and stored in ``out_dtype``
+    (default: x's dtype), ``found_inf`` a bool 0-d device tensor, True
+    when any fp32 result is not finite (taken before the narrowing) — the
+    master-grad accumulation of apex's ``unscale_with_stashed``. ``a``
+    and ``b`` are numbers or 0-d tensors. x and y are 1-D, fp32 or bf16
+    each (float16 is widened); a float16 output is computed in fp32 and
+    narrowed, as the JAX function does. CUDA buffers launch the kernel
+    once per pair (counted in ``axpby_flat.launches``); CPU buffers run
+    the plain version."""
+    if len(xbufs) != len(ybufs):
+        raise ValueError("x/y buffer lists differ in length")
+    if not xbufs:
+        raise ValueError("axpby_flat needs at least one buffer pair")
+    want = [out_dtype or x.dtype for x in xbufs]
+    kernel_dt = [torch.float32 if w == torch.float16 else w for w in want]
+    xw = [_widen(x) for x in xbufs]
+    yw = [_widen(y) for y in ybufs]
+    dev = xw[0].device
+    scalars = torch.stack([device_scalar(a, dev), device_scalar(b, dev)])
+    if not _build.on_cuda(*xw, *yw, scalars):
+        outs, found = axpby_flat_plain(scalars, xw, yw, kernel_dt)
+    else:
+        lib = _build.library()
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        outs = []
+        for i, (x, y, dt) in enumerate(zip(xw, yw, kernel_dt)):
+            n = x.numel()
+            out = torch.empty(n, dtype=dt, device=dev)
+            codes = (_build.dtype_code(x, "axpby_flat x"),
+                     _build.dtype_code(y, "axpby_flat y"),
+                     _build.dtype_code(out, "axpby_flat out"))
+            _build.require(x, f"x {i}", (n,), x.dtype)
+            _build.require(y, f"y {i}", (n,), y.dtype)
+            _check_multiple(n, "axpby_flat")
+            rc = lib.apex_tpu_torch_axpby_flat(
+                x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                scalars.data_ptr(), flag.data_ptr(), n, *codes,
+                _build.stream())
+            _build.check(rc, "axpby_flat")
+            axpby_flat.launches += 1
+            outs.append(out)
+        found = flag[0] != 0
+    return [o if o.dtype == w else o.to(w) for o, w in zip(outs, want)], found
+
+
+axpby_flat.launches = 0
+
+
 def l2norm_flat_plain(bufs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: each buffer's fp32 sum of
     squares, added in list order, then the square root."""
@@ -299,7 +545,7 @@ def l2norm_flat(bufs: Sequence[torch.Tensor]) -> torch.Tensor:
     function does). CUDA buffers launch the two-pass kernel once per call
     (counted in ``l2norm_flat.launches``); CPU buffers run the plain
     version."""
-    bufs = [b.float() if b.dtype == torch.float16 else b for b in bufs]
+    bufs = [_widen(b) for b in bufs]
     if not bufs:
         raise ValueError("l2norm_flat needs at least one buffer")
     if not _build.on_cuda(*bufs):
@@ -327,6 +573,9 @@ def l2norm_flat(bufs: Sequence[torch.Tensor]) -> torch.Tensor:
 
 l2norm_flat.launches = 0
 
-__all__: List[str] = ["adam_flat", "adam_flat_plain", "adam_scalars",
+__all__: List[str] = ["adagrad_flat", "adagrad_flat_plain",
+                      "adagrad_scalars", "adam_flat", "adam_flat_plain",
+                      "adam_scalars", "axpby_flat", "axpby_flat_plain",
                       "device_scalar", "l2norm_flat", "l2norm_flat_plain",
-                      "sgd_flat", "sgd_flat_plain", "sgd_scalars"]
+                      "scale_flat", "scale_flat_plain", "sgd_flat",
+                      "sgd_flat_plain", "sgd_scalars"]

@@ -38,12 +38,16 @@ from apex_tpu_torch.amp import update as scaler_update
 from apex_tpu_torch.amp import value_and_scaled_grad
 from apex_tpu_torch.models import gpt
 from apex_tpu_torch.optimizers import (
+    FusedAdagradState,
     FusedAdamState,
     FusedLAMBState,
+    FusedNovoGradState,
     FusedOptimizer,
     FusedSGDState,
+    TreeAdagradState,
     TreeAdamState,
     TreeLAMBState,
+    TreeNovoGradState,
     TreeSGDState,
 )
 
@@ -245,7 +249,8 @@ def _to_numpy(t):
 #: params); the fields are the JAX type's, in its order
 _OPT_STATES = {cls.__name__: cls for cls in (
     FusedAdamState, TreeAdamState, FusedLAMBState, TreeLAMBState,
-    FusedSGDState, TreeSGDState)}
+    FusedSGDState, TreeSGDState, FusedAdagradState, TreeAdagradState,
+    FusedNovoGradState, TreeNovoGradState)}
 
 
 def train_state_from_numpy(state, *, device: Optional[
@@ -253,8 +258,8 @@ def train_state_from_numpy(state, *, device: Optional[
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) → the port's, on ``device`` (None → CUDA). Fields are read
     by name: ``step``, ``params`` (any tree of dicts and lists: GPT's,
-    BERT's, ResNet's, in the JAX layouts), ``opt_state`` (an Adam, LAMB
-    or SGD state, flat or tree), ``scaler`` (a ``ScalerState``) and
+    BERT's, ResNet's, in the JAX layouts), ``opt_state`` (an Adam, LAMB,
+    SGD, Adagrad or NovoGrad state, flat or tree), ``scaler`` (a ``ScalerState``) and
     ``extra`` (the non-trainable model state, e.g. BatchNorm's running
     statistics; () when there is none)."""
     dev = resolve_device(device)

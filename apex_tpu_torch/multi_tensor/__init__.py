@@ -1,15 +1,20 @@
-"""Flat per-dtype buffers for multi-tensor ops (``apex_tpu.multi_tensor``,
-packing only; ``MultiTensorApply`` comes with a later slice)."""
+"""Flat per-dtype buffers for multi-tensor ops (``apex_tpu.multi_tensor``):
+the packing, apex_C's flatten/unflatten call shapes, and
+``MultiTensorApply``."""
 
 from apex_tpu_torch.multi_tensor.packing import (
     LANE,
     FlatLayout,
+    MultiTensorApply,
+    flatten_dense_tensors,
     layout_of,
     pack,
     pack_cast,
     pad_to,
+    unflatten_dense_tensors,
     unpack,
 )
 
-__all__ = ["FlatLayout", "LANE", "layout_of", "pack", "pack_cast", "pad_to",
-           "unpack"]
+__all__ = ["FlatLayout", "LANE", "MultiTensorApply", "flatten_dense_tensors",
+           "layout_of", "pack", "pack_cast", "pad_to",
+           "unflatten_dense_tensors", "unpack"]

@@ -1,7 +1,9 @@
 """Static tree → flat per-dtype buffer packing.
 
 Port of ``apex_tpu/multi_tensor/packing.py`` (``pad_to``, ``FlatLayout``,
-``pack``, ``unpack``, ``pack_cast``). The grouping, leaf order, offsets
+``pack``, ``unpack``, ``pack_cast``, ``flatten_dense_tensors``,
+``unflatten_dense_tensors`` and ``MultiTensorApply``). The grouping, leaf
+order, offsets
 and padding are the JAX package's: leaves in JAX's tree order (sorted
 dict keys), one buffer per dtype in order of first appearance, each
 padded to a multiple of ``512 * 128`` elements. So a flat optimizer
@@ -141,3 +143,92 @@ def pack_cast(tree: Any, layout: FlatLayout,
     device = leaves[0].device if leaves else None
     return [_concat(parts[g], layout.group_sizes[g], dtype, device)
             for g in range(layout.num_groups)]
+
+
+# -- list-of-tensors convenience, apex_C's call shapes ----------------------
+
+def flatten_dense_tensors(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Same-dtype tensors as one unpadded 1-D buffer (``apex_C.flatten``,
+    torch's ``_flatten_dense_tensors``)."""
+    tensors = [torch.as_tensor(t) for t in tensors]
+    if not tensors:
+        raise ValueError("need at least one tensor")
+    if any(t.dtype != tensors[0].dtype for t in tensors):
+        raise ValueError("flatten_dense_tensors requires a single dtype")
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def unflatten_dense_tensors(flat: torch.Tensor,
+                            like: Sequence[torch.Tensor]
+                            ) -> List[torch.Tensor]:
+    """Split a flat buffer back to the shapes of ``like``: views, no
+    copy (``apex_C.unflatten``)."""
+    out, offset = [], 0
+    for t in like:
+        size = math.prod(t.shape)
+        out.append(flat[offset:offset + size].view(tuple(t.shape)))
+        offset += size
+    return out
+
+
+class MultiTensorApply:
+    """apex's ``MultiTensorApply`` call shape: ``apply(op, noop_flag,
+    tensor_lists, *args)`` runs ``op`` across every tensor in one logical
+    sweep. Each list is packed into flat per-dtype buffers (the static
+    form of apex's runtime chunking: ``chunk_size`` is accepted and
+    unused), ``op`` receives one list of flat buffers per tensor list,
+    and its outputs are sliced back to tensor lists (views of the
+    buffers the op returned).
+
+    Overflow is **returned, not written**: apex mutates ``noop_flag`` in
+    place, so here ``noop_flag`` must be None and an op that detects
+    overflow returns ``(buffers, found_inf)``, whose flag is passed
+    through::
+
+        mta = MultiTensorApply()
+        [unscaled], found_inf = mta(scale_flat, None, [grads], 1 / scale)
+    """
+
+    def __init__(self, chunk_size: int = 2048 * 32):
+        self.chunk_size = chunk_size
+
+    def __call__(self, op, noop_flag, tensor_lists, *args):
+        if noop_flag is not None:
+            raise NotImplementedError(
+                "apex mutates the overflow buffer in place; here ops "
+                "return the flag instead — pass noop_flag=None and read "
+                "the op's returned found_inf (see MultiTensorApply "
+                "docstring)")
+        layouts, packed = [], []
+        for tl in tensor_lists:
+            bufs, layout = pack(list(tl))
+            packed.append(bufs)
+            layouts.append(layout)
+        outs = op(*packed, *args)
+        if outs is None or (isinstance(outs, (tuple, list))
+                            and len(outs) == 0):
+            return outs
+        # the flat sweeps return (buffer_list, found_inf): unpack the
+        # buffers, pass the flag through
+        aux = None
+        if (isinstance(outs, tuple) and len(outs) == 2
+                and isinstance(outs[0], (tuple, list))
+                and not isinstance(outs[1], (tuple, list))):
+            outs, aux = [list(outs[0])], outs[1]
+        # normalise to a list of buffer lists: op may return one buffer,
+        # one buffer list, or several buffer lists
+        elif not isinstance(outs, (tuple, list)):
+            outs = [[outs]]
+        elif not isinstance(outs[0], (tuple, list)):
+            outs = [list(outs)]
+        # outputs mirror the dtype grouping of the first input list
+        for o in outs:
+            if not isinstance(o, (tuple, list)) or len(o) != layouts[
+                    0].num_groups:
+                raise ValueError(
+                    f"op must return buffer list(s) matching the input's "
+                    f"{layouts[0].num_groups} dtype group(s) (got "
+                    f"{type(o).__name__}); use pack/unpack directly for "
+                    f"ops that regroup dtypes")
+        unpacked = [unpack(list(o), layouts[0]) for o in outs]
+        return (unpacked, aux) if aux is not None else unpacked

@@ -72,6 +72,13 @@ def bias_corrections(count: torch.Tensor, b1, b2, enabled: bool):
             1.0 - device_scalar(b2, dev) ** c)
 
 
+def next_count(count: torch.Tensor, skip) -> torch.Tensor:
+    """The step count after a step: ``count + 1``, or ``count`` where the
+    ``skip`` flag is True (a device select, no host sync)."""
+    new = count + 1
+    return new if skip is None else torch.where(skip, count, new)
+
+
 def zeros_like_tree(params):
     """fp32 zeros mirroring the param tree (tree-layout moment init)."""
     return _tree.tree_map(

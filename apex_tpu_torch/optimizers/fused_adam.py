@@ -31,6 +31,7 @@ from apex_tpu_torch.optimizers._base import (
     Schedule,
     bias_corrections,
     finish_tree_optimizer,
+    next_count,
     pack_pair,
     param_device,
     resolve_grad_scale,
@@ -51,11 +52,6 @@ class TreeAdamState(NamedTuple):
     count: torch.Tensor
     m: Any  # mirrors the param tree, fp32
     v: Any
-
-
-def _next_count(count, skip):
-    new = count + 1
-    return new if skip is None else torch.where(skip, count, new)
 
 
 def fused_adam(
@@ -101,7 +97,7 @@ def fused_adam(
             adam_w_mode=adam_w_mode, out_is_delta=out_is_delta, skip=skip)
         if out_is_delta:   # the JAX update's dtype: the params' own
             new_p = [d.to(p.dtype) for d, p in zip(new_p, pbufs)]
-        new_state = FusedAdamState(_next_count(state.count, skip),
+        new_state = FusedAdamState(next_count(state.count, skip),
                                    tuple(new_m), tuple(new_v))
         return mt.unpack(new_p, flat_layout), new_state
 
@@ -152,6 +148,6 @@ def _tree_adam(learning_rate, b1, b2, eps, weight_decay, adam_w_mode,
             return out, m_new, v_new
 
         out_t, m_t, v_t = tree_sweep(leaf, params, grads, state.m, state.v)
-        return out_t, TreeAdamState(_next_count(state.count, skip), m_t, v_t)
+        return out_t, TreeAdamState(next_count(state.count, skip), m_t, v_t)
 
     return finish_tree_optimizer(init, _sweep)

@@ -36,6 +36,7 @@ from apex_tpu_torch.optimizers._base import (
     bias_corrections,
     broadcast_per_leaf,
     finish_tree_optimizer,
+    next_count,
     pack_pair,
     param_device,
     per_leaf_norms,
@@ -45,7 +46,6 @@ from apex_tpu_torch.optimizers._base import (
     zeros_like_group_f32,
     zeros_like_tree,
 )
-from apex_tpu_torch.optimizers.fused_adam import _next_count
 
 
 class FusedLAMBState(NamedTuple):
@@ -143,7 +143,7 @@ def fused_lamb(
             if skip is not None:
                 out_bufs = [torch.where(skip, p, o)
                             for p, o in zip(pbufs, out_bufs)]
-        new_state = FusedLAMBState(_next_count(state.count, skip),
+        new_state = FusedLAMBState(next_count(state.count, skip),
                                    tuple(new_m), tuple(new_v))
         return mt.unpack(out_bufs, flat_layout), new_state
 
@@ -199,6 +199,6 @@ def _tree_lamb(learning_rate, b1, b2, eps, weight_decay, bias_correction,
             return out, m_new, v_new
 
         out_t, m_t, v_t = tree_sweep(leaf, params, grads, state.m, state.v)
-        return out_t, TreeLAMBState(_next_count(state.count, skip), m_t, v_t)
+        return out_t, TreeLAMBState(next_count(state.count, skip), m_t, v_t)
 
     return finish_tree_optimizer(init, _sweep, per_leaf_norms=True)

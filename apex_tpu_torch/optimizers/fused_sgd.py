@@ -31,6 +31,7 @@ from apex_tpu_torch.optimizers._base import (
     FusedOptimizer,
     Schedule,
     finish_tree_optimizer,
+    next_count,
     pack_pair,
     param_device,
     resolve_grad_scale,
@@ -49,11 +50,6 @@ class FusedSGDState(NamedTuple):
 class TreeSGDState(NamedTuple):
     count: torch.Tensor
     momentum: Any  # mirrors the param tree, fp32
-
-
-def _next_count(count, skip):
-    new = count + 1
-    return new if skip is None else torch.where(skip, count, new)
 
 
 def _damp_eff(count: torch.Tensor, dampening: float) -> torch.Tensor:
@@ -98,7 +94,7 @@ def fused_sgd(learning_rate: Schedule = 1e-3, momentum: float = 0.0,
             nesterov=nesterov, out_is_delta=out_is_delta, skip=skip)
         if out_is_delta:   # the JAX update's dtype: the params' own
             new_p = [d.to(p.dtype) for d, p in zip(new_p, pbufs)]
-        new_state = FusedSGDState(_next_count(state.count, skip),
+        new_state = FusedSGDState(next_count(state.count, skip),
                                   tuple(new_m))
         return mt.unpack(new_p, flat_layout), new_state
 
@@ -143,6 +139,6 @@ def _tree_sgd(learning_rate, momentum, dampening, weight_decay, nesterov):
             return out, m_new
 
         out_t, m_t = tree_sweep(leaf, params, grads, state.momentum)
-        return out_t, TreeSGDState(_next_count(state.count, skip), m_t)
+        return out_t, TreeSGDState(next_count(state.count, skip), m_t)
 
     return finish_tree_optimizer(init, _sweep)

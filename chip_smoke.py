@@ -202,6 +202,36 @@ tree Adam, batch 8):
     device ms per step by kernel category, the head-major kernels' share
     and the idle share.
 
+The apex L3 surface runs last (the entry points apex users call from
+their own loops, at the GPT-2 355M's widths):
+
+29. L3 flat kernels vs plain — ``scale_flat``, ``axpby_flat`` and
+    ``adagrad_flat`` on the 355M's padded fp32 group (354,877,440
+    elements) and small bf16 and fp16 groups: scale and axpby bit-equal
+    to plain, the found-inf flag raised by an inf input (scale) and an
+    fp32 overflow (axpby) and not by an fp16 narrowing overflow;
+    adagrad within ADAM_TOL, its delta mode, a skipped sweep, and one
+    step against ``torch.optim.Adagrad``; timed as in phase 3;
+30. softmax kernels vs plain — the forward and backward at the 355M's
+    unfused causal scores ([16, 16, 1024, 1024] bf16, scale 1/8) and
+    BERT-large's padded ones ([32, 16, 512, 512] fp16 through the public
+    API, fully masked rows included), and at odd shapes (sk 1000 and
+    2500, sq != sk with a mask, the legacy mask, fp32); then
+    ``FusedScaleMaskSoftmax`` fused (2 forward and 2 backward launches)
+    against unfused, causal and padding;
+31. the 355M trainer with FusedAdagrad — phase 9's step through
+    ``make_train_step(cfg, fused_adagrad(1e-2, layout=...))``, flat then
+    tree, 1 + 3 steps each: losses finite, the layouts within
+    LAYOUT_LOSS_BAND (step 0 equal), one ``adagrad_flat`` launch a step
+    (flat) or none (tree);
+32. the apex L3 loop — per step two micro-batches of 8, each gradient of
+    ``loss * 2^12`` by ``torch.autograd``, accumulated through
+    ``MultiTensorApply`` with ``scale_flat`` and ``axpby_flat``,
+    ``clip_grad_norm_(acc, 1.0)``, a flat FusedAdagrad step with the
+    overflow flag as ``skip``: 1 + 3 steps, losses falling, per step 2
+    scale, 1 axpby, 1 l2norm and 1 adagrad launches; then a step with an
+    inf gradient, skipped with params and h bit-equal.
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
@@ -212,10 +242,15 @@ backwards'),
 ``F.layer_norm``'s forward plus backward less its forward (the LayerNorm
 backward's), ``torch.optim.AdamW(fused=True)``'s step on one flat tensor
 (Adam's), ``F.cross_entropy``'s forward plus backward less its forward
-(the xentropy backward's) and ``torch.optim.SGD``'s fused (or foreach)
-step on one flat tensor (SGD's).
+(the xentropy backward's), ``torch.optim.SGD``'s fused (or foreach)
+step on one flat tensor (SGD's), amp's
+``torch._amp_foreach_non_finite_check_and_unscale_`` (scale's),
+``torch.add(y, x, alpha=a)`` (axpby's), ``torch.optim.Adagrad``'s
+foreach step (Adagrad's), and ``torch.softmax`` and
+``torch._softmax_backward_data`` on already scaled and masked scores
+(the softmax kernels'; they leave out the scale and the mask).
 
-The line before the last is ``{"kernels": [...]}`` (25 kernels); the
+The line before the last is ``{"kernels": [...]}`` (30 kernels); the
 last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
@@ -381,6 +416,24 @@ def write_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def close(a, b, tol) -> bool:
     return bool(torch.allclose(a.float(), b.float(), **tol))
+
+
+#: one ulp of each output dtype, relative
+ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
+       torch.float16: 2.0 ** -10}
+
+
+def ulp_close(got, want) -> bool:
+    """Within one ulp of ``want``'s dtype, plus 1e-6 of its largest entry:
+    both sides compute in fp32 (sums in another order) and round once.
+    Among subnormals one ulp is the fixed subnormal step (2^-24 in fp16),
+    not a share of the value."""
+    want32 = want.float()
+    fi = torch.finfo(want.dtype)
+    ulp = torch.clamp(ULP[want.dtype] * want32.abs(),
+                      min=fi.smallest_normal * fi.eps)
+    lim = ulp + 1e-6 * float(want32.abs().max())
+    return bool(((got.float() - want32).abs() <= lim).all())
 
 
 # ---------------------------------------------------------------------------
@@ -2228,7 +2281,8 @@ def phase_train_kernels(cfg):
 
     p, gr, m, v = group(4 * 65536, bf16)
     (pk, mk, vk), (pp, mp, vp) = adam_both(p, gr, m, v)
-    check(close(pk, pp, BF16_TOL) and close(mk, mp, ADAM_TOL)
+    # both sides round the same fp32 result once: one bf16 ulp
+    check(ulp_close(pk, pp) and close(mk, mp, ADAM_TOL)
           and close(vk, vp, ADAM_TOL),
           f"adam_flat bf16 params: errs {max_err(pk, pp)}, "
           f"{max_err(mk, mp)}, {max_err(vk, vp)}")
@@ -3329,8 +3383,10 @@ def phase_sgd_kernel(rcfg):
     for flags in (dict(nesterov=True), dict(out_is_delta=True), {}):
         p, gr, m = group(4 * 65536, torch.bfloat16)
         (ok, mk), (op, mp), (pk, p0) = sgd_both(p, gr, m, hp, **flags)
-        tol = (SGD_TOL if flags.get("out_is_delta") else BF16_TOL)
-        check(close(ok, op, tol) and close(mk, mp, SGD_TOL),
+        # bf16 params: one rounding of the same fp32 result, one ulp
+        pk_ok = (close(ok, op, SGD_TOL) if flags.get("out_is_delta")
+                 else ulp_close(ok, op))
+        check(pk_ok and close(mk, mp, SGD_TOL),
               f"sgd_flat bf16 {flags}: errs {max_err(ok, op)}, "
               f"{max_err(mk, mp)}")
         if flags.get("out_is_delta"):
@@ -3951,6 +4007,610 @@ def phase_bhsd_355m(tcfg, tok, tgt, tree):
     return metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the L3 flat kernels (scale, axpby, adagrad) vs plain
+# ---------------------------------------------------------------------------
+
+#: the L3 loop's static loss scale (apex's unscale_with_stashed: a = 1/S)
+L3_SCALE = 2.0 ** 12
+
+
+def _flat_row(name, line, errs, step_k, plain_k, n_bytes, n_flops, lib_ms,
+              lib_name, shape):
+    """One kernels-line row of a flat sweep, timed as in phase 3."""
+    b, by = bound(n_bytes, n_flops, FP32_FLOPS_PER_S)
+    row = dict(
+        name=name, route="cuda", source="apex_tpu_torch/csrc/flat_ops.cu",
+        replaces=f"apex_tpu/kernels/flat_ops.py:{line}",
+        max_abs_err=max(errs), ms=time_ms(step_k, **TRAIN_TIMING),
+        eager_ms=eager_ms(step_k, **TRAIN_TIMING),
+        plain_ms=time_ms(plain_k, **TRAIN_TIMING), bound_ms=b, bound_by=by,
+        library_ms=lib_ms, library=lib_name, shape=shape)
+    log(f"kernel {name}: {row['ms']:.4f} ms (eager {row['eager_ms']:.4f} "
+        f"ms), plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms ({lib_name}), bound "
+        f"{row['bound_ms']:.5f} ms ({by}) at {shape}")
+    return row
+
+
+def phase_l3_flat_kernels(tcfg):
+    """Phase 29: ``scale_flat``, ``axpby_flat`` and ``adagrad_flat``
+    against their plain versions on the 355M's padded fp32 group (and
+    small bf16 and fp16 groups): scale and axpby bit-equal, with the
+    found-inf flag raised by an inf input (scale) and an fp32 overflow
+    (axpby) and not by an fp16 narrowing overflow; adagrad within
+    ADAM_TOL, its delta mode and a skipped sweep; timed beside their
+    library calls. Returns the three rows."""
+    from apex_tpu_torch.kernels import (
+        adagrad_flat,
+        adagrad_flat_plain,
+        axpby_flat,
+        axpby_flat_plain,
+        reset_launch_counts,
+        scale_flat,
+        scale_flat_plain,
+    )
+    from apex_tpu_torch.kernels.flat_ops import _widen, adagrad_scalars
+    from apex_tpu_torch.multi_tensor import pad_to
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    n = pad_to(tcfg.param_count())
+    small = 4 * 65536
+    rand = lambda m, s=1.0: torch.randn(m, generator=g, device=dev) * s
+    rows, errs = {}, {"scale_flat": [], "axpby_flat": [], "adagrad_flat": []}
+    one = lambda x: torch.full((), x, device=dev)
+
+    # -- scale and axpby: bit-equal to plain, the flag's two rules
+    groups = [rand(n, 3.0), rand(small, 3.0).bfloat16(),
+              rand(small, 3.0).half()]
+    s = 1.0 / L3_SCALE
+    ko, kf = scale_flat(groups, s)
+    po, pf = scale_flat_plain([_widen(b) for b in groups], one(s))
+    po = [p.to(b.dtype) for p, b in zip(po, groups)]
+    torch.cuda.synchronize()
+    errs["scale_flat"] += [max_err(k, p) for k, p in zip(ko, po)]
+    check(all(torch.equal(k, p) for k, p in zip(ko, po)),
+          f"scale_flat: not bit-equal to plain (errs {errs['scale_flat']})")
+    check(not bool(kf) and not bool(pf), "scale_flat: flag set")
+    x16 = groups[2].clone()
+    x16[5] = float("inf")
+    check(bool(scale_flat([groups[0], x16], s)[1]),
+          "scale_flat: an inf input did not raise the flag")
+    o16, f16 = scale_flat([groups[2]], 2.0 ** 15)
+    check(bool(o16[0].isinf().any()) and not bool(f16),
+          "scale_flat: an fp16 narrowing overflow must give inf, no flag")
+    ys = [rand(n, 2.0), rand(small, 2.0).bfloat16(), rand(small).half()]
+    for out_dtype in (None, torch.float32):
+        ko, kf = axpby_flat(s, groups, 1.0, ys, out_dtype=out_dtype)
+        want = [out_dtype or b.dtype for b in groups]
+        po, pf = axpby_flat_plain(
+            torch.stack([one(s), one(1.0)]), [_widen(b) for b in groups],
+            [_widen(y) for y in ys],
+            [torch.float32 if w == torch.float16 else w for w in want])
+        po = [p.to(w) for p, w in zip(po, want)]
+        torch.cuda.synchronize()
+        errs["axpby_flat"] += [max_err(k, p) for k, p in zip(ko, po)]
+        check(all(torch.equal(k, p) for k, p in zip(ko, po)),
+              f"axpby_flat out_dtype={out_dtype}: not bit-equal to plain "
+              f"(errs {errs['axpby_flat']})")
+        check(not bool(kf) and not bool(pf), "axpby_flat: flag set")
+    big = groups[0].clone()
+    big[7] = 3e38
+    check(bool(axpby_flat(4.0, [big], 1.0, [ys[0]])[1]),
+          "axpby_flat: an fp32 overflow did not raise the flag")
+    o16, f16 = axpby_flat(2.0 ** 15, [groups[2]], 1.0, [ys[2]])
+    check(bool(o16[0].isinf().any()) and not bool(f16),
+          "axpby_flat: an fp16 narrowing overflow must give inf, no flag")
+    log("scale_flat / axpby_flat: bit-equal to plain on the 355M fp32 group "
+        "and bf16/fp16 groups; flags: inf input (scale), fp32 overflow "
+        "(axpby) raise it, fp16 narrowing overflow does not")
+    del big, x16, o16
+
+    x, y = groups[0], ys[0]
+    found = torch.zeros(1, device=dev)
+    inv = one(0.5)
+    lib_x = x.clone()
+    rows["scale_flat"] = _flat_row(
+        "scale_flat", 94, errs["scale_flat"], lambda: scale_flat([x], s),
+        lambda: scale_flat_plain([x], one(s)), 8 * n, n,
+        time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+            [lib_x], found, inv), **TRAIN_TIMING),
+        "torch._amp_foreach_non_finite_check_and_unscale_ (in place)",
+        f"one fp32 group of n={n} (355M params, padded)")
+    ab = torch.stack([one(s), one(1.0)])
+    rows["axpby_flat"] = _flat_row(
+        "axpby_flat", 145, errs["axpby_flat"],
+        lambda: axpby_flat(s, [x], 1.0, [y]),
+        lambda: axpby_flat_plain(ab, [x], [y], [torch.float32]), 12 * n,
+        3 * n, time_ms(lambda: torch.add(y, x, alpha=s), **TRAIN_TIMING),
+        "torch.add(y, x, alpha=a)", f"fp32 x, y of n={n}")
+    del groups, ys, lib_x, found
+
+    # -- adagrad: small bf16 group (delta mode, skip), then the 355M group
+    hp = dict(lr=1e-2, eps=1e-10, weight_decay=1e-4, grad_scale=0.5)
+    scalars = adagrad_scalars(*hp.values(), dev)
+
+    def ada_both(p, gr, h, **flags):
+        pk, hk, pp, hp_ = p.clone(), h.clone(), p.clone(), h.clone()
+        ok, _ = adagrad_flat([pk], [gr], [hk], **hp, **flags)
+        op, _ = adagrad_flat_plain([pp], [gr], [hp_], scalars, **flags)
+        torch.cuda.synchronize()
+        return (ok[0], hk), (op[0], hp_), pk
+
+    for flags in ({}, dict(out_is_delta=True)):
+        p = rand(small, 0.05).bfloat16()
+        gr, h = rand(small, 1e-2), rand(small, 1e-3).abs()
+        (ok, hk), (op, hp_), pk = ada_both(p, gr, h, **flags)
+        # bf16 params: both sides round the same fp32 result once, and
+        # one step moves p by several bf16 ulps; fp32 deltas: ADAM_TOL
+        pk_ok = close(ok, op, ADAM_TOL) if flags else ulp_close(ok, op)
+        check(pk_ok and close(hk, hp_, ADAM_TOL),
+              f"adagrad_flat bf16 {flags}: errs {max_err(ok, op)}, "
+              f"{max_err(hk, hp_)}")
+        if flags:
+            check(torch.equal(pk, p), "adagrad_flat delta mode changed p")
+    before = (pk.clone(), hk.clone())
+    adagrad_flat([pk], [gr], [hk], **hp,
+                 skip=torch.ones((), dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    check(torch.equal(pk, before[0]) and torch.equal(hk, before[1]),
+          "adagrad_flat: skip=True changed a buffer")
+    p, gr, h = rand(n, 0.02), rand(n, 1e-3), rand(n, 1e-6).abs()
+    (ok, hk), (op, hp_), _ = ada_both(p, gr, h)
+    e = [max_err(ok, op), max_err(hk, hp_)]
+    check(close(ok, op, ADAM_TOL) and close(hk, hp_, ADAM_TOL),
+          f"adagrad_flat n={n}: errs {e}")
+    errs["adagrad_flat"] += e
+    # torch's Adagrad on one flat tensor from a zero sum: the same update
+    pa, ha = p.clone(), torch.zeros_like(h)
+    adagrad_flat([pa], [gr], [ha], lr=1e-2, eps=1e-10, weight_decay=0.0)
+    w = torch.nn.Parameter(p.clone())
+    w.grad = gr.clone()
+    lib = torch.optim.Adagrad([w], lr=1e-2, eps=1e-10, foreach=True)
+    lib.step()
+    torch.cuda.synchronize()
+    lib_err = max_err(pa, w.detach())
+    check(close(pa, w.detach(), ADAM_TOL),
+          f"adagrad_flat vs torch.optim.Adagrad: err {lib_err}")
+    log(f"adagrad_flat n={n} fp32: max|p,h - plain|={e} (tol atol=1e-6 "
+        f"rtol=1e-5); vs torch.optim.Adagrad(foreach) {lib_err:.3e}; bf16 "
+        f"group, delta mode and skip ok")
+    del op, hp_, pa, ha, pk
+    rows["adagrad_flat"] = _flat_row(
+        "adagrad_flat", 371, errs["adagrad_flat"],
+        lambda: adagrad_flat([ok], [gr], [hk], **hp),
+        lambda: adagrad_flat_plain([p], [gr], [h], scalars), 20 * n, 8 * n,
+        eager_ms(lib.step, **TRAIN_TIMING), "torch.optim.Adagrad("
+        "foreach=True).step", f"one fp32 group of n={n} (355M, padded)")
+    del p, gr, h, ok, hk, w, lib
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the softmax kernels vs plain, and FusedScaleMaskSoftmax
+# ---------------------------------------------------------------------------
+
+#: the unfused scores of the GPT-2 355M step (batch 16, 16 heads, seq
+#: 1024) and of BERT-large's (batch 32, 16 heads, seq 512)
+SM_GPT = (16, 16, 1024, 1024)
+SM_BERT = (32, 16, 512, 512)
+#: BERT's padding mask masks keys 400 on, and every key of this many
+#: batches (rows the fused path gives zeros and the unfused one 1/sk)
+SM_BERT_MASKED = 3
+
+
+def phase_softmax():
+    """Phase 30: the softmax forward and backward against their plain
+    versions at the 355M's causal scores (bf16, scale 1/8) and BERT-large's
+    padded ones (fp16 through the public API, a [32, 1, 1, 512] mask
+    whose first batches mask every key), and at odd shapes (sk = 1000 and
+    2500, the long-row path; sq != sk with a mask; the legacy [b, sq, sk]
+    mask; fp32); timed beside ``torch.softmax`` and
+    ``torch._softmax_backward_data`` on already-masked scores. Then the
+    main path: ``FusedScaleMaskSoftmax`` forward and backward, fused and
+    unfused, causal and padding, launch counts zeroed before and read
+    after. Returns (rows, counts)."""
+    from apex_tpu_torch.kernels import (
+        launch_counts,
+        reset_launch_counts,
+        scaled_masked_softmax,
+        softmax_bwd,
+        softmax_bwd_plain,
+        softmax_fwd,
+        softmax_fwd_plain,
+    )
+    from apex_tpu_torch.kernels.softmax import _mask3
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(30)
+    rand = lambda shape, dt: (torch.randn(shape, generator=g, device=dev)
+                              * 2).to(dt)
+    errs = {"softmax_fwd": [], "softmax_bwd": []}
+
+    def both(x3, m3, scale, causal, what):
+        yk = softmax_fwd(x3, m3, scale=scale, causal=causal)
+        yp = softmax_fwd_plain(x3, m3, scale, causal)
+        dy = rand(x3.shape, x3.dtype)
+        dk = softmax_bwd(yk, dy, scale=scale)
+        dp = softmax_bwd_plain(yk, dy, scale)
+        torch.cuda.synchronize()
+        check(ulp_close(yk, yp), f"softmax_fwd {what}: err {max_err(yk, yp)}")
+        check(close(dk, dp, FP32_TOL) and (
+            dk.dtype == torch.float32 or ulp_close(dk, dp)),
+            f"softmax_bwd {what}: err {max_err(dk, dp)}")
+        check(bool(torch.isfinite(yk).all()), f"softmax {what}: non-finite")
+        errs["softmax_fwd"].append(max_err(yk, yp))
+        errs["softmax_bwd"].append(max_err(dk, dp))
+        return yk, dy
+
+    # odd shapes: sk = 1000 and 2500 (past the shared-memory row cache),
+    # sq != sk with a ratio-tiled mask, the legacy mask, fp32
+    for shape, mshape, dt, causal in (
+            ((2, 3, 7, 1000), (2, 1, 1, 1000), torch.bfloat16, False),
+            ((1, 2, 5, 2500), (1, 1, 5, 2500), torch.float32, False),
+            ((2, 2, 5, 24), (2, 1, 5, 24), torch.float32, False),
+            ((2, 4, 6, 6), None, torch.bfloat16, True),
+            ((3, 2, 17, 17), (3, 1, 1, 17), torch.float32, True)):
+        x = rand(shape, dt)
+        m = None
+        if mshape is not None:
+            m = torch.rand(mshape, generator=g, device=dev) < 0.3
+            m[..., 0] = False
+        both(x.reshape(-1, *shape[-2:]), None if m is None else
+             _mask3(m, x), 0.5, causal, f"{shape} {dt}")
+    x = rand((2, 3, 8, 40), torch.bfloat16)
+    legacy = torch.rand((2, 8, 40), generator=g, device=dev) < 0.3
+    both(x.reshape(-1, 8, 40), _mask3(legacy, x), 1.0, False, "legacy mask")
+    log(f"softmax odd shapes ok (max errs fwd "
+        f"{max(errs['softmax_fwd']):.3e}, bwd {max(errs['softmax_bwd']):.3e})")
+
+    # the 355M's causal scores, bf16, scale 1/8
+    nb, sq, sk = SM_GPT[0] * SM_GPT[1], SM_GPT[2], SM_GPT[3]
+    x3 = rand((nb, sq, sk), torch.bfloat16)
+    y3, dy3 = both(x3, None, 0.125, True, "355M causal bf16")
+    tril = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril()
+    xm = (x3.float() * 0.125).masked_fill(~tril, float("-inf")).to(
+        torch.bfloat16)
+    n_el = x3.numel()
+    # causal: only the lower triangle of x is read (the kernel predicates
+    # the loads above the diagonal off) and exponentiated; all of y is
+    # written
+    tri = nb * sq * (sq + 1) // 2
+    fb, fby = bound(2 * tri + 2 * n_el, 5 * tri, FP32_FLOPS_PER_S)
+    bb, bby = bound(6 * n_el, 4 * n_el, FP32_FLOPS_PER_S)
+    shape = f"[{SM_GPT[0]}, {SM_GPT[1]}, {sq}, {sk}] bf16, causal, scale 1/8"
+    rows = {
+        "softmax_fwd": dict(
+            name="softmax_fwd", route="cuda",
+            source="apex_tpu_torch/csrc/softmax.cu",
+            replaces="apex_tpu/kernels/softmax.py:92",
+            ms=time_ms(lambda: softmax_fwd(x3, None, scale=0.125,
+                                           causal=True), **TRAIN_TIMING),
+            eager_ms=eager_ms(lambda: softmax_fwd(
+                x3, None, scale=0.125, causal=True), **TRAIN_TIMING),
+            plain_ms=time_ms(lambda: softmax_fwd_plain(x3, None, 0.125, True),
+                             **TRAIN_TIMING),
+            bound_ms=fb, bound_by=fby,
+            library_ms=time_ms(lambda: torch.softmax(xm, -1),
+                               **TRAIN_TIMING),
+            library="torch.softmax on already scaled and masked scores",
+            shape=shape),
+        "softmax_bwd": dict(
+            name="softmax_bwd", route="cuda",
+            source="apex_tpu_torch/csrc/softmax.cu",
+            replaces="apex_tpu/kernels/softmax.py:115",
+            ms=time_ms(lambda: softmax_bwd(y3, dy3, scale=0.125),
+                       **TRAIN_TIMING),
+            eager_ms=eager_ms(lambda: softmax_bwd(y3, dy3, scale=0.125),
+                              **TRAIN_TIMING),
+            plain_ms=time_ms(lambda: softmax_bwd_plain(y3, dy3, 0.125),
+                             **TRAIN_TIMING),
+            bound_ms=bb, bound_by=bby,
+            library_ms=time_ms(lambda: torch._softmax_backward_data(
+                dy3, y3, -1, y3.dtype), **TRAIN_TIMING),
+            library="torch._softmax_backward_data (no scale)",
+            shape=shape)}
+    del x3, y3, dy3, xm
+
+    # BERT-large's padded scores in fp16 through the public API (widened to
+    # the fp32 kernels), the first batches with every key masked
+    xb = rand(SM_BERT, torch.float16)
+    pad = torch.zeros((SM_BERT[0], 1, 1, SM_BERT[3]), dtype=torch.bool,
+                      device=dev)
+    pad[:, :, :, 400:] = True
+    pad[:SM_BERT_MASKED] = True
+    yk = scaled_masked_softmax(xb, pad, scale=0.125)
+    yp = softmax_fwd_plain(xb.reshape(-1, *SM_BERT[2:]).float(),
+                           _mask3(pad, xb), 0.125, False).to(
+        torch.float16).reshape(SM_BERT)
+    torch.cuda.synchronize()
+    check(ulp_close(yk, yp), f"softmax BERT fp16: err {max_err(yk, yp)}")
+    check(not bool(yk[:SM_BERT_MASKED].any()),
+          "softmax BERT: a fully masked row is not all zeros")
+    errs["softmax_fwd"].append(max_err(yk, yp))
+    del yk, yp
+    for r in rows.values():
+        r["max_abs_err"] = max(errs[r["name"]])
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager "
+            f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms ({r['library']}), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}) at {r['shape']}")
+
+    # the main path: FusedScaleMaskSoftmax, fused (the kernels) and unfused
+    gpt_x = rand(SM_GPT, torch.bfloat16).requires_grad_(True)
+    bert_x = xb.requires_grad_(True)
+    fused = {kind: FusedScaleMaskSoftmax(attn_mask_type=kind, scale=0.125)
+             for kind in (AttnMaskType.causal, AttnMaskType.padding)}
+    unfused = {kind: FusedScaleMaskSoftmax(
+        attn_mask_type=kind, scaled_masked_softmax_fusion=False, scale=0.125)
+        for kind in fused}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {}
+    for kind, x, m in ((AttnMaskType.causal, gpt_x, None),
+                       (AttnMaskType.padding, bert_x, pad)):
+        y = fused[kind](x, m)
+        (dx,) = torch.autograd.grad(y.float().square().sum(), x)
+        outs[kind] = (y.detach(), dx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"FusedScaleMaskSoftmax fused, causal 355M + padding BERT, forward "
+        f"and backward: {wall * 1e3:.1f} ms, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    check(counts["softmax_fwd"] == 2 and counts["softmax_bwd"] == 2,
+          f"FusedScaleMaskSoftmax: softmax launches {counts['softmax_fwd']}"
+          f" / {counts['softmax_bwd']}, expected 2 / 2")
+    others = {k: v for k, v in counts.items()
+              if v and k not in ("softmax_fwd", "softmax_bwd")}
+    check(not others, f"FusedScaleMaskSoftmax: other kernels: {others}")
+    live = torch.ones(SM_BERT[0], dtype=torch.bool, device=dev)
+    live[:SM_BERT_MASKED] = False
+    for kind, x, m in ((AttnMaskType.causal, gpt_x, None),
+                       (AttnMaskType.padding, bert_x, pad)):
+        y, dx = outs[kind]
+        # the wiring: dx is the plain backward of the residual the fused
+        # forward saved (bf16 y as it is; for fp16, the fp32 y before the
+        # narrowing) at dy = 2y, rounded once to x's dtype
+        x3 = x.detach().reshape(-1, *x.shape[-2:])
+        causal = kind == AttnMaskType.causal
+        y_res = y.reshape(x3.shape) if x.dtype == torch.bfloat16 else \
+            softmax_fwd_plain(x3.float(), None if m is None else
+                              _mask3(m, x.detach()), 0.125, causal)
+        d_ref = softmax_bwd_plain(y_res, (2 * y).reshape(x3.shape).to(
+            y_res.dtype), 0.125).to(x.dtype).reshape(x.shape)
+        check(ulp_close(dx, d_ref),
+              f"FusedScaleMaskSoftmax {kind.name}: gradient vs the plain "
+              f"backward of its residual err {max_err(dx, d_ref)}")
+        del y_res, d_ref
+        yu = unfused[kind](x, m)
+        (du,) = torch.autograd.grad(yu.float().square().sum(), x)
+        yu, du = yu.detach(), du
+        if kind == AttnMaskType.padding:
+            # fully masked rows: zeros fused, uniform 1/sk unfused
+            check(torch.equal(yu[~live].float(), torch.full_like(
+                yu[~live].float(), 1.0 / SM_BERT[3])),
+                "unfused softmax: a fully masked row is not 1/sk")
+            y, yu, dx, du = y[live], yu[live], dx[live], du[live]
+        check(ulp_close(y, yu),
+              f"FusedScaleMaskSoftmax {kind.name}: fused vs unfused err "
+              f"{max_err(y, yu)}")
+        # the fused backward reads the saved y in the working dtype, the
+        # unfused one differentiates the fp32 chain: y's rounding, which
+        # dx = s*y*(dy - sum(y*dy)) can cancel down to, gives bf16 errors
+        # of about 1.3% of max|du|. A band of 2^-5 of max|du| plus one ulp
+        # of each entry, so a zero or sign-flipped gradient fails
+        tol = dict(atol=2.0 ** -5 * float(du.float().abs().max()),
+                   rtol=ULP[x.dtype])
+        check(close(dx, du, tol),
+              f"FusedScaleMaskSoftmax {kind.name}: gradient err "
+              f"{max_err(dx, du)}")
+        log(f"FusedScaleMaskSoftmax {kind.name}: fused vs unfused max err "
+            f"{max_err(y, yu):.3e}, gradients {max_err(dx, du):.3e}")
+    del gpt_x, bert_x, outs, xb
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the 355M trainer with FusedAdagrad
+# ---------------------------------------------------------------------------
+
+ADAGRAD_STEPS = 3
+
+
+def phase_adagrad_train(tcfg, layout, tok, tgt):
+    """Phase 31: bench.py main()'s 355M step through
+    ``make_train_step(cfg, fused_adagrad(1e-2, layout=layout))``: one
+    warm-up and ``ADAGRAD_STEPS`` timed steps, launch counts zeroed just
+    before and read just after; ``adagrad_flat`` once per group per step
+    in the flat layout, never in the tree layout. Returns the metrics."""
+    from apex_tpu_torch import multi_tensor as mt
+    from apex_tpu_torch.amp import ScalerConfig
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import make_train_step
+    from apex_tpu_torch.optimizers import fused_adagrad
+
+    init_fn, step_fn = make_train_step(
+        tcfg, fused_adagrad(1e-2, layout=layout), ScalerConfig(enabled=False))
+    state = init_fn(torch.Generator("cuda").manual_seed(0))
+    groups = mt.layout_of(state.params).num_groups
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, m = step_fn(state, tok, tgt)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ADAGRAD_STEPS):
+        state, m = step_fn(state, tok, tgt)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    del state
+    torch.cuda.empty_cache()
+    losses = [float(x) for x in losses]
+    n_steps = ADAGRAD_STEPS + 1
+    metrics = dict(
+        layout=layout, step_ms=wall / ADAGRAD_STEPS * 1e3,
+        train_tokens_per_sec=ADAGRAD_STEPS * tok.numel() / wall,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+        groups=groups, launches=counts,
+        launches_per_step={k: v / n_steps for k, v in counts.items() if v})
+    log(f"train 355M FusedAdagrad {layout}: " + json.dumps(metrics))
+    check(all(np.isfinite(losses)), f"Adagrad {layout}: non-finite loss")
+    want = groups * n_steps if layout == "flat" else 0
+    check(counts["adagrad_flat"] == want,
+          f"Adagrad {layout}: adagrad_flat launched {counts['adagrad_flat']}"
+          f" times, expected {want}")
+    L = tcfg.num_layers
+    check(counts["flash_attention_bsh"] == L * n_steps
+          and counts["flash_attention_bsh_bwd"] == L * n_steps,
+          f"Adagrad {layout}: flash launches {counts['flash_attention_bsh']}"
+          f" / {counts['flash_attention_bsh_bwd']}, expected {L * n_steps}")
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# phase 32: the apex L3 loop on the 355M
+# ---------------------------------------------------------------------------
+
+L3_STEPS = 3
+#: the L3 loop's Adagrad learning rate. Adagrad's first step moves every
+#: weight by about lr (g / sqrt(g^2)); at the JAX default of 1e-2 (phase
+#: 31's) that is half the 355M's init scale, and the mean micro-batch loss
+#: on the repeated batch swings over four steps (11.04, 11.06, 9.90,
+#: 12.66 on an H100; 11.04, 10.87, 12.71, 11.22 at 1e-3); at 3e-4 it falls
+#: every step (11.04, 10.85, 10.54, 10.31)
+L3_LR = 3e-4
+
+
+def _l3_step(tcfg, params, state, tx, tok, tgt, poison=False):
+    """One step of the loop apex users write: per micro-batch (two of
+    half the batch) the gradient of ``loss * S`` by ``torch.autograd``;
+    the first unscaled into the accumulator by ``MultiTensorApply`` with
+    ``scale_flat`` (a = 1/S), the second added by ``axpby_flat(1/S, g, 1,
+    acc)``; ``clip_grad_norm_(acc, 1.0)``; a flat FusedAdagrad step with
+    the overflow flag as ``skip``. ``poison`` puts an inf into one
+    gradient leaf of the second micro-batch. Returns (params, state,
+    losses, found_inf, pre-clip norm)."""
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.contrib import clip_grad_norm_
+    from apex_tpu_torch.kernels import axpby_flat, scale_flat
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.multi_tensor import MultiTensorApply
+
+    leaves, spec = _tree.flatten(params)
+    mta = MultiTensorApply()
+    acc, losses, found = None, [], None
+    half = tok.shape[0] // 2
+    for i in range(2):
+        sl = slice(i * half, (i + 1) * half)
+        diff = [x.detach().requires_grad_(True) for x in leaves]
+        loss = gpt.loss(tcfg, _tree.unflatten(spec, diff), tok[sl], tgt[sl])
+        grads = list(torch.autograd.grad(loss * L3_SCALE, diff))
+        losses.append(loss.detach())
+        del diff, loss
+        if poison and i == 1:
+            grads[0].view(-1)[3] = float("inf")
+        if acc is None:
+            [acc], f = mta(scale_flat, None, [grads], 1.0 / L3_SCALE)
+        else:
+            [acc], f = mta(lambda x, y: axpby_flat(1.0 / L3_SCALE, x, 1.0, y),
+                           None, [grads, acc])
+        found = f if found is None else found | f
+        del grads
+    clipped, norm = clip_grad_norm_(_tree.unflatten(spec, acc), 1.0)
+    del acc
+    params, state = tx.step(clipped, state, params, skip=found)
+    return params, state, losses, found, norm
+
+
+def phase_l3_loop(tcfg, tok, tgt):
+    """Phase 32: the apex L3 loop (``_l3_step``, Adagrad at ``L3_LR``) on
+    the 355M at batch 16 in two micro-batches of 8: one warm-up and
+    ``L3_STEPS`` timed steps,
+    launch counts zeroed before and read after (per step: ``scale_flat``
+    twice per group, ``axpby_flat``, ``l2norm_flat`` and ``adagrad_flat``
+    once per group), losses finite and falling; then one step with an
+    inf in a gradient leaf: flagged, skipped, params and the sum of
+    squares bit-equal. Returns the metrics."""
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch import multi_tensor as mt
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.optimizers import fused_adagrad
+
+    params = gpt.init(tcfg, torch.Generator("cuda").manual_seed(0))
+    tx = fused_adagrad(L3_LR, layout="flat")
+    state = tx.init(params)
+    groups = mt.layout_of(params).num_groups
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    params, state, losses, found, norm = _l3_step(tcfg, params, state, tx,
+                                                  tok, tgt)
+    all_losses, flags, norms = [losses], [found], [norm]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(L3_STEPS):
+        params, state, losses, found, norm = _l3_step(tcfg, params, state,
+                                                      tx, tok, tgt)
+        all_losses.append(losses)
+        flags.append(found)
+        norms.append(norm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_steps = L3_STEPS + 1
+    losses = [[float(x) for x in step] for step in all_losses]
+    metrics = dict(
+        step_ms=wall / L3_STEPS * 1e3,
+        train_tokens_per_sec=L3_STEPS * tok.numel() / wall,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        losses=losses, grad_norms=[float(x) for x in norms],
+        found_inf=[bool(x) for x in flags], groups=groups,
+        launches_per_step={k: v / n_steps for k, v in counts.items() if v})
+    log("apex L3 loop 355M: " + json.dumps(metrics))
+    flat_losses = [x for step in losses for x in step]
+    check(all(np.isfinite(flat_losses)), "L3 loop: non-finite loss")
+    check(not any(metrics["found_inf"]), "L3 loop: a clean step was flagged")
+    check(np.mean(losses[-1]) < np.mean(losses[0]),
+          f"L3 loop: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    for name, per_step in (("scale_flat", 2 * groups),
+                           ("axpby_flat", groups), ("l2norm_flat", 1),
+                           ("adagrad_flat", groups)):
+        check(counts[name] == per_step * n_steps,
+              f"L3 loop: {name} launched {counts[name]} times, expected "
+              f"{per_step} x {n_steps}")
+    keep_p = [x.clone() for x in _tree.leaves(params)]
+    keep_h = [x.clone() for x in state.sum_sq]
+    count = int(state.count)
+    params, state, _, found, _ = _l3_step(tcfg, params, state, tx, tok, tgt,
+                                          poison=True)
+    torch.cuda.synchronize()
+    check(bool(found), "L3 loop: an inf gradient was not flagged")
+    check(int(state.count) == count, "L3 loop: a skipped step counted")
+    check(all(torch.equal(a, b) for a, b in zip(_tree.leaves(params),
+                                                keep_p))
+          and all(torch.equal(a, b) for a, b in zip(state.sum_sq, keep_h)),
+          "L3 loop: a skipped step changed params or the sum of squares")
+    log("apex L3 loop: the step with an inf gradient was flagged and "
+        "skipped; params and h bit-equal")
+    del params, state, keep_p, keep_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -4118,6 +4778,33 @@ def main() -> int:
         t = time.perf_counter()
         phase_bhsd_355m(tcfg, tok, tgt, tree)
         log(f"355M bhsd phase {time.perf_counter() - t:.1f}s")
+
+        # the apex L3 surface: the flat sweeps, the fused softmax, the
+        # 355M trainer with FusedAdagrad and the L3 loop
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        l3_rows = phase_l3_flat_kernels(tcfg)
+        log(f"L3 flat kernels phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        sm_rows, sm_counts = phase_softmax()
+        log(f"softmax phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        ada = {lay: phase_adagrad_train(tcfg, lay, tok, tgt)
+               for lay in ("flat", "tree")}
+        gap = max(abs(a - b) for a, b in zip(ada["flat"]["losses"],
+                                             ada["tree"]["losses"]))
+        log(f"Adagrad: flat vs tree max|loss diff| over "
+            f"{len(ada['flat']['losses'])} steps = {gap:.3e} (band "
+            f"{LAYOUT_LOSS_BAND})")
+        check(gap <= LAYOUT_LOSS_BAND,
+              f"Adagrad: flat and tree losses differ by {gap}")
+        check(ada["flat"]["losses"][0] == ada["tree"]["losses"][0],
+              "Adagrad: the first step's losses differ between the layouts")
+        log(f"Adagrad train phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        _, l3_counts = phase_l3_loop(tcfg, tok, tgt)
+        log(f"L3 loop phase {time.perf_counter() - t:.1f}s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -4159,6 +4846,18 @@ def main() -> int:
                       ("flash_attention_bwd_dkdv", split_2p7b)):
         hm_rows[name]["launches"] = run["launches"].get(name, 0)
     rows.update(hm_rows)
+    # scale and axpby from the L3 loop; adagrad from the flat FusedAdagrad
+    # trainer (its L3-loop count beside); the softmax from
+    # FusedScaleMaskSoftmax's run
+    for name in ("scale_flat", "axpby_flat"):
+        l3_rows[name]["launches"] = l3_counts[name]
+    l3_rows["adagrad_flat"]["launches"] = ada["flat"]["launches"][
+        "adagrad_flat"]
+    l3_rows["adagrad_flat"]["launches_l3_loop"] = l3_counts["adagrad_flat"]
+    rows.update(l3_rows)
+    for r in sm_rows.values():
+        r["launches"] = sm_counts[r["name"]]
+    rows.update(sm_rows)
     log(f"card: {card}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"total {time.perf_counter() - t0:.1f}s")

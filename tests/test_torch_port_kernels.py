@@ -197,6 +197,12 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     delta = torch.zeros(4, 8)
     tk.flash_attention_bwd_dq(hq, hq, hq, hq, lse, delta, causal=True)
     tk.flash_attention_bwd_dkdv(hq, hq, hq, hq, lse, delta, causal=True)
+    tk.scale_flat([buf], 0.5)
+    tk.axpby_flat(0.5, [buf], 1.0, [buf])
+    tk.adagrad_flat([buf], [buf.clone()], [buf.clone()], lr=0.1, eps=1e-10,
+                    weight_decay=0.0)
+    sx = torch.zeros(2, 4, 4, requires_grad=True)
+    torch.autograd.grad(tk.scaled_masked_softmax(sx, causal=True).sum(), sx)
     assert tk.launch_counts() == {"flash_attention_bsh": 0,
                                   "decode_write_column": 0,
                                   "decode_attention": 0,
@@ -221,7 +227,12 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "flash_attention": 0,
                                   "flash_attention_bwd": 0,
                                   "flash_attention_bwd_dq": 0,
-                                  "flash_attention_bwd_dkdv": 0}
+                                  "flash_attention_bwd_dkdv": 0,
+                                  "scale_flat": 0,
+                                  "axpby_flat": 0,
+                                  "adagrad_flat": 0,
+                                  "softmax_fwd": 0,
+                                  "softmax_bwd": 0}
     tk.write_column.launches = 3
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
@@ -273,4 +284,5 @@ def test_build_dir_is_content_addressed():
     assert {p.name for p in _build._sources()} == {
         "flash_attention_bsh.cu", "decode_attention.cu",
         "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
-        "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu"}
+        "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+        "softmax.cu"}
