@@ -11,10 +11,12 @@
 // lse (1 MB): 0.050 ms at 3.35 TB/s; its two products over the causal
 // half, 4.3e10 flops, are 0.043 ms on the tensor cores. So bytes, barely.
 //
-// What the design does about it: this first version is right and simple,
-// and leaves the tensor cores (mma/wgmma) and TMA to a later PR: all
-// arithmetic is fp32 on the CUDA cores, which makes it compute-bound on
-// them, far from either bound. One block of 256 threads owns one
+// What the design does about it: this is the CUDA-core forward, right and
+// simple: all arithmetic is fp32 on the CUDA cores, which makes it
+// compute-bound on them, far from either bound. It runs fp32 (and float16,
+// widened) and the bf16 calls the tensor-core kernel of flash_fwd_tc.cu
+// does not take (a head width that is not a multiple of 8, an operand off
+// a 16-byte boundary; kernels/flash_attention.py:tc_forward). One block of 256 threads owns one
 // (bh, 64-row query tile). Q stays in shared memory while 64-key K/V tiles
 // stream through it; each thread scores its 4 x 4 entries of the 64 x 64
 // tile, the row max and sum are four shuffles over the 16 threads of a row,

@@ -14,17 +14,16 @@
 // short rather than chasing peak rates. One block owns (batch, head,
 // 16-query tile), so a 64-token bucket at b=4 already puts 256 blocks on
 // the card. Q/K/V are read straight from the strided [b, s, hidden]
-// layout at column offset head*D (one 64-wide bf16 head row is 128
-// contiguous bytes: 16-byte vector loads, coalesced), widened to fp32 in
-// shared memory. Each warp owns 4 query rows; for a 32-key chunk every
+// layout at column offset head*D (one 64-wide fp32 head row is 256
+// contiguous bytes: 16-byte vector loads, coalesced) into shared memory. Each warp owns 4 query rows; for a 32-key chunk every
 // lane scores one key (q from shared memory by broadcast, the K row
 // from a stride-(D+1) tile, so no bank conflicts), the warp folds the
 // chunk into the running fp32 (m, l, acc) with the update of
 // _online_update (flash_attention.py:79), and each lane accumulates D/32
 // output dims. Chunks and tiles entirely above the diagonal are skipped
 // (_causal_skip); the causal and col < sk masks are _valid_cols
-// (flash_attention.py:150). Tensor cores (mma/wgmma) and TMA are left to
-// a later PR: at these sizes they would not move the end-to-end time.
+// (flash_attention.py:150). This kernel is the fp32 forward (float16 is
+// widened to it); bf16 runs the tensor-core kernel of flash_fwd_tc.cu.
 #include "common.cuh"
 
 namespace apex_tpu_torch {
@@ -173,7 +172,8 @@ using namespace apex_tpu_torch;
 
 // out [b, sq, hidden] (dtype of q), lse fp32 [b, heads, sq]. Returns
 // cudaGetLastError() after the launch; cudaErrorInvalidValue for a
-// dtype or head_dim the kernel was not built for (nothing launched).
+// dtype or head_dim the kernel was not built for (nothing launched). fp32
+// only: bf16 runs the tensor-core kernel of flash_fwd_tc.cu.
 extern "C" int apex_tpu_torch_flash_fwd_bsh(
     const void* q, const void* k, const void* v, void* out, void* lse, int b,
     int sq, int sk, int hidden, int heads, float scale, int causal,
@@ -186,10 +186,6 @@ extern "C" int apex_tpu_torch_flash_fwd_bsh(
     case kFloat32:
       return launch<float, kHeadDim>(q, k, v, out, lse, b, sq, sk, hidden,
                                      heads, scale, causal, st);
-    case kBFloat16:
-      return launch<__nv_bfloat16, kHeadDim>(q, k, v, out, lse, b, sq, sk,
-                                             hidden, heads, scale, causal,
-                                             st);
     default:
       return cudaErrorInvalidValue;
   }

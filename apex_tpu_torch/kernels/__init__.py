@@ -5,7 +5,10 @@ tensors launch the kernel, CPU tensors run the plain version, anything
 else raises. Every wrapper counts its launches in a plain integer
 attribute; :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main
-path went through the kernels. Importing this package builds nothing:
+path went through the kernels. The two flash forwards also count the
+launches of their tensor-core kernel apart (``tc_launches``, reported as
+``flash_attention_bsh_tc`` and ``flash_attention_tc``): the total stays
+in ``launches``. Importing this package builds nothing:
 the library is compiled at the first launch.
 
 Unlike the JAX package, the name ``flash_attention`` here stays the
@@ -66,6 +69,7 @@ from apex_tpu_torch.kernels.flash_attention import (
     flash_attention_with_lse,
     flash_bsh_eligible,
     mha,
+    tc_forward,
 )
 from apex_tpu_torch.kernels.flat_ops import (
     adagrad_flat,
@@ -141,18 +145,32 @@ KERNEL_WRAPPERS = {
 }
 
 
+#: the wrappers that also count their tensor-core launches
+#: (``tc_launches``), by the name that count is reported under
+TC_COUNTERS = {
+    "flash_attention_bsh_tc": flash_attention_bsh_fwd,
+    "flash_attention_tc": flash_attention_fwd,
+}
+
+
 def launch_counts() -> Dict[str, int]:
-    """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """Launches per kernel since the last :func:`reset_launch_counts`;
+    the ``*_tc`` entries are the tensor-core share of a forward's."""
+    counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    counts.update((name, fn.tc_launches) for name, fn in TC_COUNTERS.items())
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for fn in TC_COUNTERS.values():
+        fn.tc_launches = 0
 
 
 __all__ = [
     "KERNEL_WRAPPERS",
+    "TC_COUNTERS",
     "adagrad_flat",
     "adagrad_flat_plain",
     "adam_flat",
@@ -222,6 +240,7 @@ __all__ = [
     "softmax_cross_entropy",
     "softmax_fwd",
     "softmax_fwd_plain",
+    "tc_forward",
     "write_column",
     "write_column_plain",
     "write_column_quant",

@@ -74,6 +74,15 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_float, _c_int, _c_int, _c_void_p],
+    # the tensor-core forwards (bf16 only): as the two above, less the dtype
+    "apex_tpu_torch_flash_fwd_bsh_tc": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+        _c_void_p],
+    "apex_tpu_torch_flash_fwd_hm_tc": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_float, _c_int, _c_void_p],
     "apex_tpu_torch_adam_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_longlong, _c_int, _c_int, _c_int, _c_void_p],

@@ -14,8 +14,9 @@ Two ops of the ``apex_tpu_torch`` library, joined by
 ``register_autograd``:
 
 - ``apex_tpu_torch::flash_attention_bsh_fwd(q, k, v, num_heads, causal,
-  scale) -> (out, lse)`` — CUDA tensors launch
-  ``csrc/flash_attention_bsh.cu``, CPU tensors run
+  scale) -> (out, lse)`` — CUDA tensors launch the tensor-core kernel of
+  ``csrc/flash_fwd_tc.cu`` (bf16) or ``csrc/flash_attention_bsh.cu``
+  (fp32), by :func:`tc_forward`; CPU tensors run
   :func:`flash_attention_bsh_plain`;
 - ``apex_tpu_torch::flash_attention_bsh_bwd(q, k, v, do, lse, delta,
   num_heads, causal, scale) -> (dq, dk, dv)`` — CUDA tensors launch
@@ -35,7 +36,9 @@ float16 inputs to fp32 and cast the results back
 (``apex_tpu/kernels/flash_attention.py:1167-1178``), so fp16 runs the
 fp32 instantiation of the kernels. Each kernel's launch
 count is kept on its wrapper (``flash_attention_bsh_fwd.launches``,
-``flash_attention_bsh_bwd.launches``).
+``flash_attention_bsh_bwd.launches``); the forwards also count their
+tensor-core launches apart (``flash_attention_bsh_fwd.tc_launches``,
+``flash_attention_fwd.tc_launches``), inside the total.
 """
 
 from __future__ import annotations
@@ -77,6 +80,30 @@ def _widen_f16(t: torch.Tensor) -> torch.Tensor:
     return t.float() if t.dtype == torch.float16 else t
 
 
+def tc_forward(q, k, v, head_dim: int) -> bool:
+    """Which kernel a forward op launches for CUDA tensors, by dtype, shape
+    and address alone (never by failure): True for the tensor-core kernel
+    of ``csrc/flash_fwd_tc.cu`` — bf16 q, k and v, a head width that is a
+    multiple of 8 and at most 128, and base pointers 16-byte aligned;
+    False for the CUDA-core kernels (``csrc/flash_attention_bsh.cu``,
+    ``csrc/flash_attention.cu``): fp32, fp16 (the wrappers widen it to
+    fp32 first), other widths, unaligned operands."""
+    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and head_dim % 8 == 0 and 0 < head_dim <= _build.HM_MAX_HEAD_DIM
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def _round_p(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The fp32 probabilities as the ``P V`` product takes them: rounded
+    to the inputs' dtype, as JAX's ``_online_update`` rounds them
+    (``p.astype(v.dtype)``, :90) and the tensor-core kernel packs them
+    into bf16 fragments; float16 is widened to fp32 before any kernel
+    (``_widen_f16``), so there, as in fp32, p stays as it is."""
+    if dtype in (torch.float32, torch.float16):
+        return p
+    return p.to(dtype).float()
+
+
 def _heads(t, num_heads: int):
     """``[b, s, hidden]`` → fp32 ``[b, heads, s, d]``."""
     b, s, hidden = t.shape
@@ -104,10 +131,11 @@ def flash_attention_bsh_plain(q, k, v, *, num_heads: int,
                               causal: bool = False,
                               scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the forward kernel: ``(out [b, sq, hidden]
+    """Plain PyTorch twin of the forward kernels: ``(out [b, sq, hidden]
     in q's dtype, lse fp32 [b, heads, sq])``, all arithmetic in fp32 —
     scores times ``scale``, the masks of ``_valid_cols`` with the finite
-    ``-1e30`` fill, fp32 softmax statistics."""
+    ``-1e30`` fill, fp32 softmax statistics, ``l`` summed from fp32 p and
+    p rounded to bf16 before ``P V`` for bf16 inputs (:func:`_round_p`)."""
     b, sq, sk, hidden, d = _geometry(q, k, v, num_heads, causal)
     s_ = _scale(scale, d)
     qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
@@ -117,7 +145,7 @@ def flash_attention_bsh_plain(q, k, v, *, num_heads: int,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p, vh) / lsum
+    out = torch.matmul(_round_p(p, q.dtype), vh) / lsum
     lse = (m + torch.log(lsum))[..., 0]
     return _merge(out, q.dtype), lse.contiguous()
 
@@ -171,11 +199,17 @@ def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((b, num_heads, sq), dtype=torch.float32,
                       device=q.device)
-    rc = _build.library().apex_tpu_torch_flash_fwd_bsh(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, hidden, num_heads, scale, int(causal),
-        code, _build.stream())
-    _build.check(rc, "flash_attention_bsh")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, sq, sk, hidden, num_heads, scale, int(causal))
+    if tc_forward(q, k, v, d):
+        rc = _build.library().apex_tpu_torch_flash_fwd_bsh_tc(
+            *args, _build.stream())
+        _build.check(rc, "flash_attention_bsh (tensor cores)")
+        flash_attention_bsh_fwd.tc_launches += 1
+    else:
+        rc = _build.library().apex_tpu_torch_flash_fwd_bsh(
+            *args, code, _build.stream())
+        _build.check(rc, "flash_attention_bsh")
     flash_attention_bsh_fwd.launches += 1
     return out, lse
 
@@ -261,11 +295,13 @@ def flash_attention_bsh_fwd(q, k, v, *, num_heads: int,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [b, sq, hidden], lse fp32 [b, heads, sq])``, differentiable
     in q, k and v. CUDA tensors launch the kernel on the current stream
-    (counted in ``flash_attention_bsh_fwd.launches``); CPU tensors run
-    the plain version. The kernel takes contiguous q/k/v of one dtype,
-    fp32 or bf16, with head_dim 64, and raises on anything else; float16
-    inputs are widened to fp32 first and the output cast back to float16
-    (the JAX function's ``widen_f16``), so they reach the fp32 kernel."""
+    (counted in ``flash_attention_bsh_fwd.launches``, the tensor-core
+    ones also in ``.tc_launches``); CPU tensors run the plain version. The
+    kernels take contiguous, 16-byte aligned q/k/v of one dtype with
+    head_dim 64, bf16 (the tensor-core kernel) or fp32, and raise on
+    anything else; float16 inputs are widened to fp32 first and the output
+    cast back to float16 (the JAX function's ``widen_f16``), so they reach
+    the fp32 kernel."""
     _, _, _, _, d = _geometry(q, k, v, num_heads, causal)
     _build.on_cuda(q, k, v)       # refuse other and mixed devices here
     half = q.dtype == torch.float16
@@ -275,6 +311,7 @@ def flash_attention_bsh_fwd(q, k, v, *, num_heads: int,
 
 
 flash_attention_bsh_fwd.launches = 0
+flash_attention_bsh_fwd.tc_launches = 0
 
 
 def flash_attention_bsh(q, k, v, *, num_heads: int, causal: bool = False,
@@ -333,7 +370,8 @@ flash_attention_bsh_bwd.launches = 0
 # Four ops of the ``apex_tpu_torch`` library:
 #
 # - ``flash_attention_fwd(q, k, v, lens, seg_q, seg_k, n_rep, causal,
-#   scale, block_q) -> (out, lse)`` — ``csrc/flash_attention.cu``, or
+#   scale, block_q) -> (out, lse)`` — ``csrc/flash_fwd_tc.cu`` (bf16, by
+#   :func:`tc_forward`) or ``csrc/flash_attention.cu``, or
 #   :func:`flash_attention_fwd_plain` on the CPU;
 # - ``flash_attention_bwd`` (fused, ``(dq, dk, dv)``), ``flash_attention_
 #   bwd_dq`` (``dq``) and ``flash_attention_bwd_dkdv`` (``(dk, dv)``) —
@@ -479,13 +517,15 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
                               scale: Optional[float] = None, lens=None,
                               segs=None, n_rep: int = 1
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the head-major forward kernel over ``[bh, s,
+    """Plain PyTorch twin of the head-major forward kernels over ``[bh, s,
     d]``: ``(out in q's dtype, lse fp32 [bh, sq])``, all arithmetic in
     fp32 — scores times ``scale``, the ``_valid_cols`` mask with the
-    finite ``-1e30`` fill, masked probabilities 0, ``out = acc /
-    max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))``, so a row with
-    every column masked gives ``out = 0`` and ``lse = -1e30 +
-    log(1e-30)`` (``_fwd_kernel``'s ``_finish``)."""
+    finite ``-1e30`` fill, masked probabilities 0, ``l`` summed from fp32
+    p and p rounded to bf16 before ``P V`` for bf16 inputs
+    (:func:`_round_p`), ``out = acc / max(l, 1e-30)`` and ``lse = m +
+    log(max(l, 1e-30))``, so a row with every column masked gives ``out =
+    0`` and ``lse = -1e30 + log(1e-30)`` (``_fwd_kernel``'s
+    ``_finish``)."""
     bh, sq, sk, d = _hm_geometry(q, k, v, causal)
     s_ = _scale(scale, d)
     seg_q, seg_k = segs if segs is not None else (None, None)
@@ -496,7 +536,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p, v.float()) / lsum
+    out = torch.matmul(_round_p(p, q.dtype), v.float()) / lsum
     lse = (m + torch.log(lsum))[..., 0]
     return out.to(q.dtype), lse.contiguous()
 
@@ -605,11 +645,17 @@ def _hm_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aux = _hm_aux(lens, seg_q, seg_k, bh, n_rep, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    rc = _build.library().apex_tpu_torch_flash_fwd_hm(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *aux, out.data_ptr(),
-        lse.data_ptr(), bh, n_rep, sq, sk, d, scale, int(causal), code,
-        _build.stream())
-    _build.check(rc, "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *aux, out.data_ptr(),
+            lse.data_ptr(), bh, n_rep, sq, sk, d, scale, int(causal))
+    if tc_forward(q, k, v, d):
+        rc = _build.library().apex_tpu_torch_flash_fwd_hm_tc(
+            *args, _build.stream())
+        _build.check(rc, "flash_attention (tensor cores)")
+        flash_attention_fwd.tc_launches += 1
+    else:
+        rc = _build.library().apex_tpu_torch_flash_fwd_hm(
+            *args, code, _build.stream())
+        _build.check(rc, "flash_attention")
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -774,9 +820,11 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     """The head-major forward over ``[bh, s, d]``: ``(out, lse fp32 [bh,
     sq])``, differentiable in q, k and v (and through lse). ``lens`` is an
     int32 ``[bh]`` of kv lengths, ``segs`` an int32 ``([bh // n_rep, sq],
-    [bh // n_rep, sk])`` pair of segment ids. CUDA tensors launch the
+    [bh // n_rep, sk])`` pair of segment ids. CUDA tensors launch a
     kernel (counted in ``flash_attention_fwd.launches``) on fp32 or bf16
-    inputs with ``d <= 128``; CPU tensors run the plain version."""
+    inputs with ``d <= 128``: the tensor-core kernel where
+    :func:`tc_forward` says so (also counted in ``.tc_launches``), else
+    the CUDA-core one; CPU tensors run the plain version."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v)       # refuse other and mixed devices here
     return _hm_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -785,6 +833,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 
 
 def flash_attention_bwd(q, k, v, do, lse, delta, *, causal: bool = False,

@@ -14,13 +14,16 @@ Phases, in order; any failed check exits non-zero:
    the card at the serving path's shapes, with CUDA-event timings of the
    kernel, the plain version and one PyTorch library call computing the
    same function (for the column write, one ``index_put_`` of the same
-   cells), and the least time the card could take (bound);
+   cells), and the least time the card could take (bound); bf16 flash
+   prefill runs the tensor-core kernel (``csrc/flash_fwd_tc.cu``), fp32
+   the CUDA-core one, each held to its launch counter;
 4. whole model — GPT 355M (24 layers, hidden 1024, 16 heads, vocab
    50304, bf16, random weights from a seed): prefill + decode logits
    through the kernels against the materialised-scores ("xla") path;
 5. the path — ``Scheduler(Engine(...))`` answers bench.py's 32-request
    trace (8 slots, horizon 192); the kernels' launch counters must show
-   that flash prefill and decode attention ran on every layer, and every
+   that flash prefill (on the tensor-core kernel) and decode attention ran
+   on every layer, and every
    stream is held against a teacher-forced forward without kernels;
 6. profile — ``torch.profiler`` over a window of decode chunks: the
    device's busy share and the kernels that take its time.
@@ -41,7 +44,8 @@ The serving engine and weights are freed; then the training slice:
    ``make_train_step``, one warm-up and 10 timed steps with
    ``fused_adam(1e-4, layout="flat")`` and then with ``layout="tree"``:
    tokens/s, step time, peak memory and every step's loss, and per step
-   24 launches of flash forward and of flash backward, and one of
+   24 launches of flash forward (every one on the tensor-core kernel) and
+   of flash backward, and one of
    ``adam_flat`` (flat) or none (tree);
 10. profile — ``torch.profiler`` over 2 train steps of each layout:
     device time per step by kernel category, and the packing's share.
@@ -181,7 +185,12 @@ tree Adam, batch 8):
     kernels) with ``flash_attention_with_lse``'s lse cotangent, then at
     the 2.7B step's attention (b=8, 32 heads, s=1024, d=80, bf16,
     causal): every kernel within its tolerance of its plain version,
-    fused == split, the split kernels bit-equal across two launches;
+    fused == split, the split kernels bit-equal across two launches; the
+    forward on the tensor-core kernel in bf16 (d=72 too) and on the
+    CUDA-core one in fp32, at d=100 and for a q off a 16-byte boundary,
+    rows whose segment id no key carries (out 0, lse -1e30 + log(1e-30)),
+    and the CUDA-core bf16 kernel timed beside the new one at the 2.7B
+    shape;
     timed as in phase 3, the library yardsticks SDPA's forward and its
     backward (forward plus backward, less the forward; for the split
     sweeps the backward asked for dq, or dk and dv, alone);
@@ -193,7 +202,8 @@ tree Adam, batch 8):
     steps under ``APEX_TPU_FLASH_BWD=split``: tokens/s, step time, peak
     memory, every loss (finite, falling; split within a band of fused,
     step 0 equal), and per step 64 head-major forwards (full remat
-    replays each layer's), 32 fused backwards or 32 dQ and 32 dK/dV
+    replays each layer's; all on the tensor-core kernel), 32 fused
+    backwards or 32 dQ and 32 dK/dV
     sweeps, and no lane-packed launch; then phase 9's 355M tree step with
     ``attn_layout="bhsd"`` (1 + 3 steps) beside phase 9's lane-packed
     run: 24 head-major forwards and backwards a step, losses within a
@@ -250,7 +260,10 @@ foreach step (Adagrad's), and ``torch.softmax`` and
 ``torch._softmax_backward_data`` on already scaled and masked scores
 (the softmax kernels'; they leave out the scale and the mask).
 
-The line before the last is ``{"kernels": [...]}`` (30 kernels); the
+The line before the last is ``{"kernels": [...]}`` (30 kernels; the
+two flash forwards' rows name their kernel as ``variant``, with the
+tensor-core launches as ``launches_tc``; the head-major one's carries the
+CUDA-core kernel's bf16 time on the same inputs as ``prev_ms``); the
 last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
@@ -325,6 +338,20 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 #: fp32 statistics (lse) and fp32 runs differ only by summation order
 FP32_TOL = dict(atol=1e-3, rtol=1e-3)
 
+#: the two flash forwards' bf16 kernel, and what runs the other dtypes
+TC_VARIANT = {
+    "flash_attention_bsh": "tensor cores (csrc/flash_fwd_tc.cu, bf16); "
+                           "fp32 and fp16 on csrc/flash_attention_bsh.cu",
+    "flash_attention": "tensor cores (csrc/flash_fwd_tc.cu, bf16, d % 8 == "
+                       "0, 16-byte aligned); the rest on "
+                       "csrc/flash_attention.cu"}
+#: the tensor-core forward's bf16 out against its plain twin. Both round
+#: P to bf16 before P V and sum in fp32, so the rtol is one bf16 ulp
+#: (2^-7 relative); the kernel rounds exp(s - m) at its running max where
+#: the twin takes the row's final max, which the atol covers. The CUDA-core
+#: kernel, which keeps P in fp32, exceeds it (phase 25 logs by how much).
+TC_TOL = dict(atol=2e-3, rtol=2.0 ** -7)
+
 
 def grad_tol(ref: torch.Tensor) -> dict:
     """bf16 gradients at the train shape: entries there are about 0.05,
@@ -345,6 +372,16 @@ def check(ok: bool, what: str) -> None:
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def check_tc(what: str, counts, name: str, want=None) -> None:
+    """Every launch of the flash forward ``name`` in ``counts`` (bf16 on
+    the main paths) went to its tensor-core kernel (``<name>_tc``), or
+    exactly ``want`` of them did."""
+    n = counts[name] if want is None else want
+    check(counts[f"{name}_tc"] == n,
+          f"{what}: {counts[f'{name}_tc']} of {counts[name]} {name} "
+          f"launches on the tensor-core kernel, expected {n}")
 
 
 def time_ms(fn, *, reps: int = 15, inner: int = 20) -> float:
@@ -418,6 +455,13 @@ def close(a, b, tol) -> bool:
     return bool(torch.allclose(a.float(), b.float(), **tol))
 
 
+def atol_needed(a, b, rtol: float) -> float:
+    """The least atol with which ``close(a, b, dict(atol=..., rtol=rtol))``
+    holds."""
+    d = (a.float() - b.float()).abs() - rtol * b.float().abs()
+    return max(float(d.max()), 0.0)
+
+
 #: one ulp of each output dtype, relative
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
        torch.float16: 2.0 ** -10}
@@ -486,6 +530,7 @@ def phase_kernels():
         attend_cache_plain,
         flash_attention_bsh_fwd,
         flash_attention_bsh_plain,
+        launch_counts,
         reset_launch_counts,
         write_column,
         write_column_plain,
@@ -496,8 +541,10 @@ def phase_kernels():
     bf16 = torch.bfloat16
     rows = {}
 
-    # -- flash prefill: b in {1, 4}, s in {8, 64} (and a ragged 24), causal
+    # -- flash prefill: b in {1, 4}, s in {8, 64} (and a ragged 24), causal;
+    #    bf16 on the tensor-core kernel, fp32 on the CUDA-core one
     worst_out = worst_lse = 0.0
+    reset_launch_counts()
     for seed in (0, 1):
         for b, s in ((1, 8), (1, 64), (4, 8), (4, 64), (2, 24)):
             g = torch.Generator(device=dev).manual_seed(seed * 100 + b * s)
@@ -508,12 +555,13 @@ def phase_kernels():
             ref, ref_lse = flash_attention_bsh_plain(
                 q, k, v, num_heads=HEADS, causal=True)
             torch.cuda.synchronize()
-            check(close(out, ref, BF16_TOL),
+            check(close(out, ref, TC_TOL),
                   f"flash b={b} s={s}: out err {max_err(out, ref)}")
             check(close(lse, ref_lse, FP32_TOL),
                   f"flash b={b} s={s}: lse err {max_err(lse, ref_lse)}")
             worst_out = max(worst_out, max_err(out, ref))
             worst_lse = max(worst_lse, max_err(lse, ref_lse))
+    check_tc("phase 3 bf16 flash", launch_counts(), "flash_attention_bsh")
     q32, k32, v32 = (t.float() for t in (q, k, v))
     o32, l32 = flash_attention_bsh_fwd(q32, k32, v32, num_heads=HEADS,
                                        causal=True)
@@ -521,9 +569,12 @@ def phase_kernels():
                                           causal=True)
     check(close(o32, r32, FP32_TOL) and close(l32, rl32, FP32_TOL),
           f"flash fp32 err {max_err(o32, r32)} / {max_err(l32, rl32)}")
-    log(f"flash_attention_bsh: bf16 max|out-plain|={worst_out:.3e} "
-        f"(tol atol=rtol=2e-2) max|lse-plain|={worst_lse:.3e} (tol 1e-3); "
-        f"fp32 max|out-plain|={max_err(o32, r32):.3e}")
+    check_tc("phase 3 fp32 flash", launch_counts(), "flash_attention_bsh",
+             want=10)
+    log(f"flash_attention_bsh: bf16 (tensor cores) max|out-plain|="
+        f"{worst_out:.3e} (TC_TOL) max|lse-plain|="
+        f"{worst_lse:.3e} (tol 1e-3); fp32 (CUDA cores) max|out-plain|="
+        f"{max_err(o32, r32):.3e}")
 
     # timings at the largest prefill group of the path: b=4, s=64
     b, s = 4, 64
@@ -542,8 +593,9 @@ def phase_kernels():
     bms, by = bound(n_bytes, n_flops)
     rows["flash_attention_bsh"] = dict(
         name="flash_attention_bsh", route="cuda",
-        source="apex_tpu_torch/csrc/flash_attention_bsh.cu",
+        source="apex_tpu_torch/csrc/flash_fwd_tc.cu",
         replaces="apex_tpu/kernels/flash_attention.py:1005",
+        variant=TC_VARIANT["flash_attention_bsh"],
         max_abs_err=worst_out, ms=time_ms(fa), eager_ms=eager_ms(fa),
         plain_ms=time_ms(fp), bound_ms=bms, bound_by=by,
         library_ms=time_ms(fl),
@@ -785,6 +837,7 @@ def phase_path(cfg, params, band: float):
           f"path: flash_attention_bsh launched "
           f"{counts['flash_attention_bsh']} times, expected {L} x "
           f"{engine.admit_groups} groups")
+    check_tc("path", counts, "flash_attention_bsh")
     metrics = {k: s[k] for k in ("tokens_per_sec", "decode_tokens_per_sec",
                                  "ttft_mean_ms", "ttft_p99_ms",
                                  "token_latency_mean_ms", "decode_steps",
@@ -1231,6 +1284,7 @@ def phase_paged_path(cfg, params, band: float, contig_streams):
               "paged path: a contiguous decode kernel ran")
         check(counts["flash_attention_bsh"] == L * engine.admit_groups,
               "paged path: flash prefill launches off the admission groups")
+        check_tc("paged path", counts, "flash_attention_bsh")
         log("paged path: all 32 streams (greedy and sampled) identical to "
             "the contiguous engine's")
         del engine, sched
@@ -1935,6 +1989,7 @@ def phase_quant_serving(cfg, params, band, quant_err):
         _check_quant_counts(f"kv A/B {side}", counts, on, steps, L)
         check(counts["flash_attention_bsh"] == L * engine.admit_groups,
               f"kv A/B {side}: flash prefill launches off the groups")
+        check_tc(f"kv A/B {side}", counts, "flash_attention_bsh")
         per_slot = engine.cache_bytes() // engine.slots
         want = KV_BYTES_PER_SLOT["quant" if side == "int8" else "compute"]
         check(per_slot == want, f"kv A/B {side}: {per_slot} cache bytes "
@@ -2146,6 +2201,7 @@ def phase_train_kernels(cfg):
         flash_attention_bsh_bwd_plain,
         flash_attention_bsh_fwd,
         flash_attention_bsh_plain,
+        launch_counts,
         reset_launch_counts,
     )
     from apex_tpu_torch.kernels.flat_ops import adam_scalars
@@ -2194,14 +2250,18 @@ def phase_train_kernels(cfg):
     # -- the train step's shape: forward, then backward
     b, s = TRAIN_BATCH, TRAIN_SEQ
     q, k, v, do = inputs(b, s, bf16, seed=17)
+    reset_launch_counts()
     out, lse = flash_attention_bsh_fwd(q, k, v, num_heads=HEADS, causal=True)
+    check_tc(f"flash fwd b={b} s={s}", launch_counts(),
+             "flash_attention_bsh", want=1)
     ref, ref_lse = flash_attention_bsh_plain(q, k, v, num_heads=HEADS,
                                              causal=True)
     torch.cuda.synchronize()
-    check(close(out, ref, BF16_TOL) and close(lse, ref_lse, FP32_TOL),
+    check(close(out, ref, TC_TOL) and close(lse, ref_lse, FP32_TOL),
           f"flash fwd b={b} s={s}: out err {max_err(out, ref)}, lse err "
           f"{max_err(lse, ref_lse)}")
     fwd_err = max_err(out, ref)
+    fwd_lse_err = max_err(lse, ref_lse)
     del ref, ref_lse
     got, want, (lse, delta) = bwd_both(q, k, v, do)
     errs = [max_err(a, w) for a, w in zip(got, want)]
@@ -2236,7 +2296,7 @@ def phase_train_kernels(cfg):
         plain_ms=time_ms(lambda: flash_attention_bsh_plain(
             q, k, v, num_heads=HEADS, causal=True), **TRAIN_TIMING),
         library_ms=time_ms(lib_fwd, **TRAIN_TIMING), bound_ms=fb,
-        bound_by=fby, max_abs_err=fwd_err,
+        bound_by=fby, max_abs_err=fwd_err, max_lse_err=fwd_lse_err,
         shape=f"b={b} s={s} hidden={HIDDEN} heads={HEADS} bf16 causal")
     # five products over the causal pairs: S, dP, dV, dK, dQ
     bb, bby = bound(7 * act + 2 * stats, 5 * 2 * HEAD_DIM * pairs)
@@ -2330,6 +2390,9 @@ def phase_train_kernels(cfg):
         library_ms=eager_ms(lib.step, **TRAIN_TIMING),
         shape=f"one fp32 group of n={n} (355M params, padded)")
     del p, gr, m, v, pk, mk, vk, w, lib
+    log(f"kernel flash_attention_bsh (train, tensor cores): "
+        f"{fwd_train['ms']:.4f} ms; max|out-plain| {fwd_err:.3e}, "
+        f"max|lse-plain| {fwd_lse_err:.3e}")
     for r in list(rows.values()) + [dict(fwd_train, name="flash_attention_"
                                                           "bsh (train)")]:
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager "
@@ -2478,6 +2541,7 @@ def phase_train(cfg, layout, tok, tgt):
           f"train {layout}: flash forward launched "
           f"{counts['flash_attention_bsh']} times, expected {L} x {n_steps}"
           f" (twice that means the backward replayed it)")
+    check_tc(f"train {layout}", counts, "flash_attention_bsh")
     check(counts["flash_attention_bsh_bwd"] == L * n_steps,
           f"train {layout}: flash backward launched "
           f"{counts['flash_attention_bsh_bwd']} times, expected {L} x "
@@ -2501,6 +2565,7 @@ def phase_train(cfg, layout, tok, tgt):
 #: kernel-name fragments → the category a train step's device time is
 #: summed under (first match wins; the rest is "other")
 KERNEL_CATEGORIES = (
+    ("flash_fwd_tc", ("flash_fwd_tc",)),
     ("flash_fwd_hm", ("flash_fwd_hm",)),
     ("flash_bwd_hm", ("flash_bwd_kv_hm", "flash_bwd_dq_hm")),
     ("flash_fwd", ("flash_fwd_bsh",)), ("flash_bwd", ("flash_bwd_",)),
@@ -2612,6 +2677,7 @@ def phase_bert_kernels(bcfg):
         layer_norm_bwd_plain,
         layer_norm_fwd,
         layer_norm_fwd_plain,
+        launch_counts,
         reset_launch_counts,
     )
     from apex_tpu_torch.kernels.flat_ops import adam_scalars
@@ -2770,8 +2836,11 @@ def phase_bert_kernels(bcfg):
             -1).transpose(1, 2).contiguous()
 
     q, k, v_, do = inputs(2, torch.float32, 31)
+    reset_launch_counts()
     out, lse = flash_attention_bsh_fwd(q, k, v_, num_heads=heads,
                                        causal=False)
+    check_tc("BERT flash fp32", launch_counts(), "flash_attention_bsh",
+             want=0)
     ref, ref_lse = flash_attention_bsh_plain(q, k, v_, num_heads=heads,
                                              causal=False)
     dl = delta_of(out, do)
@@ -2789,15 +2858,19 @@ def phase_bert_kernels(bcfg):
 
     B = BERT_BATCH
     q, k, v_, do = inputs(B, bf16, 37)
+    reset_launch_counts()
     out, lse = flash_attention_bsh_fwd(q, k, v_, num_heads=heads,
                                        causal=False)
+    check_tc(f"BERT flash b={B}", launch_counts(), "flash_attention_bsh",
+             want=1)
     ref, ref_lse = flash_attention_bsh_plain(q, k, v_, num_heads=heads,
                                              causal=False)
     torch.cuda.synchronize()
-    check(close(out, ref, BF16_TOL) and close(lse, ref_lse, FP32_TOL),
+    check(close(out, ref, TC_TOL) and close(lse, ref_lse, FP32_TOL),
           f"flash non-causal b={B}: out err {max_err(out, ref)}, lse err "
           f"{max_err(lse, ref_lse)}")
     fwd_err = max_err(out, ref)
+    fwd_lse_err = max_err(lse, ref_lse)
     del ref, ref_lse
     dl = delta_of(out, do)
     got = flash_attention_bsh_bwd(q, k, v_, do, lse, dl, num_heads=heads,
@@ -2839,7 +2912,8 @@ def phase_bert_kernels(bcfg):
         plain_ms=time_ms(lambda: flash_attention_bsh_plain(
             q, k, v_, num_heads=heads, causal=False), **TRAIN_TIMING),
         library_ms=time_ms(lib_fwd, **TRAIN_TIMING), bound_ms=fb,
-        bound_by=fby, max_abs_err=fwd_err, shape=shape)
+        bound_by=fby, max_abs_err=fwd_err, max_lse_err=fwd_lse_err,
+        shape=shape)
     lib_fwd_eager = eager_ms(lib_fwd, **TRAIN_TIMING)
     extra["flash_attention_bsh_bwd"] = dict(
         ms=time_ms(fbw, **TRAIN_TIMING),
@@ -2899,10 +2973,14 @@ def bert_launches_per_step(cfg):
     flash forward 2L and backward L; LayerNorm forward 3 (embedding,
     final, MLM head) plus, with ``ln_impl="pallas"``, ln1 and ln2 of 2L
     block runs, and backward 3 plus 2L; the flat LAMB one ``l2norm_flat``
-    and one ``adam_flat`` (one fp32 group), the tree LAMB none."""
+    and one ``adam_flat`` (one fp32 group), the tree LAMB none. In bf16
+    every flash forward is the tensor-core kernel's, in fp16 none."""
     L = cfg.num_layers
     pallas = cfg.ln_impl == "pallas"
-    return {"flash_attention_bsh": 2 * L, "flash_attention_bsh_bwd": L,
+    # bf16 runs the tensor-core forward; fp16 is widened to the fp32 kernel
+    tc = 2 * L if cfg.compute_dtype == torch.bfloat16 else 0
+    return {"flash_attention_bsh": 2 * L, "flash_attention_bsh_tc": tc,
+            "flash_attention_bsh_bwd": L,
             "layer_norm_fwd": 3 + (4 * L if pallas else 0),
             "layer_norm_bwd": 3 + (2 * L if pallas else 0)}
 
@@ -3007,6 +3085,7 @@ def phase_xent_kernels(tcfg, bcfg):
         flash_attention_bsh_bwd_plain,
         flash_attention_bsh_fwd,
         flash_attention_bsh_plain,
+        launch_counts,
         reset_launch_counts,
         xentropy_bwd,
         xentropy_bwd_plain,
@@ -3111,7 +3190,10 @@ def phase_xent_kernels(tcfg, bcfg):
     g = torch.Generator(device=dev).manual_seed(41)
     q, k, v, do = (torch.randn(B, s, hidden, generator=g, device=dev,
                                dtype=f16) for _ in range(4))
+    reset_launch_counts()
     out, lse = flash_attention_bsh_fwd(q, k, v, num_heads=heads)
+    check_tc("flash fp16 (widened to fp32)", launch_counts(),
+             "flash_attention_bsh", want=0)
     ref, ref_lse = flash_attention_bsh_plain(q, k, v, num_heads=heads)
     torch.cuda.synchronize()
     check(out.dtype == f16 and close(out, ref, FP16_TOL)
@@ -3565,6 +3647,7 @@ def phase_hm_kernels():
         flash_attention_fwd,
         flash_attention_fwd_plain,
         flash_attention_with_lse,
+        launch_counts,
         reset_launch_counts,
     )
     from apex_tpu_torch.kernels.flash_attention import flash_attention
@@ -3572,21 +3655,37 @@ def phase_hm_kernels():
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
     worst = {"fwd": 0.0, "fused": 0.0, "dq": 0.0, "dkdv": 0.0}
+    # the forward by kernel: the tensor-core one (bf16) and the CUDA-core
+    # one (fp32; bf16 at d=100 or off a 16-byte boundary)
+    worst_fwd = {"tc": 0.0, "tc_lse": 0.0, "tc_atol": 0.0, "cuda_core": 0.0}
 
     def hold(tag, q, k, v, do, *, causal, n_rep, lens=None, segs=None,
-             dlse=None):
-        """Forward and the three backward kernels against plain; fused vs
+             dlse=None, tc=None):
+        """Forward (on the tensor-core kernel iff ``tc``, by default iff
+        bf16) and the three backward kernels against plain; fused vs
         split; the split kernels bit-equal across two launches."""
         kw = dict(causal=causal, lens=lens, segs=segs, n_rep=n_rep)
+        tc = q.dtype == bf16 if tc is None else tc
+        reset_launch_counts()
         out, lse = flash_attention_fwd(q, k, v, **kw)
+        check_tc(tag, launch_counts(), "flash_attention", want=int(tc))
         ref, ref_lse = flash_attention_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        tol = BF16_TOL if q.dtype == bf16 else FP32_TOL
+        tol = TC_TOL if tc else BF16_TOL if q.dtype == bf16 else FP32_TOL
         check(bool(torch.isfinite(out).all()), f"{tag}: non-finite out")
         check(close(out, ref, tol) and close(lse, ref_lse, FP32_TOL),
               f"{tag}: fwd out err {max_err(out, ref)}, lse err "
               f"{max_err(lse, ref_lse)}")
         worst["fwd"] = max(worst["fwd"], max_err(out, ref))
+        if tc:
+            worst_fwd["tc"] = max(worst_fwd["tc"], max_err(out, ref))
+            worst_fwd["tc_lse"] = max(worst_fwd["tc_lse"],
+                                      max_err(lse, ref_lse))
+            worst_fwd["tc_atol"] = max(worst_fwd["tc_atol"], atol_needed(
+                out, ref, TC_TOL["rtol"]))
+        else:
+            worst_fwd["cuda_core"] = max(worst_fwd["cuda_core"],
+                                         max_err(out, ref))
         delta = (out.float() * do.float()).sum(-1)
         if dlse is not None:
             delta = delta - dlse
@@ -3654,6 +3753,49 @@ def phase_hm_kernels():
                  *_hm_inputs(dev, bh, 96, 96, d, dtype, seed=d + 3),
                  causal=True, n_rep=h_,
                  dlse=torch.randn(bh, 96, generator=g, device=dev))
+
+    # -- the forward's kernel choice at its edges: d=72 (tensor cores, padded
+    #    to 80), d=100 (CUDA cores), a bf16 operand off a 16-byte boundary
+    #    (CUDA cores), and rows whose segment id no key has (every column
+    #    masked: out 0, lse -1e30 + log(1e-30))
+    b_, h_ = 2, 3
+    bh = b_ * h_
+    for d, tc in ((72, True), (100, False)):
+        hold(f"hm bf16 d={d} causal s=200",
+             *_hm_inputs(dev, bh, 200, 200, d, bf16, seed=d), causal=True,
+             n_rep=h_, tc=tc)
+        lens = torch.tensor([57, 0, 130], dtype=torch.int32,
+                            device=dev).repeat_interleave(2)
+        hold(f"hm bf16 d={d} sq=72 sk=130 lens",
+             *_hm_inputs(dev, bh, 72, 130, d, bf16, seed=d + 1),
+             causal=False, n_rep=h_, lens=lens, tc=tc)
+    q, k, v, do = _hm_inputs(dev, bh, 72, 130, 64, bf16, seed=5)
+    buf = torch.empty(q.numel() + 8, dtype=bf16, device=dev)
+    qu = buf[1:1 + q.numel()].view_as(q)
+    qu.copy_(q)
+    check(qu.data_ptr() % 16 != 0, "hm: the unaligned q is aligned")
+    hold("hm bf16 d=64 q off a 16-byte boundary", qu, k, v, do,
+         causal=False, n_rep=h_, tc=False)
+    g = torch.Generator(device=dev).manual_seed(9)
+    seg_q = torch.randint(0, 3, (b_, 72), generator=g, device=dev,
+                          dtype=torch.int32)
+    seg_k = torch.randint(0, 3, (b_, 130), generator=g, device=dev,
+                          dtype=torch.int32)
+    seg_q[:, :5] = 7                      # an id no key carries
+    for d in (64, 80, 128):
+        q, k, v, do = _hm_inputs(dev, bh, 72, 130, d, bf16, seed=d + 7)
+        out, lse = hold(f"hm bf16 d={d} all-masked rows", q, k, v, do,
+                        causal=False, n_rep=h_, segs=(seg_q, seg_k))
+        dead = (seg_q[:, :5] == 7).repeat_interleave(h_, 0)
+        check(bool((out[:, :5][dead] == 0).all())
+              and bool((lse[:, :5] == -1e30 + math.log(1e-30)).all()),
+              f"hm bf16 d={d}: an all-masked row gave out "
+              f"{float(out[:, :5].abs().max())}, lse "
+              f"{float(lse[:, :5].max())}")
+    log(f"head-major forward by kernel (small shapes): tensor cores "
+        f"max|out-plain| {worst_fwd['tc']:.3e} (TC_TOL), max|lse-plain| "
+        f"{worst_fwd['tc_lse']:.3e} (1e-3); CUDA cores max|out-plain| "
+        f"{worst_fwd['cuda_core']:.3e}")
 
     # -- the public API: fp16 (widened to the fp32 kernels), and
     #    flash_attention_with_lse's lse cotangent through autograd
@@ -3732,11 +3874,42 @@ def phase_hm_kernels():
             plain_ms=time_ms(plain, **TRAIN_TIMING), bound_ms=bnd,
             bound_by=by, library_ms=lib, shape=shape)
 
-    row("flash_attention", "flash_attention.cu", 393,
+    row("flash_attention", "flash_fwd_tc.cu", 393,
         lambda: flash_attention_fwd(q, k, v, **kw),
         lambda: flash_attention_fwd_plain(q, k, v, **kw),
         time_ms(lib_fwd, **TRAIN_TIMING), 4 * act + stats,
-        4 * d * pairs, max(worst["fwd"], worst_small["fwd"]))
+        4 * d * pairs, worst_fwd["tc"])
+    # the CUDA-core kernel it took over from, on the same inputs: still
+    # built in bf16 (unaligned operands, d=100), launched here directly
+    from apex_tpu_torch.kernels import _build
+    cc_out = torch.empty_like(q)
+    cc_lse = torch.empty((bh, s), dtype=f32, device=dev)
+
+    def cuda_core():
+        _build.check(_build.library().apex_tpu_torch_flash_fwd_hm(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
+            cc_out.data_ptr(), cc_lse.data_ptr(), bh, h, s, s, d,
+            1.0 / d ** 0.5, 1, _build.DTYPE_CODES[bf16], _build.stream()),
+            "flash_attention (CUDA cores)")
+
+    rows["flash_attention"].update(
+        variant=TC_VARIANT["flash_attention"], max_lse_err=worst_fwd["tc_lse"],
+        prev_ms=time_ms(cuda_core, **TRAIN_TIMING),
+        prev_ms_source="measured in this run: csrc/flash_attention.cu's bf16 "
+                       "kernel on the same inputs")
+    # what TC_TOL holds: the CUDA-core kernel keeps P in fp32, and needs a
+    # larger atol against the twins (which round P) than the new kernel
+    ref, _ = flash_attention_fwd_plain(q, k, v, **kw)
+    cc_atol = atol_needed(cc_out, ref, TC_TOL["rtol"])
+    del ref
+    log(f"kernel flash_attention (2.7B shape): tensor cores "
+        f"{rows['flash_attention']['ms']:.4f} ms, the CUDA-core kernel "
+        f"{rows['flash_attention']['prev_ms']:.4f} ms in this run ("
+        f"{rows['flash_attention']['prev_ms'] / rows['flash_attention']['ms']:.1f}"
+        f"x); the atol each needs against plain at TC_TOL's rtol 2^-7: "
+        f"tensor cores {worst_fwd['tc_atol']:.3e} (any shape of this phase; "
+        f"TC_TOL's atol {TC_TOL['atol']}), CUDA cores {cc_atol:.3e}")
+    del cc_out, cc_lse
     # the fused backward: S, dP, dV, dK and dQ over the causal pairs
     row("flash_attention_bwd", "flash_attention_bwd.cu", 514,
         lambda: flash_attention_bwd(*args, **kw),
@@ -3815,6 +3988,7 @@ def phase_2p7b_grads():
         if name == "kernel":
             counts = launch_counts()
             check(counts["flash_attention"] == 2 * cfg.num_layers
+                  and counts["flash_attention_tc"] == 2 * cfg.num_layers
                   and counts["flash_attention_bsh"] == 0,
                   f"2.7B grads: head-major forward launched "
                   f"{counts['flash_attention']} times (expected "
@@ -3907,7 +4081,9 @@ def phase_2p7b_train():
     L = trainer.cfg.num_layers
     steps = 1 + args.steps
     fused, counts, prof = _run_2p7b(trainer, steps, "fused", profile=True)
-    want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_tc": 2 * L * steps,
+            "flash_attention_bwd": L * steps,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
             "flash_attention_bsh": 0, "flash_attention_bsh_bwd": 0}
     for name, n in want.items():
@@ -3921,17 +4097,19 @@ def phase_2p7b_train():
     if prof is not None:
         busy = prof["device_busy_ms"] / prof["window_steps"]
         cats = prof["device_ms_per_step_by_category"]
-        hm = cats.get("flash_fwd_hm", 0.0) + cats.get("flash_bwd_hm", 0.0)
+        fwd = cats.get("flash_fwd_tc", 0.0) + cats.get("flash_fwd_hm", 0.0)
+        hm = fwd + cats.get("flash_bwd_hm", 0.0)
         log(f"2.7B profile: head-major kernels {hm:.2f} of {busy:.2f} device"
-            f" ms a step (share {hm / busy:.4f}), idle share "
-            f"{prof['device_idle_share']:.4f}")
+            f" ms a step (share {hm / busy:.4f}; the forward {fwd:.2f}), "
+            f"idle share {prof['device_idle_share']:.4f}")
 
     os.environ["APEX_TPU_FLASH_BWD"] = "split"
     try:
         split, counts, _ = _run_2p7b(trainer, 3, "split")
     finally:
         del os.environ["APEX_TPU_FLASH_BWD"]
-    want = {"flash_attention": 2 * L * 3, "flash_attention_bwd": 0,
+    want = {"flash_attention": 2 * L * 3, "flash_attention_tc": 2 * L * 3,
+            "flash_attention_bwd": 0,
             "flash_attention_bwd_dq": L * 3,
             "flash_attention_bwd_dkdv": L * 3, "flash_attention_bsh": 0,
             "flash_attention_bsh_bwd": 0}
@@ -3992,6 +4170,7 @@ def phase_bhsd_355m(tcfg, tok, tgt, tree):
                    ratio_to_lane_packed=(wall / 3 * 1e3) / tree["step_ms"])
     log("355M bhsd tree step: " + json.dumps(metrics))
     for name, want in (("flash_attention", L * n),
+                       ("flash_attention_tc", L * n),
                        ("flash_attention_bwd", L * n),
                        ("flash_attention_bsh", 0),
                        ("flash_attention_bsh_bwd", 0)):
@@ -4476,6 +4655,7 @@ def phase_adagrad_train(tcfg, layout, tok, tgt):
           and counts["flash_attention_bsh_bwd"] == L * n_steps,
           f"Adagrad {layout}: flash launches {counts['flash_attention_bsh']}"
           f" / {counts['flash_attention_bsh_bwd']}, expected {L * n_steps}")
+    check_tc(f"Adagrad {layout}", counts, "flash_attention_bsh")
     return metrics
 
 
@@ -4810,6 +4990,8 @@ def main() -> int:
         return 1
     for r in rows.values():
         r["launches"] = counts[r["name"]]
+    rows["flash_attention_bsh"]["launches_tc"] = counts[
+        "flash_attention_bsh_tc"]
     paged_rows["paged_write_column"]["launches"] = paged_counts[
         "paged_write_column"]
     paged_rows["paged_attention"]["launches"] = paged_counts[
@@ -4824,10 +5006,13 @@ def main() -> int:
     for r in train_rows.values():
         r["launches"] = flat["launches"][r["name"]]
     rows["flash_attention_bsh"]["train"] = dict(
-        fwd_train, launches=flat["launches"]["flash_attention_bsh"])
+        fwd_train, launches=flat["launches"]["flash_attention_bsh"],
+        launches_tc=flat["launches"]["flash_attention_bsh_tc"])
     rows.update(train_rows)
     for kname, r in bert_extra.items():
         rows[kname]["bert"] = dict(r, launches=run_a["launches"][kname])
+    rows["flash_attention_bsh"]["bert"]["launches_tc"] = run_a["launches"][
+        "flash_attention_bsh_tc"]
     for r in bert_rows.values():
         r["launches"] = run_a["launches"][r["name"]]
     rows.update(bert_rows)
@@ -4845,6 +5030,8 @@ def main() -> int:
                       ("flash_attention_bwd_dq", split_2p7b),
                       ("flash_attention_bwd_dkdv", split_2p7b)):
         hm_rows[name]["launches"] = run["launches"].get(name, 0)
+    hm_rows["flash_attention"]["launches_tc"] = fused_2p7b["launches"].get(
+        "flash_attention_tc", 0)
     rows.update(hm_rows)
     # scale and axpby from the L3 loop; adagrad from the flat FusedAdagrad
     # trainer (its L3-loop count beside); the softmax from

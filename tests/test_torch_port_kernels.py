@@ -164,6 +164,11 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     tk.decode_attention(q, kn, vn, kc, vc, torch.zeros(4, dtype=torch.int32))
     x = torch.zeros(1, 8, 128)
     tk.flash_attention_bsh(x, x, x, num_heads=2, causal=True)
+    # bf16 takes the tensor-core kernel on the card; on the CPU the plain twin
+    xb = x.to(torch.bfloat16)
+    assert tk.tc_forward(xb, xb, xb, 64)
+    tk.flash_attention_bsh(xb, xb, xb, num_heads=2, causal=True)
+    tk.flash_attention_fwd(xb, xb, xb, causal=True)
     tk.layer_norm(x)
     tk.l2norm_flat([x.reshape(-1)])
     pool = torch.zeros(5, 2, 8, 64)
@@ -232,8 +237,11 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "axpby_flat": 0,
                                   "adagrad_flat": 0,
                                   "softmax_fwd": 0,
-                                  "softmax_bwd": 0}
+                                  "softmax_bwd": 0,
+                                  "flash_attention_bsh_tc": 0,
+                                  "flash_attention_tc": 0}
     tk.write_column.launches = 3
+    tk.flash_attention_fwd.tc_launches = 2
     tk.reset_launch_counts()
     assert set(tk.launch_counts().values()) == {0}
 
@@ -285,4 +293,4 @@ def test_build_dir_is_content_addressed():
         "flash_attention_bsh.cu", "decode_attention.cu",
         "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
         "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "softmax.cu"}
+        "softmax.cu", "flash_fwd_tc.cu"}
