@@ -15,8 +15,8 @@
 // simple: all arithmetic is fp32 on the CUDA cores, which makes it
 // compute-bound on them, far from either bound. It runs fp32 (and float16,
 // widened) and the bf16 calls the tensor-core kernel of flash_fwd_tc.cu
-// does not take (a head width that is not a multiple of 8, an operand off
-// a 16-byte boundary; kernels/flash_attention.py:tc_forward). One block of 256 threads owns one
+// does not take (a head width that is not a multiple of 8;
+// kernels/flash_attention.py:tc_route). One block of 256 threads owns one
 // (bh, 64-row query tile). Q stays in shared memory while 64-key K/V tiles
 // stream through it; each thread scores its 4 x 4 entries of the 64 x 64
 // tile, the row max and sum are four shuffles over the 16 threads of a row,

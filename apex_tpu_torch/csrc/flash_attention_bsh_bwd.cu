@@ -2,7 +2,10 @@
 //
 // Replaces: apex_tpu/kernels/flash_attention.py:_run_bwd_bsh (kernel body
 // _dqkv_kernel_bsh, block math _p_ds), the backward of the lane-packed
-// forward that every training step runs once per layer.
+// forward that every training step runs once per layer, for fp32 and fp16
+// (widened) inputs; bf16 takes the tensor-core kernel of flash_bwd_tc.cu
+// (kernels/flash_attention.py:tc_route). Its bf16 instantiation stays
+// for timing that kernel against this one on the same inputs.
 //
 // What bounds it on an H100: operations. Causal at b=16, s=1024, 16
 // heads of 64 it does five s x s x 64 products over the lower triangle,

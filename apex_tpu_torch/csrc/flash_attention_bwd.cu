@@ -9,7 +9,10 @@
 // - the split dQ sweep (:547, _dq_kernel :207) and dK/dV sweep (:569,
 //   _dkv_kernel :237), for longer sequences or APEX_TPU_FLASH_BWD=split.
 // All three recompute P and dS with the _p_ds block math (:170) under the
-// _valid_cols mask (:150); see flash_hm.cuh.
+// _valid_cols mask (:150); see flash_hm.cuh. The fused sweep runs fp32,
+// fp16 (widened) and bf16 at a head width that is not a multiple of 8;
+// other bf16 calls take the tensor-core kernel of flash_bwd_tc.cu
+// (kernels/flash_attention.py:tc_route).
 //
 // What bounds them on an H100: at the 2.7B step's shape (b=8, 32 heads,
 // s=1024, d=80, bf16, causal) the five products over the causal half are

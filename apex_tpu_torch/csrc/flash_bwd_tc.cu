@@ -1,0 +1,555 @@
+// Tensor-core flash-attention backward, bf16, for both layouts the port
+// runs: the model layout [b, s, hidden] (heads of 64 side by side along
+// hidden) and the head-major layout [bh, s, d] with any d <= 128 that is a
+// multiple of 8, kv lengths, segment ids and n_rep.
+//
+// Replaces two TPU kernels for bf16 inputs:
+//   apex_tpu/kernels/flash_attention.py:_run_bwd_bsh (the pallas_call at
+//   :1060, kernel body _dqkv_kernel_bsh :890), and
+//   apex_tpu/kernels/flash_attention.py:_run_bwd, fused (the pallas_call
+//   at :514, kernel body _dqkv_kernel :272).
+// fp32 and fp16 (widened to fp32), bf16 head widths that are not a
+// multiple of 8 and the split dQ / dK-dV sweeps stay on
+// flash_attention_bsh_bwd.cu and flash_attention_bwd.cu;
+// kernels/flash_attention.py:tc_route picks.
+//
+// What bounds it on an H100: at the GPT-2 355M step (b=16, 16 heads of
+// 64, s=1024, causal) operations: five s x s x 64 products over the causal
+// half, 8.6e10 FLOP, 0.087 ms at 989 TFLOP/s, against 0.064 ms for its
+// bytes. At the 2.7B step (b=8, 32 heads of 80, fp32 gradients) bytes:
+// 421 MB, 0.126 ms.
+//
+// What the design does about it (FlashAttention-2's backward on
+// mma.sync m16n8k16, bf16 in, fp32 accumulate):
+// - Element (batch, head, row, col) of q/k/v/do and of the gradients is at
+//   base + batch*s_b + head*s_h + row*s_row + col; lse and delta at
+//   bh*sq + row. One body serves both layouts.
+// - A block of WARPS (8) warps owns one (batch*head, key tile of 16*WARPS
+//   keys); each warp owns 16 keys. K and V of the tile are copied to
+//   shared memory once. The block walks the query tiles of BQ rows, from
+//   the diagonal down when causal (_causal_skip, :144); key tiles past
+//   kv_end do no work and write zeros. Q, dO, lse, delta and the query
+//   segment ids stream through a 2-stage cp.async ring: the next tile's
+//   copy is issued before the current one is computed on. Causal key
+//   tiles are launched most-work-first (key tile 0 sees every query), and
+//   a warp whose 16 keys all lie past a query tile's last row skips it.
+// - Per query tile, in each warp's registers: S^T = K Q^T and dP^T = V
+//   dO^T (K and V as A operands, Q and dO as col-major B operands straight
+//   from ldmatrix); P^T = exp2(S^T scale log2e - lse log2e) under the
+//   _valid_cols mask (:150; lse and delta belong to the query, so here to
+//   the column), masked entries set to 0 before the exp2 can overflow;
+//   dS^T = P^T (dP^T - delta) scale. P^T and dS^T are rounded to bf16 as
+//   JAX's _p_ds does (:188-189) and packed straight into A fragments for
+//   dV += P^T dO and dK += dS^T Q (dO and Q through ldmatrix.trans). The dK
+//   and dV sums stay in fp32 registers for the whole sweep.
+// - dQ += dS K needs dS untransposed: each warp writes its bf16 dS^T rows
+//   to one shared tile, the block meets at a barrier, and the warps split
+//   the BQ x d dQ tile (A = dS by ldmatrix.trans of dS^T, B = K by
+//   ldmatrix.trans) and add their partials with fp32 atomics (two adjacent
+//   columns at a time) into an fp32 [rows, d] accumulator with q's strides,
+//   zeroed by the entry. The order of those adds changes from launch to
+//   launch, so dQ may differ in its last bits between launches.
+// - Rows past sq are masked out of P explicitly and never add to dQ; keys
+//   past kv_end are masked; head columns past d are zero-filled by
+//   cp.async's src-size and never stored.
+// - Epilogue: dK and dV in the op's gradient dtype (OutT: bf16 for the
+//   model layout, fp32 for the head-major one).
+#include "flash_tc.cuh"
+
+namespace apex_tpu_torch {
+namespace {
+
+using namespace tc;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  const float* lse;     // [bh, sq]
+  const float* delta;   // [bh, sq]
+  const int* lens;      // [bh] or null
+  const int* seg_q;     // [bh / n_rep, sq] or null
+  const int* seg_k;     // [bh / n_rep, sk] or null
+  float* dq;            // fp32 accumulator, q's strides, zeroed
+  void* dk;             // OutT, k's strides
+  void* dv;
+  long long q_sb;       // batch stride of q, do and dq (elements)
+  long long k_sb;       // batch stride of k, v, dk and dv
+  long long s_h;        // head stride
+  long long s_row;      // row stride
+  int heads;            // blockIdx.x = batch * heads + head
+  int sq, sk, d, n_rep;
+  float scale;
+  float scale_log2;     // scale * log2(e)
+  int causal;
+};
+
+// DP: padded head width; BQ: query rows of a tile; WARPS: warps of a block,
+// 16 keys each
+template <int DP, int BQ, int WARPS>
+struct Bw {
+  static_assert(DP % 16 == 0 && DP <= 128, "padded head width");
+  static_assert(BQ % 16 == 0, "whole m16 tiles of queries");
+  static constexpr int kBK = 16 * WARPS;        // keys of a block
+  static constexpr int kThreads = 32 * WARPS;
+  static constexpr int kLd = DP + 8;            // smem row stride (bf16)
+  static constexpr int kLdS = BQ + 8;           // dS^T row stride (bf16)
+  static constexpr int kKTile = kBK * kLd;      // bf16 of the K or V tile
+  static constexpr int kQTile = BQ * kLd;       // bf16 of a Q or dO tile
+  static constexpr int kKSteps = DP / 16;       // k16 steps over d
+  static constexpr int kQN = BQ / 8;            // n8 tiles of S^T
+  static constexpr int kDN = DP / 8;            // n8 tiles of dK, dV
+  // dQ: the BQ x DP tile as kQM m16 tiles of queries, each split over
+  // kParts warps by pairs of n8 tiles of d
+  static constexpr int kQM = BQ / 16;
+  static_assert(WARPS % kQM == 0, "every warp gets a share of dQ");
+  static constexpr int kParts = WARPS / kQM;
+  static constexpr int kPairs = DP / 16;
+  static constexpr int kPairsPer = (kPairs + kParts - 1) / kParts;
+  // K, V, two stages of (Q, dO), dS^T; two stages of (lse, delta); key
+  // segment ids, two stages of query ids
+  static constexpr size_t kSmem =
+      (2 * (size_t)kKTile + 4 * (size_t)kQTile + (size_t)kBK * kLdS) *
+          sizeof(bf16) +
+      4 * BQ * sizeof(float) + (kBK + 2 * BQ) * sizeof(int);
+};
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// dst[0..1] += (a, b) in global memory, one vector atomic
+__device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
+}
+
+template <int DP, int BQ, int WARPS, typename OutT, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
+flash_bwd_tc_kernel(const Params p) {
+  using G = Bw<DP, BQ, WARPS>;
+  constexpr int kBK = G::kBK;
+  constexpr int kThreads = G::kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + G::kKTile;
+  bf16* qs = vs + G::kKTile;                 // 2 stages
+  bf16* dos = qs + 2 * G::kQTile;            // 2 stages
+  bf16* dst = dos + 2 * G::kQTile;           // dS^T, kBK x kLdS
+  float* lse_s = reinterpret_cast<float*>(dst + kBK * G::kLdS);  // 2 x BQ
+  float* del_s = lse_s + 2 * BQ;                                 // 2 x BQ
+  int* segk_s = reinterpret_cast<int*>(del_s + 2 * BQ);          // kBK
+  int* segq_s = segk_s + kBK;                                    // 2 x BQ
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBK;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;       // mma group: rows g and g + 8
+  const int tig = lane & 3;      // thread in group: columns 2 tig, 2 tig + 1
+
+  const int batch = bh / p.heads;
+  const int head = bh - batch * p.heads;
+  const long long q_off = batch * p.q_sb + head * p.s_h;
+  const long long k_off = batch * p.k_sb + head * p.s_h;
+  const bf16* qb = p.q + q_off;
+  const bf16* dob = p.dout + q_off;
+  const float* lse_b = p.lse + (long long)bh * p.sq;
+  const float* del_b = p.delta + (long long)bh * p.sq;
+
+  const int kv_end = p.lens ? max(0, min(p.sk, p.lens[bh])) : p.sk;
+  const bool segs = p.seg_q != nullptr;
+  const int bseg = bh / p.n_rep;
+  const int* segq_b = segs ? p.seg_q + (long long)bseg * p.sq : nullptr;
+  const int* segk_b = segs ? p.seg_k + (long long)bseg * p.sk : nullptr;
+  const int kw0 = k0 + warp * 16;           // this warp's first key
+
+  // ldmatrix x4 lane offsets: a_r / a_c for an A operand (16 rows x 16
+  // columns) and for a row-major B operand read with .trans; b_r / b_c for
+  // a col-major B operand (16 n-rows x 16 k-columns) read without .trans
+  const int a_r = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_c = (lane >> 4) * 8;
+  const int b_r = (lane & 7) + (lane >> 4) * 8;
+  const int b_c = ((lane >> 3) & 1) * 8;
+
+  float dka[G::kDN][4], dva[G::kDN][4];
+#pragma unroll
+  for (int j = 0; j < G::kDN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  // Q, dO and the per-query operands of the tile at q0 into stage st
+  auto load_q = [&](int st, int q0) {
+    load_tile_async<DP, BQ, kThreads>(qs + st * G::kQTile, qb, p.s_row, q0,
+                                      p.sq, p.d);
+    load_tile_async<DP, BQ, kThreads>(dos + st * G::kQTile, dob, p.s_row, q0,
+                                      p.sq, p.d);
+    if (tid < BQ) {
+      const int r = q0 + tid;
+      const bool ok = r < p.sq;
+      cp_async4(lse_s + st * BQ + tid, ok ? lse_b + r : lse_b, ok);
+      cp_async4(del_s + st * BQ + tid, ok ? del_b + r : del_b, ok);
+      if (segs) cp_async4(segq_s + st * BQ + tid, ok ? segq_b + r : segq_b,
+                          ok);
+    }
+  };
+
+  if (k0 < kv_end) {
+    // causal: query tiles wholly above this key tile see none of its keys
+    const int q_first = p.causal ? (k0 / BQ) * BQ : 0;
+    const int n_qt = (p.sq - q_first + BQ - 1) / BQ;
+
+    // prologue: K, V and the key ids with the first query tile, one group
+    load_tile_async<DP, kBK, kThreads>(ks, p.k + k_off, p.s_row, k0, kv_end,
+                                       p.d);
+    load_tile_async<DP, kBK, kThreads>(vs, p.v + k_off, p.s_row, k0, kv_end,
+                                       p.d);
+    if (segs && tid < kBK) {
+      const bool ok = k0 + tid < p.sk;
+      cp_async4(segk_s + tid, ok ? segk_b + k0 + tid : segk_b, ok);
+    }
+    load_q(0, q_first);
+    cp_async_commit();
+
+    for (int t = 0; t < n_qt; ++t) {
+      const int st = t & 1;
+      const int q0 = q_first + t * BQ;
+      // issue tile t + 1 into the other stage (its readers finished at the
+      // second barrier of iteration t - 1), then wait for tile t
+      if (t + 1 < n_qt) load_q(st ^ 1, q0 + BQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+
+      const bf16* qt = qs + st * G::kQTile;
+      const bf16* dot = dos + st * G::kQTile;
+      const float* ls = lse_s + st * BQ;
+      const float* dl = del_s + st * BQ;
+      const int* sgq = segq_s + st * BQ;
+
+      // a warp whose keys are all masked for this tile (past kv_end, or
+      // causal and past every query of it) only writes zeros of dS^T
+      const bool live = kw0 < kv_end && !(p.causal && kw0 > q0 + BQ - 1);
+      if (live) {
+        float s[G::kQN][4], dp[G::kQN][4];
+#pragma unroll
+        for (int j = 0; j < G::kQN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries
+#pragma unroll
+        for (int kk = 0; kk < G::kKSteps; ++kk) {
+          uint32_t ka[4], va[4];
+          ldmatrix_x4(ka, ks + (warp * 16 + a_r) * G::kLd + kk * 16 + a_c);
+          ldmatrix_x4(va, vs + (warp * 16 + a_r) * G::kLd + kk * 16 + a_c);
+#pragma unroll
+          for (int jp = 0; jp < G::kQN / 2; ++jp) {
+            uint32_t b[4];
+            ldmatrix_x4(b, qt + (jp * 16 + b_r) * G::kLd + kk * 16 + b_c);
+            mma_bf16(s[2 * jp], ka, b[0], b[1]);
+            mma_bf16(s[2 * jp + 1], ka, b[2], b[3]);
+            ldmatrix_x4(b, dot + (jp * 16 + b_r) * G::kLd + kk * 16 + b_c);
+            mma_bf16(dp[2 * jp], va, b[0], b[1]);
+            mma_bf16(dp[2 * jp + 1], va, b[2], b[3]);
+          }
+        }
+
+        // P^T and dS^T in place of S^T and dP^T; the per-element mask only
+        // where some entry of the warp's block can be masked
+        const bool need_mask = segs || q0 + BQ > p.sq || kw0 + 16 > kv_end ||
+                               (p.causal && kw0 + 15 > q0);
+        if (need_mask) {
+#pragma unroll
+          for (int j = 0; j < G::kQN; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int lc = j * 8 + tig * 2 + (e & 1);
+              const int query = q0 + lc;
+              const int key = kw0 + g + (e >> 1) * 8;
+              bool ok = query < p.sq && key < kv_end &&
+                        (!p.causal || key <= query);
+              if (segs) ok = ok && sgq[lc] == segk_s[key - k0];
+              const float pv =
+                  ok ? exp2f(fmaf(s[j][e], p.scale_log2, -ls[lc] * kLog2e))
+                     : 0.f;
+              s[j][e] = pv;
+              dp[j][e] = pv * (dp[j][e] - dl[lc]) * p.scale;
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < G::kQN; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int lc = j * 8 + tig * 2 + (e & 1);
+              const float pv =
+                  exp2f(fmaf(s[j][e], p.scale_log2, -ls[lc] * kLog2e));
+              s[j][e] = pv;
+              dp[j][e] = pv * (dp[j][e] - dl[lc]) * p.scale;
+            }
+        }
+
+        // P^T and dS^T rounded to bf16 as A fragments, 16 queries a step;
+        // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+        for (int kk = 0; kk < G::kQN / 2; ++kk) {
+          uint32_t pa[4], da[4];
+          pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+          pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+          pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+          da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+          da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+          da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+          // this warp's rows of dS^T for the dQ product
+          bf16* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
+          bf16* w8 = w0 + 8 * G::kLdS;
+          *reinterpret_cast<uint32_t*>(w0) = da[0];
+          *reinterpret_cast<uint32_t*>(w8) = da[1];
+          *reinterpret_cast<uint32_t*>(w0 + 8) = da[2];
+          *reinterpret_cast<uint32_t*>(w8 + 8) = da[3];
+#pragma unroll
+          for (int jp = 0; jp < DP / 16; ++jp) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, dot + (kk * 16 + a_r) * G::kLd + jp * 16 +
+                                     a_c);
+            mma_bf16(dva[2 * jp], pa, b[0], b[1]);
+            mma_bf16(dva[2 * jp + 1], pa, b[2], b[3]);
+            ldmatrix_x4_trans(b, qt + (kk * 16 + a_r) * G::kLd + jp * 16 +
+                                     a_c);
+            mma_bf16(dka[2 * jp], da, b[0], b[1]);
+            mma_bf16(dka[2 * jp + 1], da, b[2], b[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < G::kQN / 2; ++kk) {
+          bf16* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
+          bf16* w8 = w0 + 8 * G::kLdS;
+          *reinterpret_cast<uint32_t*>(w0) = 0u;
+          *reinterpret_cast<uint32_t*>(w8) = 0u;
+          *reinterpret_cast<uint32_t*>(w0 + 8) = 0u;
+          *reinterpret_cast<uint32_t*>(w8 + 8) = 0u;
+        }
+      }
+      __syncthreads();   // dS^T is whole; every warp is done with stage st
+
+      // dQ += dS K over this warp's share: query rows mq*16.. of the tile,
+      // n8 pairs [lo, hi) of d. Rows past sq, and causal rows above every
+      // key of the block, get nothing.
+      const int mq = warp % G::kQM;
+      const int lo = (warp / G::kQM) * G::kPairsPer;
+      const int hi = min(G::kPairs, lo + G::kPairsPer);
+      const int r0 = q0 + mq * 16;
+      if (r0 < p.sq && !(p.causal && r0 + 15 < k0)) {
+        float acc[2 * G::kPairsPer][4];
+#pragma unroll
+        for (int i = 0; i < 2 * G::kPairsPer; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+        // x4.trans of dS^T (keys x queries): A = dS, (queries 0-7, keys
+        // 0-7), (queries 8-15, keys 0-7), (queries 0-7, keys 8-15),
+        // (queries 8-15, keys 8-15)
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, dst + (kk * 16 + b_r) * G::kLdS + mq * 16 +
+                                   b_c);
+#pragma unroll
+          for (int i = 0; i < G::kPairsPer; ++i) {
+            const int jp = lo + i;
+            if (jp < hi) {
+              uint32_t b[4];
+              ldmatrix_x4_trans(b, ks + (kk * 16 + a_r) * G::kLd + jp * 16 +
+                                       a_c);
+              mma_bf16(acc[2 * i], a, b[0], b[1]);
+              mma_bf16(acc[2 * i + 1], a, b[2], b[3]);
+            }
+          }
+        }
+        float* dqb = p.dq + q_off;
+#pragma unroll
+        for (int i = 0; i < G::kPairsPer; ++i) {
+          const int jp = lo + i;
+          if (jp >= hi) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r0 + g + 8 * h;
+            if (row >= p.sq) continue;
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              const int col = jp * 16 + n * 8 + tig * 2;
+              if (col < p.d)
+                atomic_add2(dqb + (long long)row * p.s_row + col,
+                            acc[2 * i + n][2 * h], acc[2 * i + n][2 * h + 1]);
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+
+  // epilogue: this warp's 16 keys of dK and dV (zeros past kv_end)
+  OutT* dkb = static_cast<OutT*>(p.dk) + k_off;
+  OutT* dvb = static_cast<OutT*>(p.dv) + k_off;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kw0 + g + 8 * h;
+    if (key >= p.sk) continue;
+#pragma unroll
+    for (int j = 0; j < G::kDN; ++j) {
+      const int col = j * 8 + tig * 2;
+      if (col < p.d) {
+        const long long o = (long long)key * p.s_row + col;
+        store2<OutT>(dkb + o, dka[j][2 * h], dka[j][2 * h + 1]);
+        store2<OutT>(dvb + o, dva[j][2 * h], dva[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int DP, int BQ, int WARPS, typename OutT, int MINB>
+cudaError_t launch_cfg(const Params& p, int bh, cudaStream_t stream) {
+  using G = Bw<DP, BQ, WARPS>;
+  static bool smem_ok = false;
+  const cudaError_t err = hm::allow_smem(
+      flash_bwd_tc_kernel<DP, BQ, WARPS, OutT, MINB>, G::kSmem, &smem_ok);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (p.sk + G::kBK - 1) / G::kBK);
+  flash_bwd_tc_kernel<DP, BQ, WARPS, OutT, MINB>
+      <<<grid, G::kThreads, G::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// 128-key blocks of 8 warps: each Q / dO tile copied to shared memory, and
+// each dQ atomic, then serves twice the keys of a 64-key block of 4 warps,
+// which ran 1.2-1.5x slower at every width. The query tile and the
+// register cap by measurement, sides in turns (PERF.md; NVIDIA H100 80GB
+// HBM3, 700.00 W): DP 64 32-row tiles at 128 registers, two blocks an SM
+// (0.52 ms at the GPT step, against 0.65 at 64 rows and 246 registers);
+// DP 80 64-row tiles, one block (32 rows at a 128-register cap spill 120
+// bytes); DP 128 32-row tiles, one block (the dK / dV sums alone take 128
+// registers).
+template <typename OutT>
+cudaError_t launch_dp(const Params& p, int bh, cudaStream_t stream) {
+  switch (hm::padded_width(p.d)) {
+    case 64:
+      return launch_cfg<64, 32, 8, OutT, 2>(p, bh, stream);
+    case 80:
+      return launch_cfg<80, 64, 8, OutT, 1>(p, bh, stream);
+    default:
+      return launch_cfg<128, 32, 8, OutT, 1>(p, bh, stream);
+  }
+}
+
+}  // namespace
+}  // namespace apex_tpu_torch
+
+using namespace apex_tpu_torch;
+
+// bf16 q/dout [b, sq, hidden], k/v [b, sk, hidden] with heads of kHeadDim
+// side by side along hidden; lse and delta fp32 [b, heads, sq]. Writes dq
+// as an fp32 [b, sq, hidden] sum (zeroed here first) and dk/dv as bf16 [b,
+// sk, hidden]. Every pointer 16-byte aligned. Returns cudaGetLastError()
+// after the launch; cudaErrorInvalidValue for anything the kernel does not
+// take (nothing launched).
+extern "C" int apex_tpu_torch_flash_bwd_bsh_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
+    int sq, int sk, int hidden, int heads, float scale, int causal,
+    void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      hidden != heads * kHeadDim || (causal && sq != sk) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(dq, 0, (size_t)b * sq * hidden * sizeof(float), st);
+  if (err != cudaSuccess) return err;
+  Params p{};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<float*>(dq);
+  p.dk = dk;
+  p.dv = dv;
+  p.q_sb = (long long)sq * hidden;
+  p.k_sb = (long long)sk * hidden;
+  p.s_h = kHeadDim;
+  p.s_row = hidden;
+  p.heads = heads;
+  p.sq = sq;
+  p.sk = sk;
+  p.d = kHeadDim;
+  p.n_rep = 1;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  p.causal = causal;
+  return launch_dp<bf16>(p, b * heads, st);
+}
+
+// The argument list of the head-major backward entries
+// (flash_attention_bwd.cu): bf16 q/dout [bh, sq, d], k/v [bh, sk, d], d <=
+// 128 and a multiple of 8; lse and delta fp32 [bh, sq]; lens int32 [bh] or
+// null; seg_q/seg_k int32 [bh / n_rep, sq] / [bh / n_rep, sk] or null
+// (both or neither); fp32 gradients dq [bh, sq, d] (zeroed here first),
+// dk/dv [bh, sk, d]. q, k, v and dout 16-byte aligned; `dtype` must be
+// bf16's code. Returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for anything the kernel does not take (nothing
+// launched).
+extern "C" int apex_tpu_torch_flash_bwd_hm_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* lens, const void* seg_q,
+    const void* seg_k, void* dq, void* dk, void* dv, int bh, int n_rep,
+    int sq, int sk, int d, float scale, int causal, int dtype, void* stream) {
+  if (dtype != kBFloat16 || bh <= 0 || n_rep <= 0 || bh % n_rep || sq <= 0 ||
+      sk <= 0 || d <= 0 || d > 128 || d % 8 || (causal && sq != sk) ||
+      ((seg_q == nullptr) != (seg_k == nullptr)) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(dq, 0, (size_t)bh * sq * d * sizeof(float), st);
+  if (err != cudaSuccess) return err;
+  Params p{};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.lens = static_cast<const int*>(lens);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_k = static_cast<const int*>(seg_k);
+  p.dq = static_cast<float*>(dq);
+  p.dk = dk;
+  p.dv = dv;
+  p.q_sb = (long long)sq * d;
+  p.k_sb = (long long)sk * d;
+  p.s_h = 0;
+  p.s_row = d;
+  p.heads = 1;
+  p.sq = sq;
+  p.sk = sk;
+  p.d = d;
+  p.n_rep = n_rep;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  p.causal = causal;
+  return launch_dp<float>(p, bh, st);
+}

@@ -9,7 +9,7 @@
 //   apex_tpu/kernels/flash_attention.py:_run_fwd (the pallas_call at :393,
 //   kernel body _fwd_kernel :95).
 // fp32 and fp16 (widened to fp32) stay on flash_attention_bsh.cu and
-// flash_attention.cu; kernels/flash_attention.py:tc_forward picks.
+// flash_attention.cu; kernels/flash_attention.py:tc_route picks.
 //
 // What bounds it on an H100: bytes, just. At the GPT-2 355M step (b=16,
 // 16 heads of 64, s=1024, causal) one call reads q, k, v and writes out
@@ -55,12 +55,12 @@
 //   and lse = -1e30 + log(1e-30), as _finish (:133-137).
 // Rows past sq (the last tile's padding) are computed on zeros and never
 // stored.
-#include "flash_hm.cuh"
+#include "flash_tc.cuh"
 
 namespace apex_tpu_torch {
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace tc;
 
 constexpr int kBK = 64;               // keys of a K/V tile
 constexpr int kWarps = 4;
@@ -105,59 +105,6 @@ struct Tc {
       2 * kBK * sizeof(int) + kBQ * sizeof(int);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src-size 0)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b: one m16n8k16 product, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -166,28 +113,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// rows [r0, r0 + ROWS) of one head's [rows, d] slice into a ROWS x (DP + 8)
-// shared tile by cp.async; rows at or past `rows` and columns at or past
-// d are zero-filled
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile_async(bf16* dst,
-                                                const bf16* __restrict__ src,
-                                                long long s_row, int r0,
-                                                int rows, int d) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kLd = DP + 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "whole chunks a thread");
-#pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    const bool ok = r0 + r < rows && c < d;
-    const bf16* s = ok ? src + (long long)(r0 + r) * s_row + c : src;
-    cp_async16(dst + r * kLd + c, s, ok);
-  }
 }
 
 template <int DP, int MT, int MINB>
@@ -230,14 +155,14 @@ flash_fwd_tc_kernel(const Params p) {
   const int n_kt = (k_end + kBK - 1) / kBK;
 
   // prologue: Q, then K/V tile 0 (two commit groups)
-  load_tile_async<DP, kBQ>(qs, qb, p.s_row, q0, p.sq, p.d);
+  load_tile_async<DP, kBQ, kThreads>(qs, qb, p.s_row, q0, p.sq, p.d);
   cp_async_commit();
   if (segs && tid < kBQ)
     segq_s[tid] = q0 + tid < p.sq ? p.seg_q[(long long)bseg * p.sq + q0 + tid]
                                   : -1;
   if (n_kt > 0) {
-    load_tile_async<DP, kBK>(ks, kb, p.s_row, 0, kv_end, p.d);
-    load_tile_async<DP, kBK>(vs, vb, p.s_row, 0, kv_end, p.d);
+    load_tile_async<DP, kBK, kThreads>(ks, kb, p.s_row, 0, kv_end, p.d);
+    load_tile_async<DP, kBK, kThreads>(vs, vb, p.s_row, 0, kv_end, p.d);
     if (segs && tid < kBK)
       segk_s[tid] = tid < p.sk ? p.seg_k[(long long)bseg * p.sk + tid] : -1;
   }
@@ -276,10 +201,10 @@ flash_fwd_tc_kernel(const Params p) {
     // barrier that closed iteration t - 1), then wait for tile t
     if (t + 1 < n_kt) {
       const int nst = st ^ 1;
-      load_tile_async<DP, kBK>(ks + nst * G::kKTile, kb, p.s_row, k0 + kBK,
-                               kv_end, p.d);
-      load_tile_async<DP, kBK>(vs + nst * G::kKTile, vb, p.s_row, k0 + kBK,
-                               kv_end, p.d);
+      load_tile_async<DP, kBK, kThreads>(ks + nst * G::kKTile, kb, p.s_row,
+                                         k0 + kBK, kv_end, p.d);
+      load_tile_async<DP, kBK, kThreads>(vs + nst * G::kKTile, vb, p.s_row,
+                                         k0 + kBK, kv_end, p.d);
       if (segs && tid < kBK) {
         const int c = k0 + kBK + tid;
         segk_s[nst * kBK + tid] =
@@ -508,10 +433,6 @@ cudaError_t launch_dp(const Params& p, int bh, cudaStream_t stream) {
     default:
       return launch_rows<128>(p, bh, stream);
   }
-}
-
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
 }  // namespace

@@ -5,10 +5,11 @@ tensors launch the kernel, CPU tensors run the plain version, anything
 else raises. Every wrapper counts its launches in a plain integer
 attribute; :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main
-path went through the kernels. The two flash forwards also count the
-launches of their tensor-core kernel apart (``tc_launches``, reported as
-``flash_attention_bsh_tc`` and ``flash_attention_tc``): the total stays
-in ``launches``. Importing this package builds nothing:
+path went through the kernels. The two flash forwards and the two fused
+flash backwards also count the launches of their tensor-core kernel
+apart (``tc_launches``, reported as ``flash_attention_bsh_tc``,
+``flash_attention_tc``, ``flash_attention_bsh_bwd_tc`` and
+``flash_attention_bwd_tc``): the total stays in ``launches``. Importing this package builds nothing:
 the library is compiled at the first launch.
 
 Unlike the JAX package, the name ``flash_attention`` here stays the
@@ -69,7 +70,7 @@ from apex_tpu_torch.kernels.flash_attention import (
     flash_attention_with_lse,
     flash_bsh_eligible,
     mha,
-    tc_forward,
+    tc_route,
 )
 from apex_tpu_torch.kernels.flat_ops import (
     adagrad_flat,
@@ -150,12 +151,15 @@ KERNEL_WRAPPERS = {
 TC_COUNTERS = {
     "flash_attention_bsh_tc": flash_attention_bsh_fwd,
     "flash_attention_tc": flash_attention_fwd,
+    "flash_attention_bsh_bwd_tc": flash_attention_bsh_bwd,
+    "flash_attention_bwd_tc": flash_attention_bwd,
 }
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`;
-    the ``*_tc`` entries are the tensor-core share of a forward's."""
+    the ``*_tc`` entries are the tensor-core share of a flash forward's
+    or fused backward's."""
     counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
     counts.update((name, fn.tc_launches) for name, fn in TC_COUNTERS.items())
     return counts
@@ -240,7 +244,7 @@ __all__ = [
     "softmax_cross_entropy",
     "softmax_fwd",
     "softmax_fwd_plain",
-    "tc_forward",
+    "tc_route",
     "write_column",
     "write_column_plain",
     "write_column_quant",

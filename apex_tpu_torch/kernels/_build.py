@@ -83,6 +83,13 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_float, _c_int, _c_void_p],
+    # the lane-packed tensor-core backward (bf16 only): as
+    # apex_tpu_torch_flash_bwd_bsh, less the dtype; dq is an fp32 sum
+    "apex_tpu_torch_flash_bwd_bsh_tc": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+        _c_void_p],
     "apex_tpu_torch_adam_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_longlong, _c_int, _c_int, _c_int, _c_void_p],
@@ -183,7 +190,8 @@ _SIGNATURES = {
 
 # the head-major backward entries: q, k, v, do, lse, delta, lens, seg_q,
 # seg_k, dq, dk, dv, bh, n_rep, sq, sk, d, scale, causal, q's dtype, stream
-for _name in ("fused", "dq", "dkdv"):
+# ("tc": the tensor-core fused backward, bf16 only)
+for _name in ("fused", "dq", "dkdv", "tc"):
     _SIGNATURES[f"apex_tpu_torch_flash_bwd_hm_{_name}"] = [
         _c_void_p] * 12 + [_c_int] * 5 + [_c_float, _c_int, _c_int,
                                           _c_void_p]

@@ -16,12 +16,13 @@ Two ops of the ``apex_tpu_torch`` library, joined by
 - ``apex_tpu_torch::flash_attention_bsh_fwd(q, k, v, num_heads, causal,
   scale) -> (out, lse)`` — CUDA tensors launch the tensor-core kernel of
   ``csrc/flash_fwd_tc.cu`` (bf16) or ``csrc/flash_attention_bsh.cu``
-  (fp32), by :func:`tc_forward`; CPU tensors run
+  (fp32), by :func:`tc_route`; CPU tensors run
   :func:`flash_attention_bsh_plain`;
 - ``apex_tpu_torch::flash_attention_bsh_bwd(q, k, v, do, lse, delta,
-  num_heads, causal, scale) -> (dq, dk, dv)`` — CUDA tensors launch
-  ``csrc/flash_attention_bsh_bwd.cu``, CPU tensors run
-  :func:`flash_attention_bsh_bwd_plain`.
+  num_heads, causal, scale) -> (dq, dk, dv)`` — CUDA tensors launch the
+  tensor-core kernel of ``csrc/flash_bwd_tc.cu`` (bf16) or
+  ``csrc/flash_attention_bsh_bwd.cu`` (fp32), by the same rule; CPU
+  tensors run :func:`flash_attention_bsh_bwd_plain`.
 
 The autograd backward computes ``delta = sum_d(out * do)`` per head (the
 JAX ``_flash_bsh_bwd``) and calls the backward op; lse carries no
@@ -36,9 +37,11 @@ float16 inputs to fp32 and cast the results back
 (``apex_tpu/kernels/flash_attention.py:1167-1178``), so fp16 runs the
 fp32 instantiation of the kernels. Each kernel's launch
 count is kept on its wrapper (``flash_attention_bsh_fwd.launches``,
-``flash_attention_bsh_bwd.launches``); the forwards also count their
-tensor-core launches apart (``flash_attention_bsh_fwd.tc_launches``,
-``flash_attention_fwd.tc_launches``), inside the total.
+``flash_attention_bsh_bwd.launches``); the forwards and the fused
+backwards also count their tensor-core launches apart
+(``flash_attention_bsh_fwd.tc_launches``, ``flash_attention_fwd.
+tc_launches``, ``flash_attention_bsh_bwd.tc_launches``,
+``flash_attention_bwd.tc_launches``), inside the total.
 """
 
 from __future__ import annotations
@@ -80,28 +83,37 @@ def _widen_f16(t: torch.Tensor) -> torch.Tensor:
     return t.float() if t.dtype == torch.float16 else t
 
 
-def tc_forward(q, k, v, head_dim: int) -> bool:
-    """Which kernel a forward op launches for CUDA tensors, by dtype, shape
-    and address alone (never by failure): True for the tensor-core kernel
-    of ``csrc/flash_fwd_tc.cu`` — bf16 q, k and v, a head width that is a
-    multiple of 8 and at most 128, and base pointers 16-byte aligned;
-    False for the CUDA-core kernels (``csrc/flash_attention_bsh.cu``,
-    ``csrc/flash_attention.cu``): fp32, fp16 (the wrappers widen it to
-    fp32 first), other widths, unaligned operands."""
-    return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
-            and head_dim % 8 == 0 and 0 < head_dim <= _build.HM_MAX_HEAD_DIM
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+def tc_route(head_dim: int, *tensors) -> bool:
+    """Which kernel a forward or fused backward op launches for CUDA
+    tensors, by dtype and head width alone (never by failure): True for
+    the tensor-core kernels of ``csrc/flash_fwd_tc.cu`` and
+    ``csrc/flash_bwd_tc.cu`` — every operand (q, k, v; and do) bf16, a
+    head width that is a multiple of 8 and at most 128; False for the
+    CUDA-core kernels (``csrc/flash_attention_bsh.cu``,
+    ``csrc/flash_attention.cu``, ``csrc/flash_attention_bsh_bwd.cu``,
+    ``csrc/flash_attention_bwd.cu``): fp32, fp16 (the wrappers widen it to
+    fp32 first), other widths. An operand off a 16-byte boundary is the
+    op's to copy (:func:`_aligned16`)."""
+    return (all(t.dtype == torch.bfloat16 for t in tensors)
+            and head_dim % 8 == 0 and 0 < head_dim <= _build.HM_MAX_HEAD_DIM)
 
 
-def _round_p(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The fp32 probabilities as the ``P V`` product takes them: rounded
-    to the inputs' dtype, as JAX's ``_online_update`` rounds them
-    (``p.astype(v.dtype)``, :90) and the tensor-core kernel packs them
-    into bf16 fragments; float16 is widened to fp32 before any kernel
-    (``_widen_f16``), so there, as in fp32, p stays as it is."""
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data starts on a 16-byte boundary (the
+    tensor-core kernels' 16-byte copies), else one copy of it, which
+    does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _round_io(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 P (or dS) as the products downstream take it: rounded to the
+    inputs' dtype, as JAX rounds them (``p.astype(v.dtype)`` in
+    ``_online_update`` :90; ``_p_ds`` :188-189) and the tensor-core kernels
+    pack them into bf16 fragments; float16 is widened to fp32 before any
+    kernel (``_widen_f16``), so there, as in fp32, x stays as it is."""
     if dtype in (torch.float32, torch.float16):
-        return p
-    return p.to(dtype).float()
+        return x
+    return x.to(dtype).float()
 
 
 def _heads(t, num_heads: int):
@@ -135,7 +147,7 @@ def flash_attention_bsh_plain(q, k, v, *, num_heads: int,
     in q's dtype, lse fp32 [b, heads, sq])``, all arithmetic in fp32 —
     scores times ``scale``, the masks of ``_valid_cols`` with the finite
     ``-1e30`` fill, fp32 softmax statistics, ``l`` summed from fp32 p and
-    p rounded to bf16 before ``P V`` for bf16 inputs (:func:`_round_p`)."""
+    p rounded to bf16 before ``P V`` for bf16 inputs (:func:`_round_io`)."""
     b, sq, sk, hidden, d = _geometry(q, k, v, num_heads, causal)
     s_ = _scale(scale, d)
     qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
@@ -145,7 +157,7 @@ def flash_attention_bsh_plain(q, k, v, *, num_heads: int,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(_round_p(p, q.dtype), vh) / lsum
+    out = torch.matmul(_round_io(p, q.dtype), vh) / lsum
     lse = (m + torch.log(lsum))[..., 0]
     return _merge(out, q.dtype), lse.contiguous()
 
@@ -154,12 +166,13 @@ def flash_attention_bsh_bwd_plain(q, k, v, do, lse, delta, *,
                                   num_heads: int, causal: bool = False,
                                   scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch twin of the backward kernel, the ``_p_ds`` block
+    """Plain PyTorch twin of the backward kernels, the ``_p_ds`` block
     math written out over whole rows: ``P = exp(S * scale - lse)`` under
-    the valid mask, ``dS = P * (dP - delta) * scale``, ``dV = P^T dO``,
-    ``dK = dS^T Q``, ``dQ = dS K`` — all in fp32 (P and dS are not
-    rounded to the input dtype), results in q's dtype. ``lse`` and
-    ``delta`` are fp32 ``[b, heads, sq]``."""
+    the valid mask, ``dS = P * (dP - delta) * scale``, both in fp32 and
+    then, for bf16 inputs, rounded to bf16 as JAX and the tensor-core
+    kernel round them (:func:`_round_io`), then ``dV = P^T dO``, ``dK =
+    dS^T Q``, ``dQ = dS K`` summed in fp32, results in q's dtype. ``lse``
+    and ``delta`` are fp32 ``[b, heads, sq]``."""
     b, sq, sk, hidden, d = _geometry(q, k, v, num_heads, causal)
     s_ = _scale(scale, d)
     qh, kh, vh, doh = (_heads(t, num_heads) for t in (q, k, v, do))
@@ -168,7 +181,8 @@ def flash_attention_bsh_bwd_plain(q, k, v, do, lse, delta, *,
     p = torch.where(valid, torch.exp(s - lse.float()[..., None]),
                     torch.zeros_like(s))
     dp = torch.matmul(doh, vh.transpose(-1, -2))
-    ds = p * (dp - delta.float()[..., None]) * s_
+    ds = _round_io(p * (dp - delta.float()[..., None]) * s_, q.dtype)
+    p = _round_io(p, q.dtype)
     dv = torch.matmul(p.transpose(-1, -2), doh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     dq = torch.matmul(ds, kh)
@@ -201,7 +215,7 @@ def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, sq, sk, hidden, num_heads, scale, int(causal))
-    if tc_forward(q, k, v, d):
+    if tc_route(d, q, k, v):
         rc = _build.library().apex_tpu_torch_flash_fwd_bsh_tc(
             *args, _build.stream())
         _build.check(rc, "flash_attention_bsh (tensor cores)")
@@ -242,13 +256,26 @@ def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.require(t, name, (b, rows, hidden), q.dtype)
     for name, t in (("lse", lse), ("delta", delta)):
         _build.require(t, name, (b, num_heads, sq), torch.float32)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rc = _build.library().apex_tpu_torch_flash_bwd_bsh(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, sq, sk, hidden, num_heads, scale, int(causal),
-        code, _build.stream())
-    _build.check(rc, "flash_attention_bsh_bwd")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    geom = (b, sq, sk, hidden, num_heads, scale, int(causal))
+    if tc_route(d, q, k, v, do):
+        # dq is summed with fp32 atomics, then rounded to bf16 once
+        dq32 = torch.empty((b, sq, hidden), dtype=torch.float32,
+                           device=q.device)
+        rc = _build.library().apex_tpu_torch_flash_bwd_bsh_tc(
+            *args, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom,
+            _build.stream())
+        _build.check(rc, "flash_attention_bsh_bwd (tensor cores)")
+        dq = dq32.to(q.dtype)
+        flash_attention_bsh_bwd.tc_launches += 1
+    else:
+        dq = torch.empty_like(q)
+        rc = _build.library().apex_tpu_torch_flash_bwd_bsh(
+            *args, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom, code,
+            _build.stream())
+        _build.check(rc, "flash_attention_bsh_bwd")
     flash_attention_bsh_bwd.launches += 1
     return dq, dk, dv
 
@@ -340,10 +367,12 @@ def flash_attention_bsh_bwd(q, k, v, do, lse, delta, *, num_heads: int,
     """``(dq, dk, dv)`` from the forward's inputs, the output gradient
     ``do`` and the fp32 ``[b, heads, sq]`` statistics ``lse`` (from the
     forward) and ``delta`` (``sum_d(out * do)`` per head). CUDA tensors
-    launch the kernel (counted in ``flash_attention_bsh_bwd.launches``),
-    CPU tensors run the plain version. float16 q/k/v/do are widened to
-    fp32, as in the forward, and each gradient comes back in its input's
-    dtype."""
+    launch a kernel (counted in ``flash_attention_bsh_bwd.launches``):
+    bf16 the tensor-core one (also counted in ``.tc_launches``; dq summed
+    with atomics, so its last bits may change between launches), fp32 the
+    CUDA-core one; CPU tensors run the plain version. float16 q/k/v/do are
+    widened to fp32, as in the forward, and each gradient comes back in
+    its input's dtype."""
     _, _, _, _, d = _geometry(q, k, v, num_heads, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
     dtypes = [t.dtype for t in (q, k, v)]
@@ -354,6 +383,7 @@ def flash_attention_bsh_bwd(q, k, v, do, lse, delta, *, num_heads: int,
 
 
 flash_attention_bsh_bwd.launches = 0
+flash_attention_bsh_bwd.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -371,11 +401,13 @@ flash_attention_bsh_bwd.launches = 0
 #
 # - ``flash_attention_fwd(q, k, v, lens, seg_q, seg_k, n_rep, causal,
 #   scale, block_q) -> (out, lse)`` — ``csrc/flash_fwd_tc.cu`` (bf16, by
-#   :func:`tc_forward`) or ``csrc/flash_attention.cu``, or
+#   :func:`tc_route`) or ``csrc/flash_attention.cu``, or
 #   :func:`flash_attention_fwd_plain` on the CPU;
-# - ``flash_attention_bwd`` (fused, ``(dq, dk, dv)``), ``flash_attention_
-#   bwd_dq`` (``dq``) and ``flash_attention_bwd_dkdv`` (``(dk, dv)``) —
-#   ``csrc/flash_attention_bwd.cu``, or their plain twins on the CPU;
+# - ``flash_attention_bwd`` (fused, ``(dq, dk, dv)``) —
+#   ``csrc/flash_bwd_tc.cu`` (bf16, by :func:`tc_route`) or
+#   ``csrc/flash_attention_bwd.cu``; ``flash_attention_bwd_dq`` (``dq``)
+#   and ``flash_attention_bwd_dkdv`` (``(dk, dv)``) —
+#   ``csrc/flash_attention_bwd.cu``; or their plain twins on the CPU;
 #   gradients in fp32.
 #
 # The forward's autograd formula computes ``delta = sum_d(out * do)`` in
@@ -522,7 +554,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
     fp32 — scores times ``scale``, the ``_valid_cols`` mask with the
     finite ``-1e30`` fill, masked probabilities 0, ``l`` summed from fp32
     p and p rounded to bf16 before ``P V`` for bf16 inputs
-    (:func:`_round_p`), ``out = acc / max(l, 1e-30)`` and ``lse = m +
+    (:func:`_round_io`), ``out = acc / max(l, 1e-30)`` and ``lse = m +
     log(max(l, 1e-30))``, so a row with every column masked gives ``out =
     0`` and ``lse = -1e30 + log(1e-30)`` (``_fwd_kernel``'s
     ``_finish``)."""
@@ -536,7 +568,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(_round_p(p, q.dtype), v.float()) / lsum
+    out = torch.matmul(_round_io(p, q.dtype), v.float()) / lsum
     lse = (m + torch.log(lsum))[..., 0]
     return out.to(q.dtype), lse.contiguous()
 
@@ -544,8 +576,10 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
 def _p_ds_plain(q, k, v, do, lse, delta, *, causal, scale, lens, segs,
                 n_rep):
     """The ``_p_ds`` block math over whole rows, in fp32: ``P = exp(S *
-    scale - lse)`` under the mask, ``dS = P * (dP - delta) * scale`` (P
-    and dS are not rounded to the input dtype)."""
+    scale - lse)`` under the mask, ``dS = P * (dP - delta) * scale``, both
+    then rounded to bf16 for bf16 inputs as JAX rounds them
+    (:func:`_round_io`). The CUDA-core kernels keep P and dS in fp32: the
+    twin of those is this one on the inputs widened to fp32."""
     bh, sq, sk, d = _hm_geometry(q, k, v, causal)
     s_ = _scale(scale, d)
     seg_q, seg_k = segs if segs is not None else (None, None)
@@ -555,7 +589,8 @@ def _p_ds_plain(q, k, v, do, lse, delta, *, causal, scale, lens, segs,
     p = torch.where(valid, torch.exp(s - lse.float()[..., None]),
                     torch.zeros_like(s))
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    return p, p * (dp - delta.float()[..., None]) * s_
+    ds = p * (dp - delta.float()[..., None]) * s_
+    return _round_io(p, q.dtype), _round_io(ds, q.dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, do, lse, delta, *,
@@ -642,12 +677,15 @@ def _hm_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _hm_check_kernel(q, "flash_attention")
     for name, t, rows in (("q", q, sq), ("k", k, sk), ("v", v, sk)):
         _build.require(t, name, (bh, rows, d), q.dtype, align=1)
+    tc = tc_route(d, q, k, v)
+    if tc:
+        q, k, v = (_aligned16(t) for t in (q, k, v))
     aux = _hm_aux(lens, seg_q, seg_k, bh, n_rep, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *aux, out.data_ptr(),
             lse.data_ptr(), bh, n_rep, sq, sk, d, scale, int(causal))
-    if tc_forward(q, k, v, d):
+    if tc:
         rc = _build.library().apex_tpu_torch_flash_fwd_hm_tc(
             *args, _build.stream())
         _build.check(rc, "flash_attention (tensor cores)")
@@ -670,7 +708,8 @@ def _hm_bwd_launch(entry: str, q, k, v, do, lse, delta, lens, seg_q, seg_k,
                    n_rep: int, causal: bool, scale: float, *,
                    want_dq: bool, want_dkdv: bool):
     """One launch of a head-major backward kernel on CUDA tensors → fp32
-    ``(dq or None, dk or None, dv or None)``."""
+    ``(dq or None, dk or None, dv or None)``. The fused entries zero dq
+    before they sum into it."""
     bh, sq, sk, d = _hm_geometry(q, k, v, causal)
     code = _hm_check_kernel(q, entry)
     for name, t, rows in (("q", q, sq), ("k", k, sk), ("v", v, sk),
@@ -705,9 +744,13 @@ def _hm_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_plain(
             q, k, v, do, lse, delta, causal=causal, scale=scale, lens=lens,
             segs=None if seg_q is None else (seg_q, seg_k), n_rep=n_rep)
-    grads = _hm_bwd_launch("flash_bwd_hm_fused", q, k, v, do, lse, delta,
-                           lens, seg_q, seg_k, n_rep, causal, scale,
-                           want_dq=True, want_dkdv=True)
+    tc = tc_route(q.shape[-1], q, k, v, do)
+    if tc:
+        q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
+    grads = _hm_bwd_launch("flash_bwd_hm_tc" if tc else "flash_bwd_hm_fused",
+                           q, k, v, do, lse, delta, lens, seg_q, seg_k, n_rep,
+                           causal, scale, want_dq=True, want_dkdv=True)
+    flash_attention_bwd.tc_launches += int(tc)
     flash_attention_bwd.launches += 1
     return grads
 
@@ -823,8 +866,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     [bh // n_rep, sk])`` pair of segment ids. CUDA tensors launch a
     kernel (counted in ``flash_attention_fwd.launches``) on fp32 or bf16
     inputs with ``d <= 128``: the tensor-core kernel where
-    :func:`tc_forward` says so (also counted in ``.tc_launches``), else
-    the CUDA-core one; CPU tensors run the plain version."""
+    :func:`tc_route` says so (also counted in ``.tc_launches``; an operand
+    off a 16-byte boundary is copied once), else the CUDA-core one; CPU
+    tensors run the plain version."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v)       # refuse other and mixed devices here
     return _hm_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -842,9 +886,12 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal: bool = False,
     """The fused head-major backward: fp32 ``(dq, dk, dv)`` from the
     forward's ``[bh, s, d]`` inputs, ``do`` and the fp32 ``[bh, sq]``
     ``lse`` and ``delta`` (``sum_d(out * do)``, less any lse cotangent).
-    CUDA tensors launch the kernel (counted in
-    ``flash_attention_bwd.launches``); dq is summed with atomics, so its
-    last bits may change between launches."""
+    CUDA tensors launch a kernel (counted in
+    ``flash_attention_bwd.launches``): the tensor-core one where
+    :func:`tc_route` says so (also counted in ``.tc_launches``; an operand
+    off a 16-byte boundary is copied once), else the CUDA-core one; dq is
+    summed with atomics in both, so its last bits may change between
+    launches."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
     return _hm_bwd_op(q, k, v, do, lse, delta, *_hm_aux_args(lens, segs),
@@ -852,6 +899,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal: bool = False,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,

@@ -20,10 +20,10 @@ Tolerances (``tests/test_torch_port_kernels.py``'s bands):
 - fp32: ``rtol=atol=1e-5`` (the same fp32 arithmetic, summed in another
   order);
 - bf16: ``2e-2`` for out, ``1e-3`` for lse (fp32 statistics of bf16
-  inputs); gradients ``3e-2`` of the largest entry, since JAX rounds P
-  and dS to bf16 before its products where the port keeps them in fp32
-  (the difference by design of ROADMAP queue 3), and each gradient is
-  rounded to bf16;
+  inputs); gradients ``3e-2`` of the largest entry: both sides round P
+  and dS to bf16 before their products, from fp32 scores summed in
+  another order (a P or dS near a rounding boundary may land on the
+  other side), and each gradient is rounded to bf16;
 - fp16: both sides widen to fp32 and round the results to fp16, so they
   differ by at most one fp16 ulp (2^-10 relative): ``rtol=atol=2e-3``
   (gradients: ``atol`` of ``2e-3`` of the largest entry).

@@ -20,9 +20,9 @@ bf16: at most 9.8e-4 apart on these inputs, against up to 1.56e-2 with
 ``p`` kept in fp32), lse within ``1e-3`` (fp32 statistics of bf16
 inputs, as ``tests/test_torch_port_kernels.py``).
 
-Then the rule that picks a forward's kernel on the card
-(:func:`~apex_tpu_torch.kernels.flash_attention.tc_forward`), which runs
-on CPU tensors too, and the tensor-core launch counters, which CPU
+Then the rule that picks a forward's (and a fused backward's) kernel on
+the card (:func:`~apex_tpu_torch.kernels.flash_attention.tc_route`), which
+runs on CPU tensors too, and the tensor-core launch counters, which CPU
 tensors leave at 0.
 """
 
@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from apex_tpu_torch import kernels as tk
+from apex_tpu_torch.kernels import flash_attention as fa
 
 jfa = importlib.import_module("apex_tpu.kernels.flash_attention")
 
@@ -172,7 +173,7 @@ def test_tc_forward_takes_bf16_widths(d):
     """bf16 with a head width that is a multiple of 8 up to 128 runs the
     tensor-core kernel (padded to 64, 80 or 128 inside it)."""
     t = torch.zeros(2, 16, d, dtype=torch.bfloat16)
-    assert tk.tc_forward(t, t, t, d)
+    assert tk.tc_route(d, t, t, t)
 
 
 def _unaligned(shape):
@@ -188,8 +189,10 @@ def _unaligned(shape):
                                   "mixed"])
 def test_tc_forward_leaves_the_rest_on_cuda_cores(case):
     """fp32, fp16 (widened to fp32 before any kernel), a width that is not
-    a multiple of 8, an operand off a 16-byte boundary and mixed dtypes
-    stay on the CUDA-core kernels."""
+    a multiple of 8 and mixed dtypes stay on the CUDA-core kernels. The
+    rule looks at dtypes and the width alone: a bf16 operand off a 16-byte
+    boundary goes to the tensor cores, and the op copies it once
+    (``_aligned16``), leaving aligned operands as they are."""
     d = 100 if case == "d100" else 64
     dtype = {"fp32": torch.float32, "fp16": torch.float16}.get(
         case, torch.bfloat16)
@@ -197,9 +200,14 @@ def test_tc_forward_leaves_the_rest_on_cuda_cores(case):
     if case == "unaligned":
         q = _unaligned((2, 16, d))
         assert q.is_contiguous() and q.data_ptr() % 16
+        assert tk.tc_route(d, q, k, v)
+        copy = fa._aligned16(q)
+        assert copy.data_ptr() % 16 == 0 and copy.data_ptr() != q.data_ptr()
+        assert torch.equal(copy, q) and fa._aligned16(k) is k
+        return
     if case == "mixed":
         v = v.float()
-    assert not tk.tc_forward(q, k, v, d)
+    assert not tk.tc_route(d, q, k, v)
 
 
 def test_cpu_tensors_count_no_tensor_core_launch():

@@ -166,7 +166,7 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     tk.flash_attention_bsh(x, x, x, num_heads=2, causal=True)
     # bf16 takes the tensor-core kernel on the card; on the CPU the plain twin
     xb = x.to(torch.bfloat16)
-    assert tk.tc_forward(xb, xb, xb, 64)
+    assert tk.tc_route(64, xb, xb, xb)
     tk.flash_attention_bsh(xb, xb, xb, num_heads=2, causal=True)
     tk.flash_attention_fwd(xb, xb, xb, causal=True)
     tk.layer_norm(x)
@@ -239,7 +239,9 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "softmax_fwd": 0,
                                   "softmax_bwd": 0,
                                   "flash_attention_bsh_tc": 0,
-                                  "flash_attention_tc": 0}
+                                  "flash_attention_tc": 0,
+                                  "flash_attention_bsh_bwd_tc": 0,
+                                  "flash_attention_bwd_tc": 0}
     tk.write_column.launches = 3
     tk.flash_attention_fwd.tc_launches = 2
     tk.reset_launch_counts()
@@ -293,4 +295,4 @@ def test_build_dir_is_content_addressed():
         "flash_attention_bsh.cu", "decode_attention.cu",
         "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
         "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "softmax.cu", "flash_fwd_tc.cu"}
+        "softmax.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu"}

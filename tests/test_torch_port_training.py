@@ -147,10 +147,10 @@ def test_flash_backward_matches_jax_vjp(dtype, b, s, causal):
     backward op, here the plain backward) against ``jax.vjp`` of the
     interpret-mode JAX kernel, causal (GPT) and bidirectional (BERT);
     s=96 is not a multiple of the CUDA kernel's 64-row tile. hidden 128 =
-    2 heads of 64 (the JAX side packs them into one lane group). bf16: JAX
-    rounds P and dS to bf16 before its products, the port keeps them in
-    fp32, and every gradient is rounded to bf16: 3e-2 of the largest
-    gradient."""
+    2 heads of 64 (the JAX side packs them into one lane group). bf16: both
+    round P and dS to bf16 before their products, from fp32 scores summed
+    in another order, and every gradient is rounded to bf16: 3e-2 of the
+    largest gradient."""
     hidden, heads = 128, 2
     jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
               else (jnp.bfloat16, torch.bfloat16))
