@@ -8,8 +8,9 @@
 
 namespace apex_tpu_torch {
 
-// dtype codes shared with apex_tpu_torch/kernels/_build.py (DTYPE_CODES)
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+// dtype codes shared with apex_tpu_torch/kernels/_build.py (DTYPE_CODES;
+// kFloat16 only for the tensor-core flash kernels, TC_DTYPE_CODES)
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 // quantized-KV storage codes shared with _build.py (KV_KIND_CODES)
 enum KvKind : int { kInt8 = 0, kFp8 = 1 };

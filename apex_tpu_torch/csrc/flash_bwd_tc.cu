@@ -1,16 +1,17 @@
-// Tensor-core flash-attention backward, bf16, for both layouts the port
-// runs: the model layout [b, s, hidden] (heads of 64 side by side along
-// hidden) and the head-major layout [bh, s, d] with any d <= 128 that is a
-// multiple of 8, kv lengths, segment ids and n_rep.
+// Tensor-core flash-attention backward, bf16 and fp16 (one body, templated
+// on the element type T), for both layouts the port runs: the model layout
+// [b, s, hidden] (heads of 64 side by side along hidden) and the
+// head-major layout [bh, s, d] with any d <= 128 that is a multiple of 8,
+// kv lengths, segment ids and n_rep.
 //
-// Replaces two TPU kernels for bf16 inputs:
+// Replaces two TPU kernels for bf16 and fp16 inputs:
 //   apex_tpu/kernels/flash_attention.py:_run_bwd_bsh (the pallas_call at
 //   :1060, kernel body _dqkv_kernel_bsh :890), and
 //   apex_tpu/kernels/flash_attention.py:_run_bwd, fused (the pallas_call
 //   at :514, kernel body _dqkv_kernel :272).
-// fp32 and fp16 (widened to fp32), bf16 head widths that are not a
-// multiple of 8 and the split dQ / dK-dV sweeps stay on
-// flash_attention_bsh_bwd.cu and flash_attention_bwd.cu;
+// fp32, head widths that are not a multiple of 8 (fp16 there widened to
+// fp32 by the wrappers) and the split dQ / dK-dV sweeps (fp16 widened)
+// stay on flash_attention_bsh_bwd.cu and flash_attention_bwd.cu;
 // kernels/flash_attention.py:tc_route picks.
 //
 // What bounds it on an H100: at the GPT-2 355M step (b=16, 16 heads of
@@ -20,7 +21,7 @@
 // 421 MB, 0.126 ms.
 //
 // What the design does about it (FlashAttention-2's backward on
-// mma.sync m16n8k16, bf16 in, fp32 accumulate):
+// mma.sync m16n8k16, T in, fp32 accumulate):
 // - Element (batch, head, row, col) of q/k/v/do and of the gradients is at
 //   base + batch*s_b + head*s_h + row*s_row + col; lse and delta at
 //   bh*sq + row. One body serves both layouts.
@@ -38,11 +39,17 @@
 //   from ldmatrix); P^T = exp2(S^T scale log2e - lse log2e) under the
 //   _valid_cols mask (:150; lse and delta belong to the query, so here to
 //   the column), masked entries set to 0 before the exp2 can overflow;
-//   dS^T = P^T (dP^T - delta) scale. P^T and dS^T are rounded to bf16 as
-//   JAX's _p_ds does (:188-189) and packed straight into A fragments for
-//   dV += P^T dO and dK += dS^T Q (dO and Q through ldmatrix.trans). The dK
-//   and dV sums stay in fp32 registers for the whole sweep.
-// - dQ += dS K needs dS untransposed: each warp writes its bf16 dS^T rows
+//   dS^T = P^T (dP^T - delta) scale. P^T and dS^T are rounded to T, as
+//   JAX's _p_ds does for bf16 (:188-189), and packed straight into A
+//   fragments for dV += P^T dO and dK += dS^T Q (dO and Q through
+//   ldmatrix.trans). The dK and dV sums stay in fp32 registers for the
+//   whole sweep. JAX widens fp16 to fp32 (widen_f16), so its P and dS stay
+//   fp32 there; in fp16 here a dS past 65504 rounds to inf, which an fp32
+//   dS never does, and amp then skips the step and backs off. At BERT's
+//   shape, with do at the largest power-of-two scale fp16 holds, the
+//   largest |dS| is 3936, 16.6x under that (chip_smoke.py phase 21's
+//   range check on an NVIDIA H100 80GB HBM3), so dS is not rescaled.
+// - dQ += dS K needs dS untransposed: each warp writes its T dS^T rows
 //   to one shared tile, the block meets at a barrier, and the warps split
 //   the BQ x d dQ tile (A = dS by ldmatrix.trans of dS^T, B = K by
 //   ldmatrix.trans) and add their partials with fp32 atomics (two adjacent
@@ -52,8 +59,8 @@
 // - Rows past sq are masked out of P explicitly and never add to dQ; keys
 //   past kv_end are masked; head columns past d are zero-filled by
 //   cp.async's src-size and never stored.
-// - Epilogue: dK and dV in the op's gradient dtype (OutT: bf16 for the
-//   model layout, fp32 for the head-major one).
+// - Epilogue: dK and dV in the op's gradient dtype (OutT: T for the model
+//   layout, fp32 for the head-major one).
 #include "flash_tc.cuh"
 
 namespace apex_tpu_torch {
@@ -63,11 +70,12 @@ using namespace tc;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <typename T>
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
   const float* lse;     // [bh, sq]
   const float* delta;   // [bh, sq]
   const int* lens;      // [bh] or null
@@ -95,10 +103,10 @@ struct Bw {
   static_assert(BQ % 16 == 0, "whole m16 tiles of queries");
   static constexpr int kBK = 16 * WARPS;        // keys of a block
   static constexpr int kThreads = 32 * WARPS;
-  static constexpr int kLd = DP + 8;            // smem row stride (bf16)
-  static constexpr int kLdS = BQ + 8;           // dS^T row stride (bf16)
-  static constexpr int kKTile = kBK * kLd;      // bf16 of the K or V tile
-  static constexpr int kQTile = BQ * kLd;       // bf16 of a Q or dO tile
+  static constexpr int kLd = DP + 8;            // smem row stride (elements)
+  static constexpr int kLdS = BQ + 8;           // dS^T row stride (elements)
+  static constexpr int kKTile = kBK * kLd;      // elements of the K or V tile
+  static constexpr int kQTile = BQ * kLd;       // elements of a Q or dO tile
   static constexpr int kKSteps = DP / 16;       // k16 steps over d
   static constexpr int kQN = BQ / 8;            // n8 tiles of S^T
   static constexpr int kDN = DP / 8;            // n8 tiles of dK, dV
@@ -113,7 +121,7 @@ struct Bw {
   // segment ids, two stages of query ids
   static constexpr size_t kSmem =
       (2 * (size_t)kKTile + 4 * (size_t)kQTile + (size_t)kBK * kLdS) *
-          sizeof(bf16) +
+          sizeof(uint16_t) +
       4 * BQ * sizeof(float) + (kBK + 2 * BQ) * sizeof(int);
 };
 
@@ -125,7 +133,11 @@ __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
 }
 template <>
 __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  *reinterpret_cast<uint32_t*>(p) = pack2<bf16>(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<f16>(f16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<f16>(a, b);
 }
 
 // dst[0..1] += (a, b) in global memory, one vector atomic
@@ -133,18 +145,18 @@ __device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
   atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
 }
 
-template <int DP, int BQ, int WARPS, typename OutT, int MINB>
+template <typename T, int DP, int BQ, int WARPS, typename OutT, int MINB>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
-flash_bwd_tc_kernel(const Params p) {
+flash_bwd_tc_kernel(const Params<T> p) {
   using G = Bw<DP, BQ, WARPS>;
   constexpr int kBK = G::kBK;
   constexpr int kThreads = G::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + G::kKTile;
-  bf16* qs = vs + G::kKTile;                 // 2 stages
-  bf16* dos = qs + 2 * G::kQTile;            // 2 stages
-  bf16* dst = dos + 2 * G::kQTile;           // dS^T, kBK x kLdS
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + G::kKTile;
+  T* qs = vs + G::kKTile;                 // 2 stages
+  T* dos = qs + 2 * G::kQTile;            // 2 stages
+  T* dst = dos + 2 * G::kQTile;           // dS^T, kBK x kLdS
   float* lse_s = reinterpret_cast<float*>(dst + kBK * G::kLdS);  // 2 x BQ
   float* del_s = lse_s + 2 * BQ;                                 // 2 x BQ
   int* segk_s = reinterpret_cast<int*>(del_s + 2 * BQ);          // kBK
@@ -162,8 +174,8 @@ flash_bwd_tc_kernel(const Params p) {
   const int head = bh - batch * p.heads;
   const long long q_off = batch * p.q_sb + head * p.s_h;
   const long long k_off = batch * p.k_sb + head * p.s_h;
-  const bf16* qb = p.q + q_off;
-  const bf16* dob = p.dout + q_off;
+  const T* qb = p.q + q_off;
+  const T* dob = p.dout + q_off;
   const float* lse_b = p.lse + (long long)bh * p.sq;
   const float* del_b = p.delta + (long long)bh * p.sq;
 
@@ -231,8 +243,8 @@ flash_bwd_tc_kernel(const Params p) {
       cp_async_wait<1>();
       __syncthreads();
 
-      const bf16* qt = qs + st * G::kQTile;
-      const bf16* dot = dos + st * G::kQTile;
+      const T* qt = qs + st * G::kQTile;
+      const T* dot = dos + st * G::kQTile;
       const float* ls = lse_s + st * BQ;
       const float* dl = del_s + st * BQ;
       const int* sgq = segq_s + st * BQ;
@@ -256,11 +268,11 @@ flash_bwd_tc_kernel(const Params p) {
           for (int jp = 0; jp < G::kQN / 2; ++jp) {
             uint32_t b[4];
             ldmatrix_x4(b, qt + (jp * 16 + b_r) * G::kLd + kk * 16 + b_c);
-            mma_bf16(s[2 * jp], ka, b[0], b[1]);
-            mma_bf16(s[2 * jp + 1], ka, b[2], b[3]);
+            mma16<T>(s[2 * jp], ka, b[0], b[1]);
+            mma16<T>(s[2 * jp + 1], ka, b[2], b[3]);
             ldmatrix_x4(b, dot + (jp * 16 + b_r) * G::kLd + kk * 16 + b_c);
-            mma_bf16(dp[2 * jp], va, b[0], b[1]);
-            mma_bf16(dp[2 * jp + 1], va, b[2], b[3]);
+            mma16<T>(dp[2 * jp], va, b[0], b[1]);
+            mma16<T>(dp[2 * jp + 1], va, b[2], b[3]);
           }
         }
 
@@ -298,22 +310,22 @@ flash_bwd_tc_kernel(const Params p) {
             }
         }
 
-        // P^T and dS^T rounded to bf16 as A fragments, 16 queries a step;
+        // P^T and dS^T rounded to T as A fragments, 16 queries a step;
         // dV += P^T dO, dK += dS^T Q
 #pragma unroll
         for (int kk = 0; kk < G::kQN / 2; ++kk) {
           uint32_t pa[4], da[4];
-          pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-          pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-          pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-          pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-          da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-          da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-          da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-          da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+          pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+          pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+          pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          da[0] = pack2<T>(dp[2 * kk][0], dp[2 * kk][1]);
+          da[1] = pack2<T>(dp[2 * kk][2], dp[2 * kk][3]);
+          da[2] = pack2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+          da[3] = pack2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
           // this warp's rows of dS^T for the dQ product
-          bf16* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
-          bf16* w8 = w0 + 8 * G::kLdS;
+          T* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
+          T* w8 = w0 + 8 * G::kLdS;
           *reinterpret_cast<uint32_t*>(w0) = da[0];
           *reinterpret_cast<uint32_t*>(w8) = da[1];
           *reinterpret_cast<uint32_t*>(w0 + 8) = da[2];
@@ -323,19 +335,19 @@ flash_bwd_tc_kernel(const Params p) {
             uint32_t b[4];
             ldmatrix_x4_trans(b, dot + (kk * 16 + a_r) * G::kLd + jp * 16 +
                                      a_c);
-            mma_bf16(dva[2 * jp], pa, b[0], b[1]);
-            mma_bf16(dva[2 * jp + 1], pa, b[2], b[3]);
+            mma16<T>(dva[2 * jp], pa, b[0], b[1]);
+            mma16<T>(dva[2 * jp + 1], pa, b[2], b[3]);
             ldmatrix_x4_trans(b, qt + (kk * 16 + a_r) * G::kLd + jp * 16 +
                                      a_c);
-            mma_bf16(dka[2 * jp], da, b[0], b[1]);
-            mma_bf16(dka[2 * jp + 1], da, b[2], b[3]);
+            mma16<T>(dka[2 * jp], da, b[0], b[1]);
+            mma16<T>(dka[2 * jp + 1], da, b[2], b[3]);
           }
         }
       } else {
 #pragma unroll
         for (int kk = 0; kk < G::kQN / 2; ++kk) {
-          bf16* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
-          bf16* w8 = w0 + 8 * G::kLdS;
+          T* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
+          T* w8 = w0 + 8 * G::kLdS;
           *reinterpret_cast<uint32_t*>(w0) = 0u;
           *reinterpret_cast<uint32_t*>(w8) = 0u;
           *reinterpret_cast<uint32_t*>(w0 + 8) = 0u;
@@ -372,8 +384,8 @@ flash_bwd_tc_kernel(const Params p) {
               uint32_t b[4];
               ldmatrix_x4_trans(b, ks + (kk * 16 + a_r) * G::kLd + jp * 16 +
                                        a_c);
-              mma_bf16(acc[2 * i], a, b[0], b[1]);
-              mma_bf16(acc[2 * i + 1], a, b[2], b[3]);
+              mma16<T>(acc[2 * i], a, b[0], b[1]);
+              mma16<T>(acc[2 * i + 1], a, b[2], b[3]);
             }
           }
         }
@@ -419,15 +431,16 @@ flash_bwd_tc_kernel(const Params p) {
   }
 }
 
-template <int DP, int BQ, int WARPS, typename OutT, int MINB>
-cudaError_t launch_cfg(const Params& p, int bh, cudaStream_t stream) {
+template <typename T, int DP, int BQ, int WARPS, typename OutT, int MINB>
+cudaError_t launch_cfg(const Params<T>& p, int bh, cudaStream_t stream) {
   using G = Bw<DP, BQ, WARPS>;
   static bool smem_ok = false;
   const cudaError_t err = hm::allow_smem(
-      flash_bwd_tc_kernel<DP, BQ, WARPS, OutT, MINB>, G::kSmem, &smem_ok);
+      flash_bwd_tc_kernel<T, DP, BQ, WARPS, OutT, MINB>, G::kSmem,
+      &smem_ok);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.sk + G::kBK - 1) / G::kBK);
-  flash_bwd_tc_kernel<DP, BQ, WARPS, OutT, MINB>
+  flash_bwd_tc_kernel<T, DP, BQ, WARPS, OutT, MINB>
       <<<grid, G::kThreads, G::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -441,48 +454,31 @@ cudaError_t launch_cfg(const Params& p, int bh, cudaStream_t stream) {
 // DP 80 64-row tiles, one block (32 rows at a 128-register cap spill 120
 // bytes); DP 128 32-row tiles, one block (the dK / dV sums alone take 128
 // registers).
-template <typename OutT>
-cudaError_t launch_dp(const Params& p, int bh, cudaStream_t stream) {
+template <typename T, typename OutT>
+cudaError_t launch_dp(const Params<T>& p, int bh, cudaStream_t stream) {
   switch (hm::padded_width(p.d)) {
     case 64:
-      return launch_cfg<64, 32, 8, OutT, 2>(p, bh, stream);
+      return launch_cfg<T, 64, 32, 8, OutT, 2>(p, bh, stream);
     case 80:
-      return launch_cfg<80, 64, 8, OutT, 1>(p, bh, stream);
+      return launch_cfg<T, 80, 64, 8, OutT, 1>(p, bh, stream);
     default:
-      return launch_cfg<128, 32, 8, OutT, 1>(p, bh, stream);
+      return launch_cfg<T, 128, 32, 8, OutT, 1>(p, bh, stream);
   }
 }
 
-}  // namespace
-}  // namespace apex_tpu_torch
-
-using namespace apex_tpu_torch;
-
-// bf16 q/dout [b, sq, hidden], k/v [b, sk, hidden] with heads of kHeadDim
-// side by side along hidden; lse and delta fp32 [b, heads, sq]. Writes dq
-// as an fp32 [b, sq, hidden] sum (zeroed here first) and dk/dv as bf16 [b,
-// sk, hidden]. Every pointer 16-byte aligned. Returns cudaGetLastError()
-// after the launch; cudaErrorInvalidValue for anything the kernel does not
-// take (nothing launched).
-extern "C" int apex_tpu_torch_flash_bwd_bsh_tc(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
-    int sq, int sk, int hidden, int heads, float scale, int causal,
-    void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      hidden != heads * kHeadDim || (causal && sq != sk) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
-      !aligned16(dk) || !aligned16(dv))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      cudaMemsetAsync(dq, 0, (size_t)b * sq * hidden * sizeof(float), st);
-  if (err != cudaSuccess) return err;
-  Params p{};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
+// The model layout's call: q/dout [b, sq, hidden], k/v [b, sk, hidden]
+// with heads of kHeadDim side by side; dq an fp32 sum, dk/dv in T
+template <typename T>
+cudaError_t launch_bsh(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dq, void* dk, void* dv, int b, int sq, int sk,
+                       int hidden, int heads, float scale, int causal,
+                       cudaStream_t stream) {
+  Params<T> p{};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.dout = static_cast<const T*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = static_cast<float*>(dq);
@@ -500,37 +496,23 @@ extern "C" int apex_tpu_torch_flash_bwd_bsh_tc(
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
-  return launch_dp<bf16>(p, b * heads, st);
+  return launch_dp<T, T>(p, b * heads, stream);
 }
 
-// The argument list of the head-major backward entries
-// (flash_attention_bwd.cu): bf16 q/dout [bh, sq, d], k/v [bh, sk, d], d <=
-// 128 and a multiple of 8; lse and delta fp32 [bh, sq]; lens int32 [bh] or
-// null; seg_q/seg_k int32 [bh / n_rep, sq] / [bh / n_rep, sk] or null
-// (both or neither); fp32 gradients dq [bh, sq, d] (zeroed here first),
-// dk/dv [bh, sk, d]. q, k, v and dout 16-byte aligned; `dtype` must be
-// bf16's code. Returns cudaGetLastError() after the launch;
-// cudaErrorInvalidValue for anything the kernel does not take (nothing
-// launched).
-extern "C" int apex_tpu_torch_flash_bwd_hm_tc(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* lens, const void* seg_q,
-    const void* seg_k, void* dq, void* dk, void* dv, int bh, int n_rep,
-    int sq, int sk, int d, float scale, int causal, int dtype, void* stream) {
-  if (dtype != kBFloat16 || bh <= 0 || n_rep <= 0 || bh % n_rep || sq <= 0 ||
-      sk <= 0 || d <= 0 || d > 128 || d % 8 || (causal && sq != sk) ||
-      ((seg_q == nullptr) != (seg_k == nullptr)) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(dout))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      cudaMemsetAsync(dq, 0, (size_t)bh * sq * d * sizeof(float), st);
-  if (err != cudaSuccess) return err;
-  Params p{};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
+// The head-major call: q/dout [bh, sq, d], k/v [bh, sk, d]; fp32
+// gradients
+template <typename T>
+cudaError_t launch_hm(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* lens, const void* seg_q, const void* seg_k,
+                      void* dq, void* dk, void* dv, int bh, int n_rep, int sq,
+                      int sk, int d, float scale, int causal,
+                      cudaStream_t stream) {
+  Params<T> p{};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.dout = static_cast<const T*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.lens = static_cast<const int*>(lens);
@@ -551,5 +533,71 @@ extern "C" int apex_tpu_torch_flash_bwd_hm_tc(
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
-  return launch_dp<float>(p, bh, st);
+  return launch_dp<T, float>(p, bh, stream);
+}
+
+}  // namespace
+}  // namespace apex_tpu_torch
+
+using namespace apex_tpu_torch;
+
+// q/dout [b, sq, hidden], k/v [b, sk, hidden] with heads of kHeadDim side
+// by side along hidden, of dtype code `dtype` (kBFloat16 or kFloat16); lse
+// and delta fp32 [b, heads, sq]. Writes dq as an fp32 [b, sq, hidden] sum
+// (zeroed here first) and dk/dv [b, sk, hidden] in q's dtype. Every
+// pointer 16-byte aligned. Returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for anything the kernel does not take (nothing
+// launched).
+extern "C" int apex_tpu_torch_flash_bwd_bsh_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
+    int sq, int sk, int hidden, int heads, float scale, int causal,
+    int dtype, void* stream) {
+  if ((dtype != kBFloat16 && dtype != kFloat16) || b <= 0 || sq <= 0 ||
+      sk <= 0 || heads <= 0 || hidden != heads * kHeadDim ||
+      (causal && sq != sk) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout) || !aligned16(dq) || !aligned16(dk) ||
+      !aligned16(dv))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(dq, 0, (size_t)b * sq * hidden * sizeof(float), st);
+  if (err != cudaSuccess) return err;
+  return dtype == kFloat16
+             ? launch_bsh<f16>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq,
+                               sk, hidden, heads, scale, causal, st)
+             : launch_bsh<bf16>(q, k, v, dout, lse, delta, dq, dk, dv, b, sq,
+                                sk, hidden, heads, scale, causal, st);
+}
+
+// The argument list of the head-major backward entries
+// (flash_attention_bwd.cu): q/dout [bh, sq, d], k/v [bh, sk, d] of dtype
+// code `dtype` (kBFloat16 or kFloat16), d <= 128 and a multiple of 8; lse
+// and delta fp32 [bh, sq]; lens int32 [bh] or null; seg_q/seg_k int32
+// [bh / n_rep, sq] / [bh / n_rep, sk] or null (both or neither); fp32
+// gradients dq [bh, sq, d] (zeroed here first), dk/dv [bh, sk, d]. q, k, v
+// and dout 16-byte aligned. Returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for anything the kernel does not take (nothing
+// launched).
+extern "C" int apex_tpu_torch_flash_bwd_hm_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* lens, const void* seg_q,
+    const void* seg_k, void* dq, void* dk, void* dv, int bh, int n_rep,
+    int sq, int sk, int d, float scale, int causal, int dtype, void* stream) {
+  if ((dtype != kBFloat16 && dtype != kFloat16) || bh <= 0 || n_rep <= 0 ||
+      bh % n_rep || sq <= 0 || sk <= 0 || d <= 0 || d > 128 || d % 8 ||
+      (causal && sq != sk) || ((seg_q == nullptr) != (seg_k == nullptr)) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(dq, 0, (size_t)bh * sq * d * sizeof(float), st);
+  if (err != cudaSuccess) return err;
+  return dtype == kFloat16
+             ? launch_hm<f16>(q, k, v, dout, lse, delta, lens, seg_q, seg_k,
+                              dq, dk, dv, bh, n_rep, sq, sk, d, scale, causal,
+                              st)
+             : launch_hm<bf16>(q, k, v, dout, lse, delta, lens, seg_q, seg_k,
+                               dq, dk, dv, bh, n_rep, sq, sk, d, scale,
+                               causal, st);
 }

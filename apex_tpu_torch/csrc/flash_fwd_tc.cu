@@ -1,21 +1,26 @@
-// Tensor-core flash-attention forward, bf16, for both layouts the port
-// runs: the model layout [b, s, hidden] (heads of 64 side by side along
-// hidden) and the head-major layout [bh, s, d] with any d <= 128 that is a
-// multiple of 8, kv lengths, segment ids and n_rep.
+// Tensor-core flash-attention forward, bf16 and fp16 (one body, templated
+// on the element type T), for both layouts the port runs: the model layout
+// [b, s, hidden] (heads of 64 side by side along hidden) and the
+// head-major layout [bh, s, d] with any d <= 128 that is a multiple of 8,
+// kv lengths, segment ids and n_rep.
 //
-// Replaces two TPU kernels for bf16 inputs:
+// Replaces two TPU kernels for bf16 and fp16 inputs:
 //   apex_tpu/kernels/flash_attention.py:_run_fwd_bsh (the pallas_call at
 //   :1005, kernel body _fwd_kernel_bsh :841), and
 //   apex_tpu/kernels/flash_attention.py:_run_fwd (the pallas_call at :393,
 //   kernel body _fwd_kernel :95).
-// fp32 and fp16 (widened to fp32) stay on flash_attention_bsh.cu and
-// flash_attention.cu; kernels/flash_attention.py:tc_route picks.
+// fp32 and fp16 at a head width that is not a multiple of 8 (widened to
+// fp32 by the wrappers) stay on flash_attention_bsh.cu and
+// flash_attention.cu; kernels/flash_attention.py:tc_route picks. The JAX
+// kernels see fp16 widened to fp32 (widen_f16), so P stays fp32 there;
+// here an fp16 P is rounded to fp16 for P V, as a bf16 P is to bf16.
 //
 // What bounds it on an H100: bytes, just. At the GPT-2 355M step (b=16,
 // 16 heads of 64, s=1024, causal) one call reads q, k, v and writes out
 // (134 MB) and lse (1 MB): 0.040 ms at 3.35 TB/s, against 0.035 ms for
-// its 3.4e10 causal FLOP at 989 TFLOP/s; at the 2.7B step (b=8, 32 heads
-// of 80) 0.050 ms of bytes against 0.043 ms of FLOP.
+// its 3.4e10 causal FLOP at 989 TFLOP/s (the same dense rate in bf16 and
+// fp16); at the 2.7B step (b=8, 32 heads of 80) 0.050 ms of bytes against
+// 0.043 ms of FLOP.
 //
 // What the design does about it (FlashAttention-2's forward on mma.sync):
 // - Element (batch, head, row, col) of q/k/v/out is at
@@ -24,20 +29,20 @@
 //   warp owns MT m16 row tiles of it. Causal calls and d > 80 take 64-row
 //   tiles (MT = 1: less work above the diagonal), the rest 128-row tiles
 //   (MT = 2: each K/V fragment read from shared memory feeds two row
-//   tiles); launch_rows says why. Causal query tiles are launched most-work-first
-//   (reversed blockIdx.y), so the tail is short.
+//   tiles); launch_rows says why. Causal query tiles are launched
+//   most-work-first (reversed blockIdx.y), so the tail is short.
 // - Q is copied to shared memory once; each warp reads its rows as mma
 //   A-fragments by ldmatrix at every key tile. Holding them in registers
 //   instead measured slower at every shape but d = 128 causal: it cost
 //   occupancy (DP 80 at 190 registers, two blocks an SM). K/V tiles of 64
 //   keys stream through a 2-stage ring in shared memory, filled by 16-byte
 //   cp.async.cg: the next tile's copy is issued before the current tile
-//   is computed on, so copy and compute overlap. Rows are DP+8 bf16 apart
-//   (DP the padded head width, 64, 80 or 128), which puts the 8 rows of
-//   every ldmatrix phase in 32 distinct banks. Head columns past d and
+//   is computed on, so copy and compute overlap. Rows are DP+8 elements
+//   apart (DP the padded head width, 64, 80 or 128), which puts the 8 rows
+//   of every ldmatrix phase in 32 distinct banks. Head columns past d and
 //   rows past the tile's end are zero-filled by cp.async's src-size,
 //   never read from memory.
-// - S = Q K^T with mma.sync m16n8k16 (bf16 in, fp32 accumulate), K as the
+// - S = Q K^T with mma.sync m16n8k16 (T in, fp32 accumulate), K as the
 //   col-major B operand straight from ldmatrix. The scale is folded with
 //   log2(e) into one multiply, so exp is exp2f. Masks are _valid_cols
 //   (:150): col < kv_end, equal segment ids, causal col <= row, with the
@@ -46,10 +51,12 @@
 //   (_causal_skip, :144).
 // - Online softmax in registers, as _online_update (:79): each row's max
 //   and sum over a quad of lanes (shuffles 1 and 2); l is summed from fp32
-//   p; p is then rounded to bf16 in registers as the mma A-fragments of
-//   P V (JAX's p.astype(v.dtype), :90). P never touches shared memory.
-//   V is the row-major B operand through ldmatrix.trans.
-// - Epilogue: out = acc / max(l, 1e-30) to bf16, staged through the warp's
+//   p; p is then rounded to T in registers as the mma A-fragments of
+//   P V (JAX's p.astype(v.dtype), :90, for bf16; in fp16, 3 mantissa bits
+//   finer than bf16, p <= 1 cannot overflow and p below 2^-25 rounds to
+//   0). P never touches shared memory. V is the row-major B operand
+//   through ldmatrix.trans.
+// - Epilogue: out = acc / max(l, 1e-30) to T, staged through the warp's
 //   own Q rows in shared memory and written in 16-byte stores; lse = m +
 //   log(max(l, 1e-30)), so a row with every column masked ends with out = 0
 //   and lse = -1e30 + log(1e-30), as _finish (:133-137).
@@ -68,11 +75,12 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+template <typename T>
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* out;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
   float* lse;           // [bh, sq]
   const int* lens;      // [bh] or null
   const int* seg_q;     // [bh / n_rep, sq] or null
@@ -93,15 +101,15 @@ template <int DP, int MT>
 struct Tc {
   static_assert(DP % 16 == 0 && DP <= 128, "padded head width");
   static constexpr int kBQ = 16 * MT * kWarps;  // query rows of a block
-  static constexpr int kLd = DP + 8;            // smem row stride (bf16)
+  static constexpr int kLd = DP + 8;            // smem row stride (elements)
   static constexpr int kChunks = DP / 8;        // 16-byte chunks of a row
-  static constexpr int kQTile = kBQ * kLd;      // bf16 of the Q tile
-  static constexpr int kKTile = kBK * kLd;      // bf16 of a K or V tile
+  static constexpr int kQTile = kBQ * kLd;      // elements of the Q tile
+  static constexpr int kKTile = kBK * kLd;      // elements of a K or V tile
   static constexpr int kKSteps = DP / 16;       // k16 steps of Q K^T
   static constexpr int kNTiles = DP / 8;        // n8 tiles of P V
   // Q, two stages of (K, V), two stages of key segment ids, query ids
   static constexpr size_t kSmem =
-      ((size_t)kQTile + 4 * (size_t)kKTile) * sizeof(bf16) +
+      ((size_t)kQTile + 4 * (size_t)kKTile) * sizeof(uint16_t) +
       2 * kBK * sizeof(int) + kBQ * sizeof(int);
 };
 
@@ -115,16 +123,16 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int DP, int MT, int MINB>
+template <typename T, int DP, int MT, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
-flash_fwd_tc_kernel(const Params p) {
+flash_fwd_tc_kernel(const Params<T> p) {
   using G = Tc<DP, MT>;
   constexpr int kBQ = G::kBQ;
   constexpr int kWRows = 16 * MT;           // query rows of a warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + G::kQTile;                // 2 stages
-  bf16* vs = ks + 2 * G::kKTile;            // 2 stages
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + G::kQTile;                // 2 stages
+  T* vs = ks + 2 * G::kKTile;            // 2 stages
   int* segk_s = reinterpret_cast<int*>(vs + 2 * G::kKTile);  // 2 x kBK
   int* segq_s = segk_s + 2 * kBK;                            // kBQ
 
@@ -143,9 +151,9 @@ flash_fwd_tc_kernel(const Params p) {
   const int head = bh - batch * p.heads;
   const long long q_off = batch * p.q_sb + head * p.s_h;
   const long long k_off = batch * p.k_sb + head * p.s_h;
-  const bf16* qb = p.q + q_off;
-  const bf16* kb = p.k + k_off;
-  const bf16* vb = p.v + k_off;
+  const T* qb = p.q + q_off;
+  const T* kb = p.k + k_off;
+  const T* vb = p.v + k_off;
 
   const int kv_end = p.lens ? max(0, min(p.sk, p.lens[bh])) : p.sk;
   const bool segs = p.seg_q != nullptr;
@@ -215,8 +223,8 @@ flash_fwd_tc_kernel(const Params p) {
     cp_async_wait<1>();
     __syncthreads();
 
-    const bf16* kt = ks + st * G::kKTile;
-    const bf16* vt = vs + st * G::kKTile;
+    const T* kt = ks + st * G::kKTile;
+    const T* vt = vs + st * G::kKTile;
     const int* sk_t = segk_s + st * kBK;
 
     // S = Q K^T: per m16 tile, 16 rows x 64 keys in 8 n8 tiles
@@ -245,8 +253,8 @@ flash_fwd_tc_kernel(const Params p) {
           ldmatrix_x4(b, kt + (jp * 16 + kr) * G::kLd + kk * 16 + kc);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(s[mt][2 * jp], qa[mt], b[0], b[1]);
-            mma_bf16(s[mt][2 * jp + 1], qa[mt], b[2], b[3]);
+            mma16<T>(s[mt][2 * jp], qa[mt], b[0], b[1]);
+            mma16<T>(s[mt][2 * jp + 1], qa[mt], b[2], b[3]);
           }
         }
       }
@@ -330,7 +338,7 @@ flash_fwd_tc_kernel(const Params p) {
       }
     }
 
-    // O += P V: P's fp32 fragments rounded to bf16 A-fragments in place
+    // O += P V: P's fp32 fragments rounded to T A-fragments in place
     {
       // x4.trans: (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15),
       // (keys 8-15, d 8-15) of a 16-key step and a pair of n8 tiles
@@ -339,10 +347,10 @@ flash_fwd_tc_kernel(const Params p) {
         uint32_t a[MT][4];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-          a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-          a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-          a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+          a[mt][0] = pack2<T>(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          a[mt][1] = pack2<T>(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          a[mt][2] = pack2<T>(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          a[mt][3] = pack2<T>(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
         }
 #pragma unroll
         for (int jp = 0; jp < G::kNTiles / 2; ++jp) {
@@ -350,8 +358,8 @@ flash_fwd_tc_kernel(const Params p) {
           ldmatrix_x4_trans(b, vt + (kk * 16 + a_r) * G::kLd + jp * 16 + a_c);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(o[mt][2 * jp], a[mt], b[0], b[1]);
-            mma_bf16(o[mt][2 * jp + 1], a[mt], b[2], b[3]);
+            mma16<T>(o[mt][2 * jp], a[mt], b[0], b[1]);
+            mma16<T>(o[mt][2 * jp + 1], a[mt], b[2], b[3]);
           }
         }
       }
@@ -362,7 +370,7 @@ flash_fwd_tc_kernel(const Params p) {
 
   // epilogue: out through this warp's own rows of the Q tile (no other
   // warp reads them)
-  bf16* ow = qs + w_row * G::kLd;
+  T* ow = qs + w_row * G::kLd;
   float* lb = p.lse + (long long)bh * p.sq;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -374,7 +382,7 @@ flash_fwd_tc_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < G::kNTiles; ++j)
         *reinterpret_cast<uint32_t*>(ow + r * G::kLd + j * 8 + tig * 2) =
-            pack_bf16(o[mt][j][2 * h] * inv, o[mt][j][2 * h + 1] * inv);
+            pack2<T>(o[mt][j][2 * h] * inv, o[mt][j][2 * h + 1] * inv);
       // m is in log2 units; a row with every column masked keeps kNeg
       const int row = q0 + w_row + r;
       if (tig == 0 && row < p.sq)
@@ -382,7 +390,7 @@ flash_fwd_tc_kernel(const Params p) {
     }
   }
   __syncwarp();
-  bf16* ob = p.out + q_off;
+  T* ob = p.out + q_off;
   static_assert(kWRows * G::kChunks % 32 == 0, "whole chunks a lane");
 #pragma unroll
   for (int it = 0; it < kWRows * G::kChunks / 32; ++it) {
@@ -396,16 +404,16 @@ flash_fwd_tc_kernel(const Params p) {
   }
 }
 
-template <int DP, int MT, int MINB = 1>
-cudaError_t launch_cfg(const Params& p, int bh, cudaStream_t stream) {
+template <typename T, int DP, int MT, int MINB = 1>
+cudaError_t launch_cfg(const Params<T>& p, int bh, cudaStream_t stream) {
   using G = Tc<DP, MT>;
   static bool smem_ok = false;
-  const cudaError_t err = hm::allow_smem(flash_fwd_tc_kernel<DP, MT, MINB>,
-                                         G::kSmem, &smem_ok);
+  const cudaError_t err = hm::allow_smem(
+      flash_fwd_tc_kernel<T, DP, MT, MINB>, G::kSmem, &smem_ok);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.sq + G::kBQ - 1) / G::kBQ);
-  flash_fwd_tc_kernel<DP, MT, MINB><<<grid, kThreads, G::kSmem, stream>>>(
-      p);
+  flash_fwd_tc_kernel<T, DP, MT, MINB>
+      <<<grid, kThreads, G::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -414,50 +422,40 @@ cudaError_t launch_cfg(const Params& p, int bh, cudaStream_t stream) {
 // (DP 64 and 80; 128 fits two). Non-causal: 128-row tiles, where each K/V
 // fragment read from shared memory feeds two m16 tiles, up to DP 80: at
 // 128 their accumulators do not fit 255 registers (ptxas spills).
-template <int DP>
-cudaError_t launch_rows(const Params& p, int bh, cudaStream_t stream) {
+template <typename T, int DP>
+cudaError_t launch_rows(const Params<T>& p, int bh, cudaStream_t stream) {
   if constexpr (DP == 128) {
-    return launch_cfg<DP, 1, 2>(p, bh, stream);
+    return launch_cfg<T, DP, 1, 2>(p, bh, stream);
   } else {
-    if (p.causal) return launch_cfg<DP, 1, 3>(p, bh, stream);
-    return launch_cfg<DP, 2>(p, bh, stream);
+    if (p.causal) return launch_cfg<T, DP, 1, 3>(p, bh, stream);
+    return launch_cfg<T, DP, 2>(p, bh, stream);
   }
 }
 
-cudaError_t launch_dp(const Params& p, int bh, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_dp(const Params<T>& p, int bh, cudaStream_t stream) {
   switch (hm::padded_width(p.d)) {
     case 64:
-      return launch_rows<64>(p, bh, stream);
+      return launch_rows<T, 64>(p, bh, stream);
     case 80:
-      return launch_rows<80>(p, bh, stream);
+      return launch_rows<T, 80>(p, bh, stream);
     default:
-      return launch_rows<128>(p, bh, stream);
+      return launch_rows<T, 128>(p, bh, stream);
   }
 }
 
-}  // namespace
-}  // namespace apex_tpu_torch
-
-using namespace apex_tpu_torch;
-
-// bf16 q [b, sq, hidden], k/v [b, sk, hidden] with heads of kHeadDim side
-// by side along hidden; out [b, sq, hidden] bf16, lse fp32 [b, heads, sq].
-// Every pointer 16-byte aligned. Returns cudaGetLastError() after the
-// launch; cudaErrorInvalidValue for anything the kernel does not take
-// (nothing launched).
-extern "C" int apex_tpu_torch_flash_fwd_bsh_tc(
-    const void* q, const void* k, const void* v, void* out, void* lse, int b,
-    int sq, int sk, int hidden, int heads, float scale, int causal,
-    void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
-      hidden != heads * kHeadDim || (causal && sq != sk) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(out))
-    return cudaErrorInvalidValue;
-  Params p{};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.out = static_cast<bf16*>(out);
+// The model layout's call: q [b, sq, hidden], k/v [b, sk, hidden] with
+// heads of kHeadDim side by side along hidden
+template <typename T>
+cudaError_t launch_bsh(const void* q, const void* k, const void* v, void* out,
+                       void* lse, int b, int sq, int sk, int hidden,
+                       int heads, float scale, int causal,
+                       cudaStream_t stream) {
+  Params<T> p{};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.out = static_cast<T*>(out);
   p.lse = static_cast<float*>(lse);
   p.q_sb = (long long)sq * hidden;
   p.k_sb = (long long)sk * hidden;
@@ -470,30 +468,20 @@ extern "C" int apex_tpu_torch_flash_fwd_bsh_tc(
   p.n_rep = 1;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
-  return launch_dp(p, b * heads, static_cast<cudaStream_t>(stream));
+  return launch_dp(p, b * heads, stream);
 }
 
-// bf16 q [bh, sq, d], k/v [bh, sk, d], d <= 128 and a multiple of 8; out
-// [bh, sq, d] bf16, lse fp32 [bh, sq]. lens: int32 [bh] kv lengths or
-// null; seg_q/seg_k: int32 [bh / n_rep, sq] / [bh / n_rep, sk] segment ids
-// or null (both or neither). q, k, v and out 16-byte aligned. Returns
-// cudaGetLastError() after the launch; cudaErrorInvalidValue for anything
-// the kernel does not take (nothing launched).
-extern "C" int apex_tpu_torch_flash_fwd_hm_tc(
-    const void* q, const void* k, const void* v, const void* lens,
-    const void* seg_q, const void* seg_k, void* out, void* lse, int bh,
-    int n_rep, int sq, int sk, int d, float scale, int causal,
-    void* stream) {
-  if (bh <= 0 || n_rep <= 0 || bh % n_rep || sq <= 0 || sk <= 0 || d <= 0 ||
-      d > 128 || d % 8 || (causal && sq != sk) ||
-      ((seg_q == nullptr) != (seg_k == nullptr)) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(out))
-    return cudaErrorInvalidValue;
-  Params p{};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.out = static_cast<bf16*>(out);
+// The head-major call: q [bh, sq, d], k/v [bh, sk, d]
+template <typename T>
+cudaError_t launch_hm(const void* q, const void* k, const void* v,
+                      const void* lens, const void* seg_q, const void* seg_k,
+                      void* out, void* lse, int bh, int n_rep, int sq, int sk,
+                      int d, float scale, int causal, cudaStream_t stream) {
+  Params<T> p{};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.out = static_cast<T*>(out);
   p.lse = static_cast<float*>(lse);
   p.lens = static_cast<const int*>(lens);
   p.seg_q = static_cast<const int*>(seg_q);
@@ -509,5 +497,67 @@ extern "C" int apex_tpu_torch_flash_fwd_hm_tc(
   p.n_rep = n_rep;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
-  return launch_dp(p, bh, static_cast<cudaStream_t>(stream));
+  return launch_dp(p, bh, stream);
+}
+
+}  // namespace
+}  // namespace apex_tpu_torch
+
+using namespace apex_tpu_torch;
+
+// q [b, sq, hidden], k/v [b, sk, hidden] with heads of kHeadDim side by
+// side along hidden, of dtype code `dtype` (kBFloat16 or kFloat16); out
+// [b, sq, hidden] in q's dtype, lse fp32 [b, heads, sq]. Every pointer
+// 16-byte aligned. Returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for anything the kernel does not take (nothing
+// launched).
+extern "C" int apex_tpu_torch_flash_fwd_bsh_tc(
+    const void* q, const void* k, const void* v, void* out, void* lse, int b,
+    int sq, int sk, int hidden, int heads, float scale, int causal,
+    int dtype, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || heads <= 0 ||
+      hidden != heads * kHeadDim || (causal && sq != sk) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBFloat16:
+      return launch_bsh<bf16>(q, k, v, out, lse, b, sq, sk, hidden, heads,
+                              scale, causal, st);
+    case kFloat16:
+      return launch_bsh<f16>(q, k, v, out, lse, b, sq, sk, hidden, heads,
+                             scale, causal, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// q [bh, sq, d], k/v [bh, sk, d] of dtype code `dtype` (kBFloat16 or
+// kFloat16), d <= 128 and a multiple of 8; out [bh, sq, d] in q's dtype,
+// lse fp32 [bh, sq]. lens: int32 [bh] kv lengths or null; seg_q/seg_k:
+// int32 [bh / n_rep, sq] / [bh / n_rep, sk] segment ids or null (both or
+// neither). q, k, v and out 16-byte aligned. Returns cudaGetLastError()
+// after the launch; cudaErrorInvalidValue for anything the kernel does not
+// take (nothing launched).
+extern "C" int apex_tpu_torch_flash_fwd_hm_tc(
+    const void* q, const void* k, const void* v, const void* lens,
+    const void* seg_q, const void* seg_k, void* out, void* lse, int bh,
+    int n_rep, int sq, int sk, int d, float scale, int causal, int dtype,
+    void* stream) {
+  if (bh <= 0 || n_rep <= 0 || bh % n_rep || sq <= 0 || sk <= 0 || d <= 0 ||
+      d > 128 || d % 8 || (causal && sq != sk) ||
+      ((seg_q == nullptr) != (seg_k == nullptr)) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBFloat16:
+      return launch_hm<bf16>(q, k, v, lens, seg_q, seg_k, out, lse, bh, n_rep,
+                             sq, sk, d, scale, causal, st);
+    case kFloat16:
+      return launch_hm<f16>(q, k, v, lens, seg_q, seg_k, out, lse, bh, n_rep,
+                            sq, sk, d, scale, causal, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -41,8 +41,12 @@ LIB_NAME = "libapex_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: dtype codes of ``csrc/common.cuh`` (enum DType)
+#: dtype codes of ``csrc/common.cuh`` (enum DType) that the CUDA-core
+#: kernels take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the codes the tensor-core flash kernels take (``csrc/flash_fwd_tc.cu``,
+#: ``csrc/flash_bwd_tc.cu``): the two 16-bit types
+TC_DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 #: quantized-KV storage codes of ``csrc/common.cuh`` (enum KvKind)
 KV_KIND_CODES = {"int8": 0, "fp8": 1}
 #: the head width the lane-packed flash and the decode kernels are built
@@ -74,21 +78,22 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_float, _c_int, _c_int, _c_void_p],
-    # the tensor-core forwards (bf16 only): as the two above, less the dtype
+    # the tensor-core forwards: as the two above, the dtype a code of
+    # TC_DTYPE_CODES
     "apex_tpu_torch_flash_fwd_bsh_tc": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
         _c_void_p],
     "apex_tpu_torch_flash_fwd_hm_tc": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-        _c_float, _c_int, _c_void_p],
-    # the lane-packed tensor-core backward (bf16 only): as
-    # apex_tpu_torch_flash_bwd_bsh, less the dtype; dq is an fp32 sum
+        _c_float, _c_int, _c_int, _c_void_p],
+    # the lane-packed tensor-core backward: as apex_tpu_torch_flash_bwd_bsh
+    # (the dtype a code of TC_DTYPE_CODES); dq is an fp32 sum
     "apex_tpu_torch_flash_bwd_bsh_tc": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_void_p,
-        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
         _c_void_p],
     "apex_tpu_torch_adam_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
@@ -190,7 +195,7 @@ _SIGNATURES = {
 
 # the head-major backward entries: q, k, v, do, lse, delta, lens, seg_q,
 # seg_k, dq, dk, dv, bh, n_rep, sq, sk, d, scale, causal, q's dtype, stream
-# ("tc": the tensor-core fused backward, bf16 only)
+# ("tc": the tensor-core fused backward, its dtype a code of TC_DTYPE_CODES)
 for _name in ("fused", "dq", "dkdv", "tc"):
     _SIGNATURES[f"apex_tpu_torch_flash_bwd_hm_{_name}"] = [
         _c_void_p] * 12 + [_c_int] * 5 + [_c_float, _c_int, _c_int,
@@ -347,11 +352,23 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def dtype_code(t: torch.Tensor, name: str) -> int:
+    """The CUDA-core kernels' code of ``t``'s dtype: float32 or bfloat16
+    (float16 reaches them only widened to fp32, by the wrappers)."""
     if t.dtype not in DTYPE_CODES:
         raise TypeError(
             f"{name}: dtype {t.dtype} not supported by the kernel "
             f"(float32 or bfloat16)")
     return DTYPE_CODES[t.dtype]
+
+
+def tc_dtype_code(t: torch.Tensor, name: str) -> int:
+    """The tensor-core flash kernels' code of ``t``'s dtype: bfloat16 or
+    float16."""
+    if t.dtype not in TC_DTYPE_CODES:
+        raise TypeError(
+            f"{name}: dtype {t.dtype} not supported by the tensor-core "
+            f"kernel (bfloat16 or float16)")
+    return TC_DTYPE_CODES[t.dtype]
 
 
 def require(t: torch.Tensor, name: str, shape, dtype: torch.dtype, *,

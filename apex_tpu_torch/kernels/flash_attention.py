@@ -15,12 +15,12 @@ Two ops of the ``apex_tpu_torch`` library, joined by
 
 - ``apex_tpu_torch::flash_attention_bsh_fwd(q, k, v, num_heads, causal,
   scale) -> (out, lse)`` — CUDA tensors launch the tensor-core kernel of
-  ``csrc/flash_fwd_tc.cu`` (bf16) or ``csrc/flash_attention_bsh.cu``
-  (fp32), by :func:`tc_route`; CPU tensors run
+  ``csrc/flash_fwd_tc.cu`` (bf16 and fp16) or
+  ``csrc/flash_attention_bsh.cu`` (fp32), by :func:`tc_route`; CPU tensors run
   :func:`flash_attention_bsh_plain`;
 - ``apex_tpu_torch::flash_attention_bsh_bwd(q, k, v, do, lse, delta,
   num_heads, causal, scale) -> (dq, dk, dv)`` — CUDA tensors launch the
-  tensor-core kernel of ``csrc/flash_bwd_tc.cu`` (bf16) or
+  tensor-core kernel of ``csrc/flash_bwd_tc.cu`` (bf16 and fp16) or
   ``csrc/flash_attention_bsh_bwd.cu`` (fp32), by the same rule; CPU
   tensors run :func:`flash_attention_bsh_bwd_plain`.
 
@@ -32,10 +32,16 @@ backward from re-running the forward kernel (``models/gpt.py``).
 
 Python wrappers: :func:`flash_attention_bsh_fwd` (``(out, lse)``),
 :func:`flash_attention_bsh` (``out``, the JAX function's signature) and
-:func:`flash_attention_bsh_bwd` (``(dq, dk, dv)``). The wrappers widen
-float16 inputs to fp32 and cast the results back
-(``apex_tpu/kernels/flash_attention.py:1167-1178``), so fp16 runs the
-fp32 instantiation of the kernels. Each kernel's launch
+:func:`flash_attention_bsh_bwd` (``(dq, dk, dv)``). float16 reaches the
+tensor-core kernels as it is wherever :func:`tc_route` sends it there
+(a head width in multiples of 8 up to 128, so every lane-packed call):
+they round P and dS to fp16 as they round them to bf16 for bf16 inputs,
+and the plain twins round the same way. JAX widens float16 to fp32 at
+its kernels' boundary instead (``widen_f16``,
+``apex_tpu/kernels/flash_attention.py:1167-1178``), so its P and dS stay
+fp32: a difference by design. Where :func:`tc_route` says no, the
+wrappers widen float16 to fp32 and cast the results back, as JAX does,
+and the fp32 CUDA-core kernels run it. Each kernel's launch
 count is kept on its wrapper (``flash_attention_bsh_fwd.launches``,
 ``flash_attention_bsh_bwd.launches``); the forwards and the fused
 backwards also count their tensor-core launches apart
@@ -78,23 +84,41 @@ def _scale(scale: Optional[float], d: int) -> float:
 
 
 def _widen_f16(t: torch.Tensor) -> torch.Tensor:
-    """float16 → fp32 (the kernels have no float16 instantiation, as
-    Mosaic has no f16); anything else as it is."""
+    """float16 → fp32 (the CUDA-core kernels have no float16
+    instantiation, as Mosaic has no f16); anything else as it is."""
     return t.float() if t.dtype == torch.float16 else t
+
+
+def _kernel_inputs(head_dim: int, *tensors) -> tuple:
+    """The operands as a forward or fused backward op takes them: as they
+    are where :func:`tc_route` says yes (bf16 or float16 on the tensor
+    cores), else with float16 widened to fp32 (the CUDA-core kernels'
+    fp32 instantiation; JAX's ``widen_f16``). A rule of dtype and width
+    alone, on either device, so the plain twins on the CPU compute what
+    the card does."""
+    if tc_route(head_dim, *tensors):
+        return tensors
+    return tuple(_widen_f16(t) for t in tensors)
 
 
 def tc_route(head_dim: int, *tensors) -> bool:
     """Which kernel a forward or fused backward op launches for CUDA
     tensors, by dtype and head width alone (never by failure): True for
     the tensor-core kernels of ``csrc/flash_fwd_tc.cu`` and
-    ``csrc/flash_bwd_tc.cu`` — every operand (q, k, v; and do) bf16, a
-    head width that is a multiple of 8 and at most 128; False for the
-    CUDA-core kernels (``csrc/flash_attention_bsh.cu``,
-    ``csrc/flash_attention.cu``, ``csrc/flash_attention_bsh_bwd.cu``,
-    ``csrc/flash_attention_bwd.cu``): fp32, fp16 (the wrappers widen it to
-    fp32 first), other widths. An operand off a 16-byte boundary is the
-    op's to copy (:func:`_aligned16`)."""
-    return (all(t.dtype == torch.bfloat16 for t in tensors)
+    ``csrc/flash_bwd_tc.cu`` — every operand (q, k, v; and do) of one
+    16-bit dtype, bf16 or fp16 (mixed bf16/fp16 is False), a head width
+    that is a multiple of 8 and at most 128; False for the CUDA-core
+    kernels (``csrc/flash_attention_bsh.cu``, ``csrc/flash_attention.cu``,
+    ``csrc/flash_attention_bsh_bwd.cu``, ``csrc/flash_attention_bwd.cu``):
+    fp32, other widths (where the wrappers widen fp16 to fp32 first,
+    :func:`_kernel_inputs`). fp32 stays off the tensor cores because their
+    fp32 path is TF32, 10 bits of mantissa: it would change what JAX's
+    fp32 kernels compute, and a 3xTF32 or split-bf16 product that keeps
+    fp32's accuracy is a design of its own. An operand off a 16-byte
+    boundary is the op's to copy (:func:`_aligned16`)."""
+    dtype = tensors[0].dtype
+    return (dtype in _build.TC_DTYPE_CODES
+            and all(t.dtype == dtype for t in tensors)
             and head_dim % 8 == 0 and 0 < head_dim <= _build.HM_MAX_HEAD_DIM)
 
 
@@ -107,11 +131,13 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 def _round_io(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """fp32 P (or dS) as the products downstream take it: rounded to the
-    inputs' dtype, as JAX rounds them (``p.astype(v.dtype)`` in
-    ``_online_update`` :90; ``_p_ds`` :188-189) and the tensor-core kernels
-    pack them into bf16 fragments; float16 is widened to fp32 before any
-    kernel (``_widen_f16``), so there, as in fp32, x stays as it is."""
-    if dtype in (torch.float32, torch.float16):
+    inputs' 16-bit dtype, as the tensor-core kernels pack them into bf16
+    or fp16 fragments and as JAX rounds them for bf16 (``p.astype(v.dtype)``
+    in ``_online_update`` :90; ``_p_ds`` :188-189; JAX widens fp16 to fp32
+    first, so there P and dS stay fp32: a difference by design). An fp16
+    dS past 65504 becomes inf here as in the kernel. fp32 stays as it
+    is."""
+    if dtype == torch.float32:
         return x
     return x.to(dtype).float()
 
@@ -147,7 +173,8 @@ def flash_attention_bsh_plain(q, k, v, *, num_heads: int,
     in q's dtype, lse fp32 [b, heads, sq])``, all arithmetic in fp32 —
     scores times ``scale``, the masks of ``_valid_cols`` with the finite
     ``-1e30`` fill, fp32 softmax statistics, ``l`` summed from fp32 p and
-    p rounded to bf16 before ``P V`` for bf16 inputs (:func:`_round_io`)."""
+    p rounded to the inputs' 16-bit dtype before ``P V``
+    (:func:`_round_io`)."""
     b, sq, sk, hidden, d = _geometry(q, k, v, num_heads, causal)
     s_ = _scale(scale, d)
     qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
@@ -169,10 +196,10 @@ def flash_attention_bsh_bwd_plain(q, k, v, do, lse, delta, *,
     """Plain PyTorch twin of the backward kernels, the ``_p_ds`` block
     math written out over whole rows: ``P = exp(S * scale - lse)`` under
     the valid mask, ``dS = P * (dP - delta) * scale``, both in fp32 and
-    then, for bf16 inputs, rounded to bf16 as JAX and the tensor-core
-    kernel round them (:func:`_round_io`), then ``dV = P^T dO``, ``dK =
-    dS^T Q``, ``dQ = dS K`` summed in fp32, results in q's dtype. ``lse``
-    and ``delta`` are fp32 ``[b, heads, sq]``."""
+    then, for bf16 and fp16 inputs, rounded to that dtype as the
+    tensor-core kernel rounds them (:func:`_round_io`), then ``dV = P^T
+    dO``, ``dK = dS^T Q``, ``dQ = dS K`` summed in fp32, results in q's
+    dtype. ``lse`` and ``delta`` are fp32 ``[b, heads, sq]``."""
     b, sq, sk, hidden, d = _geometry(q, k, v, num_heads, causal)
     s_ = _scale(scale, d)
     qh, kh, vh, doh = (_heads(t, num_heads) for t in (q, k, v, do))
@@ -202,11 +229,13 @@ def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _build.on_cuda(q, k, v):
         return flash_attention_bsh_plain(q, k, v, num_heads=num_heads,
                                          causal=causal, scale=scale)
-    code = _build.dtype_code(q, "flash_attention_bsh q")
     if d != _build.KERNEL_HEAD_DIM:
         raise ValueError(
             f"flash_attention_bsh kernel: head_dim {d} != "
             f"{_build.KERNEL_HEAD_DIM}")
+    tc = tc_route(d, q, k, v)
+    code = (_build.tc_dtype_code if tc else _build.dtype_code)(
+        q, "flash_attention_bsh q")
     _build.require(q, "q", (b, sq, hidden), q.dtype)
     _build.require(k, "k", (b, sk, hidden), q.dtype)
     _build.require(v, "v", (b, sk, hidden), q.dtype)
@@ -214,15 +243,14 @@ def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, num_heads, sq), dtype=torch.float32,
                       device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, sq, sk, hidden, num_heads, scale, int(causal))
-    if tc_route(d, q, k, v):
-        rc = _build.library().apex_tpu_torch_flash_fwd_bsh_tc(
-            *args, _build.stream())
+            lse.data_ptr(), b, sq, sk, hidden, num_heads, scale, int(causal),
+            code, _build.stream())
+    if tc:
+        rc = _build.library().apex_tpu_torch_flash_fwd_bsh_tc(*args)
         _build.check(rc, "flash_attention_bsh (tensor cores)")
         flash_attention_bsh_fwd.tc_launches += 1
     else:
-        rc = _build.library().apex_tpu_torch_flash_fwd_bsh(
-            *args, code, _build.stream())
+        rc = _build.library().apex_tpu_torch_flash_fwd_bsh(*args)
         _build.check(rc, "flash_attention_bsh")
     flash_attention_bsh_fwd.launches += 1
     return out, lse
@@ -246,11 +274,13 @@ def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bsh_bwd_plain(
             q, k, v, do, lse, delta, num_heads=num_heads, causal=causal,
             scale=scale)
-    code = _build.dtype_code(q, "flash_attention_bsh_bwd q")
     if d != _build.KERNEL_HEAD_DIM:
         raise ValueError(
             f"flash_attention_bsh_bwd kernel: head_dim {d} != "
             f"{_build.KERNEL_HEAD_DIM}")
+    tc = tc_route(d, q, k, v, do)
+    code = (_build.tc_dtype_code if tc else _build.dtype_code)(
+        q, "flash_attention_bsh_bwd q")
     for name, t, rows in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                           ("do", do, sq)):
         _build.require(t, name, (b, rows, hidden), q.dtype)
@@ -259,22 +289,21 @@ def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
-    geom = (b, sq, sk, hidden, num_heads, scale, int(causal))
-    if tc_route(d, q, k, v, do):
-        # dq is summed with fp32 atomics, then rounded to bf16 once
+    geom = (b, sq, sk, hidden, num_heads, scale, int(causal), code,
+            _build.stream())
+    if tc:
+        # dq is summed with fp32 atomics, then rounded to q's dtype once
         dq32 = torch.empty((b, sq, hidden), dtype=torch.float32,
                            device=q.device)
         rc = _build.library().apex_tpu_torch_flash_bwd_bsh_tc(
-            *args, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom,
-            _build.stream())
+            *args, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom)
         _build.check(rc, "flash_attention_bsh_bwd (tensor cores)")
         dq = dq32.to(q.dtype)
         flash_attention_bsh_bwd.tc_launches += 1
     else:
         dq = torch.empty_like(q)
         rc = _build.library().apex_tpu_torch_flash_bwd_bsh(
-            *args, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom, code,
-            _build.stream())
+            *args, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *geom)
         _build.check(rc, "flash_attention_bsh_bwd")
     flash_attention_bsh_bwd.launches += 1
     return dq, dk, dv
@@ -325,16 +354,16 @@ def flash_attention_bsh_fwd(q, k, v, *, num_heads: int,
     (counted in ``flash_attention_bsh_fwd.launches``, the tensor-core
     ones also in ``.tc_launches``); CPU tensors run the plain version. The
     kernels take contiguous, 16-byte aligned q/k/v of one dtype with
-    head_dim 64, bf16 (the tensor-core kernel) or fp32, and raise on
-    anything else; float16 inputs are widened to fp32 first and the output
-    cast back to float16 (the JAX function's ``widen_f16``), so they reach
-    the fp32 kernel."""
+    head_dim 64, bf16 or fp16 (the tensor-core kernel) or fp32, and raise
+    on anything else. float16 runs the tensor-core kernel as it is (P
+    rounded to fp16; JAX widens it to fp32), except where
+    :func:`tc_route` says no (:func:`_kernel_inputs`)."""
     _, _, _, _, d = _geometry(q, k, v, num_heads, causal)
     _build.on_cuda(q, k, v)       # refuse other and mixed devices here
-    half = q.dtype == torch.float16
-    q, k, v = (_widen_f16(t) for t in (q, k, v))
-    out, lse = _fwd_op(q, k, v, num_heads, bool(causal), _scale(scale, d))
-    return (out.to(torch.float16) if half else out), lse
+    dtype = q.dtype
+    out, lse = _fwd_op(*_kernel_inputs(d, q, k, v), num_heads, bool(causal),
+                       _scale(scale, d))
+    return out.to(dtype), lse
 
 
 flash_attention_bsh_fwd.launches = 0
@@ -368,17 +397,17 @@ def flash_attention_bsh_bwd(q, k, v, do, lse, delta, *, num_heads: int,
     ``do`` and the fp32 ``[b, heads, sq]`` statistics ``lse`` (from the
     forward) and ``delta`` (``sum_d(out * do)`` per head). CUDA tensors
     launch a kernel (counted in ``flash_attention_bsh_bwd.launches``):
-    bf16 the tensor-core one (also counted in ``.tc_launches``; dq summed
-    with atomics, so its last bits may change between launches), fp32 the
-    CUDA-core one; CPU tensors run the plain version. float16 q/k/v/do are
-    widened to fp32, as in the forward, and each gradient comes back in
-    its input's dtype."""
+    bf16 and fp16 the tensor-core one (also counted in ``.tc_launches``;
+    P and dS rounded to the inputs' dtype; dq summed with atomics, so its
+    last bits may change between launches), fp32 the CUDA-core one; CPU
+    tensors run the plain version. float16 is widened to fp32 only where
+    :func:`tc_route` says no, as in the forward, and each gradient comes
+    back in its input's dtype."""
     _, _, _, _, d = _geometry(q, k, v, num_heads, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
     dtypes = [t.dtype for t in (q, k, v)]
-    q, k, v, do = (_widen_f16(t) for t in (q, k, v, do))
-    grads = _bwd_op(q, k, v, do, lse, delta, num_heads, bool(causal),
-                    _scale(scale, d))
+    grads = _bwd_op(*_kernel_inputs(d, q, k, v, do), lse, delta, num_heads,
+                    bool(causal), _scale(scale, d))
     return tuple(g.to(dt) for g, dt in zip(grads, dtypes))
 
 
@@ -400,15 +429,15 @@ flash_attention_bsh_bwd.tc_launches = 0
 # Four ops of the ``apex_tpu_torch`` library:
 #
 # - ``flash_attention_fwd(q, k, v, lens, seg_q, seg_k, n_rep, causal,
-#   scale, block_q) -> (out, lse)`` — ``csrc/flash_fwd_tc.cu`` (bf16, by
-#   :func:`tc_route`) or ``csrc/flash_attention.cu``, or
+#   scale, block_q) -> (out, lse)`` — ``csrc/flash_fwd_tc.cu`` (bf16 and
+#   fp16, by :func:`tc_route`) or ``csrc/flash_attention.cu``, or
 #   :func:`flash_attention_fwd_plain` on the CPU;
 # - ``flash_attention_bwd`` (fused, ``(dq, dk, dv)``) —
-#   ``csrc/flash_bwd_tc.cu`` (bf16, by :func:`tc_route`) or
+#   ``csrc/flash_bwd_tc.cu`` (bf16 and fp16, by :func:`tc_route`) or
 #   ``csrc/flash_attention_bwd.cu``; ``flash_attention_bwd_dq`` (``dq``)
 #   and ``flash_attention_bwd_dkdv`` (``(dk, dv)``) —
-#   ``csrc/flash_attention_bwd.cu``; or their plain twins on the CPU;
-#   gradients in fp32.
+#   ``csrc/flash_attention_bwd.cu`` (float16 widened to fp32 on either
+#   device); or their plain twins on the CPU; gradients in fp32.
 #
 # The forward's autograd formula computes ``delta = sum_d(out * do)`` in
 # fp32, less the lse cotangent (``_flash_with_lse_bwd`` :657: since
@@ -553,7 +582,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
     d]``: ``(out in q's dtype, lse fp32 [bh, sq])``, all arithmetic in
     fp32 — scores times ``scale``, the ``_valid_cols`` mask with the
     finite ``-1e30`` fill, masked probabilities 0, ``l`` summed from fp32
-    p and p rounded to bf16 before ``P V`` for bf16 inputs
+    p and p rounded to the inputs' 16-bit dtype before ``P V``
     (:func:`_round_io`), ``out = acc / max(l, 1e-30)`` and ``lse = m +
     log(max(l, 1e-30))``, so a row with every column masked gives ``out =
     0`` and ``lse = -1e30 + log(1e-30)`` (``_fwd_kernel``'s
@@ -577,9 +606,9 @@ def _p_ds_plain(q, k, v, do, lse, delta, *, causal, scale, lens, segs,
                 n_rep):
     """The ``_p_ds`` block math over whole rows, in fp32: ``P = exp(S *
     scale - lse)`` under the mask, ``dS = P * (dP - delta) * scale``, both
-    then rounded to bf16 for bf16 inputs as JAX rounds them
-    (:func:`_round_io`). The CUDA-core kernels keep P and dS in fp32: the
-    twin of those is this one on the inputs widened to fp32."""
+    then rounded to the inputs' 16-bit dtype (:func:`_round_io`). The
+    CUDA-core kernels keep P and dS in fp32: the twin of those is this one
+    on the inputs widened to fp32."""
     bh, sq, sk, d = _hm_geometry(q, k, v, causal)
     s_ = _scale(scale, d)
     seg_q, seg_k = segs if segs is not None else (None, None)
@@ -632,15 +661,16 @@ def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, *,
             torch.matmul(p.transpose(-1, -2), do.float()))
 
 
-def _hm_check_kernel(q, name: str) -> int:
-    """The dtype code of the head-major kernels' inputs; raises for a head
-    width they do not take."""
+def _hm_check_kernel(q, name: str, tc: bool = False) -> int:
+    """The dtype code of the head-major kernels' inputs, for the
+    tensor-core kernel if ``tc``; raises for a head width they do not
+    take."""
     d = q.shape[-1]
     if d > _build.HM_MAX_HEAD_DIM:
         raise ValueError(
             f"{name} kernel: head_dim {d} > {_build.HM_MAX_HEAD_DIM} (wider "
             f"heads are not ported yet)")
-    return _build.dtype_code(q, f"{name} q")
+    return (_build.tc_dtype_code if tc else _build.dtype_code)(q, f"{name} q")
 
 
 def _present(*tensors):
@@ -674,25 +704,24 @@ def _hm_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _build.on_cuda(q, k, v, *_present(lens, seg_q, seg_k)):
         return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale,
                                          lens=lens, segs=segs, n_rep=n_rep)
-    code = _hm_check_kernel(q, "flash_attention")
+    tc = tc_route(d, q, k, v)
+    code = _hm_check_kernel(q, "flash_attention", tc)
     for name, t, rows in (("q", q, sq), ("k", k, sk), ("v", v, sk)):
         _build.require(t, name, (bh, rows, d), q.dtype, align=1)
-    tc = tc_route(d, q, k, v)
     if tc:
         q, k, v = (_aligned16(t) for t in (q, k, v))
     aux = _hm_aux(lens, seg_q, seg_k, bh, n_rep, sq, sk)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *aux, out.data_ptr(),
-            lse.data_ptr(), bh, n_rep, sq, sk, d, scale, int(causal))
+            lse.data_ptr(), bh, n_rep, sq, sk, d, scale, int(causal), code,
+            _build.stream())
     if tc:
-        rc = _build.library().apex_tpu_torch_flash_fwd_hm_tc(
-            *args, _build.stream())
+        rc = _build.library().apex_tpu_torch_flash_fwd_hm_tc(*args)
         _build.check(rc, "flash_attention (tensor cores)")
         flash_attention_fwd.tc_launches += 1
     else:
-        rc = _build.library().apex_tpu_torch_flash_fwd_hm(
-            *args, code, _build.stream())
+        rc = _build.library().apex_tpu_torch_flash_fwd_hm(*args)
         _build.check(rc, "flash_attention")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -711,7 +740,7 @@ def _hm_bwd_launch(entry: str, q, k, v, do, lse, delta, lens, seg_q, seg_k,
     ``(dq or None, dk or None, dv or None)``. The fused entries zero dq
     before they sum into it."""
     bh, sq, sk, d = _hm_geometry(q, k, v, causal)
-    code = _hm_check_kernel(q, entry)
+    code = _hm_check_kernel(q, entry, tc=entry == "flash_bwd_hm_tc")
     for name, t, rows in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                           ("do", do, sq)):
         _build.require(t, name, (bh, rows, d), q.dtype, align=1)
@@ -770,6 +799,9 @@ def _hm_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   seg_q: Optional[torch.Tensor],
                   seg_k: Optional[torch.Tensor], n_rep: int, causal: bool,
                   scale: float) -> torch.Tensor:
+    # the split sweeps keep P and dS in fp32: float16 (from a tensor-core
+    # forward) is widened on either device, so the twin is the kernel's
+    q, k, v, do = (_widen_f16(t) for t in (q, k, v, do))
     if not _build.on_cuda(q, k, v, do, lse, delta,
                           *_present(lens, seg_q, seg_k)):
         return flash_attention_bwd_dq_plain(
@@ -796,6 +828,7 @@ def _hm_bwd_dkdv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seg_q: Optional[torch.Tensor],
                     seg_k: Optional[torch.Tensor], n_rep: int, causal: bool,
                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    q, k, v, do = (_widen_f16(t) for t in (q, k, v, do))    # as dq's
     if not _build.on_cuda(q, k, v, do, lse, delta,
                           *_present(lens, seg_q, seg_k)):
         return flash_attention_bwd_dkdv_plain(
@@ -864,11 +897,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     sq])``, differentiable in q, k and v (and through lse). ``lens`` is an
     int32 ``[bh]`` of kv lengths, ``segs`` an int32 ``([bh // n_rep, sq],
     [bh // n_rep, sk])`` pair of segment ids. CUDA tensors launch a
-    kernel (counted in ``flash_attention_fwd.launches``) on fp32 or bf16
-    inputs with ``d <= 128``: the tensor-core kernel where
-    :func:`tc_route` says so (also counted in ``.tc_launches``; an operand
-    off a 16-byte boundary is copied once), else the CUDA-core one; CPU
-    tensors run the plain version."""
+    kernel (counted in ``flash_attention_fwd.launches``) on fp32, bf16 or
+    fp16 inputs with ``d <= 128``: the tensor-core kernel where
+    :func:`tc_route` says so (bf16 or fp16, also counted in
+    ``.tc_launches``; an operand off a 16-byte boundary is copied once),
+    else the CUDA-core one (fp32 and bf16; fp16 there raises, the public
+    API widens it first); CPU tensors run the plain version."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v)       # refuse other and mixed devices here
     return _hm_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -888,10 +922,10 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal: bool = False,
     ``lse`` and ``delta`` (``sum_d(out * do)``, less any lse cotangent).
     CUDA tensors launch a kernel (counted in
     ``flash_attention_bwd.launches``): the tensor-core one where
-    :func:`tc_route` says so (also counted in ``.tc_launches``; an operand
-    off a 16-byte boundary is copied once), else the CUDA-core one; dq is
-    summed with atomics in both, so its last bits may change between
-    launches."""
+    :func:`tc_route` says so (bf16 or fp16, also counted in
+    ``.tc_launches``; an operand off a 16-byte boundary is copied once),
+    else the CUDA-core one; dq is summed with atomics in both, so its last
+    bits may change between launches."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
     return _hm_bwd_op(q, k, v, do, lse, delta, *_hm_aux_args(lens, segs),
@@ -905,8 +939,9 @@ flash_attention_bwd.tc_launches = 0
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                            scale: Optional[float] = None, lens=None,
                            segs=None, n_rep: int = 1) -> torch.Tensor:
-    """The split dQ sweep (arguments as :func:`flash_attention_bwd`): fp32
-    dq, deterministic; counted in ``flash_attention_bwd_dq.launches``."""
+    """The split dQ sweep (arguments as :func:`flash_attention_bwd`;
+    float16 widened to fp32): fp32 dq, deterministic; counted in
+    ``flash_attention_bwd_dq.launches``."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
     return _hm_bwd_dq_op(q, k, v, do, lse, delta, *_hm_aux_args(lens, segs),
@@ -921,8 +956,8 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *,
                              scale: Optional[float] = None, lens=None,
                              segs=None, n_rep: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split dK/dV sweep (arguments as :func:`flash_attention_bwd`):
-    fp32 ``(dk, dv)``, deterministic; counted in
+    """The split dK/dV sweep (arguments as :func:`flash_attention_bwd`;
+    float16 widened to fp32): fp32 ``(dk, dv)``, deterministic; counted in
     ``flash_attention_bwd_dkdv.launches``."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
@@ -954,8 +989,8 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
             f"with q {tuple(q.shape)}")
     if causal and sq != sk:
         raise ValueError("causal attention requires sq == sk")
-    half = q.dtype == torch.float16
-    q, k, v = (_widen_f16(t) for t in (q, k, v))
+    dtype = q.dtype
+    q, k, v = _kernel_inputs(d, q, k, v)
     lens = None
     if kv_lengths is not None:
         lens = torch.as_tensor(kv_lengths, device=q.device).to(
@@ -966,8 +1001,7 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
         q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),
         v.reshape(b * h, sk, d), causal=causal, scale=scale, lens=lens,
         segs=segs, n_rep=h, block_q=block_q)
-    out = out.reshape(b, h, sq, d)
-    return (out.to(torch.float16) if half else out), lse.reshape(b, h, sq)
+    return out.reshape(b, h, sq, d).to(dtype), lse.reshape(b, h, sq)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -982,8 +1016,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``[batch, seq]`` keep rows to keys of their own segment;
     ``block_q``/``block_k`` are JAX's tile sizes (here they only feed the
     choice of backward, :func:`fused_backward`). Returns the output, same
-    shape and dtype as ``q``; differentiable. float16 inputs run the fp32
-    kernels (JAX's ``widen_f16``)."""
+    shape and dtype as ``q``; differentiable. float16 inputs run the
+    tensor-core kernels as they are where :func:`tc_route` says so (P and
+    dS rounded to fp16, where JAX widens to fp32), else the fp32 kernels
+    (JAX's ``widen_f16``); the split sweeps widen them too."""
     return flash_attention_with_lse(
         q, k, v, causal=causal, scale=scale, kv_lengths=kv_lengths,
         segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,

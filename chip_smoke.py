@@ -146,11 +146,15 @@ The rest of single-chip training runs last, after the BERT phases:
     ([16 x 512, 50304] fp32, smoothing 0 and 0.1, every 7th row ignored,
     a target past the vocab) and at ragged shapes (V = 50257, unaligned
     bf16 rows of V = 300, V = 3); the flash forward and backward with
-    float16 inputs at the BERT step's shape (b=32, s=512, non-causal),
-    widened to the fp32 kernels, with the fp32 kernels' own time beside;
-    timed as in phase 3, the library yardsticks ``F.cross_entropy``'s
-    forward and its backward (forward plus backward, less the forward)
-    and fp16 SDPA;
+    float16 inputs at the BERT step's shape (b=32, s=512, non-causal) on
+    the tensor-core kernels' fp16 instantiation, held to F16_TC_TOL /
+    F16_BWD_TC_TOL against the twins that round P and dS to fp16, with
+    the fp32 route on the widened inputs (what fp16 ran before) measured
+    and timed beside; fp16's range: ``do`` scaled by the largest power of
+    two at which the fp32 route's gradients stay finite in fp16, the
+    kernel's gradients finite there, the largest |dS| logged; timed as in
+    phase 3, the library yardsticks ``F.cross_entropy``'s forward and its
+    backward (forward plus backward, less the forward) and fp16 SDPA;
 22. the fused cross entropy in the train step — phase 9's tree-layout
     step with ``ce_impl="fused"``: losses within a band of phase 9's
     "xla" run (step 0 equal to fp32 rounding), per step 4 forward and 2
@@ -161,9 +165,10 @@ The rest of single-chip training runs last, after the BERT phases:
     ``amp.initialize("O2", half_dtype=float16)``; one step forced to
     overflow at a loss scale of 2^40 (skipped, params and LAMB state
     bit-equal, the scale halved and clamped to 2^24), then one warm-up
-    and 10 timed steps from 2^16 with each step's scale and skip, the
-    loss falling over the applied steps, and the launches
-    ``bert_launches_per_step`` implies;
+    and 10 timed steps from 2^16 with each step's scale and skip (none
+    skipped), the loss falling over the applied steps, and the launches
+    ``bert_launches_per_step`` implies (every flash launch on the
+    tensor-core kernels); then ``torch.profiler`` over 2 steps;
 24. ResNet-50 — ``sgd_flat`` against its plain version on the model's
     padded fp32 group (and bf16 groups with Nesterov, the delta mode and
     ``skip``), timed beside ``torch.optim.SGD``'s fused step; then
@@ -184,8 +189,11 @@ tree Adam, batch 8):
     split dQ and dK/dV sweeps at small ragged shapes (fp32 and bf16, head
     widths 64, 80 and 128; causal s=200 and s=65 with segment ids, sq=72
     against sk=130 with kv lengths 0, 130, 57 and segment ids, an lse
-    cotangent) and through the public API in fp16 (widened to the fp32
-    kernels) with ``flash_attention_with_lse``'s lse cotangent, then at
+    cotangent) and through the public API in fp16 with
+    ``flash_attention_with_lse``'s lse cotangent (the tensor-core kernels
+    at d 64, 80 and 128, held to F16_TC_TOL / F16_BWD_TC_TOL and timed
+    beside the fp32 route and fp16 SDPA; d 100 widened to the fp32
+    kernels; the split dQ sweep on fp16, widened), then at
     the 2.7B step's attention (b=8, 32 heads, s=1024, d=80, bf16,
     causal): every kernel within its tolerance of its plain version,
     fused == split where both run the CUDA cores, the split kernels
@@ -270,7 +278,9 @@ two flash forwards' and the two fused flash backwards' rows name their
 kernel as ``variant``, with the tensor-core launches as
 ``launches_tc``; the head-major forward's and both backwards' carry the
 CUDA-core kernel's bf16 time on the same inputs as ``prev_ms``, the
-backwards' also the BWD_TC_TOL measurements as ``tol``); the last line
+backwards' also the BWD_TC_TOL measurements as ``tol``; the four flash
+rows carry their fp16 entries under ``fp16``, each with the fp32
+route's time on the same inputs as ``prev_ms``); the last line
 is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
@@ -347,10 +357,10 @@ FP32_TOL = dict(atol=1e-3, rtol=1e-3)
 
 #: the two flash forwards' bf16 kernel, and what runs the other dtypes
 TC_VARIANT = {
-    "flash_attention_bsh": "tensor cores (csrc/flash_fwd_tc.cu, bf16); "
-                           "fp32 and fp16 on csrc/flash_attention_bsh.cu",
-    "flash_attention": "tensor cores (csrc/flash_fwd_tc.cu, bf16, d % 8 == "
-                       "0); the rest on csrc/flash_attention.cu"}
+    "flash_attention_bsh": "tensor cores (csrc/flash_fwd_tc.cu, bf16 and "
+                           "fp16); fp32 on csrc/flash_attention_bsh.cu",
+    "flash_attention": "tensor cores (csrc/flash_fwd_tc.cu, bf16 and fp16, "
+                       "d % 8 == 0); the rest on csrc/flash_attention.cu"}
 #: the tensor-core forward's bf16 out against its plain twin. Both round
 #: P to bf16 before P V and sum in fp32, so the rtol is one bf16 ulp
 #: (2^-7 relative); the kernel rounds exp(s - m) at its running max where
@@ -359,11 +369,12 @@ TC_VARIANT = {
 TC_TOL = dict(atol=2e-3, rtol=2.0 ** -7)
 #: the fused backwards' bf16 kernel, and what runs the other dtypes
 TC_BWD_VARIANT = {
-    "flash_attention_bsh_bwd": "tensor cores (csrc/flash_bwd_tc.cu, bf16); "
-                               "fp32 and fp16 on "
+    "flash_attention_bsh_bwd": "tensor cores (csrc/flash_bwd_tc.cu, bf16 "
+                               "and fp16); fp32 on "
                                "csrc/flash_attention_bsh_bwd.cu",
-    "flash_attention_bwd": "tensor cores (csrc/flash_bwd_tc.cu, bf16, d % 8 "
-                           "== 0); the rest on csrc/flash_attention_bwd.cu"}
+    "flash_attention_bwd": "tensor cores (csrc/flash_bwd_tc.cu, bf16 and "
+                           "fp16, d % 8 == 0); the rest on "
+                           "csrc/flash_attention_bwd.cu"}
 #: the tensor-core backward's bf16 gradients against their plain twins.
 #: Both round P and dS to bf16 before the dV, dK and dQ products and sum in
 #: fp32, in another order (dQ by atomics, in no fixed order); a P or dS
@@ -378,6 +389,18 @@ TC_BWD_VARIANT = {
 #: NVIDIA H100 80GB HBM3, 700.00 W). The phases log both and check that
 #: the CUDA-core kernel misses the RMS bound.
 BWD_TC_TOL = dict(atol_rel=1e-3, rtol=2.0 ** -7, rms=5e-4)
+#: the same for fp16 (the kernels' fp16 instantiation against the twins
+#: that round P, and P and dS, to fp16): the rtol is one fp16 ulp (2^-10
+#: relative); a P or dS within an fp32 rounding of an fp16 boundary lands
+#: on either side, as in bf16, but fp16's boundaries are 8x finer and so
+#: each flip 8x smaller. No looser than TC_TOL / BWD_TC_TOL. Measured on
+#: an NVIDIA H100 80GB HBM3 (700.00 W) at phases 21 and 25's shapes: the
+#: forward needs atol 1.2e-4 at most, the backward atol_rel 9.1e-5 and
+#: an RMS of 4.9e-5; the fp32 CUDA-core kernels on the widened inputs (P
+#: and dS unrounded) need as little atol (8.2e-5: fp16's rounding of P
+#: is below the output's own) but miss the RMS bound (3.3e-4).
+F16_TC_TOL = dict(atol=5e-4, rtol=2.0 ** -10)
+F16_BWD_TC_TOL = dict(atol_rel=5e-4, rtol=2.0 ** -10, rms=1e-4)
 
 
 def grad_tol(ref: torch.Tensor) -> dict:
@@ -494,43 +517,44 @@ ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
        torch.float16: 2.0 ** -10}
 
 
-def bwd_tc_errs(got, want):
+def bwd_tc_errs(got, want, tol=BWD_TC_TOL):
     """``(atol_rel, rms)`` of one gradient against its twin: the least atol,
     as a share of ``want``'s largest entry, with which it is within
-    BWD_TC_TOL's rtol elementwise, and the RMS of the difference over
+    ``tol``'s rtol elementwise, and the RMS of the difference over
     ``want``'s RMS."""
     w = want.float()
     d = got.float() - w
     top = max(float(w.abs().max()), 1e-30)
     rms = float(d.pow(2).mean().sqrt()) / max(float(w.pow(2).mean().sqrt()),
                                               1e-30)
-    return atol_needed(got, want, BWD_TC_TOL["rtol"]) / top, rms
+    return atol_needed(got, want, tol["rtol"]) / top, rms
 
 
-def hold_bwd_tc(what: str, got, want, seen: dict, side: str = "tc"):
+def hold_bwd_tc(what: str, got, want, seen: dict, side: str = "tc",
+                tol=BWD_TC_TOL):
     """Hold the three gradients of a tensor-core backward (``side="tc"``)
-    to BWD_TC_TOL, or only measure a CUDA-core kernel's (``"cuda_core"``);
-    the worst ``atol_rel`` and ``rms`` go into ``seen[side]``."""
+    to ``tol`` (BWD_TC_TOL, or F16_BWD_TC_TOL for fp16), or only measure a
+    CUDA-core kernel's (``"cuda_core"``); the worst ``atol_rel`` and
+    ``rms`` go into ``seen[side]``."""
     worst = seen.setdefault(side, {"atol_rel": 0.0, "rms": 0.0})
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         check(bool(torch.isfinite(a).all()), f"{what}: non-finite {name}")
-        atol_rel, rms = bwd_tc_errs(a, w)
+        atol_rel, rms = bwd_tc_errs(a, w, tol)
         worst["atol_rel"] = max(worst["atol_rel"], atol_rel)
         worst["rms"] = max(worst["rms"], rms)
         if side == "tc":
-            check(atol_rel <= BWD_TC_TOL["atol_rel"]
-                  and rms <= BWD_TC_TOL["rms"],
+            check(atol_rel <= tol["atol_rel"] and rms <= tol["rms"],
                   f"{what}: {name} needs atol {atol_rel:.3e} x max, rms "
-                  f"{rms:.3e} (BWD_TC_TOL {BWD_TC_TOL})")
+                  f"{rms:.3e} (tolerance {tol})")
 
 
-def check_cc_fails(what: str, got, want) -> None:
-    """The CUDA-core bf16 backward (P and dS in fp32) on the same inputs
-    must miss BWD_TC_TOL's RMS bound, else the bound tells the kernels
-    apart by nothing."""
-    rms = max(bwd_tc_errs(a, w)[1] for a, w in zip(got, want))
-    check(rms > BWD_TC_TOL["rms"], f"{what}: the CUDA-core kernel is within "
-          f"BWD_TC_TOL's rms ({rms:.3e})")
+def check_cc_fails(what: str, got, want, tol=BWD_TC_TOL) -> None:
+    """The CUDA-core backward (P and dS in fp32) on the same inputs must
+    miss ``tol``'s RMS bound, else the bound tells the kernels apart by
+    nothing."""
+    rms = max(bwd_tc_errs(a, w, tol)[1] for a, w in zip(got, want))
+    check(rms > tol["rms"], f"{what}: the CUDA-core kernel is within "
+          f"the tolerance's rms {tol['rms']} ({rms:.3e})")
 
 
 def bsh_bwd_cuda_core(q, k, v, do, lse, delta, heads: int, causal: bool):
@@ -3128,12 +3152,13 @@ def bert_launches_per_step(cfg):
     final, MLM head) plus, with ``ln_impl="pallas"``, ln1 and ln2 of 2L
     block runs, and backward 3 plus 2L; the flat LAMB one ``l2norm_flat``
     and one ``adam_flat`` (one fp32 group), the tree LAMB none. In bf16
-    every flash forward and backward is the tensor-core kernel's, in fp16
-    none."""
+    and fp16 every flash forward and backward is the tensor-core
+    kernel's."""
     L = cfg.num_layers
     pallas = cfg.ln_impl == "pallas"
-    # bf16 runs the tensor-core kernels; fp16 is widened to the fp32 ones
-    tc = cfg.compute_dtype == torch.bfloat16
+    # bf16 and fp16 run the tensor-core kernels (heads of 64); fp32 the
+    # CUDA-core ones
+    tc = cfg.compute_dtype in (torch.bfloat16, torch.float16)
     return {"flash_attention_bsh": 2 * L,
             "flash_attention_bsh_tc": 2 * L * tc,
             "flash_attention_bsh_bwd": L, "flash_attention_bsh_bwd_tc": L * tc,
@@ -3208,10 +3233,6 @@ def phase_bert_train(bcfg, layout, tok, tgt, mask):
 #: and 1e-4 relative (an lse 1e-5 apart moves every softmax by 1e-5
 #: relative)
 XENT_DX_TOL = dict(atol=1e-6, rtol=1e-4)
-#: fp16 flash output vs the plain version on the same fp16 inputs: both
-#: compute in fp32 and round once to fp16 (11 bits: one ulp is 2^-10
-#: relative), so ~2.5 ulp
-FP16_TOL = dict(atol=5e-3, rtol=5e-3)
 
 
 def _xent_inputs(dev, rows, vocab, dtype, seed, ignore_every=0):
@@ -3228,20 +3249,196 @@ def _xent_inputs(dev, rows, vocab, dtype, seed, ignore_every=0):
     return x, t, dy
 
 
-def phase_xent_kernels(tcfg, bcfg):
-    """The xentropy forward and backward against their plain versions on
-    the card at one CE chunk of the GPT step ([batch * ce_chunk, vocab]
-    fp32, smoothing 0 and 0.1, every 7th row ignored) and at ragged
-    shapes (V % 4 != 0, unaligned bf16 rows); then the flash kernels with
-    float16 inputs at the BERT step's shape, widened to the fp32 kernels.
-    Timed as in phase 3. Returns (``{name: row}`` for the two new
-    kernels, the flash rows' fp16 entries)."""
+def _f16_range_check(q, k, v, do, lse, delta, heads: int) -> dict:
+    """fp16's range in the tensor-core backward, which rounds dS to fp16
+    where JAX (and the fp32 route) keep it in fp32: ``do`` times 2^e for
+    the largest e at which the fp32 route's gradients (the widened inputs,
+    rounded to fp16 at the end) are all finite, as amp's loss scale puts
+    ``do`` near that edge. There the kernel's gradients must be finite
+    and within F16_BWD_TC_TOL of the rounding twin's. Returns e, why the
+    next e failed, and the largest |dS| (fp32, what the kernel rounds)
+    against fp16's largest finite 65504."""
+    from apex_tpu_torch.kernels import (
+        flash_attention_bsh_bwd,
+        flash_attention_bsh_bwd_plain,
+    )
+    from apex_tpu_torch.kernels.flash_attention import _p_ds_plain
+
+    wide = [t_.float() for t_ in (q, k, v)]
+    top, why = None, "none: e = 30 reached"
+    for e in range(31):
+        do_e = (do.float() * 2.0 ** e).half()
+        if not bool(torch.isfinite(do_e).all()):
+            why = f"e = {e}: do itself overflows fp16"
+            break
+        g32 = flash_attention_bsh_bwd(*wide, do_e.float(), lse,
+                                      delta * 2.0 ** e, num_heads=heads)
+        if not all(bool(torch.isfinite(t_.half()).all()) for t_ in g32):
+            why = f"e = {e}: the fp32 route's gradients overflow fp16"
+            break
+        top = e
+    check(top is not None, "fp16 range: no scale of do kept the fp32 route "
+          "finite")
+    do_e = (do.float() * 2.0 ** top).half()
+    delta_e = delta * 2.0 ** top
+    got = flash_attention_bsh_bwd(q, k, v, do_e, lse, delta_e,
+                                  num_heads=heads)
+    want = flash_attention_bsh_bwd_plain(q, k, v, do_e, lse, delta_e,
+                                         num_heads=heads)
+    b, s, hidden = q.shape
+    bh, d = b * heads, hidden // heads
+    hm = lambda t_: t_.float().view(b, s, heads, d).transpose(1, 2).reshape(
+        bh, s, d)
+    _, ds = _p_ds_plain(hm(q), hm(k), hm(v), hm(do_e), lse.reshape(bh, s),
+                        delta_e.reshape(bh, s), causal=False, scale=d ** -0.5,
+                        lens=None, segs=None, n_rep=1)
+    ds_max = float(ds.abs().max())
+    del ds
+    seen = {}
+    hold_bwd_tc(f"fp16 range, do x 2^{top}", got, want, seen,
+                tol=F16_BWD_TC_TOL)
+    out = dict(e=top, stopped=why, max_abs_ds=ds_max,
+               max_abs_grad=max(float(t_.float().abs().max()) for t_ in got),
+               tc=seen["tc"])
+    log(f"fp16 range: do x 2^{top} (next: {why}); largest |dS| {ds_max:.4g} "
+        f"(fp16 max 65504), largest |grad| {out['max_abs_grad']:.4g}; the "
+        f"kernel's gradients finite, (atol_rel, rms) {seen['tc']}")
+    return out
+
+
+def _f16_bsh_flash(bcfg) -> dict:
+    """Phase 21's fp16 flash at the BERT step's shape (b=32, s=512, 16
+    heads of 64, non-causal): the forward and backward on the tensor-core
+    kernels' fp16 instantiation against the twins that round P and dS to
+    fp16 (F16_TC_TOL, F16_BWD_TC_TOL), the fp32 route on the widened
+    inputs measured beside them (it must miss the backward's RMS bound),
+    fp16's range (:func:`_f16_range_check`), and the times of the kernels,
+    the fp32 route, plain, fp16 SDPA and the bound. Returns the two flash
+    rows' fp16 entries."""
     from apex_tpu_torch.kernels import (
         flash_attention_bsh_bwd,
         flash_attention_bsh_bwd_plain,
         flash_attention_bsh_fwd,
         flash_attention_bsh_plain,
         launch_counts,
+        reset_launch_counts,
+    )
+
+    dev = torch.device("cuda")
+    extra = {}
+    heads, s, hidden = bcfg.num_heads, bcfg.seq_len, bcfg.hidden_size
+    hd, B, f16 = hidden // heads, BERT_BATCH, torch.float16
+    g = torch.Generator(device=dev).manual_seed(41)
+    q, k, v, do = (torch.randn(B, s, hidden, generator=g, device=dev,
+                               dtype=f16) for _ in range(4))
+    q32, k32, v32, do32 = (t_.float() for t_ in (q, k, v, do))
+    reset_launch_counts()
+    out, lse = flash_attention_bsh_fwd(q, k, v, num_heads=heads)
+    check_tc("flash fp16", launch_counts(), "flash_attention_bsh", want=1)
+    ref, ref_lse = flash_attention_bsh_plain(q, k, v, num_heads=heads)
+    cc_out, _ = flash_attention_bsh_fwd(q32, k32, v32, num_heads=heads)
+    torch.cuda.synchronize()
+    fwd_atol = atol_needed(out, ref, F16_TC_TOL["rtol"])
+    cc_atol = atol_needed(cc_out.half(), ref, F16_TC_TOL["rtol"])
+    check(out.dtype == f16 and bool(torch.isfinite(out).all())
+          and close(out, ref, F16_TC_TOL) and close(lse, ref_lse, FP32_TOL),
+          f"flash fp16 b={B}: out needs atol {fwd_atol:.3e} (F16_TC_TOL "
+          f"{F16_TC_TOL}), lse err {max_err(lse, ref_lse)}")
+    fwd_err = max_err(out, ref)
+    del ref, ref_lse, cc_out
+    delta = (out.float() * do.float()).view(B, s, heads, hd).sum(
+        -1).transpose(1, 2).contiguous()
+    reset_launch_counts()
+    got = flash_attention_bsh_bwd(q, k, v, do, lse, delta, num_heads=heads)
+    check_tc("flash bwd fp16", launch_counts(), "flash_attention_bsh_bwd",
+             want=1)
+    want = flash_attention_bsh_bwd_plain(q, k, v, do, lse, delta,
+                                         num_heads=heads)
+    cc = flash_attention_bsh_bwd(q32, k32, v32, do32, lse, delta,
+                                 num_heads=heads)
+    torch.cuda.synchronize()
+    seen = {}
+    hold_bwd_tc(f"flash bwd fp16 b={B}", got, want, seen, tol=F16_BWD_TC_TOL)
+    check(all(a.dtype == f16 for a in got), "flash bwd fp16: dtypes")
+    hold_bwd_tc(f"flash bwd fp16 b={B}", [t_.half() for t_ in cc], want,
+                seen, side="cuda_core", tol=F16_BWD_TC_TOL)
+    check_cc_fails(f"flash bwd fp16 b={B}", [t_.half() for t_ in cc], want,
+                   F16_BWD_TC_TOL)
+    bwd_err = max(max_err(a, r) for a, r in zip(got, want))
+    del got, want, cc
+    log(f"flash fp16 b={B} s={s} (tensor cores vs the fp16-rounding twins):"
+        f" fwd needs atol {fwd_atol:.3e} at rtol 2^-10 (the fp32 CUDA-core "
+        f"kernel on widened inputs {cc_atol:.3e}; F16_TC_TOL {F16_TC_TOL}); "
+        f"bwd (atol_rel, rms) tensor cores {seen['tc']}, CUDA cores "
+        f"{seen['cuda_core']} (F16_BWD_TC_TOL {F16_BWD_TC_TOL})")
+    range_check = _f16_range_check(q, k, v, do, lse, delta, heads)
+    hv = lambda t_: t_.view(B, s, heads, hd).transpose(1, 2)
+    qh, kh, vh = (hv(t_).detach().requires_grad_(True) for t_ in (q, k, v))
+    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh)
+        torch.autograd.grad(o, (qh, kh, vh), hv(do))
+
+    pairs = B * heads * s * s
+    act = B * s * hidden * 2
+    st = B * heads * s * 4
+    fb, fby = bound(4 * act + st, 4 * hd * pairs)
+    bb, bby = bound(7 * act + 2 * st, 5 * 2 * hd * pairs)
+    fa = lambda: flash_attention_bsh_fwd(q, k, v, num_heads=heads)
+    fbw = lambda: flash_attention_bsh_bwd(q, k, v, do, lse, delta,
+                                          num_heads=heads)
+    # the route fp16 took before its tensor-core instantiation: widen,
+    # the fp32 CUDA-core kernel, cast back (the fp32 route called as is)
+    prev_f = lambda: flash_attention_bsh_fwd(
+        q.float(), k.float(), v.float(), num_heads=heads)[0].half()
+    prev_b = lambda: [t_.half() for t_ in flash_attention_bsh_bwd(
+        q.float(), k.float(), v.float(), do.float(), lse, delta,
+        num_heads=heads)]
+    shape = f"b={B} s={s} hidden={hidden} heads={heads} fp16 non-causal"
+    prev_src = ("measured in this run: the fp32 route (widen, "
+                "csrc/flash_attention_bsh{}.cu's fp32 kernel, cast back) on "
+                "the same inputs")
+    extra["flash_attention_bsh"] = dict(
+        ms=time_ms(fa, **TRAIN_TIMING), eager_ms=eager_ms(fa, **TRAIN_TIMING),
+        prev_ms=time_ms(prev_f, **TRAIN_TIMING),
+        prev_ms_source=prev_src.format(""),
+        fp32_kernel_ms=time_ms(lambda: flash_attention_bsh_fwd(
+            q32, k32, v32, num_heads=heads), **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_plain(
+            q, k, v, num_heads=heads), **TRAIN_TIMING),
+        library_ms=time_ms(lib_fwd, **TRAIN_TIMING), bound_ms=fb,
+        bound_by=fby, max_abs_err=fwd_err, atol_needed=fwd_atol,
+        cuda_core_atol_needed=cc_atol, tol=F16_TC_TOL, shape=shape)
+    extra["flash_attention_bsh_bwd"] = dict(
+        ms=time_ms(fbw, **TRAIN_TIMING),
+        eager_ms=eager_ms(fbw, **TRAIN_TIMING),
+        prev_ms=time_ms(prev_b, **TRAIN_TIMING),
+        prev_ms_source=prev_src.format("_bwd"),
+        fp32_kernel_ms=time_ms(lambda: flash_attention_bsh_bwd(
+            q32, k32, v32, do32, lse, delta, num_heads=heads),
+            **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: flash_attention_bsh_bwd_plain(
+            q, k, v, do, lse, delta, num_heads=heads), **TRAIN_TIMING),
+        library_ms=(time_ms(lib_fwd_bwd, **TRAIN_TIMING)
+                    - time_ms(lib_fwd, **TRAIN_TIMING)),
+        bound_ms=bb, bound_by=bby, max_abs_err=bwd_err,
+        tol=dict(F16_BWD_TC_TOL, tc=seen["tc"],
+                 cuda_core=seen["cuda_core"]),
+        range_check=range_check, shape=shape)
+    del q, k, v, do, q32, k32, v32, do32, qh, kh, vh, out, lse, delta
+    return extra
+
+
+def phase_xent_kernels(tcfg, bcfg):
+    """The xentropy forward and backward against their plain versions on
+    the card at one CE chunk of the GPT step ([batch * ce_chunk, vocab]
+    fp32, smoothing 0 and 0.1, every 7th row ignored) and at ragged
+    shapes (V % 4 != 0, unaligned bf16 rows); then the flash kernels with
+    float16 inputs at the BERT step's shape (:func:`_f16_bsh_flash`).
+    Timed as in phase 3. Returns (``{name: row}`` for the two new
+    kernels, the flash rows' fp16 entries)."""
+    from apex_tpu_torch.kernels import (
         reset_launch_counts,
         xentropy_bwd,
         xentropy_bwd_plain,
@@ -3250,7 +3447,7 @@ def phase_xent_kernels(tcfg, bcfg):
     )
 
     dev = torch.device("cuda")
-    rows_out, extra = {}, {}
+    rows_out = {}
     worst = {"fwd": 0.0, "bwd": 0.0}
 
     def both(x, t, dy, eps):
@@ -3340,83 +3537,11 @@ def phase_xent_kernels(tcfg, bcfg):
                     - eager_ms(lib_fr, **TRAIN_TIMING)), shape=shape)
     del x, t, dy, lse, xr, loss, dx
 
-    # -- flash with float16 inputs at the BERT step's shape (non-causal)
-    heads, s, hidden = bcfg.num_heads, bcfg.seq_len, bcfg.hidden_size
-    hd, B, f16 = hidden // heads, BERT_BATCH, torch.float16
-    g = torch.Generator(device=dev).manual_seed(41)
-    q, k, v, do = (torch.randn(B, s, hidden, generator=g, device=dev,
-                               dtype=f16) for _ in range(4))
-    reset_launch_counts()
-    out, lse = flash_attention_bsh_fwd(q, k, v, num_heads=heads)
-    check_tc("flash fp16 (widened to fp32)", launch_counts(),
-             "flash_attention_bsh", want=0)
-    ref, ref_lse = flash_attention_bsh_plain(q, k, v, num_heads=heads)
-    torch.cuda.synchronize()
-    check(out.dtype == f16 and close(out, ref, FP16_TOL)
-          and close(lse, ref_lse, FP32_TOL),
-          f"flash fp16 b={B}: out err {max_err(out, ref)}, lse err "
-          f"{max_err(lse, ref_lse)}")
-    fwd_err = max_err(out, ref)
-    del ref, ref_lse
-    delta = (out.float() * do.float()).view(B, s, heads, hd).sum(
-        -1).transpose(1, 2).contiguous()
-    got = flash_attention_bsh_bwd(q, k, v, do, lse, delta, num_heads=heads)
-    check_tc("flash bwd fp16 (widened to fp32)", launch_counts(),
-             "flash_attention_bsh_bwd", want=0)
-    want = flash_attention_bsh_bwd_plain(q, k, v, do, lse, delta,
-                                         num_heads=heads)
-    torch.cuda.synchronize()
-    bwd_errs = []
-    for name, a, r in zip(("dq", "dk", "dv"), got, want):
-        tol = grad_tol(r)
-        check(a.dtype == f16 and close(a, r, tol),
-              f"flash bwd fp16 b={B}: {name} err {max_err(a, r)} over atol "
-              f"{tol['atol']:.3e}")
-        bwd_errs.append(max_err(a, r))
-    del got, want
-    log(f"flash fp16 (widened to the fp32 kernels) b={B} s={s}: fwd err "
-        f"{fwd_err:.3e} (atol=rtol=5e-3), bwd {bwd_errs} (atol 1e-2 x rms)")
-    q32, k32, v32, do32 = (t_.float() for t_ in (q, k, v, do))
-    hv = lambda t_: t_.view(B, s, heads, hd).transpose(1, 2)
-    qh, kh, vh = (hv(t_).detach().requires_grad_(True) for t_ in (q, k, v))
-    lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh)
-
-    def lib_fwd_bwd():
-        o = F.scaled_dot_product_attention(qh, kh, vh)
-        torch.autograd.grad(o, (qh, kh, vh), hv(do))
-
-    pairs = B * heads * s * s
-    act = B * s * hidden * 2
-    st = B * heads * s * 4
-    fb, fby = bound(4 * act + st, 4 * hd * pairs)
-    bb, bby = bound(7 * act + 2 * st, 5 * 2 * hd * pairs)
-    fa = lambda: flash_attention_bsh_fwd(q, k, v, num_heads=heads)
-    fbw = lambda: flash_attention_bsh_bwd(q, k, v, do, lse, delta,
-                                          num_heads=heads)
-    shape = f"b={B} s={s} hidden={hidden} heads={heads} fp16 non-causal"
-    extra["flash_attention_bsh"] = dict(
-        ms=time_ms(fa, **TRAIN_TIMING), eager_ms=eager_ms(fa, **TRAIN_TIMING),
-        fp32_kernel_ms=time_ms(lambda: flash_attention_bsh_fwd(
-            q32, k32, v32, num_heads=heads), **TRAIN_TIMING),
-        plain_ms=time_ms(lambda: flash_attention_bsh_plain(
-            q, k, v, num_heads=heads), **TRAIN_TIMING),
-        library_ms=time_ms(lib_fwd, **TRAIN_TIMING), bound_ms=fb,
-        bound_by=fby, max_abs_err=fwd_err, shape=shape)
-    extra["flash_attention_bsh_bwd"] = dict(
-        ms=time_ms(fbw, **TRAIN_TIMING),
-        eager_ms=eager_ms(fbw, **TRAIN_TIMING),
-        fp32_kernel_ms=time_ms(lambda: flash_attention_bsh_bwd(
-            q32, k32, v32, do32, lse, delta, num_heads=heads),
-            **TRAIN_TIMING),
-        plain_ms=time_ms(lambda: flash_attention_bsh_bwd_plain(
-            q, k, v, do, lse, delta, num_heads=heads), **TRAIN_TIMING),
-        library_ms=(time_ms(lib_fwd_bwd, **TRAIN_TIMING)
-                    - time_ms(lib_fwd, **TRAIN_TIMING)),
-        bound_ms=bb, bound_by=bby, max_abs_err=max(bwd_errs), shape=shape)
-    del q, k, v, do, q32, k32, v32, do32, qh, kh, vh, out, lse, delta
+    extra = _f16_bsh_flash(bcfg)
     for name, r in list(rows_out.items()) + [(f"{k_} (fp16)", r_)
                                              for k_, r_ in extra.items()]:
-        fp32 = (f", the fp32 kernel alone {r['fp32_kernel_ms']:.4f} ms"
+        fp32 = (f", the fp32 route {r['prev_ms']:.4f} ms (its kernel alone "
+                f"{r['fp32_kernel_ms']:.4f} ms)"
                 if "fp32_kernel_ms" in r else "")
         log(f"kernel {name}: {r['ms']:.4f} ms (eager {r['eager_ms']:.4f} "
             f"ms){fp32}, plain {r['plain_ms']:.4f} ms, library "
@@ -3476,15 +3601,16 @@ FORCED_SCALE = 2.0 ** 40
 
 def phase_bert_fp16(tok, tgt, mask):
     """``examples/bert_pretrain.py --fp16``: ``BertConfig(compute_dtype=
-    float16)`` (flash widened to its fp32 kernels), tree LAMB, the scaler
-    of ``amp.initialize("O2", half_dtype=float16)`` (the example's
+    float16)`` (flash on its fp16 tensor-core kernels), tree LAMB, the
+    scaler of ``amp.initialize("O2", half_dtype=float16)`` (the example's
     ``ScalerConfig()``). First one step at a forced loss scale of 2^40:
     skipped, params and LAMB state bit for bit as they were, the scale
     backed off (and clamped to 2^24); then, from 2^16 again, one warm-up
-    and ``TRAIN_STEPS`` timed steps: each step's scale and skip, the loss
-    falling over the applied steps, and the launches the code implies
-    over all steps.
-    Returns the run's metrics."""
+    and ``TRAIN_STEPS`` timed steps: each step's scale and skip, every one
+    after the forced step applied, the loss falling over the applied
+    steps, and the launches the code implies over all steps (every flash
+    launch on the tensor cores); then a profiled window of 2 steps.
+    Returns the run's metrics, the profile under ``"profile"``."""
     from apex_tpu_torch import _tree, amp
     from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.models import make_mlm_train_step
@@ -3548,6 +3674,9 @@ def phase_bert_fp16(tok, tgt, mask):
     log("train BERT fp16: " + json.dumps(metrics))
     check(all(np.isfinite(s_["loss"]) for s_ in steps),
           "BERT fp16: non-finite loss")
+    check(len(applied) == len(steps),
+          f"BERT fp16: {len(steps) - len(applied)} steps after the forced "
+          f"one were skipped")
     check(len(applied) >= 2 and applied[-1] < applied[0] - BERT_LOSS_FALL,
           f"BERT fp16: the loss did not fall by {BERT_LOSS_FALL} over the "
           f"applied steps {applied}")
@@ -3557,6 +3686,8 @@ def phase_bert_fp16(tok, tgt, mask):
         check(counts[name] == per_step * n_steps,
               f"BERT fp16: {name} launched {counts[name]} times, expected "
               f"{per_step} x {n_steps} steps")
+    metrics["profile"] = phase_train_profile("BERT fp16", state, step_fn,
+                                             (tok, tgt, mask))
     del state, step_fn
     torch.cuda.empty_cache()
     return metrics
@@ -3766,8 +3897,9 @@ def phase_resnet_train(rcfg, layout, images, labels):
 #: the 2.7B step's attention (``apex_tpu_torch.examples.gpt_train --preset
 #: 2p7b``: batch 8 of seq 1024, 32 heads of 80, bf16, causal)
 HM_BATCH, HM_HEADS, HM_SEQ, HM_DIM = 8, 32, 1024, 80
-#: float16 through the public API: the fp32 kernels' output rounded to
-#: fp16 against the plain version's, about one fp16 ulp (2^-10 relative)
+#: float16 through the public API at a head width off a multiple of 8
+#: (d 100, widened): the fp32 kernels' output rounded to fp16 against the
+#: plain version's, about one fp16 ulp (2^-10 relative)
 F16_TOL = dict(atol=2e-3, rtol=2e-3)
 
 
@@ -3785,6 +3917,153 @@ def _hm_inputs(dev, bh, sq, sk, d, dtype, seed):
     mk = lambda s: torch.randn(bh, s, d, generator=g, device=dev,
                                dtype=torch.float32).to(dtype)
     return mk(sq), mk(sk), mk(sk), mk(sq)
+
+
+def _hm_f16_public_api():
+    """Phase 25's fp16 through the public API, with
+    ``flash_attention_with_lse``'s lse cotangent through autograd: the
+    tensor-core kernels at d 64, 80 and 128 (P and dS rounded to fp16)
+    against the rounding twins (F16_TC_TOL, F16_BWD_TC_TOL), timed beside
+    the fp32 route on the widened inputs, plain and fp16 SDPA; d 100
+    widened to the fp32 CUDA-core kernels (F16_TOL); the split dQ sweep on
+    fp16, widened. Returns (the fp16 rows by name and width, the
+    tensor-core launches, the backward's worst errors, the forward's
+    atol needed)."""
+    from apex_tpu_torch.kernels import (
+        flash_attention_bwd,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_dq_plain,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+        flash_attention_with_lse,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from apex_tpu_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    f16 = torch.float16
+    f16_rows = {"flash_attention": {}, "flash_attention_bwd": {}}
+    f16_seen, f16_atol = {}, {"tc": 0.0, "cuda_core": 0.0}
+    f16_tc = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for d in (64, 80, 100, 128):
+        tc = d % 8 == 0
+        b_, h_, s_ = 2, 2, 136
+        bh_ = b_ * h_
+        q, k, v, do = (t.view(b_, h_, s_, d) for t in _hm_inputs(
+            dev, bh_, s_, s_, d, f16, seed=100 + d))
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        reset_launch_counts()
+        out, lse = flash_attention_with_lse(qg, kg, vg, causal=True)
+        check(out.dtype == f16, f"hm fp16 d={d}: out {out.dtype}")
+        g = torch.Generator(device=dev).manual_seed(d)
+        dlse = torch.randn(b_, h_, s_, generator=g, device=dev)
+        torch.autograd.backward((out, lse), (do, dlse))
+        counts = launch_counts()
+        check_tc(f"hm fp16 d={d}", counts, "flash_attention", want=int(tc))
+        check_tc(f"hm fp16 d={d} bwd", counts, "flash_attention_bwd",
+                 want=int(tc))
+        for name in f16_tc:
+            f16_tc[name] += counts[f"{name}_tc"]
+        out, lse = out.detach(), lse.detach()
+        # the twins on what the ops take: fp16 as it is on the tensor
+        # cores, widened to fp32 off them
+        flat = lambda t: t.reshape(bh_, s_, d)
+        qf, kf, vf, dof = (flat(t) if tc else flat(t).float()
+                           for t in (q, k, v, do))
+        ref, ref_lse = flash_attention_fwd_plain(qf, kf, vf, causal=True)
+        side = "tc" if tc else "cuda_core"
+        f16_atol[side] = max(f16_atol[side], atol_needed(
+            flat(out), ref.half(), F16_TC_TOL["rtol"]))
+        check(close(flat(out), ref.half(), F16_TC_TOL if tc else F16_TOL)
+              and close(lse, ref_lse.view(b_, h_, s_), FP32_TOL),
+              f"hm fp16 d={d}: out err {max_err(flat(out), ref)}, lse err "
+              f"{max_err(lse.view(bh_, s_), ref_lse)}")
+        # delta as the autograd formula takes it: from the op's own out
+        # (fp16 on the tensor cores, the fp32 kernel's off them)
+        delta = ((flat(out) if tc else ref).float() * dof.float()).sum(-1) \
+            - dlse.view(bh_, s_)
+        lse_f = lse.view(bh_, s_)
+        want = flash_attention_bwd_plain(qf, kf, vf, dof, lse_f, delta,
+                                         causal=True)
+        got = [flat(t.grad) for t in (qg, kg, vg)]
+        check(all(a.dtype == f16 for a in got), f"hm fp16 d={d}: grad dtype")
+        if tc:
+            # the op's fp32 gradients reach the caller rounded to fp16
+            hold_bwd_tc(f"hm fp16 d={d}", got, [w.half() for w in want],
+                        f16_seen, tol=F16_BWD_TC_TOL)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            check(tc or close(a, w, dict(
+                atol=F16_TOL["atol"] * max(float(w.abs().max()), 1.0),
+                rtol=F16_TOL["rtol"])),
+                f"hm fp16 d={d}: {name} err {max_err(a, w)}")
+        # the public out-only call is the same forward
+        check(torch.equal(flash_attention(q, k, v, causal=True), out),
+              f"hm fp16 d={d}: flash_attention != flash_attention_with_lse")
+        if not tc:
+            continue
+        # the split sweeps take fp16 widened (P and dS in fp32)
+        wide = [t.float() for t in (qf, kf, vf, dof)]
+        dq_s = flash_attention_bwd_dq(qf, kf, vf, dof, lse_f, delta,
+                                      causal=True)
+        dq_w = flash_attention_bwd_dq_plain(*wide, lse_f, delta, causal=True)
+        check(close(dq_s, dq_w, hm_grad_tol(dq_w)),
+              f"hm fp16 d={d}: split dq err {max_err(dq_s, dq_w)}")
+        # timed: the kernels, the fp32 route on the widened inputs (what
+        # fp16 ran before, casts included), plain, fp16 SDPA, the bound
+        args = (qf, kf, vf, dof, lse_f, delta)
+        lib_q, lib_k, lib_v = (t.detach().requires_grad_(True)
+                               for t in (q, k, v))
+        lib_f = lambda: F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
+                                                       is_causal=True)
+
+        def lib_fb():
+            o = F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
+                                               is_causal=True)
+            torch.autograd.grad(o, (lib_q, lib_k, lib_v), do)
+
+        lib_f_ms = time_ms(lib_f)
+        pairs = bh_ * s_ * (s_ + 1) / 2
+        act, stats = bh_ * s_ * d * 2, bh_ * s_ * 4
+        shape = f"b={b_} heads={h_} s={s_} d={d} fp16 causal"
+        for name, fn, prev, plain, lib, n_bytes, n_flops, err in (
+                ("flash_attention",
+                 lambda: flash_attention_fwd(qf, kf, vf, causal=True),
+                 lambda: flash_attention_fwd(*(t.float() for t in args[:3]),
+                                             causal=True)[0].half(),
+                 lambda: flash_attention_fwd_plain(qf, kf, vf, causal=True),
+                 lib_f_ms, 4 * act + stats, 4 * d * pairs,
+                 max_err(flat(out), ref)),
+                ("flash_attention_bwd",
+                 lambda: flash_attention_bwd(*args, causal=True),
+                 lambda: [t.half() for t in flash_attention_bwd(
+                     *(t.float() for t in args[:4]), lse_f, delta,
+                     causal=True)],
+                 lambda: flash_attention_bwd_plain(*args, causal=True),
+                 # fp16 q, k, v, do in; fp32 dq, dk, dv out
+                 time_ms(lib_fb) - lib_f_ms, 4 * act + 3 * 2 * act
+                 + 2 * stats, 5 * 2 * d * pairs,
+                 max(max_err(a, w) for a, w in zip(got, want)))):
+            bnd, by = bound(n_bytes, n_flops)
+            f16_rows[name][f"d{d}"] = dict(
+                ms=time_ms(fn), prev_ms=time_ms(prev), plain_ms=time_ms(plain),
+                library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err,
+                shape=shape)
+        del lib_q, lib_k, lib_v
+    log(f"head-major fp16 through the public API: the tensor-core kernels "
+        f"(d 64/80/128) out needs atol {f16_atol['tc']:.3e} at rtol 2^-10 "
+        f"(F16_TC_TOL {F16_TC_TOL}; d 100 on the CUDA cores "
+        f"{f16_atol['cuda_core']:.3e}), the fused backward (atol_rel, rms) "
+        f"{f16_seen['tc']} (F16_BWD_TC_TOL {F16_BWD_TC_TOL}); "
+        f"{f16_tc} tensor-core launches")
+    for name, by_d in f16_rows.items():
+        for key, r in by_d.items():
+            log(f"kernel {name} (fp16 {key}): {r['ms']:.4f} ms, the fp32 "
+                f"route {r['prev_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"library {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}) at {r['shape']}")
+    return f16_rows, f16_tc, f16_seen, f16_atol
 
 
 def phase_hm_kernels():
@@ -3976,38 +4255,7 @@ def phase_hm_kernels():
         f"rounding twins, worst (atol_rel, rms): tensor cores {seen['tc']}, "
         f"CUDA cores {seen['cuda_core']} (BWD_TC_TOL {BWD_TC_TOL})")
 
-    # -- the public API: fp16 (widened to the fp32 kernels), and
-    #    flash_attention_with_lse's lse cotangent through autograd
-    for d in (64, 80, 128):
-        b_, h_, s_ = 2, 2, 136
-        q, k, v, do = (t.view(b_, h_, s_, d) for t in _hm_inputs(
-            dev, b_ * h_, s_, s_, d, torch.float16, seed=100 + d))
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-        out, lse = flash_attention_with_lse(qg, kg, vg, causal=True)
-        check(out.dtype == torch.float16, f"hm fp16 d={d}: out {out.dtype}")
-        g = torch.Generator(device=dev).manual_seed(d)
-        dlse = torch.randn(b_, h_, s_, generator=g, device=dev)
-        torch.autograd.backward((out, lse), (do, dlse))
-        out, lse = out.detach(), lse.detach()
-        flat = lambda t: t.float().reshape(b_ * h_, s_, d)
-        ref, ref_lse = flash_attention_fwd_plain(flat(q), flat(k), flat(v),
-                                                 causal=True)
-        check(close(out, ref.view(b_, h_, s_, d).half(), F16_TOL)
-              and close(lse, ref_lse.view(b_, h_, s_), FP32_TOL),
-              f"hm fp16 d={d}: out err {max_err(out, ref.view_as(out))}")
-        delta = (ref * flat(do)).sum(-1) - dlse.view(b_ * h_, s_)
-        want = flash_attention_bwd_plain(flat(q), flat(k), flat(v), flat(do),
-                                         ref_lse, delta, causal=True)
-        for name, a, w in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad),
-                              want):
-            w = w.view(b_, h_, s_, d)
-            check(a.dtype == torch.float16 and close(a, w, dict(
-                atol=F16_TOL["atol"] * max(float(w.abs().max()), 1.0),
-                rtol=F16_TOL["rtol"])),
-                f"hm fp16 d={d}: {name} err {max_err(a, w)}")
-        # the public out-only call is the same forward
-        check(torch.equal(flash_attention(q, k, v, causal=True), out),
-              f"hm fp16 d={d}: flash_attention != flash_attention_with_lse")
+    f16_rows, f16_tc, f16_seen, f16_atol = _hm_f16_public_api()
     log(f"head-major kernels at small shapes (fp32/bf16 x d 64/80/128, "
         f"causal, sq != sk, lens with a 0, segments, dlse; fp16 public API):"
         f" max|kernel - plain| {worst}")
@@ -4138,6 +4386,11 @@ def phase_hm_kernels():
     del q, k, v, do, out, lse, delta, args, qh, kh, vh
     log(f"head-major kernels at the 2.7B shape: max|kernel - plain| "
         f"{worst}")
+    for name, by_d in f16_rows.items():
+        rows[name]["fp16"] = dict(by_d, launches_tc_public_api=f16_tc[name],
+                                  tol=dict(F16_BWD_TC_TOL, tc=f16_seen["tc"])
+                                  if name == "flash_attention_bwd" else
+                                  dict(F16_TC_TOL, atol_needed=f16_atol))
     for r in rows.values():
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager "
             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
@@ -5229,7 +5482,9 @@ def main() -> int:
         r["launches"] = fused_run["launches"][r["name"]]
     rows.update(xent_rows)
     for kname, r in fp16_extra.items():
-        rows[kname]["fp16"] = dict(r, launches=bert16["launches"][kname])
+        rows[kname]["fp16"] = dict(r, launches=bert16["launches"][kname],
+                                   launches_tc=bert16["launches"][
+                                       f"{kname}_tc"])
     sgd_row["launches"] = sgd_launches
     rows["sgd_flat"] = sgd_row
     # the head-major forward and fused backward from the 2.7B fused run,

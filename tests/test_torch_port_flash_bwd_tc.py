@@ -29,7 +29,9 @@ port's op casts the same way). On these inputs:
   gradient: flips are rare, while P and dS kept in fp32 differ everywhere
   (at most 7.7e-5 rounded, 2.3e-3 to 2.7e-3 unrounded).
 
-Then the fp32 and fp16 twins, which do not round; the rule that sends a
+Then the fp32 twins, which do not round, and the fp16 ones, which round
+as the tensor-core kernel does (held against JAX in
+``tests/test_torch_port_flash_f16_tc.py``); the rule that sends a
 backward to the tensor-core kernel (:func:`~apex_tpu_torch.kernels.
 flash_attention.tc_route`, by dtype and width alone), on CPU tensors; and
 the backward's tensor-core launch counters, which CPU tensors leave at 0.
@@ -232,13 +234,15 @@ def test_hm_bwd_unrounded_twin_misses_jax(hm_cases):
 
 
 # ---------------------------------------------------------------------------
-# fp32 and fp16 do not round
+# fp32 does not round; fp16 does
 # ---------------------------------------------------------------------------
 
 def test_bwd_twins_keep_p_and_ds_in_fp32_for_fp32_and_fp16():
-    """Only bf16 rounds P and dS: fp32 keeps them, and fp16 (which the
-    wrappers widen to fp32 before any kernel) gives the fp32 result rounded
-    once to fp16; bf16 differs from its own values run through fp32."""
+    """fp32 keeps P and dS in fp32 (the unrounded formula); fp16, which
+    the tensor-core kernel takes since it has an fp16 instantiation,
+    rounds them as bf16 does: its gradients come back in fp16, within an
+    fp16 ulp or two of the widened route's and not equal to them; bf16
+    differs from its own values run through fp32."""
     rng = np.random.default_rng(8)
     x = [torch.from_numpy(rng.standard_normal((2, 40, 128)).astype(
         np.float32)) for _ in range(4)]
@@ -252,7 +256,13 @@ def test_bwd_twins_keep_p_and_ds_in_fp32_for_fp32_and_fp16():
     want = tk.flash_attention_bsh_bwd_plain(*(t.float() for t in half), lse,
                                             delta, num_heads=2, causal=True)
     assert all(g.dtype == torch.float16 for g in got)
-    assert all(torch.equal(g, w.half()) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got, (
+        tk.flash_attention_bsh_bwd_plain(*half, lse, delta, num_heads=2,
+                                         causal=True))))
+    assert not any(torch.equal(g, w.half()) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w, rtol=2.0 ** -9, atol=2e-3 *
+                                   float(w.abs().max()))
     hm = [t.reshape(4, 40, 64) for t in x]
     lse_h, delta_h = lse.reshape(4, 40), delta.reshape(4, 40)
     f32 = tk.flash_attention_bwd_plain(*hm, lse_h, delta_h, causal=True)
@@ -281,15 +291,19 @@ def test_bwd_twins_keep_p_and_ds_in_fp32_for_fp32_and_fp16():
     (torch.bfloat16, 64, True), (torch.bfloat16, 80, True),
     (torch.bfloat16, 72, True), (torch.bfloat16, 128, True),
     (torch.bfloat16, 100, False), (torch.bfloat16, 136, False),
-    (torch.float32, 64, False), (torch.float16, 80, False)])
+    (torch.float32, 64, False), (torch.float16, 80, True),
+    (torch.float16, 100, False)])
 def test_tc_route_of_the_backward(dtype, d, tc):
-    """A backward goes to the tensor-core kernel for bf16 q, k, v and do
-    with a head width in multiples of 8 up to 128, by dtype and width
-    alone; a do of another dtype keeps it on the CUDA cores."""
+    """A backward goes to the tensor-core kernel for bf16 or fp16 q, k, v
+    and do (one dtype) with a head width in multiples of 8 up to 128, by
+    dtype and width alone; a do of another dtype keeps it on the CUDA
+    cores."""
     t = torch.zeros(2, 16, d, dtype=dtype)
     assert tk.tc_route(d, t, t, t, t) is tc
     if tc:
         assert not tk.tc_route(d, t, t, t, t.float())
+        other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
+        assert not tk.tc_route(d, t, t, t, t.to(other))
 
 
 def test_cpu_tensors_count_no_tensor_core_backward():

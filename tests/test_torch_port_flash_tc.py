@@ -1,5 +1,5 @@
 """The bf16 flash-attention forward as the tensor-core kernel computes it,
-against the JAX package's.
+against the JAX package's (fp16: ``tests/test_torch_port_flash_f16_tc.py``).
 
 ``csrc/flash_fwd_tc.cu`` is the bf16 forward of both layouts on the card:
 it sums ``l`` from fp32 ``p`` and rounds ``p`` to bf16 before ``P V``, as
@@ -139,23 +139,35 @@ def test_hm_plain_rounds_p_as_jax(d, case):
 
 
 def test_plain_twins_keep_p_in_fp32_for_fp32_and_fp16():
-    """Only bf16 rounds ``p``: fp32 keeps it, and fp16 (which the kernels
-    see widened to fp32) gives the fp32 result rounded once to fp16."""
+    """fp32 keeps ``p`` in fp32; the 16-bit dtypes round it before ``P
+    V``, fp16 since the tensor-core kernel takes fp16 (JAX widens fp16,
+    so its ``p`` stays fp32: ``tests/test_torch_port_flash_f16_tc.py``).
+    The fp16 twin is the fp32 formula with ``p`` rounded to fp16: the
+    same lse, and out within one fp16 ulp plus 1e-3 of the widened twin's
+    (2.6e-4 past the ulp at most here), but not equal to it."""
     rng = np.random.default_rng(5)
     x = [torch.from_numpy(rng.standard_normal((2, 40, 128)).astype(
         np.float32)) for _ in range(3)]
+    # fp32 is the unrounded formula itself
+    got, _ = tk.flash_attention_bsh_plain(*x, num_heads=2, causal=True)
+    qh, kh, vh = (t.reshape(2, 40, 2, 64).transpose(1, 2) for t in x)
+    p = torch.softmax((qh @ kh.transpose(-1, -2) / 8.0).masked_fill(
+        ~torch.ones(40, 40, dtype=torch.bool).tril(), -1e30), -1)
+    torch.testing.assert_close(
+        got, (p @ vh).transpose(1, 2).reshape(2, 40, 128), rtol=1e-5,
+        atol=1e-5)
     half = [t.half() for t in x]
     widened = [t.float() for t in half]
-    got, got_lse = tk.flash_attention_bsh_plain(*half, num_heads=2,
-                                                causal=True)
-    want, want_lse = tk.flash_attention_bsh_plain(*widened, num_heads=2,
-                                                  causal=True)
-    assert torch.equal(got, want.half()) and torch.equal(got_lse, want_lse)
-    hm = [t.reshape(4, 40, 64) for t in half]
-    got, got_lse = tk.flash_attention_fwd_plain(*hm, causal=True)
-    want, want_lse = tk.flash_attention_fwd_plain(*(t.float() for t in hm),
-                                                  causal=True)
-    assert torch.equal(got, want.half()) and torch.equal(got_lse, want_lse)
+    for fwd, args in ((lambda *a: tk.flash_attention_bsh_plain(
+            *a, num_heads=2, causal=True), half),
+            (lambda *a: tk.flash_attention_fwd_plain(*a, causal=True),
+             [t.reshape(4, 40, 64) for t in half])):
+        got, got_lse = fwd(*args)
+        want, want_lse = fwd(*(t.float() for t in args))
+        assert got.dtype == torch.float16 and torch.equal(got_lse, want_lse)
+        assert not torch.equal(got, want.half())
+        torch.testing.assert_close(got.float(), want, rtol=2.0 ** -10,
+                                   atol=1e-3)
     # and bf16 does round it: the same values through fp32 differ
     bf = [t.bfloat16() for t in x]
     got, _ = tk.flash_attention_bsh_plain(*bf, num_heads=2, causal=True)
@@ -188,11 +200,13 @@ def _unaligned(shape):
 @pytest.mark.parametrize("case", ["fp32", "fp16", "d100", "unaligned",
                                   "mixed"])
 def test_tc_forward_leaves_the_rest_on_cuda_cores(case):
-    """fp32, fp16 (widened to fp32 before any kernel), a width that is not
-    a multiple of 8 and mixed dtypes stay on the CUDA-core kernels. The
-    rule looks at dtypes and the width alone: a bf16 operand off a 16-byte
-    boundary goes to the tensor cores, and the op copies it once
-    (``_aligned16``), leaving aligned operands as they are."""
+    """fp32, a width that is not a multiple of 8 and mixed dtypes stay on
+    the CUDA-core kernels; fp16 takes the tensor cores at d = 64 and stays
+    off them (widened to fp32 by the wrappers) at d = 100, and bf16 mixed
+    with fp16 stays off. The rule looks at dtypes and the width alone: a
+    bf16 operand off a 16-byte boundary goes to the tensor cores, and the
+    op copies it once (``_aligned16``), leaving aligned operands as they
+    are."""
     d = 100 if case == "d100" else 64
     dtype = {"fp32": torch.float32, "fp16": torch.float16}.get(
         case, torch.bfloat16)
@@ -204,6 +218,15 @@ def test_tc_forward_leaves_the_rest_on_cuda_cores(case):
         copy = fa._aligned16(q)
         assert copy.data_ptr() % 16 == 0 and copy.data_ptr() != q.data_ptr()
         assert torch.equal(copy, q) and fa._aligned16(k) is k
+        return
+    if case == "fp16":
+        assert tk.tc_route(d, q, k, v)
+        w = torch.zeros(2, 16, 100, dtype=dtype)
+        assert not tk.tc_route(100, w, w, w)
+        assert not tk.tc_route(d, q, k, v.bfloat16())
+        wide = fa._kernel_inputs(100, w, w, w)
+        assert all(t.dtype == torch.float32 for t in wide)
+        assert fa._kernel_inputs(d, q, k, v) == (q, k, v)
         return
     if case == "mixed":
         v = v.float()
