@@ -9,9 +9,10 @@
 // - the split dQ sweep (:547, _dq_kernel :207) and dK/dV sweep (:569,
 //   _dkv_kernel :237), for longer sequences or APEX_TPU_FLASH_BWD=split.
 // All three recompute P and dS with the _p_ds block math (:170) under the
-// _valid_cols mask (:150); see flash_hm.cuh. The fused sweep runs fp32,
-// fp16 (widened) and bf16 at a head width that is not a multiple of 8;
-// other bf16 calls take the tensor-core kernel of flash_bwd_tc.cu
+// _valid_cols mask (:150); see flash_hm.cuh. All three run fp32, fp16
+// (widened) and bf16 at a head width that is not a multiple of 8; other
+// bf16 and fp16 calls take the tensor-core kernels of flash_bwd_tc.cu
+// (fused, and split dK/dV) and flash_bwd_dq_tc.cu (split dQ)
 // (kernels/flash_attention.py:tc_route).
 //
 // What bounds them on an H100: at the 2.7B step's shape (b=8, 32 heads,
@@ -20,9 +21,9 @@
 // and gradients (0.088 ms): operations.
 //
 // What the design does about it: like the forward, a first version that
-// is right and simple, fp32 on the CUDA cores (tensor cores and TMA are a
-// later PR's), P and dS kept in fp32 where the JAX kernel rounds them to
-// the input dtype. The TPU's grid runs in order and carries sums across
+// is right and simple, fp32 on the CUDA cores (the tensor-core kernels
+// took over bf16 and fp16 at widths in multiples of 8), P and dS kept in
+// fp32 where the JAX kernel rounds them to the input dtype. The TPU's grid runs in order and carries sums across
 // grid steps in VMEM; here blocks run in parallel, so:
 // - fused: one block per (bh, 64-key tile). K and V stay in shared memory
 //   while the block walks the query tiles from the diagonal down; dK and

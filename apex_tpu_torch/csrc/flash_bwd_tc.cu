@@ -4,15 +4,18 @@
 // head-major layout [bh, s, d] with any d <= 128 that is a multiple of 8,
 // kv lengths, segment ids and n_rep.
 //
-// Replaces two TPU kernels for bf16 and fp16 inputs:
+// Replaces three TPU kernels for bf16 and fp16 inputs:
 //   apex_tpu/kernels/flash_attention.py:_run_bwd_bsh (the pallas_call at
-//   :1060, kernel body _dqkv_kernel_bsh :890), and
+//   :1060, kernel body _dqkv_kernel_bsh :890),
 //   apex_tpu/kernels/flash_attention.py:_run_bwd, fused (the pallas_call
-//   at :514, kernel body _dqkv_kernel :272).
-// fp32, head widths that are not a multiple of 8 (fp16 there widened to
-// fp32 by the wrappers) and the split dQ / dK-dV sweeps (fp16 widened)
-// stay on flash_attention_bsh_bwd.cu and flash_attention_bwd.cu;
-// kernels/flash_attention.py:tc_route picks.
+//   at :514, kernel body _dqkv_kernel :272), and
+//   apex_tpu/kernels/flash_attention.py:_run_bwd, split dK/dV (the
+//   pallas_call at :569, kernel body _dkv_kernel :237): the same body
+//   with the dQ share compiled out (DQ false), beside the split dQ sweep
+//   of flash_bwd_dq_tc.cu.
+// fp32 and head widths that are not a multiple of 8 (fp16 there widened
+// to fp32 by the wrappers) stay on flash_attention_bsh_bwd.cu and
+// flash_attention_bwd.cu; kernels/flash_attention.py:tc_route picks.
 //
 // What bounds it on an H100: at the GPT-2 355M step (b=16, 16 heads of
 // 64, s=1024, causal) operations: five s x s x 64 products over the causal
@@ -61,6 +64,17 @@
 //   cp.async's src-size and never stored.
 // - Epilogue: dK and dV in the op's gradient dtype (OutT: T for the model
 //   layout, fp32 for the head-major one).
+//
+// The split dK/dV sweep (DQ false; the head-major layout only). What
+// bounds it: at the 2.7B step bytes, q, k, v and do read once, dk and dv
+// written in fp32, lse and delta (338 MB, 0.101 ms), against four s x s x
+// 80 products over the causal half (8.6e10 FLOP, 0.087 ms). What the
+// design does about it: the fused body less everything dQ costs — no dS^T
+// tile in shared memory, no barrier for it, no atomics and no zeroing of
+// a dq buffer — so one barrier an iteration guards the Q / dO ring. dK
+// and dV are summed in fp32 registers by one warp each, in one fixed
+// order, so the same inputs give the same bits at every launch; its tiles
+// are its own (launch_dkdv), measured without dQ's atomics to amortise.
 #include "flash_tc.cuh"
 
 namespace apex_tpu_torch {
@@ -96,8 +110,9 @@ struct Params {
 };
 
 // DP: padded head width; BQ: query rows of a tile; WARPS: warps of a block,
-// 16 keys each
-template <int DP, int BQ, int WARPS>
+// 16 keys each; DQ: with the dQ share (the fused sweep) or without it (the
+// split dK/dV sweep)
+template <int DP, int BQ, int WARPS, bool DQ = true>
 struct Bw {
   static_assert(DP % 16 == 0 && DP <= 128, "padded head width");
   static_assert(BQ % 16 == 0, "whole m16 tiles of queries");
@@ -113,14 +128,15 @@ struct Bw {
   // dQ: the BQ x DP tile as kQM m16 tiles of queries, each split over
   // kParts warps by pairs of n8 tiles of d
   static constexpr int kQM = BQ / 16;
-  static_assert(WARPS % kQM == 0, "every warp gets a share of dQ");
-  static constexpr int kParts = WARPS / kQM;
+  static_assert(!DQ || WARPS % kQM == 0, "every warp gets a share of dQ");
+  static constexpr int kParts = DQ ? WARPS / kQM : 1;
   static constexpr int kPairs = DP / 16;
   static constexpr int kPairsPer = (kPairs + kParts - 1) / kParts;
-  // K, V, two stages of (Q, dO), dS^T; two stages of (lse, delta); key
-  // segment ids, two stages of query ids
+  // K, V, two stages of (Q, dO), dS^T (with DQ); two stages of (lse,
+  // delta); key segment ids, two stages of query ids
   static constexpr size_t kSmem =
-      (2 * (size_t)kKTile + 4 * (size_t)kQTile + (size_t)kBK * kLdS) *
+      (2 * (size_t)kKTile + 4 * (size_t)kQTile +
+       (DQ ? (size_t)kBK * kLdS : 0)) *
           sizeof(uint16_t) +
       4 * BQ * sizeof(float) + (kBK + 2 * BQ) * sizeof(int);
 };
@@ -145,10 +161,11 @@ __device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
   atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
 }
 
-template <typename T, int DP, int BQ, int WARPS, typename OutT, int MINB>
+template <typename T, int DP, int BQ, int WARPS, typename OutT, int MINB,
+          bool DQ>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
 flash_bwd_tc_kernel(const Params<T> p) {
-  using G = Bw<DP, BQ, WARPS>;
+  using G = Bw<DP, BQ, WARPS, DQ>;
   constexpr int kBK = G::kBK;
   constexpr int kThreads = G::kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -156,8 +173,9 @@ flash_bwd_tc_kernel(const Params<T> p) {
   T* vs = ks + G::kKTile;
   T* qs = vs + G::kKTile;                 // 2 stages
   T* dos = qs + 2 * G::kQTile;            // 2 stages
-  T* dst = dos + 2 * G::kQTile;           // dS^T, kBK x kLdS
-  float* lse_s = reinterpret_cast<float*>(dst + kBK * G::kLdS);  // 2 x BQ
+  T* dst = dos + 2 * G::kQTile;           // dS^T, kBK x kLdS (DQ only)
+  float* lse_s =
+      reinterpret_cast<float*>(dst + (DQ ? kBK * G::kLdS : 0));  // 2 x BQ
   float* del_s = lse_s + 2 * BQ;                                 // 2 x BQ
   int* segk_s = reinterpret_cast<int*>(del_s + 2 * BQ);          // kBK
   int* segq_s = segk_s + kBK;                                    // 2 x BQ
@@ -236,12 +254,22 @@ flash_bwd_tc_kernel(const Params<T> p) {
     for (int t = 0; t < n_qt; ++t) {
       const int st = t & 1;
       const int q0 = q_first + t * BQ;
-      // issue tile t + 1 into the other stage (its readers finished at the
-      // second barrier of iteration t - 1), then wait for tile t
-      if (t + 1 < n_qt) load_q(st ^ 1, q0 + BQ);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
+      if constexpr (DQ) {
+        // issue tile t + 1 into the other stage (its readers finished at
+        // the second barrier of iteration t - 1), then wait for tile t
+        if (t + 1 < n_qt) load_q(st ^ 1, q0 + BQ);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+      } else {
+        // one barrier an iteration: wait for tile t, meet (every warp is
+        // then done with tile t - 1's stage), and issue tile t + 1 into
+        // that stage, to land while tile t is computed on
+        cp_async_wait<0>();
+        __syncthreads();
+        if (t + 1 < n_qt) load_q(st ^ 1, q0 + BQ);
+        cp_async_commit();
+      }
 
       const T* qt = qs + st * G::kQTile;
       const T* dot = dos + st * G::kQTile;
@@ -323,13 +351,15 @@ flash_bwd_tc_kernel(const Params<T> p) {
           da[1] = pack2<T>(dp[2 * kk][2], dp[2 * kk][3]);
           da[2] = pack2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
           da[3] = pack2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-          // this warp's rows of dS^T for the dQ product
-          T* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
-          T* w8 = w0 + 8 * G::kLdS;
-          *reinterpret_cast<uint32_t*>(w0) = da[0];
-          *reinterpret_cast<uint32_t*>(w8) = da[1];
-          *reinterpret_cast<uint32_t*>(w0 + 8) = da[2];
-          *reinterpret_cast<uint32_t*>(w8 + 8) = da[3];
+          if constexpr (DQ) {
+            // this warp's rows of dS^T for the dQ product
+            T* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
+            T* w8 = w0 + 8 * G::kLdS;
+            *reinterpret_cast<uint32_t*>(w0) = da[0];
+            *reinterpret_cast<uint32_t*>(w8) = da[1];
+            *reinterpret_cast<uint32_t*>(w0 + 8) = da[2];
+            *reinterpret_cast<uint32_t*>(w8 + 8) = da[3];
+          }
 #pragma unroll
           for (int jp = 0; jp < DP / 16; ++jp) {
             uint32_t b[4];
@@ -343,7 +373,7 @@ flash_bwd_tc_kernel(const Params<T> p) {
             mma16<T>(dka[2 * jp + 1], da, b[2], b[3]);
           }
         }
-      } else {
+      } else if constexpr (DQ) {
 #pragma unroll
         for (int kk = 0; kk < G::kQN / 2; ++kk) {
           T* w0 = dst + (warp * 16 + g) * G::kLdS + kk * 16 + tig * 2;
@@ -354,6 +384,7 @@ flash_bwd_tc_kernel(const Params<T> p) {
           *reinterpret_cast<uint32_t*>(w8 + 8) = 0u;
         }
       }
+      if constexpr (!DQ) continue;   // the split dK/dV sweep: no dQ share
       __syncthreads();   // dS^T is whole; every warp is done with stage st
 
       // dQ += dS K over this warp's share: query rows mq*16.. of the tile,
@@ -431,16 +462,17 @@ flash_bwd_tc_kernel(const Params<T> p) {
   }
 }
 
-template <typename T, int DP, int BQ, int WARPS, typename OutT, int MINB>
+template <typename T, int DP, int BQ, int WARPS, typename OutT, int MINB,
+          bool DQ = true>
 cudaError_t launch_cfg(const Params<T>& p, int bh, cudaStream_t stream) {
-  using G = Bw<DP, BQ, WARPS>;
+  using G = Bw<DP, BQ, WARPS, DQ>;
   static bool smem_ok = false;
   const cudaError_t err = hm::allow_smem(
-      flash_bwd_tc_kernel<T, DP, BQ, WARPS, OutT, MINB>, G::kSmem,
+      flash_bwd_tc_kernel<T, DP, BQ, WARPS, OutT, MINB, DQ>, G::kSmem,
       &smem_ok);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (p.sk + G::kBK - 1) / G::kBK);
-  flash_bwd_tc_kernel<T, DP, BQ, WARPS, OutT, MINB>
+  flash_bwd_tc_kernel<T, DP, BQ, WARPS, OutT, MINB, DQ>
       <<<grid, G::kThreads, G::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -463,6 +495,29 @@ cudaError_t launch_dp(const Params<T>& p, int bh, cudaStream_t stream) {
       return launch_cfg<T, 80, 64, 8, OutT, 1>(p, bh, stream);
     default:
       return launch_cfg<T, 128, 32, 8, OutT, 1>(p, bh, stream);
+  }
+}
+
+// The split dK/dV sweep's tiles (DQ off): with no dQ atomics to share,
+// 64-key blocks of 4 warps beat the fused kernel's 128-key blocks at every
+// width. By measurement at b=8, 32 heads, s=1024, causal, bf16 (PERF.md;
+// NVIDIA H100 80GB HBM3, 700.00 W): DP 64 32-row query tiles, three blocks
+// an SM (166 registers); DP 80 64-row tiles, two blocks (246 registers;
+// 0.42 ms at the 2.7B's attention against 0.48 on the fused kernel's
+// tiles); DP 128 64-row tiles, one block (255 registers, 20 bytes
+// spilled, and still faster than 32-row tiles at 241). The tiles change
+// no sum: each warp adds its 16 keys' products over 16-query steps in
+// ascending order whatever BQ is, and a step with no valid pair adds
+// exact zeros, so dK and dV equal the fused kernel's bit for bit.
+template <typename T>
+cudaError_t launch_dkdv(const Params<T>& p, int bh, cudaStream_t stream) {
+  switch (hm::padded_width(p.d)) {
+    case 64:
+      return launch_cfg<T, 64, 32, 4, float, 3, false>(p, bh, stream);
+    case 80:
+      return launch_cfg<T, 80, 64, 4, float, 2, false>(p, bh, stream);
+    default:
+      return launch_cfg<T, 128, 64, 4, float, 1, false>(p, bh, stream);
   }
 }
 
@@ -500,7 +555,7 @@ cudaError_t launch_bsh(const void* q, const void* k, const void* v,
 }
 
 // The head-major call: q/dout [bh, sq, d], k/v [bh, sk, d]; fp32
-// gradients
+// gradients; with dq null the split dK/dV sweep
 template <typename T>
 cudaError_t launch_hm(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
@@ -533,7 +588,21 @@ cudaError_t launch_hm(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
-  return launch_dp<T, float>(p, bh, stream);
+  return dq ? launch_dp<T, float>(p, bh, stream)
+            : launch_dkdv<T>(p, bh, stream);
+}
+
+// what the head-major tensor-core entries take (their argument list is
+// the one of flash_attention_bwd.cu's entries)
+bool hm_args_ok(const void* q, const void* k, const void* v,
+                const void* dout, const void* seg_q, const void* seg_k,
+                int bh, int n_rep, int sq, int sk, int d, int causal,
+                int dtype) {
+  return (dtype == kBFloat16 || dtype == kFloat16) && bh > 0 && n_rep > 0 &&
+         bh % n_rep == 0 && sq > 0 && sk > 0 && d > 0 && d <= 128 &&
+         d % 8 == 0 && !(causal && sq != sk) &&
+         (seg_q == nullptr) == (seg_k == nullptr) && aligned16(q) &&
+         aligned16(k) && aligned16(v) && aligned16(dout);
 }
 
 }  // namespace
@@ -584,10 +653,9 @@ extern "C" int apex_tpu_torch_flash_bwd_hm_tc(
     const void* lse, const void* delta, const void* lens, const void* seg_q,
     const void* seg_k, void* dq, void* dk, void* dv, int bh, int n_rep,
     int sq, int sk, int d, float scale, int causal, int dtype, void* stream) {
-  if ((dtype != kBFloat16 && dtype != kFloat16) || bh <= 0 || n_rep <= 0 ||
-      bh % n_rep || sq <= 0 || sk <= 0 || d <= 0 || d > 128 || d % 8 ||
-      (causal && sq != sk) || ((seg_q == nullptr) != (seg_k == nullptr)) ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout))
+  if (!hm_args_ok(q, k, v, dout, seg_q, seg_k, bh, n_rep, sq, sk, d, causal,
+                  dtype) ||
+      dq == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
@@ -599,5 +667,27 @@ extern "C" int apex_tpu_torch_flash_bwd_hm_tc(
                               st)
              : launch_hm<bf16>(q, k, v, dout, lse, delta, lens, seg_q, seg_k,
                                dq, dk, dv, bh, n_rep, sq, sk, d, scale,
+                               causal, st);
+}
+
+// The split dK/dV sweep on the same argument list: writes dk and dv
+// (fp32 [bh, sk, d]) alone, each by one block in a fixed order, so the
+// same inputs give the same bits at every launch; dq is ignored.
+extern "C" int apex_tpu_torch_flash_bwd_hm_dkdv_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* lens, const void* seg_q,
+    const void* seg_k, void* dq, void* dk, void* dv, int bh, int n_rep,
+    int sq, int sk, int d, float scale, int causal, int dtype, void* stream) {
+  (void)dq;
+  if (!hm_args_ok(q, k, v, dout, seg_q, seg_k, bh, n_rep, sq, sk, d, causal,
+                  dtype))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == kFloat16
+             ? launch_hm<f16>(q, k, v, dout, lse, delta, lens, seg_q, seg_k,
+                              nullptr, dk, dv, bh, n_rep, sq, sk, d, scale,
+                              causal, st)
+             : launch_hm<bf16>(q, k, v, dout, lse, delta, lens, seg_q, seg_k,
+                               nullptr, dk, dv, bh, n_rep, sq, sk, d, scale,
                                causal, st);
 }

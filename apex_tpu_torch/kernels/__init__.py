@@ -5,12 +5,14 @@ tensors launch the kernel, CPU tensors run the plain version, anything
 else raises. Every wrapper counts its launches in a plain integer
 attribute; :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main
-path went through the kernels. The two flash forwards and the two fused
-flash backwards also count the launches of their tensor-core kernel
-apart (``tc_launches``, reported as ``flash_attention_bsh_tc``,
-``flash_attention_tc``, ``flash_attention_bsh_bwd_tc`` and
-``flash_attention_bwd_tc``): the total stays in ``launches``. Importing this package builds nothing:
-the library is compiled at the first launch.
+path went through the kernels. The two flash forwards, the two fused
+flash backwards and the split dQ and dK/dV sweeps also count the
+launches of their tensor-core kernel apart (``tc_launches``, reported as
+``flash_attention_bsh_tc``, ``flash_attention_tc``,
+``flash_attention_bsh_bwd_tc``, ``flash_attention_bwd_tc``,
+``flash_attention_bwd_dq_tc`` and ``flash_attention_bwd_dkdv_tc``): the
+total stays in ``launches``. Importing this package builds nothing: the
+library is compiled at the first launch.
 
 Unlike the JAX package, the name ``flash_attention`` here stays the
 submodule (callers import it as a module): the head-major function is
@@ -153,13 +155,15 @@ TC_COUNTERS = {
     "flash_attention_tc": flash_attention_fwd,
     "flash_attention_bsh_bwd_tc": flash_attention_bsh_bwd,
     "flash_attention_bwd_tc": flash_attention_bwd,
+    "flash_attention_bwd_dq_tc": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkdv_tc": flash_attention_bwd_dkdv,
 }
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`;
     the ``*_tc`` entries are the tensor-core share of a flash forward's
-    or fused backward's."""
+    or backward's."""
     counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
     counts.update((name, fn.tc_launches) for name, fn in TC_COUNTERS.items())
     return counts

@@ -45,7 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernels take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the codes the tensor-core flash kernels take (``csrc/flash_fwd_tc.cu``,
-#: ``csrc/flash_bwd_tc.cu``): the two 16-bit types
+#: ``csrc/flash_bwd_tc.cu``, ``csrc/flash_bwd_dq_tc.cu``): the two 16-bit
+#: types
 TC_DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 #: quantized-KV storage codes of ``csrc/common.cuh`` (enum KvKind)
 KV_KIND_CODES = {"int8": 0, "fp8": 1}
@@ -195,8 +196,9 @@ _SIGNATURES = {
 
 # the head-major backward entries: q, k, v, do, lse, delta, lens, seg_q,
 # seg_k, dq, dk, dv, bh, n_rep, sq, sk, d, scale, causal, q's dtype, stream
-# ("tc": the tensor-core fused backward, its dtype a code of TC_DTYPE_CODES)
-for _name in ("fused", "dq", "dkdv", "tc"):
+# ("tc": the tensor-core fused backward, "dq_tc" and "dkdv_tc" its split
+# sweeps, their dtype a code of TC_DTYPE_CODES)
+for _name in ("fused", "dq", "dkdv", "tc", "dq_tc", "dkdv_tc"):
     _SIGNATURES[f"apex_tpu_torch_flash_bwd_hm_{_name}"] = [
         _c_void_p] * 12 + [_c_int] * 5 + [_c_float, _c_int, _c_int,
                                           _c_void_p]

@@ -41,13 +41,18 @@ its kernels' boundary instead (``widen_f16``,
 ``apex_tpu/kernels/flash_attention.py:1167-1178``), so its P and dS stay
 fp32: a difference by design. Where :func:`tc_route` says no, the
 wrappers widen float16 to fp32 and cast the results back, as JAX does,
-and the fp32 CUDA-core kernels run it. Each kernel's launch
-count is kept on its wrapper (``flash_attention_bsh_fwd.launches``,
-``flash_attention_bsh_bwd.launches``); the forwards and the fused
+and the fp32 CUDA-core kernels run it. The same rule, with the same
+rounding, holds for the head-major backwards, fused and split (the dQ
+and dK/dV sweeps of ``csrc/flash_bwd_dq_tc.cu`` and
+``csrc/flash_bwd_tc.cu``). Each kernel's launch count is kept on its
+wrapper (``flash_attention_bsh_fwd.launches``,
+``flash_attention_bsh_bwd.launches``, ...); the forwards and the
 backwards also count their tensor-core launches apart
 (``flash_attention_bsh_fwd.tc_launches``, ``flash_attention_fwd.
 tc_launches``, ``flash_attention_bsh_bwd.tc_launches``,
-``flash_attention_bwd.tc_launches``), inside the total.
+``flash_attention_bwd.tc_launches``, ``flash_attention_bwd_dq.
+tc_launches``, ``flash_attention_bwd_dkdv.tc_launches``), inside the
+total.
 """
 
 from __future__ import annotations
@@ -90,7 +95,7 @@ def _widen_f16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_inputs(head_dim: int, *tensors) -> tuple:
-    """The operands as a forward or fused backward op takes them: as they
+    """The operands as a forward or backward op takes them: as they
     are where :func:`tc_route` says yes (bf16 or float16 on the tensor
     cores), else with float16 widened to fp32 (the CUDA-core kernels'
     fp32 instantiation; JAX's ``widen_f16``). A rule of dtype and width
@@ -102,10 +107,12 @@ def _kernel_inputs(head_dim: int, *tensors) -> tuple:
 
 
 def tc_route(head_dim: int, *tensors) -> bool:
-    """Which kernel a forward or fused backward op launches for CUDA
-    tensors, by dtype and head width alone (never by failure): True for
-    the tensor-core kernels of ``csrc/flash_fwd_tc.cu`` and
-    ``csrc/flash_bwd_tc.cu`` — every operand (q, k, v; and do) of one
+    """Which kernel a forward or backward op launches for CUDA tensors, by
+    dtype and head width alone (never by failure): True for the
+    tensor-core kernels of ``csrc/flash_fwd_tc.cu``,
+    ``csrc/flash_bwd_tc.cu`` (fused, and the split dK/dV sweep) and
+    ``csrc/flash_bwd_dq_tc.cu`` (the split dQ sweep) — every operand (q,
+    k, v; and do) of one
     16-bit dtype, bf16 or fp16 (mixed bf16/fp16 is False), a head width
     that is a multiple of 8 and at most 128; False for the CUDA-core
     kernels (``csrc/flash_attention_bsh.cu``, ``csrc/flash_attention.cu``,
@@ -434,9 +441,11 @@ flash_attention_bsh_bwd.tc_launches = 0
 #   :func:`flash_attention_fwd_plain` on the CPU;
 # - ``flash_attention_bwd`` (fused, ``(dq, dk, dv)``) —
 #   ``csrc/flash_bwd_tc.cu`` (bf16 and fp16, by :func:`tc_route`) or
-#   ``csrc/flash_attention_bwd.cu``; ``flash_attention_bwd_dq`` (``dq``)
-#   and ``flash_attention_bwd_dkdv`` (``(dk, dv)``) —
-#   ``csrc/flash_attention_bwd.cu`` (float16 widened to fp32 on either
+#   ``csrc/flash_attention_bwd.cu``; ``flash_attention_bwd_dq`` (``dq``) —
+#   ``csrc/flash_bwd_dq_tc.cu`` or ``csrc/flash_attention_bwd.cu``, and
+#   ``flash_attention_bwd_dkdv`` (``(dk, dv)``) — ``csrc/flash_bwd_tc.cu``
+#   without its dQ share or ``csrc/flash_attention_bwd.cu``, by the same
+#   rule (float16 widened to fp32 off the tensor cores, on either
 #   device); or their plain twins on the CPU; gradients in fp32.
 #
 # The forward's autograd formula computes ``delta = sum_d(out * do)`` in
@@ -606,9 +615,10 @@ def _p_ds_plain(q, k, v, do, lse, delta, *, causal, scale, lens, segs,
                 n_rep):
     """The ``_p_ds`` block math over whole rows, in fp32: ``P = exp(S *
     scale - lse)`` under the mask, ``dS = P * (dP - delta) * scale``, both
-    then rounded to the inputs' 16-bit dtype (:func:`_round_io`). The
-    CUDA-core kernels keep P and dS in fp32: the twin of those is this one
-    on the inputs widened to fp32."""
+    then rounded to the inputs' 16-bit dtype (:func:`_round_io`), as the
+    tensor-core backwards (fused and split) round them. The CUDA-core
+    kernels keep P and dS in fp32: the twin of those is this one on the
+    inputs widened to fp32."""
     bh, sq, sk, d = _hm_geometry(q, k, v, causal)
     s_ = _scale(scale, d)
     seg_q, seg_k = segs if segs is not None else (None, None)
@@ -733,14 +743,27 @@ def _hm_fwd_fake(q, k, v, lens, seg_q, seg_k, n_rep, causal, scale, block_q):
                                             dtype=torch.float32)
 
 
-def _hm_bwd_launch(entry: str, q, k, v, do, lse, delta, lens, seg_q, seg_k,
-                   n_rep: int, causal: bool, scale: float, *,
-                   want_dq: bool, want_dkdv: bool):
-    """One launch of a head-major backward kernel on CUDA tensors → fp32
-    ``(dq or None, dk or None, dv or None)``. The fused entries zero dq
-    before they sum into it."""
+#: the head-major backward entries of each sweep: (CUDA cores, tensor
+#: cores)
+_HM_BWD_ENTRIES = {"fused": ("flash_bwd_hm_fused", "flash_bwd_hm_tc"),
+                   "dq": ("flash_bwd_hm_dq", "flash_bwd_hm_dq_tc"),
+                   "dkdv": ("flash_bwd_hm_dkdv", "flash_bwd_hm_dkdv_tc")}
+
+
+def _hm_bwd_launch(sweep: str, q, k, v, do, lse, delta, lens, seg_q, seg_k,
+                   n_rep: int, causal: bool, scale: float):
+    """One launch of a head-major backward ``sweep`` ("fused", "dq" or
+    "dkdv") on CUDA tensors: its tensor-core kernel where
+    :func:`tc_route` says so (an operand off a 16-byte boundary copied
+    once), else its CUDA-core one. Returns (fp32 ``(dq or None, dk or
+    None, dv or None)``, whether the tensor cores ran). The fused entries
+    zero dq before they sum into it."""
     bh, sq, sk, d = _hm_geometry(q, k, v, causal)
-    code = _hm_check_kernel(q, entry, tc=entry == "flash_bwd_hm_tc")
+    tc = tc_route(d, q, k, v, do)
+    if tc:
+        q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
+    entry = _HM_BWD_ENTRIES[sweep][tc]
+    code = _hm_check_kernel(q, entry, tc)
     for name, t, rows in (("q", q, sq), ("k", k, sk), ("v", v, sk),
                           ("do", do, sq)):
         _build.require(t, name, (bh, rows, d), q.dtype, align=1)
@@ -748,16 +771,16 @@ def _hm_bwd_launch(entry: str, q, k, v, do, lse, delta, lens, seg_q, seg_k,
         _build.require(t, name, (bh, sq), torch.float32, align=4)
     aux = _hm_aux(lens, seg_q, seg_k, bh, n_rep, sq, sk)
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty((bh, sq, d), **f32) if want_dq else None
-    dk = torch.empty((bh, sk, d), **f32) if want_dkdv else None
-    dv = torch.empty((bh, sk, d), **f32) if want_dkdv else None
+    dq = torch.empty((bh, sq, d), **f32) if sweep != "dkdv" else None
+    dk = torch.empty((bh, sk, d), **f32) if sweep != "dq" else None
+    dv = torch.empty((bh, sk, d), **f32) if sweep != "dq" else None
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = getattr(_build.library(), f"apex_tpu_torch_{entry}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *aux, ptr(dq), ptr(dk), ptr(dv),
         bh, n_rep, sq, sk, d, scale, int(causal), code, _build.stream())
     _build.check(rc, entry)
-    return dq, dk, dv
+    return (dq, dk, dv), tc
 
 
 @torch.library.custom_op("apex_tpu_torch::flash_attention_bwd",
@@ -773,12 +796,8 @@ def _hm_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_plain(
             q, k, v, do, lse, delta, causal=causal, scale=scale, lens=lens,
             segs=None if seg_q is None else (seg_q, seg_k), n_rep=n_rep)
-    tc = tc_route(q.shape[-1], q, k, v, do)
-    if tc:
-        q, k, v, do = (_aligned16(t) for t in (q, k, v, do))
-    grads = _hm_bwd_launch("flash_bwd_hm_tc" if tc else "flash_bwd_hm_fused",
-                           q, k, v, do, lse, delta, lens, seg_q, seg_k, n_rep,
-                           causal, scale, want_dq=True, want_dkdv=True)
+    grads, tc = _hm_bwd_launch("fused", q, k, v, do, lse, delta, lens,
+                               seg_q, seg_k, n_rep, causal, scale)
     flash_attention_bwd.tc_launches += int(tc)
     flash_attention_bwd.launches += 1
     return grads
@@ -799,17 +818,17 @@ def _hm_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   seg_q: Optional[torch.Tensor],
                   seg_k: Optional[torch.Tensor], n_rep: int, causal: bool,
                   scale: float) -> torch.Tensor:
-    # the split sweeps keep P and dS in fp32: float16 (from a tensor-core
-    # forward) is widened on either device, so the twin is the kernel's
-    q, k, v, do = (_widen_f16(t) for t in (q, k, v, do))
+    # float16 off the tensor cores is widened on either device, so the
+    # twin computes what the kernel does
+    q, k, v, do = _kernel_inputs(q.shape[-1], q, k, v, do)
     if not _build.on_cuda(q, k, v, do, lse, delta,
                           *_present(lens, seg_q, seg_k)):
         return flash_attention_bwd_dq_plain(
             q, k, v, do, lse, delta, causal=causal, scale=scale, lens=lens,
             segs=None if seg_q is None else (seg_q, seg_k), n_rep=n_rep)
-    dq, _, _ = _hm_bwd_launch("flash_bwd_hm_dq", q, k, v, do, lse, delta,
-                              lens, seg_q, seg_k, n_rep, causal, scale,
-                              want_dq=True, want_dkdv=False)
+    (dq, _, _), tc = _hm_bwd_launch("dq", q, k, v, do, lse, delta, lens,
+                                    seg_q, seg_k, n_rep, causal, scale)
+    flash_attention_bwd_dq.tc_launches += int(tc)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -828,15 +847,15 @@ def _hm_bwd_dkdv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seg_q: Optional[torch.Tensor],
                     seg_k: Optional[torch.Tensor], n_rep: int, causal: bool,
                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    q, k, v, do = (_widen_f16(t) for t in (q, k, v, do))    # as dq's
+    q, k, v, do = _kernel_inputs(q.shape[-1], q, k, v, do)    # as dq's
     if not _build.on_cuda(q, k, v, do, lse, delta,
                           *_present(lens, seg_q, seg_k)):
         return flash_attention_bwd_dkdv_plain(
             q, k, v, do, lse, delta, causal=causal, scale=scale, lens=lens,
             segs=None if seg_q is None else (seg_q, seg_k), n_rep=n_rep)
-    _, dk, dv = _hm_bwd_launch("flash_bwd_hm_dkdv", q, k, v, do, lse, delta,
-                               lens, seg_q, seg_k, n_rep, causal, scale,
-                               want_dq=False, want_dkdv=True)
+    (_, dk, dv), tc = _hm_bwd_launch("dkdv", q, k, v, do, lse, delta, lens,
+                                     seg_q, seg_k, n_rep, causal, scale)
+    flash_attention_bwd_dkdv.tc_launches += int(tc)
     flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 
@@ -939,9 +958,14 @@ flash_attention_bwd.tc_launches = 0
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
                            scale: Optional[float] = None, lens=None,
                            segs=None, n_rep: int = 1) -> torch.Tensor:
-    """The split dQ sweep (arguments as :func:`flash_attention_bwd`;
-    float16 widened to fp32): fp32 dq, deterministic; counted in
-    ``flash_attention_bwd_dq.launches``."""
+    """The split dQ sweep (arguments as :func:`flash_attention_bwd`): fp32
+    dq, deterministic (no atomics: the same inputs give the same bits).
+    CUDA tensors launch a kernel (counted in
+    ``flash_attention_bwd_dq.launches``): the tensor-core one of
+    ``csrc/flash_bwd_dq_tc.cu`` where :func:`tc_route` says so (bf16 or
+    fp16, dS rounded to that dtype; also counted in ``.tc_launches``; an
+    operand off a 16-byte boundary is copied once), else the CUDA-core
+    one (float16 there widened to fp32, on either device)."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
     return _hm_bwd_dq_op(q, k, v, do, lse, delta, *_hm_aux_args(lens, segs),
@@ -949,6 +973,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = False,
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tc_launches = 0
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *,
@@ -956,9 +981,13 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *,
                              scale: Optional[float] = None, lens=None,
                              segs=None, n_rep: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split dK/dV sweep (arguments as :func:`flash_attention_bwd`;
-    float16 widened to fp32): fp32 ``(dk, dv)``, deterministic; counted in
-    ``flash_attention_bwd_dkdv.launches``."""
+    """The split dK/dV sweep (arguments as :func:`flash_attention_bwd`):
+    fp32 ``(dk, dv)``, deterministic. CUDA tensors launch a kernel
+    (counted in ``flash_attention_bwd_dkdv.launches``): the tensor-core
+    fused kernel of ``csrc/flash_bwd_tc.cu`` without its dQ share where
+    :func:`tc_route` says so (P and dS rounded to bf16 or fp16; also
+    counted in ``.tc_launches``), else the CUDA-core one (float16 there
+    widened to fp32)."""
     _, _, _, d = _hm_geometry(q, k, v, causal)
     _build.on_cuda(q, k, v, do, lse, delta)
     return _hm_bwd_dkdv_op(q, k, v, do, lse, delta,
@@ -967,6 +996,7 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *,
 
 
 flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dkdv.tc_launches = 0
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = False,
@@ -1018,8 +1048,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     choice of backward, :func:`fused_backward`). Returns the output, same
     shape and dtype as ``q``; differentiable. float16 inputs run the
     tensor-core kernels as they are where :func:`tc_route` says so (P and
-    dS rounded to fp16, where JAX widens to fp32), else the fp32 kernels
-    (JAX's ``widen_f16``); the split sweeps widen them too."""
+    dS rounded to fp16, where JAX widens to fp32), fused or split, else
+    the fp32 kernels (JAX's ``widen_f16``)."""
     return flash_attention_with_lse(
         q, k, v, causal=causal, scale=scale, kv_lengths=kv_lengths,
         segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,

@@ -374,7 +374,13 @@ TC_BWD_VARIANT = {
                                "csrc/flash_attention_bsh_bwd.cu",
     "flash_attention_bwd": "tensor cores (csrc/flash_bwd_tc.cu, bf16 and "
                            "fp16, d % 8 == 0); the rest on "
-                           "csrc/flash_attention_bwd.cu"}
+                           "csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": "tensor cores (csrc/flash_bwd_dq_tc.cu, bf16 "
+                              "and fp16, d % 8 == 0); the rest on "
+                              "csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkdv": "tensor cores (csrc/flash_bwd_tc.cu without "
+                                "its dQ share, bf16 and fp16, d % 8 == 0); "
+                                "the rest on csrc/flash_attention_bwd.cu"}
 #: the tensor-core backward's bf16 gradients against their plain twins.
 #: Both round P and dS to bf16 before the dV, dK and dQ products and sum in
 #: fp32, in another order (dQ by atomics, in no fixed order); a P or dS
@@ -578,10 +584,11 @@ def bsh_bwd_cuda_core(q, k, v, do, lse, delta, heads: int, causal: bool):
 
 
 def hm_bwd_cuda_core(q, k, v, do, lse, delta, *, causal, n_rep, lens=None,
-                     segs=None):
-    """``csrc/flash_attention_bwd.cu``'s fused bf16 kernel (P and dS in
-    fp32) on the head-major op's inputs, launched directly: ``(launch, (dq,
-    dk, dv))`` in fp32."""
+                     segs=None, entry="fused"):
+    """``csrc/flash_attention_bwd.cu``'s bf16 kernel (P and dS in fp32) on
+    the head-major op's inputs, launched directly: the fused sweep, or with
+    ``entry`` "dq" or "dkdv" a split one. ``(launch, (dq, dk, dv))`` in
+    fp32, of which a split sweep writes its own."""
     from apex_tpu_torch.kernels import _build
 
     bh, sq, d = q.shape
@@ -591,13 +598,14 @@ def hm_bwd_cuda_core(q, k, v, do, lse, delta, *, causal, n_rep, lens=None,
     ptr = lambda t: None if t is None else t.data_ptr()
 
     def launch():
-        _build.check(_build.library().apex_tpu_torch_flash_bwd_hm_fused(
+        fn = getattr(_build.library(), f"apex_tpu_torch_flash_bwd_hm_{entry}")
+        _build.check(fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), ptr(lens), ptr(seg_q),
             ptr(seg_k), *(t.data_ptr() for t in out), bh, n_rep, sq,
             k.shape[1], d, d ** -0.5, int(causal),
             _build.DTYPE_CODES[q.dtype], _build.stream()),
-            "flash_attention_bwd (CUDA cores)")
+            f"flash_attention_bwd {entry} (CUDA cores)")
     launch()
     return launch, out
 
@@ -2732,7 +2740,7 @@ def phase_train(cfg, layout, tok, tgt):
 #: summed under (first match wins; the rest is "other")
 KERNEL_CATEGORIES = (
     ("flash_fwd_tc", ("flash_fwd_tc",)),
-    ("flash_bwd_tc", ("flash_bwd_tc",)),
+    ("flash_bwd_tc", ("flash_bwd_tc", "flash_bwd_dq_tc")),
     ("flash_fwd_hm", ("flash_fwd_hm",)),
     ("flash_bwd_hm", ("flash_bwd_kv_hm", "flash_bwd_dq_hm")),
     ("flash_fwd", ("flash_fwd_bsh",)), ("flash_bwd", ("flash_bwd_",)),
@@ -3903,6 +3911,12 @@ HM_BATCH, HM_HEADS, HM_SEQ, HM_DIM = 8, 32, 1024, 80
 F16_TOL = dict(atol=2e-3, rtol=2e-3)
 
 
+#: the sequence at which JAX's rule picks the split backward by itself:
+#: the fused sweep's fp32 dQ accumulator (16384 x 128 x 4 bytes) passes
+#: its 4 MiB budget
+AUTO_SPLIT_SEQ = 16384
+
+
 def hm_grad_tol(ref: torch.Tensor) -> dict:
     """The head-major backward's fp32 gradients, kernel vs plain or fused
     vs split: the same fp32 products summed in another order (dQ by
@@ -3925,12 +3939,15 @@ def _hm_f16_public_api():
     tensor-core kernels at d 64, 80 and 128 (P and dS rounded to fp16)
     against the rounding twins (F16_TC_TOL, F16_BWD_TC_TOL), timed beside
     the fp32 route on the widened inputs, plain and fp16 SDPA; d 100
-    widened to the fp32 CUDA-core kernels (F16_TOL); the split dQ sweep on
-    fp16, widened. Returns (the fp16 rows by name and width, the
-    tensor-core launches, the backward's worst errors, the forward's
-    atol needed)."""
+    widened to the fp32 CUDA-core kernels (F16_TOL); the split dQ and
+    dK/dV sweeps on fp16 as it is (their tensor-core kernels), held and
+    timed the same way. Returns (the fp16 rows by name and width, the
+    tensor-core launches, the backwards' worst errors — the split sweeps'
+    under "split" — and the forward's atol needed)."""
     from apex_tpu_torch.kernels import (
         flash_attention_bwd,
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dkdv_plain,
         flash_attention_bwd_dq,
         flash_attention_bwd_dq_plain,
         flash_attention_bwd_plain,
@@ -3944,9 +3961,11 @@ def _hm_f16_public_api():
 
     dev = torch.device("cuda")
     f16 = torch.float16
-    f16_rows = {"flash_attention": {}, "flash_attention_bwd": {}}
-    f16_seen, f16_atol = {}, {"tc": 0.0, "cuda_core": 0.0}
-    f16_tc = {"flash_attention": 0, "flash_attention_bwd": 0}
+    split_names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+    f16_rows = {"flash_attention": {}, "flash_attention_bwd": {},
+                **{name: {} for name in split_names}}
+    f16_seen, f16_atol = {"split": {}}, {"tc": 0.0, "cuda_core": 0.0}
+    f16_tc = dict.fromkeys(f16_rows, 0)
     for d in (64, 80, 100, 128):
         tc = d % 8 == 0
         b_, h_, s_ = 2, 2, 136
@@ -3964,7 +3983,7 @@ def _hm_f16_public_api():
         check_tc(f"hm fp16 d={d}", counts, "flash_attention", want=int(tc))
         check_tc(f"hm fp16 d={d} bwd", counts, "flash_attention_bwd",
                  want=int(tc))
-        for name in f16_tc:
+        for name in ("flash_attention", "flash_attention_bwd"):
             f16_tc[name] += counts[f"{name}_tc"]
         out, lse = out.detach(), lse.detach()
         # the twins on what the ops take: fp16 as it is on the tensor
@@ -4003,25 +4022,33 @@ def _hm_f16_public_api():
               f"hm fp16 d={d}: flash_attention != flash_attention_with_lse")
         if not tc:
             continue
-        # the split sweeps take fp16 widened (P and dS in fp32)
-        wide = [t.float() for t in (qf, kf, vf, dof)]
-        dq_s = flash_attention_bwd_dq(qf, kf, vf, dof, lse_f, delta,
-                                      causal=True)
-        dq_w = flash_attention_bwd_dq_plain(*wide, lse_f, delta, causal=True)
-        check(close(dq_s, dq_w, hm_grad_tol(dq_w)),
-              f"hm fp16 d={d}: split dq err {max_err(dq_s, dq_w)}")
+        # the split sweeps take fp16 as it is: their tensor-core kernels
+        # round P and dS to fp16, as the fused one and the twins do
+        args = (qf, kf, vf, dof, lse_f, delta)
+        reset_launch_counts()
+        split = (flash_attention_bwd_dq(*args, causal=True),
+                 *flash_attention_bwd_dkdv(*args, causal=True))
+        counts = launch_counts()
+        for name in split_names:
+            check_tc(f"hm fp16 d={d} split", counts, name, want=1)
+            f16_tc[name] += counts[f"{name}_tc"]
+        hold_bwd_tc(f"hm fp16 d={d} split", split, want, f16_seen["split"],
+                    tol=F16_BWD_TC_TOL)
+        split_err = max(max_err(a, w) for a, w in zip(split, want))
         # timed: the kernels, the fp32 route on the widened inputs (what
         # fp16 ran before, casts included), plain, fp16 SDPA, the bound
-        args = (qf, kf, vf, dof, lse_f, delta)
+        wide = [t.float() for t in args[:4]] + [lse_f, delta]
         lib_q, lib_k, lib_v = (t.detach().requires_grad_(True)
                                for t in (q, k, v))
         lib_f = lambda: F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
                                                        is_causal=True)
 
-        def lib_fb():
-            o = F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
-                                               is_causal=True)
-            torch.autograd.grad(o, (lib_q, lib_k, lib_v), do)
+        def lib_grad(*wrt):
+            def run():
+                o = F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
+                                                   is_causal=True)
+                torch.autograd.grad(o, wrt, do)
+            return run
 
         lib_f_ms = time_ms(lib_f)
         pairs = bh_ * s_ * (s_ + 1) / 2
@@ -4042,9 +4069,24 @@ def _hm_f16_public_api():
                      causal=True)],
                  lambda: flash_attention_bwd_plain(*args, causal=True),
                  # fp16 q, k, v, do in; fp32 dq, dk, dv out
-                 time_ms(lib_fb) - lib_f_ms, 4 * act + 3 * 2 * act
-                 + 2 * stats, 5 * 2 * d * pairs,
-                 max(max_err(a, w) for a, w in zip(got, want)))):
+                 time_ms(lib_grad(lib_q, lib_k, lib_v)) - lib_f_ms,
+                 4 * act + 3 * 2 * act + 2 * stats, 5 * 2 * d * pairs,
+                 max(max_err(a, w) for a, w in zip(got, want))),
+                ("flash_attention_bwd_dq",
+                 lambda: flash_attention_bwd_dq(*args, causal=True),
+                 lambda: flash_attention_bwd_dq(*wide, causal=True).half(),
+                 lambda: flash_attention_bwd_dq_plain(*args, causal=True),
+                 time_ms(lib_grad(lib_q)) - lib_f_ms,
+                 4 * act + 2 * act + 2 * stats, 3 * 2 * d * pairs,
+                 split_err),
+                ("flash_attention_bwd_dkdv",
+                 lambda: flash_attention_bwd_dkdv(*args, causal=True),
+                 lambda: [t.half() for t in flash_attention_bwd_dkdv(
+                     *wide, causal=True)],
+                 lambda: flash_attention_bwd_dkdv_plain(*args, causal=True),
+                 time_ms(lib_grad(lib_k, lib_v)) - lib_f_ms,
+                 4 * act + 2 * 2 * act + 2 * stats, 4 * 2 * d * pairs,
+                 split_err)):
             bnd, by = bound(n_bytes, n_flops)
             f16_rows[name][f"d{d}"] = dict(
                 ms=time_ms(fn), prev_ms=time_ms(prev), plain_ms=time_ms(plain),
@@ -4055,8 +4097,9 @@ def _hm_f16_public_api():
         f"(d 64/80/128) out needs atol {f16_atol['tc']:.3e} at rtol 2^-10 "
         f"(F16_TC_TOL {F16_TC_TOL}; d 100 on the CUDA cores "
         f"{f16_atol['cuda_core']:.3e}), the fused backward (atol_rel, rms) "
-        f"{f16_seen['tc']} (F16_BWD_TC_TOL {F16_BWD_TC_TOL}); "
-        f"{f16_tc} tensor-core launches")
+        f"{f16_seen['tc']}, the split sweeps {f16_seen['split']['tc']} "
+        f"(F16_BWD_TC_TOL {F16_BWD_TC_TOL}); {f16_tc} tensor-core "
+        f"launches")
     for name, by_d in f16_rows.items():
         for key, r in by_d.items():
             log(f"kernel {name} (fp16 {key}): {r['ms']:.4f} ms, the fp32 "
@@ -4066,18 +4109,90 @@ def _hm_f16_public_api():
     return f16_rows, f16_tc, f16_seen, f16_atol
 
 
+def _hm_auto_split(split_vs_fused: dict, split_equal: dict) -> dict:
+    """Phase 25: with ``APEX_TPU_FLASH_BWD`` unset, causal s = 16384,
+    batch 1, 4 heads of 64 and of 80, bf16, through ``flash_attention``
+    and autograd. JAX's rule picks the split backward there by itself
+    (``fused_backward``), so one split dQ and one split dK/dV launch run,
+    both on the tensor cores, and no fused one; their gradients are held
+    against the fused tensor-core kernel's under
+    ``APEX_TPU_FLASH_BWD=fused`` on the same inputs (BWD_TC_TOL; dK and dV
+    bit for bit), not against the plain twin,
+    which would hold s² scores. Returns the split sweeps' launches (and
+    their tensor-core share) over both widths."""
+    import os
+
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        fused_backward,
+    )
+
+    check("APEX_TPU_FLASH_BWD" not in os.environ,
+          "auto split: APEX_TPU_FLASH_BWD is set")
+    dev = torch.device("cuda")
+    s, h = AUTO_SPLIT_SEQ, 4
+    split = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+    want = {"auto": {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+                     **{n: 1 for n in split},
+                     **{f"{n}_tc": 1 for n in split}},
+            "fused": {"flash_attention_bwd": 1, "flash_attention_bwd_tc": 1,
+                      **{n: 0 for n in split}}}
+    total = dict.fromkeys(want["auto"], 0)
+    for d in (64, 80):
+        check(not fused_backward(s, d),
+              f"auto split: the rule picks the fused backward at s={s} d={d}")
+        q, k, v, do = (t.view(1, h, s, d) for t in _hm_inputs(
+            dev, h, s, s, d, torch.bfloat16, seed=160 + d))
+        grads = {}
+        for mode in ("auto", "fused"):
+            if mode == "fused":
+                os.environ["APEX_TPU_FLASH_BWD"] = "fused"
+            try:
+                qg, kg, vg = (t.detach().requires_grad_(True)
+                              for t in (q, k, v))
+                reset_launch_counts()
+                torch.autograd.backward(
+                    flash_attention(qg, kg, vg, causal=True), do)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            finally:
+                os.environ.pop("APEX_TPU_FLASH_BWD", None)
+            grads[mode] = [t.grad for t in (qg, kg, vg)]
+            for name, n in want[mode].items():
+                check(counts[name] == n, f"auto split s={s} d={d} {mode}: "
+                      f"{name} launched {counts[name]} times, expected {n}")
+            if mode == "auto":
+                for name in total:
+                    total[name] += counts[name]
+        tag = f"auto split s={s} d={d}"
+        hold_bwd_tc(f"{tag} vs fused", grads["auto"], grads["fused"],
+                    split_vs_fused)
+        same = all(torch.equal(a, b) for a, b in zip(grads["auto"][1:],
+                                                     grads["fused"][1:]))
+        split_equal["cases"] += 1
+        split_equal["equal"] += int(same)
+        check(same, f"{tag}: split dk/dv differ from the fused kernel's")
+        log(f"{tag}: split == fused dk/dv {same}; dq, dk, dv max |split - "
+            f"fused| {[max_err(a, b) for a, b in zip(grads['auto'], grads['fused'])]}")
+        del q, k, v, do, grads
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_hm_kernels():
     """Phase 25: the head-major forward, fused backward and split dQ /
     dK-dV against their plain versions — at small ragged shapes (fp32,
     bf16 and fp16 through the public API; d 64, 80, 128; sq != sk;
     kv lengths with a 0; segment ids; ``flash_attention_with_lse`` with a
     nonzero lse cotangent) and at the 2.7B step's shape, with fused ==
-    split where both run the CUDA cores and the split kernels bit-equal
-    across two launches; timed as phase 3 does. The bf16 fused backward
-    runs the tensor cores and is held to BWD_TC_TOL against the rounding
-    twin, beside the CUDA-core fused kernel on the same inputs; the
-    CUDA-core kernels, which keep P and dS in fp32, are held to the twins
-    on the inputs widened to fp32. Returns ``{name: row}``."""
+    split and the split kernels bit-equal across two launches; timed as
+    phase 3 does. The bf16 backwards, fused and split, run the tensor
+    cores and are held to BWD_TC_TOL against the rounding twins, beside
+    the CUDA-core kernels on the same inputs; the CUDA-core kernels, which
+    keep P and dS in fp32, are held to the twins on the inputs widened to
+    fp32. Then the backward JAX's rule picks by itself at s = 16384
+    (``_hm_auto_split``). Returns ``{name: row}``."""
     from apex_tpu_torch.kernels import (
         flash_attention_bwd,
         flash_attention_bwd_dkdv,
@@ -4100,15 +4215,21 @@ def phase_hm_kernels():
     # one (fp32; bf16 at d=100)
     worst_fwd = {"tc": 0.0, "tc_lse": 0.0, "tc_atol": 0.0, "cuda_core": 0.0}
     # the bf16 fused backward against the rounding twins: the tensor-core
-    # kernel, and the CUDA-core one on the same inputs
-    seen = {}
+    # kernel, and the CUDA-core one on the same inputs; the same for the
+    # split sweeps, and the split tensor-core sweeps against the fused one
+    seen, seen_split, split_vs_fused = {}, {}, {}
+    split_equal = {"equal": 0, "cases": 0}
 
     def hold(tag, q, k, v, do, *, causal, n_rep, lens=None, segs=None,
              dlse=None, tc=None):
-        """Forward and fused backward (on the tensor-core kernels iff
-        ``tc``, by default iff bf16) and the split kernels against plain;
-        fused vs split where both run the CUDA cores; the split kernels
-        bit-equal across two launches."""
+        """Forward, fused backward and split sweeps (on the tensor-core
+        kernels iff ``tc``, by default iff bf16) against plain: the
+        rounding twins on the tensor cores (beside the CUDA-core kernels
+        on the same inputs, measured) and the widened twins on the CUDA
+        cores; fused vs split, within BWD_TC_TOL on the tensor cores (dK
+        and dV bit for bit) and within
+        hm_grad_tol on the CUDA cores; the split kernels bit-equal across
+        two launches."""
         kw = dict(causal=causal, lens=lens, segs=segs, n_rep=n_rep)
         tc = q.dtype == bf16 if tc is None else tc
         reset_launch_counts()
@@ -4146,24 +4267,47 @@ def phase_hm_kernels():
         dk, dv = flash_attention_bwd_dkdv(*args, **kw)
         dq2 = flash_attention_bwd_dq(*args, **kw)
         dk2, dv2 = flash_attention_bwd_dkdv(*args, **kw)
-        want_dq = flash_attention_bwd_dq_plain(*wide, **kw)
-        want_dk, want_dv = flash_attention_bwd_dkdv_plain(*wide, **kw)
+        counts = launch_counts()
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+            check_tc(f"{tag} split", counts, name, want=2 * int(tc))
+        # the split sweeps' twins: rounding on the tensor cores, widened
+        # on the CUDA cores
+        split_want = want if tc else (
+            flash_attention_bwd_dq_plain(*wide, **kw),
+            *flash_attention_bwd_dkdv_plain(*wide, **kw))
         torch.cuda.synchronize()
         if tc:
             hold_bwd_tc(f"{tag}: fused", fused, want, seen)
             _, cc = hm_bwd_cuda_core(*args, **kw)
+            _, cc_dq = hm_bwd_cuda_core(*args, **kw, entry="dq")
+            _, cc_kv = hm_bwd_cuda_core(*args, **kw, entry="dkdv")
             torch.cuda.synchronize()
             hold_bwd_tc(tag, cc, want, seen, side="cuda_core")
+            hold_bwd_tc(f"{tag}: split", (dq, dk, dv), want, seen_split)
+            hold_bwd_tc(tag, (cc_dq[0], cc_kv[1], cc_kv[2]), want,
+                        seen_split, side="cuda_core")
+            # split vs fused, both on the tensor cores
+            hold_bwd_tc(f"{tag}: split vs fused", (dq, dk, dv), fused,
+                        split_vs_fused)
+            same = torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
+            split_equal["cases"] += 1
+            split_equal["equal"] += int(same)
+            # the split dK/dV sweep is the fused body less its dQ share,
+            # on tiles of its own that change no sum (csrc/flash_bwd_tc.cu,
+            # launch_dkdv): its dK and dV are the fused kernel's bits
+            check(same, f"{tag}: split dk/dv differ from the fused kernel's by "
+                  f"{max(max_err(dk, fused[1]), max_err(dv, fused[2]))}")
         for name, a, w in zip(("dq", "dk", "dv"), fused, want):
             check(bool(torch.isfinite(a).all()), f"{tag}: non-finite {name}")
             check(tc or close(a, w, hm_grad_tol(w)),
                   f"{tag}: fused {name} err {max_err(a, w)}")
             worst["fused"] = max(worst["fused"], max_err(a, w))
-        for name, a, w, f_ in (("dq", dq, want_dq, fused[0]),
-                               ("dk", dk, want_dk, fused[1]),
-                               ("dv", dv, want_dv, fused[2])):
+        for name, a, w, f_ in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                  split_want, fused):
             key = "dq" if name == "dq" else "dkdv"
-            check(close(a, w, hm_grad_tol(w)),
+            check(bool(torch.isfinite(a).all()),
+                  f"{tag}: non-finite split {name}")
+            check(tc or close(a, w, hm_grad_tol(w)),
                   f"{tag}: split {name} err {max_err(a, w)}")
             check(tc or close(a, f_, hm_grad_tol(w)),
                   f"{tag}: split and fused {name} differ by {max_err(a, f_)}")
@@ -4251,11 +4395,16 @@ def phase_hm_kernels():
     log(f"head-major forward by kernel (small shapes): tensor cores "
         f"max|out-plain| {worst_fwd['tc']:.3e} (TC_TOL), max|lse-plain| "
         f"{worst_fwd['tc_lse']:.3e} (1e-3); CUDA cores max|out-plain| "
-        f"{worst_fwd['cuda_core']:.3e}; the bf16 fused backward against the "
-        f"rounding twins, worst (atol_rel, rms): tensor cores {seen['tc']}, "
-        f"CUDA cores {seen['cuda_core']} (BWD_TC_TOL {BWD_TC_TOL})")
+        f"{worst_fwd['cuda_core']:.3e}; the bf16 backwards against the "
+        f"rounding twins, worst (atol_rel, rms): fused on the tensor cores "
+        f"{seen['tc']}, on the CUDA cores {seen['cuda_core']}; split on the "
+        f"tensor cores {seen_split['tc']}, on the CUDA cores "
+        f"{seen_split['cuda_core']} (BWD_TC_TOL {BWD_TC_TOL}); split vs "
+        f"fused on the tensor cores {split_vs_fused['tc']}, dK and dV bit "
+        f"for bit in {split_equal['equal']} of {split_equal['cases']} cases")
 
     f16_rows, f16_tc, f16_seen, f16_atol = _hm_f16_public_api()
+    auto_launches = _hm_auto_split(split_vs_fused, split_equal)
     log(f"head-major kernels at small shapes (fp32/bf16 x d 64/80/128, "
         f"causal, sq != sk, lens with a 0, segments, dlse; fp16 public API):"
         f" max|kernel - plain| {worst}")
@@ -4282,7 +4431,21 @@ def phase_hm_kernels():
     torch.cuda.synchronize()
     hold_bwd_tc("hm 2.7B fused", cc, want, step, side="cuda_core")
     check_cc_fails("hm 2.7B fused", cc, want)
-    del want, cc
+    del cc
+    # the split sweeps likewise: tensor cores against the CUDA-core
+    # kernels they took over from, launched by their entries
+    step_split = {}
+    hold_bwd_tc("hm 2.7B split", (flash_attention_bwd_dq(*args, **kw),
+                                  *flash_attention_bwd_dkdv(*args, **kw)),
+                want, step_split)
+    cc_dq_launch, cc_dq = hm_bwd_cuda_core(*args, **kw, entry="dq")
+    cc_kv_launch, cc_kv = hm_bwd_cuda_core(*args, **kw, entry="dkdv")
+    torch.cuda.synchronize()
+    cc_split = (cc_dq[0], cc_kv[1], cc_kv[2])
+    hold_bwd_tc("hm 2.7B split", cc_split, want, step_split,
+                side="cuda_core")
+    check_cc_fails("hm 2.7B split", cc_split, want)
+    del want, cc_dq, cc_kv, cc_split
     hv = lambda t: t.view(b, h, s, d)
     qh, kh, vh = (hv(t).detach().requires_grad_(True) for t in (q, k, v))
     lib_fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh,
@@ -4370,27 +4533,55 @@ def phase_hm_kernels():
         f"{step['tc']}, CUDA cores {step['cuda_core']}")
     # the split dQ sweep: S, dP and dQ; its library time is SDPA's
     # backward asked for dq alone (the call computes all three)
-    row("flash_attention_bwd_dq", "flash_attention_bwd.cu", 547,
+    row("flash_attention_bwd_dq", "flash_bwd_dq_tc.cu", 547,
         lambda: flash_attention_bwd_dq(*args, **kw),
         lambda: flash_attention_bwd_dq_plain(*args, **kw),
         time_ms(lib_grad(qh), **TRAIN_TIMING) - lib_fwd_ms,
         4 * act + act32 + 2 * stats, 3 * 2 * d * pairs,
         max(worst["dq"], worst_small["dq"]))
     # the split dK/dV sweep: S, dP, dV and dK
-    row("flash_attention_bwd_dkdv", "flash_attention_bwd.cu", 569,
+    row("flash_attention_bwd_dkdv", "flash_bwd_tc.cu", 569,
         lambda: flash_attention_bwd_dkdv(*args, **kw),
         lambda: flash_attention_bwd_dkdv_plain(*args, **kw),
         time_ms(lib_grad(kh, vh), **TRAIN_TIMING) - lib_fwd_ms,
         4 * act + 2 * act32 + 2 * stats, 4 * 2 * d * pairs,
         max(worst["dkdv"], worst_small["dkdv"]))
+    for name, launch, entry in (
+            ("flash_attention_bwd_dq", cc_dq_launch, "dQ"),
+            ("flash_attention_bwd_dkdv", cc_kv_launch, "dK/dV")):
+        rows[name].update(
+            variant=TC_BWD_VARIANT[name],
+            prev_ms=time_ms(launch, **TRAIN_TIMING),
+            prev_ms_source=f"measured in this run: csrc/flash_attention_"
+                           f"bwd.cu's split {entry} bf16 kernel on the same "
+                           f"inputs",
+            tol=dict(BWD_TC_TOL, tc=seen_split["tc"],
+                     cuda_core=seen_split["cuda_core"],
+                     step_tc=step_split["tc"],
+                     step_cuda_core=step_split["cuda_core"],
+                     split_vs_fused=split_vs_fused["tc"],
+                     dkdv_bit_equal_to_fused=dict(split_equal)),
+            launches_auto_split=auto_launches[name],
+            launches_tc_auto_split=auto_launches[f"{name}_tc"])
+        log(f"kernel {name} (2.7B shape): tensor cores "
+            f"{rows[name]['ms']:.4f} ms, the CUDA-core kernel "
+            f"{rows[name]['prev_ms']:.4f} ms in this run "
+            f"({rows[name]['prev_ms'] / rows[name]['ms']:.1f}x); "
+            f"(atol_rel, rms) against the rounding twin: tensor cores "
+            f"{step_split['tc']}, CUDA cores {step_split['cuda_core']}")
+    del cc_dq_launch, cc_kv_launch
     del q, k, v, do, out, lse, delta, args, qh, kh, vh
     log(f"head-major kernels at the 2.7B shape: max|kernel - plain| "
         f"{worst}")
     for name, by_d in f16_rows.items():
-        rows[name]["fp16"] = dict(by_d, launches_tc_public_api=f16_tc[name],
-                                  tol=dict(F16_BWD_TC_TOL, tc=f16_seen["tc"])
-                                  if name == "flash_attention_bwd" else
-                                  dict(F16_TC_TOL, atol_needed=f16_atol))
+        if name == "flash_attention":
+            tol = dict(F16_TC_TOL, atol_needed=f16_atol)
+        elif name == "flash_attention_bwd":
+            tol = dict(F16_BWD_TC_TOL, tc=f16_seen["tc"])
+        else:
+            tol = dict(F16_BWD_TC_TOL, tc=f16_seen["split"]["tc"])
+        rows[name]["fp16"] = dict(by_d, launches_tc_phase25=f16_tc[name],
+                                  tol=tol)
     for r in rows.values():
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager "
             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library "
@@ -4463,11 +4654,12 @@ def phase_2p7b_grads():
 # phase 27: the 2.7B step; phase 28: where its time goes
 # ---------------------------------------------------------------------------
 
-#: fused vs split head-major backward in the 2.7B step: the same
-#: gradients up to dQ's atomic summation order, so step 0's losses are
-#: equal (the forward has not seen a backward yet) and later ones carry
-#: bf16 training's rounding forward, as the GPT step's two optimizer
-#: layouts do (LAYOUT_LOSS_BAND)
+#: fused vs split head-major backward in the 2.7B step, both on the
+#: tensor cores: the same gradients up to dQ's summation order (atomics
+#: in the fused kernel, one fixed order in the split one), so step 0's
+#: losses are equal (the forward has not seen a backward yet) and later
+#: ones carry bf16 training's rounding forward, as the GPT step's two
+#: optimizer layouts do (LAYOUT_LOSS_BAND)
 SPLIT_LOSS_BAND = LAYOUT_LOSS_BAND
 #: the head-major vs lane-packed 355M step: other kernels for the same
 #: attention, so every loss carries their bf16 rounding
@@ -4518,6 +4710,21 @@ def _run_2p7b(trainer, steps: int, what: str, *, profile: bool = False):
     return metrics, counts, prof
 
 
+def _log_2p7b_profile(what: str, prof) -> None:
+    """The head-major flash kernels' share of a 2.7B step's device time,
+    from phase 28's window (the backward's category holds the fused
+    kernel or the split pair)."""
+    if prof is None:
+        return
+    busy = prof["device_busy_ms"] / prof["window_steps"]
+    cats = prof["device_ms_per_step_by_category"]
+    fwd = cats.get("flash_fwd_tc", 0.0) + cats.get("flash_fwd_hm", 0.0)
+    hm = fwd + cats.get("flash_bwd_tc", 0.0) + cats.get("flash_bwd_hm", 0.0)
+    log(f"2.7B {what} profile: head-major kernels {hm:.2f} of {busy:.2f} "
+        f"device ms a step (share {hm / busy:.4f}; the forward {fwd:.2f}), "
+        f"idle share {prof['device_idle_share']:.4f}")
+
+
 def phase_2p7b_train():
     """Phase 27 (and 28): ``apex_tpu_torch.examples.gpt_train --preset
     2p7b``'s step — one warm-up and 5 timed steps (the example's
@@ -4526,8 +4733,10 @@ def phase_2p7b_train():
     layer twice (full remat replays it), 32 fused backwards and no
     lane-packed launch; phase 28's profiler window over 2 more steps;
     then 3 steps under ``APEX_TPU_FLASH_BWD=split`` (32 dQ and 32 dK/dV
-    launches a step, losses within SPLIT_LOSS_BAND of the fused run's).
-    Returns (fused metrics, split metrics)."""
+    launches a step, all on the tensor cores, losses within
+    SPLIT_LOSS_BAND of the fused run's, the median step logged beside the
+    fused run's) and a profiler window over 2 more. Returns (fused
+    metrics, split metrics)."""
     import os
 
     from apex_tpu_torch.examples import gpt_train
@@ -4542,6 +4751,7 @@ def phase_2p7b_train():
             "flash_attention_bwd": L * steps,
             "flash_attention_bwd_tc": L * steps,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
+            "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dkdv_tc": 0,
             "flash_attention_bsh": 0, "flash_attention_bsh_bwd": 0}
     for name, n in want.items():
         check(counts[name] == n, f"2.7B fused: {name} launched "
@@ -4551,32 +4761,30 @@ def phase_2p7b_train():
           f"2.7B: first loss {losses[0]} is not near ln(vocab)")
     check(losses[-1] < losses[0],
           f"2.7B: the loss did not fall ({losses[0]} -> {losses[-1]})")
-    if prof is not None:
-        busy = prof["device_busy_ms"] / prof["window_steps"]
-        cats = prof["device_ms_per_step_by_category"]
-        fwd = cats.get("flash_fwd_tc", 0.0) + cats.get("flash_fwd_hm", 0.0)
-        hm = fwd + cats.get("flash_bwd_tc", 0.0) + cats.get("flash_bwd_hm",
-                                                             0.0)
-        log(f"2.7B profile: head-major kernels {hm:.2f} of {busy:.2f} device"
-            f" ms a step (share {hm / busy:.4f}; the forward {fwd:.2f}), "
-            f"idle share {prof['device_idle_share']:.4f}")
+    _log_2p7b_profile("fused", prof)
 
     os.environ["APEX_TPU_FLASH_BWD"] = "split"
     try:
-        split, counts, _ = _run_2p7b(trainer, 3, "split")
+        split, counts, prof = _run_2p7b(trainer, 3, "split", profile=True)
     finally:
         del os.environ["APEX_TPU_FLASH_BWD"]
+    _log_2p7b_profile("split", prof)
     want = {"flash_attention": 2 * L * 3, "flash_attention_tc": 2 * L * 3,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
             "flash_attention_bwd_dq": L * 3,
-            "flash_attention_bwd_dkdv": L * 3, "flash_attention_bsh": 0,
+            "flash_attention_bwd_dkdv": L * 3,
+            "flash_attention_bwd_dq_tc": L * 3,
+            "flash_attention_bwd_dkdv_tc": L * 3, "flash_attention_bsh": 0,
             "flash_attention_bsh_bwd": 0}
     for name, n in want.items():
         check(counts[name] == n, f"2.7B split: {name} launched "
               f"{counts[name]} times, expected {n}")
     gap = max(abs(a - b_) for a, b_ in zip(split["losses"], losses))
     log(f"2.7B: split vs fused max|loss diff| over 3 steps {gap:.3e} (band "
-        f"{SPLIT_LOSS_BAND}); step 0 {split['losses'][0]} vs {losses[0]}")
+        f"{SPLIT_LOSS_BAND}); step 0 {split['losses'][0]} vs {losses[0]}; "
+        f"median step {split['median_step_ms']:.2f} ms split, "
+        f"{fused['median_step_ms']:.2f} ms fused (ratio "
+        f"{split['median_step_ms'] / fused['median_step_ms']:.4f})")
     check(split["losses"][0] == losses[0],
           "2.7B: step 0's loss differs between the fused and split runs")
     check(gap <= SPLIT_LOSS_BAND, f"2.7B: split and fused losses differ by "
@@ -5494,9 +5702,11 @@ def main() -> int:
                       ("flash_attention_bwd_dq", split_2p7b),
                       ("flash_attention_bwd_dkdv", split_2p7b)):
         hm_rows[name]["launches"] = run["launches"].get(name, 0)
-    for name in ("flash_attention", "flash_attention_bwd"):
-        hm_rows[name]["launches_tc"] = fused_2p7b["launches"].get(
-            f"{name}_tc", 0)
+    for name, run in (("flash_attention", fused_2p7b),
+                      ("flash_attention_bwd", fused_2p7b),
+                      ("flash_attention_bwd_dq", split_2p7b),
+                      ("flash_attention_bwd_dkdv", split_2p7b)):
+        hm_rows[name]["launches_tc"] = run["launches"].get(f"{name}_tc", 0)
     rows.update(hm_rows)
     # scale and axpby from the L3 loop; adagrad from the flat FusedAdagrad
     # trainer (its L3-loop count beside); the softmax from

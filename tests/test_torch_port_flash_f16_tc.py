@@ -240,20 +240,18 @@ def test_hm_bwd_f16_rounds_p_and_ds(hm_cases, d, case):
     """The head-major fused backward twin on fp16 inputs against
     ``_run_bwd`` (fp32 P and dS) with JAX's lse and delta; its fp32
     gradients cast to fp16 as the autograd formula casts them; the fused
-    op takes the twin, and the split ops widen fp16 (their kernels keep P
-    and dS in fp32)."""
+    op takes the twin, and so do the split ops, on the same unwidened
+    inputs (their tensor-core kernels round P and dS to fp16 as the fused
+    one does): their dQ, dK and dV equal the fused twin's."""
     args, kw, _, _, want = hm_cases[(d, case)]
     got = tk.flash_attention_bwd_plain(*args, **kw)
     assert all(t.dtype == torch.float32 for t in got)
     _hold_grads([g.half() for g in got], want)
     op = tk.flash_attention_bwd(*args, **kw)
     assert all(torch.equal(a, w) for a, w in zip(op, got))
-    wide = [t.float() for t in args[:4]] + args[4:]
-    assert torch.equal(tk.flash_attention_bwd_dq(*args, **kw),
-                       tk.flash_attention_bwd_dq_plain(*wide, **kw))
+    assert torch.equal(tk.flash_attention_bwd_dq(*args, **kw), got[0])
     dk, dv = tk.flash_attention_bwd_dkdv(*args, **kw)
-    want_dk, want_dv = tk.flash_attention_bwd_dkdv_plain(*wide, **kw)
-    assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+    assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
 
 
 # ---------------------------------------------------------------------------

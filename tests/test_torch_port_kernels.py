@@ -241,7 +241,9 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "flash_attention_bsh_tc": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_bsh_bwd_tc": 0,
-                                  "flash_attention_bwd_tc": 0}
+                                  "flash_attention_bwd_tc": 0,
+                                  "flash_attention_bwd_dq_tc": 0,
+                                  "flash_attention_bwd_dkdv_tc": 0}
     tk.write_column.launches = 3
     tk.flash_attention_fwd.tc_launches = 2
     tk.reset_launch_counts()
@@ -295,4 +297,5 @@ def test_build_dir_is_content_addressed():
         "flash_attention_bsh.cu", "decode_attention.cu",
         "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
         "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "softmax.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu"}
+        "softmax.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu",
+        "flash_bwd_dq_tc.cu"}
