@@ -9,13 +9,15 @@
 namespace apex_tpu_torch {
 
 // dtype codes shared with apex_tpu_torch/kernels/_build.py (DTYPE_CODES;
-// kFloat16 only for the tensor-core flash kernels, TC_DTYPE_CODES)
+// kFloat16 only for the tensor-core flash kernels, TC_DTYPE_CODES, and
+// the decode kernels, DECODE_DTYPE_CODES)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 // quantized-KV storage codes shared with _build.py (KV_KIND_CODES)
 enum KvKind : int { kInt8 = 0, kFp8 = 1 };
 
-// the one head width the kernels are built for (GPT 355M: 1024 / 16)
+// the one head width the lane-packed flash kernels are built for
+// (GPT 355M: 1024 / 16)
 constexpr int kHeadDim = 64;
 
 // the finite "minus infinity" of the JAX kernels (_NEG): masked scores

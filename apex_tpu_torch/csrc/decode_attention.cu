@@ -24,11 +24,12 @@
 //
 // What bounds them on an H100: all are memory-bound. A write moves
 // 2 x b x T x h x d elements each way. The read moves, per (batch,
-// head) row, q plus the K and V rows of columns 0..pos[b]: at the
-// slice's shapes (b 8, h 16, horizon 192, d 64, bf16) at most ~6 MB
-// per layer, under 2 microseconds at 3.35 TB/s, against ~0.8 MFLOP.
-// At that size the launch latency and one block's serial sweep, not
-// bandwidth, set the time.
+// head) row, q plus the K and V rows of columns 0..pos[b]: at GPT
+// 355M's serving shapes (b 8, h 16, horizon 192, d 64, bf16) at most
+// ~6 MB per layer, at the 2.7B's (h 32, d 80, horizon 1024) ~84 MB,
+// against 4 x d flops per column and head. At the small size the
+// launch latency and one block's serial sweep, not bandwidth, set the
+// time.
 //
 // What the design does about it:
 // - All four writes are one kernel (write_columns_kernel), one launch
@@ -48,13 +49,24 @@
 // - The read is one block per (batch, head) row; its 4 warps split the
 //   horizon into 32-column chunks (chunk c goes to warp c % 4). In a
 //   chunk every lane scores one column (its K row by 16-byte vector
-//   loads, q from shared memory) and the warp folds the chunk into an
-//   fp32 online softmax (m, l, acc). The warps then merge their
+//   loads where the row's bytes allow, else element by element; q from
+//   shared memory) and the warp folds the chunk into an fp32 online
+//   softmax (m, l, acc), loading the chunk's V rows kVAhead at a time
+//   before summing them, in column order. The warps then merge their
 //   (m, l, acc) in shared memory in warp order, so no second kernel is
-//   needed. The contiguous and the paged read are ONE sweep
-//   (attend_row) that differs only in where column c lives: the same
-//   bytes in the same order give the same bits, so paged decode
-//   equals contiguous decode bit for bit.
+//   needed. The contiguous and the paged read are ONE sweep (attend_row)
+//   that differs only in where column c lives: the same bytes in the
+//   same order give the same bits, so paged decode equals contiguous
+//   decode bit for bit.
+// - Any head width d from 1 to kMaxHeadDim (128, the head-major flash
+//   kernels' cap): the sweep is built for the padded width DP, d rounded
+//   up to 32, 64, 96 or 128, and lane t of a warp owns dims t + 32 i
+//   (i < DP / 32) of the P.V accumulator. Rows are d elements apart in
+//   memory (the real d, at run time); q's padded dims are zeros in
+//   shared memory, a lane's dims at or past d are never loaded or
+//   stored, and the score's dot product runs over the d real dims only.
+// - fp32, bf16 and fp16 rows, each widened to fp32 in registers (the
+//   wrappers pass fp16 as it is).
 // - Columns past pos[b] are never read: chunks past pos are skipped
 //   (the j*bk <= pos skip of _attn_kernel), and inside the last chunk
 //   only columns <= pos enter the score and the P.V product. Stale
@@ -72,7 +84,10 @@
 //   widens to fp32 in registers and its two scales fold into the score
 //   and the probability, so the sweep reads ~(d + 4) / (2 d) of the
 //   bf16 cache's bytes.
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -86,12 +101,58 @@ template <> __device__ __forceinline__ float to_float<__nv_fp8_e4m3>(
     __nv_fp8_e4m3 x) {
   return static_cast<float>(x);
 }
+// fp16 rows: widened exactly, the output rounded to nearest even
+template <> __device__ __forceinline__ float to_float<__half>(__half x) {
+  return __half2float(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 namespace {
 
 constexpr int kWriteThreads = 256;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+// the widest head the reads take (_build.HM_MAX_HEAD_DIM)
+constexpr int kMaxHeadDim = 128;
+// V rows a warp of the read loads ahead of summing them: the loads'
+// latencies overlap instead of adding up column by column
+constexpr int kVAhead = 8;
+
+// A type as a value, for the dispatchers below
+template <typename T> struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>{}) for the rows' dtype code: fp32, bf16 or fp16
+template <typename F> cudaError_t with_dtype(int dtype, F&& f) {
+  switch (dtype) {
+    case kFloat32: return f(Tag<float>{});
+    case kBFloat16: return f(Tag<__nv_bfloat16>{});
+    case kFloat16: return f(Tag<__half>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f(Tag<S>{}) for the quantized storage kind: int8 or fp8 e4m3
+template <typename F> cudaError_t with_kind(int kind, F&& f) {
+  switch (kind) {
+    case kInt8: return f(Tag<int8_t>{});
+    case kFp8: return f(Tag<__nv_fp8_e4m3>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f(std::integral_constant<int, DP>{}) for the padded width DP of head
+// width d: d rounded up to 32, 64, 96 or 128; refused past kMaxHeadDim
+template <typename F> cudaError_t with_padded_dim(int d, F&& f) {
+  if (d <= 0 || d > kMaxHeadDim) return cudaErrorInvalidValue;
+  if (d <= 32) return f(std::integral_constant<int, 32>{});
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  if (d <= 96) return f(std::integral_constant<int, 96>{});
+  return f(std::integral_constant<int, 128>{});
+}
 
 // Where a multi-column write lands: the contiguous cache [b, h, S, d]
 // (table == nullptr, P == S) or the paged pool [num_pages, h, P, d]
@@ -223,8 +284,8 @@ write_columns_quant_kernel(const In* __restrict__ k_new,
 }
 
 // Cell of column c inside one (batch, head) row of the contiguous cache
-// (the data row starts D elements per cell further, the scale at the
-// cell): the row bases are k_cache + r * S * D and k_scale + r * S.
+// (the data row starts d elements per cell further, the scale at the
+// cell): the row bases are k_cache + r * S * d and k_scale + r * S.
 struct ContiguousCols {
   __device__ __forceinline__ size_t operator()(int c) const {
     return (size_t)c;
@@ -243,34 +304,41 @@ struct PagedCols {
   }
 };
 
-// THE split-horizon sweep of one (batch, head) row: q [D] attends over
-// columns 0..p; column c's K and V rows are at kb + col(c) * D and
-// vb + col(c) * D, in the storage type S. With kQuant, S is int8 or fp8
+// THE split-horizon sweep of one (batch, head) row: q [d] attends over
+// columns 0..p; column c's K and V rows are at kb + col(c) * d and
+// vb + col(c) * d, in the storage type S. DP is d rounded up to a
+// multiple of 32: lane t of a warp owns dims t + 32 i of the P.V
+// accumulator, those at or past d idle. With kQuant, S is int8 or fp8
 // and column c's fp32 scales are ksb[col(c)] and vsb[col(c)]: the K
 // scale folds into the score, (q . k_int) * s_k * scale, and the V scale
 // into the probability, (p * s_v) . v_int, as _attn_kernel_quant does. A
 // column past p is never loaded, its scales included.
-template <typename T, typename S, int D, bool kQuant, typename Cols>
+template <typename T, typename S, int DP, bool kQuant, typename Cols>
 __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
                                            const S* __restrict__ kb,
                                            const float* __restrict__ ksb,
                                            const S* __restrict__ vb,
                                            const float* __restrict__ vsb,
-                                           const Cols& col, int p,
+                                           const Cols& col, int p, int d,
                                            float scale,
                                            T* __restrict__ outr) {
-  constexpr int DPL = D / 32;
+  static_assert(DP % 32 == 0 && DP <= kMaxHeadDim, "padded head width");
+  constexpr int DPL = DP / 32;
   constexpr int VEC = Vec<S>::N;
-  __shared__ float qs[D];
+  __shared__ float qs[DP];
   __shared__ float ms[kWarps];
   __shared__ float ls[kWarps];
-  __shared__ float accs[kWarps][D];
+  __shared__ float accs[kWarps][DP];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  // every K row starts on a 16-byte boundary (the wrappers check the
+  // bases) exactly when d is a multiple of the vector width
+  const bool vec = d % VEC == 0;
 
-  for (int i = tid; i < D; i += kThreads) qs[i] = to_float<T>(qr[i]);
+  for (int i = tid; i < DP; i += kThreads)
+    qs[i] = i < d ? to_float<T>(qr[i]) : 0.f;
   __syncthreads();
 
   float m = kNeg, l = 0.f, acc[DPL];
@@ -285,14 +353,20 @@ __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
     size_t cell = 0;
     if (valid) {
       cell = col(cc);
-      const S* krow = kb + cell * D;
+      const S* krow = kb + cell * d;
       float dot = 0.f;
+      if (vec) {
 #pragma unroll
-      for (int e0 = 0; e0 < D; e0 += VEC) {
-        float t[VEC];
-        load_vec<S>(krow + e0, t);
+        for (int e0 = 0; e0 < DP; e0 += VEC) {
+          if (e0 < d) {
+            float t[VEC];
+            load_vec<S>(krow + e0, t);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * t[e];
+            for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * t[e];
+          }
+        }
+      } else {
+        for (int e = 0; e < d; ++e) dot += qs[e] * to_float<S>(krow[e]);
       }
       s = kQuant ? dot * ksb[cell] * scale : dot * scale;
     }
@@ -305,12 +379,27 @@ __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) acc[t] *= corr;
     const int jn = min(32, p - c * 32 + 1);  // columns <= p in this chunk
-    for (int j = 0; j < jn; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, pv, j);
-      const S* vrow = vb + col(c * 32 + j) * D;
+    for (int j0 = 0; j0 < jn; j0 += kVAhead) {
+      // kVAhead V rows loaded before any is summed (a step past jn
+      // re-reads the chunk's last column and adds nothing), then folded
+      // in column order; a lane's dims at or past d hold zeros
+      float v[kVAhead][DPL];
 #pragma unroll
-      for (int t = 0; t < DPL; ++t)
-        acc[t] += pj * to_float<S>(vrow[lane + 32 * t]);
+      for (int u = 0; u < kVAhead; ++u) {
+        const S* vrow = vb + col(c * 32 + min(j0 + u, jn - 1)) * d;
+#pragma unroll
+        for (int t = 0; t < DPL; ++t)
+          v[u][t] = lane + 32 * t < d ? to_float<S>(vrow[lane + 32 * t])
+                                      : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kVAhead; ++u) {
+        const float pj = __shfl_sync(0xffffffffu, pv, (j0 + u) & 31);
+        if (j0 + u < jn) {
+#pragma unroll
+          for (int t = 0; t < DPL; ++t) acc[t] += pj * v[u][t];
+        }
+      }
     }
     m = m_new;
   }
@@ -340,57 +429,59 @@ __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
 #pragma unroll
     for (int t = 0; t < DPL; ++t)
-      outr[lane + 32 * t] = from_float<T>(o[t] * inv);
+      if (lane + 32 * t < d) outr[lane + 32 * t] = from_float<T>(o[t] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                    const T* __restrict__ v_cache,
                    const int* __restrict__ pos, T* __restrict__ out, int h,
-                   int S, float scale) {
+                   int S, int d, float scale) {
   const int r = blockIdx.x;  // batch * h + head
   const int p = min(max(pos[r / h], 0), S - 1);
-  attend_row<T, T, D, false>(q + (size_t)r * D, k_cache + (size_t)r * S * D,
-                             nullptr, v_cache + (size_t)r * S * D, nullptr,
-                             ContiguousCols{}, p, scale, out + (size_t)r * D);
+  attend_row<T, T, DP, false>(q + (size_t)r * d, k_cache + (size_t)r * S * d,
+                              nullptr, v_cache + (size_t)r * S * d, nullptr,
+                              ContiguousCols{}, p, d, scale,
+                              out + (size_t)r * d);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                   const T* __restrict__ v_pool,
                   const int* __restrict__ table, const int* __restrict__ pos,
-                  T* __restrict__ out, int h, int P, int mp, float scale) {
+                  T* __restrict__ out, int h, int P, int mp, int d,
+                  float scale) {
   const int r = blockIdx.x;  // batch * h + head
   const int b = r / h;
   const int p = min(max(pos[b], 0), mp * P - 1);
   const PagedCols col{table + (size_t)b * mp, r - b * h, h, P};
-  attend_row<T, T, D, false>(q + (size_t)r * D, k_pool, nullptr, v_pool,
-                             nullptr, col, p, scale, out + (size_t)r * D);
+  attend_row<T, T, DP, false>(q + (size_t)r * d, k_pool, nullptr, v_pool,
+                              nullptr, col, p, d, scale, out + (size_t)r * d);
 }
 
 // The quantized reads (rows 12 and 18): attend_row over int8 or fp8
 // storage with the per-column scales; the paged kernel is the contiguous
 // one with only the column's address changed.
-template <typename T, typename S, int D>
+template <typename T, typename S, int DP>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
                          const float* __restrict__ k_s,
                          const S* __restrict__ v_q,
                          const float* __restrict__ v_s,
                          const int* __restrict__ pos, T* __restrict__ out,
-                         int h, int sk, float scale) {
+                         int h, int sk, int d, float scale) {
   const int r = blockIdx.x;  // batch * h + head
   const int p = min(max(pos[r / h], 0), sk - 1);
-  attend_row<T, S, D, true>(q + (size_t)r * D, k_q + (size_t)r * sk * D,
-                            k_s + (size_t)r * sk, v_q + (size_t)r * sk * D,
-                            v_s + (size_t)r * sk, ContiguousCols{}, p, scale,
-                            out + (size_t)r * D);
+  attend_row<T, S, DP, true>(q + (size_t)r * d, k_q + (size_t)r * sk * d,
+                             k_s + (size_t)r * sk, v_q + (size_t)r * sk * d,
+                             v_s + (size_t)r * sk, ContiguousCols{}, p, d,
+                             scale, out + (size_t)r * d);
 }
 
-template <typename T, typename S, int D>
+template <typename T, typename S, int DP>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
                         const float* __restrict__ k_s,
@@ -398,13 +489,13 @@ paged_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
                         const float* __restrict__ v_s,
                         const int* __restrict__ table,
                         const int* __restrict__ pos, T* __restrict__ out,
-                        int h, int P, int mp, float scale) {
+                        int h, int P, int mp, int d, float scale) {
   const int r = blockIdx.x;  // batch * h + head
   const int b = r / h;
   const int p = min(max(pos[b], 0), mp * P - 1);
   const PagedCols col{table + (size_t)b * mp, r - b * h, h, P};
-  attend_row<T, S, D, true>(q + (size_t)r * D, k_q, k_s, v_q, v_s, col, p,
-                            scale, out + (size_t)r * D);
+  attend_row<T, S, DP, true>(q + (size_t)r * d, k_q, k_s, v_q, v_s, col, p,
+                             d, scale, out + (size_t)r * d);
 }
 
 template <typename U>
@@ -428,64 +519,48 @@ cudaError_t launch_write_cols(const void* k_new, const void* v_new,
                               const void* table, int b, int h, int T, int P,
                               int mp, int d, int dtype, int smax, bool clamp,
                               cudaStream_t stream) {
-  int elem;
-  switch (dtype) {
-    case kFloat32: elem = 4; break;
-    case kBFloat16: elem = 2; break;
-    default: return cudaErrorInvalidValue;
-  }
-  const int row_bytes = d * elem;
-  if (row_bytes % 16 == 0)
-    return launch_write_cols_unit<uint4>(k_new, v_new, k_dst, v_dst, pos,
-                                         table, b, h, T, P, mp, row_bytes,
-                                         smax, clamp, stream);
-  if (row_bytes % 4 == 0)
-    return launch_write_cols_unit<uint32_t>(k_new, v_new, k_dst, v_dst, pos,
-                                            table, b, h, T, P, mp,
-                                            row_bytes, smax, clamp, stream);
-  return launch_write_cols_unit<uint16_t>(k_new, v_new, k_dst, v_dst, pos,
-                                          table, b, h, T, P, mp, row_bytes,
-                                          smax, clamp, stream);
+  return with_dtype(dtype, [&](auto tag) {
+    const int row_bytes = d * (int)sizeof(typename decltype(tag)::type);
+    if (row_bytes % 16 == 0)
+      return launch_write_cols_unit<uint4>(k_new, v_new, k_dst, v_dst, pos,
+                                           table, b, h, T, P, mp, row_bytes,
+                                           smax, clamp, stream);
+    if (row_bytes % 4 == 0)
+      return launch_write_cols_unit<uint32_t>(k_new, v_new, k_dst, v_dst,
+                                              pos, table, b, h, T, P, mp,
+                                              row_bytes, smax, clamp,
+                                              stream);
+    return launch_write_cols_unit<uint16_t>(k_new, v_new, k_dst, v_dst, pos,
+                                            table, b, h, T, P, mp, row_bytes,
+                                            smax, clamp, stream);
+  });
 }
 
-template <typename T, int D>
-cudaError_t launch_attn(const void* q, const void* k_cache,
-                        const void* v_cache, const void* pos, void* out,
-                        int b, int h, int S, float scale,
-                        cudaStream_t stream) {
-  decode_attn_kernel<T, D><<<b * h, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), static_cast<const int*>(pos),
-      static_cast<T*>(out), h, S, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_paged_attn(const void* q, const void* k_pool,
-                              const void* v_pool, const void* table,
-                              const void* pos, void* out, int b, int h,
-                              int P, int mp, float scale,
-                              cudaStream_t stream) {
-  paged_attn_kernel<T, D><<<b * h, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(table),
-      static_cast<const int*>(pos), static_cast<T*>(out), h, P, mp, scale);
-  return cudaGetLastError();
-}
-
-template <typename In, typename Q>
-cudaError_t launch_write_quant_t(const void* k_new, const void* v_new,
-                                 void* k_q, void* k_s, void* v_q, void* v_s,
-                                 const void* pos, const void* table, int b,
-                                 int h, int T, int P, int mp, int d, int smax,
-                                 bool clamp, cudaStream_t stream) {
-  const ColumnDst dst{static_cast<const int*>(table), h, P, mp, d};
-  write_columns_quant_kernel<In, Q><<<dim3(b, T), kWriteThreads, 0, stream>>>(
-      static_cast<const In*>(k_new), static_cast<const In*>(v_new),
-      static_cast<Q*>(k_q), static_cast<float*>(k_s), static_cast<Q*>(v_q),
-      static_cast<float*>(v_s), static_cast<const int*>(pos), dst, T, smax,
-      clamp);
-  return cudaGetLastError();
+// the plain reads: table == nullptr is the contiguous cache [b, h, S, d],
+// otherwise the pools [num_pages, h, P, d] under table [b, mp]
+cudaError_t launch_attn(const void* q, const void* k, const void* v,
+                        const void* table, const void* pos, void* out, int b,
+                        int h, int S, int P, int mp, int d, float scale,
+                        int dtype, cudaStream_t stream) {
+  return with_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return with_padded_dim(d, [&](auto dp) {
+      constexpr int DP = decltype(dp)::value;
+      const T* qt = static_cast<const T*>(q);
+      const T* kt = static_cast<const T*>(k);
+      const T* vt = static_cast<const T*>(v);
+      const int* pt = static_cast<const int*>(pos);
+      T* ot = static_cast<T*>(out);
+      if (table == nullptr)
+        decode_attn_kernel<T, DP><<<b * h, kThreads, 0, stream>>>(
+            qt, kt, vt, pt, ot, h, S, d, scale);
+      else
+        paged_attn_kernel<T, DP><<<b * h, kThreads, 0, stream>>>(
+            qt, kt, vt, static_cast<const int*>(table), pt, ot, h, P, mp, d,
+            scale);
+      return cudaGetLastError();
+    });
+  });
 }
 
 // the input rows' dtype times the storage kind
@@ -495,65 +570,55 @@ cudaError_t launch_write_quant(const void* k_new, const void* v_new,
                                int h, int T, int P, int mp, int d, int dtype,
                                int kind, int smax, bool clamp,
                                cudaStream_t stream) {
-#define APEX_WRITE_QUANT(IN, Q)                                             \
-  return launch_write_quant_t<IN, Q>(k_new, v_new, k_q, k_s, v_q, v_s, pos, \
-                                     table, b, h, T, P, mp, d, smax, clamp, \
-                                     stream)
-  if (dtype == kFloat32 && kind == kInt8) APEX_WRITE_QUANT(float, int8_t);
-  if (dtype == kFloat32 && kind == kFp8)
-    APEX_WRITE_QUANT(float, __nv_fp8_e4m3);
-  if (dtype == kBFloat16 && kind == kInt8)
-    APEX_WRITE_QUANT(__nv_bfloat16, int8_t);
-  if (dtype == kBFloat16 && kind == kFp8)
-    APEX_WRITE_QUANT(__nv_bfloat16, __nv_fp8_e4m3);
-#undef APEX_WRITE_QUANT
-  return cudaErrorInvalidValue;
+  return with_dtype(dtype, [&](auto in_tag) {
+    using In = typename decltype(in_tag)::type;
+    return with_kind(kind, [&](auto q_tag) {
+      using Q = typename decltype(q_tag)::type;
+      const ColumnDst dst{static_cast<const int*>(table), h, P, mp, d};
+      write_columns_quant_kernel<In, Q>
+          <<<dim3(b, T), kWriteThreads, 0, stream>>>(
+              static_cast<const In*>(k_new), static_cast<const In*>(v_new),
+              static_cast<Q*>(k_q), static_cast<float*>(k_s),
+              static_cast<Q*>(v_q), static_cast<float*>(v_s),
+              static_cast<const int*>(pos), dst, T, smax, clamp);
+      return cudaGetLastError();
+    });
+  });
 }
 
-template <typename T, typename S>
-cudaError_t launch_attn_quant_t(const void* q, const void* k_q,
-                                const void* k_s, const void* v_q,
-                                const void* v_s, const void* table,
-                                const void* pos, void* out, int b, int h,
-                                int sk, int P, int mp, float scale,
-                                cudaStream_t stream) {
-  constexpr int D = kHeadDim;
-  if (table == nullptr) {
-    decode_attn_quant_kernel<T, S, D><<<b * h, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const S*>(k_q),
-        static_cast<const float*>(k_s), static_cast<const S*>(v_q),
-        static_cast<const float*>(v_s), static_cast<const int*>(pos),
-        static_cast<T*>(out), h, sk, scale);
-  } else {
-    paged_attn_quant_kernel<T, S, D><<<b * h, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const S*>(k_q),
-        static_cast<const float*>(k_s), static_cast<const S*>(v_q),
-        static_cast<const float*>(v_s), static_cast<const int*>(table),
-        static_cast<const int*>(pos), static_cast<T*>(out), h, P, mp, scale);
-  }
-  return cudaGetLastError();
-}
-
-// q's dtype times the storage kind; table == nullptr is the contiguous
-// cache [b, h, sk, d], otherwise the pools under table [b, mp]
+// q's dtype times the storage kind times the padded head width;
+// table == nullptr is the contiguous cache [b, h, sk, d], otherwise the
+// pools under table [b, mp]
 cudaError_t launch_attn_quant(const void* q, const void* k_q, const void* k_s,
                               const void* v_q, const void* v_s,
                               const void* table, const void* pos, void* out,
-                              int b, int h, int sk, int P, int mp,
+                              int b, int h, int sk, int P, int mp, int d,
                               float scale, int dtype, int kind,
                               cudaStream_t stream) {
-#define APEX_ATTN_QUANT(T, S)                                              \
-  return launch_attn_quant_t<T, S>(q, k_q, k_s, v_q, v_s, table, pos, out, \
-                                   b, h, sk, P, mp, scale, stream)
-  if (dtype == kFloat32 && kind == kInt8) APEX_ATTN_QUANT(float, int8_t);
-  if (dtype == kFloat32 && kind == kFp8)
-    APEX_ATTN_QUANT(float, __nv_fp8_e4m3);
-  if (dtype == kBFloat16 && kind == kInt8)
-    APEX_ATTN_QUANT(__nv_bfloat16, int8_t);
-  if (dtype == kBFloat16 && kind == kFp8)
-    APEX_ATTN_QUANT(__nv_bfloat16, __nv_fp8_e4m3);
-#undef APEX_ATTN_QUANT
-  return cudaErrorInvalidValue;
+  return with_dtype(dtype, [&](auto t_tag) {
+    using T = typename decltype(t_tag)::type;
+    return with_kind(kind, [&](auto s_tag) {
+      using S = typename decltype(s_tag)::type;
+      return with_padded_dim(d, [&](auto dp) {
+        constexpr int DP = decltype(dp)::value;
+        const T* qt = static_cast<const T*>(q);
+        const S* kq = static_cast<const S*>(k_q);
+        const S* vq = static_cast<const S*>(v_q);
+        const float* ks = static_cast<const float*>(k_s);
+        const float* vs = static_cast<const float*>(v_s);
+        const int* pt = static_cast<const int*>(pos);
+        T* ot = static_cast<T*>(out);
+        if (table == nullptr)
+          decode_attn_quant_kernel<T, S, DP><<<b * h, kThreads, 0, stream>>>(
+              qt, kq, ks, vq, vs, pt, ot, h, sk, d, scale);
+        else
+          paged_attn_quant_kernel<T, S, DP><<<b * h, kThreads, 0, stream>>>(
+              qt, kq, ks, vq, vs, static_cast<const int*>(table), pt, ot, h,
+              P, mp, d, scale);
+        return cudaGetLastError();
+      });
+    });
+  });
 }
 
 }  // namespace
@@ -613,24 +678,14 @@ extern "C" int apex_tpu_torch_paged_write_columns(
 }
 
 // out [b, h, d] = softmax(scale * q . K[:, :pos+1]) . V[:, :pos+1] per
-// (batch, head) row over caches [b, h, S, d].
+// (batch, head) row over caches [b, h, S, d], 1 <= d <= 128.
 extern "C" int apex_tpu_torch_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, const void* pos,
     void* out, int b, int h, int S, int d, float scale, int dtype,
     void* stream) {
-  if (b <= 0 || h <= 0 || S <= 0 || d != kHeadDim)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_attn<float, kHeadDim>(q, k_cache, v_cache, pos, out, b,
-                                          h, S, scale, st);
-    case kBFloat16:
-      return launch_attn<__nv_bfloat16, kHeadDim>(q, k_cache, v_cache, pos,
-                                                  out, b, h, S, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (b <= 0 || h <= 0 || S <= 0) return cudaErrorInvalidValue;
+  return launch_attn(q, k_cache, v_cache, nullptr, pos, out, b, h, S, 1, 1,
+                     d, scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The same read through row b's table [b, mp] over the pools
@@ -640,25 +695,14 @@ extern "C" int apex_tpu_torch_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* pos, void* out, int b, int h, int P, int mp, int d,
     float scale, int dtype, void* stream) {
-  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0 || d != kHeadDim)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_paged_attn<float, kHeadDim>(q, k_pool, v_pool, table,
-                                                pos, out, b, h, P, mp,
-                                                scale, st);
-    case kBFloat16:
-      return launch_paged_attn<__nv_bfloat16, kHeadDim>(
-          q, k_pool, v_pool, table, pos, out, b, h, P, mp, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0) return cudaErrorInvalidValue;
+  return launch_attn(q, k_pool, v_pool, table, pos, out, b, h, 0, P, mp, d,
+                     scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
 // the quantized cache: data planes int8 or fp8 e4m3 (kind) beside fp32
-// scale planes; the new rows are fp32 or bf16 (dtype)
+// scale planes; the new rows (and q) are fp32, bf16 or fp16 (dtype)
 // ---------------------------------------------------------------------------
 
 // k_q/v_q [b, h, S, d] and k_s/v_s [b, h, S] gain k_new/v_new [b, h, d]
@@ -713,15 +757,14 @@ extern "C" int apex_tpu_torch_paged_write_columns_quant(
 }
 
 // out [b, h, d]: q attends over columns 0..pos[b] of the quantized cache
-// k_q/v_q [b, h, S, d] with scales k_s/v_s [b, h, S].
+// k_q/v_q [b, h, S, d] with scales k_s/v_s [b, h, S], 1 <= d <= 128.
 extern "C" int apex_tpu_torch_decode_attention_quant(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* pos, void* out, int b, int h, int S, int d,
     float scale, int dtype, int kind, void* stream) {
-  if (b <= 0 || h <= 0 || S <= 0 || d != kHeadDim)
-    return cudaErrorInvalidValue;
+  if (b <= 0 || h <= 0 || S <= 0) return cudaErrorInvalidValue;
   return launch_attn_quant(q, k_q, k_s, v_q, v_s, nullptr, pos, out, b, h, S,
-                           1, 1, scale, dtype, kind,
+                           1, 1, d, scale, dtype, kind,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -731,9 +774,8 @@ extern "C" int apex_tpu_torch_paged_attention_quant(
     const void* v_s, const void* table, const void* pos, void* out, int b,
     int h, int P, int mp, int d, float scale, int dtype, int kind,
     void* stream) {
-  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0 || d != kHeadDim)
-    return cudaErrorInvalidValue;
+  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0) return cudaErrorInvalidValue;
   return launch_attn_quant(q, k_q, k_s, v_q, v_s, table, pos, out, b, h, 0, P,
-                           mp, scale, dtype, kind,
+                           mp, d, scale, dtype, kind,
                            static_cast<cudaStream_t>(stream));
 }

@@ -48,11 +48,15 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: ``csrc/flash_bwd_tc.cu``, ``csrc/flash_bwd_dq_tc.cu``): the two 16-bit
 #: types
 TC_DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
+#: the codes the decode kernels take (``csrc/decode_attention.cu``: the
+#: column writes and the reads, plain and quantized): fp32 and both 16-bit
+#: types
+DECODE_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: quantized-KV storage codes of ``csrc/common.cuh`` (enum KvKind)
 KV_KIND_CODES = {"int8": 0, "fp8": 1}
-#: the head width the lane-packed flash and the decode kernels are built
-#: for (``kHeadDim``); the head-major flash kernels take any width up to
-#: ``HM_MAX_HEAD_DIM``
+#: the head width the lane-packed flash kernels are built for
+#: (``kHeadDim``); the head-major flash kernels and the decode reads take
+#: any width up to ``HM_MAX_HEAD_DIM``
 KERNEL_HEAD_DIM = 64
 HM_MAX_HEAD_DIM = 128
 
@@ -361,6 +365,16 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
             f"{name}: dtype {t.dtype} not supported by the kernel "
             f"(float32 or bfloat16)")
     return DTYPE_CODES[t.dtype]
+
+
+def decode_dtype_code(t: torch.Tensor, name: str) -> int:
+    """The decode kernels' code of ``t``'s dtype: float32, bfloat16 or
+    float16."""
+    if t.dtype not in DECODE_DTYPE_CODES:
+        raise TypeError(
+            f"{name}: dtype {t.dtype} not supported by the decode kernel "
+            f"(float32, bfloat16 or float16)")
+    return DECODE_DTYPE_CODES[t.dtype]
 
 
 def tc_dtype_code(t: torch.Tensor, name: str) -> int:

@@ -34,6 +34,8 @@ its own wrapper and launch count:
   read with the scales folded into the scores and the probabilities;
   :func:`decode_attention_quantized` is the write and the read in order.
 
+The kernels take fp32, bf16 or fp16 rows (``_build.DECODE_DTYPE_CODES``)
+and the reads any head width up to ``_build.HM_MAX_HEAD_DIM`` (128).
 Each has a plain PyTorch twin (``*_plain``) that CPU tensors run; CUDA
 tensors launch the kernel or raise. Beside them are the XLA spellings
 the model's materialised-scores path uses (:func:`paged_gather_xla`,
@@ -69,6 +71,16 @@ def _check_geometry(q, k_cache, v_cache, pos):
     return b, h, sk, d
 
 
+def _check_head_dim(d: int, name: str) -> None:
+    """The reads' kernels take any head width from 1 to the head-major
+    flash kernels' cap, ``_build.HM_MAX_HEAD_DIM``; a wider one raises."""
+    if not 1 <= d <= _build.HM_MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name} kernel: head_dim {d} outside [1, "
+            f"{_build.HM_MAX_HEAD_DIM}] (HM_MAX_HEAD_DIM, the decode "
+            f"reads' cap)")
+
+
 def check_positions(pos: torch.Tensor, horizon: int) -> None:
     """Host-side ``0 <= pos < horizon`` check (it synchronises, so it is
     for tests and checks, never the hot path; the kernels themselves
@@ -99,7 +111,7 @@ def write_column(k_new, v_new, k_cache, v_cache, pos) -> None:
     if not _build.on_cuda(k_new, v_new, k_cache, v_cache, pos):
         write_column_plain(k_new, v_new, k_cache, v_cache, pos)
         return
-    code = _build.dtype_code(k_cache, "write_column cache")
+    code = _build.decode_dtype_code(k_cache, "write_column cache")
     dt = k_cache.dtype
     _build.require(k_new, "k_new", (b, h, d), dt)
     _build.require(v_new, "v_new", (b, h, d), dt)
@@ -148,10 +160,8 @@ def attend_cache(q, k_cache, v_cache, pos, *,
     b, h, sk, d = _check_geometry(q, k_cache, v_cache, pos)
     if not _build.on_cuda(q, k_cache, v_cache, pos):
         return attend_cache_plain(q, k_cache, v_cache, pos, scale=scale)
-    code = _build.dtype_code(q, "attend_cache q")
-    if d != _build.KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"attend_cache kernel: head_dim {d} != {_build.KERNEL_HEAD_DIM}")
+    code = _build.decode_dtype_code(q, "attend_cache q")
+    _check_head_dim(d, "attend_cache")
     dt = q.dtype
     _build.require(q, "q", (b, h, d), dt)
     _build.require(k_cache, "k_cache", (b, h, sk, d), dt)
@@ -354,7 +364,7 @@ def cache_write_columns(k_new, v_new, k_cache, v_cache, pos) -> None:
     if not _build.on_cuda(k_new, v_new, k_cache, v_cache, pos):
         cache_write_columns_plain(k_new, v_new, k_cache, v_cache, pos)
         return
-    code = _build.dtype_code(k_cache, "cache_write_columns cache")
+    code = _build.decode_dtype_code(k_cache, "cache_write_columns cache")
     dt = k_cache.dtype
     _build.require(k_new, "k_new", (b, h, t, d), dt)
     _build.require(v_new, "v_new", (b, h, t, d), dt)
@@ -410,7 +420,7 @@ def paged_write_column(k_new, v_new, k_pool, v_pool, table, pos) -> None:
     if not _build.on_cuda(k_new, v_new, k_pool, v_pool, table, pos):
         paged_write_column_plain(k_new, v_new, k_pool, v_pool, table, pos)
         return
-    code = _build.dtype_code(k_pool, "paged_write_column pool")
+    code = _build.decode_dtype_code(k_pool, "paged_write_column pool")
     dt = k_pool.dtype
     _build.require(k_new, "k_new", (b, h, d), dt)
     _build.require(v_new, "v_new", (b, h, d), dt)
@@ -452,7 +462,7 @@ def paged_write_columns(k_new, v_new, k_pool, v_pool, table, pos) -> None:
     if not _build.on_cuda(k_new, v_new, k_pool, v_pool, table, pos):
         paged_write_columns_plain(k_new, v_new, k_pool, v_pool, table, pos)
         return
-    code = _build.dtype_code(k_pool, "paged_write_columns pool")
+    code = _build.decode_dtype_code(k_pool, "paged_write_columns pool")
     dt = k_pool.dtype
     _build.require(k_new, "k_new", (b, h, t, d), dt)
     _build.require(v_new, "v_new", (b, h, t, d), dt)
@@ -501,11 +511,8 @@ def paged_attention(q, k_pool, v_pool, table, pos, *,
     if not _build.on_cuda(q, k_pool, v_pool, table, pos):
         return paged_attention_plain(q, k_pool, v_pool, table, pos,
                                      scale=scale)
-    code = _build.dtype_code(q, "paged_attention q")
-    if d != _build.KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"paged_attention kernel: head_dim {d} != "
-            f"{_build.KERNEL_HEAD_DIM}")
+    code = _build.decode_dtype_code(q, "paged_attention q")
+    _check_head_dim(d, "paged_attention")
     dt = q.dtype
     _build.require(q, "q", (b, h, d), dt)
     _build.require(k_pool, "k_pool", (n, h, p, d), dt)
@@ -653,7 +660,7 @@ def _launch_quant_write(entry: str, counted, k_new, v_new, k_q, k_s, v_q,
     ``dims`` are the geometry ints the C entry takes after the pointers,
     before the input dtype and the storage kind."""
     kind = kv_kind_of(k_q.dtype)
-    code = _build.dtype_code(k_new, f"{entry} new rows")
+    code = _build.decode_dtype_code(k_new, f"{entry} new rows")
     _build.require(k_new, "k_new", tuple(k_new.shape), k_new.dtype)
     _build.require(v_new, "v_new", tuple(k_new.shape), k_new.dtype)
     _build.require(k_q, "k_q", tuple(k_q.shape), k_q.dtype)
@@ -849,10 +856,8 @@ def _launch_quant_read(entry: str, counted, q, k_q, k_s, v_q, v_s, pos,
                        table, dims, scale) -> torch.Tensor:
     """Check the operands of a quantized read and launch ``entry``."""
     kind = kv_kind_of(k_q.dtype)
-    code = _build.dtype_code(q, f"{entry} q")
-    if q.shape[-1] != _build.KERNEL_HEAD_DIM:
-        raise ValueError(f"{entry} kernel: head_dim {q.shape[-1]} != "
-                         f"{_build.KERNEL_HEAD_DIM}")
+    code = _build.decode_dtype_code(q, f"{entry} q")
+    _check_head_dim(q.shape[-1], entry)
     _build.require(q, "q", tuple(q.shape), q.dtype)
     _build.require(k_q, "k_q", tuple(k_q.shape), k_q.dtype)
     _build.require(v_q, "v_q", tuple(k_q.shape), k_q.dtype)

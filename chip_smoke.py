@@ -255,6 +255,34 @@ their own loops, at the GPT-2 355M's widths):
     scale, 1 axpby, 1 l2norm and 1 adagrad launches; then a step with an
     inf gradient, skipped with params and h bit-equal.
 
+The decode reads at every head width run right after phase 19, on the
+same serving model, and Megatron-GPT 2.7B is served right after phase 28
+(the 2.7B step's state freed first):
+
+33. decode reads at any width — ``attend_cache``, ``paged_attention``,
+    ``attend_cache_quant`` and ``paged_attention_quantized`` at head
+    widths 32, 80, 100 and 128 (8 rows of 4 heads, horizon 192, NaN and
+    stale bytes past every position and in the sink) against their plain
+    versions: fp32, bf16 and fp16 caches, int8 and fp8 planes with q in
+    each of the three, within DECODE_TOL, and the paged reads bit-equal
+    to the contiguous ones; the fp16 column writes (plain and quantized)
+    bit-equal to theirs; then each read at the 2.7B's decode shape (b=8,
+    32 heads of 80, horizon 1024, positions 127..1023), held and timed as
+    in phase 3, row 10 beside SDPA;
+34. the 2.7B served — weights in bf16 from seed 0 (5.3 GB); phase 4's
+    cross-check at its width in bf16 and fp16 (``compute_dtype=float16``,
+    the fp16 decode kernels) and phase 20's quantized logits (fp8 held
+    against its own "xla" read: at 32 layers its rounding leaves JAX's
+    KV_TOL); then bench's
+    32-request trace through ``Scheduler(Engine(...))`` contiguous, paged,
+    int8, paged int8 and speculative (``spec_k=3``): every decode step's
+    write and read kernels on every layer, head-major prefill on the
+    tensor cores, paged streams == contiguous and paged int8 == int8, int8
+    and spec streams equal to contiguous up to reference near-ties (phase
+    20's rule); decode tokens/s, TTFT and peak memory per side;
+35. profile — phase 6's window over the 2.7B's contiguous engine: the
+    device's idle share.
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
 events; ``eager_ms`` is the same kernel launched from Python, the
@@ -280,8 +308,11 @@ kernel as ``variant``, with the tensor-core launches as
 CUDA-core kernel's bf16 time on the same inputs as ``prev_ms``, the
 backwards' also the BWD_TC_TOL measurements as ``tol``; the four flash
 rows carry their fp16 entries under ``fp16``, each with the fp32
-route's time on the same inputs as ``prev_ms``); the last line
-is
+route's time on the same inputs as ``prev_ms``; the four decode reads
+carry their entry at the 2.7B's decode shape under ``2p7b``, with its
+launches in phase 34's trace, phase 33's max |out - plain| at each
+width under ``widths`` and, for the quantized reads, fp8 under
+``fp8``); the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
 """
@@ -840,15 +871,18 @@ def model_config():
         attn_impl="flash", ln_impl="xla")
 
 
-def phase_model(cfg, params):
+def phase_model(cfg, params, fp16: bool = False):
     """Prefill 4 right-padded prompts in one bucket-64 forward, then 8
     decode steps at per-row positions, through three paths on the same
     weights and tokens: the kernels (bf16), the materialised-scores
     "xla" forms (bf16) and the "xla" forms in fp32 (the reference). The
     band: the kernel path's error against fp32 may be at most twice the
     bf16 "xla" path's, and the two bf16 paths may differ by at most three
-    times it (the triangle inequality's bound). Returns the bf16 "xla"
-    path's max error, the scale of a bf16 logit error here."""
+    times it (the triangle inequality's bound). With ``fp16`` the kernels
+    and the "xla" forms run in fp16 too (``compute_dtype=float16``, the
+    fp16 decode kernels), held by the same rule against the fp16 "xla"
+    path. Returns the bf16 "xla" path's max error, the scale of a bf16
+    logit error here."""
     import dataclasses
 
     from apex_tpu_torch.models import gpt
@@ -871,6 +905,10 @@ def phase_model(cfg, params):
                                     decode_attn_impl="xla",
                                     compute_dtype=torch.float32),
     }
+    if fp16:
+        for name in ("kernel", "xla"):
+            paths[f"{name}_fp16"] = dataclasses.replace(
+                paths[name], compute_dtype=torch.float16)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for name, c in paths.items():
@@ -901,6 +939,16 @@ def phase_model(cfg, params):
           f"model: kernel path error {err_k} > 2 x xla path error {err_x}")
     check(diff <= 3 * err_x,
           f"model: kernel vs xla {diff} > 3 x xla path error {err_x}")
+    if fp16:
+        err_k16 = max_err(out["kernel_fp16"], out["fp32"])
+        err_x16 = max_err(out["xla_fp16"], out["fp32"])
+        diff16 = max_err(out["kernel_fp16"], out["xla_fp16"])
+        log(f"model fp16: max|kernel-fp32|={err_k16:.4f}, max|xla-fp32|="
+            f"{err_x16:.4f}, max|kernel-xla|={diff16:.4f}")
+        check(err_k16 <= 2 * err_x16, f"model fp16: kernel path error "
+              f"{err_k16} > 2 x xla path error {err_x16}")
+        check(diff16 <= 3 * err_x16, f"model fp16: kernel vs xla {diff16} "
+              f"> 3 x xla path error {err_x16}")
     return err_x
 
 
@@ -1737,11 +1785,15 @@ def _stale_quant(g, kind, shape, stale):
     return q, s
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as the integer type of its element size."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
 def _same_planes(a, b) -> bool:
     """Two lists of planes bit for bit equal (a NaN equals its own bits)."""
-    as_int = lambda t: t.view(torch.uint8 if t.element_size() == 1
-                              else torch.int32)
-    return all(torch.equal(as_int(x), as_int(y)) for x, y in zip(a, b))
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
 
 
 def _planes_err(a, b) -> float:
@@ -1976,6 +2028,303 @@ def phase_quant_kernels():
 
 
 # ---------------------------------------------------------------------------
+# phase 33: the decode reads at every head width up to 128, fp16 included
+# ---------------------------------------------------------------------------
+
+#: the head widths phase 33 holds the reads at: the narrowest padded
+#: width, the 2.7B's 80, one that no vector of 8 divides, and the cap
+DECODE_WIDTHS = (32, 80, 100, 128)
+#: fp16 outputs of kernel vs plain: both sum in fp32 (in another order)
+#: and round once to fp16 (10 bits of mantissa): two fp16 ulps relative,
+#: plus FP32_TOL's atol for the fp32 sums
+F16_TOL = dict(atol=1e-3, rtol=2.0 ** -9)
+#: the tolerance of a read against its plain version, by q's dtype
+DECODE_TOL = {torch.float32: FP32_TOL, torch.bfloat16: BF16_TOL,
+              torch.float16: F16_TOL}
+#: the 2.7B's decode read: 8 slots of 32 heads of 80 over a horizon of
+#: 1024 (its seq_len), pages of PAGE
+D27_B, D27_H, D27_D, D27_S = 8, 32, 80, 1024
+
+
+def _pool_of(plane, table, page: int, n_pages: int):
+    """``plane [b, h, S(, d)]`` laid into a pool of ``n_pages`` pages of
+    ``page`` columns through ``table [b, S / page]``; every cell no row
+    maps (the sink page 0 among them) holds NaN, or a quantized plane's
+    stale byte."""
+    from apex_tpu_torch.kernels.decode_attention import kv_kind_of
+
+    b, h, s = plane.shape[:3]
+    tail = tuple(plane.shape[3:])
+    pool = torch.empty((n_pages, h, page) + tail, dtype=plane.dtype,
+                       device=plane.device)
+    if plane.element_size() == 1:
+        _bits(pool).fill_(STALE_BYTE[kv_kind_of(plane.dtype)])
+    else:
+        pool.fill_(float("nan"))
+    _bits(pool)[table.long()] = _bits(plane).reshape(
+        b, h, s // page, page, *tail).transpose(1, 2)
+    return pool
+
+
+def _hold_read(what: str, out, ref, tol, worst: dict, key) -> None:
+    """A read's output finite and within ``tol`` of its plain version;
+    the error goes into ``worst[key]``."""
+    check(bool(torch.isfinite(out).all()),
+          f"{what}: non-finite output (stale cells leaked)")
+    err = max_err(out, ref)
+    check(close(out, ref, tol), f"{what}: err {err} (tolerance {tol})")
+    worst[key] = max(worst.get(key, 0.0), err)
+
+
+def phase_decode_widths():
+    """Phase 33: the four decode reads (rows 10, 12, 17, 18) at the head
+    widths of DECODE_WIDTHS against their plain versions on the card: the
+    plain reads with fp32, bf16 and fp16 caches, the quantized reads over
+    int8 and fp8 planes with q in each of the three; 8 rows of 4 heads
+    over a horizon of 192 (positions 0, 7, 8, 191 among them), pools of
+    193 pages of 8 (each table a random permutation of pages 1..192),
+    NaN (or the stale byte and a NaN scale) past every row's position, in
+    every unmapped page and in the sink. Each read within DECODE_TOL of
+    its plain version and finite, and the paged read bit-equal to the
+    contiguous read on the same bytes. At each width the fp16 column
+    writes (plain and quantized, one and SPEC_T columns, contiguous and
+    paged) are bit-equal to their plain versions. Then each read at the
+    2.7B's decode shape (b=8, 32 heads of 80, horizon 1024, positions
+    127, 255, ..., 1023; bf16, int8 planes and fp8 beside), held the same
+    way and timed as in phase 3, with its byte bound, and for row 10
+    SDPA. Returns {row name: its d=80 entry}."""
+    from apex_tpu_torch.kernels import (
+        attend_cache,
+        attend_cache_plain,
+        attend_cache_quant,
+        attend_cache_quant_plain,
+        cache_write_columns,
+        cache_write_columns_plain,
+        cache_write_columns_quant,
+        cache_write_columns_quant_plain,
+        paged_attention,
+        paged_attention_plain,
+        paged_attention_quantized,
+        paged_attention_quantized_plain,
+        paged_write_column,
+        paged_write_column_plain,
+        paged_write_column_quant,
+        paged_write_column_quant_plain,
+        paged_write_columns,
+        paged_write_columns_plain,
+        paged_write_columns_quant,
+        paged_write_columns_quant_plain,
+        reset_launch_counts,
+        write_column,
+        write_column_plain,
+        write_column_quant,
+        write_column_quant_plain,
+    )
+
+    dev = torch.device("cuda")
+    f16 = torch.float16
+    dtypes = (torch.float32, torch.bfloat16, f16)
+    B, H, P, S = SLOTS, 4, PAGE, HORIZON
+    MP, N = S // P, SLOTS * (S // P) + 1
+    pos_l = [0, 191, 7, 8, 100, 63, 150, 31]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    stale = (torch.arange(S, device=dev)[None] > pos[:, None].long())[
+        :, None, :].expand(B, H, S)
+    worst = {}
+    clone = lambda ts: [t.clone() for t in ts]
+    for d in DECODE_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(3300 + d)
+        rnd = lambda *shp: torch.randn(*shp, generator=g, device=dev)
+        table = (torch.randperm(N - 1, generator=g, device=dev) + 1).to(
+            torch.int32).view(B, MP)
+        for dt in dtypes:
+            tag = f"d={d} {str(dt)[6:]}"
+            q = rnd(B, H, d).to(dt)
+            kc, vc = (rnd(B, H, S, d).to(dt).masked_fill(
+                stale[..., None], float("nan")) for _ in range(2))
+            kp, vp = (_pool_of(x, table, P, N) for x in (kc, vc))
+            out = attend_cache(q, kc, vc, pos)
+            pout = paged_attention(q, kp, vp, table, pos)
+            torch.cuda.synchronize()
+            _hold_read(f"decode_attention {tag}", out,
+                       attend_cache_plain(q, kc, vc, pos), DECODE_TOL[dt],
+                       worst, ("decode_attention", d, dt))
+            _hold_read(f"paged_attention {tag}", pout,
+                       paged_attention_plain(q, kp, vp, table, pos),
+                       DECODE_TOL[dt], worst, ("paged_attention", d, dt))
+            check(torch.equal(_bits(pout), _bits(out)),
+                  f"paged_attention {tag}: not bit-equal to the contiguous "
+                  f"read on the same bytes")
+            if dt != f16:
+                continue
+            # the fp16 column writes, one column and SPEC_T (lanes past
+            # the horizon clamp), contiguous and paged
+            kn, vn = rnd(B, H, d).half(), rnd(B, H, d).half()
+            knt, vnt = rnd(B, H, SPEC_T, d).half(), rnd(B, H, SPEC_T, d).half()
+            for name, fn, plain, new, dst, tbl in (
+                    ("write_column", write_column, write_column_plain,
+                     (kn, vn), (kc, vc), ()),
+                    ("cache_write_columns", cache_write_columns,
+                     cache_write_columns_plain, (knt, vnt), (kc, vc), ()),
+                    ("paged_write_column", paged_write_column,
+                     paged_write_column_plain, (kn, vn), (kp, vp),
+                     (table,)),
+                    ("paged_write_columns", paged_write_columns,
+                     paged_write_columns_plain, (knt, vnt), (kp, vp),
+                     (table,))):
+                a, b_ = clone(dst), clone(dst)
+                fn(*new, *a, *tbl, pos)
+                plain(*new, *b_, *tbl, pos)
+                torch.cuda.synchronize()
+                check(_same_planes(a, b_), f"{name} {tag}: caches differ "
+                      f"from the plain write (bitwise)")
+        for kind in ("int8", "fp8"):
+            planes = [*_stale_quant(g, kind, (B, H, S, d), stale),
+                      *_stale_quant(g, kind, (B, H, S, d), stale)]
+            pools = [_pool_of(x, table, P, N) for x in planes]
+            for dt in dtypes:
+                tag = f"d={d} {kind} {str(dt)[6:]} q"
+                q = rnd(B, H, d).to(dt)
+                out = attend_cache_quant(q, *planes, pos)
+                pout = paged_attention_quantized(q, *pools, table, pos)
+                torch.cuda.synchronize()
+                _hold_read(f"decode_attention_quant {tag}", out,
+                           attend_cache_quant_plain(q, *planes, pos),
+                           DECODE_TOL[dt], worst,
+                           ("decode_attention_quant", d, kind, dt))
+                _hold_read(f"paged_attention_quant {tag}", pout,
+                           paged_attention_quantized_plain(q, *pools, table,
+                                                           pos),
+                           DECODE_TOL[dt], worst,
+                           ("paged_attention_quant", d, kind, dt))
+                check(torch.equal(_bits(pout), _bits(out)),
+                      f"paged_attention_quant {tag}: not bit-equal to the "
+                      f"contiguous read on the same bytes")
+            # fp16 rows into the four quantized writes
+            kn, vn = rnd(B, H, d).half(), rnd(B, H, d).half()
+            knt, vnt = rnd(B, H, SPEC_T, d).half(), rnd(B, H, SPEC_T, d).half()
+            for name, fn, plain, new, dst, tbl in (
+                    ("write_column_quant", write_column_quant,
+                     write_column_quant_plain, (kn, vn), planes, ()),
+                    ("cache_write_columns_quant", cache_write_columns_quant,
+                     cache_write_columns_quant_plain, (knt, vnt), planes,
+                     ()),
+                    ("paged_write_column_quant", paged_write_column_quant,
+                     paged_write_column_quant_plain, (kn, vn), pools,
+                     (table,)),
+                    ("paged_write_columns_quant", paged_write_columns_quant,
+                     paged_write_columns_quant_plain, (knt, vnt), pools,
+                     (table,))):
+                a, b_ = clone(dst), clone(dst)
+                fn(*new, *a, *tbl, pos)
+                plain(*new, *b_, *tbl, pos)
+                torch.cuda.synchronize()
+                check(_same_planes(a, b_), f"{name} d={d} {kind} fp16 "
+                      f"rows: planes differ from plain (bitwise)")
+    top = {}
+    for k, v in worst.items():
+        top[k[0]] = max(top.get(k[0], 0.0), v)
+    log(f"decode reads at d {DECODE_WIDTHS} (fp32, bf16, fp16; int8 and "
+        f"fp8 planes with q in each): max|out-plain| {json.dumps(top)} "
+        f"(DECODE_TOL by q's dtype); paged reads bit-equal to contiguous; "
+        f"fp16 writes bit-exact")
+
+    # the 2.7B's decode read: hold and time each kernel
+    B2, H2, D2, S2 = D27_B, D27_H, D27_D, D27_S
+    MP2, N2 = S2 // P, D27_B * (S2 // P) + 1
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(3327)
+    pos_l = [(i + 1) * S2 // B2 - 1 for i in range(B2)]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    stale = (torch.arange(S2, device=dev)[None] > pos[:, None].long())[
+        :, None, :].expand(B2, H2, S2)
+    table = (torch.randperm(N2 - 1, generator=g, device=dev) + 1).to(
+        torch.int32).view(B2, MP2)
+    mk = lambda *shp: torch.randn(*shp, generator=g, device=dev, dtype=bf16)
+    q = mk(B2, H2, D2)
+    kc, vc = (mk(B2, H2, S2, D2).masked_fill(stale[..., None], float("nan"))
+              for _ in range(2))
+    kp, vp = (_pool_of(x, table, P, N2) for x in (kc, vc))
+    quant = {kind: [*_stale_quant(g, kind, (B2, H2, S2, D2), stale),
+                    *_stale_quant(g, kind, (B2, H2, S2, D2), stale)]
+             for kind in ("int8", "fp8")}
+    qpools = {kind: [_pool_of(x, table, P, N2) for x in planes]
+              for kind, planes in quant.items()}
+    pl = pos.long()
+    n_cols = int((pl + 1).sum())
+    n_tbl = int(((pl + P) // P).sum())       # table entries the read needs
+    qo = 2 * B2 * H2 * D2 * 2 + B2 * 4       # q in, out out, pos
+    mask = (torch.arange(S2, device=dev)[None] <= pl[:, None])[
+        :, None, None, :]
+    specs = {
+        "decode_attention": (
+            lambda: attend_cache(q, kc, vc, pos),
+            lambda: attend_cache_plain(q, kc, vc, pos),
+            qo + 2 * n_cols * H2 * D2 * 2),
+        "paged_attention": (
+            lambda: paged_attention(q, kp, vp, table, pos),
+            lambda: paged_attention_plain(q, kp, vp, table, pos),
+            qo + 2 * n_cols * H2 * D2 * 2 + 4 * n_tbl),
+    }
+    for kind in ("int8", "fp8"):
+        cq, pq = quant[kind], qpools[kind]
+        rd = 2 * H2 * (D2 + 4)                # a read column, K and V
+        specs[f"decode_attention_quant {kind}"] = (
+            lambda cq=cq: attend_cache_quant(q, *cq, pos),
+            lambda cq=cq: attend_cache_quant_plain(q, *cq, pos),
+            qo + n_cols * rd)
+        specs[f"paged_attention_quant {kind}"] = (
+            lambda pq=pq: paged_attention_quantized(q, *pq, table, pos),
+            lambda pq=pq: paged_attention_quantized_plain(q, *pq, table,
+                                                          pos),
+            qo + n_cols * rd + 4 * n_tbl)
+    rows = {}
+    for key, (fn, plain, n_bytes) in specs.items():
+        name, _, kind = key.partition(" ")
+        out = fn()
+        ref = plain()
+        torch.cuda.synchronize()
+        err = {}
+        _hold_read(f"{key} at the 2.7B's decode shape", out, ref, BF16_TOL,
+                   err, 0)
+        if name.startswith("paged"):
+            contig = specs[key.replace("paged_attention", "decode_attention")]
+            check(torch.equal(_bits(out), _bits(contig[0]())),
+                  f"{key} at the 2.7B's decode shape: not bit-equal to the "
+                  f"contiguous read")
+        bms, by = bound(n_bytes, 4 * n_cols * H2 * D2, FP32_FLOPS_PER_S)
+        r = dict(d=D2, max_abs_err=err[0], ms=time_ms(fn),
+                 eager_ms=eager_ms(fn), plain_ms=time_ms(plain),
+                 bound_ms=bms, bound_by=by,
+                 shape=(f"b={B2} h={H2} S={S2} d={D2}" if "paged" not in name
+                        else f"b={B2} h={H2} P={P} pages={N2} "
+                        f"max_pages={MP2} d={D2}")
+                 + (f" bf16 q, {kind} planes" if kind else " bf16")
+                 + f", pos={pos_l}")
+        r["library_ms"] = (time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask))
+            if name == "decode_attention" else None)
+        if kind == "fp8":
+            rows[name]["fp8"] = r
+            continue
+        # max|out - plain| at each width: "d dtype" or "d kind q-dtype"
+        r["widths"] = {" ".join(str(x).replace("torch.", "")
+                                for x in k[1:]): v
+                       for k, v in worst.items() if k[0] == name}
+        rows[name] = r
+    for name, r in rows.items():
+        log(f"kernel {name} at the 2.7B's decode shape: {r['ms']:.4f} ms "
+            f"(eager {r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+            f"library {r.get('library_ms')} ms, bound {r['bound_ms']:.5f} "
+            f"ms ({r['bound_by']})"
+            + (f"; fp8 {r['fp8']['ms']:.4f} ms, plain "
+               f"{r['fp8']['plain_ms']:.4f}" if "fp8" in r else "")
+            + f" at {r['shape']}")
+    reset_launch_counts()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 20: the quantized cache in serving — bench's KV-cache A/B #1 and the
 # paged and speculative paths over int8
 # ---------------------------------------------------------------------------
@@ -2002,12 +2351,18 @@ def kv_ab_config(**over):
                            **over})
 
 
-def phase_quant_logits(cfg, params):
+def phase_quant_logits(cfg, params, beside_xla=()):
     """Phase 4's prompts and decode steps through the kernels at full
     width with the compute cache, the int8 cache and the fp8 cache, in
     fp32 compute (as JAX's oracle: the band is the quantization's, not
     bf16's rounding): every quantized logit within KV_TOL of the compute
-    cache's. Returns each kind's max |quantized - compute|."""
+    cache's. The kinds in ``beside_xla`` also run through the "xla" read
+    of the same cache (dequantized, then the materialised scores) and are
+    held by phase 4's rule instead: the kernel path's error against the
+    compute cache at most twice the "xla" path's. KV_TOL is JAX's band
+    for its own 2-layer oracle model; it is the cache's rounding, which a
+    deeper model carries further (phase 34 holds the 2.7B's fp8 so).
+    Returns each kind's max |quantized - compute| through the kernels."""
     import dataclasses
 
     from apex_tpu_torch.models import gpt
@@ -2024,8 +2379,11 @@ def phase_quant_logits(cfg, params):
                                compute_dtype=torch.float32)
     p = gpt.cast_params(base, params)
     out = {}
-    for kind in ("compute", "int8", "fp8"):
-        c = dataclasses.replace(base, kv_cache_dtype=kind)
+    runs = [(kind, "kernel") for kind in ("compute", "int8", "fp8")]
+    runs += [(kind, "xla") for kind in beside_xla]
+    for kind, impl in runs:
+        c = dataclasses.replace(base, kv_cache_dtype=kind,
+                                decode_attn_impl=impl)
         cache, lg = gpt.prefill_many(
             c, p, torch.as_tensor(prompts, device=dev),
             torch.as_tensor(lens, device=dev) - 1, max_len=80)
@@ -2035,7 +2393,7 @@ def phase_quant_logits(cfg, params):
             lg, cache = gpt.decode_step(
                 c, p, cache, torch.as_tensor(steps[j], device=dev), pos + j)
             got.append(lg)
-        out[kind] = torch.stack(got)
+        out[kind if impl == "kernel" else f"{kind}_xla"] = torch.stack(got)
         del cache
     torch.cuda.synchronize()
     errs = {}
@@ -2047,6 +2405,15 @@ def phase_quant_logits(cfg, params):
             f"max|{kind} - compute cache|={errs[kind]:.4f} (band rtol=atol="
             f"{KV_TOL[kind]['rtol']}), logit std "
             f"{float(out['compute'].std()):.3f}")
+        if kind in beside_xla:
+            err_x = max_err(out[f"{kind}_xla"], out["compute"])
+            log(f"quant logits {kind}: through the xla read "
+                f"max|{kind} - compute cache|={err_x:.4f}, max|kernel - "
+                f"xla|={max_err(out[kind], out[kind + '_xla']):.4f}")
+            check(errs[kind] <= 2 * err_x,
+                  f"quant logits {kind}: kernel path error {errs[kind]} > "
+                  f"2 x xla path error {err_x}")
+            continue
         check(close(out[kind], out["compute"], KV_TOL[kind]),
               f"quant logits {kind}: off the compute cache by "
               f"{errs[kind]} (band {KV_TOL[kind]})")
@@ -4795,6 +5162,166 @@ def phase_2p7b_train():
     return fused, split
 
 
+# ---------------------------------------------------------------------------
+# phase 34: serve Megatron-GPT 2.7B (32 heads of 80) through Engine and
+# Scheduler
+# ---------------------------------------------------------------------------
+
+#: the decode kernels each side of phase 34 runs: (column write, read)
+SERVE_2P7B_KERNELS = {
+    "contiguous": ("decode_write_column", "decode_attention"),
+    "paged": ("paged_write_column", "paged_attention"),
+    "int8": ("decode_write_column_quant", "decode_attention_quant"),
+    "paged int8": ("paged_write_column_quant", "paged_attention_quant"),
+    "spec": ("decode_write_column", "decode_attention"),
+}
+
+
+def serve_2p7b_config(**over):
+    """The 2.7B (``apex_tpu_torch.examples.gpt_train``'s ``2p7b`` preset:
+    vocab 50304, hidden 2560, 32 layers of 32 heads of 80, seq 1024) in
+    its decode form, as :func:`model_config` is the 355M's: bf16 weights
+    (5.3 GB) and compute, flash prefill (the head-major kernels)."""
+    from apex_tpu_torch.examples import gpt_train
+    from apex_tpu_torch.models import gpt
+
+    return gpt.GPTConfig(**{**gpt_train.PRESETS["2p7b"], **dict(
+        remat=False, compute_dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16, attn_impl="flash", ln_impl="xla"),
+        **over})
+
+
+def phase_2p7b_serve():
+    """Phase 34: the 2.7B on weights from seed 0. Phase 4's cross-check
+    at its width (bf16 and fp16 through the kernels against the "xla"
+    forms and fp32) and phase 20's quantized logits (fp32: int8 within
+    KV_TOL of the compute cache, fp8 within twice its own "xla" read's
+    error, see :func:`phase_quant_logits`). Then bench's 32-request trace
+    through ``Scheduler(Engine(...))`` (8 slots, prompts <= 64, horizon
+    192, 64 tokens each) five ways: contiguous bf16, paged (pages of 8),
+    int8, paged int8 and speculative (``spec_k=3``, chunks of 4, under
+    the scheduler's gate). Launch counts zeroed just before each run and
+    read just after: per decode step every layer runs the side's column
+    write and read and no other decode read, every prefill the head-major
+    flash forward on the tensor cores, and every verify wave the
+    multi-column write. Streams: contiguous within phase 4's band of a
+    teacher-forced forward; paged identical to contiguous, paged int8 to
+    int8; int8 and spec identical to contiguous or first diverging where
+    the reference's top-2 gap is within the band (int8: plus twice its
+    logit error), as phase 20 holds them. Decode tokens/s, TTFT and peak
+    memory per side, and phase 6's profiler window over the contiguous
+    engine (phase 35). Returns (metrics, launch counts per side)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.serving import EngineConfig
+
+    cfg = serve_2p7b_config()
+    params = gpt.init(cfg, torch.Generator("cuda").manual_seed(0))
+    t = time.perf_counter()
+    band = 3 * phase_model(cfg, params, fp16=True)
+    quant_err = phase_quant_logits(cfg, params, beside_xla=("fp8",))
+    log(f"2.7B model and quantized logits {time.perf_counter() - t:.1f}s")
+    L = cfg.num_layers
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    ecfg = EngineConfig(slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON)
+    paged = dataclasses.replace(ecfg, page_size=PAGE)
+    sides = {"contiguous": (cfg, ecfg), "paged": (cfg, paged),
+             "int8": (int8, ecfg), "paged int8": (int8, paged),
+             "spec": (cfg, dataclasses.replace(ecfg, decode_chunk=4,
+                                               spec_k=SPEC_K))}
+    reads = ("decode_attention", "paged_attention", "decode_attention_quant",
+             "paged_attention_quant")
+    reqs = bench_trace(cfg.vocab_size)
+    streams, comps, out, launches = {}, {}, {}, {}
+    for name, (c, e) in sides.items():
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        engine, sched, wall, counts = serve_timed(c, params, e,
+                                                  bench_trace(cfg.vocab_size))
+        peak = torch.cuda.max_memory_allocated()
+        s = sched.summary()
+        what = f"2.7B {name}"
+        check(len(sched.completions) == len(reqs),
+              f"{what}: not every request completed")
+        for r in reqs:
+            comp = sched.completions[r.request_id]
+            check(len(comp.tokens) == r.max_tokens
+                  or comp.finish_reason == "eos",
+                  f"{what}: {r.request_id} emitted {len(comp.tokens)} tokens")
+            check(all(0 <= x < cfg.vocab_size for x in comp.tokens),
+                  f"{what}: {r.request_id} emitted a token outside the vocab")
+        write, read = SERVE_2P7B_KERNELS[name]
+        steps = engine.decode_steps_taken
+        check(counts[read] == counts[write] == L * steps
+              and (steps > 0 or name == "spec"),
+              f"{what}: {write} / {read} launched {counts[write]} / "
+              f"{counts[read]} times, expected {L} x {steps} steps")
+        others = {n: counts[n] for n in reads if n != read and counts[n]}
+        check(not others, f"{what}: other decode reads ran: {others}")
+        check(counts["flash_attention"] == L * engine.admit_groups > 0
+              and counts["flash_attention_bsh"] == 0,
+              f"{what}: head-major prefill launched "
+              f"{counts['flash_attention']} times, expected {L} x "
+              f"{engine.admit_groups} groups (lane-packed "
+              f"{counts['flash_attention_bsh']})")
+        check_tc(what, counts, "flash_attention")
+        row = dict(wall_s=wall, peak_memory_bytes=peak, decode_steps=steps,
+                   admit_groups=engine.admit_groups,
+                   launches={k: counts[k] for k in (write, read)},
+                   **{k: s[k] for k in (
+                       "tokens_per_sec", "decode_tokens_per_sec",
+                       "ttft_mean_ms", "ttft_p99_ms", "tokens_emitted")})
+        if name == "spec":
+            waves = engine.spec_waves_taken
+            check(counts["cache_write_columns"] == L * waves > 0,
+                  f"{what}: cache_write_columns launched "
+                  f"{counts['cache_write_columns']} times, expected {L} x "
+                  f"{waves} verify waves")
+            row.update(verify_waves=waves, **{k: s[k] for k in (
+                "spec_tokens_per_wave", "spec_accept_rate",
+                "spec_gate_state")})
+            row["launches"]["cache_write_columns"] = counts[
+                "cache_write_columns"]
+        if name == "contiguous":
+            prof = phase_profile(cfg, engine)
+            row["device_idle_share"] = (prof or {}).get("device_idle_share")
+        log(f"{what}: " + json.dumps(row))
+        out[name], launches[name] = row, counts
+        streams[name] = {r: c_.tokens for r, c_ in sched.completions.items()}
+        comps[name] = sched.completions
+        del engine, sched
+
+    held = hold_streams(cfg, params, reqs, comps["contiguous"])
+    check(max(held) <= band, f"2.7B contiguous: streams off the reference "
+          f"by {held} (band {band})")
+    for name, base in (("paged", "contiguous"), ("paged int8", "int8")):
+        drift = [r for r in streams[base]
+                 if streams[name].get(r) != streams[base][r]]
+        check(not drift, f"2.7B {name}: streams differ from {base} for "
+              f"{drift}")
+    out["streams"] = dict(contiguous_vs_reference=held, band=band)
+    for name, lim in (("int8", band + 2 * quant_err["int8"]),
+                      ("spec", band)):
+        gaps = _drift_gaps(cfg, params, reqs, streams[name],
+                           streams["contiguous"])
+        h = hold_streams(cfg, params, reqs, comps[name])
+        out["streams"][name] = dict(
+            drift=len(gaps), first_divergence_gaps=gaps, band=lim,
+            max_logprob_err=h[0], greedy_gap=h[1])
+        check(all(g <= lim for _, _, g in gaps),
+              f"2.7B {name}: a stream leaves the contiguous one at a gap "
+              f"above {lim}: {gaps}")
+        check(max(h) <= lim, f"2.7B {name}: streams off the reference by "
+              f"{h} (band {lim})")
+    log("2.7B streams: paged == contiguous and paged int8 == int8 (32 "
+        "each); " + json.dumps(out["streams"]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def phase_bhsd_355m(tcfg, tok, tgt, tree):
     """Phase 27's 355M comparison: phase 9's tree-layout step with
     ``attn_layout="bhsd"`` (the head-major kernels), one warm-up and 3
@@ -5498,6 +6025,9 @@ def main() -> int:
         quant_rows = phase_quant_kernels()
         log(f"quant kernels phase {time.perf_counter() - t:.1f}s")
         t = time.perf_counter()
+        width_rows = phase_decode_widths()
+        log(f"decode widths phase {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
         quant_err = phase_quant_logits(cfg, params)
         quant_launches, _ = phase_quant_serving(cfg, params, band,
                                                 quant_err)
@@ -5623,6 +6153,12 @@ def main() -> int:
         t = time.perf_counter()
         fused_2p7b, split_2p7b = phase_2p7b_train()
         log(f"2.7B train and profile phases {time.perf_counter() - t:.1f}s")
+        # serve the 2.7B once its training state is freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        serve_2p7b, serve_2p7b_counts = phase_2p7b_serve()
+        log(f"2.7B serving phases {time.perf_counter() - t:.1f}s")
         t = time.perf_counter()
         phase_bhsd_355m(tcfg, tok, tgt, tree)
         log(f"355M bhsd phase {time.perf_counter() - t:.1f}s")
@@ -5671,6 +6207,14 @@ def main() -> int:
     for r in quant_rows.values():
         r["launches"] = quant_launches[r["name"]]
     rows.update(quant_rows)
+    # the four reads at the 2.7B's decode shape, with their launches in
+    # its serving trace (paged int8 for row 18)
+    for name, side in (("decode_attention", "contiguous"),
+                       ("paged_attention", "paged"),
+                       ("decode_attention_quant", "int8"),
+                       ("paged_attention_quant", "paged int8")):
+        rows[name]["2p7b"] = dict(width_rows[name],
+                                  launches=serve_2p7b_counts[side][name])
     for r in train_rows.values():
         r["launches"] = flat["launches"][r["name"]]
     train_rows["flash_attention_bsh_bwd"]["launches_tc"] = flat["launches"][
