@@ -27,9 +27,13 @@
 // head) row, q plus the K and V rows of columns 0..pos[b]: at GPT
 // 355M's serving shapes (b 8, h 16, horizon 192, d 64, bf16) at most
 // ~6 MB per layer, at the 2.7B's (h 32, d 80, horizon 1024) ~84 MB,
-// against 4 x d flops per column and head. At the small size the
-// launch latency and one block's serial sweep, not bandwidth, set the
-// time.
+// against 4 x d flops per column and head: about one flop a byte, far
+// under the ~295 flops a byte at which Hopper's tensor cores, not its
+// memory, would be the limit. So the reads (rows 10 and 17) keep their
+// math in fp32 on the CUDA cores: every config of the repo is
+// multi-head with one query row per (batch, head), no group of query
+// heads shares a K row, and an mma.sync would waste 15 of its 16 rows.
+// What a read has to do is keep enough bytes in flight on every SM.
 //
 // What the design does about it:
 // - All four writes are one kernel (write_columns_kernel), one launch
@@ -46,20 +50,46 @@
 //   wins; here the blocks run in parallel, so only the row's last lane
 //   writes the clamped column and the result is the same, every run.
 //   The one-column writes never write outside the row's horizon.
-// - The read is one block per (batch, head) row; its 4 warps split the
-//   horizon into 32-column chunks (chunk c goes to warp c % 4). In a
-//   chunk every lane scores one column (its K row by 16-byte vector
-//   loads where the row's bytes allow, else element by element; q from
-//   shared memory) and the warp folds the chunk into an fp32 online
-//   softmax (m, l, acc), loading the chunk's V rows kVAhead at a time
-//   before summing them, in column order. The warps then merge their
-//   (m, l, acc) in shared memory in warp order, so no second kernel is
-//   needed. The contiguous and the paged read are ONE sweep (attend_row)
-//   that differs only in where column c lives: the same bytes in the
-//   same order give the same bits, so paged decode equals contiguous
-//   decode bit for bit.
+// - The plain reads (rows 10 and 17) split each (batch, head) row's
+//   horizon over a thread-block cluster (decode_read_split_kernel). The
+//   Pallas kernels walk the horizon as a sequential grid axis with
+//   (m, l, acc) carried in VMEM; here split s of n covers logical
+//   columns [s L, (s + 1) L), with L a multiple of 32 and n <= 8 taken
+//   from the horizon and d alone on the host (the wrappers'
+//   read_splits), never from pos, so nothing waits on the host. At the
+//   2.7B's decode shape that is 8 splits of 128 columns: 2048 blocks
+//   where one block a row gave 256 for 132 SMs. A split that starts
+//   past pos[b] exits at once (a cluster's barriers wait only for
+//   threads that have not exited), so it holds no SM slot.
+// - Each block stages its split's K and V rows in shared memory with
+//   16-byte cp.async copies, neighbouring threads on neighbouring
+//   addresses, one address for both planes (the contiguous split is one
+//   run; the paged one a run a page, the block reading its page numbers
+//   from the row's table first), through a ring of kReadRing sub-tiles
+//   of kSubCols columns: the next sub-tile's copies are in flight while
+//   the current one is scored and summed. A deeper ring measured slower
+//   (its shared memory leaves fewer blocks on an SM). Rows whose bytes
+//   no 16 divides (bf16 at d = 100) copy in 8-, 4- or 2-byte units, a
+//   block-uniform choice.
+// - Inside a block each warp owns 8 columns of a sub-tile: four lanes
+//   score a column (q from shared memory, K by 16-byte vectors where
+//   rows allow) and add their parts in a fixed order; the warp keeps an
+//   fp32 online softmax (m, l, acc) with lanes over d for P.V, V read
+//   from shared memory by consecutive lanes. The warps then merge in
+//   warp order, and each live split pushes its (m, l, acc) into slot s
+//   of the split-0 block's shared memory (distributed shared memory),
+//   arrives on an mbarrier there and exits; the split-0 block waits on
+//   it, then merges the slots in split order, scales each by exp(m_s -
+//   m) and writes out, rounded once, l floored at 1e-30: one launch, no
+//   workspace, no atomics, the same bits every launch. The one cluster
+//   barrier (arrived at the start, waited on before the push) only
+//   makes sure the split-0 block has started and set its mbarrier up.
+// - The contiguous and the paged read are ONE kernel that differs only
+//   in where column c's row is copied from: the same bytes land in the
+//   same shared-memory cells and are summed in the same order, so paged
+//   decode equals contiguous decode bit for bit at the same horizon.
 // - Any head width d from 1 to kMaxHeadDim (128, the head-major flash
-//   kernels' cap): the sweep is built for the padded width DP, d rounded
+//   kernels' cap): the reads are built for the padded width DP, d rounded
 //   up to 32, 64, 96 or 128, and lane t of a warp owns dims t + 32 i
 //   (i < DP / 32) of the P.V accumulator. Rows are d elements apart in
 //   memory (the real d, at run time); q's padded dims are zeros in
@@ -67,9 +97,8 @@
 //   stored, and the score's dot product runs over the d real dims only.
 // - fp32, bf16 and fp16 rows, each widened to fp32 in registers (the
 //   wrappers pass fp16 as it is).
-// - Columns past pos[b] are never read: chunks past pos are skipped
-//   (the j*bk <= pos skip of _attn_kernel), and inside the last chunk
-//   only columns <= pos enter the score and the P.V product. Stale
+// - Columns past pos[b] are never read: splits and sub-tiles end at
+//   pos, and only columns <= pos are copied, scored and summed. Stale
 //   bytes past pos (what a retired request or an uninitialised buffer
 //   left, NaN included; a recycled page; the sink page) therefore
 //   contribute exact zeros, which is what decode_attention.py:297-301
@@ -79,11 +108,17 @@
 //   and clamp; each warp quantizes whole head rows in registers (absmax
 //   by a warp reduction, then the one quantizer, KvQuant) and stores a
 //   byte a value and one fp32 scale a row, so a write moves ~1/2 (bf16
-//   in) of the bytes it would store unquantized. The quantized reads are
-//   attend_row with a dequantizing load: a column's int8 or fp8 row
-//   widens to fp32 in registers and its two scales fold into the score
-//   and the probability, so the sweep reads ~(d + 4) / (2 d) of the
-//   bf16 cache's bytes.
+//   in) of the bytes it would store unquantized.
+// - The quantized reads (rows 12 and 18) are still one block a (batch,
+//   head) row (attend_row): its 4 warps take 32-column chunks of the
+//   horizon in turn, each lane scoring one column, V rows loaded
+//   kVAhead ahead of their sums, the warps merged in warp order. A
+//   column's int8 or fp8 row widens to fp32 in registers and its two
+//   scales fold into the score and the probability, so the sweep reads
+//   ~(d + 4) / (2 d) of the bf16 cache's bytes. The split read's
+//   staging takes the storage type apart from q's, so a dequantizing
+//   load with the scale planes staged beside can move them onto it.
+#include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
@@ -116,9 +151,19 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 // the widest head the reads take (_build.HM_MAX_HEAD_DIM)
 constexpr int kMaxHeadDim = 128;
-// V rows a warp of the read loads ahead of summing them: the loads'
-// latencies overlap instead of adding up column by column
+// V rows a warp of the quantized reads loads ahead of summing them: the
+// loads' latencies overlap instead of adding up column by column
 constexpr int kVAhead = 8;
+// The split read: a block of kSplitWarps warps a (row, split); a
+// sub-tile of kSubCols columns (kColsPerWarp a warp), kReadRing of them
+// staged in shared memory at once; at most kMaxSplits splits a row (the
+// largest portable cluster; _build.READ_MAX_SPLITS)
+constexpr int kSplitWarps = 4;
+constexpr int kSplitThreads = kSplitWarps * 32;
+constexpr int kSubCols = 32;
+constexpr int kColsPerWarp = kSubCols / kSplitWarps;
+constexpr int kReadRing = 2;
+constexpr int kMaxSplits = 8;
 
 // A type as a value, for the dispatchers below
 template <typename T> struct Tag {
@@ -304,16 +349,15 @@ struct PagedCols {
   }
 };
 
-// THE split-horizon sweep of one (batch, head) row: q [d] attends over
-// columns 0..p; column c's K and V rows are at kb + col(c) * d and
-// vb + col(c) * d, in the storage type S. DP is d rounded up to a
-// multiple of 32: lane t of a warp owns dims t + 32 i of the P.V
-// accumulator, those at or past d idle. With kQuant, S is int8 or fp8
-// and column c's fp32 scales are ksb[col(c)] and vsb[col(c)]: the K
-// scale folds into the score, (q . k_int) * s_k * scale, and the V scale
-// into the probability, (p * s_v) . v_int, as _attn_kernel_quant does. A
-// column past p is never loaded, its scales included.
-template <typename T, typename S, int DP, bool kQuant, typename Cols>
+// The quantized reads' sweep of one (batch, head) row: q [d] attends
+// over columns 0..p; column c's int8 or fp8 K and V rows are at kb +
+// col(c) * d and vb + col(c) * d, its fp32 scales at ksb[col(c)] and
+// vsb[col(c)]. DP is d rounded up to a multiple of 32: lane t of a warp
+// owns dims t + 32 i of the P.V accumulator, those at or past d idle.
+// The K scale folds into the score, (q . k_int) * s_k * scale, and the V
+// scale into the probability, (p * s_v) . v_int, as _attn_kernel_quant
+// does. A column past p is never loaded, its scales included.
+template <typename T, typename S, int DP, typename Cols>
 __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
                                            const S* __restrict__ kb,
                                            const float* __restrict__ ksb,
@@ -368,14 +412,14 @@ __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
       } else {
         for (int e = 0; e < d; ++e) dot += qs[e] * to_float<S>(krow[e]);
       }
-      s = kQuant ? dot * ksb[cell] * scale : dot * scale;
+      s = dot * ksb[cell] * scale;
     }
     const float m_new = fmaxf(m, warp_max(s));
     const float corr = expf(m - m_new);
     const float prob = valid ? expf(s - m_new) : 0.f;
     l = corr * l + warp_sum(prob);
     // the weight of this lane's V row: the probability, times its scale
-    const float pv = (kQuant && valid) ? prob * vsb[cell] : prob;
+    const float pv = valid ? prob * vsb[cell] : prob;
 #pragma unroll
     for (int t = 0; t < DPL; ++t) acc[t] *= corr;
     const int jn = min(32, p - c * 32 + 1);  // columns <= p in this chunk
@@ -433,33 +477,349 @@ __device__ __forceinline__ void attend_row(const T* __restrict__ qr,
   }
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                   const T* __restrict__ v_cache,
-                   const int* __restrict__ pos, T* __restrict__ out, int h,
-                   int S, int d, float scale) {
-  const int r = blockIdx.x;  // batch * h + head
-  const int p = min(max(pos[r / h], 0), S - 1);
-  attend_row<T, T, DP, false>(q + (size_t)r * d, k_cache + (size_t)r * S * d,
-                              nullptr, v_cache + (size_t)r * S * d, nullptr,
-                              ContiguousCols{}, p, d, scale,
-                              out + (size_t)r * d);
+// global -> shared copies of N bytes: cp.async for 16 (.cg, around L1),
+// 8 and 4 (.ca); two bytes by a plain load and store
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                  const T* __restrict__ v_pool,
-                  const int* __restrict__ table, const int* __restrict__ pos,
-                  T* __restrict__ out, int h, int P, int mp, int d,
-                  float scale) {
-  const int r = blockIdx.x;  // batch * h + head
+template <int N>
+__device__ __forceinline__ void copy_unit(char* dst, const char* src) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+  } else if constexpr (N == 8 || N == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(N)
+                 : "memory");
+  } else {
+    *reinterpret_cast<uint16_t*>(dst) =
+        *reinterpret_cast<const uint16_t*>(src);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The cluster's synchronisation: its barrier split into arrive and wait
+// (every thread of every block that has not exited), and an mbarrier in
+// one block's shared memory that the other blocks' threads arrive on
+// remotely, each releasing its own earlier writes at cluster scope.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], %1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)),
+      "r"(count)
+      : "memory");
+}
+
+// arrive on `bar` (an address in this block's shared memory) as it lies
+// in the shared memory of cluster block `rank`
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n\t}\n" ::
+          "r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// wait until phase 0 of `bar` completes, acquiring what the arrivals
+// released
+__device__ __forceinline__ void mbar_wait_phase0(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "0;\n\t"
+      "@!done bra WAIT;\n\t}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// Stage the K and V rows of columns [c, c + nc) of one (batch, head) row
+// into the dense tiles ks and vs (rows of row_bytes), in N-byte units,
+// one address for both planes. The contiguous cache holds them as one
+// run from cell row0 + c, which the block copies with neighbouring
+// threads on neighbouring units ...
+template <int N>
+__device__ __forceinline__ void stage_run(char* ks, char* vs,
+                                          const char* kb, const char* vb,
+                                          size_t row0, int c, int nc,
+                                          int row_bytes) {
+  const size_t src = (row0 + c) * row_bytes;
+  const int n = nc * row_bytes / N;
+  for (int i = threadIdx.x; i < n; i += kSplitThreads) {
+    copy_unit<N>(ks + i * N, kb + src + (size_t)i * N);
+    copy_unit<N>(vs + i * N, vb + src + (size_t)i * N);
+  }
+}
+
+// ... and the paged pool [num_pages, h, P, d] holds them as one run a
+// page (numbers from `pages`, the split's table entries from page0 on, in
+// shared memory): the block's threads form 1, 2 or 4 groups by how many
+// pages the columns touch, group g copies the runs of pages g, g +
+// groups, ..., its threads on neighbouring units.
+template <int N>
+__device__ __forceinline__ void stage_pages(char* ks, char* vs,
+                                            const char* kb, const char* vb,
+                                            const int* pages, int page0,
+                                            int head, int h, int P, int c,
+                                            int nc, int row_bytes) {
+  const int first = c / P;
+  const int last = (c + nc - 1) / P;
+  const int groups = last - first >= 3 ? 4 : last > first ? 2 : 1;
+  const int size = kSplitThreads / groups;
+  const int g = threadIdx.x / size;
+  for (int pg = first + g; pg <= last; pg += groups) {
+    const int lo = max(c, pg * P);
+    const int hi = min(c + nc, (pg + 1) * P);
+    const size_t src =
+        (((size_t)pages[pg - page0] * h + head) * P + (lo - pg * P)) *
+        row_bytes;
+    const int dst = (lo - c) * row_bytes;
+    const int n = (hi - lo) * row_bytes / N;
+    for (int i = threadIdx.x - g * size; i < n; i += size) {
+      copy_unit<N>(ks + dst + i * N, kb + src + (size_t)i * N);
+      copy_unit<N>(vs + dst + i * N, vb + src + (size_t)i * N);
+    }
+  }
+}
+
+// f(std::integral_constant<int, N>{}) for a copy unit of N = 16, 8, 4 or
+// 2 bytes
+template <typename F>
+__device__ __forceinline__ void with_unit(int unit, F&& f) {
+  switch (unit) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    default: return f(std::integral_constant<int, 2>{});
+  }
+}
+
+// The plain reads (rows 10 and 17): out [b, h, d] = softmax(scale * q .
+// K[:, :pos+1]) . V[:, :pos+1] per (batch, head) row, over the contiguous
+// cache (kPaged false: k/v [b, h, horizon, d]) or the pools (kPaged: k/v
+// [num_pages, h, P, d] under table [b, mp], horizon mp * P). The grid is
+// n_splits blocks a row, each row's blocks one cluster; block rank s
+// reads columns [s * split_cols, (s + 1) * split_cols) up to pos. Rows
+// are S in memory and in shared memory (the staged storage type, T for
+// these reads; a dequantizing read would stage int8 or fp8 rows and
+// their scales). The dynamic shared memory holds the ring, kReadRing x
+// (K, V) x kSubCols rows of d x sizeof(S) bytes, then (kPaged) the
+// split's page numbers.
+template <typename T, typename S, int DP, bool kPaged>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
+                         const S* __restrict__ v,
+                         const int* __restrict__ table,
+                         const int* __restrict__ pos, T* __restrict__ out,
+                         int h, int horizon, int P, int mp, int d,
+                         float scale, int split_cols, int n_splits,
+                         int unit) {
+  static_assert(DP % 32 == 0 && DP <= kMaxHeadDim, "padded head width");
+  static_assert(DP <= kSplitThreads, "a thread a dim in the merges");
+  constexpr int DPL = DP / 32;
+  constexpr int VEC = Vec<S>::N;
+  namespace cg = cooperative_groups;
+  extern __shared__ uint4 dyn_smem[];
+  __shared__ float qs[DP];
+  __shared__ float wm[kSplitWarps], wl[kSplitWarps];
+  __shared__ float wacc[kSplitWarps][DP];
+  // in the split-0 block: every live split's (m, l, acc), pushed there
+  // by its block, and the mbarrier its pushes arrive on
+  __shared__ float pm[kMaxSplits], pl[kMaxSplits];
+  __shared__ float pacc[kMaxSplits][DP];
+  __shared__ uint64_t pushed;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int s = (int)cluster.block_rank();
+  const int r = blockIdx.x / n_splits;  // batch * h + head
   const int b = r / h;
-  const int p = min(max(pos[b], 0), mp * P - 1);
-  const PagedCols col{table + (size_t)b * mp, r - b * h, h, P};
-  attend_row<T, T, DP, false>(q + (size_t)r * d, k_pool, nullptr, v_pool,
-                              nullptr, col, p, d, scale, out + (size_t)r * d);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int p = min(max(pos[b], 0), horizon - 1);
+  const int c0 = s * split_cols;
+  // a split that starts past pos has nothing to read or merge: it exits
+  // at once, so it holds no SM slot while its cluster sweeps (the
+  // cluster's barrier waits only for threads that have not exited, and
+  // the merge counts live splits alone)
+  if (c0 > p) return;
+  const int c1 = min(c0 + split_cols, p + 1);  // past the split's last <= p
+  // the split-0 block expects every thread of the other live splits'
+  // blocks; the cluster barrier's arrival here and its wait before the
+  // push make sure it has started and set its mbarrier up first
+  const int n_live = p / split_cols + 1;
+  if (s == 0 && tid == 0 && n_live > 1)
+    mbar_init(&pushed, kSplitThreads * (n_live - 1));
+  cluster_arrive_relaxed();
+  const int row_bytes = d * (int)sizeof(S);
+  const int tile_bytes = kSubCols * row_bytes;
+  char* ring = reinterpret_cast<char*>(dyn_smem);
+  const char* kb = reinterpret_cast<const char*>(k);
+  const char* vb = reinterpret_cast<const char*>(v);
+  // (paged) the split's page numbers, from page0 on
+  int* pages = reinterpret_cast<int*>(ring + kReadRing * 2 * tile_bytes);
+  const int page0 = c0 / P;
+  if constexpr (kPaged) {
+    const int n_pages = (c1 - 1) / P - page0 + 1;
+    for (int i = tid; i < n_pages; i += kSplitThreads)
+      pages[i] = table[(size_t)b * mp + page0 + i];
+    __syncthreads();
+  }
+  const int n_sub = (c1 - c0 + kSubCols - 1) / kSubCols;
+  // sub-tile t's copies into ring stage t % kReadRing, in the widest unit
+  // the rows' bytes divide into (block-uniform)
+  auto stage = [&](int t) {
+    const int c = c0 + t * kSubCols;
+    const int nc = min(kSubCols, c1 - c);
+    char* ks = ring + (t % kReadRing) * 2 * tile_bytes;
+    char* vs = ks + tile_bytes;
+    with_unit(unit, [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      if constexpr (kPaged)
+        stage_pages<N>(ks, vs, kb, vb, pages, page0, r - b * h, h, P, c, nc,
+                       row_bytes);
+      else
+        stage_run<N>(ks, vs, kb, vb, (size_t)r * horizon, c, nc, row_bytes);
+    });
+  };
+#pragma unroll
+  for (int t = 0; t < kReadRing - 1; ++t) {
+    if (t < n_sub) stage(t);
+    cp_async_commit();
+  }
+  // q lands while the first copies are in flight
+  for (int i = tid; i < DP; i += kSplitThreads)
+    qs[i] = i < d ? to_float<T>(q[(size_t)r * d + i]) : 0.f;
+
+  // four lanes score column j of the warp's 8: dims in 16-byte vectors
+  // qtr, qtr + 4, ... where the rows allow, else dims qtr, qtr + 4, ...
+  const int j = warp * kColsPerWarp + (lane >> 2);
+  const int qtr = lane & 3;
+  const bool vec = row_bytes % 16 == 0;
+  float m = kNeg, l = 0.f, acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+  for (int t = 0; t < n_sub; ++t) {
+    if (t + kReadRing - 1 < n_sub) stage(t + kReadRing - 1);
+    cp_async_commit();
+    cp_async_wait<kReadRing - 1>();  // sub-tile t has landed
+    __syncthreads();
+    const char* ks = ring + (t % kReadRing) * 2 * tile_bytes;
+    const S* kt = reinterpret_cast<const S*>(ks);
+    const S* vt = reinterpret_cast<const S*>(ks + tile_bytes);
+    const int nc = min(kSubCols, c1 - (c0 + t * kSubCols));
+    const bool valid = j < nc;
+    float dot = 0.f;
+    if (valid) {
+      const S* kr = kt + j * d;
+      if (vec) {
+        for (int e0 = qtr * VEC; e0 < d; e0 += 4 * VEC) {
+          float x[VEC];
+          load_vec<S>(kr + e0, x);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * x[e];
+        }
+      } else {
+        for (int e = qtr; e < d; e += 4) dot += qs[e] * to_float<S>(kr[e]);
+      }
+    }
+    // the quad's four parts, added in the same order on all four lanes
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    const float sc = valid ? dot * scale : kNeg;
+    const float m_new = fmaxf(m, warp_max(sc));
+    const float corr = expf(m - m_new);
+    const float prob = valid ? expf(sc - m_new) : 0.f;
+    l = corr * l + warp_sum(qtr == 0 ? prob : 0.f);
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[i] *= corr;
+#pragma unroll
+    for (int u = 0; u < kColsPerWarp; ++u) {
+      const int col = warp * kColsPerWarp + u;
+      if (col < nc) {  // warp-uniform: a column past pos adds nothing
+        const float pj = __shfl_sync(0xffffffffu, prob, 4 * u);
+        const S* vr = vt + col * d;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          if (lane + 32 * i < d)
+            acc[i] += pj * to_float<S>(vr[lane + 32 * i]);
+      }
+    }
+    m = m_new;
+    __syncthreads();  // the stage is free for the copy issued next
+  }
+
+  // the warps merged in warp order (a warp that scored no column holds
+  // (kNeg, 0, 0): its factor is 0), and the block's (m, l, acc) pushed
+  // into slot s of the split-0 block's arrays
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) wacc[warp][lane + 32 * i] = acc[i];
+  __syncthreads();
+  cluster_wait();
+  if (tid < DP) {
+    float mx = kNeg;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mx = fmaxf(mx, wm[w]);
+    float lsum = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float f = expf(wm[w] - mx);
+      lsum += wl[w] * f;
+      o += wacc[w][tid] * f;
+    }
+    const auto slot0 = [&](float* x) {
+      return s == 0 ? x : cluster.map_shared_rank(x, 0);
+    };
+    *slot0(&pacc[s][tid]) = o;
+    if (tid == 0) {
+      *slot0(&pm[s]) = mx;
+      *slot0(&pl[s]) = lsum;
+    }
+  }
+  if (s != 0) {
+    mbar_arrive_remote(&pushed, 0);
+    return;
+  }
+
+  // the split-0 block: the live splits merged in split order
+  __syncthreads();
+  if (n_live > 1) mbar_wait_phase0(&pushed);
+  if (tid < d) {
+    float mx = kNeg;
+    for (int i = 0; i < n_live; ++i) mx = fmaxf(mx, pm[i]);
+    float lsum = 0.f, o = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+      const float f = expf(pm[i] - mx);
+      lsum += pl[i] * f;
+      o += pacc[i][tid] * f;
+    }
+    out[(size_t)r * d + tid] = from_float<T>(o / fmaxf(lsum, 1e-30f));
+  }
 }
 
 // The quantized reads (rows 12 and 18): attend_row over int8 or fp8
@@ -475,7 +835,7 @@ decode_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
                          int h, int sk, int d, float scale) {
   const int r = blockIdx.x;  // batch * h + head
   const int p = min(max(pos[r / h], 0), sk - 1);
-  attend_row<T, S, DP, true>(q + (size_t)r * d, k_q + (size_t)r * sk * d,
+  attend_row<T, S, DP>(q + (size_t)r * d, k_q + (size_t)r * sk * d,
                              k_s + (size_t)r * sk, v_q + (size_t)r * sk * d,
                              v_s + (size_t)r * sk, ContiguousCols{}, p, d,
                              scale, out + (size_t)r * d);
@@ -494,7 +854,7 @@ paged_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
   const int b = r / h;
   const int p = min(max(pos[b], 0), mp * P - 1);
   const PagedCols col{table + (size_t)b * mp, r - b * h, h, P};
-  attend_row<T, S, DP, true>(q + (size_t)r * d, k_q, k_s, v_q, v_s, col, p,
+  attend_row<T, S, DP>(q + (size_t)r * d, k_q, k_s, v_q, v_s, col, p,
                              d, scale, out + (size_t)r * d);
 }
 
@@ -536,29 +896,80 @@ cudaError_t launch_write_cols(const void* k_new, const void* v_new,
   });
 }
 
-// the plain reads: table == nullptr is the contiguous cache [b, h, S, d],
-// otherwise the pools [num_pages, h, P, d] under table [b, mp]
+// one launch of the split read: n_splits x n_rows blocks, each row's
+// n_splits blocks one cluster, with `smem` bytes of dynamic shared memory
+// (a kernel asks for more than 48 KB once per instantiation and size,
+// before the launch)
+template <typename T, int DP, bool kPaged>
+cudaError_t launch_read_split(const void* q, const void* k, const void* v,
+                              const void* table, const void* pos, void* out,
+                              int n_rows, int h, int horizon, int P, int mp,
+                              int d, float scale, int split_cols,
+                              int n_splits, int unit, size_t smem,
+                              cudaStream_t stream) {
+  auto kernel = decode_read_split_kernel<T, T, DP, kPaged>;
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    granted = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_splits * (unsigned)n_rows);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n_splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(table),
+      static_cast<const int*>(pos), static_cast<T*>(out), h, horizon, P, mp,
+      d, scale, split_cols, n_splits, unit);
+  const cudaError_t last = cudaGetLastError();  // clears what it left
+  return err != cudaSuccess ? err : last;
+}
+
+// the plain reads: table == nullptr is the contiguous cache [b, h,
+// horizon, d], otherwise the pools [num_pages, h, P, d] under table [b,
+// mp] (horizon mp * P); the horizon in n_splits splits of split_cols
+// columns (a multiple of kSubCols, the last split holding the horizon's
+// last column)
 cudaError_t launch_attn(const void* q, const void* k, const void* v,
                         const void* table, const void* pos, void* out, int b,
-                        int h, int S, int P, int mp, int d, float scale,
-                        int dtype, cudaStream_t stream) {
+                        int h, int horizon, int P, int mp, int d, float scale,
+                        int dtype, int split_cols, int n_splits,
+                        cudaStream_t stream) {
+  if (split_cols <= 0 || split_cols % kSubCols != 0 || n_splits < 1 ||
+      n_splits > kMaxSplits ||
+      (long long)n_splits * split_cols < horizon ||
+      (long long)(n_splits - 1) * split_cols >= horizon)
+    return cudaErrorInvalidValue;
   return with_dtype(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
     return with_padded_dim(d, [&](auto dp) {
       constexpr int DP = decltype(dp)::value;
-      const T* qt = static_cast<const T*>(q);
-      const T* kt = static_cast<const T*>(k);
-      const T* vt = static_cast<const T*>(v);
-      const int* pt = static_cast<const int*>(pos);
-      T* ot = static_cast<T*>(out);
+      const int row_bytes = d * (int)sizeof(T);
+      // the widest unit a row's bytes divide into (16: cp.async.cg)
+      const int unit = row_bytes % 16 == 0  ? 16
+                       : row_bytes % 8 == 0 ? 8
+                       : row_bytes % 4 == 0 ? 4
+                                            : 2;
+      size_t smem = (size_t)kReadRing * 2 * kSubCols * row_bytes;
       if (table == nullptr)
-        decode_attn_kernel<T, DP><<<b * h, kThreads, 0, stream>>>(
-            qt, kt, vt, pt, ot, h, S, d, scale);
-      else
-        paged_attn_kernel<T, DP><<<b * h, kThreads, 0, stream>>>(
-            qt, kt, vt, static_cast<const int*>(table), pt, ot, h, P, mp, d,
-            scale);
-      return cudaGetLastError();
+        return launch_read_split<T, DP, false>(
+            q, k, v, nullptr, pos, out, b * h, h, horizon, 1, 1, d, scale,
+            split_cols, n_splits, unit, smem, stream);
+      smem += sizeof(int) * ((split_cols + P - 1) / P + 1);
+      return launch_read_split<T, DP, true>(
+          q, k, v, table, pos, out, b * h, h, horizon, P, mp, d, scale,
+          split_cols, n_splits, unit, smem, stream);
     });
   });
 }
@@ -678,26 +1089,29 @@ extern "C" int apex_tpu_torch_paged_write_columns(
 }
 
 // out [b, h, d] = softmax(scale * q . K[:, :pos+1]) . V[:, :pos+1] per
-// (batch, head) row over caches [b, h, S, d], 1 <= d <= 128.
+// (batch, head) row over caches [b, h, S, d], 1 <= d <= 128, the horizon
+// S read in n_splits splits of split_cols columns (read_splits(S, d)).
 extern "C" int apex_tpu_torch_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, const void* pos,
     void* out, int b, int h, int S, int d, float scale, int dtype,
-    void* stream) {
+    int split_cols, int n_splits, void* stream) {
   if (b <= 0 || h <= 0 || S <= 0) return cudaErrorInvalidValue;
   return launch_attn(q, k_cache, v_cache, nullptr, pos, out, b, h, S, 1, 1,
-                     d, scale, dtype, static_cast<cudaStream_t>(stream));
+                     d, scale, dtype, split_cols, n_splits,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The same read through row b's table [b, mp] over the pools
 // [num_pages, h, P, d]: logical column c is page table[b, c / P], offset
-// c % P.
+// c % P; the horizon mp * P in splits of read_splits(mp * P, d).
 extern "C" int apex_tpu_torch_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* pos, void* out, int b, int h, int P, int mp, int d,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int split_cols, int n_splits, void* stream) {
   if (b <= 0 || h <= 0 || P <= 0 || mp <= 0) return cudaErrorInvalidValue;
-  return launch_attn(q, k_pool, v_pool, table, pos, out, b, h, 0, P, mp, d,
-                     scale, dtype, static_cast<cudaStream_t>(stream));
+  return launch_attn(q, k_pool, v_pool, table, pos, out, b, h, mp * P, P, mp,
+                     d, scale, dtype, split_cols, n_splits,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------

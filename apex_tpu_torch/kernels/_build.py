@@ -59,6 +59,13 @@ KV_KIND_CODES = {"int8": 0, "fp8": 1}
 #: any width up to ``HM_MAX_HEAD_DIM``
 KERNEL_HEAD_DIM = 64
 HM_MAX_HEAD_DIM = 128
+#: the plain decode reads (``csrc/decode_attention.cu``,
+#: ``decode_read_split_kernel``): a split holds a multiple of
+#: ``READ_SPLIT_COLS`` columns (its sub-tile), and a row's splits are one
+#: thread-block cluster of at most ``READ_MAX_SPLITS`` blocks (the largest
+#: portable cluster: ``kSubCols`` and ``kMaxSplits`` there)
+READ_SPLIT_COLS = 32
+READ_MAX_SPLITS = 8
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -152,9 +159,12 @@ _SIGNATURES = {
     "apex_tpu_torch_decode_write_column": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+    # q, k, v, pos, out, b, h, S, d, scale, q's dtype, the split geometry
+    # (columns a split, splits a row), stream
     "apex_tpu_torch_decode_attention": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_void_p],
+        _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int, _c_int,
+        _c_void_p],
     "apex_tpu_torch_cache_write_columns": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
@@ -164,10 +174,12 @@ _SIGNATURES = {
     "apex_tpu_torch_paged_write_columns": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+    # q, k_pool, v_pool, table, pos, out, b, h, P, mp, d, scale, q's
+    # dtype, the split geometry, stream
     "apex_tpu_torch_paged_attention": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
-        _c_void_p],
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
+        _c_int, _c_void_p],
     # the quantized cache: k_new, v_new, k_q, k_s, v_q, v_s, pos (+ table)
     # then the geometry, the input dtype, the storage kind and the stream
     "apex_tpu_torch_decode_write_column_quant": [

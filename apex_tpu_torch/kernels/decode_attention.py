@@ -11,7 +11,15 @@ its own wrapper and launch count:
 - :func:`attend_cache` — one query row per (batch, head) attends over
   cache columns ``0..pos[b]``, fp32 scores times ``scale``, fp32 online
   softmax. Columns past ``pos[b]`` contribute exact zeros whatever they
-  hold (NaN included);
+  hold (NaN included). The read is bound by the bytes of the K and V
+  rows it must move (about one flop a byte, so fp32 on the CUDA cores,
+  no tensor cores): the kernel splits each row's horizon into
+  :func:`read_splits` splits, one block each, the row's blocks one
+  thread-block cluster; each block stages its split's rows in shared
+  memory by 16-byte asynchronous copies while it scores the previous
+  sub-tile, and the first block of the cluster merges the splits'
+  (max, sum, accumulator) in split order through distributed shared
+  memory — one launch, no atomics, the same bits every launch;
 - :func:`decode_attention` — the two in order: write this token's K/V
   column, then attend;
 - :func:`cache_write_columns` — the speculative verify's T-column write
@@ -21,9 +29,10 @@ its own wrapper and launch count:
   :func:`paged_attention` — the same three jobs over a global page pool
   ``[num_pages, h, P, d]`` through a block table ``[b, max_pages]``:
   logical column ``c`` of row ``b`` lives in page ``table[b, c // P]``
-  at offset ``c % P``. The paged read is the contiguous kernel's sweep
-  with only the address changed, so on the same bytes it returns the
-  same bits;
+  at offset ``c % P``. The paged read is the contiguous kernel with only
+  the rows' addresses changed (its blocks read their pages from the row's
+  table), and both split a horizon alike, so on the same bytes at the same
+  horizon it returns the same bits;
 - the quantized cache (int8 or fp8 e4m3 data ``[.., d]`` beside one
   fp32 scale per head row and column ``[..]``): :func:`quantize_kv_rows`
   is THE quantizer, bit for bit JAX's; :func:`write_column_quant`,
@@ -79,6 +88,33 @@ def _check_head_dim(d: int, name: str) -> None:
             f"{name} kernel: head_dim {d} outside [1, "
             f"{_build.HM_MAX_HEAD_DIM}] (HM_MAX_HEAD_DIM, the decode "
             f"reads' cap)")
+
+
+#: the fewest values of each plane a split of the plain reads covers: a
+#: split of 32 columns at a narrow head would move a few KB, less than
+#: its block's fixed cost (the cluster barrier and the merge) is worth
+READ_SPLIT_MIN_VALUES = 2048
+
+
+def read_splits(horizon: int, d: int):
+    """The plain reads' split geometry ``(split_cols, n_splits)`` over a
+    horizon of ``horizon`` columns at head width ``d``. ``split_cols`` is
+    a multiple of ``_build.READ_SPLIT_COLS`` (the kernel's sub-tile) of
+    at least ``READ_SPLIT_MIN_VALUES / d`` columns, and ``n_splits =
+    ceil(horizon / split_cols)`` is at most ``_build.READ_MAX_SPLITS``
+    (one cluster a row); split ``s`` covers the columns ``[s *
+    split_cols, min((s + 1) * split_cols, horizon))``. It depends on the
+    horizon and d alone, never on the positions, so the launch waits on
+    nothing from the device, and the contiguous and the paged read over
+    one horizon split it alike (and so sum in the same order)."""
+    if horizon < 1 or d < 1:
+        raise ValueError(f"read_splits: horizon {horizon} and head width "
+                         f"{d} must be positive")
+    unit = _build.READ_SPLIT_COLS
+    least = -(-READ_SPLIT_MIN_VALUES // d)
+    units = max(-(-least // unit),
+                -(-horizon // (_build.READ_MAX_SPLITS * unit)))
+    return unit * units, -(-horizon // (unit * units))
 
 
 def check_positions(pos: torch.Tensor, horizon: int) -> None:
@@ -154,9 +190,9 @@ def attend_cache_plain(q, k_cache, v_cache, pos, *,
 def attend_cache(q, k_cache, v_cache, pos, *,
                  scale: Optional[float] = None) -> torch.Tensor:
     """``out [b, h, d]``: each (batch, head) row of ``q`` attends over
-    columns ``0..pos[b]`` of the caches. CUDA tensors launch the kernel
-    (counted in ``attend_cache.launches``), CPU tensors run the plain
-    version."""
+    columns ``0..pos[b]`` of the caches. CUDA tensors launch the kernel,
+    the horizon ``S`` in :func:`read_splits` ``(S, d)`` splits (counted
+    in ``attend_cache.launches``), CPU tensors run the plain version."""
     b, h, sk, d = _check_geometry(q, k_cache, v_cache, pos)
     if not _build.on_cuda(q, k_cache, v_cache, pos):
         return attend_cache_plain(q, k_cache, v_cache, pos, scale=scale)
@@ -172,7 +208,7 @@ def attend_cache(q, k_cache, v_cache, pos, *,
     rc = _build.library().apex_tpu_torch_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         pos.data_ptr(), out.data_ptr(), b, h, sk, d, s_, code,
-        _build.stream())
+        *read_splits(sk, d), _build.stream())
     _build.check(rc, "attend_cache")
     attend_cache.launches += 1
     return out
@@ -501,12 +537,13 @@ def paged_attention(q, k_pool, v_pool, table, pos, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """``out [b, h, d]``: each (batch, head) row of ``q`` attends over its
     logical columns ``0..pos[b]`` of the pools ``[num_pages, h, P, d]``
-    through ``table [b, max_pages]`` (int32) — the contiguous kernel's
-    sweep with column ``c`` read from page ``table[b, c // P]``. Takes
-    any ``P >= 1`` and any ``max_pages``; ``pos`` must lie in ``[0,
-    max_pages * P)`` (:func:`check_positions` checks it off the hot
-    path). CUDA tensors launch the kernel (counted in
-    ``paged_attention.launches``), CPU tensors run the plain version."""
+    through ``table [b, max_pages]`` (int32) — the contiguous kernel
+    with column ``c`` read from page ``table[b, c // P]``, the horizon
+    ``max_pages * P`` in :func:`read_splits` splits. Takes any ``P >= 1``
+    and any ``max_pages``; ``pos`` must lie in ``[0, max_pages * P)``
+    (:func:`check_positions` checks it off the hot path). CUDA tensors
+    launch the kernel (counted in ``paged_attention.launches``), CPU
+    tensors run the plain version."""
     b, h, n, p, mp, d = _check_paged(q, k_pool, v_pool, table, pos)
     if not _build.on_cuda(q, k_pool, v_pool, table, pos):
         return paged_attention_plain(q, k_pool, v_pool, table, pos,
@@ -524,7 +561,7 @@ def paged_attention(q, k_pool, v_pool, table, pos, *,
     rc = _build.library().apex_tpu_torch_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, p, mp, d, s_,
-        code, _build.stream())
+        code, *read_splits(mp * p, d), _build.stream())
     _build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out

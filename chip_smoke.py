@@ -26,7 +26,8 @@ Phases, in order; any failed check exits non-zero:
    on every layer, and every
    stream is held against a teacher-forced forward without kernels;
 6. profile — ``torch.profiler`` over a window of decode chunks: the
-   device's busy share and the kernels that take its time.
+   device's busy share, the kernels that take its time, and the decode
+   reads' device time and calls.
 
 The serving engine and weights are freed; then the training slice:
 
@@ -266,9 +267,14 @@ same serving model, and Megatron-GPT 2.7B is served right after phase 28
     versions: fp32, bf16 and fp16 caches, int8 and fp8 planes with q in
     each of the three, within DECODE_TOL, and the paged reads bit-equal
     to the contiguous ones; the fp16 column writes (plain and quantized)
-    bit-equal to theirs; then each read at the 2.7B's decode shape (b=8,
-    32 heads of 80, horizon 1024, positions 127..1023), held and timed as
-    in phase 3, row 10 beside SDPA;
+    bit-equal to theirs; the split reads (``attend_cache`` and
+    ``paged_attention``) at every width and dtype over a horizon of 200
+    (no split count divides it) with positions on the edges of
+    ``read_splits``' splits, held the same way, the paged read at pages
+    of 1, 8, 25 and 40 columns, and a second launch of each bit-equal to
+    the first; then each read at the 2.7B's decode shape (b=8, 32 heads
+    of 80, horizon 1024, positions 127..1023), held and timed as in phase
+    3 (rows 10 and 17 launched twice, bit-equal), row 10 beside SDPA;
 34. the 2.7B served — weights in bf16 from seed 0 (5.3 GB); phase 4's
     cross-check at its width in bf16 and fp16 (``compute_dtype=float16``,
     the fp16 decode kernels) and phase 20's quantized logits (fp8 held
@@ -281,7 +287,7 @@ same serving model, and Megatron-GPT 2.7B is served right after phase 28
     and spec streams equal to contiguous up to reference near-ties (phase
     20's rule); decode tokens/s, TTFT and peak memory per side;
 35. profile — phase 6's window over the 2.7B's contiguous engine: the
-    device's idle share.
+    device's idle share and the decode reads' device time.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
@@ -1115,11 +1121,17 @@ def phase_profile(cfg, engine, chunks: int = 16):
             "kernel)")
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    # the decode reads' kernels (rows 10, 17: the split read; 12, 18)
+    reads = [e for e in events if "decode_read_split_kernel" in e.key
+             or "attn_quant_kernel" in e.key]
     out = {
         "window_steps": chunks * engine.engine_cfg.decode_chunk,
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1 - busy_us / 1e3 / (wall * 1e3)),
+        "decode_reads": {
+            "ms": sum(e.self_device_time_total for e in reads) / 1e3,
+            "calls": sum(e.count for e in reads)},
         "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
                  "calls": e.count} for e in top],
     }
@@ -2076,6 +2088,81 @@ def _hold_read(what: str, out, ref, tol, worst: dict, key) -> None:
     worst[key] = max(worst.get(key, 0.0), err)
 
 
+#: the horizon of phase 33's split-edge reads: not a multiple of any
+#: split's column count (read_splits gives 32 or 64 columns at
+#: DECODE_WIDTHS), so the last split is short
+SPLIT_EDGE_S = 200
+#: the page sizes the paged split read is held at over that horizon: a
+#: page a column, PAGE, and pages of 25 and 40 columns, which cross the
+#: sub-tiles' 32-column edges (a sub-tile touches 32, 4, 2 or 1 pages)
+SPLIT_EDGE_PAGES = (1, PAGE, 25, 40)
+
+
+def _split_edge_reads(worst: dict) -> dict:
+    """Phase 33's split edges: the plain reads (rows 10 and 17) over a
+    horizon of SPLIT_EDGE_S columns at every width of DECODE_WIDTHS in
+    fp32, bf16 and fp16, with the rows' positions on the edges of
+    ``read_splits(SPLIT_EDGE_S, d)``'s splits (0, L - 1, L, 2L - 1, 2L,
+    the last split's first column, the one before it, and the horizon's
+    last) and NaN past every position, in every unmapped page and in the
+    sink: each read within DECODE_TOL of its plain version and finite,
+    the paged read at every page size of SPLIT_EDGE_PAGES bit-equal to
+    the contiguous one, and a second launch of each bit-equal to the
+    first. Returns {d: (split_cols, n_splits)}."""
+    from apex_tpu_torch.kernels import (
+        attend_cache,
+        attend_cache_plain,
+        paged_attention,
+        paged_attention_plain,
+    )
+    from apex_tpu_torch.kernels.decode_attention import read_splits
+
+    dev = torch.device("cuda")
+    B, H, S = SLOTS, 4, SPLIT_EDGE_S
+    geometry = {}
+    for d in DECODE_WIDTHS:
+        L, n = read_splits(S, d)
+        check(S % L != 0 and n > 2, f"split edges d={d}: {n} splits of {L} "
+              f"columns do not leave a short last split of {S}")
+        geometry[d] = (L, n)
+        pos_l = [0, L - 1, L, 2 * L - 1, 2 * L, (n - 1) * L,
+                 (n - 1) * L - 1, S - 1]
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        stale = (torch.arange(S, device=dev)[None] > pos[:, None].long())[
+            :, None, :, None]
+        g = torch.Generator(device=dev).manual_seed(3400 + d)
+        tables = {P: (torch.randperm(B * (S // P), generator=g, device=dev)
+                      + 1).to(torch.int32).view(B, S // P)
+                  for P in SPLIT_EDGE_PAGES}
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            tag = f"split edges d={d} {str(dt)[6:]} L={L} n={n}"
+            q = torch.randn(B, H, d, generator=g, device=dev).to(dt)
+            kc, vc = (torch.randn(B, H, S, d, generator=g, device=dev).to(
+                dt).masked_fill(stale, float("nan")) for _ in range(2))
+            out, out2 = (attend_cache(q, kc, vc, pos) for _ in range(2))
+            torch.cuda.synchronize()
+            _hold_read(f"decode_attention {tag}", out,
+                       attend_cache_plain(q, kc, vc, pos), DECODE_TOL[dt],
+                       worst, ("decode_attention", d, dt))
+            check(torch.equal(_bits(out2), _bits(out)),
+                  f"decode_attention {tag}: two launches differ")
+            for P, table in tables.items():
+                N = B * (S // P) + 1
+                kp, vp = (_pool_of(x, table, P, N) for x in (kc, vc))
+                pout, pout2 = (paged_attention(q, kp, vp, table, pos)
+                               for _ in range(2))
+                torch.cuda.synchronize()
+                _hold_read(f"paged_attention {tag} P={P}", pout,
+                           paged_attention_plain(q, kp, vp, table, pos),
+                           DECODE_TOL[dt], worst, ("paged_attention", d, dt))
+                check(torch.equal(_bits(pout), _bits(out)),
+                      f"paged_attention {tag} P={P}: not bit-equal to the "
+                      f"contiguous read on the same bytes")
+                check(torch.equal(_bits(pout2), _bits(pout)),
+                      f"paged_attention {tag} P={P}: two launches differ")
+    return geometry
+
+
 def phase_decode_widths():
     """Phase 33: the four decode reads (rows 10, 12, 17, 18) at the head
     widths of DECODE_WIDTHS against their plain versions on the card: the
@@ -2088,11 +2175,13 @@ def phase_decode_widths():
     its plain version and finite, and the paged read bit-equal to the
     contiguous read on the same bytes. At each width the fp16 column
     writes (plain and quantized, one and SPEC_T columns, contiguous and
-    paged) are bit-equal to their plain versions. Then each read at the
-    2.7B's decode shape (b=8, 32 heads of 80, horizon 1024, positions
-    127, 255, ..., 1023; bf16, int8 planes and fp8 beside), held the same
-    way and timed as in phase 3, with its byte bound, and for row 10
-    SDPA. Returns {row name: its d=80 entry}."""
+    paged) are bit-equal to their plain versions. The split reads' edges
+    (``_split_edge_reads``) come next. Then each read at the 2.7B's
+    decode shape (b=8, 32 heads of 80, horizon 1024, positions 127, 255,
+    ..., 1023; bf16, int8 planes and fp8 beside), held the same way (rows
+    10 and 17 also against a second launch, bit for bit) and timed as in
+    phase 3, with its byte bound, and for row 10 SDPA. Returns {row name:
+    its d=80 entry, rows 10 and 17 with their split geometry}."""
     from apex_tpu_torch.kernels import (
         attend_cache,
         attend_cache_plain,
@@ -2120,6 +2209,7 @@ def phase_decode_widths():
         write_column_quant,
         write_column_quant_plain,
     )
+    from apex_tpu_torch.kernels.decode_attention import read_splits
 
     dev = torch.device("cuda")
     f16 = torch.float16
@@ -2221,13 +2311,17 @@ def phase_decode_widths():
                 torch.cuda.synchronize()
                 check(_same_planes(a, b_), f"{name} d={d} {kind} fp16 "
                       f"rows: planes differ from plain (bitwise)")
+    edges = _split_edge_reads(worst)
     top = {}
     for k, v in worst.items():
         top[k[0]] = max(top.get(k[0], 0.0), v)
     log(f"decode reads at d {DECODE_WIDTHS} (fp32, bf16, fp16; int8 and "
         f"fp8 planes with q in each): max|out-plain| {json.dumps(top)} "
         f"(DECODE_TOL by q's dtype); paged reads bit-equal to contiguous; "
-        f"fp16 writes bit-exact")
+        f"fp16 writes bit-exact; rows 10 and 17 at positions on the split "
+        f"edges of a {SPLIT_EDGE_S}-column horizon ((L, n) by d: {edges}) "
+        f"held, paged (pages of {SPLIT_EDGE_PAGES}) bit-equal to "
+        f"contiguous, two launches bit-equal")
 
     # the 2.7B's decode read: hold and time each kernel
     B2, H2, D2, S2 = D27_B, D27_H, D27_D, D27_S
@@ -2292,6 +2386,9 @@ def phase_decode_widths():
             check(torch.equal(_bits(out), _bits(contig[0]())),
                   f"{key} at the 2.7B's decode shape: not bit-equal to the "
                   f"contiguous read")
+        if not kind:
+            check(torch.equal(_bits(fn()), _bits(out)),
+                  f"{key} at the 2.7B's decode shape: two launches differ")
         bms, by = bound(n_bytes, 4 * n_cols * H2 * D2, FP32_FLOPS_PER_S)
         r = dict(d=D2, max_abs_err=err[0], ms=time_ms(fn),
                  eager_ms=eager_ms(fn), plain_ms=time_ms(plain),
@@ -2307,6 +2404,8 @@ def phase_decode_widths():
         if kind == "fp8":
             rows[name]["fp8"] = r
             continue
+        if not kind:
+            r["split_cols"], r["n_splits"] = read_splits(S2, D2)
         # max|out - plain| at each width: "d dtype" or "d kind q-dtype"
         r["widths"] = {" ".join(str(x).replace("torch.", "")
                                 for x in k[1:]): v

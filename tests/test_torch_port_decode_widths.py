@@ -39,6 +39,7 @@ from jax.sharding import PartitionSpec as P
 
 from apex_tpu import mesh as mx
 from apex_tpu.models import gpt as jgpt
+from apex_tpu_torch import kernels as tk
 from apex_tpu_torch.kernels import _build
 from apex_tpu_torch.models import gpt as tgpt
 from apex_tpu_torch.serving import Engine, EngineConfig, Request, Scheduler
@@ -326,8 +327,12 @@ class _FakeLibrary:
 @pytest.fixture
 def fake_cuda(monkeypatch):
     """The wrappers' CUDA branch on CPU tensors: ``on_cuda`` says yes,
-    the library records its calls, and every plain twin raises."""
+    the library records its calls, and every plain twin raises. The
+    launch counters the faked launches move are put back afterwards
+    (other tests in the process read them)."""
     lib = _FakeLibrary()
+    for fn in tk.KERNEL_WRAPPERS.values():
+        monkeypatch.setattr(fn, "launches", fn.launches)
     monkeypatch.setattr(_build, "on_cuda", lambda *t: True)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda: 0)
