@@ -68,8 +68,20 @@
 // an FMA, so the result is bit for bit the plain version's. Each block
 // ORs its threads' findings (__syncthreads_or) and one thread stores 1 to
 // the caller's zeroed int32 flag, which the wrapper reads on the device:
-// no step waits on the host.
+// no step waits on the host. Scale runs the grid-stride sweep above.
+// Axpby is a stream of its own: a thread owns kAxpbyU groups of E
+// elements a tile (E = 4 when x, y and out are all fp32, else 8, so a
+// bf16 operand moves as 16-byte vectors of 8 and an fp32 one as two
+// float4s), issues every load of the tile before its first store, and
+// loads and stores with the streaming hints (__ldcs, __stcs: every byte
+// is touched once). The grid is one tile a block, as PyTorch's
+// elementwise kernels are launched: on the 355M's fp32 group it measured
+// 4% faster than a persistent grid sized by the occupancy query (PERF.md,
+// PR 15). A group that runs past n (n is a multiple of 4, not of 8) is
+// cut to its first 4 elements by a guard in the same kernel.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace apex_tpu_torch {
 namespace {
@@ -308,28 +320,105 @@ scale_kernel(const T* __restrict__ x, T* __restrict__ out,
   raise_flag(bad, flag);
 }
 
+// E elements of T at a 16-byte aligned address, moved with the
+// streaming hints: fp32 as one (E = 4) or two (E = 8) float4s, bf16 as
+// one 8-byte (E = 4, a group's tail) or 16-byte (E = 8) vector
+template <typename T, int E> struct Stream;
+template <int E> struct Stream<float, E> {
+  static_assert(E == 4 || E == 8, "groups of 4 or 8");
+  __device__ __forceinline__ static void load(const float* src, float* d) {
+#pragma unroll
+    for (int k = 0; k < E / 4; ++k) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(src) + k);
+      d[4 * k] = v.x; d[4 * k + 1] = v.y; d[4 * k + 2] = v.z;
+      d[4 * k + 3] = v.w;
+    }
+  }
+  __device__ __forceinline__ static void store(float* dst, const float* s) {
+#pragma unroll
+    for (int k = 0; k < E / 4; ++k)
+      __stcs(reinterpret_cast<float4*>(dst) + k,
+             make_float4(s[4 * k], s[4 * k + 1], s[4 * k + 2],
+                         s[4 * k + 3]));
+  }
+};
+template <int E> struct Stream<__nv_bfloat16, E> {
+  static_assert(E == 4 || E == 8, "groups of 4 or 8");
+  // 8 bytes (E = 4) or 16 (E = 8)
+  using Raw = typename std::conditional<E == 8, uint4, uint2>::type;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
+                                              float* d) {
+    const Raw raw = __ldcs(reinterpret_cast<const Raw*>(src));
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < E; ++i) d[i] = __bfloat162float(e[i]);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* dst,
+                                               const float* s) {
+    Raw raw;
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < E; ++i) e[i] = __float2bfloat16(s[i]);
+    __stcs(reinterpret_cast<Raw*>(dst), raw);
+  }
+};
+
+// axpby's group: 4 elements when every operand is fp32 (one float4
+// each), else 8 (one 16-byte vector of each bf16 operand)
+template <typename TX, typename TY, typename TO> struct AxpbyGroup {
+  static constexpr int E = std::is_same<TX, float>::value &&
+                                   std::is_same<TY, float>::value &&
+                                   std::is_same<TO, float>::value
+                               ? 4
+                               : 8;
+};
+// groups a thread owns a tile
+constexpr int kAxpbyU = 4;
+
 // out = a * x + b * y in fp32, stored in TO; the flag is raised by a
-// non-finite fp32 result, before the narrowing
-template <typename TX, typename TY, typename TO>
+// non-finite fp32 result, before the narrowing. Tile t holds U * E *
+// kThreads elements, and thread i owns its groups u * kThreads + i (u <
+// U), so a warp's loads of one u are contiguous. The loop runs once a
+// block on the one-tile-a-block grid, and strides on a smaller grid.
+template <typename TX, typename TY, typename TO, int U>
 __global__ void __launch_bounds__(kThreads)
 axpby_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
              TO* __restrict__ out, const float* __restrict__ scalars,
-             int* __restrict__ flag, long long n_vec) {
+             int* __restrict__ flag, long long n) {
+  constexpr int E = AxpbyGroup<TX, TY, TO>::E;
   const float a = scalars[0], b = scalars[1];
   bool bad = false;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
-    const long long o = i * kV;
-    float xv[kV], yv[kV], ov[kV];
-    Pack4<TX>::load(x + o, xv);
-    Pack4<TY>::load(y + o, yv);
+  const long long tile = (long long)U * E * kThreads;
+  for (long long t0 = (long long)blockIdx.x * tile; t0 < n;
+       t0 += (long long)gridDim.x * tile) {
+    float xv[U][E] = {}, yv[U][E] = {};
 #pragma unroll
-    for (int e = 0; e < kV; ++e) {
-      ov[e] = __fadd_rn(__fmul_rn(a, xv[e]), __fmul_rn(b, yv[e]));
-      bad |= !isfinite(ov[e]);
+    for (int u = 0; u < U; ++u) {
+      const long long o = t0 + ((long long)u * kThreads + threadIdx.x) * E;
+      if (o + E <= n) {
+        Stream<TX, E>::load(x + o, xv[u]);
+        Stream<TY, E>::load(y + o, yv[u]);
+      } else if (E == 8 && o < n) {  // n % 8 == 4: the last 4 elements
+        Stream<TX, 4>::load(x + o, xv[u]);
+        Stream<TY, 4>::load(y + o, yv[u]);
+      }
     }
-    Pack4<TO>::store(out + o, ov);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long o = t0 + ((long long)u * kThreads + threadIdx.x) * E;
+      const int live = o + E <= n ? E : (o < n ? 4 : 0);
+      float ov[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        ov[e] = __fadd_rn(__fmul_rn(a, xv[u][e]), __fmul_rn(b, yv[u][e]));
+        bad |= e < live && !isfinite(ov[e]);
+      }
+      if (live == E) {
+        Stream<TO, E>::store(out + o, ov);
+      } else if (E == 8 && live == 4) {
+        Stream<TO, 4>::store(out + o, ov);
+      }
+    }
   }
   raise_flag(bad, flag);
 }
@@ -338,11 +427,15 @@ template <typename TX, typename TY, typename TO>
 cudaError_t launch_axpby(const void* x, const void* y, void* out,
                          const void* scalars, void* flag, long long n,
                          cudaStream_t stream) {
-  const long long n_vec = n / kV;
-  axpby_kernel<TX, TY, TO><<<sweep_blocks(n_vec), kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TY*>(y),
-      static_cast<TO*>(out), static_cast<const float*>(scalars),
-      static_cast<int*>(flag), n_vec);
+  constexpr long long tile =
+      (long long)kAxpbyU * AxpbyGroup<TX, TY, TO>::E * kThreads;
+  const long long blocks = (n + tile - 1) / tile;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  axpby_kernel<TX, TY, TO, kAxpbyU>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TY*>(y),
+          static_cast<TO*>(out), static_cast<const float*>(scalars),
+          static_cast<int*>(flag), n);
   return cudaGetLastError();
 }
 

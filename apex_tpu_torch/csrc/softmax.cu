@@ -27,15 +27,44 @@
 //
 // What the design does about it: one warp a row, four rows a block, so
 // every reduction is a warp shuffle and no block ever waits at a barrier.
-// Neighbour lanes read neighbour elements. The forward caches the row's
+// The forward has two routes, chosen by the wrapper
+// (kernels/softmax.py:fwd_route) from the dtype, sk and the pointers'
+// alignment alone, and re-checked here:
+//
+// Route 1, softmax_fwd_rows_kernel<T, kChunks>, the row in registers:
+// fp32 or bf16, sk a multiple of V = 16 / sizeof(T) (4 or 8) and at most
+// kRowsMaxCols = 2048, x and y 16-byte aligned, the mask V-byte aligned.
+// Lane l holds kChunks 16-byte vectors of the row, chunk c the columns
+// [(32c + l) * V, +V), so one warp-wide load moves 512 contiguous bytes.
+// x is loaded once (16-byte loads, a vector's mask bytes as one 8- or
+// 4-byte load), kept in fp32 registers through the max, the exps and the
+// sum, and y stored with 16-byte stores: no shared memory and no
+// barrier. The loads and stores keep the default cache policy: with
+// streaming hints (__ldcs, __stcs) the kernel measured 1-3% slower
+// (PERF.md, PR 15). A causal row never loads or exponentiates a
+// vector that starts past its diagonal, and stores it as a 16-byte zero;
+// only the vector that straddles the diagonal is masked element by
+// element. kChunks is the row's vector count rounded up to a power of
+// two (vectors past sk are skipped), so 4 + 5 instances cover every sk
+// up to the cap of 2048: at most 64 fp32 values a lane. Registers a
+// thread (nvcc -Xptxas -v, sm_90a, -O3, CUDA 12.8), none spilling: bf16
+// kChunks 1, 2, 4, 8: 30, 36, 53, 88; fp32 kChunks 1, 2, 4, 8, 16: 26,
+// 29, 38, 56, 94.
+//
+// Route 0, softmax_fwd_kernel<T, kCached>, everything else: neighbour
+// lanes read neighbour elements one at a time. It caches the row's
 // scaled, masked fp32 values in shared memory (8 KB a warp up to sk =
 // 2048), so the scores are read from memory once: pass 1 takes the max,
 // pass 2 the exps and their sum, pass 3 divides and stores. Longer rows
-// re-read x and the mask in each pass instead. The backward reads y and
-// dy twice, the second time mostly from L1. The product scale * x is
-// rounded on its own (__fmul_rn), never contracted into the subtraction
-// of the max. Arithmetic is fp32 for fp32 and bf16 I/O; the wrapper
-// widens float16 to fp32 around the kernel, as the JAX function does.
+// re-read x and the mask in each pass instead.
+//
+// Both routes round the product scale * x on its own (__fmul_rn), never
+// contracted into the subtraction of the max, take expf (no fast math)
+// and divide with IEEE division; each sums a row in a fixed order, so a
+// row gives the same bits on every launch. The backward reads y and dy
+// twice, the second time mostly from L1. Arithmetic is fp32 for fp32 and
+// bf16 I/O; the wrapper widens float16 to fp32 around the kernel, as the
+// JAX function does.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -130,6 +159,130 @@ softmax_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
   }
 }
 
+// ---------------------------------------------------------------------------
+// route 1: the row in registers
+// ---------------------------------------------------------------------------
+
+// the longest row route 1 takes (kChunks * 32 * V columns at most)
+constexpr int kRowsMaxCols = 2048;
+
+// the V mask bytes of one vector (one 8- or 4-byte load), byte i in bits
+// [8i, 8i + 8)
+template <int V>
+__device__ __forceinline__ unsigned long long mask_bytes(const uint8_t* p) {
+  if constexpr (V == 8) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    return ((unsigned long long)w.y << 32) | w.x;
+  } else {
+    static_assert(V == 4, "a vector is 8 bf16 or 4 fp32 values");
+    return *reinterpret_cast<const unsigned int*>(p);
+  }
+}
+
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kSmThreads)
+softmax_fwd_rows_kernel(const T* __restrict__ x,
+                        const uint8_t* __restrict__ mask, T* __restrict__ y,
+                        long long rows, int sq, int sk, int mask_ratio,
+                        float scale, int causal) {
+  constexpr int V = Vec<T>::N;
+  const Row w = row_of(rows, sq);
+  if (!w.live) return;
+  const int lane = threadIdx.x & 31;
+  const T* xr = x + w.row * sk;
+  T* yr = y + w.row * sk;
+  const uint8_t* mr = nullptr;
+  if (mask != nullptr) {
+    const long long b = w.row / sq;
+    mr = mask + ((b / mask_ratio) * sq + w.r) * (long long)sk;
+  }
+  const int last = causal ? min(w.r, sk - 1) : sk - 1;
+
+  // load the vectors that start at or before `last`, scaled and masked
+  // (-inf where invalid), and take the max; a causal row short of sk has
+  // invalid entries whether it loads them or not
+  float v[kChunks][V];
+  float m = -CUDART_INF_F;
+  bool invalid = last < sk - 1;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int col = (32 * c + lane) * V;
+    if (col <= last) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(xr + col);
+      const T* e = reinterpret_cast<const T*>(&raw);
+      const unsigned long long mb = mr != nullptr ? mask_bytes<V>(mr + col)
+                                                  : 0ull;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const bool ok = col + i <= last && ((mb >> (8 * i)) & 0xffu) == 0;
+        invalid |= !ok;
+        v[c][i] = ok ? __fmul_rn(to_float<T>(e[i]), scale) : -CUDART_INF_F;
+        m = fmaxf(m, v[c][i]);
+      }
+    }
+  }
+  m = warp_max(m);
+  if (__any_sync(0xffffffffu, invalid)) m = fmaxf(m, kFill);
+
+  // the exps and their sum, lane by lane in chunk order, then the warp's
+  // butterfly: the same order on every launch
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int col = (32 * c + lane) * V;
+    if (col <= last) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        v[c][i] = expf(v[c][i] - m);
+        sum += v[c][i];
+      }
+    }
+  }
+  const float denom = fmaxf(warp_sum(sum), 1e-30f);
+
+  // normalise and store; a vector past the diagonal is a 16-byte zero
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int col = (32 * c + lane) * V;
+    if (col >= sk) continue;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (col <= last) {
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < V; ++i) e[i] = from_float<T>(v[c][i] / denom);
+    }
+    *reinterpret_cast<uint4*>(yr + col) = raw;
+  }
+}
+
+// route 1's launch: kChunks the row's vector count a lane, rounded up to
+// a power of two, K the instance tried (1, 2, 4, ... up to the cap)
+template <typename T, int K>
+cudaError_t launch_fwd_rows(const T* x, const uint8_t* mask, T* y,
+                            long long rows, int sq, int sk, int mask_ratio,
+                            float scale, int causal, cudaStream_t st) {
+  constexpr int kMax = kRowsMaxCols / (32 * Vec<T>::N);
+  if constexpr (K < kMax) {
+    if (sk > K * 32 * Vec<T>::N)
+      return launch_fwd_rows<T, 2 * K>(x, mask, y, rows, sq, sk, mask_ratio,
+                                       scale, causal, st);
+  }
+  const long long blocks = (rows + kSmWarps - 1) / kSmWarps;
+  softmax_fwd_rows_kernel<T, K><<<(unsigned)blocks, kSmThreads, 0, st>>>(
+      x, mask, y, rows, sq, sk, mask_ratio, scale, causal);
+  return cudaGetLastError();
+}
+
+// whether route 1 takes these operands: the wrapper's fwd_route, again
+template <typename T>
+bool rows_route_ok(const void* x, const void* mask, const void* y, int sk) {
+  constexpr int V = Vec<T>::N;
+  return sk % V == 0 && sk <= kRowsMaxCols &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(mask) % V == 0;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kSmThreads)
 softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy,
@@ -153,11 +306,16 @@ softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy,
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* mask, void* y,
                        long long rows, int sq, int sk, int mask_ratio,
-                       float scale, int causal, cudaStream_t st) {
+                       float scale, int causal, int route, cudaStream_t st) {
   const long long blocks = (rows + kSmWarps - 1) / kSmWarps;
   const T* xp = static_cast<const T*>(x);
   const uint8_t* mp = static_cast<const uint8_t*>(mask);
   T* yp = static_cast<T*>(y);
+  if (route == 1) {
+    if (!rows_route_ok<T>(x, mask, y, sk)) return cudaErrorInvalidValue;
+    return launch_fwd_rows<T, 1>(xp, mp, yp, rows, sq, sk, mask_ratio, scale,
+                                 causal, st);
+  }
   if (sk <= kSmCacheCols) {
     const size_t smem = (size_t)kSmWarps * sk * sizeof(float);
     softmax_fwd_kernel<T, true><<<(unsigned)blocks, kSmThreads, smem, st>>>(
@@ -187,25 +345,29 @@ using namespace apex_tpu_torch;
 // y [nb * sq, sk] = the scaled, masked softmax of x [nb * sq, sk], both in
 // `dtype`, rows = nb * sq. mask is [nb / mask_ratio, sq, sk] bytes
 // (nonzero = masked) or null; causal masks col > row (sq == sk, which the
-// wrapper checks). No alignment is needed. Returns cudaGetLastError()
-// after the launch; cudaErrorInvalidValue for a shape or dtype the kernel
-// was not built for (nothing launched).
+// wrapper checks). route 1 runs the row-in-registers kernel and needs sk
+// a multiple of 16 / sizeof(dtype) and at most 2048, x and y 16-byte
+// aligned and the mask aligned to 16 / sizeof(dtype) bytes; route 0 runs
+// the general kernel and needs no alignment. Returns cudaGetLastError()
+// after the launch; cudaErrorInvalidValue for a shape, dtype or route the
+// kernel was not built for (nothing launched: a route that cannot run is
+// refused, never swapped for the other).
 extern "C" int apex_tpu_torch_softmax_fwd(const void* x, const void* mask,
                                           void* y, long long rows, int sq,
                                           int sk, int mask_ratio, float scale,
-                                          int causal, int dtype,
+                                          int causal, int dtype, int route,
                                           void* stream) {
   if (rows <= 0 || sq <= 0 || sk <= 0 || rows % sq || mask_ratio <= 0 ||
-      rows / kSmWarps >= 0x7fffffffLL)
+      rows / kSmWarps >= 0x7fffffffLL || (route != 0 && route != 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
       return launch_fwd<float>(x, mask, y, rows, sq, sk, mask_ratio, scale,
-                               causal, st);
+                               causal, route, st);
     case kBFloat16:
       return launch_fwd<__nv_bfloat16>(x, mask, y, rows, sq, sk, mask_ratio,
-                                       scale, causal, st);
+                                       scale, causal, route, st);
     default:
       return cudaErrorInvalidValue;
   }

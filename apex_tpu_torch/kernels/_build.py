@@ -59,6 +59,10 @@ KV_KIND_CODES = {"int8": 0, "fp8": 1}
 #: any width up to ``HM_MAX_HEAD_DIM``
 KERNEL_HEAD_DIM = 64
 HM_MAX_HEAD_DIM = 128
+#: the softmax forward's row-in-registers route (``csrc/softmax.cu``,
+#: ``softmax_fwd_rows_kernel``, ``kRowsMaxCols``): the longest row it
+#: takes
+SOFTMAX_ROWS_MAX_COLS = 2048
 #: the plain decode reads (``csrc/decode_attention.cu``,
 #: ``decode_read_split_kernel``): a split holds a multiple of
 #: ``READ_SPLIT_COLS`` columns (its sub-tile), and a row's splits are one
@@ -126,10 +130,11 @@ _SIGNATURES = {
     "apex_tpu_torch_axpby_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_longlong,
         _c_int, _c_int, _c_int, _c_void_p],
-    # x, mask, y, rows, sq, sk, mask_ratio, scale, causal, dtype, stream
+    # x, mask, y, rows, sq, sk, mask_ratio, scale, causal, dtype, route
+    # (kernels/softmax.py:fwd_route), stream
     "apex_tpu_torch_softmax_fwd": [
         _c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int, _c_int, _c_int,
-        _c_float, _c_int, _c_int, _c_void_p],
+        _c_float, _c_int, _c_int, _c_int, _c_void_p],
     # y, dy, dx, rows, sk, scale, dtype, stream
     "apex_tpu_torch_softmax_bwd": [
         _c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int, _c_float,

@@ -8,7 +8,9 @@ output; the backward is ``dx = scale * y * (dy - sum(y * dy))``.
 
 - :func:`softmax_fwd` ``(x3 [nb, sq, sk], mask3 [nb / h, sq, sk] or None)
   -> y3`` in x3's dtype: CUDA tensors launch ``csrc/softmax.cu``'s
-  forward, CPU tensors run :func:`softmax_fwd_plain`;
+  forward on the route :func:`fwd_route` picks (1: the row held in
+  registers, 16-byte loads; 0: the general kernel), CPU tensors run
+  :func:`softmax_fwd_plain`;
 - :func:`softmax_bwd` ``(y3, dy3) -> dx3`` in y3's dtype: CUDA tensors
   launch the backward, CPU tensors run :func:`softmax_bwd_plain`.
 
@@ -53,6 +55,27 @@ def _valid(nb: int, sq: int, sk: int, mask3, causal: bool, device):
     return valid
 
 
+def fwd_route(x3: torch.Tensor, y3: torch.Tensor,
+              mask3: Optional[torch.Tensor] = None) -> int:
+    """Which forward kernel ``softmax_fwd`` launches for these operands,
+    by dtype, row length and pointer alignment alone (never by failure):
+    1 for the row-in-registers kernel (``csrc/softmax.cu``,
+    ``softmax_fwd_rows_kernel``) — fp32 or bf16, ``sk`` a multiple of the
+    V = 16 / itemsize values a 16-byte vector holds and at most
+    ``_build.SOFTMAX_ROWS_MAX_COLS``, x3 and y3 starting on a 16-byte
+    boundary, the byte mask (when there is one) on a V-byte one; 0 for
+    the general kernel (``softmax_fwd_kernel``), which takes every other
+    shape. The C entry checks route 1's conditions again and refuses the
+    launch when they fail."""
+    if x3.dtype not in _build.DTYPE_CODES:
+        return 0
+    v = 16 // x3.element_size()
+    sk = x3.shape[-1]
+    return int(sk % v == 0 and sk <= _build.SOFTMAX_ROWS_MAX_COLS
+               and x3.data_ptr() % 16 == 0 and y3.data_ptr() % 16 == 0
+               and (mask3 is None or mask3.data_ptr() % v == 0))
+
+
 def softmax_fwd_plain(x3: torch.Tensor, mask3: Optional[torch.Tensor],
                       scale: float, causal: bool) -> torch.Tensor:
     """Plain PyTorch twin of the forward kernel, in fp32, output in x3's
@@ -84,8 +107,9 @@ def softmax_fwd(x3: torch.Tensor, mask3: Optional[torch.Tensor] = None, *,
     """``y3 [nb, sq, sk]`` in x3's dtype (fp32 or bf16 for the kernel):
     the scaled, masked softmax of ``x3`` over its last dim. ``mask3`` is
     ``[nb / h, sq, sk]`` (bool or int, nonzero = masked) or None;
-    ``causal`` needs ``sq == sk``. CUDA tensors launch the kernel (counted
-    in ``softmax_fwd.launches``); CPU tensors run the plain version."""
+    ``causal`` needs ``sq == sk``. CUDA tensors launch the kernel that
+    :func:`fwd_route` picks (counted in ``softmax_fwd.launches``); CPU
+    tensors run the plain version."""
     if x3.ndim != 3:
         raise ValueError(f"softmax_fwd: x3 must be [nb, sq, sk], got "
                          f"{tuple(x3.shape)}")
@@ -112,7 +136,7 @@ def softmax_fwd(x3: torch.Tensor, mask3: Optional[torch.Tensor] = None, *,
     rc = _build.library().apex_tpu_torch_softmax_fwd(
         x3.data_ptr(), None if m is None else m.data_ptr(), y3.data_ptr(),
         nb * sq, sq, sk, 1 if m is None else nb // m.shape[0], float(scale),
-        int(causal), code, _build.stream())
+        int(causal), code, fwd_route(x3, y3, m), _build.stream())
     _build.check(rc, "softmax_fwd")
     softmax_fwd.launches += 1
     return y3
@@ -238,6 +262,7 @@ def scaled_upper_triang_masked_softmax(x: torch.Tensor, *,
 #: had them, so the generic name is the same op
 generic_scaled_masked_softmax = scaled_masked_softmax
 
-__all__ = ["generic_scaled_masked_softmax", "scaled_masked_softmax",
-           "scaled_upper_triang_masked_softmax", "softmax_bwd",
-           "softmax_bwd_plain", "softmax_fwd", "softmax_fwd_plain"]
+__all__ = ["fwd_route", "generic_scaled_masked_softmax",
+           "scaled_masked_softmax", "scaled_upper_triang_masked_softmax",
+           "softmax_bwd", "softmax_bwd_plain", "softmax_fwd",
+           "softmax_fwd_plain"]

@@ -233,16 +233,23 @@ their own loops, at the GPT-2 355M's widths):
     ``adagrad_flat`` on the 355M's padded fp32 group (354,877,440
     elements) and small bf16 and fp16 groups: scale and axpby bit-equal
     to plain, the found-inf flag raised by an inf input (scale) and an
-    fp32 overflow (axpby) and not by an fp16 narrowing overflow;
-    adagrad within ADAM_TOL, its delta mode, a skipped sweep, and one
-    step against ``torch.optim.Adagrad``; timed as in phase 3;
+    fp32 overflow (axpby) and not by an fp16 narrowing overflow; axpby
+    also bit-equal in each of its 8 x/y/out dtype combinations at n =
+    4 * 65537 (no multiple of its tile, and of 8), its flag raised by an
+    fp32 overflow at the first and at the last element; adagrad within
+    ADAM_TOL, its delta mode, a skipped sweep, and one step against
+    ``torch.optim.Adagrad``; timed as in phase 3;
 30. softmax kernels vs plain — the forward and backward at the 355M's
     unfused causal scores ([16, 16, 1024, 1024] bf16, scale 1/8) and
     BERT-large's padded ones ([32, 16, 512, 512] fp16 through the public
     API, fully masked rows included), and at odd shapes (sk 1000 and
-    2500, sq != sk with a mask, the legacy mask, fp32); then
-    ``FusedScaleMaskSoftmax`` fused (2 forward and 2 backward launches)
-    against unfused, causal and padding;
+    2500, sq != sk with a mask, the legacy mask, fp32), each forward on
+    the route ``fwd_route`` names: the row-in-registers kernel (route 1)
+    also causal bf16 at sk 8, 264 and 1000 and at sk = the cap, route 0
+    at the cap + V and on a misaligned view, two launches bit-equal; both
+    routes timed at the 355M and BERT shapes; then
+    ``FusedScaleMaskSoftmax`` fused (2 forward and 2 backward launches,
+    both forwards on route 1) against unfused, causal and padding;
 31. the 355M trainer with FusedAdagrad — phase 9's step through
     ``make_train_step(cfg, fused_adagrad(1e-2, layout=...))``, flat then
     tree, 1 + 3 steps each: losses finite, the layouts within
@@ -325,6 +332,7 @@ standard library and ``apex_tpu_torch``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -5574,10 +5582,43 @@ def phase_l3_flat_kernels(tcfg):
     o16, f16 = axpby_flat(2.0 ** 15, [groups[2]], 1.0, [ys[2]])
     check(bool(o16[0].isinf().any()) and not bool(f16),
           "axpby_flat: an fp16 narrowing overflow must give inf, no flag")
-    log("scale_flat / axpby_flat: bit-equal to plain on the 355M fp32 group "
-        "and bf16/fp16 groups; flags: inf input (scale), fp32 overflow "
-        "(axpby) raise it, fp16 narrowing overflow does not")
-    del big, x16, o16
+    # axpby at a size no tile divides (and n % 8 == 4: a bf16 operand's
+    # last 16-byte vector is cut to 8 bytes) in each dtype combination,
+    # and its flag at the first and the last element
+    odd = 4 * 65537
+    bf, f32 = torch.bfloat16, torch.float32
+    for xd in (f32, bf):
+        for yd in (f32, bf):
+            for od in (f32, bf):
+                xo, yo = rand(odd, 3.0).to(xd), rand(odd, 2.0).to(yd)
+                ko, kf = axpby_flat(s, [xo], 1.0, [yo], out_dtype=od)
+                po, pf = axpby_flat_plain(torch.stack([one(s), one(1.0)]),
+                                          [xo], [yo], [od])
+                torch.cuda.synchronize()
+                what = f"axpby_flat n={odd} x {xd} y {yd} out {od}"
+                errs["axpby_flat"].append(max_err(ko[0], po[0]))
+                check(torch.equal(ko[0], po[0]),
+                      f"{what}: not bit-equal to plain (err "
+                      f"{max_err(ko[0], po[0])})")
+                check(not bool(kf) and not bool(pf), f"{what}: flag set")
+                for at in (0, odd - 1):
+                    xb = xo.clone()
+                    xb[at] = 3e38  # bf16 holds it too; 4x it is inf
+                    check(bool(axpby_flat(4.0, [xb], 1.0, [yo],
+                                          out_dtype=od)[1]),
+                          f"{what}: an fp32 overflow at element {at} did "
+                          f"not raise the flag")
+    for at in (0, n - 1):
+        big = groups[0].clone()
+        big[at] = 3e38
+        check(bool(axpby_flat(4.0, [big], 1.0, [ys[0]])[1]),
+              f"axpby_flat n={n}: an fp32 overflow at element {at} did not "
+              f"raise the flag")
+    log(f"scale_flat / axpby_flat: bit-equal to plain on the 355M fp32 group "
+        f"and bf16/fp16 groups, axpby in its 8 x/y/out dtypes at n={odd}; "
+        f"flags: inf input (scale), fp32 overflow (axpby, also at the first "
+        f"and last element) raise it, fp16 narrowing overflow does not")
+    del big, x16, o16, xo, yo, xb
 
     x, y = groups[0], ys[0]
     found = torch.zeros(1, device=dev)
@@ -5674,17 +5715,60 @@ SM_BERT = (32, 16, 512, 512)
 SM_BERT_MASKED = 3
 
 
+@contextlib.contextmanager
+def softmax_routes():
+    """The routes ``softmax_fwd`` hands its C entry while the block runs,
+    in order (``kernels/softmax.py:fwd_route`` wrapped by a recorder)."""
+    from apex_tpu_torch.kernels import softmax as sm
+
+    seen, real = [], sm.fwd_route
+
+    def record(*args):
+        seen.append(real(*args))
+        return seen[-1]
+    sm.fwd_route = record
+    try:
+        yield seen
+    finally:
+        sm.fwd_route = real
+
+
+def softmax_on_route(x3, m, scale: float, causal: bool, route: int):
+    """``csrc/softmax.cu``'s forward on ``route`` (1: the row in registers,
+    0: the general kernel), launched directly on ``x3`` and the byte mask
+    ``m`` (``[nb / ratio, sq, sk]``, 0 or 1, or None): ``(launch, y3)``.
+    Its launches are not counted."""
+    from apex_tpu_torch.kernels import _build
+
+    nb, sq, sk = x3.shape
+    y3 = torch.empty_like(x3)
+
+    def launch():
+        _build.check(_build.library().apex_tpu_torch_softmax_fwd(
+            x3.data_ptr(), None if m is None else m.data_ptr(),
+            y3.data_ptr(), nb * sq, sq, sk, 1 if m is None else
+            nb // m.shape[0], float(scale), int(causal),
+            _build.DTYPE_CODES[x3.dtype], route, _build.stream()),
+            f"softmax_fwd route {route}")
+    launch()
+    return launch, y3
+
+
 def phase_softmax():
     """Phase 30: the softmax forward and backward against their plain
     versions at the 355M's causal scores (bf16, scale 1/8) and BERT-large's
     padded ones (fp16 through the public API, a [32, 1, 1, 512] mask
     whose first batches mask every key), and at odd shapes (sk = 1000 and
     2500, the long-row path; sq != sk with a mask; the legacy [b, sq, sk]
-    mask; fp32); timed beside ``torch.softmax`` and
-    ``torch._softmax_backward_data`` on already-masked scores. Then the
-    main path: ``FusedScaleMaskSoftmax`` forward and backward, fused and
-    unfused, causal and padding, launch counts zeroed before and read
-    after. Returns (rows, counts)."""
+    mask; fp32; causal bf16 at sk 8, 264 and 1000; the row-in-registers
+    cap and one vector past it; a misaligned view), every forward on the
+    route ``fwd_route`` must name; two launches bit-equal; timed beside
+    ``torch.softmax`` and ``torch._softmax_backward_data`` on
+    already-masked scores, the forward's two routes in turns at the 355M
+    and BERT shapes (``general_ms``: route 0, the earlier design). Then
+    the main path: ``FusedScaleMaskSoftmax`` forward and backward, fused
+    and unfused, causal and padding, launch counts zeroed before and read
+    after, both forwards on route 1. Returns (rows, counts)."""
     from apex_tpu_torch.kernels import (
         launch_counts,
         reset_launch_counts,
@@ -5694,6 +5778,7 @@ def phase_softmax():
         softmax_fwd,
         softmax_fwd_plain,
     )
+    from apex_tpu_torch.kernels import _build
     from apex_tpu_torch.kernels.softmax import _mask3
     from apex_tpu_torch.transformer.enums import AttnMaskType
     from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
@@ -5704,8 +5789,11 @@ def phase_softmax():
                               * 2).to(dt)
     errs = {"softmax_fwd": [], "softmax_bwd": []}
 
-    def both(x3, m3, scale, causal, what):
-        yk = softmax_fwd(x3, m3, scale=scale, causal=causal)
+    def both(x3, m3, scale, causal, what, route):
+        with softmax_routes() as seen:
+            yk = softmax_fwd(x3, m3, scale=scale, causal=causal)
+        check(seen == [route], f"softmax_fwd {what}: routes {seen}, "
+              f"expected [{route}]")
         yp = softmax_fwd_plain(x3, m3, scale, causal)
         dy = rand(x3.shape, x3.dtype)
         dk = softmax_bwd(yk, dy, scale=scale)
@@ -5721,30 +5809,58 @@ def phase_softmax():
         return yk, dy
 
     # odd shapes: sk = 1000 and 2500 (past the shared-memory row cache),
-    # sq != sk with a ratio-tiled mask, the legacy mask, fp32
-    for shape, mshape, dt, causal in (
-            ((2, 3, 7, 1000), (2, 1, 1, 1000), torch.bfloat16, False),
-            ((1, 2, 5, 2500), (1, 1, 5, 2500), torch.float32, False),
-            ((2, 2, 5, 24), (2, 1, 5, 24), torch.float32, False),
-            ((2, 4, 6, 6), None, torch.bfloat16, True),
-            ((3, 2, 17, 17), (3, 1, 1, 17), torch.float32, True)):
+    # sq != sk with a ratio-tiled mask, the legacy mask, fp32; causal bf16
+    # rows whose diagonal straddles a 16-byte vector at every offset (sk 8,
+    # 264, 1000); the row-in-registers cap (route 1) and one vector past it
+    # (route 0), each in bf16 and fp32
+    cap = _build.SOFTMAX_ROWS_MAX_COLS
+    bf, f32 = torch.bfloat16, torch.float32
+    for shape, mshape, dt, causal, route in (
+            ((2, 3, 7, 1000), (2, 1, 1, 1000), bf, False, 1),
+            ((1, 2, 5, 2500), (1, 1, 5, 2500), f32, False, 0),
+            ((2, 2, 5, 24), (2, 1, 5, 24), f32, False, 1),
+            ((2, 4, 6, 6), None, bf, True, 0),
+            ((3, 2, 17, 17), (3, 1, 1, 17), f32, True, 0),
+            ((2, 2, 8, 8), None, bf, True, 1),
+            ((2, 2, 264, 264), None, bf, True, 1),
+            ((2, 2, 1000, 1000), (2, 1, 1, 1000), bf, True, 1),
+            ((1, 2, cap, cap), None, bf, True, 1),
+            ((1, 2, cap + 8, cap + 8), None, bf, True, 0),
+            ((1, 2, 16, cap), (1, 1, 16, cap), f32, False, 1),
+            ((1, 2, 16, cap + 4), (1, 1, 16, cap + 4), f32, False, 0)):
         x = rand(shape, dt)
         m = None
         if mshape is not None:
             m = torch.rand(mshape, generator=g, device=dev) < 0.3
             m[..., 0] = False
         both(x.reshape(-1, *shape[-2:]), None if m is None else
-             _mask3(m, x), 0.5, causal, f"{shape} {dt}")
+             _mask3(m, x), 0.5, causal, f"{shape} {dt}", route)
     x = rand((2, 3, 8, 40), torch.bfloat16)
     legacy = torch.rand((2, 8, 40), generator=g, device=dev) < 0.3
-    both(x.reshape(-1, 8, 40), _mask3(legacy, x), 1.0, False, "legacy mask")
-    log(f"softmax odd shapes ok (max errs fwd "
+    both(x.reshape(-1, 8, 40), _mask3(legacy, x), 1.0, False, "legacy mask",
+         1)
+    # a view one element off its storage's 16-byte boundary: route 0
+    flat = rand((4 * 64 * 64 + 1,), bf)
+    both(flat[1:].view(4, 64, 64), None, 0.5, True, "misaligned view", 0)
+    log(f"softmax odd shapes ok, each on its route (max errs fwd "
         f"{max(errs['softmax_fwd']):.3e}, bwd {max(errs['softmax_bwd']):.3e})")
 
-    # the 355M's causal scores, bf16, scale 1/8
+    # the 355M's causal scores, bf16, scale 1/8: route 1, two launches
+    # bit-equal
     nb, sq, sk = SM_GPT[0] * SM_GPT[1], SM_GPT[2], SM_GPT[3]
     x3 = rand((nb, sq, sk), torch.bfloat16)
-    y3, dy3 = both(x3, None, 0.125, True, "355M causal bf16")
+    y3, dy3 = both(x3, None, 0.125, True, "355M causal bf16", 1)
+    again = softmax_fwd(x3, None, scale=0.125, causal=True)
+    torch.cuda.synchronize()
+    check(torch.equal(again, y3),
+          "softmax_fwd 355M: two launches differ in their bits")
+    del again
+    rows_gpt, _ = softmax_on_route(x3, None, 0.125, True, 1)
+    general_gpt, y_general = softmax_on_route(x3, None, 0.125, True, 0)
+    torch.cuda.synchronize()
+    check(ulp_close(y_general, y3),
+          f"softmax_fwd 355M: route 0 vs route 1 err {max_err(y_general, y3)}")
+    del y_general
     tril = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril()
     xm = (x3.float() * 0.125).masked_fill(~tril, float("-inf")).to(
         torch.bfloat16)
@@ -5789,23 +5905,69 @@ def phase_softmax():
             shape=shape)}
     del x3, y3, dy3, xm
 
+    # the earlier design (route 0) and route 1 launched directly, in turns
+    # (1, 0, 0, 1), at the same shape in the same call
+    turns = {1: [], 0: []}
+    for route in (1, 0, 0, 1):
+        turns[route].append(time_ms(rows_gpt if route else general_gpt,
+                                    **TRAIN_TIMING))
+    rows["softmax_fwd"].update(rows_ms=min(turns[1]),
+                               general_ms=min(turns[0]))
+    del rows_gpt, general_gpt
+
     # BERT-large's padded scores in fp16 through the public API (widened to
-    # the fp32 kernels), the first batches with every key masked
+    # the fp32 kernels, route 1), the first batches with every key masked
     xb = rand(SM_BERT, torch.float16)
     pad = torch.zeros((SM_BERT[0], 1, 1, SM_BERT[3]), dtype=torch.bool,
                       device=dev)
     pad[:, :, :, 400:] = True
     pad[:SM_BERT_MASKED] = True
-    yk = scaled_masked_softmax(xb, pad, scale=0.125)
-    yp = softmax_fwd_plain(xb.reshape(-1, *SM_BERT[2:]).float(),
-                           _mask3(pad, xb), 0.125, False).to(
+    with softmax_routes() as seen:
+        yk = scaled_masked_softmax(xb, pad, scale=0.125)
+    check(seen == [1], f"softmax BERT fp16: routes {seen}, expected [1]")
+    xb3 = xb.reshape(-1, *SM_BERT[2:]).float()
+    mb = _mask3(pad, xb)
+    yp = softmax_fwd_plain(xb3, mb, 0.125, False).to(
         torch.float16).reshape(SM_BERT)
     torch.cuda.synchronize()
     check(ulp_close(yk, yp), f"softmax BERT fp16: err {max_err(yk, yp)}")
     check(not bool(yk[:SM_BERT_MASKED].any()),
           "softmax BERT: a fully masked row is not all zeros")
     errs["softmax_fwd"].append(max_err(yk, yp))
-    del yk, yp
+    # both routes on the kernel's own operands (fp32 scores, the byte mask
+    # tiled over 16 heads), held and timed in turns beside torch.softmax
+    mbytes = (mb != 0).contiguous()
+    rows_bert, y_rows = softmax_on_route(xb3, mbytes, 0.125, False, 1)
+    general_bert, y_general = softmax_on_route(xb3, mbytes, 0.125, False, 0)
+    yp32 = softmax_fwd_plain(xb3, mb, 0.125, False)
+    torch.cuda.synchronize()
+    check(ulp_close(y_rows, yp32) and ulp_close(y_general, yp32),
+          f"softmax BERT fp32: routes 1 / 0 err {max_err(y_rows, yp32)} / "
+          f"{max_err(y_general, yp32)}")
+    errs["softmax_fwd"].append(max_err(y_rows, yp32))
+    xbm = (xb3 * 0.125).masked_fill(
+        mbytes.repeat_interleave(SM_BERT[1], dim=0).bool(), float("-inf"))
+    turns = {1: [], 0: []}
+    for route in (1, 0, 0, 1):
+        turns[route].append(time_ms(rows_bert if route else general_bert,
+                                    **TRAIN_TIMING))
+    n_b = xb3.numel()
+    bb_, bby_ = bound(8 * n_b + mbytes.numel(), 5 * n_b, FP32_FLOPS_PER_S)
+    rows["softmax_fwd"]["bert"] = dict(
+        ms=min(turns[1]), general_ms=min(turns[0]),
+        library_ms=time_ms(lambda: torch.softmax(xbm, -1), **TRAIN_TIMING),
+        bound_ms=bb_, bound_by=bby_,
+        shape=f"{list(SM_BERT)} fp16 widened to fp32, a [32, 1, 1, 512] "
+              f"padding mask (ratio 16), scale 1/8")
+    log(f"softmax_fwd routes, in turns (min of 2 each): 355M causal bf16 "
+        f"route 1 {rows['softmax_fwd']['rows_ms']:.4f} / route 0 "
+        f"{rows['softmax_fwd']['general_ms']:.4f} ms; BERT fp32 masked "
+        f"route 1 {rows['softmax_fwd']['bert']['ms']:.4f} / route 0 "
+        f"{rows['softmax_fwd']['bert']['general_ms']:.4f} ms, torch.softmax "
+        f"{rows['softmax_fwd']['bert']['library_ms']:.4f}, bound "
+        f"{bb_:.5f} ({bby_})")
+    del yk, yp, xb3, mb, mbytes, y_rows, y_general, yp32, xbm, rows_bert
+    del general_bert
     for r in rows.values():
         r["max_abs_err"] = max(errs[r["name"]])
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager "
@@ -5825,20 +5987,23 @@ def phase_softmax():
     reset_launch_counts()
     t0 = time.perf_counter()
     outs = {}
-    for kind, x, m in ((AttnMaskType.causal, gpt_x, None),
-                       (AttnMaskType.padding, bert_x, pad)):
-        y = fused[kind](x, m)
-        (dx,) = torch.autograd.grad(y.float().square().sum(), x)
-        outs[kind] = (y.detach(), dx)
-    torch.cuda.synchronize()
+    with softmax_routes() as seen:
+        for kind, x, m in ((AttnMaskType.causal, gpt_x, None),
+                           (AttnMaskType.padding, bert_x, pad)):
+            y = fused[kind](x, m)
+            (dx,) = torch.autograd.grad(y.float().square().sum(), x)
+            outs[kind] = (y.detach(), dx)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     log(f"FusedScaleMaskSoftmax fused, causal 355M + padding BERT, forward "
         f"and backward: {wall * 1e3:.1f} ms, launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }, forward routes {seen}")
     check(counts["softmax_fwd"] == 2 and counts["softmax_bwd"] == 2,
           f"FusedScaleMaskSoftmax: softmax launches {counts['softmax_fwd']}"
           f" / {counts['softmax_bwd']}, expected 2 / 2")
+    check(seen == [1, 1], f"FusedScaleMaskSoftmax: forward routes {seen}, "
+          f"expected [1, 1] (the row-in-registers kernel)")
     others = {k: v for k, v in counts.items()
               if v and k not in ("softmax_fwd", "softmax_bwd")}
     check(not others, f"FusedScaleMaskSoftmax: other kernels: {others}")
