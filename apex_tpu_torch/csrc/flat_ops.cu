@@ -37,13 +37,28 @@
 //
 // The L2 norm reads each buffer once: 4 bytes an element in fp32 against
 // two flops, so it too is bound by memory (335M fp32 elements: 1.34 GB,
-// 0.40 ms at 3.35 TB/s). A fixed grid of blocks sums squares in fp32 over
-// a grid-stride loop of 16-byte loads and writes one partial each; a
-// second, one-block kernel sums the partials of each buffer in a fixed
-// tree, adds the buffers in list order and takes the square root on the
-// device. No atomics, and the grid depends on nothing but constants, so
-// the norm is the same bit for bit from run to run, and no step waits on
-// the host for it.
+// 0.40 ms at 3.35 TB/s). At that rate a card must keep about 2 MB of
+// loads in flight, so l2norm_kernel keeps kL2U independent 16-byte loads
+// a thread in flight (bf16 as 8 values, fp32 as 4), each into its own
+// fp32 accumulator, with the streaming hint (__ldcs), at kL2BlocksPerSm
+// blocks of 256 an SM: 8.6 MB in flight on 132 SMs. (On the BERT-large
+// group 4 blocks an SM measured 0.3% faster than 8, and one tile a block
+// 20% slower, its last block folding 81,840 partials; PERF.md, section
+// 6.)
+// A block owns a contiguous range of a buffer, whose bounds the wrapper
+// computes from n and the dtype alone (kernels/flat_ops.py:
+// l2norm_geometry), so every launch sums in the same order and gives the
+// same bits; the tails (n not a multiple of the vector, a range that ends
+// mid-tile) are summed in the same kernel. One launch a call: the buffers
+// of a launch (up to kL2MaxBuffers) are passed by value, as apex's
+// multi_tensor_apply passes its TensorListMetadata; each block writes its
+// partial to its own workspace slot, and the last block to arrive (a
+// fence, then a ticket taken with an atomic) sums each buffer's partials
+// in a fixed tree, adds the buffers in list order and takes an IEEE
+// square root. The C entry zeroes the ticket before each launch (a 4-byte
+// cudaMemsetAsync, which a CUDA graph replays too), as the wrapper's
+// workspace comes fresh from the caching allocator. No step waits on the
+// host for the norm.
 //
 // Adagrad (replaces flat_ops.py:adagrad_flat, kernel body _adagrad_kernel,
 // apex's csrc/multi_tensor_adagrad.cu, which fused_adagrad(layout="flat")
@@ -67,8 +82,11 @@
 // are rounded one at a time (__fmul_rn, __fadd_rn), never contracted to
 // an FMA, so the result is bit for bit the plain version's. Each block
 // ORs its threads' findings (__syncthreads_or) and one thread stores 1 to
-// the caller's zeroed int32 flag, which the wrapper reads on the device:
-// no step waits on the host. Scale runs the grid-stride sweep above.
+// the caller's zeroed flag (int32 for scale; for axpby a bool, which the
+// wrapper returns as found_inf as it is), read on the device: no step
+// waits on the host. Scale runs the grid-stride sweep above. Axpby's a
+// and b come by value when the caller has them as numbers, or from a
+// device buffer.
 // Axpby is a stream of its own: a thread owns kAxpbyU groups of E
 // elements a tile (E = 4 when x, y and out are all fp32, else 8, so a
 // bf16 operand moves as 16-byte vectors of 8 and an fp32 one as two
@@ -292,8 +310,9 @@ cudaError_t launch_adagrad(void* p, const void* g, void* h, void* delta,
 // scale and axpby, with the found-inf flag
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void raise_flag(bool bad, int* flag) {
-  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
+template <typename F>
+__device__ __forceinline__ void raise_flag(bool bad, F* flag) {
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = F(1);
 }
 
 // out = x * s; the flag is raised by a non-finite input
@@ -375,6 +394,13 @@ template <typename TX, typename TY, typename TO> struct AxpbyGroup {
 // groups a thread owns a tile
 constexpr int kAxpbyU = 4;
 
+// a and b: from the device buffer `dev` ([a, b] fp32) when it is not
+// null, else the values passed with it
+struct AxpbyScalars {
+  const float* dev;
+  float a, b;
+};
+
 // out = a * x + b * y in fp32, stored in TO; the flag is raised by a
 // non-finite fp32 result, before the narrowing. Tile t holds U * E *
 // kThreads elements, and thread i owns its groups u * kThreads + i (u <
@@ -383,10 +409,11 @@ constexpr int kAxpbyU = 4;
 template <typename TX, typename TY, typename TO, int U>
 __global__ void __launch_bounds__(kThreads)
 axpby_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
-             TO* __restrict__ out, const float* __restrict__ scalars,
-             int* __restrict__ flag, long long n) {
+             TO* __restrict__ out, const AxpbyScalars s,
+             bool* __restrict__ flag, long long n) {
   constexpr int E = AxpbyGroup<TX, TY, TO>::E;
-  const float a = scalars[0], b = scalars[1];
+  const float a = s.dev != nullptr ? s.dev[0] : s.a;
+  const float b = s.dev != nullptr ? s.dev[1] : s.b;
   bool bad = false;
   const long long tile = (long long)U * E * kThreads;
   for (long long t0 = (long long)blockIdx.x * tile; t0 < n;
@@ -425,7 +452,7 @@ axpby_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
 
 template <typename TX, typename TY, typename TO>
 cudaError_t launch_axpby(const void* x, const void* y, void* out,
-                         const void* scalars, void* flag, long long n,
+                         const AxpbyScalars& s, void* flag, long long n,
                          cudaStream_t stream) {
   constexpr long long tile =
       (long long)kAxpbyU * AxpbyGroup<TX, TY, TO>::E * kThreads;
@@ -434,21 +461,19 @@ cudaError_t launch_axpby(const void* x, const void* y, void* out,
   axpby_kernel<TX, TY, TO, kAxpbyU>
       <<<(unsigned)blocks, kThreads, 0, stream>>>(
           static_cast<const TX*>(x), static_cast<const TY*>(y),
-          static_cast<TO*>(out), static_cast<const float*>(scalars),
-          static_cast<int*>(flag), n);
+          static_cast<TO*>(out), s, static_cast<bool*>(flag), n);
   return cudaGetLastError();
 }
 
 template <typename TX, typename TY>
 cudaError_t axpby_out(int out_dtype, const void* x, const void* y, void* out,
-                      const void* scalars, void* flag, long long n,
+                      const AxpbyScalars& s, void* flag, long long n,
                       cudaStream_t st) {
   switch (out_dtype) {
     case kFloat32:
-      return launch_axpby<TX, TY, float>(x, y, out, scalars, flag, n, st);
+      return launch_axpby<TX, TY, float>(x, y, out, s, flag, n, st);
     case kBFloat16:
-      return launch_axpby<TX, TY, __nv_bfloat16>(x, y, out, scalars, flag, n,
-                                                 st);
+      return launch_axpby<TX, TY, __nv_bfloat16>(x, y, out, s, flag, n, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -456,14 +481,14 @@ cudaError_t axpby_out(int out_dtype, const void* x, const void* y, void* out,
 
 template <typename TX>
 cudaError_t axpby_y(int y_dtype, int out_dtype, const void* x, const void* y,
-                    void* out, const void* scalars, void* flag, long long n,
+                    void* out, const AxpbyScalars& s, void* flag, long long n,
                     cudaStream_t st) {
   switch (y_dtype) {
     case kFloat32:
-      return axpby_out<TX, float>(out_dtype, x, y, out, scalars, flag, n, st);
+      return axpby_out<TX, float>(out_dtype, x, y, out, s, flag, n, st);
     case kBFloat16:
-      return axpby_out<TX, __nv_bfloat16>(out_dtype, x, y, out, scalars, flag,
-                                          n, st);
+      return axpby_out<TX, __nv_bfloat16>(out_dtype, x, y, out, s, flag, n,
+                                          st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -473,9 +498,20 @@ cudaError_t axpby_y(int y_dtype, int out_dtype, const void* x, const void* y,
 // global L2 norm
 // ---------------------------------------------------------------------------
 
+// shared with kernels/_build.py (L2NORM_THREADS, L2NORM_UNROLL,
+// L2NORM_MAX_BLOCKS, L2NORM_MAX_BUFFERS), whose l2norm_geometry lays out
+// the blocks: a tile is kL2U 16-byte vectors of each of kL2Threads
+// threads, and a block sums a whole number of tiles (the last block of a
+// buffer: up to n)
 constexpr int kL2Threads = 256;
-constexpr int kL2Blocks = 4 * kSms;      // partials per buffer (fixed)
-constexpr int kL2FinishThreads = 512;
+constexpr int kL2U = 4;
+constexpr int kL2BlocksPerSm = 4;  // 64 KB of loads in flight an SM
+constexpr int kL2MaxBuffers = 32;
+
+// elements of one tile of T
+template <typename T> __host__ __device__ constexpr long long l2_tile() {
+  return (long long)kL2U * Vec<T>::N * kL2Threads;
+}
 
 // block-wide sum of one value per thread in a fixed tree: the same
 // inputs give the same bits whatever the order the warps ran in
@@ -493,46 +529,118 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;  // valid in thread 0
 }
 
-// pass 1: block b of kL2Blocks writes the fp32 sum of squares of the
-// elements it strides over to partial[b]
+// The buffers of one launch, passed by value: buffer k (fp32 or bf16,
+// dtype[k]) is summed by the blocks [first_block[k], first_block[k + 1]),
+// block j of them taking the elements [j * chunk[k], min((j + 1) *
+// chunk[k], n[k])). `first` is the index in the call of the launch's
+// first buffer, `total` the call's count of buffers: the launch with
+// first + groups == total finishes.
+struct L2Args {
+  const void* ptr[kL2MaxBuffers];
+  long long n[kL2MaxBuffers];
+  long long chunk[kL2MaxBuffers];
+  int first_block[kL2MaxBuffers + 1];
+  int dtype[kL2MaxBuffers];
+  int groups, first, total;
+};
+
+// load_vec with the streaming hint: every byte is read once
 template <typename T>
-__global__ void __launch_bounds__(kL2Threads)
-sumsq_kernel(const T* __restrict__ x, long long n, float* __restrict__ partial) {
-  __shared__ float red[kL2Threads / 32];
-  constexpr int N = Vec<T>::N;
-  const long long n_vec = n / N;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.f;
-  for (long long i = t0; i < n_vec; i += stride) {
-    float e[N];
-    load_vec<T>(x + i * N, e);
+__device__ __forceinline__ void load_vec_stream(const T* __restrict__ src,
+                                                float* dst) {
+  const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(src));
+  const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int k = 0; k < N; ++k) acc += e[k] * e[k];
-  }
-  for (long long i = n_vec * N + t0; i < n; i += stride) {
-    const float e = to_float<T>(x[i]);
-    acc += e * e;
-  }
-  const float total = block_sum<kL2Threads>(acc, red);
-  if (threadIdx.x == 0) partial[blockIdx.x] = total;
+  for (int i = 0; i < Vec<T>::N; ++i) dst[i] = to_float<T>(e[i]);
 }
 
-// pass 2, one block: each buffer's kL2Blocks partials summed in a fixed
-// tree, the buffers added in list order, then the square root
-__global__ void __launch_bounds__(kL2FinishThreads)
-l2norm_finish_kernel(const float* __restrict__ partial, int groups,
-                     float* __restrict__ out) {
-  __shared__ float red[kL2FinishThreads / 32];
-  float total = 0.f;
-  for (int g = 0; g < groups; ++g) {
-    float acc = 0.f;
-    for (int i = threadIdx.x; i < kL2Blocks; i += kL2FinishThreads)
-      acc += partial[g * kL2Blocks + i];
-    const float s = block_sum<kL2FinishThreads>(acc, red);
-    if (threadIdx.x == 0) total += s;
+// this thread's fp32 sum of squares over the block's range [lo, hi) of x:
+// kL2U 16-byte loads in flight a tile, each into its own accumulator,
+// folded in a fixed order; then the range's last, partial tile as whole
+// vectors and single elements. One pointer walks the tiles, and the
+// loads of a tile sit at constant offsets from it, so the loop holds
+// few registers beside its kL2U vectors.
+template <typename T>
+__device__ __forceinline__ float range_sumsq(const T* __restrict__ x,
+                                             long long lo, long long hi) {
+  constexpr int N = Vec<T>::N;
+  constexpr long long kTile = l2_tile<T>();
+  float acc[kL2U];
+#pragma unroll
+  for (int u = 0; u < kL2U; ++u) acc[u] = 0.f;
+  const int tiles = (int)((hi - lo) / kTile);
+  const T* p = x + lo + threadIdx.x * N;
+  for (int t = 0; t < tiles; ++t, p += kTile) {
+    float e[kL2U][N];
+#pragma unroll
+    for (int u = 0; u < kL2U; ++u)
+      load_vec_stream<T>(p + u * kL2Threads * N, e[u]);
+#pragma unroll
+    for (int u = 0; u < kL2U; ++u)
+#pragma unroll
+      for (int k = 0; k < N; ++k) acc[u] = fmaf(e[u][k], e[u][k], acc[u]);
   }
-  if (threadIdx.x == 0) *out = sqrtf(total);
+  const long long rest = lo + tiles * kTile;
+  const long long v_end = rest + (hi - rest) / N * N;
+  for (long long i = rest + threadIdx.x * N; i < v_end;
+       i += (long long)kL2Threads * N) {
+    float e[N];
+    load_vec<T>(x + i, e);
+#pragma unroll
+    for (int k = 0; k < N; ++k) acc[0] = fmaf(e[k], e[k], acc[0]);
+  }
+  for (long long i = v_end + threadIdx.x; i < hi; i += kL2Threads) {
+    const float e = to_float<T>(x[i]);
+    acc[0] = fmaf(e, e, acc[0]);
+  }
+  float s = acc[0];
+#pragma unroll
+  for (int u = 1; u < kL2U; ++u) s += acc[u];
+  return s;
+}
+
+// ws (fp32 words): [0] the ticket (a uint32, zero at launch), [1, 1 +
+// total) each buffer's sum of squares, then one partial a block of the
+// launch. The last block to arrive sums each buffer's partials, and on
+// the call's last launch adds the buffers in list order into *out.
+__global__ void __launch_bounds__(kL2Threads, kL2BlocksPerSm)
+l2norm_kernel(const L2Args a, float* __restrict__ ws,
+              float* __restrict__ out) {
+  __shared__ float red[kL2Threads / 32];
+  __shared__ bool last;
+  unsigned* ticket = reinterpret_cast<unsigned*>(ws);
+  float* sums = ws + 1;
+  float* partial = ws + 1 + a.total;
+  int k = 0;
+  while ((int)blockIdx.x >= a.first_block[k + 1]) ++k;
+  const long long lo = (long long)(blockIdx.x - a.first_block[k]) *
+                       a.chunk[k];
+  const long long hi = lo + a.chunk[k] < a.n[k] ? lo + a.chunk[k] : a.n[k];
+  const float s =
+      a.dtype[k] == kFloat32
+          ? range_sumsq(static_cast<const float*>(a.ptr[k]), lo, hi)
+          : range_sumsq(static_cast<const __nv_bfloat16*>(a.ptr[k]), lo, hi);
+  const float block_total = block_sum<kL2Threads>(s, red);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = block_total;
+    __threadfence();  // the partial is seen before the ticket moves
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int g = 0; g < a.groups; ++g) {
+    float acc = 0.f;
+    for (int i = a.first_block[g] + threadIdx.x; i < a.first_block[g + 1];
+         i += kL2Threads)
+      acc += __ldcg(partial + i);
+    const float sg = block_sum<kL2Threads>(acc, red);
+    if (threadIdx.x == 0) sums[a.first + g] = sg;
+  }
+  if (threadIdx.x == 0 && a.first + a.groups == a.total) {
+    float total = 0.f;
+    for (int g = 0; g < a.total; ++g) total += __ldcg(sums + g);
+    *out = sqrtf(total);
+  }
 }
 
 }  // namespace
@@ -638,66 +746,87 @@ extern "C" int apex_tpu_torch_scale_flat(const void* x, void* out,
   return cudaGetLastError();
 }
 
-// out [n] (out_dtype) = scalars[0] * x [n] (x_dtype) + scalars[1] * y [n]
-// (y_dtype), in fp32; scalars fp32 [2] and flag int32 [1] on the device.
-// Stores 1 to *flag when an fp32 result is not finite. n must be a
-// positive multiple of 4 and every pointer 16-byte aligned.
+// out [n] (out_dtype) = a * x [n] (x_dtype) + b * y [n] (y_dtype), in
+// fp32, where a and b are scalars[0] and scalars[1] (fp32 [2] on the
+// device) or, when scalars is null, the values a and b passed here. flag
+// is a bool [1] on the device: stores true when an fp32 result is not
+// finite. n must be a positive multiple of 4 and every pointer 16-byte
+// aligned.
 extern "C" int apex_tpu_torch_axpby_flat(const void* x, const void* y,
                                          void* out, const void* scalars,
-                                         void* flag, long long n, int x_dtype,
+                                         float a, float b, void* flag,
+                                         long long n, int x_dtype,
                                          int y_dtype, int out_dtype,
                                          void* stream) {
   if (n <= 0 || n % kV) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AxpbyScalars s{static_cast<const float*>(scalars), a, b};
   switch (x_dtype) {
     case kFloat32:
-      return axpby_y<float>(y_dtype, out_dtype, x, y, out, scalars, flag, n,
-                            st);
+      return axpby_y<float>(y_dtype, out_dtype, x, y, out, s, flag, n, st);
     case kBFloat16:
-      return axpby_y<__nv_bfloat16>(y_dtype, out_dtype, x, y, out, scalars,
-                                    flag, n, st);
+      return axpby_y<__nv_bfloat16>(y_dtype, out_dtype, x, y, out, s, flag,
+                                    n, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The number of fp32 partials each buffer needs in the workspace of
-// apex_tpu_torch_l2norm_flat.
-extern "C" int apex_tpu_torch_l2norm_blocks() { return kL2Blocks; }
-
-// out fp32 [1] = sqrt(sum over the `groups` buffers, in list order, of
-// the sum of squares of each). ptrs/ns/dtypes are host arrays of
-// `groups` entries: device pointers (16-byte aligned), element counts
-// and dtype codes. workspace is fp32 [groups * kL2Blocks] on the device.
-// Launches one pass per buffer and one finishing pass.
+// out fp32 [1] = sqrt(sum over the call's `total` buffers, in list order,
+// of the sum of squares of each), from the launch of the call's last
+// buffers; this launch takes the call's buffers [first, first + groups).
+// ptrs/ns/dtypes/blocks/chunks are host arrays of `groups` entries:
+// device pointers (16-byte aligned), element counts, dtype codes, blocks
+// a buffer and elements a block (kernels/flat_ops.py:l2norm_geometry).
+// workspace is fp32 [1 + total + the launch's blocks] on the device; its
+// first word is zeroed here. cudaErrorInvalidValue (nothing launched) for
+// a dtype, a count of buffers or a geometry the kernel was not built for.
 extern "C" int apex_tpu_torch_l2norm_flat(
-    const void* ptrs, const void* ns, const void* dtypes, int groups,
-    void* workspace, void* out, void* stream) {
-  if (groups <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const void* ptrs, const void* ns, const void* dtypes, const void* blocks,
+    const void* chunks, int groups, int first, int total, void* workspace,
+    void* out, void* stream) {
+  if (groups <= 0 || groups > kL2MaxBuffers || first < 0 ||
+      first + groups > total)
+    return cudaErrorInvalidValue;
   const void* const* p = static_cast<const void* const*>(ptrs);
   const long long* n = static_cast<const long long*>(ns);
   const int* dt = static_cast<const int*>(dtypes);
-  float* ws = static_cast<float*>(workspace);
+  const int* nb = static_cast<const int*>(blocks);
+  const long long* ch = static_cast<const long long*>(chunks);
+  L2Args a{};
+  a.groups = groups;
+  a.first = first;
+  a.total = total;
+  long long grid = 0;
   for (int g = 0; g < groups; ++g) {
-    if (n[g] < 0) return cudaErrorInvalidValue;
+    long long tile;
     switch (dt[g]) {
-      case kFloat32:
-        sumsq_kernel<float><<<kL2Blocks, kL2Threads, 0, st>>>(
-            static_cast<const float*>(p[g]), n[g], ws + g * kL2Blocks);
-        break;
-      case kBFloat16:
-        sumsq_kernel<__nv_bfloat16><<<kL2Blocks, kL2Threads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(p[g]), n[g],
-            ws + g * kL2Blocks);
-        break;
-      default:
-        return cudaErrorInvalidValue;
+      case kFloat32: tile = l2_tile<float>(); break;
+      case kBFloat16: tile = l2_tile<__nv_bfloat16>(); break;
+      default: return cudaErrorInvalidValue;
     }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    // whole tiles a block, every block's range non-empty (one empty block
+    // for an empty buffer), and n covered
+    const bool tiles = ch[g] > 0 && ch[g] % tile == 0 &&
+                       ch[g] / tile <= 0x7fffffffLL;
+    const bool fits = n[g] == 0 ? nb[g] == 1
+                                : nb[g] >= 1 && (nb[g] - 1) * ch[g] < n[g] &&
+                                      nb[g] * ch[g] >= n[g];
+    if (n[g] < 0 || !tiles || !fits) return cudaErrorInvalidValue;
+    a.ptr[g] = p[g];
+    a.n[g] = n[g];
+    a.chunk[g] = ch[g];
+    a.dtype[g] = dt[g];
+    a.first_block[g] = (int)grid;
+    grid += nb[g];
+    if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   }
-  l2norm_finish_kernel<<<1, kL2FinishThreads, 0, st>>>(
-      ws, groups, static_cast<float*>(out));
+  a.first_block[groups] = (int)grid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(workspace);
+  cudaError_t err = cudaMemsetAsync(ws, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return err;
+  l2norm_kernel<<<(unsigned)grid, kL2Threads, 0, st>>>(
+      a, ws, static_cast<float*>(out));
   return cudaGetLastError();
 }

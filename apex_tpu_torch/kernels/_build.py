@@ -70,6 +70,14 @@ SOFTMAX_ROWS_MAX_COLS = 2048
 #: portable cluster: ``kSubCols`` and ``kMaxSplits`` there)
 READ_SPLIT_COLS = 32
 READ_MAX_SPLITS = 8
+#: the global L2 norm (``csrc/flat_ops.cu``, ``l2norm_kernel``): threads a
+#: block, 16-byte loads a thread a tile, the most blocks a buffer (4 an SM
+#: of the H100's 132) and the most buffers a launch (``kL2Threads``,
+#: ``kL2U``, ``kL2BlocksPerSm * kSms`` and ``kL2MaxBuffers`` there)
+L2NORM_THREADS = 256
+L2NORM_UNROLL = 4
+L2NORM_MAX_BLOCKS = 4 * 132
+L2NORM_MAX_BUFFERS = 32
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -126,10 +134,11 @@ _SIGNATURES = {
     "apex_tpu_torch_scale_flat": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int,
         _c_void_p],
-    # x, y, out, scalars, flag, n, x's, y's and out's dtypes, stream
+    # x, y, out, scalars (or null), a, b (taken when scalars is null),
+    # flag, n, x's, y's and out's dtypes, stream
     "apex_tpu_torch_axpby_flat": [
-        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_longlong,
-        _c_int, _c_int, _c_int, _c_void_p],
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_float, _c_float,
+        _c_void_p, _c_longlong, _c_int, _c_int, _c_int, _c_void_p],
     # x, mask, y, rows, sq, sk, mask_ratio, scale, causal, dtype, route
     # (kernels/softmax.py:fwd_route), stream
     "apex_tpu_torch_softmax_fwd": [
@@ -139,10 +148,11 @@ _SIGNATURES = {
     "apex_tpu_torch_softmax_bwd": [
         _c_void_p, _c_void_p, _c_void_p, _c_longlong, _c_int, _c_float,
         _c_int, _c_void_p],
-    "apex_tpu_torch_l2norm_blocks": [],
+    # ptrs, ns, dtypes, blocks, chunks (host arrays), groups, first,
+    # total, workspace, out, stream
     "apex_tpu_torch_l2norm_flat": [
-        _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_void_p,
-        _c_void_p],
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+        _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p],
     "apex_tpu_torch_layer_norm_fwd": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_float, _c_int, _c_int, _c_int, _c_void_p],

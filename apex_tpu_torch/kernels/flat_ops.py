@@ -46,7 +46,8 @@ narrowing raise it. Their plain twins are :func:`scale_flat_plain` and
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -484,7 +485,8 @@ def axpby_flat(a, xbufs: Sequence[torch.Tensor], b,
     (default: x's dtype), ``found_inf`` a bool 0-d device tensor, True
     when any fp32 result is not finite (taken before the narrowing) — the
     master-grad accumulation of apex's ``unscale_with_stashed``. ``a``
-    and ``b`` are numbers or 0-d tensors. x and y are 1-D, fp32 or bf16
+    and ``b`` are numbers (passed to the kernel by value) or 0-d tensors
+    (read by the kernel on the device). x and y are 1-D, fp32 or bf16
     each (float16 is widened); a float16 output is computed in fp32 and
     narrowed, as the JAX function does. CUDA buffers launch the kernel
     once per pair (counted in ``axpby_flat.launches``); CPU buffers run
@@ -498,12 +500,17 @@ def axpby_flat(a, xbufs: Sequence[torch.Tensor], b,
     xw = [_widen(x) for x in xbufs]
     yw = [_widen(y) for y in ybufs]
     dev = xw[0].device
-    scalars = torch.stack([device_scalar(a, dev), device_scalar(b, dev)])
-    if not _build.on_cuda(*xw, *yw, scalars):
+    numbers = not isinstance(a, torch.Tensor) and \
+        not isinstance(b, torch.Tensor)
+    on_cuda = _build.on_cuda(*xw, *yw)
+    # numbers reach the kernel by value: no device scalars to build
+    scalars = None if numbers and on_cuda else \
+        torch.stack([device_scalar(a, dev), device_scalar(b, dev)])
+    if not on_cuda:
         outs, found = axpby_flat_plain(scalars, xw, yw, kernel_dt)
     else:
         lib = _build.library()
-        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        flag = torch.zeros(1, dtype=torch.bool, device=dev)
         outs = []
         for i, (x, y, dt) in enumerate(zip(xw, yw, kernel_dt)):
             n = x.numel()
@@ -516,12 +523,13 @@ def axpby_flat(a, xbufs: Sequence[torch.Tensor], b,
             _check_multiple(n, "axpby_flat")
             rc = lib.apex_tpu_torch_axpby_flat(
                 x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                scalars.data_ptr(), flag.data_ptr(), n, *codes,
-                _build.stream())
+                None if scalars is None else scalars.data_ptr(),
+                float(a) if numbers else 0.0, float(b) if numbers else 0.0,
+                flag.data_ptr(), n, *codes, _build.stream())
             _build.check(rc, "axpby_flat")
             axpby_flat.launches += 1
             outs.append(out)
-        found = flag[0] != 0
+        found = flag.reshape(())
     return [o if o.dtype == w else o.to(w) for o, w in zip(outs, want)], found
 
 
@@ -538,35 +546,85 @@ def l2norm_flat_plain(bufs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+@dataclasses.dataclass(frozen=True)
+class L2NormGeometry:
+    """The launch geometry of ``csrc/flat_ops.cu``'s ``l2norm_kernel`` for
+    one call: buffer i is summed by ``blocks[i]`` blocks of
+    ``chunks[i]`` elements each (the last one up to n); ``launches`` are
+    the ``[start, stop)`` runs of buffers that go in one launch each, in
+    list order; ``words`` is the fp32 workspace the launches index (the
+    ticket, one sum a buffer, one partial a block of the largest
+    launch)."""
+
+    blocks: Tuple[int, ...]
+    chunks: Tuple[int, ...]
+    launches: Tuple[Tuple[int, int], ...]
+    words: int
+
+
+def l2norm_geometry(ns: Sequence[int], dtypes: Sequence[torch.dtype]
+                    ) -> L2NormGeometry:
+    """Where each block of ``l2norm_flat``'s kernel reads. A tile is
+    ``_build.L2NORM_UNROLL`` 16-byte vectors of each of the block's
+    ``_build.L2NORM_THREADS`` threads; a buffer's tiles are dealt out in
+    contiguous runs of equal length to at most
+    ``_build.L2NORM_MAX_BLOCKS`` blocks (an empty buffer still gets one
+    block, which adds 0). A buffer's blocks and chunk depend on its n and
+    dtype alone, so a call sums each buffer in the same order whatever
+    the other buffers are. Up to ``_build.L2NORM_MAX_BUFFERS`` buffers go
+    in one launch."""
+    blocks, chunks = [], []
+    for n, dt in zip(ns, dtypes):
+        tile = _build.L2NORM_UNROLL * (16 // dt.itemsize) \
+            * _build.L2NORM_THREADS
+        tiles = max(1, -(-n // tile))
+        per_block = -(-tiles // min(tiles, _build.L2NORM_MAX_BLOCKS))
+        blocks.append(-(-tiles // per_block))
+        chunks.append(per_block * tile)
+    cap = _build.L2NORM_MAX_BUFFERS
+    launches = tuple((i, min(i + cap, len(blocks)))
+                     for i in range(0, len(blocks), cap))
+    words = 1 + len(blocks) + max(sum(blocks[a:b]) for a, b in launches)
+    return L2NormGeometry(tuple(blocks), tuple(chunks), launches, words)
+
+
+def _host_array(ctype, values) -> ctypes.c_void_p:
+    return ctypes.cast((ctype * len(values))(*values), ctypes.c_void_p)
+
+
 def l2norm_flat(bufs: Sequence[torch.Tensor]) -> torch.Tensor:
     """``amp_C.multi_tensor_l2norm`` in its global mode: the L2 norm of
     all the buffers together, a 0-d fp32 tensor on their device. Buffers
     are 1-D, fp32 or bf16 (float16 is widened to fp32, as the JAX
-    function does). CUDA buffers launch the two-pass kernel once per call
-    (counted in ``l2norm_flat.launches``); CPU buffers run the plain
+    function does). CUDA buffers launch the kernel once per call (and
+    once more per further ``_build.L2NORM_MAX_BUFFERS`` buffers), counted
+    once in ``l2norm_flat.launches``; CPU buffers run the plain
     version."""
     bufs = [_widen(b) for b in bufs]
     if not bufs:
         raise ValueError("l2norm_flat needs at least one buffer")
     if not _build.on_cuda(*bufs):
         return l2norm_flat_plain(bufs)
+    codes = [_build.dtype_code(b, f"l2norm_flat buffer {i}")
+             for i, b in enumerate(bufs)]
     for i, b in enumerate(bufs):
         _build.require(b, f"buffer {i}", (b.numel(),), b.dtype)
+    geo = l2norm_geometry([b.numel() for b in bufs], [b.dtype for b in bufs])
     dev = bufs[0].device
     lib = _build.library()
-    g = len(bufs)
-    ptrs = (ctypes.c_void_p * g)(*[b.data_ptr() for b in bufs])
-    ns = (ctypes.c_longlong * g)(*[b.numel() for b in bufs])
-    codes = (ctypes.c_int * g)(*[_build.dtype_code(b, "l2norm_flat buffer")
-                                 for b in bufs])
-    work = torch.empty(g * lib.apex_tpu_torch_l2norm_blocks(),
-                       dtype=torch.float32, device=dev)
+    work = torch.empty(geo.words, dtype=torch.float32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
-    rc = lib.apex_tpu_torch_l2norm_flat(
-        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ns, ctypes.c_void_p),
-        ctypes.cast(codes, ctypes.c_void_p), g, work.data_ptr(),
-        out.data_ptr(), _build.stream())
-    _build.check(rc, "l2norm_flat")
+    for start, stop in geo.launches:
+        part = range(start, stop)
+        rc = lib.apex_tpu_torch_l2norm_flat(
+            _host_array(ctypes.c_void_p, [bufs[i].data_ptr() for i in part]),
+            _host_array(ctypes.c_longlong, [bufs[i].numel() for i in part]),
+            _host_array(ctypes.c_int, codes[start:stop]),
+            _host_array(ctypes.c_int, geo.blocks[start:stop]),
+            _host_array(ctypes.c_longlong, geo.chunks[start:stop]),
+            stop - start, start, len(bufs), work.data_ptr(), out.data_ptr(),
+            _build.stream())
+        _build.check(rc, "l2norm_flat")
     l2norm_flat.launches += 1
     return out
 
@@ -577,5 +635,5 @@ __all__: List[str] = ["adagrad_flat", "adagrad_flat_plain",
                       "adagrad_scalars", "adam_flat", "adam_flat_plain",
                       "adam_scalars", "axpby_flat", "axpby_flat_plain",
                       "device_scalar", "l2norm_flat", "l2norm_flat_plain",
-                      "scale_flat", "scale_flat_plain", "sgd_flat",
-                      "sgd_flat_plain", "sgd_scalars"]
+                      "l2norm_geometry", "scale_flat", "scale_flat_plain",
+                      "sgd_flat", "sgd_flat_plain", "sgd_scalars"]

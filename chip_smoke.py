@@ -61,8 +61,12 @@ BERT-large width: vocab 30528, hidden 1024, 24 layers of 16 heads, seq
 11. BERT kernels vs plain — the LayerNorm forward and backward at
     [16384, 1024] bf16 with fp32 w/b and at a ragged [37, 513] fp32
     (dw/db bit-equal across two launches), ``l2norm_flat`` (bit-equal
-    across launches) and ``adam_flat`` in delta mode (p untouched) on the
-    335.2M model's padded fp32 group, and the flash forward and backward
+    across launches; its tails in fp32 and bf16 at n = 1, 7, 4097, a
+    tile +- 4 and several tiles a block, five mixed buffers and more
+    buffers than one launch takes, all against the plain twin; one
+    kernel and its ticket's memset a call, by ``torch.profiler``; timed
+    in fp32 and bf16) and ``adam_flat`` in delta mode (p untouched) on
+    the 335.2M model's padded fp32 group, and the flash forward and backward
     with ``causal=False`` at b=32 s=512 (the backward also in fp32 at
     b=2, 8 key tiles), timed as in phase 3;
 12. BERT gradients — one ``mlm_loss`` gradient at batch 4 through the
@@ -3220,7 +3224,7 @@ KERNEL_CATEGORIES = (
     ("flash_fwd", ("flash_fwd_bsh",)), ("flash_bwd", ("flash_bwd_",)),
     ("adam_flat", ("adam_kernel",)),
     ("layer_norm", ("ln_fwd_kernel", "ln_bwd_")),
-    ("l2norm_flat", ("sumsq_kernel", "l2norm_finish")),
+    ("l2norm_flat", ("l2norm_kernel",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
     ("concat (packing, unbind backward)", ("CatArrayBatchedCopy",)),
     ("reduction", ("reduce_kernel",)),
@@ -3305,6 +3309,82 @@ def _ln_rows(dev, rows, hidden, dtype, w_dtype, seed):
     x = (mk(rows, hidden) * 2 + 0.5).to(dtype)
     return x, mk(hidden, dt=w_dtype), mk(hidden, dt=w_dtype), mk(
         rows, hidden, dt=dtype)
+
+
+def device_ops(fn, calls: int = 4, tries: int = 4,
+               margin_s: float = 0.25) -> dict:
+    """The device work of one call of ``fn`` by ``torch.profiler``:
+    ``{name: (launches a call, device us a call)}``, kernels and memsets
+    alike, over a window of ``calls`` calls after a warm-up call. Soon
+    after the train profiles in this process, windows of a few
+    milliseconds and of 1 s kept no device record, where the profiles'
+    own windows keep theirs and a 4 s one kept them: so the window stays
+    open ``margin_s`` before the first call and after the device has
+    finished the last, and a window in which the profiler saw no device
+    work is taken again with a margin 4 times as wide, up to ``tries``
+    times; ``{}`` means it never saw any."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin_s * 4 ** attempt)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(margin_s * 4 ** attempt)
+        ops = {e.key: (e.count / calls, e.self_device_time_total / calls)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")}
+        if ops:
+            return ops
+        log(f"profiler: no device work seen in window {attempt + 1} of "
+            f"{tries} (margin {margin_s * 4 ** attempt} s)")
+    return {}
+
+
+def l2_tails(dev):
+    """``l2norm_flat``'s tail shapes on the card, each against the plain
+    twin: fp32 and bf16 at n = 1, 7, 4097, one tile - 4 and + 4 (a tile:
+    ``_build.L2NORM_UNROLL`` 16-byte vectors of each of the block's
+    threads) and 9,000,007 (several tiles a block, the last range cut
+    mid-tile), five mixed buffers in one launch, and 37 buffers (two
+    launches, the first without the finish). Returns the worst relative
+    error."""
+    from apex_tpu_torch.kernels import _build, l2norm_flat, l2norm_flat_plain
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    mk = lambda n, dt: (torch.randn(n, generator=g, device=dev)
+                        * 0.5).to(dt)
+    worst = 0.0
+
+    def hold(what, bufs):
+        nonlocal worst
+        got, want = l2norm_flat(bufs), l2norm_flat_plain(bufs)
+        torch.cuda.synchronize()
+        rel = abs(float(got) - float(want)) / float(want)
+        check(close(got, want, dict(atol=0.0, rtol=1e-4)),
+              f"l2norm_flat {what}: {float(got)} vs plain {float(want)}")
+        worst = max(worst, rel)
+
+    for dt in (torch.float32, torch.bfloat16):
+        tile = (_build.L2NORM_UNROLL * (16 // dt.itemsize)
+                * _build.L2NORM_THREADS)
+        for n in (1, 7, 4097, tile - 4, tile + 4, 9_000_007):
+            hold(f"{dt} n={n}", [mk(n, dt)])
+    bf, f32 = torch.bfloat16, torch.float32
+    mixed = [mk(7, f32), mk(4097, bf), mk(4100, f32), mk(1, bf),
+             mk(9_000_007, f32)]
+    hold("five mixed buffers", mixed)
+    check(torch.equal(l2norm_flat(mixed), l2norm_flat(mixed)),
+          "l2norm_flat: five mixed buffers differ between launches")
+    many = [mk(1 + 977 * i, (f32, bf)[i % 2]) for i in range(37)]
+    hold("37 buffers (two launches)", many)
+    return worst
 
 
 def phase_bert_kernels(bcfg):
@@ -3423,7 +3503,27 @@ def phase_bert_kernels(bcfg):
     mixed = [gr[: n // 2], p[: n // 2].to(bf16)]
     check(close(l2norm_flat(mixed), l2norm_flat_plain(mixed),
                 dict(atol=0.0, rtol=1e-4)), "l2norm_flat fp32+bf16 groups")
+    tail_err = l2_tails(dev)
+    ops = device_ops(lambda: l2norm_flat([gr]))
+    kernels = [n for k, (n, _) in ops.items() if "l2norm_kernel" in k]
+    memsets = [(n, us) for k, (n, us) in ops.items()
+               if "memset" in k.lower()]
+    check(kernels == [1.0] and [n for n, _ in memsets] == [1.0]
+          and len(ops) == 2,
+          f"l2norm_flat: a call ran {ops}, expected one l2norm_kernel and "
+          f"one memset")
     l2b, l2by = bound(4 * n + 4, 2 * n, FP32_FLOPS_PER_S)
+    gb = gr.to(bf16)
+    l2bb, l2bby = bound(2 * n + 4, 2 * n, FP32_FLOPS_PER_S)
+    bf16_row = dict(
+        ms=time_ms(lambda: l2norm_flat([gb]), **TRAIN_TIMING),
+        plain_ms=time_ms(lambda: l2norm_flat_plain([gb]), **TRAIN_TIMING),
+        bound_ms=l2bb, bound_by=l2bby,
+        library_ms=time_ms(lambda: torch.linalg.vector_norm(
+            gb, dtype=torch.float32), **TRAIN_TIMING),
+        library="torch.linalg.vector_norm(x, dtype=torch.float32)",
+        shape=f"one bf16 buffer of n={n}")
+    del gb
     rows["l2norm_flat"] = dict(
         name="l2norm_flat", route="cuda",
         source="apex_tpu_torch/csrc/flat_ops.cu",
@@ -3435,9 +3535,16 @@ def phase_bert_kernels(bcfg):
         bound_ms=l2b, bound_by=l2by,
         library_ms=time_ms(lambda: torch.linalg.vector_norm(gr),
                            **TRAIN_TIMING),
-        shape=f"one fp32 buffer of n={n} (BERT-large, padded)")
+        library="torch.linalg.vector_norm",
+        shape=f"one fp32 buffer of n={n} (BERT-large, padded)",
+        device_ops_per_call=sorted(ops), memset_us=memsets[0][1],
+        tail_max_rel_err=tail_err, bf16=bf16_row)
     log(f"l2norm_flat n={n}: {float(norm):.6f} vs plain {float(ref):.6f} "
-        f"(rtol 1e-4), bit-equal across launches; fp32+bf16 groups ok")
+        f"(rtol 1e-4), bit-equal across launches; fp32+bf16 groups and "
+        f"tails ok (worst rel err {tail_err:.3e}); a call ran {ops}; "
+        f"{rows['l2norm_flat']['ms']:.4f} ms vs vector_norm "
+        f"{rows['l2norm_flat']['library_ms']:.4f} (bound {l2b:.4f}); "
+        f"bf16 {json.dumps(bf16_row)}")
 
     hp = dict(lr=1.0, b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01,
               bias_correction1=1 - 0.9 ** 3, bias_correction2=1 - 0.999 ** 3,
@@ -5638,6 +5745,11 @@ def phase_l3_flat_kernels(tcfg):
         lambda: axpby_flat_plain(ab, [x], [y], [torch.float32]), 12 * n,
         3 * n, time_ms(lambda: torch.add(y, x, alpha=s), **TRAIN_TIMING),
         "torch.add(y, x, alpha=a)", f"fp32 x, y of n={n}")
+    rows["axpby_flat"]["device_ops_per_call"] = {
+        k: n for k, (n, _) in device_ops(
+            lambda: axpby_flat(s, [x], 1.0, [y])).items()}
+    log(f"axpby_flat with numbers a, b: one call ran "
+        f"{rows['axpby_flat']['device_ops_per_call']}")
     del groups, ys, lib_x, found
 
     # -- adagrad: small bf16 group (delta mode, skip), then the 355M group
@@ -6524,6 +6636,7 @@ def main() -> int:
     l3_rows["adagrad_flat"]["launches"] = ada["flat"]["launches"][
         "adagrad_flat"]
     l3_rows["adagrad_flat"]["launches_l3_loop"] = l3_counts["adagrad_flat"]
+    rows["l2norm_flat"]["launches_l3_loop"] = l3_counts["l2norm_flat"]
     rows.update(l3_rows)
     for r in sm_rows.values():
         r["launches"] = sm_counts[r["name"]]
