@@ -19,21 +19,23 @@
 //   _write_cols_kernel_quant, _paged_write_kernel_quant,
 //   _paged_write_cols_kernel_quant) are write_columns_quant_kernel, and
 //   _run_attn_quant and paged_attention_quantized (bodies
-//   _attn_kernel_quant, _paged_attn_kernel_quant) are
-//   decode_attn_quant_kernel and paged_attn_quant_kernel.
+//   _attn_kernel_quant, _paged_attn_kernel_quant) are the quantized
+//   instantiations of the one split read, decode_read_split_kernel.
 //
 // What bounds them on an H100: all are memory-bound. A write moves
-// 2 x b x T x h x d elements each way. The read moves, per (batch,
-// head) row, q plus the K and V rows of columns 0..pos[b]: at GPT
-// 355M's serving shapes (b 8, h 16, horizon 192, d 64, bf16) at most
-// ~6 MB per layer, at the 2.7B's (h 32, d 80, horizon 1024) ~84 MB,
-// against 4 x d flops per column and head: about one flop a byte, far
-// under the ~295 flops a byte at which Hopper's tensor cores, not its
-// memory, would be the limit. So the reads (rows 10 and 17) keep their
-// math in fp32 on the CUDA cores: every config of the repo is
-// multi-head with one query row per (batch, head), no group of query
-// heads shares a K row, and an mma.sync would waste 15 of its 16 rows.
-// What a read has to do is keep enough bytes in flight on every SM.
+// 2 x b x T x h x d elements each way. A read moves, per (batch, head)
+// row, q plus the K and V rows of columns 0..pos[b] (and, quantized, a
+// byte a value and two fp32 scales a column): at GPT 355M's serving
+// shapes (b 8, h 16, horizon 192, d 64, bf16) at most ~6 MB per layer,
+// at the 2.7B's (h 32, d 80, horizon 1024) ~84 MB (int8: ~44 MB),
+// against 4 x d flops per column and head: about one flop a byte (two
+// quantized), far under the ~295 flops a byte at which Hopper's tensor
+// cores, not its memory, would be the limit. So the four reads (rows 10,
+// 12, 17 and 18) keep their math in fp32 on the CUDA cores: every config
+// of the repo is multi-head with one query row per (batch, head), no
+// group of query heads shares a K row, and an mma.sync would waste 15 of
+// its 16 rows. What a read has to do is keep enough bytes in flight on
+// every SM.
 //
 // What the design does about it:
 // - All four writes are one kernel (write_columns_kernel), one launch
@@ -50,16 +52,19 @@
 //   wins; here the blocks run in parallel, so only the row's last lane
 //   writes the clamped column and the result is the same, every run.
 //   The one-column writes never write outside the row's horizon.
-// - The plain reads (rows 10 and 17) split each (batch, head) row's
-//   horizon over a thread-block cluster (decode_read_split_kernel). The
-//   Pallas kernels walk the horizon as a sequential grid axis with
-//   (m, l, acc) carried in VMEM; here split s of n covers logical
-//   columns [s L, (s + 1) L), with L a multiple of 32 and n <= 8 taken
-//   from the horizon and d alone on the host (the wrappers'
-//   read_splits), never from pos, so nothing waits on the host. At the
-//   2.7B's decode shape that is 8 splits of 128 columns: 2048 blocks
-//   where one block a row gave 256 for 132 SMs. A split that starts
-//   past pos[b] exits at once (a cluster's barriers wait only for
+// - The four reads are one kernel, decode_read_split_kernel<T, S, DP,
+//   kPaged>: q and the output are T (fp32, bf16 or fp16), the rows are
+//   stored and staged as S (T for rows 10 and 17; int8 or fp8 e4m3 for
+//   rows 12 and 18, whose fp32 scale planes are staged beside them), and
+//   kPaged picks the pools. Each (batch, head) row's horizon is split
+//   over a thread-block cluster. The Pallas kernels walk the horizon as
+//   a sequential grid axis with (m, l, acc) carried in VMEM; here split
+//   s of n covers logical columns [s L, (s + 1) L), with L a multiple of
+//   32 and n <= 8 taken from the horizon and d alone on the host (the
+//   wrappers' read_splits), never from pos, so nothing waits on the
+//   host. At the 2.7B's decode shape that is 8 splits of 128 columns:
+//   2048 blocks where one block a row gave 256 for 132 SMs. A split that
+//   starts past pos[b] exits at once (a cluster's barriers wait only for
 //   threads that have not exited), so it holds no SM slot.
 // - Each block stages its split's K and V rows in shared memory with
 //   16-byte cp.async copies, neighbouring threads on neighbouring
@@ -69,25 +74,41 @@
 //   of kSubCols columns: the next sub-tile's copies are in flight while
 //   the current one is scored and summed. A deeper ring measured slower
 //   (its shared memory leaves fewer blocks on an SM). Rows whose bytes
-//   no 16 divides (bf16 at d = 100) copy in 8-, 4- or 2-byte units, a
-//   block-uniform choice.
+//   no 16 divides (bf16 at d = 100, int8 at d = 72 or 100) copy in 8-,
+//   4-, 2- or 1-byte units, a block-uniform choice. The quantized rows
+//   are staged as stored, a byte a value; each column's two fp32 scales
+//   land beside them in a 2 x kSubCols region of the ring stage, one
+//   4-byte cp.async each (a paged scale run starts mid-page whenever P
+//   does not divide 32, so no wider unit is safe), in the same commit
+//   group as the rows.
 // - Inside a block each warp owns 8 columns of a sub-tile: four lanes
 //   score a column (q from shared memory, K by 16-byte vectors where
-//   rows allow) and add their parts in a fixed order; the warp keeps an
-//   fp32 online softmax (m, l, acc) with lanes over d for P.V, V read
-//   from shared memory by consecutive lanes. The warps then merge in
-//   warp order, and each live split pushes its (m, l, acc) into slot s
-//   of the split-0 block's shared memory (distributed shared memory),
-//   arrives on an mbarrier there and exits; the split-0 block waits on
-//   it, then merges the slots in split order, scales each by exp(m_s -
-//   m) and writes out, rounded once, l floored at 1e-30: one launch, no
-//   workspace, no atomics, the same bits every launch. The one cluster
-//   barrier (arrived at the start, waited on before the push) only
-//   makes sure the split-0 block has started and set its mbarrier up.
-// - The contiguous and the paged read are ONE kernel that differs only
-//   in where column c's row is copied from: the same bytes land in the
-//   same shared-memory cells and are summed in the same order, so paged
-//   decode equals contiguous decode bit for bit at the same horizon.
+//   rows allow: 4 fp32 or 8 bf16 or fp16 values a load; one-byte rows by
+//   4-byte words, so the quad's lanes share a d of 80 evenly) and add
+//   their parts in a fixed order; the warp keeps an fp32 online
+//   softmax (m, l, acc) with lanes over d for P.V, V read from shared
+//   memory by consecutive lanes. The warps then merge in warp order, and
+//   each live split pushes its (m, l, acc) into slot s of the split-0
+//   block's shared memory (distributed shared memory), arrives on an
+//   mbarrier there and exits; the split-0 block waits on it, then merges
+//   the slots in split order, scales each by exp(m_s - m) and writes
+//   out, rounded once, l floored at 1e-30: one launch, no workspace, no
+//   atomics, the same bits every launch. The one cluster barrier
+//   (arrived at the start, waited on before the push) only makes sure
+//   the split-0 block has started and set its mbarrier up.
+// - The quantized reads fold the scales as _attn_kernel_quant does: the
+//   score is (q . k_int) * s_k * scale, and column j's V row is weighted
+//   by p_j * s_v while l sums the unscaled p_j. int8 widens to fp32
+//   around the conversion unit, which runs at a quarter of the FMA rate:
+//   the byte, placed in the low bits of the float 2^23 (or 1.5 * 2^23),
+//   is one add away from its value; fp8 widens in pairs by the hardware
+//   e4m3x2 -> f16x2 conversion and then to fp32. Both are exact. So a
+//   quantized read moves ~(d + 4) / (2 d) of the bf16 cache's bytes.
+// - The contiguous and the paged read differ only in where column c's
+//   row (and scale) is copied from: the same bytes land in the same
+//   shared-memory cells and are summed in the same order, so paged
+//   decode equals contiguous decode bit for bit at the same horizon,
+//   plain or quantized.
 // - Any head width d from 1 to kMaxHeadDim (128, the head-major flash
 //   kernels' cap): the reads are built for the padded width DP, d rounded
 //   up to 32, 64, 96 or 128, and lane t of a warp owns dims t + 32 i
@@ -95,29 +116,20 @@
 //   memory (the real d, at run time); q's padded dims are zeros in
 //   shared memory, a lane's dims at or past d are never loaded or
 //   stored, and the score's dot product runs over the d real dims only.
-// - fp32, bf16 and fp16 rows, each widened to fp32 in registers (the
-//   wrappers pass fp16 as it is).
+// - fp32, bf16 and fp16 q and rows, each widened to fp32 in registers
+//   (the wrappers pass fp16 as it is).
 // - Columns past pos[b] are never read: splits and sub-tiles end at
-//   pos, and only columns <= pos are copied, scored and summed. Stale
-//   bytes past pos (what a retired request or an uninitialised buffer
-//   left, NaN included; a recycled page; the sink page) therefore
-//   contribute exact zeros, which is what decode_attention.py:297-301
-//   guards against.
+//   pos, and only columns <= pos are copied (their scales included),
+//   scored and summed. Stale bytes past pos (what a retired request or
+//   an uninitialised buffer left, NaN included, in a row or a scale; a
+//   recycled page; the sink page) therefore contribute exact zeros,
+//   which is what decode_attention.py:297-301 guards against.
 // - Scores are fp32 and scaled in fp32, as in _attn_kernel.
 // - The quantized writes keep write_columns_kernel's grid, addressing
 //   and clamp; each warp quantizes whole head rows in registers (absmax
 //   by a warp reduction, then the one quantizer, KvQuant) and stores a
 //   byte a value and one fp32 scale a row, so a write moves ~1/2 (bf16
 //   in) of the bytes it would store unquantized.
-// - The quantized reads (rows 12 and 18) are still one block a (batch,
-//   head) row (attend_row): its 4 warps take 32-column chunks of the
-//   horizon in turn, each lane scoring one column, V rows loaded
-//   kVAhead ahead of their sums, the warps merged in warp order. A
-//   column's int8 or fp8 row widens to fp32 in registers and its two
-//   scales fold into the score and the probability, so the sweep reads
-//   ~(d + 4) / (2 d) of the bf16 cache's bytes. The split read's
-//   staging takes the storage type apart from q's, so a dequantizing
-//   load with the scale planes staged beside can move them onto it.
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -128,9 +140,11 @@
 
 namespace apex_tpu_torch {
 
-// the quantized cache's storage types, widened to fp32 exactly
+// the quantized cache's storage types, widened to fp32 exactly. int8
+// goes around the conversion unit (a quarter of the FMA rate): the bits
+// 0x4B400000 + x are the float 1.5 * 2^23 + x, an add away from x
 template <> __device__ __forceinline__ float to_float<int8_t>(int8_t x) {
-  return static_cast<float>(x);
+  return __int_as_float(0x4B400000 + static_cast<int>(x)) - 12582912.f;
 }
 template <> __device__ __forceinline__ float to_float<__nv_fp8_e4m3>(
     __nv_fp8_e4m3 x) {
@@ -143,17 +157,41 @@ template <> __device__ __forceinline__ float to_float<__half>(__half x) {
 template <> __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half_rn(x);
 }
+// The 4 one-byte values of one 4-byte word in shared memory, widened to
+// fp32 exactly. int8: byte b with its sign bit flipped is x + 128, and as
+// the low byte of the float 2^23 (0x4B000000) it is 2^23 + 128 + x, one
+// byte permute and one add; fp8 e4m3 in pairs by the hardware e4m3x2 ->
+// f16x2 conversion, then to fp32.
+template <typename S>
+__device__ __forceinline__ void load_word(const S* __restrict__ src,
+                                          float* dst);
+template <>
+__device__ __forceinline__ void load_word<int8_t>(
+    const int8_t* __restrict__ src, float* dst) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(src) ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    dst[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | b)) -
+             8388736.f;
+}
+template <>
+__device__ __forceinline__ void load_word<__nv_fp8_e4m3>(
+    const __nv_fp8_e4m3* __restrict__ src, float* dst) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(w >> (16 * i)), __NV_E4M3)));
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
 
 namespace {
 
 constexpr int kWriteThreads = 256;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 // the widest head the reads take (_build.HM_MAX_HEAD_DIM)
 constexpr int kMaxHeadDim = 128;
-// V rows a warp of the quantized reads loads ahead of summing them: the
-// loads' latencies overlap instead of adding up column by column
-constexpr int kVAhead = 8;
 // The split read: a block of kSplitWarps warps a (row, split); a
 // sub-tile of kSubCols columns (kColsPerWarp a warp), kReadRing of them
 // staged in shared memory at once; at most kMaxSplits splits a row (the
@@ -164,6 +202,15 @@ constexpr int kSubCols = 32;
 constexpr int kColsPerWarp = kSubCols / kSplitWarps;
 constexpr int kReadRing = 2;
 constexpr int kMaxSplits = 8;
+// the bytes of a one-byte K row a lane of the scoring quad takes at a
+// time (4-byte words: a quad's lanes take a d of 80 in 5 words each, where
+// 16-byte vectors would give one lane 2 of the 5)
+constexpr int kQuantKBytes = 4;
+
+// rows stored a byte a value (int8 or fp8 e4m3) beside fp32 scales
+template <typename S>
+constexpr bool kQuantRows =
+    std::is_same_v<S, int8_t> || std::is_same_v<S, __nv_fp8_e4m3>;
 
 // A type as a value, for the dispatchers below
 template <typename T> struct Tag {
@@ -328,157 +375,8 @@ write_columns_quant_kernel(const In* __restrict__ k_new,
   }
 }
 
-// Cell of column c inside one (batch, head) row of the contiguous cache
-// (the data row starts d elements per cell further, the scale at the
-// cell): the row bases are k_cache + r * S * d and k_scale + r * S.
-struct ContiguousCols {
-  __device__ __forceinline__ size_t operator()(int c) const {
-    return (size_t)c;
-  }
-};
-
-// ... and of the paged pool: the bases are the pools themselves, and
-// column c lives in page table[b, c / P] at offset c % P of head `head`.
-struct PagedCols {
-  const int* row_table;
-  int head, h, P;
-
-  __device__ __forceinline__ size_t operator()(int c) const {
-    const int page = row_table[c / P];
-    return ((size_t)page * h + head) * P + c % P;
-  }
-};
-
-// The quantized reads' sweep of one (batch, head) row: q [d] attends
-// over columns 0..p; column c's int8 or fp8 K and V rows are at kb +
-// col(c) * d and vb + col(c) * d, its fp32 scales at ksb[col(c)] and
-// vsb[col(c)]. DP is d rounded up to a multiple of 32: lane t of a warp
-// owns dims t + 32 i of the P.V accumulator, those at or past d idle.
-// The K scale folds into the score, (q . k_int) * s_k * scale, and the V
-// scale into the probability, (p * s_v) . v_int, as _attn_kernel_quant
-// does. A column past p is never loaded, its scales included.
-template <typename T, typename S, int DP, typename Cols>
-__device__ __forceinline__ void attend_row(const T* __restrict__ qr,
-                                           const S* __restrict__ kb,
-                                           const float* __restrict__ ksb,
-                                           const S* __restrict__ vb,
-                                           const float* __restrict__ vsb,
-                                           const Cols& col, int p, int d,
-                                           float scale,
-                                           T* __restrict__ outr) {
-  static_assert(DP % 32 == 0 && DP <= kMaxHeadDim, "padded head width");
-  constexpr int DPL = DP / 32;
-  constexpr int VEC = Vec<S>::N;
-  __shared__ float qs[DP];
-  __shared__ float ms[kWarps];
-  __shared__ float ls[kWarps];
-  __shared__ float accs[kWarps][DP];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  // every K row starts on a 16-byte boundary (the wrappers check the
-  // bases) exactly when d is a multiple of the vector width
-  const bool vec = d % VEC == 0;
-
-  for (int i = tid; i < DP; i += kThreads)
-    qs[i] = i < d ? to_float<T>(qr[i]) : 0.f;
-  __syncthreads();
-
-  float m = kNeg, l = 0.f, acc[DPL];
-#pragma unroll
-  for (int t = 0; t < DPL; ++t) acc[t] = 0.f;
-
-  const int n_chunks = p / 32 + 1;  // chunks holding columns 0..p
-  for (int c = warp; c < n_chunks; c += kWarps) {
-    const int cc = c * 32 + lane;
-    const bool valid = cc <= p;
-    float s = kNeg;
-    size_t cell = 0;
-    if (valid) {
-      cell = col(cc);
-      const S* krow = kb + cell * d;
-      float dot = 0.f;
-      if (vec) {
-#pragma unroll
-        for (int e0 = 0; e0 < DP; e0 += VEC) {
-          if (e0 < d) {
-            float t[VEC];
-            load_vec<S>(krow + e0, t);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * t[e];
-          }
-        }
-      } else {
-        for (int e = 0; e < d; ++e) dot += qs[e] * to_float<S>(krow[e]);
-      }
-      s = dot * ksb[cell] * scale;
-    }
-    const float m_new = fmaxf(m, warp_max(s));
-    const float corr = expf(m - m_new);
-    const float prob = valid ? expf(s - m_new) : 0.f;
-    l = corr * l + warp_sum(prob);
-    // the weight of this lane's V row: the probability, times its scale
-    const float pv = valid ? prob * vsb[cell] : prob;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[t] *= corr;
-    const int jn = min(32, p - c * 32 + 1);  // columns <= p in this chunk
-    for (int j0 = 0; j0 < jn; j0 += kVAhead) {
-      // kVAhead V rows loaded before any is summed (a step past jn
-      // re-reads the chunk's last column and adds nothing), then folded
-      // in column order; a lane's dims at or past d hold zeros
-      float v[kVAhead][DPL];
-#pragma unroll
-      for (int u = 0; u < kVAhead; ++u) {
-        const S* vrow = vb + col(c * 32 + min(j0 + u, jn - 1)) * d;
-#pragma unroll
-        for (int t = 0; t < DPL; ++t)
-          v[u][t] = lane + 32 * t < d ? to_float<S>(vrow[lane + 32 * t])
-                                      : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kVAhead; ++u) {
-        const float pj = __shfl_sync(0xffffffffu, pv, (j0 + u) & 31);
-        if (j0 + u < jn) {
-#pragma unroll
-          for (int t = 0; t < DPL; ++t) acc[t] += pj * v[u][t];
-        }
-      }
-    }
-    m = m_new;
-  }
-
-  if (lane == 0) {
-    ms[warp] = m;
-    ls[warp] = l;
-  }
-#pragma unroll
-  for (int t = 0; t < DPL; ++t) accs[warp][lane + 32 * t] = acc[t];
-  __syncthreads();
-  if (warp == 0) {
-    float mx = kNeg;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w]);
-    float lsum = 0.f, o[DPL];
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) o[t] = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      // a warp that swept no chunk holds (kNeg, 0, 0): its factor is 0
-      const float f = expf(ms[w] - mx);
-      lsum += ls[w] * f;
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) o[t] += accs[w][lane + 32 * t] * f;
-    }
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
-#pragma unroll
-    for (int t = 0; t < DPL; ++t)
-      if (lane + 32 * t < d) outr[lane + 32 * t] = from_float<T>(o[t] * inv);
-  }
-}
-
 // global -> shared copies of N bytes: cp.async for 16 (.cg, around L1),
-// 8 and 4 (.ca); two bytes by a plain load and store
+// 8 and 4 (.ca); two bytes and one by a plain load and store
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -495,9 +393,11 @@ __device__ __forceinline__ void copy_unit(char* dst, const char* src) {
                      smem_addr(dst)),
                  "l"(src), "n"(N)
                  : "memory");
-  } else {
+  } else if constexpr (N == 2) {
     *reinterpret_cast<uint16_t*>(dst) =
         *reinterpret_cast<const uint16_t*>(src);
+  } else {
+    *dst = *src;
   }
 }
 
@@ -604,32 +504,59 @@ __device__ __forceinline__ void stage_pages(char* ks, char* vs,
 }
 
 // f(std::integral_constant<int, N>{}) for a copy unit of N = 16, 8, 4 or
-// 2 bytes
-template <typename F>
+// 2 bytes, or 1 for rows of one-byte S (int8 or fp8 at an odd d)
+template <typename S, typename F>
 __device__ __forceinline__ void with_unit(int unit, F&& f) {
   switch (unit) {
     case 16: return f(std::integral_constant<int, 16>{});
     case 8: return f(std::integral_constant<int, 8>{});
     case 4: return f(std::integral_constant<int, 4>{});
-    default: return f(std::integral_constant<int, 2>{});
+    default:
+      if constexpr (sizeof(S) == 1) {
+        if (unit == 1) return f(std::integral_constant<int, 1>{});
+      }
+      return f(std::integral_constant<int, 2>{});
   }
 }
 
-// The plain reads (rows 10 and 17): out [b, h, d] = softmax(scale * q .
-// K[:, :pos+1]) . V[:, :pos+1] per (batch, head) row, over the contiguous
-// cache (kPaged false: k/v [b, h, horizon, d]) or the pools (kPaged: k/v
-// [num_pages, h, P, d] under table [b, mp], horizon mp * P). The grid is
-// n_splits blocks a row, each row's blocks one cluster; block rank s
-// reads columns [s * split_cols, (s + 1) * split_cols) up to pos. Rows
-// are S in memory and in shared memory (the staged storage type, T for
-// these reads; a dequantizing read would stage int8 or fp8 rows and
-// their scales). The dynamic shared memory holds the ring, kReadRing x
-// (K, V) x kSubCols rows of d x sizeof(S) bytes, then (kPaged) the
-// split's page numbers.
+// The fp32 scales of columns [c, c + nc) of one (batch, head) row into
+// ss (K's at [0, nc), V's at [kSubCols, kSubCols + nc)), one 4-byte
+// cp.async a scale from the block's first two warps; cell(cc) is column
+// cc's index in a scale plane (contiguous, or through the page table).
+template <typename Cell>
+__device__ __forceinline__ void stage_scales(float* ss,
+                                             const float* __restrict__ k_s,
+                                             const float* __restrict__ v_s,
+                                             int c, int nc, const Cell& cell) {
+  const int i = threadIdx.x;
+  const int j = i % kSubCols;
+  if (i < 2 * kSubCols && j < nc)
+    copy_unit<4>(reinterpret_cast<char*>(ss + i),
+                 reinterpret_cast<const char*>(
+                     (i < kSubCols ? k_s : v_s) + cell(c + j)));
+}
+
+// The four reads: out [b, h, d] = softmax(scale * q . K[:, :pos+1]) .
+// V[:, :pos+1] per (batch, head) row, over the contiguous cache (kPaged
+// false: k/v [b, h, horizon, d]) or the pools (kPaged: k/v [num_pages,
+// h, P, d] under table [b, mp], horizon mp * P). The grid is n_splits
+// blocks a row, each row's blocks one cluster; block rank s reads
+// columns [s * split_cols, (s + 1) * split_cols) up to pos. Rows are S
+// in memory and in shared memory: T for the plain reads (rows 10 and
+// 17), int8 or fp8 e4m3 for the quantized ones (rows 12 and 18, kQuant),
+// whose fp32 scales k_s/v_s lie beside the rows, [b, h, horizon] or
+// [num_pages, h, P] (null for the plain reads), and fold in as
+// _attn_kernel_quant folds them: score (q . k) * s_k * scale, V weight p
+// * s_v, l the sum of the unscaled p. The dynamic shared memory holds
+// the ring, kReadRing x (K, V) x kSubCols rows of d x sizeof(S) bytes,
+// then (kQuant) kReadRing x (K, V) x kSubCols fp32 scales, then
+// (kPaged) the split's page numbers.
 template <typename T, typename S, int DP, bool kPaged>
 __global__ void __launch_bounds__(kSplitThreads)
 decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
+                         const float* __restrict__ k_s,
                          const S* __restrict__ v,
+                         const float* __restrict__ v_s,
                          const int* __restrict__ table,
                          const int* __restrict__ pos, T* __restrict__ out,
                          int h, int horizon, int P, int mp, int d,
@@ -637,11 +564,13 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
                          int unit) {
   static_assert(DP % 32 == 0 && DP <= kMaxHeadDim, "padded head width");
   static_assert(DP <= kSplitThreads, "a thread a dim in the merges");
+  constexpr bool kQuant = kQuantRows<S>;
+  static_assert(kQuant || std::is_same_v<S, T>, "rows as q, or quantized");
   constexpr int DPL = DP / 32;
   constexpr int VEC = Vec<S>::N;
   namespace cg = cooperative_groups;
   extern __shared__ uint4 dyn_smem[];
-  __shared__ float qs[DP];
+  __shared__ __align__(16) float qs[DP];
   __shared__ float wm[kSplitWarps], wl[kSplitWarps];
   __shared__ float wacc[kSplitWarps][DP];
   // in the split-0 block: every live split's (m, l, acc), pushed there
@@ -654,6 +583,7 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   const int s = (int)cluster.block_rank();
   const int r = blockIdx.x / n_splits;  // batch * h + head
   const int b = r / h;
+  const int head = r - b * h;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -677,8 +607,11 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   char* ring = reinterpret_cast<char*>(dyn_smem);
   const char* kb = reinterpret_cast<const char*>(k);
   const char* vb = reinterpret_cast<const char*>(v);
+  // (kQuant) each ring stage's K and V scales, past the rows
+  constexpr int kScaleWords = kQuant ? kReadRing * 2 * kSubCols : 0;
+  float* scales = reinterpret_cast<float*>(ring + kReadRing * 2 * tile_bytes);
   // (paged) the split's page numbers, from page0 on
-  int* pages = reinterpret_cast<int*>(ring + kReadRing * 2 * tile_bytes);
+  int* pages = reinterpret_cast<int*>(scales + kScaleWords);
   const int page0 = c0 / P;
   if constexpr (kPaged) {
     const int n_pages = (c1 - 1) / P - page0 + 1;
@@ -688,20 +621,31 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   }
   const int n_sub = (c1 - c0 + kSubCols - 1) / kSubCols;
   // sub-tile t's copies into ring stage t % kReadRing, in the widest unit
-  // the rows' bytes divide into (block-uniform)
+  // the rows' bytes divide into (block-uniform), and (kQuant) its
+  // columns' scales beside them, in the same commit group
   auto stage = [&](int t) {
     const int c = c0 + t * kSubCols;
     const int nc = min(kSubCols, c1 - c);
     char* ks = ring + (t % kReadRing) * 2 * tile_bytes;
     char* vs = ks + tile_bytes;
-    with_unit(unit, [&](auto n) {
+    with_unit<S>(unit, [&](auto n) {
       constexpr int N = decltype(n)::value;
       if constexpr (kPaged)
-        stage_pages<N>(ks, vs, kb, vb, pages, page0, r - b * h, h, P, c, nc,
+        stage_pages<N>(ks, vs, kb, vb, pages, page0, head, h, P, c, nc,
                        row_bytes);
       else
         stage_run<N>(ks, vs, kb, vb, (size_t)r * horizon, c, nc, row_bytes);
     });
+    if constexpr (kQuant) {
+      float* ss = scales + (t % kReadRing) * 2 * kSubCols;
+      if constexpr (kPaged)
+        stage_scales(ss, k_s, v_s, c, nc, [&](int cc) {
+          return ((size_t)pages[cc / P - page0] * h + head) * P + cc % P;
+        });
+      else
+        stage_scales(ss, k_s, v_s, c, nc,
+                     [&](int cc) { return (size_t)r * horizon + cc; });
+    }
   };
 #pragma unroll
   for (int t = 0; t < kReadRing - 1; ++t) {
@@ -713,10 +657,11 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     qs[i] = i < d ? to_float<T>(q[(size_t)r * d + i]) : 0.f;
 
   // four lanes score column j of the warp's 8: dims in 16-byte vectors
-  // qtr, qtr + 4, ... where the rows allow, else dims qtr, qtr + 4, ...
+  // (one-byte rows: kQuantKBytes chunks) qtr, qtr + 4, ... where the rows
+  // allow, else dims qtr, qtr + 4, ...
   const int j = warp * kColsPerWarp + (lane >> 2);
   const int qtr = lane & 3;
-  const bool vec = row_bytes % 16 == 0;
+  const bool vec = row_bytes % (kQuant ? kQuantKBytes : 16) == 0;
   float m = kNeg, l = 0.f, acc[DPL];
 #pragma unroll
   for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
@@ -728,17 +673,34 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     const char* ks = ring + (t % kReadRing) * 2 * tile_bytes;
     const S* kt = reinterpret_cast<const S*>(ks);
     const S* vt = reinterpret_cast<const S*>(ks + tile_bytes);
+    const float* kss = scales + (t % kReadRing) * 2 * kSubCols;
+    const float* vss = kss + kSubCols;
     const int nc = min(kSubCols, c1 - (c0 + t * kSubCols));
     const bool valid = j < nc;
     float dot = 0.f;
     if (valid) {
       const S* kr = kt + j * d;
       if (vec) {
-        for (int e0 = qtr * VEC; e0 < d; e0 += 4 * VEC) {
-          float x[VEC];
-          load_vec<S>(kr + e0, x);
+        if constexpr (kQuant) {
+          for (int e0 = qtr * kQuantKBytes; e0 < d; e0 += 4 * kQuantKBytes) {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * x[e];
+            for (int w = 0; w < kQuantKBytes; w += 4) {
+              float x[4];
+              load_word<S>(kr + e0 + w, x);
+              const float4 qv = *reinterpret_cast<const float4*>(qs + e0 + w);
+              dot += qv.x * x[0];
+              dot += qv.y * x[1];
+              dot += qv.z * x[2];
+              dot += qv.w * x[3];
+            }
+          }
+        } else {
+          for (int e0 = qtr * VEC; e0 < d; e0 += 4 * VEC) {
+            float x[VEC];
+            load_vec<S>(kr + e0, x);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * x[e];
+          }
         }
       } else {
         for (int e = qtr; e < d; e += 4) dot += qs[e] * to_float<S>(kr[e]);
@@ -747,7 +709,13 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     // the quad's four parts, added in the same order on all four lanes
     dot += __shfl_xor_sync(0xffffffffu, dot, 1);
     dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-    const float sc = valid ? dot * scale : kNeg;
+    float sc = kNeg;
+    if (valid) {
+      if constexpr (kQuant)
+        sc = dot * kss[j] * scale;
+      else
+        sc = dot * scale;
+    }
     const float m_new = fmaxf(m, warp_max(sc));
     const float corr = expf(m - m_new);
     const float prob = valid ? expf(sc - m_new) : 0.f;
@@ -758,7 +726,10 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     for (int u = 0; u < kColsPerWarp; ++u) {
       const int col = warp * kColsPerWarp + u;
       if (col < nc) {  // warp-uniform: a column past pos adds nothing
-        const float pj = __shfl_sync(0xffffffffu, prob, 4 * u);
+        // the weight of the column's V row: its probability, times
+        // (kQuant) its V scale
+        float pj = __shfl_sync(0xffffffffu, prob, 4 * u);
+        if constexpr (kQuant) pj *= vss[col];
         const S* vr = vt + col * d;
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
@@ -822,42 +793,6 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   }
 }
 
-// The quantized reads (rows 12 and 18): attend_row over int8 or fp8
-// storage with the per-column scales; the paged kernel is the contiguous
-// one with only the column's address changed.
-template <typename T, typename S, int DP>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
-                         const float* __restrict__ k_s,
-                         const S* __restrict__ v_q,
-                         const float* __restrict__ v_s,
-                         const int* __restrict__ pos, T* __restrict__ out,
-                         int h, int sk, int d, float scale) {
-  const int r = blockIdx.x;  // batch * h + head
-  const int p = min(max(pos[r / h], 0), sk - 1);
-  attend_row<T, S, DP>(q + (size_t)r * d, k_q + (size_t)r * sk * d,
-                             k_s + (size_t)r * sk, v_q + (size_t)r * sk * d,
-                             v_s + (size_t)r * sk, ContiguousCols{}, p, d,
-                             scale, out + (size_t)r * d);
-}
-
-template <typename T, typename S, int DP>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_quant_kernel(const T* __restrict__ q, const S* __restrict__ k_q,
-                        const float* __restrict__ k_s,
-                        const S* __restrict__ v_q,
-                        const float* __restrict__ v_s,
-                        const int* __restrict__ table,
-                        const int* __restrict__ pos, T* __restrict__ out,
-                        int h, int P, int mp, int d, float scale) {
-  const int r = blockIdx.x;  // batch * h + head
-  const int b = r / h;
-  const int p = min(max(pos[b], 0), mp * P - 1);
-  const PagedCols col{table + (size_t)b * mp, r - b * h, h, P};
-  attend_row<T, S, DP>(q + (size_t)r * d, k_q, k_s, v_q, v_s, col, p,
-                             d, scale, out + (size_t)r * d);
-}
-
 template <typename U>
 cudaError_t launch_write_cols_unit(const void* k_new, const void* v_new,
                                    void* k_dst, void* v_dst, const void* pos,
@@ -900,14 +835,15 @@ cudaError_t launch_write_cols(const void* k_new, const void* v_new,
 // n_splits blocks one cluster, with `smem` bytes of dynamic shared memory
 // (a kernel asks for more than 48 KB once per instantiation and size,
 // before the launch)
-template <typename T, int DP, bool kPaged>
-cudaError_t launch_read_split(const void* q, const void* k, const void* v,
+template <typename T, typename S, int DP, bool kPaged>
+cudaError_t launch_read_split(const void* q, const void* k, const void* k_s,
+                              const void* v, const void* v_s,
                               const void* table, const void* pos, void* out,
                               int n_rows, int h, int horizon, int P, int mp,
                               int d, float scale, int split_cols,
                               int n_splits, int unit, size_t smem,
                               cudaStream_t stream) {
-  auto kernel = decode_read_split_kernel<T, T, DP, kPaged>;
+  auto kernel = decode_read_split_kernel<T, S, DP, kPaged>;
   static size_t granted = 48 * 1024;
   if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -928,48 +864,76 @@ cudaError_t launch_read_split(const void* q, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(table),
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const S*>(k),
+      static_cast<const float*>(k_s), static_cast<const S*>(v),
+      static_cast<const float*>(v_s), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<T*>(out), h, horizon, P, mp,
       d, scale, split_cols, n_splits, unit);
   const cudaError_t last = cudaGetLastError();  // clears what it left
   return err != cudaSuccess ? err : last;
 }
 
-// the plain reads: table == nullptr is the contiguous cache [b, h,
+// the split read over rows stored as S, for q's T and the padded width
+template <typename T, typename S>
+cudaError_t launch_read(const void* q, const void* k, const void* k_s,
+                        const void* v, const void* v_s, const void* table,
+                        const void* pos, void* out, int b, int h,
+                        int horizon, int P, int mp, int d, float scale,
+                        int split_cols, int n_splits, cudaStream_t stream) {
+  return with_padded_dim(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    const int row_bytes = d * (int)sizeof(S);
+    // the widest unit a row's bytes divide into (16: cp.async.cg)
+    const int unit = row_bytes % 16 == 0  ? 16
+                     : row_bytes % 8 == 0 ? 8
+                     : row_bytes % 4 == 0 ? 4
+                     : row_bytes % 2 == 0 ? 2
+                                          : 1;
+    size_t smem = (size_t)kReadRing * 2 * kSubCols * row_bytes;
+    if (kQuantRows<S>) smem += sizeof(float) * kReadRing * 2 * kSubCols;
+    if (table == nullptr)
+      return launch_read_split<T, S, DP, false>(
+          q, k, k_s, v, v_s, nullptr, pos, out, b * h, h, horizon, 1, 1, d,
+          scale, split_cols, n_splits, unit, smem, stream);
+    smem += sizeof(int) * ((split_cols + P - 1) / P + 1);
+    return launch_read_split<T, S, DP, true>(
+        q, k, k_s, v, v_s, table, pos, out, b * h, h, horizon, P, mp, d,
+        scale, split_cols, n_splits, unit, smem, stream);
+  });
+}
+
+// the storage code of the plain reads: rows in q's dtype, no scales
+constexpr int kRowsAsQ = -1;
+
+// the four reads: table == nullptr is the contiguous cache [b, h,
 // horizon, d], otherwise the pools [num_pages, h, P, d] under table [b,
-// mp] (horizon mp * P); the horizon in n_splits splits of split_cols
-// columns (a multiple of kSubCols, the last split holding the horizon's
-// last column)
-cudaError_t launch_attn(const void* q, const void* k, const void* v,
-                        const void* table, const void* pos, void* out, int b,
-                        int h, int horizon, int P, int mp, int d, float scale,
-                        int dtype, int split_cols, int n_splits,
+// mp] (horizon mp * P); kind kRowsAsQ stores the rows as q's dtype,
+// kInt8 or kFp8 as int8 or fp8 e4m3 with fp32 scale planes k_s/v_s
+// beside them ([b, h, horizon] or [num_pages, h, P]); the horizon in
+// n_splits splits of split_cols columns (a multiple of kSubCols, the
+// last split holding the horizon's last column)
+cudaError_t launch_attn(const void* q, const void* k, const void* k_s,
+                        const void* v, const void* v_s, const void* table,
+                        const void* pos, void* out, int b, int h,
+                        int horizon, int P, int mp, int d, float scale,
+                        int dtype, int kind, int split_cols, int n_splits,
                         cudaStream_t stream) {
   if (split_cols <= 0 || split_cols % kSubCols != 0 || n_splits < 1 ||
       n_splits > kMaxSplits ||
       (long long)n_splits * split_cols < horizon ||
       (long long)(n_splits - 1) * split_cols >= horizon)
     return cudaErrorInvalidValue;
-  return with_dtype(dtype, [&](auto tag) {
-    using T = typename decltype(tag)::type;
-    return with_padded_dim(d, [&](auto dp) {
-      constexpr int DP = decltype(dp)::value;
-      const int row_bytes = d * (int)sizeof(T);
-      // the widest unit a row's bytes divide into (16: cp.async.cg)
-      const int unit = row_bytes % 16 == 0  ? 16
-                       : row_bytes % 8 == 0 ? 8
-                       : row_bytes % 4 == 0 ? 4
-                                            : 2;
-      size_t smem = (size_t)kReadRing * 2 * kSubCols * row_bytes;
-      if (table == nullptr)
-        return launch_read_split<T, DP, false>(
-            q, k, v, nullptr, pos, out, b * h, h, horizon, 1, 1, d, scale,
-            split_cols, n_splits, unit, smem, stream);
-      smem += sizeof(int) * ((split_cols + P - 1) / P + 1);
-      return launch_read_split<T, DP, true>(
-          q, k, v, table, pos, out, b * h, h, horizon, P, mp, d, scale,
-          split_cols, n_splits, unit, smem, stream);
+  return with_dtype(dtype, [&](auto t_tag) {
+    using T = typename decltype(t_tag)::type;
+    if (kind == kRowsAsQ)
+      return launch_read<T, T>(q, k, nullptr, v, nullptr, table, pos, out,
+                               b, h, horizon, P, mp, d, scale, split_cols,
+                               n_splits, stream);
+    return with_kind(kind, [&](auto s_tag) {
+      using S = typename decltype(s_tag)::type;
+      return launch_read<T, S>(q, k, k_s, v, v_s, table, pos, out, b, h,
+                               horizon, P, mp, d, scale, split_cols,
+                               n_splits, stream);
     });
   });
 }
@@ -993,41 +957,6 @@ cudaError_t launch_write_quant(const void* k_new, const void* v_new,
               static_cast<Q*>(v_q), static_cast<float*>(v_s),
               static_cast<const int*>(pos), dst, T, smax, clamp);
       return cudaGetLastError();
-    });
-  });
-}
-
-// q's dtype times the storage kind times the padded head width;
-// table == nullptr is the contiguous cache [b, h, sk, d], otherwise the
-// pools under table [b, mp]
-cudaError_t launch_attn_quant(const void* q, const void* k_q, const void* k_s,
-                              const void* v_q, const void* v_s,
-                              const void* table, const void* pos, void* out,
-                              int b, int h, int sk, int P, int mp, int d,
-                              float scale, int dtype, int kind,
-                              cudaStream_t stream) {
-  return with_dtype(dtype, [&](auto t_tag) {
-    using T = typename decltype(t_tag)::type;
-    return with_kind(kind, [&](auto s_tag) {
-      using S = typename decltype(s_tag)::type;
-      return with_padded_dim(d, [&](auto dp) {
-        constexpr int DP = decltype(dp)::value;
-        const T* qt = static_cast<const T*>(q);
-        const S* kq = static_cast<const S*>(k_q);
-        const S* vq = static_cast<const S*>(v_q);
-        const float* ks = static_cast<const float*>(k_s);
-        const float* vs = static_cast<const float*>(v_s);
-        const int* pt = static_cast<const int*>(pos);
-        T* ot = static_cast<T*>(out);
-        if (table == nullptr)
-          decode_attn_quant_kernel<T, S, DP><<<b * h, kThreads, 0, stream>>>(
-              qt, kq, ks, vq, vs, pt, ot, h, sk, d, scale);
-        else
-          paged_attn_quant_kernel<T, S, DP><<<b * h, kThreads, 0, stream>>>(
-              qt, kq, ks, vq, vs, static_cast<const int*>(table), pt, ot, h,
-              P, mp, d, scale);
-        return cudaGetLastError();
-      });
     });
   });
 }
@@ -1096,8 +1025,9 @@ extern "C" int apex_tpu_torch_decode_attention(
     void* out, int b, int h, int S, int d, float scale, int dtype,
     int split_cols, int n_splits, void* stream) {
   if (b <= 0 || h <= 0 || S <= 0) return cudaErrorInvalidValue;
-  return launch_attn(q, k_cache, v_cache, nullptr, pos, out, b, h, S, 1, 1,
-                     d, scale, dtype, split_cols, n_splits,
+  return launch_attn(q, k_cache, nullptr, v_cache, nullptr, nullptr, pos,
+                     out, b, h, S, 1, 1, d, scale, dtype, kRowsAsQ,
+                     split_cols, n_splits,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -1109,9 +1039,9 @@ extern "C" int apex_tpu_torch_paged_attention(
     const void* pos, void* out, int b, int h, int P, int mp, int d,
     float scale, int dtype, int split_cols, int n_splits, void* stream) {
   if (b <= 0 || h <= 0 || P <= 0 || mp <= 0) return cudaErrorInvalidValue;
-  return launch_attn(q, k_pool, v_pool, table, pos, out, b, h, mp * P, P, mp,
-                     d, scale, dtype, split_cols, n_splits,
-                     static_cast<cudaStream_t>(stream));
+  return launch_attn(q, k_pool, nullptr, v_pool, nullptr, table, pos, out, b,
+                     h, mp * P, P, mp, d, scale, dtype, kRowsAsQ, split_cols,
+                     n_splits, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -1171,25 +1101,32 @@ extern "C" int apex_tpu_torch_paged_write_columns_quant(
 }
 
 // out [b, h, d]: q attends over columns 0..pos[b] of the quantized cache
-// k_q/v_q [b, h, S, d] with scales k_s/v_s [b, h, S], 1 <= d <= 128.
+// k_q/v_q [b, h, S, d] with scales k_s/v_s [b, h, S], 1 <= d <= 128, the
+// horizon S read in n_splits splits of split_cols columns, as the plain
+// read: read_splits(S, d).
 extern "C" int apex_tpu_torch_decode_attention_quant(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* pos, void* out, int b, int h, int S, int d,
-    float scale, int dtype, int kind, void* stream) {
-  if (b <= 0 || h <= 0 || S <= 0) return cudaErrorInvalidValue;
-  return launch_attn_quant(q, k_q, k_s, v_q, v_s, nullptr, pos, out, b, h, S,
-                           1, 1, d, scale, dtype, kind,
-                           static_cast<cudaStream_t>(stream));
+    float scale, int dtype, int kind, int split_cols, int n_splits,
+    void* stream) {
+  if (b <= 0 || h <= 0 || S <= 0 || kind == kRowsAsQ)
+    return cudaErrorInvalidValue;
+  return launch_attn(q, k_q, k_s, v_q, v_s, nullptr, pos, out, b, h, S, 1, 1,
+                     d, scale, dtype, kind, split_cols, n_splits,
+                     static_cast<cudaStream_t>(stream));
 }
 
-// The same read through row b's table [b, mp] over the quantized pools.
+// The same read through row b's table [b, mp] over the quantized pools
+// [num_pages, h, P, d] / [num_pages, h, P]: the horizon mp * P in splits
+// of read_splits(mp * P, d).
 extern "C" int apex_tpu_torch_paged_attention_quant(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* table, const void* pos, void* out, int b,
     int h, int P, int mp, int d, float scale, int dtype, int kind,
-    void* stream) {
-  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0) return cudaErrorInvalidValue;
-  return launch_attn_quant(q, k_q, k_s, v_q, v_s, table, pos, out, b, h, 0, P,
-                           mp, d, scale, dtype, kind,
-                           static_cast<cudaStream_t>(stream));
+    int split_cols, int n_splits, void* stream) {
+  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0 || kind == kRowsAsQ)
+    return cudaErrorInvalidValue;
+  return launch_attn(q, k_q, k_s, v_q, v_s, table, pos, out, b, h, mp * P, P,
+                     mp, d, scale, dtype, kind, split_cols, n_splits,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -63,7 +63,7 @@ HM_MAX_HEAD_DIM = 128
 #: ``softmax_fwd_rows_kernel``, ``kRowsMaxCols``): the longest row it
 #: takes
 SOFTMAX_ROWS_MAX_COLS = 2048
-#: the plain decode reads (``csrc/decode_attention.cu``,
+#: the four decode reads, plain and quantized (``csrc/decode_attention.cu``,
 #: ``decode_read_split_kernel``): a split holds a multiple of
 #: ``READ_SPLIT_COLS`` columns (its sub-tile), and a row's splits are one
 #: thread-block cluster of at most ``READ_MAX_SPLITS`` blocks (the largest
@@ -213,16 +213,17 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_int, _c_int, _c_int, _c_void_p],
-    # q, k_q, k_s, v_q, v_s, pos (+ table), out, geometry, scale, q's
-    # dtype, the storage kind, the stream
+    # q, k_q, k_s, v_q, v_s, (table,) pos, out, geometry, scale, q's
+    # dtype, the storage kind, the split geometry (as the plain reads'),
+    # the stream
     "apex_tpu_torch_decode_attention_quant": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
-        _c_void_p],
+        _c_int, _c_int, _c_void_p],
     "apex_tpu_torch_paged_attention_quant": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-        _c_float, _c_int, _c_int, _c_void_p],
+        _c_float, _c_int, _c_int, _c_int, _c_int, _c_void_p],
 }
 
 # the head-major backward entries: q, k, v, do, lse, delta, lens, seg_q,

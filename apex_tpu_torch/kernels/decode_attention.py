@@ -40,8 +40,14 @@ its own wrapper and launch count:
   and :func:`paged_write_columns_quant` quantize the incoming rows in
   the kernel and write data and scale as their unquantized siblings
   write; :func:`attend_cache_quant` and :func:`paged_attention_quantized`
-  read with the scales folded into the scores and the probabilities;
-  :func:`decode_attention_quantized` is the write and the read in order.
+  are the same split read over rows stored a byte a value: each block
+  stages its split's int8 or fp8 rows as stored, and their fp32 scales
+  beside them, by asynchronous copies, widens them to fp32 in registers
+  and folds the scales into the scores and the probabilities (about
+  ``(d + 4) / (2 d)`` of the bf16 read's bytes); the horizon splits as
+  the plain reads' does, so the paged quantized read returns the
+  contiguous one's bits; :func:`decode_attention_quantized` is the
+  write and the read in order.
 
 The kernels take fp32, bf16 or fp16 rows (``_build.DECODE_DTYPE_CODES``)
 and the reads any head width up to ``_build.HM_MAX_HEAD_DIM`` (128).
@@ -90,14 +96,14 @@ def _check_head_dim(d: int, name: str) -> None:
             f"reads' cap)")
 
 
-#: the fewest values of each plane a split of the plain reads covers: a
-#: split of 32 columns at a narrow head would move a few KB, less than
-#: its block's fixed cost (the cluster barrier and the merge) is worth
+#: the fewest values of each plane a split of the reads covers: a split
+#: of 32 columns at a narrow head would move a few KB, less than its
+#: block's fixed cost (the cluster barrier and the merge) is worth
 READ_SPLIT_MIN_VALUES = 2048
 
 
 def read_splits(horizon: int, d: int):
-    """The plain reads' split geometry ``(split_cols, n_splits)`` over a
+    """The four reads' split geometry ``(split_cols, n_splits)`` over a
     horizon of ``horizon`` columns at head width ``d``. ``split_cols`` is
     a multiple of ``_build.READ_SPLIT_COLS`` (the kernel's sub-tile) of
     at least ``READ_SPLIT_MIN_VALUES / d`` columns, and ``n_splits =
@@ -106,7 +112,8 @@ def read_splits(horizon: int, d: int):
     split_cols, min((s + 1) * split_cols, horizon))``. It depends on the
     horizon and d alone, never on the positions, so the launch waits on
     nothing from the device, and the contiguous and the paged read over
-    one horizon split it alike (and so sum in the same order)."""
+    one horizon split it alike (and so sum in the same order), plain or
+    quantized: the quantized reads take the plain reads' geometry."""
     if horizon < 1 or d < 1:
         raise ValueError(f"read_splits: horizon {horizon} and head width "
                          f"{d} must be positive")
@@ -890,8 +897,9 @@ def attend_cache_quant_plain(q, k_q, k_s, v_q, v_s, pos, *,
 
 
 def _launch_quant_read(entry: str, counted, q, k_q, k_s, v_q, v_s, pos,
-                       table, dims, scale) -> torch.Tensor:
-    """Check the operands of a quantized read and launch ``entry``."""
+                       table, dims, horizon, scale) -> torch.Tensor:
+    """Check the operands of a quantized read and launch ``entry``, the
+    ``horizon`` in :func:`read_splits` ``(horizon, d)`` splits."""
     kind = kv_kind_of(k_q.dtype)
     code = _build.decode_dtype_code(q, f"{entry} q")
     _check_head_dim(q.shape[-1], entry)
@@ -910,7 +918,8 @@ def _launch_quant_read(entry: str, counted, q, k_q, k_s, v_q, v_s, pos,
     ptrs += [pos.data_ptr(), out.data_ptr()]
     s_ = float(scale) if scale is not None else 1.0 / q.shape[-1] ** 0.5
     rc = getattr(_build.library(), f"apex_tpu_torch_{entry}")(
-        *ptrs, *dims, s_, code, _build.KV_KIND_CODES[kind], _build.stream())
+        *ptrs, *dims, s_, code, _build.KV_KIND_CODES[kind],
+        *read_splits(horizon, q.shape[-1]), _build.stream())
     _build.check(rc, entry)
     counted.launches += 1
     return out
@@ -922,7 +931,9 @@ def attend_cache_quant(q, k_q, k_s, v_q, v_s, pos, *,
     columns ``0..pos[b]`` of the quantized planes ``k_q/v_q [b, h, S, d]``
     (int8 or fp8) with fp32 scales ``k_s/v_s [b, h, S]``, the scales
     folded into the scores and the probabilities (JAX's
-    ``_run_attn_quant``). CUDA tensors launch the kernel (counted in
+    ``_run_attn_quant``). CUDA tensors launch the split read over the
+    quantized rows, the horizon ``S`` in :func:`read_splits` ``(S, d)``
+    splits as :func:`attend_cache`'s (counted in
     ``attend_cache_quant.launches``), CPU tensors run the plain
     version."""
     b, h, sk, d = _check_geometry(q, k_q, v_q, pos)
@@ -932,7 +943,7 @@ def attend_cache_quant(q, k_q, k_s, v_q, v_s, pos, *,
                                         scale=scale)
     return _launch_quant_read("decode_attention_quant", attend_cache_quant,
                               q, k_q, k_s, v_q, v_s, pos, None, (b, h, sk, d),
-                              scale)
+                              sk, scale)
 
 
 attend_cache_quant.launches = 0
@@ -998,9 +1009,11 @@ def paged_attention_quantized(q, k_q, k_s, v_q, v_s, table, pos, *,
                               ) -> torch.Tensor:
     """:func:`paged_attention` over the quantized pools ``k_q/v_q
     [num_pages, h, P, d]`` (int8 or fp8) and ``k_s/v_s [num_pages, h,
-    P]`` (fp32): the contiguous quantized sweep with column ``c`` read
-    from page ``table[b, c // P]``, so on the same bytes it returns the
-    contiguous kernel's bits. CUDA tensors launch the kernel (counted in
+    P]`` (fp32): the contiguous quantized read with column ``c`` (its
+    row and its two scales) copied from page ``table[b, c // P]``, the
+    horizon ``max_pages * P`` in :func:`read_splits` splits, so on the
+    same bytes at the same horizon it returns the contiguous kernel's
+    bits. CUDA tensors launch the kernel (counted in
     ``paged_attention_quantized.launches``), CPU tensors run the plain
     version."""
     b, h, n, p, mp, d = _check_paged(q, k_q, v_q, table, pos)
@@ -1011,7 +1024,8 @@ def paged_attention_quantized(q, k_q, k_s, v_q, v_s, table, pos, *,
                                                pos, scale=scale)
     return _launch_quant_read("paged_attention_quant",
                               paged_attention_quantized, q, k_q, k_s, v_q,
-                              v_s, pos, table, (b, h, p, mp, d), scale)
+                              v_s, pos, table, (b, h, p, mp, d), mp * p,
+                              scale)
 
 
 paged_attention_quantized.launches = 0

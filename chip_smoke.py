@@ -27,7 +27,8 @@ Phases, in order; any failed check exits non-zero:
    stream is held against a teacher-forced forward without kernels;
 6. profile — ``torch.profiler`` over a window of decode chunks: the
    device's busy share, the kernels that take its time, and the decode
-   reads' device time and calls.
+   reads' device time and calls (the split read's plain and quantized
+   instantiations apart; no replaced quantized kernel may run).
 
 The serving engine and weights are freed; then the training slice:
 
@@ -278,14 +279,15 @@ same serving model, and Megatron-GPT 2.7B is served right after phase 28
     versions: fp32, bf16 and fp16 caches, int8 and fp8 planes with q in
     each of the three, within DECODE_TOL, and the paged reads bit-equal
     to the contiguous ones; the fp16 column writes (plain and quantized)
-    bit-equal to theirs; the split reads (``attend_cache`` and
-    ``paged_attention``) at every width and dtype over a horizon of 200
-    (no split count divides it) with positions on the edges of
-    ``read_splits``' splits, held the same way, the paged read at pages
-    of 1, 8, 25 and 40 columns, and a second launch of each bit-equal to
-    the first; then each read at the 2.7B's decode shape (b=8, 32 heads
-    of 80, horizon 1024, positions 127..1023), held and timed as in phase
-    3 (rows 10 and 17 launched twice, bit-equal), row 10 beside SDPA;
+    bit-equal to theirs; the four reads (all of them instantiations of
+    the one split read) at every width, dtype and storage kind over a
+    horizon of 200 (no split count divides it) with positions on the
+    edges of ``read_splits``' splits, held the same way, the paged read
+    at pages of 1, 8, 25 and 40 columns, and a second launch of each
+    bit-equal to the first; then each read at the 2.7B's decode shape
+    (b=8, 32 heads of 80, horizon 1024, positions 127..1023), held,
+    launched twice (bit-equal) and timed as in phase 3, row 10 beside
+    SDPA;
 34. the 2.7B served — weights in bf16 from seed 0 (5.3 GB); phase 4's
     cross-check at its width in bf16 and fp16 (``compute_dtype=float16``,
     the fp16 decode kernels) and phase 20's quantized logits (fp8 held
@@ -297,8 +299,11 @@ same serving model, and Megatron-GPT 2.7B is served right after phase 28
     tensor cores, paged streams == contiguous and paged int8 == int8, int8
     and spec streams equal to contiguous up to reference near-ties (phase
     20's rule); decode tokens/s, TTFT and peak memory per side;
-35. profile — phase 6's window over the 2.7B's contiguous engine: the
-    device's idle share and the decode reads' device time.
+35. profile — phase 6's window over the 2.7B's contiguous engine, and
+    over its int8 engine: the device's idle share and the decode reads'
+    device time, the split read's plain and quantized instantiations
+    apart (the int8 engine runs only quantized ones), and no launch of
+    the one-block-a-row quantized kernels they replaced.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
@@ -1133,22 +1138,42 @@ def phase_profile(cfg, engine, chunks: int = 16):
             "kernel)")
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    # the decode reads' kernels (rows 10, 17: the split read; 12, 18)
-    reads = [e for e in events if "decode_read_split_kernel" in e.key
-             or "attn_quant_kernel" in e.key]
+    # the decode reads' kernels: the split read's plain instantiations
+    # (rows 10, 17) apart from its quantized ones (rows 12, 18), and the
+    # one-block-a-row quantized kernels they replaced, which must not run
+    reads = {kind: [e for e in events if split_read_kind(e.key) == kind]
+             for kind in ("plain", "quantized")}
+    old = [e for e in events if "attn_quant_kernel" in e.key]
     out = {
         "window_steps": chunks * engine.engine_cfg.decode_chunk,
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1 - busy_us / 1e3 / (wall * 1e3)),
         "decode_reads": {
-            "ms": sum(e.self_device_time_total for e in reads) / 1e3,
-            "calls": sum(e.count for e in reads)},
+            "ms": sum(e.self_device_time_total for r in reads.values()
+                      for e in r) / 1e3,
+            "calls": sum(e.count for r in reads.values() for e in r),
+            **{kind: {"ms": sum(e.self_device_time_total for e in r) / 1e3,
+                      "calls": sum(e.count for e in r)}
+               for kind, r in reads.items()}},
         "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
                  "calls": e.count} for e in top],
     }
     log("profile: " + json.dumps(out))
+    check(not old, f"profile: the replaced quantized read kernels ran: "
+          f"{[e.key[:80] for e in old]}")
     return out
+
+
+def split_read_kind(key: str):
+    """"quantized" for a profiler key of ``decode_read_split_kernel``'s
+    int8 or fp8 instantiations (rows 12 and 18: ``<T, signed char, ...>``
+    or ``<T, __nv_fp8_e4m3, ...>``), "plain" for its others (rows 10 and
+    17: ``<T, T, ...>``), None for any other kernel."""
+    if "decode_read_split_kernel" not in key:
+        return None
+    return ("quantized" if "signed char" in key or "__nv_fp8_e4m3" in key
+            else "plain")
 
 
 # ---------------------------------------------------------------------------
@@ -2111,26 +2136,34 @@ SPLIT_EDGE_PAGES = (1, PAGE, 25, 40)
 
 
 def _split_edge_reads(worst: dict) -> dict:
-    """Phase 33's split edges: the plain reads (rows 10 and 17) over a
-    horizon of SPLIT_EDGE_S columns at every width of DECODE_WIDTHS in
-    fp32, bf16 and fp16, with the rows' positions on the edges of
-    ``read_splits(SPLIT_EDGE_S, d)``'s splits (0, L - 1, L, 2L - 1, 2L,
-    the last split's first column, the one before it, and the horizon's
-    last) and NaN past every position, in every unmapped page and in the
-    sink: each read within DECODE_TOL of its plain version and finite,
-    the paged read at every page size of SPLIT_EDGE_PAGES bit-equal to
-    the contiguous one, and a second launch of each bit-equal to the
-    first. Returns {d: (split_cols, n_splits)}."""
+    """Phase 33's split edges: the four reads over a horizon of
+    SPLIT_EDGE_S columns at every width of DECODE_WIDTHS, the plain ones
+    (rows 10 and 17) in fp32, bf16 and fp16, the quantized ones (rows 12
+    and 18) over int8 and fp8 planes with q in each of the three, with
+    the rows' positions on the edges of ``read_splits(SPLIT_EDGE_S,
+    d)``'s splits (0, L - 1, L, 2L - 1, 2L, the last split's first
+    column, the one before it, and the horizon's last) and NaN (or the
+    stale byte and a NaN scale) past every position, in every unmapped
+    page and in the sink: each read within DECODE_TOL of its plain
+    version and finite, the paged read at every page size of
+    SPLIT_EDGE_PAGES bit-equal to the contiguous one, and a second launch
+    of each bit-equal to the first. Returns {d: (split_cols,
+    n_splits)}."""
     from apex_tpu_torch.kernels import (
         attend_cache,
         attend_cache_plain,
+        attend_cache_quant,
+        attend_cache_quant_plain,
         paged_attention,
         paged_attention_plain,
+        paged_attention_quantized,
+        paged_attention_quantized_plain,
     )
     from apex_tpu_torch.kernels.decode_attention import read_splits
 
     dev = torch.device("cuda")
     B, H, S = SLOTS, 4, SPLIT_EDGE_S
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
     geometry = {}
     for d in DECODE_WIDTHS:
         L, n = read_splits(S, d)
@@ -2141,37 +2174,59 @@ def _split_edge_reads(worst: dict) -> dict:
                  (n - 1) * L - 1, S - 1]
         pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
         stale = (torch.arange(S, device=dev)[None] > pos[:, None].long())[
-            :, None, :, None]
+            :, None, :].expand(B, H, S)
         g = torch.Generator(device=dev).manual_seed(3400 + d)
         tables = {P: (torch.randperm(B * (S // P), generator=g, device=dev)
                       + 1).to(torch.int32).view(B, S // P)
                   for P in SPLIT_EDGE_PAGES}
-        for dt in (torch.float32, torch.bfloat16, torch.float16):
-            tag = f"split edges d={d} {str(dt)[6:]} L={L} n={n}"
+        # (the contiguous read's name, the storage kind ("" for rows in
+        # q's dtype), q's dtype, the planes)
+        cases = []
+        for dt in dtypes:
+            cases.append(("decode_attention", "", dt, [
+                torch.randn(B, H, S, d, generator=g, device=dev).to(
+                    dt).masked_fill(stale[..., None], float("nan"))
+                for _ in range(2)]))
+        for kind in ("int8", "fp8"):
+            planes = [*_stale_quant(g, kind, (B, H, S, d), stale),
+                      *_stale_quant(g, kind, (B, H, S, d), stale)]
+            cases += [("decode_attention_quant", kind, dt, planes)
+                      for dt in dtypes]
+        for name, kind, dt, planes in cases:
+            if kind:
+                read, plain = attend_cache_quant, attend_cache_quant_plain
+                pname, pread, pplain = (
+                    "paged_attention_quant", paged_attention_quantized,
+                    paged_attention_quantized_plain)
+            else:
+                read, plain = attend_cache, attend_cache_plain
+                pname, pread, pplain = (
+                    "paged_attention", paged_attention,
+                    paged_attention_plain)
+            tag = (f"split edges d={d} {kind + ' ' if kind else ''}"
+                   f"{str(dt)[6:]}{' q' if kind else ''} L={L} n={n}")
+            key = (d, kind, dt) if kind else (d, dt)
             q = torch.randn(B, H, d, generator=g, device=dev).to(dt)
-            kc, vc = (torch.randn(B, H, S, d, generator=g, device=dev).to(
-                dt).masked_fill(stale, float("nan")) for _ in range(2))
-            out, out2 = (attend_cache(q, kc, vc, pos) for _ in range(2))
+            out, out2 = (read(q, *planes, pos) for _ in range(2))
             torch.cuda.synchronize()
-            _hold_read(f"decode_attention {tag}", out,
-                       attend_cache_plain(q, kc, vc, pos), DECODE_TOL[dt],
-                       worst, ("decode_attention", d, dt))
+            _hold_read(f"{name} {tag}", out, plain(q, *planes, pos),
+                       DECODE_TOL[dt], worst, (name, *key))
             check(torch.equal(_bits(out2), _bits(out)),
-                  f"decode_attention {tag}: two launches differ")
+                  f"{name} {tag}: two launches differ")
             for P, table in tables.items():
                 N = B * (S // P) + 1
-                kp, vp = (_pool_of(x, table, P, N) for x in (kc, vc))
-                pout, pout2 = (paged_attention(q, kp, vp, table, pos)
+                pools = [_pool_of(x, table, P, N) for x in planes]
+                pout, pout2 = (pread(q, *pools, table, pos)
                                for _ in range(2))
                 torch.cuda.synchronize()
-                _hold_read(f"paged_attention {tag} P={P}", pout,
-                           paged_attention_plain(q, kp, vp, table, pos),
-                           DECODE_TOL[dt], worst, ("paged_attention", d, dt))
+                _hold_read(f"{pname} {tag} P={P}", pout,
+                           pplain(q, *pools, table, pos), DECODE_TOL[dt],
+                           worst, (pname, *key))
                 check(torch.equal(_bits(pout), _bits(out)),
-                      f"paged_attention {tag} P={P}: not bit-equal to the "
+                      f"{pname} {tag} P={P}: not bit-equal to the "
                       f"contiguous read on the same bytes")
                 check(torch.equal(_bits(pout2), _bits(pout)),
-                      f"paged_attention {tag} P={P}: two launches differ")
+                      f"{pname} {tag} P={P}: two launches differ")
     return geometry
 
 
@@ -2188,12 +2243,12 @@ def phase_decode_widths():
     contiguous read on the same bytes. At each width the fp16 column
     writes (plain and quantized, one and SPEC_T columns, contiguous and
     paged) are bit-equal to their plain versions. The split reads' edges
-    (``_split_edge_reads``) come next. Then each read at the 2.7B's
-    decode shape (b=8, 32 heads of 80, horizon 1024, positions 127, 255,
-    ..., 1023; bf16, int8 planes and fp8 beside), held the same way (rows
-    10 and 17 also against a second launch, bit for bit) and timed as in
-    phase 3, with its byte bound, and for row 10 SDPA. Returns {row name:
-    its d=80 entry, rows 10 and 17 with their split geometry}."""
+    (``_split_edge_reads``, all four reads) come next. Then each read at
+    the 2.7B's decode shape (b=8, 32 heads of 80, horizon 1024, positions
+    127, 255, ..., 1023; bf16, int8 planes and fp8 beside), held the same
+    way and against a second launch, bit for bit, and timed as in phase
+    3, with its byte bound, and for row 10 SDPA. Returns {row name: its
+    d=80 entry with its split geometry}."""
     from apex_tpu_torch.kernels import (
         attend_cache,
         attend_cache_plain,
@@ -2330,9 +2385,9 @@ def phase_decode_widths():
     log(f"decode reads at d {DECODE_WIDTHS} (fp32, bf16, fp16; int8 and "
         f"fp8 planes with q in each): max|out-plain| {json.dumps(top)} "
         f"(DECODE_TOL by q's dtype); paged reads bit-equal to contiguous; "
-        f"fp16 writes bit-exact; rows 10 and 17 at positions on the split "
-        f"edges of a {SPLIT_EDGE_S}-column horizon ((L, n) by d: {edges}) "
-        f"held, paged (pages of {SPLIT_EDGE_PAGES}) bit-equal to "
+        f"fp16 writes bit-exact; rows 10, 12, 17 and 18 at positions on "
+        f"the split edges of a {SPLIT_EDGE_S}-column horizon ((L, n) by d: "
+        f"{edges}) held, paged (pages of {SPLIT_EDGE_PAGES}) bit-equal to "
         f"contiguous, two launches bit-equal")
 
     # the 2.7B's decode read: hold and time each kernel
@@ -2398,9 +2453,8 @@ def phase_decode_widths():
             check(torch.equal(_bits(out), _bits(contig[0]())),
                   f"{key} at the 2.7B's decode shape: not bit-equal to the "
                   f"contiguous read")
-        if not kind:
-            check(torch.equal(_bits(fn()), _bits(out)),
-                  f"{key} at the 2.7B's decode shape: two launches differ")
+        check(torch.equal(_bits(fn()), _bits(out)),
+              f"{key} at the 2.7B's decode shape: two launches differ")
         bms, by = bound(n_bytes, 4 * n_cols * H2 * D2, FP32_FLOPS_PER_S)
         r = dict(d=D2, max_abs_err=err[0], ms=time_ms(fn),
                  eager_ms=eager_ms(fn), plain_ms=time_ms(plain),
@@ -2413,11 +2467,10 @@ def phase_decode_widths():
         r["library_ms"] = (time_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], kc, vc, attn_mask=mask))
             if name == "decode_attention" else None)
+        r["split_cols"], r["n_splits"] = read_splits(S2, D2)
         if kind == "fp8":
             rows[name]["fp8"] = r
             continue
-        if not kind:
-            r["split_cols"], r["n_splits"] = read_splits(S2, D2)
         # max|out - plain| at each width: "d dtype" or "d kind q-dtype"
         r["widths"] = {" ".join(str(x).replace("torch.", "")
                                 for x in k[1:]): v
@@ -5424,7 +5477,8 @@ def phase_2p7b_serve():
     the reference's top-2 gap is within the band (int8: plus twice its
     logit error), as phase 20 holds them. Decode tokens/s, TTFT and peak
     memory per side, and phase 6's profiler window over the contiguous
-    engine (phase 35). Returns (metrics, launch counts per side)."""
+    and the int8 engine (phase 35: each runs only its own instantiations
+    of the split read). Returns (metrics, launch counts per side)."""
     import dataclasses
 
     from apex_tpu_torch.models import gpt
@@ -5497,9 +5551,18 @@ def phase_2p7b_serve():
                 "spec_gate_state")})
             row["launches"]["cache_write_columns"] = counts[
                 "cache_write_columns"]
-        if name == "contiguous":
-            prof = phase_profile(cfg, engine)
+        if name in ("contiguous", "int8"):
+            prof = phase_profile(c, engine)
             row["device_idle_share"] = (prof or {}).get("device_idle_share")
+            if prof is not None:
+                row["decode_reads"] = prof["decode_reads"]
+                want = "quantized" if name == "int8" else "plain"
+                other = "plain" if name == "int8" else "quantized"
+                check(prof["decode_reads"][want]["calls"] > 0
+                      and prof["decode_reads"][other]["calls"] == 0,
+                      f"{what}: the profile's decode reads "
+                      f"{prof['decode_reads']}, expected only {want} "
+                      f"instantiations of the split read")
         log(f"{what}: " + json.dumps(row))
         out[name], launches[name] = row, counts
         streams[name] = {r: c_.tokens for r, c_ in sched.completions.items()}
