@@ -125,11 +125,14 @@
 //   recycled page; the sink page) therefore contribute exact zeros,
 //   which is what decode_attention.py:297-301 guards against.
 // - Scores are fp32 and scaled in fp32, as in _attn_kernel.
-// - The quantized writes keep write_columns_kernel's grid, addressing
-//   and clamp; each warp quantizes whole head rows in registers (absmax
-//   by a warp reduction, then the one quantizer, KvQuant) and stores a
-//   byte a value and one fp32 scale a row, so a write moves ~1/2 (bf16
-//   in) of the bytes it would store unquantized.
+// - The quantized writes keep write_columns_kernel's addressing and
+//   clamp and quantize every head row of the call at once: a group of
+//   lanes a head row (8 at d 64 in bf16, one 16-byte load a lane), blocks
+//   over (b, lane j, group of head rows), so the 2 x b x h x T head rows
+//   spread over the SMs and no warp takes two in series. The group's
+//   absmax is a shuffle within it, then the one quantizer (KvQuant) and
+//   one packed store a lane; a byte a value and one fp32 scale a row, so
+//   a write moves ~1/2 (bf16 in) of the bytes it would store unquantized.
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -190,6 +193,8 @@ __device__ __forceinline__ void load_word<__nv_fp8_e4m3>(
 namespace {
 
 constexpr int kWriteThreads = 256;
+// the quantized writes: threads a block (a group of lanes a head row)
+constexpr int kQuantWriteThreads = 128;
 // the widest head the reads take (_build.HM_MAX_HEAD_DIM)
 constexpr int kMaxHeadDim = 128;
 // The split read: a block of kSplitWarps warps a (row, split); a
@@ -328,22 +333,69 @@ template <> struct KvQuant<__nv_fp8_e4m3> {
 // the floor of a row's absmax, fp32(1e-12) as JAX rounds it
 constexpr float kAmaxFloor = static_cast<float>(1e-12);
 
-// write_columns_kernel's grid, addressing and clamp over the quantized
-// planes: one block per (row b, lane j); each warp takes whole head rows
-// of new[b, :, j, :] (K rows, then V rows), reduces |x| to the row's
-// absmax with a warp reduction, and stores the quantized row into the
-// data plane (dst.units == d) and its scale into the scale plane at the
-// same cell. Rows 9, 11, 14 and 16 of the kernel table.
-template <typename In, typename Q>
-__global__ void __launch_bounds__(kWriteThreads)
+// the byte a quantized value is stored as
+__device__ __forceinline__ uint32_t stored_byte(int8_t v) {
+  return static_cast<uint8_t>(v);
+}
+__device__ __forceinline__ uint32_t stored_byte(__nv_fp8_e4m3 v) {
+  return v.__x;
+}
+
+// E bytes (E = 1, 2, 4 or 8), byte i in w[i / 4] bits 8 (i % 4) up, as
+// one store
+template <int E> __device__ __forceinline__ void store_bytes(
+    void* dst, const uint32_t* w) {
+  if constexpr (E == 8) {
+    *static_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else if constexpr (E == 4) {
+    *static_cast<uint32_t*>(dst) = w[0];
+  } else if constexpr (E == 2) {
+    *static_cast<uint16_t*>(dst) = static_cast<uint16_t>(w[0]);
+  } else {
+    *static_cast<uint8_t*>(dst) = static_cast<uint8_t>(w[0]);
+  }
+}
+
+// write_columns_kernel's addressing and clamp over the quantized planes,
+// every head row of the call at once. Grid (b, T, row groups) of
+// kQuantWriteThreads threads: block (b, j, z) takes head rows z * rpb ..
+// (z + 1) * rpb - 1 of new[b, :, j, :] (K rows 0..h-1, then V rows
+// h..2h-1), rpb = kQuantWriteThreads >> group_log2, a group of 2^group_log2
+// lanes (aligned within the warp) a row. The row is `units` units of U
+// (the widest of 16, 8, 4 and 2 bytes the row's bytes divide into: a 16-
+// byte load a lane at d 64 or 80 in bf16), lane t of the group taking
+// units t, t + group, ...; the group's absmax is an xor shuffle within it,
+// and each unit's E values leave as one E-byte store of the quantized
+// bytes; the group's first lane stores the row's scale into the scale
+// plane at the same cell (dst.units == d). Rows 9, 11, 14 and 16 of the
+// kernel table.
+template <typename In, typename Q, typename U>
+__global__ void __launch_bounds__(kQuantWriteThreads)
 write_columns_quant_kernel(const In* __restrict__ k_new,
                            const In* __restrict__ v_new,
                            Q* __restrict__ k_q, float* __restrict__ k_s,
                            Q* __restrict__ v_q, float* __restrict__ v_s,
                            const int* __restrict__ pos, ColumnDst dst, int T,
-                           int smax, bool clamp) {
+                           int smax, bool clamp, int group_log2) {
+  constexpr int E = sizeof(U) / sizeof(In);
   const int b = blockIdx.x;
   const int j = blockIdx.y;
+  const int group = 1 << group_log2;
+  const int t = threadIdx.x & (group - 1);
+  const int r = blockIdx.z * (kQuantWriteThreads >> group_log2) +
+                (threadIdx.x >> group_log2);
+  const int d = dst.units;
+  const int units = d / E;
+  const bool live = r < 2 * dst.h;
+  const bool is_v = r >= dst.h;
+  const int hh = is_v ? r - dst.h : r;
+  const U* src = reinterpret_cast<const U*>(
+      (is_v ? v_new : k_new) + (((size_t)b * dst.h + hh) * T + j) * d);
+  // the row's first unit, pos and the cell (a page-table read when paged)
+  // are in flight together; the exits before the shuffle are the block's
+  const bool first = live && t < units;
+  U raw0;
+  if (first) raw0 = src[t];
   int c = pos[b] + j;
   if (c < 0) return;
   if (clamp) {
@@ -354,25 +406,33 @@ write_columns_quant_kernel(const In* __restrict__ k_new,
   } else if (c >= smax) {
     return;
   }
-  const int d = dst.units;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < 2 * dst.h; r += kWriteThreads / 32) {
-    const bool is_v = r >= dst.h;
-    const int hh = is_v ? r - dst.h : r;
-    const In* src =
-        (is_v ? v_new : k_new) + (((size_t)b * dst.h + hh) * T + j) * d;
-    float amax = 0.f;
-    for (int e = lane; e < d; e += 32)
-      amax = fmaxf(amax, fabsf(to_float<In>(src[e])));
-    amax = warp_max(amax);
-    const float scale = fmaxf(amax, kAmaxFloor) * KvQuant<Q>::kRecip;
-    const size_t cell = dst.cell(b, hh, c);
-    Q* row = (is_v ? v_q : k_q) + cell * d;
-    for (int e = lane; e < d; e += 32)
-      row[e] = KvQuant<Q>::store(__fdiv_rn(to_float<In>(src[e]), scale));
-    if (lane == 0) (is_v ? v_s : k_s)[cell] = scale;
+  const size_t cell = dst.cell(b, hh, c);
+  float amax = 0.f;
+  for (int u = t; first && u < units; u += group) {
+    const U raw = u == t ? raw0 : src[u];
+    const In* e = reinterpret_cast<const In*>(&raw);
+#pragma unroll
+    for (int i = 0; i < E; ++i) amax = fmaxf(amax, fabsf(to_float<In>(e[i])));
   }
+  // every lane of the warp takes part (the exits above are the whole
+  // block's); the offsets stay inside a group
+  for (int o = group >> 1; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (!live) return;
+  const float scale = fmaxf(amax, kAmaxFloor) * KvQuant<Q>::kRecip;
+  Q* row = (is_v ? v_q : k_q) + cell * d;
+  for (int u = t; u < units; u += group) {
+    const U raw = u == t ? raw0 : src[u];
+    const In* e = reinterpret_cast<const In*>(&raw);
+    uint32_t w[(E + 3) / 4] = {};
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      w[i / 4] |= stored_byte(KvQuant<Q>::store(
+                      __fdiv_rn(to_float<In>(e[i]), scale)))
+                  << (8 * (i % 4));
+    store_bytes<E>(row + u * E, w);
+  }
+  if (t == 0) (is_v ? v_s : k_s)[cell] = scale;
 }
 
 // global -> shared copies of N bytes: cp.async for 16 (.cg, around L1),
@@ -950,13 +1010,39 @@ cudaError_t launch_write_quant(const void* k_new, const void* v_new,
     return with_kind(kind, [&](auto q_tag) {
       using Q = typename decltype(q_tag)::type;
       const ColumnDst dst{static_cast<const int*>(table), h, P, mp, d};
-      write_columns_quant_kernel<In, Q>
-          <<<dim3(b, T), kWriteThreads, 0, stream>>>(
-              static_cast<const In*>(k_new), static_cast<const In*>(v_new),
-              static_cast<Q*>(k_q), static_cast<float*>(k_s),
-              static_cast<Q*>(v_q), static_cast<float*>(v_s),
-              static_cast<const int*>(pos), dst, T, smax, clamp);
-      return cudaGetLastError();
+      // the unit, its count a row, the group of lanes a row (the units
+      // rounded up to a power of two, at most a warp) and the row groups
+      const int row_bytes = d * (int)sizeof(In);
+      const int unit = row_bytes % 16 == 0  ? 16
+                       : row_bytes % 8 == 0 ? 8
+                       : row_bytes % 4 == 0 ? 4
+                                            : 2;
+      const int units = row_bytes / unit;
+      int group_log2 = 0;
+      while ((1 << group_log2) < units && group_log2 < 5) ++group_log2;
+      const int rpb = kQuantWriteThreads >> group_log2;
+      const dim3 grid(b, T, (2 * h + rpb - 1) / rpb);
+      auto run = [&](auto u_tag) -> cudaError_t {
+        using U = typename decltype(u_tag)::type;
+        if constexpr (sizeof(U) < sizeof(In)) {
+          return cudaErrorInvalidValue;
+        } else {
+          write_columns_quant_kernel<In, Q, U>
+              <<<grid, kQuantWriteThreads, 0, stream>>>(
+                  static_cast<const In*>(k_new),
+                  static_cast<const In*>(v_new), static_cast<Q*>(k_q),
+                  static_cast<float*>(k_s), static_cast<Q*>(v_q),
+                  static_cast<float*>(v_s), static_cast<const int*>(pos),
+                  dst, T, smax, clamp, group_log2);
+          return cudaGetLastError();
+        }
+      };
+      switch (unit) {
+        case 16: return run(Tag<uint4>{});
+        case 8: return run(Tag<uint2>{});
+        case 4: return run(Tag<uint32_t>{});
+        default: return run(Tag<uint16_t>{});
+      }
     });
   });
 }

@@ -70,6 +70,10 @@ SOFTMAX_ROWS_MAX_COLS = 2048
 #: portable cluster: ``kSubCols`` and ``kMaxSplits`` there)
 READ_SPLIT_COLS = 32
 READ_MAX_SPLITS = 8
+#: the four quantized column writes (``csrc/decode_attention.cu``,
+#: ``write_columns_quant_kernel``): threads a block, a group of lanes a
+#: head row (``kQuantWriteThreads`` there)
+QUANT_WRITE_THREADS = 128
 #: the global L2 norm (``csrc/flat_ops.cu``, ``l2norm_kernel``): threads a
 #: block, 16-byte loads a thread a tile, the most blocks a buffer (4 an SM
 #: of the H100's 132) and the most buffers a launch (``kL2Threads``,
@@ -78,6 +82,23 @@ L2NORM_THREADS = 256
 L2NORM_UNROLL = 4
 L2NORM_MAX_BLOCKS = 4 * 132
 L2NORM_MAX_BUFFERS = 32
+#: the LayerNorm backward (``csrc/layer_norm.cu``). Route 0
+#: (``ln_bwd_rows_kernel``): rows a block and the most blocks
+#: (``kLnWarps``, ``kLnBwdBlocks``). Route 1 (``ln_bwd_reg_kernel``):
+#: warps (rows in flight) a block, the chunk counts NC instantiated
+#: (hidden = NC x 32 x the values of a 16-byte vector), blocks an SM while
+#: a lane owns at most ``LN_BWD_REG_LANE_COLS`` columns and past that, and
+#: the SMs the grid fills (``kRegWarps``, ``kRegMaxChunks``,
+#: ``kRegLaneCols``, ``kRegBlocksPerSm``, ``kRegBlocksPerSmWide``,
+#: ``kLnSms``)
+LN_BWD_ROWS_WARPS = 8
+LN_BWD_ROWS_MAX_BLOCKS = 2 * 132
+LN_BWD_REG_WARPS = 4
+LN_BWD_REG_CHUNKS = (1, 2, 4, 8)
+LN_BWD_REG_LANE_COLS = 32
+LN_BWD_REG_BLOCKS_PER_SM = 3
+LN_BWD_REG_BLOCKS_PER_SM_WIDE = 2
+LN_SMS = 132
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -156,11 +177,12 @@ _SIGNATURES = {
     "apex_tpu_torch_layer_norm_fwd": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_float, _c_int, _c_int, _c_int, _c_void_p],
-    "apex_tpu_torch_layer_norm_bwd_blocks": [_c_int],
+    # x, w, mean, rstd, dy, dx, dw, db, workspace, rows, hidden,
+    # subtract_mean, x's and w's dtypes, route, partial rows, stream
     "apex_tpu_torch_layer_norm_bwd": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
-        _c_int, _c_void_p],
+        _c_int, _c_int, _c_int, _c_void_p],
     # x, target, loss, lse, rows, V, smoothing, 1 - smoothing,
     # ignore_index, x's dtype, stream
     "apex_tpu_torch_xentropy_fwd": [

@@ -38,9 +38,10 @@ its own wrapper and launch count:
   is THE quantizer, bit for bit JAX's; :func:`write_column_quant`,
   :func:`cache_write_columns_quant`, :func:`paged_write_column_quant`
   and :func:`paged_write_columns_quant` quantize the incoming rows in
-  the kernel and write data and scale as their unquantized siblings
-  write; :func:`attend_cache_quant` and :func:`paged_attention_quantized`
-  are the same split read over rows stored a byte a value: each block
+  the kernel, every head row of the call at once (a group of lanes a
+  row, :func:`quant_write_geometry`), and write data and scale as their
+  unquantized siblings write; :func:`attend_cache_quant` and
+  :func:`paged_attention_quantized` are the same split read over rows stored a byte a value: each block
   stages its split's int8 or fp8 rows as stored, and their fp32 scales
   beside them, by asynchronous copies, widens them to fp32 in registers
   and folds the scales into the scores and the probabilities (about
@@ -696,6 +697,25 @@ def _quant_columns_plain(k_new, v_new, k_q, k_s, v_q, v_s, pos, *,
         _scatter_cells(_bytes(qp), _bytes(q), i0, i2, keep, first=False)
         _scatter_cells(sp[..., None], sc[..., None], i0, i2, keep,
                        first=False)
+
+
+def quant_write_geometry(h: int, d: int, dtype: torch.dtype):
+    """How ``csrc/decode_attention.cu``'s quantized writes lay the 2 x h
+    head rows of one (row, lane) over their blocks, from h, d and the new
+    rows' dtype alone: ``(unit bytes, units a row, lanes a row, rows a
+    block, blocks)``. A row's ``d * itemsize`` bytes are units of the
+    widest of 16, 8, 4 and 2 bytes that divides them; a group of lanes (the
+    units rounded up to a power of two, at most 32) owns a row, lane ``t``
+    taking units ``t, t + group, ...``; a block of
+    ``_build.QUANT_WRITE_THREADS`` threads holds ``threads / group`` rows,
+    K rows ``0..h-1`` then V rows ``h..2h-1``; the grid is ``(b, T,
+    blocks)``."""
+    row_bytes = d * dtype.itemsize
+    unit = next(u for u in (16, 8, 4, 2) if row_bytes % u == 0)
+    units = row_bytes // unit
+    group = min(32, 1 << (units - 1).bit_length())
+    per_block = _build.QUANT_WRITE_THREADS // group
+    return unit, units, group, per_block, -(-2 * h // per_block)
 
 
 def _launch_quant_write(entry: str, counted, k_new, v_new, k_q, k_s, v_q,

@@ -18,9 +18,12 @@ Two ops of the ``apex_tpu_torch`` library, joined by
   ``csrc/layer_norm.cu``, CPU tensors run :func:`layer_norm_fwd_plain`;
 - ``apex_tpu_torch::layer_norm_bwd(x, w, mean, rstd, dy, subtract_mean)
   -> (dx, dw, db)`` — CUDA tensors launch the two-pass backward of
-  ``csrc/layer_norm.cu``, CPU tensors run :func:`layer_norm_bwd_plain`.
-  ``dw`` and ``db`` are fp32; the autograd formula casts them to the
-  parameters' dtype (``db`` is zero for RMSNorm).
+  ``csrc/layer_norm.cu`` on the route :func:`bwd_route` picks (1: the
+  row and the column partials in registers, at the widths it was built
+  for; 0: every other width), with :func:`bwd_geometry`'s partial rows;
+  CPU tensors run :func:`layer_norm_bwd_plain`. ``dw`` and ``db`` are
+  fp32; the autograd formula casts them to the parameters' dtype (``db``
+  is zero for RMSNorm).
 
 Being ops, they are what selective activation checkpointing sees, and
 the forward's saved ``(mean, rstd)`` are its outputs, as the JAX custom
@@ -83,6 +86,44 @@ def layer_norm_bwd_plain(x, w, mean, rstd, dy, subtract_mean: bool
     return dx, (dy32 * xhat).sum(0), dy32.sum(0)
 
 
+def bwd_route(hidden: int, x_dtype: torch.dtype) -> int:
+    """Which backward ``layer_norm_bwd`` launches, by hidden and x's dtype
+    alone: 1 (``ln_bwd_reg_kernel``) when hidden is NC x 32 x V for an NC
+    of ``_build.LN_BWD_REG_CHUNKS`` and V the fp32 (4) or bf16 (8) values
+    of a 16-byte vector — BERT-large's 1024 is NC 4 in bf16 and 8 in fp32
+    —, else 0 (``ln_bwd_rows_kernel``). The C entry refuses route 1 at
+    any other width."""
+    if x_dtype not in _build.DTYPE_CODES:
+        return 0
+    lane_step = 32 * (16 // x_dtype.itemsize)
+    return int(hidden > 0 and hidden % lane_step == 0
+               and hidden // lane_step in _build.LN_BWD_REG_CHUNKS)
+
+
+def bwd_geometry(rows: int, hidden: int, x_dtype: torch.dtype,
+                 route: Optional[int] = None):
+    """``(route, partial rows)`` of the backward over ``[rows, hidden]``,
+    on :func:`bwd_route`'s route unless ``route`` names one. Route 1: a
+    block for every ``LN_BWD_REG_WARPS`` rows, at most as many as its
+    launch bounds keep on the card at once (``LN_BWD_REG_BLOCKS_PER_SM``
+    an SM while a lane's hidden / 32 columns are at most
+    ``LN_BWD_REG_LANE_COLS``, else ``LN_BWD_REG_BLOCKS_PER_SM_WIDE``).
+    Route 0: a block for every ``LN_BWD_ROWS_WARPS`` rows, at most
+    ``LN_BWD_ROWS_MAX_BLOCKS``. The workspace is ``[partial rows, 2,
+    hidden]`` fp32. Shape and dtype alone decide it, so dw and db repeat
+    bit for bit."""
+    if route is None:
+        route = bwd_route(hidden, x_dtype)
+    if route:
+        per_sm = (_build.LN_BWD_REG_BLOCKS_PER_SM
+                  if hidden // 32 <= _build.LN_BWD_REG_LANE_COLS
+                  else _build.LN_BWD_REG_BLOCKS_PER_SM_WIDE)
+        cap, warps = per_sm * _build.LN_SMS, _build.LN_BWD_REG_WARPS
+    else:
+        cap, warps = _build.LN_BWD_ROWS_MAX_BLOCKS, _build.LN_BWD_ROWS_WARPS
+    return route, min(-(-rows // warps), cap)
+
+
 def _check_fwd(x, w, b):
     rows, hidden = _rows(x)
     _build.require(x, "x", (rows, hidden), x.dtype)
@@ -133,18 +174,17 @@ def _bwd_op(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
     _build.require(dy, "dy", (rows, hidden), x.dtype)
     for name, t in (("mean", mean), ("rstd", rstd)):
         _build.require(t, name, (rows,), torch.float32)
-    lib = _build.library()
-    nblk = lib.apex_tpu_torch_layer_norm_bwd_blocks(rows)
+    route, nblk = bwd_geometry(rows, hidden, x.dtype)
     work = torch.empty((nblk, 2, hidden), dtype=torch.float32,
                        device=x.device)
     dx = torch.empty_like(x)
     dw = torch.empty(hidden, dtype=torch.float32, device=x.device)
     db = torch.empty(hidden, dtype=torch.float32, device=x.device)
-    rc = lib.apex_tpu_torch_layer_norm_bwd(
+    rc = _build.library().apex_tpu_torch_layer_norm_bwd(
         x.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        work.data_ptr(), rows, hidden, int(subtract_mean), xc, wc,
-        _build.stream())
+        work.data_ptr(), rows, hidden, int(subtract_mean), xc, wc, route,
+        nblk, _build.stream())
     _build.check(rc, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
     return dx, dw, db
@@ -201,8 +241,8 @@ def layer_norm_bwd(x, w, mean, rstd, dy, *, subtract_mean: bool = True
                    ) -> Tuple[torch.Tensor, ...]:
     """``(dx, dw, db)`` — ``dw``/``db`` fp32 — from the forward's input,
     weight and statistics and the output gradient ``dy``. CUDA tensors
-    launch the two-pass kernel (counted in ``layer_norm_bwd.launches``),
-    CPU tensors run the plain version."""
+    launch the two-pass kernel on :func:`bwd_route`'s route (counted in
+    ``layer_norm_bwd.launches``), CPU tensors run the plain version."""
     _build.on_cuda(x, w, mean, rstd, dy)
     return _bwd_op(x, w, mean, rstd, dy, bool(subtract_mean))
 

@@ -343,6 +343,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import json
 import math
 import statistics
@@ -2047,11 +2048,26 @@ def phase_quant_kernels():
                 lambda: paged_attention_quantized_plain(q, *pk, table, pos),
                 qo + n_cols * rd + 4 * n_tbl, 4 * n_cols * H * D),
         }
+        # the bf16 writes (rows 7, 8, 13, 15) at the same shape, on bf16
+        # caches and pools, timed in turns with the quantized ones
+        c16 = [torch.zeros(B, H, S, D, dtype=bf16, device=dev)
+               for _ in range(2)]
+        p16 = [torch.zeros(N, H, P, D, dtype=bf16, device=dev)
+               for _ in range(2)]
+        bf16_of = {k: v[2] for k, v in _quant_write_specs(
+            pos, table, H, D, c16, p16, kc, pk, (kn, vn),
+            (knt, vnt)).items()}
         for name, (line, fn, plain, n_bytes, n_ops) in specs.items():
             bms, by = bound(n_bytes, n_ops, FP32_FLOPS_PER_S)
             r = dict(ms=time_ms(fn), eager_ms=eager_ms(fn),
                      plain_ms=time_ms(plain), bound_ms=bms, bound_by=by,
                      max_abs_err=err[kind][name])
+            if name in bf16_of:
+                turns = [time_ms(fn), time_ms(bf16_of[name]),
+                         time_ms(bf16_of[name]), time_ms(fn)]
+                r.update(turns_ms=statistics.median(turns[::3]),
+                         bf16_ms=statistics.median(turns[1:3]))
+                r["ms / bf16_ms"] = r["turns_ms"] / r["bf16_ms"]
             if kind == "fp8":
                 rows[name]["fp8"] = r
                 continue
@@ -2069,9 +2085,11 @@ def phase_quant_kernels():
     for r in rows.values():
         log(f"kernel {r['name']}: int8 {r['ms']:.4f} ms (eager "
             f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']}); fp8 "
-            f"{r['fp8']['ms']:.4f} ms, plain {r['fp8']['plain_ms']:.4f} ms "
-            f"at {r['shape']}")
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})"
+            + (f", in turns {r['turns_ms']:.5f} against its bf16 write's "
+               f"{r['bf16_ms']:.5f}" if "bf16_ms" in r else "")
+            + f"; fp8 {r['fp8']['ms']:.4f} ms, plain "
+            f"{r['fp8']['plain_ms']:.4f} ms at {r['shape']}")
     reset_launch_counts()
     return rows
 
@@ -2230,6 +2248,112 @@ def _split_edge_reads(worst: dict) -> dict:
     return geometry
 
 
+#: the quantized writes' matrix (phase 33): the head widths, and the 8
+#: rows' positions over a horizon of 192 by lanes T: -1 (never written),
+#: 0, 191 and, for one column, 192 (outside the horizon: not written);
+#: for SPEC_T columns 189..191, whose lanes clamp onto column 191
+QW_WIDTHS = (32, 64, 80, 100, 128)
+QW_POS = {1: [0, 191, -1, 192, 7, 100, 190, 8],
+          SPEC_T: [0, 191, -1, 189, 190, 63, 188, 8]}
+
+
+def _touched(pos_l, t: int, smax: int, h: int, table=None, page=None):
+    """The cells a write of ``t`` lanes at ``pos_l`` must write, as a
+    boolean mask ``[rows or pages, h, columns]``: lane j of row b at
+    column pos + j when that is >= 0, clamped onto smax - 1 for t > 1,
+    dropped at or past smax for t = 1; through ``table`` for the pools."""
+    b = len(pos_l)
+    if table is None:
+        mask = torch.zeros(b, h, smax, dtype=torch.bool)
+    else:
+        mask = torch.zeros(table.numel() + 1, h, page, dtype=torch.bool)
+        tbl = table.cpu()
+    for r, p in enumerate(pos_l):
+        for j in range(t):
+            c = p + j
+            if c < 0 or (t == 1 and c >= smax):
+                continue
+            c = min(c, smax - 1)
+            if table is None:
+                mask[r, :, c] = True
+            else:
+                mask[int(tbl[r, c // page]), :, c % page] = True
+    return mask
+
+
+def _quant_write_matrix() -> int:
+    """The four quantized writes (rows 9, 11, 14, 16) bit-equal to their
+    plain twins at every width of QW_WIDTHS, int8 and fp8, fp32, bf16 and
+    fp16 rows, contiguous and paged (pools of 193 pages of 8 under a random
+    table), one column and SPEC_T at QW_POS: on planes filled with the
+    stale byte and NaN scales, every cell the write must touch
+    (``_touched``) holds a finite scale and every other cell, data and
+    scale, comes back with its stale bits. Returns the cases held."""
+    from apex_tpu_torch.kernels import (
+        cache_write_columns_quant,
+        cache_write_columns_quant_plain,
+        paged_write_column_quant,
+        paged_write_column_quant_plain,
+        paged_write_columns_quant,
+        paged_write_columns_quant_plain,
+        write_column_quant,
+        write_column_quant_plain,
+    )
+    from apex_tpu_torch.kernels.decode_attention import kv_storage_dtype
+
+    dev = torch.device("cuda")
+    B, H, P, S = SLOTS, 4, PAGE, HORIZON
+    MP, N = S // P, SLOTS * (S // P) + 1
+    writes = {(1, False): (write_column_quant, write_column_quant_plain),
+              (SPEC_T, False): (cache_write_columns_quant,
+                                cache_write_columns_quant_plain),
+              (1, True): (paged_write_column_quant,
+                          paged_write_column_quant_plain),
+              (SPEC_T, True): (paged_write_columns_quant,
+                               paged_write_columns_quant_plain)}
+    n = 0
+    for d in QW_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(3400 + d)
+        table = (torch.randperm(N - 1, generator=g, device=dev) + 1).to(
+            torch.int32).view(B, MP)
+        for kind in ("int8", "fp8"):
+            def stale(*cells):
+                data = torch.full((*cells, d), STALE_BYTE[kind],
+                                  dtype=torch.uint8, device=dev)
+                return [data.view(kv_storage_dtype(kind)),
+                        torch.full(cells, float("nan"), device=dev)]
+            planes = {False: stale(B, H, S) + stale(B, H, S),
+                      True: stale(N, H, P) + stale(N, H, P)}
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                for (t, paged), (fn, plain) in writes.items():
+                    pos_l = QW_POS[t]
+                    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+                    shp = (B, H, d) if t == 1 else (B, H, t, d)
+                    kn, vn = (torch.randn(*shp, generator=g, device=dev)
+                              .to(dt) for _ in range(2))
+                    tbl = (table,) if paged else ()
+                    a = [x.clone() for x in planes[paged]]
+                    b_ = [x.clone() for x in planes[paged]]
+                    fn(kn, vn, *a, *tbl, pos)
+                    plain(kn, vn, *b_, *tbl, pos)
+                    torch.cuda.synchronize()
+                    what = (f"{fn.__name__} d={d} {kind} {str(dt)[6:]} "
+                            f"rows T={t}")
+                    check(_same_planes(a, b_), f"{what}: planes differ from "
+                          f"plain (bitwise)")
+                    hit = _touched(pos_l, t, S if not paged else MP * P, H,
+                                   table if paged else None, P).to(dev)
+                    for data, sc in ((a[0], a[1]), (a[2], a[3])):
+                        check(bool((_bits(data)[~hit] == STALE_BYTE[kind])
+                                   .all())
+                              and bool(torch.isnan(sc[~hit]).all())
+                              and bool(torch.isfinite(sc[hit]).all()),
+                              f"{what}: a cell outside the write changed, "
+                              f"or a written scale is not finite")
+                    n += 1
+    return n
+
+
 def phase_decode_widths():
     """Phase 33: the four decode reads (rows 10, 12, 17, 18) at the head
     widths of DECODE_WIDTHS against their plain versions on the card: the
@@ -2379,6 +2503,11 @@ def phase_decode_widths():
                 check(_same_planes(a, b_), f"{name} d={d} {kind} fp16 "
                       f"rows: planes differ from plain (bitwise)")
     edges = _split_edge_reads(worst)
+    qw_cases = _quant_write_matrix()
+    log(f"quantized writes: {qw_cases} cases bit-equal to plain (d "
+        f"{QW_WIDTHS}; int8, fp8; fp32, bf16, fp16 rows; contiguous and "
+        f"paged; T 1 and {SPEC_T} at {QW_POS}); cells outside each write "
+        f"kept their stale bytes and NaN scales")
     top = {}
     for k, v in worst.items():
         top[k[0]] = max(top.get(k[0], 0.0), v)
@@ -2476,15 +2605,135 @@ def phase_decode_widths():
                                 for x in k[1:]): v
                        for k, v in worst.items() if k[0] == name}
         rows[name] = r
+    rows.update(_quant_writes_2p7b(g, pos, pos_l, table, (kc, vc),
+                                   (kp, vp), quant, qpools))
     for name, r in rows.items():
         log(f"kernel {name} at the 2.7B's decode shape: {r['ms']:.4f} ms "
             f"(eager {r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
             f"library {r.get('library_ms')} ms, bound {r['bound_ms']:.5f} "
             f"ms ({r['bound_by']})"
+            + (f", its bf16 write {r['bf16_ms']:.4f} ms" if "bf16_ms" in r
+               else "")
             + (f"; fp8 {r['fp8']['ms']:.4f} ms, plain "
                f"{r['fp8']['plain_ms']:.4f}" if "fp8" in r else "")
             + f" at {r['shape']}")
     reset_launch_counts()
+    return rows
+
+
+def _quant_write_specs(pos, table, n_rows, d, bf16_caches, bf16_pools,
+                       quant_planes, quant_pools, new1, new_t):
+    """{kernel name: (the quantized write, its plain twin, its bf16
+    counterpart on the bf16 caches (rows 7, 8, 13, 15), bytes moved)} for
+    the four quantized writes of one shape: n_rows
+    head rows a (row, lane), new1 ``[b, h, d]`` and new_t ``[b, h, T,
+    d]`` bf16 rows, the int8 or fp8 planes and pools."""
+    from apex_tpu_torch.kernels import (
+        cache_write_columns,
+        cache_write_columns_quant,
+        cache_write_columns_quant_plain,
+        paged_write_column,
+        paged_write_column_quant,
+        paged_write_column_quant_plain,
+        paged_write_columns,
+        paged_write_columns_quant,
+        paged_write_columns_quant_plain,
+        write_column,
+        write_column_quant,
+        write_column_quant_plain,
+    )
+
+    B, T = new_t[0].shape[0], new_t[0].shape[2]
+    P = quant_pools[0].shape[2]
+    S = table.shape[1] * P
+    pl = pos.long()
+    cols = (pl[:, None] + torch.arange(T, device=pos.device)[None]).clamp(
+        max=S - 1)
+    distinct = lambda c: B + int((c[:, 1:] != c[:, :-1]).sum())
+    # a written cell: its bf16 row read, its byte row and fp32 scale
+    # written, for K and V
+    cell = 2 * n_rows * (d * 2 + d + 4)
+    kn, vn = new1
+    knt, vnt = new_t
+    kc, vc = bf16_caches
+    kp, vp = bf16_pools
+    cq, pq = quant_planes, quant_pools
+    return {
+        "decode_write_column_quant": (
+            lambda: write_column_quant(kn, vn, *cq, pos),
+            lambda: write_column_quant_plain(kn, vn, *cq, pos),
+            lambda: write_column(kn, vn, kc, vc, pos), B * cell + B * 4),
+        "cache_write_columns_quant": (
+            lambda: cache_write_columns_quant(knt, vnt, *cq, pos),
+            lambda: cache_write_columns_quant_plain(knt, vnt, *cq, pos),
+            lambda: cache_write_columns(knt, vnt, kc, vc, pos),
+            distinct(cols) * cell + B * 4),
+        "paged_write_column_quant": (
+            lambda: paged_write_column_quant(kn, vn, *pq, table, pos),
+            lambda: paged_write_column_quant_plain(kn, vn, *pq, table, pos),
+            lambda: paged_write_column(kn, vn, kp, vp, table, pos),
+            B * cell + B * 8),
+        "paged_write_columns_quant": (
+            lambda: paged_write_columns_quant(knt, vnt, *pq, table,
+                                                   pos),
+            lambda: paged_write_columns_quant_plain(knt, vnt, *pq, table,
+                                                    pos),
+            lambda: paged_write_columns(knt, vnt, kp, vp, table, pos),
+            distinct(cols) * cell + B * 4 + 4 * distinct(cols // P)),
+    }
+
+
+def _quant_writes_2p7b(g, pos, pos_l, table, bf16_caches, bf16_pools, quant,
+                       qpools) -> dict:
+    """The four quantized writes at the 2.7B's decode shape (b 8, 32 heads
+    of 80, horizon 1024, bf16 rows; SPEC_T columns for rows 9 and 16), int8
+    planes with fp8 beside: each held bit-equal to its plain twin and
+    timed as in phase 3 beside its bf16 counterpart in turns (write, bf16,
+    bf16, write; the medians). Returns {kernel name: its 2.7B entry}."""
+    B2, H2, D2 = D27_B, D27_H, D27_D
+    mk = lambda *shp: torch.randn(*shp, generator=g, device="cuda",
+                                  dtype=torch.bfloat16)
+    new1 = (mk(B2, H2, D2), mk(B2, H2, D2))
+    new_t = (mk(B2, H2, SPEC_T, D2), mk(B2, H2, SPEC_T, D2))
+    rows = {}
+    for kind in ("int8", "fp8"):
+        specs = _quant_write_specs(pos, table, H2, D2, bf16_caches,
+                                   bf16_pools, quant[kind], qpools[kind],
+                                   new1, new_t)
+        for name, (fn, plain, bf16_fn, n_bytes) in specs.items():
+            planes = qpools[kind] if "paged" in name else quant[kind]
+            a = [x.clone() for x in planes]
+            saved = [x.clone() for x in planes]
+            fn()
+            torch.cuda.synchronize()
+            got = [x.clone() for x in planes]
+            for x, y in zip(planes, a):
+                _bits(x).copy_(_bits(y))
+            plain()
+            torch.cuda.synchronize()
+            check(_same_planes(got, planes), f"{name} {kind} at the 2.7B's "
+                  f"decode shape: planes differ from plain (bitwise)")
+            for x, y in zip(planes, saved):
+                _bits(x).copy_(_bits(y))
+            turns = [time_ms(fn), time_ms(bf16_fn), time_ms(bf16_fn),
+                     time_ms(fn)]
+            bms, by = bound(n_bytes, 0, FP32_FLOPS_PER_S)
+            r = dict(d=D2, max_abs_err=0.0, ms=statistics.median(turns[::3]),
+                     bf16_ms=statistics.median(turns[1:3]),
+                     eager_ms=eager_ms(fn), plain_ms=time_ms(plain),
+                     bound_ms=bms, bound_by=by, library_ms=None,
+                     shape=(f"b={B2} h={H2} S={D27_S} d={D2}"
+                            if "paged" not in name else
+                            f"b={B2} h={H2} P={PAGE} max_pages="
+                            f"{table.shape[1]} d={D2}")
+                     + (f" T={SPEC_T}" if "columns" in name else "")
+                     + f" bf16 rows, {kind} planes, pos={pos_l}")
+            r["ms / bf16_ms"] = r["ms"] / r["bf16_ms"]
+            if kind == "fp8":
+                rows[name]["fp8"] = r
+            else:
+                rows[name] = r
+            del a, saved, got
     return rows
 
 
@@ -3364,6 +3613,61 @@ def _ln_rows(dev, rows, hidden, dtype, w_dtype, seed):
         rows, hidden, dt=dtype)
 
 
+#: the LayerNorm backward's route-1 widths held in phase 11 beside the
+#: step's [16384, 1024] (bf16 with fp32 w, and fp32: the fp16 amp path),
+#: one for every other chunk count NC (hidden = NC x 32 x the values of a
+#: 16-byte vector: NC 1, 2, 8 in bf16; 1, 2, 4 in fp32), fp32 w
+LN_NC_SHAPES = ((4096, 256, torch.bfloat16), (4096, 512, torch.bfloat16),
+                (4096, 2048, torch.bfloat16), (4096, 128, torch.float32),
+                (4096, 256, torch.float32), (4096, 512, torch.float32))
+
+
+@contextlib.contextmanager
+def ln_bwd_routes():
+    """The routes ``layer_norm_bwd`` launches while the block runs, in
+    order (``kernels/layer_norm.py:bwd_geometry`` wrapped by a
+    recorder)."""
+    # the module (the package re-exports a function of its name)
+    ln = importlib.import_module("apex_tpu_torch.kernels.layer_norm")
+    seen, real = [], ln.bwd_geometry
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[0])
+        return out
+    ln.bwd_geometry = record
+    try:
+        yield seen
+    finally:
+        ln.bwd_geometry = real
+
+
+def ln_bwd_on_route(x, w, mean, rstd, dy, sub: bool, route: int):
+    """``csrc/layer_norm.cu``'s backward on ``route`` (1: the row and the
+    partials in registers, 0: the earlier design), launched directly with
+    that route's geometry: ``(launch, (dx, dw, db))``. Its launches are not
+    counted."""
+    from apex_tpu_torch.kernels import _build
+    from apex_tpu_torch.kernels.layer_norm import bwd_geometry
+
+    rows, hidden = x.shape
+    _, nblk = bwd_geometry(rows, hidden, x.dtype, route=route)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    work = torch.empty((nblk, 2, hidden), **f32)
+    out = (torch.empty_like(x), torch.empty(hidden, **f32),
+           torch.empty(hidden, **f32))
+
+    def launch():
+        _build.check(_build.library().apex_tpu_torch_layer_norm_bwd(
+            x.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            dy.data_ptr(), *(t.data_ptr() for t in out), work.data_ptr(),
+            rows, hidden, int(sub), _build.DTYPE_CODES[x.dtype],
+            _build.DTYPE_CODES[w.dtype], route, nblk, _build.stream()),
+            f"layer_norm_bwd route {route}")
+    launch()
+    return launch, out
+
+
 def device_ops(fn, calls: int = 4, tries: int = 4,
                margin_s: float = 0.25) -> dict:
     """The device work of one call of ``fn`` by ``torch.profiler``:
@@ -3470,23 +3774,45 @@ def phase_bert_kernels(bcfg):
     eps = bcfg.layernorm_epsilon
     rows, extra = {}, {}
 
-    # -- LayerNorm: the step's [16384, 1024] bf16 with fp32 w/b, a ragged
-    #    [37, 513] fp32, both statistics; dw/db bit-equal across launches
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    cases = ((BERT_BATCH * bcfg.seq_len, bcfg.hidden_size, bf16, BF16_TOL),
-             (37, 513, torch.float32, FP32_TOL))
-    for n_rows, hidden, dtype, tol in cases:
-        x, w, b, dy = _ln_rows(dev, n_rows, hidden, dtype, torch.float32,
-                               seed=n_rows)
+    # -- LayerNorm: the step's [16384, 1024] bf16 with fp32 w/b and in
+    #    fp32 (the fp16 amp path), route 1 at every other chunk count, a
+    #    ragged [37, 513] fp32 (route 0), both statistics; dw/db bit-equal
+    #    across launches; where route 1 runs, dx bit-equal to route 0's
+    #    and both routes timed
+    from apex_tpu_torch.kernels.layer_norm import bwd_route
+
+    worst = {"fwd": 0.0, "bwd": 0.0, "route 0 bwd": 0.0}
+    main_rows = BERT_BATCH * bcfg.seq_len
+    cases = ((main_rows, bcfg.hidden_size, bf16),
+             (main_rows, bcfg.hidden_size, torch.float32),
+             *LN_NC_SHAPES, (37, 513, torch.float32))
+    by_shape = {}
+    for n_rows, hidden, dtype in cases:
+        tol = BF16_TOL if dtype == bf16 else FP32_TOL
+        # the step's and the ragged shape keep their seeds; the chunk
+        # counts' 4096-row shapes take one each
+        x, w, b, dy = _ln_rows(
+            dev, n_rows, hidden, dtype, torch.float32,
+            seed=n_rows + (0 if hidden in (bcfg.hidden_size, 513)
+                           else hidden))
+        want_route = 0 if hidden == 513 else 1
+        tag = f"[{n_rows}, {hidden}] {str(dtype)[6:]}"
         for sub in (True, False):
             y, mean, rstd = layer_norm_fwd(x, w, b, eps=eps,
                                            subtract_mean=sub)
             ry, rmean, rrstd = layer_norm_fwd_plain(x, w, b, eps, sub)
-            got = layer_norm_bwd(x, w, mean, rstd, dy, subtract_mean=sub)
-            again = layer_norm_bwd(x, w, mean, rstd, dy, subtract_mean=sub)
+            with ln_bwd_routes() as seen:
+                got = layer_norm_bwd(x, w, mean, rstd, dy,
+                                     subtract_mean=sub)
+                again = layer_norm_bwd(x, w, mean, rstd, dy,
+                                       subtract_mean=sub)
             want = layer_norm_bwd_plain(x, w, mean, rstd, dy, sub)
             torch.cuda.synchronize()
-            what = f"layer_norm [{n_rows}, {hidden}] {dtype} sub={sub}"
+            what = f"layer_norm {tag} sub={sub}"
+            check(seen == [want_route] * 2
+                  and bwd_route(hidden, dtype) == want_route,
+                  f"{what}: the backward took routes {seen}, expected "
+                  f"{want_route}")
             check(close(y, ry, tol) and close(mean, rmean, FP32_TOL)
                   and close(rstd, rrstd, FP32_TOL),
                   f"{what}: fwd err {max_err(y, ry)}, mean "
@@ -3499,8 +3825,29 @@ def phase_bert_kernels(bcfg):
             worst["fwd"] = max(worst["fwd"], max_err(y, ry))
             worst["bwd"] = max(worst["bwd"], *(max_err(a, r) for a, r in
                                                zip(got, want)))
+            if want_route == 0:
+                continue
+            launch0, old = ln_bwd_on_route(x, w, mean, rstd, dy, sub, 0)
+            torch.cuda.synchronize()
+            check(torch.equal(_bits(got[0]), _bits(old[0])),
+                  f"{what}: dx not bit-equal to route 0's")
+            for name, a, r in zip(("dw", "db"), old[1:], want[1:]):
+                check(close(a, r, FP32_TOL),
+                      f"{what}: route 0 {name} err {max_err(a, r)}")
+            worst["route 0 bwd"] = max(worst["route 0 bwd"],
+                                       *(max_err(a, r) for a, r in
+                                         zip(old[1:], want[1:])))
+            if sub:
+                fn = lambda: layer_norm_bwd(x, w, mean, rstd, dy)
+                by_shape[tag] = dict(route1_ms=time_ms(fn),
+                                     route0_ms=time_ms(launch0))
+                by_shape[tag]["route1 / route0"] = (
+                    by_shape[tag]["route1_ms"] / by_shape[tag]["route0_ms"])
+        del x, w, b, dy, y, mean, rstd, got, again, want
     log(f"layer_norm: kernel vs plain max err {worst} (bf16 atol=rtol=2e-2,"
-        f" fp32 and dw/db 1e-3); dx, dw, db bit-equal across two launches")
+        f" fp32 and dw/db 1e-3); dx, dw, db bit-equal across two launches; "
+        f"route 1 at {sorted(by_shape)}, its dx bit-equal to route 0's; "
+        f"ms by shape (fp32 w/b): {json.dumps(by_shape)}")
 
     n_rows, hidden = BERT_BATCH * bcfg.seq_len, bcfg.hidden_size
     x, w, b, dy = _ln_rows(dev, n_rows, hidden, bf16, torch.float32, seed=5)
@@ -3519,6 +3866,7 @@ def phase_bert_kernels(bcfg):
     shape = f"[{n_rows}, {hidden}] bf16, fp32 w/b"
     ln_f = lambda: layer_norm_fwd(x, w, b, eps=eps)
     ln_b = lambda: layer_norm_bwd(x, w, mean, rstd, dy)
+    ln_b0, _ = ln_bwd_on_route(x, w, mean, rstd, dy, True, 0)
     rows["layer_norm_fwd"] = dict(
         name="layer_norm_fwd", route="cuda",
         source="apex_tpu_torch/csrc/layer_norm.cu",
@@ -3534,8 +3882,27 @@ def phase_bert_kernels(bcfg):
         plain_ms=time_ms(lambda: layer_norm_bwd_plain(x, w, mean, rstd, dy,
                                                       True)),
         bound_ms=lb, bound_by=lbby,
-        library_ms=eager_ms(lib_fb) - eager_ms(lib_f), shape=shape)
-    del x, w, b, dy, mean, rstd, xr, wr, br
+        library_ms=eager_ms(lib_fb) - eager_ms(lib_f), shape=shape,
+        bwd_route=bwd_route(hidden, x.dtype), route0_ms=time_ms(ln_b0),
+        by_shape=by_shape)
+    del x, w, b, dy, mean, rstd, xr, wr, br, ln_b0
+    # the fp16 amp path's backward: the same shape widened to fp32
+    x, w, b, dy = _ln_rows(dev, n_rows, hidden, torch.float32,
+                           torch.float32, seed=6)
+    _, mean, rstd = layer_norm_fwd(x, w, b, eps=eps)
+    ln_b0, _ = ln_bwd_on_route(x, w, mean, rstd, dy, True, 0)
+    lb32, lb32by = bound(3 * 2 * act + stats + 3 * hidden * 4,
+                         12 * n_rows * hidden, FP32_FLOPS_PER_S)
+    rows["layer_norm_bwd"]["fp32"] = dict(
+        ms=time_ms(lambda: layer_norm_bwd(x, w, mean, rstd, dy)),
+        route0_ms=time_ms(ln_b0), bound_ms=lb32, bound_by=lb32by,
+        bwd_route=bwd_route(hidden, x.dtype),
+        shape=f"[{n_rows}, {hidden}] fp32, fp32 w/b")
+    r = rows["layer_norm_bwd"]
+    log(f"layer_norm_bwd at {shape}: route {r['bwd_route']} {r['ms']:.4f} "
+        f"ms, route 0 {r['route0_ms']:.4f} ms (bound {lb:.4f}); fp32 "
+        f"{json.dumps(r['fp32'])}")
+    del x, w, b, dy, mean, rstd, ln_b0
 
     # -- l2norm_flat and adam_flat's delta mode on the 335.2M fp32 group
     n = pad_to(bcfg.param_count())
@@ -3824,17 +4191,18 @@ def phase_bert_train(bcfg, layout, tok, tgt, mask):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    state, m = step_fn(state, tok, tgt, mask)
-    losses = [m["loss"]]
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    with ln_bwd_routes() as routes:
+        t0 = time.perf_counter()
         state, m = step_fn(state, tok, tgt, mask)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        losses = [m["loss"]]
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            state, m = step_fn(state, tok, tgt, mask)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = launch_counts()
     losses = [float(x) for x in losses]
     n_steps = TRAIN_STEPS + 1
@@ -3844,7 +4212,8 @@ def phase_bert_train(bcfg, layout, tok, tgt, mask):
         step_ms=wall / TRAIN_STEPS * 1e3, warmup_step_ms=warm * 1e3,
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
         losses=losses, launches=counts,
-        launches_per_step={k: v / n_steps for k, v in counts.items()})
+        launches_per_step={k: v / n_steps for k, v in counts.items()},
+        ln_bwd_route1=routes.count(1))
     log(f"train {run}: " + json.dumps(metrics))
     check(all(np.isfinite(losses)), f"train {run}: non-finite loss")
     check(abs(losses[0] - math.log(bcfg.vocab_size)) < 1.0,
@@ -3861,6 +4230,11 @@ def phase_bert_train(bcfg, layout, tok, tgt, mask):
         check(counts[name] == per_step * n_steps,
               f"train {run}: {name} launched {counts[name]} times, expected "
               f"{per_step} x {n_steps} steps")
+    # hidden 1024 in bf16 and fp32 is route 1's
+    check(routes == [1] * counts["layer_norm_bwd"],
+          f"train {run}: LayerNorm backward routes {sorted(set(routes))} "
+          f"over {len(routes)} calls, expected route 1 for all "
+          f"{counts['layer_norm_bwd']} launches")
     return metrics, state, step_fn
 
 
@@ -6651,7 +7025,11 @@ def main() -> int:
     for name, side in (("decode_attention", "contiguous"),
                        ("paged_attention", "paged"),
                        ("decode_attention_quant", "int8"),
-                       ("paged_attention_quant", "paged int8")):
+                       ("paged_attention_quant", "paged int8"),
+                       ("decode_write_column_quant", "int8"),
+                       ("paged_write_column_quant", "paged int8"),
+                       ("cache_write_columns_quant", "int8"),
+                       ("paged_write_columns_quant", "paged int8")):
         rows[name]["2p7b"] = dict(width_rows[name],
                                   launches=serve_2p7b_counts[side][name])
     for r in train_rows.values():
@@ -6668,6 +7046,7 @@ def main() -> int:
         rows[kname]["bert"]["launches_tc"] = run_a["launches"][f"{kname}_tc"]
     for r in bert_rows.values():
         r["launches"] = run_a["launches"][r["name"]]
+    bert_rows["layer_norm_bwd"]["launches_route1"] = run_a["ln_bwd_route1"]
     rows.update(bert_rows)
     for r in xent_rows.values():
         r["launches"] = fused_run["launches"][r["name"]]
