@@ -12,6 +12,13 @@
 //   _paged_attn_kernel), the same three jobs through a per-row block
 //   table into a global page pool (gpt._paged_attend and
 //   gpt._paged_attend_multi);
+// - on the decode step's main path, the single-column write and the read
+//   of one layer (decode_attention's _write_column + _run_attn, and
+//   gpt._paged_attend's paged_write_column + paged_attention) as ONE
+//   launch of the read, which stores the new column itself (the entries
+//   apex_tpu_torch_decode_attention_write and
+//   apex_tpu_torch_paged_attention_write; the stand-alone write and read
+//   entries stay, the counterparts of JAX's public functions);
 // - the six over the quantized cache (int8 or fp8 e4m3 data with one
 //   fp32 scale per head row and column): _write_column_quant,
 //   cache_write_columns_quant, paged_write_column_quant and
@@ -104,6 +111,34 @@
 //   is one add away from its value; fp8 widens in pairs by the hardware
 //   e4m3x2 -> f16x2 conversion and then to fp32. Both are exact. So a
 //   quantized read moves ~(d + 4) / (2 d) of the bf16 cache's bytes.
+// - The fused launch (rows 7 and 13 inside rows 10 and 17): a
+//   single-column write moves 2 x b x h x d values, ~40 KB at the 2.7B's
+//   decode shape, a hundredth of a microsecond of HBM time, so a launch of
+//   its own cost it its whole fixed cost (~2 us on the device, a wrapper
+//   and its checks on the host), once a layer every decode step. The read
+//   of the same layer follows it, and in that read only the block of rank
+//   pos / split_cols ever touches column pos of its row. So that block
+//   stages the column's slot of its last sub-tile from k_new/v_new's row,
+//   by the same cp.async units, instead of from the cache, and once its
+//   last sub-tile is scored stores that slot into the column (the
+//   contiguous cell, or page table[b, pos / P] at pos % P from the page
+//   numbers it loaded), by plain loads and stores of the copy unit.
+//   Nothing in the launch reads a cell it writes (the .cg copies go
+//   around L1, and the first sub-tiles are issued before anything else,
+//   so a store followed by a copy from the cache would need a fence and a
+//   wait in front of them), and the bytes scored are exactly the bytes
+//   stored: the caches and out equal the write + read pair's bit for bit.
+//   Stored from the slot after the loop, the row costs no second read
+//   from device memory in front of the block's first sub-tile (stored
+//   first from k_new, the launch was 2-4% slower on an H100 at the 355M's
+//   decode shapes and the 2.7B's paged one). The helpers are out of line
+//   (see store_row). A position outside [0,
+//   horizon) writes nothing and substitutes nothing (the write kernel
+//   drops it; the read keeps its clamp). Only the plain rows take new
+//   rows: a quantized write quantizes a whole head row first. Rows that
+//   share a cell (freed rows' tables all point at the sink page) race on
+//   it as the pair's writes did; their outputs are never used, and a live
+//   row's columns lie in its own pages.
 // - The contiguous and the paged read differ only in where column c's
 //   row (and scale) is copied from: the same bytes land in the same
 //   shared-memory cells and are summed in the same order, so paged
@@ -563,6 +598,43 @@ __device__ __forceinline__ void stage_pages(char* ks, char* vs,
   }
 }
 
+// a copy unit of N bytes as one value, for the fused launch's store of
+// the new rows into the cache
+template <int N> struct UnitOf;
+template <> struct UnitOf<16> { using type = uint4; };
+template <> struct UnitOf<8> { using type = uint2; };
+template <> struct UnitOf<4> { using type = uint32_t; };
+template <> struct UnitOf<2> { using type = uint16_t; };
+template <> struct UnitOf<1> { using type = uint8_t; };
+
+// The fused launch's two jobs for the block holding column pos, out of
+// line: inlined into the split read they took its plain instantiations
+// from 56-72 registers a thread to 80-128 (spilling at DP 96 and in
+// fp32) and so halved its blocks an SM; called, they leave it 64-72 and
+// no spill. (A minimum of blocks an SM in the launch bounds held the
+// plain reads to 64 too, but changed the quantized reads' code: 2-10%
+// slower on an H100, 30% with a minimum of 1.) store_row: one head row
+// of row_bytes bytes from kn/vn (the ring slots the row was staged into)
+// into the cache cells kd/vd, in N-byte units, neighbouring threads on
+// neighbouring units; stage_row: the new row from kn/vn into the ring's
+// slots ks/vs by the read's cp.async units (in the caller's commit
+// group).
+template <int N>
+__device__ __noinline__ void store_row(char* kd, char* vd, const char* kn,
+                                       const char* vn, int row_bytes) {
+  using U = typename UnitOf<N>::type;
+  for (int i = threadIdx.x; i < row_bytes / N; i += kSplitThreads) {
+    reinterpret_cast<U*>(kd)[i] = reinterpret_cast<const U*>(kn)[i];
+    reinterpret_cast<U*>(vd)[i] = reinterpret_cast<const U*>(vn)[i];
+  }
+}
+
+template <int N>
+__device__ __noinline__ void stage_row(char* ks, char* vs, const char* kn,
+                                       const char* vn, int row_bytes) {
+  stage_run<N>(ks, vs, kn, vn, 0, 0, 1, row_bytes);
+}
+
 // f(std::integral_constant<int, N>{}) for a copy unit of N = 16, 8, 4 or
 // 2 bytes, or 1 for rows of one-byte S (int8 or fp8 at an odd d)
 template <typename S, typename F>
@@ -607,7 +679,11 @@ __device__ __forceinline__ void stage_scales(float* ss,
 // whose fp32 scales k_s/v_s lie beside the rows, [b, h, horizon] or
 // [num_pages, h, P] (null for the plain reads), and fold in as
 // _attn_kernel_quant folds them: score (q . k) * s_k * scale, V weight p
-// * s_v, l the sum of the unscaled p. The dynamic shared memory holds
+// * s_v, l the sum of the unscaled p. With k_new/v_new [b, h, d] (the
+// plain reads only; null: read only) the launch is the fused decode step:
+// the block holding column pos[b] (when it lies in [0, horizon)) stores
+// the row's new K and V there and scores them from k_new/v_new. The
+// dynamic shared memory holds
 // the ring, kReadRing x (K, V) x kSubCols rows of d x sizeof(S) bytes,
 // then (kQuant) kReadRing x (K, V) x kSubCols fp32 scales, then
 // (kPaged) the split's page numbers.
@@ -617,6 +693,8 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
                          const float* __restrict__ k_s,
                          const S* __restrict__ v,
                          const float* __restrict__ v_s,
+                         const S* __restrict__ k_new,
+                         const S* __restrict__ v_new,
                          const int* __restrict__ table,
                          const int* __restrict__ pos, T* __restrict__ out,
                          int h, int horizon, int P, int mp, int d,
@@ -647,7 +725,8 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int p = min(max(pos[b], 0), horizon - 1);
+  const int pw = pos[b];
+  const int p = min(max(pw, 0), horizon - 1);
   const int c0 = s * split_cols;
   // a split that starts past pos has nothing to read or merge: it exits
   // at once, so it holds no SM slot while its cluster sweeps (the
@@ -655,6 +734,11 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   // the merge counts live splits alone)
   if (c0 > p) return;
   const int c1 = min(c0 + split_cols, p + 1);  // past the split's last <= p
+  // (the fused launch) this block holds column pw: it stores the new rows
+  // there and stages them as the column's slot of its last sub-tile
+  bool put = false;
+  if constexpr (!kQuant)
+    put = k_new != nullptr && pw == p && c1 == p + 1;
   // the split-0 block expects every thread of the other live splits'
   // blocks; the cluster barrier's arrival here and its wait before the
   // push make sure it has started and set its mbarrier up first
@@ -680,21 +764,33 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     __syncthreads();
   }
   const int n_sub = (c1 - c0 + kSubCols - 1) / kSubCols;
+  const int t_put = put ? n_sub - 1 : -1;  // the sub-tile holding pw
+  const char* knb = reinterpret_cast<const char*>(k_new);
+  const char* vnb = reinterpret_cast<const char*>(v_new);
   // sub-tile t's copies into ring stage t % kReadRing, in the widest unit
   // the rows' bytes divide into (block-uniform), and (kQuant) its
-  // columns' scales beside them, in the same commit group
+  // columns' scales beside them, in the same commit group; in sub-tile
+  // t_put the last column (pw) comes from the new rows, not the cache
   auto stage = [&](int t) {
     const int c = c0 + t * kSubCols;
     const int nc = min(kSubCols, c1 - c);
+    const int cached = t == t_put ? nc - 1 : nc;
     char* ks = ring + (t % kReadRing) * 2 * tile_bytes;
     char* vs = ks + tile_bytes;
     with_unit<S>(unit, [&](auto n) {
       constexpr int N = decltype(n)::value;
       if constexpr (kPaged)
-        stage_pages<N>(ks, vs, kb, vb, pages, page0, head, h, P, c, nc,
+        stage_pages<N>(ks, vs, kb, vb, pages, page0, head, h, P, c, cached,
                        row_bytes);
       else
-        stage_run<N>(ks, vs, kb, vb, (size_t)r * horizon, c, nc, row_bytes);
+        stage_run<N>(ks, vs, kb, vb, (size_t)r * horizon, c, cached,
+                     row_bytes);
+      if constexpr (!kQuant) {
+        if (t == t_put)
+          stage_row<N>(ks + cached * row_bytes, vs + cached * row_bytes,
+                       knb + (size_t)r * row_bytes,
+                       vnb + (size_t)r * row_bytes, row_bytes);
+      }
     });
     if constexpr (kQuant) {
       float* ss = scales + (t % kReadRing) * 2 * kSubCols;
@@ -800,6 +896,25 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     m = m_new;
     __syncthreads();  // the stage is free for the copy issued next
   }
+  // (put) the new rows, from the ring slots the last sub-tile staged them
+  // into (no copy is issued after it), into the cache cell of column pw;
+  // no block of the launch reads that cell, so the rows' pointers stay
+  // read-only for every cell they load
+  if constexpr (!kQuant) {
+    if (put) {
+      size_t cell = (size_t)r * horizon + p;
+      if constexpr (kPaged)
+        cell = ((size_t)pages[p / P - page0] * h + head) * P + p % P;
+      const size_t o = cell * row_bytes;
+      const char* slot = ring + (t_put % kReadRing) * 2 * tile_bytes +
+                         (p - c0 - t_put * kSubCols) * row_bytes;
+      with_unit<S>(unit, [&](auto n) {
+        store_row<decltype(n)::value>(const_cast<char*>(kb) + o,
+                                      const_cast<char*>(vb) + o, slot,
+                                      slot + tile_bytes, row_bytes);
+      });
+    }
+  }
 
   // the warps merged in warp order (a warp that scored no column holds
   // (kNeg, 0, 0): its factor is 0), and the block's (m, l, acc) pushed
@@ -898,6 +1013,7 @@ cudaError_t launch_write_cols(const void* k_new, const void* v_new,
 template <typename T, typename S, int DP, bool kPaged>
 cudaError_t launch_read_split(const void* q, const void* k, const void* k_s,
                               const void* v, const void* v_s,
+                              const void* k_new, const void* v_new,
                               const void* table, const void* pos, void* out,
                               int n_rows, int h, int horizon, int P, int mp,
                               int d, float scale, int split_cols,
@@ -926,7 +1042,8 @@ cudaError_t launch_read_split(const void* q, const void* k, const void* k_s,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const S*>(k),
       static_cast<const float*>(k_s), static_cast<const S*>(v),
-      static_cast<const float*>(v_s), static_cast<const int*>(table),
+      static_cast<const float*>(v_s), static_cast<const S*>(k_new),
+      static_cast<const S*>(v_new), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<T*>(out), h, horizon, P, mp,
       d, scale, split_cols, n_splits, unit);
   const cudaError_t last = cudaGetLastError();  // clears what it left
@@ -934,9 +1051,11 @@ cudaError_t launch_read_split(const void* q, const void* k, const void* k_s,
 }
 
 // the split read over rows stored as S, for q's T and the padded width
+// (k_new/v_new: the fused launch, or null)
 template <typename T, typename S>
 cudaError_t launch_read(const void* q, const void* k, const void* k_s,
-                        const void* v, const void* v_s, const void* table,
+                        const void* v, const void* v_s, const void* k_new,
+                        const void* v_new, const void* table,
                         const void* pos, void* out, int b, int h,
                         int horizon, int P, int mp, int d, float scale,
                         int split_cols, int n_splits, cudaStream_t stream) {
@@ -953,12 +1072,12 @@ cudaError_t launch_read(const void* q, const void* k, const void* k_s,
     if (kQuantRows<S>) smem += sizeof(float) * kReadRing * 2 * kSubCols;
     if (table == nullptr)
       return launch_read_split<T, S, DP, false>(
-          q, k, k_s, v, v_s, nullptr, pos, out, b * h, h, horizon, 1, 1, d,
-          scale, split_cols, n_splits, unit, smem, stream);
+          q, k, k_s, v, v_s, k_new, v_new, nullptr, pos, out, b * h, h,
+          horizon, 1, 1, d, scale, split_cols, n_splits, unit, smem, stream);
     smem += sizeof(int) * ((split_cols + P - 1) / P + 1);
     return launch_read_split<T, S, DP, true>(
-        q, k, k_s, v, v_s, table, pos, out, b * h, h, horizon, P, mp, d,
-        scale, split_cols, n_splits, unit, smem, stream);
+        q, k, k_s, v, v_s, k_new, v_new, table, pos, out, b * h, h, horizon,
+        P, mp, d, scale, split_cols, n_splits, unit, smem, stream);
   });
 }
 
@@ -971,9 +1090,12 @@ constexpr int kRowsAsQ = -1;
 // kInt8 or kFp8 as int8 or fp8 e4m3 with fp32 scale planes k_s/v_s
 // beside them ([b, h, horizon] or [num_pages, h, P]); the horizon in
 // n_splits splits of split_cols columns (a multiple of kSubCols, the
-// last split holding the horizon's last column)
+// last split holding the horizon's last column); k_new/v_new [b, h, d]
+// (kind kRowsAsQ only; null: read only) make it the fused launch, which
+// also stores them into column pos[b]
 cudaError_t launch_attn(const void* q, const void* k, const void* k_s,
-                        const void* v, const void* v_s, const void* table,
+                        const void* v, const void* v_s, const void* k_new,
+                        const void* v_new, const void* table,
                         const void* pos, void* out, int b, int h,
                         int horizon, int P, int mp, int d, float scale,
                         int dtype, int kind, int split_cols, int n_splits,
@@ -986,14 +1108,14 @@ cudaError_t launch_attn(const void* q, const void* k, const void* k_s,
   return with_dtype(dtype, [&](auto t_tag) {
     using T = typename decltype(t_tag)::type;
     if (kind == kRowsAsQ)
-      return launch_read<T, T>(q, k, nullptr, v, nullptr, table, pos, out,
-                               b, h, horizon, P, mp, d, scale, split_cols,
-                               n_splits, stream);
+      return launch_read<T, T>(q, k, nullptr, v, nullptr, k_new, v_new,
+                               table, pos, out, b, h, horizon, P, mp, d,
+                               scale, split_cols, n_splits, stream);
     return with_kind(kind, [&](auto s_tag) {
       using S = typename decltype(s_tag)::type;
-      return launch_read<T, S>(q, k, k_s, v, v_s, table, pos, out, b, h,
-                               horizon, P, mp, d, scale, split_cols,
-                               n_splits, stream);
+      return launch_read<T, S>(q, k, k_s, v, v_s, nullptr, nullptr, table,
+                               pos, out, b, h, horizon, P, mp, d, scale,
+                               split_cols, n_splits, stream);
     });
   });
 }
@@ -1111,9 +1233,9 @@ extern "C" int apex_tpu_torch_decode_attention(
     void* out, int b, int h, int S, int d, float scale, int dtype,
     int split_cols, int n_splits, void* stream) {
   if (b <= 0 || h <= 0 || S <= 0) return cudaErrorInvalidValue;
-  return launch_attn(q, k_cache, nullptr, v_cache, nullptr, nullptr, pos,
-                     out, b, h, S, 1, 1, d, scale, dtype, kRowsAsQ,
-                     split_cols, n_splits,
+  return launch_attn(q, k_cache, nullptr, v_cache, nullptr, nullptr, nullptr,
+                     nullptr, pos, out, b, h, S, 1, 1, d, scale, dtype,
+                     kRowsAsQ, split_cols, n_splits,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -1125,9 +1247,46 @@ extern "C" int apex_tpu_torch_paged_attention(
     const void* pos, void* out, int b, int h, int P, int mp, int d,
     float scale, int dtype, int split_cols, int n_splits, void* stream) {
   if (b <= 0 || h <= 0 || P <= 0 || mp <= 0) return cudaErrorInvalidValue;
-  return launch_attn(q, k_pool, nullptr, v_pool, nullptr, table, pos, out, b,
-                     h, mp * P, P, mp, d, scale, dtype, kRowsAsQ, split_cols,
-                     n_splits, static_cast<cudaStream_t>(stream));
+  return launch_attn(q, k_pool, nullptr, v_pool, nullptr, nullptr, nullptr,
+                     table, pos, out, b, h, mp * P, P, mp, d, scale, dtype,
+                     kRowsAsQ, split_cols, n_splits,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The decode step's write and read of one layer in ONE launch: k_new/v_new
+// [b, h, d] land in column pos[b] of k_cache/v_cache [b, h, S, d] in place
+// (a position outside [0, S) is not written) and out [b, h, d] attends
+// over columns 0..pos[b], the new column scored from k_new/v_new:
+// apex_tpu_torch_decode_write_column then apex_tpu_torch_decode_attention,
+// caches and out bit for bit.
+extern "C" int apex_tpu_torch_decode_attention_write(
+    const void* q, const void* k_new, const void* v_new, void* k_cache,
+    void* v_cache, const void* pos, void* out, int b, int h, int S, int d,
+    float scale, int dtype, int split_cols, int n_splits, void* stream) {
+  if (b <= 0 || h <= 0 || S <= 0 || k_new == nullptr || v_new == nullptr)
+    return cudaErrorInvalidValue;
+  return launch_attn(q, k_cache, nullptr, v_cache, nullptr, k_new, v_new,
+                     nullptr, pos, out, b, h, S, 1, 1, d, scale, dtype,
+                     kRowsAsQ, split_cols, n_splits,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same through row b's table [b, mp] over the pools [num_pages, h, P,
+// d]: the new rows land at page table[b, pos / P], offset pos % P (a
+// position outside [0, mp * P) is not written), as
+// apex_tpu_torch_paged_write_column then apex_tpu_torch_paged_attention.
+extern "C" int apex_tpu_torch_paged_attention_write(
+    const void* q, const void* k_new, const void* v_new, void* k_pool,
+    void* v_pool, const void* table, const void* pos, void* out, int b,
+    int h, int P, int mp, int d, float scale, int dtype, int split_cols,
+    int n_splits, void* stream) {
+  if (b <= 0 || h <= 0 || P <= 0 || mp <= 0 || k_new == nullptr ||
+      v_new == nullptr)
+    return cudaErrorInvalidValue;
+  return launch_attn(q, k_pool, nullptr, v_pool, nullptr, k_new, v_new,
+                     table, pos, out, b, h, mp * P, P, mp, d, scale, dtype,
+                     kRowsAsQ, split_cols, n_splits,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -1197,9 +1356,9 @@ extern "C" int apex_tpu_torch_decode_attention_quant(
     void* stream) {
   if (b <= 0 || h <= 0 || S <= 0 || kind == kRowsAsQ)
     return cudaErrorInvalidValue;
-  return launch_attn(q, k_q, k_s, v_q, v_s, nullptr, pos, out, b, h, S, 1, 1,
-                     d, scale, dtype, kind, split_cols, n_splits,
-                     static_cast<cudaStream_t>(stream));
+  return launch_attn(q, k_q, k_s, v_q, v_s, nullptr, nullptr, nullptr, pos,
+                     out, b, h, S, 1, 1, d, scale, dtype, kind, split_cols,
+                     n_splits, static_cast<cudaStream_t>(stream));
 }
 
 // The same read through row b's table [b, mp] over the quantized pools
@@ -1212,7 +1371,7 @@ extern "C" int apex_tpu_torch_paged_attention_quant(
     int split_cols, int n_splits, void* stream) {
   if (b <= 0 || h <= 0 || P <= 0 || mp <= 0 || kind == kRowsAsQ)
     return cudaErrorInvalidValue;
-  return launch_attn(q, k_q, k_s, v_q, v_s, table, pos, out, b, h, mp * P, P,
-                     mp, d, scale, dtype, kind, split_cols, n_splits,
-                     static_cast<cudaStream_t>(stream));
+  return launch_attn(q, k_q, k_s, v_q, v_s, nullptr, nullptr, table, pos,
+                     out, b, h, mp * P, P, mp, d, scale, dtype, kind,
+                     split_cols, n_splits, static_cast<cudaStream_t>(stream));
 }

@@ -41,6 +41,8 @@ from apex_tpu_torch.kernels.decode_attention import (
     paged_attention_plain,
     paged_attention_quantized,
     paged_attention_quantized_plain,
+    paged_decode_attention,
+    paged_decode_attention_plain,
     paged_write_column,
     paged_write_column_plain,
     paged_write_column_quant,
@@ -145,6 +147,8 @@ KERNEL_WRAPPERS = {
     "adagrad_flat": adagrad_flat,
     "softmax_fwd": softmax_fwd,
     "softmax_bwd": softmax_bwd,
+    "decode_attention_write": decode_attention,
+    "paged_attention_write": paged_decode_attention,
 }
 
 
@@ -226,6 +230,8 @@ __all__ = [
     "paged_attention_plain",
     "paged_attention_quantized",
     "paged_attention_quantized_plain",
+    "paged_decode_attention",
+    "paged_decode_attention_plain",
     "paged_write_column",
     "paged_write_column_plain",
     "paged_write_column_quant",

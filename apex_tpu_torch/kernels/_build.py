@@ -217,6 +217,19 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
         _c_int, _c_void_p],
+    # the fused decode step (the column write inside the read's launch):
+    # q, k_new, v_new, k, v, pos, out, b, h, S, d, scale, q's dtype, the
+    # split geometry, stream
+    "apex_tpu_torch_decode_attention_write": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int,
+        _c_int, _c_void_p],
+    # q, k_new, v_new, k_pool, v_pool, table, pos, out, b, h, P, mp, d,
+    # scale, q's dtype, the split geometry, stream
+    "apex_tpu_torch_paged_attention_write": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_float, _c_int, _c_int, _c_int, _c_void_p],
     # the quantized cache: k_new, v_new, k_q, k_s, v_q, v_s, pos (+ table)
     # then the geometry, the input dtype, the storage kind and the stream
     "apex_tpu_torch_decode_write_column_quant": [

@@ -20,8 +20,13 @@ its own wrapper and launch count:
   sub-tile, and the first block of the cluster merges the splits'
   (max, sum, accumulator) in split order through distributed shared
   memory — one launch, no atomics, the same bits every launch;
-- :func:`decode_attention` — the two in order: write this token's K/V
-  column, then attend;
+- :func:`decode_attention` — the two in one launch of the read: the
+  block of the split that holds ``pos[b]`` stores this token's K/V rows
+  into the column and scores them from the new rows, so the caches and
+  the output are the write-then-read pair's bit for bit, one launch a
+  layer instead of two (the decode step's main path; :func:`write_column`
+  and :func:`attend_cache` stay as the counterparts of JAX's
+  functions);
 - :func:`cache_write_columns` — the speculative verify's T-column write
   at ``pos[b] + j``, lanes past the horizon CLAMPED onto its last
   column;
@@ -32,7 +37,8 @@ its own wrapper and launch count:
   at offset ``c % P``. The paged read is the contiguous kernel with only
   the rows' addresses changed (its blocks read their pages from the row's
   table), and both split a horizon alike, so on the same bytes at the same
-  horizon it returns the same bits;
+  horizon it returns the same bits; :func:`paged_decode_attention` is the
+  paged write and read in one launch, as :func:`decode_attention` is;
 - the quantized cache (int8 or fp8 e4m3 data ``[.., d]`` beside one
   fp32 scale per head row and column ``[..]``): :func:`quantize_kv_rows`
   is THE quantizer, bit for bit JAX's; :func:`write_column_quant`,
@@ -247,10 +253,37 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos, *,
     function returns new (donated) caches — and the returned ``out [b,
     h, d]`` attends over positions ``0..pos[i]``; whatever the cache
     holds past ``pos`` never reaches it. ``scale`` defaults to
-    ``1/sqrt(d)`` and multiplies the fp32 scores."""
-    _check_geometry(q, k_cache, v_cache, pos)
-    write_column(k_new, v_new, k_cache, v_cache, pos)
-    return attend_cache(q, k_cache, v_cache, pos, scale=scale)
+    ``1/sqrt(d)`` and multiplies the fp32 scores. CUDA tensors launch
+    the read once, the write inside it (counted in
+    ``decode_attention.launches``, not in :func:`write_column`'s or
+    :func:`attend_cache`'s count), the horizon ``S`` in
+    :func:`read_splits` ``(S, d)`` splits; CPU tensors run the plain
+    version, the write and then the read."""
+    b, h, sk, d = _check_geometry(q, k_cache, v_cache, pos)
+    if not _build.on_cuda(q, k_new, v_new, k_cache, v_cache, pos):
+        return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos,
+                                      scale=scale)
+    code = _build.decode_dtype_code(q, "decode_attention q")
+    _check_head_dim(d, "decode_attention")
+    dt = q.dtype
+    _build.require(q, "q", (b, h, d), dt)
+    _build.require(k_new, "k_new", (b, h, d), dt)
+    _build.require(v_new, "v_new", (b, h, d), dt)
+    _build.require(k_cache, "k_cache", (b, h, sk, d), dt)
+    _build.require(v_cache, "v_cache", (b, h, sk, d), dt)
+    _build.require(pos, "pos", (b,), torch.int32)
+    s_ = float(scale) if scale is not None else 1.0 / d ** 0.5
+    out = torch.empty_like(q)
+    rc = _build.library().apex_tpu_torch_decode_attention_write(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, sk, d, s_,
+        code, *read_splits(sk, d), _build.stream())
+    _build.check(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +609,53 @@ def paged_attention(q, k_pool, v_pool, table, pos, *,
 
 
 paged_attention.launches = 0
+
+
+def paged_decode_attention_plain(q, k_new, v_new, k_pool, v_pool, table, pos,
+                                 *, scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Plain twin of :func:`paged_decode_attention`: the paged write, then
+    the paged read."""
+    paged_write_column_plain(k_new, v_new, k_pool, v_pool, table, pos)
+    return paged_attention_plain(q, k_pool, v_pool, table, pos, scale=scale)
+
+
+def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, table, pos, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`decode_attention` over the pools ``[num_pages, h, P, d]``
+    through ``table [b, max_pages]`` (int32): ``k_new/v_new [b, h, d]``
+    land at page ``table[b, pos // P]``, offset ``pos % P``, IN PLACE, and
+    ``out [b, h, d]`` attends over logical columns ``0..pos[b]`` — what
+    :func:`paged_write_column` then :func:`paged_attention` compute, bit
+    for bit, in ONE launch of the read (counted in
+    ``paged_decode_attention.launches``), the horizon ``max_pages * P`` in
+    :func:`read_splits` splits. CPU tensors run the plain version."""
+    b, h, n, p, mp, d = _check_paged(q, k_pool, v_pool, table, pos)
+    if not _build.on_cuda(q, k_new, v_new, k_pool, v_pool, table, pos):
+        return paged_decode_attention_plain(q, k_new, v_new, k_pool, v_pool,
+                                            table, pos, scale=scale)
+    code = _build.decode_dtype_code(q, "paged_decode_attention q")
+    _check_head_dim(d, "paged_decode_attention")
+    dt = q.dtype
+    _build.require(q, "q", (b, h, d), dt)
+    _build.require(k_new, "k_new", (b, h, d), dt)
+    _build.require(v_new, "v_new", (b, h, d), dt)
+    _build.require(k_pool, "k_pool", (n, h, p, d), dt)
+    _build.require(v_pool, "v_pool", (n, h, p, d), dt)
+    _build.require(table, "table", (b, mp), torch.int32)
+    _build.require(pos, "pos", (b,), torch.int32)
+    s_ = float(scale) if scale is not None else 1.0 / d ** 0.5
+    out = torch.empty_like(q)
+    rc = _build.library().apex_tpu_torch_paged_attention_write(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, h, p, mp, d, s_, code, *read_splits(mp * p, d), _build.stream())
+    _build.check(rc, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -86,11 +86,10 @@ from apex_tpu_torch.kernels.decode_attention import (
     decode_attention_quantized,
     dequantize_kv,
     kv_storage_dtype,
-    paged_attention,
     paged_attention_quantized,
+    paged_decode_attention,
     paged_gather_planes,
     paged_gather_xla,
-    paged_write_column,
     paged_write_column_quant,
     paged_write_columns,
     paged_write_columns_quant,
@@ -799,7 +798,8 @@ def _paged_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
     the quantized pool's two planes) and ``table [b, max_pages]``
     (int32) maps each row's logical horizon onto pages. The write lands
     at ``(table[b, pos // P], pos % P)`` IN PLACE. The kernel impl runs
-    the paged write and read kernels; the XLA impl writes through
+    the paged write and read in one launch (the quantized pool: its write
+    kernel, then its read); the XLA impl writes through
     :func:`paged_write_columns_xla`, GATHERS the row-contiguous view and
     applies the contiguous read verbatim — the same bytes and
     expression, so paged logits equal contiguous ones bit for bit."""
@@ -813,9 +813,8 @@ def _paged_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
             return paged_attention_quantized(
                 q, kvq[0], kvs[0], kvq[1], kvs[1], table, pos, kind=kind,
                 scale=1.0 / math.sqrt(d))
-        paged_write_column(k_new, v_new, kv[0], kv[1], table, pos)
-        return paged_attention(q, kv[0], kv[1], table, pos,
-                               scale=1.0 / math.sqrt(d))
+        return paged_decode_attention(q, k_new, v_new, kv[0], kv[1], table,
+                                      pos, scale=1.0 / math.sqrt(d))
     _paged_xla_write(cfg, kv, k_new[:, :, None], v_new[:, :, None], table,
                      pos)
     return _xla_decode_read(q, *_paged_view(cfg, kv, table), pos)

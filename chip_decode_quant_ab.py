@@ -38,6 +38,29 @@ checkout and the parent with L2 flushed before every call (a graph of a
 held first: within BF16_TOL of the plain twin, two launches bit-equal,
 each paged read bit-equal to its contiguous one.
 
+Then the fused decode step (rows 7 + 10 and 13 + 17, the single-column
+write inside the split read's launch) at both shapes, contiguous and
+paged (pages of 8), bf16: this checkout's fused launch held against the
+parent's write then read (its two C entries) on copies of the same
+caches, caches and out bit for bit, and this checkout's stand-alone pair
+and read against the parent's; then the fused launch, the parent's pair,
+this checkout's pair, and the read alone (this checkout's and the
+parent's) timed in turns, with the fused launch's bound. From the
+ptxas reports, the registers and spills of every plain-read
+instantiation (``decode_read_split_kernel<T, T, ...>``) here and in the
+parent.
+
+Last, the serving engine's decode step in turns: the 355M's serving
+engine (phase 5's, and paged with pages of 8), 8 live slots, a window of
+``ENGINE_CHUNKS`` decode steps, once as the parent composes the step
+(``write_column`` then ``attend_cache``, ``paged_write_column`` then
+``paged_attention``, both launching the parent's kernels; every other
+kernel this checkout's) and once fused, ``TURNS`` turns, the order
+reversed every turn: the host's ms a decode step (no profiler), the
+decode kernels launched a step (the launch counters), and, in one
+profiled window a side, the CUDA API launches a step and the device's
+idle share; every window's streams identical across sides.
+
 Prints each side's times as they come and, last, one JSON object with
 the medians, the bounds, the build reports and the card. Exits
 non-zero, with no JSON line, when there is no card or a check fails. Imports only torch, the
@@ -45,6 +68,7 @@ standard library, ``chip_smoke`` and ``apex_tpu_torch``.
 """
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -52,6 +76,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -71,15 +96,6 @@ SHAPES = {
              [191, 0, 8, 7, 190, 31, 64, 188]),
 }
 
-_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parent's read entries: the plain ones as this checkout's, the
-#: quantized ones without the split geometry
-PARENT_SIGNATURES = {
-    "apex_tpu_torch_decode_attention_quant":
-        [_vp] * 7 + [_ci] * 4 + [_cf, _ci, _ci, _vp],
-    "apex_tpu_torch_paged_attention_quant":
-        [_vp] * 8 + [_ci] * 5 + [_cf, _ci, _ci, _vp],
-}
 #: the read kernels in a ptxas report (this checkout's and the parent's)
 READ_KERNEL = re.compile(r"decode_read_split_kernel|attn_quant_kernel")
 #: edited copies of this checkout's decode_attention.cu: (pattern,
@@ -118,6 +134,12 @@ VARIANTS = {
 #: the 2.7B's reads at other positions (every row at one position): the
 #: fixed cost of a launch (0) and the whole horizon (1023)
 SCALING_POSITIONS = (0, 1023)
+#: the parent's single-column decode entries: the write and the read its
+#: decode step launched one after the other
+PAIR_ENTRIES = ("decode_write_column", "decode_attention",
+                "paged_write_column", "paged_attention")
+#: decode steps in each window of the engine's turns
+ENGINE_CHUNKS = 48
 
 
 def start_builds(parent: Path) -> dict:
@@ -152,8 +174,9 @@ def start_builds(parent: Path) -> dict:
 
 
 def finish_builds(jobs: dict):
-    """{name: (the loaded library, its ptxas log)}: the parent's read
-    entries declared as its own, the variants' as this checkout's."""
+    """{name: (the loaded library, its ptxas log)}: the decode write and
+    read entries of every library declared as this checkout's (the
+    parent's take the same arguments)."""
     from apex_tpu_torch.kernels import _build
 
     out = {}
@@ -161,12 +184,11 @@ def finish_builds(jobs: dict):
         log, _ = proc.communicate()
         cs.check(proc.returncode == 0, f"nvcc {name}:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(path))
-        for entry in ("decode_attention", "paged_attention",
+        for entry in ("decode_write_column", "paged_write_column",
+                      "decode_attention", "paged_attention",
                       "decode_attention_quant", "paged_attention_quant"):
             entry = f"apex_tpu_torch_{entry}"
-            getattr(lib, entry).argtypes = (
-                PARENT_SIGNATURES.get(entry, _build._SIGNATURES[entry])
-                if name == "parent" else _build._SIGNATURES[entry])
+            getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
         out[name] = (lib, log)
     return out
 
@@ -390,7 +412,7 @@ def entries(shape: str, t, libs):
             lambda c=t[kind]: attend_cache_quant(q, *c, pos))
         sides[f"row 12 {kind} parent"] = c_call(
             parent, "decode_attention_quant", q, kq, ks, vq, vs, pos, "out",
-            B, H, S, D, scale, code, kc_)
+            B, H, S, D, scale, code, kc_, L, n)
         sides[f"row 12 {kind} 2x split"] = c_call(
             _build.library(), "decode_attention_quant", q, kq, ks, vq, vs,
             pos, "out", B, H, S, D, scale, code, kc_, *wide)
@@ -398,7 +420,7 @@ def entries(shape: str, t, libs):
             lambda p=pq: paged_attention_quantized(q, *p, table, pos))
         sides[f"row 18 {kind} parent"] = c_call(
             parent, "paged_attention_quant", q, *pq, table, pos, "out", B,
-            H, P, MP, D, scale, code, kc_)
+            H, P, MP, D, scale, code, kc_, L, n)
         sides[f"row 18 {kind} 2x split"] = c_call(
             _build.library(), "paged_attention_quant", q, *pq, table, pos,
             "out", B, H, P, MP, D, scale, code, kc_, *wide)
@@ -511,6 +533,252 @@ def in_turns(sides: dict, timer=cs.time_ms) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def fused_entries(shape: str, paged: bool, g, libs):
+    """{side: a call returning out}, each side on its own copy of the same
+    bf16 caches (NaN past every position; paged: a pool of pages of 8
+    through a random table) at ``shape``'s positions: this checkout's
+    fused launch, its stand-alone write + read pair and its read alone
+    (the wrappers), and the parent's pair and read alone (its C entries).
+    Also returns the copies by side and the fused launch's bound."""
+    from apex_tpu_torch.kernels import _build
+    from apex_tpu_torch.kernels.decode_attention import read_splits
+
+    B, H, D, S, P, pos_l = SHAPES[shape]
+    q, kn, vn, k, v, table, pos = cs._fused_inputs(
+        g, shape, torch.bfloat16, pos_l, paged)
+    fused, pair, _, read, _ = cs.fused_sides(paged)
+    parent = libs["parent"][0]
+    code = _build.DECODE_DTYPE_CODES[torch.bfloat16]
+    scale, split = 1.0 / D ** 0.5, read_splits(S, D)
+    copies = {side: [k.clone(), v.clone()] for side in (
+        "fused", "pair", "parent pair", "read", "parent read")}
+    planes = copies.__getitem__
+
+    def parent_write(kc, vc):
+        ptr = [x.data_ptr() for x in (kn, vn, kc, vc)]
+        rc = (parent.apex_tpu_torch_paged_write_column(
+                  *ptr, table.data_ptr(), pos.data_ptr(), B, H, P, S // P,
+                  D, code, _build.stream()) if paged else
+              parent.apex_tpu_torch_decode_write_column(
+                  *ptr, pos.data_ptr(), B, H, S, D, code, _build.stream()))
+        cs.check(rc == 0, f"parent write: CUDA error {rc}")
+
+    def parent_read(kc, vc):
+        out = torch.empty_like(q)
+        rc = (parent.apex_tpu_torch_paged_attention(
+                  q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                  table.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, P,
+                  S // P, D, scale, code, *split, _build.stream()) if paged
+              else parent.apex_tpu_torch_decode_attention(
+                  q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos.data_ptr(),
+                  out.data_ptr(), B, H, S, D, scale, code, *split,
+                  _build.stream()))
+        cs.check(rc == 0, f"parent read: CUDA error {rc}")
+        return out
+
+    def parent_pair():
+        kc, vc = planes("parent pair")
+        parent_write(kc, vc)
+        return parent_read(kc, vc)
+
+    mine = lambda f, side: (lambda: f(q, kn, vn, *planes(side), table, pos))
+    sides = {"fused": mine(fused, "fused"), "pair": mine(pair, "pair"),
+             "parent pair": parent_pair, "read": mine(read, "read"),
+             "parent read": lambda: parent_read(*planes("parent read"))}
+    n_cols = sum(p + 1 for p in pos_l)
+    n_bytes = 2 * (B * H * D * 6 + 2 * (n_cols - B) * H * D) + 4 * B
+    if paged:
+        n_bytes += 4 * sum((p + P) // P for p in pos_l)
+    bound = cs.bound(n_bytes, 4 * n_cols * H * D, cs.FP32_FLOPS_PER_S)[0]
+    return sides, copies, bound
+
+
+def fused_turns(g, libs, card) -> dict:
+    """The fused launch against the parent's pair at both shapes,
+    contiguous and paged: held (the fused launch's caches and out bit for
+    bit the parent pair's on copies of the same caches; this checkout's
+    pair and read bit-equal to the parent's), then timed in turns."""
+    out = {}
+    for shape in SHAPES:
+        for paged in (False, True):
+            key = f"{shape} {'paged' if paged else 'contiguous'}"
+            sides, copies, bound = fused_entries(shape, paged, g, libs)
+            outs = {name: fn() for name, fn in sides.items()}
+            torch.cuda.synchronize()
+            for a, b in (("fused", "parent pair"), ("pair", "parent pair"),
+                         ("read", "parent read")):
+                cs.check(torch.equal(cs._bits(outs[a]), cs._bits(outs[b]))
+                         and cs._same_planes(copies[a], copies[b]),
+                         f"{key}: {a} differs from {b} (bitwise)")
+            cs.check(bool(torch.isfinite(outs["fused"]).all()),
+                     f"{key}: non-finite output")
+            cs.log(f"{key}: the fused launch bit-equal to the parent's "
+                   f"write + read (caches and out); in turns (ms; {card}):")
+            res = in_turns(sides)
+            res["bound_ms"] = bound
+            out[key] = res
+            del sides, copies, outs
+            torch.cuda.empty_cache()
+    return out
+
+
+def plain_read_registers(ptxas: dict) -> dict:
+    """{instantiation: (this checkout's registers and spills, the
+    parent's)} of every plain read, ``decode_read_split_kernel<T, T,
+    ...>``, in both ptxas reports."""
+    out = {}
+    for name, r in ptxas["this"].items():
+        m = re.search(r"decode_read_split_kernel<([^,]+), ([^,]+),", name)
+        if m and m[1].strip() == m[2].strip():
+            par = ptxas["parent"].get(name, {})
+            out[name] = {side: {k: x.get(k, 0) for k in ("registers",
+                                                         "spill_bytes")}
+                         for side, x in (("this", r), ("parent", par))}
+    cs.log(f"plain reads' registers (this, parent): {json.dumps(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def parent_step(libs):
+    """The decode step as the parent composed it: ``gpt``'s fused calls
+    replaced by the stand-alone write then read, whose four C entries come
+    from the parent's library (every other entry from this checkout's)."""
+    from apex_tpu_torch.kernels import (
+        _build,
+        attend_cache,
+        paged_attention,
+        paged_write_column,
+        write_column,
+    )
+    from apex_tpu_torch.models import gpt
+
+    this, parent = _build.library(), libs["parent"][0]
+
+    class Library:
+        def __getattr__(self, name):
+            pick = parent if name[len("apex_tpu_torch_"):] in PAIR_ENTRIES \
+                else this
+            return getattr(pick, name)
+
+    def contiguous(q, kn, vn, k, v, pos, *, scale=None):
+        write_column(kn, vn, k, v, pos)
+        return attend_cache(q, k, v, pos, scale=scale)
+
+    def paged(q, kn, vn, k, v, table, pos, *, scale=None):
+        paged_write_column(kn, vn, k, v, table, pos)
+        return paged_attention(q, k, v, table, pos, scale=scale)
+
+    lib = Library()
+    saved = _build.library, gpt.decode_attention, gpt.paged_decode_attention
+    _build.library = lambda: lib
+    gpt.decode_attention, gpt.paged_decode_attention = contiguous, paged
+    try:
+        yield
+    finally:
+        (_build.library, gpt.decode_attention,
+         gpt.paged_decode_attention) = saved
+
+
+def decode_window(cfg, engine, profiled: bool):
+    """8 requests admitted, then a window of ENGINE_CHUNKS decode steps:
+    the host's ms a step, the decode kernels launched a step (the launch
+    counters) and, ``profiled``, the CUDA API launches a step, the
+    device's busy ms a step and its idle share (the profiler's cost in
+    the window). Returns those and the requests' streams, run to the
+    end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Scheduler
+
+    sched = Scheduler(engine)
+    for r in cs.bench_trace(cfg.vocab_size, n=cs.SLOTS,
+                            max_tokens=ENGINE_CHUNKS + 8, seed0=5000):
+        sched.submit(r)
+    sched.step()
+    torch.cuda.synchronize()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    with ctx as prof:
+        reset_launch_counts()
+        steps0 = engine.decode_steps_taken
+        t0 = time.perf_counter()
+        for _ in range(ENGINE_CHUNKS):
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = engine.decode_steps_taken - steps0
+        counts = launch_counts()
+    sched.run_until_idle()
+    cs.check(steps > 0, "engine window: no decode step")
+    res = dict(steps=steps, host_ms_per_step=wall * 1e3 / steps,
+               kernels_per_step={k: counts[k] / steps
+                                 for k in cs.DECODE_STEP_KERNELS
+                                 if counts[k]})
+    if profiled:
+        ev = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in ev
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        res.update(
+            api_launches_per_step=sum(
+                e.count for e in ev if e.device_type == DeviceType.CPU
+                and cs.LAUNCH_API.match(e.key)) / steps,
+            device_ms_per_step=busy / steps,
+            device_idle_share=max(0.0, 1 - busy / (wall * 1e3)))
+    return res, {r: c.tokens for r, c in sched.completions.items()}
+
+
+def engine_turns(libs, card) -> dict:
+    """The 355M's serving engine, contiguous and paged, its decode step as
+    the parent composed it against the fused one, TURNS turns of one
+    window a side (the order reversed every turn), then one profiled
+    window a side; every window's streams identical."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.serving import Engine, EngineConfig
+
+    cfg = cs.model_config()
+    params = gpt.init(cfg, torch.Generator("cuda").manual_seed(0))
+    base = EngineConfig(slots=cs.SLOTS, max_prompt_len=64,
+                        max_seq_len=cs.HORIZON)
+    sides = {"parent pair": lambda: parent_step(libs),
+             "fused": contextlib.nullcontext}
+    out = {}
+    for layout, ecfg in (("contiguous", base),
+                         ("paged", dataclasses.replace(base,
+                                                       page_size=cs.PAGE))):
+        engine = Engine(cfg, params, ecfg)
+        runs, first = {k: [] for k in sides}, None
+        names = list(sides)
+        for turn in range(TURNS + 1):
+            profiled = turn == TURNS
+            for side in (names if turn % 2 == 0 else names[::-1]):
+                with sides[side]():
+                    res, streams = decode_window(cfg, engine, profiled)
+                first = first or streams
+                cs.check(streams == first, f"engine {layout} {side}: "
+                         f"streams differ from the first window's")
+                if profiled:
+                    out.setdefault(layout, {})[side + " profiled"] = res
+                else:
+                    runs[side].append(res)
+        for side, rs in runs.items():
+            host = [r["host_ms_per_step"] for r in rs]
+            out[layout][side] = dict(
+                host_ms_per_step=statistics.median(host),
+                host_ms_per_step_turns=host,
+                kernels_per_step=rs[0]["kernels_per_step"])
+        cs.log(f"engine {layout}, decode step in turns ({card}): "
+               f"{json.dumps(out[layout])}")
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", help="the parent checkout")
@@ -568,6 +836,10 @@ def main() -> int:
                 result["2p7b_positions"] = scaling(g, libs, card)
             del t, sides
             torch.cuda.empty_cache()
+        result["plain_read_registers"] = plain_read_registers(
+            result["ptxas"])
+        result["fused"] = fused_turns(g, libs, card)
+        result["engine"] = engine_turns(libs, card)
     except cs.SmokeFailure as e:
         cs.log(f"FAILED: {e}")
         return 1

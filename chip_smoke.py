@@ -16,19 +16,34 @@ Phases, in order; any failed check exits non-zero:
    same function (for the column write, one ``index_put_`` of the same
    cells), and the least time the card could take (bound); bf16 flash
    prefill runs the tensor-core kernel (``csrc/flash_fwd_tc.cu``), fp32
-   the CUDA-core one, each held to its launch counter;
+   the CUDA-core one, each held to its launch counter; the decode step's
+   fused launch (``decode_attention``: the column write inside the split
+   read's launch) at the 355M's serving shape and the 2.7B's decode shape
+   (8 rows of 32 heads of 80, horizon 1024) in fp32, bf16 and fp16, at
+   every split's first and last column, 0, the horizon's last column and
+   one past it: caches and out bit-equal to ``write_column`` then
+   ``attend_cache`` on a copy of the same caches, and the caches bit-equal
+   and out within DECODE_TOL of the plain twin; timed in bf16 beside the
+   pair, the write alone and the read alone (no library call does both);
 4. whole model — GPT 355M (24 layers, hidden 1024, 16 heads, vocab
    50304, bf16, random weights from a seed): prefill + decode logits
    through the kernels against the materialised-scores ("xla") path;
 5. the path — ``Scheduler(Engine(...))`` answers bench.py's 32-request
    trace (8 slots, horizon 192); the kernels' launch counters must show
-   that flash prefill (on the tensor-core kernel) and decode attention ran
-   on every layer, and every
-   stream is held against a teacher-forced forward without kernels;
+   that flash prefill (on the tensor-core kernel) ran for every layer of
+   every admission group and the fused decode step
+   (``decode_attention_write``) L x decode steps times, with no
+   stand-alone single-column write or read (``decode_write_column``,
+   ``decode_attention``, ``paged_write_column``, ``paged_attention``) nor
+   quantized one; and every stream is held against a teacher-forced
+   forward without kernels;
 6. profile — ``torch.profiler`` over a window of decode chunks: the
-   device's busy share, the kernels that take its time, and the decode
-   reads' device time and calls (the split read's plain and quantized
-   instantiations apart; no replaced quantized kernel may run).
+   device's busy share, the kernels that take its time, per decode step
+   the host's ms, the kernels launched (CUDA API calls and device records)
+   and the idle share, and the decode reads' device time and calls (the
+   split read's plain and quantized instantiations apart; every plain one
+   a launch of the fused write + read counted in the window, no
+   stand-alone single-column write or read, no replaced quantized kernel).
 
 The serving engine and weights are freed; then the training slice:
 
@@ -93,10 +108,15 @@ model, right after phase 6 (numbered after the slices that came before):
     of its plain version, finite, and bit-equal to ``decode_attention`` on
     the gathered cache; timed as in phase 3, the writes' library yardstick
     one ``index_put_`` of the same cells of both planes, the read's none;
+    the paged fused launch (``paged_decode_attention``) held as phase 3
+    holds the contiguous one, pages of 8 at both shapes, against
+    ``paged_write_column`` then ``paged_attention`` and the plain twin, and
+    timed the same way;
 16. paged serving — (a) phase 5's trace through ``EngineConfig(...,
     page_size=8)`` (193 pages, auto-sized): every stream identical to phase
-    5's, and per decode step 24 launches of the paged write and read and
-    none of the contiguous decode kernels; (b) bench's mixed trace at
+    5's, and per decode step 24 launches of the paged fused write + read
+    (``paged_attention_write``) and none of any other single-column decode
+    kernel; (b) bench's mixed trace at
     ``decode_chunk=8`` with a 25-page pool against the contiguous engine:
     admissions held back for pages, every request complete and within the
     reference band, the pool's peak and the cache bytes pinned per active
@@ -110,9 +130,9 @@ model, right after phase 6 (numbered after the slices that came before):
     decisions and decode tokens/s reported;
 18. paged + speculative — the "high" trace with every chunk speculative
     (``admit_many`` and ``step_async(spec=True)``, no scheduler) through a
-    paged and a contiguous spec engine: identical tokens, and the paged
+    paged and a contiguous spec engine: identical tokens, the paged
     side's verify writes through ``paged_write_columns`` on every layer
-    of every wave.
+    of every wave, and no single-column read, fused or not, anywhere.
 
 The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
 value beside an fp32 scale per head row and column) runs next, on the
@@ -287,7 +307,8 @@ same serving model, and Megatron-GPT 2.7B is served right after phase 28
     bit-equal to the first; then each read at the 2.7B's decode shape
     (b=8, 32 heads of 80, horizon 1024, positions 127..1023), held,
     launched twice (bit-equal) and timed as in phase 3, row 10 beside
-    SDPA;
+    SDPA (the reads alone: the fused write + read at that shape is held
+    and timed in phases 3 and 15);
 34. the 2.7B served — weights in bf16 from seed 0 (5.3 GB); phase 4's
     cross-check at its width in bf16 and fp16 (``compute_dtype=float16``,
     the fp16 decode kernels) and phase 20's quantized logits (fp8 held
@@ -295,15 +316,19 @@ same serving model, and Megatron-GPT 2.7B is served right after phase 28
     KV_TOL); then bench's
     32-request trace through ``Scheduler(Engine(...))`` contiguous, paged,
     int8, paged int8 and speculative (``spec_k=3``): every decode step's
-    write and read kernels on every layer, head-major prefill on the
+    fused write + read (contiguous, paged, and spec's plain chunks) or
+    quantized write and read (int8, paged int8) on every layer and no
+    other single-column decode kernel, head-major prefill on the
     tensor cores, paged streams == contiguous and paged int8 == int8, int8
     and spec streams equal to contiguous up to reference near-ties (phase
     20's rule); decode tokens/s, TTFT and peak memory per side;
 35. profile — phase 6's window over the 2.7B's contiguous engine, and
-    over its int8 engine: the device's idle share and the decode reads'
-    device time, the split read's plain and quantized instantiations
-    apart (the int8 engine runs only quantized ones), and no launch of
-    the one-block-a-row quantized kernels they replaced.
+    over its int8 engine: the device's idle share, the host's ms and the
+    launches a decode step, and the decode reads' device time, the split
+    read's plain and quantized instantiations apart (the contiguous
+    engine's plain ones all fused launches, the int8 engine runs only
+    quantized ones), and no launch of the one-block-a-row quantized
+    kernels they replaced.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
@@ -323,7 +348,15 @@ foreach step (Adagrad's), and ``torch.softmax`` and
 ``torch._softmax_backward_data`` on already scaled and masked scores
 (the softmax kernels'; they leave out the scale and the mask).
 
-The line before the last is ``{"kernels": [...]}`` (30 kernels; the
+The line before the last is ``{"kernels": [...]}`` (32 entries: the 30
+kernels and the two fused decode steps, ``decode_attention_write`` and
+``paged_attention_write``, each with its time, the write + read pair's
+(``pair_ms``), the write's and the read's alone in the same call, its
+cases held bit-equal to the pair, its launches on phase 5's or 16's path
+and a ``2p7b`` entry with phase 34's; rows 7, 10, 13 and 17 run on the
+main path inside those launches, so their ``launches`` are the fused
+launches, their own wrappers' beside as ``standalone_launches`` (0 on
+every serving path) and ``main_path`` naming the launch; the
 two flash forwards' and the two fused flash backwards' rows name their
 kernel as ``variant``, with the tensor-core launches as
 ``launches_tc``; the head-major forward's and both backwards' carry the
@@ -346,6 +379,7 @@ import gc
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -871,6 +905,8 @@ def phase_kernels():
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qd[:, :, None], kc_k, vc_k, attn_mask=mask)),
         shape=f"b={B} h={H} S={S} d={D} bf16 pos={pos.tolist()}")
+    # the decode step's write and read in one launch (rows 7 + 10)
+    rows["decode_attention_write"] = fused_row(paged=False)
     for r in rows.values():
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager, host issue "
             f"included: {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f}"
@@ -999,6 +1035,31 @@ def bench_trace(vocab: int, n: int = 32, max_prompt_len: int = 64,
     return reqs
 
 
+#: every kernel one single-token decode step can launch for a layer's
+#: attention: the fused write + read (compute-dtype caches), the
+#: stand-alone single-column writes and reads (the counterparts of JAX's
+#: functions, which no serving path launches), and the quantized writes
+#: and reads
+DECODE_STEP_KERNELS = (
+    "decode_attention_write", "paged_attention_write",
+    "decode_write_column", "decode_attention", "paged_write_column",
+    "paged_attention", "decode_write_column_quant", "decode_attention_quant",
+    "paged_write_column_quant", "paged_attention_quant")
+
+
+def check_decode_step_kernels(what: str, counts, on, steps: int, L: int,
+                              allow_no_steps: bool = False) -> None:
+    """Each kernel of ``on`` launched L x ``steps`` times (and ``steps``
+    positive unless ``allow_no_steps``), every other kernel of
+    DECODE_STEP_KERNELS none."""
+    for name in DECODE_STEP_KERNELS:
+        want = L * steps if name in on else 0
+        check(counts[name] == want
+              and (steps > 0 or allow_no_steps or name not in on),
+              f"{what}: {name} launched {counts[name]} times, expected "
+              f"{want} ({L} layers x {steps} decode steps)")
+
+
 def phase_path(cfg, params, band: float):
     """Serve the trace (every request submitted at t=0, then
     ``run_until_idle``) with the launch counts zeroed just before and read
@@ -1042,12 +1103,8 @@ def phase_path(cfg, params, band: float):
               f"path: {r.request_id} emitted {len(c.tokens)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in c.tokens),
               f"path: {r.request_id} emitted a token outside the vocab")
-    check(counts["decode_attention"] == L * engine.decode_steps_taken > 0,
-          f"path: decode_attention launched {counts['decode_attention']} "
-          f"times, expected {L} x {engine.decode_steps_taken} steps")
-    check(counts["decode_write_column"] == L * engine.decode_steps_taken,
-          f"path: decode_write_column launched "
-          f"{counts['decode_write_column']} times")
+    check_decode_step_kernels("path", counts, ("decode_attention_write",),
+                              engine.decode_steps_taken, L)
     check(counts["flash_attention_bsh"] == L * engine.admit_groups > 0,
           f"path: flash_attention_bsh launched "
           f"{counts['flash_attention_bsh']} times, expected {L} x "
@@ -1105,14 +1162,27 @@ def hold_streams(cfg, params, reqs, completions):
 # phase 6: where the time goes (profiled decode window, not counted)
 # ---------------------------------------------------------------------------
 
+#: the CUDA API calls that launch a kernel, as the profiler names them
+LAUNCH_API = re.compile(r"^cu(da)?LaunchKernel")
+
+
 def phase_profile(cfg, engine, chunks: int = 16):
     """A window of ``chunks`` decode chunks over 8 live slots under
     ``torch.profiler``: the device's busy share and the kernels that
-    take its time. A measurement, not a check: where the profiler shows
-    no device time the numbers print as "not measured"."""
+    take its time; per decode step the host's ms (the window's wall
+    time, the profiler's cost included) and the kernels launched (CUDA
+    API launch calls, and the device's own records); and the decode
+    reads' device time and calls beside the fused write + read's launches
+    in the window (the launch counts zeroed at its start and read at its
+    end): no stand-alone single-column write or read may run, so every
+    plain instantiation of the split read the profiler records is one of
+    those launches (it must record some where there were some, and no
+    more). Where the profiler shows no device time the numbers print as
+    "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.serving import Scheduler
 
     sched = Scheduler(engine)
@@ -1123,12 +1193,24 @@ def phase_profile(cfg, engine, chunks: int = 16):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        reset_launch_counts()
+        steps0 = engine.decode_steps_taken
         t0 = time.perf_counter()
         for _ in range(chunks):
             sched.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        steps = engine.decode_steps_taken - steps0
+        counts = launch_counts()
     sched.run_until_idle()
+    fused = {k: counts[k] for k in ("decode_attention_write",
+                                    "paged_attention_write")}
+    alone = {k: counts[k] for k in ("decode_write_column", "decode_attention",
+                                    "paged_write_column", "paged_attention")}
+    check(not any(alone.values()), f"profile: a stand-alone single-column "
+          f"write or read ran: {alone}")
+    api = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CPU and LAUNCH_API.match(e.key))
     # kernels only: an operator's device time is its kernels' again
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
@@ -1145,11 +1227,17 @@ def phase_profile(cfg, engine, chunks: int = 16):
     reads = {kind: [e for e in events if split_read_kind(e.key) == kind]
              for kind in ("plain", "quantized")}
     old = [e for e in events if "attn_quant_kernel" in e.key]
+    per_step = max(steps, 1)
     out = {
         "window_steps": chunks * engine.engine_cfg.decode_chunk,
+        "decode_steps": steps,
         "wall_ms": wall * 1e3,
+        "host_ms_per_decode_step": wall * 1e3 / per_step,
+        "launches_per_decode_step": api / per_step,
+        "device_ops_per_decode_step": sum(e.count for e in events) / per_step,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1 - busy_us / 1e3 / (wall * 1e3)),
+        "fused_write_read_launches": fused,
         "decode_reads": {
             "ms": sum(e.self_device_time_total for r in reads.values()
                       for e in r) / 1e3,
@@ -1163,6 +1251,14 @@ def phase_profile(cfg, engine, chunks: int = 16):
     log("profile: " + json.dumps(out))
     check(not old, f"profile: the replaced quantized read kernels ran: "
           f"{[e.key[:80] for e in old]}")
+    # no stand-alone read launched (checked above), so every plain split
+    # read on the device is a counted fused launch; the profiler may drop
+    # a record (on an H100 it once kept 511 of 512), never add one
+    plain = out["decode_reads"]["plain"]["calls"]
+    check(plain <= sum(fused.values())
+          and (plain > 0) == (sum(fused.values()) > 0),
+          f"profile: {plain} plain split reads on the device, {fused} "
+          f"fused launches counted")
     return out
 
 
@@ -1201,7 +1297,9 @@ def phase_paged_kernels():
     row's position, and the whole sink page, holds NaN. The writes must be
     bit-equal to their plain versions (lanes past the horizon included),
     the paged read within BF16_TOL of its plain version and bit-equal to
-    the contiguous kernel on the gathered cache."""
+    the contiguous kernel on the gathered cache. Then the paged fused
+    write + read (:func:`fused_row`), held and timed as phase 3 holds
+    and times the contiguous one."""
     from apex_tpu_torch.kernels import (
         attend_cache,
         cache_write_columns,
@@ -1377,6 +1475,8 @@ def phase_paged_kernels():
                    shape + f" T={T}") + f" pos={pos_l}")
         rows[name].update(zip(("bound_ms", "bound_by"),
                               bound(wbytes + extra, 0)))
+    # the paged decode step's write and read in one launch (rows 13 + 17)
+    rows["paged_attention_write"] = fused_row(paged=True)
     for r in rows.values():
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager, host issue "
             f"included: {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f}"
@@ -1513,16 +1613,8 @@ def phase_paged_path(cfg, params, band: float, contig_streams):
                  if sched.completions[r].tokens != contig_streams[r]]
         check(not drift, f"paged path: streams differ from the contiguous "
               f"engine's for {drift}")
-        check(counts["paged_write_column"] == L * steps > 0,
-              f"paged path: paged_write_column launched "
-              f"{counts['paged_write_column']} times, expected {L} x "
-              f"{steps}")
-        check(counts["paged_attention"] == L * steps,
-              f"paged path: paged_attention launched "
-              f"{counts['paged_attention']} times, expected {L} x {steps}")
-        check(counts["decode_attention"] == 0
-              and counts["decode_write_column"] == 0,
-              "paged path: a contiguous decode kernel ran")
+        check_decode_step_kernels("paged path", counts,
+                                  ("paged_attention_write",), steps, L)
         check(counts["flash_attention_bsh"] == L * engine.admit_groups,
               "paged path: flash prefill launches off the admission groups")
         check_tc("paged path", counts, "flash_attention_bsh")
@@ -1791,8 +1883,11 @@ def phase_paged_spec(cfg, params):
         check(counts[on] == L * waves > 0 and counts[off] == 0,
               f"paged+spec {name}: {on} launched {counts[on]} times "
               f"(expected {L} x {waves} waves), {off} {counts[off]}")
-        check(counts["decode_attention"] == counts["paged_attention"] == 0,
-              f"paged+spec {name}: a plain decode read ran")
+        check(counts["decode_attention"] == counts["paged_attention"] == 0
+              and counts["decode_attention_write"] == 0
+              and counts["paged_attention_write"] == 0,
+              f"paged+spec {name}: a plain decode read or a fused decode "
+              f"step ran")
         check(all(len(toks[r.request_id]) == r.max_tokens for r in reqs),
               f"paged+spec {name}: a stream is short")
         res[name] = (toks, counts[on], wall, waves)
@@ -2141,6 +2236,210 @@ def _hold_read(what: str, out, ref, tol, worst: dict, key) -> None:
     err = max_err(out, ref)
     check(close(out, ref, tol), f"{what}: err {err} (tolerance {tol})")
     worst[key] = max(worst.get(key, 0.0), err)
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 15: the fused decode step (the single-column write inside the
+# split read's launch) against the write + read pair and the plain twin
+# ---------------------------------------------------------------------------
+
+#: the decode shapes the fused launch is held and timed at, (slots, heads,
+#: head width, horizon): the 355M's serving shape and the 2.7B's decode
+#: shape (pages of PAGE when paged)
+FUSED_SHAPES = {"355m": (SLOTS, HEADS, HEAD_DIM, HORIZON),
+                "2p7b": (D27_B, D27_H, D27_D, D27_S)}
+#: the positions each shape's fused launch is timed at: phase 3's second
+#: seed's at the 355M's, phase 33's 127..1023 at the 2.7B's
+FUSED_TIMED_POS = {"355m": [191, 0, 31, 32, 33, 150, 1, 96],
+                   "2p7b": [(i + 1) * D27_S // D27_B - 1
+                            for i in range(D27_B)]}
+
+
+def fused_positions(S: int, d: int, b: int):
+    """Position sets of ``b`` rows over a horizon of ``S`` at head width
+    ``d``: every split's first and last column under ``read_splits(S,
+    d)`` (0 and S - 1 among them), then a set that holds S, one past the
+    horizon (written nowhere, read as S - 1), beside 0 and S - 1."""
+    from apex_tpu_torch.kernels.decode_attention import read_splits
+
+    cols, n = read_splits(S, d)
+    edges = sorted({c for i in range(n)
+                    for c in (i * cols, min((i + 1) * cols, S) - 1)})
+    sets = [edges[i:i + b] for i in range(0, len(edges), b)]
+    sets[-1] += [S - 2 - 3 * i for i in range(b - len(sets[-1]))]
+    sets.append(([S, 0, S - 1, cols, cols - 1, S // 2, 5] * b)[:b])
+    return sets
+
+
+def _fused_inputs(g, shape: str, dtype, pos_l, paged: bool):
+    """One decode step's operands at ``shape``: q, the new K and V rows,
+    the two caches with NaN past every position (paged: laid into a pool
+    of pages of PAGE through a random table, every other cell and the
+    sink page NaN), the table (or None) and pos."""
+    B, H, D, S = FUSED_SHAPES[shape]
+    dev = torch.device("cuda")
+    mk = lambda *shp: torch.randn(*shp, generator=g, device=dev, dtype=dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    stale = (torch.arange(S, device=dev)[None] > pos[:, None].long())[
+        :, None, :, None]
+    q, kn, vn = mk(B, H, D), mk(B, H, D), mk(B, H, D)
+    kc, vc = (mk(B, H, S, D).masked_fill(stale, float("nan"))
+              for _ in range(2))
+    if not paged:
+        return q, kn, vn, kc, vc, None, pos
+    n_pages = B * (S // PAGE) + 1
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).to(
+        torch.int32).view(B, S // PAGE)
+    return (q, kn, vn, _pool_of(kc, table, PAGE, n_pages),
+            _pool_of(vc, table, PAGE, n_pages), table, pos)
+
+
+def fused_sides(paged: bool):
+    """(fused launch, write + read pair, write alone, read alone, plain
+    twin) of the contiguous (rows 7 + 10) or paged (rows 13 + 17) decode
+    step, each taking (q, k_new, v_new, k, v, table, pos); the pair is the
+    two stand-alone wrappers, launched one after the other."""
+    from apex_tpu_torch.kernels import (
+        attend_cache,
+        decode_attention,
+        decode_attention_plain,
+        paged_attention,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_write_column,
+        write_column,
+    )
+
+    if paged:
+        fused = paged_decode_attention
+        plain = paged_decode_attention_plain
+        write = lambda q, kn, vn, k, v, t, p: paged_write_column(
+            kn, vn, k, v, t, p)
+        read = lambda q, kn, vn, k, v, t, p: paged_attention(q, k, v, t, p)
+    else:
+        fused = lambda q, kn, vn, k, v, t, p: decode_attention(
+            q, kn, vn, k, v, p)
+        plain = lambda q, kn, vn, k, v, t, p: decode_attention_plain(
+            q, kn, vn, k, v, p)
+        write = lambda q, kn, vn, k, v, t, p: write_column(kn, vn, k, v, p)
+        read = lambda q, kn, vn, k, v, t, p: attend_cache(q, k, v, p)
+
+    def pair(*a):
+        write(*a)
+        return read(*a)
+
+    return fused, pair, write, read, plain
+
+
+def hold_fused(paged: bool):
+    """The fused launch held at both FUSED_SHAPES in fp32, bf16 and fp16
+    at every set of ``fused_positions``: against the write + read pair on
+    a copy of the same caches, the caches (every cell, NaN included) and
+    out bit for bit; against the plain twin on a third copy, the caches
+    bit for bit and out within DECODE_TOL (the contiguous plain write
+    indexes pos, so the set with a position past the horizon is held
+    against the pair alone there). Returns ({(shape, dtype): max |out -
+    plain|}, the cases held)."""
+    fused, pair, _, _, plain = fused_sides(paged)
+    name = "paged_decode_attention" if paged else "decode_attention"
+    g = torch.Generator(device="cuda").manual_seed(1900 + paged)
+    worst, cases = {}, 0
+    for shape, (B, H, D, S) in FUSED_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            for pos_l in fused_positions(S, D, B):
+                q, kn, vn, k, v, table, pos = _fused_inputs(
+                    g, shape, dt, pos_l, paged)
+                two, one, ref = ([k.clone(), v.clone()] for _ in range(3))
+                want = pair(q, kn, vn, *two, table, pos)
+                out = fused(q, kn, vn, *one, table, pos)
+                torch.cuda.synchronize()
+                what = f"{name} {shape} {dt} pos={pos_l}"
+                check(_same_planes(one, two), f"{what}: caches differ from "
+                      f"the write + read pair's (bitwise)")
+                check(torch.equal(_bits(out), _bits(want)), f"{what}: out "
+                      f"differs from the pair's (bitwise), max "
+                      f"{max_err(out, want)}")
+                if paged or max(pos_l) < S:
+                    got = plain(q, kn, vn, *ref, table, pos)
+                    torch.cuda.synchronize()
+                    check(_same_planes(one, ref), f"{what}: caches differ "
+                          f"from the plain twin's (bitwise)")
+                    _hold_read(what, out, got, DECODE_TOL[dt], worst,
+                               (shape, str(dt)))
+                else:
+                    check(bool(torch.isfinite(out).all()),
+                          f"{what}: non-finite output")
+                cases += 1
+    errs = {f"{a} {b}": e for (a, b), e in worst.items()}
+    log(f"{name}: {cases} cases bit-equal to the write + read pair (caches "
+        f"and out) and held against the plain twin; max|out-plain| {errs}")
+    return worst, cases
+
+
+def time_fused(paged: bool, shape: str) -> dict:
+    """The fused launch at ``shape`` in bf16 (FUSED_TIMED_POS), timed as
+    phase 3 times a kernel, beside the write + read pair, the write alone
+    and the read alone in the same call (each on its own copy of the
+    caches), eagerly too, its plain twin, and the bound: each input byte
+    read once (q, the new rows, and the cached K and V rows of columns
+    0..pos - 1, column pos coming from the new rows), each output byte
+    written once (out and the new column), and (paged) the table entries
+    the read needs."""
+    B, H, D, S = FUSED_SHAPES[shape]
+    fused, pair, write, read, plain = fused_sides(paged)
+    pos_l = FUSED_TIMED_POS[shape]
+    g = torch.Generator(device="cuda").manual_seed(1950 + paged)
+    q, kn, vn, k, v, table, pos = _fused_inputs(g, shape, torch.bfloat16,
+                                                pos_l, paged)
+    runs = {key: [k.clone(), v.clone()] for key in
+            ("fused", "pair", "write", "read", "plain")}
+    call = lambda f, key: (lambda: f(q, kn, vn, *runs[key], table, pos))
+    n_cols = sum(p + 1 for p in pos_l)
+    n_bytes = 2 * (B * H * D + 2 * B * H * D + 2 * (n_cols - B) * H * D
+                   + B * H * D + 2 * B * H * D) + 4 * B
+    if paged:
+        n_bytes += 4 * sum((p + PAGE) // PAGE for p in pos_l)
+    bms, by = bound(n_bytes, 4 * n_cols * H * D, FP32_FLOPS_PER_S)
+    out = dict(ms=time_ms(call(fused, "fused")),
+               pair_ms=time_ms(call(pair, "pair")),
+               write_ms=time_ms(call(write, "write")),
+               read_ms=time_ms(call(read, "read")),
+               eager_ms=eager_ms(call(fused, "fused")),
+               pair_eager_ms=eager_ms(call(pair, "pair")),
+               plain_ms=time_ms(call(plain, "plain")),
+               bound_ms=bms, bound_by=by,
+               shape=f"b={B} h={H} S={S} d={D} bf16 pos={pos_l}"
+                     + (f" P={PAGE}" if paged else ""))
+    log(f"{'paged_' if paged else ''}decode_attention fused at {shape}: "
+        f"{out['ms']:.5f} ms (the pair {out['pair_ms']:.5f}, the write "
+        f"{out['write_ms']:.5f}, the read {out['read_ms']:.5f}; eager "
+        f"{out['eager_ms']:.5f} vs {out['pair_eager_ms']:.5f}), plain "
+        f"{out['plain_ms']:.4f}, bound {bms:.5f} ({by})")
+    return out
+
+
+def fused_row(paged: bool) -> dict:
+    """The kernels line's row of the fused launch: phase 3's (contiguous)
+    or phase 15's (paged) holds, and its times at the 355M's shape with
+    the 2.7B's under ``2p7b``."""
+    worst, cases = hold_fused(paged)
+    name = "paged_attention_write" if paged else "decode_attention_write"
+    lines = (707, 975) if paged else (108, 339)
+    row = dict(
+        name=name, route="cuda",
+        source="apex_tpu_torch/csrc/decode_attention.cu",
+        replaces=f"apex_tpu/kernels/decode_attention.py:{lines[0]}",
+        and_replaces=f"apex_tpu/kernels/decode_attention.py:{lines[1]}",
+        variant="decode_read_split_kernel<T, T, DP, %s> with the new rows "
+                "(the write inside the read's launch)"
+                % ("true" if paged else "false"),
+        max_abs_err=max(worst.values()), bit_equal_to_pair=True,
+        cases_held=cases, library_ms=None,
+        library="none: no one PyTorch call writes a cache column and "
+                "attends over it",
+        **time_fused(paged, "355m"))
+    row["2p7b"] = time_fused(paged, "2p7b")
+    return row
 
 
 #: the horizon of phase 33's split-edge reads: not a multiple of any
@@ -2854,10 +3153,11 @@ def _drift_gaps(cfg, params, reqs, got, want):
 
 def _check_quant_counts(what, counts, on, steps, L):
     """``on`` kernels launched L x ``steps`` times each, every other
-    decode kernel (quantized or not) none."""
+    decode kernel (quantized or not, fused or stand-alone) none."""
     decode = ("decode_write_column", "decode_attention", "paged_write_column",
               "paged_attention", "cache_write_columns", "paged_write_columns")
-    for name in decode + tuple(n + "_quant" for n in decode):
+    for name in (decode + tuple(n + "_quant" for n in decode)
+                 + ("decode_attention_write", "paged_attention_write")):
         want = L * steps if name in on else 0
         check(counts[name] == want and (want > 0 or name not in on),
               f"{what}: {name} launched {counts[name]} times, expected "
@@ -2907,8 +3207,7 @@ def phase_quant_serving(cfg, params, band, quant_err):
               f"kv A/B {side}: not every request completed in full")
         steps = engine.decode_steps_taken
         on = (("decode_write_column_quant", "decode_attention_quant")
-              if side == "int8" else ("decode_write_column",
-                                      "decode_attention"))
+              if side == "int8" else ("decode_attention_write",))
         _check_quant_counts(f"kv A/B {side}", counts, on, steps, L)
         check(counts["flash_attention_bsh"] == L * engine.admit_groups,
               f"kv A/B {side}: flash prefill launches off the groups")
@@ -5808,13 +6107,15 @@ def phase_2p7b_train():
 # Scheduler
 # ---------------------------------------------------------------------------
 
-#: the decode kernels each side of phase 34 runs: (column write, read)
+#: the decode kernels each side of phase 34 runs once a layer every
+#: decode step: the fused write + read (compute-dtype caches), or the
+#: quantized column write and read
 SERVE_2P7B_KERNELS = {
-    "contiguous": ("decode_write_column", "decode_attention"),
-    "paged": ("paged_write_column", "paged_attention"),
+    "contiguous": ("decode_attention_write",),
+    "paged": ("paged_attention_write",),
     "int8": ("decode_write_column_quant", "decode_attention_quant"),
     "paged int8": ("paged_write_column_quant", "paged_attention_quant"),
-    "spec": ("decode_write_column", "decode_attention"),
+    "spec": ("decode_attention_write",),
 }
 
 
@@ -5842,8 +6143,10 @@ def phase_2p7b_serve():
     192, 64 tokens each) five ways: contiguous bf16, paged (pages of 8),
     int8, paged int8 and speculative (``spec_k=3``, chunks of 4, under
     the scheduler's gate). Launch counts zeroed just before each run and
-    read just after: per decode step every layer runs the side's column
-    write and read and no other decode read, every prefill the head-major
+    read just after: per decode step every layer runs the side's fused
+    write + read (compute-dtype caches) or its quantized column write and
+    read, and no other single-column decode kernel (SERVE_2P7B_KERNELS),
+    every prefill the head-major
     flash forward on the tensor cores, and every verify wave the
     multi-column write. Streams: contiguous within phase 4's band of a
     teacher-forced forward; paged identical to contiguous, paged int8 to
@@ -5872,8 +6175,6 @@ def phase_2p7b_serve():
              "int8": (int8, ecfg), "paged int8": (int8, paged),
              "spec": (cfg, dataclasses.replace(ecfg, decode_chunk=4,
                                                spec_k=SPEC_K))}
-    reads = ("decode_attention", "paged_attention", "decode_attention_quant",
-             "paged_attention_quant")
     reqs = bench_trace(cfg.vocab_size)
     streams, comps, out, launches = {}, {}, {}, {}
     for name, (c, e) in sides.items():
@@ -5893,14 +6194,10 @@ def phase_2p7b_serve():
                   f"{what}: {r.request_id} emitted {len(comp.tokens)} tokens")
             check(all(0 <= x < cfg.vocab_size for x in comp.tokens),
                   f"{what}: {r.request_id} emitted a token outside the vocab")
-        write, read = SERVE_2P7B_KERNELS[name]
+        on = SERVE_2P7B_KERNELS[name]
         steps = engine.decode_steps_taken
-        check(counts[read] == counts[write] == L * steps
-              and (steps > 0 or name == "spec"),
-              f"{what}: {write} / {read} launched {counts[write]} / "
-              f"{counts[read]} times, expected {L} x {steps} steps")
-        others = {n: counts[n] for n in reads if n != read and counts[n]}
-        check(not others, f"{what}: other decode reads ran: {others}")
+        check_decode_step_kernels(what, counts, on, steps, L,
+                                  allow_no_steps=name == "spec")
         check(counts["flash_attention"] == L * engine.admit_groups > 0
               and counts["flash_attention_bsh"] == 0,
               f"{what}: head-major prefill launched "
@@ -5910,7 +6207,7 @@ def phase_2p7b_serve():
         check_tc(what, counts, "flash_attention")
         row = dict(wall_s=wall, peak_memory_bytes=peak, decode_steps=steps,
                    admit_groups=engine.admit_groups,
-                   launches={k: counts[k] for k in (write, read)},
+                   launches={k: counts[k] for k in on},
                    **{k: s[k] for k in (
                        "tokens_per_sec", "decode_tokens_per_sec",
                        "ttft_mean_ms", "ttft_p99_ms", "tokens_emitted")})
@@ -7009,10 +7306,20 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
     rows["flash_attention_bsh"]["launches_tc"] = counts[
         "flash_attention_bsh_tc"]
-    paged_rows["paged_write_column"]["launches"] = paged_counts[
-        "paged_write_column"]
-    paged_rows["paged_attention"]["launches"] = paged_counts[
-        "paged_attention"]
+    for r in paged_rows.values():
+        r["launches"] = paged_counts.get(r["name"], 0)
+    # rows 7, 10 and 13, 17 run on the main path inside the fused launch:
+    # their launches are its launches, their own wrappers' count beside
+    for fused, names, table, run in (
+            ("decode_attention_write", ("decode_write_column",
+                                        "decode_attention"), rows, counts),
+            ("paged_attention_write", ("paged_write_column",
+                                       "paged_attention"), paged_rows,
+             paged_counts)):
+        for name in names:
+            table[name].update(
+                standalone_launches=run[name], launches=run[fused],
+                main_path=f"in the read's launch ({fused})")
     paged_rows["cache_write_columns"]["launches"] = spec_writes["high"]
     paged_rows["cache_write_columns"]["launches_adv"] = spec_writes["adv"]
     paged_rows["paged_write_columns"]["launches"] = paged_spec_writes
@@ -7021,10 +7328,16 @@ def main() -> int:
         r["launches"] = quant_launches[r["name"]]
     rows.update(quant_rows)
     # the four reads at the 2.7B's decode shape, with their launches in
-    # its serving trace (paged int8 for row 18)
-    for name, side in (("decode_attention", "contiguous"),
-                       ("paged_attention", "paged"),
-                       ("decode_attention_quant", "int8"),
+    # its serving trace (paged int8 for row 18); rows 10 and 17 with the
+    # fused launch's, as on the 355M's path
+    for name, side, fused in (
+            ("decode_attention", "contiguous", "decode_attention_write"),
+            ("paged_attention", "paged", "paged_attention_write")):
+        rows[name]["2p7b"] = dict(
+            width_rows[name], launches=serve_2p7b_counts[side][fused],
+            standalone_launches=serve_2p7b_counts[side][name])
+        rows[fused]["2p7b"]["launches"] = serve_2p7b_counts[side][fused]
+    for name, side in (("decode_attention_quant", "int8"),
                        ("paged_attention_quant", "paged int8"),
                        ("decode_write_column_quant", "int8"),
                        ("paged_write_column_quant", "paged int8"),

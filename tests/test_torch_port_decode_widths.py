@@ -363,10 +363,14 @@ def test_decode_wrappers_take_fp16_at_any_width(fake_cuda):
     kc, vc = _zeros(B, H, S, d), _zeros(B, H, S, d)
     kp, vp = _zeros(N, H, PG, d), _zeros(N, H, PG, d)
     assert tda.decode_attention(q, kn, vn, kc, vc, pos).dtype == f16
+    tda.write_column(kn, vn, kc, vc, pos)
+    assert tda.attend_cache(q, kc, vc, pos).dtype == f16
     tda.cache_write_columns(knt, vnt, kc, vc, pos)
     tda.paged_write_column(kn, vn, kp, vp, table, pos)
     tda.paged_write_columns(knt, vnt, kp, vp, table, pos)
     assert tda.paged_attention(q, kp, vp, table, pos).dtype == f16
+    assert tda.paged_decode_attention(q, kn, vn, kp, vp, table,
+                                      pos).dtype == f16
     planes = [_zeros(B, H, S, d, dtype=torch.int8),
               _zeros(B, H, S, dtype=torch.float32)] * 2
     pools = [_zeros(N, H, PG, d, dtype=torch.float8_e4m3fn),
@@ -381,6 +385,8 @@ def test_decode_wrappers_take_fp16_at_any_width(fake_cuda):
     where = {"decode_write_column": (8, 9), "decode_attention": (8, 10),
              "cache_write_columns": (9, 10), "paged_write_column": (10, 11),
              "paged_write_columns": (11, 12), "paged_attention": (10, 12),
+             "decode_attention_write": (10, 12),
+             "paged_attention_write": (12, 14),
              "decode_write_column_quant": (10, 11),
              "decode_attention_quant": (10, 12),
              "cache_write_columns_quant": (11, 12),

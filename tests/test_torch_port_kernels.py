@@ -238,6 +238,8 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "adagrad_flat": 0,
                                   "softmax_fwd": 0,
                                   "softmax_bwd": 0,
+                                  "decode_attention_write": 0,
+                                  "paged_attention_write": 0,
                                   "flash_attention_bsh_tc": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_bsh_bwd_tc": 0,
