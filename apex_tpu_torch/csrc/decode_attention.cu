@@ -6,7 +6,8 @@
 //   _attn_kernel), the two Pallas kernels decode_attention composes on
 //   gpt._decode_attend's kernel branch;
 // - cache_write_columns (body _write_cols_kernel), the speculative
-//   verify forward's T-column write (gpt._decode_attend_multi);
+//   verify forward's T-column write (gpt._decode_attend_multi; on the
+//   verify's main path it runs inside the launch of decode_verify.cu);
 // - paged_write_column (body _paged_write_kernel), paged_write_columns
 //   (body _paged_write_cols_kernel) and paged_attention (body
 //   _paged_attn_kernel), the same three jobs through a per-row block
@@ -160,6 +161,20 @@
 //   recycled page; the sink page) therefore contribute exact zeros,
 //   which is what decode_attention.py:297-301 guards against.
 // - Scores are fp32 and scaled in fp32, as in _attn_kernel.
+// - The roundings of the reads' sums are pinned by intrinsics
+//   (__fmaf_rn, __fmul_rn, __fadd_rn): the dot products, the P.V sums
+//   and the merges as fused multiply-adds, the rescale of (l, acc) by
+//   corr rounded apart from the add after it. Left to the compiler,
+//   whether a product was fused into that add varied between
+//   instantiations of the same source (l's update was fused in fp32 at DP
+//   64, not at DP 96 nor in bf16: nvcc 12.8 for an H100), so two kernels
+//   that sum in one order could still round apart; pinned, the verify
+//   launch (decode_verify.cu) equals the split read bit for bit. The
+//   choices are what the
+//   bf16 instantiations computed, and leave every instantiation's
+//   registers as they were. The score's product (dot * scale) is left
+//   to the compiler, which keeps it apart from the max it meets: pinned
+//   there, the plain reads took 8 to 24 more registers.
 // - The quantized writes keep write_columns_kernel's addressing and
 //   clamp and quantize every head row of the call at once: a group of
 //   lanes a head row (8 at d 64 in bf16, one 16-byte load a lane), blocks
@@ -168,33 +183,10 @@
 //   absmax is a shuffle within it, then the one quantizer (KvQuant) and
 //   one packed store a lane; a byte a value and one fp32 scale a row, so
 //   a write moves ~1/2 (bf16 in) of the bytes it would store unquantized.
-#include <cooperative_groups.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
-
-#include <type_traits>
-
-#include "common.cuh"
+#include "decode_common.cuh"
 
 namespace apex_tpu_torch {
 
-// the quantized cache's storage types, widened to fp32 exactly. int8
-// goes around the conversion unit (a quarter of the FMA rate): the bits
-// 0x4B400000 + x are the float 1.5 * 2^23 + x, an add away from x
-template <> __device__ __forceinline__ float to_float<int8_t>(int8_t x) {
-  return __int_as_float(0x4B400000 + static_cast<int>(x)) - 12582912.f;
-}
-template <> __device__ __forceinline__ float to_float<__nv_fp8_e4m3>(
-    __nv_fp8_e4m3 x) {
-  return static_cast<float>(x);
-}
-// fp16 rows: widened exactly, the output rounded to nearest even
-template <> __device__ __forceinline__ float to_float<__half>(__half x) {
-  return __half2float(x);
-}
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
 // The 4 one-byte values of one 4-byte word in shared memory, widened to
 // fp32 exactly. int8: byte b with its sign bit flipped is x + 128, and as
 // the low byte of the float 2^23 (0x4B000000) it is 2^23 + 128 + x, one
@@ -230,18 +222,6 @@ namespace {
 constexpr int kWriteThreads = 256;
 // the quantized writes: threads a block (a group of lanes a head row)
 constexpr int kQuantWriteThreads = 128;
-// the widest head the reads take (_build.HM_MAX_HEAD_DIM)
-constexpr int kMaxHeadDim = 128;
-// The split read: a block of kSplitWarps warps a (row, split); a
-// sub-tile of kSubCols columns (kColsPerWarp a warp), kReadRing of them
-// staged in shared memory at once; at most kMaxSplits splits a row (the
-// largest portable cluster; _build.READ_MAX_SPLITS)
-constexpr int kSplitWarps = 4;
-constexpr int kSplitThreads = kSplitWarps * 32;
-constexpr int kSubCols = 32;
-constexpr int kColsPerWarp = kSubCols / kSplitWarps;
-constexpr int kReadRing = 2;
-constexpr int kMaxSplits = 8;
 // the bytes of a one-byte K row a lane of the scoring quad takes at a
 // time (4-byte words: a quad's lanes take a d of 80 in 5 words each, where
 // 16-byte vectors would give one lane 2 of the 5)
@@ -252,21 +232,6 @@ template <typename S>
 constexpr bool kQuantRows =
     std::is_same_v<S, int8_t> || std::is_same_v<S, __nv_fp8_e4m3>;
 
-// A type as a value, for the dispatchers below
-template <typename T> struct Tag {
-  using type = T;
-};
-
-// f(Tag<T>{}) for the rows' dtype code: fp32, bf16 or fp16
-template <typename F> cudaError_t with_dtype(int dtype, F&& f) {
-  switch (dtype) {
-    case kFloat32: return f(Tag<float>{});
-    case kBFloat16: return f(Tag<__nv_bfloat16>{});
-    case kFloat16: return f(Tag<__half>{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // f(Tag<S>{}) for the quantized storage kind: int8 or fp8 e4m3
 template <typename F> cudaError_t with_kind(int kind, F&& f) {
   switch (kind) {
@@ -274,16 +239,6 @@ template <typename F> cudaError_t with_kind(int kind, F&& f) {
     case kFp8: return f(Tag<__nv_fp8_e4m3>{});
     default: return cudaErrorInvalidValue;
   }
-}
-
-// f(std::integral_constant<int, DP>{}) for the padded width DP of head
-// width d: d rounded up to 32, 64, 96 or 128; refused past kMaxHeadDim
-template <typename F> cudaError_t with_padded_dim(int d, F&& f) {
-  if (d <= 0 || d > kMaxHeadDim) return cudaErrorInvalidValue;
-  if (d <= 32) return f(std::integral_constant<int, 32>{});
-  if (d <= 64) return f(std::integral_constant<int, 64>{});
-  if (d <= 96) return f(std::integral_constant<int, 96>{});
-  return f(std::integral_constant<int, 128>{});
 }
 
 // Where a multi-column write lands: the contiguous cache [b, h, S, d]
@@ -470,185 +425,20 @@ write_columns_quant_kernel(const In* __restrict__ k_new,
   if (t == 0) (is_v ? v_s : k_s)[cell] = scale;
 }
 
-// global -> shared copies of N bytes: cp.async for 16 (.cg, around L1),
-// 8 and 4 (.ca); two bytes and one by a plain load and store
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int N>
-__device__ __forceinline__ void copy_unit(char* dst, const char* src) {
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src)
-                 : "memory");
-  } else if constexpr (N == 8 || N == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(N)
-                 : "memory");
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<uint16_t*>(dst) =
-        *reinterpret_cast<const uint16_t*>(src);
-  } else {
-    *dst = *src;
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The cluster's synchronisation: its barrier split into arrive and wait
-// (every thread of every block that has not exited), and an mbarrier in
-// one block's shared memory that the other blocks' threads arrive on
-// remotely, each releasing its own earlier writes at cluster scope.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile(
-      "mbarrier.init.shared::cta.b64 [%0], %1;\n"
-      "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)),
-      "r"(count)
-      : "memory");
-}
-
-// arrive on `bar` (an address in this block's shared memory) as it lies
-// in the shared memory of cluster block `rank`
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
-  asm volatile(
-      "{\n\t.reg .b32 ra;\n\t"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n\t}\n" ::
-          "r"(smem_addr(bar)),
-      "r"(rank)
-      : "memory");
-}
-
-// wait until phase 0 of `bar` completes, acquiring what the arrivals
-// released
-__device__ __forceinline__ void mbar_wait_phase0(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .pred done;\n"
-      "WAIT:\n\t"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
-      "0;\n\t"
-      "@!done bra WAIT;\n\t}\n" ::"r"(smem_addr(bar))
-      : "memory");
-}
-
-// Stage the K and V rows of columns [c, c + nc) of one (batch, head) row
-// into the dense tiles ks and vs (rows of row_bytes), in N-byte units,
-// one address for both planes. The contiguous cache holds them as one
-// run from cell row0 + c, which the block copies with neighbouring
-// threads on neighbouring units ...
-template <int N>
-__device__ __forceinline__ void stage_run(char* ks, char* vs,
-                                          const char* kb, const char* vb,
-                                          size_t row0, int c, int nc,
-                                          int row_bytes) {
-  const size_t src = (row0 + c) * row_bytes;
-  const int n = nc * row_bytes / N;
-  for (int i = threadIdx.x; i < n; i += kSplitThreads) {
-    copy_unit<N>(ks + i * N, kb + src + (size_t)i * N);
-    copy_unit<N>(vs + i * N, vb + src + (size_t)i * N);
-  }
-}
-
-// ... and the paged pool [num_pages, h, P, d] holds them as one run a
-// page (numbers from `pages`, the split's table entries from page0 on, in
-// shared memory): the block's threads form 1, 2 or 4 groups by how many
-// pages the columns touch, group g copies the runs of pages g, g +
-// groups, ..., its threads on neighbouring units.
-template <int N>
-__device__ __forceinline__ void stage_pages(char* ks, char* vs,
-                                            const char* kb, const char* vb,
-                                            const int* pages, int page0,
-                                            int head, int h, int P, int c,
-                                            int nc, int row_bytes) {
-  const int first = c / P;
-  const int last = (c + nc - 1) / P;
-  const int groups = last - first >= 3 ? 4 : last > first ? 2 : 1;
-  const int size = kSplitThreads / groups;
-  const int g = threadIdx.x / size;
-  for (int pg = first + g; pg <= last; pg += groups) {
-    const int lo = max(c, pg * P);
-    const int hi = min(c + nc, (pg + 1) * P);
-    const size_t src =
-        (((size_t)pages[pg - page0] * h + head) * P + (lo - pg * P)) *
-        row_bytes;
-    const int dst = (lo - c) * row_bytes;
-    const int n = (hi - lo) * row_bytes / N;
-    for (int i = threadIdx.x - g * size; i < n; i += size) {
-      copy_unit<N>(ks + dst + i * N, kb + src + (size_t)i * N);
-      copy_unit<N>(vs + dst + i * N, vb + src + (size_t)i * N);
-    }
-  }
-}
-
-// a copy unit of N bytes as one value, for the fused launch's store of
-// the new rows into the cache
-template <int N> struct UnitOf;
-template <> struct UnitOf<16> { using type = uint4; };
-template <> struct UnitOf<8> { using type = uint2; };
-template <> struct UnitOf<4> { using type = uint32_t; };
-template <> struct UnitOf<2> { using type = uint16_t; };
-template <> struct UnitOf<1> { using type = uint8_t; };
-
 // The fused launch's two jobs for the block holding column pos, out of
 // line: inlined into the split read they took its plain instantiations
 // from 56-72 registers a thread to 80-128 (spilling at DP 96 and in
 // fp32) and so halved its blocks an SM; called, they leave it 64-72 and
 // no spill. (A minimum of blocks an SM in the launch bounds held the
 // plain reads to 64 too, but changed the quantized reads' code: 2-10%
-// slower on an H100, 30% with a minimum of 1.) store_row: one head row
-// of row_bytes bytes from kn/vn (the ring slots the row was staged into)
-// into the cache cells kd/vd, in N-byte units, neighbouring threads on
-// neighbouring units; stage_row: the new row from kn/vn into the ring's
-// slots ks/vs by the read's cp.async units (in the caller's commit
-// group).
-template <int N>
-__device__ __noinline__ void store_row(char* kd, char* vd, const char* kn,
-                                       const char* vn, int row_bytes) {
-  using U = typename UnitOf<N>::type;
-  for (int i = threadIdx.x; i < row_bytes / N; i += kSplitThreads) {
-    reinterpret_cast<U*>(kd)[i] = reinterpret_cast<const U*>(kn)[i];
-    reinterpret_cast<U*>(vd)[i] = reinterpret_cast<const U*>(vn)[i];
-  }
-}
-
+// slower on an H100, 30% with a minimum of 1.) stage_row: the new row
+// from kn/vn into the ring's slots ks/vs by the read's cp.async units (in
+// the caller's commit group); store_row (decode_common.cuh) stores it
+// from those slots after the loop.
 template <int N>
 __device__ __noinline__ void stage_row(char* ks, char* vs, const char* kn,
                                        const char* vn, int row_bytes) {
   stage_run<N>(ks, vs, kn, vn, 0, 0, 1, row_bytes);
-}
-
-// f(std::integral_constant<int, N>{}) for a copy unit of N = 16, 8, 4 or
-// 2 bytes, or 1 for rows of one-byte S (int8 or fp8 at an odd d)
-template <typename S, typename F>
-__device__ __forceinline__ void with_unit(int unit, F&& f) {
-  switch (unit) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    default:
-      if constexpr (sizeof(S) == 1) {
-        if (unit == 1) return f(std::integral_constant<int, 1>{});
-      }
-      return f(std::integral_constant<int, 2>{});
-  }
 }
 
 // The fp32 scales of columns [c, c + nc) of one (batch, head) row into
@@ -844,10 +634,10 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
               float x[4];
               load_word<S>(kr + e0 + w, x);
               const float4 qv = *reinterpret_cast<const float4*>(qs + e0 + w);
-              dot += qv.x * x[0];
-              dot += qv.y * x[1];
-              dot += qv.z * x[2];
-              dot += qv.w * x[3];
+              dot = __fmaf_rn(qv.x, x[0], dot);
+              dot = __fmaf_rn(qv.y, x[1], dot);
+              dot = __fmaf_rn(qv.z, x[2], dot);
+              dot = __fmaf_rn(qv.w, x[3], dot);
             }
           }
         } else {
@@ -855,11 +645,13 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
             float x[VEC];
             load_vec<S>(kr + e0, x);
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) dot += qs[e0 + e] * x[e];
+            for (int e = 0; e < VEC; ++e)
+              dot = __fmaf_rn(qs[e0 + e], x[e], dot);
           }
         }
       } else {
-        for (int e = qtr; e < d; e += 4) dot += qs[e] * to_float<S>(kr[e]);
+        for (int e = qtr; e < d; e += 4)
+          dot = __fmaf_rn(qs[e], to_float<S>(kr[e]), dot);
       }
     }
     // the quad's four parts, added in the same order on all four lanes
@@ -875,9 +667,9 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     const float m_new = fmaxf(m, warp_max(sc));
     const float corr = expf(m - m_new);
     const float prob = valid ? expf(sc - m_new) : 0.f;
-    l = corr * l + warp_sum(qtr == 0 ? prob : 0.f);
+    l = __fadd_rn(__fmul_rn(corr, l), warp_sum(qtr == 0 ? prob : 0.f));
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= corr;
+    for (int i = 0; i < DPL; ++i) acc[i] = __fmul_rn(acc[i], corr);
 #pragma unroll
     for (int u = 0; u < kColsPerWarp; ++u) {
       const int col = warp * kColsPerWarp + u;
@@ -885,12 +677,12 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
         // the weight of the column's V row: its probability, times
         // (kQuant) its V scale
         float pj = __shfl_sync(0xffffffffu, prob, 4 * u);
-        if constexpr (kQuant) pj *= vss[col];
+        if constexpr (kQuant) pj = __fmul_rn(pj, vss[col]);
         const S* vr = vt + col * d;
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
           if (lane + 32 * i < d)
-            acc[i] += pj * to_float<S>(vr[lane + 32 * i]);
+            acc[i] = __fmaf_rn(pj, to_float<S>(vr[lane + 32 * i]), acc[i]);
       }
     }
     m = m_new;
@@ -935,8 +727,8 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
 #pragma unroll
     for (int w = 0; w < kSplitWarps; ++w) {
       const float f = expf(wm[w] - mx);
-      lsum += wl[w] * f;
-      o += wacc[w][tid] * f;
+      lsum = __fmaf_rn(wl[w], f, lsum);
+      o = __fmaf_rn(wacc[w][tid], f, o);
     }
     const auto slot0 = [&](float* x) {
       return s == 0 ? x : cluster.map_shared_rank(x, 0);
@@ -961,8 +753,8 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     float lsum = 0.f, o = 0.f;
     for (int i = 0; i < n_live; ++i) {
       const float f = expf(pm[i] - mx);
-      lsum += pl[i] * f;
-      o += pacc[i][tid] * f;
+      lsum = __fmaf_rn(pl[i], f, lsum);
+      o = __fmaf_rn(pacc[i][tid], f, o);
     }
     out[(size_t)r * d + tid] = from_float<T>(o / fmaxf(lsum, 1e-30f));
   }
@@ -1008,8 +800,6 @@ cudaError_t launch_write_cols(const void* k_new, const void* v_new,
 
 // one launch of the split read: n_splits x n_rows blocks, each row's
 // n_splits blocks one cluster, with `smem` bytes of dynamic shared memory
-// (a kernel asks for more than 48 KB once per instantiation and size,
-// before the launch)
 template <typename T, typename S, int DP, bool kPaged>
 cudaError_t launch_read_split(const void* q, const void* k, const void* k_s,
                               const void* v, const void* v_s,
@@ -1020,13 +810,9 @@ cudaError_t launch_read_split(const void* q, const void* k, const void* k_s,
                               int n_splits, int unit, size_t smem,
                               cudaStream_t stream) {
   auto kernel = decode_read_split_kernel<T, S, DP, kPaged>;
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    granted = smem;
-  }
+  static size_t granted = 0;
+  const cudaError_t grant = allow_dynamic_smem(kernel, smem, &granted);
+  if (grant != cudaSuccess) return grant;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)n_splits * (unsigned)n_rows);
   cfg.blockDim = dim3(kSplitThreads);

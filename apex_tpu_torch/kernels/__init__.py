@@ -37,12 +37,16 @@ from apex_tpu_torch.kernels.decode_attention import (
     decode_attention_plain,
     decode_attention_quantized,
     decode_attention_quantized_plain,
+    decode_verify_attention,
+    decode_verify_attention_plain,
     paged_attention,
     paged_attention_plain,
     paged_attention_quantized,
     paged_attention_quantized_plain,
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_verify_attention,
+    paged_verify_attention_plain,
     paged_write_column,
     paged_write_column_plain,
     paged_write_column_quant,
@@ -52,6 +56,7 @@ from apex_tpu_torch.kernels.decode_attention import (
     paged_write_columns_quant,
     paged_write_columns_quant_plain,
     quantize_kv_rows,
+    verify_route,
     write_column,
     write_column_plain,
     write_column_quant,
@@ -149,6 +154,8 @@ KERNEL_WRAPPERS = {
     "softmax_bwd": softmax_bwd,
     "decode_attention_write": decode_attention,
     "paged_attention_write": paged_decode_attention,
+    "decode_verify_attention": decode_verify_attention,
+    "paged_verify_attention": paged_verify_attention,
 }
 
 
@@ -201,6 +208,8 @@ __all__ = [
     "decode_attention_plain",
     "decode_attention_quantized",
     "decode_attention_quantized_plain",
+    "decode_verify_attention",
+    "decode_verify_attention_plain",
     "flash_attention_bsh",
     "flash_attention_bsh_bwd",
     "flash_attention_bsh_bwd_plain",
@@ -232,6 +241,8 @@ __all__ = [
     "paged_attention_quantized_plain",
     "paged_decode_attention",
     "paged_decode_attention_plain",
+    "paged_verify_attention",
+    "paged_verify_attention_plain",
     "paged_write_column",
     "paged_write_column_plain",
     "paged_write_column_quant",
@@ -255,6 +266,7 @@ __all__ = [
     "softmax_fwd",
     "softmax_fwd_plain",
     "tc_route",
+    "verify_route",
     "write_column",
     "write_column_plain",
     "write_column_quant",

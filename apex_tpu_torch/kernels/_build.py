@@ -64,12 +64,19 @@ HM_MAX_HEAD_DIM = 128
 #: takes
 SOFTMAX_ROWS_MAX_COLS = 2048
 #: the four decode reads, plain and quantized (``csrc/decode_attention.cu``,
-#: ``decode_read_split_kernel``): a split holds a multiple of
-#: ``READ_SPLIT_COLS`` columns (its sub-tile), and a row's splits are one
-#: thread-block cluster of at most ``READ_MAX_SPLITS`` blocks (the largest
-#: portable cluster: ``kSubCols`` and ``kMaxSplits`` there)
+#: ``decode_read_split_kernel``), and the verify launch: a split holds a
+#: multiple of ``READ_SPLIT_COLS`` columns (its sub-tile), and a row's
+#: splits are one thread-block cluster of at most ``READ_MAX_SPLITS``
+#: blocks (the largest portable cluster: ``kSubCols`` and ``kMaxSplits``
+#: in ``csrc/decode_common.cuh``)
 READ_SPLIT_COLS = 32
 READ_MAX_SPLITS = 8
+#: the speculative verify's launch (``csrc/decode_verify.cu``,
+#: ``decode_verify_split_kernel``): the most query rows (T = spec_k + 1) it
+#: takes, and the smaller of the two row bounds it is built for
+#: (``kVerifyMaxRows``, ``kVerifyShortRows`` in ``csrc/decode_common.cuh``)
+VERIFY_MAX_ROWS = 8
+VERIFY_SHORT_ROWS = 4
 #: the four quantized column writes (``csrc/decode_attention.cu``,
 #: ``write_columns_quant_kernel``): threads a block, a group of lanes a
 #: head row (``kQuantWriteThreads`` there)
@@ -229,6 +236,19 @@ _SIGNATURES = {
     "apex_tpu_torch_paged_attention_write": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_float, _c_int, _c_int, _c_int, _c_void_p],
+    # the speculative verify (the T-column write inside the T-row read):
+    # q, k_new, v_new, k, v, pos, out, b, h, T, S, d, scale, q's dtype, the
+    # split geometry, stream
+    "apex_tpu_torch_decode_verify_attention": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+        _c_int, _c_int, _c_void_p],
+    # q, k_new, v_new, k_pool, v_pool, table, pos, out, b, h, T, P, mp, d,
+    # scale, q's dtype, the split geometry, stream
+    "apex_tpu_torch_paged_verify_attention": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_float, _c_int, _c_int, _c_int, _c_void_p],
     # the quantized cache: k_new, v_new, k_q, k_s, v_q, v_s, pos (+ table)
     # then the geometry, the input dtype, the storage kind and the stream

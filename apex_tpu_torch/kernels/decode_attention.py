@@ -39,6 +39,12 @@ its own wrapper and launch count:
   table), and both split a horizon alike, so on the same bytes at the same
   horizon it returns the same bits; :func:`paged_decode_attention` is the
   paged write and read in one launch, as :func:`decode_attention` is;
+- :func:`decode_verify_attention` and :func:`paged_verify_attention` —
+  the speculative verify's T-column write and its T-row read in one
+  launch of the split read with T query rows (``verify_route``: T from 2
+  to ``_build.VERIFY_MAX_ROWS``): query row ``t`` attends columns ``0 ..
+  pos[b] + t`` and equals the single read at ``pos[b] + t`` bit for bit,
+  the caches the multi-column write's;
 - the quantized cache (int8 or fp8 e4m3 data ``[.., d]`` beside one
   fp32 scale per head row and column ``[..]``): :func:`quantize_kv_rows`
   is THE quantizer, bit for bit JAX's; :func:`write_column_quant`,
@@ -656,6 +662,162 @@ def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, table, pos, *,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the speculative verify: the T-column write inside a T-row split read
+# ---------------------------------------------------------------------------
+
+def verify_route(t: int) -> bool:
+    """THE verify dispatch predicate, from the query rows a (batch, head)
+    row alone (T = spec_k + 1): True sends a compute-dtype verify on the
+    kernel impl to :func:`decode_verify_attention` (or its paged sibling),
+    one launch a layer; False keeps the multi-column write then the
+    materialised read. T from 2 to ``_build.VERIFY_MAX_ROWS`` (8: spec_k
+    <= 7) takes the launch; T = 1 is the decode step's own launch."""
+    return 2 <= t <= _build.VERIFY_MAX_ROWS
+
+
+def _check_verify(q, k_new, v_new, k_plane, v_plane, pos, *, paged: bool):
+    """Geometry of the verify: q/k_new/v_new ``[b, h, T, d]``, the caches
+    ``[b, h, S, d]`` or the pools ``[num_pages, h, P, d]``, pos ``[b]``.
+    Returns (b, h, T, d)."""
+    if q.ndim != 4 or k_new.shape != q.shape or v_new.shape != q.shape \
+            or k_plane.ndim != 4 or v_plane.shape != k_plane.shape:
+        raise ValueError(
+            f"expected q/k_new/v_new [b, h, T, d] and planes of rank 4, got "
+            f"{tuple(q.shape)} / {tuple(k_new.shape)} / {tuple(v_new.shape)}"
+            f" / {tuple(k_plane.shape)} / {tuple(v_plane.shape)}")
+    b, h, t, d = q.shape
+    if (k_plane.shape[1], k_plane.shape[3]) != (h, d) \
+            or (not paged and k_plane.shape[0] != b):
+        raise ValueError(f"planes {tuple(k_plane.shape)} inconsistent with "
+                         f"rows {tuple(q.shape)}")
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"pos must be [{b}], got {tuple(pos.shape)}")
+    return b, h, t, d
+
+
+def verify_read_plain(q, k_cache, v_cache, pos, *,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The verify's read, plain: query row ``t`` of ``q [b, h, T, d]`` is
+    :func:`attend_cache_plain` at position ``pos[b] + t`` over the caches
+    (a position past the horizon reads every column), so each row is the
+    single read's plain twin, bits included."""
+    p = pos.to(device=q.device, dtype=torch.long)
+    return torch.stack([attend_cache_plain(q[:, :, t], k_cache, v_cache,
+                                           p + t, scale=scale)
+                        for t in range(q.shape[2])], dim=2)
+
+
+def decode_verify_attention_plain(q, k_new, v_new, k_cache, v_cache, pos, *,
+                                  scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """Plain twin of :func:`decode_verify_attention`: the multi-column
+    write (:func:`cache_write_columns_plain`), then the read."""
+    cache_write_columns_plain(k_new, v_new, k_cache, v_cache, pos)
+    return verify_read_plain(q, k_cache, v_cache, pos, scale=scale)
+
+
+def decode_verify_attention(q, k_new, v_new, k_cache, v_cache, pos, *,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """The speculative verify's attention of one layer: ``k_new/v_new [b,
+    h, T, d]`` land in columns ``pos[b] .. pos[b] + T - 1`` of the caches
+    ``[b, h, S, d]`` IN PLACE, lanes past the horizon clamped onto column
+    ``S - 1`` (:func:`cache_write_columns`), and query row ``t`` of ``q
+    [b, h, T, d]`` attends columns ``0 .. min(pos[b] + t, S - 1)`` of the
+    written cache → ``out [b, h, T, d]``; the fp32 scores times ``scale``
+    (default ``1/sqrt(d)``). CUDA tensors launch the T-row split read once,
+    the write inside it (counted in ``decode_verify_attention.launches``,
+    not in :func:`cache_write_columns`'), the horizon in
+    :func:`read_splits` ``(S, d)`` splits, each query row bit for bit
+    :func:`attend_cache` at ``pos[b] + t``; ``1 <= T <=
+    _build.VERIFY_MAX_ROWS``. CPU tensors run the plain version."""
+    b, h, t, d = _check_verify(q, k_new, v_new, k_cache, v_cache, pos,
+                               paged=False)
+    sk = k_cache.shape[2]
+    if not _build.on_cuda(q, k_new, v_new, k_cache, v_cache, pos):
+        return decode_verify_attention_plain(q, k_new, v_new, k_cache,
+                                             v_cache, pos, scale=scale)
+    return _launch_verify("decode_verify_attention", decode_verify_attention,
+                          q, k_new, v_new, k_cache, v_cache, None, pos,
+                          (b, h, t, sk, d), sk, scale)
+
+
+decode_verify_attention.launches = 0
+
+
+def paged_verify_attention_plain(q, k_new, v_new, k_pool, v_pool, table, pos,
+                                 *, scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Plain twin of :func:`paged_verify_attention`: the paged multi-column
+    write (:func:`paged_write_columns_plain`), then the read over the
+    gathered row-contiguous view."""
+    paged_write_columns_plain(k_new, v_new, k_pool, v_pool, table, pos)
+    return verify_read_plain(q, paged_gather_xla(k_pool, table),
+                             paged_gather_xla(v_pool, table), pos,
+                             scale=scale)
+
+
+def paged_verify_attention(q, k_new, v_new, k_pool, v_pool, table, pos, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`decode_verify_attention` over the pools ``[num_pages, h, P,
+    d]`` through ``table [b, max_pages]`` (int32): the lanes land at
+    logical columns ``pos[b] + j`` (clamped onto the row's last logical
+    column ``max_pages * P - 1``, :func:`paged_write_columns`), and query
+    row ``t`` attends logical columns ``0 .. pos[b] + t`` — one launch
+    (counted in ``paged_verify_attention.launches``), the horizon
+    ``max_pages * P`` in :func:`read_splits` splits, so on the same bytes
+    it returns the contiguous launch's bits. CPU tensors run the plain
+    version."""
+    b, h, t, d = _check_verify(q, k_new, v_new, k_pool, v_pool, pos,
+                               paged=True)
+    n, _, p, _ = k_pool.shape
+    if table.ndim != 2 or table.shape[0] != b:
+        raise ValueError(f"table must be [{b}, max_pages], got "
+                         f"{tuple(table.shape)}")
+    mp = table.shape[1]
+    if not _build.on_cuda(q, k_new, v_new, k_pool, v_pool, table, pos):
+        return paged_verify_attention_plain(q, k_new, v_new, k_pool, v_pool,
+                                            table, pos, scale=scale)
+    return _launch_verify("paged_verify_attention", paged_verify_attention,
+                          q, k_new, v_new, k_pool, v_pool, table, pos,
+                          (b, h, t, p, mp, d), mp * p, scale)
+
+
+paged_verify_attention.launches = 0
+
+
+def _launch_verify(entry: str, counted, q, k_new, v_new, k_plane, v_plane,
+                   table, pos, dims, horizon, scale) -> torch.Tensor:
+    """Check the operands of a verify launch and launch ``entry``: ``dims``
+    are the geometry ints the C entry takes after the pointers, the
+    ``horizon`` in :func:`read_splits` ``(horizon, d)`` splits."""
+    code = _build.decode_dtype_code(q, f"{entry} q")
+    b, h, t, d = q.shape
+    _check_head_dim(d, entry)
+    if not 1 <= t <= _build.VERIFY_MAX_ROWS:
+        raise ValueError(f"{entry}: {t} query rows outside [1, "
+                         f"{_build.VERIFY_MAX_ROWS}] (VERIFY_MAX_ROWS)")
+    dt = q.dtype
+    for x, name in ((q, "q"), (k_new, "k_new"), (v_new, "v_new")):
+        _build.require(x, name, (b, h, t, d), dt)
+    _build.require(k_plane, "k_plane", tuple(k_plane.shape), dt)
+    _build.require(v_plane, "v_plane", tuple(k_plane.shape), dt)
+    _build.require(pos, "pos", (b,), torch.int32)
+    ptrs = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_plane.data_ptr(), v_plane.data_ptr()]
+    if table is not None:
+        _build.require(table, "table", tuple(table.shape), torch.int32)
+        ptrs.append(table.data_ptr())
+    out = torch.empty_like(q)
+    ptrs += [pos.data_ptr(), out.data_ptr()]
+    s_ = float(scale) if scale is not None else 1.0 / d ** 0.5
+    rc = getattr(_build.library(), f"apex_tpu_torch_{entry}")(
+        *ptrs, *dims, s_, code, *read_splits(horizon, d), _build.stream())
+    _build.check(rc, entry)
+    counted.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -84,17 +84,20 @@ from apex_tpu_torch.kernels.decode_attention import (
     cache_write_columns_quant,
     cache_write_columns_xla,
     decode_attention_quantized,
+    decode_verify_attention,
     dequantize_kv,
     kv_storage_dtype,
     paged_attention_quantized,
     paged_decode_attention,
     paged_gather_planes,
     paged_gather_xla,
+    paged_verify_attention,
     paged_write_column_quant,
     paged_write_columns,
     paged_write_columns_quant,
     paged_write_columns_xla,
     quantize_kv_rows,
+    verify_route,
 )
 from apex_tpu_torch.kernels.flash_attention import (
     FLASH_FWD_OP,
@@ -1018,12 +1021,17 @@ def _decode_attend_multi(cfg: GPTConfig, q, k_new, v_new, kv, pos):
     layer's cache ``kv`` IN PLACE (quantized, under a quantized cache;
     the kernel clamps lanes past the horizon onto its last column, the
     XLA spelling drops them), then row ``t`` attends over ``0 .. pos[b] +
-    t`` through the materialised read over the (dequantized) cache — on
-    the kernel path too, as in JAX: T is the draft width plus one, and
-    the product lies outside any kernel."""
+    t``. A compute-dtype cache on the kernel impl with ``verify_route(T)``
+    runs both in ONE launch (:func:`decode_verify_attention`, row ``t``
+    the decode step's read at ``pos[b] + t``); otherwise the write, then
+    the materialised read over the (dequantized) cache, as in JAX."""
     kind = _kv_cache_dtype(cfg)
     kernel = _decode_attn_impl(cfg, q.device) == "kernel"
     if kind == "compute":
+        if kernel and verify_route(q.shape[2]):
+            return decode_verify_attention(
+                q.contiguous(), k_new.contiguous(), v_new.contiguous(),
+                kv[0], kv[1], pos, scale=1.0 / math.sqrt(q.shape[-1]))
         if kernel:
             cache_write_columns(k_new.contiguous(), v_new.contiguous(),
                                 kv[0], kv[1], pos)
@@ -1051,10 +1059,17 @@ def _paged_attend_multi(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
     drop), then the rows attend the GATHERED (and, quantized,
     dequantized) row-contiguous view with the contiguous verify read
     verbatim, so paged verify logits equal contiguous ones on the same
-    bytes."""
+    bytes. A compute-dtype pool on the kernel impl with
+    ``verify_route(T)`` runs both in one launch
+    (:func:`paged_verify_attention`, the contiguous launch's bits) and
+    gathers nothing."""
     kind = _kv_cache_dtype(cfg)
     if _decode_attn_impl(cfg, q.device) != "kernel":
         _paged_xla_write(cfg, kv, k_new, v_new, table, pos)
+    elif kind == "compute" and verify_route(q.shape[2]):
+        return paged_verify_attention(
+            q.contiguous(), k_new.contiguous(), v_new.contiguous(), kv[0],
+            kv[1], table, pos, scale=1.0 / math.sqrt(q.shape[-1]))
     elif kind == "compute":
         paged_write_columns(k_new.contiguous(), v_new.contiguous(), kv[0],
                             kv[1], table, pos)

@@ -98,8 +98,9 @@ SHAPES = {
 
 #: the read kernels in a ptxas report (this checkout's and the parent's)
 READ_KERNEL = re.compile(r"decode_read_split_kernel|attn_quant_kernel")
-#: edited copies of this checkout's decode_attention.cu: (pattern,
-#: replacement) pairs, each pattern matching once
+#: edited copies of this checkout's decode_attention.cu and
+#: decode_common.cuh: (pattern, replacement) pairs, each pattern matching
+#: once in the two
 VARIANTS = {
     "i2f": [  # int8 widened by the conversion unit (I2F), K and V
         (r"return __int_as_float\(0x4B400000 \+ static_cast<int>\(x\)\) - "
@@ -116,9 +117,10 @@ VARIANTS = {
     # multiplies the broadcast weight by it)
     "V scale folded once": [
         (r"float pj = __shfl_sync\(0xffffffffu, prob, 4 \* u\);\n"
-         r"        if constexpr \(kQuant\) pj \*= vss\[col\];",
+         r"        if constexpr \(kQuant\) pj = __fmul_rn\(pj, vss\[col\]\);",
          "const float pj = __shfl_sync(0xffffffffu, pv, 4 * u);"),
-        (r"(    l = corr \* l \+ warp_sum\(qtr == 0 \? prob : 0\.f\);\n)",
+        (r"(    l = __fadd_rn\(__fmul_rn\(corr, l\), warp_sum\(qtr == 0 \? "
+         r"prob : 0\.f\)\);\n)",
          r"\1    float pv = prob;\n"
          r"    if constexpr (kQuant) pv = valid ? prob * vss[j] : 0.f;\n")],
     # the quantized instantiations held to 56 and 48 registers a thread
@@ -153,13 +155,17 @@ def start_builds(parent: Path) -> dict:
     for name, edits in VARIANTS.items():
         d = OUT / re.sub(r"\W+", "_", name)
         d.mkdir(parents=True, exist_ok=True)
-        src = (csrc / "decode_attention.cu").read_text()
+        files = {f: (csrc / f).read_text() for f in (
+            "decode_attention.cu", "decode_common.cuh", "common.cuh")}
         for pattern, new in edits:
-            src, hits = re.subn(pattern, new, src)
+            hits = 0
+            for f, text in files.items():
+                files[f], n = re.subn(pattern, new, text)
+                hits += n
             cs.check(hits == 1, f"variant {name}: {pattern!r} matched "
                      f"{hits} times")
-        (d / "decode_attention.cu").write_text(src)
-        (d / "common.cuh").write_text((csrc / "common.cuh").read_text())
+        for f, text in files.items():
+            (d / f).write_text(text)
         srcs[name] = d / "decode_attention.cu"
     jobs = {}
     for name, src in srcs.items():

@@ -111,7 +111,17 @@ model, right after phase 6 (numbered after the slices that came before):
     the paged fused launch (``paged_decode_attention``) held as phase 3
     holds the contiguous one, pages of 8 at both shapes, against
     ``paged_write_column`` then ``paged_attention`` and the plain twin, and
-    timed the same way;
+    timed the same way; the speculative verify's launch
+    (``decode_verify_attention``, ``paged_verify_attention``: the
+    multi-column write inside a split read of T query rows) at both shapes
+    in fp32, bf16 and fp16 with T 4 and 8, at ``fused_positions`` and a set
+    whose lanes pass the horizon: caches bit-equal to
+    ``cache_write_columns`` / ``paged_write_columns`` alone, every query
+    row bit-equal to the single read at its position, paged out bit-equal
+    to contiguous, out within DECODE_TOL of the plain twin; timed in bf16
+    at T 4 beside the parent's pair (the write, then the materialised
+    read), the write alone, SDPA with a [b, 1, T, S] mask (the read's
+    library call) and the plain twin;
 16. paged serving — (a) phase 5's trace through ``EngineConfig(...,
     page_size=8)`` (193 pages, auto-sized): every stream identical to phase
     5's, and per decode step 24 launches of the paged fused write + read
@@ -125,14 +135,16 @@ model, right after phase 6 (numbered after the slices that came before):
     horizon 192, chunks of 4, ``spec_k=3`` against ``spec_k=0``; 16
     requests of 96 tokens, greedy "high" and temperature-1.5 "adv"
     traces) under the scheduler's payoff gate: every spec stream within
-    the reference band, ``cache_write_columns`` on every layer of every
-    verify wave; drift against plain, tokens per wave, the gate's
+    the reference band, the verify launch (``decode_verify_attention``)
+    on every layer of every verify wave and no stand-alone
+    ``cache_write_columns``; drift against plain, tokens per wave, the gate's
     decisions and decode tokens/s reported;
 18. paged + speculative — the "high" trace with every chunk speculative
     (``admit_many`` and ``step_async(spec=True)``, no scheduler) through a
-    paged and a contiguous spec engine: identical tokens, the paged
-    side's verify writes through ``paged_write_columns`` on every layer
-    of every wave, and no single-column read, fused or not, anywhere.
+    paged and a contiguous spec engine: identical tokens, each side's
+    verify launch (``paged_verify_attention``, ``decode_verify_attention``)
+    on every layer of every wave, no stand-alone multi-column write, and
+    no single-column read, fused or not, anywhere.
 
 The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
 value beside an fp32 scale per head row and column) runs next, on the
@@ -348,15 +360,20 @@ foreach step (Adagrad's), and ``torch.softmax`` and
 ``torch._softmax_backward_data`` on already scaled and masked scores
 (the softmax kernels'; they leave out the scale and the mask).
 
-The line before the last is ``{"kernels": [...]}`` (32 entries: the 30
-kernels and the two fused decode steps, ``decode_attention_write`` and
+The line before the last is ``{"kernels": [...]}`` (34 entries: the 30
+kernels, the two fused decode steps, ``decode_attention_write`` and
 ``paged_attention_write``, each with its time, the write + read pair's
 (``pair_ms``), the write's and the read's alone in the same call, its
 cases held bit-equal to the pair, its launches on phase 5's or 16's path
-and a ``2p7b`` entry with phase 34's; rows 7, 10, 13 and 17 run on the
-main path inside those launches, so their ``launches`` are the fused
-launches, their own wrappers' beside as ``standalone_launches`` (0 on
-every serving path) and ``main_path`` naming the launch; the
+and a ``2p7b`` entry with phase 34's, and the two verify launches,
+``decode_verify_attention`` and ``paged_verify_attention``, each with its
+time, the parent's write + materialised read (``pair_ms``), the write's
+alone, SDPA's (``library_ms``), its cases held, its launches on phase
+17's or 18's path and a ``2p7b`` entry; rows 7, 10, 13 and 17 run on the
+main path inside the fused decode launches, rows 8 and 15 inside the
+verify launches, so their ``launches`` are those launches', their own
+wrappers' beside as ``standalone_launches`` (0 on every serving path)
+and ``main_path`` naming the launch; the
 two flash forwards' and the two fused flash backwards' rows name their
 kernel as ``variant``, with the tensor-core launches as
 ``launches_tc``; the head-major forward's and both backwards' carry the
@@ -1477,6 +1494,8 @@ def phase_paged_kernels():
                               bound(wbytes + extra, 0)))
     # the paged decode step's write and read in one launch (rows 13 + 17)
     rows["paged_attention_write"] = fused_row(paged=True)
+    # the verify's write and read in one launch (rows 8 and 15)
+    rows.update(verify_rows())
     for r in rows.values():
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (eager, host issue "
             f"included: {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f}"
@@ -1746,11 +1765,12 @@ def phase_spec(cfg, params, band: float):
     plain one under the scheduler (the spec side's payoff gate picks each
     chunk's kind), in the order spec, plain, plain, spec for the two
     sides' decode tokens/s in one call. On each side's first run every
-    spec stream must hold the reference band, and the verify's column
-    write must run on every layer of every verify wave. The spec-vs-plain
-    drift is reported, not asserted (the verify's materialised read and
-    the split-K kernel round differently), with the top-2 gap at each
-    drifting stream's first divergence."""
+    spec stream must hold the reference band, and the verify launch (the
+    column write inside the T-row read) must run on every layer of every
+    verify wave, the stand-alone write on none. The spec-vs-plain drift is
+    reported, not asserted (the verify's projections multiply T rows at
+    once and round otherwise than the decode step's), with the top-2 gap
+    at each drifting stream's first divergence."""
     L = cfg.num_layers
     out, writes = {}, {}
     for trace, adv in (("high", False), ("adv", True)):
@@ -1774,12 +1794,18 @@ def phase_spec(cfg, params, band: float):
                        decode_steps=engine.decode_steps_taken,
                        verify_waves=engine.spec_waves_taken)
             if side == "spec":
-                check(counts["cache_write_columns"]
-                      == L * engine.spec_waves_taken > 0,
-                      f"spec {trace}: cache_write_columns launched "
-                      f"{counts['cache_write_columns']} times, expected "
-                      f"{L} x {engine.spec_waves_taken} verify waves")
-                writes[trace] = counts["cache_write_columns"]
+                check(counts["decode_verify_attention"]
+                      == L * engine.spec_waves_taken > 0
+                      and counts["cache_write_columns"] == 0
+                      and counts["paged_verify_attention"] == 0,
+                      f"spec {trace}: decode_verify_attention launched "
+                      f"{counts['decode_verify_attention']} times, expected "
+                      f"{L} x {engine.spec_waves_taken} verify waves "
+                      f"(cache_write_columns "
+                      f"{counts['cache_write_columns']}, paged "
+                      f"{counts['paged_verify_attention']})")
+                writes[trace] = {k: counts[k] for k in (
+                    "decode_verify_attention", "cache_write_columns")}
                 worst_lp, worst_gap = hold_streams(cfg, params, reqs,
                                                    sched.completions)
                 check(worst_lp <= band and worst_gap <= band,
@@ -1857,9 +1883,10 @@ def drive_spec(engine, reqs):
 def phase_paged_spec(cfg, params):
     """The "high" trace with every chunk speculative through a paged
     spec_k=3 engine and a contiguous one: the emitted tokens must be
-    identical (the gathered bytes and the read's expression are the
-    same), and the paged side's verify writes must go through
-    ``paged_write_columns`` on every layer of every wave."""
+    identical (the paged verify launch returns the contiguous one's bits
+    on the same bytes), each side's verify launch must run on every layer
+    of every wave and no stand-alone multi-column write anywhere. Returns
+    the paged side's launch counts."""
     from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.serving import Engine
 
@@ -1877,12 +1904,18 @@ def phase_paged_spec(cfg, params):
         wall = time.perf_counter() - t0
         counts = launch_counts()
         waves = engine.spec_waves_taken
-        want = {"paged": ("paged_write_columns", "cache_write_columns"),
-                "contig": ("cache_write_columns", "paged_write_columns")}
+        want = {"paged": ("paged_verify_attention",
+                          "decode_verify_attention"),
+                "contig": ("decode_verify_attention",
+                           "paged_verify_attention")}
         on, off = want[name]
-        check(counts[on] == L * waves > 0 and counts[off] == 0,
+        check(counts[on] == L * waves > 0 and counts[off] == 0
+              and counts["cache_write_columns"] == 0
+              and counts["paged_write_columns"] == 0,
               f"paged+spec {name}: {on} launched {counts[on]} times "
-              f"(expected {L} x {waves} waves), {off} {counts[off]}")
+              f"(expected {L} x {waves} waves), {off} {counts[off]}, the "
+              f"multi-column writes {counts['cache_write_columns']} / "
+              f"{counts['paged_write_columns']}")
         check(counts["decode_attention"] == counts["paged_attention"] == 0
               and counts["decode_attention_write"] == 0
               and counts["paged_attention_write"] == 0,
@@ -1890,7 +1923,7 @@ def phase_paged_spec(cfg, params):
               f"step ran")
         check(all(len(toks[r.request_id]) == r.max_tokens for r in reqs),
               f"paged+spec {name}: a stream is short")
-        res[name] = (toks, counts[on], wall, waves)
+        res[name] = (toks, counts, wall, waves)
         del engine
     drift = [r for r in res["paged"][0]
              if res["paged"][0][r] != res["contig"][0][r]]
@@ -2440,6 +2473,329 @@ def fused_row(paged: bool) -> dict:
         **time_fused(paged, "355m"))
     row["2p7b"] = time_fused(paged, "2p7b")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the speculative verify in one launch (the multi-column write
+# inside a T-row split read) against the write alone, the single read at
+# every query row's position and the plain twin
+# ---------------------------------------------------------------------------
+
+#: the query rows a (batch, head) row the verify launch is held at: the
+#: serving path's spec_k + 1, and the route's largest
+VERIFY_ROWS = (SPEC_T, 8)
+
+
+def verify_positions(S: int, d: int, b: int, t: int):
+    """:func:`fused_positions`, then a set whose T lanes pass the horizon
+    (clamped onto S - 1: a row at S - 1, one whose lanes end past it, one
+    past the horizon) beside lanes across a split's edge."""
+    from apex_tpu_torch.kernels.decode_attention import read_splits
+
+    cols, _ = read_splits(S, d)
+    return fused_positions(S, d, b) + [(
+        [S - 1, S - t // 2, S - t + 1, S + 3, cols - t // 2, 2 * cols - 1,
+         0, S // 2] * b)[:b]]
+
+
+def _verify_inputs(g, shape: str, dtype, t: int, pos_l):
+    """One verify's operands at ``shape``: q and the new K and V rows [b,
+    h, T, d], the two caches with NaN past every position, the same rows
+    in pools of pages of PAGE through a random table (every other cell and
+    the sink page NaN), the table and pos."""
+    B, H, D, S = FUSED_SHAPES[shape]
+    dev = torch.device("cuda")
+    mk = lambda *shp: torch.randn(*shp, generator=g, device=dev, dtype=dtype)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    stale = (torch.arange(S, device=dev)[None] > pos[:, None].long())[
+        :, None, :, None]
+    q, kn, vn = mk(B, H, t, D), mk(B, H, t, D), mk(B, H, t, D)
+    kc, vc = (mk(B, H, S, D).masked_fill(stale, float("nan"))
+              for _ in range(2))
+    n_pages = B * (S // PAGE) + 1
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1).to(
+        torch.int32).view(B, S // PAGE)
+    return (q, kn, vn, kc, vc, _pool_of(kc, table, PAGE, n_pages),
+            _pool_of(vc, table, PAGE, n_pages), table, pos)
+
+
+def hold_verify():
+    """The verify launch, contiguous and paged, at both FUSED_SHAPES in
+    fp32, bf16 and fp16 with T of VERIFY_ROWS at every set of
+    ``verify_positions``: the caches (pools) bit-equal to
+    ``cache_write_columns`` (``paged_write_columns``) alone on a copy, and
+    to the plain twin's on a third copy; every query row bit-equal to the
+    single read (``attend_cache``, ``paged_attention``) at min(pos + t, S -
+    1) over the written copy; the paged output bit-equal to the contiguous
+    one; out within DECODE_TOL of the plain twin. Returns ({(layout, shape,
+    dtype): max |out - plain|}, the cases held)."""
+    from apex_tpu_torch.kernels import (
+        attend_cache,
+        cache_write_columns,
+        decode_verify_attention,
+        decode_verify_attention_plain,
+        paged_attention,
+        paged_verify_attention,
+        paged_verify_attention_plain,
+        paged_write_columns,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2000)
+    worst, cases = {}, 0
+    for shape, (B, H, D, S) in FUSED_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            for t in VERIFY_ROWS:
+                for pos_l in verify_positions(S, D, B, t):
+                    q, kn, vn, kc, vc, kp, vp, table, pos = _verify_inputs(
+                        g, shape, dt, t, pos_l)
+                    outs = {}
+                    for layout, planes in (("contiguous", (kc, vc)),
+                                           ("paged", (kp, vp))):
+                        one, two, ref = ([x.clone() for x in planes]
+                                         for _ in range(3))
+                        what = (f"verify {layout} {shape} {dt} T={t} "
+                                f"pos={pos_l}")
+                        if layout == "paged":
+                            out = paged_verify_attention(q, kn, vn, *one,
+                                                         table, pos)
+                            paged_write_columns(kn, vn, *two, table, pos)
+                            got = paged_verify_attention_plain(
+                                q, kn, vn, *ref, table, pos)
+                            single = lambda qt, p: paged_attention(
+                                qt, *two, table, p)
+                        else:
+                            out = decode_verify_attention(q, kn, vn, *one,
+                                                          pos)
+                            cache_write_columns(kn, vn, *two, pos)
+                            got = decode_verify_attention_plain(
+                                q, kn, vn, *ref, pos)
+                            single = lambda qt, p: attend_cache(qt, *two, p)
+                        rows = [single(q[:, :, i].contiguous(),
+                                       (pos + i).clamp(max=S - 1))
+                                for i in range(t)]
+                        torch.cuda.synchronize()
+                        check(_same_planes(one, two), f"{what}: caches "
+                              f"differ from the write alone's (bitwise)")
+                        check(_same_planes(one, ref), f"{what}: caches "
+                              f"differ from the plain twin's (bitwise)")
+                        for i, want in enumerate(rows):
+                            check(torch.equal(_bits(out[:, :, i]),
+                                              _bits(want)),
+                                  f"{what}: query row {i} differs from the "
+                                  f"single read at pos + {i} (bitwise), max "
+                                  f"{max_err(out[:, :, i], want)}")
+                        _hold_read(what, out, got, DECODE_TOL[dt], worst,
+                                   (layout, shape, str(dt)))
+                        outs[layout] = out
+                    check(torch.equal(_bits(outs["paged"]),
+                                      _bits(outs["contiguous"])),
+                          f"verify {shape} {dt} T={t} pos={pos_l}: paged out "
+                          f"differs from contiguous (bitwise)")
+                    cases += 1
+    errs = {" ".join(k): e for k, e in worst.items()}
+    log(f"verify: {cases} cases, contiguous and paged: caches bit-equal to "
+        f"the multi-column write alone and to the plain twin, every query "
+        f"row bit-equal to the single read at its position, paged == "
+        f"contiguous; max|out-plain| {errs}")
+    return worst, cases
+
+
+#: fp32 head widths whose split read fills the 48 KB of shared memory a
+#: block holds without opting in (its ring 128 x d x 4 bytes, beside its
+#: static arrays): the launch must opt in for the static bytes too
+WIDE_FP32_WIDTHS = (88, 96)
+
+
+def hold_wide_fp32():
+    """The contiguous and paged reads and verify launches on fp32 rows of
+    WIDE_FP32_WIDTHS (2 rows of 2 heads, horizon 256, pages of PAGE, NaN
+    past every position): each launches, within FP32_TOL of its plain
+    twin, every verify query row bit-equal to the single read at its
+    position. Returns the largest |out - plain|."""
+    from apex_tpu_torch.kernels import (
+        attend_cache,
+        attend_cache_plain,
+        decode_verify_attention,
+        decode_verify_attention_plain,
+        paged_attention,
+        paged_attention_plain,
+        paged_verify_attention,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2070)
+    B, H, S, t = 2, 2, 256, SPEC_T
+    worst = 0.0
+    for d in WIDE_FP32_WIDTHS:
+        pos_l = [S - 2, 100]
+        mk = lambda *shp: torch.randn(*shp, generator=g, device="cuda")
+        pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+        stale = (torch.arange(S, device="cuda")[None] > pos[:, None].long())[
+            :, None, :, None]
+        q, kn, vn = mk(B, H, t, d), mk(B, H, t, d), mk(B, H, t, d)
+        kc, vc = (mk(B, H, S, d).masked_fill(stale, float("nan"))
+                  for _ in range(2))
+        n_pages = B * (S // PAGE) + 1
+        table = (torch.randperm(n_pages - 1, generator=g, device="cuda")
+                 + 1).to(torch.int32).view(B, S // PAGE)
+        kp, vp = (_pool_of(x, table, PAGE, n_pages) for x in (kc, vc))
+        what = f"fp32 rows of {d}"
+        q0 = q[:, :, 0].contiguous()
+        for name, got, want in (
+                ("attend_cache", attend_cache(q0, kc, vc, pos),
+                 attend_cache_plain(q0, kc, vc, pos)),
+                ("paged_attention", paged_attention(q0, kp, vp, table, pos),
+                 attend_cache_plain(q0, kc, vc, pos))):
+            _hold_read(f"{name} {what}", got, want, FP32_TOL, {}, name)
+            worst = max(worst, max_err(got, want))
+        ref = [kc.clone(), vc.clone()]
+        want = decode_verify_attention_plain(q, kn, vn, *ref, pos)
+        for layout, out in (
+                ("contiguous", decode_verify_attention(q, kn, vn, kc, vc,
+                                                       pos)),
+                ("paged", paged_verify_attention(q, kn, vn, kp, vp, table,
+                                                 pos))):
+            _hold_read(f"verify {layout} {what}", out, want, FP32_TOL, {},
+                       layout)
+            worst = max(worst, max_err(out, want))
+            for i in range(t):
+                one = attend_cache(q[:, :, i].contiguous(), *ref,
+                                   (pos + i).clamp(max=S - 1))
+                check(torch.equal(out[:, :, i], one),
+                      f"verify {layout} {what}: query row {i} differs from "
+                      f"the single read (bitwise)")
+    log(f"fp32 rows of {WIDE_FP32_WIDTHS}: the reads and the verify "
+        f"launches run, max|out-plain| {worst:.3e}")
+    return worst
+
+
+def verify_sides(paged: bool):
+    """(verify launch, the parent's pair, the write alone, plain twin) of
+    the contiguous (row 8) or paged (row 15) verify, each taking (q, k_new,
+    v_new, k, v, table, pos); the pair is what the parent's
+    ``_decode_attend_multi`` / ``_paged_attend_multi`` ran on the kernel
+    impl: the write kernel, then (paged: the gather of both pools, then)
+    ``gpt._xla_verify_read``."""
+    from apex_tpu_torch.kernels import (
+        cache_write_columns,
+        decode_verify_attention,
+        decode_verify_attention_plain,
+        paged_verify_attention,
+        paged_verify_attention_plain,
+        paged_write_columns,
+    )
+    from apex_tpu_torch.kernels.decode_attention import paged_gather_xla
+    from apex_tpu_torch.models import gpt
+
+    if paged:
+        fused = paged_verify_attention
+        plain = paged_verify_attention_plain
+        write = lambda q, kn, vn, k, v, t, p: paged_write_columns(
+            kn, vn, k, v, t, p)
+        view = lambda k, v, t: (paged_gather_xla(k, t),
+                                paged_gather_xla(v, t))
+    else:
+        fused = lambda q, kn, vn, k, v, t, p: decode_verify_attention(
+            q, kn, vn, k, v, p)
+        plain = lambda q, kn, vn, k, v, t, p: decode_verify_attention_plain(
+            q, kn, vn, k, v, p)
+        write = lambda q, kn, vn, k, v, t, p: cache_write_columns(
+            kn, vn, k, v, p)
+        view = lambda k, v, t: (k, v)
+
+    def pair(q, kn, vn, k, v, t, p):
+        write(q, kn, vn, k, v, t, p)
+        return gpt._xla_verify_read(q, *view(k, v, t), p)
+
+    return fused, pair, write, plain
+
+
+def time_verify(paged: bool, shape: str) -> dict:
+    """The verify launch at ``shape`` in bf16 with T = SPEC_T
+    (FUSED_TIMED_POS), timed as phase 3 times a kernel, beside the
+    parent's pair (the write, then the materialised read), the write alone
+    (each on its own copy of the caches), eagerly too, the read's library
+    call (SDPA over the written caches with a boolean [b, 1, T, S] mask),
+    the plain twin, and the bound: each input byte read once (q, the new
+    rows that land, the cached K and V rows of columns 0..pos - 1, the new
+    columns coming from the new rows; paged, the table entries the read
+    needs),
+    each output byte written once (out and the new columns), and 4 d
+    operations a (query row, column) scored and summed."""
+    from apex_tpu_torch.kernels.decode_attention import paged_gather_xla
+
+    B, H, D, S = FUSED_SHAPES[shape]
+    t = SPEC_T
+    fused, pair, write, plain = verify_sides(paged)
+    pos_l = FUSED_TIMED_POS[shape]
+    g = torch.Generator(device="cuda").manual_seed(2050 + paged)
+    q, kn, vn, kc, vc, kp, vp, table, pos = _verify_inputs(
+        g, shape, torch.bfloat16, t, pos_l)
+    planes = (kp, vp) if paged else (kc, vc)
+    runs = {key: [x.clone() for x in planes] for key in
+            ("fused", "pair", "write", "plain")}
+    call = lambda f, key: (lambda: f(q, kn, vn, *runs[key], table, pos))
+    last = [min(p + t - 1, S - 1) for p in pos_l]
+    new = [min(p + t - 1, S - 1) - min(p, S - 1) + 1 for p in pos_l]
+    n_cols = sum(min(p + i, S - 1) + 1 for p in pos_l for i in range(t))
+    n_bytes = 2 * H * D * (B * t + 2 * sum(new)
+                           + 2 * sum(c + 1 - n for c, n in zip(last, new))
+                           + B * t + 2 * sum(new)) + 4 * B
+    if paged:
+        n_bytes += 4 * sum(c // PAGE + 1 for c in last)
+    bms, by = bound(n_bytes, 4 * n_cols * H * D, FP32_FLOPS_PER_S)
+    written = [x.clone() for x in planes]
+    write(q, kn, vn, *written, table, pos)
+    kw, vw = ((paged_gather_xla(x, table) for x in written) if paged
+              else written)
+    mask = (torch.arange(S, device="cuda")[None, None]
+            <= (pos.long()[:, None] + torch.arange(t, device="cuda")[None])[
+                :, :, None])[:, None]
+    out = dict(ms=time_ms(call(fused, "fused")),
+               pair_ms=time_ms(call(pair, "pair")),
+               write_ms=time_ms(call(write, "write")),
+               eager_ms=eager_ms(call(fused, "fused")),
+               pair_eager_ms=eager_ms(call(pair, "pair")),
+               plain_ms=time_ms(call(plain, "plain")),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   q, kw, vw, attn_mask=mask)),
+               bound_ms=bms, bound_by=by,
+               shape=f"b={B} h={H} T={t} S={S} d={D} bf16 pos={pos_l}"
+                     + (f" P={PAGE}" if paged else ""))
+    log(f"{'paged' if paged else 'decode'}_verify_attention at {shape}: "
+        f"{out['ms']:.5f} ms (the parent's pair {out['pair_ms']:.5f}, the "
+        f"write {out['write_ms']:.5f}; eager {out['eager_ms']:.5f} vs "
+        f"{out['pair_eager_ms']:.5f}), SDPA {out['library_ms']:.5f}, plain "
+        f"{out['plain_ms']:.4f}, bound {bms:.5f} ({by})")
+    return out
+
+
+def verify_rows() -> dict:
+    """The kernels line's rows of the verify launch, contiguous and paged:
+    :func:`hold_verify`'s holds, and the times at the 355M's shape with
+    the 2.7B's under ``2p7b``."""
+    worst, cases = hold_verify()
+    wide = hold_wide_fp32()
+    rows = {}
+    for paged, name, line in ((False, "decode_verify_attention", 169),
+                              (True, "paged_verify_attention", 811)):
+        layout = "paged" if paged else "contiguous"
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="apex_tpu_torch/csrc/decode_verify.cu",
+            replaces=f"apex_tpu/kernels/decode_attention.py:{line}",
+            and_replaces="apex_tpu/models/gpt.py:%d (the verify's "
+                         "materialised read)" % (1803 if paged else 1878),
+            variant="decode_verify_split_kernel<T, DP, R, %s> (the "
+                    "multi-column write inside a T-row split read)"
+                    % ("true" if paged else "false"),
+            max_abs_err=max(e for k, e in worst.items() if k[0] == layout),
+            rows_bit_equal_to_single_read=True, cases_held=cases,
+            wide_fp32_max_abs_err=wide,
+            library="F.scaled_dot_product_attention with a boolean [b, 1, "
+                    "T, S] mask over the written caches (the read alone)",
+            **time_verify(paged, "355m"))
+        rows[name]["2p7b"] = time_verify(paged, "2p7b")
+    return rows
 
 
 #: the horizon of phase 33's split-edge reads: not a multiple of any
@@ -3157,7 +3513,8 @@ def _check_quant_counts(what, counts, on, steps, L):
     decode = ("decode_write_column", "decode_attention", "paged_write_column",
               "paged_attention", "cache_write_columns", "paged_write_columns")
     for name in (decode + tuple(n + "_quant" for n in decode)
-                 + ("decode_attention_write", "paged_attention_write")):
+                 + ("decode_attention_write", "paged_attention_write",
+                    "decode_verify_attention", "paged_verify_attention")):
         want = L * steps if name in on else 0
         check(counts[name] == want and (want > 0 or name not in on),
               f"{what}: {name} launched {counts[name]} times, expected "
@@ -3342,7 +3699,8 @@ def phase_quant_serving(cfg, params, band, quant_err):
         if side == "spec":
             waves = engine.spec_waves_taken
             check(counts["cache_write_columns_quant"] == L * waves > 0
-                  and counts["cache_write_columns"] == 0,
+                  and counts["cache_write_columns"] == 0
+                  and counts["decode_verify_attention"] == 0,
                   f"kv spec int8: cache_write_columns_quant launched "
                   f"{counts['cache_write_columns_quant']} times, expected "
                   f"{L} x {waves} waves")
@@ -3372,9 +3730,13 @@ def phase_quant_serving(cfg, params, band, quant_err):
         waves = engine.spec_waves_taken
         on = ("paged_write_columns_quant" if name == "paged"
               else "cache_write_columns_quant")
-        check(counts[on] == L * waves > 0,
+        check(counts[on] == L * waves > 0
+              and counts["decode_verify_attention"] == 0
+              and counts["paged_verify_attention"] == 0,
               f"kv paged+spec int8 {name}: {on} launched {counts[on]} "
-              f"times, expected {L} x {waves} waves")
+              f"times, expected {L} x {waves} waves (a verify launch ran: "
+              f"{counts['decode_verify_attention']} / "
+              f"{counts['paged_verify_attention']})")
         res[name] = toks
         if name == "paged":
             counts_of["paged_spec"] = counts
@@ -6147,8 +6509,8 @@ def phase_2p7b_serve():
     write + read (compute-dtype caches) or its quantized column write and
     read, and no other single-column decode kernel (SERVE_2P7B_KERNELS),
     every prefill the head-major
-    flash forward on the tensor cores, and every verify wave the
-    multi-column write. Streams: contiguous within phase 4's band of a
+    flash forward on the tensor cores, and every verify wave the verify
+    launch (the multi-column write inside the T-row read). Streams: contiguous within phase 4's band of a
     teacher-forced forward; paged identical to contiguous, paged int8 to
     int8; int8 and spec identical to contiguous or first diverging where
     the reference's top-2 gap is within the band (int8: plus twice its
@@ -6213,15 +6575,17 @@ def phase_2p7b_serve():
                        "ttft_mean_ms", "ttft_p99_ms", "tokens_emitted")})
         if name == "spec":
             waves = engine.spec_waves_taken
-            check(counts["cache_write_columns"] == L * waves > 0,
-                  f"{what}: cache_write_columns launched "
-                  f"{counts['cache_write_columns']} times, expected {L} x "
-                  f"{waves} verify waves")
+            check(counts["decode_verify_attention"] == L * waves > 0
+                  and counts["cache_write_columns"] == 0,
+                  f"{what}: decode_verify_attention launched "
+                  f"{counts['decode_verify_attention']} times, expected {L} "
+                  f"x {waves} verify waves (cache_write_columns "
+                  f"{counts['cache_write_columns']})")
             row.update(verify_waves=waves, **{k: s[k] for k in (
                 "spec_tokens_per_wave", "spec_accept_rate",
                 "spec_gate_state")})
-            row["launches"]["cache_write_columns"] = counts[
-                "cache_write_columns"]
+            for k in ("decode_verify_attention", "cache_write_columns"):
+                row["launches"][k] = counts[k]
         if name in ("contiguous", "int8"):
             prof = phase_profile(c, engine)
             row["device_idle_share"] = (prof or {}).get("device_idle_share")
@@ -7320,9 +7684,20 @@ def main() -> int:
             table[name].update(
                 standalone_launches=run[name], launches=run[fused],
                 main_path=f"in the read's launch ({fused})")
-    paged_rows["cache_write_columns"]["launches"] = spec_writes["high"]
-    paged_rows["cache_write_columns"]["launches_adv"] = spec_writes["adv"]
-    paged_rows["paged_write_columns"]["launches"] = paged_spec_writes
+    # rows 8 and 15 run on the verify's main path inside its launch: their
+    # launches are its launches, their own wrappers' count beside (0)
+    for name, fused, run in (
+            ("cache_write_columns", "decode_verify_attention",
+             spec_writes["high"]),
+            ("paged_write_columns", "paged_verify_attention",
+             paged_spec_writes)):
+        paged_rows[fused]["launches"] = run[fused]
+        paged_rows[name].update(
+            standalone_launches=run[name], launches=run[fused],
+            main_path=f"in the verify's launch ({fused})")
+    for name in ("cache_write_columns", "decode_verify_attention"):
+        paged_rows[name]["launches_adv"] = spec_writes["adv"][
+            "decode_verify_attention"]
     rows.update(paged_rows)
     for r in quant_rows.values():
         r["launches"] = quant_launches[r["name"]]

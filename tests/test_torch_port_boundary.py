@@ -6,9 +6,10 @@ and touches CUDA, and where it refuses to run.
   name and the ``apex_tpu.`` prefix — not the string prefix, which would
   also block ``apex_tpu_torch``), and the import neither builds the
   kernels nor initialises CUDA.
-- ``chip_smoke.py``, ``chip_serve_ab.py``, ``chip_l2norm_ab.py`` and
-  ``chip_decode_quant_ab.py`` import nothing of JAX, and without a CUDA
-  device they exit non-zero and print no result line.
+- ``chip_smoke.py``, ``chip_serve_ab.py``, ``chip_l2norm_ab.py``,
+  ``chip_decode_quant_ab.py`` and ``chip_verify_ab.py`` import nothing of
+  JAX, and without a CUDA device they exit non-zero and print no result
+  line.
 - ``device=None`` means CUDA: without a CUDA device the engine and the
   model's entry points raise instead of running on the CPU.
 """
@@ -93,7 +94,8 @@ def test_port_sources_and_chip_smoke_import_no_jax():
     the chip scripts: an import inside a function counts too."""
     files = [os.path.join(REPO, f)
              for f in ("chip_smoke.py", "chip_serve_ab.py",
-                       "chip_l2norm_ab.py", "chip_decode_quant_ab.py")]
+                       "chip_l2norm_ab.py", "chip_decode_quant_ab.py",
+                       "chip_verify_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "apex_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for f in files:
@@ -148,6 +150,19 @@ def test_chip_decode_quant_ab_fails_without_a_card():
     res = subprocess.run(
         [sys.executable, os.path.join(REPO, "chip_decode_quant_ab.py"),
          REPO], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stdout
+    assert '"card"' not in res.stdout
+
+
+def test_chip_verify_ab_fails_without_a_card():
+    """The verify launch's A/B starts with the smoke's device phase:
+    without a CUDA device it exits non-zero with no JSON line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU refusal")
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_verify_ab.py"), REPO],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "no CUDA device" in res.stdout
     assert '"card"' not in res.stdout

@@ -179,6 +179,8 @@ def test_plain_paths_launch_nothing_and_counts_reset():
     new = torch.zeros(4, 2, 3, 64)
     tk.paged_write_columns(new, new, pool, pool.clone(), table, pos)
     tk.cache_write_columns(new, new, kc, vc, pos)
+    tk.decode_verify_attention(new, new, new, kc, vc, pos)
+    tk.paged_verify_attention(new, new, new, pool, pool.clone(), table, pos)
     kq, ks = tk.quantize_kv_rows(kc, "int8")
     pq, ps = tk.quantize_kv_rows(pool, "fp8")
     tk.decode_attention_quantized(q, kn, vn, kq, ks, kq.clone(), ks.clone(),
@@ -240,6 +242,8 @@ def test_plain_paths_launch_nothing_and_counts_reset():
                                   "softmax_bwd": 0,
                                   "decode_attention_write": 0,
                                   "paged_attention_write": 0,
+                                  "decode_verify_attention": 0,
+                                  "paged_verify_attention": 0,
                                   "flash_attention_bsh_tc": 0,
                                   "flash_attention_tc": 0,
                                   "flash_attention_bsh_bwd_tc": 0,
@@ -300,4 +304,4 @@ def test_build_dir_is_content_addressed():
         "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
         "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
         "softmax.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu",
-        "flash_bwd_dq_tc.cu"}
+        "flash_bwd_dq_tc.cu", "decode_verify.cu"}
