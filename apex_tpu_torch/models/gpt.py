@@ -11,14 +11,15 @@ What the port carries: the forward (:func:`logits`), the training loss
 (:func:`loss`, :func:`hidden_states_and_aux`, the chunked cross entropy
 of :func:`_ce_of_hidden`, the layer loop :func:`_scan_blocks` under
 ``remat`` / ``remat_policy``), bulk prefill (:func:`prefill`,
-:func:`prefill_at`, :func:`prefill_many`), KV-cache decode
+:func:`prefill_at`, :func:`prefill_many`; :func:`prefill_extend`, the
+tail over a prefilled prefix), KV-cache decode
 (:func:`decode_step`, :func:`decode_steps`, both over the contiguous
 cache or, with a block ``table``, the paged pool, each in compute dtype
 or quantized to int8 / fp8 by ``kv_cache_dtype``), speculative decoding
 (:func:`ngram_drafts`, :func:`shift_hist`, :func:`decode_verify`,
 :func:`decode_steps_spec`), the cache seams (:func:`init_cache`,
 :func:`cache_insert_slot(s)`, :func:`cache_insert_pages`,
-:func:`quantize_cache_block`, :func:`dequantize_cache_block`) and
+:func:`cache_gather_page`, :func:`quantize_cache_block`, :func:`dequantize_cache_block`) and
 :func:`generate`, the solo oracle of the serving engine. The port has no
 mesh and runs tp=1. Every function has the JAX package's tp=1 semantics
 with two differences of idiom:
@@ -1306,6 +1307,81 @@ def prefill_many(cfg: GPTConfig, params, prompts, last, *,
     last = torch.as_tensor(last, device=h.device).long()
     h_last = h[torch.arange(h.shape[0], device=h.device), last]
     return cache, _lm_head(cfg, params, h_last)
+
+
+def prefill_extend(cfg: GPTConfig, params, prefix_kv, tail, last, *,
+                   prefix_len: int):
+    """Tail-only prefill over an already-prefilled prefix: ONE forward
+    over the right-padded tail tokens ``tail [b, T]`` (positions
+    ``prefix_len .. prefix_len + T - 1``, real tokens ending at the
+    tail-local ``last [b]``) attending causally over ``prefix_kv [L, 2,
+    b, heads, prefix_len, d]`` (compute dtype, every position real) plus
+    the tail's own K/V. Returns ``(tail_kv [L, 2, b, heads, T, d]`` in
+    compute dtype, ``logits [b, vocab])``; row ``i``'s logits predict
+    position ``prefix_len + last[i] + 1``.
+
+    The prefix pool's admission and chunked prefill's later chunks run
+    it. Projections, LayerNorm and the MLP are per position; attention is
+    :func:`_xla_attn_probs` (the materialised scores, on every device)
+    over the keys in prompt order, prefix then tail, with masked columns
+    exact softmax zeros. So where the cold prefill also runs that
+    expression (``attn_impl`` "xla") every real position's K/V and the
+    end logits are the cold :func:`prefill_many`'s of the whole prompt;
+    under flash the two sum in another order and may part at near-ties."""
+    b, tb = tail.shape
+    cfg = _decode_entry_cfg(cfg, prefix_len + 1)
+    if prefix_len + tb > cfg.seq_len:
+        raise ValueError(
+            f"prefix_len {prefix_len} + tail width {tb} exceeds the "
+            f"position table (cfg.seq_len={cfg.seq_len})")
+    if cfg.num_experts:
+        # expert capacity follows the routed token count: tail-only
+        # routing would drop other tokens than the cold forward
+        raise ValueError(
+            "prefill_extend does not support num_experts > 0 (expert "
+            "capacity depends on the routed token count; tail-only "
+            "routing breaks prefix-hit == cold-prefill parity)")
+    dev = _params_device(params)
+    tail = torch.as_tensor(tail, device=dev).long()
+    d = cfg.head_dim
+    table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
+    pos_e = params["embedding"]["position"][prefix_len:prefix_len + tb]
+    h = F.embedding(tail, table) + pos_e[None].to(cfg.compute_dtype)
+    # a tail row at global position prefix_len + i sees the whole prefix
+    # and the tail columns j <= i: [T, prefix_len + T]
+    mask = (torch.arange(prefix_len + tb, device=dev)[None]
+            <= prefix_len + torch.arange(tb, device=dev)[:, None])
+    layers = _layers(params)
+    tail_kv = torch.empty((len(layers), 2, b, prefix_kv.shape[3], tb, d),
+                          dtype=cfg.compute_dtype, device=dev)
+    for l, layer_p in enumerate(layers):
+        p = _cast_layer(cfg, layer_p)
+        x = _layer_norm(cfg, h, p["ln1"]["scale"], p["ln1"]["bias"])
+        q, k, v = _qkv_project(cfg, p["attn"]["qkv"], x)
+        heads = q.shape[-1] // d
+        qs, kt, vt = (_split_heads(t, heads) for t in (q, k, v))
+        k_full = torch.cat([prefix_kv[l, 0], kt], dim=2)
+        v_full = torch.cat([prefix_kv[l, 1], vt], dim=2)
+        ctx = _merge_heads(torch.matmul(
+            _xla_attn_probs(cfg, qs, k_full, mask), v_full))
+        h = h + (torch.matmul(ctx, p["attn"]["proj"]["kernel"])
+                 + p["attn"]["proj"]["bias"])
+        x = _layer_norm(cfg, h, p["ln2"]["scale"], p["ln2"]["bias"])
+        h = h + _mlp(cfg, p["mlp"], x)
+        tail_kv[l, 0] = kt
+        tail_kv[l, 1] = vt
+    last = torch.as_tensor(last, device=dev).long()
+    h_last = h[torch.arange(b, device=dev), last]
+    return tail_kv, _lm_head(cfg, params, h_last)
+
+
+def cache_gather_page(cache, page: int, length: int):
+    """Page ``page`` of a pool cache (dim 2), cut to its first ``length``
+    horizon positions: ``[L, 2, 1, heads, length, d]`` in the pool's
+    layout, both planes of a quantized pool. A view of the pool, not a
+    copy (the serving engine only reads it)."""
+    page = int(page)
+    return _cache_map(lambda c: c[:, :, page:page + 1, :, :length], cache)
 
 
 def cache_insert_slot(cache, block, slot: int, *, pos: int = 0):

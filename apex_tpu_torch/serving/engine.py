@@ -1,23 +1,29 @@
 """Slot-based continuous-batching decode engine — the device loop.
 
-Port of ``apex_tpu/serving/engine.py``: its core, the paged KV cache and
-speculative decoding. A fixed batch of ``B`` decode *slots* shares one
-KV cache — ``[L, 2, B, heads, max_seq_len, d]``, or with ``page_size >
-0`` a pool of pages ``[L, 2, num_pages, heads, page_size, d]`` under a
-``[B, max_pages]`` int32 block table (:mod:`.pages` allocates them);
-under a quantized ``kv_cache_dtype`` the same layout as an int8/fp8
-data plane beside an fp32 scale plane (:func:`gpt.init_cache`) — and
-requests flow through the slots. All per-request state the device
-needs — position, remaining budget, done flag, eos id, temperature /
-top-k / top-p, the sampling key and, with ``spec_k > 0``, the drafter's
-token-history ring — lives in ``[B]`` tensors on the device:
+Port of ``apex_tpu/serving/engine.py``: its core, the paged KV cache,
+speculative decoding, the shared-prefix pool and chunked prefill. A
+fixed batch of ``B`` decode *slots* shares one KV cache — ``[L, 2, B,
+heads, max_seq_len, d]``, or with ``page_size > 0`` a pool of pages
+``[L, 2, num_pages, heads, page_size, d]`` under a ``[B, max_pages]``
+int32 block table (:mod:`.pages` allocates them); under a quantized
+``kv_cache_dtype`` the same layout as an int8/fp8 data plane beside an
+fp32 scale plane (:func:`gpt.init_cache`) — and requests flow through the
+slots. All per-request state the device needs — position, remaining
+budget, done flag, eos id, temperature / top-k / top-p, the sampling key
+and, with ``spec_k > 0``, the drafter's token-history ring — lives in
+``[B]`` tensors on the device:
 
 - :meth:`Engine.admit_many` — a group of queued requests is prefilled in
   ONE forward (``gpt.prefill_many`` over a ``[k, bucket]`` batch of
   right-padded prompts, ``bucket`` the smallest prompt bucket that fits
   the group), each row draws its first token at ``p_len - 1``, the k
   cache blocks are inserted into their slots and the k state rows are
-  scattered;
+  scattered; a prefix-pool hit (:meth:`Engine.match_prefix`) admits
+  alone through ``gpt.prefill_extend`` of its tail over the pooled
+  prefix;
+- :meth:`Engine.admit_chunked_start` / :meth:`Engine.admit_chunked_step`
+  — a prompt longer than ``prefill_chunk`` admits one chunk forward at a
+  time, the scheduler decoding between them;
 - :meth:`Engine.step_async` — one ``gpt.decode_steps`` chunk of
   ``decode_chunk`` steps over every slot, or with ``spec=True`` one
   ``gpt.decode_steps_spec`` chunk of ``decode_chunk`` draft-verify waves
@@ -63,8 +69,6 @@ def default_prompt_buckets(max_prompt_len: int) -> Tuple[int, ...]:
 #: the port, with the value that leaves them off and the slice they
 #: belong to
 _LATER_FIELDS = {
-    "prefix_pool_slots": (0, "the prefix pool"),
-    "prefill_chunk": (0, "chunked prefill"),
     "decode_chunks": (None, "the self-tuning scheduler"),
     "spec_ks": (None, "the self-tuning scheduler's draft-width ladder"),
     "adapter_slots": (0, "multi-LoRA serving"),
@@ -96,9 +100,19 @@ class EngineConfig:
     ceil(max_seq_len / page_size)`` entries per slot; a request pins
     only ``ceil((prompt + max_tokens) / page_size)`` pages, and an
     admission the pool cannot cover raises
-    :class:`~apex_tpu_torch.serving.pages.PagesExhausted`. The JAX
-    engine's other fields keep their names and defaults here; setting
-    one raises, naming the later slice it belongs to."""
+    :class:`~apex_tpu_torch.serving.pages.PagesExhausted`.
+
+    ``prefix_pool_slots > 0`` keeps a pool of that many prefilled
+    prompt prefixes (:meth:`Engine.register_prefix`, a system-prompt
+    template) in compute dtype; a prompt that starts with one
+    (:meth:`Engine.match_prefix`, at bucket-aligned split points)
+    admits by prefilling only its tail over the pooled K/V, and with
+    ``page_size`` maps the prefix's cache pages copy-on-write (the split
+    must then be page-aligned). ``prefill_chunk > 0`` (a prompt bucket
+    dividing ``max_prompt_len``) admits prompts longer than it one
+    ``prefill_chunk``-token forward at a time. The JAX engine's other
+    fields keep their names and defaults here; setting one raises,
+    naming the later slice it belongs to."""
 
     slots: int = 4
     max_prompt_len: int = 64
@@ -144,8 +158,10 @@ class Admission:
     top_p: float = 1.0
     seed: Optional[int] = None
     eos_token_id: Optional[int] = None
-    #: a prefix-pool hit (``Engine.match_prefix`` in the JAX package):
-    #: the prefix slice of the port; admission raises when it is set
+    #: a prefix-pool hit (:meth:`Engine.match_prefix`): ``prompt`` is
+    #: still the whole prompt, but its first ``prefix_len`` tokens (which
+    #: must equal those registered on pool page ``prefix_page``) come
+    #: from the pool and only the tail runs a forward
     prefix_page: Optional[int] = None
     prefix_len: int = 0
 
@@ -184,6 +200,35 @@ def _pad_span(block, span: int):
         return torch.cat([x, x.new_zeros(shape)], dim=4)
 
     return gpt._cache_map(pad, block)
+
+
+class ChunkedAdmission:
+    """Host progress of one chunked-prefill admission
+    (``EngineConfig.prefill_chunk``): made by
+    :meth:`Engine.admit_chunked_start` (which runs chunk 0), advanced one
+    chunk forward per :meth:`Engine.admit_chunked_step` call (the
+    scheduler decodes between calls) and finished by the same method
+    returning the :class:`AdmitResult`. ``chunks_total`` counts the
+    prefill forwards."""
+
+    __slots__ = ("admission", "prompt", "p_len", "chunks_total",
+                 "next_chunk", "slot", "_logits")
+
+    def __init__(self, admission: Admission, prompt: np.ndarray,
+                 p_len: int, chunks_total: int):
+        self.admission = admission
+        self.prompt = prompt
+        self.p_len = p_len
+        self.chunks_total = chunks_total
+        self.next_chunk = 1          # chunk 0 ran at start
+        self.slot = admission.slot
+        self._logits = None          # the last chunk's logits, on device
+
+    @property
+    def done_prefilling(self) -> bool:
+        """True once every prefill chunk ran (the next
+        :meth:`Engine.admit_chunked_step` call runs the finish)."""
+        return self.next_chunk >= self.chunks_total
 
 
 class StepHandle:
@@ -235,8 +280,11 @@ class Engine:
     weights to compute dtype once (:func:`gpt.cast_params`) and owns the
     cache and the slot-state tensors. Counters: ``decode_steps_taken``
     (single-token decode steps over the slot batch),
-    ``spec_waves_taken`` (speculative verify waves) and
-    ``admit_groups`` (admission forwards)."""
+    ``spec_waves_taken`` (speculative verify waves), ``admit_groups``
+    (cold admission forwards, ``gpt.prefill_many``), ``prefix_admits``
+    (prefix-pool hits, each one ``gpt.prefill_extend``) and
+    ``chunk_prefills`` (chunked-prefill forwards: chunk 0 and the
+    extends)."""
 
     def __init__(self, cfg: gpt.GPTConfig, params,
                  engine_cfg: Optional[EngineConfig] = None, *,
@@ -270,6 +318,19 @@ class Engine:
             raise ValueError(
                 f"spec_hist {ecfg.spec_hist} must be >= 2 with "
                 f"speculation (the drafter matches a 2-token suffix)")
+        gpt.check_stop_tokens(cfg, None, ecfg.pad_token_id)
+        self._buckets = self._resolve_buckets(ecfg)
+        self._batch_sizes = self._resolve_batch_sizes(ecfg)
+        if ecfg.prefix_pool_slots > 0 and cfg.num_experts:
+            raise ValueError(
+                "prefix_pool_slots > 0 does not compose with "
+                "num_experts > 0: MoE expert capacity depends on the "
+                "routed token count, so a tail-only extend forward "
+                "drops different tokens than the cold full-prompt "
+                "prefill and prefix-hit streams would silently "
+                "diverge (see gpt.prefill_extend)")
+        self._prefix_splits, self._extend_variants = \
+            self._resolve_prefix_variants(ecfg, self._buckets)
         if ecfg.page_size < 0 or ecfg.num_pages < 0:
             raise ValueError(
                 f"page_size {ecfg.page_size} / num_pages {ecfg.num_pages} "
@@ -289,11 +350,48 @@ class Engine:
                     f"num_pages {self._num_pages} cannot hold one "
                     f"worst-case request ({self._max_pages} pages) plus "
                     f"the sink page")
-        gpt.check_stop_tokens(cfg, None, ecfg.pad_token_id)
+            if self._prefix_splits:
+                # copy-on-write maps whole pages: only page-aligned
+                # splits can share (the tail insert starts at the split,
+                # and a mid-page split would make a shared page writable)
+                splits = tuple(s for s in self._prefix_splits
+                               if s % ecfg.page_size == 0)
+                if not splits:
+                    raise ValueError(
+                        f"prefix_pool_slots={ecfg.prefix_pool_slots} "
+                        f"with page_size={ecfg.page_size}: no split "
+                        f"point in {self._prefix_splits} is "
+                        f"page-aligned — pick a page_size dividing a "
+                        f"prompt bucket")
+                self._extend_variants = tuple(
+                    (ps, tb) for ps, tb in self._extend_variants
+                    if ps in splits)
+                self._prefix_splits = splits
+        if ecfg.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk {ecfg.prefill_chunk} must be >= 0")
+        self._chunk_size = ecfg.prefill_chunk
+        if self._chunk_size:
+            if cfg.num_experts:
+                raise ValueError(
+                    "prefill_chunk > 0 does not compose with "
+                    "num_experts > 0 (chunked admission rides "
+                    "gpt.prefill_extend, which MoE expert capacity "
+                    "breaks — see its docstring)")
+            if self._chunk_size not in self._buckets:
+                raise ValueError(
+                    f"prefill_chunk {self._chunk_size} must be one of "
+                    f"the prompt buckets {self._buckets} (chunk 0 is a "
+                    f"bucket-sized cold prefill)")
+            if self._chunk_size >= ecfg.max_prompt_len \
+                    or ecfg.max_prompt_len % self._chunk_size:
+                raise ValueError(
+                    f"prefill_chunk {self._chunk_size} must divide and "
+                    f"be smaller than max_prompt_len "
+                    f"{ecfg.max_prompt_len} (the chunk ladder is "
+                    f"static)")
         self.cfg = cfg
         self.engine_cfg = ecfg
-        self._buckets = self._resolve_buckets(ecfg)
-        self._batch_sizes = self._resolve_batch_sizes(ecfg)
         self._params = gpt.cast_params(cfg, params)
         #: monotonic admission counter — keys unseeded requests so
         #: concurrent sampled requests never share a stream
@@ -301,6 +399,8 @@ class Engine:
         self.decode_steps_taken = 0
         self.spec_waves_taken = 0
         self.admit_groups = 0
+        self.prefix_admits = 0
+        self.chunk_prefills = 0
         B, dev = ecfg.slots, self.device
         if self._paged:
             # the pool: the page dim rides the slot dim of the contiguous
@@ -328,15 +428,39 @@ class Engine:
                                             dtype=torch.int64, device=dev)
         #: paged-mode host state: the allocator, the [B, max_pages]
         #: block-table mirror (its device copy cached until a row
-        #: changes) and each slot's (pages, token footprint)
+        #: changes), each slot's (private pages, shared prefix pages,
+        #: token footprint) and each registered prefix's pinned pages
         self._page_alloc: Optional[PageAllocator] = None
         self._tables: Optional[np.ndarray] = None
         self._tables_dev: Optional[torch.Tensor] = None
-        self._slot_pages: Dict[int, Tuple[List[int], int]] = {}
+        self._slot_pages: Dict[int, Tuple[List[int], List[int], int]] = {}
+        self._prefix_pages: Dict[int, List[int]] = {}
         if self._paged:
             self._page_alloc = PageAllocator(self._num_pages,
                                              ecfg.page_size)
             self._tables = np.full((B, self._max_pages), SINK, np.int32)
+        # the prefix pool and the chunked scratch hold COMPUTE-dtype K/V
+        # even under a quantized cache: a tail extend, or a later chunk,
+        # attends over the exact prefix values a cold prefill of the
+        # whole prompt would see, and the quantizer runs once, at the
+        # slot insert, where a cold admission runs it
+        self._cfg_compute = dataclasses.replace(cfg, kv_cache_dtype="bf16")
+        #: prefix-pool host registry: bucket-aligned key (exact token
+        #: tuple) → (page, split), and each page's registered tokens
+        self._prefix_index: Dict[Tuple[int, ...], Tuple[int, int]] = {}
+        self._prefix_tokens: Dict[int, Tuple[int, ...]] = {}
+        self._prefix_used = 0
+        self.pool: Optional[torch.Tensor] = None
+        if self._prefix_splits:
+            self.pool = self._pool_init()
+        #: the one chunked admission in progress (the scratch holds one
+        #: prompt) and its scratch
+        self._chunked: Optional[ChunkedAdmission] = None
+        self._chunk_scratch: Optional[torch.Tensor] = None
+        if self._chunk_size:
+            self._chunk_scratch = gpt.init_cache(
+                self._cfg_compute, self._params, 1,
+                max_len=ecfg.max_prompt_len)
 
     @staticmethod
     def _resolve_buckets(ecfg: EngineConfig) -> Tuple[int, ...]:
@@ -371,6 +495,51 @@ class Engine:
                 f"{ecfg.slots}")
         return sizes
 
+    @staticmethod
+    def _resolve_prefix_variants(ecfg: EngineConfig,
+                                 buckets: Tuple[int, ...]):
+        """The prefix pool's usable SPLIT points (bucket values that
+        leave >= 1 tail token) and its (split, tail bucket) variants — a
+        tail bucket counts only where ``split + tail_bucket`` fits the
+        slot horizon, since the tail block is written at offset
+        ``split``. The JAX engine compiles one program a variant; the
+        port keeps the set so :meth:`match_prefix` reports a hit only
+        where the JAX engine would."""
+        if ecfg.prefix_pool_slots < 0:
+            raise ValueError(
+                f"prefix_pool_slots {ecfg.prefix_pool_slots} must be "
+                f">= 0")
+        if ecfg.prefix_pool_slots == 0:
+            return (), ()
+        mpl = ecfg.max_prompt_len
+        splits: List[int] = []
+        variants: List[Tuple[int, int]] = []
+        for ps in buckets:
+            if ps > mpl - 1:
+                continue
+            tbs = sorted({min(b for b in buckets if b >= tl)
+                          for tl in range(1, mpl - ps + 1)})
+            tbs = [tb for tb in tbs if ps + tb <= ecfg.max_seq_len]
+            if not tbs:
+                continue
+            splits.append(ps)
+            variants.extend((ps, tb) for tb in tbs)
+        if not splits:
+            raise ValueError(
+                f"prefix_pool_slots={ecfg.prefix_pool_slots} but no "
+                f"usable split point: no prompt bucket b satisfies "
+                f"b <= max_prompt_len-1 with a tail bucket fitting "
+                f"max_seq_len (buckets {buckets}, max_prompt_len "
+                f"{mpl}, max_seq_len {ecfg.max_seq_len})")
+        return tuple(splits), tuple(variants)
+
+    def _pool_init(self) -> torch.Tensor:
+        """The empty prefix pool: ``prefix_pool_slots`` rows of the
+        largest split's horizon, compute dtype."""
+        return gpt.init_cache(self._cfg_compute, self._params,
+                              self.engine_cfg.prefix_pool_slots,
+                              max_len=max(self._prefix_splits))
+
     # -- geometry ----------------------------------------------------------
 
     @property
@@ -384,6 +553,28 @@ class Engine:
     @property
     def admit_batch_sizes(self) -> Tuple[int, ...]:
         return self._batch_sizes
+
+    @property
+    def prefix_pool_enabled(self) -> bool:
+        """True when ``EngineConfig.prefix_pool_slots > 0`` resolved to
+        at least one usable split point."""
+        return bool(self._prefix_splits)
+
+    @property
+    def prefix_splits(self) -> Tuple[int, ...]:
+        """Bucket-aligned split points the prefix pool can reuse at
+        (ascending; empty when the pool is disabled)."""
+        return self._prefix_splits
+
+    @property
+    def chunked_prefill_enabled(self) -> bool:
+        """True when ``EngineConfig.prefill_chunk > 0``."""
+        return self._chunk_size > 0
+
+    def chunked_for(self, prompt_len: int) -> bool:
+        """Whether a prompt of this length admits through chunked
+        prefill (longer than one chunk) instead of :meth:`admit_many`."""
+        return self._chunk_size > 0 and prompt_len > self._chunk_size
 
     def describe(self) -> Dict[str, Any]:
         """JSON-safe snapshot of the configuration (dtypes by name)."""
@@ -407,6 +598,8 @@ class Engine:
             "kv_cache_kind": gpt._kv_cache_dtype(self.cfg),
             "num_pages": self._num_pages,
             "max_pages": self._max_pages,
+            "prefix_templates": [list(self._prefix_tokens[p])
+                                 for p in sorted(self._prefix_tokens)],
         }
 
     def cache_bytes(self) -> int:
@@ -416,6 +609,12 @@ class Engine:
         planes = (self.cache.values() if isinstance(self.cache, dict)
                   else (self.cache,))
         return sum(t.numel() * t.element_size() for t in planes)
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the shared-prefix pool (0 when disabled)."""
+        if self.pool is None:
+            return 0
+        return self.pool.numel() * self.pool.element_size()
 
     # -- paged KV cache (EngineConfig.page_size > 0) -----------------------
 
@@ -435,26 +634,31 @@ class Engine:
         (0 in contiguous mode)."""
         return self._max_pages
 
-    def pages_needed(self, prompt_len: int, max_tokens: int) -> int:
-        """Pages one admission pins: the request's token footprint
-        (prompt + budget) in pages; 0 in contiguous mode."""
+    def pages_needed(self, prompt_len: int, max_tokens: int,
+                     prefix_len: int = 0) -> int:
+        """Private pages one admission pins: the request's token
+        footprint (prompt + budget) in pages, less the pages of a shared
+        prefix of ``prefix_len`` tokens; 0 in contiguous mode."""
         if not self._paged:
             return 0
-        return -(-(prompt_len + max_tokens) // self.engine_cfg.page_size)
+        p = self.engine_cfg.page_size
+        return -(-(prompt_len + max_tokens) // p) - prefix_len // p
 
-    def can_admit_pages(self, prompt_len: int, max_tokens: int) -> bool:
-        """Whether the pool has the pages this admission needs now
-        (always True in contiguous mode)."""
+    def can_admit_pages(self, prompt_len: int, max_tokens: int,
+                        prefix_len: int = 0) -> bool:
+        """Whether the pool has the private pages this admission needs
+        now (always True in contiguous mode)."""
         if not self._paged:
             return True
         return self._page_alloc.can_alloc(
-            self.pages_needed(prompt_len, max_tokens))
+            self.pages_needed(prompt_len, max_tokens, prefix_len))
 
     def free_slot(self, slot: int) -> None:
-        """Release ``slot``'s pages and point its table row at the sink
-        page (its frozen decode lane keeps writing every chunk; the sink
-        absorbs that). The scheduler calls this at release; a no-op in
-        contiguous mode, where the next admission overwrites the slot."""
+        """Release ``slot``'s private pages, drop its pin on shared
+        prefix pages and point its table row at the sink page (its frozen
+        decode lane keeps writing every chunk; the sink absorbs that).
+        The scheduler calls this at release; a no-op in contiguous mode,
+        where the next admission overwrites the slot."""
         if self._paged:
             self._free_slot_pages(slot)
 
@@ -468,27 +672,37 @@ class Engine:
         ent = self._slot_pages.pop(slot, None)
         if ent is None:
             return
-        pages, footprint = ent
-        self._page_alloc.free(pages)
+        priv, shared, footprint = ent
+        self._page_alloc.free(priv)
+        self._page_alloc.free(shared)
         self._page_alloc.used_tokens -= footprint
         self._tables[slot, :] = SINK
         self._tables_dev = None
 
-    def _alloc_slot_pages(self, slot: int, p_len: int,
-                          max_tokens: int) -> np.ndarray:
+    def _alloc_slot_pages(self, slot: int, p_len: int, max_tokens: int,
+                          prefix_page: Optional[int] = None,
+                          prefix_len: int = 0) -> np.ndarray:
         """Map ``slot``'s table row for one admission: release its stale
-        mapping, allocate its pages, sink-fill the rest of the row.
-        Raises :class:`PagesExhausted` when the pool is dry. Returns the
-        row."""
+        mapping, pin the shared prefix pages (copy-on-write: a refcount,
+        no bytes move), allocate the private tail and decode pages,
+        sink-fill the rest. Raises :class:`PagesExhausted` when the pool
+        is dry. Returns the row."""
         self._free_slot_pages(slot)
-        need = self.pages_needed(p_len, max_tokens)
-        pages = self._page_alloc.alloc(need)
+        p = self.engine_cfg.page_size
+        shared: List[int] = []
+        if prefix_page is not None:
+            shared = list(self._prefix_pages[prefix_page][:prefix_len // p])
+        need = self.pages_needed(p_len, max_tokens, prefix_len)
+        priv = self._page_alloc.alloc(need)
+        self._page_alloc.share(shared)
         row = np.full((self._max_pages,), SINK, np.int32)
-        row[:need] = pages
+        row[:len(shared)] = shared
+        row[len(shared):len(shared) + need] = priv
         self._tables[slot] = row
         self._tables_dev = None
-        self._page_alloc.used_tokens += p_len + max_tokens
-        self._slot_pages[slot] = (pages, p_len + max_tokens)
+        footprint = p_len + max_tokens - prefix_len
+        self._page_alloc.used_tokens += footprint
+        self._slot_pages[slot] = (priv, shared, footprint)
         return row
 
     def _table_device(self) -> torch.Tensor:
@@ -532,11 +746,6 @@ class Engine:
     def _validate_admission(self, a: Admission) -> Tuple[np.ndarray, int]:
         if not 0 <= a.slot < self.slots:
             raise ValueError(f"slot {a.slot} outside [0, {self.slots})")
-        if a.prefix_page is not None or a.prefix_len:
-            raise ValueError(
-                "prefix-pool admission (prefix_page) is not supported by "
-                "apex_tpu_torch yet (the prefix pool comes in a later "
-                "slice of the port)")
         gpt.check_stop_tokens(self.cfg, a.eos_token_id, None)
         prompt = np.asarray(a.prompt, np.int64)
         if prompt.ndim != 1 or not \
@@ -553,6 +762,41 @@ class Engine:
                 f"max_tokens {a.max_tokens} outside [1, {room}] for a "
                 f"{prompt.size}-token prompt at max_seq_len "
                 f"{self.engine_cfg.max_seq_len}")
+        if a.prefix_page is not None:
+            ps = a.prefix_len
+            if not self._prefix_splits:
+                raise ValueError(
+                    "admission carries a prefix_page but the prefix "
+                    "pool is disabled (EngineConfig.prefix_pool_slots "
+                    "== 0)")
+            if ps not in self._prefix_splits:
+                raise ValueError(
+                    f"prefix_len {ps} is not a usable split point "
+                    f"{self._prefix_splits}")
+            if not 0 <= a.prefix_page < self._prefix_used:
+                raise ValueError(
+                    f"prefix_page {a.prefix_page} outside the "
+                    f"{self._prefix_used} registered pages")
+            if prompt.size <= ps:
+                raise ValueError(
+                    f"prompt of {prompt.size} tokens leaves no tail "
+                    f"beyond prefix_len {ps}")
+            tb = self.bucket_for(prompt.size - ps)
+            if (ps, tb) not in self._extend_variants:
+                raise ValueError(
+                    f"no extend variant for (split {ps}, tail bucket "
+                    f"{tb}) — the combined block exceeds max_seq_len")
+            stored = self._prefix_tokens[a.prefix_page]
+            if tuple(int(x) for x in prompt[:ps]) != stored[:ps]:
+                raise ValueError(
+                    f"prompt[:{ps}] does not match the tokens "
+                    f"registered on prefix page {a.prefix_page} — a "
+                    f"mismatched copy would silently decode against "
+                    f"another template's K/V")
+        elif a.prefix_len:
+            raise ValueError(
+                "prefix_len without prefix_page — pass both (a "
+                "match_prefix hit) or neither")
         return prompt, prompt.size
 
     def admit(self, slot: int, prompt, max_tokens: int, *,
@@ -572,9 +816,11 @@ class Engine:
         """Admit requests (FIFO order, distinct slots) in groups cut
         largest-first from ``admit_batch_sizes``; each group prefills at
         the smallest bucket that fits its longest prompt in ONE forward.
-        Per-row results equal single :meth:`admit` calls in the same
-        order. The host reads the groups' first tokens after every group
-        is launched."""
+        A prefix-pool hit (``prefix_page`` set) admits alone, through a
+        tail extend at its tail bucket (``AdmitResult.bucket``). Per-row
+        results equal single :meth:`admit` calls in the same order. The
+        host reads the groups' first tokens after every group is
+        launched."""
         items = list(items)
         if not items:
             return []
@@ -586,15 +832,28 @@ class Engine:
         if self._paged:
             # all or nothing: refuse the whole batch before any forward
             # when the pool cannot cover it
-            total = sum(self.pages_needed(n, a.max_tokens)
+            total = sum(self.pages_needed(n, a.max_tokens, a.prefix_len)
                         for a, (_, n) in zip(items, validated))
             if not self._page_alloc.can_alloc(total):
                 raise PagesExhausted(total, self._page_alloc.free_pages)
-        cfg, dev, st = self.cfg, self.device, self.state
+        cfg, dev = self.cfg, self.device
         pending = []
         i, group = 0, 0
         while i < len(items):
-            k = max(s for s in self._batch_sizes if s <= len(items) - i)
+            if items[i].prefix_page is not None:
+                # a hit runs its own tail extend, k=1: batched with cold
+                # admissions it would pay the full prompt bucket again
+                a, (prompt, n) = items[i], validated[i]
+                pending.append((self._dispatch_prefix_admit(a, prompt, n),
+                                self.bucket_for(n - a.prefix_len), 1,
+                                group))
+                i += 1
+                group += 1
+                continue
+            run = i
+            while run < len(items) and items[run].prefix_page is None:
+                run += 1
+            k = max(s for s in self._batch_sizes if s <= run - i)
             batch = items[i:i + k]
             proms = validated[i:i + k]
             bucket = self.bucket_for(max(n for _, n in proms))
@@ -603,28 +862,10 @@ class Engine:
                 device=dev)
             p_lens = torch.tensor([n for _, n in proms], dtype=torch.int64,
                                   device=dev)
-            keys = torch.tensor(
-                [sampling.request_key(a.seed, self._req_counter + j)
-                 for j, a in enumerate(batch)], dtype=torch.int64,
-                device=dev)
-            self._req_counter += k
-            vec = lambda vals, dt: torch.tensor(vals, dtype=dt, device=dev)
-            temp = vec([a.temperature for a in batch], torch.float32)
-            top_k = vec([a.top_k for a in batch], torch.int64)
-            top_p = vec([a.top_p for a in batch], torch.float32)
-            max_tokens = vec([a.max_tokens for a in batch], torch.int64)
-            eos = vec([_NO_EOS if a.eos_token_id is None
-                       else int(a.eos_token_id) for a in batch],
-                      torch.int64)
-            slots = [a.slot for a in batch]
             # ONE padded forward admits the group; row i's logits and K/V
             # are exactly its solo prefill_at's
             blocks, logits0 = gpt.prefill_many(
                 cfg, self._params, prompts, p_lens - 1, max_len=bucket)
-            first = sampling.draw_slots(logits0, keys, p_lens - 1, temp,
-                                        top_k, top_p)
-            first_lp = torch.log_softmax(logits0, dim=-1).gather(
-                1, first[:, None])[:, 0]
             if self._paged:
                 # row i's bucket columns land in its own pages (pad columns
                 # in the sink or the row's not-yet-decoded cells)
@@ -638,28 +879,11 @@ class Engine:
                                        _pad_span(blocks, n_ins * p_sz),
                                        pages, page_size=p_sz)
             else:
-                gpt.cache_insert_slots(self.cache, blocks, slots)
-            hit_eos = (eos >= 0) & (first == eos)
-            done0 = hit_eos | (max_tokens <= 1)
-            sl = torch.tensor(slots, dtype=torch.int64, device=dev)
-            st["tok"][sl] = first
-            st["pos"][sl] = p_lens.to(torch.int32)
-            st["remaining"][sl] = max_tokens - 1
-            st["done"][sl] = done0
-            st["temp"][sl] = temp
-            st["top_k"][sl] = top_k
-            st["top_p"][sl] = top_p
-            st["key"][sl] = keys
-            st["eos"][sl] = eos
-            if self._spec:
-                # seed the drafter's ring: the prompt tail and the first
-                # token drawn above
-                hist0 = torch.as_tensor(
-                    np.stack([self._hist_seed(p) for p, _ in proms]),
-                    device=dev)
-                st["hist"][sl] = torch.cat([hist0, first[:, None]], dim=1)
-            pending.append(((first, first_lp, hit_eos, done0), bucket, k,
-                            group))
+                gpt.cache_insert_slots(self.cache, blocks,
+                                       [a.slot for a in batch])
+            pending.append((self._start_slots(batch, [p for p, _ in proms],
+                                              logits0, p_lens),
+                            bucket, k, group))
             self.admit_groups += 1
             i += k
             group += 1
@@ -673,6 +897,302 @@ class Engine:
                     bucket=bucket, batch_size=k, group=group,
                     logprob=float(first_lp[j])))
         return results
+
+    def _start_slots(self, batch: Sequence[Admission], prompts, logits0,
+                     p_lens):
+        """The admission's last step, whatever forward produced
+        ``logits0 [k, vocab]``: each row draws its first token at
+        ``p_lens - 1`` and its slot's state row is scattered (with the
+        drafter's ring seeded from ``prompts`` on a speculative engine).
+        Returns the ``(first, first_lp, hit_eos, done)`` device tensors,
+        read by the caller once every group is launched."""
+        dev, st = self.device, self.state
+        k = len(batch)
+        keys = torch.tensor(
+            [sampling.request_key(a.seed, self._req_counter + j)
+             for j, a in enumerate(batch)], dtype=torch.int64, device=dev)
+        self._req_counter += k
+        vec = lambda vals, dt: torch.tensor(vals, dtype=dt, device=dev)
+        temp = vec([a.temperature for a in batch], torch.float32)
+        top_k = vec([a.top_k for a in batch], torch.int64)
+        top_p = vec([a.top_p for a in batch], torch.float32)
+        max_tokens = vec([a.max_tokens for a in batch], torch.int64)
+        eos = vec([_NO_EOS if a.eos_token_id is None
+                   else int(a.eos_token_id) for a in batch], torch.int64)
+        first = sampling.draw_slots(logits0, keys, p_lens - 1, temp, top_k,
+                                    top_p)
+        first_lp = torch.log_softmax(logits0, dim=-1).gather(
+            1, first[:, None])[:, 0]
+        hit_eos = (eos >= 0) & (first == eos)
+        done0 = hit_eos | (max_tokens <= 1)
+        sl = vec([a.slot for a in batch], torch.int64)
+        st["tok"][sl] = first
+        st["pos"][sl] = p_lens.to(torch.int32)
+        st["remaining"][sl] = max_tokens - 1
+        st["done"][sl] = done0
+        st["temp"][sl] = temp
+        st["top_k"][sl] = top_k
+        st["top_p"][sl] = top_p
+        st["key"][sl] = keys
+        st["eos"][sl] = eos
+        if self._spec:
+            # seed the drafter's ring: the prompt tail and the first
+            # token drawn above
+            hist0 = torch.as_tensor(
+                np.stack([self._hist_seed(p) for p in prompts]), device=dev)
+            st["hist"][sl] = torch.cat([hist0, first[:, None]], dim=1)
+        return first, first_lp, hit_eos, done0
+
+    # -- the shared-prefix pool (EngineConfig.prefix_pool_slots > 0) -------
+
+    def register_prefix(self, tokens) -> int:
+        """Prefill a shared prompt prefix (a system-prompt template) ONCE
+        into a pool page; returns the page index. The template is cut AT
+        its largest usable split (every stored K/V position is real) and
+        indexed at every smaller split too, so :meth:`match_prefix` can
+        reuse the longest bucket-aligned piece a prompt shares. A
+        template whose cut is already pooled returns its page (no device
+        work). With a paged cache the block is also quantized ONCE into
+        pinned cache pages that hits map copy-on-write. Raises when the
+        pool is disabled, full, or the template is shorter than the
+        smallest split; a failed insert resets the pool to empty."""
+        if not self._prefix_splits:
+            raise ValueError(
+                "prefix pool disabled (EngineConfig.prefix_pool_slots "
+                "== 0)")
+        tokens = np.asarray(tokens, np.int64)
+        if tokens.ndim != 1 or tokens.size < 1:
+            raise ValueError("prefix template must be a 1-D token list")
+        if tokens.min() < 0 or tokens.max() >= self.cfg.vocab_size:
+            raise ValueError(
+                f"prefix template tokens outside vocab "
+                f"[0, {self.cfg.vocab_size})")
+        usable = [b for b in self._prefix_splits if b <= tokens.size]
+        if not usable:
+            raise ValueError(
+                f"prefix template of {tokens.size} tokens is shorter "
+                f"than the smallest split bucket "
+                f"{self._prefix_splits[0]} — nothing to pool")
+        pb = max(usable)
+        t = tuple(int(x) for x in tokens[:pb])
+        hit = self._prefix_index.get(t)
+        if hit is not None and hit[1] == pb:
+            return hit[0]
+        if self._prefix_used >= self.engine_cfg.prefix_pool_slots:
+            raise ValueError(
+                f"prefix pool full "
+                f"({self.engine_cfg.prefix_pool_slots} pages)")
+        page = self._prefix_used
+        dev = self.device
+        try:
+            blocks, _ = gpt.prefill_many(
+                self._cfg_compute, self._params,
+                torch.as_tensor([t], device=dev),
+                torch.full((1,), pb - 1, dtype=torch.int64, device=dev),
+                max_len=pb)
+            gpt.cache_insert_slot(self.pool, blocks, page)
+        except Exception:
+            # every registered page lives in the pool: after a failed
+            # insert reset it and the registry to a clean empty state
+            # (callers re-register) rather than trust its contents
+            self._reset_prefix_pool()
+            raise
+        if self._paged:
+            # page in the quantized prefix ONCE into pinned cache pages,
+            # the copy-on-write master every hit maps read-only (the
+            # registration holds one pin, so the pages outlive every
+            # hit's release)
+            p_sz = self.engine_cfg.page_size
+            cache_pages = self._page_alloc.alloc(pb // p_sz)
+            try:
+                block = gpt.cache_gather_page(self.pool, page, pb)
+                gpt.cache_insert_pages(
+                    self.cache, gpt.quantize_cache_block(self.cfg, block),
+                    torch.as_tensor([cache_pages], device=dev),
+                    page_size=p_sz)
+            except Exception:
+                self._page_alloc.free(cache_pages)
+                raise
+            self._prefix_pages[page] = cache_pages
+            self._page_alloc.used_tokens += pb
+        # the page is committed only after its inserts landed
+        self._prefix_used += 1
+        self._prefix_tokens[page] = t
+        for b in usable:
+            # the first registration wins a shorter shared key: the K/V
+            # of tokens[:b] is the same whichever template stored it
+            self._prefix_index.setdefault(t[:b], (page, b))
+        return page
+
+    def _reset_prefix_pool(self) -> None:
+        """Empty the pool and its registry; the registrations' pins on
+        cache pages drop (slots still sharing them keep their own)."""
+        self._prefix_index.clear()
+        self._prefix_tokens.clear()
+        self._prefix_used = 0
+        for pages in self._prefix_pages.values():
+            self._page_alloc.free(pages)
+            self._page_alloc.used_tokens -= len(pages) * \
+                self.engine_cfg.page_size
+        self._prefix_pages.clear()
+        self.pool = self._pool_init()
+
+    def match_prefix(self, prompt) -> Optional[Tuple[int, int]]:
+        """Longest-split prefix-pool hit for ``prompt``: ``(page,
+        split)`` such that ``prompt[:split]`` equals a pooled prefix,
+        ``split`` is a usable split point, at least one tail token
+        remains and the (split, tail bucket) variant exists — or None
+        (cold prefill). Host work only."""
+        if not self._prefix_index:
+            return None
+        t = tuple(int(x) for x in prompt)
+        for split in sorted(self._prefix_splits, reverse=True):
+            if split >= len(t):
+                continue
+            tb = self.bucket_for(len(t) - split)
+            if (split, tb) not in self._extend_variants:
+                continue
+            hit = self._prefix_index.get(t[:split])
+            if hit is not None:
+                return hit[0], split
+        return None
+
+    def _dispatch_prefix_admit(self, a: Admission, prompt: np.ndarray,
+                               n: int):
+        """One prefix-hit admission: the pooled block, the tail's extend
+        at its tail bucket, the first draw at ``n - 1``, the cache
+        insert; returns the ``(first, first_lp, hit_eos, done)`` device
+        tensors."""
+        cfg, dev = self.cfg, self.device
+        ps = a.prefix_len
+        tb = self.bucket_for(n - ps)
+        tails = np.full((1, tb), self.engine_cfg.pad_token_id, np.int64)
+        tails[0, :n - ps] = prompt[ps:]
+        block = gpt.cache_gather_page(self.pool, a.prefix_page, ps)
+        if self._paged:
+            # copy-on-write: the prefix pages are mapped into the row
+            # and pinned; only the tail moves, into the private pages
+            # from the page-aligned split on
+            p_sz = self.engine_cfg.page_size
+            row = self._alloc_slot_pages(
+                a.slot, n, a.max_tokens, prefix_page=a.prefix_page,
+                prefix_len=ps)
+            n_tail = -(-tb // p_sz)
+            pages = np.full((1, n_tail), SINK, np.int64)
+            avail = row[ps // p_sz: ps // p_sz + n_tail]
+            pages[0, :avail.size] = avail
+        tail_kv, logits0 = gpt.prefill_extend(
+            cfg, self._params, block, torch.as_tensor(tails, device=dev),
+            torch.tensor([n - ps - 1], dtype=torch.int64, device=dev),
+            prefix_len=ps)
+        if self._paged:
+            gpt.cache_insert_pages(
+                self.cache,
+                _pad_span(gpt.quantize_cache_block(cfg, tail_kv),
+                          n_tail * p_sz),
+                torch.as_tensor(pages, device=dev), page_size=p_sz)
+        else:
+            # the prefix block quantizes at the insert (the cold path's
+            # quantizer on the same values), the tail lands after it:
+            # together the bytes a cold admission of the prompt holds
+            gpt.cache_insert_slot(
+                self.cache, gpt.quantize_cache_block(cfg, block), a.slot)
+            gpt.cache_insert_slot(
+                self.cache, gpt.quantize_cache_block(cfg, tail_kv), a.slot,
+                pos=ps)
+        self.prefix_admits += 1
+        return self._start_slots(
+            [a], [prompt], logits0,
+            torch.tensor([n], dtype=torch.int64, device=dev))
+
+    # -- chunked prefill (EngineConfig.prefill_chunk > 0) ------------------
+
+    def admit_chunked_start(self, a: Admission) -> ChunkedAdmission:
+        """Begin a chunked-prefill admission: validate, map the slot's
+        pages (paged: :class:`PagesExhausted` fires here, before any
+        device work) and run chunk 0, a bucket-sized cold prefill into
+        the compute-dtype scratch. One chunked admission at a time (the
+        scratch holds one prompt)."""
+        if not self._chunk_size:
+            raise ValueError(
+                "chunked prefill disabled "
+                "(EngineConfig.prefill_chunk == 0)")
+        if self._chunked is not None:
+            raise RuntimeError(
+                "a chunked admission is already in progress — the "
+                "scratch buffer holds one prompt at a time")
+        if a.prefix_page is not None:
+            raise ValueError(
+                "chunked prefill does not compose with prefix-pool "
+                "hits (a hit already skips the prefix forward — "
+                "nothing long is left to chunk)")
+        prompt, n = self._validate_admission(a)
+        c = self._chunk_size
+        if n <= c:
+            raise ValueError(
+                f"prompt of {n} tokens fits one {c}-token chunk — use "
+                f"admit_many")
+        if self._paged:
+            self._alloc_slot_pages(a.slot, n, a.max_tokens)
+        dev = self.device
+        ca = ChunkedAdmission(a, prompt, n, -(-n // c))
+        blocks, _ = gpt.prefill_many(
+            self._cfg_compute, self._params,
+            torch.as_tensor(prompt[None, :c], device=dev),
+            torch.full((1,), c - 1, dtype=torch.int64, device=dev),
+            max_len=c)
+        gpt.cache_insert_slot(self._chunk_scratch, blocks, 0)
+        self.chunk_prefills += 1
+        self._chunked = ca
+        return ca
+
+    def admit_chunked_step(self, ca: ChunkedAdmission
+                           ) -> Optional[AdmitResult]:
+        """Advance a chunked admission by one forward: the next chunk's
+        ``prefill_extend`` over the scratch's first ``i * prefill_chunk``
+        columns while prefilling (returns None), then the finish — the
+        first draw from the last chunk's logits at ``p_len - 1``, the
+        whole prompt block quantized and inserted where a cold admission
+        puts it, the slot's state row — returning the
+        :class:`AdmitResult`."""
+        if ca is not self._chunked:
+            raise ValueError(
+                "stale ChunkedAdmission — not the one in progress")
+        c, dev = self._chunk_size, self.device
+        a = ca.admission
+        if not ca.done_prefilling:
+            i = ca.next_chunk
+            chunk = ca.prompt[i * c: min((i + 1) * c, ca.p_len)]
+            tail = np.full((1, c), self.engine_cfg.pad_token_id, np.int64)
+            tail[0, :chunk.size] = chunk
+            pfx = i * c
+            tail_kv, ca._logits = gpt.prefill_extend(
+                self.cfg, self._params, self._chunk_scratch[:, :, :, :, :pfx],
+                torch.as_tensor(tail, device=dev),
+                torch.tensor([chunk.size - 1], dtype=torch.int64,
+                             device=dev),
+                prefix_len=pfx)
+            gpt.cache_insert_slot(self._chunk_scratch, tail_kv, 0, pos=pfx)
+            ca.next_chunk += 1
+            self.chunk_prefills += 1
+            return None
+        blk = gpt.quantize_cache_block(self.cfg, self._chunk_scratch)
+        if self._paged:
+            p_sz = self.engine_cfg.page_size
+            n_fin = -(-self.engine_cfg.max_prompt_len // p_sz)
+            gpt.cache_insert_pages(
+                self.cache, _pad_span(blk, n_fin * p_sz),
+                torch.as_tensor(self._tables[a.slot][None, :n_fin],
+                                device=dev), page_size=p_sz)
+        else:
+            gpt.cache_insert_slot(self.cache, blk, a.slot)
+        first, first_lp, hit_eos, done = self._start_slots(
+            [a], [ca.prompt], ca._logits,
+            torch.tensor([ca.p_len], dtype=torch.int64, device=dev))
+        self._chunked = None
+        return AdmitResult(
+            int(first[0]), bool(hit_eos[0]), bool(done[0]), bucket=c,
+            batch_size=1, group=0, logprob=float(first_lp[0]))
 
     def _hist_seed(self, prompt) -> np.ndarray:
         """The drafter ring's admission seed for one prompt: its last

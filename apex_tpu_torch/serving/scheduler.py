@@ -2,19 +2,33 @@
 
 Port of the FIFO core of ``apex_tpu/serving/scheduler.py``: a bounded
 FIFO queue, batched admission of queued requests into free slots
-(``Engine.admit_many``), one decode chunk per tick, deadline expiry,
-the per-request response stream (:class:`StreamEvent`), completions and
-the serving summary; with a paged engine the page backpressure (a
-request that can never fit the pool is rejected at submit, and while the
-pool is dry the queue head waits); with a speculative engine the payoff
-gate (:class:`SpecGateConfig`) that picks a plain or a speculative chunk
-per tick, and emission of only the real (``valid``) columns.
-Resilience, tenancy, the journal, the tuner, pipelining, SLOs, the
-flight recorder and telemetry are later slices of the port; requests
-carrying ``stop`` sequences, a schema ``constraint``, a tenant other
-than ``"default"`` or an adapter other than 0 are rejected at submit.
+(``Engine.admit_many``, at most ``max_admit_batch`` a call), a pipelined
+decode loop (``pipeline_depth``), deadline expiry, the per-request
+response stream (:class:`StreamEvent`), completions and the serving
+summary; with a paged engine the page backpressure (a request that can
+never fit the pool is rejected at submit, and while the pool is dry the
+queue head waits); with a speculative engine the payoff gate
+(:class:`SpecGateConfig`) that picks a plain or a speculative chunk per
+tick, and emission of only the real (``valid``) columns; with a prefix
+pool the submit-time prefix match (a hit admits through the pool,
+copy-on-write when paged); with chunked prefill one long prompt admitted
+a chunk a tick between the decode dispatches.
 
->>> sched = Scheduler(engine)
+The decode loop is pipelined: each tick dispatches the next chunk
+(``Engine.step_async``) before fetching the oldest in-flight one, so at
+depth d up to d - 1 chunks stay in flight between ticks and the host's
+fetch, unpacking and admissions overlap the device's decode. Each
+in-flight chunk carries a snapshot of the slots live at its dispatch; a
+slot released while the chunk was in flight has its columns dropped (the
+device emits pad for done slots, and a retired slot's tokens belong to a
+request already completed). Streams are the same at every depth.
+
+Resilience, tenancy, the journal, the tuner, SLOs, the flight recorder
+and telemetry are later slices of the port; requests carrying ``stop``
+sequences, a schema ``constraint``, a tenant other than ``"default"`` or
+an adapter other than 0 are rejected at submit.
+
+>>> sched = Scheduler(engine, pipeline_depth=2)
 >>> sched.submit(Request("r0", prompt, max_tokens=16))
 >>> sched.run_until_idle()
 >>> sched.completions["r0"].tokens
@@ -25,11 +39,16 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from apex_tpu_torch.serving.engine import Admission, Engine
+from apex_tpu_torch.serving.engine import (
+    Admission,
+    ChunkedAdmission,
+    Engine,
+    StepHandle,
+)
 from apex_tpu_torch.serving.pages import PagesExhausted
 from apex_tpu_torch.serving.request import (
     DEFAULT_TENANT,
@@ -205,18 +224,35 @@ class Scheduler:
     """Drive an :class:`Engine` over a stream of requests.
 
     ``clock`` is injectable (tests drive deadlines with a fake clock) and
-    must be monotonic. Each tick hands the queued requests that fit the
-    free slots (and, paged, the free pages: FIFO-strict, the first that
-    does not fit waits with everything behind it) to
-    ``Engine.admit_many``. ``spec_gate`` tunes the payoff gate of a
-    speculative engine (``EngineConfig.spec_k > 0``)."""
+    must be monotonic. Each tick: expire deadlines; hand the queued
+    requests that fit the free slots (and, paged, the free pages:
+    FIFO-strict, the first that does not fit waits with everything
+    behind it) to ``Engine.admit_many``, at most ``max_admit_batch`` a
+    call (None = all that fit; 1 = serial single admissions), a prompt
+    longer than ``prefill_chunk`` to the chunked path instead; run one
+    chunk of the chunked admission in progress; dispatch a decode chunk
+    if any slot is live; then fetch the oldest in-flight chunks until at
+    most ``pipeline_depth - 1`` remain (all of them when nothing was
+    dispatched). ``spec_gate`` tunes the payoff gate of a speculative
+    engine (``EngineConfig.spec_k > 0``)."""
 
     def __init__(self, engine: Engine, *, max_queue: int = 256,
                  clock: Callable[[], float] = time.monotonic,
+                 pipeline_depth: int = 1,
+                 max_admit_batch: Optional[int] = None,
                  spec_gate: Optional[SpecGateConfig] = None):
+        if pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth {pipeline_depth} must be >= 1 (1 = the "
+                f"serial loop)")
+        if max_admit_batch is not None and max_admit_batch < 1:
+            raise ValueError(
+                f"max_admit_batch {max_admit_batch} must be >= 1 or None")
         self.engine = engine
         self.max_queue = max_queue
         self.clock = clock
+        self.pipeline_depth = pipeline_depth
+        self.max_admit_batch = max_admit_batch
         self.queue: Deque[Request] = collections.deque()
         self.active: Dict[int, _Active] = {}
         self._free: List[int] = list(range(engine.slots))[::-1]
@@ -224,15 +260,35 @@ class Scheduler:
         self.completions: Dict[str, Completion] = {}
         self.ttft_stats = LatencyStats()
         self.token_latency_stats = LatencyStats()
+        #: chunks dispatched but not yet fetched, oldest first: (handle,
+        #: slot -> _Active snapshot at dispatch, dispatch time)
+        self._inflight: Deque[
+            Tuple[StepHandle, Dict[int, _Active], float]] = \
+            collections.deque()
         self._started: Optional[float] = None
         self._steps = 0
         self._tokens_emitted = 0
         self._decode_tokens = 0
         self._decode_time = 0.0
+        #: the end of the last fetched chunk's wall window: pipelined
+        #: chunks overlap, and decode time counts each second once
+        self._decode_mark = float("-inf")
         self._admitted_requests = 0
         self._admit_dispatches = 0
         self._pages_exhausted_waits = 0
         self._page_deferrals = 0
+        #: prefix-pool hits by request id, matched once at submit
+        self._prefix_hits: Dict[str, Tuple[int, int]] = {}
+        self._prefix_hit_count = 0
+        self._prefix_miss_count = 0
+        self._page_share_hits = 0
+        #: the chunked admission in progress, (progress, request); each
+        #: tick runs one of its forwards before the decode dispatch.
+        #: ``_chunked_fresh`` marks the tick that ran chunk 0
+        self._chunked: Optional[Tuple[ChunkedAdmission, Request]] = None
+        self._chunked_fresh = False
+        self._chunked_admissions = 0
+        self._chunked_chunks = 0
         #: the payoff gate (None unless the engine speculates)
         self._gate: Optional[_SpecGate] = None
         if engine.engine_cfg.spec_k > 0:
@@ -253,11 +309,15 @@ class Scheduler:
     def submit(self, request: Request) -> None:
         """Enqueue ``request``; raises :class:`QueueFull` at capacity and
         ``ValueError`` on an invalid request. A prompt that already ends
-        in the request's eos token completes here with no tokens."""
+        in the request's eos token completes here with no tokens. A
+        prompt that starts with a registered prefix is matched here and
+        admits through the pool."""
         rid = request.request_id
         if rid in self.completions or any(
                 a.request.request_id == rid for a in self.active.values()) \
-                or any(r.request_id == rid for r in self.queue):
+                or any(r.request_id == rid for r in self.queue) \
+                or (self._chunked is not None
+                    and self._chunked[1].request_id == rid):
             raise ValueError(f"duplicate request_id {rid!r}")
         if request.stop:
             raise ValueError("stop sequences are not supported by "
@@ -289,15 +349,6 @@ class Scheduler:
             raise ValueError(
                 f"eos_token_id {eos} outside vocab "
                 f"[0, {self.engine.cfg.vocab_size})")
-        if self.engine.paged:
-            # a request that could NEVER fit the pool would wait at the
-            # queue head forever: reject it here
-            needed = self._request_pages_needed(request)
-            if needed > self.engine.page_allocator.capacity:
-                raise ValueError(
-                    f"request needs {needed} pages but the pool only has "
-                    f"{self.engine.page_allocator.capacity}: raise "
-                    f"EngineConfig.num_pages or shrink the request")
         now = self.clock()
         request.arrival_time = now
         if eos is not None and prompt[-1] == eos:
@@ -306,32 +357,76 @@ class Scheduler:
             return
         if len(self.queue) >= self.max_queue:
             raise QueueFull(f"queue at capacity ({len(self.queue)})")
+        hit = (self.engine.match_prefix(prompt)
+               if self.engine.prefix_pool_enabled else None)
+        if self.engine.paged:
+            # a request that could NEVER fit the pool would wait at the
+            # queue head forever: reject it here. The need is the
+            # PRIVATE one: a hit's shared prefix pages are pinned, not
+            # allocated
+            needed = self.engine.pages_needed(
+                len(prompt), request.max_tokens, 0 if hit is None else hit[1])
+            if needed > self.engine.page_allocator.capacity:
+                raise ValueError(
+                    f"request needs {needed} pages but the pool only has "
+                    f"{self.engine.page_allocator.capacity}: raise "
+                    f"EngineConfig.num_pages or shrink the request")
+        if hit is not None:
+            self._prefix_hits[rid] = hit
+            self._prefix_hit_count += 1
+        elif self.engine.prefix_pool_enabled:
+            self._prefix_miss_count += 1
         self.queue.append(request)
+
+    def register_prefix(self, tokens) -> int:
+        """Register a shared prompt-prefix template into the engine's
+        pool (:meth:`Engine.register_prefix`); requests submitted after
+        it match it."""
+        return self.engine.register_prefix(tokens)
 
     # -- the loop ----------------------------------------------------------
 
     def step(self) -> None:
         """One tick: expire deadlines, admit queued requests into free
-        slots, then decode one chunk if any slot is live and unpack it."""
+        slots, run one chunk of the chunked admission in progress,
+        dispatch a decode chunk if any slot is live, then fetch and
+        unpack chunks down to ``pipeline_depth - 1`` in flight (all of
+        them when nothing was dispatched, so a tick always makes
+        progress). Admissions come first so a short prompt never queues
+        behind this tick's chunk forward."""
         now = self.clock()
         if self._started is None:
             self._started = now
         self._expire(now)
-        self._admit(now)
-        if self.active:
-            self._decode()
+        # the batched admissions first, the chunked start last: the wave
+        # of short prompts must not queue behind chunk 0's forward
+        self._admit_batches()
+        self._start_chunked()
+        self._advance_chunked()
+        dispatched = bool(self.active) and self._dispatch_chunk()
+        keep = self.pipeline_depth - 1 if dispatched else 0
+        while len(self._inflight) > keep:
+            self._collect_oldest()
         self._steps += 1
 
+    def drain(self) -> None:
+        """Fetch and unpack every in-flight chunk: afterwards ``events``
+        and ``completions`` reflect all dispatched work."""
+        while self._inflight:
+            self._collect_oldest()
+
     def run_until_idle(self, max_steps: int = 100_000) -> None:
-        """Step until the queue and the slots are empty."""
+        """Step until the queue, the slots, the pipeline and any chunked
+        admission are empty."""
         steps = 0
-        while self.queue or self.active:
+        while not self.idle():
             self.step()
             steps += 1
             if steps > max_steps:
                 raise RuntimeError(
                     f"not idle after {max_steps} steps — live slots "
-                    f"{sorted(self.active)}, queue {len(self.queue)}")
+                    f"{sorted(self.active)}, queue {len(self.queue)}, "
+                    f"{len(self._inflight)} chunks in flight")
 
     def pop_events(self) -> List[StreamEvent]:
         """Drain the response stream."""
@@ -339,7 +434,8 @@ class Scheduler:
         return out
 
     def idle(self) -> bool:
-        return not (self.queue or self.active)
+        return not (self.queue or self.active or self._inflight
+                    or self._chunked is not None)
 
     # -- internals ---------------------------------------------------------
 
@@ -362,72 +458,199 @@ class Scheduler:
                     act.request.request_id, None, True, FINISH_TIMEOUT))
                 self._release(slot, FINISH_TIMEOUT, now)
 
-    def _request_pages_needed(self, r: Request) -> int:
-        return self.engine.pages_needed(len(r.prompt), r.max_tokens)
+    def _admission_of(self, r: Request, slot: int) -> Admission:
+        """One :class:`Admission` row from a request (shared by the
+        batched, prefix-hit and chunked paths)."""
+        hit = self._prefix_hits.get(r.request_id)
+        return Admission(
+            slot=slot, prompt=r.prompt, max_tokens=r.max_tokens,
+            temperature=r.sampling.temperature, top_k=r.sampling.top_k,
+            top_p=r.sampling.top_p, seed=r.sampling.seed,
+            eos_token_id=r.eos_token_id,
+            prefix_page=None if hit is None else hit[0],
+            prefix_len=0 if hit is None else hit[1])
 
-    def _admit(self, now: float) -> None:
-        if not self.queue or not self._free:
+    def _request_pages_needed(self, r: Request) -> int:
+        """One queued request's PRIVATE page need (copy-on-write prefix
+        pages pin, they do not allocate), as submit priced it."""
+        hit = self._prefix_hits.get(r.request_id)
+        return self.engine.pages_needed(
+            len(r.prompt), r.max_tokens, 0 if hit is None else hit[1])
+
+    def _chunked_only(self, r: Request) -> bool:
+        """A prompt the chunked path admits (longer than one chunk, no
+        prefix hit: a hit already skips the long forward)."""
+        return (self.engine.chunked_for(len(r.prompt))
+                and r.request_id not in self._prefix_hits)
+
+    def _chunked_head_pending(self) -> bool:
+        """A chunked-path request heads the queue with none in progress:
+        the batched path keeps one slot free for it (short prompts admit
+        first within a tick, but must not starve the long one)."""
+        return (self._chunked is None and bool(self.queue)
+                and self._chunked_only(self.queue[0]))
+
+    def _pop_eligible(self, n: int) -> List[Request]:
+        """Pop up to ``n`` queued requests the batched path admits, in
+        FIFO order, leaving the chunked-path ones in place."""
+        picked, kept = [], collections.deque()
+        for r in self.queue:
+            if len(picked) < n and not self._chunked_only(r):
+                picked.append(r)
+            else:
+                kept.append(r)
+        self.queue = kept
+        return picked
+
+    def _admit_batches(self) -> None:
+        while self.queue:
+            reserve = 1 if self._chunked_head_pending() else 0
+            if len(self._free) <= reserve:
+                return
+            n = min(len(self._free) - reserve, len(self.queue))
+            if self.max_admit_batch is not None:
+                n = min(n, self.max_admit_batch)
+            reqs = self._pop_eligible(n)
+            if not reqs:
+                return              # only chunked-path requests queued
+            if self.engine.paged:
+                # page backpressure, FIFO-strict: admit the prefix of the
+                # wave the free pages cover; the first request that does
+                # not fit waits at the head with everything behind it
+                free_p = self.engine.page_allocator.free_pages
+                needed, cut = 0, len(reqs)
+                for idx, r in enumerate(reqs):
+                    need = self._request_pages_needed(r)
+                    if needed + need > free_p:
+                        cut = idx
+                        break
+                    needed += need
+                if cut < len(reqs):
+                    self.queue.extendleft(reversed(reqs[cut:]))
+                    reqs = reqs[:cut]
+                    self._page_deferrals += 1
+                    if not reqs:
+                        self._pages_exhausted_waits += 1
+                        return
+            slots = [self._free.pop() for _ in range(len(reqs))]
+            try:
+                results = self.engine.admit_many([
+                    self._admission_of(r, slot)
+                    for r, slot in zip(reqs, slots)])
+            except PagesExhausted:
+                # the pool could not cover the wave after all: requeue
+                self._free.extend(reversed(slots))
+                self.queue.extendleft(reversed(reqs))
+                self._pages_exhausted_waits += 1
+                return
+            t_first = self.clock()
+            self._admitted_requests += len(reqs)
+            self._admit_dispatches += results[-1].group + 1
+            for r, slot, res in zip(reqs, slots, results):
+                if r.request_id in self._prefix_hits and self.engine.paged:
+                    # the hit mapped the prefix's pages copy-on-write
+                    self._page_share_hits += 1
+                self._activate(slot, r, res, t_first)
+
+    def _activate(self, slot: int, r: Request, res, t_first: float) -> None:
+        """The request occupies ``slot`` from its first token on."""
+        act = _Active(r)
+        act.first_token_time = t_first
+        self.active[slot] = act
+        self.ttft_stats.add(t_first - r.arrival_time)
+        reason = None
+        if res.finished:
+            reason = FINISH_EOS if res.hit_eos else FINISH_LENGTH
+        self._emit(slot, act, res.first_token, res.logprob,
+                   finished=res.finished, reason=reason, now=t_first)
+
+    def _start_chunked(self) -> None:
+        """Begin a chunked admission for the queue head when it takes
+        the chunked path, none is in progress, and a slot and the pages
+        are free."""
+        if (self._chunked is not None
+                or not self.engine.chunked_prefill_enabled
+                or not self._free or not self.queue):
             return
-        n = min(len(self._free), len(self.queue))
-        reqs = [self.queue.popleft() for _ in range(n)]
-        if self.engine.paged:
-            # page backpressure, FIFO-strict: admit the prefix of the
-            # wave the free pages cover; the first request that does not
-            # fit waits at the head with everything behind it
-            free_p = self.engine.page_allocator.free_pages
-            needed, cut = 0, len(reqs)
-            for idx, r in enumerate(reqs):
-                need = self._request_pages_needed(r)
-                if needed + need > free_p:
-                    cut = idx
-                    break
-                needed += need
-            if cut < len(reqs):
-                self.queue.extendleft(reversed(reqs[cut:]))
-                reqs = reqs[:cut]
-                self._page_deferrals += 1
-                if not reqs:
-                    self._pages_exhausted_waits += 1
-                    return
-        slots = [self._free.pop() for _ in range(len(reqs))]
-        try:
-            results = self.engine.admit_many([
-                Admission(slot=slot, prompt=r.prompt, max_tokens=r.max_tokens,
-                          temperature=r.sampling.temperature,
-                          top_k=r.sampling.top_k, top_p=r.sampling.top_p,
-                          seed=r.sampling.seed, eos_token_id=r.eos_token_id)
-                for r, slot in zip(reqs, slots)])
-        except PagesExhausted:
-            # the pool could not cover the wave after all: requeue, wait
-            self._free.extend(reversed(slots))
-            self.queue.extendleft(reversed(reqs))
+        r = self.queue[0]
+        if not self._chunked_only(r):
+            return
+        if not self.engine.can_admit_pages(len(r.prompt), r.max_tokens):
             self._pages_exhausted_waits += 1
             return
-        t_first = self.clock()
-        self._admitted_requests += len(reqs)
-        self._admit_dispatches += results[-1].group + 1
-        for r, slot, res in zip(reqs, slots, results):
-            act = _Active(r)
-            act.first_token_time = t_first
-            self.active[slot] = act
-            self.ttft_stats.add(t_first - r.arrival_time)
-            reason = None
-            if res.finished:
-                reason = FINISH_EOS if res.hit_eos else FINISH_LENGTH
-            self._emit(slot, act, res.first_token, res.logprob,
-                       finished=res.finished, reason=reason, now=t_first)
+        self.queue.popleft()
+        slot = self._free.pop()
+        try:
+            ca = self.engine.admit_chunked_start(self._admission_of(r, slot))
+        except PagesExhausted:
+            self._free.append(slot)
+            self.queue.appendleft(r)
+            self._pages_exhausted_waits += 1
+            return
+        self._chunked = (ca, r)
+        self._chunked_fresh = True
+        self._chunked_chunks += 1
+
+    def _advance_chunked(self) -> None:
+        """One forward of the chunked admission in progress (the next
+        extend, or the finish); not in the tick that ran chunk 0. The
+        decode dispatch follows in the same tick, so chunks and decode
+        chunks alternate."""
+        if self._chunked is None:
+            return
+        if self._chunked_fresh:
+            self._chunked_fresh = False
+            return
+        ca, r = self._chunked
+        res = self.engine.admit_chunked_step(ca)
+        if res is None:
+            self._chunked_chunks += 1
+            return
+        self._chunked = None
+        self._chunked_admissions += 1
+        self._admitted_requests += 1
+        self._admit_dispatches += 1
+        self._activate(ca.slot, r, res, self.clock())
 
     def _use_spec(self) -> bool:
-        """The kind of the next chunk: the payoff gate's choice."""
+        """The kind of the next chunk: the payoff gate's choice (at most
+        one speculative probe in flight while it measures)."""
         g = self._gate
         if g is None:
             return False
-        spec = g.want_spec()
+        spec = g.want_spec(sum(1 for h, _, _ in self._inflight if h.spec))
         if spec:
             self._gate_spec_decisions += 1
         else:
             self._gate_plain_decisions += 1
         return spec
+
+    def _dispatchable(self) -> bool:
+        """Whether another chunk can emit a real token: some live slot
+        has budget beyond the columns already in flight for it (each
+        in-flight chunk priced at its ``ncols``). Without this a deep
+        pipeline dispatches an all-pad chunk at every wave of finishes."""
+        if not self._inflight:
+            return True
+        cols: Dict[int, int] = {}
+        for handle, snapshot, _ in self._inflight:
+            for slot, act in snapshot.items():
+                if self.active.get(slot) is act:
+                    cols[slot] = cols.get(slot, 0) + handle.ncols
+        return any(len(act.tokens) + cols.get(slot, 0)
+                   < act.request.max_tokens
+                   for slot, act in self.active.items())
+
+    def _dispatch_chunk(self) -> bool:
+        """Dispatch the next decode chunk if it can pay for itself; True
+        when one went out. Nothing here waits for the device."""
+        if not self._dispatchable():
+            return False
+        spec = self._use_spec()
+        t0 = self.clock()
+        handle = self.engine.step_async(spec=spec)
+        self._inflight.append((handle, dict(self.active), t0))
+        return True
 
     def _observe(self, handle, wall: float, live_rows: List[int]) -> None:
         """Per-chunk speculation accounting and the gate's samples:
@@ -452,15 +675,17 @@ class Scheduler:
         if g is not None:
             g.observe_spec(wall, tpw)
 
-    def _decode(self) -> None:
-        spec = self._use_spec()
-        t0 = self.clock()
-        snapshot = dict(self.active)
-        handle = self.engine.step_async(spec=spec)
+    def _collect_oldest(self) -> None:
+        """Fetch the oldest in-flight chunk and emit its columns for the
+        slots still held by the requests they were dispatched for."""
+        handle, snapshot, t_dispatch = self._inflight.popleft()
         tokens, logprobs, finished = handle.fetch()
         now = self.clock()
-        wall = now - t0
+        # at depth d the dispatch-to-fetch wall waits behind the d - 1
+        # chunks ahead: the gate's sample is the chunk's share
+        wall = max(now - max(self._decode_mark, t_dispatch), 0.0)
         self._decode_time += wall
+        self._decode_mark = now
         live_rows = [s for s, a in snapshot.items()
                      if self.active.get(s) is a]
         self._observe(handle, wall, live_rows)
@@ -475,7 +700,7 @@ class Scheduler:
             per_tok = wall / max(float(mean_emitted), 1.0)
         for j in range(n_cols):
             for slot, act in snapshot.items():
-                # a slot released at an earlier column emits pad after it
+                # a slot released since dispatch emits nothing more here
                 if self.active.get(slot) is not act:
                     continue
                 if valid is not None and not valid[slot, j]:
@@ -514,6 +739,7 @@ class Scheduler:
     def _complete(self, request: Request, tokens: List[int],
                   logprobs: List[float], reason: str, *,
                   ttft: Optional[float], now: float) -> None:
+        self._prefix_hits.pop(request.request_id, None)
         arrival = (request.arrival_time if request.arrival_time is not None
                    else now)
         self.completions[request.request_id] = Completion(
@@ -527,21 +753,29 @@ class Scheduler:
         ``tokens_per_sec`` (all emitted tokens over the wall time since
         the first tick), ``decode_tokens_per_sec`` (decode-chunk tokens
         over the time spent in decode chunks — admission, the TTFT side,
-        excluded), and ``ttft_*`` / ``token_latency_*`` in ms. A paged
-        engine adds the pool's occupancy, ``pages_exhausted_waits`` (ticks
+        excluded; overlapping pipelined chunks counted once),
+        ``ttft_*`` / ``token_latency_*`` in ms, ``pipeline_depth``, and
+        ``prefix_hits`` / ``prefix_misses`` (submit-time pool matches). A
+        paged engine adds the pool's occupancy, ``page_share_hits``
+        (hits admitted copy-on-write), ``pages_exhausted_waits`` (ticks
         the queue head waited for pages) and ``page_deferrals`` (ticks in
         which requests stayed queued beside free slots for want of pages,
-        those waits included); a speculative one the
-        chunk and wave counts, ``spec_tokens_per_wave``, the acceptance
-        rate, the gate's state and its decisions."""
+        those waits included); a chunked-prefill engine
+        ``chunked_admissions`` and ``chunked_chunks`` (its prefill
+        forwards, chunk 0 included); a speculative one the chunk and wave
+        counts, ``spec_tokens_per_wave``, the acceptance rate, the gate's
+        state and its decisions."""
         out = {
             "requests_completed": float(len(self.completions)),
             "tokens_emitted": float(self._tokens_emitted),
             "steps": float(self._steps),
             "admitted_requests": float(self._admitted_requests),
             "admit_dispatches": float(self._admit_dispatches),
+            "pipeline_depth": float(self.pipeline_depth),
             "decode_steps": float(self.engine.decode_steps_taken),
             "cache_bytes": float(self.engine.cache_bytes()),
+            "prefix_hits": float(self._prefix_hit_count),
+            "prefix_misses": float(self._prefix_miss_count),
         }
         if self._started is not None:
             elapsed = max(self.clock() - self._started, 1e-9)
@@ -557,8 +791,12 @@ class Scheduler:
             out["pages_in_use"] = ps["pages_in_use"]
             out["pages_shared"] = ps["pages_shared"]
             out["page_fragmentation"] = ps["fragmentation"]
+            out["page_share_hits"] = float(self._page_share_hits)
             out["pages_exhausted_waits"] = float(self._pages_exhausted_waits)
             out["page_deferrals"] = float(self._page_deferrals)
+        if self.engine.chunked_prefill_enabled:
+            out["chunked_admissions"] = float(self._chunked_admissions)
+            out["chunked_chunks"] = float(self._chunked_chunks)
         g = self._gate
         if g is not None:
             out["spec_chunks"] = float(self._spec_chunks)

@@ -146,6 +146,32 @@ model, right after phase 6 (numbered after the slices that came before):
     on every layer of every wave, no stand-alone multi-column write, and
     no single-column read, fused or not, anywhere.
 
+Prefix reuse and long prompts run next, on the same serving model
+(numbered after the slices that came before):
+
+36. prefix pool, copy-on-write, chunked prefill, pipelining — bench's
+    prefix A/B (prompts <= 128, horizon 144, chunks of 8, a 64-token
+    template with tails of 1-8 tokens, 32 requests of 8 tokens, at
+    ``pipeline_depth=2, max_admit_batch=1``): a pool of one template
+    against cold prefill, in alternating rounds, the hit and cold TTFT
+    and the median of the per-round ratios, 32 hits (a tail extend each,
+    no flash prefill) against 32 cold admissions (row 5 on every layer),
+    reruns identical, the hit streams within the reference band and any
+    hit/cold divergence at a top-2 gap within it; copy-on-write at pages
+    of 8 (two waves, each bit-identical to the pooled hits,
+    ``page_share_hits == prefix_hits``, the pinned prefix pages
+    bit-unchanged by the paged decode launches, only they in use after
+    the drain), the same with ``spec_k=3`` (the paged verify launch on
+    every layer of every wave, the pinned pages unchanged) and with an
+    int8 cache (pooled == copy-on-write); bench's chunked A/B (one
+    256-token prompt in chunks of 64 ahead of 7 short ones, horizon 288):
+    the shorts' TTFT inflation over a shorts-only run, monolithic against
+    chunked, ``chunked_admissions`` 1 and ``chunked_chunks`` 4, row 5 for
+    every cold group and chunk 0; phase 5's trace at depth 1 and 2:
+    identical streams, the host ms a decode step on each side. Every
+    decode path launches its fused entries and no stand-alone
+    single-column write or read.
+
 The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
 value beside an fp32 scale per head row and column) runs next, on the
 same serving model:
@@ -1933,6 +1959,416 @@ def phase_paged_spec(cfg, params):
         f"{res['paged'][2]:.2f}s / {res['paged'][3]} waves, contiguous "
         f"{res['contig'][2]:.2f}s / {res['contig'][3]} waves")
     return res["paged"][1]
+
+
+# ---------------------------------------------------------------------------
+# phase 36: prefix reuse and long prompts — the shared-prefix pool (with
+# copy-on-write pages), chunked prefill and the pipelined scheduler
+# ---------------------------------------------------------------------------
+
+#: bench.py serve()'s prefix A/B geometry: prompts <= 128 (twice phase 5's),
+#: horizon 144, chunks of 8; a 64-token template with tails of 1-8 tokens
+PREFIX_GEOM = dict(slots=SLOTS, max_prompt_len=128, max_seq_len=144,
+                   decode_chunk=8)
+PREFIX_LEN = 64
+#: bench.py serve()'s chunked A/B geometry: one 256-token prompt admitted
+#: in chunks of 64 ahead of 7 short ones
+CHUNK_GEOM = dict(slots=SLOTS, max_prompt_len=256, max_seq_len=288,
+                  decode_chunk=8)
+PREFILL_CHUNK = 64
+#: bench's scheduler for both A/Bs (admissions one at a time, so TTFT is
+#: one admission's latency) and its rounds, the sides' order alternating
+AB_SCHED = dict(pipeline_depth=2, max_admit_batch=1)
+AB_ROUNDS = 3
+
+
+def prefix_template(vocab: int):
+    """bench.py serve()'s shared template: 64 tokens, numpy seed 900."""
+    return np.random.default_rng(900).integers(0, vocab, PREFIX_LEN).tolist()
+
+
+def prefix_trace(vocab: int, n: int = 32):
+    """bench.py serve()'s prefix trace: the template and a tail of ``1 + i
+    % 8`` tokens (numpy seed ``910 + i``), 8 tokens each, odd requests
+    sampled at temperature 0.9 with top-k 40 and seed ``i``."""
+    from apex_tpu_torch.serving import Request, SamplingParams
+
+    template = prefix_template(vocab)
+    reqs = []
+    for i in range(n):
+        tail = np.random.default_rng(910 + i).integers(
+            0, vocab, 1 + i % 8).tolist()
+        sp = (SamplingParams(temperature=0.9, top_k=40, seed=i) if i % 2
+              else SamplingParams())
+        reqs.append(Request(f"p{i}", template + tail, max_tokens=8,
+                            sampling=sp))
+    return reqs
+
+
+def chunk_trace(vocab: int, with_long: bool):
+    """bench.py serve()'s chunked trace: a 256-token greedy prompt (numpy
+    seed 600) first when ``with_long``, then 7 short ones of ``1 + i % 8``
+    tokens (seed ``610 + i``), 8 tokens each, odd ones sampled."""
+    from apex_tpu_torch.serving import Request, SamplingParams
+
+    reqs = []
+    if with_long:
+        reqs.append(Request("long", np.random.default_rng(600).integers(
+            0, vocab, CHUNK_GEOM["max_prompt_len"]).tolist(), max_tokens=8))
+    for i in range(SLOTS - 1):
+        prompt = np.random.default_rng(610 + i).integers(
+            0, vocab, 1 + i % 8).tolist()
+        sp = (SamplingParams(temperature=0.9, top_k=40, seed=i) if i % 2
+              else SamplingParams())
+        reqs.append(Request(f"c{i}", prompt, max_tokens=8, sampling=sp))
+    return reqs
+
+
+#: the engine's counters a run's deltas are read from
+ENGINE_COUNTERS = ("decode_steps_taken", "spec_waves_taken", "admit_groups",
+                   "prefix_admits", "chunk_prefills")
+
+
+def serve_counted(engine, reqs, **sched_kw):
+    """Serve ``reqs`` (all at t=0) through a new ``Scheduler(engine,
+    **sched_kw)`` with the launch counts zeroed just before and read just
+    after: returns the scheduler, the wall time, the counts, the engine
+    counters' deltas and the streams."""
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Scheduler
+
+    sched = Scheduler(engine, **sched_kw)
+    before = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    delta = {k: getattr(engine, k) - v for k, v in before.items()}
+    check(len(sched.completions) == len(reqs)
+          and all(len(sched.completions[r.request_id].tokens)
+                  == r.max_tokens for r in reqs),
+          f"{sched_kw}: not every request completed in full")
+    return (sched, wall, counts, delta,
+            {k: c.tokens for k, c in sched.completions.items()})
+
+
+
+def check_prefills(what, counts, delta, L, chunk0: int = 0) -> None:
+    """Row 5 (flash, on its tensor-core kernel) on every layer of every
+    cold admission group and every chunk 0, and nowhere else: a prefix
+    hit's extend and the later chunks run the materialised scores."""
+    want = L * (delta["admit_groups"] + chunk0)
+    check(counts["flash_attention_bsh"] == want,
+          f"{what}: flash_attention_bsh launched "
+          f"{counts['flash_attention_bsh']} times, expected {L} x "
+          f"({delta['admit_groups']} groups + {chunk0} chunk 0s)")
+    check_tc(what, counts, "flash_attention_bsh")
+
+
+def _pinned(engine):
+    """Both planes of every cache page a registered prefix pins."""
+    pages = [p for ps in engine._prefix_pages.values() for p in ps]
+    return {k: v[:, :, pages].clone() for k, v in (
+        engine.cache.items() if isinstance(engine.cache, dict)
+        else (("kv", engine.cache),))}
+
+
+def _check_shared(what, engine, before) -> None:
+    """The pinned prefix pages bit-unchanged, only they in use after the
+    drain, none shared."""
+    after = _pinned(engine)
+    check(all(torch.equal(_bits(after[k]), _bits(before[k]))
+              for k in before), f"{what}: a shared prefix page was written")
+    ps = engine.page_stats()
+    n = sum(len(p) for p in engine._prefix_pages.values())
+    check(ps["pages_in_use"] == n and ps["pages_shared"] == 0,
+          f"{what}: {ps['pages_in_use']} pages in use / "
+          f"{ps['pages_shared']} shared after the drain, expected the "
+          f"{n} pinned / 0")
+
+
+def phase_prefix_chunked(cfg, params, band: float, card: str):
+    """bench's two admission A/Bs on the serving model, and the pipelined
+    scheduler against the serial one. Returns the launch counts of rows 5,
+    10, 17 and 15v summed over the phase's runs, and the numbers; each
+    line of numbers names ``card`` (its name and power limit).
+
+    (a) the prefix A/B, contiguous, at ``pipeline_depth=2,
+    max_admit_batch=1``: a pool of one template against cold prefill, the
+    sides alternating over AB_ROUNDS rounds: TTFT means, the median of the
+    per-round cold / hit ratios, hits and misses; the hit side launches no
+    flash prefill and 32 extends, the cold side row 5 on every layer of
+    its 32 admissions; reruns identical; every hit stream within the
+    reference band; hit vs cold drift (flash against the materialised
+    scores) with each first divergence's gap at most ``band``.
+    (b) copy-on-write at pages of 8: two waves of the trace, each stream
+    bit-identical to (a)'s pooled hits, ``page_share_hits ==
+    prefix_hits``, the pinned prefix pages bit-unchanged by the paged
+    decode launches, only they in use after the drain; then with
+    ``spec_k=3`` (every chunk after the first plain one speculative: the
+    paged verify launch writes through the table too); then int8, pooled
+    and copy-on-write: identical, the pinned int8 pages unchanged.
+    (c) the chunked A/B: the shorts' TTFT inflation over a shorts-only
+    baseline, monolithic against ``prefill_chunk=64``, the sides
+    alternating; ``chunked_admissions`` 1 and ``chunked_chunks`` 4; row 5
+    for each cold group and chunk 0; mono vs chunked drift with each gap
+    at most ``band``.
+    (d) phase 5's trace at depth 1 and depth 2: identical streams, the
+    host ms a decode step on each side."""
+    import dataclasses
+
+    from apex_tpu_torch.serving import Engine, EngineConfig, SpecGateConfig
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    out = {}
+    launches = dict(flash_attention_bsh=0, decode_attention_write=0,
+                    paged_attention_write=0, paged_verify_attention=0)
+
+    def tally(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # (a) the prefix A/B
+    template = prefix_template(V)
+    hit_eng = Engine(cfg, params, EngineConfig(**PREFIX_GEOM,
+                                               prefix_pool_slots=1))
+    check(hit_eng.register_prefix(template) == 0
+          and hit_eng.prefix_splits[-1] == PREFIX_LEN,
+          f"prefix: the template pooled at {hit_eng.prefix_splits}")
+    cold_eng = Engine(cfg, params, EngineConfig(**PREFIX_GEOM))
+    sides = (("hit", hit_eng), ("cold", cold_eng))
+    streams, ttft, ratios, runs = {}, {"hit": [], "cold": []}, [], {}
+    comps = {}
+    for rnd in range(AB_ROUNDS):
+        per = {}
+        for name, eng in (sides if rnd % 2 == 0 else sides[::-1]):
+            sched, wall, counts, delta, toks = serve_counted(
+                eng, prefix_trace(V), **AB_SCHED)
+            s = sched.summary()
+            per[name] = s["ttft_mean_ms"]
+            ttft[name].append(s["ttft_mean_ms"])
+            if name in streams:
+                check(toks == streams[name], f"prefix {name}: a rerun's "
+                      f"streams differ")
+                continue
+            streams[name], comps[name] = toks, sched.completions
+            tally(counts)
+            check_decode_step_kernels(f"prefix {name}", counts,
+                                      ("decode_attention_write",),
+                                      delta["decode_steps_taken"], L)
+            check_prefills(f"prefix {name}", counts, delta, L)
+            hits = 32 if name == "hit" else 0
+            check(s["prefix_hits"] == hits and delta["prefix_admits"] == hits
+                  and delta["admit_groups"] == 32 - hits
+                  and s["prefix_misses"] == 0,
+                  f"prefix {name}: {s['prefix_hits']} hits, "
+                  f"{s['prefix_misses']} misses, {delta}")
+            runs[name] = dict(wall_s=wall, ttft_mean_ms=s["ttft_mean_ms"],
+                              ttft_p99_ms=s["ttft_p99_ms"],
+                              decode_tokens_per_sec=s[
+                                  "decode_tokens_per_sec"],
+                              prefix_hits=s["prefix_hits"],
+                              prefix_misses=s["prefix_misses"], **delta)
+        ratios.append(per["cold"] / per["hit"])
+    worst_lp, worst_gap = hold_streams(cfg, params, prefix_trace(V),
+                                       comps["hit"])
+    check(worst_lp <= band and worst_gap <= band,
+          f"prefix hit: streams off the reference by {worst_lp} / "
+          f"{worst_gap} (band {band})")
+    gaps = _drift_gaps(cfg, params, prefix_trace(V), streams["hit"],
+                       streams["cold"])
+    check(all(g <= band for _, _, g in gaps),
+          f"prefix: hit vs cold diverge past the band {band}: {gaps}")
+    out["prefix_ab"] = dict(
+        split=PREFIX_LEN, cold_bucket=cold_eng.bucket_for(PREFIX_LEN + 1),
+        tail_bucket=hit_eng.bucket_for(8), runs=runs,
+        ttft_mean_ms=ttft, ttft_speedup=statistics.median(ratios),
+        round_ratios=ratios, pool_bytes=hit_eng.pool_bytes(),
+        max_logprob_err=worst_lp, greedy_gap=worst_gap, drift=len(gaps),
+        first_divergence_gaps=gaps)
+    log(f"prefix A/B ({card}): " + json.dumps(out["prefix_ab"]))
+    pooled = streams["hit"]
+    del hit_eng, cold_eng
+
+    # (b) copy-on-write, then with speculation, then int8
+    cow = {}
+    paged_cfg = EngineConfig(**PREFIX_GEOM, prefix_pool_slots=1,
+                             page_size=PAGE)
+    eng = Engine(cfg, params, paged_cfg)
+    eng.register_prefix(template)
+    before = _pinned(eng)
+    for wave in (1, 2):
+        sched, wall, counts, delta, toks = serve_counted(
+            eng, prefix_trace(V), **AB_SCHED)
+        s = sched.summary()
+        tally(counts)
+        check(toks == pooled, f"cow wave {wave}: streams differ from the "
+              f"pooled hits' for {[r for r in toks if toks[r] != pooled[r]]}")
+        check(s["page_share_hits"] == s["prefix_hits"] == 32,
+              f"cow wave {wave}: {s['page_share_hits']} shared of "
+              f"{s['prefix_hits']} hits")
+        check_decode_step_kernels(f"cow wave {wave}", counts,
+                                  ("paged_attention_write",),
+                                  delta["decode_steps_taken"], L)
+        check_prefills(f"cow wave {wave}", counts, delta, L)
+        _check_shared(f"cow wave {wave}", eng, before)
+        cow[f"wave{wave}"] = dict(wall_s=wall,
+                                  ttft_mean_ms=s["ttft_mean_ms"],
+                                  page_share_hits=s["page_share_hits"],
+                                  pages_in_use=s["pages_in_use"], **delta)
+    del eng
+    eng = Engine(cfg, params, dataclasses.replace(
+        paged_cfg, decode_chunk=4, spec_k=SPEC_K))
+    eng.register_prefix(template)
+    before = _pinned(eng)
+    sched, wall, counts, delta, toks = serve_counted(
+        eng, prefix_trace(V), spec_gate=SpecGateConfig(
+            min_probe_chunks=1 << 30), **AB_SCHED)
+    tally(counts)
+    waves = delta["spec_waves_taken"]
+    check(counts["paged_verify_attention"] == L * waves > 0
+          and counts["paged_write_columns"] == 0
+          and counts["decode_verify_attention"] == 0,
+          f"cow spec: paged_verify_attention launched "
+          f"{counts['paged_verify_attention']} times, expected {L} x "
+          f"{waves} waves")
+    check_decode_step_kernels("cow spec", counts, ("paged_attention_write",),
+                              delta["decode_steps_taken"], L,
+                              allow_no_steps=True)
+    _check_shared("cow spec", eng, before)
+    spec_gaps = _drift_gaps(cfg, params, prefix_trace(V), toks, pooled)
+    cow["spec"] = dict(wall_s=wall, verify_waves=waves,
+                       drift=len(spec_gaps),
+                       first_divergence_gaps=spec_gaps, **delta)
+    del eng
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    q_streams = {}
+    for name, ecfg in (("pooled", dataclasses.replace(paged_cfg,
+                                                      page_size=0)),
+                       ("cow", paged_cfg)):
+        eng = Engine(cfg8, params, ecfg)
+        eng.register_prefix(template)
+        before = _pinned(eng) if eng.paged else None
+        sched, wall, counts, delta, toks = serve_counted(
+            eng, prefix_trace(V), **AB_SCHED)
+        on = (("paged_write_column_quant", "paged_attention_quant")
+              if eng.paged else
+              ("decode_write_column_quant", "decode_attention_quant"))
+        _check_quant_counts(f"int8 {name}", counts, on,
+                            delta["decode_steps_taken"], L)
+        if eng.paged:
+            _check_shared("int8 cow", eng, before)
+            check(sched.summary()["page_share_hits"] == 32,
+                  "int8 cow: not every hit shared the prefix pages")
+        q_streams[name] = toks
+        del eng
+    check(q_streams["cow"] == q_streams["pooled"],
+          "int8: copy-on-write streams differ from the pooled hits'")
+    q_gaps = _drift_gaps(cfg, params, prefix_trace(V), q_streams["cow"],
+                         pooled)
+    cow["int8"] = dict(drift_vs_compute=len(q_gaps),
+                       first_divergence_gaps=q_gaps)
+    out["cow"] = cow
+    log(f"copy-on-write ({card}): " + json.dumps(cow))
+
+    # (c) the chunked A/B
+    mono = Engine(cfg, params, EngineConfig(**CHUNK_GEOM))
+    chunked = Engine(cfg, params, EngineConfig(
+        **CHUNK_GEOM, prefill_chunk=PREFILL_CHUNK))
+    sides = (("mono", mono), ("chunked", chunked))
+    streams, comps, runs = {}, {}, {}
+    infl = {"mono": [], "chunked": []}
+    short_ms = {"base": [], "mono": [], "chunked": []}
+
+    def shorts_ms(sched):
+        return 1e3 * statistics.mean(
+            c.ttft for rid, c in sched.completions.items() if rid != "long")
+
+    for rnd in range(AB_ROUNDS):
+        sched, *_ = serve_counted(mono, chunk_trace(V, False), **AB_SCHED)
+        base = shorts_ms(sched)
+        short_ms["base"].append(base)
+        for name, eng in (sides if rnd % 2 == 0 else sides[::-1]):
+            sched, wall, counts, delta, toks = serve_counted(
+                eng, chunk_trace(V, True), **AB_SCHED)
+            ms = shorts_ms(sched)
+            short_ms[name].append(ms)
+            infl[name].append(ms / base)
+            if name in streams:
+                check(toks == streams[name], f"chunked {name}: a rerun's "
+                      f"streams differ")
+                continue
+            streams[name], comps[name] = toks, sched.completions
+            tally(counts)
+            s = sched.summary()
+            check_decode_step_kernels(f"chunked {name}", counts,
+                                      ("decode_attention_write",),
+                                      delta["decode_steps_taken"], L)
+            if name == "chunked":
+                check(s["chunked_admissions"] == 1
+                      and s["chunked_chunks"] == 4
+                      and delta["chunk_prefills"] == 4,
+                      f"chunked: {s['chunked_admissions']} admissions, "
+                      f"{s['chunked_chunks']} chunks, {delta}")
+            check_prefills(f"chunked {name}", counts, delta, L,
+                           chunk0=1 if name == "chunked" else 0)
+            runs[name] = dict(wall_s=wall, long_ttft_ms=1e3 * sched.
+                              completions["long"].ttft, **delta)
+    worst_lp, worst_gap = hold_streams(cfg, params, chunk_trace(V, True),
+                                       comps["chunked"])
+    check(worst_lp <= band and worst_gap <= band,
+          f"chunked: streams off the reference by {worst_lp} / {worst_gap} "
+          f"(band {band})")
+    gaps = _drift_gaps(cfg, params, chunk_trace(V, True),
+                       streams["chunked"], streams["mono"])
+    check(all(g <= band for _, _, g in gaps),
+          f"chunked: mono vs chunked diverge past the band {band}: {gaps}")
+    out["chunked_ab"] = dict(
+        long_prompt=CHUNK_GEOM["max_prompt_len"],
+        prefill_chunk=PREFILL_CHUNK, short_ttft_ms=short_ms,
+        ttft_inflation_mono=statistics.median(infl["mono"]),
+        ttft_inflation_chunked=statistics.median(infl["chunked"]),
+        inflation_rounds=infl, runs=runs, max_logprob_err=worst_lp,
+        greedy_gap=worst_gap, drift=len(gaps), first_divergence_gaps=gaps)
+    log(f"chunked A/B ({card}): " + json.dumps(out["chunked_ab"]))
+    del mono, chunked, sides
+
+    # (d) depth 1 against depth 2 on phase 5's trace
+    eng = Engine(cfg, params, EngineConfig(slots=SLOTS, max_prompt_len=64,
+                                           max_seq_len=HORIZON))
+    depth = {}
+    for d in (1, 2):
+        sched, wall, counts, delta, toks = serve_counted(
+            eng, bench_trace(V), pipeline_depth=d)
+        tally(counts)
+        check_decode_step_kernels(f"depth {d}", counts,
+                                  ("decode_attention_write",),
+                                  delta["decode_steps_taken"], L)
+        s = sched.summary()
+        steps = delta["decode_steps_taken"]
+        depth[d] = dict(wall_s=wall, decode_steps=steps,
+                        host_ms_per_decode_step=wall * 1e3 / steps,
+                        decode_ms_per_step=s["decode_time_s"] * 1e3 / steps,
+                        decode_tokens_per_sec=s["decode_tokens_per_sec"],
+                        tokens_per_sec=s["tokens_per_sec"],
+                        ttft_mean_ms=s["ttft_mean_ms"], streams=toks)
+    check(depth[2]["streams"] == depth[1]["streams"],
+          "depth 2: streams differ from depth 1's for "
+          f"{[r for r in depth[1]['streams'] if depth[1]['streams'][r] != depth[2]['streams'].get(r)]}")
+    for d in depth.values():
+        del d["streams"]
+    out["depth"] = depth
+    log(f"pipeline depth 1 vs 2 ({card}): " + json.dumps(depth))
+    del eng
+    out["launches"] = launches
+    log(f"prefix/chunked launches ({card}): " + json.dumps(launches))
+    return launches, out
+
 
 
 # ---------------------------------------------------------------------------
@@ -7494,6 +7930,10 @@ def main() -> int:
         t = time.perf_counter()
         paged_spec_writes = phase_paged_spec(cfg, params)
         log(f"paged+spec phase {time.perf_counter() - t:.1f}s")
+        # prefix reuse, chunked prefill and the pipelined scheduler
+        t = time.perf_counter()
+        prefix_launches, _ = phase_prefix_chunked(cfg, params, band, card)
+        log(f"prefix/chunked phase {time.perf_counter() - t:.1f}s")
         # the quantized cache, on the same serving model
         t = time.perf_counter()
         quant_rows = phase_quant_kernels()
@@ -7699,6 +8139,17 @@ def main() -> int:
         paged_rows[name]["launches_adv"] = spec_writes["adv"][
             "decode_verify_attention"]
     rows.update(paged_rows)
+    # phase 36's runs: row 5 for cold groups and chunk 0s, rows 10 and 17
+    # (in their fused launches) and 15v under prefix hits
+    for names, fused in ((("flash_attention_bsh",), "flash_attention_bsh"),
+                         (("decode_attention", "decode_attention_write"),
+                          "decode_attention_write"),
+                         (("paged_attention", "paged_attention_write"),
+                          "paged_attention_write"),
+                         (("paged_write_columns", "paged_verify_attention"),
+                          "paged_verify_attention")):
+        for name in names:
+            rows[name]["launches_prefix_chunked"] = prefix_launches[fused]
     for r in quant_rows.values():
         r["launches"] = quant_launches[r["name"]]
     rows.update(quant_rows)

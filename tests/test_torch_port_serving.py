@@ -303,9 +303,8 @@ def test_later_slice_request_fields_rejected(model, field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec_ks", (2,)), ("host_swap_pages", 4), ("prefix_pool_slots", 2),
-    ("prefill_chunk", 8), ("adapter_slots", 2), ("host_swap", True),
-    ("decode_chunks", (1, 2))])
+    ("spec_ks", (2,)), ("host_swap_pages", 4), ("adapter_slots", 2),
+    ("host_swap", True), ("decode_chunks", (1, 2))])
 def test_later_slice_engine_fields_raise(field, value):
     with pytest.raises(ValueError, match="later slice"):
         EngineConfig(**{field: value})
