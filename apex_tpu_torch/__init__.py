@@ -4,7 +4,10 @@ The JAX package ``apex_tpu`` is the reference; this package is its port,
 slice by slice (``ROADMAP.md``): GPT serving through the
 continuous-batching :class:`~apex_tpu_torch.serving.Engine` and its
 :class:`~apex_tpu_torch.serving.Scheduler` (contiguous, paged,
-speculative and quantized KV caches), and single-device training of GPT
+speculative and quantized KV caches; stop sequences, schema-constrained
+decoding and tenant fair queueing) behind the OpenAI HTTP front end
+(``apex_tpu_torch.serving.api``, ``apex_tpu_torch.examples.serve_gpt``),
+and single-device training of GPT
 (355M and Megatron-GPT 2.7B: ``apex_tpu_torch.examples.gpt_train``),
 BERT and ResNet with the fused optimizers and amp; and apex's L3 entry
 points (``multi_tensor.MultiTensorApply``, ``contrib.clip_grad_norm_``,

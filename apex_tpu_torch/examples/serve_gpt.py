@@ -1,0 +1,322 @@
+"""Serving on one device: the single-device path of
+``examples/serve_gpt.py``.
+
+A file of requests (one JSON object a line), or a seeded synthetic
+trace, flows through the continuous-batching ``Scheduler`` over an
+``Engine``; each request decodes with its own sampling parameters, stop
+token and stop sequences. GPT-2 355M on one card, then the OpenAI front
+end on port 8000 until Ctrl-C::
+
+    python -m apex_tpu_torch.examples.serve_gpt --preset 355m \\
+        --max-prompt-len 128 --max-seq-len 192 --api-port 8000
+    curl -N localhost:8000/v1/chat/completions -d '{
+      "messages": [{"role": "user", "content": "hi"}],
+      "max_tokens": 16, "stream": true}'
+
+The tiny preset on the CPU (the kernels' plain versions)::
+
+    python -m apex_tpu_torch.examples.serve_gpt --preset tiny \\
+        --device cpu --num-requests 6
+
+Request-file line format (all but ``id`` / ``prompt`` optional; ``stop``
+is a list of stop TOKEN sequences, matched on the host with the matched
+tokens trimmed)::
+
+  {"id": "r0", "prompt": [17, 4, 99], "max_tokens": 16,
+   "temperature": 0.8, "top_k": 40, "top_p": 0.95, "seed": 7,
+   "eos_token_id": 50256, "stop": [[11, 12]]}
+
+As in the JAX script: weights from seed 0; the synthetic trace is half
+greedy, half sampled (temperature 0.9, top-k 20, seed ``i``), with a stop
+sequence on every third request and the tenants of ``--tenant-weights``
+/ ``--tenant-rate`` round-robin; ``--prefix-template`` pools a shared
+prompt prefix (half the synthetic prompts start with it) and
+``--prefill-chunk`` adds a long prompt on every fourth request. Its
+prompts are drawn with numpy, not ``jax.random``, so they differ from
+the JAX script's. ``--api-port`` serves ``/v1/chat/completions``,
+``/v1/completions``, ``/v1/models`` and ``/healthz`` after the batch
+drains, for ``--api-linger`` seconds (0 = until Ctrl-C); chat prompts
+are byte-level, so give the engine prompt room. ``--device`` defaults to
+``cuda`` and raises when there is no card; ``cpu`` must be asked for.
+
+Flags that need a module the port does not have yet raise and name the
+ROADMAP queue 1 item they wait for: ``--tp > 1`` (item 5), ``--ckpt``
+(item 7), and, of item 3, ``--metrics-port``, ``--metrics-linger``,
+``--span-trace``, ``--slo`` and ``--bundle-dir`` (telemetry),
+``--journal-dir``, ``--fault-plan``, ``--replicas > 1`` and
+``--kill-replica`` (resilience), ``--autotune`` (the tuner),
+``--host-swap`` and ``--resume-policy`` (the host-swap tier) and
+``--adapters`` (multi-LoRA).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from apex_tpu_torch._capabilities import resolve_device
+from apex_tpu_torch.models import gpt
+from apex_tpu_torch.serving import (
+    Engine,
+    EngineConfig,
+    Request,
+    SamplingParams,
+    Scheduler,
+    TenancyConfig,
+    TenantThrottled,
+)
+
+PRESETS = {
+    "tiny": dict(vocab_size=1024, hidden_size=128, num_layers=4,
+                 num_heads=4, seq_len=128, compute_dtype=torch.float32),
+    "355m": dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+                 num_heads=16, seq_len=1024, compute_dtype=torch.bfloat16),
+    "2p7b": dict(vocab_size=50304, hidden_size=2560, num_layers=32,
+                 num_heads=32, seq_len=1024, compute_dtype=torch.bfloat16),
+}
+
+#: the ROADMAP queue 1 items the unported flags wait for
+_SERVING = "ROADMAP queue 1 item 3, the rest of serving"
+_DISTRIBUTED = "ROADMAP queue 1 item 5, multi-GPU parallelism"
+_INFRA = "ROADMAP queue 1 item 7, infrastructure"
+
+
+def load_requests(path: str, vocab_size: int) -> List[Request]:
+    """The JSONL request file (see the module docstring)."""
+    reqs = []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if not line:
+                continue
+            d = json.loads(line)
+            bad = [t for t in d["prompt"] if not 0 <= int(t) < vocab_size]
+            if bad:
+                raise ValueError(
+                    f"request {d.get('id', i)}: prompt tokens {bad} "
+                    f"outside vocab [0, {vocab_size})")
+            sp = SamplingParams(
+                temperature=d.get("temperature", 0.0),
+                top_k=d.get("top_k", 0), top_p=d.get("top_p", 1.0),
+                seed=d.get("seed"))
+            stop = d.get("stop")
+            reqs.append(Request(
+                str(d.get("id", f"r{i}")), list(d["prompt"]),
+                max_tokens=int(d.get("max_tokens", 16)), sampling=sp,
+                eos_token_id=d.get("eos_token_id"),
+                stop=[[int(t) for t in s] for s in stop]
+                if stop else None))
+    return reqs
+
+
+def synthetic_requests(n: int, prompt_len: int, max_tokens: int,
+                       vocab_size: int, prefix=None,
+                       long_prompt_len: int = 0,
+                       tenants: Optional[List[str]] = None
+                       ) -> List[Request]:
+    """The JAX script's seeded stand-in trace, drawn with numpy: half
+    greedy, half sampled; every third request carries a stop sequence;
+    with ``prefix`` every other prompt starts with it; with
+    ``long_prompt_len`` every fourth (offset 1) is that long; ``tenants``
+    round-robin."""
+    reqs = []
+    for i in range(n):
+        tenant = tenants[i % len(tenants)] if tenants else "default"
+        if long_prompt_len and i % 4 == 1:
+            tail = np.random.default_rng(2000 + i).integers(
+                0, vocab_size, long_prompt_len).tolist()
+        else:
+            tail = np.random.default_rng(1000 + i).integers(
+                0, vocab_size, 1 + (prompt_len + i) % prompt_len).tolist()
+        prompt = (list(prefix) + tail[:2]) if prefix and i % 2 == 0 \
+            else tail
+        sp = (SamplingParams(temperature=0.9, top_k=20, seed=i)
+              if i % 2 else SamplingParams())
+        stop = [[(17 * i + 3) % vocab_size,
+                 (17 * i + 4) % vocab_size]] if i % 3 == 0 else None
+        reqs.append(Request(f"r{i}", prompt, max_tokens=max_tokens,
+                            sampling=sp, stop=stop, tenant=tenant))
+    return reqs
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        prog="python -m apex_tpu_torch.examples.serve_gpt",
+        description="GPT serving on one device (the port of "
+        "examples/serve_gpt.py's single-device path)")
+    ap.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--max-prompt-len", type=int, default=16)
+    ap.add_argument("--max-seq-len", type=int, default=48)
+    ap.add_argument("--requests", help="JSONL request file (see the "
+                    "module docstring); a synthetic trace if omitted")
+    ap.add_argument("--num-requests", type=int, default=6)
+    ap.add_argument("--max-tokens", type=int, default=8,
+                    help="the synthetic trace's budget a request")
+    ap.add_argument("--decode-chunk", type=int, default=1)
+    ap.add_argument("--pipeline-depth", type=int, default=2)
+    ap.add_argument("--spec-k", type=int, default=0)
+    ap.add_argument("--kv-cache-dtype", default="auto",
+                    choices=("auto", "bf16", "int8", "fp8"))
+    ap.add_argument("--prefix-template", metavar="IDS", action="append",
+                    default=None, help="comma-separated token ids of a "
+                    "shared prompt prefix to pool (repeatable)")
+    ap.add_argument("--page-size", type=int, default=0)
+    ap.add_argument("--max-pages", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--tenant-weights", metavar="SPEC", default=None,
+                    help="tenant fair-share weights, e.g. 'a:3,b:1'")
+    ap.add_argument("--tenant-rate", metavar="SPEC", default=None,
+                    help="per-tenant token budgets (tokens/s), e.g. 'a:50'")
+    ap.add_argument("--api-port", type=int, default=None,
+                    help="serve the OpenAI front end on this port after "
+                    "the batch drains (0 = ephemeral)")
+    ap.add_argument("--api-linger", type=float, default=0.0,
+                    help="keep the front end up this many seconds (0 = "
+                    "until Ctrl-C)")
+    # flags of modules the port does not have yet (refused)
+    ap.add_argument("--ckpt")
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--metrics-linger", type=float, default=None)
+    ap.add_argument("--span-trace", default=None)
+    ap.add_argument("--bundle-dir", default=None)
+    ap.add_argument("--journal-dir", default=None)
+    ap.add_argument("--fault-plan", default=None)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--kill-replica", default=None)
+    ap.add_argument("--autotune", nargs="?", const="default", default=None)
+    ap.add_argument("--host-swap", action="store_true")
+    ap.add_argument("--resume-policy", default=None,
+                    choices=("auto", "swap", "recompute"))
+    ap.add_argument("--adapters", type=int, default=0)
+    ap.add_argument("--slo", default=None)
+    return ap.parse_args(argv)
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    refused = [what for what, on in (
+        (f"--tp {args.tp} ({_DISTRIBUTED})", args.tp > 1),
+        (f"--ckpt (the .atck checkpoint; {_INFRA})", args.ckpt is not None),
+        (f"--metrics-port (telemetry; {_SERVING})",
+         args.metrics_port is not None),
+        (f"--metrics-linger (telemetry; {_SERVING})",
+         args.metrics_linger is not None),
+        (f"--span-trace (telemetry; {_SERVING})",
+         args.span_trace is not None),
+        (f"--slo (telemetry's SLO observatory; {_SERVING})",
+         args.slo is not None),
+        (f"--bundle-dir (the flight recorder; {_SERVING})",
+         args.bundle_dir is not None),
+        (f"--journal-dir (resilience's journal; {_SERVING})",
+         args.journal_dir is not None),
+        (f"--fault-plan (resilience; {_SERVING})",
+         args.fault_plan is not None),
+        (f"--replicas {args.replicas} (resilience's fleet; {_SERVING})",
+         args.replicas != 1),
+        (f"--kill-replica (resilience's fleet; {_SERVING})",
+         args.kill_replica is not None),
+        (f"--autotune (the tuner; {_SERVING})", args.autotune is not None),
+        (f"--host-swap (the host-swap tier; {_SERVING})", args.host_swap),
+        (f"--resume-policy (the host-swap tier; {_SERVING})",
+         args.resume_policy is not None),
+        (f"--adapters (multi-LoRA; {_SERVING})", args.adapters != 0),
+    ) if on]
+    if refused:
+        raise SystemExit("not supported by apex_tpu_torch yet: "
+                         + "; ".join(refused))
+
+
+def _tenant_spec(spec: str) -> Dict[str, float]:
+    out = {}
+    for part in spec.split(","):
+        name, _, val = part.partition(":")
+        if not name.strip() or not val:
+            raise SystemExit(
+                f"bad tenant spec {part!r} (format name:value,...)")
+        out[name.strip()] = float(val)
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    tenancy = tenant_names = None
+    if args.tenant_weights or args.tenant_rate:
+        weights = _tenant_spec(args.tenant_weights or "") \
+            if args.tenant_weights else {}
+        rates = _tenant_spec(args.tenant_rate or "") \
+            if args.tenant_rate else {}
+        tenancy = TenancyConfig(weights=weights, rates=rates)
+        tenant_names = sorted(set(weights) | set(rates)) or None
+        print(f"tenancy: weights={weights} rates={rates}")
+    cfg = gpt.GPTConfig(remat=False, kv_cache_dtype=args.kv_cache_dtype,
+                        **PRESETS[args.preset])
+    params = gpt.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    templates = [[int(t) for t in spec.split(",")]
+                 for spec in (args.prefix_template or ())]
+    engine = Engine(cfg, params, EngineConfig(
+        slots=args.slots, max_prompt_len=args.max_prompt_len,
+        max_seq_len=args.max_seq_len, decode_chunk=args.decode_chunk,
+        prefix_pool_slots=len(templates), spec_k=args.spec_k,
+        page_size=args.page_size, num_pages=args.max_pages,
+        prefill_chunk=args.prefill_chunk), device=dev)
+    long_len = 0
+    if args.prefill_chunk and not args.requests:
+        # longer than one chunk, within the engine's prompt room
+        long_len = min(args.max_prompt_len, 2 * args.prefill_chunk)
+    reqs = (load_requests(args.requests, cfg.vocab_size) if args.requests
+            else synthetic_requests(
+                args.num_requests, 8, args.max_tokens, cfg.vocab_size,
+                prefix=templates[0] if templates else None,
+                long_prompt_len=long_len, tenants=tenant_names))
+    # offline batch mode submits everything at once: size the queue to it
+    sched = Scheduler(engine, max_queue=max(256, len(reqs)),
+                      pipeline_depth=args.pipeline_depth, tenancy=tenancy)
+    for t in templates:
+        sched.register_prefix(t)
+    for r in reqs:
+        try:
+            sched.submit(r)
+        except TenantThrottled as e:
+            # the offline spelling of the front end's 429
+            print(f"request {r.request_id} throttled (tenant "
+                  f"{e.tenant!r}, retry in {e.retry_after_s:.1f}s)")
+    sched.run_until_idle()
+    for r in reqs:
+        c = sched.completions.get(r.request_id)
+        if c is not None:
+            print(f"request {c.request_id} [{c.finish_reason}] "
+                  f"{list(r.prompt)} -> {c.tokens}")
+    print("served " + json.dumps(
+        {k: round(v, 3) for k, v in sched.summary().items()}))
+    if tenancy is not None:
+        print("tenants " + json.dumps(sched.tenant_summary()))
+    if args.api_port is not None:
+        from apex_tpu_torch.serving.api import start_api_server
+
+        # the server's driver thread takes over the (now idle) scheduler
+        api = start_api_server(sched, port=args.api_port)
+        print(f"api: {api.url}/v1/chat/completions  /v1/completions  "
+              f"/v1/models  /healthz")
+        try:
+            if args.api_linger > 0:
+                time.sleep(args.api_linger)
+            else:
+                while True:
+                    time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        api.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -886,7 +886,8 @@ def decode_step(cfg: GPTConfig, params, cache, token, pos, table=None):
 
 
 def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
-                 pad_token_id: int = 0, draw_fn=None, table=None):
+                 pad_token_id: int = 0, draw_fn=None, masks=None,
+                 table=None):
     """``n`` decode steps, each a :func:`decode_step` + the per-slot draw
     + per-slot eos/budget masking, with no host round trip in between.
 
@@ -900,10 +901,15 @@ def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
     it emits its eos or exhausts ``remaining``. ``draw_fn(logits, pos)
     → [B]`` overrides the draw (:func:`generate` passes its shared-seed
     sampler). ``table`` selects the paged layout (:func:`decode_step`).
+    ``masks`` (bool ``[B, vocab]``, optional) is the per-slot
+    constrained-decoding vocab mask of the default draw; it is constant
+    across the chunk (the host's schema automaton advances between
+    dispatches), so a constrained slot is exact only at ``n == 1``.
 
     Returns ``(cache, state, tokens [B, n], logprobs [B, n], finished
     [B, n])``; ``logprobs`` is the log-softmax of the raw fp32 logits at
-    each emitted token, 0.0 in pad lanes."""
+    each emitted token (before temperature, filters and mask), 0.0 in
+    pad lanes."""
     st = dict(state)
     toks, lps, fins = [], [], []
     for _ in range(n):
@@ -911,7 +917,8 @@ def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
                                      st["pos"], table)
         if draw_fn is None:
             nxt = _sampling.draw_slots(logits_, st["key"], st["pos"],
-                                       st["temp"], st["top_k"], st["top_p"])
+                                       st["temp"], st["top_k"], st["top_p"],
+                                       masks=masks)
         else:
             nxt = draw_fn(logits_, st["pos"])
         nxt = nxt.to(torch.int64)

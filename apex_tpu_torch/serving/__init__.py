@@ -1,7 +1,7 @@
 """apex_tpu_torch.serving — the continuous-batching engine of the port.
 
 - :mod:`~apex_tpu_torch.serving.request`   — Request / SamplingParams /
-  StreamEvent / Completion,
+  StreamEvent / Completion and the streaming StopMatcher,
 - :mod:`~apex_tpu_torch.serving.sampling`  — the one temperature/top-k/
   top-p sampler shared by ``gpt.generate`` and the engine,
 - :mod:`~apex_tpu_torch.serving.pages`     — the page allocator of the
@@ -9,9 +9,14 @@
 - :mod:`~apex_tpu_torch.serving.engine`    — the device loop: slot state,
   admission (bulk prefill), plain and speculative decode chunks, retire,
   the paged pool's block tables,
-- :mod:`~apex_tpu_torch.serving.scheduler` — the host loop: FIFO queue,
-  page backpressure, deadlines, the speculation payoff gate, response
-  stream, serving metrics.
+- :mod:`~apex_tpu_torch.serving.scheduler` — the host loop: the queue
+  (tenant-fair pops), page backpressure, deadlines, the speculation
+  payoff gate, stop sequences and schema constraints, response stream,
+  serving metrics,
+- :mod:`~apex_tpu_torch.serving.tenancy`   — weighted-fair queueing and
+  token-budget rate limits (host only),
+- :mod:`~apex_tpu_torch.serving.api`       — the OpenAI-compatible HTTP
+  front end (standard library only at import).
 
 ``engine``/``scheduler`` import :mod:`apex_tpu_torch.models.gpt`, which
 imports :mod:`.sampling`; they load lazily (PEP 562) so either entry
@@ -20,7 +25,12 @@ point — model first or serving first — resolves without a cycle.
 
 from __future__ import annotations
 
-from apex_tpu_torch.serving import pages, request, sampling  # noqa: F401
+from apex_tpu_torch.serving import (  # noqa: F401
+    pages,
+    request,
+    sampling,
+    tenancy,
+)
 from apex_tpu_torch.serving.pages import (  # noqa: F401
     PageAllocator,
     PagesExhausted,
@@ -29,19 +39,26 @@ from apex_tpu_torch.serving.request import (  # noqa: F401
     Completion,
     Request,
     SamplingParams,
+    StopMatcher,
     StreamEvent,
+)
+from apex_tpu_torch.serving.tenancy import (  # noqa: F401
+    TenancyConfig,
+    TenantThrottled,
 )
 
 _LAZY = {
     "Engine": "engine", "EngineConfig": "engine", "Admission": "engine",
     "AdmitResult": "engine", "StepHandle": "engine",
     "Scheduler": "scheduler", "SpecGateConfig": "scheduler",
+    "QueueFull": "scheduler",
 }
 
 __all__ = ["Admission", "AdmitResult", "Completion", "Engine",
-           "EngineConfig", "PageAllocator", "PagesExhausted", "Request",
-           "SamplingParams", "Scheduler", "SpecGateConfig", "StepHandle",
-           "StreamEvent", "pages", "request", "sampling"]
+           "EngineConfig", "PageAllocator", "PagesExhausted", "QueueFull",
+           "Request", "SamplingParams", "Scheduler", "SpecGateConfig",
+           "StepHandle", "StopMatcher", "StreamEvent", "TenancyConfig",
+           "TenantThrottled", "pages", "request", "sampling", "tenancy"]
 
 
 def __getattr__(name):

@@ -29,8 +29,13 @@ and, with ``spec_k > 0``, the drafter's token-history ring — lives in
   ``gpt.decode_steps_spec`` chunk of ``decode_chunk`` draft-verify waves
   (up to ``spec_k + 1`` tokens a wave), returned as a
   :class:`StepHandle`; :meth:`Engine.step` fetches a plain one;
-- :meth:`Engine.retire` — force a slot done (deadline expiry);
-  :meth:`Engine.free_slot` — release a paged slot's pages.
+- :meth:`Engine.retire` — force a slot done (deadline expiry, a host-side
+  stop); :meth:`Engine.free_slot` — release a paged slot's pages;
+- :meth:`Engine.set_slot_mask` — a slot's constrained-decoding vocab
+  mask row: the draw drops the row's False positions. A host mirror
+  ``[B, vocab]`` is uploaded only when a row changed, and only while
+  some row is not all-True; otherwise the draw takes no mask and
+  launches what an engine without masks launches.
 
 A slot's token stream is the one a solo ``gpt.generate`` of the same
 request emits. PyTorch runs eagerly, so there is no compile step and no
@@ -158,6 +163,11 @@ class Admission:
     top_p: float = 1.0
     seed: Optional[int] = None
     eos_token_id: Optional[int] = None
+    #: the constrained-decoding whitelist of the FIRST token (the schema
+    #: automaton's initial allowed set); it also seeds the slot's mask row
+    #: for the decode steps (:meth:`Engine.set_slot_mask` advances it).
+    #: None = unconstrained, and resets a stale row the slot carried
+    allowed_tokens: Optional[Sequence[int]] = None
     #: a prefix-pool hit (:meth:`Engine.match_prefix`): ``prompt`` is
     #: still the whole prompt, but its first ``prefix_len`` tokens (which
     #: must equal those registered on pool page ``prefix_page``) come
@@ -282,9 +292,11 @@ class Engine:
     (single-token decode steps over the slot batch),
     ``spec_waves_taken`` (speculative verify waves), ``admit_groups``
     (cold admission forwards, ``gpt.prefill_many``), ``prefix_admits``
-    (prefix-pool hits, each one ``gpt.prefill_extend``) and
+    (prefix-pool hits, each one ``gpt.prefill_extend``),
     ``chunk_prefills`` (chunked-prefill forwards: chunk 0 and the
-    extends)."""
+    extends) and ``mask_uploads`` (host-to-device copies of vocab mask
+    rows: the decode steps' ``[B, vocab]`` copy, or an admission's
+    first-token rows)."""
 
     def __init__(self, cfg: gpt.GPTConfig, params,
                  engine_cfg: Optional[EngineConfig] = None, *,
@@ -401,7 +413,14 @@ class Engine:
         self.admit_groups = 0
         self.prefix_admits = 0
         self.chunk_prefills = 0
+        self.mask_uploads = 0
         B, dev = ecfg.slots, self.device
+        #: per-slot constrained-decoding vocab masks, host mirror (all-True
+        #: = unconstrained), the slots whose row is not all-True, and the
+        #: device copy, cached until a row changes
+        self._masks = np.ones((B, cfg.vocab_size), bool)
+        self._masked_slots: set = set()
+        self._masks_dev: Optional[torch.Tensor] = None
         if self._paged:
             # the pool: the page dim rides the slot dim of the contiguous
             # layout, the horizon dim is one page (zeros: see _pad_span)
@@ -658,9 +677,12 @@ class Engine:
         prefix pages and point its table row at the sink page (its frozen
         decode lane keeps writing every chunk; the sink absorbs that).
         The scheduler calls this at release; a no-op in contiguous mode,
-        where the next admission overwrites the slot."""
+        where the next admission overwrites the slot. The slot's mask row
+        goes back to all-True: a done lane's draw is dropped, and a stale
+        row would keep the masked draw on for everyone."""
         if self._paged:
             self._free_slot_pages(slot)
+        self.set_slot_mask(slot, None)
 
     def page_stats(self) -> Optional[Dict[str, float]]:
         """The allocator's occupancy snapshot (None in contiguous mode)."""
@@ -797,7 +819,21 @@ class Engine:
             raise ValueError(
                 "prefix_len without prefix_page — pass both (a "
                 "match_prefix hit) or neither")
+        if a.allowed_tokens is not None:
+            # pre-flight: admit_many is all or nothing
+            self._check_allowed_tokens(a.allowed_tokens)
         return prompt, prompt.size
+
+    def _check_allowed_tokens(self, allowed: Sequence[int]) -> List[int]:
+        """The whitelist check shared by the admission pre-flight and
+        :meth:`set_slot_mask`."""
+        allowed = [int(t) for t in allowed]
+        if not allowed or any(not 0 <= t < self.cfg.vocab_size
+                              for t in allowed):
+            raise ValueError(
+                f"allowed token whitelist must be a non-empty subset "
+                f"of vocab [0, {self.cfg.vocab_size})")
+        return allowed
 
     def admit(self, slot: int, prompt, max_tokens: int, *,
               temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
@@ -919,8 +955,18 @@ class Engine:
         max_tokens = vec([a.max_tokens for a in batch], torch.int64)
         eos = vec([_NO_EOS if a.eos_token_id is None
                    else int(a.eos_token_id) for a in batch], torch.int64)
+        # each row's mask row is set before the draw that reads it
+        # (unconstrained rows reset a stale one); the first draw takes
+        # the rows only when one of them constrains
+        for a in batch:
+            self.set_slot_mask(a.slot, a.allowed_tokens)
+        masks = None
+        if any(a.allowed_tokens is not None for a in batch):
+            masks = torch.as_tensor(
+                np.stack([self._masks[a.slot] for a in batch]), device=dev)
+            self.mask_uploads += 1
         first = sampling.draw_slots(logits0, keys, p_lens - 1, temp, top_k,
-                                    top_p)
+                                    top_p, masks=masks)
         first_lp = torch.log_softmax(logits0, dim=-1).gather(
             1, first[:, None])[:, 0]
         hit_eos = (eos >= 0) & (first == eos)
@@ -1215,11 +1261,19 @@ class Engine:
         history ring). ``spec=True`` (needs ``spec_k > 0``) runs
         ``decode_chunk`` draft-verify waves: columns ``[B, decode_chunk *
         (spec_k + 1)]`` wave-major, with ``handle.valid`` marking the
-        real emissions."""
+        real emissions; it refuses while a slot's mask row constrains.
+        A plain chunk passes the mask rows to the draw only while one of
+        them is not all-True."""
         ecfg = self.engine_cfg
         if spec and not self._spec:
             raise ValueError(
                 "step_async(spec=True) needs EngineConfig.spec_k > 0")
+        if spec and self._masked_slots:
+            raise ValueError(
+                f"step_async(spec=True) with constrained slots "
+                f"{sorted(self._masked_slots)}: the verify wave draws "
+                f"without vocab masks, so constrained traffic decodes "
+                f"plain chunks")
         n = ecfg.decode_chunk
         table = self._table_device() if self._paged else None
         if spec:
@@ -1234,7 +1288,8 @@ class Engine:
         pos0 = self.state["pos"]
         self.cache, self.state, toks, lps, fins = gpt.decode_steps(
             self.cfg, self._params, self.cache, self.state, n,
-            pad_token_id=ecfg.pad_token_id, table=table)
+            pad_token_id=ecfg.pad_token_id, masks=self._masks_device(),
+            table=table)
         if self._spec:
             # keep the drafter's ring fresh across plain chunks too: each
             # row emitted pos_after - pos_before columns, a prefix
@@ -1242,6 +1297,47 @@ class Engine:
                 self.state["hist"], toks, self.state["pos"] - pos0)
         self.decode_steps_taken += n
         return StepHandle(toks, lps, fins, ncols=n)
+
+    def _masks_device(self) -> Optional[torch.Tensor]:
+        """The decode steps' ``[B, vocab]`` mask, or None while every row
+        is all-True (the two draw the same tokens, and None launches
+        nothing for the mask). Uploaded again only after a row
+        changed."""
+        if not self._masked_slots:
+            return None
+        if self._masks_dev is None:
+            self._masks_dev = torch.as_tensor(self._masks,
+                                              device=self.device)
+            self.mask_uploads += 1
+        return self._masks_dev
+
+    def set_slot_mask(self, slot: int,
+                      allowed: Optional[Sequence[int]] = None) -> None:
+        """Replace ``slot``'s constrained-decoding vocab mask with the
+        whitelist ``allowed`` (None = unconstrained, all-True). The
+        schema automaton advances on the host for each emitted token; the
+        scheduler calls this between dispatches, so the next decode step
+        draws against the advanced row. An unchanged row keeps the
+        device copy."""
+        if not 0 <= slot < self.slots:
+            raise ValueError(f"slot {slot} outside [0, {self.slots})")
+        if allowed is None:
+            if slot not in self._masked_slots:
+                return
+            self._masks[slot, :] = True
+            self._masked_slots.discard(slot)
+        else:
+            allowed = self._check_allowed_tokens(allowed)
+            row = np.zeros((self.cfg.vocab_size,), bool)
+            row[allowed] = True
+            if (self._masks[slot] == row).all():
+                return
+            self._masks[slot] = row
+            if row.all():
+                self._masked_slots.discard(slot)
+            else:
+                self._masked_slots.add(slot)
+        self._masks_dev = None
 
     def step(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """One plain decode chunk over every slot — ``decode_chunk``

@@ -69,12 +69,25 @@ def gumbel_noise(keys: torch.Tensor, t: torch.Tensor, rows: torch.Tensor,
     return -torch.log(-torch.log(u))
 
 
-def filter_logits(logits: torch.Tensor, top_k: int,
-                  top_p: float) -> torch.Tensor:
+def apply_mask(logits: torch.Tensor,
+               mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The constrained-decoding vocab mask: False positions of ``mask``
+    (bool, broadcastable to ``logits``) drop to the dtype minimum; None
+    returns ``logits`` itself. An all-True mask gives the same values."""
+    if mask is None:
+        return logits
+    return torch.where(mask, logits, torch.finfo(logits.dtype).min)
+
+
+def filter_logits(logits: torch.Tensor, top_k: int, top_p: float,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Top-k / nucleus filtering with Python parameters: positions
     outside the top-k (by value), or outside the smallest set whose
     softmax mass reaches ``top_p``, become the dtype minimum. 0 and
-    values outside (0, 1) disable; one sort."""
+    values outside (0, 1) disable; one sort. ``mask`` (bool ``[...,
+    vocab]``) removes its False positions first, so the filters act on
+    the allowed distribution (:func:`apply_mask`)."""
+    logits = apply_mask(logits, mask)
     vocab = logits.shape[-1]
     kk = top_k if 0 < top_k < vocab else 0
     pp = top_p if 0.0 < top_p < 1.0 else 0.0
@@ -162,14 +175,19 @@ def draw(logits: torch.Tensor, t, *, temperature: float = 0.0,
 
 def draw_slots(logits: torch.Tensor, keys: torch.Tensor, t: torch.Tensor,
                temperature: torch.Tensor, top_k: torch.Tensor,
-               top_p: torch.Tensor) -> torch.Tensor:
+               top_p: torch.Tensor,
+               masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot batched draw: ``logits [B, vocab]``, ``keys [B, 2]``
     int64 and ``[B]`` tensors ``t``/``temperature``/``top_k``/``top_p``,
     all on one device. Slot ``b``'s token equals ``draw(logits[b:b+1],
     t[b], ...)`` with that slot's parameters — every slot draws as row 0
     of a solo run — and greedy slots (``temperature <= 0``) take the
     argmax (their sampled lane divides by a safe 1.0 and is dropped).
-    Returns int64 ``[B]``."""
+    ``masks`` (bool ``[B, vocab]``, on the logits' device) is the
+    per-slot constrained-decoding mask: False positions drop to the
+    dtype minimum before either branch, so an all-True row draws what no
+    mask draws, bit for bit. Returns int64 ``[B]``."""
+    logits = apply_mask(logits, masks)
     b, vocab = logits.shape
     temp = temperature.to(torch.float32)
     greedy = torch.argmax(logits, dim=-1)

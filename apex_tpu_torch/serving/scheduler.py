@@ -14,6 +14,19 @@ pool the submit-time prefix match (a hit admits through the pool,
 copy-on-write when paged); with chunked prefill one long prompt admitted
 a chunk a tick between the decode dispatches.
 
+The serving front end's three request features: ``stop`` sequences,
+matched on the host token by token (:class:`StopMatcher`: trimmed
+emission, held-back prefixes, a trimmed stop closing with a token-less
+finished event and retiring the slot); a schema ``constraint``, whose
+automaton advances for each emitted token and uploads the slot's next
+vocab mask row (``Engine.set_slot_mask``; constrained requests need
+``decode_chunk == 1``, and while one is active the pipeline is serial and
+every chunk plain); and ``tenant``: the pop order is weighted-fair
+queueing over the backlogged tenants (:mod:`.tenancy`; one backlogged
+tenant pops strict FIFO), a token-budget rate limit raises
+:class:`TenantThrottled` at submit, and :class:`QueueFull` carries the
+queue depth and a retry-after hint from the measured chunk latency.
+
 The decode loop is pipelined: each tick dispatches the next chunk
 (``Engine.step_async``) before fetching the oldest in-flight one, so at
 depth d up to d - 1 chunks stay in flight between ticks and the host's
@@ -23,10 +36,9 @@ slot released while the chunk was in flight has its columns dropped (the
 device emits pad for done slots, and a retired slot's tokens belong to a
 request already completed). Streams are the same at every depth.
 
-Resilience, tenancy, the journal, the tuner, SLOs, the flight recorder
-and telemetry are later slices of the port; requests carrying ``stop``
-sequences, a schema ``constraint``, a tenant other than ``"default"`` or
-an adapter other than 0 are rejected at submit.
+Resilience, the journal, the tuner, SLOs, the flight recorder and
+telemetry are later slices of the port; requests carrying an adapter
+other than 0 are rejected at submit.
 
 >>> sched = Scheduler(engine, pipeline_depth=2)
 >>> sched.submit(Request("r0", prompt, max_tokens=16))
@@ -51,18 +63,34 @@ from apex_tpu_torch.serving.engine import (
 )
 from apex_tpu_torch.serving.pages import PagesExhausted
 from apex_tpu_torch.serving.request import (
-    DEFAULT_TENANT,
     FINISH_EOS,
     FINISH_LENGTH,
+    FINISH_STOP,
     FINISH_TIMEOUT,
     Completion,
     Request,
+    StopMatcher,
     StreamEvent,
+)
+from apex_tpu_torch.serving.tenancy import (
+    DEFAULT_TENANT,
+    TenancyConfig,
+    TenantBook,
+    TenantThrottled,
 )
 
 
 class QueueFull(RuntimeError):
-    """Raised by :meth:`Scheduler.submit` when the queue is at capacity."""
+    """Raised by :meth:`Scheduler.submit` when the queue is at capacity.
+    ``queue_depth`` is the depth at rejection and ``retry_after_s`` the
+    time the queue should take to drain (depth x the measured chunk
+    latency; 0.0 before any chunk was measured)."""
+
+    def __init__(self, message: str, *, queue_depth: int = 0,
+                 retry_after_s: float = 0.0):
+        super().__init__(message)
+        self.queue_depth = queue_depth
+        self.retry_after_s = retry_after_s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,15 +237,20 @@ class LatencyStats:
 
 
 class _Active:
-    """Host view of one occupied slot."""
+    """Host view of one occupied slot. ``tokens`` / ``logprobs`` hold the
+    client-visible stream: tokens the stop matcher holds back (a possible
+    stop prefix) live in ``matcher`` until flushed or trimmed."""
 
-    __slots__ = ("request", "tokens", "logprobs", "first_token_time")
+    __slots__ = ("request", "tokens", "logprobs", "first_token_time",
+                 "matcher")
 
     def __init__(self, request: Request):
         self.request = request
         self.tokens: List[int] = []
         self.logprobs: List[float] = []
         self.first_token_time: Optional[float] = None
+        self.matcher = (StopMatcher(request.stop) if request.stop
+                        else None)
 
 
 class Scheduler:
@@ -234,13 +267,16 @@ class Scheduler:
     if any slot is live; then fetch the oldest in-flight chunks until at
     most ``pipeline_depth - 1`` remain (all of them when nothing was
     dispatched). ``spec_gate`` tunes the payoff gate of a speculative
-    engine (``EngineConfig.spec_k > 0``)."""
+    engine (``EngineConfig.spec_k > 0``); ``tenancy`` sets the tenants'
+    weights and rate limits (the book exists without it: every tenant
+    weighs 1, none is limited)."""
 
     def __init__(self, engine: Engine, *, max_queue: int = 256,
                  clock: Callable[[], float] = time.monotonic,
                  pipeline_depth: int = 1,
                  max_admit_batch: Optional[int] = None,
-                 spec_gate: Optional[SpecGateConfig] = None):
+                 spec_gate: Optional[SpecGateConfig] = None,
+                 tenancy: Optional[TenancyConfig] = None):
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth {pipeline_depth} must be >= 1 (1 = the "
@@ -303,15 +339,23 @@ class Scheduler:
         self._spec_waves = 0
         self._spec_drafted = 0
         self._spec_accepted = 0
+        #: weighted-fair queueing, rate limits and per-tenant accounting
+        self.tenants = TenantBook(tenancy, clock)
+        self._throttled = 0
+        #: EWMA of the decode chunks' wall shares: QueueFull's retry hint
+        self._chunk_ewma = 0.0
+        #: requests finished by a stop sequence / a completed constraint
+        self._stop_finishes = 0
 
     # -- intake ------------------------------------------------------------
 
     def submit(self, request: Request) -> None:
-        """Enqueue ``request``; raises :class:`QueueFull` at capacity and
-        ``ValueError`` on an invalid request. A prompt that already ends
-        in the request's eos token completes here with no tokens. A
-        prompt that starts with a registered prefix is matched here and
-        admits through the pool."""
+        """Enqueue ``request``; raises :class:`QueueFull` at capacity,
+        :class:`TenantThrottled` when the tenant's token budget cannot
+        cover ``max_tokens``, and ``ValueError`` on an invalid request. A
+        prompt that already ends in the request's eos token completes
+        here with no tokens. A prompt that starts with a registered
+        prefix is matched here and admits through the pool."""
         rid = request.request_id
         if rid in self.completions or any(
                 a.request.request_id == rid for a in self.active.values()) \
@@ -319,15 +363,6 @@ class Scheduler:
                 or (self._chunked is not None
                     and self._chunked[1].request_id == rid):
             raise ValueError(f"duplicate request_id {rid!r}")
-        if request.stop:
-            raise ValueError("stop sequences are not supported by "
-                             "apex_tpu_torch yet (a later slice)")
-        if request.constraint is not None:
-            raise ValueError("schema constraints are not supported by "
-                             "apex_tpu_torch yet (a later slice)")
-        if request.tenant not in (DEFAULT_TENANT, ""):
-            raise ValueError("tenants are not supported by apex_tpu_torch "
-                             "yet (a later slice)")
         if request.adapter:
             raise ValueError("LoRA adapters are not supported by "
                              "apex_tpu_torch yet (a later slice)")
@@ -349,14 +384,49 @@ class Scheduler:
             raise ValueError(
                 f"eos_token_id {eos} outside vocab "
                 f"[0, {self.engine.cfg.vocab_size})")
+        if request.stop:
+            for s in request.stop:
+                if not len(s):
+                    raise ValueError(
+                        "stop sequences must be non-empty token lists")
+        if request.constraint is not None and ecfg.decode_chunk != 1:
+            raise ValueError(
+                f"schema-constrained requests need decode_chunk == 1 "
+                f"(the vocab mask advances host-side between "
+                f"dispatches; a {ecfg.decode_chunk}-token chunk would "
+                f"apply a stale mask), got decode_chunk="
+                f"{ecfg.decode_chunk}")
+        if not request.tenant:
+            request.tenant = DEFAULT_TENANT
         now = self.clock()
         request.arrival_time = now
+        book = self.tenants
+        # bounded tenant cardinality: past max_tenants distinct ids a new
+        # one folds into the overflow tenant (the request is rewritten,
+        # so every consumer sees one identity)
+        tenant = request.tenant = book.admit_tenant(request.tenant)
         if eos is not None and prompt[-1] == eos:
+            book.stats(tenant).submitted += 1
             self._complete(request, [], [], FINISH_EOS, ttft=None, now=now)
             self.events.append(StreamEvent(rid, None, True, FINISH_EOS))
             return
         if len(self.queue) >= self.max_queue:
-            raise QueueFull(f"queue at capacity ({len(self.queue)})")
+            depth = len(self.queue)
+            hint = self.overload_hint_s()
+            book.stats(tenant).shed += 1
+            raise QueueFull(
+                f"queue at capacity ({depth}); retry in ~{hint:.3f}s",
+                queue_depth=depth, retry_after_s=hint)
+        # the token budget is charged after the capacity gate, so a
+        # QueueFull rejection never debits the bucket
+        wait = book.throttle(tenant, request.max_tokens, now)
+        if wait is not None:
+            self._throttled += 1
+            book.stats(tenant).throttled += 1
+            book.stats(tenant).shed += 1
+            raise TenantThrottled(
+                f"tenant {tenant!r} over its token budget; retry in "
+                f"~{wait:.3f}s", tenant=tenant, retry_after_s=wait)
         hit = (self.engine.match_prefix(prompt)
                if self.engine.prefix_pool_enabled else None)
         if self.engine.paged:
@@ -376,7 +446,43 @@ class Scheduler:
             self._prefix_hit_count += 1
         elif self.engine.prefix_pool_enabled:
             self._prefix_miss_count += 1
+        # a tenant (re-)entering the backlog competes from now: its
+        # deficit counter clamps up to the least among the tenants with
+        # queued or active work (idle time is no banked credit)
+        backlogged = {a.request.tenant for a in self.active.values()}
+        backlogged.update(r.tenant for r in self.queue)
+        if tenant not in backlogged:
+            book.rejoin(tenant, min(
+                (book.service_of(t) for t in backlogged),
+                default=book.service_of(tenant)))
         self.queue.append(request)
+        book.stats(tenant).submitted += 1
+        book.note_backlogged(tenant)
+
+    def overload_hint_s(self) -> float:
+        """The queue-drain estimate behind :class:`QueueFull`'s
+        ``retry_after_s`` (depth x the measured chunk latency), for an
+        ingress that checks an all-or-nothing batch before submitting
+        it."""
+        return len(self.queue) * self._chunk_ewma
+
+    def can_accept(self, n: int = 1) -> bool:
+        """Whether ``n`` more submissions fit the queue now (capacity
+        only): the HTTP front end's pre-flight before it fans out an
+        ``n > 1`` request, which must not half-land."""
+        return len(self.queue) + n <= self.max_queue
+
+    @property
+    def chunk_latency_ewma_s(self) -> float:
+        """The EWMA of the decode chunks' wall shares (seconds; 0.0
+        before the first chunk was fetched)."""
+        return self._chunk_ewma
+
+    def tenant_summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-tenant accounting: weight, submitted / admitted / shed /
+        throttled / tokens and the live deficit counter
+        (:meth:`TenantBook.summary`)."""
+        return self.tenants.summary()
 
     def register_prefix(self, tokens) -> int:
         """Register a shared prompt-prefix template into the engine's
@@ -400,7 +506,7 @@ class Scheduler:
         self._expire(now)
         # the batched admissions first, the chunked start last: the wave
         # of short prompts must not queue behind chunk 0's forward
-        self._admit_batches()
+        self._admit_batches(now)
         self._start_chunked()
         self._advance_chunked()
         dispatched = bool(self.active) and self._dispatch_chunk()
@@ -453,6 +559,9 @@ class Scheduler:
             act = self.active[slot]
             dl = act.request.deadline
             if dl is not None and now >= dl:
+                # a timeout streams the matcher's held tail (nothing
+                # matched, so nothing is trimmed)
+                self._flush_held(act)
                 self.engine.retire(slot)
                 self.events.append(StreamEvent(
                     act.request.request_id, None, True, FINISH_TIMEOUT))
@@ -467,6 +576,8 @@ class Scheduler:
             temperature=r.sampling.temperature, top_k=r.sampling.top_k,
             top_p=r.sampling.top_p, seed=r.sampling.seed,
             eos_token_id=r.eos_token_id,
+            allowed_tokens=(tuple(r.constraint.allowed_tokens())
+                            if r.constraint is not None else None),
             prefix_page=None if hit is None else hit[0],
             prefix_len=0 if hit is None else hit[1])
 
@@ -490,19 +601,48 @@ class Scheduler:
         return (self._chunked is None and bool(self.queue)
                 and self._chunked_only(self.queue[0]))
 
-    def _pop_eligible(self, n: int) -> List[Request]:
-        """Pop up to ``n`` queued requests the batched path admits, in
-        FIFO order, leaving the chunked-path ones in place."""
-        picked, kept = [], collections.deque()
-        for r in self.queue:
-            if len(picked) < n and not self._chunked_only(r):
-                picked.append(r)
+    def _pop_eligible(self, n: int, now: float) -> List[Request]:
+        """Pop up to ``n`` queued requests the batched path admits,
+        leaving the chunked-path ones in place. The order is
+        weighted-fair queueing over tenants: each pick takes the oldest
+        request of the backlogged tenant most behind its share (the
+        least deficit counter, aged by its head's wait). Within a tenant
+        the order is FIFO, and with one backlogged tenant every pick is
+        the first eligible request: the strict FIFO pop. ``now`` is the
+        tick's clock reading (the heads' waits)."""
+        by_tenant: Dict[str, List[Tuple[int, Request]]] = {}
+        for idx, r in enumerate(self.queue):
+            if not self._chunked_only(r):
+                by_tenant.setdefault(r.tenant, []).append((idx, r))
+        heads = {t: 0 for t in by_tenant}
+        picked: List[Request] = []
+        picked_idx: List[int] = []
+        while len(picked) < n:
+            live = {t: lst[heads[t]] for t, lst in by_tenant.items()
+                    if heads[t] < len(lst)}
+            if not live:
+                break
+            if len(live) == 1:
+                t = next(iter(live))
             else:
-                kept.append(r)
-        self.queue = kept
+                # deficits do not move between picks (tokens charge at
+                # emission), so one scan serves the wave
+                t = self.tenants.pick({
+                    tt: max(now - (rr.arrival_time
+                                   if rr.arrival_time is not None
+                                   else now), 0.0)
+                    for tt, (_, rr) in live.items()})
+            idx, r = live[t]
+            heads[t] += 1
+            picked_idx.append(idx)
+            picked.append(r)
+        if picked_idx:
+            drop = set(picked_idx)
+            self.queue = collections.deque(
+                r for i, r in enumerate(self.queue) if i not in drop)
         return picked
 
-    def _admit_batches(self) -> None:
+    def _admit_batches(self, now: float) -> None:
         while self.queue:
             reserve = 1 if self._chunked_head_pending() else 0
             if len(self._free) <= reserve:
@@ -510,7 +650,7 @@ class Scheduler:
             n = min(len(self._free) - reserve, len(self.queue))
             if self.max_admit_batch is not None:
                 n = min(n, self.max_admit_batch)
-            reqs = self._pop_eligible(n)
+            reqs = self._pop_eligible(n, now)
             if not reqs:
                 return              # only chunked-path requests queued
             if self.engine.paged:
@@ -533,6 +673,10 @@ class Scheduler:
                         self._pages_exhausted_waits += 1
                         return
             slots = [self._free.pop() for _ in range(len(reqs))]
+            for r in reqs:
+                # every admission restarts the schema automaton
+                if r.constraint is not None:
+                    r.constraint.reset()
             try:
                 results = self.engine.admit_many([
                     self._admission_of(r, slot)
@@ -553,16 +697,19 @@ class Scheduler:
                 self._activate(slot, r, res, t_first)
 
     def _activate(self, slot: int, r: Request, res, t_first: float) -> None:
-        """The request occupies ``slot`` from its first token on."""
+        """The request occupies ``slot`` from its first token on (TTFT is
+        the first token computed, even when the stop matcher holds it
+        back)."""
         act = _Active(r)
         act.first_token_time = t_first
         self.active[slot] = act
+        self.tenants.stats(r.tenant).admitted += 1
         self.ttft_stats.add(t_first - r.arrival_time)
         reason = None
         if res.finished:
             reason = FINISH_EOS if res.hit_eos else FINISH_LENGTH
-        self._emit(slot, act, res.first_token, res.logprob,
-                   finished=res.finished, reason=reason, now=t_first)
+        self._ingest(slot, act, res.first_token, res.logprob, t_first,
+                     device_done=res.finished, device_reason=reason)
 
     def _start_chunked(self) -> None:
         """Begin a chunked admission for the queue head when it takes
@@ -580,6 +727,8 @@ class Scheduler:
             return
         self.queue.popleft()
         slot = self._free.pop()
+        if r.constraint is not None:
+            r.constraint.reset()
         try:
             ca = self.engine.admit_chunked_start(self._admission_of(r, slot))
         except PagesExhausted:
@@ -612,11 +761,19 @@ class Scheduler:
         self._admit_dispatches += 1
         self._activate(ca.slot, r, res, self.clock())
 
+    def _plain_only(self) -> bool:
+        """Whether the next chunk must be plain: a constrained request is
+        active (its vocab mask advances a token at a time, and the verify
+        wave draws without masks)."""
+        return any(a.request.constraint is not None
+                   for a in self.active.values())
+
     def _use_spec(self) -> bool:
         """The kind of the next chunk: the payoff gate's choice (at most
-        one speculative probe in flight while it measures)."""
+        one speculative probe in flight while it measures); plain while a
+        constrained request is active."""
         g = self._gate
-        if g is None:
+        if g is None or self._plain_only():
             return False
         spec = g.want_spec(sum(1 for h, _, _ in self._inflight if h.spec))
         if spec:
@@ -629,7 +786,13 @@ class Scheduler:
         """Whether another chunk can emit a real token: some live slot
         has budget beyond the columns already in flight for it (each
         in-flight chunk priced at its ``ncols``). Without this a deep
-        pipeline dispatches an all-pad chunk at every wave of finishes."""
+        pipeline dispatches an all-pad chunk at every wave of finishes.
+        While a constrained request is active the pipeline is serial: its
+        mask row advances only once the previous chunk's token is
+        fetched, and a chunk dispatched on top would draw against a stale
+        row."""
+        if self._inflight and self._plain_only():
+            return False
         if not self._inflight:
             return True
         cols: Dict[int, int] = {}
@@ -686,6 +849,8 @@ class Scheduler:
         wall = max(now - max(self._decode_mark, t_dispatch), 0.0)
         self._decode_time += wall
         self._decode_mark = now
+        self._chunk_ewma = (wall if self._chunk_ewma == 0.0
+                            else 0.7 * self._chunk_ewma + 0.3 * wall)
         live_rows = [s for s, a in snapshot.items()
                      if self.active.get(s) is a]
         self._observe(handle, wall, live_rows)
@@ -712,20 +877,91 @@ class Scheduler:
                     eos = act.request.eos_token_id
                     reason = (FINISH_EOS if eos is not None and tok == eos
                               else FINISH_LENGTH)
-                self._decode_tokens += 1
-                self.token_latency_stats.add(per_tok)
-                self._emit(slot, act, tok, float(logprobs[slot, j]),
-                           finished=done, reason=reason, now=now)
+                # the accepted tokens of a speculative wave too: the stop
+                # matcher and the automaton see every real column
+                self._ingest(slot, act, tok, float(logprobs[slot, j]), now,
+                             device_done=done, device_reason=reason,
+                             latency=per_tok)
 
-    def _emit(self, slot: int, act: _Active, tok: int, lp: float, *,
-              finished: bool, reason: Optional[str], now: float) -> None:
+    # -- token emission (stop sequences, constraints) -----------------------
+
+    def _emit(self, act: _Active, tok: int, lp: float, *, finished: bool,
+              reason: Optional[str],
+              latency: Optional[float] = None) -> None:
+        """Append one client-visible token to ``act``'s stream and its
+        :class:`StreamEvent`; the tenant is charged the token."""
         act.tokens.append(tok)
         act.logprobs.append(lp)
         self._tokens_emitted += 1
+        # the WFQ deficit counter charges tokens actually streamed
+        self.tenants.on_tokens(act.request.tenant, 1)
+        if latency is not None:
+            self._decode_tokens += 1
+            self.token_latency_stats.add(latency)
         self.events.append(StreamEvent(act.request.request_id, tok,
                                        finished, reason, logprob=lp))
-        if finished:
-            self._release(slot, reason, now)
+
+    def _flush_held(self, act: _Active,
+                    latency: Optional[float] = None) -> None:
+        """Stream every token the stop matcher held back (a non-stop
+        finish emits the held tail instead of trimming it)."""
+        if act.matcher is None:
+            return
+        for t, l in act.matcher.flush():
+            self._emit(act, t, l, finished=False, reason=None,
+                       latency=latency)
+
+    def _ingest(self, slot: int, act: _Active, tok: int, lp: float,
+                now: float, *, device_done: bool,
+                device_reason: Optional[str],
+                latency: Optional[float] = None) -> None:
+        """Fold ONE generated token into a live request: the stop matcher
+        (trimmed emission), the constraint's advance and next mask row,
+        the events, and the release when the token finishes the request
+        (the device's eos or budget, a stop match, or a completed
+        constraint). A host-side finish retires the slot on the engine;
+        chunks in flight drop its columns by the snapshot rule."""
+        matched = False
+        if act.matcher is not None:
+            flushed, matched = act.matcher.push(tok, lp)
+        else:
+            flushed = [(tok, lp)]
+        cons = act.request.constraint
+        cons_done = False
+        if cons is not None and not matched:
+            cons.advance(tok)
+            cons_done = bool(cons.done)
+            if not cons_done and not device_done:
+                # the automaton advanced: the next dispatch draws this
+                # slot against the new allowed set
+                self.engine.set_slot_mask(slot, cons.allowed_tokens())
+        if (device_done or cons_done) and act.matcher is not None \
+                and not matched:
+            # a finish that trims nothing streams the held tail
+            flushed = flushed + act.matcher.flush()
+        host_stop = matched or cons_done
+        finishing = device_done or host_stop
+        reason = ((FINISH_STOP if host_stop else device_reason)
+                  if finishing else None)
+        last = len(flushed) - 1
+        for i, (t, l) in enumerate(flushed):
+            fin = finishing and not matched and i == last
+            self._emit(act, t, l, finished=fin,
+                       reason=reason if fin else None, latency=latency)
+        if matched:
+            # a trimmed stop: no token carries the finish, so a token-less
+            # finished event closes the stream
+            self.events.append(StreamEvent(
+                act.request.request_id, None, True, reason))
+        if not finishing:
+            return
+        if host_stop:
+            self._stop_finishes += 1
+            if not device_done:
+                # the device lane is still live: retire it so later
+                # chunks stop spending its budget
+                self.engine.retire(slot)
+        self._release(slot, reason, now)
 
     def _release(self, slot: int, reason: str, now: float) -> None:
         act = self.active.pop(slot)
@@ -755,7 +991,11 @@ class Scheduler:
         over the time spent in decode chunks — admission, the TTFT side,
         excluded; overlapping pipelined chunks counted once),
         ``ttft_*`` / ``token_latency_*`` in ms, ``pipeline_depth``, and
-        ``prefix_hits`` / ``prefix_misses`` (submit-time pool matches). A
+        ``prefix_hits`` / ``prefix_misses`` (submit-time pool matches),
+        ``tenants_seen`` and ``tenant_throttled`` (per-tenant detail in
+        :meth:`tenant_summary`), ``stop_finishes`` (requests a stop
+        sequence or a completed constraint finished) and
+        ``mask_uploads`` (the engine's vocab-mask copies). A
         paged engine adds the pool's occupancy, ``page_share_hits``
         (hits admitted copy-on-write), ``pages_exhausted_waits`` (ticks
         the queue head waited for pages) and ``page_deferrals`` (ticks in
@@ -776,6 +1016,10 @@ class Scheduler:
             "cache_bytes": float(self.engine.cache_bytes()),
             "prefix_hits": float(self._prefix_hit_count),
             "prefix_misses": float(self._prefix_miss_count),
+            "tenants_seen": float(len(self.tenants.tenants_seen)),
+            "tenant_throttled": float(self._throttled),
+            "stop_finishes": float(self._stop_finishes),
+            "mask_uploads": float(self.engine.mask_uploads),
         }
         if self._started is not None:
             elapsed = max(self.clock() - self._started, 1e-9)

@@ -172,6 +172,31 @@ Prefix reuse and long prompts run next, on the same serving model
     decode path launches its fused entries and no stand-alone
     single-column write or read.
 
+The serving front end runs next, on the same serving model (prompts up
+to 128, which byte-level chat prompts need where ``serve()`` admits 64;
+horizon 192, 8 slots, ``decode_chunk=1``):
+
+37. the OpenAI front end — ``start_api_server`` on 127.0.0.1 (port 0)
+    over an ``Engine`` and a ``Scheduler`` at ``pipeline_depth=2,
+    max_admit_batch=1`` with tenants, driven through ``http.client``:
+    (a) eight concurrent greedy streamed chats, each SSE stream equal to
+    the solo ``gpt.generate`` or parting at a reference near-tie within
+    the band; (b) ``/v1/completions`` with stop strings cut from each
+    prompt's unstopped stream (two plain, two ``json_object``): the
+    output is the reference trim, ``finish_reason`` "stop"; (c) four
+    ``json_schema`` requests at once: each output parses and fits its
+    schema, mask uploads counted; (d) 16 + 16 streamed requests of two
+    tenants at weights 3:1: each tenant's share of the first half of the
+    streamed tokens, every stream equal to the same requests served by
+    one tenant, a 429 with ``Retry-After`` for a tenant over its token
+    budget; (e) ``draw_slots`` on the card: all-True masks bit-equal to
+    none, a one-token whitelist forced, the greedy masked draw the
+    argmax; (f) phase 6's window on this engine without and with one
+    constrained slot, in turns: launches and host ms a decode step, the
+    unconstrained launches equal to phase 6's. Row 5 on every layer of
+    every admission and the fused decode step on every layer of every
+    decode step, counted over (a)-(d).
+
 The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
 value beside an fp32 scale per head row and column) runs next, on the
 same serving model:
@@ -410,7 +435,8 @@ route's time on the same inputs as ``prev_ms``; the four decode reads
 carry their entry at the 2.7B's decode shape under ``2p7b``, with its
 launches in phase 34's trace, phase 33's max |out - plain| at each
 width under ``widths`` and, for the quantized reads, fp8 under
-``fp8``); the last line is
+``fp8``; rows 5 and 10 and the fused decode step carry their launches on
+phase 37's path as ``api_launches``); the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
 """
@@ -1209,8 +1235,10 @@ def hold_streams(cfg, params, reqs, completions):
 LAUNCH_API = re.compile(r"^cu(da)?LaunchKernel")
 
 
-def phase_profile(cfg, engine, chunks: int = 16):
-    """A window of ``chunks`` decode chunks over 8 live slots under
+def phase_profile(cfg, engine, chunks: int = 16, reqs=None,
+                  what: str = "profile"):
+    """A window of ``chunks`` decode chunks over 8 live slots (``reqs``,
+    by default 8 requests of bench's trace, 40 tokens each) under
     ``torch.profiler``: the device's busy share and the kernels that
     take its time; per decode step the host's ms (the window's wall
     time, the profiler's cost included) and the kernels launched (CUDA
@@ -1229,8 +1257,8 @@ def phase_profile(cfg, engine, chunks: int = 16):
     from apex_tpu_torch.serving import Scheduler
 
     sched = Scheduler(engine)
-    for r in bench_trace(cfg.vocab_size, n=SLOTS, max_tokens=40,
-                         seed0=5000):
+    for r in reqs or bench_trace(cfg.vocab_size, n=SLOTS, max_tokens=40,
+                                 seed0=5000):
         sched.submit(r)
     sched.step()                       # admit all 8, first chunk
     torch.cuda.synchronize()
@@ -1250,7 +1278,7 @@ def phase_profile(cfg, engine, chunks: int = 16):
                                     "paged_attention_write")}
     alone = {k: counts[k] for k in ("decode_write_column", "decode_attention",
                                     "paged_write_column", "paged_attention")}
-    check(not any(alone.values()), f"profile: a stand-alone single-column "
+    check(not any(alone.values()), f"{what}: a stand-alone single-column "
           f"write or read ran: {alone}")
     api = sum(e.count for e in prof.key_averages()
               if e.device_type == DeviceType.CPU and LAUNCH_API.match(e.key))
@@ -1260,7 +1288,7 @@ def phase_profile(cfg, engine, chunks: int = 16):
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     if not events:
-        log("profile: device time not measured (the profiler saw no "
+        log(f"{what}: device time not measured (the profiler saw no "
             "kernel)")
         return None
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
@@ -1291,8 +1319,8 @@ def phase_profile(cfg, engine, chunks: int = 16):
         "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3,
                  "calls": e.count} for e in top],
     }
-    log("profile: " + json.dumps(out))
-    check(not old, f"profile: the replaced quantized read kernels ran: "
+    log(f"{what}: " + json.dumps(out))
+    check(not old, f"{what}: the replaced quantized read kernels ran: "
           f"{[e.key[:80] for e in old]}")
     # no stand-alone read launched (checked above), so every plain split
     # read on the device is a counted fused launch; the profiler may drop
@@ -1300,7 +1328,7 @@ def phase_profile(cfg, engine, chunks: int = 16):
     plain = out["decode_reads"]["plain"]["calls"]
     check(plain <= sum(fused.values())
           and (plain > 0) == (sum(fused.values()) > 0),
-          f"profile: {plain} plain split reads on the device, {fused} "
+          f"{what}: {plain} plain split reads on the device, {fused} "
           f"fused launches counted")
     return out
 
@@ -2368,6 +2396,474 @@ def phase_prefix_chunked(cfg, params, band: float, card: str):
     out["launches"] = launches
     log(f"prefix/chunked launches ({card}): " + json.dumps(launches))
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 37: the serving front end on the card
+# ---------------------------------------------------------------------------
+
+#: phase 37's geometry: serve()'s 8 slots and horizon 192, prompts up to
+#: 128 (serve() admits 64; byte-level chat prompts need the room), one
+#: token a decode dispatch (the constrained requests need it)
+API_GEOM = dict(slots=SLOTS, max_prompt_len=128, max_seq_len=HORIZON,
+                decode_chunk=1)
+#: the fair-share weights of (d), and a tenant at 2 tokens/s with a 4 s
+#: burst (one request of 8 tokens passes, the next waits seconds)
+API_WEIGHTS = {"gold": 3.0, "bronze": 1.0}
+API_TIGHT = "tight"
+API_CHAT_NEW = 24
+API_STOP_NEW = 16
+API_SCHEMA_NEW = 96
+API_TENANT_REQS = 16
+API_TENANT_NEW = 16
+#: (c)'s schemas: two objects with required keys, an array, an enum
+API_SCHEMAS = (
+    {"type": "object", "properties": {
+        "name": {"type": "string", "maxLength": 8},
+        "age": {"type": "integer"},
+        "ok": {"type": "boolean"}},
+     "required": ["name", "age", "ok"]},
+    {"type": "object", "properties": {
+        "id": {"type": "integer"},
+        "tags": {"type": "array", "items": {"enum": ["a", "b", "c"]},
+                 "minItems": 1, "maxItems": 3},
+        "score": {"type": "number"}},
+     "required": ["id", "tags"]},
+    {"type": "array", "items": {"type": "integer"}, "minItems": 2,
+     "maxItems": 4},
+    {"enum": ["red", "green", "blue"]},
+)
+#: (f)'s constrained request: at least 12 integers (25 tokens or more), so
+#: its slot stays constrained through a profile window
+API_WINDOW_SCHEMA = {"type": "array", "items": {"type": "integer"},
+                     "minItems": 12, "maxItems": 12}
+
+
+def _http(port: int, path: str, body, headers=None, *, on_token=None):
+    """POST ``body`` to the front end on 127.0.0.1. Returns ``(status,
+    headers, payload)``: the JSON body, or for an SSE stream ``{"tokens",
+    "finish", "text"}`` of choice 0, with ``on_token()`` called as each
+    token arrives."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        hdrs = dict(resp.getheaders())
+        if not hdrs.get("Content-Type", "").startswith("text/event-stream"):
+            raw = resp.read()
+            try:
+                return resp.status, hdrs, json.loads(raw)
+            except ValueError:
+                return resp.status, hdrs, raw.decode("utf-8", "replace")
+        toks, fins, text = [], [], ""
+        while True:
+            line = resp.readline()
+            if not line or line.strip() == b"data: [DONE]":
+                break
+            if not line.startswith(b"data: "):
+                continue
+            for ch in json.loads(line[6:])["choices"]:
+                ids = ch.get("token_ids") or []
+                toks += ids
+                text += (ch.get("delta") or {}).get("content", "") \
+                    or ch.get("text", "")
+                if ch.get("finish_reason"):
+                    fins.append(ch["finish_reason"])
+                if on_token is not None:
+                    for _ in ids:
+                        on_token()
+        return resp.status, hdrs, dict(tokens=toks, finish=fins, text=text)
+    finally:
+        conn.close()
+
+
+def _fits_schema(v, schema) -> bool:
+    """Whether the JSON value ``v`` has ``schema``'s shape: types, the
+    required keys, lengths and enum members."""
+    if "enum" in schema:
+        return v in schema["enum"]
+    t = schema.get("type")
+    if t == "object":
+        return (isinstance(v, dict)
+                and set(schema.get("required", ())) <= set(v)
+                and set(v) <= set(schema["properties"])
+                and all(_fits_schema(v[k], schema["properties"][k])
+                        for k in v))
+    if t == "array":
+        return (isinstance(v, list)
+                and schema.get("minItems", 0) <= len(v)
+                <= schema.get("maxItems", len(v))
+                and all(_fits_schema(x, schema["items"]) for x in v))
+    if t == "string":
+        return isinstance(v, str) and len(v) <= schema.get("maxLength",
+                                                           len(v))
+    if t == "integer":
+        return isinstance(v, int) and not isinstance(v, bool)
+    if t == "number":
+        return isinstance(v, (int, float)) and not isinstance(v, bool)
+    if t == "boolean":
+        return isinstance(v, bool)
+    return v is None
+
+
+def _reference_trim(stream, stops):
+    """An unstopped stream cut where a stop first completes, the stop
+    excluded (the host reference of the stop matcher)."""
+    for i in range(len(stream)):
+        for stop in stops:
+            if i + 1 >= len(stop) and \
+                    stream[i + 1 - len(stop):i + 1] == list(stop):
+                return stream[:i + 1 - len(stop)], True
+    return list(stream), False
+
+
+def _chat_messages(i: int):
+    """Chat (a)'s messages: rendered, every prompt is 64 bytes."""
+    from apex_tpu_torch.serving.api import render_chat_prompt
+
+    head = f"Request {i:02d}: tell me about the serving front end"
+    msgs = [{"role": "user", "content": head}]
+    pad = 64 - len(render_chat_prompt(msgs))
+    msgs[0]["content"] = head + "." * pad
+    return msgs
+
+
+def phase_api(cfg, params, band: float, card: str, prof5):
+    """Phase 37: ``start_api_server`` on 127.0.0.1, port 0, over a card
+    ``Engine`` (API_GEOM) and ``Scheduler`` (``pipeline_depth=2``,
+    ``max_admit_batch=1``: every admission one request wide, so a stream
+    does not depend on who shares its admission; the tenancy of (d)),
+    driven through ``http.client``; the launch counts zeroed before (a)
+    and read after (d). ``prof5`` is phase 6's profile of phase 5's
+    engine. Returns the launch counts and the numbers; each line of
+    numbers names ``card``.
+
+    (a) eight concurrent greedy ``stream: true`` chat requests (64-byte
+    rendered prompts, 24 tokens): each SSE stream of token ids equals the
+    port's solo ``gpt.generate`` on the card (one batch of the eight
+    prompts), or first diverges at a reference top-2 gap within ``band``
+    (phase 20's rule: the solo run's GEMMs see other shapes), and its text
+    is the byte decode of its ids.
+    (b) ``/v1/completions`` with ``stop`` strings: two plain prompts and
+    two ``json_object``-constrained ones (whose streams are bytes), each
+    first unstopped, then with a stop string cut from its unstopped
+    stream (a plain stream of the random model holds no text: two of its
+    token ids as ``stop_token_ids`` then); the stopped output equals the
+    reference trim of the unstopped one, ``finish_reason`` "stop".
+    (c) four ``response_format: json_schema`` requests (API_SCHEMAS, two
+    objects with required keys) at once: every output parses and fits
+    its schema; the mask uploads counted.
+    (d) 16 requests of tenant "gold" (weight 3) and 16 of "bronze"
+    (weight 1) at once, streamed: each tenant's share of the first half
+    of the streamed tokens; every stream equal to the same request served
+    by one tenant afterwards (no drift); tenant "tight" (2 tokens/s, a 4
+    s burst) gets a 429 with ``Retry-After`` on its second request.
+    (e) the masked draw on the card: all-True masks bit-equal to no mask
+    (greedy and sampled lanes), a one-token whitelist forcing its token
+    greedy and sampled, the greedy masked draw equal to the argmax of
+    the masked logits.
+    (f) ``phase_profile``'s window (8 steps) on this engine with no
+    constrained slot (its CUDA launches a decode step equal to phase 6's)
+    and with one constrained slot, in turns (plain, constrained,
+    constrained, plain): launches and host ms a decode step."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.serving import (
+        Engine,
+        EngineConfig,
+        Request,
+        SamplingParams,
+        Scheduler,
+        TenancyConfig,
+        sampling,
+    )
+    from apex_tpu_torch.serving.api import (
+        ByteTokenizer,
+        JsonSchemaConstraint,
+        render_chat_prompt,
+        start_api_server,
+    )
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    tok = ByteTokenizer(V)
+    engine = Engine(cfg, params, EngineConfig(**API_GEOM))
+    sched = Scheduler(engine, pipeline_depth=2, max_admit_batch=1,
+                      tenancy=TenancyConfig(weights=API_WEIGHTS,
+                                            rates={API_TIGHT: 2.0},
+                                            burst_s=4.0))
+    out = {}
+    server = start_api_server(sched, port=0)
+    port = server.port
+    pool = ThreadPoolExecutor(max_workers=2 * API_TENANT_REQS)
+    try:
+        before = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+
+        # (a) eight concurrent streamed chat requests
+        t = time.perf_counter()
+        futs = [pool.submit(_http, port, "/v1/chat/completions", {
+            "messages": _chat_messages(i), "max_tokens": API_CHAT_NEW,
+            "stream": True, "return_token_ids": True})
+            for i in range(SLOTS)]
+        chat = [f.result() for f in futs]
+        check(all(s == 200 for s, _, _ in chat),
+              f"api (a): statuses {[s for s, _, _ in chat]}")
+        for _, _, p in chat:
+            check(p["finish"] == ["length"]
+                  and len(p["tokens"]) == API_CHAT_NEW
+                  and p["text"] == tok.decode(p["tokens"]),
+                  f"api (a): a stream of {len(p['tokens'])} tokens "
+                  f"finished {p['finish']}")
+        out["chat_s"] = time.perf_counter() - t
+
+        # (b) stop strings: unstopped, then stopped at a cut of the stream
+        t = time.perf_counter()
+        fmt = {"type": "json_object",
+               "bounds": {"max_string_len": 6, "max_keys": 3,
+                          "max_items": 2, "max_depth": 2}}
+        cases = [("The card serves", None), ("Stop here, or there", None),
+                 ("emit json", fmt), ("more json", fmt)]
+
+        def completion(prompt, rf, **stop):
+            body = {"prompt": prompt, "max_tokens": API_STOP_NEW,
+                    "return_token_ids": True, **stop}
+            if rf is not None:
+                body["response_format"] = rf
+            s, _, d = _http(port, "/v1/completions", body)
+            check(s == 200, f"api (b): status {s}: {d}")
+            return d["choices"][0]
+
+        stops = []
+        for prompt, rf in cases:
+            full = completion(prompt, rf)["token_ids"]
+            # a stop string: the first two printable bytes from token 2 on
+            cut = next((full[i:i + 2] for i in range(2, len(full) - 1)
+                        if all(32 <= x < 127 for x in full[i:i + 2])),
+                       None)
+            check(cut is not None or rf is None,
+                  f"api (b): a constrained stream with no printable "
+                  f"pair: {full}")
+            if cut is None:
+                # the random model's plain stream holds no text: stop on
+                # two of its token ids instead
+                cut = full[4:6]
+                stop = dict(stop_token_ids=[cut])
+            else:
+                stop = dict(stop=[bytes(cut).decode("ascii"),
+                                  "\x7fnever"])
+            got = completion(prompt, rf, **stop)
+            want, matched = _reference_trim(full, [cut])
+            check(matched and got["token_ids"] == want
+                  and got["finish_reason"] == "stop",
+                  f"api (b): {prompt!r} {stop}: {got['token_ids']} "
+                  f"finished {got['finish_reason']}, the reference trim "
+                  f"of {full} is {want}")
+            stops.append(dict(prompt=prompt, unstopped=len(full),
+                              kept=len(want), **stop))
+        check(sum("stop" in s for s in stops) >= 2,
+              f"api (b): fewer than two stop strings: {stops}")
+        out["stops"] = stops
+        out["stops_s"] = time.perf_counter() - t
+
+        # (c) four schemas at once
+        t = time.perf_counter()
+        uploads0 = engine.mask_uploads
+        futs = [pool.submit(_http, port, "/v1/chat/completions", {
+            "messages": [{"role": "user",
+                          "content": f"emit json {i} for the schema"}],
+            "max_tokens": API_SCHEMA_NEW,
+            "response_format": {"type": "json_schema",
+                                "json_schema": {"schema": schema}}})
+            for i, schema in enumerate(API_SCHEMAS)]
+        values = []
+        for f, schema in zip(futs, API_SCHEMAS):
+            s, _, d = f.result()
+            check(s == 200, f"api (c): status {s}: {d}")
+            ch = d["choices"][0]
+            content = ch["message"]["content"]
+            try:
+                v = json.loads(content)
+            except ValueError:
+                raise SmokeFailure(f"api (c): {content!r} does not parse")
+            check(ch["finish_reason"] == "stop" and _fits_schema(v, schema),
+                  f"api (c): {content!r} ({ch['finish_reason']}) does not "
+                  f"fit {schema}")
+            values.append(content)
+        out["schemas"] = dict(values=values,
+                              mask_uploads=engine.mask_uploads - uploads0)
+        out["schemas_s"] = time.perf_counter() - t
+        log(f"api (c) ({card}): {json.dumps(out['schemas'])}")
+
+        # (d) two tenants at 3:1, 16 requests each at once
+        t = time.perf_counter()
+        order, lock = [], threading.Lock()
+
+        def note(tenant):
+            def on_token():
+                with lock:
+                    order.append(tenant)
+            return on_token
+
+        tenant_reqs = [(tn, i) for i in range(API_TENANT_REQS)
+                       for tn in ("gold", "bronze")]
+        futs = [pool.submit(
+            _http, port, "/v1/completions",
+            {"prompt": f"{tn} tenant, request {i:02d}",
+             "max_tokens": API_TENANT_NEW, "stream": True,
+             "return_token_ids": True}, {"X-Tenant-Id": tn},
+            on_token=note(tn)) for tn, i in tenant_reqs]
+        tenant_streams = {}
+        for (tn, i), f in zip(tenant_reqs, futs):
+            s, _, p = f.result()
+            check(s == 200 and len(p["tokens"]) == API_TENANT_NEW,
+                  f"api (d): {tn} {i}: status {s}, {p}")
+            tenant_streams[(tn, i)] = p["tokens"]
+        half = order[:len(order) // 2]
+        share = {tn: half.count(tn) / max(len(half), 1)
+                 for tn in API_WEIGHTS}
+        s, hdrs, d = _http(port, "/v1/completions", {
+            "prompt": "tight", "max_tokens": 8}, {"X-Tenant-Id": API_TIGHT})
+        check(s == 200, f"api (d): the tight tenant's first request: {s}")
+        s, hdrs, d = _http(port, "/v1/completions", {
+            "prompt": "tight again", "max_tokens": 8},
+            {"X-Tenant-Id": API_TIGHT})
+        check(s == 429 and int(hdrs.get("Retry-After", "0")) >= 1
+              and d["error"]["code"] == "tenant_rate_limited",
+              f"api (d): the tight tenant's second request: {s} {hdrs} {d}")
+        out["tenants"] = dict(
+            first_half_share=share, tokens=len(order),
+            retry_after=hdrs["Retry-After"],
+            summary={k: v for k, v in sched.tenant_summary().items()
+                     if k in API_WEIGHTS or k == API_TIGHT})
+        out["tenants_s"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        delta = {k: getattr(engine, k) - v for k, v in before.items()}
+    finally:
+        server.stop()
+        pool.shutdown()
+    check(sched.idle(), "api: the scheduler is not idle after the phase")
+    s = sched.summary()
+    out.update(wall_s=wall, decode_steps=delta["decode_steps_taken"],
+               admit_groups=delta["admit_groups"],
+               stop_finishes=s["stop_finishes"],
+               tenant_throttled=s["tenant_throttled"],
+               tokens_emitted=s["tokens_emitted"])
+    check_decode_step_kernels("api", counts, ("decode_attention_write",),
+                              delta["decode_steps_taken"], L)
+    check_prefills("api", counts, delta, L)
+    out["launches"] = {k: counts[k] for k in ("flash_attention_bsh",
+                                              "decode_attention_write")}
+    log(f"api (a)-(d) ({card}): " + json.dumps(out))
+
+    # (a) against the solo generate (after the counted window)
+    msgs = [_chat_messages(i) for i in range(SLOTS)]
+    prompts = [tok.encode(render_chat_prompt(m)) for m in msgs]
+    solo = gpt.generate(cfg, gpt.cast_params(cfg, params),
+                        torch.tensor(prompts, device="cuda"),
+                        API_CHAT_NEW).tolist()
+    reqs = [Request(f"c{i}", prompts[i], max_tokens=API_CHAT_NEW)
+            for i in range(SLOTS)]
+    gaps = _drift_gaps(cfg, params, reqs,
+                       {f"c{i}": chat[i][2]["tokens"] for i in range(SLOTS)},
+                       {f"c{i}": solo[i] for i in range(SLOTS)})
+    check(all(g <= band for _, _, g in gaps),
+          f"api (a): chat streams part from the solo generate past the "
+          f"band {band}: {gaps}")
+    out["chat_vs_solo"] = dict(identical=SLOTS - len(gaps),
+                               first_divergence_gaps=gaps)
+    log(f"api (a) vs solo generate ({card}): "
+        + json.dumps(out["chat_vs_solo"]))
+
+    # (d) against the same requests served by one tenant
+    ref = Scheduler(engine, max_admit_batch=1)
+    for tn, i in tenant_reqs:
+        ref.submit(Request(f"{tn}{i}", tok.encode(
+            f"{tn} tenant, request {i:02d}"), max_tokens=API_TENANT_NEW))
+    ref.run_until_idle()
+    drift = [k for k in tenant_reqs
+             if ref.completions[f"{k[0]}{k[1]}"].tokens != tenant_streams[k]]
+    check(not drift, f"api (d): streams drift from the one-tenant run: "
+          f"{drift}")
+    log(f"api (d) ({card}): first-half token shares "
+        f"{json.dumps(share)}, weights {json.dumps(API_WEIGHTS)}, no drift "
+        f"over {len(tenant_reqs)} streams, 429 Retry-After "
+        f"{out['tenants']['retry_after']}")
+
+    # (e) the masked draw on the card
+    g = torch.Generator("cuda").manual_seed(37)
+    lg = torch.randn(SLOTS, V, generator=g, device="cuda") * 3
+    keys = torch.tensor([sampling.request_key(i, 0) for i in range(SLOTS)],
+                        dtype=torch.int64, device="cuda")
+    tt = torch.arange(SLOTS, device="cuda") + 9
+    temp = torch.tensor([0.0, 0.9] * (SLOTS // 2), device="cuda")
+    top_k = torch.tensor([0, 40, 0, 0] * (SLOTS // 4), device="cuda")
+    top_p = torch.tensor([1.0, 1.0, 1.0, 0.9] * (SLOTS // 4),
+                         device="cuda")
+    draw = lambda m: sampling.draw_slots(lg, keys, tt, temp, top_k, top_p,
+                                         masks=m)
+    ones = torch.ones(SLOTS, V, dtype=torch.bool, device="cuda")
+    check(torch.equal(draw(ones), draw(None)),
+          "api (e): an all-True mask draws other tokens than no mask")
+    forced = 4242 % V
+    one = torch.zeros_like(ones)
+    one[:, forced] = True
+    check(bool((draw(one) == forced).all()),
+          "api (e): a one-token whitelist did not force its token")
+    rnd = torch.rand(SLOTS, V, generator=g, device="cuda") < 0.01
+    rnd[:, 7] = True
+    got = draw(rnd)
+    masked = lg.masked_fill(~rnd, torch.finfo(lg.dtype).min)
+    greedy = temp <= 0
+    check(torch.equal(got[greedy], masked.argmax(-1)[greedy])
+          and bool(rnd.gather(1, got[:, None]).all()),
+          "api (e): a masked draw left its mask or its greedy argmax")
+    out["masked_draw"] = "held"
+    log(f"api (e) ({card}): all-True == no mask, a one-token whitelist "
+        f"forced greedy and sampled, greedy masked draw == argmax")
+
+    # (f) a decode step with and without a constrained slot, in turns
+    def window_reqs(constrained: bool):
+        reqs = bench_trace(V, n=SLOTS, max_tokens=40, seed0=5000)
+        if constrained:
+            reqs[0].constraint = JsonSchemaConstraint(API_WINDOW_SCHEMA)
+        return reqs
+
+    turns = []
+    for side in ("plain", "constrained", "constrained", "plain"):
+        u0 = engine.mask_uploads
+        p = phase_profile(cfg, engine, chunks=8,
+                          reqs=window_reqs(side != "plain"),
+                          what=f"api (f) {side}")
+        check(p is not None, "api (f): the profiler saw no kernel")
+        turns.append(dict(side=side, mask_uploads=engine.mask_uploads - u0,
+                          **{k: p[k] for k in (
+                              "decode_steps", "host_ms_per_decode_step",
+                              "launches_per_decode_step",
+                              "device_idle_share")}))
+    plain = [x for x in turns if x["side"] == "plain"]
+    if prof5 is not None:
+        check(all(x["launches_per_decode_step"]
+                  == prof5["launches_per_decode_step"] for x in plain),
+              f"api (f): an unconstrained decode step launched "
+              f"{[x['launches_per_decode_step'] for x in plain]}, phase 6 "
+              f"{prof5['launches_per_decode_step']}")
+    out["decode_step"] = dict(
+        phase6_launches=None if prof5 is None
+        else prof5["launches_per_decode_step"],
+        phase6_host_ms=None if prof5 is None
+        else prof5["host_ms_per_decode_step"], turns=turns)
+    log(f"api (f) ({card}): " + json.dumps(out["decode_step"]))
+    return out["launches"], out
 
 
 
@@ -7912,7 +8408,7 @@ def main() -> int:
         t = time.perf_counter()
         counts, _, engine, streams = phase_path(cfg, params, band)
         log(f"path phase {time.perf_counter() - t:.1f}s")
-        phase_profile(cfg, engine)
+        prof5 = phase_profile(cfg, engine)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -7934,6 +8430,11 @@ def main() -> int:
         t = time.perf_counter()
         prefix_launches, _ = phase_prefix_chunked(cfg, params, band, card)
         log(f"prefix/chunked phase {time.perf_counter() - t:.1f}s")
+        # the serving front end: the HTTP server, stop strings, schema
+        # constraints, tenants
+        t = time.perf_counter()
+        api_launches, _ = phase_api(cfg, params, band, card, prof5)
+        log(f"front-end phase {time.perf_counter() - t:.1f}s")
         # the quantized cache, on the same serving model
         t = time.perf_counter()
         quant_rows = phase_quant_kernels()
@@ -8150,6 +8651,12 @@ def main() -> int:
                           "paged_verify_attention")):
         for name in names:
             rows[name]["launches_prefix_chunked"] = prefix_launches[fused]
+    # phase 37's path: row 5 for every admission, row 10 (in its fused
+    # launch) for every decode step
+    for name, fused in (("flash_attention_bsh", "flash_attention_bsh"),
+                        ("decode_attention", "decode_attention_write"),
+                        ("decode_attention_write", "decode_attention_write")):
+        rows[name]["api_launches"] = api_launches[fused]
     for r in quant_rows.values():
         r["launches"] = quant_launches[r["name"]]
     rows.update(quant_rows)

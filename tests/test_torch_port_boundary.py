@@ -1,7 +1,9 @@
 """The port's boundary: what ``apex_tpu_torch`` imports, when it builds
 and touches CUDA, and where it refuses to run.
 
-- Every module of the package imports in a subprocess whose
+- Every module of the package (the serving front end's too: the tenancy
+  book, ``serving/api/*`` and ``examples/serve_gpt.py``) imports in a
+  subprocess whose
   ``sys.meta_path`` blocks ``jax``, ``jaxlib`` and ``apex_tpu`` (the exact
   name and the ``apex_tpu.`` prefix — not the string prefix, which would
   also block ``apex_tpu_torch``), and the import neither builds the
@@ -58,6 +60,13 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     leaked = sorted(m for m in sys.modules if any(
         m == b or m.startswith(b + ".") for b in BLOCKED))
     print("MODULES", len(names))
+    print("FRONTEND", all(n in names for n in (
+        "apex_tpu_torch.serving.tenancy", "apex_tpu_torch.serving.api",
+        "apex_tpu_torch.serving.api.server",
+        "apex_tpu_torch.serving.api.protocol",
+        "apex_tpu_torch.serving.api.constrain",
+        "apex_tpu_torch.serving.api.tokenizer",
+        "apex_tpu_torch.examples.serve_gpt")))
     print("LEAKED", leaked)
     print("BUILT", _build._info is not None or _build._lib is not None)
     print("CUDA_INIT", torch.cuda.is_initialized())
@@ -71,8 +80,11 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its twelve subpackages and their thirty-six modules
-    assert int(out["MODULES"]) == 49, out
+    # the package, its thirteen subpackages and their forty-two modules
+    # (serving/tenancy.py, serving/api/* and examples/serve_gpt.py among
+    # them)
+    assert int(out["MODULES"]) == 56, out
+    assert out["FRONTEND"] == "True"
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"
     assert out["CUDA_INIT"] == "False"

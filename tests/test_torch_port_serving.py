@@ -295,11 +295,19 @@ def test_deadline_expires_queued_and_active(model):
     ("stop", [[1, 2]]), ("constraint", object()), ("tenant", "t1"),
     ("adapter", 1)])
 def test_later_slice_request_fields_rejected(model, field, value):
+    """Only the adapter still waits for its slice; stop sequences,
+    constraints and tenants are served since the front-end slice, and a
+    request carrying one is queued."""
     _, _, _, tcfg, tparams = model
     sched = Scheduler(Engine(tcfg, tparams, EngineConfig(
         slots=1, max_prompt_len=16, max_seq_len=32), device="cpu"))
+    req = Request("x", [1, 2], max_tokens=2, **{field: value})
+    if field != "adapter":
+        sched.submit(req)
+        assert list(sched.queue) == [req]
+        return
     with pytest.raises(ValueError, match="later slice"):
-        sched.submit(Request("x", [1, 2], max_tokens=2, **{field: value}))
+        sched.submit(req)
 
 
 @pytest.mark.parametrize("field,value", [
