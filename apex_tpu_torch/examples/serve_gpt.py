@@ -31,7 +31,11 @@ greedy, half sampled (temperature 0.9, top-k 20, seed ``i``), with a stop
 sequence on every third request and the tenants of ``--tenant-weights``
 / ``--tenant-rate`` round-robin; ``--prefix-template`` pools a shared
 prompt prefix (half the synthetic prompts start with it) and
-``--prefill-chunk`` adds a long prompt on every fourth request. Its
+``--prefill-chunk`` adds a long prompt on every fourth request;
+``--adapters N`` registers N seeded LoRA adapters (seeds 100, 101, ...)
+into a pool of N + 1 rows and spreads the trace over the base model and
+them (request ``i`` on adapter ``i % (N + 1)``; adapter rows skip the
+shared prefix), and the front end lists them in ``/v1/models``. Its
 prompts are drawn with numpy, not ``jax.random``, so they differ from
 the JAX script's. ``--api-port`` serves ``/v1/chat/completions``,
 ``/v1/completions``, ``/v1/models`` and ``/healthz`` after the batch
@@ -44,9 +48,8 @@ ROADMAP queue 1 item they wait for: ``--tp > 1`` (item 5), ``--ckpt``
 (item 7), and, of item 3, ``--metrics-port``, ``--metrics-linger``,
 ``--span-trace``, ``--slo`` and ``--bundle-dir`` (telemetry),
 ``--journal-dir``, ``--fault-plan``, ``--replicas > 1`` and
-``--kill-replica`` (resilience), ``--autotune`` (the tuner),
-``--host-swap`` and ``--resume-policy`` (the host-swap tier) and
-``--adapters`` (multi-LoRA).
+``--kill-replica`` (resilience), ``--autotune`` (the tuner) and
+``--host-swap`` and ``--resume-policy`` (the host-swap tier).
 """
 
 from __future__ import annotations
@@ -117,15 +120,18 @@ def load_requests(path: str, vocab_size: int) -> List[Request]:
 def synthetic_requests(n: int, prompt_len: int, max_tokens: int,
                        vocab_size: int, prefix=None,
                        long_prompt_len: int = 0,
-                       tenants: Optional[List[str]] = None
-                       ) -> List[Request]:
+                       tenants: Optional[List[str]] = None,
+                       adapters: int = 0) -> List[Request]:
     """The JAX script's seeded stand-in trace, drawn with numpy: half
     greedy, half sampled; every third request carries a stop sequence;
     with ``prefix`` every other prompt starts with it; with
     ``long_prompt_len`` every fourth (offset 1) is that long; ``tenants``
-    round-robin."""
+    round-robin; with ``adapters`` (registered LoRA adapters) request
+    ``i`` on adapter ``i % (adapters + 1)``, its prompt without the
+    prefix (pooled prefixes are base-weight K/V)."""
     reqs = []
     for i in range(n):
+        adapter = (i % (adapters + 1)) if adapters else 0
         tenant = tenants[i % len(tenants)] if tenants else "default"
         if long_prompt_len and i % 4 == 1:
             tail = np.random.default_rng(2000 + i).integers(
@@ -133,14 +139,15 @@ def synthetic_requests(n: int, prompt_len: int, max_tokens: int,
         else:
             tail = np.random.default_rng(1000 + i).integers(
                 0, vocab_size, 1 + (prompt_len + i) % prompt_len).tolist()
-        prompt = (list(prefix) + tail[:2]) if prefix and i % 2 == 0 \
-            else tail
+        prompt = (list(prefix) + tail[:2]) \
+            if prefix and i % 2 == 0 and not adapter else tail
         sp = (SamplingParams(temperature=0.9, top_k=20, seed=i)
               if i % 2 else SamplingParams())
         stop = [[(17 * i + 3) % vocab_size,
                  (17 * i + 4) % vocab_size]] if i % 3 == 0 else None
         reqs.append(Request(f"r{i}", prompt, max_tokens=max_tokens,
-                            sampling=sp, stop=stop, tenant=tenant))
+                            sampling=sp, stop=stop, tenant=tenant,
+                            adapter=adapter))
     return reqs
 
 
@@ -181,6 +188,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--api-linger", type=float, default=0.0,
                     help="keep the front end up this many seconds (0 = "
                     "until Ctrl-C)")
+    ap.add_argument("--adapters", type=int, default=0,
+                    help="register this many seeded LoRA adapters "
+                    "(seeds 100, 101, ...; EngineConfig.adapter_slots = "
+                    "N + 1) and spread the synthetic trace over them")
     # flags of modules the port does not have yet (refused)
     ap.add_argument("--ckpt")
     ap.add_argument("--metrics-port", type=int, default=None)
@@ -195,7 +206,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--host-swap", action="store_true")
     ap.add_argument("--resume-policy", default=None,
                     choices=("auto", "swap", "recompute"))
-    ap.add_argument("--adapters", type=int, default=0)
     ap.add_argument("--slo", default=None)
     return ap.parse_args(argv)
 
@@ -226,7 +236,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (f"--host-swap (the host-swap tier; {_SERVING})", args.host_swap),
         (f"--resume-policy (the host-swap tier; {_SERVING})",
          args.resume_policy is not None),
-        (f"--adapters (multi-LoRA; {_SERVING})", args.adapters != 0),
     ) if on]
     if refused:
         raise SystemExit("not supported by apex_tpu_torch yet: "
@@ -268,7 +277,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         max_seq_len=args.max_seq_len, decode_chunk=args.decode_chunk,
         prefix_pool_slots=len(templates), spec_k=args.spec_k,
         page_size=args.page_size, num_pages=args.max_pages,
-        prefill_chunk=args.prefill_chunk), device=dev)
+        prefill_chunk=args.prefill_chunk,
+        adapter_slots=args.adapters + 1 if args.adapters else 0),
+        device=dev)
     long_len = 0
     if args.prefill_chunk and not args.requests:
         # longer than one chunk, within the engine's prompt room
@@ -277,12 +288,15 @@ def main(argv: Optional[List[str]] = None) -> None:
             else synthetic_requests(
                 args.num_requests, 8, args.max_tokens, cfg.vocab_size,
                 prefix=templates[0] if templates else None,
-                long_prompt_len=long_len, tenants=tenant_names))
+                long_prompt_len=long_len, tenants=tenant_names,
+                adapters=args.adapters))
     # offline batch mode submits everything at once: size the queue to it
     sched = Scheduler(engine, max_queue=max(256, len(reqs)),
                       pipeline_depth=args.pipeline_depth, tenancy=tenancy)
     for t in templates:
         sched.register_prefix(t)
+    for i in range(args.adapters):
+        sched.register_adapter(seed=100 + i)
     for r in reqs:
         try:
             sched.submit(r)
@@ -298,7 +312,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"{list(r.prompt)} -> {c.tokens}")
     print("served " + json.dumps(
         {k: round(v, 3) for k, v in sched.summary().items()}))
-    if tenancy is not None:
+    if tenancy is not None or args.adapters:
         print("tenants " + json.dumps(sched.tenant_summary()))
     if args.api_port is not None:
         from apex_tpu_torch.serving.api import start_api_server

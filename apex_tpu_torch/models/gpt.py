@@ -19,8 +19,13 @@ or quantized to int8 / fp8 by ``kv_cache_dtype``), speculative decoding
 (:func:`ngram_drafts`, :func:`shift_hist`, :func:`decode_verify`,
 :func:`decode_steps_spec`), the cache seams (:func:`init_cache`,
 :func:`cache_insert_slot(s)`, :func:`cache_insert_pages`,
-:func:`cache_gather_page`, :func:`quantize_cache_block`, :func:`dequantize_cache_block`) and
-:func:`generate`, the solo oracle of the serving engine. The port has no
+:func:`cache_gather_page`, :func:`quantize_cache_block`, :func:`dequantize_cache_block`),
+:func:`generate`, the solo oracle of the serving engine, and
+:func:`beam_search`. Batched multi-LoRA (:func:`init_lora_pool`,
+:func:`lora_set_row`, :func:`init_lora_weights`, :func:`merge_lora`) rides
+every serving forward as ``lora=(pool, ids, scale)``: each row's adapter
+delta at the four dense seams, the pool gathered by ``ids`` once a call.
+The port has no
 mesh and runs tp=1. Every function has the JAX package's tp=1 semantics
 with two differences of idiom:
 
@@ -289,6 +294,21 @@ def params_from_numpy(tree, *, device: Optional[Union[str, torch.device]]
     return _tree_map(conv, tree)
 
 
+def lora_pool_from_numpy(tree, *, device: Optional[Union[str, torch.device]]
+                         = None) -> Dict[str, Any]:
+    """A LoRA pool as nested dicts of numpy arrays (JAX's
+    ``init_lora_pool`` / ``lora_set_row`` result through ``np.asarray``)
+    → the port's pool on ``device``, by :func:`params_from_numpy`'s
+    conversion."""
+    return params_from_numpy(tree, device=device)
+
+
+def lora_pool_to_numpy(pool) -> Dict[str, Any]:
+    """The reverse of :func:`lora_pool_from_numpy` (bfloat16 as
+    float32)."""
+    return params_to_numpy(pool)
+
+
 def params_to_numpy(params) -> Dict[str, Any]:
     """The reverse of :func:`params_from_numpy`: nested dicts of numpy
     arrays on the host (bfloat16 tensors come back as float32)."""
@@ -376,13 +396,29 @@ def _remat_name(name: str):
         _REMAT_NAME.value = prev
 
 
-def _qkv_project(cfg: GPTConfig, p, x):
+def _qkv_project(cfg: GPTConfig, p, x, lora=None):
     """The three slab matmuls of the ``[h, 3, h]`` fused QKV weight →
-    ``(q, k, v)``, each ``[..., h]`` in the flash kernel's layout."""
+    ``(q, k, v)``, each ``[..., h]`` in the flash kernel's layout.
+    ``lora`` (serving only) is the layer's gathered adapter bundle
+    (:func:`_lora_layers`): each slab gains its per-row delta, the rank-r
+    intermediate shared by the three."""
     ws, bs = p["kernel"].unbind(1), p["bias"].unbind(0)
     with _remat_name("attn_qkv"):
         ys = [torch.matmul(x, w) for w in ws]
-    return tuple(y + b for y, b in zip(ys, bs))
+    outs = tuple(y + b for y, b in zip(ys, bs))
+    if lora is None:
+        return outs
+    deltas = _lora_site(x, lora, "qkv").unflatten(-1, (3, -1)).unbind(-2)
+    return tuple(o + d for o, d in zip(outs, deltas))
+
+
+def _proj(p, out, lora=None):
+    """The attention output projection of ``out [..., h]`` (the heads
+    merged), with the layer's adapter delta under ``lora``."""
+    y = torch.matmul(out, p["kernel"]) + p["bias"]
+    if lora is not None:
+        y = y + _lora_site(out, lora, "proj")
+    return y
 
 
 def _attn_impl(cfg: GPTConfig, device: torch.device) -> str:
@@ -452,25 +488,32 @@ def _xla_attn_probs(cfg: GPTConfig, q, k, mask):
     return torch.softmax(scores, dim=-1).to(q.dtype)
 
 
-def _mlp(cfg: GPTConfig, p, h):
+def _mlp(cfg: GPTConfig, p, h, lora=None):
+    """fc1, tanh GELU, fc2; under ``lora`` fc1's delta lands before the
+    GELU (the merged weight's semantics) and fc2's on its input."""
     with _remat_name("mlp_fc1"):
         y = torch.matmul(h, p["fc1"]["kernel"])
-    y = F.gelu(y + p["fc1"]["bias"], approximate="tanh")
-    return torch.matmul(y, p["fc2"]["kernel"]) + p["fc2"]["bias"]
+    if lora is None:
+        y = F.gelu(y + p["fc1"]["bias"], approximate="tanh")
+        return torch.matmul(y, p["fc2"]["kernel"]) + p["fc2"]["bias"]
+    y = F.gelu(y + p["fc1"]["bias"] + _lora_site(h, lora, "fc1"),
+               approximate="tanh")
+    return (torch.matmul(y, p["fc2"]["kernel"]) + p["fc2"]["bias"]
+            + _lora_site(y, lora, "fc2"))
 
 
-def _block(cfg: GPTConfig, p, h, *, return_kv: bool = False):
+def _block(cfg: GPTConfig, p, h, *, return_kv: bool = False, lora=None):
     """One transformer layer over ``h [b, s, hidden]``; with
     ``return_kv`` also the attention's ``(k, v)`` as ``[b, heads, s,
-    d]`` — the cache entries bulk prefill captures."""
+    d]`` — the cache entries bulk prefill captures. ``lora`` is the
+    layer's gathered adapter bundle (serving prefill only)."""
     x = _layer_norm(cfg, h, p["ln1"]["scale"], p["ln1"]["bias"])
-    q, k, v = _qkv_project(cfg, p["attn"]["qkv"], x)
+    q, k, v = _qkv_project(cfg, p["attn"]["qkv"], x, lora)
     heads = q.shape[-1] // cfg.head_dim
     ctx = _attention_ctx(cfg, q, k, v, heads)
-    h = h + (torch.matmul(ctx, p["attn"]["proj"]["kernel"])
-             + p["attn"]["proj"]["bias"])
+    h = h + _proj(p["attn"]["proj"], ctx, lora)
     x = _layer_norm(cfg, h, p["ln2"]["scale"], p["ln2"]["bias"])
-    h = h + _mlp(cfg, p["mlp"], x)
+    h = h + _mlp(cfg, p["mlp"], x, lora)
     if return_kv:
         return h, (_split_heads(k, heads), _split_heads(v, heads))
     return h
@@ -708,6 +751,160 @@ def dequantize_cache_block(cfg: GPTConfig, block):
     return block
 
 
+# ---------------------------------------------------------------------------
+# batched multi-LoRA: per-row low-rank adapter deltas on the dense seams
+# ---------------------------------------------------------------------------
+
+#: the four dense seams an adapter deltas, in ``init_lora_weights``' order
+LORA_SITES = ("qkv", "proj", "fc1", "fc2")
+
+
+def _lora_scale(scale: float, dtype) -> float:
+    """``alpha / r`` rounded to ``dtype`` (JAX multiplies by
+    ``jnp.asarray(scale, x.dtype)``), as a Python number: a tensor
+    product with it rounds once, in ``dtype``, and syncs nothing."""
+    return float(torch.tensor(float(scale), dtype=dtype))
+
+
+def _lora_u(x, ag):
+    """The rank-r intermediate ``x @ ag^T``: ``x [B, din]`` or ``[B, T,
+    din]`` against the gathered ``ag [B, r, din]``, in ``x``'s dtype."""
+    if x.dim() == 2:
+        return torch.bmm(x.unsqueeze(1), ag.transpose(1, 2)).squeeze(1)
+    return torch.bmm(x, ag.transpose(1, 2))
+
+
+def _lora_out(u, bg, sc: float):
+    """``(u @ bg) * sc`` for ``u [B, r]`` or ``[B, T, r]`` and the gathered
+    ``bg [B, r, ...]`` (the qkv site's ``[B, r, 3, dout]`` flattened to
+    ``[B, r, 3 * dout]``): the product rounds, then the scale."""
+    b2 = bg.reshape(bg.shape[0], bg.shape[1], -1)
+    if u.dim() == 2:
+        return torch.bmm(u.unsqueeze(1), b2).squeeze(1) * sc
+    return torch.bmm(u, b2) * sc
+
+
+def _lora_delta(x, a, b, ids, scale):
+    """The batched per-row LoRA delta of ONE dense site: ``x [B, din]`` or
+    ``[B, T, din]`` with per-row adapter ids ``ids [B]`` over a pool
+    ``a [n, r, din]`` / ``b [n, r, dout]`` → ``(gather(a, ids) x)
+    gather(b, ids) * scale`` in ``x``'s dtype (JAX's ``_lora_delta`` at
+    tp=1). The pinned all-zero row 0 gives an exact-zero delta."""
+    ids = torch.as_tensor(ids, device=a.device)
+    return _lora_out(_lora_u(x, a.index_select(0, ids)),
+                     b.index_select(0, ids), _lora_scale(scale, x.dtype))
+
+
+def _lora_site(x, lora, site: str):
+    """The delta of ``site`` for ``x`` under a layer's gathered bundle
+    ``lora = (pages, sc)`` (:func:`_lora_layers`)."""
+    ag, bg = lora[0][site]
+    return _lora_out(_lora_u(x, ag), bg, lora[1])
+
+
+def _lora_layers(cfg: GPTConfig, lora):
+    """``(pool, ids, scale)`` → one ``({site: (a [B, r, din], b [B, r,
+    ...])}, sc)`` bundle a layer, or None. Each pool tensor is gathered
+    by ``ids`` ONCE over its stacked layers; a layer's factors are views
+    of that gather."""
+    if lora is None:
+        return None
+    pool, ids, scale = lora
+    ids = torch.as_tensor(ids, device=pool["qkv"]["a"].device)
+    g = {site: (pool[site]["a"].index_select(1, ids),
+                pool[site]["b"].index_select(1, ids)) for site in LORA_SITES}
+    sc = _lora_scale(scale, cfg.compute_dtype)
+    return [({site: (a[l], b[l]) for site, (a, b) in g.items()}, sc)
+            for l in range(pool["qkv"]["a"].shape[0])]
+
+
+def init_lora_pool(cfg: GPTConfig, params, n_adapters: int, rank: int):
+    """The zero adapter pool for the four dense seams of every layer, on
+    the parameters' device in compute dtype: per site ``a [L, n, r,
+    din]`` / ``b [L, n, r(, 3), dout]``. Row 0 is the pinned all-zero
+    adapter (base traffic); the serving engine registers adapters into
+    rows >= 1 (:func:`lora_set_row`)."""
+    if cfg.num_experts:
+        raise ValueError(
+            "LoRA adapters do not compose with num_experts > 0 (the "
+            "expert FFN has no per-row dense seam to delta)")
+    qkv_k = params["layers"]["attn"]["qkv"]["kernel"]   # [L, h, 3, hl]
+    L, hl, h = qkv_k.shape[0], qkv_k.shape[-1], cfg.hidden_size
+    fl = params["layers"]["mlp"]["fc1"]["kernel"].shape[-1]
+    z = lambda *s: torch.zeros((L, n_adapters, rank) + s,
+                               dtype=cfg.compute_dtype, device=qkv_k.device)
+    return {
+        "qkv": {"a": z(h), "b": z(3, hl)},
+        "proj": {"a": z(hl), "b": z(h)},
+        "fc1": {"a": z(h), "b": z(fl)},
+        "fc2": {"a": z(fl), "b": z(h)},
+    }
+
+
+def lora_set_row(pool, row, idx: int):
+    """Write one adapter's ``[L, r, ...]`` row block (per site ``{"a",
+    "b"}``, tensors or numpy arrays) into pool row ``idx`` IN PLACE, cast
+    to the pool's dtype (returns ``pool``)."""
+    for site, parts in pool.items():
+        for part, c in parts.items():
+            c[:, int(idx)] = torch.as_tensor(
+                row[site][part], device=c.device).to(c.dtype)
+    return pool
+
+
+def init_lora_weights(cfg: GPTConfig, rank: int, seed: int, *,
+                      std: float = 0.02):
+    """Deterministic synthetic adapter weights, host numpy fp32: per site
+    ``a [L, r, din]`` / ``b [L, r(, 3), dout]`` ~ N(0, std) from
+    ``default_rng(seed & 0xFFFFFFFF)`` in JAX's site and draw order, so
+    they are JAX's bit for bit. Both factors are nonzero, so the delta
+    moves logits."""
+    if cfg.num_experts:
+        raise ValueError(
+            "LoRA adapters do not compose with num_experts > 0")
+    rng = np.random.default_rng(int(seed) & 0xFFFFFFFF)
+    h, f, L = cfg.hidden_size, cfg.ffn, cfg.num_layers
+    g = lambda *s: rng.normal(0.0, std, (L, rank) + s).astype(np.float32)
+    return {
+        "qkv": {"a": g(h), "b": g(3, h)},
+        "proj": {"a": g(h), "b": g(h)},
+        "fc1": {"a": g(h), "b": g(f)},
+        "fc2": {"a": g(f), "b": g(h)},
+    }
+
+
+def merge_lora(cfg: GPTConfig, params, weights, alpha: float):
+    """Fold adapter ``weights`` (:func:`init_lora_weights`' layout) into a
+    COPY of ``params``: ``W += (alpha / r) a^T b`` per dense site, the
+    product in fp32 and the sum in param dtype, as JAX's. The
+    merged-weight oracle: a solo forward with the merged params matches
+    the engine's batched adapter path within per-dtype tolerance."""
+    lay = params["layers"]
+    dev = lay["attn"]["qkv"]["kernel"].device
+    w = {site: {part: torch.as_tensor(x, device=dev).float()
+                for part, x in parts.items()}
+         for site, parts in weights.items()}
+    sc = float(alpha) / float(w["qkv"]["a"].shape[1])
+
+    def fold(kernel, eq, site):
+        d = sc * torch.einsum(eq, w[site]["a"], w[site]["b"]).float()
+        return kernel + d.to(kernel.dtype)
+
+    attn, mlp = lay["attn"], lay["mlp"]
+    return {**params, "layers": {
+        **lay,
+        "attn": {**attn,
+                 "qkv": {**attn["qkv"], "kernel": fold(
+                     attn["qkv"]["kernel"], "lrh,lrci->lhci", "qkv")},
+                 "proj": {**attn["proj"], "kernel": fold(
+                     attn["proj"]["kernel"], "lri,lro->lio", "proj")}},
+        "mlp": {"fc1": {**mlp["fc1"], "kernel": fold(
+                    mlp["fc1"]["kernel"], "lrh,lrf->lhf", "fc1")},
+                "fc2": {**mlp["fc2"], "kernel": fold(
+                    mlp["fc2"]["kernel"], "lrf,lrh->lfh", "fc2")}},
+    }}
+
+
 def _decode_attn_impl(cfg: GPTConfig, device: torch.device) -> str:
     """THE decode-attention dispatch predicate: ``"auto"`` → the kernel
     on CUDA at every horizon, the XLA form on the CPU."""
@@ -824,23 +1021,23 @@ def _paged_attend(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
     return _xla_decode_read(q, *_paged_view(cfg, kv, table), pos)
 
 
-def _decode_layer(cfg: GPTConfig, p, x, kv, pos, table=None):
+def _decode_layer(cfg: GPTConfig, p, x, kv, pos, table=None, lora=None):
     """One layer for one token: ``x [b, hidden]``, ``kv`` the layer's
     cache ``[2, b, heads, S, d]`` — or, with ``table``, its page-pool
-    slice ``[2, num_pages, heads, P, d]`` — updated in place."""
+    slice ``[2, num_pages, heads, P, d]`` — updated in place. ``lora``
+    is the layer's gathered adapter bundle."""
     xa = _layer_norm(cfg, x, p["ln1"]["scale"], p["ln1"]["bias"])
     d = cfg.head_dim
     b = xa.shape[0]
     q, k_new, v_new = (t.reshape(b, t.shape[-1] // d, d)
-                       for t in _qkv_project(cfg, p["attn"]["qkv"], xa))
+                       for t in _qkv_project(cfg, p["attn"]["qkv"], xa, lora))
     if table is None:
         ctx = _decode_attend(cfg, q, k_new, v_new, kv, pos)
     else:
         ctx = _paged_attend(cfg, q, k_new, v_new, kv, pos, table)
-    x = x + (torch.matmul(ctx.reshape(b, -1), p["attn"]["proj"]["kernel"])
-             + p["attn"]["proj"]["bias"])
+    x = x + _proj(p["attn"]["proj"], ctx.reshape(b, -1), lora)
     xb = _layer_norm(cfg, x, p["ln2"]["scale"], p["ln2"]["bias"])
-    return x + _mlp(cfg, p["mlp"], xb)
+    return x + _mlp(cfg, p["mlp"], xb, lora)
 
 
 def _lm_head(cfg: GPTConfig, params, h):
@@ -852,7 +1049,8 @@ def _lm_head(cfg: GPTConfig, params, h):
     return torch.matmul(h, table.t()).float()
 
 
-def decode_step(cfg: GPTConfig, params, cache, token, pos, table=None):
+def decode_step(cfg: GPTConfig, params, cache, token, pos, table=None,
+                lora=None):
     """One decoding step: ``token [b]`` at position ``pos`` (an int, a
     0-d tensor, or a ``[b]`` vector of per-row positions) → ``(fp32
     logits [b, vocab], cache)``; the cache gains each row's K/V column
@@ -863,7 +1061,13 @@ def decode_step(cfg: GPTConfig, params, cache, token, pos, table=None):
     ``table`` (int32 ``[b, max_pages]``) switches to the PAGED layout:
     ``cache`` is then the page pool :func:`init_cache` makes with
     ``batch=num_pages, max_len=page_size``, and row ``b``'s horizon is
-    its table row (logical column ``c`` in page ``table[b, c // P]``)."""
+    its table row (logical column ``c`` in page ``table[b, c // P]``).
+
+    ``lora`` (optional ``(pool, ids, scale)``: the pool of
+    :func:`init_lora_pool`, ``ids [b]`` per-row adapter rows, ``scale =
+    alpha / r``) adds each row's low-rank adapter delta at every dense
+    seam; id 0, the all-zero row, leaves a row's logits exactly the
+    base model's."""
     if not cfg.causal:
         raise ValueError(
             "decoding is autoregressive; causal=False has no "
@@ -879,15 +1083,17 @@ def decode_step(cfg: GPTConfig, params, cache, token, pos, table=None):
     pos_e = params["embedding"]["position"][pos.long()]
     x = (emb[token.long()] + pos_e.to(cfg.compute_dtype)).to(
         cfg.compute_dtype)
+    pages = _lora_layers(cfg, lora)
     for l, layer_p in enumerate(_layers(params)):
         x = _decode_layer(cfg, _cast_layer(cfg, layer_p), x,
-                          _cache_map(lambda c: c[l], cache), pos, table)
+                          _cache_map(lambda c: c[l], cache), pos, table,
+                          None if pages is None else pages[l])
     return _lm_head(cfg, params, x), cache
 
 
 def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
                  pad_token_id: int = 0, draw_fn=None, masks=None,
-                 table=None):
+                 table=None, lora=None):
     """``n`` decode steps, each a :func:`decode_step` + the per-slot draw
     + per-slot eos/budget masking, with no host round trip in between.
 
@@ -900,7 +1106,8 @@ def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
     ``pad_token_id`` with ``tok``/``pos`` frozen. A slot finishes when
     it emits its eos or exhausts ``remaining``. ``draw_fn(logits, pos)
     → [B]`` overrides the draw (:func:`generate` passes its shared-seed
-    sampler). ``table`` selects the paged layout (:func:`decode_step`).
+    sampler). ``table`` selects the paged layout and ``lora`` the
+    per-row adapters (:func:`decode_step`).
     ``masks`` (bool ``[B, vocab]``, optional) is the per-slot
     constrained-decoding vocab mask of the default draw; it is constant
     across the chunk (the host's schema automaton advances between
@@ -914,7 +1121,7 @@ def decode_steps(cfg: GPTConfig, params, cache, state, n: int, *,
     toks, lps, fins = [], [], []
     for _ in range(n):
         logits_, cache = decode_step(cfg, params, cache, st["tok"],
-                                     st["pos"], table)
+                                     st["pos"], table, lora)
         if draw_fn is None:
             nxt = _sampling.draw_slots(logits_, st["key"], st["pos"],
                                        st["temp"], st["top_k"], st["top_p"],
@@ -1088,7 +1295,7 @@ def _paged_attend_multi(cfg: GPTConfig, q, k_new, v_new, kv, pos, table):
     return _xla_verify_read(q, *_paged_view(cfg, kv, table), pos)
 
 
-def _verify_layer(cfg: GPTConfig, p, x, kv, pos, table=None):
+def _verify_layer(cfg: GPTConfig, p, x, kv, pos, table=None, lora=None):
     """:func:`_decode_layer` for ``T`` tokens per row: ``x [b, T,
     hidden]`` at positions ``pos[b] + t``. Projections, LayerNorms and
     the MLP act per position; attention is :func:`_decode_attend_multi`
@@ -1097,19 +1304,19 @@ def _verify_layer(cfg: GPTConfig, p, x, kv, pos, table=None):
     d = cfg.head_dim
     b, t, hl = xa.shape
     q, k_new, v_new = (z.reshape(b, t, hl // d, d).transpose(1, 2)
-                       for z in _qkv_project(cfg, p["attn"]["qkv"], xa))
+                       for z in _qkv_project(cfg, p["attn"]["qkv"], xa, lora))
     if table is None:
         ctx = _decode_attend_multi(cfg, q, k_new, v_new, kv, pos)
     else:
         ctx = _paged_attend_multi(cfg, q, k_new, v_new, kv, pos, table)
     out = ctx.transpose(1, 2).reshape(b, t, hl)
-    x = x + (torch.matmul(out, p["attn"]["proj"]["kernel"])
-             + p["attn"]["proj"]["bias"])
+    x = x + _proj(p["attn"]["proj"], out, lora)
     xb = _layer_norm(cfg, x, p["ln2"]["scale"], p["ln2"]["bias"])
-    return x + _mlp(cfg, p["mlp"], xb)
+    return x + _mlp(cfg, p["mlp"], xb, lora)
 
 
-def decode_verify(cfg: GPTConfig, params, cache, tokens, pos, table=None):
+def decode_verify(cfg: GPTConfig, params, cache, tokens, pos, table=None,
+                  lora=None):
     """The speculative verify forward: ``tokens [b, T]`` (this step's
     input token, then T-1 drafts) at positions ``pos[b] .. pos[b] + T -
     1`` through ONE batched forward → ``(fp32 logits [b, T, vocab],
@@ -1120,7 +1327,7 @@ def decode_verify(cfg: GPTConfig, params, cache, tokens, pos, table=None):
     leaves the rest as garbage past ``pos``, which decode masks and
     overwrites. Lanes past the position table clamp their
     position-embedding index to ``seq_len - 1`` (their logits are
-    discarded)."""
+    discarded). ``lora`` as in :func:`decode_step`."""
     if not cfg.causal:
         raise ValueError(
             "decoding is autoregressive; causal=False has no "
@@ -1136,16 +1343,18 @@ def decode_verify(cfg: GPTConfig, params, cache, tokens, pos, table=None):
     pos_e = params["embedding"]["position"][posn]
     x = (emb[tokens.long()] + pos_e.to(cfg.compute_dtype)).to(
         cfg.compute_dtype)
+    pages = _lora_layers(cfg, lora)
     for l, layer_p in enumerate(_layers(params)):
         x = _verify_layer(cfg, _cast_layer(cfg, layer_p), x,
-                          _cache_map(lambda c: c[l], cache), pos, table)
+                          _cache_map(lambda c: c[l], cache), pos, table,
+                          None if pages is None else pages[l])
     lg = _lm_head(cfg, params, x.reshape(b * t, x.shape[-1]))
     return lg.reshape(b, t, -1), cache
 
 
 def decode_steps_spec(cfg: GPTConfig, params, cache, state, n: int, *,
                       spec_k: int, pad_token_id: int = 0, draw_fn=None,
-                      draft_fn=None, table=None):
+                      draft_fn=None, table=None, lora=None):
     """:func:`decode_steps` with draft-k-verify speculation: ``n`` waves,
     each drafting ``spec_k`` tokens from the row's history
     (:func:`ngram_drafts`, or ``draft_fn(hist, tok, k) → [B, k]``),
@@ -1161,7 +1370,8 @@ def decode_steps_spec(cfg: GPTConfig, params, cache, state, n: int, *,
     ``(cache, state, tokens, logprobs, finished, valid)``, each ``[B, n
     * (spec_k + 1)]`` wave-major in emission order; ``valid`` is True
     exactly where a real token was emitted (done rows and rejected lanes
-    emit ``pad_token_id`` under False)."""
+    emit ``pad_token_id`` under False). ``lora`` as in
+    :func:`decode_step`."""
     k = int(spec_k)
     if k < 1:
         raise ValueError(f"decode_steps_spec needs spec_k >= 1, got {k}")
@@ -1177,7 +1387,7 @@ def decode_steps_spec(cfg: GPTConfig, params, cache, state, n: int, *,
         drafts = drafter(st["hist"], tok, k).clamp(0, cfg.vocab_size - 1)
         tokens_in = torch.cat([tok[:, None], drafts.to(tok.dtype)], dim=1)
         logits_all, cache = decode_verify(cfg, params, cache, tokens_in,
-                                          pos, table)
+                                          pos, table, lora)
         live0 = ~st["done"]
         rem, done = st["remaining"], st["done"]
         tok_new, pos_new = tok, pos
@@ -1262,20 +1472,24 @@ def _decode_entry_cfg(cfg: GPTConfig, p_len: int,
     return cfg
 
 
-def _prefill_states(cfg: GPTConfig, params, prompt, max_len: int):
+def _prefill_states(cfg: GPTConfig, params, prompt, max_len: int,
+                    lora=None):
     """One forward over ``prompt [b, p_len]`` → (cache block ``[L, 2, b,
     heads, max_len, d]``, zero past ``p_len``, in the storage form of
     ``cfg.kv_cache_dtype`` — quantized once at the end, as in JAX; the
-    pre-final-LN hidden ``[b, p_len, hidden]``)."""
+    pre-final-LN hidden ``[b, p_len, hidden]``). ``lora`` as in
+    :func:`decode_step`, one id a prompt."""
     b, p_len = prompt.shape
     if p_len > max_len:
         raise ValueError(f"prompt {p_len} exceeds cache max_len {max_len}")
     h = _embed(cfg, params, prompt)
     shape, dev = _cache_shape(params, cfg, b, max_len)
     cache = torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
+    pages = _lora_layers(cfg, lora)
     for l, layer_p in enumerate(_layers(params)):
         h, (k, v) = _block(cfg, _cast_layer(cfg, layer_p), h,
-                           return_kv=True)
+                           return_kv=True,
+                           lora=None if pages is None else pages[l])
         cache[l, 0, :, :, :p_len] = k
         cache[l, 1, :, :, :p_len] = v
     return quantize_cache_block(cfg, cache), h
@@ -1303,21 +1517,22 @@ def prefill_at(cfg: GPTConfig, params, prompt, last: int, *,
 
 
 def prefill_many(cfg: GPTConfig, params, prompts, last, *,
-                 max_len: Optional[int] = None):
+                 max_len: Optional[int] = None, lora=None):
     """:func:`prefill_at` for a batch of right-padded prompts with
     per-row end positions ``last [k]`` → ``(cache [L, 2, k, heads,
     max_len, d], logits [k, vocab])``; row ``i`` equals a solo
-    ``prefill_at(prompts[i:i+1], last[i])``."""
+    ``prefill_at(prompts[i:i+1], last[i])``. ``lora`` as in
+    :func:`decode_step`, one adapter id a row."""
     cfg = _decode_entry_cfg(cfg, prompts.shape[1])
     cache, h = _prefill_states(cfg, params, prompts,
-                               max_len or cfg.seq_len)
+                               max_len or cfg.seq_len, lora)
     last = torch.as_tensor(last, device=h.device).long()
     h_last = h[torch.arange(h.shape[0], device=h.device), last]
     return cache, _lm_head(cfg, params, h_last)
 
 
 def prefill_extend(cfg: GPTConfig, params, prefix_kv, tail, last, *,
-                   prefix_len: int):
+                   prefix_len: int, lora=None):
     """Tail-only prefill over an already-prefilled prefix: ONE forward
     over the right-padded tail tokens ``tail [b, T]`` (positions
     ``prefix_len .. prefix_len + T - 1``, real tokens ending at the
@@ -1334,7 +1549,8 @@ def prefill_extend(cfg: GPTConfig, params, prefix_kv, tail, last, *,
     exact softmax zeros. So where the cold prefill also runs that
     expression (``attn_impl`` "xla") every real position's K/V and the
     end logits are the cold :func:`prefill_many`'s of the whole prompt;
-    under flash the two sum in another order and may part at near-ties."""
+    under flash the two sum in another order and may part at near-ties.
+    ``lora`` as in :func:`decode_step`, one adapter id a row."""
     b, tb = tail.shape
     cfg = _decode_entry_cfg(cfg, prefix_len + 1)
     if prefix_len + tb > cfg.seq_len:
@@ -1361,20 +1577,21 @@ def prefill_extend(cfg: GPTConfig, params, prefix_kv, tail, last, *,
     layers = _layers(params)
     tail_kv = torch.empty((len(layers), 2, b, prefix_kv.shape[3], tb, d),
                           dtype=cfg.compute_dtype, device=dev)
+    pages = _lora_layers(cfg, lora)
     for l, layer_p in enumerate(layers):
         p = _cast_layer(cfg, layer_p)
+        lo = None if pages is None else pages[l]
         x = _layer_norm(cfg, h, p["ln1"]["scale"], p["ln1"]["bias"])
-        q, k, v = _qkv_project(cfg, p["attn"]["qkv"], x)
+        q, k, v = _qkv_project(cfg, p["attn"]["qkv"], x, lo)
         heads = q.shape[-1] // d
         qs, kt, vt = (_split_heads(t, heads) for t in (q, k, v))
         k_full = torch.cat([prefix_kv[l, 0], kt], dim=2)
         v_full = torch.cat([prefix_kv[l, 1], vt], dim=2)
         ctx = _merge_heads(torch.matmul(
             _xla_attn_probs(cfg, qs, k_full, mask), v_full))
-        h = h + (torch.matmul(ctx, p["attn"]["proj"]["kernel"])
-                 + p["attn"]["proj"]["bias"])
+        h = h + _proj(p["attn"]["proj"], ctx, lo)
         x = _layer_norm(cfg, h, p["ln2"]["scale"], p["ln2"]["bias"])
-        h = h + _mlp(cfg, p["mlp"], x)
+        h = h + _mlp(cfg, p["mlp"], x, lo)
         tail_kv[l, 0] = kt
         tail_kv[l, 1] = vt
     last = torch.as_tensor(last, device=dev).long()
@@ -1499,3 +1716,90 @@ def generate(cfg: GPTConfig, params, prompt, n_new: int, *,
         cfg, params, cache0, state, n_new - 1, pad_token_id=pad_token_id,
         draw_fn=lambda lg, posv: draw(lg, posv.max()))
     return torch.cat([first[:, None], outs], dim=1)
+
+
+def _top_k_lower(x, k: int):
+    """``lax.top_k`` over the last dim: the ``k`` largest values in
+    descending order, the LOWER index first among equal values (a stable
+    descending sort; bare ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def beam_search(cfg: GPTConfig, params, prompt, n_new: int, *,
+                num_beams: int, eos_token_id: Optional[int] = None,
+                pad_token_id: int = 0,
+                device: Optional[Union[str, torch.device]] = None):
+    """Fixed-length beam search: ``prompt [b, p_len]`` → ``(sequences [b,
+    num_beams, n_new]`` int64, ``scores [b, num_beams]`` fp32), beams
+    sorted by total log-probability, descending.
+
+    JAX's contract: one :func:`prefill`; the beams ride a ``b *
+    num_beams`` decode batch over the contiguous cache (the prompt's
+    block repeated per beam); every step takes the fp32 log-softmax, the
+    top ``num_beams`` of ``[b, num_beams * vocab]`` candidates (lower
+    index first among ties, as ``lax.top_k``), their parent beams and
+    tokens, and reorders the cache by parent into a new tensor (the
+    decode step writes its column in place, so no later beam may alias
+    an earlier one's cache). With ``eos_token_id`` a beam that emits it
+    is frozen: it extends only with ``pad_token_id`` at unchanged score.
+    The backtrace walks the parents from the final order to the root.
+    ``device`` (None → CUDA) must be where ``params`` live."""
+    dev = resolve_device(device)
+    if _params_device(params).type != dev.type:
+        raise ValueError(
+            f"params on {_params_device(params)} but device is {dev}")
+    prompt = torch.as_tensor(prompt, device=_params_device(params)).long()
+    b, p_len = prompt.shape
+    k = int(num_beams)
+    if k < 1:
+        raise ValueError("num_beams must be >= 1")
+    if k > cfg.vocab_size:
+        raise ValueError(
+            f"num_beams {k} exceeds vocab_size {cfg.vocab_size} (the "
+            "first step has only vocab_size distinct continuations)")
+    check_stop_tokens(cfg, eos_token_id, pad_token_id)
+    if n_new < 1:
+        raise ValueError("beam_search needs n_new >= 1")
+    cfg = _decode_entry_cfg(cfg, p_len, n_new)
+    total = p_len + n_new
+    d = prompt.device
+    eos = eos_token_id
+
+    cache0, logits0 = prefill(cfg, params, prompt, max_len=total)
+    scores, first = _top_k_lower(torch.log_softmax(logits0.float(), -1), k)
+    # beams become the decode batch: row i * k + j = batch i, beam j
+    cache = _cache_map(lambda c: c.repeat_interleave(k, dim=2), cache0)
+    done = (first == eos) if eos is not None else None
+    frozen = None
+    if eos is not None:
+        frozen = torch.full((cfg.vocab_size,), -math.inf, device=d)
+        frozen[pad_token_id] = 0.0
+    row0 = torch.arange(b, device=d)[:, None] * k
+    tok_in = first.reshape(b * k)
+    toks, parents = [], []
+    for t in range(p_len, total - 1):
+        logits_, cache = decode_step(cfg, params, cache, tok_in, t)
+        logp = torch.log_softmax(logits_.float(), -1).reshape(b, k, -1)
+        vocab = logp.shape[-1]
+        if eos is not None:
+            logp = torch.where(done[:, :, None], frozen, logp)
+        scores, flat = _top_k_lower(
+            (scores[:, :, None] + logp).reshape(b, k * vocab), k)
+        parent = flat // vocab
+        tok = flat % vocab
+        if eos is not None:
+            done = done.gather(1, parent) | (tok == eos)
+        gather = (row0 + parent).reshape(b * k)
+        cache = _cache_map(lambda c: c.index_select(2, gather), cache)
+        tok_in = tok.reshape(b * k)
+        toks.append(tok)
+        parents.append(parent)
+    # backtrace: walk the parents from the final beam order to the root
+    beam = torch.arange(k, device=d)[None].expand(b, k)
+    tail = []
+    for tok, parent in zip(reversed(toks), reversed(parents)):
+        tail.append(tok.gather(1, beam))
+        beam = parent.gather(1, beam)
+    seq = [first.gather(1, beam)] + tail[::-1]
+    return torch.stack(seq, dim=-1), scores

@@ -12,7 +12,7 @@ Routes::
 
     POST /v1/chat/completions   chat template -> tokens -> engine, SSE
     POST /v1/completions        text or raw token-id prompt
-    GET  /v1/models             the served model
+    GET  /v1/models             the served model and its LoRA adapters
     GET  /healthz               200 ok (the port's scheduler has no
                                 health machine yet; a ``health``
                                 callback answers when one is given)
@@ -30,12 +30,14 @@ is duplicated.
 multi-choice response or stream. Stop strings compile to stop-token
 sequences (byte-level codec: the two are one thing); ``response_format``
 compiles to a :class:`~apex_tpu_torch.serving.api.constrain.
-JsonSchemaConstraint`.
+JsonSchemaConstraint`. A request whose ``model`` names a registered LoRA
+adapter runs on that adapter's row; any other model string runs on the
+base model (the string is echoed either way).
 
 Where JAX's server goes further, the port waits for its slices (ROADMAP
 queue 1 item 3): the 503 of a failed engine (``EngineFailed``) comes with
-resilience, the ``registry`` of request counters with telemetry (passing
-one raises), and the adapter models of ``/v1/models`` with multi-LoRA.
+resilience, and the ``registry`` of request counters with telemetry
+(passing one raises).
 
 One difference on the wire: the listen backlog is 128 connections (the
 standard library's 5 resets a burst of clients). Standard library only
@@ -293,6 +295,12 @@ class ApiServer:
 
     # -- request building (handler threads; engine-free) --------------------
 
+    def _resolve_adapter(self, model: str) -> int:
+        """The request's ``model`` → a LoRA adapter row: a registered
+        adapter name routes to its id, anything else (the served base
+        model's name included) to the base adapter 0."""
+        return self.scheduler.engine.adapter_names.get(model, 0)
+
     def _build_requests(self, parsed: protocol.ParsedRequest,
                         base_id: str,
                         tenant: str = DEFAULT_TENANT
@@ -393,7 +401,8 @@ class ApiServer:
                 eos_token_id=(constrained_eos if constraint is not None
                               else eos),
                 stop=stops or None, constraint=constraint,
-                tenant=tenant))
+                tenant=tenant,
+                adapter=self._resolve_adapter(parsed.model)))
         return requests, prompt
 
 
@@ -442,9 +451,16 @@ def _make_handler(server: ApiServer):
                 self._reply(status, text.encode("utf-8"),
                             ctype="text/plain; charset=utf-8")
             elif path == "/v1/models":
-                # the base model (adapter models come with multi-LoRA)
+                # the base model, then every registered LoRA adapter: an
+                # adapter's name is a model id a client passes in `model`
                 data = [{"id": server.model, "object": "model",
                          "owned_by": "apex_tpu"}]
+                names = server.scheduler.engine.adapter_names
+                data += [{"id": n, "object": "model",
+                          "owned_by": "apex_tpu",
+                          "parent": server.model, "adapter": i}
+                         for n, i in sorted(names.items(),
+                                            key=lambda kv: kv[1])]
                 body = {"object": "list", "data": data}
                 self._reply(200, json.dumps(body).encode("utf-8"))
             elif path == "/slo":

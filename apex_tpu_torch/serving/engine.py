@@ -35,7 +35,15 @@ and, with ``spec_k > 0``, the drafter's token-history ring — lives in
   mask row: the draw drops the row's False positions. A host mirror
   ``[B, vocab]`` is uploaded only when a row changed, and only while
   some row is not all-True; otherwise the draw takes no mask and
-  launches what an engine without masks launches.
+  launches what an engine without masks launches;
+- :meth:`Engine.register_adapter` — with ``adapter_slots > 0`` a LoRA
+  adapter lands in a row of the adapter pool (row 0 is the pinned
+  all-zero base adapter) and ``Admission.adapter`` binds a request to
+  it: its prefill, its decode steps and its verify waves add the row's
+  low-rank delta at every dense seam (``gpt``'s ``lora=`` bundle). The
+  per-slot ``[B]`` id table is uploaded only when a row changed, and a
+  forward takes the bundle only while one of its rows carries a nonzero
+  id; base traffic launches what an engine without a pool launches.
 
 A slot's token stream is the one a solo ``gpt.generate`` of the same
 request emits. PyTorch runs eagerly, so there is no compile step and no
@@ -73,15 +81,15 @@ def default_prompt_buckets(max_prompt_len: int) -> Tuple[int, ...]:
 #: EngineConfig fields of the JAX engine that belong to later slices of
 #: the port, with the value that leaves them off and the slice they
 #: belong to
+_TUNER = "the self-tuning scheduler, ROADMAP queue 1 item 3"
+_HOST_SWAP = ("the host-swap tier and its adapter paging, ROADMAP queue 1 "
+              "item 3")
 _LATER_FIELDS = {
-    "decode_chunks": (None, "the self-tuning scheduler"),
-    "spec_ks": (None, "the self-tuning scheduler's draft-width ladder"),
-    "adapter_slots": (0, "multi-LoRA serving"),
-    "adapter_rank": (8, "multi-LoRA serving"),
-    "adapter_alpha": (16.0, "multi-LoRA serving"),
-    "host_swap": (False, "the host-swap tier"),
-    "host_swap_pages": (0, "the host-swap tier"),
-    "resume_policy": ("auto", "the host-swap tier"),
+    "decode_chunks": (None, _TUNER),
+    "spec_ks": (None, _TUNER),
+    "host_swap": (False, _HOST_SWAP),
+    "host_swap_pages": (0, _HOST_SWAP),
+    "resume_policy": ("auto", _HOST_SWAP),
 }
 
 
@@ -115,7 +123,10 @@ class EngineConfig:
     ``page_size`` maps the prefix's cache pages copy-on-write (the split
     must then be page-aligned). ``prefill_chunk > 0`` (a prompt bucket
     dividing ``max_prompt_len``) admits prompts longer than it one
-    ``prefill_chunk``-token forward at a time. The JAX engine's other
+    ``prefill_chunk``-token forward at a time. ``adapter_slots > 0``
+    keeps a multi-LoRA pool of that many rows (row 0 the pinned base
+    adapter) of rank ``adapter_rank``, its deltas scaled by
+    ``adapter_alpha / adapter_rank``. The JAX engine's other
     fields keep their names and defaults here; setting one raises,
     naming the later slice it belongs to."""
 
@@ -174,6 +185,10 @@ class Admission:
     #: from the pool and only the tail runs a forward
     prefix_page: Optional[int] = None
     prefix_len: int = 0
+    #: the request's LoRA adapter row (0 = the pinned base adapter; rows
+    #: >= 1 from :meth:`Engine.register_adapter`): its prefill, decode
+    #: steps and verify waves all add that row's delta
+    adapter: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,9 +309,10 @@ class Engine:
     (cold admission forwards, ``gpt.prefill_many``), ``prefix_admits``
     (prefix-pool hits, each one ``gpt.prefill_extend``),
     ``chunk_prefills`` (chunked-prefill forwards: chunk 0 and the
-    extends) and ``mask_uploads`` (host-to-device copies of vocab mask
+    extends), ``mask_uploads`` (host-to-device copies of vocab mask
     rows: the decode steps' ``[B, vocab]`` copy, or an admission's
-    first-token rows)."""
+    first-token rows) and ``adapter_id_uploads`` (copies of the decode
+    steps' ``[B]`` adapter-id table)."""
 
     def __init__(self, cfg: gpt.GPTConfig, params,
                  engine_cfg: Optional[EngineConfig] = None, *,
@@ -331,6 +347,23 @@ class Engine:
                 f"spec_hist {ecfg.spec_hist} must be >= 2 with "
                 f"speculation (the drafter matches a 2-token suffix)")
         gpt.check_stop_tokens(cfg, None, ecfg.pad_token_id)
+        # the multi-LoRA geometry: pool rows and rank are static, the
+        # per-slot ids are data
+        if ecfg.adapter_slots < 0:
+            raise ValueError(
+                f"adapter_slots {ecfg.adapter_slots} must be >= 0")
+        self._lora = ecfg.adapter_slots > 0
+        if self._lora:
+            if ecfg.adapter_rank < 1:
+                raise ValueError(
+                    f"adapter_rank {ecfg.adapter_rank} must be >= 1")
+            if cfg.num_experts:
+                raise ValueError(
+                    "adapter_slots > 0 does not compose with "
+                    "num_experts > 0 (the expert FFN has no per-row "
+                    "dense seam to delta — see gpt.init_lora_pool)")
+        self._lora_scale = (ecfg.adapter_alpha / ecfg.adapter_rank
+                            if self._lora else 0.0)
         self._buckets = self._resolve_buckets(ecfg)
         self._batch_sizes = self._resolve_batch_sizes(ecfg)
         if ecfg.prefix_pool_slots > 0 and cfg.num_experts:
@@ -414,6 +447,7 @@ class Engine:
         self.prefix_admits = 0
         self.chunk_prefills = 0
         self.mask_uploads = 0
+        self.adapter_id_uploads = 0
         B, dev = ecfg.slots, self.device
         #: per-slot constrained-decoding vocab masks, host mirror (all-True
         #: = unconstrained), the slots whose row is not all-True, and the
@@ -480,6 +514,20 @@ class Engine:
             self._chunk_scratch = gpt.init_cache(
                 self._cfg_compute, self._params, 1,
                 max_len=ecfg.max_prompt_len)
+        #: multi-LoRA: the pool (zeros: row 0 IS the pinned base adapter),
+        #: the per-slot adapter-id table's host mirror and its device copy
+        #: (cached until a row changes), and the registry (name → row,
+        #: row → metadata)
+        self.adapters: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        if self._lora:
+            self.adapters = gpt.init_lora_pool(cfg, self._params,
+                                               ecfg.adapter_slots,
+                                               ecfg.adapter_rank)
+        self._adapter_ids = np.zeros((B,), np.int64)
+        self._aids_dev: Optional[torch.Tensor] = None
+        self._adapter_names: Dict[str, int] = {}
+        self._adapter_meta: Dict[int, Dict[str, Any]] = {}
+        self._adapter_used = 1 if self._lora else 0   # row 0 pinned
 
     @staticmethod
     def _resolve_buckets(ecfg: EngineConfig) -> Tuple[int, ...]:
@@ -619,6 +667,8 @@ class Engine:
             "max_pages": self._max_pages,
             "prefix_templates": [list(self._prefix_tokens[p])
                                  for p in sorted(self._prefix_tokens)],
+            "adapters": [dict(self._adapter_meta[i])
+                         for i in sorted(self._adapter_meta)],
         }
 
     def cache_bytes(self) -> int:
@@ -634,6 +684,126 @@ class Engine:
         if self.pool is None:
             return 0
         return self.pool.numel() * self.pool.element_size()
+
+    # -- batched multi-LoRA (EngineConfig.adapter_slots > 0) ---------------
+
+    @property
+    def adapter_pool_enabled(self) -> bool:
+        """True when ``EngineConfig.adapter_slots > 0``."""
+        return self._lora
+
+    @property
+    def adapter_names(self) -> Dict[str, int]:
+        """Registered adapter name → pool row (a copy; the pinned base
+        row 0 is not in it): the source of ``/v1/models``' adapter
+        rows."""
+        return dict(self._adapter_names)
+
+    @property
+    def adapters_registered(self) -> int:
+        """Registered adapters, the pinned base row not counted."""
+        return max(self._adapter_used - 1, 0)
+
+    def adapter_bytes(self) -> int:
+        """Device bytes of the adapter pool (0 when disabled)."""
+        if self.adapters is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for parts in self.adapters.values()
+                   for t in parts.values())
+
+    def _lora_expected_shapes(self) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+        cfg, r = self.cfg, self.engine_cfg.adapter_rank
+        L, h, f = cfg.num_layers, cfg.hidden_size, cfg.ffn
+        return {
+            "qkv": {"a": (L, r, h), "b": (L, r, 3, h)},
+            "proj": {"a": (L, r, h), "b": (L, r, h)},
+            "fc1": {"a": (L, r, h), "b": (L, r, f)},
+            "fc2": {"a": (L, r, f), "b": (L, r, h)},
+        }
+
+    def register_adapter(self, weights=None, *, name: Optional[str] = None,
+                         seed: Optional[int] = None) -> int:
+        """Register one LoRA adapter into the next free pool row and
+        return its id (what ``Admission.adapter`` / ``Request.adapter``
+        carry). Pass either ``weights`` — per site ``{"qkv"/"proj"/"fc1"/
+        "fc2": {"a", "b"}}`` arrays in :func:`gpt.init_lora_weights`'
+        layout — or ``seed``, for the deterministic synthetic adapter that
+        seed names. A name already registered returns its id. The shapes
+        are checked before the capacity. The JAX engine also refuses a
+        registration before its ``warmup()``, which compiles the set
+        program; the port compiles nothing and has no ``warmup()``, so it
+        registers at any time."""
+        if not self._lora:
+            raise ValueError(
+                "adapter pool disabled (EngineConfig.adapter_slots "
+                "== 0)")
+        if (weights is None) == (seed is None):
+            raise ValueError("pass exactly one of weights= or seed=")
+        if name is None:
+            name = (f"adapter-seed-{seed}" if seed is not None
+                    else f"adapter-{self._adapter_used}")
+        hit = self._adapter_names.get(name)
+        if hit is not None:
+            return hit
+        if seed is not None:
+            weights = gpt.init_lora_weights(
+                self.cfg, self.engine_cfg.adapter_rank, seed)
+        # a malformed adapter fails as malformed, full pool or not
+        row: Dict[str, Dict[str, np.ndarray]] = {}
+        for site, parts in self._lora_expected_shapes().items():
+            if site not in weights:
+                raise ValueError(f"adapter weights missing site {site!r}")
+            row[site] = {}
+            for part, shape in parts.items():
+                arr = np.asarray(weights[site][part], np.float32)
+                if arr.shape != shape:
+                    raise ValueError(
+                        f"adapter {site}.{part} shape {arr.shape} != "
+                        f"expected {shape} (rank/layers/hidden are "
+                        f"compile-time static — ADAPTER-STATIC)")
+                row[site][part] = arr
+        if self._adapter_used >= self.engine_cfg.adapter_slots:
+            raise ValueError(
+                f"adapter pool full ({self.engine_cfg.adapter_slots} "
+                f"rows incl. the pinned base row 0)")
+        idx = self._adapter_used
+        gpt.lora_set_row(self.adapters, row, idx)
+        self._adapter_used += 1
+        self._adapter_names[name] = idx
+        self._adapter_meta[idx] = {"id": idx, "name": name, "seed": seed,
+                                   "rank": self.engine_cfg.adapter_rank}
+        return idx
+
+    def _set_slot_adapter(self, slot: int, adapter: int) -> None:
+        """Point ``slot``'s adapter-id table entry at ``adapter``; the
+        device copy is dropped only when the entry changes."""
+        if self._adapter_ids[slot] == adapter:
+            return
+        self._adapter_ids[slot] = adapter
+        self._aids_dev = None
+
+    def _lora_for(self, ids: Sequence[int]):
+        """The ``lora=`` bundle of an admission forward whose rows carry
+        adapter ``ids``, or None while every one is the base adapter (row
+        0's delta is an exact zero: None gives the same bits and launches
+        nothing for it)."""
+        if not any(ids):
+            return None
+        return (self.adapters,
+                torch.tensor(list(ids), dtype=torch.int64,
+                             device=self.device), self._lora_scale)
+
+    def _lora_decode(self):
+        """The decode chunk's bundle over the slot id table (uploaded
+        again only after an entry changed), or None while every slot
+        carries the base adapter."""
+        if not self._adapter_ids.any():
+            return None
+        if self._aids_dev is None:
+            self._aids_dev = self._upload(self._adapter_ids)
+            self.adapter_id_uploads += 1
+        return (self.adapters, self._aids_dev, self._lora_scale)
 
     # -- paged KV cache (EngineConfig.page_size > 0) -----------------------
 
@@ -678,11 +848,13 @@ class Engine:
         decode lane keeps writing every chunk; the sink absorbs that).
         The scheduler calls this at release; a no-op in contiguous mode,
         where the next admission overwrites the slot. The slot's mask row
-        goes back to all-True: a done lane's draw is dropped, and a stale
-        row would keep the masked draw on for everyone."""
+        goes back to all-True and its adapter id to 0: a done lane's draw
+        is dropped, and a stale row would keep the masked draw, or the
+        adapter delta, on for everyone."""
         if self._paged:
             self._free_slot_pages(slot)
         self.set_slot_mask(slot, None)
+        self._set_slot_adapter(slot, 0)
 
     def page_stats(self) -> Optional[Dict[str, float]]:
         """The allocator's occupancy snapshot (None in contiguous mode)."""
@@ -727,18 +899,20 @@ class Engine:
         self._slot_pages[slot] = (priv, shared, footprint)
         return row
 
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A host mirror's device copy. On CUDA it goes through pinned
+        memory without blocking the host (the pinned buffer is a
+        snapshot, so later edits of the mirror cannot race it)."""
+        t = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
     def _table_device(self) -> torch.Tensor:
         """The block table on the device, rebuilt only after a row
-        changed. On CUDA the copy goes through pinned memory without
-        blocking the host (the pinned buffer is a snapshot, so later
-        edits of the host mirror cannot race it)."""
+        changed."""
         if self._tables_dev is None:
-            t = torch.from_numpy(self._tables)
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                t = t.clone()
-            self._tables_dev = t
+            self._tables_dev = self._upload(self._tables)
         return self._tables_dev
 
     def bucket_for(self, prompt_len: int) -> int:
@@ -784,6 +958,24 @@ class Engine:
                 f"max_tokens {a.max_tokens} outside [1, {room}] for a "
                 f"{prompt.size}-token prompt at max_seq_len "
                 f"{self.engine_cfg.max_seq_len}")
+        if a.adapter:
+            if not self._lora:
+                raise ValueError(
+                    f"admission carries adapter {a.adapter} but the "
+                    f"adapter pool is disabled "
+                    f"(EngineConfig.adapter_slots == 0)")
+            if not 1 <= a.adapter < self._adapter_used:
+                raise ValueError(
+                    f"adapter {a.adapter} outside the registered rows "
+                    f"[1, {self._adapter_used}) — register_adapter() "
+                    f"first (0 is the pinned base adapter)")
+            if a.prefix_page is not None:
+                raise ValueError(
+                    "prefix-pool hits require the base adapter (id "
+                    "0): the pooled prefix was prefilled with base "
+                    "weights, so an adapter-carrying hit would decode "
+                    "against K/V a cold adapter prefill would not "
+                    "produce")
         if a.prefix_page is not None:
             ps = a.prefix_len
             if not self._prefix_splits:
@@ -901,7 +1093,8 @@ class Engine:
             # ONE padded forward admits the group; row i's logits and K/V
             # are exactly its solo prefill_at's
             blocks, logits0 = gpt.prefill_many(
-                cfg, self._params, prompts, p_lens - 1, max_len=bucket)
+                cfg, self._params, prompts, p_lens - 1, max_len=bucket,
+                lora=self._lora_for([a.adapter for a in batch]))
             if self._paged:
                 # row i's bucket columns land in its own pages (pad columns
                 # in the sink or the row's not-yet-decoded cells)
@@ -939,7 +1132,8 @@ class Engine:
         """The admission's last step, whatever forward produced
         ``logits0 [k, vocab]``: each row draws its first token at
         ``p_lens - 1`` and its slot's state row is scattered (with the
-        drafter's ring seeded from ``prompts`` on a speculative engine).
+        drafter's ring seeded from ``prompts`` on a speculative engine)
+        and its adapter-id table entry set.
         Returns the ``(first, first_lp, hit_eos, done)`` device tensors,
         read by the caller once every group is launched."""
         dev, st = self.device, self.state
@@ -960,6 +1154,7 @@ class Engine:
         # the rows only when one of them constrains
         for a in batch:
             self.set_slot_mask(a.slot, a.allowed_tokens)
+            self._set_slot_adapter(a.slot, a.adapter)
         masks = None
         if any(a.allowed_tokens is not None for a in batch):
             masks = torch.as_tensor(
@@ -1108,7 +1303,8 @@ class Engine:
         """One prefix-hit admission: the pooled block, the tail's extend
         at its tail bucket, the first draw at ``n - 1``, the cache
         insert; returns the ``(first, first_lp, hit_eos, done)`` device
-        tensors."""
+        tensors. A hit carries the base adapter (validated): the pooled
+        prefix holds base-weight K/V, so the extend runs without one."""
         cfg, dev = self.cfg, self.device
         ps = a.prefix_len
         tb = self.bucket_for(n - ps)
@@ -1186,7 +1382,7 @@ class Engine:
             self._cfg_compute, self._params,
             torch.as_tensor(prompt[None, :c], device=dev),
             torch.full((1,), c - 1, dtype=torch.int64, device=dev),
-            max_len=c)
+            max_len=c, lora=self._lora_for([a.adapter]))
         gpt.cache_insert_slot(self._chunk_scratch, blocks, 0)
         self.chunk_prefills += 1
         self._chunked = ca
@@ -1217,7 +1413,7 @@ class Engine:
                 torch.as_tensor(tail, device=dev),
                 torch.tensor([chunk.size - 1], dtype=torch.int64,
                              device=dev),
-                prefix_len=pfx)
+                prefix_len=pfx, lora=self._lora_for([a.adapter]))
             gpt.cache_insert_slot(self._chunk_scratch, tail_kv, 0, pos=pfx)
             ca.next_chunk += 1
             self.chunk_prefills += 1
@@ -1263,7 +1459,8 @@ class Engine:
         (spec_k + 1)]`` wave-major, with ``handle.valid`` marking the
         real emissions; it refuses while a slot's mask row constrains.
         A plain chunk passes the mask rows to the draw only while one of
-        them is not all-True."""
+        them is not all-True, and either kind passes the adapter bundle
+        only while a slot carries a nonzero adapter."""
         ecfg = self.engine_cfg
         if spec and not self._spec:
             raise ValueError(
@@ -1276,12 +1473,13 @@ class Engine:
                 f"plain chunks")
         n = ecfg.decode_chunk
         table = self._table_device() if self._paged else None
+        lora = self._lora_decode()
         if spec:
             (self.cache, self.state, toks, lps, fins,
              valid) = gpt.decode_steps_spec(
                 self.cfg, self._params, self.cache, self.state, n,
                 spec_k=ecfg.spec_k, pad_token_id=ecfg.pad_token_id,
-                table=table)
+                table=table, lora=lora)
             self.spec_waves_taken += n
             return StepHandle(toks, lps, fins, valid=valid,
                               spec_k=ecfg.spec_k, ncols=n * (ecfg.spec_k + 1))
@@ -1289,7 +1487,7 @@ class Engine:
         self.cache, self.state, toks, lps, fins = gpt.decode_steps(
             self.cfg, self._params, self.cache, self.state, n,
             pad_token_id=ecfg.pad_token_id, masks=self._masks_device(),
-            table=table)
+            table=table, lora=lora)
         if self._spec:
             # keep the drafter's ring fresh across plain chunks too: each
             # row emitted pos_after - pos_before columns, a prefix

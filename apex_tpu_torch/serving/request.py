@@ -7,9 +7,7 @@ finish reasons. A request finishes because it emitted its stop token
 (``eos``), exhausted its token budget (``length``), matched a stop
 sequence or completed its schema-constrained value (``stop``) or blew its
 deadline (``timeout``). :class:`StopMatcher` is the streaming stop-sequence
-matcher the scheduler feeds token by token. LoRA adapters other than 0
-belong to a later slice of the port: the scheduler rejects requests that
-carry them.
+matcher the scheduler feeds token by token.
 """
 
 from __future__ import annotations
@@ -74,8 +72,8 @@ class Request:
     whitelist, uploaded as the slot's mask row), ``advance(token)`` for
     each emitted token, and ``done`` (the scheduler then finishes the
     request with :data:`FINISH_STOP`); constrained requests need
-    ``decode_chunk == 1``. ``adapter`` keeps the JAX package's field name;
-    only 0 is served by this slice."""
+    ``decode_chunk == 1``. ``adapter`` is the request's LoRA adapter row
+    (0 = the base model; rows >= 1 from ``Scheduler.register_adapter``)."""
 
     request_id: str
     prompt: Sequence[int]

@@ -25,7 +25,11 @@ every chunk plain); and ``tenant``: the pop order is weighted-fair
 queueing over the backlogged tenants (:mod:`.tenancy`; one backlogged
 tenant pops strict FIFO), a token-budget rate limit raises
 :class:`TenantThrottled` at submit, and :class:`QueueFull` carries the
-queue depth and a retry-after hint from the measured chunk latency.
+queue depth and a retry-after hint from the measured chunk latency. A
+request's ``adapter`` (a row of the engine's multi-LoRA pool,
+:meth:`Scheduler.register_adapter`) is validated at submit and rides its
+admission; adapter requests never match the prefix pool, whose K/V is
+the base model's.
 
 The decode loop is pipelined: each tick dispatches the next chunk
 (``Engine.step_async``) before fetching the oldest in-flight one, so at
@@ -37,8 +41,7 @@ device emits pad for done slots, and a retired slot's tokens belong to a
 request already completed). Streams are the same at every depth.
 
 Resilience, the journal, the tuner, SLOs, the flight recorder and
-telemetry are later slices of the port; requests carrying an adapter
-other than 0 are rejected at submit.
+telemetry are later slices of the port.
 
 >>> sched = Scheduler(engine, pipeline_depth=2)
 >>> sched.submit(Request("r0", prompt, max_tokens=16))
@@ -363,9 +366,6 @@ class Scheduler:
                 or (self._chunked is not None
                     and self._chunked[1].request_id == rid):
             raise ValueError(f"duplicate request_id {rid!r}")
-        if request.adapter:
-            raise ValueError("LoRA adapters are not supported by "
-                             "apex_tpu_torch yet (a later slice)")
         request.sampling.validate()
         prompt = list(request.prompt)
         ecfg = self.engine.engine_cfg
@@ -398,6 +398,21 @@ class Scheduler:
                 f"{ecfg.decode_chunk}")
         if not request.tenant:
             request.tenant = DEFAULT_TENANT
+        if request.adapter:
+            # validated here, not at admission: a bad id must not surface
+            # mid-serve
+            if not self.engine.adapter_pool_enabled:
+                raise ValueError(
+                    f"request carries adapter {request.adapter} but "
+                    f"the engine's adapter pool is disabled "
+                    f"(EngineConfig.adapter_slots == 0)")
+            n_reg = self.engine.adapters_registered
+            if not 1 <= request.adapter <= n_reg:
+                raise ValueError(
+                    f"adapter {request.adapter} outside the "
+                    f"registered ids [1, {n_reg}] (0 is the pinned "
+                    f"base adapter; Engine.register_adapter issues "
+                    f"the rest)")
         now = self.clock()
         request.arrival_time = now
         book = self.tenants
@@ -427,8 +442,10 @@ class Scheduler:
             raise TenantThrottled(
                 f"tenant {tenant!r} over its token budget; retry in "
                 f"~{wait:.3f}s", tenant=tenant, retry_after_s=wait)
-        hit = (self.engine.match_prefix(prompt)
-               if self.engine.prefix_pool_enabled else None)
+        # adapter requests never match the prefix pool: its prefixes hold
+        # base-weight K/V, which a cold adapter prefill would not produce
+        matchable = self.engine.prefix_pool_enabled and not request.adapter
+        hit = self.engine.match_prefix(prompt) if matchable else None
         if self.engine.paged:
             # a request that could NEVER fit the pool would wait at the
             # queue head forever: reject it here. The need is the
@@ -444,7 +461,7 @@ class Scheduler:
         if hit is not None:
             self._prefix_hits[rid] = hit
             self._prefix_hit_count += 1
-        elif self.engine.prefix_pool_enabled:
+        elif matchable:
             self._prefix_miss_count += 1
         # a tenant (re-)entering the backlog competes from now: its
         # deficit counter clamps up to the least among the tenants with
@@ -489,6 +506,14 @@ class Scheduler:
         pool (:meth:`Engine.register_prefix`); requests submitted after
         it match it."""
         return self.engine.register_prefix(tokens)
+
+    def register_adapter(self, weights=None, *, name: Optional[str] = None,
+                         seed: Optional[int] = None) -> int:
+        """Register a LoRA adapter into the engine's pool
+        (:meth:`Engine.register_adapter`) and return its id. JAX's
+        scheduler also records the registration in its flight recorder and
+        journal, which the port has not yet (ROADMAP queue 1 item 3)."""
+        return self.engine.register_adapter(weights, name=name, seed=seed)
 
     # -- the loop ----------------------------------------------------------
 
@@ -579,7 +604,7 @@ class Scheduler:
             allowed_tokens=(tuple(r.constraint.allowed_tokens())
                             if r.constraint is not None else None),
             prefix_page=None if hit is None else hit[0],
-            prefix_len=0 if hit is None else hit[1])
+            prefix_len=0 if hit is None else hit[1], adapter=r.adapter)
 
     def _request_pages_needed(self, r: Request) -> int:
         """One queued request's PRIVATE page need (copy-on-write prefix
@@ -995,7 +1020,8 @@ class Scheduler:
         ``tenants_seen`` and ``tenant_throttled`` (per-tenant detail in
         :meth:`tenant_summary`), ``stop_finishes`` (requests a stop
         sequence or a completed constraint finished) and
-        ``mask_uploads`` (the engine's vocab-mask copies). A
+        ``mask_uploads`` (the engine's vocab-mask copies). An engine with
+        an adapter pool adds ``adapters_registered``; a
         paged engine adds the pool's occupancy, ``page_share_hits``
         (hits admitted copy-on-write), ``pages_exhausted_waits`` (ticks
         the queue head waited for pages) and ``page_deferrals`` (ticks in
@@ -1021,6 +1047,9 @@ class Scheduler:
             "stop_finishes": float(self._stop_finishes),
             "mask_uploads": float(self.engine.mask_uploads),
         }
+        if self.engine.adapter_pool_enabled:
+            out["adapters_registered"] = float(
+                self.engine.adapters_registered)
         if self._started is not None:
             elapsed = max(self.clock() - self._started, 1e-9)
             out["tokens_per_sec"] = self._tokens_emitted / elapsed

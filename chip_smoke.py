@@ -196,6 +196,24 @@ horizon 192, 8 slots, ``decode_chunk=1``):
     unconstrained launches equal to phase 6's. Row 5 on every layer of
     every admission and the fused decode step on every layer of every
     decode step, counted over (a)-(d).
+38. beam search and multi-LoRA — (a) ``gpt.beam_search`` over two
+    32-token prompts, 32 new tokens: one beam equals the greedy
+    ``generate``; at 4 beams (a decode batch of 8) the beams are sorted,
+    each score is its teacher-forced total log-probability, a frozen
+    beam emits only pad after an eos that fires and keeps its score;
+    launches and host ms a beam step, the reorder's launches; (b) a
+    ``Scheduler`` over an ``Engine`` with an adapter pool (serve()'s
+    geometry, ``max_admit_batch=1``, adapters of seeds 7 and 9 at rank 8,
+    alpha 16) on 24 greedy requests over adapters ``i % 3``: base rows
+    bit-equal to a pool-less engine, each adapter's requests alone equal
+    to the mixed run, adapter streams equal to ``generate`` over
+    ``merge_lora`` up to reference near-ties, phase 6's window with base
+    rows only (phase 6's launches a decode step) and with adapter rows,
+    in turns; (c) a paged ``spec_k=3`` pool engine: rows 13 + 17 and 15v
+    on every layer, streams equal to (b)'s up to near-ties; (d)
+    ``/v1/models`` lists the adapters and a chat naming one returns the
+    scheduler's stream; (e) ``examples.generate --beams 4``. Launches of
+    rows 5, 10, 17 and 15v counted in (a), (b) and (c).
 
 The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
 value beside an fp32 scale per head row and column) runs next, on the
@@ -436,7 +454,10 @@ carry their entry at the 2.7B's decode shape under ``2p7b``, with its
 launches in phase 34's trace, phase 33's max |out - plain| at each
 width under ``widths`` and, for the quantized reads, fp8 under
 ``fp8``; rows 5 and 10 and the fused decode step carry their launches on
-phase 37's path as ``api_launches``); the last line is
+phase 37's path as ``api_launches``, and on phase 38's beam search and
+multi-LoRA runs as ``beam_launches`` and ``lora_launches``; rows 17 and
+15v and the fused paged step carry phase 38 (c)'s as ``lora_launches``);
+the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
 """
@@ -2865,6 +2886,409 @@ def phase_api(cfg, params, band: float, card: str, prof5):
     log(f"api (f) ({card}): " + json.dumps(out["decode_step"]))
     return out["launches"], out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 38: beam search and multi-LoRA serving
+# ---------------------------------------------------------------------------
+
+#: (a): two 32-token prompts, 32 new tokens, 4 beams (a decode batch of 8)
+BEAM_PROMPT, BEAM_NEW, BEAMS = 32, 32, 4
+#: (b)-(d): serve()'s geometry, one admission at a time, a pool of the base
+#: row and two adapters (seeds 7 and 9, as JAX's tests/test_tenancy.py) of
+#: rank 8 at alpha 16; 24 greedy requests of 32 tokens on adapters i % 3
+LORA_GEOM = dict(slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON)
+LORA_POOL = dict(adapter_slots=3, adapter_rank=8, adapter_alpha=16.0)
+LORA_SEEDS = (7, 9)
+LORA_REQS, LORA_NEW = 24, 32
+#: (c): the paged spec engine serves the first 12; the gate probes the
+#: other chunk kind every 2 chunks, so both kinds run
+LORA_SPEC_REQS = 12
+
+
+def lora_trace(vocab: int, n: int = LORA_REQS, adapters: bool = True):
+    """(b)'s trace: request ``i`` on adapter ``i % 3`` (all on the base
+    adapter with ``adapters=False``), a prompt of ``16 (1 + (i // 3) %
+    4)`` tokens from seed ``3800 + i``, greedy, LORA_NEW tokens: each
+    adapter's requests come in pairs of equal length, batched by the
+    reference ``generate``."""
+    from apex_tpu_torch.serving import Request
+
+    reqs = []
+    for i in range(n):
+        p_len = 16 * (1 + (i // 3) % 4)
+        prompt = np.random.default_rng(3800 + i).integers(
+            0, vocab, p_len).tolist()
+        reqs.append(Request(f"l{i}", prompt, max_tokens=LORA_NEW,
+                            adapter=i % 3 if adapters else 0))
+    return reqs
+
+
+def _tf_logprobs(cfg, params, prompt, toks):
+    """Teacher-forced fp32 log-probabilities of ``toks`` after ``prompt``
+    through the reference forward ("xla" attention)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+
+    ref_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    seq = torch.as_tensor([list(prompt) + list(toks[:-1])], device="cuda")
+    lg = gpt.logits(ref_cfg, gpt.cast_params(ref_cfg, params), seq)[0]
+    lp = torch.log_softmax(lg[len(prompt) - 1:].float(), -1)
+    return lp.gather(1, torch.as_tensor(toks, device="cuda")[:, None])[:, 0]
+
+
+def _api_launches(fn) -> int:
+    """The CUDA API launch calls (``cudaLaunchKernel`` and kin, as the
+    profiler names them) of one call of ``fn``, after a warm one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and LAUNCH_API.match(e.key))
+
+
+def _beam_launches(cfg, p, prompts, n_new: int, reps: int = 3):
+    """The CUDA API launch calls of one ``beam_search`` call and the
+    host's wall ms (unprofiled) of ``reps`` calls, after a warm one."""
+    from apex_tpu_torch.models import gpt
+
+    run = lambda: gpt.beam_search(cfg, p, prompts, n_new, num_beams=BEAMS)
+    run()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return _api_launches(run), walls
+
+
+def _gaps_by_adapter(cfg, merged, reqs, got, want):
+    """``_drift_gaps`` with each request's reference forward over its
+    adapter's merged weights (``merged[a]``; the base params at 0)."""
+    out = []
+    for a in sorted(merged):
+        rs = [r for r in reqs if r.adapter == a]
+        out += [(rid, a, k, g) for rid, k, g in _drift_gaps(
+            cfg, merged[a], rs, got, want)]
+    return out
+
+
+def phase_beam_lora(cfg, params, band: float, card: str, prof5):
+    """Phase 38: beam search and multi-LoRA serving on the serving model.
+    ``prof5`` is phase 6's profile. Returns the launch counts of (a)'s
+    beam search, (b)'s mixed run and (c)'s paged spec run, and the
+    numbers; each line of numbers names ``card``.
+
+    (a) ``gpt.beam_search`` over two BEAM_PROMPT-token prompts, BEAM_NEW
+    new tokens: ``num_beams=1`` equals ``gpt.generate``'s greedy stream;
+    at BEAMS beams (the counts zeroed before, read after: row 5 once a
+    layer, the fused decode launch once a layer a step) the beams are
+    sorted and each score is its sequence's teacher-forced total
+    log-probability within BEAM_NEW x ``band``; with an eos that fires, a
+    frozen beam emits only pad after it and its score is the
+    teacher-forced sum up to the eos (within ``band`` a token); the
+    launches (CUDA API calls) and host ms a beam step, from a 32-token
+    and a 2-token call's difference (the median of 3 calls each), and
+    the reorder's launches and device ms (a CUDA graph of its calls).
+    (b) Scheduler over a pool Engine (LORA_GEOM, LORA_POOL,
+    ``max_admit_batch=1``), adapters of LORA_SEEDS, lora_trace's 24
+    requests (counts zeroed before, read after): the base rows' streams
+    equal a pool-less engine's bit for bit; each adapter's requests
+    served alone give the mixed run's streams bit for bit; adapter
+    streams equal ``gpt.generate`` over ``merge_lora``, or part from it
+    where the merged reference's top-2 gap is within ``band`` (logged);
+    some adapter stream differs from its base stream; phase 6's window
+    on this engine with base rows only (its launches a decode step must
+    equal phase 6's) and with adapter rows, in turns; ``adapter_bytes``.
+    (c) a paged (pages of 8) ``spec_k=3`` pool engine on the first 12
+    requests (the gate probing every 2 chunks): paged fused decode steps
+    (rows 13 + 17) and paged verify waves (15v) on every layer, streams
+    equal to (b)'s up to reference near-ties within ``band``.
+    (d) ``start_api_server`` over (b)'s engine: ``/v1/models`` lists the
+    two adapters; a chat request whose ``model`` names adapter 1 returns
+    the stream the scheduler gives the same request directly.
+    (e) ``apex_tpu_torch.examples.generate.main(["--beams", "4"])``."""
+    from apex_tpu_torch.examples import generate as gen_example
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.serving import (
+        Engine,
+        EngineConfig,
+        Request,
+        Scheduler,
+        SpecGateConfig,
+    )
+    from apex_tpu_torch.serving.api import (
+        ByteTokenizer,
+        render_chat_prompt,
+        start_api_server,
+    )
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    out = {}
+    p = gpt.cast_params(cfg, params)
+
+    # (a) beam search
+    t = time.perf_counter()
+    prompts = torch.as_tensor(np.random.default_rng(38).integers(
+        0, V, (2, BEAM_PROMPT)), device="cuda")
+    greedy = gpt.generate(cfg, p, prompts, BEAM_NEW)
+    s1, _ = gpt.beam_search(cfg, p, prompts, BEAM_NEW, num_beams=1)
+    check(torch.equal(s1[:, 0], greedy),
+          f"beam (a): num_beams=1 {s1[:, 0].tolist()} != greedy "
+          f"{greedy.tolist()}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    seqs, scores = gpt.beam_search(cfg, p, prompts, BEAM_NEW,
+                                   num_beams=BEAMS)
+    torch.cuda.synchronize()
+    beam_counts = launch_counts()
+    check(beam_counts["flash_attention_bsh"] == L
+          and beam_counts["decode_attention_write"] == L * (BEAM_NEW - 1),
+          f"beam (a): flash_attention_bsh {beam_counts['flash_attention_bsh']}"
+          f", decode_attention_write {beam_counts['decode_attention_write']}"
+          f", expected {L} and {L} x {BEAM_NEW - 1} steps")
+    check_decode_step_kernels("beam (a)", beam_counts,
+                              ("decode_attention_write",), BEAM_NEW - 1, L)
+    check_tc("beam (a)", beam_counts, "flash_attention_bsh")
+    sc = scores.float().cpu()
+    check(bool(torch.isfinite(sc).all()) and bool((sc[:, 1:]
+                                                   <= sc[:, :-1]).all()),
+          f"beam (a): scores not finite and sorted: {sc.tolist()}")
+    worst = 0.0
+    for i in range(2):
+        for j in range(BEAMS):
+            tf = _tf_logprobs(cfg, params, prompts[i].tolist(),
+                              seqs[i, j].tolist())
+            worst = max(worst, abs(float(tf.sum()) - float(sc[i, j])))
+    check(worst <= BEAM_NEW * band,
+          f"beam (a): a score is {worst} off its teacher-forced total "
+          f"(bound {BEAM_NEW} x {band})")
+    # an eos that fires: the best beam's third token
+    eos = int(seqs[0, 0, 2])
+    es, esc = gpt.beam_search(cfg, p, prompts, BEAM_NEW, num_beams=BEAMS,
+                              eos_token_id=eos, pad_token_id=0)
+    frozen, worst_frozen = 0, 0.0
+    for i in range(2):
+        for j in range(BEAMS):
+            row = es[i, j].tolist()
+            if eos not in row[:-1]:
+                continue
+            at = row.index(eos)
+            frozen += 1
+            check(all(x == 0 for x in row[at + 1:]),
+                  f"beam (a): a frozen beam emitted {row[at + 1:]} after "
+                  f"its eos")
+            tf = _tf_logprobs(cfg, params, prompts[i].tolist(), row[:at + 1])
+            worst_frozen = max(worst_frozen,
+                               abs(float(tf.sum()) - float(esc[i, j])))
+            check(worst_frozen <= (at + 1) * band,
+                  f"beam (a): a frozen beam's score {float(esc[i, j])} "
+                  f"moved from its sum to the eos {float(tf.sum())}")
+    check(frozen > 0, f"beam (a): eos {eos} froze no beam")
+    n32, ms32 = _beam_launches(cfg, p, prompts, BEAM_NEW)
+    n2, ms2 = _beam_launches(cfg, p, prompts, 2)
+    steps = BEAM_NEW - 2
+    cache = gpt.init_cache(cfg, p, 2 * BEAMS, max_len=BEAM_PROMPT + BEAM_NEW)
+    gather = torch.arange(2 * BEAMS, device="cuda").flip(0)
+    reorder = lambda: gpt._cache_map(lambda c: c.index_select(2, gather),
+                                     cache)
+    reorder_launches = _api_launches(reorder)
+    reorder_ms = time_ms(reorder)
+    del cache
+    out["beam"] = dict(
+        max_score_vs_teacher_forced=worst, frozen_beams=frozen,
+        max_frozen_score_vs_sum_to_eos=worst_frozen,
+        launches_per_beam_step=(n32 - n2) / steps,
+        host_ms_per_beam_step=(statistics.median(ms32)
+                               - statistics.median(ms2)) / steps,
+        reorder_launches_per_step=reorder_launches,
+        reorder_share_of_launches=(reorder_launches * steps / (n32 - n2)
+                                   if n32 > n2 else None),
+        reorder_ms=reorder_ms, launches_32=n32, launches_2=n2,
+        ms_32=ms32, ms_2=ms2, beam_launches={
+            k: beam_counts[k] for k in ("flash_attention_bsh",
+                                        "decode_attention_write")},
+        phase_s=time.perf_counter() - t)
+    log(f"beam (a) ({card}): " + json.dumps(out["beam"]))
+
+    # (b) multi-LoRA through Scheduler over Engine
+    t = time.perf_counter()
+    reqs = lora_trace(V)
+    engine = Engine(cfg, params, EngineConfig(**LORA_GEOM, **LORA_POOL))
+    ids = [engine.register_adapter(seed=s) for s in LORA_SEEDS]
+    check(ids == [1, 2], f"lora (b): adapter ids {ids}")
+    sched, wall, lora_counts, delta, mixed = serve_counted(
+        engine, reqs, max_admit_batch=1)
+    check_decode_step_kernels("lora (b)", lora_counts,
+                              ("decode_attention_write",),
+                              delta["decode_steps_taken"], L)
+    check_prefills("lora (b)", lora_counts, delta, L)
+    plain_engine = Engine(cfg, params, EngineConfig(**LORA_GEOM))
+    _, _, _, _, base = serve_counted(
+        plain_engine, lora_trace(V, adapters=False), max_admit_batch=1)
+    del plain_engine
+    drift = [r.request_id for r in reqs
+             if r.adapter == 0 and mixed[r.request_id] != base[r.request_id]]
+    check(not drift, f"lora (b): base rows differ from the pool-less "
+          f"engine's: {drift}")
+    moved = [r.request_id for r in reqs
+             if r.adapter and mixed[r.request_id] != base[r.request_id]]
+    check(moved, "lora (b): no adapter stream differs from its base stream")
+    for a in (1, 2):
+        mine = [r for r in reqs if r.adapter == a]
+        _, _, _, _, alone = serve_counted(engine, mine, max_admit_batch=1)
+        drift = [r.request_id for r in mine
+                 if alone[r.request_id] != mixed[r.request_id]]
+        check(not drift, f"lora (b): adapter {a}'s requests alone differ "
+              f"from the mixed run: {drift}")
+    merged = {0: params}
+    want = {}
+    for a, s in zip(ids, LORA_SEEDS):
+        merged[a] = gpt.merge_lora(cfg, params, gpt.init_lora_weights(
+            cfg, LORA_POOL["adapter_rank"], s), LORA_POOL["adapter_alpha"])
+        mp = gpt.cast_params(cfg, merged[a])
+        mine = [r for r in reqs if r.adapter == a]
+        for n in sorted({len(r.prompt) for r in mine}):
+            group = [r for r in mine if len(r.prompt) == n]
+            outs = gpt.generate(cfg, mp, torch.as_tensor(
+                [r.prompt for r in group], device="cuda"), LORA_NEW).tolist()
+            want.update({r.request_id: o for r, o in zip(group, outs)})
+        del mp
+    adapter_reqs = [r for r in reqs if r.adapter]
+    gaps = _gaps_by_adapter(cfg, merged, adapter_reqs, mixed, want)
+    check(all(g <= band for _, _, _, g in gaps),
+          f"lora (b): adapter streams part from the merged generate past "
+          f"the band {band}: {gaps}")
+    out["lora"] = dict(
+        wall_s=wall, decode_steps=delta["decode_steps_taken"],
+        admit_groups=delta["admit_groups"],
+        adapter_bytes=engine.adapter_bytes(),
+        adapter_id_uploads=engine.adapter_id_uploads,
+        adapter_streams_moved=len(moved), vs_merged=dict(
+            identical=len(adapter_reqs) - len(gaps),
+            first_divergence_gaps=gaps),
+        launches={k: lora_counts[k] for k in ("flash_attention_bsh",
+                                              "decode_attention_write")})
+    log(f"lora (b) ({card}): " + json.dumps(out["lora"]))
+
+    # (b) a decode step with base rows only and with adapter rows, in turns
+    turns = []
+    for side in ("base", "lora", "lora", "base"):
+        window = lora_trace(V, n=SLOTS, adapters=side == "lora")
+        for r in window:
+            r.max_tokens = 40
+        prof = phase_profile(cfg, engine, chunks=8, reqs=window,
+                             what=f"lora (b) {side}")
+        check(prof is not None, "lora (b): the profiler saw no kernel")
+        turns.append(dict(side=side, **{k: prof[k] for k in (
+            "decode_steps", "host_ms_per_decode_step",
+            "launches_per_decode_step", "device_idle_share")}))
+    if prof5 is not None:
+        base_turns = [x["launches_per_decode_step"] for x in turns
+                      if x["side"] == "base"]
+        check(all(x == prof5["launches_per_decode_step"]
+                  for x in base_turns),
+              f"lora (b): a base-only decode step on the pool engine "
+              f"launched {base_turns}, phase 6 "
+              f"{prof5['launches_per_decode_step']}")
+    out["decode_step"] = dict(
+        phase6_launches=None if prof5 is None
+        else prof5["launches_per_decode_step"], turns=turns)
+    log(f"lora (b) decode step ({card}): " + json.dumps(out["decode_step"]))
+    out["lora"]["phase_s"] = time.perf_counter() - t
+
+    # (c) paged + speculative with adapters (0, 1, 2)
+    t = time.perf_counter()
+    spec_reqs = reqs[:LORA_SPEC_REQS]
+    spec_engine = Engine(cfg, params, EngineConfig(
+        **LORA_GEOM, **LORA_POOL, page_size=PAGE, spec_k=SPEC_K))
+    for s in LORA_SEEDS:
+        spec_engine.register_adapter(seed=s)
+    _, _, spec_counts, sdelta, spec = serve_counted(
+        spec_engine, spec_reqs, max_admit_batch=1,
+        spec_gate=SpecGateConfig(probe_every=2))
+    steps, waves = sdelta["decode_steps_taken"], sdelta["spec_waves_taken"]
+    check(spec_counts["paged_attention_write"] == L * steps > 0
+          and spec_counts["paged_verify_attention"] == L * waves > 0
+          and spec_counts["decode_attention_write"] == 0
+          and spec_counts["decode_verify_attention"] == 0
+          and spec_counts["paged_write_columns"] == 0,
+          f"lora (c): paged_attention_write "
+          f"{spec_counts['paged_attention_write']} (expected {L} x {steps}"
+          f" steps), paged_verify_attention "
+          f"{spec_counts['paged_verify_attention']} (expected {L} x "
+          f"{waves} waves), contiguous decode "
+          f"{spec_counts['decode_attention_write']}, verify "
+          f"{spec_counts['decode_verify_attention']}")
+    del spec_engine
+    sgaps = _gaps_by_adapter(cfg, merged, spec_reqs, spec, mixed)
+    check(all(g <= band for _, _, _, g in sgaps),
+          f"lora (c): paged spec streams part from the contiguous plain "
+          f"ones past the band {band}: {sgaps}")
+    out["spec"] = dict(
+        decode_steps=steps, waves=waves,
+        identical=len(spec_reqs) - len(sgaps), first_divergence_gaps=sgaps,
+        launches={k: spec_counts[k] for k in ("paged_attention_write",
+                                              "paged_verify_attention")},
+        phase_s=time.perf_counter() - t)
+    log(f"lora (c) ({card}): " + json.dumps(out["spec"]))
+    del merged
+
+    # (d) the front end: adapter models and routing by name
+    t = time.perf_counter()
+    tok = ByteTokenizer(V)
+    msgs = _chat_messages(38)
+    api_sched = Scheduler(engine, max_admit_batch=1)
+    server = start_api_server(api_sched, port=0)
+    try:
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=600)
+        conn.request("GET", "/v1/models")
+        models = json.loads(conn.getresponse().read())["data"]
+        conn.close()
+        status, _, d = _http(server.port, "/v1/chat/completions", {
+            "model": "adapter-seed-7", "messages": msgs,
+            "max_tokens": API_CHAT_NEW, "return_token_ids": True})
+    finally:
+        server.stop()
+    listed = [(m["id"], m.get("adapter")) for m in models]
+    check(listed == [(server.model, None), ("adapter-seed-7", 1),
+                     ("adapter-seed-9", 2)],
+          f"lora (d): /v1/models lists {listed}")
+    check(status == 200, f"lora (d): status {status}: {d}")
+    direct = Scheduler(engine, max_admit_batch=1)
+    direct.submit(Request("direct", tok.encode(render_chat_prompt(msgs)),
+                          max_tokens=API_CHAT_NEW, adapter=1))
+    direct.run_until_idle()
+    got_d = d["choices"][0]["token_ids"]
+    check(got_d == direct.completions["direct"].tokens,
+          f"lora (d): the adapter-seed-7 chat stream {got_d} != the "
+          f"scheduler's {direct.completions['direct'].tokens}")
+    out["api"] = dict(models=listed, tokens=len(got_d),
+                      phase_s=time.perf_counter() - t)
+    log(f"lora (d) ({card}): " + json.dumps(out["api"]))
+    del engine
+
+    # (e) the example
+    t = time.perf_counter()
+    ex = gen_example.main(["--beams", "4"])
+    check(len(ex) == 2 and all(len(x) == 16 for x in ex),
+          f"beam (e): the example returned {ex}")
+    out["example_s"] = time.perf_counter() - t
+    log(f"beam (e) ({card}): examples.generate --beams 4 -> {ex}")
+    return beam_counts, lora_counts, spec_counts, out
 
 
 # ---------------------------------------------------------------------------
@@ -8435,6 +8859,11 @@ def main() -> int:
         t = time.perf_counter()
         api_launches, _ = phase_api(cfg, params, band, card, prof5)
         log(f"front-end phase {time.perf_counter() - t:.1f}s")
+        # beam search and multi-LoRA serving
+        t = time.perf_counter()
+        beam_launches, lora_launches, lora_spec_launches, _ = \
+            phase_beam_lora(cfg, params, band, card, prof5)
+        log(f"beam/LoRA phase {time.perf_counter() - t:.1f}s")
         # the quantized cache, on the same serving model
         t = time.perf_counter()
         quant_rows = phase_quant_kernels()
@@ -8657,6 +9086,18 @@ def main() -> int:
                         ("decode_attention", "decode_attention_write"),
                         ("decode_attention_write", "decode_attention_write")):
         rows[name]["api_launches"] = api_launches[fused]
+    # phase 38's runs: row 5 for the beam prefill and every LoRA
+    # admission, row 10 (in its fused launch) for every beam step and every
+    # LoRA decode step; rows 17 and 15v (and the fused paged step) in (c)
+    for name, fused in (("flash_attention_bsh", "flash_attention_bsh"),
+                        ("decode_attention", "decode_attention_write"),
+                        ("decode_attention_write", "decode_attention_write")):
+        rows[name]["beam_launches"] = beam_launches[fused]
+        rows[name]["lora_launches"] = lora_launches[fused]
+    for name, fused in (("paged_attention", "paged_attention_write"),
+                        ("paged_attention_write", "paged_attention_write"),
+                        ("paged_verify_attention", "paged_verify_attention")):
+        rows[name]["lora_launches"] = lora_spec_launches[fused]
     for r in quant_rows.values():
         r["launches"] = quant_launches[r["name"]]
     rows.update(quant_rows)

@@ -21,8 +21,9 @@ Oracles, over real sockets (``http.client``, servers on port 0):
 - ``apex_tpu_torch.serving.api`` imports and runs its pure logic with
   torch, numpy and JAX blocked;
 - ``python -m apex_tpu_torch.examples.serve_gpt --preset tiny --device
-  cpu --num-requests 6`` exits 0; each refused flag raises naming its
-  ROADMAP item; without ``--device cpu`` and no card it raises.
+  cpu --num-requests 6`` exits 0, and with ``--adapters 2`` its front end
+  lists the two adapters; each refused flag raises naming its ROADMAP
+  item; without ``--device cpu`` and no card it raises.
 """
 
 import http.client
@@ -420,12 +421,46 @@ def test_example_serves_on_the_cpu():
                                          "item 3"),
     (["--replicas", "2"], "item 3"), (["--kill-replica", "1@4"], "item 3"),
     (["--autotune"], "item 3"), (["--host-swap"], "item 3"),
-    (["--resume-policy", "swap"], "item 3"), (["--adapters", "2"],
-                                              "item 3"),
+    (["--resume-policy", "swap"], "item 3"),
     (["--slo", "p99:ttft:0.2"], "item 3")])
 def test_example_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
         serve_gpt.main(["--preset", "tiny", "--device", "cpu"] + flags)
+
+
+def test_example_serves_adapters_on_the_cpu():
+    """``--adapters 2`` registers two seeded adapters, spreads the trace
+    over them and the base model, and the front end lists both in
+    ``/v1/models`` (the server runs until SIGINT, as under Ctrl-C)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "apex_tpu_torch.examples.serve_gpt",
+         "--preset", "tiny", "--device", "cpu", "--num-requests", "6",
+         "--adapters", "2", "--api-port", "0"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": REPO})
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("api: "):
+                break
+        port = int(lines[-1].split("api: http://127.0.0.1:")[1]
+                   .split("/")[0])
+        status, data = _get(port, "/v1/models")
+        assert status == 200
+        models = json.loads(data)["data"]
+    finally:
+        proc.send_signal(2)
+        out, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err[-4000:]
+    assert [(m["id"], m.get("adapter")) for m in models] == [
+        ("apex-tpu-gpt", None), ("adapter-seed-100", 1),
+        ("adapter-seed-101", 2)]
+    assert all(m["parent"] == "apex-tpu-gpt" for m in models[1:])
+    served = json.loads(next(line for line in lines
+                             if line.startswith("served "))[7:])
+    assert served["requests_completed"] == 6.0
+    assert served["adapters_registered"] == 2.0
 
 
 def test_example_needs_a_card_unless_asked(monkeypatch):

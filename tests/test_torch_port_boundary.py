@@ -2,7 +2,8 @@
 and touches CUDA, and where it refuses to run.
 
 - Every module of the package (the serving front end's too: the tenancy
-  book, ``serving/api/*`` and ``examples/serve_gpt.py``) imports in a
+  book, ``serving/api/*``, ``examples/serve_gpt.py`` and
+  ``examples/generate.py``) imports in a
   subprocess whose
   ``sys.meta_path`` blocks ``jax``, ``jaxlib`` and ``apex_tpu`` (the exact
   name and the ``apex_tpu.`` prefix — not the string prefix, which would
@@ -66,7 +67,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         "apex_tpu_torch.serving.api.protocol",
         "apex_tpu_torch.serving.api.constrain",
         "apex_tpu_torch.serving.api.tokenizer",
-        "apex_tpu_torch.examples.serve_gpt")))
+        "apex_tpu_torch.examples.serve_gpt",
+        "apex_tpu_torch.examples.generate")))
     print("LEAKED", leaked)
     print("BUILT", _build._info is not None or _build._lib is not None)
     print("CUDA_INIT", torch.cuda.is_initialized())
@@ -80,10 +82,10 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its thirteen subpackages and their forty-two modules
-    # (serving/tenancy.py, serving/api/* and examples/serve_gpt.py among
-    # them)
-    assert int(out["MODULES"]) == 56, out
+    # the package, its thirteen subpackages and their forty-three modules
+    # (serving/tenancy.py, serving/api/*, examples/serve_gpt.py and
+    # examples/generate.py among them)
+    assert int(out["MODULES"]) == 57, out
     assert out["FRONTEND"] == "True"
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"

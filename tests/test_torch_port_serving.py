@@ -295,23 +295,30 @@ def test_deadline_expires_queued_and_active(model):
     ("stop", [[1, 2]]), ("constraint", object()), ("tenant", "t1"),
     ("adapter", 1)])
 def test_later_slice_request_fields_rejected(model, field, value):
-    """Only the adapter still waits for its slice; stop sequences,
-    constraints and tenants are served since the front-end slice, and a
-    request carrying one is queued."""
+    """Every request field of the JAX package is served now: stop
+    sequences, constraints and tenants since the front-end slice, adapters
+    since the multi-LoRA slice. A request carrying one is queued; an
+    adapter needs an engine with an adapter pool (and the adapter
+    registered), and a pool-less engine refuses it in JAX's words."""
     _, _, _, tcfg, tparams = model
-    sched = Scheduler(Engine(tcfg, tparams, EngineConfig(
-        slots=1, max_prompt_len=16, max_seq_len=32), device="cpu"))
+    geom = dict(slots=1, max_prompt_len=16, max_seq_len=32)
+    if field == "adapter":
+        plain = Scheduler(Engine(tcfg, tparams, EngineConfig(**geom),
+                                 device="cpu"))
+        with pytest.raises(ValueError, match="adapter pool is disabled"):
+            plain.submit(Request("x", [1, 2], max_tokens=2, adapter=value))
+        geom["adapter_slots"] = 2
+    sched = Scheduler(Engine(tcfg, tparams, EngineConfig(**geom),
+                             device="cpu"))
+    if field == "adapter":
+        sched.register_adapter(seed=7)
     req = Request("x", [1, 2], max_tokens=2, **{field: value})
-    if field != "adapter":
-        sched.submit(req)
-        assert list(sched.queue) == [req]
-        return
-    with pytest.raises(ValueError, match="later slice"):
-        sched.submit(req)
+    sched.submit(req)
+    assert list(sched.queue) == [req]
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec_ks", (2,)), ("host_swap_pages", 4), ("adapter_slots", 2),
+    ("spec_ks", (2,)), ("host_swap_pages", 4), ("resume_policy", "swap"),
     ("host_swap", True), ("decode_chunks", (1, 2))])
 def test_later_slice_engine_fields_raise(field, value):
     with pytest.raises(ValueError, match="later slice"):
