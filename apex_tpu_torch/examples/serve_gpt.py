@@ -43,13 +43,24 @@ drains, for ``--api-linger`` seconds (0 = until Ctrl-C); chat prompts
 are byte-level, so give the engine prompt room. ``--device`` defaults to
 ``cuda`` and raises when there is no card; ``cpu`` must be asked for.
 
+``--host-swap`` (needs ``--page-size``) puts the host-RAM page tier under
+the paged pool and runs the park-and-resume demo: two ticks in, every
+running conversation parks (its pages swap out to host memory and the
+slot frees), the host tier's occupancy prints, and each resumes by
+``--resume-policy`` (``swap`` scatters the pages back, ``recompute``
+re-derives the streamed prefix, ``auto`` prices the two); the streams are
+those of a run without the demo. Page pressure then preempts the tenant
+furthest ahead of its fair share instead of only backpressuring::
+
+    python -m apex_tpu_torch.examples.serve_gpt --preset tiny \
+        --device cpu --page-size 8 --host-swap --resume-policy swap
+
 Flags that need a module the port does not have yet raise and name the
 ROADMAP queue 1 item they wait for: ``--tp > 1`` (item 5), ``--ckpt``
 (item 7), and, of item 3, ``--metrics-port``, ``--metrics-linger``,
 ``--span-trace``, ``--slo`` and ``--bundle-dir`` (telemetry),
 ``--journal-dir``, ``--fault-plan``, ``--replicas > 1`` and
-``--kill-replica`` (resilience), ``--autotune`` (the tuner) and
-``--host-swap`` and ``--resume-policy`` (the host-swap tier).
+``--kill-replica`` (resilience), and ``--autotune`` (the tuner).
 """
 
 from __future__ import annotations
@@ -203,9 +214,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--kill-replica", default=None)
     ap.add_argument("--autotune", nargs="?", const="default", default=None)
-    ap.add_argument("--host-swap", action="store_true")
-    ap.add_argument("--resume-policy", default=None,
-                    choices=("auto", "swap", "recompute"))
+    ap.add_argument("--host-swap", action="store_true",
+                    help="host-RAM page tier under the paged pool (needs "
+                    "--page-size), with the park-and-resume demo")
+    ap.add_argument("--resume-policy", default="auto",
+                    choices=("auto", "swap", "recompute"),
+                    help="how a parked conversation comes back (see the "
+                    "module docstring)")
     ap.add_argument("--slo", default=None)
     return ap.parse_args(argv)
 
@@ -233,9 +248,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (f"--kill-replica (resilience's fleet; {_SERVING})",
          args.kill_replica is not None),
         (f"--autotune (the tuner; {_SERVING})", args.autotune is not None),
-        (f"--host-swap (the host-swap tier; {_SERVING})", args.host_swap),
-        (f"--resume-policy (the host-swap tier; {_SERVING})",
-         args.resume_policy is not None),
     ) if on]
     if refused:
         raise SystemExit("not supported by apex_tpu_torch yet: "
@@ -256,6 +268,9 @@ def _tenant_spec(spec: str) -> Dict[str, float]:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     _refuse_unported(args)
+    if args.host_swap and not args.page_size:
+        raise SystemExit("--host-swap needs --page-size (the host tier "
+                         "pages a paged pool)")
     dev = resolve_device(args.device)
     tenancy = tenant_names = None
     if args.tenant_weights or args.tenant_rate:
@@ -277,7 +292,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         max_seq_len=args.max_seq_len, decode_chunk=args.decode_chunk,
         prefix_pool_slots=len(templates), spec_k=args.spec_k,
         page_size=args.page_size, num_pages=args.max_pages,
-        prefill_chunk=args.prefill_chunk,
+        prefill_chunk=args.prefill_chunk, host_swap=args.host_swap,
+        resume_policy=args.resume_policy,
         adapter_slots=args.adapters + 1 if args.adapters else 0),
         device=dev)
     long_len = 0
@@ -304,6 +320,24 @@ def main(argv: Optional[List[str]] = None) -> None:
             # the offline spelling of the front end's 429
             print(f"request {r.request_id} throttled (tenant "
                   f"{e.tenant!r}, retry in {e.retry_after_s:.1f}s)")
+    if args.host_swap:
+        # the park-and-resume demo: two ticks in, park every running
+        # conversation (its pages swap out to host RAM, the slot frees),
+        # show the host tier holding them, then resume them all
+        for _ in range(2):
+            sched.step()
+        for rid in sorted(a.request.request_id
+                          for a in sched.active.values()):
+            sched.pause(rid)
+        parked = list(sched.parked_requests)
+        if parked:
+            print(f"parked {len(parked)} conversation(s) to host RAM "
+                  f"({args.resume_policy} resume): {parked}")
+            print("host tier: " + json.dumps(
+                {k: round(v, 1)
+                 for k, v in engine.host_tier_stats().items()}))
+            for rid in parked:
+                sched.resume(rid)
     sched.run_until_idle()
     for r in reqs:
         c = sched.completions.get(r.request_id)

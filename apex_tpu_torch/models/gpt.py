@@ -1608,6 +1608,21 @@ def cache_gather_page(cache, page: int, length: int):
     return _cache_map(lambda c: c[:, :, page:page + 1, :, :length], cache)
 
 
+def cache_gather_pages(cache, pages):
+    """The host-swap tier's gather: whole pages ``pages [n]`` of a PAGED
+    cache along the page dim, ``[L, 2, n, heads, P, d]`` in the cache's
+    own STORAGE dtype (both planes of a quantized pool), as a copy and
+    not a view. One-byte planes move as bytes (fp8 has no
+    ``index_select`` everywhere), so a block parked in host RAM
+    round-trips bit for bit, and :func:`cache_insert_pages` scatters it
+    back with ``pages[:, None]``."""
+    def gather(c):
+        idx = torch.as_tensor(pages, device=c.device).reshape(-1).long()
+        return _bytes(c).index_select(2, idx).view(c.dtype)
+
+    return _cache_map(gather, cache)
+
+
 def cache_insert_slot(cache, block, slot: int, *, pos: int = 0):
     """Insert one prefilled block ``[L, 2, 1, heads, P, d]`` into slot
     ``slot`` of the shared cache ``[L, 2, B, heads, S, d]`` at horizon

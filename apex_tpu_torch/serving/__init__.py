@@ -6,6 +6,9 @@
   top-p sampler shared by ``gpt.generate`` and the engine,
 - :mod:`~apex_tpu_torch.serving.pages`     — the page allocator of the
   paged KV cache (host only),
+- :mod:`~apex_tpu_torch.serving.hostswap`  — the host-RAM page tier's
+  store of parked conversations and the LRU adapter paging shares
+  (host only),
 - :mod:`~apex_tpu_torch.serving.engine`    — the device loop: slot state,
   admission (bulk prefill), plain and speculative decode chunks, retire,
   the paged pool's block tables,
@@ -26,6 +29,7 @@ point — model first or serving first — resolves without a cycle.
 from __future__ import annotations
 
 from apex_tpu_torch.serving import (  # noqa: F401
+    hostswap,
     pages,
     request,
     sampling,
@@ -58,7 +62,8 @@ __all__ = ["Admission", "AdmitResult", "Completion", "Engine",
            "EngineConfig", "PageAllocator", "PagesExhausted", "QueueFull",
            "Request", "SamplingParams", "Scheduler", "SpecGateConfig",
            "StepHandle", "StopMatcher", "StreamEvent", "TenancyConfig",
-           "TenantThrottled", "pages", "request", "sampling", "tenancy"]
+           "TenantThrottled", "hostswap", "pages", "request", "sampling",
+           "tenancy"]
 
 
 def __getattr__(name):

@@ -43,7 +43,17 @@ and, with ``spec_k > 0``, the drafter's token-history ring — lives in
   low-rank delta at every dense seam (``gpt``'s ``lora=`` bundle). The
   per-slot ``[B]`` id table is uploaded only when a row changed, and a
   forward takes the bundle only while one of its rows carries a nonzero
-  id; base traffic launches what an engine without a pool launches.
+  id; base traffic launches what an engine without a pool launches;
+- :meth:`Engine.park_slot` / :meth:`Engine.resume_slot` — with
+  ``host_swap`` (paged only) a slot's private pages are gathered into
+  host RAM (:func:`gpt.cache_gather_pages`) beside its full state row,
+  the slot and its pages are freed, and a later resume scatters the
+  payload into fresh pages of any free slot: the stream continues bit
+  for bit. The host tier (:class:`~.hostswap.HostPageTier`) may be
+  bounded (``host_swap_pages``); an evicted payload leaves the
+  scheduler's recompute resume. Under ``host_swap`` adapter ids are
+  logical: ``register_adapter`` has no cap, and a cold adapter pages
+  into the pool row of the coldest adapter no live slot holds.
 
 A slot's token stream is the one a solo ``gpt.generate`` of the same
 request emits. PyTorch runs eagerly, so there is no compile step and no
@@ -53,14 +63,17 @@ request emits. PyTorch runs eagerly, so there is no compile step and no
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from apex_tpu_torch._capabilities import resolve_device
+from apex_tpu_torch.kernels.decode_attention import _bytes
 from apex_tpu_torch.models import gpt
 from apex_tpu_torch.serving import sampling
+from apex_tpu_torch.serving.hostswap import HostPageTier, LRUIndex
 from apex_tpu_torch.serving.pages import SINK, PageAllocator, PagesExhausted
 
 _NO_EOS = gpt.NO_EOS
@@ -82,14 +95,9 @@ def default_prompt_buckets(max_prompt_len: int) -> Tuple[int, ...]:
 #: the port, with the value that leaves them off and the slice they
 #: belong to
 _TUNER = "the self-tuning scheduler, ROADMAP queue 1 item 3"
-_HOST_SWAP = ("the host-swap tier and its adapter paging, ROADMAP queue 1 "
-              "item 3")
 _LATER_FIELDS = {
     "decode_chunks": (None, _TUNER),
     "spec_ks": (None, _TUNER),
-    "host_swap": (False, _HOST_SWAP),
-    "host_swap_pages": (0, _HOST_SWAP),
-    "resume_policy": ("auto", _HOST_SWAP),
 }
 
 
@@ -126,9 +134,15 @@ class EngineConfig:
     ``prefill_chunk``-token forward at a time. ``adapter_slots > 0``
     keeps a multi-LoRA pool of that many rows (row 0 the pinned base
     adapter) of rank ``adapter_rank``, its deltas scaled by
-    ``adapter_alpha / adapter_rank``. The JAX engine's other
-    fields keep their names and defaults here; setting one raises,
-    naming the later slice it belongs to."""
+    ``adapter_alpha / adapter_rank``. ``host_swap`` (needs
+    ``page_size``) adds the host-RAM page tier under the pool: parked
+    conversations hold host buffers instead of pages, at most
+    ``host_swap_pages`` pages of them (0 = unbounded), and
+    ``resume_policy`` (``auto`` | ``swap`` | ``recompute``) says how the
+    scheduler brings one back; it also pages adapters (logical ids, no
+    cap on registrations). The JAX engine's other fields
+    (``decode_chunks``, ``spec_ks``) keep their names and defaults here;
+    setting one raises, naming the later slice it belongs to."""
 
     slots: int = 4
     max_prompt_len: int = 64
@@ -237,7 +251,7 @@ class ChunkedAdmission:
     prefill forwards."""
 
     __slots__ = ("admission", "prompt", "p_len", "chunks_total",
-                 "next_chunk", "slot", "_logits")
+                 "next_chunk", "slot", "adapter_row", "_logits")
 
     def __init__(self, admission: Admission, prompt: np.ndarray,
                  p_len: int, chunks_total: int):
@@ -247,6 +261,7 @@ class ChunkedAdmission:
         self.chunks_total = chunks_total
         self.next_chunk = 1          # chunk 0 ran at start
         self.slot = admission.slot
+        self.adapter_row = 0         # the pool row of its adapter
         self._logits = None          # the last chunk's logits, on device
 
     @property
@@ -412,6 +427,22 @@ class Engine:
                     (ps, tb) for ps, tb in self._extend_variants
                     if ps in splits)
                 self._prefix_splits = splits
+        if ecfg.resume_policy not in ("auto", "swap", "recompute"):
+            raise ValueError(
+                f"resume_policy {ecfg.resume_policy!r} must be one of "
+                f"'auto' | 'swap' | 'recompute'")
+        if ecfg.host_swap_pages < 0:
+            raise ValueError(
+                f"host_swap_pages {ecfg.host_swap_pages} must be >= 0")
+        self._host_swap = bool(ecfg.host_swap)
+        if self._host_swap and not self._paged:
+            raise ValueError(
+                "host_swap requires the paged KV cache (page_size > 0) "
+                "— the swap tier moves pages, not contiguous stripes")
+        if ecfg.host_swap_pages and not self._host_swap:
+            raise ValueError(
+                "host_swap_pages without host_swap — the host tier "
+                "only exists with host_swap=True")
         if ecfg.prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk {ecfg.prefill_chunk} must be >= 0")
@@ -528,6 +559,27 @@ class Engine:
         self._adapter_names: Dict[str, int] = {}
         self._adapter_meta: Dict[int, Dict[str, Any]] = {}
         self._adapter_used = 1 if self._lora else 0   # row 0 pinned
+        #: host-swap tier: the parked-conversation store (payloads: the
+        #: private pages in storage form, the slot's state row, its
+        #: shared pages, mask row and adapter) and the measured per-page
+        #: swap-in cost the scheduler's auto resume policy prices from
+        self._host_tier: Optional[HostPageTier] = None
+        self._swap_in_ewma_s = 0.0
+        if self._host_swap:
+            self._host_tier = HostPageTier(ecfg.host_swap_pages)
+        #: adapter paging (host_swap engines): each registration's host
+        #: weight rows (logical id -> numpy rows), the logical <->
+        #: physical residency maps and the LRU over resident pool rows.
+        #: Without host_swap they stay empty and ids are pool rows
+        self._adapter_rows_host: Dict[int, Any] = {}
+        self._adapter_phys: Dict[int, int] = {}
+        self._adapter_virt: Dict[int, int] = {}
+        self._adapter_lru = LRUIndex()
+        self._adapter_free_rows: List[int] = (
+            list(range(ecfg.adapter_slots - 1, 0, -1))
+            if self._lora and self._host_swap else [])
+        self._adapter_spills = 0
+        self._adapter_pageins = 0
 
     @staticmethod
     def _resolve_buckets(ecfg: EngineConfig) -> Tuple[int, ...]:
@@ -694,9 +746,9 @@ class Engine:
 
     @property
     def adapter_names(self) -> Dict[str, int]:
-        """Registered adapter name → pool row (a copy; the pinned base
-        row 0 is not in it): the source of ``/v1/models``' adapter
-        rows."""
+        """Registered adapter name → id (a copy; the pinned base row 0 is
+        not in it; the pool row itself, or with ``host_swap`` the logical
+        id): the source of ``/v1/models``' adapter rows."""
         return dict(self._adapter_names)
 
     @property
@@ -730,7 +782,10 @@ class Engine:
         "fc2": {"a", "b"}}`` arrays in :func:`gpt.init_lora_weights`'
         layout — or ``seed``, for the deterministic synthetic adapter that
         seed names. A name already registered returns its id. The shapes
-        are checked before the capacity. The JAX engine also refuses a
+        are checked before the capacity. With ``host_swap`` the id is
+        logical and there is no cap: the rows stay in host memory and
+        page into the pool (at once while a pool row is free, else at
+        the admission that needs them). The JAX engine also refuses a
         registration before its ``warmup()``, which compiles the set
         program; the port compiles nothing and has no ``warmup()``, so it
         registers at any time."""
@@ -763,6 +818,22 @@ class Engine:
                         f"expected {shape} (rank/layers/hidden are "
                         f"compile-time static — ADAPTER-STATIC)")
                 row[site][part] = arr
+        if self._host_swap:
+            idx = self._adapter_used
+            self._adapter_rows_host[idx] = row
+            self._adapter_used += 1
+            if self._adapter_free_rows:
+                try:
+                    self._adapter_physical(idx)
+                except Exception:
+                    self._adapter_rows_host.pop(idx, None)
+                    self._adapter_used -= 1
+                    raise
+            self._adapter_names[name] = idx
+            self._adapter_meta[idx] = {
+                "id": idx, "name": name, "seed": seed,
+                "rank": self.engine_cfg.adapter_rank}
+            return idx
         if self._adapter_used >= self.engine_cfg.adapter_slots:
             raise ValueError(
                 f"adapter pool full ({self.engine_cfg.adapter_slots} "
@@ -783,9 +854,100 @@ class Engine:
         self._adapter_ids[slot] = adapter
         self._aids_dev = None
 
+    def _pinned_adapter_rows(self) -> set:
+        """The pool rows a live slot's id-table entry, or the chunked
+        admission in progress, holds: paging must not evict them (that
+        would swap weights under a decoding stream)."""
+        rows = {int(r) for r in self._adapter_ids if r}
+        if self._chunked is not None and self._chunked.adapter_row:
+            rows.add(self._chunked.adapter_row)
+        return rows
+
+    def _adapter_physical(self, adapter: int, pinned=()) -> int:
+        """Resolve a logical adapter id to its resident pool row, paging
+        the row in from the host registry when cold (``host_swap``
+        engines; the identity elsewhere, where ids are rows). A cold id
+        takes a free row, else the row of the coldest adapter that no
+        pinned row holds (:meth:`_pinned_adapter_rows`, plus ``pinned``:
+        the rows an admission batch resolved before this one). Raises
+        ``ValueError`` when every row is pinned."""
+        if not (self._host_swap and self._lora) or adapter == 0:
+            return adapter
+        phys = self._adapter_phys.get(adapter)
+        if phys is not None:
+            self._adapter_lru.touch(phys)
+            return phys
+        if self._adapter_free_rows:
+            phys = self._adapter_free_rows.pop()
+        else:
+            phys = self._adapter_lru.pop_coldest(
+                self._pinned_adapter_rows() | set(pinned))
+            if phys is None:
+                raise ValueError(
+                    f"adapter pool thrash: every resident row "
+                    f"(adapter_slots={self.engine_cfg.adapter_slots}) "
+                    f"is bound to a live slot — raise adapter_slots")
+            stale = self._adapter_virt.pop(phys)
+            self._adapter_phys.pop(stale, None)
+            self._adapter_spills += 1
+        gpt.lora_set_row(self.adapters, self._adapter_rows_host[adapter],
+                         phys)
+        self._adapter_phys[adapter] = phys
+        self._adapter_virt[phys] = adapter
+        self._adapter_lru.touch(phys)
+        self._adapter_pageins += 1
+        return phys
+
+    def _resolve_adapters(self, ids: Sequence[int]) -> List[int]:
+        """The pool rows of one admission batch's logical ids, each row
+        pinned against the paging of the rows after it. (JAX's engine
+        resolves a batch's ids before it binds any: with more cold
+        adapters in one batch than unpinned rows, a row paged in for one
+        request can be evicted for a later one of the same batch, which
+        then reads the wrong weights.)"""
+        out: List[int] = []
+        for a in ids:
+            out.append(self._adapter_physical(a, pinned=out))
+        return out
+
+    def _adapter_virtual(self, phys: int) -> int:
+        """Inverse of :meth:`_adapter_physical` for a bound row: the
+        logical id a park payload stores, so a resume resolves it again
+        (the row may have been spilled meanwhile)."""
+        if not (self._host_swap and self._lora) or phys == 0:
+            return phys
+        return self._adapter_virt.get(phys, 0)
+
+    def adapters_fit(self, ids: Sequence[int]) -> bool:
+        """Whether the logical adapters ``ids`` can be resident at once
+        beside the rows the live slots and the chunked admission hold —
+        what an admission batch (or a resume) needs to resolve without a
+        thrash. Always True without adapter paging."""
+        if not (self._host_swap and self._lora):
+            return True
+        need = {int(a) for a in ids if a}
+        held = {self._adapter_phys[a] for a in need
+                if a in self._adapter_phys}
+        others = self._pinned_adapter_rows() - held
+        return len(others) + len(need) <= self.engine_cfg.adapter_slots - 1
+
+    def adapter_paging_stats(self) -> Optional[Dict[str, float]]:
+        """Adapter-paging snapshot (None unless ``host_swap`` with an
+        adapter pool): logical registrations, resident rows, usable
+        rows, spill and page-in totals."""
+        if not (self._host_swap and self._lora):
+            return None
+        return {
+            "registered": float(self.adapters_registered),
+            "resident": float(len(self._adapter_virt)),
+            "rows": float(self.engine_cfg.adapter_slots - 1),
+            "spills_total": float(self._adapter_spills),
+            "pageins_total": float(self._adapter_pageins),
+        }
+
     def _lora_for(self, ids: Sequence[int]):
         """The ``lora=`` bundle of an admission forward whose rows carry
-        adapter ``ids``, or None while every one is the base adapter (row
+        pool rows ``ids``, or None while every one is the base adapter (row
         0's delta is an exact zero: None gives the same bits and launches
         nothing for it)."""
         if not any(ids):
@@ -898,6 +1060,199 @@ class Engine:
         self._page_alloc.used_tokens += footprint
         self._slot_pages[slot] = (priv, shared, footprint)
         return row
+
+    # -- host-swap tier (EngineConfig.host_swap) ---------------------------
+
+    @property
+    def host_swap_enabled(self) -> bool:
+        """True when ``EngineConfig.host_swap`` is on."""
+        return self._host_swap
+
+    def host_parked(self, key: Any) -> bool:
+        """Whether ``key``'s swap payload is still in the host tier (False
+        after a capacity eviction: the recompute-resume signal)."""
+        return self._host_tier is not None and key in self._host_tier
+
+    def swap_in_cost_s(self, n_pages: int) -> Optional[float]:
+        """The measured swap-in wall cost of ``n_pages`` (the per-page
+        EWMA the auto resume policy prices against replay); None before
+        the first resume."""
+        if self._swap_in_ewma_s <= 0.0:
+            return None
+        return self._swap_in_ewma_s * max(n_pages, 1)
+
+    def host_tier_stats(self) -> Optional[Dict[str, float]]:
+        """The host tier's occupancy snapshot (None without host_swap)."""
+        if self._host_tier is None:
+            return None
+        return self._host_tier.stats()
+
+    def _parked_entry(self, key: Any):
+        if self._host_tier is None:
+            return None
+        return self._host_tier._entries.get(key)
+
+    def parked_pages(self, key: Any) -> int:
+        """Private pages ``key``'s parked payload holds (0 when not
+        swap-parked): what a swap-resume must allocate."""
+        ent = self._parked_entry(key)
+        return 0 if ent is None else ent.n_pages
+
+    def parked_bytes(self, key: Any) -> int:
+        """Host bytes of ``key``'s parked page blocks (0 when not
+        swap-parked)."""
+        ent = self._parked_entry(key)
+        return 0 if ent is None else ent.nbytes
+
+    def slot_page_count(self, slot: int) -> int:
+        """PRIVATE pages ``slot``'s live mapping holds (0 when unmapped,
+        or in contiguous mode): what preempting the slot frees."""
+        ent = self._slot_pages.get(slot)
+        return 0 if ent is None else len(ent[0])
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of a device tensor. On CUDA it lands in pinned
+        memory without blocking the host: later work on the same stream
+        (a decode chunk writing the freed pages, a resume's copy back)
+        runs after the copy has read its source."""
+        if self.device.type != "cuda":
+            return t.clone()
+        src = _bytes(t)
+        h = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        h.copy_(src, non_blocking=True)
+        return h.view(t.dtype)
+
+    def _to_device(self, h: torch.Tensor) -> torch.Tensor:
+        return _bytes(h).to(self.device, non_blocking=True).view(h.dtype)
+
+    def park_slot(self, slot: int, key: Any) -> List[Any]:
+        """Swap ``slot`` out to the host tier under ``key``: gather its
+        PRIVATE pages (storage form, bit-exact round trip) and its full
+        state row (sampling key and, speculating, the drafter's ring
+        included) into a host payload, retire the lane, free its pages,
+        and park the payload. Shared copy-on-write prefix pages do not
+        move: the slot drops its pin here and takes it again at resume
+        (the registration's pin keeps them alive). The slot's mask row
+        and adapter entry go back to the base, as at a release (JAX's
+        engine leaves them until the slot is reused).
+
+        Returns the keys the tier evicted to stay under
+        ``host_swap_pages`` (possibly ``key`` itself): the caller resumes
+        those by recompute. The caller must collect every chunk in
+        flight first: a dispatched block table still maps the pages
+        freed here."""
+        if not self._host_swap:
+            raise ValueError(
+                "park_slot without host_swap (EngineConfig.host_swap "
+                "== False)")
+        if not 0 <= slot < self.slots:
+            raise ValueError(f"slot {slot} outside [0, {self.slots})")
+        ent = self._slot_pages.get(slot)
+        if ent is None:
+            raise ValueError(
+                f"slot {slot} has no page mapping — nothing to park")
+        priv, shared, footprint = ent
+        # the state row first: retire below flips its done flag
+        row = {k: self._to_host(v[slot:slot + 1])
+               for k, v in self.state.items()}
+        blocks = gpt._cache_map(self._to_host,
+                                gpt.cache_gather_pages(self.cache, priv))
+        nbytes = sum(t.numel() * t.element_size() for t in (
+            blocks.values() if isinstance(blocks, dict) else (blocks,)))
+        payload = {
+            "blocks": blocks, "state": row, "shared": list(shared),
+            "n_priv": len(priv), "footprint": footprint,
+            "mask": self._masks[slot].copy(),
+            "adapter": self._adapter_virtual(int(self._adapter_ids[slot])),
+        }
+        # freeze the lane, then release its pages: the table row points
+        # at the sink, which absorbs the frozen column's writes
+        self.retire(slot)
+        self._free_slot_pages(slot)
+        self.set_slot_mask(slot, None)
+        self._set_slot_adapter(slot, 0)
+        self._page_alloc.note_swap_out(len(priv), nbytes)
+        out: List[Any] = []
+        for ek, e in self._host_tier.park(key, payload, len(priv), nbytes):
+            self._page_alloc.note_swap_drop(e.n_pages, e.nbytes)
+            out.append(ek)
+        return out
+
+    def resume_slot(self, slot: int, key: Any) -> None:
+        """Swap ``key``'s parked conversation back into ``slot``: resolve
+        its adapter, allocate fresh private pages and pin its shared
+        ones, scatter the payload, restore the state row, the mask row
+        and the adapter entry. The continued stream is the one the
+        conversation would have emitted unparked, bit for bit. Raises
+        ``KeyError`` when the payload was evicted (resume by recompute),
+        :class:`PagesExhausted` when the pool is short and ``ValueError``
+        on an adapter thrash; those three leave the payload parked. The
+        wall time of the whole resume, synchronised by a value fetch,
+        feeds the per-page swap-in EWMA."""
+        if not self._host_swap:
+            raise ValueError(
+                "resume_slot without host_swap (EngineConfig.host_swap "
+                "== False)")
+        if not 0 <= slot < self.slots:
+            raise ValueError(f"slot {slot} outside [0, {self.slots})")
+        if slot in self._slot_pages:
+            raise ValueError(
+                f"slot {slot} still holds a page mapping — free it "
+                f"before resuming into it")
+        ent = self._parked_entry(key)
+        if ent is None:
+            raise KeyError(
+                f"{key!r} has no host payload (capacity-evicted or "
+                f"never swap-parked) — resume by recompute")
+        t0 = time.perf_counter()
+        p = ent.payload
+        n_priv, shared = p["n_priv"], p["shared"]
+        if not self._page_alloc.can_alloc(n_priv):
+            raise PagesExhausted(n_priv, self._page_alloc.free_pages)
+        row = self._adapter_physical(p["adapter"])
+        self._host_tier.take(key)
+        priv = self._page_alloc.alloc(n_priv)
+        self._page_alloc.share(shared)
+        tab = np.full((self._max_pages,), SINK, np.int32)
+        tab[:len(shared)] = shared
+        tab[len(shared):len(shared) + n_priv] = priv
+        self._tables[slot] = tab
+        self._tables_dev = None
+        self._page_alloc.used_tokens += p["footprint"]
+        self._slot_pages[slot] = (priv, list(shared), p["footprint"])
+        try:
+            gpt.cache_insert_pages(
+                self.cache, gpt._cache_map(self._to_device, p["blocks"]),
+                [[q] for q in priv], page_size=self.engine_cfg.page_size)
+            for k, v in p["state"].items():
+                self.state[k][slot:slot + 1].copy_(v, non_blocking=True)
+        except Exception:
+            self._free_slot_pages(slot)
+            raise
+        if not np.array_equal(self._masks[slot], p["mask"]):
+            self._masks[slot] = p["mask"]
+            if p["mask"].all():
+                self._masked_slots.discard(slot)
+            else:
+                self._masked_slots.add(slot)
+            self._masks_dev = None
+        self._set_slot_adapter(slot, row)
+        self._page_alloc.note_swap_in(n_priv, ent.nbytes)
+        int(self.state["tok"][slot])      # the value fetch: a sync
+        sample = (time.perf_counter() - t0) / max(n_priv, 1)
+        self._swap_in_ewma_s = (
+            sample if self._swap_in_ewma_s <= 0.0
+            else 0.7 * self._swap_in_ewma_s + 0.3 * sample)
+
+    def drop_parked(self, key: Any) -> None:
+        """Discard ``key``'s swap payload (a recompute resume, or a
+        parked conversation that expired): accounting only. A no-op when
+        absent."""
+        if self._host_tier is None:
+            return
+        ent = self._host_tier.take(key)
+        if ent is not None:
+            self._page_alloc.note_swap_drop(ent.n_pages, ent.nbytes)
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         """A host mirror's device copy. On CUDA it goes through pinned
@@ -1090,11 +1445,14 @@ class Engine:
                 device=dev)
             p_lens = torch.tensor([n for _, n in proms], dtype=torch.int64,
                                   device=dev)
+            # the pool rows of the group's adapters (a cold one pages in
+            # here, before the pool goes into the forward)
+            phys = self._resolve_adapters([a.adapter for a in batch])
             # ONE padded forward admits the group; row i's logits and K/V
             # are exactly its solo prefill_at's
             blocks, logits0 = gpt.prefill_many(
                 cfg, self._params, prompts, p_lens - 1, max_len=bucket,
-                lora=self._lora_for([a.adapter for a in batch]))
+                lora=self._lora_for(phys))
             if self._paged:
                 # row i's bucket columns land in its own pages (pad columns
                 # in the sink or the row's not-yet-decoded cells)
@@ -1111,7 +1469,7 @@ class Engine:
                 gpt.cache_insert_slots(self.cache, blocks,
                                        [a.slot for a in batch])
             pending.append((self._start_slots(batch, [p for p, _ in proms],
-                                              logits0, p_lens),
+                                              logits0, p_lens, phys),
                             bucket, k, group))
             self.admit_groups += 1
             i += k
@@ -1128,12 +1486,12 @@ class Engine:
         return results
 
     def _start_slots(self, batch: Sequence[Admission], prompts, logits0,
-                     p_lens):
+                     p_lens, rows: Sequence[int]):
         """The admission's last step, whatever forward produced
         ``logits0 [k, vocab]``: each row draws its first token at
         ``p_lens - 1`` and its slot's state row is scattered (with the
         drafter's ring seeded from ``prompts`` on a speculative engine)
-        and its adapter-id table entry set.
+        and its adapter-id table entry set to its pool row (``rows``).
         Returns the ``(first, first_lp, hit_eos, done)`` device tensors,
         read by the caller once every group is launched."""
         dev, st = self.device, self.state
@@ -1152,9 +1510,9 @@ class Engine:
         # each row's mask row is set before the draw that reads it
         # (unconstrained rows reset a stale one); the first draw takes
         # the rows only when one of them constrains
-        for a in batch:
+        for a, row in zip(batch, rows):
             self.set_slot_mask(a.slot, a.allowed_tokens)
-            self._set_slot_adapter(a.slot, a.adapter)
+            self._set_slot_adapter(a.slot, row)
         masks = None
         if any(a.allowed_tokens is not None for a in batch):
             masks = torch.as_tensor(
@@ -1345,7 +1703,7 @@ class Engine:
         self.prefix_admits += 1
         return self._start_slots(
             [a], [prompt], logits0,
-            torch.tensor([n], dtype=torch.int64, device=dev))
+            torch.tensor([n], dtype=torch.int64, device=dev), [0])
 
     # -- chunked prefill (EngineConfig.prefill_chunk > 0) ------------------
 
@@ -1374,15 +1732,19 @@ class Engine:
             raise ValueError(
                 f"prompt of {n} tokens fits one {c}-token chunk — use "
                 f"admit_many")
+        # the adapter's row (resolved first: a thrash raises before any
+        # page moves) stays pinned while the admission chunks
+        row = self._adapter_physical(a.adapter)
         if self._paged:
             self._alloc_slot_pages(a.slot, n, a.max_tokens)
         dev = self.device
         ca = ChunkedAdmission(a, prompt, n, -(-n // c))
+        ca.adapter_row = row
         blocks, _ = gpt.prefill_many(
             self._cfg_compute, self._params,
             torch.as_tensor(prompt[None, :c], device=dev),
             torch.full((1,), c - 1, dtype=torch.int64, device=dev),
-            max_len=c, lora=self._lora_for([a.adapter]))
+            max_len=c, lora=self._lora_for([ca.adapter_row]))
         gpt.cache_insert_slot(self._chunk_scratch, blocks, 0)
         self.chunk_prefills += 1
         self._chunked = ca
@@ -1413,7 +1775,8 @@ class Engine:
                 torch.as_tensor(tail, device=dev),
                 torch.tensor([chunk.size - 1], dtype=torch.int64,
                              device=dev),
-                prefix_len=pfx, lora=self._lora_for([a.adapter]))
+                prefix_len=pfx,
+                lora=self._lora_for([self._adapter_physical(a.adapter)]))
             gpt.cache_insert_slot(self._chunk_scratch, tail_kv, 0, pos=pfx)
             ca.next_chunk += 1
             self.chunk_prefills += 1
@@ -1430,7 +1793,8 @@ class Engine:
             gpt.cache_insert_slot(self.cache, blk, a.slot)
         first, first_lp, hit_eos, done = self._start_slots(
             [a], [ca.prompt], ca._logits,
-            torch.tensor([ca.p_len], dtype=torch.int64, device=dev))
+            torch.tensor([ca.p_len], dtype=torch.int64, device=dev),
+            [ca.adapter_row])
         self._chunked = None
         return AdmitResult(
             int(first[0]), bool(hit_eos[0]), bool(done[0]), bucket=c,

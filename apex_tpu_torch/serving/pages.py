@@ -179,8 +179,8 @@ class PageAllocator:
 
     def note_swap_out(self, n_pages: int, nbytes: int) -> None:
         """Record ``n_pages`` leaving the device pool for host RAM
-        (``nbytes`` of storage-form payload). Pure accounting (the port
-        has no host tier yet; ``stats()`` reports the counters)."""
+        (``nbytes`` of storage-form payload). Pure accounting — the
+        actual gather/free is the engine's."""
         self.host_pages += n_pages
         self.host_bytes += nbytes
         self.swap_outs_total += n_pages

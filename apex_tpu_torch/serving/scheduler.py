@@ -31,6 +31,23 @@ request's ``adapter`` (a row of the engine's multi-LoRA pool,
 admission; adapter requests never match the prefix pool, whose K/V is
 the base model's.
 
+With a host-swap engine (``EngineConfig.host_swap``) a conversation can
+leave its slot mid-stream and come back: :meth:`Scheduler.pause` parks
+it (``Engine.park_slot``: its private pages and state row move to host
+RAM, the slot and pages free) and :meth:`Scheduler.resume` brings it
+back, before any new admission, by the engine's ``resume_policy``:
+``swap`` scatters the payload into fresh pages and the same stream
+object continues; ``recompute`` drops the payload and re-admits the
+request at the queue's front, re-deriving the tokens already streamed
+without streaming or charging them again (the emitted-prefix snapshot
+taken at the park); ``auto`` takes the cheaper of the measured swap-in
+cost and the snapshot's length times the chunk latency. With
+``preempt`` (default on with a host tier), a queue head starved of
+pages frees the pages of the tenant furthest ahead of its fair share;
+the victim re-queues at the back and replays the same way. A cold
+LoRA adapter pages into the pool only when the rows the live slots hold
+leave room for it; otherwise the request waits at the queue head.
+
 The decode loop is pipelined: each tick dispatches the next chunk
 (``Engine.step_async``) before fetching the oldest in-flight one, so at
 depth d up to d - 1 chunks stay in flight between ticks and the host's
@@ -40,8 +57,9 @@ slot released while the chunk was in flight has its columns dropped (the
 device emits pad for done slots, and a retired slot's tokens belong to a
 request already completed). Streams are the same at every depth.
 
-Resilience, the journal, the tuner, SLOs, the flight recorder and
-telemetry are later slices of the port.
+Resilience (fault recovery, the journal), the tuner, SLOs, the flight
+recorder and telemetry are later slices of the port: a park or resume
+that fails raises to the caller.
 
 >>> sched = Scheduler(engine, pipeline_depth=2)
 >>> sched.submit(Request("r0", prompt, max_tokens=16))
@@ -242,18 +260,51 @@ class LatencyStats:
 class _Active:
     """Host view of one occupied slot. ``tokens`` / ``logprobs`` hold the
     client-visible stream: tokens the stop matcher holds back (a possible
-    stop prefix) live in ``matcher`` until flushed or trimmed."""
+    stop prefix) live in ``matcher`` until flushed or trimmed.
+    ``suppress`` is the replay offset: the first ``suppress`` tokens were
+    streamed before a recompute resume or a preemption, and are
+    re-derived without a second event."""
 
     __slots__ = ("request", "tokens", "logprobs", "first_token_time",
-                 "matcher")
+                 "suppress", "matcher")
 
     def __init__(self, request: Request):
         self.request = request
         self.tokens: List[int] = []
         self.logprobs: List[float] = []
         self.first_token_time: Optional[float] = None
+        self.suppress = 0
         self.matcher = (StopMatcher(request.stop) if request.stop
                         else None)
+
+
+class _ReplayState:
+    """The emitted-prefix snapshot of one request that left its slot
+    mid-stream (parked or preempted): the tokens and logprobs the client
+    was streamed, which a replay re-derives. JAX's also carries the
+    fault machinery's retry attempts and backoff, which wait for the
+    resilience slice."""
+
+    __slots__ = ("tokens", "logprobs")
+
+    def __init__(self):
+        self.tokens: List[int] = []
+        self.logprobs: List[float] = []
+
+
+class _Parked:
+    """One paused conversation in the host tier: the live
+    :class:`_Active` a swap resume continues (stream, stop matcher, held
+    tokens intact) and the park's time. ``swap`` turns False when the
+    tier evicts the payload; the conversation then resumes by recompute
+    from the snapshot taken at the park."""
+
+    __slots__ = ("act", "swap", "parked_at")
+
+    def __init__(self, act: _Active, swap: bool, parked_at: float):
+        self.act = act
+        self.swap = swap
+        self.parked_at = parked_at
 
 
 class Scheduler:
@@ -272,14 +323,17 @@ class Scheduler:
     dispatched). ``spec_gate`` tunes the payoff gate of a speculative
     engine (``EngineConfig.spec_k > 0``); ``tenancy`` sets the tenants'
     weights and rate limits (the book exists without it: every tenant
-    weighs 1, none is limited)."""
+    weighs 1, none is limited). ``preempt`` (None = on exactly when the
+    engine has a host tier; True needs one) lets a queue head starved of
+    pages preempt the tenant furthest ahead of its fair share."""
 
     def __init__(self, engine: Engine, *, max_queue: int = 256,
                  clock: Callable[[], float] = time.monotonic,
                  pipeline_depth: int = 1,
                  max_admit_batch: Optional[int] = None,
                  spec_gate: Optional[SpecGateConfig] = None,
-                 tenancy: Optional[TenancyConfig] = None):
+                 tenancy: Optional[TenancyConfig] = None,
+                 preempt: Optional[bool] = None):
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth {pipeline_depth} must be >= 1 (1 = the "
@@ -349,6 +403,28 @@ class Scheduler:
         self._chunk_ewma = 0.0
         #: requests finished by a stop sequence / a completed constraint
         self._stop_finishes = 0
+        #: host-swap oversubscription: the emitted-prefix snapshots of
+        #: requests that left their slot mid-stream, the paused
+        #: conversations by request id, and the FIFO of ids to resume
+        #: (drained before admissions each tick)
+        if preempt and not engine.host_swap_enabled:
+            raise ValueError(
+                "preempt=True needs EngineConfig.host_swap — without "
+                "the emitted-prefix replay contract the host tier "
+                "anchors, an evicted stream could not continue")
+        self.preempt = (engine.host_swap_enabled if preempt is None
+                        else bool(preempt))
+        self._replay: Dict[str, _ReplayState] = {}
+        self._parked: Dict[str, _Parked] = {}
+        self._resume_q: Deque[str] = collections.deque()
+        self._pauses = 0
+        self._preemptions = 0
+        self._swap_resumes = 0
+        self._recompute_resumes = 0
+        self._swap_capacity_drops = 0
+        #: ticks a request waited because its adapter could not page in
+        #: beside the rows the live slots hold
+        self._adapter_waits = 0
 
     # -- intake ------------------------------------------------------------
 
@@ -364,7 +440,8 @@ class Scheduler:
                 a.request.request_id == rid for a in self.active.values()) \
                 or any(r.request_id == rid for r in self.queue) \
                 or (self._chunked is not None
-                    and self._chunked[1].request_id == rid):
+                    and self._chunked[1].request_id == rid) \
+                or rid in self._parked:
             raise ValueError(f"duplicate request_id {rid!r}")
         request.sampling.validate()
         prompt = list(request.prompt)
@@ -515,6 +592,173 @@ class Scheduler:
         journal, which the port has not yet (ROADMAP queue 1 item 3)."""
         return self.engine.register_adapter(weights, name=name, seed=seed)
 
+    # -- host-swap oversubscription (EngineConfig.host_swap) ----------------
+
+    def pause(self, request_id: str) -> bool:
+        """Park an ACTIVE request's conversation in the host tier
+        (``Engine.park_slot``): its private pages swap out, the slot
+        frees, and after :meth:`resume` the stream continues bit for bit
+        (held stop-matcher tokens, sampling key and all). Every chunk in
+        flight is collected first, since a dispatched block table still
+        maps the pages being freed. False when the request is not active
+        by then (finished, still queued, or already parked)."""
+        if not self.engine.host_swap_enabled:
+            raise ValueError(
+                "pause() needs EngineConfig.host_swap — the engine "
+                "has no host tier to park into")
+        while self._inflight:
+            self._collect_oldest()
+        for slot, act in sorted(self.active.items()):
+            if act.request.request_id == request_id:
+                self._park(slot, act, self.clock())
+                return True
+        return False
+
+    def resume(self, request_id: str) -> bool:
+        """Queue a parked conversation for resumption (drained before the
+        admissions of every tick, and tried here at once). The engine's
+        ``resume_policy`` picks the path: ``swap`` scatters the payload
+        back, ``recompute`` drops it and re-derives the streamed prefix
+        through a re-admission at the queue's front, ``auto`` compares the
+        measured swap-in cost with the snapshot's length times the chunk
+        latency EWMA. False for an id that is not parked."""
+        if request_id not in self._parked:
+            return False
+        if request_id not in self._resume_q:
+            self._resume_q.append(request_id)
+        self._admit_parked(self.clock())
+        return True
+
+    @property
+    def parked_requests(self) -> List[str]:
+        """Ids of the paused conversations, oldest park first."""
+        return sorted(self._parked,
+                      key=lambda rid: self._parked[rid].parked_at)
+
+    def _snapshot(self, act: _Active) -> None:
+        """Grow ``act``'s emitted-prefix snapshot to its stream (the
+        recompute resume's contract: what the client was streamed)."""
+        st = self._replay.setdefault(act.request.request_id, _ReplayState())
+        if len(act.tokens) > len(st.tokens):
+            st.tokens = list(act.tokens)
+            st.logprobs = list(act.logprobs)
+
+    def _park(self, slot: int, act: _Active, now: float) -> None:
+        """Move one active slot into the host tier: the snapshot first
+        (the recompute fallback), then the swap-out and the slot's
+        release. A failed park raises."""
+        rid = act.request.request_id
+        self._snapshot(act)
+        evicted = self.engine.park_slot(slot, rid)
+        self.active.pop(slot)
+        self._free.append(slot)
+        self._pauses += 1
+        self._parked[rid] = _Parked(act, self.engine.host_parked(rid), now)
+        for ek in evicted:
+            # a capacity eviction drops the payload, never the
+            # conversation: it resumes by recompute
+            pk = self._parked.get(ek)
+            if pk is not None and pk.swap:
+                pk.swap = False
+                self._swap_capacity_drops += 1
+
+    def _admit_parked(self, now: float) -> None:
+        """Drain the resume queue into free slots. A swap resume that
+        finds no slot, pages or adapter row waits at the head (page
+        pressure may preempt on its behalf); a recompute resume re-enters
+        the request queue's FRONT and replays from its snapshot."""
+        while self._resume_q:
+            rid = self._resume_q[0]
+            pk = self._parked.get(rid)
+            if pk is None:          # expired while queued
+                self._resume_q.popleft()
+                continue
+            act = pk.act
+            n_pages = self.engine.parked_pages(rid)
+            policy = self.engine.engine_cfg.resume_policy
+            use_swap = (pk.swap and self.engine.host_parked(rid)
+                        and policy != "recompute")
+            if use_swap and policy == "auto":
+                cost = self.engine.swap_in_cost_s(n_pages)
+                if (cost is not None and self._chunk_ewma > 0.0
+                        and cost > len(act.tokens) * self._chunk_ewma):
+                    use_swap = False
+            if not use_swap:
+                self._resume_q.popleft()
+                self._parked.pop(rid)
+                self.engine.drop_parked(rid)
+                self._recompute_resumes += 1
+                self.queue.appendleft(act.request)
+                continue
+            if not self._free:
+                return
+            if not self.engine.page_allocator.can_alloc(n_pages):
+                self._note_pages_exhausted(act.request, n_pages)
+                return
+            if not self.engine.adapters_fit([act.request.adapter]):
+                self._adapter_waits += 1
+                return
+            slot = self._free.pop()
+            try:
+                self.engine.resume_slot(slot, rid)
+            except Exception:
+                self._free.append(slot)
+                raise
+            self._resume_q.popleft()
+            self._parked.pop(rid)
+            self.active[slot] = act
+            self._swap_resumes += 1
+
+    def _note_pages_exhausted(self, r: Request, needed: int) -> None:
+        """Backpressure, not a fault: the head request waits until
+        releases free its pages. With :attr:`preempt` the wait also runs
+        the preemption pass."""
+        self._pages_exhausted_waits += 1
+        self._maybe_preempt(r, needed)
+
+    def _maybe_preempt(self, r: Request, needed: int) -> None:
+        """Page pressure under oversubscription: free the pages of the
+        tenant furthest AHEAD of its fair share
+        (``TenantBook.pick_victim``) so the starved request ``r`` admits
+        next tick. Every chunk in flight is collected first; only tenants
+        strictly ahead of ``r``'s are candidates (preemption flows one way
+        down the fair-share order, so a victim never preempts its
+        preemptor back), and of the victim tenant's slots the one with
+        the least sunk work goes. The victim re-queues at the BACK and
+        replays from its snapshot, bit for bit."""
+        if not self.preempt or not self.active:
+            return
+        while self._inflight:
+            self._collect_oldest()
+        # collection may have released slots and pages
+        if (not self.active
+                or self.engine.page_allocator.can_alloc(needed)):
+            return
+        book = self.tenants
+        floor = book.service_of(r.tenant)
+        candidates = {
+            a.request.tenant: book.service_of(a.request.tenant)
+            for a in self.active.values()
+            if book.service_of(a.request.tenant) > floor}
+        if not candidates:
+            return
+        victim_tenant = book.pick_victim(candidates)
+        victims = sorted(
+            (len(a.tokens), slot) for slot, a in self.active.items()
+            if a.request.tenant == victim_tenant
+            and a.request.request_id != r.request_id)
+        if not victims:
+            return
+        _, slot = victims[0]
+        act = self.active[slot]
+        self._snapshot(act)
+        self.engine.retire(slot)
+        self.engine.free_slot(slot)
+        self.active.pop(slot)
+        self._free.append(slot)
+        self._preemptions += 1
+        self.queue.append(act.request)
+
     # -- the loop ----------------------------------------------------------
 
     def step(self) -> None:
@@ -529,8 +773,11 @@ class Scheduler:
         if self._started is None:
             self._started = now
         self._expire(now)
-        # the batched admissions first, the chunked start last: the wave
-        # of short prompts must not queue behind chunk 0's forward
+        # resumes first (their clients wait mid-stream), then the batched
+        # admissions, the chunked start last: the wave of short prompts
+        # must not queue behind chunk 0's forward
+        if self._resume_q:
+            self._admit_parked(now)
         self._admit_batches(now)
         self._start_chunked()
         self._advance_chunked()
@@ -547,8 +794,8 @@ class Scheduler:
             self._collect_oldest()
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:
-        """Step until the queue, the slots, the pipeline and any chunked
-        admission are empty."""
+        """Step until the queue, the slots, the pipeline, any chunked
+        admission and the resume queue are empty."""
         steps = 0
         while not self.idle():
             self.step()
@@ -565,8 +812,11 @@ class Scheduler:
         return out
 
     def idle(self) -> bool:
+        """Nothing to do: queue, slots, pipeline, chunked admission and
+        resume queue empty. Parked conversations do not count: they wait
+        for an explicit :meth:`resume`."""
         return not (self.queue or self.active or self._inflight
-                    or self._chunked is not None)
+                    or self._chunked is not None or self._resume_q)
 
     # -- internals ---------------------------------------------------------
 
@@ -574,9 +824,7 @@ class Scheduler:
         kept: Deque[Request] = collections.deque()
         for r in self.queue:
             if r.deadline is not None and now >= r.deadline:
-                self.events.append(StreamEvent(r.request_id, None, True,
-                                               FINISH_TIMEOUT))
-                self._complete(r, [], [], FINISH_TIMEOUT, ttft=None, now=now)
+                self._abort(r, FINISH_TIMEOUT, now)
             else:
                 kept.append(r)
         self.queue = kept
@@ -591,6 +839,34 @@ class Scheduler:
                 self.events.append(StreamEvent(
                     act.request.request_id, None, True, FINISH_TIMEOUT))
                 self._release(slot, FINISH_TIMEOUT, now)
+        for rid in list(self._parked):
+            pk = self._parked[rid]
+            dl = pk.act.request.deadline
+            if dl is not None and now >= dl:
+                # a parked conversation's deadline still bites: drop the
+                # payload and time out with the stream so far
+                del self._parked[rid]
+                if rid in self._resume_q:
+                    self._resume_q.remove(rid)
+                self.engine.drop_parked(rid)
+                self._abort(pk.act.request, FINISH_TIMEOUT, now, act=pk.act)
+
+    def _abort(self, request: Request, reason: str, now: float, *,
+               act: Optional[_Active] = None) -> None:
+        """A finish outside a slot (a queued or parked request timing
+        out): one finished event, and a completion carrying the longest
+        stream the client saw, the parked stream's or the snapshot of one
+        that left its slot."""
+        if act is not None:
+            self._flush_held(act)
+        streamed = (act.tokens, act.logprobs) if act is not None else ([], [])
+        tokens, lps = self._longest(request, *streamed)
+        ttft = None
+        if act is not None and act.first_token_time is not None:
+            ttft = act.first_token_time - request.arrival_time
+        self.events.append(StreamEvent(request.request_id, None, True,
+                                       reason))
+        self._complete(request, tokens, lps, reason, ttft=ttft, now=now)
 
     def _admission_of(self, r: Request, slot: int) -> Admission:
         """One :class:`Admission` row from a request (shared by the
@@ -683,20 +959,31 @@ class Scheduler:
                 # wave the free pages cover; the first request that does
                 # not fit waits at the head with everything behind it
                 free_p = self.engine.page_allocator.free_pages
-                needed, cut = 0, len(reqs)
+                needed, cut, cut_need = 0, len(reqs), 0
                 for idx, r in enumerate(reqs):
                     need = self._request_pages_needed(r)
                     if needed + need > free_p:
-                        cut = idx
+                        cut, cut_need = idx, need
                         break
                     needed += need
                 if cut < len(reqs):
                     self.queue.extendleft(reversed(reqs[cut:]))
-                    reqs = reqs[:cut]
                     self._page_deferrals += 1
-                    if not reqs:
-                        self._pages_exhausted_waits += 1
+                    if cut == 0:
+                        self._note_pages_exhausted(reqs[0], cut_need)
                         return
+                    reqs = reqs[:cut]
+            # adapter paging: admit the prefix of the wave whose adapters
+            # can be resident at once beside the live slots' rows
+            cut = next((i for i in range(len(reqs))
+                        if not self.engine.adapters_fit(
+                            [r.adapter for r in reqs[:i + 1]])), len(reqs))
+            if cut < len(reqs):
+                self.queue.extendleft(reversed(reqs[cut:]))
+                reqs = reqs[:cut]
+                if not reqs:
+                    self._adapter_waits += 1
+                    return
             slots = [self._free.pop() for _ in range(len(reqs))]
             for r in reqs:
                 # every admission restarts the schema automaton
@@ -710,7 +997,8 @@ class Scheduler:
                 # the pool could not cover the wave after all: requeue
                 self._free.extend(reversed(slots))
                 self.queue.extendleft(reversed(reqs))
-                self._pages_exhausted_waits += 1
+                self._note_pages_exhausted(
+                    reqs[0], self._request_pages_needed(reqs[0]))
                 return
             t_first = self.clock()
             self._admitted_requests += len(reqs)
@@ -726,10 +1014,14 @@ class Scheduler:
         the first token computed, even when the stop matcher holds it
         back)."""
         act = _Active(r)
+        st = self._replay.get(r.request_id)
+        act.suppress = 0 if st is None else len(st.tokens)
         act.first_token_time = t_first
         self.active[slot] = act
         self.tenants.stats(r.tenant).admitted += 1
-        self.ttft_stats.add(t_first - r.arrival_time)
+        if act.suppress < 1:
+            # a replay's re-derived first token is not a first token
+            self.ttft_stats.add(t_first - r.arrival_time)
         reason = None
         if res.finished:
             reason = FINISH_EOS if res.hit_eos else FINISH_LENGTH
@@ -748,7 +1040,10 @@ class Scheduler:
         if not self._chunked_only(r):
             return
         if not self.engine.can_admit_pages(len(r.prompt), r.max_tokens):
-            self._pages_exhausted_waits += 1
+            self._note_pages_exhausted(r, self._request_pages_needed(r))
+            return
+        if not self.engine.adapters_fit([r.adapter]):
+            self._adapter_waits += 1
             return
         self.queue.popleft()
         slot = self._free.pop()
@@ -759,7 +1054,7 @@ class Scheduler:
         except PagesExhausted:
             self._free.append(slot)
             self.queue.appendleft(r)
-            self._pages_exhausted_waits += 1
+            self._note_pages_exhausted(r, self._request_pages_needed(r))
             return
         self._chunked = (ca, r)
         self._chunked_fresh = True
@@ -786,11 +1081,18 @@ class Scheduler:
         self._admit_dispatches += 1
         self._activate(ca.slot, r, res, self.clock())
 
+    def _constrained_active(self) -> bool:
+        return any(a.request.constraint is not None
+                   for a in self.active.values())
+
     def _plain_only(self) -> bool:
         """Whether the next chunk must be plain: a constrained request is
         active (its vocab mask advances a token at a time, and the verify
-        wave draws without masks)."""
+        wave draws without masks), or a slot is re-deriving a replayed
+        prefix (streams are the same either way; the replay stays on the
+        plain path, as in JAX)."""
         return any(a.request.constraint is not None
+                   or len(a.tokens) < a.suppress
                    for a in self.active.values())
 
     def _use_spec(self) -> bool:
@@ -816,7 +1118,7 @@ class Scheduler:
         mask row advances only once the previous chunk's token is
         fetched, and a chunk dispatched on top would draw against a stale
         row."""
-        if self._inflight and self._plain_only():
+        if self._inflight and self._constrained_active():
             return False
         if not self._inflight:
             return True
@@ -914,9 +1216,14 @@ class Scheduler:
               reason: Optional[str],
               latency: Optional[float] = None) -> None:
         """Append one client-visible token to ``act``'s stream and its
-        :class:`StreamEvent`; the tenant is charged the token."""
+        :class:`StreamEvent`; the tenant is charged the token. A token
+        that re-derives a replayed prefix (``act.suppress``) has no event
+        and no charge: the client was streamed it, and the tenant charged,
+        before the stream left its slot."""
         act.tokens.append(tok)
         act.logprobs.append(lp)
+        if len(act.tokens) <= act.suppress:
+            return
         self._tokens_emitted += 1
         # the WFQ deficit counter charges tokens actually streamed
         self.tenants.on_tokens(act.request.tenant, 1)
@@ -994,8 +1301,19 @@ class Scheduler:
         self._free.append(slot)
         ttft = (None if act.first_token_time is None
                 else act.first_token_time - act.request.arrival_time)
-        self._complete(act.request, act.tokens, act.logprobs, reason,
-                       ttft=ttft, now=now)
+        tokens, lps = self._longest(act.request, act.tokens, act.logprobs)
+        self._complete(act.request, tokens, lps, reason, ttft=ttft, now=now)
+
+    def _longest(self, request: Request, tokens: List[int],
+                 logprobs: List[float]) -> Tuple[List[int], List[float]]:
+        """The stream a finish reports: ``tokens``, or the request's
+        emitted-prefix snapshot (dropped here) when that is longer — a
+        stream that finished mid-replay (a host-side stop, a deadline)
+        still carries everything the client was streamed."""
+        st = self._replay.pop(request.request_id, None)
+        if st is not None and len(st.tokens) > len(tokens):
+            return st.tokens, st.logprobs
+        return tokens, logprobs
 
     def _complete(self, request: Request, tokens: List[int],
                   logprobs: List[float], reason: str, *,
@@ -1026,7 +1344,13 @@ class Scheduler:
         (hits admitted copy-on-write), ``pages_exhausted_waits`` (ticks
         the queue head waited for pages) and ``page_deferrals`` (ticks in
         which requests stayed queued beside free slots for want of pages,
-        those waits included); a chunked-prefill engine
+        those waits included), ``pages_swapped`` and ``swap_bytes`` (the
+        host tier's pages and bytes now); a host-swap engine
+        ``parked_conversations``, ``pauses``, ``preemptions``,
+        ``swap_resumes``, ``recompute_resumes``, ``swap_capacity_drops``
+        and, paging adapters, the ``adapter_*`` paging stats and
+        ``adapter_waits`` (ticks a request waited for an adapter row); a
+        chunked-prefill engine
         ``chunked_admissions`` and ``chunked_chunks`` (its prefill
         forwards, chunk 0 included); a speculative one the chunk and wave
         counts, ``spec_tokens_per_wave``, the acceptance rate, the gate's
@@ -1067,6 +1391,20 @@ class Scheduler:
             out["page_share_hits"] = float(self._page_share_hits)
             out["pages_exhausted_waits"] = float(self._pages_exhausted_waits)
             out["page_deferrals"] = float(self._page_deferrals)
+            out["pages_swapped"] = ps["pages_swapped"]
+            out["swap_bytes"] = ps["swap_bytes"]
+        if self.engine.host_swap_enabled:
+            out["parked_conversations"] = float(len(self._parked))
+            out["pauses"] = float(self._pauses)
+            out["preemptions"] = float(self._preemptions)
+            out["swap_resumes"] = float(self._swap_resumes)
+            out["recompute_resumes"] = float(self._recompute_resumes)
+            out["swap_capacity_drops"] = float(self._swap_capacity_drops)
+            ap = self.engine.adapter_paging_stats()
+            if ap is not None:
+                for k, v in ap.items():
+                    out[f"adapter_{k}"] = float(v)
+                out["adapter_waits"] = float(self._adapter_waits)
         if self.engine.chunked_prefill_enabled:
             out["chunked_admissions"] = float(self._chunked_admissions)
             out["chunked_chunks"] = float(self._chunked_chunks)

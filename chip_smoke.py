@@ -214,6 +214,23 @@ horizon 192, 8 slots, ``decode_chunk=1``):
     ``/v1/models`` lists the adapters and a chat naming one returns the
     scheduler's stream; (e) ``examples.generate --beams 4``. Launches of
     rows 5, 10, 17 and 15v counted in (a), (b) and (c).
+39. the host-swap tier — serve()'s paged geometry with ``host_swap``, 16
+    requests of 48 tokens (half seeded-sampled): (a) every active
+    conversation parked two ticks in and resumed two ticks later, under
+    ``swap``, ``recompute`` and ``auto``, against the uninterrupted run
+    on the same engine: swap-resumed streams bit for bit, re-derived and
+    re-batched ones up to reference near-ties (counted), each request's
+    streamed tokens equal to its completion's (or parting at such a tie,
+    counted); (b) int8 with ``spec_k=3`` under ``swap``, the parked
+    streams bit for bit;
+    (c) a pool of 1 + 3 x 24 pages, three tenants, ``preempt=True``:
+    preemptions, natural finishes; (d) a host tier of 24 pages under
+    ``spec_k=3``: capacity drops and recompute resumes; (e) two adapter
+    rows serving 4 adapters against a 5-row pool; (f) the bytes a parked
+    page, the swap's host ms a page against a pinned ``copy_`` of the
+    same bytes, and a decode step's launches on the churned engine
+    against a fresh one's. Launches of rows 5, 13 + 17, 15v, 14 + 18 and
+    16 counted over (a)-(e).
 
 The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
 value beside an fp32 scale per head row and column) runs next, on the
@@ -456,7 +473,9 @@ width under ``widths`` and, for the quantized reads, fp8 under
 ``fp8``; rows 5 and 10 and the fused decode step carry their launches on
 phase 37's path as ``api_launches``, and on phase 38's beam search and
 multi-LoRA runs as ``beam_launches`` and ``lora_launches``; rows 17 and
-15v and the fused paged step carry phase 38 (c)'s as ``lora_launches``);
+15v and the fused paged step carry phase 38 (c)'s as ``lora_launches``;
+rows 5, 13, 15, 17, 15v, the fused paged step and rows 14, 16 and 18
+carry phase 39's as ``hostswap_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
@@ -3289,6 +3308,469 @@ def phase_beam_lora(cfg, params, band: float, card: str, prof5):
     out["example_s"] = time.perf_counter() - t
     log(f"beam (e) ({card}): examples.generate --beams 4 -> {ex}")
     return beam_counts, lora_counts, spec_counts, out
+
+
+# ---------------------------------------------------------------------------
+# phase 39: the host-swap tier — park/resume, preemption, adapter paging
+# ---------------------------------------------------------------------------
+
+#: serve()'s paged geometry with the host tier under the pool
+HS_GEOM = dict(slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON,
+               page_size=PAGE, host_swap=True)
+HS_REQS, HS_NEW = 16, 48
+#: (c): the sink and three worst-case conversations for 8 slots
+HS_STARVED_PAGES = 1 + 3 * MAX_PAGES
+#: (d): a host tier of one worst-case conversation
+HS_TIER_PAGES = MAX_PAGES
+HS_TENANTS = ("t0", "t1", "t2")
+#: (e): 4 adapters by seed, 2 usable rows against an all-resident pool
+HS_ADAPTERS = (7, 9, 11, 13)
+HS_LORA = dict(adapter_rank=8, adapter_alpha=16.0)
+#: the spec runs' gate: one plain chunk, then only verify waves, so a
+#: paused run and its uninterrupted twin run the same chunk kinds
+HS_SPEC_GATE = dict(min_probe_chunks=10 ** 9)
+#: the (b) and (f) runs' decode-step kernels (rows 14 + 18, 13 + 17)
+HS_QUANT_STEP = ("paged_write_column_quant", "paged_attention_quant")
+HS_ROWS = ("flash_attention_bsh", "paged_attention_write",
+           "paged_verify_attention", "paged_write_column_quant",
+           "paged_attention_quant", "paged_write_columns_quant")
+
+
+def hs_trace(vocab: int, tenants=(), adapters: int = 0):
+    """bench's trace shape, 16 requests of HS_NEW tokens from seed 3900
+    (odd ones sampled with their own seed), ``tenants`` round-robin,
+    request ``i`` on adapter ``i % (adapters + 1)``."""
+    reqs = bench_trace(vocab, n=HS_REQS, max_tokens=HS_NEW, seed0=3900)
+    for i, r in enumerate(reqs):
+        if tenants:
+            r.tenant = tenants[i % len(tenants)]
+        if adapters:
+            r.adapter = i % (adapters + 1)
+    return reqs
+
+
+def serve_hs(engine, reqs, *, pause: bool = False, full: bool = True,
+             **sched_kw):
+    """Serve ``reqs`` (all at t=0) through a new ``Scheduler``, the launch
+    counts zeroed just before and read just after; with ``pause``, two
+    ticks in every active conversation parks (all SLOTS of them when
+    ``full``) and, two ticks later, each is resumed. Returns the scheduler, the counts, the engine counters'
+    deltas, the streams, the streamed tokens of each request (its
+    events, concatenated) and the paused ids that came back by
+    recompute (those the resume put into the queue)."""
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Scheduler
+
+    sched = Scheduler(engine, **sched_kw)
+    before = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for r in reqs:
+        sched.submit(r)
+    recomputed = set()
+    if pause:
+        for _ in range(2):
+            sched.step()
+        paused = [rid for rid in sorted(a.request.request_id
+                                        for a in sched.active.values())
+                  if sched.pause(rid)]
+        check(len(paused) == SLOTS if full else len(paused) > 0,
+              f"hostswap: {len(paused)} conversations parked")
+        for _ in range(2):
+            sched.step()
+        for rid in paused:
+            check(sched.resume(rid), f"hostswap: {rid} not parked")
+        recomputed = {r.request_id for r in sched.queue} & set(paused)
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    delta = {k: getattr(engine, k) - v for k, v in before.items()}
+    streamed = {}
+    for e in sched.events:
+        if e.token is not None:
+            streamed.setdefault(e.request_id, []).append(e.token)
+    for r in reqs:
+        c = sched.completions.get(r.request_id)
+        check(c is not None and c.finish_reason in ("length", "eos")
+              and (len(c.tokens) == r.max_tokens
+                   or c.finish_reason == "eos"),
+              f"hostswap: {r.request_id} finished "
+              f"{None if c is None else (c.finish_reason, len(c.tokens))}")
+    return (sched, counts, delta,
+            {k: c.tokens for k, c in sched.completions.items()}, streamed,
+            recomputed)
+
+
+def _hs_kernels(what, counts, delta, L, quant=False):
+    """Row 5 on every layer of every admission group (tensor cores); the
+    paged decode step (rows 13 + 17 fused, or int8's 14 + 18) on every
+    layer of every decode step; the paged verify (15v, or int8's row 16)
+    on every layer of every wave; no contiguous decode kernel."""
+    check_prefills(what, counts, delta, L)
+    steps, waves = delta["decode_steps_taken"], delta["spec_waves_taken"]
+    on = HS_QUANT_STEP if quant else ("paged_attention_write",)
+    check_decode_step_kernels(what, counts, on, steps, L)
+    verify = "paged_write_columns_quant" if quant else \
+        "paged_verify_attention"
+    check(counts[verify] == L * waves
+          and counts["decode_verify_attention"] == 0,
+          f"{what}: {verify} launched {counts[verify]} times, expected "
+          f"{L} x {waves} waves")
+
+
+def _hs_hold(cfg, params, band, what, reqs, got, want, exact=()):
+    """``got`` against ``want``: the requests of ``exact`` bit for bit,
+    the others identical or parting first where the reference forward's
+    top-2 gap is within ``band`` (returned, and counted in the log)."""
+    gaps = _drift_gaps(cfg, params, reqs, got, want)
+    bad = [g for g in gaps if g[0] in exact or g[2] > band]
+    check(not bad, f"{what}: streams part from the uninterrupted run "
+          f"(swap-resumed ones must not; others only within the band "
+          f"{band}): {bad}")
+    return gaps
+
+
+def _hs_events(cfg, params, band, what, reqs, got, streamed):
+    """Each request's streamed tokens against its completion's: equal, or
+    (a replay that re-derived another token than the one streamed) parting
+    first where the reference forward's top-2 gap along the streamed
+    stream is within ``band``. Returns the partings."""
+    out = []
+    for r in reqs:
+        ev, comp = streamed.get(r.request_id, []), got[r.request_id]
+        if ev == comp:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(ev, comp)) if x != y),
+                 min(len(ev), len(comp)))
+        g = (_first_gap(cfg, params, r, ev, k,
+                        comp[k] if k < len(comp) else None)
+             if k < len(ev) else float("inf"))
+        out.append((r.request_id, k, g))
+    check(all(g <= band for _, _, g in out),
+          f"{what}: streamed tokens differ from the completions past the "
+          f"band {band}: {out}")
+    return out
+
+
+def _page_bytes(engine) -> int:
+    return engine.cache_bytes() // engine.describe()["num_pages"]
+
+
+def _swap_timing(engine, vocab: int, reps: int = 3):
+    """Park and resume every slot of ``engine`` (8 conversations of a
+    64-token prompt and budget, 16 private pages each) ``reps`` times:
+    host ms a page each way (the host synchronised around each sweep),
+    against a plain pinned ``copy_`` of the same bytes each way (the
+    card's own pinned-copy rate, the swap's bound)."""
+    from apex_tpu_torch.serving.engine import Admission
+
+    rng = np.random.default_rng(39)
+    engine.admit_many([Admission(
+        slot=s, prompt=rng.integers(0, vocab, 64).tolist(), max_tokens=64)
+        for s in range(SLOTS)])
+    engine.step()
+    pages = sum(engine.slot_page_count(s) for s in range(SLOTS))
+    out_ms, in_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(SLOTS):
+            engine.park_slot(s, f"t{s}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for s in range(SLOTS):
+            engine.resume_slot(s, f"t{s}")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out_ms.append((t1 - t0) * 1e3 / pages)
+        in_ms.append((t2 - t1) * 1e3 / pages)
+    for s in range(SLOTS):
+        engine.retire(s)
+        engine.free_slot(s)
+    nbytes = pages * _page_bytes(engine)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d2h, h2d = [], []
+    for _ in range(5):
+        for side, fn in ((d2h, lambda: host.copy_(dev)),
+                         (h2d, lambda: dev.copy_(host))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            side.append((time.perf_counter() - t0) * 1e3 / pages)
+    del dev, host
+    b_out, b_in = min(d2h), min(h2d)
+    return dict(
+        pages=pages, bytes_per_page=_page_bytes(engine),
+        swap_out_ms_per_page=statistics.median(out_ms),
+        swap_in_ms_per_page=statistics.median(in_ms),
+        pinned_d2h_ms_per_page=b_out, pinned_h2d_ms_per_page=b_in,
+        pinned_d2h_gb_s=_page_bytes(engine) / b_out / 1e6,
+        pinned_h2d_gb_s=_page_bytes(engine) / b_in / 1e6,
+        swap_out_over_bound=statistics.median(out_ms) / b_out,
+        swap_in_over_bound=statistics.median(in_ms) / b_in,
+        out_ms=out_ms, in_ms=in_ms)
+
+
+def phase_hostswap(cfg, params, band: float, card: str, prof5):
+    """Phase 39: the host-swap tier on the serving model (serve()'s
+    geometry, pages of 8, ``host_swap=True``; hs_trace's 16 requests of
+    48 tokens, half seeded-sampled). ``prof5`` is phase 6's profile.
+    Returns the launch counts of every run together, and the numbers;
+    each line of numbers names ``card``.
+
+    (a) under ``swap``, ``recompute`` and ``auto``, on one engine each:
+    the trace uninterrupted, then paused (every active conversation parks
+    two ticks in, and resumes two ticks later): swap-resumed streams bit
+    for bit the uninterrupted ones, the re-derived (recompute) and the
+    never-parked ones identical or parting only at a near-tie within
+    ``band`` (counted); each request's streamed tokens equal its
+    completion's (or part at such a tie, counted).
+    (b) int8, ``spec_k=3`` (the gate pinned to verify waves), ``swap``:
+    the parked streams bit for bit, the others (admitted in other groups:
+    waves finish requests unevenly) up to near-ties; rows 14 + 18 and 16
+    on every layer.
+    (c) a pool of HS_STARVED_PAGES pages, three tenants,
+    ``preempt=True``: preemptions, every finish natural, streams against
+    (a)'s uninterrupted ``swap`` run up to near-ties, events == streams.
+    (d) bf16 ``spec_k=3`` (the pinned gate), a host tier of HS_TIER_PAGES
+    pages, ``swap``: capacity drops and recompute resumes; every stream
+    up to near-ties (a replay's plain chunks carry the whole batch);
+    row 15v on every layer of every wave.
+    (e) ``adapter_slots=3`` (two usable rows) with the adapters of
+    HS_ADAPTERS registered by seed (rank 8), paused under ``swap``,
+    against a pool of 5 rows serving the same trace: streams equal up to
+    near-ties over the merged weights; spills, page-ins and adapter
+    waits counted.
+    (f) the bytes a parked page (bf16 and int8 against the geometry), the
+    swap's host ms a page each way against a pinned ``copy_`` of the same
+    bytes (on (a)'s ``swap`` engine, three more sweeps of 8 parks and 8
+    resumes), then phase 6's window (8 chunks, 8 requests of 12 tokens)
+    on that churned engine and on a fresh one: their launches a decode
+    step equal (and phase 6's, the contiguous engine's, beside)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.serving import Engine, EngineConfig, SpecGateConfig
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    out, total = {}, {k: 0 for k in HS_ROWS}
+
+    def add(counts):
+        for k in HS_ROWS:
+            total[k] += counts[k]
+
+    # (a) pause / resume under each policy
+    t = time.perf_counter()
+    base_swap, churned, out["a"] = None, None, {}
+    for policy in ("swap", "recompute", "auto"):
+        engine = Engine(cfg, params, EngineConfig(**HS_GEOM,
+                                                  resume_policy=policy))
+        reqs = hs_trace(V)
+        _, c0, d0, want, ev0, _ = serve_hs(engine, reqs)
+        _hs_kernels(f"hostswap (a) {policy} base", c0, d0, L)
+        check(ev0 == want, f"hostswap (a) {policy}: an uninterrupted "
+              f"stream's events differ from its completion")
+        sched, c1, d1, got, ev1, recomputed = serve_hs(
+            engine, hs_trace(V), pause=True)
+        _hs_kernels(f"hostswap (a) {policy}", c1, d1, L)
+        add(c0)
+        add(c1)
+        s = sched.summary()
+        paused = int(s["pauses"])
+        check(paused == SLOTS and s["swap_resumes"] + s["recompute_resumes"]
+              == paused and s["parked_conversations"] == 0
+              and s["pages_in_use"] == 0 and s["pages_swapped"] == 0,
+              f"hostswap (a) {policy}: summary {s}")
+        check((policy != "swap" or s["swap_resumes"] == paused)
+              and (policy != "recompute" or s["recompute_resumes"] == paused),
+              f"hostswap (a) {policy}: {s['swap_resumes']} swap and "
+              f"{s['recompute_resumes']} recompute resumes")
+        swapped = {r.request_id for r in reqs[:SLOTS]} - recomputed
+        gaps = _hs_hold(cfg, params, band, f"hostswap (a) {policy}", reqs,
+                        got, want, exact=swapped)
+        evg = _hs_events(cfg, params, band, f"hostswap (a) {policy}", reqs,
+                         got, ev1)
+        out["a"][policy] = dict(
+            swap_resumes=s["swap_resumes"],
+            recompute_resumes=s["recompute_resumes"],
+            recomputed=sorted(recomputed), identical=len(reqs) - len(gaps),
+            partings=gaps, event_partings=evg,
+            decode_steps=d1["decode_steps_taken"],
+            admit_groups=d1["admit_groups"])
+        if policy == "swap":
+            base_swap, churned = want, engine
+        else:
+            del engine
+    out["a"]["phase_s"] = time.perf_counter() - t
+    log(f"hostswap (a) ({card}): " + json.dumps(out["a"]))
+
+    # (b) int8 + spec_k=3 under swap
+    t = time.perf_counter()
+    qcfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    engine = Engine(qcfg, params, EngineConfig(
+        **HS_GEOM, resume_policy="swap", spec_k=SPEC_K))
+    gate = SpecGateConfig(**HS_SPEC_GATE)
+    _, c0, d0, want, _, _ = serve_hs(engine, hs_trace(V), spec_gate=gate)
+    sched, c1, d1, got, ev1, _ = serve_hs(engine, hs_trace(V), pause=True,
+                                          spec_gate=gate)
+    for what, c, d in (("base", c0, d0), ("paused", c1, d1)):
+        _hs_kernels(f"hostswap (b) {what}", c, d, L, quant=True)
+        check(d["spec_waves_taken"] > 0, f"hostswap (b) {what}: no wave")
+        add(c)
+    s = sched.summary()
+    check(s["swap_resumes"] == SLOTS, f"hostswap (b): {s['swap_resumes']} "
+          f"swap resumes")
+    # verify waves emit 1..4 tokens, so the second wave of requests
+    # admits as slots free, in other groups than in the paused run: only
+    # the parked ones are held bit for bit
+    reqs = hs_trace(V)
+    gaps = _hs_hold(cfg, params, band, "hostswap (b)", reqs, got, want,
+                    exact={r.request_id for r in reqs[:SLOTS]})
+    evg = _hs_events(cfg, params, band, "hostswap (b)", reqs, got, ev1)
+    out["b"] = dict(swap_resumes=s["swap_resumes"],
+                    identical=len(reqs) - len(gaps), partings=gaps,
+                    event_partings=evg, waves=d1["spec_waves_taken"],
+                    decode_steps=d1["decode_steps_taken"],
+                    page_bytes=_page_bytes(engine),
+                    phase_s=time.perf_counter() - t)
+    del engine
+    log(f"hostswap (b) ({card}): " + json.dumps(out["b"]))
+
+    # (c) a starved pool: preemption
+    t = time.perf_counter()
+    engine = Engine(cfg, params, EngineConfig(
+        **HS_GEOM, resume_policy="swap", num_pages=HS_STARVED_PAGES))
+    reqs = hs_trace(V, tenants=HS_TENANTS)
+    sched, c, d, got, ev, _ = serve_hs(engine, reqs, preempt=True)
+    _hs_kernels("hostswap (c)", c, d, L)
+    add(c)
+    s = sched.summary()
+    check(s["preemptions"] >= 1, f"hostswap (c): no preemption ({s})")
+    gaps = _hs_hold(cfg, params, band, "hostswap (c)", reqs, got, base_swap)
+    evg = _hs_events(cfg, params, band, "hostswap (c)", reqs, got, ev)
+    out["c"] = dict(preemptions=s["preemptions"],
+                    pages_exhausted_waits=s["pages_exhausted_waits"],
+                    identical=len(reqs) - len(gaps), partings=gaps,
+                    event_partings=evg, tenants=sched.tenant_summary(),
+                    phase_s=time.perf_counter() - t)
+    del engine
+    log(f"hostswap (c) ({card}): " + json.dumps(out["c"]))
+
+    # (d) a bounded host tier under spec: capacity drops
+    t = time.perf_counter()
+    engine = Engine(cfg, params, EngineConfig(
+        **HS_GEOM, resume_policy="swap", spec_k=SPEC_K,
+        host_swap_pages=HS_TIER_PAGES))
+    reqs = hs_trace(V)
+    _, c0, d0, want, _, _ = serve_hs(engine, reqs, spec_gate=gate)
+    sched, c1, d1, got, ev1, recomputed = serve_hs(
+        engine, hs_trace(V), pause=True, spec_gate=gate)
+    for what, c, d in (("base", c0, d0), ("paused", c1, d1)):
+        _hs_kernels(f"hostswap (d) {what}", c, d, L)
+        check(d["spec_waves_taken"] > 0, f"hostswap (d) {what}: no wave")
+        add(c)
+    s = sched.summary()
+    check(s["swap_capacity_drops"] >= 1 and s["recompute_resumes"] >= 1
+          and s["swap_resumes"] >= 1,
+          f"hostswap (d): drops {s['swap_capacity_drops']}, swap "
+          f"{s['swap_resumes']}, recompute {s['recompute_resumes']}")
+    # a replay runs plain chunks for the whole batch (as in JAX), so the
+    # swap-resumed streams here also meet plain steps where their
+    # uninterrupted twins had verify waves: every stream is held to the
+    # near-tie rule
+    gaps = _hs_hold(cfg, params, band, "hostswap (d)", reqs, got, want)
+    evg = _hs_events(cfg, params, band, "hostswap (d)", reqs, got, ev1)
+    out["d"] = dict(capacity_drops=s["swap_capacity_drops"],
+                    swap_resumes=s["swap_resumes"],
+                    recompute_resumes=s["recompute_resumes"],
+                    recomputed=sorted(recomputed),
+                    waves=d1["spec_waves_taken"],
+                    identical=len(reqs) - len(gaps), partings=gaps,
+                    event_partings=evg, phase_s=time.perf_counter() - t)
+    del engine
+    log(f"hostswap (d) ({card}): " + json.dumps(out["d"]))
+
+    # (e) adapter paging against an all-resident pool
+    t = time.perf_counter()
+    n_ad = len(HS_ADAPTERS)
+    runs = {}
+    for rows in (3, n_ad + 1):
+        engine = Engine(cfg, params, EngineConfig(
+            **HS_GEOM, resume_policy="swap", adapter_slots=rows,
+            **HS_LORA))
+        ids = [engine.register_adapter(seed=s) for s in HS_ADAPTERS]
+        check(ids == list(range(1, n_ad + 1)),
+              f"hostswap (e): adapter ids {ids}")
+        reqs = hs_trace(V, adapters=n_ad)
+        sched, c, d, got, ev, _ = serve_hs(engine, reqs, pause=rows == 3,
+                                           full=False)
+        _hs_kernels(f"hostswap (e) {rows} rows", c, d, L)
+        check(ev == got, f"hostswap (e) {rows} rows: events differ from "
+              f"the completions")
+        add(c)
+        runs[rows] = (got, sched.summary(), engine.adapter_paging_stats())
+        del engine
+    (got, s, stats), (want, _, _) = runs[3], runs[n_ad + 1]
+    check(stats["registered"] == n_ad and stats["rows"] == 2
+          and stats["spills_total"] >= 1 and stats["pageins_total"] > 2,
+          f"hostswap (e): paging stats {stats}")
+    gaps = []
+    if got != want:
+        merged = {0: params}
+        for a, seed in enumerate(HS_ADAPTERS, 1):
+            if any(r.adapter == a and got[r.request_id] != want[r.request_id]
+                   for r in reqs):
+                merged[a] = gpt.merge_lora(cfg, params, gpt.init_lora_weights(
+                    cfg, HS_LORA["adapter_rank"], seed),
+                    HS_LORA["adapter_alpha"])
+        gaps = _gaps_by_adapter(cfg, merged, [
+            r for r in reqs if r.adapter in merged], got, want)
+        del merged
+    check(all(g <= band for _, _, _, g in gaps),
+          f"hostswap (e): paged-adapter streams part from the resident "
+          f"pool's past the band {band}: {gaps}")
+    out["e"] = dict(paging=stats, adapter_waits=s["adapter_waits"],
+                    swap_resumes=s["swap_resumes"],
+                    identical=len(reqs) - len(gaps), partings=gaps,
+                    phase_s=time.perf_counter() - t)
+    log(f"hostswap (e) ({card}): " + json.dumps(out["e"]))
+
+    # (f) bytes a page, the swap against the pinned-copy bound, and a
+    # decode step after the churn
+    t = time.perf_counter()
+    d = cfg.head_dim
+    item = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    want_bf16 = L * 2 * cfg.num_heads * PAGE * d * item
+    want_int8 = L * 2 * cfg.num_heads * PAGE * (d + 4)
+    check(_page_bytes(churned) == want_bf16
+          and out["b"]["page_bytes"] == want_int8,
+          f"hostswap (f): bytes a page {_page_bytes(churned)} / "
+          f"{out['b']['page_bytes']}, expected {want_bf16} / {want_int8}")
+    swap = _swap_timing(churned, V)
+    fresh = Engine(cfg, params, EngineConfig(**HS_GEOM))
+    turns = []
+    for side, engine in (("churned", churned), ("fresh", fresh)):
+        prof = phase_profile(cfg, engine, chunks=8, reqs=bench_trace(
+            V, n=SLOTS, max_tokens=12, seed0=5000),
+            what=f"hostswap (f) {side}")
+        check(prof is not None, "hostswap (f): the profiler saw no kernel")
+        turns.append(dict(side=side, **{k: prof[k] for k in (
+            "decode_steps", "host_ms_per_decode_step",
+            "launches_per_decode_step", "device_idle_share")}))
+    launches = {x["launches_per_decode_step"] for x in turns}
+    check(len(launches) == 1, f"hostswap (f): launches a decode step "
+          f"differ after the churn: {turns}")
+    out["f"] = dict(
+        bytes_per_page_bf16=want_bf16, bytes_per_page_int8=want_int8,
+        swap=swap, decode_step=turns,
+        phase6_launches=None if prof5 is None
+        else prof5["launches_per_decode_step"],
+        phase_s=time.perf_counter() - t)
+    del fresh, churned
+    log(f"hostswap (f) ({card}): " + json.dumps(out["f"]))
+    return total, out
 
 
 # ---------------------------------------------------------------------------
@@ -8864,6 +9346,10 @@ def main() -> int:
         beam_launches, lora_launches, lora_spec_launches, _ = \
             phase_beam_lora(cfg, params, band, card, prof5)
         log(f"beam/LoRA phase {time.perf_counter() - t:.1f}s")
+        # the host-swap tier: park/resume, preemption, adapter paging
+        t = time.perf_counter()
+        hs_launches, _ = phase_hostswap(cfg, params, band, card, prof5)
+        log(f"host-swap phase {time.perf_counter() - t:.1f}s")
         # the quantized cache, on the same serving model
         t = time.perf_counter()
         quant_rows = phase_quant_kernels()
@@ -9101,6 +9587,21 @@ def main() -> int:
     for r in quant_rows.values():
         r["launches"] = quant_launches[r["name"]]
     rows.update(quant_rows)
+    # phase 39's runs: row 5 for every admission group, rows 13 + 17 (the
+    # fused paged step) for every decode step, 15v for every wave of (d),
+    # rows 14 + 18 and 16 for (b)'s int8 steps and waves
+    for name, fused in (("flash_attention_bsh", "flash_attention_bsh"),
+                        ("paged_attention", "paged_attention_write"),
+                        ("paged_write_column", "paged_attention_write"),
+                        ("paged_attention_write", "paged_attention_write"),
+                        ("paged_write_columns", "paged_verify_attention"),
+                        ("paged_verify_attention", "paged_verify_attention"),
+                        ("paged_write_column_quant",
+                         "paged_write_column_quant"),
+                        ("paged_attention_quant", "paged_attention_quant"),
+                        ("paged_write_columns_quant",
+                         "paged_write_columns_quant")):
+        rows[name]["hostswap_launches"] = hs_launches[fused]
     # the four reads at the 2.7B's decode shape, with their launches in
     # its serving trace (paged int8 for row 18); rows 10 and 17 with the
     # fused launch's, as on the 355M's path

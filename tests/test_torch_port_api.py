@@ -420,9 +420,7 @@ def test_example_serves_on_the_cpu():
     (["--journal-dir", "j"], "item 3"), (["--fault-plan", "random:1"],
                                          "item 3"),
     (["--replicas", "2"], "item 3"), (["--kill-replica", "1@4"], "item 3"),
-    (["--autotune"], "item 3"), (["--host-swap"], "item 3"),
-    (["--resume-policy", "swap"], "item 3"),
-    (["--slo", "p99:ttft:0.2"], "item 3")])
+    (["--autotune"], "item 3"), (["--slo", "p99:ttft:0.2"], "item 3")])
 def test_example_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
         serve_gpt.main(["--preset", "tiny", "--device", "cpu"] + flags)

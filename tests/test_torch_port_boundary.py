@@ -62,7 +62,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         m == b or m.startswith(b + ".") for b in BLOCKED))
     print("MODULES", len(names))
     print("FRONTEND", all(n in names for n in (
-        "apex_tpu_torch.serving.tenancy", "apex_tpu_torch.serving.api",
+        "apex_tpu_torch.serving.tenancy", "apex_tpu_torch.serving.hostswap",
+        "apex_tpu_torch.serving.api",
         "apex_tpu_torch.serving.api.server",
         "apex_tpu_torch.serving.api.protocol",
         "apex_tpu_torch.serving.api.constrain",
@@ -82,10 +83,10 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its thirteen subpackages and their forty-three modules
-    # (serving/tenancy.py, serving/api/*, examples/serve_gpt.py and
-    # examples/generate.py among them)
-    assert int(out["MODULES"]) == 57, out
+    # the package, its thirteen subpackages and their forty-four modules
+    # (serving/tenancy.py, serving/hostswap.py, serving/api/*,
+    # examples/serve_gpt.py and examples/generate.py among them)
+    assert int(out["MODULES"]) == 58, out
     assert out["FRONTEND"] == "True"
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"

@@ -318,8 +318,7 @@ def test_later_slice_request_fields_rejected(model, field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("spec_ks", (2,)), ("host_swap_pages", 4), ("resume_policy", "swap"),
-    ("host_swap", True), ("decode_chunks", (1, 2))])
+    ("spec_ks", (2,)), ("decode_chunks", (1, 2))])
 def test_later_slice_engine_fields_raise(field, value):
     with pytest.raises(ValueError, match="later slice"):
         EngineConfig(**{field: value})
