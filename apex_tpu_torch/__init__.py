@@ -7,7 +7,9 @@ continuous-batching :class:`~apex_tpu_torch.serving.Engine` and its
 speculative and quantized KV caches; stop sequences, schema-constrained
 decoding and tenant fair queueing) behind the OpenAI HTTP front end
 (``apex_tpu_torch.serving.api``, ``apex_tpu_torch.examples.serve_gpt``),
-and single-device training of GPT
+observed through ``apex_tpu_torch.telemetry`` (metrics registry, spans,
+SLO sketches, the flight recorder and its replay) and tuned online by
+``apex_tpu_torch.serving.tuner``; and single-device training of GPT
 (355M and Megatron-GPT 2.7B: ``apex_tpu_torch.examples.gpt_train``),
 BERT and ResNet with the fused optimizers and amp; and apex's L3 entry
 points (``multi_tensor.MultiTensorApply``, ``contrib.clip_grad_norm_``,

@@ -55,12 +55,41 @@ furthest ahead of its fair share instead of only backpressuring::
     python -m apex_tpu_torch.examples.serve_gpt --preset tiny \
         --device cpu --page-size 8 --host-swap --resume-policy swap
 
+Observability (:mod:`apex_tpu_torch.telemetry`): ``--metrics-port N``
+serves ``/metrics`` (Prometheus text), ``/healthz`` and ``/vars`` (JSON)
+from a background thread for the life of the process, with
+``/debug/events`` (the flight recorder's tail), ``/debug/bundle`` (with
+``--bundle-dir``) and ``/slo`` (with ``--slo``); ``--metrics-linger S``
+keeps it up S seconds after the batch drains. ``--span-trace out.json``
+writes the per-request span timeline as Chrome-trace JSON (Perfetto).
+``--bundle-dir DIR`` arms the flight recorder and writes a post-mortem
+bundle there when the batch drains (and on a queue-full rejection);
+replay one, or render its timeline with no torch installed::
+
+    python -m apex_tpu_torch.telemetry.replay DIR/bundle-0000-exit \
+        --device cpu [--report]
+
+``--slo SPEC`` declares latency objectives, a comma list of
+``pQQ:metric:threshold_s[:tenant]`` over ``ttft`` / ``token_latency`` /
+``queue_wait`` / ``e2e``: the scheduler feeds streaming quantile
+sketches and burn-rate machines, and the run prints the sketch
+percentiles and each objective's budget at exit. ``--autotune [SPEC]``
+turns on the self-tuning scheduler over ``knob=v1,v2;...`` ladders of
+``decode_chunk`` / ``pipeline_depth`` / ``max_admit_batch`` / ``spec_k``
+(bare: ``decode_chunk`` at the base and twice it, ``pipeline_depth``
+around the base, ``spec_k`` 0 and the base when it speculates); every
+``decode_chunk`` rung goes into ``EngineConfig.decode_chunks`` and every
+non-zero ``spec_k`` rung into ``spec_ks``, and the run prints the
+controller's state and decisions::
+
+    python -m apex_tpu_torch.examples.serve_gpt --preset tiny \
+        --device cpu --num-requests 8 --max-tokens 24 \
+        --autotune "decode_chunk=1,2,4;pipeline_depth=1,2"
+
 Flags that need a module the port does not have yet raise and name the
 ROADMAP queue 1 item they wait for: ``--tp > 1`` (item 5), ``--ckpt``
-(item 7), and, of item 3, ``--metrics-port``, ``--metrics-linger``,
-``--span-trace``, ``--slo`` and ``--bundle-dir`` (telemetry),
-``--journal-dir``, ``--fault-plan``, ``--replicas > 1`` and
-``--kill-replica`` (resilience), and ``--autotune`` (the tuner).
+(item 7), and ``--journal-dir``, ``--fault-plan``, ``--replicas > 1``
+and ``--kill-replica`` (item 3, resilience).
 """
 
 from __future__ import annotations
@@ -203,17 +232,32 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="register this many seeded LoRA adapters "
                     "(seeds 100, 101, ...; EngineConfig.adapter_slots = "
                     "N + 1) and spread the synthetic trace over them")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve /metrics /healthz /vars on this port "
+                    "(0 = ephemeral, printed at startup)")
+    ap.add_argument("--metrics-linger", type=float, default=0.0,
+                    help="keep the metrics endpoint up this many "
+                    "seconds after the batch drains")
+    ap.add_argument("--span-trace", metavar="PATH", default=None,
+                    help="write the per-request span timeline as "
+                    "Chrome-trace JSON")
+    ap.add_argument("--bundle-dir", metavar="DIR", default=None,
+                    help="arm the flight recorder and write post-mortem "
+                    "bundles here (one at exit)")
+    ap.add_argument("--autotune", metavar="SPEC", nargs="?",
+                    const="default", default=None,
+                    help="self-tuning scheduler over ';'-separated "
+                    "ladders, e.g. 'decode_chunk=1,2,4;pipeline_depth="
+                    "1,2;spec_k=0,3' (each ladder contains the knob's "
+                    "base value); bare --autotune derives default "
+                    "ladders from --decode-chunk/--pipeline-depth/"
+                    "--spec-k")
     # flags of modules the port does not have yet (refused)
     ap.add_argument("--ckpt")
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--metrics-linger", type=float, default=None)
-    ap.add_argument("--span-trace", default=None)
-    ap.add_argument("--bundle-dir", default=None)
     ap.add_argument("--journal-dir", default=None)
     ap.add_argument("--fault-plan", default=None)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--kill-replica", default=None)
-    ap.add_argument("--autotune", nargs="?", const="default", default=None)
     ap.add_argument("--host-swap", action="store_true",
                     help="host-RAM page tier under the paged pool (needs "
                     "--page-size), with the park-and-resume demo")
@@ -221,7 +265,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     choices=("auto", "swap", "recompute"),
                     help="how a parked conversation comes back (see the "
                     "module docstring)")
-    ap.add_argument("--slo", default=None)
+    ap.add_argument("--slo", metavar="SPEC", default=None,
+                    help="latency SLOs: a comma list of "
+                    "pQQ:metric:threshold_s[:tenant], e.g. "
+                    "'p99:ttft:0.2,p95:e2e:1.0' (metrics: ttft, "
+                    "token_latency, queue_wait, e2e)")
     return ap.parse_args(argv)
 
 
@@ -229,16 +277,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     refused = [what for what, on in (
         (f"--tp {args.tp} ({_DISTRIBUTED})", args.tp > 1),
         (f"--ckpt (the .atck checkpoint; {_INFRA})", args.ckpt is not None),
-        (f"--metrics-port (telemetry; {_SERVING})",
-         args.metrics_port is not None),
-        (f"--metrics-linger (telemetry; {_SERVING})",
-         args.metrics_linger is not None),
-        (f"--span-trace (telemetry; {_SERVING})",
-         args.span_trace is not None),
-        (f"--slo (telemetry's SLO observatory; {_SERVING})",
-         args.slo is not None),
-        (f"--bundle-dir (the flight recorder; {_SERVING})",
-         args.bundle_dir is not None),
         (f"--journal-dir (resilience's journal; {_SERVING})",
          args.journal_dir is not None),
         (f"--fault-plan (resilience; {_SERVING})",
@@ -247,7 +285,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
          args.replicas != 1),
         (f"--kill-replica (resilience's fleet; {_SERVING})",
          args.kill_replica is not None),
-        (f"--autotune (the tuner; {_SERVING})", args.autotune is not None),
     ) if on]
     if refused:
         raise SystemExit("not supported by apex_tpu_torch yet: "
@@ -263,6 +300,48 @@ def _tenant_spec(spec: str) -> Dict[str, float]:
                 f"bad tenant spec {part!r} (format name:value,...)")
         out[name.strip()] = float(val)
     return out
+
+
+def _slo_config(spec: str):
+    """``--slo``'s comma list of objectives as an ``SLOConfig``."""
+    from apex_tpu_torch.telemetry.slo import SLOConfig, parse_objective
+
+    try:
+        return SLOConfig(objectives=tuple(
+            parse_objective(part) for part in spec.split(",")
+            if part.strip()))
+    except ValueError as e:
+        raise SystemExit(f"--slo: {e}")
+
+
+def _autotune(args: argparse.Namespace):
+    """``--autotune``'s ladders: ``(TunerConfig, decode_chunks,
+    spec_ks)``, the engine ladders holding every declared
+    ``decode_chunk`` rung and every non-zero ``spec_k`` rung."""
+    from apex_tpu_torch.serving.tuner import KNOBS, TunerConfig
+
+    if args.autotune == "default":
+        ladders = {
+            "decode_chunk": tuple(sorted(
+                {args.decode_chunk, 2 * args.decode_chunk})),
+            "pipeline_depth": tuple(sorted(
+                {1, args.pipeline_depth, args.pipeline_depth + 1})),
+        }
+        if args.spec_k > 0:
+            ladders["spec_k"] = (0, args.spec_k)
+    else:
+        ladders = {}
+        for part in args.autotune.split(";"):
+            knob, _, vals = part.partition("=")
+            knob = knob.strip()
+            if knob not in KNOBS or not vals:
+                raise SystemExit(
+                    f"--autotune: bad ladder {part!r} (knobs: "
+                    f"{', '.join(KNOBS)}; format knob=v1,v2,...)")
+            ladders[knob] = tuple(int(v) for v in vals.split(","))
+    print(f"autotune: {ladders}")
+    sk = tuple(sorted(k for k in ladders.get("spec_k", ()) if k))
+    return TunerConfig(**ladders), ladders.get("decode_chunk"), sk or None
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -281,6 +360,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         tenancy = TenancyConfig(weights=weights, rates=rates)
         tenant_names = sorted(set(weights) | set(rates)) or None
         print(f"tenancy: weights={weights} rates={rates}")
+    slo_cfg = _slo_config(args.slo) if args.slo else None
+    if slo_cfg is not None:
+        print("slo objectives: "
+              + ", ".join(o.key() for o in slo_cfg.objectives))
+    tuner_cfg = decode_chunks = spec_ks = None
+    if args.autotune is not None:
+        tuner_cfg, decode_chunks, spec_ks = _autotune(args)
     cfg = gpt.GPTConfig(remat=False, kv_cache_dtype=args.kv_cache_dtype,
                         **PRESETS[args.preset])
     params = gpt.init(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -294,6 +380,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         page_size=args.page_size, num_pages=args.max_pages,
         prefill_chunk=args.prefill_chunk, host_swap=args.host_swap,
         resume_policy=args.resume_policy,
+        decode_chunks=decode_chunks, spec_ks=spec_ks,
         adapter_slots=args.adapters + 1 if args.adapters else 0),
         device=dev)
     long_len = 0
@@ -306,9 +393,38 @@ def main(argv: Optional[List[str]] = None) -> None:
                 prefix=templates[0] if templates else None,
                 long_prompt_len=long_len, tenants=tenant_names,
                 adapters=args.adapters))
+    # telemetry: spans when a trace is asked for or served, the registry
+    # when there is a /metrics endpoint to export it, the flight recorder
+    # for bundles, the /debug/events tail and the tuner's decision log
+    from apex_tpu_torch.telemetry import (FlightRecorder, Registry,
+                                          SpanRecorder)
+
+    spans = (SpanRecorder() if args.span_trace
+             or args.metrics_port is not None else None)
+    registry = Registry() if args.metrics_port is not None else None
+    recorder = (FlightRecorder() if args.bundle_dir is not None
+                or args.metrics_port is not None or tuner_cfg is not None
+                else None)
     # offline batch mode submits everything at once: size the queue to it
     sched = Scheduler(engine, max_queue=max(256, len(reqs)),
-                      pipeline_depth=args.pipeline_depth, tenancy=tenancy)
+                      pipeline_depth=args.pipeline_depth, tenancy=tenancy,
+                      registry=registry, spans=spans, recorder=recorder,
+                      bundle_dir=args.bundle_dir, tuner=tuner_cfg,
+                      slo=slo_cfg,
+                      # weights provenance: the replay rebuilds them
+                      bundle_meta={"params": {"init_seed": 0}})
+    server = None
+    if args.metrics_port is not None:
+        from apex_tpu_torch.telemetry import start_metrics_server
+
+        server = start_metrics_server(
+            registry, port=args.metrics_port, spans=spans,
+            recorder=recorder,
+            bundle_trigger=((lambda: sched.dump_bundle("http"))
+                            if args.bundle_dir is not None else None),
+            slo=sched.slo.status if slo_cfg is not None else None)
+        print(f"metrics: {server.url}/metrics  /healthz  /vars  "
+              f"/debug/events" + ("  /slo" if slo_cfg is not None else ""))
     for t in templates:
         sched.register_prefix(t)
     for i in range(args.adapters):
@@ -348,11 +464,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         {k: round(v, 3) for k, v in sched.summary().items()}))
     if tenancy is not None or args.adapters:
         print("tenants " + json.dumps(sched.tenant_summary()))
+    _report_telemetry(args, sched, server, tuner_cfg, slo_cfg)
     if args.api_port is not None:
         from apex_tpu_torch.serving.api import start_api_server
 
         # the server's driver thread takes over the (now idle) scheduler
-        api = start_api_server(sched, port=args.api_port)
+        api = start_api_server(sched, port=args.api_port,
+                               registry=registry)
         print(f"api: {api.url}/v1/chat/completions  /v1/completions  "
               f"/v1/models  /healthz")
         try:
@@ -364,6 +482,70 @@ def main(argv: Optional[List[str]] = None) -> None:
         except KeyboardInterrupt:
             pass
         api.stop()
+    if server is not None:
+        if args.metrics_linger > 0:
+            print(f"metrics endpoint lingering {args.metrics_linger}s "
+                  f"at {server.url}")
+            time.sleep(args.metrics_linger)
+        server.stop()
+
+
+def _report_telemetry(args, sched, server, tuner_cfg, slo_cfg) -> None:
+    """The exit report of the telemetry flags: one scrape of the live
+    endpoint, the tuner's decisions, the SLO percentiles and budgets,
+    the span trace and the post-mortem bundle."""
+    if server is not None:
+        import urllib.request
+
+        from apex_tpu_torch.telemetry import parse_prometheus_text
+
+        with urllib.request.urlopen(server.url + "/metrics",
+                                    timeout=30) as resp:
+            scrape = parse_prometheus_text(resp.read().decode("utf-8"))
+        tokens = scrape.get("serving_tokens_emitted_total", {}).get((), 0)
+        print(f"metrics scrape: {len(scrape)} series, "
+              f"serving_tokens_emitted_total={tokens:g}")
+    if tuner_cfg is not None:
+        s = sched.summary()
+        point = {name: int(s[f"tuner_{name}"])
+                 for name, _ in tuner_cfg.ladders()
+                 if f"tuner_{name}" in s}
+        print(f"autotune: state={s['tuner_state']:.0f} "
+              f"probes={s['tuner_probes']:.0f} "
+              f"switches={s['tuner_switches']:.0f} incumbent={point}")
+        for ev in sched.recorder.to_dicts(sched.recorder.events()):
+            if ev["event"] in ("tuner_probe", "tuner_switch",
+                               "tuner_freeze"):
+                print("tuner event " + json.dumps(
+                    {k: v for k, v in ev.items() if k != "t"},
+                    sort_keys=True))
+    if slo_cfg is not None:
+        # a final evaluation first, so a run shorter than the cadence
+        # still gets a verdict
+        mon = sched.slo
+        for m in mon.machines.values():
+            m.evaluate(mon.clock())
+        for metric in ("ttft", "token_latency", "queue_wait", "e2e"):
+            pct = mon.percentiles(metric)
+            if pct.get("count"):
+                print(f"slo {metric}: p50={pct['p50_ms']:.2f}ms "
+                      f"p95={pct['p95_ms']:.2f}ms "
+                      f"p99={pct['p99_ms']:.2f}ms (n={pct['count']:.0f})")
+        for key, m in mon.machines.items():
+            st = m.status()
+            print(f"slo {key}: state={st['state']} "
+                  f"budget_remaining={st['budget_remaining']:.4f} "
+                  f"good={st['good']:.0f} bad={st['bad']:.0f}")
+    if args.span_trace:
+        with open(args.span_trace, "w") as f:
+            json.dump(sched.spans.to_chrome_trace(), f)
+        print(f"span trace: {args.span_trace} "
+              f"({sched.spans.summary()['events']} events)")
+    if args.bundle_dir is not None:
+        path = sched.dump_bundle("exit")
+        print(f"bundle: {path} — replay with `python -m "
+              f"apex_tpu_torch.telemetry.replay {path} --device "
+              f"{sched.engine.device.type}`")
 
 
 if __name__ == "__main__":

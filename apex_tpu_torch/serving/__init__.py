@@ -18,6 +18,8 @@
   serving metrics,
 - :mod:`~apex_tpu_torch.serving.tenancy`   — weighted-fair queueing and
   token-budget rate limits (host only),
+- :mod:`~apex_tpu_torch.serving.tuner`     — the self-tuning scheduler's
+  knob controller over the engine's ladders (standard library only),
 - :mod:`~apex_tpu_torch.serving.api`       — the OpenAI-compatible HTTP
   front end (standard library only at import).
 

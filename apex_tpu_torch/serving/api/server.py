@@ -16,7 +16,10 @@ Routes::
     GET  /healthz               200 ok (the port's scheduler has no
                                 health machine yet; a ``health``
                                 callback answers when one is given)
-    GET  /slo                   404: no SLO monitor in the port yet
+    GET  /slo                   the SLO observatory snapshot (objective
+                                states, burn rates, budget remaining,
+                                percentiles) when the scheduler runs an
+                                SLOMonitor; 404 otherwise
 
 Errors: queue backpressure (:class:`~apex_tpu_torch.serving.scheduler.
 QueueFull`) and a tenant over its token budget
@@ -34,10 +37,11 @@ JsonSchemaConstraint`. A request whose ``model`` names a registered LoRA
 adapter runs on that adapter's row; any other model string runs on the
 base model (the string is echoed either way).
 
-Where JAX's server goes further, the port waits for its slices (ROADMAP
-queue 1 item 3): the 503 of a failed engine (``EngineFailed``) comes with
-resilience, and the ``registry`` of request counters with telemetry
-(passing one raises).
+``registry`` (a :class:`~apex_tpu_torch.telemetry.registry.Registry`)
+counts requests by route, responses by route and status code, request
+latency by route and the tokens streamed over SSE, under JAX's names.
+Where JAX's server goes further, the port waits for its resilience slice
+(ROADMAP queue 1 item 3): the 503 of a failed engine (``EngineFailed``).
 
 One difference on the wire: the listen backlog is 128 connections (the
 standard library's 5 resets a burst of clients). Standard library only
@@ -62,8 +66,30 @@ from apex_tpu_torch.serving.request import Request, SamplingParams
 # standard library only, like this module: tenancy is host policy
 from apex_tpu_torch.serving.tenancy import DEFAULT_TENANT, TenantThrottled
 
-#: the ROADMAP item the request-metrics registry waits for
-_TELEMETRY = "ROADMAP queue 1 item 3, telemetry"
+_ROUTES = ("chat", "completions", "models", "healthz", "other")
+
+
+class _ApiMetrics:
+    """Pre-bound per-route request counters + latency histograms, plus
+    a (route, code) response counter — resolved once so handlers never
+    do a label lookup per request."""
+
+    def __init__(self, registry):
+        req = registry.counter(
+            "api_requests_total", "HTTP requests received, by route",
+            labels=("route",))
+        self.requests = {r: req.labels(route=r) for r in _ROUTES}
+        self.responses = registry.counter(
+            "api_responses_total",
+            "HTTP responses sent, by route and status code",
+            labels=("route", "code"))
+        lat = registry.histogram(
+            "api_request_seconds",
+            "request receipt to response fully written (streams: last "
+            "SSE byte), by route", labels=("route",))
+        self.latency = {r: lat.labels(route=r) for r in _ROUTES}
+        self.stream_tokens = registry.counter(
+            "api_sse_tokens_total", "tokens streamed over SSE")
 
 
 class _HttpServer(ThreadingHTTPServer):
@@ -122,10 +148,7 @@ class ApiServer:
         #: scheduler has no health machine yet) the route answers 200 ok
         self.health = health if health is not None else getattr(
             getattr(scheduler, "health", None), "healthz", None)
-        if registry is not None:
-            raise ValueError(
-                f"ApiServer(registry=...): the request metrics need the "
-                f"port's telemetry registry ({_TELEMETRY})")
+        self.metrics = None if registry is None else _ApiMetrics(registry)
         self._host = host
         self._requested_port = port
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -194,6 +217,13 @@ class ApiServer:
         with self._counter_lock:
             self._counter += 1
             return self._counter
+
+    def slo_status(self) -> Optional[Dict[str, Any]]:
+        """The ``/slo`` payload: the scheduler's SLO-observatory status,
+        or None when it runs no monitor (the route then answers 404, as
+        an unwired debug route does)."""
+        mon = getattr(self.scheduler, "slo", None)
+        return None if mon is None else mon.status()
 
     # -- the driver thread (sole owner of the scheduler) --------------------
 
@@ -415,7 +445,7 @@ def _make_handler(server: ApiServer):
 
         # -- plumbing -------------------------------------------------------
 
-        def _reply(self, status: int, body: bytes,
+        def _reply(self, route: str, status: int, body: bytes,
                    ctype: str = "application/json",
                    retry_after_s: Optional[float] = None) -> None:
             self.send_response(status)
@@ -426,9 +456,13 @@ def _make_handler(server: ApiServer):
                                  str(max(1, int(retry_after_s + 0.999))))
             self.end_headers()
             self.wfile.write(body)
+            m = server.metrics
+            if m is not None:
+                m.responses.labels(route=route, code=str(status)).inc()
 
-        def _reply_error(self, e: protocol.ApiError) -> None:
-            self._reply(e.status,
+        def _reply_error(self, route: str,
+                         e: protocol.ApiError) -> None:
+            self._reply(route, e.status,
                         json.dumps(e.body()).encode("utf-8"),
                         retry_after_s=e.retry_after_s)
 
@@ -446,11 +480,17 @@ def _make_handler(server: ApiServer):
         def do_GET(self):
             path = self.path.split("?", 1)[0]
             if path == "/healthz":
+                route = "healthz"
+                if server.metrics is not None:
+                    server.metrics.requests[route].inc()
                 status, text = ((200, "ok\n") if server.health is None
                                 else server.health())
-                self._reply(status, text.encode("utf-8"),
+                self._reply(route, status, text.encode("utf-8"),
                             ctype="text/plain; charset=utf-8")
             elif path == "/v1/models":
+                route = "models"
+                if server.metrics is not None:
+                    server.metrics.requests[route].inc()
                 # the base model, then every registered LoRA adapter: an
                 # adapter's name is a model id a client passes in `model`
                 data = [{"id": server.model, "object": "model",
@@ -462,12 +502,22 @@ def _make_handler(server: ApiServer):
                          for n, i in sorted(names.items(),
                                             key=lambda kv: kv[1])]
                 body = {"object": "list", "data": data}
-                self._reply(200, json.dumps(body).encode("utf-8"))
+                self._reply(route, 200, json.dumps(body).encode("utf-8"))
             elif path == "/slo":
-                # JAX's answer when no SLO monitor is wired
-                self.send_error(
-                    404, "no SLO monitor wired (the port's SLO "
-                    "observatory is a later slice)")
+                route = "other"
+                if server.metrics is not None:
+                    server.metrics.requests[route].inc()
+                status = server.slo_status()
+                if status is None:
+                    # the reason phrase stays ASCII: http.server writes
+                    # it latin-1 encoded
+                    self.send_error(
+                        404, "no SLO monitor wired - construct the "
+                        "scheduler with slo=SLOConfig(...)")
+                    return
+                self._reply(route, 200,
+                            json.dumps(status, sort_keys=True,
+                                       default=str).encode("utf-8"))
             else:
                 self.send_error(404, "try /v1/chat/completions "
                                 "/v1/completions /v1/models /healthz "
@@ -486,6 +536,10 @@ def _make_handler(server: ApiServer):
         # -- generation -----------------------------------------------------
 
         def _generate(self, route: str) -> None:
+            t0 = time.monotonic()
+            m = server.metrics
+            if m is not None:
+                m.requests[route].inc()
             try:
                 body = self._read_json()
                 parsed = (protocol.parse_chat_request(body)
@@ -501,10 +555,10 @@ def _make_handler(server: ApiServer):
                 requests, prompt = server._build_requests(
                     parsed, rid, tenant=tenant)
             except protocol.ApiError as e:
-                self._reply_error(e)
+                self._reply_error(route, e)
                 return
             if server._driver_error is not None:
-                self._reply_error(protocol.ApiError(
+                self._reply_error(route, protocol.ApiError(
                     503, f"api driver crashed "
                     f"({server._driver_error})",
                     err_type="server_error", code="driver_crashed"))
@@ -518,7 +572,7 @@ def _make_handler(server: ApiServer):
                     503, "driver did not accept the request in time",
                     err_type="server_error")
             if err is not None:
-                self._reply_error(err)
+                self._reply_error(route, err)
                 return
             created = int(time.time())
             try:
@@ -529,6 +583,9 @@ def _make_handler(server: ApiServer):
                                    len(prompt))
             except (BrokenPipeError, ConnectionResetError, OSError):
                 return  # client went away; engine side runs out
+            finally:
+                if m is not None:
+                    m.latency[route].observe(time.monotonic() - t0)
 
         def _next_item(self, sub: _Submission):
             try:
@@ -548,7 +605,7 @@ def _make_handler(server: ApiServer):
                     if kind == "completion":
                         comps[idx] = payload
             except protocol.ApiError as e:
-                self._reply_error(e)
+                self._reply_error(route, e)
                 return
             choices = []
             for i, comp in sorted(comps.items()):
@@ -580,7 +637,7 @@ def _make_handler(server: ApiServer):
                      else protocol.build_completion_response)
             out = build(rid=rid, created=created, model=parsed.model,
                         choices=choices, usage=usage)
-            self._reply(200, json.dumps(out).encode("utf-8"))
+            self._reply(route, 200, json.dumps(out).encode("utf-8"))
 
         def _stream(self, route: str, rid: str, created: int,
                     parsed: protocol.ParsedRequest,
@@ -589,6 +646,9 @@ def _make_handler(server: ApiServer):
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.end_headers()
+            m = server.metrics
+            if m is not None:
+                m.responses.labels(route=route, code="200").inc()
             w = self.wfile
             mk = (protocol.chat_chunk if route == "chat"
                   else protocol.completion_chunk)
@@ -627,6 +687,8 @@ def _make_handler(server: ApiServer):
                 ids = None
                 if ev.token is not None:
                     text = decoders[idx].push(ev.token)
+                    if m is not None:
+                        m.stream_tokens.inc()
                     if parsed.logprobs:
                         lp = (text, ev.token, ev.logprob or 0.0)
                     if parsed.return_token_ids:
@@ -654,7 +716,8 @@ def start_api_server(scheduler, tokenizer=None, *, port: int = 0,
     :class:`~apex_tpu_torch.serving.api.tokenizer.ByteTokenizer` over
     the engine's vocab::
 
-        server = start_api_server(sched, port=8000)
+        server = start_api_server(sched, port=8000,
+                                  registry=registry)
     """
     if tokenizer is None:
         tokenizer = ByteTokenizer(scheduler.engine.cfg.vocab_size)

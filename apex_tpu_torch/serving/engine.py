@@ -91,16 +91,6 @@ def default_prompt_buckets(max_prompt_len: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
-#: EngineConfig fields of the JAX engine that belong to later slices of
-#: the port, with the value that leaves them off and the slice they
-#: belong to
-_TUNER = "the self-tuning scheduler, ROADMAP queue 1 item 3"
-_LATER_FIELDS = {
-    "decode_chunks": (None, _TUNER),
-    "spec_ks": (None, _TUNER),
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static engine geometry. ``max_prompt_len`` caps prompt length
@@ -140,9 +130,19 @@ class EngineConfig:
     ``host_swap_pages`` pages of them (0 = unbounded), and
     ``resume_policy`` (``auto`` | ``swap`` | ``recompute``) says how the
     scheduler brings one back; it also pages adapters (logical ids, no
-    cap on registrations). The JAX engine's other fields
-    (``decode_chunks``, ``spec_ks``) keep their names and defaults here;
-    setting one raises, naming the later slice it belongs to."""
+    cap on registrations).
+
+    ``decode_chunks`` and ``spec_ks`` are the ladders a self-tuning
+    scheduler (``Scheduler(tuner=...)``) switches among per dispatch:
+    strictly increasing, ``decode_chunks`` containing ``decode_chunk``
+    (None = ``(decode_chunk,)``) and ``spec_ks`` all >= 1 and containing
+    ``spec_k`` when it is > 0 (None = ``(spec_k,)`` when it is > 0, else
+    no speculation). ``spec_ks`` with ``spec_k == 0`` is valid: the
+    engine carries the drafter's ring and dispatches plain until asked
+    otherwise. The JAX engine compiles one program a rung; in the port a
+    ladder is a declared contract (the decode loop takes any chunk
+    length, and a ``spec_k`` rung sets the verify's T = k + 1), and
+    :meth:`Engine.step_async` refuses a value off it as JAX's does."""
 
     slots: int = 4
     max_prompt_len: int = 64
@@ -165,14 +165,6 @@ class EngineConfig:
     host_swap: bool = False
     host_swap_pages: int = 0
     resume_policy: str = "auto"
-
-    def __post_init__(self):
-        for name, (off, what) in _LATER_FIELDS.items():
-            if getattr(self, name) != off:
-                raise ValueError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    f"supported by apex_tpu_torch yet ({what} comes in a "
-                    f"later slice of the port)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,7 +348,9 @@ class Engine:
                 f"decode_chunk {ecfg.decode_chunk} must be >= 1")
         if ecfg.spec_k < 0:
             raise ValueError(f"spec_k {ecfg.spec_k} must be >= 0")
-        self._spec = ecfg.spec_k > 0
+        self._chunk_ladder = self._resolve_chunk_ladder(ecfg)
+        self._spec_ladder = self._resolve_spec_ladder(ecfg)
+        self._spec = bool(self._spec_ladder)
         if self._spec and ecfg.spec_hist < 2:
             raise ValueError(
                 f"spec_hist {ecfg.spec_hist} must be >= 2 with "
@@ -615,6 +609,41 @@ class Engine:
         return sizes
 
     @staticmethod
+    def _resolve_chunk_ladder(ecfg: EngineConfig) -> Tuple[int, ...]:
+        chunks = ecfg.decode_chunks
+        if chunks is None:
+            return (ecfg.decode_chunk,)
+        chunks = tuple(int(c) for c in chunks)
+        if not chunks or list(chunks) != sorted(set(chunks)) \
+                or chunks[0] < 1:
+            raise ValueError(
+                f"decode_chunks must be a strictly increasing ladder of "
+                f"values >= 1, got {chunks}")
+        if ecfg.decode_chunk not in chunks:
+            raise ValueError(
+                f"decode_chunks {chunks} must contain decode_chunk "
+                f"{ecfg.decode_chunk} — the base operating point must "
+                f"be a compiled variant")
+        return chunks
+
+    @staticmethod
+    def _resolve_spec_ladder(ecfg: EngineConfig) -> Tuple[int, ...]:
+        ks = ecfg.spec_ks
+        if ks is None:
+            return (ecfg.spec_k,) if ecfg.spec_k > 0 else ()
+        ks = tuple(int(k) for k in ks)
+        if not ks or list(ks) != sorted(set(ks)) or ks[0] < 1:
+            raise ValueError(
+                f"spec_ks must be a strictly increasing ladder of "
+                f"values >= 1 (0 — the plain variant — is a tuner "
+                f"rung, not a compiled spec program), got {ks}")
+        if ecfg.spec_k > 0 and ecfg.spec_k not in ks:
+            raise ValueError(
+                f"spec_ks {ks} must contain spec_k {ecfg.spec_k} — the "
+                f"base operating point must be a compiled variant")
+        return ks
+
+    @staticmethod
     def _resolve_prefix_variants(ecfg: EngineConfig,
                                  buckets: Tuple[int, ...]):
         """The prefix pool's usable SPLIT points (bucket values that
@@ -674,6 +703,20 @@ class Engine:
         return self._batch_sizes
 
     @property
+    def decode_chunks(self) -> Tuple[int, ...]:
+        """The resolved decode-chunk ladder (ascending; always contains
+        the base ``decode_chunk``): every rung is a chunk length a tuner
+        may dispatch."""
+        return self._chunk_ladder
+
+    @property
+    def spec_ks(self) -> Tuple[int, ...]:
+        """The resolved speculative draft-width ladder (ascending; empty
+        = no speculation): every rung crosses with every decode-chunk
+        rung."""
+        return self._spec_ladder
+
+    @property
     def prefix_pool_enabled(self) -> bool:
         """True when ``EngineConfig.prefix_pool_slots > 0`` resolved to
         at least one usable split point."""
@@ -711,8 +754,8 @@ class Engine:
             "device": str(self.device),
             "prompt_buckets": list(self._buckets),
             "admit_batch_sizes": list(self._batch_sizes),
-            "decode_chunks": [self.engine_cfg.decode_chunk],
-            "spec_ks": [self.engine_cfg.spec_k] if self._spec else [],
+            "decode_chunks": list(self._chunk_ladder),
+            "spec_ks": list(self._spec_ladder),
             "paged": self._paged,
             "kv_cache_kind": gpt._kv_cache_dtype(self.cfg),
             "num_pages": self._num_pages,
@@ -1813,40 +1856,63 @@ class Engine:
 
     # -- decode ------------------------------------------------------------
 
-    def step_async(self, *, spec: bool = False) -> StepHandle:
+    def step_async(self, *, spec: bool = False,
+                   chunk: Optional[int] = None,
+                   spec_k: Optional[int] = None) -> StepHandle:
         """Dispatch one decode chunk over every slot and return its
         :class:`StepHandle` without waiting for the device. ``spec=False``
-        runs ``decode_chunk`` plain steps (columns ``[B, decode_chunk]``;
-        a spec engine also shifts the emitted tokens into each slot's
-        history ring). ``spec=True`` (needs ``spec_k > 0``) runs
-        ``decode_chunk`` draft-verify waves: columns ``[B, decode_chunk *
-        (spec_k + 1)]`` wave-major, with ``handle.valid`` marking the
+        runs ``chunk`` plain steps (columns ``[B, chunk]``; a spec engine
+        also shifts the emitted tokens into each slot's history ring).
+        ``spec=True`` (needs a ``spec_ks`` rung) runs ``chunk``
+        draft-verify waves of ``spec_k`` drafts each: columns ``[B, chunk
+        * (spec_k + 1)]`` wave-major, with ``handle.valid`` marking the
         real emissions; it refuses while a slot's mask row constrains.
-        A plain chunk passes the mask rows to the draw only while one of
-        them is not all-True, and either kind passes the adapter bundle
-        only while a slot carries a nonzero adapter."""
+        ``chunk`` / ``spec_k`` pick rungs of ``EngineConfig.decode_chunks``
+        / ``spec_ks`` (None = the base ``decode_chunk`` / ``spec_k``); a
+        value off the ladder raises, as in JAX, where it would compile
+        mid-serve. A plain chunk passes the mask rows to the draw only
+        while one of them is not all-True, and either kind passes the
+        adapter bundle only while a slot carries a nonzero adapter."""
         ecfg = self.engine_cfg
-        if spec and not self._spec:
+        n = ecfg.decode_chunk if chunk is None else int(chunk)
+        if n not in self._chunk_ladder:
             raise ValueError(
-                "step_async(spec=True) needs EngineConfig.spec_k > 0")
+                f"decode_chunk {n} is not a pre-warmed step variant "
+                f"{self._chunk_ladder} — declare it in "
+                f"EngineConfig.decode_chunks (dispatching it would "
+                f"compile mid-serve)")
+        if spec:
+            if not self._spec:
+                raise ValueError(
+                    "step_async(spec=True) needs a compiled spec "
+                    "variant (EngineConfig.spec_k > 0 or spec_ks)")
+            k = ecfg.spec_k if spec_k is None else int(spec_k)
+            if k not in self._spec_ladder:
+                raise ValueError(
+                    f"spec_k {k} (at decode_chunk {n}) is not a "
+                    f"pre-warmed spec variant — declare it in "
+                    f"EngineConfig.spec_ks {self._spec_ladder}")
+        elif spec_k not in (None, 0):
+            raise ValueError(
+                f"spec_k={spec_k} without spec=True — a plain chunk "
+                f"has no draft width")
         if spec and self._masked_slots:
             raise ValueError(
                 f"step_async(spec=True) with constrained slots "
                 f"{sorted(self._masked_slots)}: the verify wave draws "
                 f"without vocab masks, so constrained traffic decodes "
                 f"plain chunks")
-        n = ecfg.decode_chunk
         table = self._table_device() if self._paged else None
         lora = self._lora_decode()
         if spec:
             (self.cache, self.state, toks, lps, fins,
              valid) = gpt.decode_steps_spec(
                 self.cfg, self._params, self.cache, self.state, n,
-                spec_k=ecfg.spec_k, pad_token_id=ecfg.pad_token_id,
+                spec_k=k, pad_token_id=ecfg.pad_token_id,
                 table=table, lora=lora)
             self.spec_waves_taken += n
-            return StepHandle(toks, lps, fins, valid=valid,
-                              spec_k=ecfg.spec_k, ncols=n * (ecfg.spec_k + 1))
+            return StepHandle(toks, lps, fins, valid=valid, spec_k=k,
+                              ncols=n * (k + 1))
         pos0 = self.state["pos"]
         self.cache, self.state, toks, lps, fins = gpt.decode_steps(
             self.cfg, self._params, self.cache, self.state, n,

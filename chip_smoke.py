@@ -231,6 +231,27 @@ horizon 192, 8 slots, ``decode_chunk=1``):
     same bytes, and a decode step's launches on the churned engine
     against a fresh one's. Launches of rows 5, 13 + 17, 15v, 14 + 18 and
     16 counted over (a)-(e).
+40. serving telemetry and the self-tuning scheduler — (a) serve()'s
+    contiguous engine with ``decode_chunk`` 4 on the ladder (1, 2, 4, 8)
+    under ``TunerConfig(decode_chunk=(1, 2, 4, 8), pipeline_depth=(1,
+    2))``, every sink on (registry, spans, flight recorder, SLO
+    objectives, a metrics logger): bench's trace back to back until each
+    knob has ended a probe window, every stream the base point's (no
+    tuner) up to reference near-ties (counted), the decisions printed;
+    (b) the paged engine with ``spec_k=3``, ``spec_ks=(3,)`` and the
+    tuner owning ``spec_k`` over (0, 3), no payoff gate: 16 requests of
+    48 tokens, streams the plain engine's up to near-ties, rows 13 + 17
+    and 15v counted; (c) (a)'s engine at rung 1, a decode step with every
+    sink on against one with none, in turns (4 windows each): the
+    launches a step equal on both sides and to phase 6's (hard), host ms
+    and idle share printed; (d) the bundle of (a)'s last trace:
+    ``replay_tuner`` and ``replay_slo`` reproduce every decision and
+    alert bit for bit (hard), ``replay_bundle`` rebuilds the 355M from it
+    on the card and replays the trace (partings at near-ties counted),
+    ``render_report`` renders it; (e) ``MetricsServer`` on 127.0.0.1:0
+    scraped mid-run and at the end (requests, tokens and tuner switches
+    against ``summary()`` and the recorder), and one request through
+    ``start_api_server(..., registry=...)`` with ``/slo`` answering 200.
 
 The quantized KV cache (``kv_cache_dtype="int8"`` / ``"fp8"``: a byte a
 value beside an fp32 scale per head row and column) runs next, on the
@@ -475,7 +496,8 @@ phase 37's path as ``api_launches``, and on phase 38's beam search and
 multi-LoRA runs as ``beam_launches`` and ``lora_launches``; rows 17 and
 15v and the fused paged step carry phase 38 (c)'s as ``lora_launches``;
 rows 5, 13, 15, 17, 15v, the fused paged step and rows 14, 16 and 18
-carry phase 39's as ``hostswap_launches``);
+carry phase 39's as ``hostswap_launches``; rows 5, 7, 10, 13, 17, 15v and
+both fused decode steps carry phase 40's as ``telemetry_launches``);
 the last line is
 ``{"ok": true, "device": {...}}``. Imports only torch, numpy, the
 standard library and ``apex_tpu_torch``.
@@ -1276,7 +1298,7 @@ LAUNCH_API = re.compile(r"^cu(da)?LaunchKernel")
 
 
 def phase_profile(cfg, engine, chunks: int = 16, reqs=None,
-                  what: str = "profile"):
+                  what: str = "profile", sched_kw=None, chunk=None):
     """A window of ``chunks`` decode chunks over 8 live slots (``reqs``,
     by default 8 requests of bench's trace, 40 tokens each) under
     ``torch.profiler``: the device's busy share and the kernels that
@@ -1289,14 +1311,19 @@ def phase_profile(cfg, engine, chunks: int = 16, reqs=None,
     plain instantiation of the split read the profiler records is one of
     those launches (it must record some where there were some, and no
     more). Where the profiler shows no device time the numbers print as
-    "not measured"."""
+    "not measured". ``sched_kw`` goes to the window's ``Scheduler``, and
+    ``chunk`` (a rung of the engine's ``decode_chunks``) replaces its
+    base decode chunk for the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
     from apex_tpu_torch.serving import Scheduler
 
-    sched = Scheduler(engine)
+    sched = Scheduler(engine, **(sched_kw or {}))
+    if chunk is not None:
+        step_async = engine.step_async
+        engine.step_async = lambda **kw: step_async(chunk=chunk, **kw)
     for r in reqs or bench_trace(cfg.vocab_size, n=SLOTS, max_tokens=40,
                                  seed0=5000):
         sched.submit(r)
@@ -1314,6 +1341,8 @@ def phase_profile(cfg, engine, chunks: int = 16, reqs=None,
         steps = engine.decode_steps_taken - steps0
         counts = launch_counts()
     sched.run_until_idle()
+    if chunk is not None:
+        del engine.step_async          # the class's method again
     fused = {k: counts[k] for k in ("decode_attention_write",
                                     "paged_attention_write")}
     alone = {k: counts[k] for k in ("decode_write_column", "decode_attention",
@@ -1340,7 +1369,7 @@ def phase_profile(cfg, engine, chunks: int = 16, reqs=None,
     old = [e for e in events if "attn_quant_kernel" in e.key]
     per_step = max(steps, 1)
     out = {
-        "window_steps": chunks * engine.engine_cfg.decode_chunk,
+        "window_steps": chunks * (chunk or engine.engine_cfg.decode_chunk),
         "decode_steps": steps,
         "wall_ms": wall * 1e3,
         "host_ms_per_decode_step": wall * 1e3 / per_step,
@@ -3770,6 +3799,386 @@ def phase_hostswap(cfg, params, band: float, card: str, prof5):
         phase_s=time.perf_counter() - t)
     del fresh, churned
     log(f"hostswap (f) ({card}): " + json.dumps(out["f"]))
+    return total, out
+
+
+# ---------------------------------------------------------------------------
+# phase 40: serving telemetry and the self-tuning scheduler
+# ---------------------------------------------------------------------------
+
+#: (a): the contiguous engine's ladders (bench's decode_chunk sweep) under
+#: the tuner, the SLO objectives, and at most this many back-to-back
+#: traces until each tuned knob has ended a probe window
+TL_GEOM = dict(slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON)
+TL_CHUNKS = (1, 2, 4, 8)
+TL_BASE_CHUNK = 4
+TL_SLO = "p99:ttft:1.0,p95:e2e:10.0"
+TL_MAX_TRACES = 4
+#: (b): the paged engine, the tuner owning spec_k, 16 requests of 48;
+#: verify waves of a random model's repetitive greedy streams emit up to
+#: 4 tokens, so the trace may run as few as 24 chunks: a probe every 8
+#: incumbent chunks ends a window within it
+TL_PAGED = dict(slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON,
+                page_size=PAGE, spec_k=SPEC_K, spec_ks=(SPEC_K,))
+TL_SPEC_TUNER = dict(spec_k=(0, SPEC_K), probe_every=8)
+#: (c): windows a side, taken in turns (on, off, off, on, ...)
+TL_WINDOWS = 4
+#: the launch counts phase 40 reports, and the rows they are added to
+TL_ROWS = ("flash_attention_bsh", "decode_attention_write",
+           "paged_attention_write", "paged_verify_attention")
+
+
+def _tl_sinks():
+    """Every telemetry sink, fresh: a registry, a span recorder, a flight
+    recorder, the SLO config and a metrics logger into the registry."""
+    from apex_tpu_torch.profiler import MetricsLogger
+    from apex_tpu_torch.telemetry import (FlightRecorder, Registry,
+                                          SpanRecorder)
+    from apex_tpu_torch.telemetry.slo import SLOConfig, parse_objective
+
+    reg = Registry()
+    return dict(registry=reg, spans=SpanRecorder(),
+                recorder=FlightRecorder(),
+                slo=SLOConfig(objectives=tuple(
+                    parse_objective(p) for p in TL_SLO.split(","))),
+                metrics=MetricsLogger(registry=reg, registry_prefix="tick_"))
+
+
+def _tl_trace(vocab: int, k: int):
+    """bench's trace (32 requests of 64 tokens), its ids marked with the
+    run ``k`` so back-to-back runs can share a scheduler."""
+    reqs = bench_trace(vocab)
+    for r in reqs:
+        r.request_id = f"k{k}-{r.request_id}"
+    return reqs
+
+
+def _tl_serve(sched, reqs, mid=None):
+    """Submit ``reqs`` and step to idle, the launch counts zeroed just
+    before and read just after; ``mid()`` runs once, ten ticks in.
+    Returns the counts, the engine counters' deltas and the
+    streams by the trace's own request ids."""
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    engine = sched.engine
+    before = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for r in reqs:
+        sched.submit(r)
+    steps = 0
+    while not sched.idle():
+        sched.step()
+        steps += 1
+        if mid is not None and steps == 10:
+            mid()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    delta = {k: getattr(engine, k) - v for k, v in before.items()}
+    streams = {}
+    for r in reqs:
+        c = sched.completions.get(r.request_id)
+        check(c is not None and c.finish_reason in ("length", "eos")
+              and (len(c.tokens) == r.max_tokens or c.finish_reason == "eos"),
+              f"telemetry: {r.request_id} finished "
+              f"{None if c is None else (c.finish_reason, len(c.tokens))}")
+        streams[r.request_id.split("-", 1)[-1]] = c.tokens
+    return counts, delta, streams
+
+
+def _tl_get(url: str):
+    """GET ``url``: (status, body text)."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.status, resp.read().decode("utf-8")
+
+
+def _tl_scrape(url: str):
+    from apex_tpu_torch.telemetry import parse_prometheus_text
+
+    return parse_prometheus_text(_tl_get(url + "/metrics")[1])
+
+
+def _tl_decisions(rec):
+    return [e for e in rec.to_dicts(rec.events())
+            if e["event"] in ("tuner_probe", "tuner_switch", "tuner_freeze")]
+
+
+def phase_telemetry(cfg, params, band: float, card: str, prof5):
+    """Phase 40: the telemetry layer and the tuner on the serving model.
+    ``prof5`` is phase 6's profile. Returns the launch counts of every
+    served run together, and the numbers; each line names ``card``.
+
+    (a) the contiguous engine (serve()'s geometry, ``decode_chunk`` 4 on
+    the ladder (1, 2, 4, 8)) under ``TunerConfig(decode_chunk=(1, 2, 4,
+    8), pipeline_depth=(1, 2))`` with every sink on (registry, spans,
+    flight recorder, ``slo``, a metrics logger) and ``MetricsServer`` on
+    127.0.0.1:0: bench's trace back to back on one scheduler until each
+    knob has ended a probe window (at most TL_MAX_TRACES); every stream
+    equal to the same trace's at the fixed base point (chunk 4, depth 1,
+    no tuner) or parting only at a near-tie within ``band`` (counted);
+    the decisions printed; the server scraped mid-run and at the end, its
+    completed requests and emitted tokens equal to ``summary()``'s and
+    ``serving_tuner_switches_total`` to the recorded switches.
+    (b) the paged engine, ``spec_k`` 3 on ``spec_ks=(3,)``, the tuner
+    owning ``spec_k`` over (0, 3) (no payoff gate): 16 requests of 48
+    tokens, every stream the plain engine's up to near-ties; rows 13 + 17
+    on every layer of every decode step, 15v of every wave.
+    (c) (a)'s engine at its rung 1, a decode step with every sink on
+    against one with none, in turns (TL_WINDOWS windows each, phase 6's
+    window): the launches a decode step equal on both sides and to phase
+    6's (hard), the host ms and idle share printed.
+    (d) the bundle ``dump_bundle`` wrote after (a)'s last trace (the
+    requests of that trace, the events of all):
+    ``replay_tuner`` and ``replay_slo`` reproduce every decision and
+    alert, EWMAs and burn rates bit for bit (hard); ``replay_bundle``
+    rebuilds the 355M on the card from it (seed 0) and replays the
+    trace, each stream equal to its recording or parting at a near-tie
+    (counted); ``render_report`` renders it.
+    (e) ``start_api_server(..., registry=...)`` over (a)'s engine with an
+    SLO monitor: one request, its counters, and ``/slo`` 200 with the
+    scheduler's snapshot."""
+    import tempfile
+
+    from apex_tpu_torch.serving import Engine, EngineConfig, Scheduler
+    from apex_tpu_torch.serving.api import start_api_server
+    from apex_tpu_torch.serving.tuner import TunerConfig
+    from apex_tpu_torch.telemetry import replay, start_metrics_server
+    from apex_tpu_torch.telemetry.flightrec import read_bundle
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    out, total = {}, {k: 0 for k in TL_ROWS}
+    tmp = tempfile.mkdtemp(prefix="phase40-")
+
+    def add(counts):
+        for k in TL_ROWS:
+            total[k] += counts[k]
+
+    # (a) the contiguous engine under the tuner, every sink on
+    t = time.perf_counter()
+    reqs = bench_trace(V)
+    engine = Engine(cfg, params, EngineConfig(
+        **TL_GEOM, decode_chunk=TL_BASE_CHUNK, decode_chunks=TL_CHUNKS))
+    c0, d0, base = _tl_serve(Scheduler(engine), _tl_trace(V, 0))
+    check_prefills("telemetry (a) base", c0, d0, L)
+    check_decode_step_kernels("telemetry (a) base", c0,
+                              ("decode_attention_write",),
+                              d0["decode_steps_taken"], L)
+    add(c0)
+    sinks = _tl_sinks()
+    # the bundle keeps the last trace's requests (the replay's trace) and
+    # every trace's events (the decisions and alerts)
+    sched = Scheduler(engine, tuner=TunerConfig(
+        decode_chunk=TL_CHUNKS, pipeline_depth=(1, 2)),
+        bundle_dir=tmp, bundle_meta={"params": {"init_seed": 0}},
+        request_log=len(reqs), **sinks)
+    rec = sinks["recorder"]
+    server = start_metrics_server(sinks["registry"], spans=sinks["spans"],
+                                  recorder=rec, slo=sched.slo.status)
+    mids, runs = [], []
+    try:
+        for k in range(1, TL_MAX_TRACES + 1):
+            c1, d1, got = _tl_serve(
+                sched, _tl_trace(V, k),
+                mid=lambda: mids.append(_tl_scrape(server.url)))
+            check_prefills(f"telemetry (a) tuned {k}", c1, d1, L)
+            check_decode_step_kernels(f"telemetry (a) tuned {k}", c1,
+                                      ("decode_attention_write",),
+                                      d1["decode_steps_taken"], L)
+            add(c1)
+            gaps = _hs_hold(cfg, params, band, f"telemetry (a) tuned {k}",
+                            reqs, got, base)
+            ncols = sorted({e[3][1] for e in rec.events()
+                            if e[2] == "dispatch"})
+            runs.append(dict(identical=len(reqs) - len(gaps),
+                             partings=gaps,
+                             decode_steps=d1["decode_steps_taken"],
+                             chunk_widths=ncols))
+            ended = {e["knob"] for e in _tl_decisions(rec)
+                     if e["event"] == "tuner_probe" and e["phase"] == "end"}
+            if ended >= {"decode_chunk", "pipeline_depth"}:
+                break
+        check(ended >= {"decode_chunk", "pipeline_depth"},
+              f"telemetry (a): probe windows ended for {sorted(ended)} "
+              f"only, over {len(runs)} traces")
+        final = _tl_scrape(server.url)
+    finally:
+        server.stop()
+    bundle_path = sched.dump_bundle("phase40")
+    s = sched.summary()
+    decisions = _tl_decisions(rec)
+    for e in decisions:
+        log(f"telemetry (a) decision ({card}): " + json.dumps(
+            {k: v for k, v in e.items() if k != "t"}, sort_keys=True))
+    switches = sum(1 for e in decisions if e["event"] == "tuner_switch")
+    finished = sum(final["serving_requests_finished_total"].values())
+    tokens = final["serving_tokens_emitted_total"][()]
+    scraped_switches = sum(final["serving_tuner_switches_total"].values())
+    check(finished == s["requests_completed"]
+          and tokens == s["tokens_emitted"],
+          f"telemetry (e): the scrape's {finished} requests / {tokens} "
+          f"tokens against summary()'s {s['requests_completed']} / "
+          f"{s['tokens_emitted']}")
+    check(scraped_switches == switches == s["tuner_switches"],
+          f"telemetry (e): serving_tuner_switches_total "
+          f"{scraped_switches} against {switches} recorded switches")
+    check(bool(mids) and mids[0]["serving_tokens_emitted_total"][()]
+          <= tokens, "telemetry (e): no mid-run scrape")
+    check(s["slo_ttft_p99_ms"] > 0 and "predicted_ttft_s" in s,
+          f"telemetry (a): the SLO keys of summary() {s}")
+    out["a"] = dict(
+        traces=len(runs), runs=runs, decisions=len(decisions),
+        probes=s["tuner_probes"], switches=switches,
+        incumbent={k: s[f"tuner_{k}"] for k in ("decode_chunk",
+                                                "pipeline_depth")},
+        slo={k: v for k, v in s.items() if k.startswith("slo_")},
+        tokens_per_sec=s["tokens_per_sec"],
+        flightrec=rec.summary(), phase_s=time.perf_counter() - t)
+    out["e"] = dict(scrapes=len(mids) + 1, series=len(final),
+                    finished=finished, tokens=tokens,
+                    tuner_switches_total=scraped_switches)
+    log(f"telemetry (a) ({card}): " + json.dumps(out["a"]))
+
+    # (e) one request through the front end with a registry and an SLO
+    # monitor on (a)'s engine
+    api_sinks = _tl_sinks()
+    api = start_api_server(Scheduler(engine, slo=api_sinks["slo"]),
+                           port=0, registry=api_sinks["registry"])
+    try:
+        status, _, body = _http(api.port, "/v1/completions", {
+            "prompt": list(range(1, 17)), "max_tokens": 8})
+        slo_status, snap = _tl_get(api.url + "/slo")
+        snap = json.loads(snap)
+    finally:
+        api.stop()
+    text = api_sinks["registry"].to_prometheus_text()
+    check(status == 200 and 1 <= body["usage"]["completion_tokens"] <= 8
+          and slo_status == 200
+          and snap["metrics"]["ttft"]["count"] == 1.0
+          and 'api_requests_total{route="completions"} 1' in text
+          and 'api_responses_total{route="completions",code="200"} 1'
+          in text, f"telemetry (e): the front end answered {status}, "
+          f"/slo {slo_status} {snap}")
+    out["e"].update(api_status=status, slo_status=slo_status,
+                    slo_objectives=sorted(snap["objectives"]))
+    log(f"telemetry (e) ({card}): " + json.dumps(out["e"]))
+
+    # (c) the cost of telemetry: a decode step with every sink on and
+    # with none, in turns, on (a)'s engine at its rung 1
+    t = time.perf_counter()
+    turns = []
+    for i in range(2 * TL_WINDOWS):
+        on = i % 4 in (0, 3)
+        prof = phase_profile(
+            cfg, engine, chunks=8, chunk=1,
+            reqs=bench_trace(V, n=SLOTS, max_tokens=12, seed0=5100 + i),
+            sched_kw=_tl_sinks() if on else None,
+            what=f"telemetry (c) {'on' if on else 'off'} {i}")
+        check(prof is not None, "telemetry (c): the profiler saw no kernel")
+        turns.append(dict(sinks=on, **{k: prof[k] for k in (
+            "decode_steps", "host_ms_per_decode_step",
+            "launches_per_decode_step", "device_idle_share")}))
+    launches = {x["launches_per_decode_step"] for x in turns}
+    want = None if prof5 is None else prof5["launches_per_decode_step"]
+    check(len(launches) == 1 and (want is None or launches == {want}),
+          f"telemetry (c): launches a decode step with and without the "
+          f"sinks {sorted(launches)}, phase 6's {want}")
+    side = {on: [x for x in turns if x["sinks"] == on] for on in (1, 0)}
+    out["c"] = dict(
+        launches_per_decode_step=launches.pop(), phase6_launches=want,
+        host_ms_on=statistics.median(
+            x["host_ms_per_decode_step"] for x in side[1]),
+        host_ms_off=statistics.median(
+            x["host_ms_per_decode_step"] for x in side[0]),
+        idle_on=statistics.median(x["device_idle_share"] for x in side[1]),
+        idle_off=statistics.median(x["device_idle_share"]
+                                   for x in side[0]),
+        turns=turns, phase_s=time.perf_counter() - t)
+    log(f"telemetry (c) ({card}): " + json.dumps(out["c"]))
+    del engine, sched
+
+    # (d) the bundle: decisions and alerts bit for bit, the trace replayed
+    # on a rebuilt engine, the report
+    t = time.perf_counter()
+    bundle = read_bundle(bundle_path)
+    tn, sl = replay.replay_tuner(bundle), replay.replay_slo(bundle)
+    check(tn is not None and tn["mismatches"] == []
+          and tn["decisions_recorded"] == tn["decisions_replayed"] > 0,
+          f"telemetry (d): replay_tuner {tn}")
+    check(sl is not None and sl["mismatches"] == []
+          and sl["evaluations"] > 0, f"telemetry (d): replay_slo {sl}")
+    recorded = {r["request_id"].split("-", 1)[-1]: r["emitted"]
+                for r in bundle["requests.jsonl"]}
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    rep = replay.replay_bundle(bundle_path, device="cuda", verbose=False)
+    add(launch_counts())
+    streams = {rid.split("-", 1)[-1]: toks
+               for rid, toks in rep["streams"].items()}
+    check(rep["replayed"] == len(reqs) and rep["skipped"] == []
+          and rep["tuner"]["mismatches"] == []
+          and rep["slo"]["mismatches"] == [],
+          f"telemetry (d): replay_bundle {rep['replayed']} replayed, "
+          f"skipped {rep['skipped']}")
+    gaps = _hs_hold(cfg, params, band, "telemetry (d) replay", reqs,
+                    streams, recorded)
+    report = replay.render_report(bundle)
+    check(report.startswith("post-mortem bundle: cause=phase40"),
+          "telemetry (d): render_report")
+    out["d"] = dict(decisions=tn["decisions_recorded"],
+                    observations=tn["observations"],
+                    slo_evaluations=sl["evaluations"],
+                    slo_transitions=sl["transitions_recorded"],
+                    replayed=rep["replayed"],
+                    identical=len(reqs) - len(gaps), partings=gaps,
+                    report_lines=len(report.splitlines()),
+                    phase_s=time.perf_counter() - t)
+    log(f"telemetry (d) ({card}): " + json.dumps(out["d"]))
+
+    # (b) the paged engine with the tuner owning spec_k
+    t = time.perf_counter()
+    reqs = hs_trace(V)
+    plain = Engine(cfg, params, EngineConfig(
+        **{k: v for k, v in TL_PAGED.items()
+           if k not in ("spec_k", "spec_ks")}))
+    c0, d0, want = _tl_serve(Scheduler(plain), hs_trace(V))
+    _hs_kernels("telemetry (b) plain", c0, d0, L)
+    add(c0)
+    del plain
+    engine = Engine(cfg, params, EngineConfig(**TL_PAGED))
+    sinks = _tl_sinks()
+    sched = Scheduler(engine, tuner=TunerConfig(**TL_SPEC_TUNER), **sinks)
+    check(sched._gate is None, "telemetry (b): a payoff gate beside the "
+          "tuner")
+    c1, d1, got = _tl_serve(sched, hs_trace(V))
+    _hs_kernels("telemetry (b)", c1, d1, L)
+    add(c1)
+    check(d1["spec_waves_taken"] > 0, "telemetry (b): no verify wave")
+    gaps = _hs_hold(cfg, params, band, "telemetry (b)", reqs, got, want)
+    s = sched.summary()
+    decisions = _tl_decisions(sinks["recorder"])
+    for e in decisions:
+        log(f"telemetry (b) decision ({card}): " + json.dumps(
+            {k: v for k, v in e.items() if k != "t"}, sort_keys=True))
+    check(any(e["event"] == "tuner_probe" and e["phase"] == "end"
+              and e["knob"] == "spec_k" for e in decisions),
+          "telemetry (b): no spec_k probe window ended")
+    out["b"] = dict(
+        identical=len(reqs) - len(gaps), partings=gaps,
+        decisions=len(decisions), incumbent_spec_k=s["tuner_spec_k"],
+        spec_chunks=s["spec_chunks"], spec_accept_rate=s["spec_accept_rate"],
+        waves=d1["spec_waves_taken"], decode_steps=d1["decode_steps_taken"],
+        launches={k: c1[k] for k in ("paged_attention_write",
+                                     "paged_verify_attention",
+                                     "paged_write_column", "paged_attention",
+                                     "paged_write_columns")},
+        phase_s=time.perf_counter() - t)
+    del engine, sched
+    log(f"telemetry (b) ({card}): " + json.dumps(out["b"]))
+    out["launches"] = total
+    log(f"telemetry launches ({card}): " + json.dumps(total))
     return total, out
 
 
@@ -9350,6 +9759,10 @@ def main() -> int:
         t = time.perf_counter()
         hs_launches, _ = phase_hostswap(cfg, params, band, card, prof5)
         log(f"host-swap phase {time.perf_counter() - t:.1f}s")
+        # serving telemetry and the self-tuning scheduler
+        t = time.perf_counter()
+        tl_launches, _ = phase_telemetry(cfg, params, band, card, prof5)
+        log(f"telemetry phase {time.perf_counter() - t:.1f}s")
         # the quantized cache, on the same serving model
         t = time.perf_counter()
         quant_rows = phase_quant_kernels()
@@ -9602,6 +10015,18 @@ def main() -> int:
                         ("paged_write_columns_quant",
                          "paged_write_columns_quant")):
         rows[name]["hostswap_launches"] = hs_launches[fused]
+    # phase 40's runs: row 5 for every admission group, rows 7 + 10 (the
+    # fused contiguous step) for (a)'s and (d)'s decode steps, rows 13 + 17
+    # (the fused paged step) and 15v for (b)'s steps and waves
+    for name, fused in (("flash_attention_bsh", "flash_attention_bsh"),
+                        ("decode_write_column", "decode_attention_write"),
+                        ("decode_attention", "decode_attention_write"),
+                        ("decode_attention_write", "decode_attention_write"),
+                        ("paged_write_column", "paged_attention_write"),
+                        ("paged_attention", "paged_attention_write"),
+                        ("paged_attention_write", "paged_attention_write"),
+                        ("paged_verify_attention", "paged_verify_attention")):
+        rows[name]["telemetry_launches"] = tl_launches[fused]
     # the four reads at the 2.7B's decode shape, with their launches in
     # its serving trace (paged int8 for row 18); rows 10 and 17 with the
     # fused launch's, as on the 355M's path

@@ -16,13 +16,18 @@ Oracles, over real sockets (``http.client``, servers on port 0):
 - the same 400s as JAX (missing messages, top_k without temperature,
   ``n`` too large, an oversized prompt, a bad schema, a budget under the
   schema's bound); 429 with ``Retry-After`` from ``QueueFull`` and from
-  ``TenantThrottled``; ``/v1/models``, ``/healthz`` 200 and ``/slo``
-  404; a ``registry`` refused naming the telemetry item;
+  ``TenantThrottled``; ``/v1/models``, ``/healthz`` 200, ``/slo`` 404
+  without an SLO monitor and 200 with the scheduler's snapshot with one;
+  a ``registry`` counts requests, responses, streamed tokens and request
+  latencies under JAX's ``_ApiMetrics`` families, the same counts as
+  JAX's server for the same requests;
 - ``apex_tpu_torch.serving.api`` imports and runs its pure logic with
   torch, numpy and JAX blocked;
 - ``python -m apex_tpu_torch.examples.serve_gpt --preset tiny --device
   cpu --num-requests 6`` exits 0, and with ``--adapters 2`` its front end
-  lists the two adapters; each refused flag raises naming its ROADMAP
+  lists the two adapters; each telemetry and tuner flag runs and prints
+  its output (the scrape, the span trace, the bundle, the SLO report,
+  the tuner's decisions); each refused flag raises naming its ROADMAP
   item; without ``--device cpu`` and no card it raises.
 """
 
@@ -42,6 +47,7 @@ from apex_tpu import mesh as mx
 from apex_tpu.models import gpt as jgpt
 from apex_tpu.serving.api import ApiServer as JApiServer
 from apex_tpu.serving.api import ByteTokenizer as JByteTokenizer
+from apex_tpu.telemetry.registry import Registry as JRegistry
 from apex_tpu.serving.engine import Engine as JEngine
 from apex_tpu.serving.engine import EngineConfig as JEngineConfig
 from apex_tpu.serving.scheduler import Scheduler as JScheduler
@@ -59,6 +65,9 @@ from apex_tpu_torch.serving.api import (
     render_chat_prompt,
     start_api_server,
 )
+from apex_tpu_torch.telemetry import Registry, parse_prometheus_text
+from apex_tpu_torch.telemetry.flightrec import read_bundle
+from apex_tpu_torch.telemetry.slo import SLOConfig, parse_objective
 
 # every xdist worker imports this module: one intra-op thread each
 torch.set_num_threads(1)
@@ -88,7 +97,8 @@ def served():
                       JByteTokenizer(VOCAB)).start()
     tsrv = ApiServer(Scheduler(teng, pipeline_depth=2),
                      ByteTokenizer(VOCAB)).start()
-    yield dict(jax=jsrv, port=tsrv, cfg=tcfg, params=tparams, engine=teng)
+    yield dict(jax=jsrv, port=tsrv, cfg=tcfg, params=tparams, engine=teng,
+               jax_engine=jeng)
     jsrv.stop()
     tsrv.stop()
 
@@ -334,10 +344,75 @@ def test_queue_full_and_throttle_are_429(served):
         throttled.stop()
 
 
-def test_registry_is_refused_naming_telemetry(served):
-    with pytest.raises(ValueError, match="queue 1 item 3, telemetry"):
-        ApiServer(Scheduler(served["engine"]), ByteTokenizer(VOCAB),
-                  registry=object())
+def test_slo_route_serves_the_scheduler_snapshot(served):
+    """With an SLO monitor the route answers 200 with the scheduler's
+    ``SLOMonitor.status()`` (objective states, budgets, percentiles)."""
+    slo = SLOConfig(objectives=(parse_objective("p99:ttft:5.0"),))
+    srv = start_api_server(Scheduler(served["engine"], slo=slo))
+    try:
+        assert _post(srv.port, "/v1/completions",
+                     {"prompt": [1, 2], "max_tokens": 3})[0] == 200
+        status, raw = _get(srv.port, "/slo")
+        assert status == 200
+        snap = json.loads(raw)
+        assert snap == json.loads(json.dumps(
+            srv.scheduler.slo.status(), sort_keys=True, default=str))
+        assert list(snap["objectives"]) == ["p99:ttft:5"]
+        assert snap["metrics"]["ttft"]["count"] == 1.0
+    finally:
+        srv.stop()
+
+
+def _api_series(scrape):
+    """The api_* series a request sequence determines: every counter and
+    each latency histogram's count (its buckets and sum are wall time)."""
+    out = {}
+    for name, series in scrape.items():
+        if name.startswith("api_") and not name.startswith(
+                ("api_request_seconds_bucket", "api_request_seconds_sum")):
+            out[name] = series
+    return out
+
+
+def test_api_metrics_match_jax(served):
+    """The ``_ApiMetrics`` oracle: a fresh registry holds JAX's families
+    byte for byte, and the same requests through the port's server and
+    JAX's (a buffered completion, a streamed chat, a 400, ``/healthz``,
+    ``/v1/models``) leave the same request, response, SSE-token and
+    latency counts (exact)."""
+    tfresh, jfresh = Registry(), JRegistry()
+    ApiServer(Scheduler(served["engine"]), ByteTokenizer(VOCAB),
+              registry=tfresh)
+    JApiServer(JScheduler(served["jax_engine"]), JByteTokenizer(VOCAB),
+               registry=jfresh)
+    assert tfresh.to_prometheus_text() == jfresh.to_prometheus_text()
+    scrapes = []
+    for mk_srv, mk_sched, mk_tok, eng, reg in (
+            (ApiServer, Scheduler, ByteTokenizer, served["engine"],
+             Registry()),
+            (JApiServer, JScheduler, JByteTokenizer, served["jax_engine"],
+             JRegistry())):
+        srv = mk_srv(mk_sched(eng), mk_tok(VOCAB), registry=reg).start()
+        try:
+            assert _post(srv.port, "/v1/completions",
+                         {"prompt": [5, 6, 7], "max_tokens": 4})[0] == 200
+            assert _post(srv.port, "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "hi"}],
+                "max_tokens": 5, "stream": True})[0] == 200
+            assert _post(srv.port, "/v1/chat/completions",
+                         {"max_tokens": 5})[0] == 400
+            assert _get(srv.port, "/healthz")[0] == 200
+            assert _get(srv.port, "/v1/models")[0] == 200
+        finally:
+            srv.stop()
+        scrapes.append(_api_series(parse_prometheus_text(
+            reg.to_prometheus_text())))
+    tscrape, jscrape = scrapes
+    assert tscrape == jscrape
+    assert tscrape["api_sse_tokens_total"][()] == 5.0
+    assert tscrape["api_requests_total"][(("route", "chat"),)] == 2.0
+    assert tscrape["api_responses_total"][
+        (("route", "chat"), ("code", "400"))] == 1.0
 
 
 _STDLIB_ONLY = r"""
@@ -413,17 +488,69 @@ def test_example_serves_on_the_cpu():
 
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "item 5"), (["--ckpt", "x.atck"], "item 7"),
-    (["--metrics-port", "0"], "item 3"), (["--metrics-linger", "1"],
-                                          "item 3"),
-    (["--span-trace", "t.json"], "item 3"), (["--bundle-dir", "b"],
-                                             "item 3"),
     (["--journal-dir", "j"], "item 3"), (["--fault-plan", "random:1"],
                                          "item 3"),
-    (["--replicas", "2"], "item 3"), (["--kill-replica", "1@4"], "item 3"),
-    (["--autotune"], "item 3"), (["--slo", "p99:ttft:0.2"], "item 3")])
+    (["--replicas", "2"], "item 3"), (["--kill-replica", "1@4"], "item 3")])
 def test_example_refuses_unported_flags(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
         serve_gpt.main(["--preset", "tiny", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flag", ["metrics-port", "metrics-linger",
+                                  "span-trace", "slo", "bundle-dir",
+                                  "autotune"])
+def test_example_telemetry_flags(flag, tmp_path, capsys):
+    """Each telemetry and tuner flag runs on the tiny preset and prints
+    its output: the endpoint's scrape (its token count is the run's),
+    the lingering endpoint, a Chrome trace, the SLO percentiles and
+    budgets, a post-mortem bundle whose requests are the trace's, and
+    the tuner's state and decision events."""
+    args = {
+        "metrics-port": ["--metrics-port", "0"],
+        "metrics-linger": ["--metrics-port", "0", "--metrics-linger",
+                           "0.05"],
+        "span-trace": ["--span-trace", str(tmp_path / "t.json")],
+        "slo": ["--slo", "p99:ttft:30,p95:e2e:60"],
+        "bundle-dir": ["--bundle-dir", str(tmp_path / "b")],
+        "autotune": ["--max-tokens", "24",
+                     "--autotune", "decode_chunk=1,2,4;pipeline_depth=1,2"],
+    }[flag]
+    serve_gpt.main(["--preset", "tiny", "--device", "cpu",
+                    "--num-requests", "6"] + args)
+    lines = capsys.readouterr().out.splitlines()
+    served = json.loads(next(line for line in lines
+                             if line.startswith("served "))[7:])
+    assert served["requests_completed"] == 6.0
+
+    def line(prefix):
+        return next(x for x in lines if x.startswith(prefix))
+
+    if flag in ("metrics-port", "metrics-linger"):
+        scraped = float(line("metrics scrape: ").rsplit("=", 1)[1])
+        assert scraped == served["tokens_emitted"]
+        if flag == "metrics-linger":
+            assert line("metrics endpoint lingering 0.05s")
+    elif flag == "span-trace":
+        trace = json.load(open(tmp_path / "t.json"))
+        names = {e["name"] for e in trace["traceEvents"]}
+        assert {"engine.dispatch", "engine.fetch", "decode"} <= names
+    elif flag == "slo":
+        assert line("slo ttft: p50=")
+        assert "n=6)" in line("slo e2e: ")
+        assert line("slo p99:ttft:30: state=ok")
+    elif flag == "bundle-dir":
+        path = line("bundle: ").split()[1]
+        bundle = read_bundle(path)
+        assert [r["request_id"] for r in bundle["requests.jsonl"]] == [
+            f"r{i}" for i in range(6)]
+        assert bundle["manifest.json"]["meta"] == {
+            "params": {"init_seed": 0}}
+    else:
+        assert line("autotune: {'decode_chunk': (1, 2, 4)")
+        assert line("autotune: state=")
+        events = [json.loads(x[len("tuner event "):]) for x in lines
+                  if x.startswith("tuner event ")]
+        assert events and events[0]["event"] == "tuner_probe"
 
 
 def test_example_serves_adapters_on_the_cpu():

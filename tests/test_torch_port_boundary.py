@@ -3,7 +3,8 @@ and touches CUDA, and where it refuses to run.
 
 - Every module of the package (the serving front end's too: the tenancy
   book, ``serving/api/*``, ``examples/serve_gpt.py`` and
-  ``examples/generate.py``) imports in a
+  ``examples/generate.py``; and the telemetry layer: ``telemetry/*``,
+  ``serving/tuner.py``, ``profiler.py`` and ``_atomic.py``) imports in a
   subprocess whose
   ``sys.meta_path`` blocks ``jax``, ``jaxlib`` and ``apex_tpu`` (the exact
   name and the ``apex_tpu.`` prefix — not the string prefix, which would
@@ -70,6 +71,16 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         "apex_tpu_torch.serving.api.tokenizer",
         "apex_tpu_torch.examples.serve_gpt",
         "apex_tpu_torch.examples.generate")))
+    print("TELEMETRY", all(n in names for n in (
+        "apex_tpu_torch._atomic", "apex_tpu_torch.profiler",
+        "apex_tpu_torch.serving.tuner", "apex_tpu_torch.telemetry",
+        "apex_tpu_torch.telemetry.ring",
+        "apex_tpu_torch.telemetry.registry",
+        "apex_tpu_torch.telemetry.spans", "apex_tpu_torch.telemetry.slo",
+        "apex_tpu_torch.telemetry.flightrec",
+        "apex_tpu_torch.telemetry.http",
+        "apex_tpu_torch.telemetry.replay")))
+    print("NO_RECOMPILE", "apex_tpu_torch.telemetry.recompile" not in names)
     print("LEAKED", leaked)
     print("BUILT", _build._info is not None or _build._lib is not None)
     print("CUDA_INIT", torch.cuda.is_initialized())
@@ -83,11 +94,15 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its thirteen subpackages and their forty-four modules
+    # the package, its fourteen subpackages and their fifty-four modules
     # (serving/tenancy.py, serving/hostswap.py, serving/api/*,
-    # examples/serve_gpt.py and examples/generate.py among them)
-    assert int(out["MODULES"]) == 58, out
+    # examples/serve_gpt.py and examples/generate.py among them; the
+    # telemetry package's seven, serving/tuner.py, profiler.py and
+    # _atomic.py)
+    assert int(out["MODULES"]) == 69, out
     assert out["FRONTEND"] == "True"
+    assert out["TELEMETRY"] == "True"
+    assert out["NO_RECOMPILE"] == "True"
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"
     assert out["CUDA_INIT"] == "False"

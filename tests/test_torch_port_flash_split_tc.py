@@ -340,8 +340,14 @@ def test_kernel_route_of_each_sweep(monkeypatch, dtype, d, tc):
     entry where ``tc_route`` says yes, with the 16-bit dtype's code and
     an operand off a 16-byte boundary copied once, else its CUDA-core
     entry (fp16 widened to fp32's code); one launch counted each, and
-    the tensor-core ones also in ``tc_launches``."""
+    the tensor-core ones also in ``tc_launches``. The counters the faked
+    launches move are put back afterwards (other tests in the process
+    read them)."""
     lib = _FakeLibrary()
+    for fn in tk.KERNEL_WRAPPERS.values():
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    for fn in tk.TC_COUNTERS.values():
+        monkeypatch.setattr(fn, "tc_launches", fn.tc_launches)
     monkeypatch.setattr(_build, "on_cuda", lambda *t: True)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda: 0)

@@ -317,13 +317,6 @@ def test_later_slice_request_fields_rejected(model, field, value):
     assert list(sched.queue) == [req]
 
 
-@pytest.mark.parametrize("field,value", [
-    ("spec_ks", (2,)), ("decode_chunks", (1, 2))])
-def test_later_slice_engine_fields_raise(field, value):
-    with pytest.raises(ValueError, match="later slice"):
-        EngineConfig(**{field: value})
-
-
 def test_engine_describe_and_buckets(model):
     _, _, _, tcfg, tparams = model
     eng = Engine(tcfg, tparams, EngineConfig(
