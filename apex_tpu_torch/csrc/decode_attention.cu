@@ -760,6 +760,7 @@ decode_read_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   }
 }
 
+#ifndef APEX_TPU_TORCH_PAGED_READS
 template <typename U>
 cudaError_t launch_write_cols_unit(const void* k_new, const void* v_new,
                                    void* k_dst, void* v_dst, const void* pos,
@@ -797,6 +798,8 @@ cudaError_t launch_write_cols(const void* k_new, const void* v_new,
                                             smax, clamp, stream);
   });
 }
+
+#endif  // APEX_TPU_TORCH_PAGED_READS
 
 // one launch of the split read: n_splits x n_rows blocks, each row's
 // n_splits blocks one cluster, with `smem` bytes of dynamic shared memory
@@ -836,9 +839,10 @@ cudaError_t launch_read_split(const void* q, const void* k, const void* k_s,
   return err != cudaSuccess ? err : last;
 }
 
-// the split read over rows stored as S, for q's T and the padded width
-// (k_new/v_new: the fused launch, or null)
-template <typename T, typename S>
+// the split read over rows stored as S, for q's T and the padded width,
+// over the contiguous cache or (kPaged) the pools (k_new/v_new: the fused
+// launch, or null)
+template <typename T, typename S, bool kPaged>
 cudaError_t launch_read(const void* q, const void* k, const void* k_s,
                         const void* v, const void* v_s, const void* k_new,
                         const void* v_new, const void* table,
@@ -856,19 +860,70 @@ cudaError_t launch_read(const void* q, const void* k, const void* k_s,
                                           : 1;
     size_t smem = (size_t)kReadRing * 2 * kSubCols * row_bytes;
     if (kQuantRows<S>) smem += sizeof(float) * kReadRing * 2 * kSubCols;
-    if (table == nullptr)
+    if constexpr (!kPaged) {
       return launch_read_split<T, S, DP, false>(
           q, k, k_s, v, v_s, k_new, v_new, nullptr, pos, out, b * h, h,
           horizon, 1, 1, d, scale, split_cols, n_splits, unit, smem, stream);
-    smem += sizeof(int) * ((split_cols + P - 1) / P + 1);
-    return launch_read_split<T, S, DP, true>(
-        q, k, k_s, v, v_s, k_new, v_new, table, pos, out, b * h, h, horizon,
-        P, mp, d, scale, split_cols, n_splits, unit, smem, stream);
+    } else {
+      smem += sizeof(int) * ((split_cols + P - 1) / P + 1);
+      return launch_read_split<T, S, DP, true>(
+          q, k, k_s, v, v_s, k_new, v_new, table, pos, out, b * h, h,
+          horizon, P, mp, d, scale, split_cols, n_splits, unit, smem, stream);
+    }
   });
 }
 
 // the storage code of the plain reads: rows in q's dtype, no scales
 constexpr int kRowsAsQ = -1;
+
+// the reads of one layout, every dtype and storage kind (launch_attn's
+// arguments, checked there)
+template <bool kPaged>
+cudaError_t launch_read_layout(const void* q, const void* k,
+                               const void* k_s, const void* v,
+                               const void* v_s, const void* k_new,
+                               const void* v_new, const void* table,
+                               const void* pos, void* out, int b, int h,
+                               int horizon, int P, int mp, int d,
+                               float scale, int dtype, int kind,
+                               int split_cols, int n_splits,
+                               cudaStream_t stream) {
+  return with_dtype(dtype, [&](auto t_tag) {
+    using T = typename decltype(t_tag)::type;
+    if (kind == kRowsAsQ)
+      return launch_read<T, T, kPaged>(q, k, nullptr, v, nullptr, k_new,
+                                       v_new, table, pos, out, b, h,
+                                       horizon, P, mp, d, scale, split_cols,
+                                       n_splits, stream);
+    return with_kind(kind, [&](auto s_tag) {
+      using S = typename decltype(s_tag)::type;
+      return launch_read<T, S, kPaged>(q, k, k_s, v, v_s, nullptr, nullptr,
+                                       table, pos, out, b, h, horizon, P,
+                                       mp, d, scale, split_cols, n_splits,
+                                       stream);
+    });
+  });
+}
+
+}  // namespace
+
+// The reads over the pools: compiled in decode_attention_paged.cu, which
+// includes this file with APEX_TPU_TORCH_PAGED_READS defined, so that
+// nvcc builds the paged and the contiguous instantiations side by side.
+cudaError_t launch_read_paged(const void* q, const void* k, const void* k_s,
+                              const void* v, const void* v_s,
+                              const void* k_new, const void* v_new,
+                              const void* table, const void* pos, void* out,
+                              int b, int h, int horizon, int P, int mp,
+                              int d, float scale, int dtype, int kind,
+                              int split_cols, int n_splits,
+                              cudaStream_t stream);
+
+}  // namespace apex_tpu_torch
+
+#ifndef APEX_TPU_TORCH_PAGED_READS
+namespace apex_tpu_torch {
+namespace {
 
 // the four reads: table == nullptr is the contiguous cache [b, h,
 // horizon, d], otherwise the pools [num_pages, h, P, d] under table [b,
@@ -891,19 +946,14 @@ cudaError_t launch_attn(const void* q, const void* k, const void* k_s,
       (long long)n_splits * split_cols < horizon ||
       (long long)(n_splits - 1) * split_cols >= horizon)
     return cudaErrorInvalidValue;
-  return with_dtype(dtype, [&](auto t_tag) {
-    using T = typename decltype(t_tag)::type;
-    if (kind == kRowsAsQ)
-      return launch_read<T, T>(q, k, nullptr, v, nullptr, k_new, v_new,
-                               table, pos, out, b, h, horizon, P, mp, d,
-                               scale, split_cols, n_splits, stream);
-    return with_kind(kind, [&](auto s_tag) {
-      using S = typename decltype(s_tag)::type;
-      return launch_read<T, S>(q, k, k_s, v, v_s, nullptr, nullptr, table,
-                               pos, out, b, h, horizon, P, mp, d, scale,
-                               split_cols, n_splits, stream);
-    });
-  });
+  if (table == nullptr)
+    return launch_read_layout<false>(q, k, k_s, v, v_s, k_new, v_new,
+                                     nullptr, pos, out, b, h, horizon, P, mp,
+                                     d, scale, dtype, kind, split_cols,
+                                     n_splits, stream);
+  return launch_read_paged(q, k, k_s, v, v_s, k_new, v_new, table, pos, out,
+                           b, h, horizon, P, mp, d, scale, dtype, kind,
+                           split_cols, n_splits, stream);
 }
 
 // the input rows' dtype times the storage kind
@@ -1161,3 +1211,4 @@ extern "C" int apex_tpu_torch_paged_attention_quant(
                      out, b, h, mp * P, P, mp, d, scale, dtype, kind,
                      split_cols, n_splits, static_cast<cudaStream_t>(stream));
 }
+#endif  // APEX_TPU_TORCH_PAGED_READS

@@ -41,6 +41,23 @@
 #include "decode_common.cuh"
 
 namespace apex_tpu_torch {
+
+// One verify launch's arguments (see launch_verify)
+struct VerifyArgs {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  const void* k;
+  const void* v;
+  const void* table;
+  const void* pos;
+  void* out;
+  int b, h, t_rows, horizon, P, mp, d;
+  float scale;
+  int dtype, split_cols, n_splits;
+  cudaStream_t stream;
+};
+
 namespace {
 
 // The speculative verify's lane for logical column c of a row whose T
@@ -425,6 +442,54 @@ cudaError_t launch_verify_split(const void* q, const void* k, const void* v,
   return err != cudaSuccess ? err : last;
 }
 
+// the verify for one layout (kPaged: the pools under a table) and one
+// row bound R, every dtype and padded head width
+template <bool kPaged, int R>
+cudaError_t launch_verify_rows(const VerifyArgs& a) {
+  return with_dtype(a.dtype, [&](auto t_tag) {
+    using T = typename decltype(t_tag)::type;
+    return with_padded_dim(a.d, [&](auto dp) {
+      constexpr int DP = decltype(dp)::value;
+      const int row_bytes = a.d * (int)sizeof(T);
+      const int unit = row_bytes % 16 == 0  ? 16
+                       : row_bytes % 8 == 0 ? 8
+                       : row_bytes % 4 == 0 ? 4
+                                            : 2;
+      size_t smem = (size_t)kReadRing * 2 * kSubCols * row_bytes +
+                    sizeof(float) * (kSplitWarps + a.n_splits) * a.t_rows *
+                        DP;
+      if (kPaged) smem += sizeof(int) * ((a.split_cols + a.P - 1) / a.P + 1);
+      return launch_verify_split<T, DP, R, kPaged>(
+          a.q, a.k, a.v, a.k_new, a.v_new, a.table, a.pos, a.out, a.b * a.h,
+          a.h, a.horizon, a.P, a.mp, a.d, a.t_rows, a.scale, a.split_cols,
+          a.n_splits, unit, smem, a.stream);
+    });
+  });
+}
+
+}  // namespace
+
+// The verify of one layout and row bound. The four are compiled one a
+// source, so that nvcc builds them side by side: the contiguous cache at
+// kVerifyShortRows here, the others in decode_verify_rows8.cu,
+// decode_verify_paged.cu and decode_verify_paged_rows8.cu, which include
+// this file with APEX_TPU_TORCH_VERIFY_PART defined.
+cudaError_t verify_contiguous_short(const VerifyArgs& a);
+cudaError_t verify_contiguous_max(const VerifyArgs& a);
+cudaError_t verify_paged_short(const VerifyArgs& a);
+cudaError_t verify_paged_max(const VerifyArgs& a);
+
+}  // namespace apex_tpu_torch
+
+#ifndef APEX_TPU_TORCH_VERIFY_PART
+namespace apex_tpu_torch {
+
+cudaError_t verify_contiguous_short(const VerifyArgs& a) {
+  return launch_verify_rows<false, kVerifyShortRows>(a);
+}
+
+namespace {
+
 // the verify over the contiguous cache (table == nullptr, horizon S) or
 // the pools (horizon mp * P): the split geometry as launch_attn's, 1 <=
 // t_rows <= kVerifyMaxRows query rows a (batch, head) row, the kernel
@@ -442,33 +507,13 @@ cudaError_t launch_verify(const void* q, const void* k_new,
       (long long)(n_splits - 1) * split_cols >= horizon || t_rows < 1 ||
       t_rows > kVerifyMaxRows || k_new == nullptr || v_new == nullptr)
     return cudaErrorInvalidValue;
-  return with_dtype(dtype, [&](auto t_tag) {
-    using T = typename decltype(t_tag)::type;
-    return with_padded_dim(d, [&](auto dp) {
-      constexpr int DP = decltype(dp)::value;
-      const int row_bytes = d * (int)sizeof(T);
-      const int unit = row_bytes % 16 == 0  ? 16
-                       : row_bytes % 8 == 0 ? 8
-                       : row_bytes % 4 == 0 ? 4
-                                            : 2;
-      size_t smem = (size_t)kReadRing * 2 * kSubCols * row_bytes +
-                    sizeof(float) * (kSplitWarps + n_splits) * t_rows * DP;
-      auto run = [&](auto rows) -> cudaError_t {
-        constexpr int R = decltype(rows)::value;
-        if (table == nullptr)
-          return launch_verify_split<T, DP, R, false>(
-              q, k, v, k_new, v_new, nullptr, pos, out, b * h, h, horizon, 1,
-              1, d, t_rows, scale, split_cols, n_splits, unit, smem, stream);
-        return launch_verify_split<T, DP, R, true>(
-            q, k, v, k_new, v_new, table, pos, out, b * h, h, horizon, P, mp,
-            d, t_rows, scale, split_cols, n_splits, unit,
-            smem + sizeof(int) * ((split_cols + P - 1) / P + 1), stream);
-      };
-      if (t_rows <= kVerifyShortRows)
-        return run(std::integral_constant<int, kVerifyShortRows>{});
-      return run(std::integral_constant<int, kVerifyMaxRows>{});
-    });
-  });
+  const VerifyArgs a{q, k_new, v_new, k, v, table, pos, out, b, h, t_rows,
+                     horizon, P, mp, d, scale, dtype, split_cols, n_splits,
+                     stream};
+  const bool is_short = t_rows <= kVerifyShortRows;
+  if (table == nullptr)
+    return is_short ? verify_contiguous_short(a) : verify_contiguous_max(a);
+  return is_short ? verify_paged_short(a) : verify_paged_max(a);
 }
 
 }  // namespace
@@ -508,3 +553,4 @@ extern "C" int apex_tpu_torch_paged_verify_attention(
                        h, T, mp * P, P, mp, d, scale, dtype, split_cols,
                        n_splits, static_cast<cudaStream_t>(stream));
 }
+#endif  // APEX_TPU_TORCH_VERIFY_PART

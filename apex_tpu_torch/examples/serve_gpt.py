@@ -86,10 +86,32 @@ controller's state and decisions::
         --device cpu --num-requests 8 --max-tokens 24 \
         --autotune "decode_chunk=1,2,4;pipeline_depth=1,2"
 
+Resilience (:mod:`apex_tpu_torch.serving.resilience`): ``--fault-plan
+SPEC`` arms a fault plan on the engine (``random:SEED[:N]``, or a comma
+list of ``point:index:kind[:arg]`` such as ``fetch:2:nan:1,dispatch:5:
+error``); the run recovers from each fault and prints what fired and the
+health state. ``--journal-dir DIR`` journals every stream (write-ahead,
+CRC-framed); rerun with the same directory and the unfinished streams
+resume where they stopped, bit for bit (SIGTERM stops at a step
+boundary with the journal sealed). ``--replicas N`` serves through a
+fleet router over N engines on the one device (sharing the weights;
+each journals into ``replica-<i>`` under ``--journal-dir``, the fault
+plan goes to the first replica the kill drill spares, and
+``--host-swap``'s demo parks replica 0's conversations), and
+``--kill-replica I@K`` fails replica I terminally at its K-th decode
+dispatch: its streams fail over to the others and finish as one replica
+would have served them::
+
+    python -m apex_tpu_torch.examples.serve_gpt --preset tiny \
+        --device cpu --fault-plan fetch:2:nan:0,dispatch:5:error
+    python -m apex_tpu_torch.examples.serve_gpt --preset tiny \
+        --device cpu --journal-dir /tmp/j      # twice: the second resumes
+    python -m apex_tpu_torch.examples.serve_gpt --preset tiny \
+        --device cpu --replicas 2 --kill-replica 1@2
+
 Flags that need a module the port does not have yet raise and name the
-ROADMAP queue 1 item they wait for: ``--tp > 1`` (item 5), ``--ckpt``
-(item 7), and ``--journal-dir``, ``--fault-plan``, ``--replicas > 1``
-and ``--kill-replica`` (item 3, resilience).
+ROADMAP queue 1 item they wait for: ``--tp > 1`` ("Multi-GPU
+parallelism") and ``--ckpt`` ("Infrastructure and the closing gate").
 """
 
 from __future__ import annotations
@@ -108,6 +130,7 @@ from apex_tpu_torch.serving import (
     Engine,
     EngineConfig,
     Request,
+    ResilienceConfig,
     SamplingParams,
     Scheduler,
     TenancyConfig,
@@ -123,10 +146,10 @@ PRESETS = {
                  num_heads=32, seq_len=1024, compute_dtype=torch.bfloat16),
 }
 
-#: the ROADMAP queue 1 items the unported flags wait for
-_SERVING = "ROADMAP queue 1 item 3, the rest of serving"
-_DISTRIBUTED = "ROADMAP queue 1 item 5, multi-GPU parallelism"
-_INFRA = "ROADMAP queue 1 item 7, infrastructure"
+#: the ROADMAP queue 1 items the unported flags wait for, by title (the
+#: items renumber as the queue moves)
+_DISTRIBUTED = 'ROADMAP queue 1, "Multi-GPU parallelism"'
+_INFRA = 'ROADMAP queue 1, "Infrastructure and the closing gate"'
 
 
 def load_requests(path: str, vocab_size: int) -> List[Request]:
@@ -252,12 +275,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     "base value); bare --autotune derives default "
                     "ladders from --decode-chunk/--pipeline-depth/"
                     "--spec-k")
-    # flags of modules the port does not have yet (refused)
+    ap.add_argument("--journal-dir", metavar="DIR", default=None,
+                    help="journal every stream here; a rerun with the "
+                    "same directory resumes the unfinished ones")
+    ap.add_argument("--fault-plan", metavar="SPEC", default=None,
+                    help="inject faults: 'random:SEED[:N]' or "
+                    "'point:index:kind[:arg],...' (points admit, "
+                    "dispatch, fetch, retire, submit)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a fleet router over this many "
+                    "engines on the one device")
+    ap.add_argument("--kill-replica", metavar="I@K", default=None,
+                    help="fail replica I terminally at its K-th decode "
+                    "dispatch (needs --replicas >= 2)")
+    # a flag of a module the port does not have yet (refused)
     ap.add_argument("--ckpt")
-    ap.add_argument("--journal-dir", default=None)
-    ap.add_argument("--fault-plan", default=None)
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--kill-replica", default=None)
     ap.add_argument("--host-swap", action="store_true",
                     help="host-RAM page tier under the paged pool (needs "
                     "--page-size), with the park-and-resume demo")
@@ -277,14 +309,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     refused = [what for what, on in (
         (f"--tp {args.tp} ({_DISTRIBUTED})", args.tp > 1),
         (f"--ckpt (the .atck checkpoint; {_INFRA})", args.ckpt is not None),
-        (f"--journal-dir (resilience's journal; {_SERVING})",
-         args.journal_dir is not None),
-        (f"--fault-plan (resilience; {_SERVING})",
-         args.fault_plan is not None),
-        (f"--replicas {args.replicas} (resilience's fleet; {_SERVING})",
-         args.replicas != 1),
-        (f"--kill-replica (resilience's fleet; {_SERVING})",
-         args.kill_replica is not None),
     ) if on]
     if refused:
         raise SystemExit("not supported by apex_tpu_torch yet: "
@@ -350,6 +374,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.host_swap and not args.page_size:
         raise SystemExit("--host-swap needs --page-size (the host tier "
                          "pages a paged pool)")
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
+    if args.kill_replica and args.replicas < 2:
+        raise SystemExit("--kill-replica needs --replicas >= 2 (a fleet "
+                         "of one has nowhere to fail over)")
     dev = resolve_device(args.device)
     tenancy = tenant_names = None
     if args.tenant_weights or args.tenant_rate:
@@ -367,13 +396,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     tuner_cfg = decode_chunks = spec_ks = None
     if args.autotune is not None:
         tuner_cfg, decode_chunks, spec_ks = _autotune(args)
+    fault_plan, kill_plan = _fault_plans(args)
     cfg = gpt.GPTConfig(remat=False, kv_cache_dtype=args.kv_cache_dtype,
                         **PRESETS[args.preset])
     params = gpt.init(cfg, torch.Generator(device=dev).manual_seed(0),
                       device=dev)
     templates = [[int(t) for t in spec.split(",")]
                  for spec in (args.prefix_template or ())]
-    engine = Engine(cfg, params, EngineConfig(
+    ecfg = EngineConfig(
         slots=args.slots, max_prompt_len=args.max_prompt_len,
         max_seq_len=args.max_seq_len, decode_chunk=args.decode_chunk,
         prefix_pool_slots=len(templates), spec_k=args.spec_k,
@@ -381,8 +411,18 @@ def main(argv: Optional[List[str]] = None) -> None:
         prefill_chunk=args.prefill_chunk, host_swap=args.host_swap,
         resume_policy=args.resume_policy,
         decode_chunks=decode_chunks, spec_ks=spec_ks,
-        adapter_slots=args.adapters + 1 if args.adapters else 0),
-        device=dev)
+        adapter_slots=args.adapters + 1 if args.adapters else 0)
+    # the replicas share the weights; each has its own cache and plan:
+    # the kill drill's victim its plan, the first other replica
+    # --fault-plan's
+    victims = ({i for i, p in enumerate(kill_plan) if p.specs}
+               if kill_plan is not None else set())
+    chaos = next(i for i in range(args.replicas) if i not in victims)
+    engines = [Engine(cfg, params, ecfg, device=dev,
+                      fault_plan=(kill_plan[i] if i in victims
+                                  else fault_plan if i == chaos else None))
+               for i in range(args.replicas)]
+    engine = engines[0]
     long_len = 0
     if args.prefill_chunk and not args.requests:
         # longer than one chunk, within the engine's prompt room
@@ -405,31 +445,47 @@ def main(argv: Optional[List[str]] = None) -> None:
     recorder = (FlightRecorder() if args.bundle_dir is not None
                 or args.metrics_port is not None or tuner_cfg is not None
                 else None)
+    journals = _journals(args)
     # offline batch mode submits everything at once: size the queue to it
-    sched = Scheduler(engine, max_queue=max(256, len(reqs)),
-                      pipeline_depth=args.pipeline_depth, tenancy=tenancy,
-                      registry=registry, spans=spans, recorder=recorder,
-                      bundle_dir=args.bundle_dir, tuner=tuner_cfg,
-                      slo=slo_cfg,
-                      # weights provenance: the replay rebuilds them
-                      bundle_meta={"params": {"init_seed": 0}})
+    sched_kw = dict(max_queue=max(256, len(reqs)),
+                    pipeline_depth=args.pipeline_depth, spans=spans,
+                    recorder=recorder, bundle_dir=args.bundle_dir,
+                    tuner=tuner_cfg, slo=slo_cfg,
+                    # weights provenance: the replay rebuilds them
+                    bundle_meta={"params": {"init_seed": 0}})
+    resume = [j is not None and j.seq > 0 for j in journals]
+    if args.replicas > 1:
+        sched, replicas = _fleet(args, engines, tenancy, registry,
+                                 recorder, sched_kw, templates, journals)
+    else:
+        sched = Scheduler(engine, tenancy=tenancy, registry=registry,
+                          journal=journals[0], **sched_kw)
+        replicas = [sched]
+        for t in templates:
+            sched.register_prefix(t)
+        for i in range(args.adapters):
+            sched.register_adapter(seed=100 + i)
+    bundle_sched = replicas[0]
+    journaled_ids = _warm_restart(replicas, journals, resume)
     server = None
     if args.metrics_port is not None:
         from apex_tpu_torch.telemetry import start_metrics_server
 
+        # /healthz answers from the live health machine (the fleet's
+        # aggregate behind a router)
         server = start_metrics_server(
             registry, port=args.metrics_port, spans=spans,
-            recorder=recorder,
-            bundle_trigger=((lambda: sched.dump_bundle("http"))
+            recorder=recorder, health=sched.health.healthz,
+            bundle_trigger=((lambda: bundle_sched.dump_bundle("http"))
                             if args.bundle_dir is not None else None),
-            slo=sched.slo.status if slo_cfg is not None else None)
+            slo=((sched.slo_status if args.replicas > 1
+                  else bundle_sched.slo.status)
+                 if slo_cfg is not None else None))
         print(f"metrics: {server.url}/metrics  /healthz  /vars  "
               f"/debug/events" + ("  /slo" if slo_cfg is not None else ""))
-    for t in templates:
-        sched.register_prefix(t)
-    for i in range(args.adapters):
-        sched.register_adapter(seed=100 + i)
     for r in reqs:
+        if r.request_id in journaled_ids:
+            continue        # resumed (or finished) by the journal
         try:
             sched.submit(r)
         except TenantThrottled as e:
@@ -437,24 +493,27 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"request {r.request_id} throttled (tenant "
                   f"{e.tenant!r}, retry in {e.retry_after_s:.1f}s)")
     if args.host_swap:
-        # the park-and-resume demo: two ticks in, park every running
-        # conversation (its pages swap out to host RAM, the slot frees),
-        # show the host tier holding them, then resume them all
+        # the park-and-resume demo: two ticks in, park every conversation
+        # running on replica 0 (its pages swap out to host RAM, the slot
+        # frees), show the host tier holding them, then resume them all
         for _ in range(2):
             sched.step()
         for rid in sorted(a.request.request_id
-                          for a in sched.active.values()):
-            sched.pause(rid)
-        parked = list(sched.parked_requests)
+                          for a in bundle_sched.active.values()):
+            bundle_sched.pause(rid)
+        parked = list(bundle_sched.parked_requests)
         if parked:
             print(f"parked {len(parked)} conversation(s) to host RAM "
                   f"({args.resume_policy} resume): {parked}")
             print("host tier: " + json.dumps(
-                {k: round(v, 1)
-                 for k, v in engine.host_tier_stats().items()}))
+                {k: round(v, 1) for k, v in
+                 bundle_sched.engine.host_tier_stats().items()}))
             for rid in parked:
-                sched.resume(rid)
-    sched.run_until_idle()
+                bundle_sched.resume(rid)
+    if args.journal_dir is not None:
+        _serve_journaled(args, sched, journals)
+    else:
+        sched.run_until_idle()
     for r in reqs:
         c = sched.completions.get(r.request_id)
         if c is not None:
@@ -462,13 +521,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"{list(r.prompt)} -> {c.tokens}")
     print("served " + json.dumps(
         {k: round(v, 3) for k, v in sched.summary().items()}))
-    if tenancy is not None or args.adapters:
+    if (tenancy is not None or args.adapters) and args.replicas == 1:
         print("tenants " + json.dumps(sched.tenant_summary()))
-    _report_telemetry(args, sched, server, tuner_cfg, slo_cfg)
+    _report_resilience(sched, fault_plan, kill_plan)
+    _report_telemetry(args, sched, bundle_sched, server, tuner_cfg,
+                      slo_cfg)
     if args.api_port is not None:
         from apex_tpu_torch.serving.api import start_api_server
 
         # the server's driver thread takes over the (now idle) scheduler
+        # or router
         api = start_api_server(sched, port=args.api_port,
                                registry=registry)
         print(f"api: {api.url}/v1/chat/completions  /v1/completions  "
@@ -490,10 +552,158 @@ def main(argv: Optional[List[str]] = None) -> None:
         server.stop()
 
 
-def _report_telemetry(args, sched, server, tuner_cfg, slo_cfg) -> None:
+def _fault_plans(args: argparse.Namespace):
+    """``--fault-plan``'s plan (in a fleet, the first replica's the kill
+    drill spares) and ``--kill-replica``'s fleet plan."""
+    fault_plan = kill_plan = None
+    if args.fault_plan:
+        from apex_tpu_torch.serving.resilience import parse_fault_plan
+
+        try:
+            fault_plan = parse_fault_plan(args.fault_plan)
+        except ValueError as e:
+            raise SystemExit(f"--fault-plan: {e}")
+        print(f"fault plan: {[s.describe() for s in fault_plan.specs]}")
+    if args.kill_replica:
+        from apex_tpu_torch.serving.resilience import FleetFaultPlan
+
+        victim, _, at = args.kill_replica.partition("@")
+        try:
+            kill_plan = FleetFaultPlan.kill(int(victim), args.replicas,
+                                            at=int(at or 4))
+        except ValueError as e:
+            raise SystemExit(f"--kill-replica: {e}")
+        print(f"fleet kill drill: {kill_plan.describe()}")
+    return fault_plan, kill_plan
+
+
+def _journals(args: argparse.Namespace) -> List:
+    """``--journal-dir``'s journal for each replica (the directory itself
+    for one replica, ``replica-<i>`` under it for a fleet: each replica
+    journals its own streams), or Nones. Opening repairs a torn tail
+    before the first append."""
+    if args.journal_dir is None:
+        return [None] * args.replicas
+    import os
+
+    from apex_tpu_torch.serving.journal import Journal
+
+    if args.replicas == 1:
+        return [Journal(args.journal_dir)]
+    return [Journal(os.path.join(args.journal_dir, f"replica-{i}"))
+            for i in range(args.replicas)]
+
+
+def _warm_restart(replicas, journals, resume) -> set:
+    """Resume every unfinished journaled stream on the replica that
+    journaled it (with its emitted prefix: it continues bit for bit), and
+    return every journaled request id, which this run's trace skips."""
+    from apex_tpu_torch.serving.journal import (replay_into, replay_state,
+                                                scan_journal)
+
+    ids: set = set()
+    for sched, j, again in zip(replicas, journals, resume):
+        if not again:
+            continue
+        ids |= set(replay_state(scan_journal(j.path)[0]).requests)
+        report = replay_into(sched, j.path)
+        print(f"journal: resumed {report.requests} unfinished "
+              f"request(s) from {j.path} ({report.adapters} adapters, "
+              f"{report.prefixes} prefixes replayed)")
+    return ids
+
+
+def _fleet(args, engines, tenancy, registry, recorder, sched_kw,
+           templates, journals):
+    """The router over one scheduler an engine: the fleet registry
+    carries the router's ``serving_fleet_*`` surface (the replicas'
+    unlabelled serving metrics would collide in one registry), the
+    tenants' weights apply per replica and their rates at the router's
+    ingress (one fleet-wide bucket a tenant), and the replicas get the
+    retry headroom a kill drill needs (``FleetFaultPlan.kill``).
+    Returns the router and the replicas' schedulers."""
+    from apex_tpu_torch.serving.fleet import Router
+
+    rep_tenancy = fleet_tenancy = None
+    if tenancy is not None:
+        if dict(tenancy.weights):
+            rep_tenancy = TenancyConfig(weights=tenancy.weights)
+        if dict(tenancy.rates):
+            fleet_tenancy = TenancyConfig(rates=tenancy.rates)
+    scheds = [Scheduler(e, tenancy=rep_tenancy, journal=j,
+                        resilience=ResilienceConfig(max_retries=8),
+                        **sched_kw)
+              for e, j in zip(engines, journals)]
+    router = Router(scheds, registry=registry, recorder=recorder,
+                    bundle_dir=args.bundle_dir, tenancy=fleet_tenancy)
+    for t in templates:         # every replica serves the hit
+        router.register_prefix(t)
+    for i in range(args.adapters):
+        # the same ids mean the same weights on every replica
+        router.register_adapter(seed=100 + i)
+    return router, scheds
+
+
+def _serve_journaled(args, sched, journals) -> None:
+    """Serve to idle a step at a time, so SIGTERM stops at a step
+    boundary (the journals committed every emitted token at the last
+    fetch), then seal the journals."""
+    import signal
+
+    shutdown = {"requested": False}
+
+    def on_sigterm(*_):
+        shutdown["requested"] = True
+
+    previous = signal.signal(signal.SIGTERM, on_sigterm)
+    print(f"durable journal armed: {args.journal_dir} (SIGTERM drains "
+          f"and seals; rerun with the same --journal-dir to resume "
+          f"unfinished streams)")
+    try:
+        while not sched.idle() and not shutdown["requested"]:
+            sched.step()
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+        for j in journals:
+            j.close()
+    if shutdown["requested"]:
+        done = len(sched.completions)
+        print(f"sigterm: stopped at a step boundary with {done} "
+              f"stream(s) finished — journal sealed; rerun with "
+              f"--journal-dir {args.journal_dir} to resume the rest")
+    else:
+        for j in journals:
+            print(f"journal {j.path}: " + json.dumps(
+                {k: round(v, 3) for k, v in j.stats().items()}))
+
+
+def _report_resilience(sched, fault_plan, kill_plan) -> None:
+    """What the fault plan fired and the health it left; the kill
+    drill's fleet state."""
+    if fault_plan is not None:
+        print(f"chaos: {len(fault_plan.injected)} fault(s) fired "
+              f"({[s.describe() for s in fault_plan.injected]}), "
+              f"health={sched.health.state}")
+    if kill_plan is not None:
+        status, body = sched.health.healthz()
+        print(f"fleet after kill drill: {len(kill_plan.injected)} "
+              f"fault(s) fired, /healthz {status} {body.strip()!r}")
+        for rep in sched.replicas:
+            print(f"  replica {rep.index}: state={rep.state} "
+                  f"health={rep.health_state} routed={rep.routed} "
+                  f"bundles={rep.sched.bundles_written}")
+        if sched.incidents_written:
+            print(f"  fleet incident manifests: "
+                  f"{sched.incidents_written}")
+
+
+def _report_telemetry(args, sched, rep_sched, server, tuner_cfg,
+                      slo_cfg) -> None:
     """The exit report of the telemetry flags: one scrape of the live
     endpoint, the tuner's decisions, the SLO percentiles and budgets,
-    the span trace and the post-mortem bundle."""
+    the span trace and the post-mortem bundle. ``rep_sched`` is the
+    scheduler (replica 0's behind a router) whose tuner, monitor, spans
+    and bundle are reported."""
     if server is not None:
         import urllib.request
 
@@ -502,18 +712,30 @@ def _report_telemetry(args, sched, server, tuner_cfg, slo_cfg) -> None:
         with urllib.request.urlopen(server.url + "/metrics",
                                     timeout=30) as resp:
             scrape = parse_prometheus_text(resp.read().decode("utf-8"))
-        tokens = scrape.get("serving_tokens_emitted_total", {}).get((), 0)
-        print(f"metrics scrape: {len(scrape)} series, "
-              f"serving_tokens_emitted_total={tokens:g}")
+        if rep_sched is sched:
+            tokens = scrape.get("serving_tokens_emitted_total",
+                                {}).get((), 0)
+            print(f"metrics scrape: {len(scrape)} series, "
+                  f"serving_tokens_emitted_total={tokens:g}")
+        else:
+            # a fleet's registry carries the router's serving_fleet_*
+            # families only
+            routed = sum(scrape.get("serving_fleet_routed_total",
+                                    {}).values())
+            moved = scrape.get("serving_fleet_failed_over_requests_total",
+                               {}).get((), 0)
+            print(f"metrics scrape: {len(scrape)} series, "
+                  f"serving_fleet_routed_total={routed:g} "
+                  f"serving_fleet_failed_over_requests_total={moved:g}")
     if tuner_cfg is not None:
-        s = sched.summary()
+        s = rep_sched.summary()
         point = {name: int(s[f"tuner_{name}"])
                  for name, _ in tuner_cfg.ladders()
                  if f"tuner_{name}" in s}
         print(f"autotune: state={s['tuner_state']:.0f} "
               f"probes={s['tuner_probes']:.0f} "
               f"switches={s['tuner_switches']:.0f} incumbent={point}")
-        for ev in sched.recorder.to_dicts(sched.recorder.events()):
+        for ev in rep_sched.recorder.to_dicts(rep_sched.recorder.events()):
             if ev["event"] in ("tuner_probe", "tuner_switch",
                                "tuner_freeze"):
                 print("tuner event " + json.dumps(
@@ -522,7 +744,7 @@ def _report_telemetry(args, sched, server, tuner_cfg, slo_cfg) -> None:
     if slo_cfg is not None:
         # a final evaluation first, so a run shorter than the cadence
         # still gets a verdict
-        mon = sched.slo
+        mon = rep_sched.slo
         for m in mon.machines.values():
             m.evaluate(mon.clock())
         for metric in ("ttft", "token_latency", "queue_wait", "e2e"):
@@ -538,14 +760,14 @@ def _report_telemetry(args, sched, server, tuner_cfg, slo_cfg) -> None:
                   f"good={st['good']:.0f} bad={st['bad']:.0f}")
     if args.span_trace:
         with open(args.span_trace, "w") as f:
-            json.dump(sched.spans.to_chrome_trace(), f)
+            json.dump(rep_sched.spans.to_chrome_trace(), f)
         print(f"span trace: {args.span_trace} "
-              f"({sched.spans.summary()['events']} events)")
+              f"({rep_sched.spans.summary()['events']} events)")
     if args.bundle_dir is not None:
-        path = sched.dump_bundle("exit")
+        path = rep_sched.dump_bundle("exit")
         print(f"bundle: {path} — replay with `python -m "
               f"apex_tpu_torch.telemetry.replay {path} --device "
-              f"{sched.engine.device.type}`")
+              f"{rep_sched.engine.device.type}`")
 
 
 if __name__ == "__main__":

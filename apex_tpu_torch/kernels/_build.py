@@ -338,7 +338,9 @@ def build_dir() -> Path:
 def _compile(out_dir: Path, nvcc: str) -> None:
     """One ``nvcc -c`` per source, all started together, then one link
     into the shared library (written under a temporary name and renamed,
-    so a reader never sees a half-written file)."""
+    so a reader never sees a half-written file). ``ptxas.log`` heads each
+    source's report with the second of the build at which it ended."""
+    t0 = time.perf_counter()
     procs = []
     for src in _sources():
         obj = out_dir / (src.stem + ".o")
@@ -346,10 +348,22 @@ def _compile(out_dir: Path, nvcc: str) -> None:
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    outs: dict = {}
+
+    def drain(src, proc):
+        out, _ = proc.communicate()
+        outs[src] = (out, time.perf_counter() - t0)
+
+    readers = [threading.Thread(target=drain, args=(src, proc))
+               for src, _, proc in procs]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     logs, failed = [], []
     for src, _, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(f"== {src.name}\n{out}")
+        out, ended = outs[src]
+        logs.append(f"== {src.name} (ended at {ended:.1f} s)\n{out}")
         if proc.returncode:
             failed.append(src.name)
     (out_dir / "ptxas.log").write_text("\n".join(logs))

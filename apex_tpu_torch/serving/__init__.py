@@ -20,6 +20,13 @@
   token-budget rate limits (host only),
 - :mod:`~apex_tpu_torch.serving.tuner`     — the self-tuning scheduler's
   knob controller over the engine's ladders (standard library only),
+- :mod:`~apex_tpu_torch.serving.resilience` — fault plans, the health
+  machine, the recovery policy and the SIGKILL crash drill (standard
+  library only),
+- :mod:`~apex_tpu_torch.serving.journal`   — the write-ahead request
+  journal and crash recovery (standard library only),
+- :mod:`~apex_tpu_torch.serving.fleet`     — the router over N engine
+  replicas: health-weighted routing, failover, drain and restart,
 - :mod:`~apex_tpu_torch.serving.api`       — the OpenAI-compatible HTTP
   front end (standard library only at import).
 
@@ -32,10 +39,20 @@ from __future__ import annotations
 
 from apex_tpu_torch.serving import (  # noqa: F401
     hostswap,
+    journal,
     pages,
     request,
+    resilience,
     sampling,
     tenancy,
+)
+from apex_tpu_torch.serving.journal import (  # noqa: F401
+    Journal,
+    JournalError,
+    RecoveryReport,
+    recover_scheduler,
+    replay_into,
+    scan_journal,
 )
 from apex_tpu_torch.serving.pages import (  # noqa: F401
     PageAllocator,
@@ -48,6 +65,16 @@ from apex_tpu_torch.serving.request import (  # noqa: F401
     StopMatcher,
     StreamEvent,
 )
+from apex_tpu_torch.serving.resilience import (  # noqa: F401
+    EngineFailed,
+    EngineFault,
+    FaultPlan,
+    FaultSpec,
+    FleetFaultPlan,
+    HealthMonitor,
+    InjectedFault,
+    ResilienceConfig,
+)
 from apex_tpu_torch.serving.tenancy import (  # noqa: F401
     TenancyConfig,
     TenantThrottled,
@@ -57,18 +84,28 @@ _LAZY = {
     "Engine": "engine", "EngineConfig": "engine", "Admission": "engine",
     "AdmitResult": "engine", "StepHandle": "engine",
     "Scheduler": "scheduler", "SpecGateConfig": "scheduler",
-    "QueueFull": "scheduler",
+    "QueueFull": "scheduler", "EvictedRequest": "scheduler",
+    "Router": "fleet", "FleetConfig": "fleet", "FleetHealth": "fleet",
 }
 
 __all__ = ["Admission", "AdmitResult", "Completion", "Engine",
-           "EngineConfig", "PageAllocator", "PagesExhausted", "QueueFull",
-           "Request", "SamplingParams", "Scheduler", "SpecGateConfig",
-           "StepHandle", "StopMatcher", "StreamEvent", "TenancyConfig",
-           "TenantThrottled", "hostswap", "pages", "request", "sampling",
-           "tenancy"]
+           "EngineConfig", "EngineFailed", "EngineFault", "EvictedRequest",
+           "FaultPlan", "FaultSpec", "FleetConfig", "FleetFaultPlan",
+           "FleetHealth", "HealthMonitor", "InjectedFault", "Journal",
+           "JournalError", "PageAllocator", "PagesExhausted", "QueueFull",
+           "RecoveryReport", "Request", "ResilienceConfig", "Router",
+           "SamplingParams", "Scheduler", "SpecGateConfig", "StepHandle",
+           "StopMatcher", "StreamEvent", "TenancyConfig", "TenantThrottled",
+           "fleet", "hostswap", "journal", "pages", "recover_scheduler",
+           "replay_into", "request", "resilience", "sampling",
+           "scan_journal", "tenancy"]
 
 
 def __getattr__(name):
+    if name == "fleet":
+        import importlib
+
+        return importlib.import_module("apex_tpu_torch.serving.fleet")
     if name in _LAZY:
         import importlib
 

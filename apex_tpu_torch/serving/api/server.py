@@ -1,7 +1,9 @@
 """The HTTP front end — OpenAI-compatible serving over the scheduler.
 
 Port of ``apex_tpu/serving/api/server.py``. ``ApiServer`` owns a
-:class:`~apex_tpu_torch.serving.scheduler.Scheduler` and splits the work
+:class:`~apex_tpu_torch.serving.scheduler.Scheduler` — or a
+:class:`~apex_tpu_torch.serving.fleet.Router` over N replicas, which
+duck-types the scheduler's surface — and splits the work
 the way its thread safety demands: the scheduler is single-threaded, so
 ONE driver thread does everything that touches it (submit, tick, event
 routing), while the standard library's ``ThreadingHTTPServer`` handlers
@@ -13,20 +15,26 @@ Routes::
     POST /v1/chat/completions   chat template -> tokens -> engine, SSE
     POST /v1/completions        text or raw token-id prompt
     GET  /v1/models             the served model and its LoRA adapters
-    GET  /healthz               200 ok (the port's scheduler has no
-                                health machine yet; a ``health``
-                                callback answers when one is given)
+    GET  /healthz               the scheduler's health machine (200
+                                ok/degraded, 503 draining/failed; a
+                                fleet answers from its aggregate)
     GET  /slo                   the SLO observatory snapshot (objective
                                 states, burn rates, budget remaining,
                                 percentiles) when the scheduler runs an
                                 SLOMonitor; 404 otherwise
 
 Errors: queue backpressure (:class:`~apex_tpu_torch.serving.scheduler.
-QueueFull`) and a tenant over its token budget
+QueueFull`, an injected flood too) and a tenant over its token budget
 (:class:`~apex_tpu_torch.serving.tenancy.TenantThrottled`) answer 429
-with ``Retry-After``; validation answers 400 with an OpenAI-shaped error
-body. The wire layer writes exactly one SSE chunk an event, so nothing
-is duplicated.
+with ``Retry-After``; a failed engine, or a fleet with no replica left
+standing (:class:`~apex_tpu_torch.serving.resilience.EngineFailed`),
+503; validation 400 with an OpenAI-shaped error body. A request that
+finishes with the ``error`` reason (its fault retries exhausted) ends
+its stream with an SSE ``{"error": ...}`` event, or answers 500 when
+buffered; a retry in progress is an SSE comment, which clients ignore.
+The scheduler's replay suppresses re-derived tokens before they reach
+the event stream and the wire layer writes exactly one SSE chunk an
+event, so nothing is duplicated across a fault.
 
 ``n > 1`` fans one API request into n engine requests sharing the prompt
 (per-choice seeds from the request's seed), merged back into one
@@ -40,8 +48,6 @@ base model (the string is echoed either way).
 ``registry`` (a :class:`~apex_tpu_torch.telemetry.registry.Registry`)
 counts requests by route, responses by route and status code, request
 latency by route and the tokens streamed over SSE, under JAX's names.
-Where JAX's server goes further, the port waits for its resilience slice
-(ROADMAP queue 1 item 3): the 503 of a failed engine (``EngineFailed``).
 
 One difference on the wire: the listen backlog is 128 connections (the
 standard library's 5 resets a burst of clients). Standard library only
@@ -116,7 +122,10 @@ class _Submission:
 
 
 class ApiServer:
-    """Serve the OpenAI surface over a scheduler until ``stop()``.
+    """Serve the OpenAI surface over a scheduler — or a fleet
+    :class:`~apex_tpu_torch.serving.fleet.Router` (429 then means every
+    routable replica is saturated, 503 that none is left standing, and
+    ``/healthz`` answers from the fleet aggregate) — until ``stop()``.
 
     >>> server = ApiServer(sched, ByteTokenizer(cfg.vocab_size),
     ...                    port=8000).start()
@@ -144,8 +153,8 @@ class ApiServer:
         self.max_tokens_default = max_tokens_default
         self.request_timeout_s = request_timeout_s
         self.poll_interval_s = poll_interval_s
-        #: /healthz callback (status, body); without one (the port's
-        #: scheduler has no health machine yet) the route answers 200 ok
+        #: /healthz callback (status, body): the scheduler's (or the
+        #: router's) health machine unless one is given
         self.health = health if health is not None else getattr(
             getattr(scheduler, "health", None), "healthz", None)
         self.metrics = None if registry is None else _ApiMetrics(registry)
@@ -219,9 +228,13 @@ class ApiServer:
             return self._counter
 
     def slo_status(self) -> Optional[Dict[str, Any]]:
-        """The ``/slo`` payload: the scheduler's SLO-observatory status,
-        or None when it runs no monitor (the route then answers 404, as
-        an unwired debug route does)."""
+        """The ``/slo`` payload: the scheduler's SLO-observatory status
+        (a router's aggregate over its replicas), or None when no monitor
+        runs (the route then answers 404, as an unwired debug route
+        does)."""
+        agg = getattr(self.scheduler, "slo_status", None)
+        if agg is not None:
+            return agg()
         mon = getattr(self.scheduler, "slo", None)
         return None if mon is None else mon.status()
 
@@ -246,6 +259,7 @@ class ApiServer:
                     err_type="server_error", code="driver_crashed"))
 
     def _drive_loop(self) -> None:
+        from apex_tpu_torch.serving.resilience import EngineFailed
         from apex_tpu_torch.serving.scheduler import QueueFull
 
         sched = self.scheduler
@@ -256,7 +270,7 @@ class ApiServer:
                     sub = self._submit_q.get_nowait()
                 except queue.Empty:
                     break
-                self._submit(sub, QueueFull)
+                self._submit(sub, QueueFull, EngineFailed)
                 progressed = True
             if not sched.idle():
                 sched.step()
@@ -279,8 +293,16 @@ class ApiServer:
             if not progressed:
                 time.sleep(self.poll_interval_s)
 
-    def _submit(self, sub: _Submission, QueueFull) -> None:
+    def _submit(self, sub: _Submission, QueueFull, EngineFailed) -> None:
         sched = self.scheduler
+        # a failed engine (a fleet with no replica standing) is a 503,
+        # never a capacity 429: it is not "try again later"
+        if getattr(getattr(sched, "health", None), "state", None) \
+                == "failed":
+            sub.reply.put(protocol.ApiError(
+                503, "engine health is failed; not accepting requests",
+                err_type="server_error", code="engine_failed"))
+            return
         # all-or-nothing pre-flight: an n > 1 fan must not half-land when
         # the queue is nearly full
         if not sched.can_accept(len(sub.requests)):
@@ -313,10 +335,15 @@ class ApiServer:
                     code="tenant_rate_limited",
                     retry_after_s=e.retry_after_s))
                 return
-            except QueueFull as e:  # a race with the pre-flight lost
+            except QueueFull as e:  # a flood, or a race with the pre-flight
                 fail(i, protocol.ApiError(
                     429, str(e), err_type="rate_limit_error",
                     code="queue_full", retry_after_s=e.retry_after_s))
+                return
+            except EngineFailed as e:
+                fail(i, protocol.ApiError(
+                    503, str(e), err_type="server_error",
+                    code="engine_failed"))
                 return
             except ValueError as e:
                 fail(i, protocol.ApiError(400, str(e)))
@@ -328,7 +355,8 @@ class ApiServer:
     def _resolve_adapter(self, model: str) -> int:
         """The request's ``model`` → a LoRA adapter row: a registered
         adapter name routes to its id, anything else (the served base
-        model's name included) to the base adapter 0."""
+        model's name included) to the base adapter 0 (a router's
+        replicas register adapters in one order, so the ids agree)."""
         return self.scheduler.engine.adapter_names.get(model, 0)
 
     def _build_requests(self, parsed: protocol.ParsedRequest,
@@ -607,6 +635,15 @@ def _make_handler(server: ApiServer):
             except protocol.ApiError as e:
                 self._reply_error(route, e)
                 return
+            if any(c.finish_reason == "error" for c in comps.values()):
+                detail = "; ".join(
+                    f"choice {i}: fault retries exhausted"
+                    for i, c in sorted(comps.items())
+                    if c.finish_reason == "error")
+                self._reply_error(route, protocol.ApiError(
+                    500, f"generation failed ({detail})",
+                    err_type="server_error", code="generation_error"))
+                return
             choices = []
             for i, comp in sorted(comps.items()):
                 text = tok.decode(comp.tokens)
@@ -682,6 +719,20 @@ def _make_handler(server: ApiServer):
                 if kind != "event":
                     continue  # completions close below via finished
                 ev = payload
+                if ev.error is not None and not ev.finished:
+                    # a fault retry in progress: the stream resumes with
+                    # the same tokens (replay) — an SSE comment, which
+                    # clients ignore
+                    w.write(f": retrying ({ev.error})\n\n"
+                            .encode("utf-8"))
+                    continue
+                if ev.finished and ev.finish_reason == "error":
+                    w.write(protocol.sse(protocol.ApiError(
+                        500, ev.error or "generation failed",
+                        err_type="server_error",
+                        code="generation_error").body()))
+                    open_choices.discard(idx)
+                    continue
                 text = ""
                 lp = None
                 ids = None

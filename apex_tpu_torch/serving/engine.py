@@ -55,6 +55,15 @@ and, with ``spec_k > 0``, the drafter's token-history ring — lives in
   logical: ``register_adapter`` has no cap, and a cold adapter pages
   into the pool row of the coldest adapter no live slot holds.
 
+Fault injection (:mod:`.resilience`): ``fault_plan=`` arms a
+:class:`~.resilience.FaultPlan` over the ``admit`` (:meth:`Engine.admit_many`),
+``dispatch`` (:meth:`Engine.step_async`), ``fetch`` (the first
+:meth:`StepHandle.fetch`) and ``retire`` seams. An error at a seam, or a
+failure of a swap-in scatter or a prefix page-in, poisons the engine:
+every device call raises :class:`~.resilience.EngineFault` until
+:meth:`Engine.rebuild_slots` resets the cache and the slot state in place
+(registered prefixes, their pages and the adapter pool survive).
+
 A slot's token stream is the one a solo ``gpt.generate`` of the same
 request emits. PyTorch runs eagerly, so there is no compile step and no
 ``warmup()``. The cache and the state are updated in place.
@@ -75,6 +84,15 @@ from apex_tpu_torch.models import gpt
 from apex_tpu_torch.serving import sampling
 from apex_tpu_torch.serving.hostswap import HostPageTier, LRUIndex
 from apex_tpu_torch.serving.pages import SINK, PageAllocator, PagesExhausted
+from apex_tpu_torch.serving.resilience import (
+    KIND_ERROR,
+    KIND_HANG,
+    KIND_NAN,
+    EngineFault,
+    FaultPlan,
+    FaultSpec,
+    InjectedFault,
+)
 
 _NO_EOS = gpt.NO_EOS
 
@@ -271,18 +289,30 @@ class StepHandle:
     bool, True where a real token was emitted: rejected draft lanes and
     done slots emit pad under False), None for plain chunks; ``spec_k``
     is the draft width (0 = plain) and ``ncols`` the columns a slot
-    gets (``decode_chunk`` or ``decode_chunk * (spec_k + 1)``)."""
+    gets (``decode_chunk`` or ``decode_chunk * (spec_k + 1)``).
+
+    Fault injection: a plan's ``fetch`` seam is taken on the first fetch
+    only, and a ``dispatch``-seam hang rides the handle to the fetch,
+    where a hung dispatch is observed. An injected ``error`` poisons the
+    engine; a ``nan`` overwrites the rows of ``spec.slots`` with
+    ``spec.token`` after the copy to the host."""
 
     __slots__ = ("_emit", "_logprobs", "_finished", "_valid_dev", "_out",
-                 "valid", "spec_k", "ncols")
+                 "_plan", "_hang", "_on_poison", "valid", "spec_k", "ncols")
 
     def __init__(self, emit, logprobs, finished, *, valid=None,
-                 spec_k: int = 0, ncols: int = 0):
+                 spec_k: int = 0, ncols: int = 0,
+                 plan: Optional[FaultPlan] = None,
+                 hang: Optional[FaultSpec] = None,
+                 on_poison=None):
         self._emit = emit
         self._logprobs = logprobs
         self._finished = finished
         self._valid_dev = valid
         self._out: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+        self._plan = plan
+        self._hang = hang
+        self._on_poison = on_poison
         self.valid: Optional[np.ndarray] = None
         self.spec_k = spec_k
         self.ncols = ncols
@@ -295,12 +325,30 @@ class StepHandle:
     def fetch(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Wait for the chunk and return ``(tokens [B, n], logprobs [B,
         n], finished [B, n])`` as host arrays (``valid`` is set too)."""
-        if self._out is None:
-            self._out = (self._emit.cpu().numpy(),
-                         self._logprobs.cpu().numpy(),
-                         self._finished.cpu().numpy())
-            if self._valid_dev is not None:
-                self.valid = self._valid_dev.cpu().numpy()
+        if self._out is not None:
+            return self._out
+        spec = self._plan.take("fetch") if self._plan is not None else None
+        for s in (self._hang, spec):
+            if s is not None and s.kind == KIND_HANG:
+                self._plan.hang_fn(s.hang_s)
+        if spec is not None and spec.kind == KIND_ERROR:
+            if self._on_poison is not None:
+                self._on_poison()
+            raise InjectedFault(
+                f"injected device error at fetch: {spec.describe()}",
+                point="fetch", spec=spec)
+        tokens = self._emit.cpu().numpy()
+        logprobs = self._logprobs.cpu().numpy()
+        finished = self._finished.cpu().numpy()
+        if self._valid_dev is not None:
+            self.valid = self._valid_dev.cpu().numpy()
+        if spec is not None and spec.kind == KIND_NAN:
+            # what a NaN logit batch looks like on the host: garbage
+            # token ids in the poisoned lanes
+            tokens = tokens.copy()
+            rows = [s for s in spec.slots if 0 <= s < tokens.shape[0]]
+            tokens[rows, :] = spec.token
+        self._out = (tokens, logprobs, finished)
         return self._out
 
 
@@ -319,11 +367,13 @@ class Engine:
     extends), ``mask_uploads`` (host-to-device copies of vocab mask
     rows: the decode steps' ``[B, vocab]`` copy, or an admission's
     first-token rows) and ``adapter_id_uploads`` (copies of the decode
-    steps' ``[B]`` adapter-id table)."""
+    steps' ``[B]`` adapter-id table). ``fault_plan`` arms fault
+    injection at the engine's seams (see the module docstring)."""
 
     def __init__(self, cfg: gpt.GPTConfig, params,
                  engine_cfg: Optional[EngineConfig] = None, *,
                  device: Optional[Union[str, torch.device]] = None,
+                 fault_plan: Optional[FaultPlan] = None,
                  **overrides):
         if engine_cfg is not None and overrides:
             raise ValueError("pass engine_cfg or field overrides, not both")
@@ -463,6 +513,10 @@ class Engine:
         self.cfg = cfg
         self.engine_cfg = ecfg
         self._params = gpt.cast_params(cfg, params)
+        self.fault_plan = fault_plan
+        #: True after a fault invalidated the cache and state: every
+        #: device call refuses until rebuild_slots()
+        self._poisoned = False
         #: monotonic admission counter — keys unseeded requests so
         #: concurrent sampled requests never share a stream
         self._req_counter = 0
@@ -489,21 +543,8 @@ class Engine:
             self.cache = gpt.init_cache(cfg, self._params, B,
                                         max_len=ecfg.max_seq_len)
         self.state = {
-            "tok": torch.full((B,), ecfg.pad_token_id, dtype=torch.int64,
-                              device=dev),
-            "pos": torch.zeros((B,), dtype=torch.int32, device=dev),
-            "remaining": torch.zeros((B,), dtype=torch.int64, device=dev),
-            "done": torch.ones((B,), dtype=torch.bool, device=dev),
-            "temp": torch.zeros((B,), dtype=torch.float32, device=dev),
-            "top_k": torch.zeros((B,), dtype=torch.int64, device=dev),
-            "top_p": torch.ones((B,), dtype=torch.float32, device=dev),
-            "key": torch.zeros((B, 2), dtype=torch.int64, device=dev),
-            "eos": torch.full((B,), _NO_EOS, dtype=torch.int64, device=dev),
-        }
-        if self._spec:
-            # the drafter's token-history ring, -1 = unfilled
-            self.state["hist"] = torch.full((B, ecfg.spec_hist), -1,
-                                            dtype=torch.int64, device=dev)
+            k: torch.full(shape, fill, dtype=dt, device=dev)
+            for k, (shape, dt, fill) in self._state_spec().items()}
         #: paged-mode host state: the allocator, the [B, max_pages]
         #: block-table mirror (its device copy cached until a row
         #: changes), each slot's (private pages, shared prefix pages,
@@ -574,6 +615,28 @@ class Engine:
             if self._lora and self._host_swap else [])
         self._adapter_spills = 0
         self._adapter_pageins = 0
+
+    def _state_spec(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype,
+                                             Any]]:
+        """Every slot-state tensor's ``(shape, dtype, free value)``: all
+        slots done, pad tokens, position 0, no budget, greedy, no eos
+        and, speculating, the drafter's token-history ring unfilled
+        (-1). :meth:`rebuild_slots` writes these values back in place."""
+        ecfg, B = self.engine_cfg, self.engine_cfg.slots
+        spec = {
+            "tok": ((B,), torch.int64, ecfg.pad_token_id),
+            "pos": ((B,), torch.int32, 0),
+            "remaining": ((B,), torch.int64, 0),
+            "done": ((B,), torch.bool, True),
+            "temp": ((B,), torch.float32, 0.0),
+            "top_k": ((B,), torch.int64, 0),
+            "top_p": ((B,), torch.float32, 1.0),
+            "key": ((B, 2), torch.int64, 0),
+            "eos": ((B,), torch.int64, _NO_EOS),
+        }
+        if self._spec:
+            spec["hist"] = ((B, ecfg.spec_hist), torch.int64, -1)
+        return spec
 
     @staticmethod
     def _resolve_buckets(ecfg: EngineConfig) -> Tuple[int, ...]:
@@ -764,6 +827,7 @@ class Engine:
                                  for p in sorted(self._prefix_tokens)],
             "adapters": [dict(self._adapter_meta[i])
                          for i in sorted(self._adapter_meta)],
+            "poisoned": self._poisoned,
         }
 
     def cache_bytes(self) -> int:
@@ -1184,6 +1248,7 @@ class Engine:
         those by recompute. The caller must collect every chunk in
         flight first: a dispatched block table still maps the pages
         freed here."""
+        self._check_poisoned()
         if not self._host_swap:
             raise ValueError(
                 "park_slot without host_swap (EngineConfig.host_swap "
@@ -1231,7 +1296,10 @@ class Engine:
         :class:`PagesExhausted` when the pool is short and ``ValueError``
         on an adapter thrash; those three leave the payload parked. The
         wall time of the whole resume, synchronised by a value fetch,
-        feeds the per-page swap-in EWMA."""
+        feeds the per-page swap-in EWMA. A failed scatter poisons the
+        engine (the payload is consumed: the scheduler replays the
+        conversation from its snapshot)."""
+        self._check_poisoned()
         if not self._host_swap:
             raise ValueError(
                 "resume_slot without host_swap (EngineConfig.host_swap "
@@ -1270,7 +1338,10 @@ class Engine:
             for k, v in p["state"].items():
                 self.state[k][slot:slot + 1].copy_(v, non_blocking=True)
         except Exception:
+            # the scatter writes the cache and the state: a failure may
+            # have left part of them written, so poison until rebuild
             self._free_slot_pages(slot)
+            self._poisoned = True
             raise
         if not np.array_equal(self._masks[slot], p["mask"]):
             self._masks[slot] = p["mask"]
@@ -1446,10 +1517,20 @@ class Engine:
         tail extend at its tail bucket (``AdmitResult.bucket``). Per-row
         results equal single :meth:`admit` calls in the same order. The
         host reads the groups' first tokens after every group is
-        launched."""
+        launched. An injected ``admit`` error poisons the engine before
+        any device work; an injected ``nan`` gives the rows of
+        ``spec.slots`` (batch rows) the out-of-vocab first token
+        ``spec.token``."""
         items = list(items)
         if not items:
             return []
+        self._check_poisoned()
+        spec = self._take_fault("admit")
+        if spec is not None and spec.kind == KIND_ERROR:
+            self._poisoned = True
+            raise InjectedFault(
+                f"injected device error at admit: {spec.describe()}",
+                point="admit", spec=spec)
         validated = [self._validate_admission(a) for a in items]
         slots_used = [a.slot for a in items]
         if len(set(slots_used)) != len(slots_used):
@@ -1462,6 +1543,34 @@ class Engine:
                         for a, (_, n) in zip(items, validated))
             if not self._page_alloc.can_alloc(total):
                 raise PagesExhausted(total, self._page_alloc.free_pages)
+        try:
+            pending = self._dispatch_groups(items, validated)
+        except ValueError:
+            raise       # an adapter thrash, refused before its group ran
+        except Exception:
+            # a failure mid-admission may have written part of the cache
+            # and the state: poison until rebuild_slots()
+            self._poisoned = True
+            raise
+        results: List[AdmitResult] = []
+        for (first, first_lp, hit_eos, done), bucket, k, group in pending:
+            first, first_lp = first.tolist(), first_lp.tolist()
+            hit_eos, done = hit_eos.tolist(), done.tolist()
+            for j in range(k):
+                tok = int(first[j])
+                if spec is not None and spec.kind == KIND_NAN \
+                        and len(results) in spec.slots:
+                    tok = spec.token    # a NaN prefill's garbage token
+                results.append(AdmitResult(
+                    tok, bool(hit_eos[j]), bool(done[j]),
+                    bucket=bucket, batch_size=k, group=group,
+                    logprob=float(first_lp[j])))
+        return results
+
+    def _dispatch_groups(self, items: List[Admission], validated):
+        """Launch :meth:`admit_many`'s groups; returns each group's
+        ``((first, first_lp, hit_eos, done), bucket, k, group)``, the
+        device tensors unread."""
         cfg, dev = self.cfg, self.device
         pending = []
         i, group = 0, 0
@@ -1517,16 +1626,7 @@ class Engine:
             self.admit_groups += 1
             i += k
             group += 1
-        results: List[AdmitResult] = []
-        for (first, first_lp, hit_eos, done), bucket, k, group in pending:
-            first, first_lp = first.tolist(), first_lp.tolist()
-            hit_eos, done = hit_eos.tolist(), done.tolist()
-            for j in range(k):
-                results.append(AdmitResult(
-                    int(first[j]), bool(hit_eos[j]), bool(done[j]),
-                    bucket=bucket, batch_size=k, group=group,
-                    logprob=float(first_lp[j])))
-        return results
+        return pending
 
     def _start_slots(self, batch: Sequence[Admission], prompts, logits0,
                      p_lens, rows: Sequence[int]):
@@ -1653,7 +1753,10 @@ class Engine:
                     torch.as_tensor([cache_pages], device=dev),
                     page_size=p_sz)
             except Exception:
+                # the page-in writes the cache: a failure may have left
+                # part of it written, so poison until rebuild_slots()
                 self._page_alloc.free(cache_pages)
+                self._poisoned = True
                 raise
             self._prefix_pages[page] = cache_pages
             self._page_alloc.used_tokens += pb
@@ -1756,6 +1859,7 @@ class Engine:
         device work) and run chunk 0, a bucket-sized cold prefill into
         the compute-dtype scratch. One chunked admission at a time (the
         scratch holds one prompt)."""
+        self._check_poisoned()
         if not self._chunk_size:
             raise ValueError(
                 "chunked prefill disabled "
@@ -1783,12 +1887,16 @@ class Engine:
         dev = self.device
         ca = ChunkedAdmission(a, prompt, n, -(-n // c))
         ca.adapter_row = row
-        blocks, _ = gpt.prefill_many(
-            self._cfg_compute, self._params,
-            torch.as_tensor(prompt[None, :c], device=dev),
-            torch.full((1,), c - 1, dtype=torch.int64, device=dev),
-            max_len=c, lora=self._lora_for([ca.adapter_row]))
-        gpt.cache_insert_slot(self._chunk_scratch, blocks, 0)
+        try:
+            blocks, _ = gpt.prefill_many(
+                self._cfg_compute, self._params,
+                torch.as_tensor(prompt[None, :c], device=dev),
+                torch.full((1,), c - 1, dtype=torch.int64, device=dev),
+                max_len=c, lora=self._lora_for([ca.adapter_row]))
+            gpt.cache_insert_slot(self._chunk_scratch, blocks, 0)
+        except Exception:
+            self._poisoned = True
+            raise
         self.chunk_prefills += 1
         self._chunked = ca
         return ca
@@ -1802,9 +1910,20 @@ class Engine:
         whole prompt block quantized and inserted where a cold admission
         puts it, the slot's state row — returning the
         :class:`AdmitResult`."""
+        self._check_poisoned()
         if ca is not self._chunked:
             raise ValueError(
                 "stale ChunkedAdmission — not the one in progress")
+        try:
+            return self._chunked_forward(ca)
+        except Exception:
+            self._poisoned = True
+            self._chunked = None
+            raise
+
+    def _chunked_forward(self, ca: ChunkedAdmission
+                         ) -> Optional[AdmitResult]:
+        """:meth:`admit_chunked_step`'s one forward."""
         c, dev = self._chunk_size, self.device
         a = ca.admission
         if not ca.done_prefilling:
@@ -1872,7 +1991,10 @@ class Engine:
         value off the ladder raises, as in JAX, where it would compile
         mid-serve. A plain chunk passes the mask rows to the draw only
         while one of them is not all-True, and either kind passes the
-        adapter bundle only while a slot carries a nonzero adapter."""
+        adapter bundle only while a slot carries a nonzero adapter. An
+        injected ``dispatch`` error poisons the engine before any device
+        work; an injected hang rides the handle to its fetch."""
+        self._check_poisoned()
         ecfg = self.engine_cfg
         n = ecfg.decode_chunk if chunk is None else int(chunk)
         if n not in self._chunk_ladder:
@@ -1902,6 +2024,16 @@ class Engine:
                 f"{sorted(self._masked_slots)}: the verify wave draws "
                 f"without vocab masks, so constrained traffic decodes "
                 f"plain chunks")
+        fspec = self._take_fault("dispatch")
+        if fspec is not None and fspec.kind == KIND_ERROR:
+            self._poisoned = True
+            raise InjectedFault(
+                f"injected device error at dispatch: {fspec.describe()}",
+                point="dispatch", spec=fspec)
+        fault_kw = dict(
+            plan=self.fault_plan, on_poison=self._mark_poisoned,
+            hang=fspec if fspec is not None and fspec.kind == KIND_HANG
+            else None)
         table = self._table_device() if self._paged else None
         lora = self._lora_decode()
         if spec:
@@ -1912,7 +2044,7 @@ class Engine:
                 table=table, lora=lora)
             self.spec_waves_taken += n
             return StepHandle(toks, lps, fins, valid=valid, spec_k=k,
-                              ncols=n * (k + 1))
+                              ncols=n * (k + 1), **fault_kw)
         pos0 = self.state["pos"]
         self.cache, self.state, toks, lps, fins = gpt.decode_steps(
             self.cfg, self._params, self.cache, self.state, n,
@@ -1924,7 +2056,7 @@ class Engine:
             self.state["hist"] = gpt.shift_hist(
                 self.state["hist"], toks, self.state["pos"] - pos0)
         self.decode_steps_taken += n
-        return StepHandle(toks, lps, fins, ncols=n)
+        return StepHandle(toks, lps, fins, ncols=n, **fault_kw)
 
     def _masks_device(self) -> Optional[torch.Tensor]:
         """The decode steps' ``[B, vocab]`` mask, or None while every row
@@ -1977,7 +2109,85 @@ class Engine:
 
     def retire(self, slot: int) -> None:
         """Force ``slot`` done (deadline expiry): its lane keeps riding the
-        decode batch emitting pad until the next admission."""
+        decode batch emitting pad until the next admission. The
+        ``retire`` fault seam (a park retires its lane through here)."""
+        self._check_poisoned()
         if not 0 <= slot < self.slots:
             raise ValueError(f"slot {slot} outside [0, {self.slots})")
+        spec = self._take_fault("retire")
+        if spec is not None and spec.kind == KIND_ERROR:
+            self._poisoned = True
+            raise InjectedFault(
+                f"injected device error at retire: {spec.describe()}",
+                point="retire", spec=spec)
         self.state["done"][slot] = True
+
+    # -- failure isolation (serving.resilience) ----------------------------
+
+    def _take_fault(self, point: str) -> Optional[FaultSpec]:
+        plan = self.fault_plan
+        return None if plan is None else plan.take(point)
+
+    def _mark_poisoned(self) -> None:
+        self._poisoned = True
+
+    def _check_poisoned(self) -> None:
+        if self._poisoned:
+            raise EngineFault(
+                "engine state is poisoned (a prior fault invalidated "
+                "the cache/state buffers); call rebuild_slots() "
+                "before the next device call")
+
+    @property
+    def poisoned(self) -> bool:
+        """True after a fault invalidated the cache and state (every
+        device call raises until :meth:`rebuild_slots`)."""
+        return self._poisoned
+
+    def rebuild_slots(self) -> None:
+        """Recovery: every slot comes back free, in place — the cache
+        zeroed (paged: every page but the registered prefixes' pinned
+        pages, whose contents survive), the slot state reset to its free
+        values, the block tables at the sink page, the vocab masks
+        all-True, the adapter-id table at 0. Nothing is allocated: the
+        existing tensors, and their device copies, are written, in stream
+        order after every chunk already queued (a handle from before the
+        rebuild must be dropped, never fetched). The prefix pool, the
+        adapter pool and the host tier's parked conversations survive;
+        the scheduler replays interrupted requests from its host-side
+        records (:mod:`.resilience`)."""
+        if self._paged:
+            # freeing a slot drops the table's device copy; the rebuild
+            # keeps it and writes the sink rows into it instead
+            tables_dev = self._tables_dev
+            for slot in list(self._slot_pages):
+                self._free_slot_pages(slot)
+            self._tables[:, :] = SINK
+            self._tables_dev = tables_dev
+            if tables_dev is not None:
+                tables_dev.fill_(SINK)
+        self._chunked = None
+        keep = {p for pages in self._prefix_pages.values() for p in pages}
+        planes = (self.cache.values() if isinstance(self.cache, dict)
+                  else (self.cache,))
+        if keep:
+            zero = torch.tensor(
+                [p for p in range(self._num_pages) if p not in keep],
+                dtype=torch.int64, device=self.device)
+            for t in planes:
+                _bytes(t).index_fill_(2, zero, 0)
+        else:
+            for t in planes:
+                _bytes(t).zero_()
+        for k, (_, _, fill) in self._state_spec().items():
+            self.state[k].fill_(fill)
+        if self._chunk_scratch is not None:
+            self._chunk_scratch.zero_()
+        self._masks[:, :] = True
+        self._masked_slots.clear()
+        if self._masks_dev is not None:
+            self._masks_dev.fill_(True)
+        self._adapter_ids[:] = 0
+        if self._aids_dev is not None:
+            self._aids_dev.zero_()
+        self._poisoned = False

@@ -79,8 +79,25 @@ among the engine's declared rungs (``EngineConfig.decode_chunks`` /
 ``spec_ks``, validated here at construction). Streams are those of any
 fixed-knob run.
 
-Resilience (fault recovery, the health machine, the journal) is a later
-slice of the port: a park or resume that fails raises to the caller.
+Resilience (:mod:`.resilience`), as in JAX: a fault at any engine seam
+(admission, dispatch, fetch, retire, a park or a resume) or an
+out-of-vocab token in a fetched batch or a first token is quarantined —
+the chunks in flight are dropped unfetched, ``Engine.rebuild_slots``
+resets the cache and the state in place, and every interrupted request
+replays from its prompt with the stream it had sent suppressed (the
+emitted-prefix snapshot). Requests in the fault's blast radius are
+charged a retry (``ResilienceConfig``: bounded, with exponential backoff
+on the scheduler clock, an ``error`` event each); exhaustion completes
+them with ``error`` or, with an ``on_evict`` hook (a fleet router), hands
+them over as :class:`EvictedRequest`. Too many rebuilds in a row fail
+the engine terminally (``submit`` raises ``EngineFailed``). A fetch
+watchdog flags hung chunks, a queued request whose deadline the queue
+already dooms is shed at once, and :attr:`Scheduler.health` (a
+``HealthMonitor``) is the ``ok → degraded → draining → failed`` machine
+behind ``/healthz``. ``journal`` (a :class:`~.journal.Journal`) appends
+every submit, the streams' growth at each fetch, finishes, parks and
+resumes and registrations, so ``journal.recover_scheduler`` continues
+every unfinished stream after a process death.
 
 >>> sched = Scheduler(engine, pipeline_depth=2)
 >>> sched.submit(Request("r0", prompt, max_tokens=16))
@@ -94,7 +111,7 @@ import collections
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 from apex_tpu_torch.profiler import LatencyStats, MetricsLogger
 from apex_tpu_torch.serving.engine import (
@@ -103,9 +120,11 @@ from apex_tpu_torch.serving.engine import (
     Engine,
     StepHandle,
 )
+from apex_tpu_torch.serving import journal as journal_mod
 from apex_tpu_torch.serving.pages import PagesExhausted
 from apex_tpu_torch.serving.request import (
     FINISH_EOS,
+    FINISH_ERROR,
     FINISH_LENGTH,
     FINISH_REASONS,
     FINISH_STOP,
@@ -114,6 +133,14 @@ from apex_tpu_torch.serving.request import (
     Request,
     StopMatcher,
     StreamEvent,
+)
+from apex_tpu_torch.serving.resilience import (
+    HEALTH_DRAINING,
+    HEALTH_FAILED,
+    KIND_FLOOD,
+    EngineFailed,
+    HealthMonitor,
+    ResilienceConfig,
 )
 from apex_tpu_torch.serving.tenancy import (
     DEFAULT_TENANT,
@@ -133,24 +160,17 @@ from apex_tpu_torch.telemetry.slo import (
     SLOObjective,
 )
 
-#: fault causes the JAX scheduler detects (label values of
+#: fault causes the scheduler detects (label values of
 #: ``serving_faults_detected_total``, pre-created so scrapes show explicit
-#: zeros; they stay zero until the port's resilience slice)
+#: zeros)
 FAULT_CAUSES = ("admit", "dispatch", "fetch", "retire", "invalid_token")
 
 #: shed reasons (label values of ``serving_requests_shed_total``)
 SHED_REASONS = ("queue_full", "deadline", "tenant_rate")
 
-#: health states in gauge-code order (``serving_health_state``): the port
-#: has no health machine yet, so the gauge reads 0 (ok) and the
-#: transition counters stay zero
-HEALTH_STATES = ("ok", "degraded", "draining", "failed")
-
-#: the causes that hard-freeze the tuner to its base operating point.
-#: ``constrained``, ``replay`` (a slot re-deriving a preempted or
-#: recompute-resumed prefix) and ``drain`` arise in the port today;
-#: ``watchdog`` and ``rebuild`` come with the resilience slice's fetch
-#: watchdog and fault rebuilds, as in JAX
+#: the causes that hard-freeze the tuner to its base operating point: a
+#: constrained request, a slot re-deriving a replayed prefix, a drain, a
+#: tripped fetch watchdog and a fault rebuild
 TUNER_FREEZE_CAUSES = ("constrained", "replay", "drain", "watchdog",
                        "rebuild")
 
@@ -285,8 +305,7 @@ class _RegistryMetrics:
     def __init__(self, registry, engine: Engine):
         # the JAX scheduler's families, every one pre-created (explicit
         # zeros in scrapes) so the two packages' scrapes carry the same
-        # names and labels; resilience's and the journal's stay at zero
-        # until the port's resilience slice
+        # names and labels
         self.queue_depth = registry.gauge(
             "serving_queue_depth", "requests waiting for a slot")
         self.active_slots = registry.gauge(
@@ -340,7 +359,7 @@ class _RegistryMetrics:
             "wall time / chunk tokens)")
         self.request_latency = registry.histogram(
             "serving_request_latency_seconds", "arrival to completion")
-        # -- resilience (the JAX package's; zero until the port's slice) --
+        # -- resilience (serving.resilience) ------------------------------
         flt = registry.counter(
             "serving_faults_detected_total",
             "faults detected at engine seams, by cause",
@@ -541,16 +560,8 @@ class _RegistryMetrics:
             "serving_journal_recovered_total",
             "unfinished requests resubmitted from a journal during "
             "crash recovery (replay_into/recover_scheduler)")
-
-        # -- health (the JAX package's HealthMonitor families) ------------
-        registry.gauge(
-            "serving_health_state",
-            "serving health: 0=ok 1=degraded 2=draining 3=failed").set(0)
-        tr = registry.counter(
-            "serving_health_transitions_total",
-            "health state entries, by state", labels=("to",))
-        for h in HEALTH_STATES:
-            tr.labels(to=h)
+        # the health families (serving_health_*) are the scheduler's
+        # HealthMonitor's, created right after these
 
     def tenant(self, t: str) -> Dict[str, Any]:
         """Cached per-tenant metric children (created on first
@@ -621,17 +632,19 @@ class _Active:
 
 
 class _ReplayState:
-    """The emitted-prefix snapshot of one request that left its slot
-    mid-stream (parked or preempted): the tokens and logprobs the client
-    was streamed, which a replay re-derives. JAX's also carries the
-    fault machinery's retry attempts and backoff, which wait for the
-    resilience slice."""
+    """Recovery bookkeeping of one request that left its slot mid-stream
+    (a fault, a park, a preemption, a failover hand-off): the tokens and
+    logprobs the client was streamed (the emitted-prefix snapshot a
+    replay re-derives, which only ever grows), the retries the request
+    has used and the backoff gate before its next admission."""
 
-    __slots__ = ("tokens", "logprobs")
+    __slots__ = ("tokens", "logprobs", "attempts", "not_before")
 
     def __init__(self):
         self.tokens: List[int] = []
         self.logprobs: List[float] = []
+        self.attempts = 0
+        self.not_before = float("-inf")
 
 
 class _Parked:
@@ -649,12 +662,38 @@ class _Parked:
         self.parked_at = parked_at
 
 
+#: _ingest outcomes: the slot is still decoding, was released, or a
+#: retire-seam fault ran the recovery mid-call (the caller abandons its
+#: unpack or admission loop: the scheduler's state was rebuilt)
+_LIVE, _RELEASED, _RECOVERED = 0, 1, 2
+
+
+@dataclasses.dataclass
+class EvictedRequest:
+    """One interrupted request handed to a :attr:`Scheduler.on_evict`
+    hook instead of an ``error`` completion: the request and the longest
+    stream its client was sent. A fleet router resubmits it to a healthy
+    replica with ``submit(request, replay_prefix=tokens)``; the replay
+    re-derives the prefix silently, so the client's stream continues
+    with no token duplicated or lost."""
+
+    request: Request
+    tokens: List[int]
+    logprobs: List[float]
+
+
 class Scheduler:
     """Drive an :class:`Engine` over a stream of requests.
 
     ``clock`` is injectable (tests drive deadlines with a fake clock) and
-    must be monotonic. Each tick: expire deadlines; hand the queued
-    requests that fit the free slots (and, paged, the free pages:
+    must be monotonic; inject ``sleep`` beside it (backoff waits go
+    through ``sleep``, and real sleeping cannot advance a fake clock).
+    ``resilience`` sets the recovery and overload policy
+    (:class:`~.resilience.ResilienceConfig`), ``on_evict`` hands work
+    this scheduler gives up to a fleet router, and ``journal`` (a
+    :class:`~.journal.Journal`) makes every stream durable. Each tick:
+    expire deadlines; hand the queued requests that fit the free slots
+    (and, paged, the free pages:
     FIFO-strict, the first that does not fit waits with everything
     behind it) to ``Engine.admit_many``, at most ``max_admit_batch`` a
     call (None = all that fit; 1 = serial single admissions), a prompt
@@ -704,7 +743,12 @@ class Scheduler:
                  bundle_meta: Optional[Dict] = None,
                  max_auto_bundles: int = 4,
                  request_log: int = 4096,
-                 preempt: Optional[bool] = None):
+                 preempt: Optional[bool] = None,
+                 sleep: Callable[[float], None] = time.sleep,
+                 resilience: Optional[ResilienceConfig] = None,
+                 on_evict: Optional[
+                     Callable[[List["EvictedRequest"], str], None]] = None,
+                 journal=None):
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth {pipeline_depth} must be >= 1 (1 = the "
@@ -716,6 +760,8 @@ class Scheduler:
         self.max_queue = max_queue
         self.metrics = metrics
         self.clock = clock
+        self.sleep = sleep
+        self.resilience = resilience or ResilienceConfig()
         self.pipeline_depth = pipeline_depth
         self.max_admit_batch = max_admit_batch
         #: constructor values, kept for the bundle's config: a tuner
@@ -741,6 +787,13 @@ class Scheduler:
         self.recorder = recorder
         if recorder is not None:
             recorder.clock = self.clock
+        if engine.fault_plan is not None:
+            # the newest scheduler owns the observer: one without a
+            # recorder clears a predecessor's wiring over a shared engine
+            engine.fault_plan.on_inject = (
+                None if recorder is None else
+                lambda spec: recorder.record(
+                    "inject", spec.point, spec.index, spec.kind))
         #: post-mortem bundles: the default directory, the manifest's
         #: caller metadata, the paths written (oldest first) and the
         #: auto-dump gate (one bundle a trigger wave, at most
@@ -758,6 +811,39 @@ class Scheduler:
         self._req_records: Dict[str, Dict] = {}
         self._req_done = Ring(request_log)
         self._submit_seq = 0
+        #: the router-facing eviction hook (``(evicted, cause) -> None``):
+        #: work this scheduler can no longer serve (everything at a
+        #: terminal failure, or one request whose retries ran out) goes
+        #: there as EvictedRequest records instead of error outcomes.
+        #: None keeps the single-engine abort-with-error semantics
+        self.on_evict = on_evict
+        #: the durable write-ahead journal (None journals nothing), each
+        #: stream's journaled length (the extend cursor), the requests
+        #: this scheduler was recovered with, and the journal counters
+        #: last mirrored into the registry (deltas at each commit)
+        self.journal = journal
+        self._journal_len: Dict[str, int] = {}
+        self._journal_recovered = 0
+        self._j_seen = {"appends": 0, "rotations": 0, "compactions": 0,
+                        "fsync_s": 0.0}
+        if journal is not None and journal.seq == 0:
+            # a fresh journal opens with the engine spec, so recovery can
+            # refuse an incompatible engine; a recovered one keeps its
+            self._jlog("meta", format=journal_mod.FORMAT_VERSION,
+                       engine_spec=journal_mod._engine_spec(engine))
+        #: the ok → degraded → draining → failed machine
+        #: (``health.healthz`` is the /healthz callback)
+        self.health = HealthMonitor(
+            registry=registry,
+            recovery_chunks=self.resilience.recovery_chunks,
+            on_transition=self._on_health_transition)
+        self._retries = 0
+        self._retry_exhausted = 0
+        self._rebuilds = 0
+        self._shed = 0
+        self._watchdog_trips = 0
+        self._evicted_requests = 0
+        self._consecutive_rebuilds = 0
         #: chunks dispatched but not yet fetched, oldest first: (handle,
         #: slot -> _Active snapshot at dispatch, dispatch time, pipeline
         #: depth at dispatch counting this chunk, the tuner's operating
@@ -859,13 +945,27 @@ class Scheduler:
 
     # -- intake ------------------------------------------------------------
 
-    def submit(self, request: Request) -> None:
-        """Enqueue ``request``; raises :class:`QueueFull` at capacity,
-        :class:`TenantThrottled` when the tenant's token budget cannot
-        cover ``max_tokens``, and ``ValueError`` on an invalid request. A
-        prompt that already ends in the request's eos token completes
-        here with no tokens. A prompt that starts with a registered
-        prefix is matched here and admits through the pool."""
+    def submit(self, request: Request, *,
+               replay_prefix: Optional[Sequence[int]] = None,
+               replay_logprobs: Optional[Sequence[float]] = None) -> None:
+        """Enqueue ``request``; raises :class:`QueueFull` at capacity (or
+        under an injected flood), ``EngineFailed`` once the health machine
+        is terminal, :class:`TenantThrottled` when the tenant's token
+        budget cannot cover ``max_tokens``, and ``ValueError`` on an
+        invalid request. A prompt that already ends in the request's eos
+        token completes here with no tokens. A prompt that starts with a
+        registered prefix is matched here and admits through the pool.
+
+        ``replay_prefix`` (a router's failover, a journal's recovery)
+        primes the emitted-prefix snapshot with the tokens the client
+        already saw elsewhere: generation re-derives them and suppresses
+        their events, so the continued stream is the one it was being
+        sent. Such a hand-off is not charged to the tenant's budget
+        again."""
+        if self.health.state == HEALTH_FAILED:
+            raise EngineFailed(
+                f"engine health is failed ({self.health.last_cause}); "
+                f"not accepting requests")
         rid = request.request_id
         if rid in self.completions or any(
                 a.request.request_id == rid for a in self.active.values()) \
@@ -941,22 +1041,30 @@ class Scheduler:
             self._complete(request, [], [], FINISH_EOS, ttft=None, now=now)
             self.events.append(StreamEvent(rid, None, True, FINISH_EOS))
             return
-        if len(self.queue) >= self.max_queue:
-            depth = len(self.queue)
-            hint = self.overload_hint_s()
+        plan = self.engine.fault_plan
+        spec = plan.take("submit") if plan is not None else None
+        flooded = spec is not None and spec.kind == KIND_FLOOD
+        if flooded or len(self.queue) >= self.max_queue:
+            depth = self.max_queue if flooded else len(self.queue)
+            hint = depth * self._chunk_ewma
+            self._shed += 1
             if rec is not None:
-                rec.record("queue_full", rid, depth, False)
+                rec.record("queue_full", rid, depth, flooded)
+            self.health.record_fault("queue_full")
             self._maybe_dump("queue_full")
             book.stats(tenant).shed += 1
             if tele is not None:
                 tele.shed["queue_full"].inc()
                 tele.tenant(tenant)["shed"]["queue_full"].inc()
             raise QueueFull(
-                f"queue at capacity ({depth}); retry in ~{hint:.3f}s",
-                queue_depth=depth, retry_after_s=hint)
+                f"queue at capacity ({depth}"
+                f"{', injected flood' if flooded else ''}); retry in "
+                f"~{hint:.3f}s", queue_depth=depth, retry_after_s=hint)
         # the token budget is charged after the capacity gate, so a
-        # QueueFull rejection never debits the bucket
-        wait = book.throttle(tenant, request.max_tokens, now)
+        # QueueFull rejection never debits the bucket, and not for a
+        # hand-off (its original submit was charged)
+        wait = (None if replay_prefix is not None
+                else book.throttle(tenant, request.max_tokens, now))
         if wait is not None:
             self._throttled += 1
             book.stats(tenant).throttled += 1
@@ -994,6 +1102,18 @@ class Scheduler:
             (tele.prefix_hits if hit is not None
              else tele.prefix_misses).inc()
         self._record_request(request, now)
+        self._journal_submit(request, now)
+        if replay_prefix:
+            # a hand-off: what the client was streamed elsewhere becomes
+            # this scheduler's snapshot, journaled and committed at once
+            # (a crash before the first chunk must not forget it)
+            st = self._replay.setdefault(rid, _ReplayState())
+            if len(replay_prefix) > len(st.tokens):
+                st.tokens = [int(t) for t in replay_prefix]
+                st.logprobs = list(replay_logprobs or [])
+            self._journal_extend(rid, st.tokens, st.logprobs)
+            if self.journal is not None:
+                self.journal.commit()
         # a tenant (re-)entering the backlog competes from now: its
         # deficit counter clamps up to the least among the tenants with
         # queued or active work (idle time is no banked credit)
@@ -1057,19 +1177,27 @@ class Scheduler:
     def register_prefix(self, tokens) -> int:
         """Register a shared prompt-prefix template into the engine's
         pool (:meth:`Engine.register_prefix`); requests submitted after
-        it match it."""
-        return self.engine.register_prefix(tokens)
+        it match it. Journaled, so a recovered scheduler pools it
+        again."""
+        page = self.engine.register_prefix(tokens)
+        self._jlog("prefix", tokens=[int(t) for t in tokens])
+        return page
 
     def register_adapter(self, weights=None, *, name: Optional[str] = None,
                          seed: Optional[int] = None) -> int:
         """Register a LoRA adapter into the engine's pool
         (:meth:`Engine.register_adapter`), log the ``adapter_register``
-        flight-recorder event and return its id."""
+        flight-recorder event and return its id. Journaled with its
+        seed: a recovery re-registers it by name and re-derives the
+        weights (an explicit-weights registration journals ``seed:
+        null``, and its requests are skipped at recovery)."""
         aid = self.engine.register_adapter(weights, name=name, seed=seed)
+        meta = self.engine._adapter_meta.get(aid, {})
         if self.recorder is not None:
-            meta = self.engine._adapter_meta.get(aid, {})
             self.recorder.record("adapter_register", meta.get("name"), aid,
                                  meta.get("seed"))
+        self._jlog("adapter", name=meta.get("name"), seed=meta.get("seed"),
+                   rank=meta.get("rank"), adapter_id=aid)
         return aid
 
     # -- host-swap oversubscription (EngineConfig.host_swap) ----------------
@@ -1126,11 +1254,17 @@ class Scheduler:
     def _park(self, slot: int, act: _Active, now: float) -> None:
         """Move one active slot into the host tier: the snapshot first
         (the recompute fallback), then the swap-out and the slot's
-        release. A failed park raises."""
+        release. A failed park (it rides the retire seam) recovers like
+        any fault: the conversation replays from the snapshot just
+        taken."""
         rid = act.request.request_id
         self._snapshot(act)
         n_pages = self.engine.slot_page_count(slot)
-        evicted = self.engine.park_slot(slot, rid)
+        try:
+            evicted = self.engine.park_slot(slot, rid)
+        except Exception as e:
+            self._recover(now, cause="retire", detail=str(e), affected=[])
+            return
         self.active.pop(slot)
         self._free.append(slot)
         self._pauses += 1
@@ -1142,6 +1276,11 @@ class Scheduler:
             if pk is not None and pk.swap:
                 pk.swap = False
                 self._swap_capacity_drops += 1
+        # the snapshot is the recompute resume's contract: journaled with
+        # the park marker, so a crash while parked recovers it
+        st = self._replay[rid]
+        self._journal_extend(rid, st.tokens, st.logprobs)
+        self._jlog("park", request_id=rid)
         if self.recorder is not None:
             self.recorder.record("page_swap_out", rid, slot, n_pages,
                                  self.engine.parked_bytes(rid))
@@ -1178,6 +1317,7 @@ class Scheduler:
                 self.engine.drop_parked(rid)
                 self._recompute_resumes += 1
                 self.queue.appendleft(act.request)
+                self._jlog("resume", request_id=rid, path="recompute")
                 if self.recorder is not None:
                     self.recorder.record("page_swap_in", rid, -1, n_pages,
                                          "recompute")
@@ -1193,13 +1333,36 @@ class Scheduler:
             slot = self._free.pop()
             try:
                 self.engine.resume_slot(slot, rid)
-            except Exception:
+            except PagesExhausted as e:
                 self._free.append(slot)
-                raise
+                self._note_pages_exhausted(act.request, e.requested)
+                return
+            except KeyError:
+                # evicted between the check and the take: the next spin
+                # takes the recompute branch
+                self._free.append(slot)
+                pk.swap = False
+                continue
+            except ValueError:
+                # an adapter thrash: the payload stays parked
+                self._free.append(slot)
+                self._adapter_waits += 1
+                return
+            except Exception as e:
+                # the scatter failed: the payload is consumed and the
+                # engine poisoned — recover, this conversation replaying
+                # from its snapshot beside every interrupted slot
+                self._free.append(slot)
+                self._resume_q.popleft()
+                self._parked.pop(rid, None)
+                self._recover(now, cause="admit", detail=str(e),
+                              affected=[], batch_reqs=[act.request])
+                return
             self._resume_q.popleft()
             self._parked.pop(rid)
             self.active[slot] = act
             self._swap_resumes += 1
+            self._jlog("resume", request_id=rid, path="swap")
             if self.recorder is not None:
                 self.recorder.record("page_swap_in", rid, slot, n_pages,
                                      "swap")
@@ -1263,7 +1426,12 @@ class Scheduler:
             self.recorder.record(
                 "preempt", vid, slot, victim_tenant, n_pages,
                 candidates[victim_tenant], dict(sorted(candidates.items())))
-        self.engine.retire(slot)
+        try:
+            self.engine.retire(slot)
+        except Exception as e:
+            self._recover(self.clock(), cause="retire", detail=str(e),
+                          affected=[])
+            return
         self.engine.free_slot(slot)
         self.active.pop(slot)
         self._free.append(slot)
@@ -1285,8 +1453,12 @@ class Scheduler:
         unpack chunks down to ``pipeline_depth - 1`` in flight (all of
         them when nothing was dispatched, so a tick always makes
         progress). Admissions come first so a short prompt never queues
-        behind this tick's chunk forward."""
+        behind this tick's chunk forward. A fault anywhere in the tick
+        runs the recovery instead of escaping; once the health machine is
+        terminal a tick does nothing."""
         self._dump_token += 1
+        if self.health.state == HEALTH_FAILED:
+            return
         now = self.clock()
         if self._started is None:
             self._started = now
@@ -1340,15 +1512,23 @@ class Scheduler:
         """Fetch and unpack every in-flight chunk: afterwards ``events``
         and ``completions`` reflect all dispatched work. A tuner freezes
         for it (drained chunks are shutdown traffic, not steady state)
-        and thaws at the next tick."""
+        and thaws at the next tick. The health machine reads
+        ``draining`` meanwhile (``/healthz`` answers 503), then returns
+        to its prior state."""
         if self._tuner is not None:
             self._tuner.freeze("drain")
-        while self._inflight:
-            self._collect_oldest()
+        self.health.begin_drain()
+        try:
+            while self._inflight:
+                self._collect_oldest()
+        finally:
+            self.health.end_drain()
 
     def run_until_idle(self, max_steps: int = 100_000) -> None:
         """Step until the queue, the slots, the pipeline, any chunked
-        admission and the resume queue are empty."""
+        admission and the resume queue are empty. When every queued
+        request waits out a retry backoff and nothing is in flight, the
+        earliest gate is slept out through ``sleep``."""
         steps = 0
         while not self.idle():
             self.step()
@@ -1358,6 +1538,9 @@ class Scheduler:
                     f"not idle after {max_steps} steps — live slots "
                     f"{sorted(self.active)}, queue {len(self.queue)}, "
                     f"{len(self._inflight)} chunks in flight")
+            wait = self._backoff_wait_s()
+            if wait is not None:
+                self.sleep(wait)
 
     def pop_events(self) -> List[StreamEvent]:
         """Drain the response stream."""
@@ -1374,7 +1557,14 @@ class Scheduler:
     # -- internals ---------------------------------------------------------
 
     def _expire(self, now: float) -> None:
+        """Deadlines: a queued request past its deadline expires; one the
+        queue ahead already dooms (its wave of ``slots`` x the measured
+        chunk latency lands past the deadline) is shed now, unless it
+        fits the free slots and admits this tick; an active or parked
+        request past its deadline times out with its stream so far."""
         kept: Deque[Request] = collections.deque()
+        n_free, n_slots = len(self._free), self.engine.slots
+        pos = 0
         for r in self.queue:
             if r.deadline is not None and now >= r.deadline:
                 if self.recorder is not None:
@@ -1382,17 +1572,44 @@ class Scheduler:
                 if self.telemetry is not None:
                     self.telemetry.queue_expired.inc()
                 self._abort(r, FINISH_TIMEOUT, now)
-            else:
-                kept.append(r)
+                continue
+            wave = (pos - n_free) // n_slots + 1
+            if (self.resilience.shed_deadlines and r.deadline is not None
+                    and self._chunk_ewma > 0.0 and pos >= n_free
+                    and now + wave * self._chunk_ewma > r.deadline):
+                self._shed += 1
+                self.tenants.stats(r.tenant).shed += 1
+                if self.recorder is not None:
+                    self.recorder.record("shed", r.request_id, "deadline")
+                if self.telemetry is not None:
+                    self.telemetry.shed["deadline"].inc()
+                    self.telemetry.tenant(r.tenant)["shed"][
+                        "deadline"].inc()
+                self._abort(r, FINISH_TIMEOUT, now)
+                continue
+            kept.append(r)
+            pos += 1
         self.queue = kept
         for slot in list(self.active):
-            act = self.active[slot]
+            act = self.active.get(slot)
+            if act is None:
+                continue        # a retire-seam recovery below cleared it
             dl = act.request.deadline
             if dl is not None and now >= dl:
                 # a timeout streams the matcher's held tail (nothing
                 # matched, so nothing is trimmed)
                 self._flush_held(act)
-                self.engine.retire(slot)
+                try:
+                    self.engine.retire(slot)
+                except Exception as e:
+                    # the expiring request still times out (its tokens
+                    # are on the host); everyone else replays
+                    self.events.append(StreamEvent(
+                        act.request.request_id, None, True, FINISH_TIMEOUT))
+                    self._release(slot, FINISH_TIMEOUT, now)
+                    self._recover(now, cause="retire", detail=str(e),
+                                  affected=[])
+                    continue
                 self.events.append(StreamEvent(
                     act.request.request_id, None, True, FINISH_TIMEOUT))
                 self._release(slot, FINISH_TIMEOUT, now)
@@ -1409,11 +1626,13 @@ class Scheduler:
                 self._abort(pk.act.request, FINISH_TIMEOUT, now, act=pk.act)
 
     def _abort(self, request: Request, reason: str, now: float, *,
-               act: Optional[_Active] = None) -> None:
+               act: Optional[_Active] = None,
+               error: Optional[str] = None) -> None:
         """A finish outside a slot (a queued or parked request timing
-        out): one finished event, and a completion carrying the longest
-        stream the client saw, the parked stream's or the snapshot of one
-        that left its slot."""
+        out, a fault's exhausted retries): one finished event (carrying
+        ``error``), and a completion carrying the longest stream the
+        client saw, the parked stream's or the snapshot of one that left
+        its slot."""
         if act is not None:
             self._flush_held(act)
         streamed = (act.tokens, act.logprobs) if act is not None else ([], [])
@@ -1422,7 +1641,7 @@ class Scheduler:
         if act is not None and act.first_token_time is not None:
             ttft = act.first_token_time - request.arrival_time
         self.events.append(StreamEvent(request.request_id, None, True,
-                                       reason))
+                                       reason, error=error))
         self._complete(request, tokens, lps, reason, ttft=ttft, now=now)
 
     def _admission_of(self, r: Request, slot: int) -> Admission:
@@ -1466,11 +1685,12 @@ class Scheduler:
         request of the backlogged tenant most behind its share (the
         least deficit counter, aged by its head's wait). Within a tenant
         the order is FIFO, and with one backlogged tenant every pick is
-        the first eligible request: the strict FIFO pop. ``now`` is the
-        tick's clock reading (the heads' waits)."""
+        the first eligible request: the strict FIFO pop. A request waiting
+        out a retry backoff is not eligible (and blocks nobody behind it).
+        ``now`` is the tick's clock reading (the heads' waits)."""
         by_tenant: Dict[str, List[Tuple[int, Request]]] = {}
         for idx, r in enumerate(self.queue):
-            if not self._chunked_only(r):
+            if not self._chunked_only(r) and not self._backing_off(r, now):
                 by_tenant.setdefault(r.tenant, []).append((idx, r))
         heads = {t: 0 for t in by_tenant}
         picked: List[Request] = []
@@ -1499,6 +1719,11 @@ class Scheduler:
             self.queue = collections.deque(
                 r for i, r in enumerate(self.queue) if i not in drop)
         return picked
+
+    def _backing_off(self, r: Request, now: float) -> bool:
+        """Whether ``r`` waits out a retry backoff at ``now``."""
+        st = self._replay.get(r.request_id)
+        return st is not None and now < st.not_before
 
     def _admit_batches(self, now: float) -> None:
         while self.queue:
@@ -1562,7 +1787,23 @@ class Scheduler:
                 self._note_pages_exhausted(
                     reqs[0], self._request_pages_needed(reqs[0]))
                 return
+            except Exception as e:      # an error escaping the admission
+                self._recover(self.clock(), cause="admit", detail=str(e),
+                              affected=list(reqs), batch_reqs=list(reqs))
+                return
             t_first = self.clock()
+            # a NaN-poisoned prefill: a garbage first token means the
+            # admission's cache insert cannot be trusted — quarantine
+            # before any event leaks, charging only the bad rows
+            vocab = self.engine.cfg.vocab_size
+            bad = [r for r, res in zip(reqs, results)
+                   if not 0 <= res.first_token < vocab]
+            if bad:
+                self._recover(t_first, cause="invalid_token",
+                              detail="invalid first token from admission "
+                              "(NaN-poisoned prefill)",
+                              affected=bad, batch_reqs=list(reqs))
+                return
             n_groups = results[-1].group + 1
             self._admitted_requests += len(reqs)
             self._admit_dispatches += n_groups
@@ -1572,16 +1813,26 @@ class Scheduler:
             if tele is not None:
                 tele.admit_dispatches.inc(n_groups)
                 tele.queue_depth.set(len(self.queue))
-            for r, slot, res in zip(reqs, slots, results):
-                self._activate(slot, r, res, t_first, t_admit=t_admit)
+            rows = list(zip(reqs, slots, results))
+            for idx, (r, slot, res) in enumerate(rows):
+                if self._activate(slot, r, res, t_first,
+                                  t_admit=t_admit) == _RECOVERED:
+                    # a retire-seam fault rebuilt the engine mid-wave: the
+                    # rows not yet activated lost their slots and go back
+                    # to the queue's front (no event of theirs left)
+                    self.queue.extendleft(
+                        reversed([rr for rr, _, _ in rows[idx + 1:]]))
+                    if tele is not None:
+                        tele.queue_depth.set(len(self.queue))
+                    return
 
     def _activate(self, slot: int, r: Request, res, t_first: float, *,
-                  t_admit: Optional[float] = None) -> None:
+                  t_admit: Optional[float] = None) -> int:
         """The request occupies ``slot`` from its first token on (TTFT is
         the first token computed, even when the stop matcher holds it
         back). ``t_admit`` is the batched admission dispatch's start (the
         end of the queue wait); None on the chunked path, which observed
-        the wait at its start."""
+        the wait at its start. Returns :meth:`_ingest`'s outcome."""
         act = _Active(r)
         st = self._replay.get(r.request_id)
         act.suppress = 0 if st is None else len(st.tokens)
@@ -1630,8 +1881,9 @@ class Scheduler:
         reason = None
         if res.finished:
             reason = FINISH_EOS if res.hit_eos else FINISH_LENGTH
-        self._ingest(slot, act, res.first_token, res.logprob, t_first,
-                     device_done=res.finished, device_reason=reason)
+        return self._ingest(slot, act, res.first_token, res.logprob,
+                            t_first, device_done=res.finished,
+                            device_reason=reason)
 
     def _start_chunked(self, now: float) -> None:
         """Begin a chunked admission for the queue head when it takes
@@ -1642,7 +1894,7 @@ class Scheduler:
                 or not self._free or not self.queue):
             return
         r = self.queue[0]
-        if not self._chunked_only(r):
+        if not self._chunked_only(r) or self._backing_off(r, now):
             return
         if not self.engine.can_admit_pages(len(r.prompt), r.max_tokens):
             self._note_pages_exhausted(r, self._request_pages_needed(r))
@@ -1663,6 +1915,11 @@ class Scheduler:
             self._free.append(slot)
             self.queue.appendleft(r)
             self._note_pages_exhausted(r, self._request_pages_needed(r))
+            return
+        except Exception as e:
+            self._free.append(slot)
+            self._recover(self.clock(), cause="admit", detail=str(e),
+                          affected=[r], batch_reqs=[r])
             return
         self._chunked = (ca, r)
         self._chunked_fresh = True
@@ -1690,7 +1947,13 @@ class Scheduler:
             self._chunked_fresh = False
             return
         ca, r = self._chunked
-        res = self.engine.admit_chunked_step(ca)
+        try:
+            res = self.engine.admit_chunked_step(ca)
+        except Exception as e:
+            self._chunked = None
+            self._recover(self.clock(), cause="admit", detail=str(e),
+                          affected=[r], batch_reqs=[r])
+            return
         if res is None:
             self._chunked_chunks += 1
             if self.recorder is not None:
@@ -1700,13 +1963,20 @@ class Scheduler:
                 self.telemetry.chunked_chunks.inc()
             return
         self._chunked = None
+        t_first = self.clock()
+        if not 0 <= res.first_token < self.engine.cfg.vocab_size:
+            self._recover(t_first, cause="invalid_token",
+                          detail="invalid first token from chunked "
+                          "admission (NaN-poisoned prefill)",
+                          affected=[r], batch_reqs=[r])
+            return
         self._chunked_admissions += 1
         self._admitted_requests += 1
         self._admit_dispatches += 1
         if self.telemetry is not None:
             self.telemetry.chunked_admissions.inc()
             self.telemetry.admit_dispatches.inc()
-        self._activate(ca.slot, r, res, self.clock())
+        self._activate(ca.slot, r, res, t_first)
 
     def _constrained_active(self) -> bool:
         return any(a.request.constraint is not None
@@ -1768,11 +2038,12 @@ class Scheduler:
         return None
 
     def _tuner_freeze_cause(self) -> Optional[str]:
-        """The hard-freeze condition, re-evaluated each tick. The JAX
-        scheduler also freezes while its health machine drains; the
-        port's :meth:`drain` freezes the controller itself, and the
-        fetch watchdog's and fault rebuilds' causes
-        (:data:`TUNER_FREEZE_CAUSES`) come with the resilience slice."""
+        """The hard-freeze condition, re-evaluated each tick: the health
+        machine draining, or a per-slot exclusion
+        (:meth:`_exclusion_cause`). The watchdog and a rebuild freeze the
+        controller where they happen."""
+        if self.health.state == HEALTH_DRAINING:
+            return "drain"
         return self._exclusion_cause()
 
     def _sync_tuner(self) -> None:
@@ -1832,6 +2103,27 @@ class Scheduler:
             ch["budget"].set(m.budget_remaining())
 
     # -- the decode loop ---------------------------------------------------
+
+    def _guard_alarm_count(self) -> float:
+        """The recompile guard's alarm count, which the fleet router's
+        ``guard_alarm`` breaker reads. The port compiles nothing at serve
+        time and has no guard: always 0.0."""
+        return 0.0
+
+    def _backoff_wait_s(self) -> Optional[float]:
+        """Seconds until the earliest retry-backoff gate opens, when
+        waiting for it is the only work left (else None)."""
+        if self.active or self._inflight or self._chunked is not None \
+                or not self.queue:
+            return None
+        now = self.clock()
+        waits = []
+        for r in self.queue:
+            st = self._replay.get(r.request_id)
+            if st is None or st.not_before <= now:
+                return None     # something is admissible now
+            waits.append(st.not_before - now)
+        return min(waits) + 1e-4
 
     def _plain_only(self) -> bool:
         """Whether the next chunk must be plain (:meth:`_exclusion_cause`:
@@ -1930,7 +2222,13 @@ class Scheduler:
         else:
             step_kw = {"spec": self._use_spec()}
         t0 = self.clock()
-        handle = self.engine.step_async(**step_kw)
+        try:
+            handle = self.engine.step_async(**step_kw)
+        except Exception as e:      # an error escaping the dispatch
+            self._recover(self.clock(), cause="dispatch", detail=str(e),
+                          affected=[a.request for _, a in
+                                    sorted(self.active.items())])
+            return False
         if self.spans is not None:
             self.spans.section_at("engine.dispatch", t0, self.clock())
         self._inflight.append((handle, dict(self.active), t0,
@@ -1991,11 +2289,25 @@ class Scheduler:
         slots still held by the requests they were dispatched for. With a
         tuner the chunk's realized tokens, its dispatch-to-fetch wall and
         its depth at dispatch are the controller's sample (the JAX
-        scheduler's measurement convention)."""
+        scheduler's measurement convention). A fetch error recovers; a
+        chunk whose dispatch-to-fetch wall passed the watchdog's timeout
+        is flagged (its tokens are good; it is kept out of every latency
+        estimate and the controller's samples); an out-of-vocab token
+        anywhere in the batch quarantines the whole chunk before a token
+        is unpacked. A chunk that lands ends a rebuild streak, counts
+        toward the health machine's recovery and is the journal's commit
+        point."""
         handle, snapshot, t_dispatch, depth_at_dispatch, point = \
             self._inflight.popleft()
         t0 = self.clock()
-        tokens, logprobs, finished = handle.fetch()
+        try:
+            tokens, logprobs, finished = handle.fetch()
+        except Exception as e:      # an error escaping the fetch
+            self._recover(self.clock(), cause="fetch", detail=str(e),
+                          affected=[a.request
+                                    for s, a in sorted(snapshot.items())
+                                    if self.active.get(s) is a])
+            return
         now = self.clock()
         tele = self.telemetry
         if tele is not None:
@@ -2009,17 +2321,50 @@ class Scheduler:
                 self.spans.mark(snapshot[s].request.request_id,
                                 spans_mod.PHASE_DECODE)
         chunk_wall = max(now - t_dispatch, 0.0)
-        if self.recorder is not None:
-            self.recorder.record("fetch", handle.spec, handle.ncols,
-                                 chunk_wall, len(live_rows))
+        rec = self.recorder
+        if rec is not None:
+            rec.record("fetch", handle.spec, handle.ncols, chunk_wall,
+                       len(live_rows))
         # at depth d the dispatch-to-fetch wall waits behind the d - 1
         # chunks ahead: the gate's sample is the chunk's share
         wall = max(now - max(self._decode_mark, t_dispatch), 0.0)
+        hung = chunk_wall > self.resilience.watchdog_timeout_s
+        if hung:
+            # a hung dispatch: counted as a fault and kept out of the
+            # latency estimates (a hang folded into the EWMA would shed
+            # deadlined requests against a latency the engine does not
+            # have) and of the controller's samples
+            self._watchdog_trips += 1
+            if rec is not None:
+                rec.record("watchdog", chunk_wall)
+            if self._tuner is not None:
+                self._tuner.freeze("watchdog")
+            self.health.record_fault("watchdog")
+            self._maybe_dump("watchdog")
+            if tele is not None:
+                tele.watchdog.inc()
+        else:
+            self._chunk_ewma = (wall if self._chunk_ewma == 0.0
+                                else 0.7 * self._chunk_ewma + 0.3 * wall)
+        # the NaN quarantine: an out-of-vocab id anywhere in the batch
+        # (a released lane's too: the step wrote the shared cache) drops
+        # the chunk before a token is unpacked; only still-live corrupt
+        # lanes are charged a retry
+        vocab = self.engine.cfg.vocab_size
+        if tokens.size and (int(tokens.min()) < 0
+                            or int(tokens.max()) >= vocab):
+            bad = [act.request for slot, act in sorted(snapshot.items())
+                   if self.active.get(slot) is act
+                   and bool(((tokens[slot] < 0)
+                             | (tokens[slot] >= vocab)).any())]
+            self._recover(now, cause="invalid_token",
+                          detail="invalid token id in decode batch "
+                          "(NaN-poisoned step)", affected=bad)
+            return
         self._decode_time += wall
         self._decode_mark = now
-        self._chunk_ewma = (wall if self._chunk_ewma == 0.0
-                            else 0.7 * self._chunk_ewma + 0.3 * wall)
-        self._observe(handle, wall, live_rows, t_dispatch, now)
+        if not hung:
+            self._observe(handle, wall, live_rows, t_dispatch, now)
         valid = handle.valid
         n_cols = tokens.shape[1]
         if valid is None:
@@ -2050,12 +2395,16 @@ class Scheduler:
                 chunk_tokens += 1
                 # the accepted tokens of a speculative wave too: the stop
                 # matcher and the automaton see every real column
-                self._ingest(slot, act, tok, float(logprobs[slot, j]), now,
-                             device_done=done, device_reason=reason,
-                             latency=per_tok)
-        if self._tuner is not None and point is not None:
+                if self._ingest(slot, act, tok, float(logprobs[slot, j]),
+                                now, device_done=done, device_reason=reason,
+                                latency=per_tok) == _RECOVERED:
+                    return      # the recovery rebuilt everything
+        if self._tuner is not None and point is not None and not hung:
             self._tuner.observe(point, chunk_tokens, chunk_wall,
                                 depth_at_dispatch)
+        self._consecutive_rebuilds = 0
+        self.health.record_progress()
+        self._journal_commit()
 
     # -- token emission (stop sequences, constraints) -----------------------
 
@@ -2104,13 +2453,15 @@ class Scheduler:
     def _ingest(self, slot: int, act: _Active, tok: int, lp: float,
                 now: float, *, device_done: bool,
                 device_reason: Optional[str],
-                latency: Optional[float] = None) -> None:
+                latency: Optional[float] = None) -> int:
         """Fold ONE generated token into a live request: the stop matcher
         (trimmed emission), the constraint's advance and next mask row,
         the events, and the release when the token finishes the request
         (the device's eos or budget, a stop match, or a completed
         constraint). A host-side finish retires the slot on the engine;
-        chunks in flight drop its columns by the snapshot rule."""
+        chunks in flight drop its columns by the snapshot rule. Returns
+        ``_LIVE`` / ``_RELEASED``, or ``_RECOVERED`` when that retire
+        faulted and the recovery rebuilt the scheduler's state."""
         matched = False
         if act.matcher is not None:
             flushed, matched = act.matcher.push(tok, lp)
@@ -2144,14 +2495,21 @@ class Scheduler:
             self.events.append(StreamEvent(
                 act.request.request_id, None, True, reason))
         if not finishing:
-            return
+            return _LIVE
         if host_stop:
             self._stop_finishes += 1
             if not device_done:
                 # the device lane is still live: retire it so later
                 # chunks stop spending its budget
-                self.engine.retire(slot)
+                try:
+                    self.engine.retire(slot)
+                except Exception as e:
+                    self._release(slot, reason, now)
+                    self._recover(now, cause="retire", detail=str(e),
+                                  affected=[])
+                    return _RECOVERED
         self._release(slot, reason, now)
+        return _RELEASED
 
     def _release(self, slot: int, reason: str, now: float) -> None:
         act = self.active.pop(slot)
@@ -2185,6 +2543,7 @@ class Scheduler:
             logprobs=list(logprobs))
         if self.recorder is not None:
             self.recorder.record("finish", rid, reason, len(tokens))
+        self._journal_finish(request, tokens, logprobs, reason)
         rrec = self._req_records.pop(rid, None)
         if rrec is not None:
             # the replayable record moves to the bounded completed ring
@@ -2208,6 +2567,324 @@ class Scheduler:
             if ttft is not None:
                 row["ttft_s"] = ttft
             self.metrics.log(self._steps, row)
+
+    # -- failure isolation and recovery --------------------------------------
+
+    def _reset_free(self) -> None:
+        """Every slot free, popped in slot order."""
+        self._free = list(range(self.engine.slots))[::-1]
+
+    def _recover(self, now: float, *, cause: str, detail: str,
+                 affected: Sequence[Request],
+                 batch_reqs: Sequence[Request] = ()) -> None:
+        """Quarantine, rebuild and replay. The chunks in flight were
+        dispatched against the poisoned cache: dropped unfetched. The
+        engine rebuilds its slots in place; every interrupted request —
+        the live slots, the chunked admission, ``batch_reqs`` from a
+        failed admission call — goes back to the queue's front with its
+        emitted-prefix snapshot grown to what its client was streamed.
+        ``affected`` requests (the fault's blast radius) are charged a
+        retry with backoff and an ``error`` event; past ``max_retries``
+        they complete with ``error`` (or go to ``on_evict``). More than
+        ``max_consecutive_rebuilds`` rebuilds with no healthy chunk
+        between fail the engine terminally."""
+        tele = self.telemetry
+        rec = self.recorder
+        rcfg = self.resilience
+        if self._tuner is not None:
+            # a hard freeze: the dropped chunks go unmeasured, and the
+            # replay traffic re-freezes at the next tick
+            self._tuner.freeze("rebuild")
+        if rec is not None:
+            rec.record("fault", cause, detail, len(affected))
+        self.health.record_fault(cause)
+        if tele is not None and cause in tele.faults:
+            tele.faults[cause].inc()
+        self._inflight.clear()
+        if tele is not None:
+            tele.inflight.set(0)
+        self._consecutive_rebuilds += 1
+        if self._consecutive_rebuilds > rcfg.max_consecutive_rebuilds:
+            self.queue.extendleft(reversed(list(batch_reqs)))
+            self._fail_all(f"recovery storm ({cause}: {detail})", now)
+            return
+        # interrupted work: the slots in slot order (admitted earliest),
+        # then the failed admission's batch, then a chunked admission
+        interrupted: List[Tuple[Request, Optional[_Active]]] = [
+            (act.request, act) for _, act in sorted(self.active.items())]
+        interrupted += [(r, None) for r in batch_reqs]
+        if self._chunked is not None:
+            _, cr = self._chunked
+            self._chunked = None
+            if all(r.request_id != cr.request_id for r, _ in interrupted):
+                interrupted.append((cr, None))
+        self.active.clear()
+        self._reset_free()
+        # always rebuild: even a fault detected on the host (invalid
+        # tokens) leaves a cache that cannot be trusted
+        self.engine.rebuild_slots()
+        self._rebuilds += 1
+        if rec is not None:
+            rec.record("rebuild", cause, max(self.clock() - now, 0.0),
+                       self._consecutive_rebuilds)
+        if tele is not None:
+            tele.rebuilds.inc()
+            tele.active_slots.set(0)
+        if self.spans is not None:
+            self.spans.section_at("engine.rebuild", now, self.clock())
+        affected_ids = {r.request_id for r in affected}
+        front: List[Request] = []
+        for r, act in interrupted:
+            rid = r.request_id
+            if act is not None:
+                # grown, never shrunk: a second fault mid-replay sees a
+                # stream shorter than the one already sent
+                self._snapshot(act)
+            st = self._replay.setdefault(rid, _ReplayState())
+            if rec is not None:
+                rec.record("replay", rid, len(st.tokens))
+            if rid in affected_ids:
+                st.attempts += 1
+                if st.attempts > rcfg.max_retries:
+                    if rec is not None:
+                        rec.record("retry_exhausted", rid, st.attempts)
+                    self.health.record_fault("retry_exhausted")
+                    self._retry_exhausted += 1
+                    if self.on_evict is not None:
+                        # a fleet hand-off: another replica may serve it
+                        # (journaled "evicted", so a restart from this
+                        # replica's journal never resubmits it)
+                        self._evicted_requests += 1
+                        self._replay.pop(rid, None)
+                        self._req_records.pop(rid, None)
+                        self._journal_finish(r, st.tokens, st.logprobs,
+                                             "evicted")
+                        self.on_evict(
+                            [EvictedRequest(r, list(st.tokens),
+                                            list(st.logprobs))],
+                            f"retry_exhausted ({cause}: {detail})")
+                        continue
+                    self._abort(r, FINISH_ERROR, now, act=act,
+                                error=f"{cause}: {detail}; "
+                                f"{rcfg.max_retries} retries exhausted")
+                    continue
+                st.not_before = now + rcfg.backoff_s(st.attempts)
+                self._retries += 1
+                if rec is not None:
+                    rec.record("retry", rid, st.attempts)
+                if tele is not None:
+                    tele.retries.inc()
+                self.events.append(StreamEvent(
+                    rid, None, False, None,
+                    error=f"{cause}: {detail}; retry "
+                    f"{st.attempts}/{rcfg.max_retries}"))
+                if self.spans is not None:
+                    self.spans.mark(rid, spans_mod.PHASE_ERROR, note=cause)
+            front.append(r)
+        self.queue.extendleft(reversed(front))
+        if tele is not None:
+            tele.queue_depth.set(len(self.queue))
+        # the bundle lands after the bracket: it carries the fault and
+        # its rebuild, replay and retry events
+        self._maybe_dump(f"fault-{cause}")
+
+    def _fail_all(self, cause: str, now: float) -> None:
+        """Terminal: every queued, active, chunked and parked request ends
+        with an ``error`` outcome (its stream so far kept) and the health
+        machine goes ``failed``; the process survives. The terminal
+        bundle is dumped first, while the state it explains exists. With
+        an :attr:`on_evict` hook the work is handed over instead."""
+        if self.recorder is not None:
+            self.recorder.record("failed", cause)
+        self._maybe_dump("failed")
+        self.health.fail(cause)
+        if self.on_evict is not None:
+            self._evict_all(cause)
+            return
+        for slot, act in sorted(self.active.items()):
+            self._abort(act.request, FINISH_ERROR, now, act=act,
+                        error=cause)
+            self.engine.free_slot(slot)
+        if self._chunked is not None:
+            ca, cr = self._chunked
+            self._chunked = None
+            self.engine.free_slot(ca.slot)
+            self._abort(cr, FINISH_ERROR, now, error=cause)
+        self.active.clear()
+        self._reset_free()
+        for r in self.queue:
+            self._abort(r, FINISH_ERROR, now, error=cause)
+        self.queue.clear()
+        for rid, pk in sorted(self._parked.items()):
+            self.engine.drop_parked(rid)
+            self._abort(pk.act.request, FINISH_ERROR, now, act=pk.act,
+                        error=cause)
+        self._parked.clear()
+        self._resume_q.clear()
+        self._replay.clear()
+        self._inflight.clear()
+        if self.telemetry is not None:
+            self.telemetry.queue_depth.set(0)
+            self.telemetry.active_slots.set(0)
+            self.telemetry.inflight.set(0)
+
+    def eject_all(self, cause: str) -> None:
+        """Router-facing: hand every queued, active and parked request to
+        the :attr:`on_evict` hook with its emitted prefix and clear this
+        scheduler's work (a circuit breaker's eviction; the caller
+        rebuilds the engine's slots next, since chunks in flight are
+        dropped unfetched)."""
+        if self.on_evict is None:
+            raise ValueError(
+                "eject_all needs an on_evict hook — without one the "
+                "evicted requests would simply vanish")
+        self._evict_all(cause)
+
+    def _evict_all(self, cause: str) -> None:
+        """Hand every interrupted request (the slots first, then a
+        chunked admission, the queue and the parked conversations) to
+        :attr:`on_evict` with the longest stream its client saw, with no
+        error event and no completion: the router owns them now. Each is
+        journaled finished ("evicted") and committed before the hand-off,
+        so a restart from this replica's journal never resubmits work the
+        fleet moved."""
+        evicted: List[EvictedRequest] = []
+
+        def take(request: Request, act: Optional[_Active]) -> None:
+            streamed = ((list(act.tokens), list(act.logprobs))
+                        if act is not None else ([], []))
+            tokens, lps = self._longest(request, *streamed)
+            tokens, lps = list(tokens), list(lps)
+            self._journal_finish(request, tokens, lps, "evicted")
+            self._req_records.pop(request.request_id, None)
+            self._prefix_hits.pop(request.request_id, None)
+            evicted.append(EvictedRequest(request, tokens, lps))
+
+        for slot, act in sorted(self.active.items()):
+            take(act.request, act)
+            self.engine.free_slot(slot)
+        if self._chunked is not None:
+            ca, cr = self._chunked
+            self._chunked = None
+            self.engine.free_slot(ca.slot)
+            take(cr, None)
+        for r in self.queue:
+            take(r, None)
+        for rid, pk in sorted(self._parked.items()):
+            self.engine.drop_parked(rid)
+            take(pk.act.request, pk.act)
+        self._parked.clear()
+        self._resume_q.clear()
+        self.active.clear()
+        self.queue.clear()
+        self._reset_free()
+        self._replay.clear()
+        self._inflight.clear()
+        self._evicted_requests += len(evicted)
+        if self.telemetry is not None:
+            self.telemetry.queue_depth.set(0)
+            self.telemetry.active_slots.set(0)
+            self.telemetry.inflight.set(0)
+        self._journal_commit()
+        self.on_evict(evicted, cause)
+
+    # -- the durable request journal (serving.journal) ------------------------
+
+    def _jlog(self, kind: str, **fields) -> None:
+        """Append one journal record (a no-op without a journal) and log
+        it in the flight recorder."""
+        j = self.journal
+        if j is None:
+            return
+        rot = j.rotations
+        seq = j.append(kind, **fields)
+        rec = self.recorder
+        if rec is not None:
+            rec.record("journal_append", seq, kind, j.last_append_bytes)
+            if j.rotations != rot and j.last_sealed is not None:
+                rec.record("journal_rotate", *j.last_sealed)
+
+    def _journal_submit(self, request: Request, now: float) -> None:
+        """Journal an accepted request: its replayable record, the
+        absolute deadline turned into the budget remaining (a monotonic
+        clock does not survive a restart) and the adapter's name (the
+        stable key across recoveries)."""
+        if self.journal is None:
+            return
+        row = dict(self._req_records[request.request_id])
+        row.pop("arrival", None)
+        deadline = row.pop("deadline", None)
+        row["deadline_remaining"] = (
+            None if deadline is None else max(deadline - now, 0.0))
+        if row.get("adapter"):
+            meta = self.engine._adapter_meta.get(int(row["adapter"]), {})
+            row["adapter_name"] = meta.get("name")
+        self._jlog("submit", **row)
+        self._journal_len[request.request_id] = 0
+
+    def _journal_extend(self, rid: str, tokens, logprobs) -> None:
+        """Journal the growth of one stream since its last extend, at an
+        absolute offset (replaying a record twice changes nothing).
+        Requests the journal never saw are skipped."""
+        jl = self._journal_len.get(rid)
+        if jl is None or len(tokens) <= jl:
+            return
+        self._jlog("extend", request_id=rid, start=jl,
+                   tokens=[int(t) for t in tokens[jl:]],
+                   logprobs=[float(x) for x in logprobs[jl:]])
+        self._journal_len[rid] = len(tokens)
+
+    def _journal_commit(self) -> None:
+        """The fetch-boundary durability point: extend every live stream
+        (the slots and the snapshots of parked and preempted ones), sync
+        by the journal's policy, let compaction run, and mirror the
+        journal's counters into the registry by delta."""
+        j = self.journal
+        if j is None:
+            return
+        for act in self.active.values():
+            self._journal_extend(act.request.request_id, act.tokens,
+                                 act.logprobs)
+        for rid, st in self._replay.items():
+            self._journal_extend(rid, st.tokens, st.logprobs)
+        j.commit()
+        j.maybe_compact()
+        tele = self.telemetry
+        if tele is not None:
+            seen = self._j_seen
+            for attr, handle in (
+                    ("appends", tele.journal_appends),
+                    ("rotations", tele.journal_rotations),
+                    ("compactions", tele.journal_compactions)):
+                d = getattr(j, attr) - seen[attr]
+                if d:
+                    handle.inc(d)
+                    seen[attr] = getattr(j, attr)
+            ds = j.fsync_s - seen["fsync_s"]
+            if ds > 0:
+                tele.journal_fsync.inc(ds)
+                seen["fsync_s"] = j.fsync_s
+            tele.journal_bytes.set(j.bytes_on_disk())
+            tele.journal_lag.set(j.lag_bytes)
+
+    def _journal_finish(self, request: Request, tokens, logprobs,
+                        reason: str) -> None:
+        """Journal a terminal outcome: the final extend, then the finish
+        record, so recovery never resubmits finished (or evicted)
+        work."""
+        if self.journal is None:
+            return
+        rid = request.request_id
+        if rid not in self._journal_len:
+            return
+        self._journal_extend(rid, tokens, logprobs or [])
+        self._journal_len.pop(rid, None)
+        self._jlog("finish", request_id=rid, reason=reason)
+
+    def _on_health_transition(self, old: str, new: str,
+                              cause: Optional[str]) -> None:
+        if self.recorder is not None:
+            self.recorder.record("health", old, new, cause)
 
     # -- flight recorder and post-mortem bundles -----------------------------
 
@@ -2315,8 +2992,8 @@ class Scheduler:
             "cause": cause,
             "wall_time": time.time(),
             "clock": self.clock(),
-            # the port has no health machine yet: JAX's key, always ok
-            "health": {"state": HEALTH_STATES[0], "last_cause": None},
+            "health": {"state": self.health.state,
+                       "last_cause": self.health.last_cause},
             "summary": self.summary(),
             "flightrec": rec.summary() if rec is not None else None,
             "versions": flightrec_mod.versions(),
@@ -2329,6 +3006,7 @@ class Scheduler:
                 "max_queue": self.max_queue,
                 "pipeline_depth": self._cfg_pipeline_depth,
                 "max_admit_batch": self._cfg_max_admit_batch,
+                "resilience": dataclasses.asdict(self.resilience),
                 "spec_gate": (dataclasses.asdict(self._gate.cfg)
                               if self._gate is not None else None),
                 # the tuner's ladders and policy and its base point:
@@ -2374,6 +3052,13 @@ class Scheduler:
                     raw.append({"kind": "section", "t": e[1],
                                 "name": e[2], "t_end": e[3]})
             files["spans_raw.jsonl"] = raw
+        plan = engine.fault_plan
+        if plan is not None:
+            files["fault_plan.json"] = {
+                "specs": [dataclasses.asdict(s) for s in plan.specs],
+                "injected": [dataclasses.asdict(s) for s in plan.injected],
+                "counts": plan.counts(),
+            }
         return files
 
     # -- reporting ---------------------------------------------------------
@@ -2410,7 +3095,11 @@ class Scheduler:
         adds ``tuner_state``, ``tuner_probes``, ``tuner_switches`` and the
         incumbent ``tuner_<knob>`` values; an SLO monitor its
         sketch-backed percentiles and alert roll-up
-        (:meth:`SLOMonitor.summary`) and ``predicted_ttft_s``."""
+        (:meth:`SLOMonitor.summary`) and ``predicted_ttft_s``. The
+        resilience counters are always there (``retries``,
+        ``retry_exhausted``, ``rebuilds``, ``shed``, ``watchdog_trips``,
+        ``evicted_requests``, ``health_state``); a journal adds its
+        ``journal_*`` stats and ``journal_recovered_requests``."""
         out = {
             "requests_completed": float(len(self.completions)),
             "tokens_emitted": float(self._tokens_emitted),
@@ -2418,6 +3107,13 @@ class Scheduler:
             "admitted_requests": float(self._admitted_requests),
             "admit_dispatches": float(self._admit_dispatches),
             "pipeline_depth": float(self.pipeline_depth),
+            "retries": float(self._retries),
+            "retry_exhausted": float(self._retry_exhausted),
+            "rebuilds": float(self._rebuilds),
+            "shed": float(self._shed),
+            "watchdog_trips": float(self._watchdog_trips),
+            "evicted_requests": float(self._evicted_requests),
+            "health_state": float(self.health.code),
             "decode_steps": float(self.engine.decode_steps_taken),
             "cache_bytes": float(self.engine.cache_bytes()),
             "prefix_hits": float(self._prefix_hit_count),
@@ -2465,6 +3161,11 @@ class Scheduler:
         if self.engine.chunked_prefill_enabled:
             out["chunked_admissions"] = float(self._chunked_admissions)
             out["chunked_chunks"] = float(self._chunked_chunks)
+        if self.journal is not None:
+            for k, v in self.journal.stats().items():
+                out[f"journal_{k}"] = v
+            out["journal_recovered_requests"] = float(
+                self._journal_recovered)
         g = self._gate
         tn = self._tuner
         if g is not None or (tn is not None and "spec_k" in tn.knobs):

@@ -29,9 +29,11 @@ JAX package's bundles too and renders the text its report does.
 Replay caveats (recorded in the output, not silently ignored):
 requests carrying a schema constraint are skipped (the automaton object
 is not serialisable); recorded deadlines are dropped (absolute clock
-times from a dead process). A bundle carrying a fault plan (the JAX
-package's resilience layer) replays only clean, with ``--no-faults``:
-the port's fault injection comes with its resilience slice.
+times from a dead process); a recorded fault plan is re-armed by seam
+index, so faults may land on slightly different calls than in the
+original run (the trace is submitted as fast as the queue drains) —
+which is the point: the streams must not depend on where faults land.
+``--no-faults`` replays clean.
 """
 
 from __future__ import annotations
@@ -288,9 +290,9 @@ def replay_bundle(path: str, *, no_faults: bool = False,
                   params_init_seed: Optional[int] = None,
                   device: Optional[str] = None,
                   verbose: bool = True) -> Dict[str, Any]:
-    """Rebuild the bundle's engine and scheduler, re-run the recorded
-    request trace, and compare every replayed stream to the recorded
-    emitted prefix. The weights are ``gpt.init`` at the manifest's
+    """Rebuild the bundle's engine, scheduler and fault plan (unless
+    ``no_faults``), re-run the recorded request trace, and compare every
+    replayed stream to the recorded emitted prefix. The weights are ``gpt.init`` at the manifest's
     ``{"params": {"init_seed": N}}`` (or ``params_init_seed``) with a
     generator on the replay device, whose type must be the recorded
     one (CPU and CUDA generators draw different weights). ``device``
@@ -298,11 +300,6 @@ def replay_bundle(path: str, *, no_faults: bool = False,
     machine-readable result (the CLI prints it; ``mismatches``
     non-empty = exit 1)."""
     bundle = read_bundle(path)
-    if bundle.get("fault_plan.json") and not no_faults:
-        raise SystemExit(
-            "the bundle carries a fault plan: re-arming it needs the "
-            "port's resilience slice (ROADMAP queue 1 item 3); replay "
-            "it clean with --no-faults")
     cfg_d = dict(bundle["config.json"]["engine"]["model"])
     ecfg_d = dict(bundle["config.json"]["engine"]["engine"])
     sched_d = bundle["config.json"]["scheduler"]
@@ -327,6 +324,12 @@ def replay_bundle(path: str, *, no_faults: bool = False,
     from apex_tpu_torch.models import gpt
     from apex_tpu_torch.serving import Request, SamplingParams
     from apex_tpu_torch.serving.engine import Engine, EngineConfig
+    from apex_tpu_torch.serving.resilience import (
+        EngineFailed,
+        FaultPlan,
+        FaultSpec,
+        ResilienceConfig,
+    )
     from apex_tpu_torch.serving.scheduler import (
         QueueFull,
         Scheduler,
@@ -358,7 +361,15 @@ def replay_bundle(path: str, *, no_faults: bool = False,
     ecfg = EngineConfig(**e_kwargs)
     params = gpt.init(cfg, torch.Generator(device=dev).manual_seed(
         int(seed)), device=dev)
-    engine = Engine(cfg, params, ecfg, device=dev)
+    plan = None
+    plan_d = bundle.get("fault_plan.json")
+    if plan_d and not no_faults:
+        plan = FaultPlan([FaultSpec(
+            point=s["point"], index=s["index"], kind=s["kind"],
+            slots=tuple(s.get("slots", (0,))),
+            hang_s=s.get("hang_s", 0.0), token=s.get("token", -1))
+            for s in plan_d["specs"]])
+    engine = Engine(cfg, params, ecfg, device=dev, fault_plan=plan)
     for template in eng_d.get("prefix_templates", []):
         engine.register_prefix(template)
     # adapters in the RECORDED order, so ids line up with the request
@@ -406,6 +417,8 @@ def replay_bundle(path: str, *, no_faults: bool = False,
         max_queue=sched_d.get("max_queue", 256),
         pipeline_depth=sched_d.get("pipeline_depth", 1),
         max_admit_batch=sched_d.get("max_admit_batch"),
+        resilience=(ResilienceConfig(**sched_d["resilience"])
+                    if sched_d.get("resilience") else None),
         tuner=tuner,
         tenancy=tenancy,
         spec_gate=(SpecGateConfig(**gate_d)
@@ -416,6 +429,7 @@ def replay_bundle(path: str, *, no_faults: bool = False,
                   key=lambda r: r["order"])
     skipped: List[Dict[str, Any]] = []
     replayed: List[Dict[str, Any]] = []
+    failed_terminally = False
     for row in rows:
         if row.get("constrained"):
             skipped.append({"request_id": row["request_id"],
@@ -443,7 +457,14 @@ def replay_bundle(path: str, *, no_faults: bool = False,
                 sched.submit(req)
                 break
             except QueueFull:
-                sched.step()
+                sched.step()    # drain; an injected flood lands here too
+            except EngineFailed:
+                failed_terminally = True
+                skipped.append({"request_id": row["request_id"],
+                                "why": "engine failed terminally"})
+                break
+        if failed_terminally:
+            break
         replayed.append(row)
     sched.run_until_idle()
 
@@ -482,7 +503,9 @@ def replay_bundle(path: str, *, no_faults: bool = False,
         "matched": matched,
         "mismatches": mismatches,
         "skipped": skipped,
-        "faults_reinjected": 0,
+        "faults_reinjected": (len(plan.injected)
+                              if plan is not None else 0),
+        "health": sched.health.state,
         "streams": {rid: list(c.tokens)
                     for rid, c in sorted(sched.completions.items())},
     }

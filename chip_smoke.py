@@ -4183,6 +4183,510 @@ def phase_telemetry(cfg, params, band: float, card: str, prof5):
 
 
 # ---------------------------------------------------------------------------
+# phase 41: serving resilience — faults and recovery, the journal, the fleet
+# ---------------------------------------------------------------------------
+
+#: (a)'s engines: serve()'s contiguous geometry (a decode step after a
+#: rebuild launches what phase 6's does) and the paged one with a pooled
+#: prefix, both with admission groups of one: a replayed request prefills
+#: at the shape its first admission had, so its replay is its own stream
+#: bit for bit
+RS_GEOM = dict(slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON,
+               admit_batch_sizes=(1,))
+RS_PAGED = dict(RS_GEOM, page_size=PAGE, prefix_pool_slots=1)
+#: (a)'s and (d)'s traces: bench's shape, this many requests of RS_NEW
+#: tokens; paged, the even ones start with a registered prefix of
+#: RS_PREFIX tokens (a bucket, page-aligned)
+RS_REQS, RS_NEW, RS_PREFIX = 6, 12, 16
+#: the real hang of (a) and the watchdog timeout below it
+RS_HANG_S, RS_WATCHDOG_S = 1.0, 0.5
+#: (a)'s plans, one a seam: (specs, nan/hang argument)
+RS_SEAMS = {
+    "admit_error": [("admit", 0, "error", {})],
+    "admit_nan": [("admit", 0, "nan", {"slots": (1,)})],
+    "dispatch_error": [("dispatch", 2, "error", {})],
+    "fetch_error": [("fetch", 2, "error", {})],
+    "fetch_nan": [("fetch", 2, "nan", {"slots": (1,)})],
+    "retire_error": [("retire", 0, "error", {})],
+    "hang_watchdog": [("fetch", 2, "hang", {"hang_s": RS_HANG_S})],
+}
+#: (c)'s drill children and (e)'s example run on the card, on the 355M
+RS_DEVICE, RS_PRESET = "cuda", "355m"
+#: the launch counts phase 41 reports, and the rows they are added to
+RS_ROWS = ("flash_attention_bsh", "decode_attention_write",
+           "paged_attention_write")
+
+
+class _RsClock:
+    """A fake scheduler clock: sleeping (backoffs) advances it, so a
+    recovery's retries cost no wall time."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def sleep(self, s):
+        self.t += s
+
+
+def _rs_trace(vocab: int, paged: bool, seed0: int = 4100, n: int = RS_REQS,
+              prefix=None, tag: str = "q"):
+    reqs = bench_trace(vocab, n=n, max_tokens=RS_NEW, seed0=seed0)
+    for r in reqs:
+        r.request_id = f"{tag}{r.request_id}"
+    if paged:
+        for i, r in enumerate(reqs):
+            if i % 2 == 0:
+                r.prompt = list(prefix) + list(r.prompt)[:8]
+    return reqs
+
+
+def _rs_serve(engine, reqs, plan=None, *, deadline_at=None, rcfg=None,
+              **kw):
+    """Serve ``reqs`` through a new scheduler over ``engine`` armed with
+    ``plan``, the launch counts zeroed just before and read just after:
+    on the fake clock (with ``deadline_at``, a request ``doomed`` of
+    deadline 5.0 joins and the clock jumps past it after the first
+    tick), or with ``rcfg``'s watchdog on the real one. Returns the
+    scheduler, the counts, the engine counters' deltas, the streams and
+    each request's streamed tokens."""
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Request, Scheduler
+    from apex_tpu_torch.serving.resilience import ResilienceConfig
+
+    engine.fault_plan = plan
+    clock = kw.pop("clock", None)
+    if clock is None and rcfg is None:
+        clock = _RsClock()
+    if clock is not None:
+        kw.update(clock=clock, sleep=clock.sleep)
+    sched = Scheduler(engine, resilience=rcfg or ResilienceConfig(
+        backoff_base_s=0.005), **kw)
+    before = {k: getattr(engine, k) for k in ENGINE_COUNTERS}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for r in reqs:
+        sched.submit(r)
+    if deadline_at is not None:
+        sched.submit(Request("doomed", [1, 2, 3], max_tokens=RS_NEW,
+                             deadline=5.0))
+        sched.step()
+        clock.t = deadline_at
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    engine.fault_plan = None
+    delta = {k: getattr(engine, k) - v for k, v in before.items()}
+    streamed = {}
+    for e in sched.events:
+        if e.token is not None:
+            streamed.setdefault(e.request_id, []).append(e.token)
+    return (sched, counts, delta,
+            {k: c.tokens for k, c in sched.completions.items()}, streamed)
+
+
+def _rs_plan(specs, hang_fn=time.sleep):
+    from apex_tpu_torch.serving.resilience import FaultPlan, FaultSpec
+
+    return FaultPlan([FaultSpec(p, i, k, **kw) for p, i, k, kw in specs],
+                     hang_fn=hang_fn)
+
+
+def _rs_rebuild_probe(engine, out: list, label: list):
+    """Wrap ``engine.rebuild_slots`` to record, for each rebuild, ``label[0]``
+    (the run), the device memory allocated just before and just after it
+    (Python's garbage collected first at both ends: a cycle the collector
+    happens to free mid-call is not the rebuild's) and its wall ms, the
+    stream synchronised on both sides."""
+    real = engine.rebuild_slots
+
+    def probe():
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        real()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gc.collect()
+        out.append((label[0], before, torch.cuda.memory_allocated(), ms))
+
+    engine.rebuild_slots = probe
+    return real
+
+
+def _rs_kernels(what, counts, delta, L, paged: bool) -> None:
+    check_prefills(what, counts, delta, L)
+    on = ("paged_attention_write",) if paged else ("decode_attention_write",)
+    check_decode_step_kernels(what, counts, on, delta["decode_steps_taken"],
+                              L)
+
+
+def _rs_get(url: str):
+    """GET ``url``: (status, body text), an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+def phase_resilience(cfg, params, card: str, prof5):
+    """Phase 41: serving resilience on the serving model. ``prof5`` is
+    phase 6's profile. Returns the launch counts of rows 5, 10 (with 7)
+    and 17 (with 13) over the served runs, and the numbers; each line
+    names ``card``.
+
+    (a) a plan a seam (admit error and nan, dispatch error, fetch error
+    and nan, retire error at a deadline's retire, and a real hang of
+    RS_HANG_S against a watchdog of RS_WATCHDOG_S) on the contiguous
+    engine and on the paged one with a registered prefix: every stream
+    (greedy and seeded sampled) bit-identical to the unfaulted run's and
+    each streamed token once, one rebuild (the hang: a watchdog trip and
+    none), the device memory allocated equal before and after each
+    rebuild, the pinned prefix pages bit-unchanged and hit after the
+    rebuild, rows 5, 10 and 17 on every layer of every admission group
+    and decode step; then phase 6's window on the rebuilt contiguous
+    engine launches phase 6's kernels a decode step.
+    (b) a rebuild storm (admission errors, two rebuilds allowed in a
+    row): the health machine ``failed``, every request an ``error``
+    outcome, ``submit`` raising ``EngineFailed``; the API server over
+    that scheduler answers ``/healthz`` and a chat with 503.
+    (c) ``sigkill_drill`` on the card: a CUDA child serving the 355M
+    killed with SIGKILL mid-stream, recovered from its journal in a
+    fresh child: every stream bit-identical to an uninterrupted
+    child's.
+    (d) two replicas sharing the weights under ``FleetFaultPlan.kill(1,
+    2, at=2)``: every stream bit-identical to one replica's, ``/healthz``
+    200 throughout; then replica 1 restarted from a factory (its engine
+    rebuilt) and, mid-burst, drained, rebuilt and readmitted with nothing
+    shed, the second burst's streams one replica's too.
+    (e) one ``serve_gpt`` subprocess on the 355M with ``--fault-plan``,
+    ``--journal-dir``, ``--replicas 2 --kill-replica 1@3``,
+    ``--host-swap`` and the telemetry flags (``--metrics-port 0``,
+    ``--slo``, ``--bundle-dir``): exit 0, every request served in full,
+    each flag's report printed, the scraped ``serving_fleet_routed_total``
+    and ``serving_fleet_failed_over_requests_total`` the router's counts
+    (8 placements and one a request failed over).
+
+    (c)'s children and (e)'s subprocess run beside (a), (b) and (d):
+    other processes, so this process's launch counts and memory are
+    (a)'s alone."""
+    import tempfile
+    import threading
+
+    from apex_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import Engine, EngineConfig, Scheduler
+    from apex_tpu_torch.serving import fleet, resilience
+    from apex_tpu_torch.serving.api import start_api_server
+    from apex_tpu_torch.telemetry import Registry, parse_prometheus_text
+
+    L, V = cfg.num_layers, cfg.vocab_size
+    out, total = {}, {k: 0 for k in RS_ROWS}
+    tmp = tempfile.mkdtemp(prefix="phase41-")
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k in RS_ROWS:
+            total[k] += counts[k]
+
+    # (e) starts now and runs beside the rest: the example, every
+    # resilience flag, the host tier and the telemetry flags in one run
+    example = subprocess.Popen(
+        [sys.executable, "-m", "apex_tpu_torch.examples.serve_gpt",
+         "--preset", RS_PRESET, "--device", RS_DEVICE, "--slots", "4",
+         "--num-requests", "8", "--max-tokens", "12", "--page-size",
+         str(PAGE), "--host-swap", "--resume-policy", "swap",
+         "--replicas", "2", "--kill-replica", "1@3", "--fault-plan",
+         "fetch:2:nan:0,dispatch:5:error", "--journal-dir",
+         f"{tmp}/journal", "--metrics-port", "0", "--slo",
+         "p99:ttft:5.0,p95:e2e:30.0", "--bundle-dir", f"{tmp}/bundles"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    # (c)'s children (reference, victim, recovery) run beside (a), (b),
+    # (d)
+    drill: dict = {}
+
+    def run_drill():
+        try:
+            drill.update(resilience.sigkill_drill(
+                f"{tmp}/drill", requests=3, max_tokens=10,
+                kill_after_tokens=6, device=RS_DEVICE, preset=RS_PRESET,
+                timeout_s=300.0))
+        except Exception as e:          # reported by (c)'s check below
+            drill["error"] = repr(e)
+
+    drill_thread = threading.Thread(target=run_drill, daemon=True)
+    t_drill = time.perf_counter()
+    drill_thread.start()
+
+    # (a) each seam, contiguous and paged with a registered prefix
+    t = time.perf_counter()
+    prefix = np.random.default_rng(4099).integers(0, V, RS_PREFIX).tolist()
+    rebuilds, seams, label = [], {}, [""]
+    engines = {}
+    for layout, geom in (("contiguous", RS_GEOM), ("paged", RS_PAGED)):
+        paged = layout == "paged"
+        engine = engines[layout] = Engine(cfg, params, EngineConfig(**geom))
+        if paged:
+            engine.register_prefix(prefix)
+            pinned = _pinned(engine)
+        real = _rs_rebuild_probe(engine, rebuilds, label)
+        reqs = _rs_trace(V, paged, prefix=prefix)
+        _, c0, d0, base, _ = _rs_serve(engine, reqs)
+        _rs_kernels(f"resilience (a) {layout} clean", c0, d0, L, paged)
+        add(c0)
+        _, c0, d0, base_retire, _ = _rs_serve(engine, reqs, deadline_at=6.0)
+        add(c0)
+        for seam, specs in RS_SEAMS.items():
+            what = label[0] = f"resilience (a) {layout} {seam}"
+            plan = _rs_plan(specs)
+            kw = {}
+            if seam == "retire_error":
+                kw = dict(deadline_at=6.0)
+            elif seam == "hang_watchdog":
+                kw = dict(rcfg=resilience.ResilienceConfig(
+                    watchdog_timeout_s=RS_WATCHDOG_S))
+            n0 = len(rebuilds)
+            sched, c1, d1, got, streamed = _rs_serve(engine, reqs, plan,
+                                                     **kw)
+            _rs_kernels(what, c1, d1, L, paged)
+            add(c1)
+            want = base_retire if seam == "retire_error" else base
+            s = sched.summary()
+            check(len(plan.injected) == len(specs),
+                  f"{what}: {len(plan.injected)} faults fired")
+            check(got == want, f"{what}: streams differ from the "
+                  f"unfaulted run's: " + str({
+                      k: (got.get(k), want[k]) for k in want
+                      if got.get(k) != want[k]}))
+            check(all(streamed.get(r.request_id, []) == got[r.request_id]
+                      for r in reqs), f"{what}: a token streamed twice or "
+                  f"lost")
+            if seam == "hang_watchdog":
+                check(s["watchdog_trips"] >= 1 and s["rebuilds"] == 0,
+                      f"{what}: {s['watchdog_trips']} watchdog trips, "
+                      f"{s['rebuilds']} rebuilds")
+            else:
+                check(s["rebuilds"] == 1 == len(rebuilds) - n0,
+                      f"{what}: {s['rebuilds']} rebuilds")
+            check(not engine.poisoned, f"{what}: the engine is poisoned")
+            if paged:
+                _check_shared(what, engine, pinned)
+                check(d1["prefix_admits"] >= 1, f"{what}: no prefix hit")
+            seams[f"{layout} {seam}"] = dict(
+                rebuilds=s["rebuilds"], retries=s["retries"],
+                watchdog_trips=s["watchdog_trips"],
+                decode_steps=d1["decode_steps_taken"],
+                prefix_admits=d1["prefix_admits"])
+        engine.rebuild_slots = real
+    grew = [(w, b, a) for w, b, a, _ in rebuilds if b != a]
+    check(not grew, f"resilience (a): a rebuild changed the memory "
+          f"allocated: {grew}")
+    engine = engines["contiguous"]
+    prof = phase_profile(cfg, engine, what="resilience (a) after rebuilds")
+    want_l = None if prof5 is None else prof5["launches_per_decode_step"]
+    got_l = None if prof is None else prof["launches_per_decode_step"]
+    check(want_l is None or got_l == want_l,
+          f"resilience (a): a decode step after the rebuilds launches "
+          f"{got_l}, phase 6's {want_l}")
+    out["a"] = dict(
+        seams=seams, rebuild_ms=[round(ms, 3) for *_, ms in rebuilds],
+        rebuild_ms_median=statistics.median(ms for *_, ms in rebuilds),
+        memory_allocated=[b for _, b, _, _ in rebuilds],
+        launches_per_decode_step=got_l, phase6_launches=want_l,
+        phase_s=time.perf_counter() - t)
+    log(f"resilience (a) ({card}): " + json.dumps(out["a"]))
+    del engines
+
+    # (b) a rebuild storm: terminal, and the front end's 503s
+    t = time.perf_counter()
+    plan = _rs_plan([("admit", i, "error", {}) for i in range(6)])
+    sched, c1, _, got, _ = _rs_serve(
+        engine, _rs_trace(V, False, n=2, tag="s"), plan,
+        rcfg=resilience.ResilienceConfig(max_retries=10,
+                                         backoff_base_s=0.001,
+                                         max_consecutive_rebuilds=2),
+        clock=_RsClock())
+    add(c1)
+    check(sched.health.state == "failed"
+          and all(c.finish_reason == "error"
+                  for c in sched.completions.values())
+          and len(sched.completions) == 2,
+          f"resilience (b): health {sched.health.state}, outcomes "
+          f"{[c.finish_reason for c in sched.completions.values()]}")
+    try:
+        sched.submit(bench_trace(V, n=1, seed0=4400)[0])
+        check(False, "resilience (b): a failed engine took a request")
+    except resilience.EngineFailed:
+        pass
+    api = start_api_server(sched, port=0)
+    try:
+        health = _rs_get(api.url + "/healthz")
+        status, _, body = _http(api.port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hi"}],
+            "max_tokens": 4})
+    finally:
+        api.stop()
+    check(health[0] == 503 and health[1].startswith("failed")
+          and status == 503 and body["error"]["code"] == "engine_failed",
+          f"resilience (b): /healthz {health}, chat {status} {body}")
+    engine.rebuild_slots()
+    out["b"] = dict(health=sched.health.state, healthz=list(health),
+                    chat_status=status, rebuilds=sched.summary()["rebuilds"],
+                    phase_s=time.perf_counter() - t)
+    log(f"resilience (b) ({card}): " + json.dumps(out["b"]))
+    del sched, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) two replicas sharing the weights, one killed mid-burst
+    t = time.perf_counter()
+    clock = _RsClock()
+    eng_a = Engine(cfg, params, EngineConfig(**RS_GEOM))
+    eng_b = Engine(cfg, params, EngineConfig(**RS_GEOM))
+    burst1 = _rs_trace(V, False, seed0=4200, n=8, tag="k")
+    burst2 = _rs_trace(V, False, seed0=4300, n=8, tag="d")
+    ref = {}
+    for burst in (burst1, burst2):
+        _, c0, d0, got, _ = _rs_serve(eng_a, burst)
+        add(c0)
+        ref.update(got)
+    kill = resilience.FleetFaultPlan.kill(1, 2, at=2)
+    eng_b.fault_plan = kill[1]
+    rcfg = resilience.ResilienceConfig(max_retries=8, backoff_base_s=0.001,
+                                       watchdog_timeout_s=600.0)
+    regs = [Registry(), Registry()]
+    scheds = [Scheduler(e, clock=clock, sleep=clock.sleep, resilience=rcfg,
+                        registry=r) for e, r in zip((eng_a, eng_b), regs)]
+
+    def factory(i):
+        eng_b.fault_plan = None
+        eng_b.rebuild_slots()
+        return Scheduler(eng_b, clock=clock, sleep=clock.sleep,
+                         resilience=rcfg)
+
+    router = fleet.Router(scheds, factory=factory, clock=clock)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for r in burst1:
+        router.submit(r)
+    statuses, streamed = [], {}
+    while not router.idle():
+        router.step()
+        statuses.append(router.health.healthz()[0])
+        for ev in router.pop_events():
+            if ev.token is not None:
+                streamed.setdefault(ev.request_id, []).append(ev.token)
+        router._maybe_sleep()
+    torch.cuda.synchronize()
+    add(launch_counts())
+    s1 = router.summary()
+    got = {r.request_id: router.completions[r.request_id].tokens
+           for r in burst1}
+    check(router.replicas[1].state == fleet.REPLICA_FAILED
+          and set(statuses) == {200} and s1["failed_over_requests"] >= 1,
+          f"resilience (d): replica 1 {router.replicas[1].state}, "
+          f"/healthz {sorted(set(statuses))}, {s1}")
+    check(got == {r.request_id: ref[r.request_id] for r in burst1}
+          and all(streamed.get(k) == v for k, v in got.items()),
+          "resilience (d): the failed-over streams differ from one "
+          "replica's")
+    rederived = parse_prometheus_text(regs[0].to_prometheus_text())[
+        "serving_replayed_tokens_total"][()]
+    router.restart(1)
+    reset_launch_counts()
+    for r in burst2:
+        router.submit(r)
+    for _ in range(2):
+        router.step()
+    check(bool(router.replicas[1].sched.active),
+          "resilience (d): replica 1 had nothing to drain")
+    router.drain(1)
+    router.run_until_idle()
+    torch.cuda.synchronize()
+    add(launch_counts())
+    s2 = router.summary()
+    shed = sum(rep.sched.summary()["shed"] for rep in router.replicas)
+    check(all(router.completions[r.request_id].tokens == ref[r.request_id]
+              for r in burst2) and s2["drains"] == 1 and shed == 0
+          and s2["aborted_requests"] == 0,
+          f"resilience (d): the drained burst {s2}, {shed} shed")
+    router.close()
+    out["d"] = dict(
+        failover_waves=s1["failover_waves"],
+        failed_over_requests=s1["failed_over_requests"],
+        rederived_tokens=rederived, routed=s2["routed"],
+        restarts=s2["restarts"], drains=s2["drains"], shed=shed,
+        phase_s=time.perf_counter() - t)
+    log(f"resilience (d) ({card}): " + json.dumps(out["d"]))
+    del router, scheds, eng_a, eng_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the SIGKILL drill's children, killed and recovered meanwhile
+    drill_thread.join(timeout=600)
+    check(not drill_thread.is_alive() and "error" not in drill
+          and drill.get("parity") and drill["recovered_requests"] >= 1,
+          f"resilience (c): the drill {drill.get('error')}, recovered "
+          f"{drill.get('recovered')} against {drill.get('reference')}")
+    out["c"] = {k: drill[k] for k in (
+        "parity", "killed_at_tokens", "recovery_ms", "journal_fsync_ms",
+        "recovered_requests", "child_s")}
+    out["c"]["phase_s"] = time.perf_counter() - t_drill
+    log(f"resilience (c) ({card}): " + json.dumps(out["c"]))
+
+    # (e) the example, started first
+    try:
+        stdout, stderr = example.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        example.kill()
+        stdout, stderr = example.communicate()
+    lines = stdout.splitlines()
+    check(example.returncode == 0, f"resilience (e): serve_gpt exited "
+          f"{example.returncode}: {stderr[-3000:]}")
+    served = json.loads(next(x for x in lines
+                             if x.startswith("served "))[7:])
+    finished = [x for x in lines if x.startswith("request r")]
+    want = ("chaos: 2 fault(s) fired", "fleet after kill drill: 4 fault(s) "
+            "fired, /healthz 200", "parked ", "journal ", "metrics scrape",
+            "slo p", "bundle: ")
+    missing = [w for w in want if not any(x.startswith(w) for x in lines)]
+    check(not missing and served["requests_completed"] == 8.0
+          and len(finished) == 8
+          and all("[length]" in x for x in finished),
+          f"resilience (e): missing {missing}, served {served}")
+    # the fleet registry's families, scraped live from the endpoint,
+    # against the router's own counts: 8 placements and one a failover
+    scrape = dict(kv.split("=") for kv in next(
+        x for x in lines if x.startswith("metrics scrape")).split(
+            ", ")[1].split())
+    scrape = {k: float(v) for k, v in scrape.items()}
+    check(scrape.get("serving_fleet_routed_total") == served["routed"]
+          == 8.0 + served["failed_over_requests"]
+          and scrape.get("serving_fleet_failed_over_requests_total")
+          == served["failed_over_requests"] >= 1.0,
+          f"resilience (e): scraped {scrape}, served {served}")
+    out["e"] = dict(requests_completed=served["requests_completed"],
+                    routed=served["routed"],
+                    failed_over_requests=served["failed_over_requests"],
+                    replica1_health=served["replica1_health"],
+                    scrape=scrape,
+                    lines=[x for x in lines if x.startswith(want + (
+                        "slo ",))],
+                    phase_s=time.perf_counter() - t_phase)
+    log(f"resilience (e) ({card}): " + json.dumps(out["e"]))
+    out["launches"] = total
+    log(f"resilience launches ({card}): " + json.dumps(total))
+    return total, out
+
+
+# ---------------------------------------------------------------------------
 # phase 19: the quantized-cache kernels vs plain, at the path's shapes
 # ---------------------------------------------------------------------------
 
@@ -9763,6 +10267,10 @@ def main() -> int:
         t = time.perf_counter()
         tl_launches, _ = phase_telemetry(cfg, params, band, card, prof5)
         log(f"telemetry phase {time.perf_counter() - t:.1f}s")
+        # serving resilience: faults, recovery, the journal, the fleet
+        t = time.perf_counter()
+        rs_launches, _ = phase_resilience(cfg, params, card, prof5)
+        log(f"resilience phase {time.perf_counter() - t:.1f}s")
         # the quantized cache, on the same serving model
         t = time.perf_counter()
         quant_rows = phase_quant_kernels()
@@ -10027,6 +10535,17 @@ def main() -> int:
                         ("paged_attention_write", "paged_attention_write"),
                         ("paged_verify_attention", "paged_verify_attention")):
         rows[name]["telemetry_launches"] = tl_launches[fused]
+    # phase 41's runs: row 5 for every admission group, rows 7 + 10 (the
+    # fused contiguous step) and 13 + 17 (the fused paged step) for every
+    # decode step
+    for name, fused in (("flash_attention_bsh", "flash_attention_bsh"),
+                        ("decode_write_column", "decode_attention_write"),
+                        ("decode_attention", "decode_attention_write"),
+                        ("decode_attention_write", "decode_attention_write"),
+                        ("paged_write_column", "paged_attention_write"),
+                        ("paged_attention", "paged_attention_write"),
+                        ("paged_attention_write", "paged_attention_write")):
+        rows[name]["resilience_launches"] = rs_launches[fused]
     # the four reads at the 2.7B's decode shape, with their launches in
     # its serving trace (paged int8 for row 18); rows 10 and 17 with the
     # fused launch's, as on the 355M's path

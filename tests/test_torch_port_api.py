@@ -27,8 +27,11 @@ Oracles, over real sockets (``http.client``, servers on port 0):
   cpu --num-requests 6`` exits 0, and with ``--adapters 2`` its front end
   lists the two adapters; each telemetry and tuner flag runs and prints
   its output (the scrape, the span trace, the bundle, the SLO report,
-  the tuner's decisions); each refused flag raises naming its ROADMAP
-  item; without ``--device cpu`` and no card it raises.
+  the tuner's decisions); each resilience flag runs (``--fault-plan``,
+  ``--journal-dir`` twice — the second run resumes a journal cut short,
+  ``--replicas`` and ``--kill-replica``); each refused flag raises
+  naming its ROADMAP item's title; without ``--device cpu`` and no card
+  it raises.
 """
 
 import http.client
@@ -487,13 +490,134 @@ def test_example_serves_on_the_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "item 5"), (["--ckpt", "x.atck"], "item 7"),
-    (["--journal-dir", "j"], "item 3"), (["--fault-plan", "random:1"],
-                                         "item 3"),
-    (["--replicas", "2"], "item 3"), (["--kill-replica", "1@4"], "item 3")])
+    (["--tp", "2"], '"Multi-GPU parallelism"'),
+    (["--ckpt", "x.atck"], '"Infrastructure and the closing gate"')])
 def test_example_refuses_unported_flags(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP queue 1 {item}"):
+    with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
         serve_gpt.main(["--preset", "tiny", "--device", "cpu"] + flags)
+
+
+def _served(lines):
+    return json.loads(next(line for line in lines
+                           if line.startswith("served "))[7:])
+
+
+def _streams(lines):
+    return {line.split()[1]: line.split("->")[1].strip()
+            for line in lines if line.startswith("request r")}
+
+
+@pytest.fixture(scope="module")
+def clean_example_streams():
+    """The tiny preset's 6-request trace served without a flag."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_gpt.main(["--preset", "tiny", "--device", "cpu"])
+    return _streams(out.getvalue().splitlines())
+
+
+@pytest.mark.parametrize("flag", ["fault-plan", "journal-dir", "replicas",
+                                  "kill-replica", "fleet-all", "bad-specs"])
+def test_example_resilience_flags(flag, tmp_path, capsys,
+                                  clean_example_streams):
+    """Each resilience flag runs on the tiny preset, the streams those of
+    a run without it: a fault plan fires and recovers; a journal cut
+    short resumes its unfinished streams on a rerun; a 2-replica fleet
+    serves; a killed replica fails over."""
+    base = ["--preset", "tiny", "--device", "cpu"]
+    if flag == "bad-specs":
+        for extra, msg in ((["--fault-plan", "fetch:1"], "--fault-plan"),
+                           (["--kill-replica", "1@2"], "--replicas >= 2"),
+                           (["--replicas", "0"], "--replicas must"),
+                           (["--replicas", "2", "--kill-replica", "5@2"],
+                            "--kill-replica")):
+            with pytest.raises(SystemExit, match=msg):
+                serve_gpt.main(base + extra)
+        return
+    if flag == "journal-dir":
+        jdir = str(tmp_path / "j")
+        # the first run stops after its twelfth tick (two requests done,
+        # four unfinished); the rerun resumes them
+        from apex_tpu_torch.serving import Scheduler
+
+        real_step, ticks = Scheduler.step, [0]
+
+        def step(self):
+            ticks[0] += 1
+            if ticks[0] == 12:
+                import signal
+
+                signal.raise_signal(signal.SIGTERM)
+            real_step(self)
+
+        Scheduler.step = step
+        try:
+            serve_gpt.main(base + ["--journal-dir", jdir])
+        finally:
+            Scheduler.step = real_step
+        first = capsys.readouterr().out.splitlines()
+        assert any(line.startswith("sigterm: stopped") for line in first)
+        done = _streams(first)
+        assert 0 < len(done) < 6
+        serve_gpt.main(base + ["--journal-dir", jdir])
+        lines = capsys.readouterr().out.splitlines()
+        resumed = next(line for line in lines
+                       if line.startswith("journal: resumed"))
+        assert int(resumed.split()[2]) == 6 - len(done)
+        assert {**done, **_streams(lines)} == clean_example_streams
+        return
+    extra = {
+        "fault-plan": ["--fault-plan", "fetch:2:nan:0,dispatch:5:error"],
+        "replicas": ["--replicas", "2"],
+        "kill-replica": ["--replicas", "2", "--kill-replica", "1@2"],
+        # everything at once, as the card's run takes it: per-replica
+        # journals, the host tier's demo on replica 0, the plan on it,
+        # the fleet's metrics endpoint, objectives and bundle
+        "fleet-all": ["--replicas", "2", "--kill-replica", "1@2",
+                      "--fault-plan", "fetch:2:nan:0",
+                      "--journal-dir", str(tmp_path / "jf"),
+                      "--page-size", "8", "--host-swap",
+                      "--resume-policy", "swap", "--metrics-port", "0",
+                      "--slo", "p99:ttft:5.0,p95:e2e:30.0",
+                      "--bundle-dir", str(tmp_path / "b")],
+    }[flag]
+    serve_gpt.main(base + extra)
+    lines = capsys.readouterr().out.splitlines()
+    assert _streams(lines) == clean_example_streams
+    served = _served(lines)
+    assert served["requests_completed"] == 6.0
+    if flag == "fault-plan":
+        chaos = next(line for line in lines if line.startswith("chaos: "))
+        assert chaos.startswith("chaos: 2 fault(s) fired")
+        assert served["rebuilds"] == 2.0
+    elif flag == "fleet-all":
+        assert any(line.startswith("chaos: 1 fault(s) fired")
+                   for line in lines)
+        assert any(line.startswith("parked ") for line in lines)
+        assert sum(line.startswith("journal ") for line in lines) == 2
+        assert served["replica1_health"] == 3.0
+        # the fleet registry's families, scraped live, agree with the
+        # router's own counts
+        scrape = next(line for line in lines
+                      if line.startswith("metrics scrape: "))
+        got = dict(kv.split("=") for kv in scrape.split(", ")[1].split())
+        assert float(got["serving_fleet_routed_total"]) == served["routed"]
+        assert float(got["serving_fleet_failed_over_requests_total"]) \
+            == served["failed_over_requests"] > 0
+        assert served["routed"] == 6.0 + served["failed_over_requests"]
+        assert any(line.startswith("slo p95:e2e:30: ") for line in lines)
+        assert any(line.startswith("bundle: ") for line in lines)
+    elif flag == "replicas":
+        assert served["replicas"] == 2.0 and served["routed"] == 6.0
+    else:
+        drill = next(line for line in lines
+                     if line.startswith("fleet after kill drill"))
+        assert "4 fault(s) fired, /healthz 200" in drill
+        assert served["failed_over_requests"] >= 1.0
+        assert served["replica1_health"] == 3.0
 
 
 @pytest.mark.parametrize("flag", ["metrics-port", "metrics-linger",

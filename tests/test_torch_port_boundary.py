@@ -3,9 +3,10 @@ and touches CUDA, and where it refuses to run.
 
 - Every module of the package (the serving front end's too: the tenancy
   book, ``serving/api/*``, ``examples/serve_gpt.py`` and
-  ``examples/generate.py``; and the telemetry layer: ``telemetry/*``,
-  ``serving/tuner.py``, ``profiler.py`` and ``_atomic.py``) imports in a
-  subprocess whose
+  ``examples/generate.py``; the telemetry layer: ``telemetry/*``,
+  ``serving/tuner.py``, ``profiler.py`` and ``_atomic.py``; and the
+  resilience layer: ``serving/resilience.py``, ``serving/journal.py`` and
+  ``serving/fleet.py``) imports in a subprocess whose
   ``sys.meta_path`` blocks ``jax``, ``jaxlib`` and ``apex_tpu`` (the exact
   name and the ``apex_tpu.`` prefix — not the string prefix, which would
   also block ``apex_tpu_torch``), and the import neither builds the
@@ -80,6 +81,10 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         "apex_tpu_torch.telemetry.flightrec",
         "apex_tpu_torch.telemetry.http",
         "apex_tpu_torch.telemetry.replay")))
+    print("RESILIENCE", all(n in names for n in (
+        "apex_tpu_torch.serving.resilience",
+        "apex_tpu_torch.serving.journal",
+        "apex_tpu_torch.serving.fleet")))
     print("NO_RECOMPILE", "apex_tpu_torch.telemetry.recompile" not in names)
     print("LEAKED", leaked)
     print("BUILT", _build._info is not None or _build._lib is not None)
@@ -94,14 +99,16 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its fourteen subpackages and their fifty-four modules
+    # the package, its fourteen subpackages and their fifty-seven modules
     # (serving/tenancy.py, serving/hostswap.py, serving/api/*,
     # examples/serve_gpt.py and examples/generate.py among them; the
     # telemetry package's seven, serving/tuner.py, profiler.py and
-    # _atomic.py)
-    assert int(out["MODULES"]) == 69, out
+    # _atomic.py; serving/resilience.py, serving/journal.py and
+    # serving/fleet.py)
+    assert int(out["MODULES"]) == 72, out
     assert out["FRONTEND"] == "True"
     assert out["TELEMETRY"] == "True"
+    assert out["RESILIENCE"] == "True"
     assert out["NO_RECOMPILE"] == "True"
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"

@@ -23,8 +23,9 @@ Oracles:
   parked and queued streams as extensions of their recorded prefixes;
 - ``replay_preemptions`` re-derives every victim of a starved host-swap
   pool's preemptions (JAX's function gives the same verdict);
-- a bundle with a fault plan is refused without ``--no-faults`` naming
-  the resilience slice, and a bundle recorded on another device type is
+- a bundle with a fault plan replays with the plan re-armed (its faults
+  fire, the streams are the recorded ones) and clean with
+  ``no_faults``, and a bundle recorded on another device type is
   refused; ``versions()`` names torch and CUDA.
 """
 
@@ -271,16 +272,27 @@ def test_port_bundle_replays_equal_streams(tmp_path):
         timeout=120, env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     assert json.loads(res.stdout)["matched"] == 6
-    # a fault plan (the JAX package's resilience layer) is refused unless
-    # replayed clean; a recording from another device type is refused
+    # a recorded fault plan is re-armed by seam index: its faults fire
+    # and the streams still replay; --no-faults replays clean. A
+    # recording from another device type is refused
     faulty = str(tmp_path / "faulty")
     shutil.copytree(path, faulty)
+    specs = [dict(point="fetch", index=1, kind="nan", slots=[0],
+                  hang_s=0.0, token=-1),
+             dict(point="dispatch", index=3, kind="error", slots=[0],
+                  hang_s=0.0, token=-1),
+             dict(point="admit", index=2, kind="error", slots=[0],
+                  hang_s=0.0, token=-1)]
     with open(os.path.join(faulty, "fault_plan.json"), "w") as f:
-        json.dump({"specs": [], "injected": [], "counts": {}}, f)
-    with pytest.raises(SystemExit, match="resilience slice"):
-        replay.replay_bundle(faulty, device="cpu", verbose=False)
-    assert replay.replay_bundle(faulty, device="cpu", no_faults=True,
-                                verbose=False)["mismatches"] == []
+        json.dump({"specs": specs, "injected": [], "counts": {}}, f)
+    armed = replay.replay_bundle(faulty, device="cpu", verbose=False)
+    assert armed["faults_reinjected"] == 3
+    assert armed["mismatches"] == [] and armed["matched"] == 6
+    assert armed["streams"] == recorded
+    assert armed["health"] in ("ok", "degraded")
+    clean = replay.replay_bundle(faulty, device="cpu", no_faults=True,
+                                 verbose=False)
+    assert clean["faults_reinjected"] == 0 and clean["mismatches"] == []
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             replay.replay_bundle(path, verbose=False)

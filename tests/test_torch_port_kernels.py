@@ -304,4 +304,8 @@ def test_build_dir_is_content_addressed():
         "flash_attention_bsh_bwd.cu", "flat_ops.cu", "layer_norm.cu",
         "xentropy.cu", "flash_attention.cu", "flash_attention_bwd.cu",
         "softmax.cu", "flash_fwd_tc.cu", "flash_bwd_tc.cu",
-        "flash_bwd_dq_tc.cu", "decode_verify.cu"}
+        "flash_bwd_dq_tc.cu", "decode_verify.cu",
+        # sources that include decode_attention.cu and decode_verify.cu
+        # for the instantiations nvcc compiles beside theirs
+        "decode_attention_paged.cu", "decode_verify_rows8.cu",
+        "decode_verify_paged.cu", "decode_verify_paged_rows8.cu"}
