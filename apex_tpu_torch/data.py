@@ -15,8 +15,9 @@ files are the JAX package's: for the same file, seed and backend the
 batches are its batches, in its order.
 
 The JAX loaders' ``mesh`` (a data-parallel global batch, each host
-reading its process's shard) needs multi-GPU parallelism (ROADMAP queue
-1 item 4); a ``mesh`` other than None raises here.
+reading its process's shard) waits for the distributed slice of the
+loaders' mesh (ROADMAP queue 1 item 4); a ``mesh`` other than None
+raises here.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ RecordLoader = _native.RecordLoader
 
 _MESH = ("a mesh (the data-parallel global batch) is not supported by "
          "apex_tpu_torch yet: ROADMAP queue 1 item 4, multi-GPU "
-         "parallelism")
+         "parallelism (the distributed slice of the loaders' mesh)")
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:

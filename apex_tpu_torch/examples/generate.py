@@ -43,7 +43,8 @@ TINY = dict(vocab_size=1024, hidden_size=128, num_layers=4, num_heads=4,
             seq_len=128, remat=False, compute_dtype=torch.float32)
 
 #: the ROADMAP queue 1 item the unported flag waits for
-_DISTRIBUTED = "ROADMAP queue 1 item 4, multi-GPU parallelism"
+_DISTRIBUTED = ("ROADMAP queue 1 item 4, multi-GPU parallelism: the "
+                "distributed slice of serving and LoRA at tp > 1")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:

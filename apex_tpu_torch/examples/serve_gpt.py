@@ -158,7 +158,8 @@ PRESETS = {
 
 #: the ROADMAP queue 1 item the unported flag waits for, by title (the
 #: items renumber as the queue moves)
-_DISTRIBUTED = 'ROADMAP queue 1, "Multi-GPU parallelism"'
+_DISTRIBUTED = ('ROADMAP queue 1, "Multi-GPU parallelism": the '
+                'distributed slice of serving and LoRA at tp > 1')
 
 
 def load_requests(path: str, vocab_size: int) -> List[Request]:

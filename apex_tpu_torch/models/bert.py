@@ -19,7 +19,8 @@ model calls its Pallas kernel whatever ``ln_impl`` says; the blocks'
 flash forward and LayerNorms included.
 
 At tp=1 ``copy_to_tensor_model_parallel_region`` is the identity;
-``sequence_parallel`` and ``fsdp`` raise (the distributed slice).
+``sequence_parallel`` and ``fsdp`` raise (the distributed slices of
+BERT at tp > 1 and of ZeRO and FSDP).
 """
 
 from __future__ import annotations
@@ -72,11 +73,13 @@ class BertConfig:
     fsdp: bool = False
 
     def __post_init__(self):
-        for name, on in (("sequence_parallel", self.sequence_parallel),
-                         ("fsdp", self.fsdp)):
+        for name, on, later in (
+                ("sequence_parallel", self.sequence_parallel,
+                 "BERT at tp > 1"), ("fsdp", self.fsdp, "ZeRO and FSDP")):
             if on:
                 raise ValueError(f"{name} is not supported by apex_tpu_torch "
-                                 "yet (the distributed slice)")
+                                 f"yet (the distributed slice of {later}, "
+                                 "ROADMAP queue 1 item 4)")
         self.core()      # the core config's own checks
 
     def core(self) -> gpt.GPTConfig:

@@ -25,9 +25,20 @@ or quantized to int8 / fp8 by ``kv_cache_dtype``), speculative decoding
 :func:`lora_set_row`, :func:`init_lora_weights`, :func:`merge_lora`) rides
 every serving forward as ``lora=(pool, ids, scale)``: each row's adapter
 delta at the four dense seams, the pool gathered by ``ids`` once a call.
-The port has no
-mesh and runs tp=1. Every function has the JAX package's tp=1 semantics
-with two differences of idiom:
+
+Tensor and sequence parallelism: the training functions (:func:`loss`,
+:func:`logits`, :func:`hidden_states_and_aux`) take ``mesh=``, a
+:class:`~apex_tpu_torch.mesh.Mesh` whose ``cfg.axis`` (tp) spans more
+than one rank, and then run on this rank's shards as JAX's do inside
+``shard_map``: the vocab-parallel embedding and head, the column- and
+row-parallel QKV/proj and fc1/fc2 pairs through the mappings of
+:mod:`apex_tpu_torch.transformer.tensor_parallel`, with the activations
+sharded on the sequence between blocks under ``cfg.sequence_parallel``.
+:func:`param_specs` says how each parameter shards, :func:`shard_params`
+cuts the global tree into a rank's shards and :func:`gather_params`
+puts them back together. Without a mesh (or over a tp axis of one rank)
+every function is the JAX package's at tp=1, with two differences of
+idiom:
 
 - the KV cache is updated IN PLACE wherever the JAX function returns a
   new (donated) cache; the functions still return it, so call sites read
@@ -112,9 +123,17 @@ from apex_tpu_torch.kernels.flash_attention import (
 )
 from apex_tpu_torch.kernels.layer_norm import layer_norm
 from apex_tpu_torch.kernels.xentropy import softmax_cross_entropy
+from apex_tpu_torch.mesh.sharding import gather_tree, shard_tree
+from apex_tpu_torch.mesh.topology import Mesh, PartitionSpec as P
 from apex_tpu_torch.serving import sampling as _sampling
 from apex_tpu_torch.transformer.tensor_parallel import (
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
+    reduce_from_tensor_model_parallel_region,
+    reduce_scatter_to_sequence_parallel_region,
+    scatter_to_sequence_parallel_region,
     vocab_parallel_cross_entropy,
+    vocab_parallel_embedding,
 )
 
 #: sentinel in per-slot ``eos`` vectors: no stop token for this row
@@ -128,8 +147,10 @@ class GPTConfig:
     ``remat``, ``remat_policy`` and ``ce_chunk`` shape the training loss
     as in JAX; ``scan_unroll`` has no counterpart (the layer loop is a
     Python loop). Options that belong to later slices of the port raise
-    at construction: context parallelism and FSDP (the distributed
-    slice), experts (the MoE slice) and chunked XLA attention.
+    at construction: context parallelism and experts (the distributed
+    slice of CP and MoE), FSDP (that of ZeRO and FSDP) and chunked XLA
+    attention. ``sequence_parallel`` acts where a mesh's tp axis
+    spans more than one rank (see :func:`loss`).
     ``attn_layout`` is ``"auto"`` (the lane-packed flash kernels where
     they take the shape, else the head-major ones) or ``"bhsd"`` (always
     the head-major ones); see :func:`_attention_ctx`.
@@ -177,12 +198,14 @@ class GPTConfig:
     def __post_init__(self):
         later = []
         if self.context_parallel:
-            later.append("context_parallel (the port has no mesh: the "
-                         "distributed slice)")
+            later.append("context_parallel (the distributed slice of CP "
+                         "and MoE, ROADMAP queue 1 item 4)")
         if self.fsdp:
-            later.append("fsdp (the distributed slice)")
+            later.append("fsdp (the distributed slice of ZeRO and FSDP, "
+                         "ROADMAP queue 1 item 4)")
         if self.num_experts > 0:
-            later.append("num_experts > 0 (the MoE slice)")
+            later.append("num_experts > 0 (the distributed slice of CP "
+                         "and MoE, ROADMAP queue 1 item 4)")
         if self.attn_impl == "xla_chunked":
             later.append("attn_impl='xla_chunked' (the long-context "
                          "slice)")
@@ -321,6 +344,71 @@ def params_to_numpy(params) -> Dict[str, Any]:
     return _tree_map(conv, params)
 
 
+def param_specs(cfg: GPTConfig) -> Dict[str, Any]:
+    """The :class:`~apex_tpu_torch.mesh.PartitionSpec` of every
+    parameter, mirroring :func:`init`'s tree (layer dim leading): JAX's
+    ``gpt.param_specs`` without pipeline or FSDP. The fused QKV slab and
+    fc1 shard their output columns over tp, ``proj`` and fc2 their input
+    rows, the word table its vocab rows; the rest is replicated."""
+    t = cfg.axis
+    return {
+        "embedding": {"word": {"table": P(t, None)},
+                      "position": P(None, None)},
+        "layers": {
+            "ln1": {"scale": P(None), "bias": P(None)},
+            "attn": {
+                "qkv": {"kernel": P(None, None, None, t),
+                        "bias": P(None, None, t)},
+                "proj": {"kernel": P(None, t, None), "bias": P(None)},
+            },
+            "ln2": {"scale": P(None), "bias": P(None)},
+            "mlp": {
+                "fc1": {"kernel": P(None, None, t), "bias": P(None, t)},
+                "fc2": {"kernel": P(None, t, None), "bias": P(None)},
+            },
+        },
+        "final_ln": {"scale": P(None), "bias": P(None)},
+    }
+
+
+def seq_partial_grad_mask(cfg: GPTConfig) -> Dict[str, Any]:
+    """True for the replicated parameters whose gradients are partial
+    over tp under sequence parallelism (they act on sequence-sharded
+    activations: the LayerNorms, the proj and fc2 biases, the final
+    LayerNorm) and need a tp all-reduce — apex's
+    ``sequence_parallel_enabled`` attribute."""
+    ln = {"scale": True, "bias": True}
+    return {
+        "embedding": {"word": {"table": False}, "position": False},
+        "layers": {
+            "ln1": dict(ln),
+            "attn": {"qkv": {"kernel": False, "bias": False},
+                     "proj": {"kernel": False, "bias": True}},
+            "ln2": dict(ln),
+            "mlp": {"fc1": {"kernel": False, "bias": False},
+                    "fc2": {"kernel": False, "bias": True}},
+        },
+        "final_ln": dict(ln),
+    }
+
+
+def shard_params(cfg: GPTConfig, params, mesh: Mesh, *,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> Dict[str, Any]:
+    """This rank's shards of the global parameter tree by
+    :func:`param_specs`: ``params`` as numpy arrays (JAX's global tree
+    through ``np.asarray``) or tensors (:func:`init`'s), each shard a
+    tensor of its own on ``device`` (default ``mesh.device``)."""
+    return shard_tree(params, param_specs(cfg), mesh, device)
+
+
+def gather_params(cfg: GPTConfig, params, mesh: Mesh) -> Dict[str, Any]:
+    """The inverse of :func:`shard_params`: every rank's shards gathered
+    into JAX's global tree as numpy arrays (bfloat16 as float32), on
+    every rank. A collective: every rank of the mesh calls it."""
+    return gather_tree(params, param_specs(cfg), mesh)
+
+
 def _params_device(params) -> torch.device:
     return params["embedding"]["word"]["table"].device
 
@@ -396,12 +484,52 @@ def _remat_name(name: str):
         _REMAT_NAME.value = prev
 
 
-def _qkv_project(cfg: GPTConfig, p, x, lora=None):
-    """The three slab matmuls of the ``[h, 3, h]`` fused QKV weight →
-    ``(q, k, v)``, each ``[..., h]`` in the flash kernel's layout.
-    ``lora`` (serving only) is the layer's gathered adapter bundle
-    (:func:`_lora_layers`): each slab gains its per-row delta, the rank-r
-    intermediate shared by the three."""
+def _tp_mesh(cfg: GPTConfig, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` when its tp axis spans more than one rank, else None: the
+    functions below take the tensor-parallel path only then (over one
+    rank every mapping is the identity, so the tp=1 code runs as is)."""
+    if mesh is not None and mesh.size(cfg.axis) > 1:
+        return mesh
+    return None
+
+
+def _enter_tp(cfg: GPTConfig, x, mesh: Optional[Mesh]):
+    """The entry mapping of a column-parallel matmul's input: the
+    sequence-parallel all-gather (reduce-scatter backward) or the copy
+    (all-reduce backward); the identity without a tp mesh."""
+    if mesh is None:
+        return x
+    if cfg.sequence_parallel:
+        return gather_from_sequence_parallel_region(x, cfg.axis, True, 1,
+                                                    mesh=mesh)
+    return copy_to_tensor_model_parallel_region(x, cfg.axis, mesh=mesh)
+
+
+def _leave_tp(cfg: GPTConfig, y, mesh: Optional[Mesh]):
+    """The exit of a row-parallel matmul: its partial products summed,
+    onto this rank's sequence block under sequence parallelism."""
+    if mesh is None:
+        return y
+    if cfg.sequence_parallel:
+        return reduce_scatter_to_sequence_parallel_region(y, cfg.axis, 1,
+                                                          mesh=mesh)
+    return reduce_from_tensor_model_parallel_region(y, cfg.axis, mesh=mesh)
+
+
+def _qkv_project(cfg: GPTConfig, p, x, lora=None, *,
+                 mesh: Optional[Mesh] = None):
+    """The three slab matmuls of the ``[h, 3, h_local]`` fused QKV weight
+    → ``(q, k, v)``, each ``[..., h_local]`` in the flash kernel's
+    layout, after ONE tp entry mapping shared by the three (its backward
+    sums the three input gradients in one all-reduce / reduce-scatter).
+    ``lora`` (serving only, no mesh) is the layer's gathered adapter
+    bundle (:func:`_lora_layers`): each slab gains its per-row delta, the
+    rank-r intermediate shared by the three."""
+    if lora is not None and mesh is not None:
+        raise ValueError("lora does not compose with tensor parallelism "
+                         "yet (the distributed slice of serving and LoRA "
+                         "at tp > 1, ROADMAP queue 1 item 4)")
+    x = _enter_tp(cfg, x, mesh)
     ws, bs = p["kernel"].unbind(1), p["bias"].unbind(0)
     with _remat_name("attn_qkv"):
         ys = [torch.matmul(x, w) for w in ws]
@@ -412,10 +540,12 @@ def _qkv_project(cfg: GPTConfig, p, x, lora=None):
     return tuple(o + d for o, d in zip(outs, deltas))
 
 
-def _proj(p, out, lora=None):
-    """The attention output projection of ``out [..., h]`` (the heads
-    merged), with the layer's adapter delta under ``lora``."""
-    y = torch.matmul(out, p["kernel"]) + p["bias"]
+def _proj(p, out, lora=None, *, cfg: Optional[GPTConfig] = None,
+          mesh: Optional[Mesh] = None):
+    """The attention output projection of ``out [..., h_local]`` (the
+    heads merged), row-parallel under a tp ``mesh`` (the bias added after
+    the reduction), with the layer's adapter delta under ``lora``."""
+    y = _leave_tp(cfg, torch.matmul(out, p["kernel"]), mesh) + p["bias"]
     if lora is not None:
         y = y + _lora_site(out, lora, "proj")
     return y
@@ -488,42 +618,58 @@ def _xla_attn_probs(cfg: GPTConfig, q, k, mask):
     return torch.softmax(scores, dim=-1).to(q.dtype)
 
 
-def _mlp(cfg: GPTConfig, p, h, lora=None):
-    """fc1, tanh GELU, fc2; under ``lora`` fc1's delta lands before the
-    GELU (the merged weight's semantics) and fc2's on its input."""
+def _mlp(cfg: GPTConfig, p, h, lora=None, *, mesh: Optional[Mesh] = None):
+    """fc1 (column-parallel under a tp ``mesh``), tanh GELU, fc2
+    (row-parallel); under ``lora`` fc1's delta lands before the GELU (the
+    merged weight's semantics) and fc2's on its input."""
+    x = _enter_tp(cfg, h, mesh)
     with _remat_name("mlp_fc1"):
-        y = torch.matmul(h, p["fc1"]["kernel"])
+        y = torch.matmul(x, p["fc1"]["kernel"])
     if lora is None:
         y = F.gelu(y + p["fc1"]["bias"], approximate="tanh")
-        return torch.matmul(y, p["fc2"]["kernel"]) + p["fc2"]["bias"]
+        return (_leave_tp(cfg, torch.matmul(y, p["fc2"]["kernel"]), mesh)
+                + p["fc2"]["bias"])
     y = F.gelu(y + p["fc1"]["bias"] + _lora_site(h, lora, "fc1"),
                approximate="tanh")
     return (torch.matmul(y, p["fc2"]["kernel"]) + p["fc2"]["bias"]
             + _lora_site(y, lora, "fc2"))
 
 
-def _block(cfg: GPTConfig, p, h, *, return_kv: bool = False, lora=None):
-    """One transformer layer over ``h [b, s, hidden]``; with
-    ``return_kv`` also the attention's ``(k, v)`` as ``[b, heads, s,
+def _block(cfg: GPTConfig, p, h, *, return_kv: bool = False, lora=None,
+           mesh: Optional[Mesh] = None):
+    """One transformer layer over ``h [b, s(_local under SP), hidden]``;
+    with ``return_kv`` also the attention's ``(k, v)`` as ``[b, heads, s,
     d]`` — the cache entries bulk prefill captures. ``lora`` is the
-    layer's gathered adapter bundle (serving prefill only)."""
+    layer's gathered adapter bundle (serving prefill only). Under a tp
+    ``mesh`` the attention runs this rank's heads (the count read off
+    the local QKV slab) and the MLP its block of the ffn."""
     x = _layer_norm(cfg, h, p["ln1"]["scale"], p["ln1"]["bias"])
-    q, k, v = _qkv_project(cfg, p["attn"]["qkv"], x, lora)
+    q, k, v = _qkv_project(cfg, p["attn"]["qkv"], x, lora, mesh=mesh)
     heads = q.shape[-1] // cfg.head_dim
     ctx = _attention_ctx(cfg, q, k, v, heads)
-    h = h + _proj(p["attn"]["proj"], ctx, lora)
+    h = h + _proj(p["attn"]["proj"], ctx, lora, cfg=cfg, mesh=mesh)
     x = _layer_norm(cfg, h, p["ln2"]["scale"], p["ln2"]["bias"])
-    h = h + _mlp(cfg, p["mlp"], x, lora)
+    h = h + _mlp(cfg, p["mlp"], x, lora, mesh=mesh)
     if return_kv:
         return h, (_split_heads(k, heads), _split_heads(v, heads))
     return h
 
 
-def _embed(cfg: GPTConfig, params, tokens):
-    """tokens ``[b, s]`` → entry activation ``[b, s, hidden]``."""
+def _embed(cfg: GPTConfig, params, tokens, *, mesh: Optional[Mesh] = None):
+    """tokens ``[b, s]`` → entry activation ``[b, s, hidden]``; under a
+    tp ``mesh`` the lookup is vocab-parallel (this rank's block of the
+    table, the partial lookups summed), and under sequence parallelism
+    the result is this rank's block of the sequence."""
     table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
     pos = params["embedding"]["position"][: tokens.shape[1]]
-    return F.embedding(tokens.long(), table) + pos[None].to(cfg.compute_dtype)
+    if mesh is None:
+        return (F.embedding(tokens.long(), table)
+                + pos[None].to(cfg.compute_dtype))
+    h = (vocab_parallel_embedding(tokens, table, axis=cfg.axis, mesh=mesh)
+         + pos[None].to(cfg.compute_dtype))
+    if cfg.sequence_parallel:
+        h = scatter_to_sequence_parallel_region(h, cfg.axis, 1, mesh=mesh)
+    return h
 
 
 #: what each remat policy saves (``_remat_policy``'s names in JAX);
@@ -574,12 +720,15 @@ def _remat_policy(cfg: GPTConfig):
     return lambda: create_selective_checkpoint_contexts(policy)
 
 
-def _scan_blocks(cfg: GPTConfig, h, layers):
+def _scan_blocks(cfg: GPTConfig, h, layers, *, mesh: Optional[Mesh] = None):
     """``h`` through the per-layer params ``layers`` → ``(h, aux_sum)``
     (aux is the MoE term, 0 for the dense model). With ``cfg.remat`` and
     gradients to take, each layer runs under ``checkpoint`` with the
-    policy of :func:`_remat_policy`."""
-    body = lambda layer_p, x: _block(cfg, _cast_layer(cfg, layer_p), x)
+    policy of :func:`_remat_policy`; under a tp ``mesh`` its replay in
+    the backward runs the layer's collectives again, in the forward's
+    order on every rank."""
+    body = lambda layer_p, x: _block(cfg, _cast_layer(cfg, layer_p), x,
+                                     mesh=mesh)
     needs_grad = torch.is_grad_enabled() and (h.requires_grad or any(
         t.requires_grad for t in _tree.leaves(layers)))
     if cfg.remat and needs_grad:
@@ -594,29 +743,41 @@ def _scan_blocks(cfg: GPTConfig, h, layers):
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def hidden_states_and_aux(cfg: GPTConfig, params, tokens):
-    """tokens ``[b, s]`` → (final-LN hidden ``[b, s, hidden]`` in compute
-    dtype, summed MoE aux loss — 0 for the dense model)."""
-    h, aux = _scan_blocks(cfg, _embed(cfg, params, tokens), _layers(params))
+def hidden_states_and_aux(cfg: GPTConfig, params, tokens, *,
+                          mesh: Optional[Mesh] = None):
+    """tokens ``[b, s]`` (global ids; the dp-local batch) → (final-LN
+    hidden ``[b, s(_local under SP), hidden]`` in compute dtype, summed
+    MoE aux loss — 0 for the dense model). ``mesh``: see :func:`loss`."""
+    mesh = _tp_mesh(cfg, mesh)
+    h, aux = _scan_blocks(cfg, _embed(cfg, params, tokens, mesh=mesh),
+                          _layers(params), mesh=mesh)
+    # the final LN runs inside the SP region: its gradients are
+    # tp-partial (seq_partial_grad_mask)
     return _layer_norm(cfg, h, params["final_ln"]["scale"],
                        params["final_ln"]["bias"]), aux
 
 
-def hidden_states(cfg: GPTConfig, params, tokens):
-    """tokens ``[b, s]`` → final-LN hidden ``[b, s, hidden]`` in compute
-    dtype (sequence parallelism is a no-op at tp=1)."""
-    return hidden_states_and_aux(cfg, params, tokens)[0]
+def hidden_states(cfg: GPTConfig, params, tokens, *,
+                  mesh: Optional[Mesh] = None):
+    """tokens ``[b, s]`` → final-LN hidden ``[b, s(_local under SP),
+    hidden]`` in compute dtype."""
+    return hidden_states_and_aux(cfg, params, tokens, mesh=mesh)[0]
 
 
-def logits(cfg: GPTConfig, params, tokens):
-    """Logits ``[b, s, vocab]`` in compute dtype, the output head tied to
-    the word embedding."""
-    h = hidden_states(cfg, params, tokens)
+def logits(cfg: GPTConfig, params, tokens, *, mesh: Optional[Mesh] = None):
+    """Logits ``[b, s, vocab(/tp under a mesh)]`` in compute dtype, the
+    output head tied to the word embedding (vocab-sharded under a tp
+    mesh, as JAX's)."""
+    mesh = _tp_mesh(cfg, mesh)
+    # the tied head's entry mapping: without it each rank's gradient into
+    # the replicated backbone would carry only its vocab block's share
+    h = _enter_tp(cfg, hidden_states(cfg, params, tokens, mesh=mesh), mesh)
     table = params["embedding"]["word"]["table"].to(cfg.compute_dtype)
     return torch.matmul(h, table.t())
 
 
-def _ce_of_hidden(cfg: GPTConfig, params, h, targets_bs):
+def _ce_of_hidden(cfg: GPTConfig, params, h, targets_bs, *,
+                  mesh: Optional[Mesh] = None):
     """Mean CE from final hidden states ``h [b, s, hidden]`` against
     ``targets_bs [b, s]``, in fp32 logits against the tied table:
     ``ce_impl="xla"`` through the vocab-parallel cross entropy,
@@ -650,7 +811,8 @@ def _ce_of_hidden(cfg: GPTConfig, params, h, targets_bs):
     elif cfg.ce_impl == "xla":
         def ce_sum(hb, tb, tab):
             lg = torch.matmul(hb, tab.t()).float()
-            return vocab_parallel_cross_entropy(lg, tb, 0.0).sum()
+            return vocab_parallel_cross_entropy(lg, tb, 0.0, cfg.axis,
+                                                mesh=mesh).sum()
     else:
         raise ValueError(f"unknown ce_impl {cfg.ce_impl!r}")
 
@@ -667,15 +829,22 @@ def _ce_of_hidden(cfg: GPTConfig, params, h, targets_bs):
     return tot / (s * b)
 
 
-def loss(cfg: GPTConfig, params, tokens, targets):
-    """Mean next-token cross entropy over the batch, fp32 logits in
-    vocab-parallel CE (tp=1). ``targets [b, s]``."""
-    if cfg.sequence_parallel:
-        raise ValueError(
-            "sequence_parallel is not supported by apex_tpu_torch yet "
-            "(the distributed slice)")
-    h, _ = hidden_states_and_aux(cfg, params, tokens)
-    return _ce_of_hidden(cfg, params, h, targets)
+def loss(cfg: GPTConfig, params, tokens, targets, *,
+         mesh: Optional[Mesh] = None):
+    """Mean next-token cross entropy over the (dp-local) batch, fp32
+    logits in the vocab-parallel CE. ``targets [b, s]``.
+
+    ``mesh``: a :class:`~apex_tpu_torch.mesh.Mesh` whose ``cfg.axis``
+    spans several ranks runs this rank's shards of ``params``
+    (:func:`shard_params`) as JAX's ``gpt.loss`` does inside
+    ``shard_map``, and every rank of the axis returns the same loss;
+    ``cfg.sequence_parallel`` then keeps the activations sharded on the
+    sequence between the tp regions. Without one (or over one rank) it
+    is the tp=1 loss, sequence parallelism a no-op."""
+    mesh = _tp_mesh(cfg, mesh)
+    h, _ = hidden_states_and_aux(cfg, params, tokens, mesh=mesh)
+    return _ce_of_hidden(cfg, params, _enter_tp(cfg, h, mesh), targets,
+                         mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@ explicitly wherever the two sides differ. The max pool pads (1, 1) with
 -inf, which is ``F.max_pool2d``'s own padding.
 
 Only local BatchNorm (``bn_axis=None``, apex DDP without
-``convert_syncbn_model``): a ``bn_axis`` raises (the distributed slice).
+``convert_syncbn_model``): a ``bn_axis`` raises (the distributed slice
+of SyncBN with ResNet DDP).
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ class ResNetConfig:
         if self.bn_axis is not None:
             raise ValueError(
                 f"bn_axis={self.bn_axis!r} (SyncBatchNorm) is not supported "
-                "by apex_tpu_torch yet (the distributed slice)")
+                "by apex_tpu_torch yet (the distributed slice of SyncBN "
+                "with ResNet DDP, ROADMAP queue 1 item 4)")
 
     @property
     def stages(self):

@@ -1,7 +1,7 @@
 """Fused optimizers of the port (``apex_tpu.optimizers``): FusedAdam,
 FusedLAMB, FusedSGD, FusedAdagrad and FusedNovoGrad, each in both
 layouts, and the LARC gradient transform. The ZeRO optimizers come with
-the distributed slice."""
+the distributed slice of ZeRO and FSDP."""
 
 from apex_tpu_torch.optimizers._base import FusedOptimizer
 from apex_tpu_torch.optimizers.fused_adagrad import (

@@ -33,10 +33,10 @@ class FusedOptimizer(NamedTuple):
       (``FusedAdam.step()``): the sweep writes the new params directly;
     - ``per_leaf_norms`` — True for optimizers whose update depends on
       whole-leaf norms (LAMB's trust ratios): such an update is wrong on a
-      shard of a leaf, which the distributed slice's FSDP will refuse.
+      shard of a leaf, which FSDP (a later distributed slice) will refuse.
 
-    The JAX type's ``state_pspecs`` (mesh sharding) comes with the
-    distributed slice."""
+    The JAX type's ``state_pspecs`` (mesh sharding) has no field here:
+    ``models.training`` shards tree-layout state like its params."""
 
     init: Callable
     update: Callable

@@ -48,12 +48,14 @@ def sync_batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
     Training uses the batch's moments and returns the updated running
     statistics (no gradient flows into them); eval uses the running
     statistics and returns them unchanged. ``axis`` must be None: a
-    cross-replica reduction is the distributed slice's."""
+    cross-replica reduction waits for the distributed slice of SyncBN
+    with ResNet DDP (ROADMAP queue 1 item 4)."""
     if axis is not None:
         raise ValueError(
             f"sync_batch_norm axis={axis!r}: cross-replica statistics are "
-            "not supported by apex_tpu_torch yet (the distributed slice); "
-            "axis=None is local BatchNorm")
+            "not supported by apex_tpu_torch yet (the distributed slice of "
+            "SyncBN with ResNet DDP, ROADMAP queue 1 item 4); axis=None is "
+            "local BatchNorm")
     ch = channel_axis % x.ndim
     reduce_dims = tuple(d for d in range(x.ndim) if d != ch)
     bshape = [x.shape[ch] if d == ch else 1 for d in range(x.ndim)]

@@ -196,6 +196,14 @@ horizon 192, 8 slots, ``decode_chunk=1``):
     unconstrained launches equal to phase 6's. Row 5 on every layer of
     every admission and the fused decode step on every layer of every
     decode step, counted over (a)-(d).
+Phases 38 and 40 serve the feature model (``feature_model``):
+FEATURE_DEPTH (12) layers of the serving model's widths from seed 0,
+with phase 4's band and phase 6's profile of phase 5's engine taken
+anew at that depth, the launch baseline phases 38-40 hold their decode
+steps to; phase 39 serves the serving model's first FEATURE_DEPTH
+layers (a depth cut, its band taken anew). The host's launches a step
+scale with depth: room for phase 43.
+
 38. beam search and multi-LoRA — (a) ``gpt.beam_search`` over two
     32-token prompts, 32 new tokens: one beam equals the greedy
     ``generate``; at 4 beams (a decode batch of 8) the beams are sorted,
@@ -465,6 +473,21 @@ I/O:
     ``op_profile`` against CUDA events, and an ImageLoader batch; parts
     (a)-(g) in the function's docstring, their launches beside rows 5,
     6, 7 + 10, 22, 25 and 26 as ``train_io_launches``.
+43. tensor, sequence and data parallelism — ``phase_mesh``, GPT-2 355M
+    over ``torch.distributed``: (a) one NCCL rank runs the mesh step on
+    an all-ones mesh, bit for bit the step without a mesh (both on the
+    split flash backward, which has no atomics), and every collective
+    over the world-1 group; (b) four gloo ranks on the one
+    card (the one-card rig, not NCCL's throughput) run tp=2 x dp=2 with
+    sequence parallelism, ``ln_impl="pallas"``, flat Adam and clip 1.0
+    for 3 steps, held against the one-process tp=1 step from the same
+    weights and batch: each step's loss, the first step's grad norm,
+    every gathered parameter (within Adam's largest move), and the loss
+    and grad norm of one more step at the gathered parameters, taken by
+    both sides at the same weights; each rank's launches of rows 5, 6,
+    22, 25 and 26 counted (``mesh_launches``); (c) ``torchrun --nproc-per-node 2 -m
+    apex_tpu_torch.examples.gpt_train --preset 355m --tp 2
+    --dist-backend gloo --steps 2`` against the one-device example.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the card's time
 per call, from CUDA graphs of back-to-back calls replayed between CUDA
@@ -532,6 +555,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -6185,6 +6209,22 @@ KV_POOL_BYTES_LAYER = {"compute": 6_324_224, "quant": 3_359_744}
 QUANT_SERVE_DEPTH = 12
 
 
+#: the depth of phases 38-40: 12 of the 355M's 24 layers
+FEATURE_DEPTH = 12
+
+
+def feature_model(cfg):
+    """``(cfg, params)`` of phases 38 and 40: ``cfg`` at FEATURE_DEPTH
+    layers, fresh weights of seed 0 (not a depth cut: phase 40's bundle
+    replays the model from its config and seed)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt
+
+    fcfg = dataclasses.replace(cfg, num_layers=FEATURE_DEPTH)
+    return fcfg, gpt.init(fcfg, torch.Generator("cuda").manual_seed(0))
+
+
 def depth_cut(cfg, params, depth: int):
     """``(cfg, params)`` of the model's first ``depth`` layers: the same
     widths, the stacked layer leaves sliced (views, no copy)."""
@@ -10787,6 +10827,256 @@ def _image_batch(tdata):
                 bit_equal=bool(torch.equal(a.cpu(), c)))
 
 
+# ---------------------------------------------------------------------------
+# phase 43: tensor, sequence and data parallelism
+# ---------------------------------------------------------------------------
+
+MESH_TP, MESH_DP = 2, 2
+MESH_BATCH = 8
+MESH_STEPS = 3
+MESH_LR = 3e-4
+MESH_CLIP = 1.0
+#: each step's loss against the tp=1 step's, relative (bf16 compute: the
+#: ranks add the partial products of the row-parallel matmuls in another
+#: order)
+MESH_LOSS_REL = 1e-2
+#: the pre-clip grad norm against the tp=1 step's at the same weights,
+#: relative: at the first step and at the probe step on the gathered
+#: parameters. Past the first step the two runs' weights part: Adam's
+#: first steps move a weight by about the learning rate whatever its
+#: gradient, so where a gradient near zero takes its sign from the order
+#: of the sums the runs move it apart (1.3% of the 355M's weights by step
+#: 3), and the later norms are logged, not held
+MESH_NORM_REL = 1e-2
+#: the kernels the mesh step must launch on every rank: rows 5, 6, 22,
+#: 25 and 26
+MESH_ROWS = ("flash_attention_bsh", "flash_attention_bsh_bwd", "adam_flat",
+             "layer_norm_fwd", "layer_norm_bwd")
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_mesh")
+MESH_EXAMPLE = ["--preset", "355m", "--steps", "2"]
+
+
+def mesh_config(**over):
+    """The 355M of the mesh phase: the example's training configuration
+    (full remat, ``ce_chunk`` 512, bf16, flash) with the LayerNorm
+    kernel."""
+    kw = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+              num_heads=16, seq_len=1024, remat=True, ce_chunk=512,
+              compute_dtype=torch.bfloat16, attn_impl="flash",
+              ln_impl="pallas")
+    kw.update(over)
+    return kw
+
+
+def adam_move_bound(lr: float, steps: int, b1: float = 0.9,
+                    b2: float = 0.999) -> float:
+    """The most two runs of bias-corrected Adam can part one weight in
+    ``steps`` steps: twice the sum over steps of ``lr`` times the largest
+    ``|m_hat| / sqrt(v_hat)`` (Cauchy-Schwarz over the moments' weights,
+    1 at the first step and a little above it after)."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        total += math.sqrt(sum(a * a / c for a, c in zip(w, u)))
+    return 2 * lr * total
+
+
+def _example_losses(text: str):
+    return [float(line.split()[3]) for line in text.splitlines()
+            if line.startswith("step ") and " loss " in line]
+
+
+def _ranks(name: str, world: int, payload, part: str, timeout: float,
+           backend: str, env=None):
+    """``testing.run_ranks`` on the card, a rank's failure or the deadline
+    a failed check."""
+    from apex_tpu_torch import testing
+
+    try:
+        return testing.run_ranks(name, world, payload,
+                                 os.path.join(MESH_DIR, part),
+                                 timeout=timeout, backend=backend,
+                                 device="cuda", env=env)
+    except testing.RigError as e:
+        raise SmokeFailure(f"mesh ({part}): {e}") from e
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 43, parts (a)-(c) of the module docstring; every rank is a
+    child process of this one (``apex_tpu_torch.testing.run_ranks``, a
+    deadline on each part). Returns each rank's launches in (b)."""
+    import shutil
+
+    from apex_tpu_torch import _tree
+    from apex_tpu_torch.amp import ScalerConfig
+    from apex_tpu_torch.examples import gpt_train
+    from apex_tpu_torch.models import gpt, make_train_step
+    from apex_tpu_torch.optimizers import fused_adam
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, 50304, (MESH_BATCH, 1024))
+    batch = (tok, np.roll(tok, -1, 1))
+
+    # (c)'s torchrun starts first and runs beside (a): neither's time is
+    # a measurement, and (b) then runs alone
+    t_c = time.perf_counter()
+    runner = shutil.which("torchrun")
+    cmd = ([runner] if runner else [sys.executable, "-m",
+                                    "torch.distributed.run"]) + [
+        "--standalone", "--nproc-per-node", "2", "-m",
+        "apex_tpu_torch.examples.gpt_train"] + MESH_EXAMPLE + [
+        "--tp", "2", "--dist-backend", "gloo"]
+    # its own session, so that a kill reaches torchrun's workers too
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    # (a) one NCCL rank: the all-ones mesh against no mesh. The fused
+    # flash backward sums dQ with fp32 atomics, whose order moves between
+    # launches; the split sweeps have none, so two runs can be bit-equal
+    t = time.perf_counter()
+    try:
+        a = _ranks("card_world1", 1, {"cfg": mesh_config(), "batch": batch,
+                                      "lr": MESH_LR, "layout": "flat",
+                                      "steps": 2}, "a", 240, "nccl",
+                   env={"APEX_TPU_FLASH_BWD": "split"})[0]
+        wall_a = time.perf_counter() - t
+        try:
+            out_c, err_c = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure("mesh (c): torchrun passed 300 s") from e
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall_c = time.perf_counter() - t_c
+    ra = a["result"]
+    log(f"mesh (a) NCCL world 1: losses {ra['losses']}, params bit-equal "
+        f"{ra['params_bit_equal']}, collectives {ra['collectives']}, "
+        f"{wall_a:.1f}s wall (beside (c)) on {card}")
+    check(not a["jax_loaded"], "mesh (a): the rank imported JAX")
+    check(ra["losses"]["mesh"] == ra["losses"]["plain"],
+          f"mesh (a): losses {ra['losses']} differ")
+    check(ra["params_bit_equal"], "mesh (a): params after 2 steps differ "
+          "from the step without a mesh")
+    check(all(ra["collectives"].values()) and ra["group_is_world"],
+          f"mesh (a): NCCL collectives at world 1: {ra['collectives']}")
+
+    # (b) tp=2 x dp=2, four gloo ranks on the one card, against tp=1
+    t = time.perf_counter()
+    b = _ranks("card_mesh_train", MESH_TP * MESH_DP,
+               {"cfg": mesh_config(sequence_parallel=True), "batch": batch,
+                "tp": MESH_TP, "dp": MESH_DP, "lr": MESH_LR,
+                "layout": "flat", "clip": MESH_CLIP, "steps": MESH_STEPS},
+               "b", 420, "gloo")
+    wall_b = time.perf_counter() - t
+    check(not any(r["jax_loaded"] for r in b), "mesh (b): a rank imported "
+          "JAX")
+    rb = [r["result"] for r in b]
+    cfg1 = gpt.GPTConfig(**mesh_config())
+    init_fn, step_fn = make_train_step(
+        cfg1, fused_adam(MESH_LR, layout="flat"), ScalerConfig(enabled=False),
+        clip_grad_norm=MESH_CLIP)
+    state = init_fn(torch.Generator("cuda").manual_seed(0))
+    dev_batch = tuple(torch.as_tensor(x, device="cuda") for x in batch)
+    ref = []
+    for _ in range(MESH_STEPS):
+        state, m = step_fn(state, *dev_batch)
+        ref.append({k: float(v) for k, v in m.items()})
+    ref_params = [x.detach().float().cpu().numpy()
+                  for x in _tree.leaves(state.params)]
+    got = rb[0]
+    # the probe: one more tp=1 step at the mesh's gathered parameters
+    # (its update dropped), the mesh's own probe step beside it
+    leaves, spec = _tree.flatten(state.params)
+    probe_params = _tree.unflatten(spec, [
+        torch.as_tensor(np.asarray(x), device="cuda").to(p.dtype)
+        for x, p in zip(_tree.leaves(got["params"]), leaves)])
+    _, m = step_fn(state._replace(params=probe_params), *dev_batch)
+    ref_probe = {k: float(v) for k, v in m.items()}
+    del state, step_fn, init_fn, probe_params, m
+    torch.cuda.empty_cache()
+    step_s = statistics.median(got["secs"][1:])
+    held = [(f"step {i}", mg, mr, i == 0)
+            for i, (mg, mr) in enumerate(zip(got["metrics"], ref))]
+    held.append((f"probe at the step-{MESH_STEPS} weights", got["probe"],
+                 ref_probe, True))
+    for what, mg, mr, norm_held in held:
+        log(f"mesh (b) {what}: loss {mg['loss']:.6f} vs tp=1 "
+            f"{mr['loss']:.6f}, grad_norm {mg['grad_norm']:.6f} vs "
+            f"{mr['grad_norm']:.6f} (relative "
+            f"{abs(mg['grad_norm'] / mr['grad_norm'] - 1):.2e}"
+            f"{'' if norm_held else ', the weights parted: not held'})")
+        check(abs(mg["loss"] - mr["loss"]) <= MESH_LOSS_REL * abs(mr["loss"]),
+              f"mesh (b) {what}: loss {mg['loss']} vs {mr['loss']}")
+        check(not norm_held or abs(mg["grad_norm"] - mr["grad_norm"])
+              <= MESH_NORM_REL * mr["grad_norm"],
+              f"mesh (b) {what}: grad norm {mg['grad_norm']} vs "
+              f"{mr['grad_norm']}")
+    for r in rb[1:]:
+        check(r["metrics"] == got["metrics"] and r["probe"] == got["probe"],
+              "mesh (b): the ranks' metrics differ")
+    diffs = [np.abs(np.asarray(g, np.float32) - w) for g, w in zip(
+        _tree.leaves(got["params"]), ref_params)]
+    band = max(float(d.max()) for d in diffs)
+    over = sum(int((d > 1e-4).sum()) for d in diffs) / sum(
+        d.size for d in diffs)
+    bound = adam_move_bound(MESH_LR, MESH_STEPS)
+    log(f"mesh (b) params after {MESH_STEPS} steps: max|diff| vs tp=1 "
+        f"{band:.3e} (bound {bound:.4e}, Adam's largest parting), share "
+        f"above 1e-4 {over:.3e}")
+    check(band <= bound,
+          f"mesh (b): a parameter moved {band} from the tp=1 step's")
+    for r, res in enumerate(rb):
+        log(f"mesh (b) rank {r} {res['coords']}: launches "
+            f"{ {k: res['counts'][k] for k in MESH_ROWS} }, tc "
+            f"{ {k: res['counts'][k + '_tc'] for k in MESH_ROWS[:2]} }, "
+            f"peak {res['peak_bytes'] / 2 ** 30:.2f} GiB")
+        for k in MESH_ROWS:
+            check(res["counts"][k] > 0, f"mesh (b) rank {r}: {k} was never "
+                  "launched")
+        L = cfg1.num_layers
+        check(res["counts"]["flash_attention_bsh_bwd"] == L * MESH_STEPS,
+              f"mesh (b) rank {r}: flash backward "
+              f"{res['counts']['flash_attention_bsh_bwd']} launches")
+        check(res["counts"]["adam_flat"] == MESH_STEPS,
+              f"mesh (b) rank {r}: adam_flat {res['counts']['adam_flat']}")
+        check_tc(f"mesh (b) rank {r}", res["counts"], "flash_attention_bsh")
+        check_tc(f"mesh (b) rank {r} backward", res["counts"],
+                 "flash_attention_bsh_bwd")
+    log(f"mesh (b) the one-card gloo rig, tp={MESH_TP} x dp={MESH_DP}, "
+        f"global batch {MESH_BATCH}: {wall_b:.1f}s wall, step "
+        f"{step_s * 1e3:.1f} ms (median of steps 1-{MESH_STEPS - 1}; gloo "
+        f"stages every collective through the host) on {card}")
+
+    # (c) the example under torchrun against the example on one device
+    for line in out_c.splitlines():
+        log(f"  | {line[:300]}")
+    if proc.returncode:
+        log(err_c[-4000:])
+    check(proc.returncode == 0, f"mesh (c): {' '.join(cmd)} exited "
+          f"{proc.returncode}")
+    tp_losses = _example_losses(out_c)
+    one, text = _captured(gpt_train.main, MESH_EXAMPLE)
+    one_losses = [float(x) for x in one["losses"]]
+    del one
+    torch.cuda.empty_cache()
+    log(f"mesh (c) torchrun tp=2 losses {tp_losses} vs one device "
+        f"{one_losses}; {wall_c:.1f}s wall ({os.path.basename(cmd[0])}, "
+        f"beside (a)) on {card}")
+    check(len(tp_losses) == len(one_losses) == 2,
+          f"mesh (c): losses {tp_losses} / {one_losses}")
+    check(all(abs(x - y) <= MESH_LOSS_REL * abs(y)
+              for x, y in zip(tp_losses, one_losses)),
+          f"mesh (c): torchrun losses {tp_losses} vs {one_losses}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return {f"rank{r}": {k: res["counts"][k] for k in MESH_ROWS}
+            for r, res in enumerate(rb)}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     try:
@@ -10794,6 +11084,7 @@ def main() -> int:
         phase_build()
         rows = phase_kernels()
         from apex_tpu_torch.models import gpt
+        from apex_tpu_torch.serving import Engine, EngineConfig
 
         cfg = model_config()
         params = gpt.init(cfg, torch.Generator("cuda").manual_seed(0))
@@ -10830,19 +11121,36 @@ def main() -> int:
         t = time.perf_counter()
         api_launches, _ = phase_api(cfg, params, band, card, prof5)
         log(f"front-end phase {time.perf_counter() - t:.1f}s")
+        # phases 38 and 40 serve the feature model: FEATURE_DEPTH layers
+        # of the same widths from seed 0, phase 4's band and phase 6's
+        # profile of phase 5's engine taken anew at that depth (the launch
+        # baseline of phases 38-40)
+        t = time.perf_counter()
+        fcfg, fparams = feature_model(cfg)
+        fband = 3 * phase_model(fcfg, fparams)
+        fprof = phase_profile(fcfg, Engine(fcfg, fparams, EngineConfig(
+            slots=SLOTS, max_prompt_len=64, max_seq_len=HORIZON)),
+            what=f"profile ({FEATURE_DEPTH} layers)")
+        log(f"feature model phase ({FEATURE_DEPTH} layers) "
+            f"{time.perf_counter() - t:.1f}s")
         # beam search and multi-LoRA serving
         t = time.perf_counter()
         beam_launches, lora_launches, lora_spec_launches, _ = \
-            phase_beam_lora(cfg, params, band, card, prof5)
+            phase_beam_lora(fcfg, fparams, fband, card, fprof)
         log(f"beam/LoRA phase {time.perf_counter() - t:.1f}s")
-        # the host-swap tier: park/resume, preemption, adapter paging
+        # the host-swap tier: park/resume, preemption, adapter paging, on
+        # the serving model's first FEATURE_DEPTH layers
         t = time.perf_counter()
-        hs_launches, _ = phase_hostswap(cfg, params, band, card, prof5)
+        hcfg, hparams = depth_cut(cfg, params, FEATURE_DEPTH)
+        hband = 3 * phase_model(hcfg, hparams)
+        hs_launches, _ = phase_hostswap(hcfg, hparams, hband, card, fprof)
+        del hparams
         log(f"host-swap phase {time.perf_counter() - t:.1f}s")
         # serving telemetry and the self-tuning scheduler
         t = time.perf_counter()
-        tl_launches, _ = phase_telemetry(cfg, params, band, card, prof5)
+        tl_launches, _ = phase_telemetry(fcfg, fparams, fband, card, fprof)
         log(f"telemetry phase {time.perf_counter() - t:.1f}s")
+        del fparams
         # serving resilience: faults, recovery, the journal, the fleet
         t = time.perf_counter()
         rs_launches, _ = phase_resilience(cfg, params, card, prof5)
@@ -11027,6 +11335,12 @@ def main() -> int:
         t = time.perf_counter()
         io_launches, _ = phase_train_io(card, prof5)
         log(f"train io phase {time.perf_counter() - t:.1f}s")
+        # tensor, sequence and data parallelism over torch.distributed
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        mesh_launches = phase_mesh(card)
+        log(f"mesh phase {time.perf_counter() - t:.1f}s")
     except SmokeFailure as e:
         log(f"FAILED: {e}")
         return 1
@@ -11217,6 +11531,11 @@ def main() -> int:
             ("decode_attention_write", "decode_attention_write", "c")):
         rows[name]["train_io_launches"] = {
             p: io_launches[p][count] for p in parts}
+    # phase 43 (b): each rank's launches of rows 5, 6, 22, 25 and 26 in
+    # the tp=2 x dp=2 step
+    for name in MESH_ROWS:
+        rows[name]["mesh_launches"] = {
+            r: c[name] for r, c in mesh_launches.items()}
     log(f"card: {card}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(f"total {time.perf_counter() - t0:.1f}s")

@@ -9,18 +9,23 @@ and touches CUDA, and where it refuses to run.
   ``serving/fleet.py``; and the training I/O and the rest of the L3
   surface: ``_native/``, ``checkpoint.py``, ``data.py``,
   ``fp16_utils.py``, ``fused_dense.py``, ``mlp.py``,
-  ``transformer/layers/`` and ``transformer/log_util.py``) imports in a
+  ``transformer/layers/`` and ``transformer/log_util.py``; and the
+  distributed slice: ``mesh/*``, ``transformer/parallel_state.py``,
+  ``transformer/tensor_parallel/*``, ``parallel/distributed.py``,
+  ``parallel/multiproc.py`` and ``testing.py``) imports in a
   subprocess whose ``sys.meta_path`` blocks ``jax``, ``jaxlib``,
   ``apex_tpu`` and ``ml_dtypes`` (the exact name and the ``apex_tpu.``
   prefix — not the string prefix, which would also block
   ``apex_tpu_torch``), and the import neither builds the kernels or the
-  host runtime nor initialises CUDA.
+  host runtime nor initialises CUDA or a process group.
 - ``chip_smoke.py``, ``chip_serve_ab.py``, ``chip_l2norm_ab.py``,
   ``chip_decode_quant_ab.py`` and ``chip_verify_ab.py`` import nothing of
   JAX, and without a CUDA device they exit non-zero and print no result
   line.
 - ``device=None`` means CUDA: without a CUDA device the engine and the
-  model's entry points raise instead of running on the CPU.
+  model's entry points raise instead of running on the CPU, and so does
+  ``initialize_distributed()`` with no backend named (it never falls back
+  to gloo on the CPU).
 """
 
 import ast
@@ -96,6 +101,20 @@ _BLOCKED_IMPORT = textwrap.dedent("""
         "apex_tpu_torch.transformer.layers",
         "apex_tpu_torch.transformer.layers.layer_norm",
         "apex_tpu_torch.transformer.log_util")))
+    print("DISTRIBUTED", all(n in names for n in (
+        "apex_tpu_torch.mesh", "apex_tpu_torch.mesh.topology",
+        "apex_tpu_torch.mesh.collectives", "apex_tpu_torch.mesh.sharding",
+        "apex_tpu_torch.transformer.parallel_state",
+        "apex_tpu_torch.transformer.tensor_parallel.mappings",
+        "apex_tpu_torch.transformer.tensor_parallel.layers",
+        "apex_tpu_torch.transformer.tensor_parallel.cross_entropy",
+        "apex_tpu_torch.transformer.tensor_parallel.random",
+        "apex_tpu_torch.transformer.tensor_parallel.data",
+        "apex_tpu_torch.transformer.tensor_parallel.utils",
+        "apex_tpu_torch.parallel.distributed",
+        "apex_tpu_torch.parallel.multiproc", "apex_tpu_torch.testing")))
+    import torch.distributed as dist
+    print("DIST_INIT", dist.is_available() and dist.is_initialized())
     print("NO_RECOMPILE", "apex_tpu_torch.telemetry.recompile" not in names)
     print("LEAKED", leaked)
     from apex_tpu_torch import _native
@@ -112,20 +131,25 @@ def test_every_module_imports_without_jax_or_apex_tpu():
         env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr[-4000:]
     out = dict(line.split(" ", 1) for line in res.stdout.splitlines())
-    # the package, its sixteen subpackages and their sixty-three modules
+    # the package, its seventeen subpackages and their seventy-five modules
     # (serving/tenancy.py, serving/hostswap.py, serving/api/*,
     # examples/serve_gpt.py and examples/generate.py among them; the
     # telemetry package's seven, serving/tuner.py, profiler.py and
     # _atomic.py; serving/resilience.py, serving/journal.py and
     # serving/fleet.py; the _native and transformer.layers packages,
     # checkpoint.py, fp16_utils.py, fused_dense.py, mlp.py,
-    # transformer/layers/layer_norm.py and transformer/log_util.py)
-    assert int(out["MODULES"]) == 80, out
+    # transformer/layers/layer_norm.py and transformer/log_util.py; the
+    # mesh package's three, transformer/parallel_state.py, the five new
+    # tensor_parallel modules, parallel/distributed.py,
+    # parallel/multiproc.py and testing.py)
+    assert int(out["MODULES"]) == 93, out
     assert out["FRONTEND"] == "True"
     assert out["TELEMETRY"] == "True"
     assert out["RESILIENCE"] == "True"
     assert out["TRAIN_IO"] == "True"
     assert out["NO_RECOMPILE"] == "True"
+    assert out["DISTRIBUTED"] == "True"
+    assert out["DIST_INIT"] == "False"
     assert out["LEAKED"] == "[]"
     assert out["BUILT"] == "False"
     assert out["CUDA_INIT"] == "False"
@@ -289,6 +313,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(
         else:
             Engine(cfg, params, EngineConfig(slots=1, max_prompt_len=8,
                                              max_seq_len=16))
+
+
+def test_initialize_distributed_needs_a_card_unless_told(no_cuda,
+                                                        monkeypatch):
+    """With no backend named the default is NCCL on ``cuda:LOCAL_RANK``:
+    without a card it raises, and nothing joins a group on the CPU. The
+    CPU takes ``backend="gloo", device="cpu"``, said outright."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import initialize_distributed
+
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_distributed()
+    with pytest.raises(ValueError, match="NCCL backend needs a CUDA"):
+        initialize_distributed(device="cpu")
+    assert not (dist.is_available() and dist.is_initialized())
 
 
 def test_explicit_cpu_runs(cpu_params):

@@ -342,17 +342,36 @@ def test_example_tiny_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--tp", "2"], "--tp 2"), (["--pp", "2"], "--pp 2"),
+    (["--pp", "2", "--tp", "2"], "--pp 2"), (["--pp", "2"], "--pp 2"),
     (["--cp", "2"], "--cp 2"), (["--experts", "8"], "--experts 8"),
-    (["--ep", "2"], "--ep 2"), (["--n-micro", "4"], "--n-micro 4"),
+    (["--ep", "2"], "--ep 2"), (["--vpp", "2", "--n-micro", "4"], "--vpp 2"),
     (["--vpp", "2"], "--vpp 2"), (["--fsdp"], "--fsdp"),
-    (["--tp", "2", "--data", "tokens.bin"], "--tp 2"),
+    (["--cp", "2", "--data", "tokens.bin"], "--cp 2"),
     (["--pp", "2", "--ckpt", "x.atck"], "--pp 2"),
     (["--fsdp", "--metrics", "m.jsonl"], "--fsdp")])
 def test_example_refuses_unported_flags(flags, needle):
     with pytest.raises(SystemExit, match="ROADMAP queue 1 item") as e:
         gpt_train.build(gpt_train.parse_args(flags + ["--device", "cpu"]))
     assert needle in str(e.value)
+
+
+@pytest.mark.parametrize("flags,needle", [
+    (["--tp", "2", "--data", "tokens.bin"], "--data at a world of 4"),
+    (["--ckpt", "x.atck"], "--ckpt at a world of 4")])
+def test_example_refuses_io_over_several_ranks(monkeypatch, flags, needle):
+    """``--tp`` and ``--n-micro`` are ported (the mesh step); a token file
+    or a checkpoint over several ranks waits for the loaders' mesh."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(SystemExit, match="loaders' mesh") as e:
+        gpt_train.build(gpt_train.parse_args(flags + ["--device", "cpu"]))
+    assert needle in str(e.value)
+
+
+def test_example_tp_needs_ranks_it_divides(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node"):
+        gpt_train.build(gpt_train.parse_args(["--tp", "2", "--device",
+                                              "cpu"]))
 
 
 def test_example_needs_a_card_unless_cpu_is_asked(monkeypatch):
